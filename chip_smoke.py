@@ -1,0 +1,515 @@
+#!/usr/bin/env python3
+"""Drive the repro_torch port on one NVIDIA GPU and check it end to end.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout (it puts ``src/`` on the path itself).  It
+imports nothing of jax or of the JAX package ``repro``.  Phases, each of
+which fails the run (non-zero exit, no final ``ok`` line) on any error:
+
+1. device — the card's name and power limit from ``nvidia-smi``;
+2. build — both CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
+   per source, in parallel), with the compiler's register/shared-memory
+   report;
+3. kernels — each kernel against its plain PyTorch version on the card at
+   ragged shapes, every mask option and the main path's shapes (fp32 with
+   TF32 off: rtol = atol = 1e-3; bf16: 2e-2, as ``tests/test_kernels.py``),
+   and timings of the kernel, its plain version and one PyTorch library
+   call computing the same function (a yardstick the port never calls);
+4. parity — deepseek-7b at full width, 2 layers, fp32: prefill and 4
+   greedy decode steps through the kernels and again with every kernel
+   call replaced by its plain version; last-position logits within
+   rtol = atol = 1e-3 and identical tokens;
+5. main path — ``repro_torch.launch.serve`` one-shot on deepseek-7b, all 30
+   layers, bf16, batch 4, prompt 128, 32 generated tokens; the launch
+   counts are zeroed just before and read just after, and must be exactly
+   210 GEMM and 30 flash-attention launches (one prefill); outputs finite
+   and tokens in range.
+
+It then prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line,
+and last ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from argparse import Namespace
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+# published peaks of one H100 SXM (dense): bf16 tensor cores, fp32 CUDA
+# cores, HBM3 bandwidth
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_BYTES = 3.35e12
+
+GEMM_TOL = {"float32": (1e-3, 1e-3), "bfloat16": (2e-2, 2e-2)}
+ATTN_TOL = GEMM_TOL
+
+# the main path: deepseek-7b prefill at batch 4 x prompt 128
+MAIN = dict(batch=4, prompt_len=128, gen=32)
+M_MAIN = MAIN["batch"] * MAIN["prompt_len"]
+D_MODEL, D_FF, HEADS, HEAD_DIM = 4096, 11008, 32, 128
+# (N, K, launches per layer) of the prefill linears: wq wk wv wo / w_up
+# w_gate / w_down
+LAYER_GEMMS = ((D_MODEL, D_MODEL, 4), (D_MODEL, D_FF, 2), (D_FF, D_MODEL, 1))
+N_LAYERS = 30
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def need(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def log(*parts):
+    print(*parts, flush=True)
+
+
+# ---------------------------------------------------------------------------
+# helpers
+# ---------------------------------------------------------------------------
+
+
+def time_ms(torch, fn, iters=20, warmup=3):
+    """Mean device time of ``fn`` over ``iters`` launches (CUDA events)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def compare(name, got, ref, rtol, atol):
+    """assert_allclose semantics: |got - ref| <= atol + rtol * |ref|."""
+    g, r = got.float(), ref.float()
+    need(bool(g.isfinite().all()), f"{name}: non-finite kernel output")
+    err = (g - r).abs()
+    max_err = err.max().item() if err.numel() else 0.0
+    excess = (err - (atol + rtol * r.abs())).max().item() if err.numel() \
+        else -1.0
+    ok = excess <= 0
+    log(f"  check {name}: max_abs_err={max_err:.3e} rtol={rtol} "
+        f"atol={atol} {'ok' if ok else 'FAIL'}")
+    need(ok, f"{name}: kernel disagrees with its plain version")
+    return max_err
+
+
+def profile_window(torch, fn):
+    """One call of ``fn`` under ``torch.profiler``: host wall time, device
+    busy time (the summed durations of the device's kernels and copies,
+    which run one at a time on the one stream), the device's idle share,
+    host op count and the heaviest kernels.  Profiling slows the host, so
+    the wall time here is above the unprofiled one."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    by_name = {}
+    for e in dev:
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    return dict(
+        wall_ms=wall,
+        device_busy_ms=busy if dev else "not measured",
+        idle_share=1 - busy / wall if dev else "not measured",
+        device_events=len(dev),
+        host_ops=sum(1 for e in events if e.device_type == DeviceType.CPU),
+        top=[[name[:80], ms, n] for name, (ms, n) in top],
+    )
+
+
+def bound(flops, nbytes, dtype):
+    t_ops = flops / PEAK_FLOPS[dtype]
+    t_mem = nbytes / PEAK_BYTES
+    return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem
+                                     else "bytes")
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+
+def phase_device(torch):
+    need(torch.cuda.is_available(), "no CUDA device is available")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()
+    need(bool(smi), "nvidia-smi printed no card")
+    name = torch.cuda.get_device_name(0)
+    log(f"[device] {name}; nvidia-smi: {smi[0]}; torch {torch.__version__}"
+        f" cuda {torch.version.cuda}; count {torch.cuda.device_count()}")
+    return name, smi[0]
+
+
+def phase_build():
+    from repro_torch.kernels import _build
+    secs = _build.build_all()
+    log(f"[build] {len(_build.SOURCES)} kernels built in {secs:.1f} s "
+        f"(nvcc {_build.nvcc_path()})")
+    for name, text in _build.BUILD_LOG.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {name}: {line.strip()}")
+    for name in _build.SOURCES:
+        _build.load(name)
+    return secs
+
+
+def phase_kernels(torch):
+    """Each kernel vs its plain version; timings at the main path's
+    shapes.  Returns the per-kernel records for the kernels line."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.tatp_matmul.ops import tatp_dot
+    from repro_torch.kernels.tatp_matmul.ref import matmul_ref
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        x = torch.randn(shape, generator=g, device=dev) * scale
+        return x.to(dtype)
+
+    log("[kernels] tatp_matmul vs matmul_ref")
+    # ragged fp32 (SIMT path), ragged bf16 rows not 16-byte aligned (masked
+    # scalar loads), both output dtypes, then the main path's shapes
+    cases = [
+        ("f32 100x200x300", 100, 200, 300, torch.float32, None),
+        ("f32->bf16 64x96x80", 64, 96, 80, torch.float32, torch.bfloat16),
+        ("bf16 100x203x301", 100, 203, 301, torch.bfloat16, None),
+        ("bf16->f32 77x256x11008", 77, 256, 11008, torch.bfloat16,
+         torch.float32),
+    ]
+    cases += [(f"bf16 {M_MAIN}x{n}x{k}", M_MAIN, n, k, torch.bfloat16, None)
+              for n, k, _ in LAYER_GEMMS]
+    gemm_err = 0.0
+    for name, m, n, k, dt, odt in cases:
+        a = randn(m, n, dtype=dt)
+        b = randn(n, k, dtype=dt, scale=n ** -0.5)
+        got = tatp_dot(a, b, out_dtype=odt)
+        torch.cuda.synchronize()
+        tol = GEMM_TOL["bfloat16" if torch.bfloat16 in (dt, odt)
+                       else "float32"]
+        err = compare(name, got, matmul_ref(a, b, out_dtype=odt), *tol)
+        if m == M_MAIN:
+            gemm_err = max(gemm_err, err)
+
+    shapes, tot = [], dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0,
+                           nbytes=0)
+    for n, k, per_layer in LAYER_GEMMS:
+        a = randn(M_MAIN, n, dtype=torch.bfloat16)
+        b = randn(n, k, dtype=torch.bfloat16, scale=n ** -0.5)
+        row = dict(
+            shape=[M_MAIN, n, k], per_layer=per_layer,
+            ms=time_ms(torch, lambda: tatp_dot(a, b)),
+            plain_ms=time_ms(torch, lambda: matmul_ref(a, b)),
+            library_ms=time_ms(torch, lambda: torch.matmul(a, b)),
+        )
+        flops = 2 * M_MAIN * n * k
+        nbytes = 2 * (M_MAIN * n + n * k + M_MAIN * k)
+        row["bound_ms"], _ = bound(flops, nbytes, "bfloat16")
+        row["tflops"] = flops / row["ms"] / 1e9
+        shapes.append(row)
+        for key in ("ms", "plain_ms", "library_ms"):
+            tot[key] += per_layer * row[key]
+        tot["flops"] += per_layer * flops
+        tot["nbytes"] += per_layer * nbytes
+    gemm_bound, gemm_by = bound(tot["flops"], tot["nbytes"], "bfloat16")
+    log(f"  timings per layer of prefill (7 GEMMs, bf16): "
+        f"{json.dumps(shapes)}")
+
+    log("[kernels] flash_attention vs attention_ref")
+    attn_err = 0.0
+    for d in (64, 128, 256):
+        for name, hq, hkv, sq, skv, causal, window, cap in (
+            ("causal", 4, 4, 100, 100, True, None, None),
+            ("non-causal", 4, 4, 100, 100, False, None, None),
+            ("window16", 4, 4, 100, 100, True, 16, None),
+            ("cap50", 4, 4, 100, 100, True, None, 50.0),
+            ("gqa8/2", 8, 2, 100, 100, True, None, None),
+            ("rect100x160", 4, 2, 100, 160, False, 16, 50.0),
+        ):
+            q = randn(2, hq, sq, d)
+            k = randn(2, hkv, skv, d)
+            v = randn(2, hkv, skv, d)
+            kw = dict(causal=causal, window=window, cap=cap)
+            got = attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            compare(f"f32 D={d} {name}", got, attention_ref(q, k, v, **kw),
+                    *ATTN_TOL["float32"])
+    # the main path's shape and layout: [B, S, H, D] activations viewed as
+    # [B, H, S, D] (strided, no copy), bf16, causal
+    b, s = MAIN["batch"], MAIN["prompt_len"]
+    q, k, v = (randn(b, s, HEADS, HEAD_DIM, dtype=torch.bfloat16)
+               .transpose(1, 2) for _ in range(3))
+    got = attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    need(got.stride() == q.stride(), "flash output lost the input layout")
+    attn_err = compare(f"bf16 [{b},{HEADS},{s},{HEAD_DIM}] causal strided",
+                       got, attention_ref(q, k, v, causal=True),
+                       *ATTN_TOL["bfloat16"])
+    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+    compare("bf16 contiguous == strided", attention(qc, kc, vc), got, 0, 0)
+    attn = dict(
+        ms=time_ms(torch, lambda: attention(q, k, v, causal=True), 50),
+        plain_ms=time_ms(torch,
+                         lambda: attention_ref(q, k, v, causal=True), 50),
+        library_ms=time_ms(
+            torch,
+            lambda: F.scaled_dot_product_attention(qc, kc, vc,
+                                                   is_causal=True), 50),
+    )
+    pairs = b * HEADS * s * (s + 1) // 2  # unmasked (q, k) pairs, causal
+    attn_flops = 4 * pairs * HEAD_DIM
+    attn_bytes = 4 * b * HEADS * s * HEAD_DIM * 2  # q, k, v in; o out
+    attn["bound_ms"], attn_by = bound(attn_flops, attn_bytes, "bfloat16")
+    log(f"  timing [4,32,128,128] bf16 causal: {json.dumps(attn)}")
+
+    return [
+        dict(name="tatp_matmul", route="cuda",
+             source="src/repro_torch/csrc/tatp_matmul.cu",
+             replaces="src/repro/kernels/tatp_matmul/kernel.py:24",
+             max_abs_err=gemm_err, rtol=GEMM_TOL["bfloat16"][0],
+             atol=GEMM_TOL["bfloat16"][1],
+             ms=tot["ms"], kernel_ms=tot["ms"], plain_ms=tot["plain_ms"],
+             bound_ms=gemm_bound, bound_by=gemm_by,
+             library_ms=tot["library_ms"],
+             timed="the 7 GEMMs of one layer's prefill, M=512, bf16",
+             shapes=shapes),
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention/kernel.py:26",
+             max_abs_err=attn_err, rtol=ATTN_TOL["bfloat16"][0],
+             atol=ATTN_TOL["bfloat16"][1],
+             ms=attn["ms"], kernel_ms=attn["ms"],
+             plain_ms=attn["plain_ms"], bound_ms=attn["bound_ms"],
+             bound_by=attn_by, library_ms=attn["library_ms"],
+             timed="one layer's prefill attention, [4,32,128,128] bf16 "
+                   "causal"),
+    ]
+
+
+def phase_parity(torch):
+    """Full width, 2 layers, fp32: kernels vs plain versions."""
+    from dataclasses import replace
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.core.dist import Dist
+    from repro_torch.kernels.flash_attention.ops import attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.tatp_matmul.ops import tatp_dot
+    from repro_torch.kernels.tatp_matmul.ref import matmul_ref
+    from repro_torch.models import lm
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train.train_loop import make_serve_fns
+
+    dev = torch.device("cuda")
+    cfg = replace(get_config("deepseek-7b"), n_layers=2, dtype="float32")
+    b, s, steps = 2, 128, 4
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(1),
+                         dev)
+    par = ParallelConfig(strategy="tatp", remat=False)
+    kern = make_serve_fns(cfg, par, Dist(dev))
+    plain = make_serve_fns(cfg, par, Dist(dev), dot=matmul_ref,
+                           attention=attention_ref)
+    rng = np.random.RandomState(1)
+    toks = torch.as_tensor(rng.randint(0, cfg.vocab_size, (b, s)),
+                           device=dev)
+    runs = []
+    for sb in (kern, plain):
+        n0 = (tatp_dot.launches, attention.launches)
+        caches, logits = sb.prefill_fn(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        launched = (tatp_dot.launches - n0[0], attention.launches - n0[1])
+        big = lm.graft_cache_slots(lm.init_cache(sb.ctx, b, s + steps),
+                                   caches, slots=range(b))
+        tok = logits[:, -1:, :].argmax(dim=-1) % cfg.vocab_size
+        out = [(logits[:, -1], tok)]
+        for i in range(steps):
+            cl = torch.full((b,), s + i + 1, device=dev)
+            tok, lg, big = sb.decode_fn(params, tok, big, cl)
+            out.append((lg[:, -1], tok))
+        runs.append((launched, out))
+    need(runs[0][0] == (7 * cfg.n_layers, cfg.n_layers),
+         f"kernel prefill launched {runs[0][0]} (GEMM, flash)")
+    need(runs[1][0] == (0, 0), f"plain prefill launched {runs[1][0]}")
+    log(f"[parity] deepseek-7b full width, {cfg.n_layers} layers, fp32, "
+        f"batch {b}, prompt {s}, {steps} decode steps")
+    for i, ((lk, tk), (lp, tp)) in enumerate(zip(runs[0][1], runs[1][1])):
+        what = "prefill" if i == 0 else f"decode step {i}"
+        compare(f"{what} logits", lk, lp, 1e-3, 1e-3)
+        need(torch.equal(tk, tp), f"{what}: greedy tokens differ "
+             f"{tk.flatten().tolist()} vs {tp.flatten().tolist()}")
+    log(f"  greedy tokens identical: "
+        f"{[t.flatten().tolist() for _, t in runs[0][1]]}")
+    del params
+    torch.cuda.empty_cache()
+
+
+def phase_main_path(torch):
+    """One-shot serve of deepseek-7b (30 layers, bf16) through the entry
+    point a user calls; the launch counts cover exactly this run."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import attention
+    from repro_torch.kernels.tatp_matmul.ops import tatp_dot
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.transformer import init_params
+
+    dev = torch.device("cuda")
+    cfg = get_config("deepseek-7b")
+    need(cfg.n_layers == N_LAYERS, "deepseek-7b is not 30 layers")
+    args = Namespace(arch="deepseek-7b", reduced=False, device="cuda",
+                     **MAIN)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+
+    tatp_dot.launches = 0
+    attention.launches = 0
+    t0 = time.perf_counter()
+    res = serve(args, params=params)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {"tatp_matmul": tatp_dot.launches,
+                "flash_attention": attention.launches}
+    peak = torch.cuda.max_memory_allocated()
+
+    need(launches["tatp_matmul"] == 7 * N_LAYERS,
+         f"GEMM launches {launches['tatp_matmul']} != {7 * N_LAYERS}")
+    need(launches["flash_attention"] == N_LAYERS,
+         f"flash launches {launches['flash_attention']} != {N_LAYERS}")
+    need(res["generated_shape"] == [MAIN["batch"], MAIN["gen"] + 1],
+         f"generated shape {res['generated_shape']}")
+    need(all(0 <= t < cfg.vocab_size for t in res["sample"]),
+         f"token out of range in {res['sample']}")
+    need(math.isfinite(res["tokens_per_s"]) and res["tokens_per_s"] > 0,
+         "bad tokens/s")
+
+    # prefill time and output check, after the counted run
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.core.dist import Dist
+    from repro_torch.models import lm
+    from repro_torch.train.train_loop import make_serve_fns
+    import numpy as np
+
+    sb = make_serve_fns(cfg, ParallelConfig(strategy="tatp", remat=False),
+                        Dist(dev))
+    prompts = np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (MAIN["batch"], MAIN["prompt_len"]))
+    batch = {"tokens": torch.as_tensor(prompts, device=dev)}
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        caches, logits = sb.prefill_fn(params, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    need(tuple(logits.shape) == (MAIN["batch"], 1, 102400)
+         and logits.dtype == torch.float32, f"logits {logits.shape}")
+    need(bool(logits.isfinite().all()), "non-finite prefill logits")
+    need(all(bool(t.isfinite().all()) for c in caches.values()
+             for t in c.values()), "non-finite KV cache")
+    first = (logits[:, -1].argmax(-1) % cfg.vocab_size)[0].item()
+    need(first == res["sample"][0], "prefill is not deterministic")
+
+    # where the time goes: one prefill, then 4 decode steps as serve runs
+    # them (token to the host after each step)
+    steps = 4
+    big = lm.graft_cache_slots(
+        lm.init_cache(sb.ctx, MAIN["batch"], MAIN["prompt_len"] + steps),
+        caches, slots=range(MAIN["batch"]))
+    state = [logits[:, -1:].argmax(-1) % cfg.vocab_size, big]
+
+    def decode_steps():
+        for i in range(steps):
+            cl = torch.full((MAIN["batch"],), MAIN["prompt_len"] + i + 1,
+                            device=dev)
+            tok, _, state[1] = sb.decode_fn(params, state[0], state[1], cl)
+            state[0] = tok
+            tok.cpu()
+
+    prof = dict(prefill=profile_window(
+                    torch, lambda: sb.prefill_fn(params, batch)),
+                decode_4_steps=profile_window(torch, decode_steps))
+    out = dict(serve=res, launches=launches,
+               prefill_ms=sorted(times)[1], prefill_ms_runs=times,
+               peak_mem_gb=peak / 1e9, init_s=init_s, serve_wall_s=wall_s,
+               profile=prof)
+    log(f"[main path] deepseek-7b 30 layers bf16 batch {MAIN['batch']} "
+        f"prompt {MAIN['prompt_len']} gen {MAIN['gen']}: {json.dumps(out)}")
+    return launches
+
+
+def main() -> int:
+    if not (SRC / "repro_torch" / "__init__.py").is_file():
+        print("chip_smoke: src/repro_torch not found beside chip_smoke.py; "
+              "run it from the root of a checkout", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    torch.cuda.set_device(0)
+    # fp32 comparisons are true fp32 (no TF32 anywhere)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    name, smi = phase_device(torch)
+    phase_build()
+    kernels = phase_kernels(torch)
+    phase_parity(torch)
+    launches = phase_main_path(torch)
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+    log(json.dumps({"kernels": kernels}))
+    log(f"[done] {time.perf_counter() - t_start:.1f} s")
+    log(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
+        sys.exit(1)

@@ -1,0 +1,170 @@
+"""Top-level language-model assembly (counterpart of ``repro.models.lm``)
+at ring degree 1: the serving entry points :func:`prefill` and
+:func:`decode_step`, the decode cache, and the slot graft.
+
+The reference scans the stacked layer reps with ``lax.scan``; here a Python
+loop walks the rep axis, indexing each stacked parameter (a view, no copy).
+"""
+
+from __future__ import annotations
+
+from dataclasses import replace
+from typing import Any
+
+import torch
+
+from repro_torch import not_ported
+from repro_torch.models.common import rms_norm, softcap
+from repro_torch.models.transformer import (RunCtx, _unit_and_reps,
+                                            attn_block, mlp_block)
+
+
+def embed_tokens(ctx: RunCtx, embed, tokens, prefix_embeds=None):
+    """tokens: [B, s]; embed: [Vp, D] (the whole vocab at r = 1)."""
+    cfg = ctx.cfg
+    if ctx.r != 1:
+        raise not_ported("vocab-parallel embedding", "A3")
+    if prefix_embeds is not None and cfg.frontend_tokens:
+        raise not_ported("modality frontend embeddings", "A6")
+    x = embed[tokens]
+    if cfg.scale_embed:
+        x = x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype,
+                             device=x.device)
+    return x
+
+
+def lm_head_logits(ctx: RunCtx, params, x):
+    """fp32 logits over the padded vocab (a plain product accumulated and
+    returned in fp32, as the reference's einsum with fp32 preferred
+    element type)."""
+    cfg = ctx.cfg
+    if cfg.tie_embeddings:
+        logits = torch.matmul(x.float(), params["embed"].float().t())
+    else:
+        logits = torch.matmul(x.float(), params["lm_head"].float())
+    return softcap(logits, cfg.logit_softcap)
+
+
+def _stack(ctx: RunCtx, params, x, caches=None, cache_len=None):
+    """Run the decoder stack.  Returns (x, aux_loss, new_caches).
+
+    ``prefill`` returns each attention block's K/V stacked on the rep axis;
+    ``decode`` updates ``caches`` in place and returns it."""
+    cfg = ctx.cfg
+    if cfg.is_moe:
+        raise not_ported("MoE blocks", "A4")
+    unit, reps = _unit_and_reps(cfg)
+    collect = caches is None and ctx.phase == "prefill"
+    new: dict[str, Any] = {f"u{pos}": {"k": [], "v": []} for pos in
+                           range(len(unit))}
+    for i in range(reps):
+        for pos, kind in enumerate(unit):
+            key = f"u{pos}"
+            p = {n: t[i] for n, t in params["layers"][key].items()}
+            c = None
+            if caches is not None:
+                c = {n: t[i] for n, t in caches[key].items()}
+            if kind not in ("G", "L"):
+                raise not_ported(f"layer kind {kind!r}",
+                                 "A5" if kind == "M" else "A6")
+            x, nc = attn_block(ctx, p, x, kind=kind, pos_offset=0, cache=c,
+                               cache_len=cache_len)
+            x = mlp_block(ctx, p, x)
+            if collect:
+                new[key]["k"].append(nc["k"])
+                new[key]["v"].append(nc["v"])
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if collect:
+        return x, aux, {key: {n: torch.stack(ts) for n, ts in kv.items()}
+                        for key, kv in new.items()}
+    return x, aux, caches
+
+
+def prefill(ctx: RunCtx, params, batch):
+    """Build caches from a full prompt.  Returns (caches, last_logits):
+    caches ``{"u0": {"k", "v"}}`` with leaves [reps, B, s, Hkv, D], and
+    fp32 logits [B, 1, Vp] for the final position."""
+    cfg = ctx.cfg
+    ctx = replace(ctx, phase="prefill")
+    x = embed_tokens(ctx, params["embed"], batch["tokens"],
+                     batch.get("prefix_embeds"))
+    x, _, caches = _stack(ctx, params, x)
+    x = rms_norm(x, params["final_ln"], cfg.norm_eps)
+    logits = lm_head_logits(ctx, params, x[:, -1:, :])
+    return caches, logits
+
+
+def decode_step(ctx: RunCtx, params, tokens, caches, cache_len):
+    """One decode step.  tokens: [B, 1]; cache_len includes the token being
+    processed — a scalar or a [B] vector.  Returns (next_token [B, 1],
+    logits [B, 1, Vp], caches); the caches are updated in place.  The
+    greedy token is the argmax over the real vocab (padded columns masked
+    to -inf)."""
+    cfg = ctx.cfg
+    ctx = replace(ctx, phase="decode")
+    x = embed_tokens(ctx, params["embed"], tokens)
+    x, _, caches = _stack(ctx, params, x, caches=caches, cache_len=cache_len)
+    x = rms_norm(x, params["final_ln"], cfg.norm_eps)
+    logits = lm_head_logits(ctx, params, x)
+    cols = torch.arange(logits.shape[-1], device=logits.device)
+    lmask = torch.where(cols < cfg.vocab_size, logits, float("-inf"))
+    next_tok = lmask.argmax(dim=-1)
+    return next_tok, logits, caches
+
+
+def init_cache(ctx: RunCtx, batch_local: int, max_seq: int):
+    """Zero caches matching :func:`_stack`'s layout: leaves
+    [reps, B, max_seq, Hkv, D] (axis 0 the rep, axis 1 the batch slot)."""
+    cfg = ctx.cfg
+    if cfg.n_enc_layers:
+        raise not_ported("cross-attention caches", "A6")
+    unit, reps = _unit_and_reps(cfg)
+    shape = (reps, batch_local, max_seq // ctx.r, cfg.n_kv_heads,
+             cfg.head_dim)
+    caches = {}
+    for pos, kind in enumerate(unit):
+        if kind not in ("G", "L"):
+            raise not_ported(f"{kind!r} caches", "A5" if kind == "M"
+                             else "A6")
+        caches[f"u{pos}"] = {
+            n: torch.zeros(shape, dtype=ctx.dtype, device=ctx.device)
+            for n in ("k", "v")
+        }
+    return caches
+
+
+def _leaves(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, prefix + (k,))
+    else:
+        yield prefix, tree
+
+
+def _leaf(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def graft_cache_slots(big, small, slots, rows=None):
+    """Write ``small``'s batch rows into ``big``'s batch *slots* (axis 1 of
+    every cache leaf; axis 0 is the rep axis) and return ``big``.
+
+    Attention K/V leaves copy the common head of the sequence axis (a
+    prompt window into the head of a longer slot).  The reference does this
+    on the host with numpy; here it is an in-place copy on the device."""
+    rows = list(rows) if rows is not None else list(range(len(slots)))
+    slots = list(slots)
+    if not slots:
+        return big
+    for path, d in _leaves(big):
+        s = _leaf(small, path)
+        si = torch.as_tensor(slots, device=d.device)
+        ri = torch.as_tensor(rows, device=s.device)
+        if d.ndim >= 3 and d.shape[2] != s.shape[2]:
+            w = min(d.shape[2], s.shape[2])
+            d[:, si, :w] = s[:, ri, :w].to(d.dtype)
+        else:
+            d[:, si] = s[:, ri].to(d.dtype)
+    return big

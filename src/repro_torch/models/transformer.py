@@ -1,0 +1,273 @@
+"""Model substrate (counterpart of ``repro.models.transformer``) at ring
+degree 1: parameter trees, the dense attention block and the MLP block.
+
+The parameter tree keeps the reference's layout and names, so weights
+convert leaf for leaf: ``embed [Vp, D]``, ``final_ln [D]``,
+``lm_head [D, Vp]`` (untied heads) and ``layers/u<pos>/<name>`` stacked on
+a leading rep axis; weights are ``[in, out]``.
+
+In the ``prefill``/``train`` phases every linear runs through
+:func:`repro_torch.core.tatp.tatp_matmul` on the hand-written GEMM and
+self-attention on the hand-written flash kernel; ``RunCtx.dot`` and
+``RunCtx.attention`` hold those two hooks (parity checks swap in the plain
+versions).  Decode linears are a plain product, as in the reference.
+
+Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
+item): the ring and the ``megatron``/``fsdp`` strategies (A3), MoE blocks
+(A4), Mamba2 blocks (A5), shared, cross-attention and encoder blocks (A6).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable
+
+import torch
+
+from repro_torch import not_ported
+from repro_torch.configs.base import ModelConfig, ParallelConfig
+from repro_torch.core import tatp
+from repro_torch.core.dist import Dist
+from repro_torch.kernels.flash_attention.ops import attention as flash
+from repro_torch.kernels.tatp_matmul.ops import tatp_dot
+from repro_torch.models import attention as attn_lib
+from repro_torch.models.common import (act_fn, apply_rope, dense_init,
+                                       embed_init, is_gated, rms_norm)
+
+VOCAB_PAD_MULTIPLE = 512
+
+
+def padded_vocab(cfg: ModelConfig) -> int:
+    m = VOCAB_PAD_MULTIPLE
+    return ((cfg.vocab_size + m - 1) // m) * m
+
+
+@dataclass(frozen=True)
+class RunCtx:
+    cfg: ModelConfig
+    par: ParallelConfig
+    dist: Dist
+    phase: str = "train"  # train | prefill | decode
+    # kernel hooks: the GEMM under every prefill/train linear and the
+    # prefill/train self-attention core ([B, H, S, D] layout)
+    dot: Callable = tatp_dot
+    attention: Callable = flash
+
+    @property
+    def axis(self) -> str:
+        return self.dist.model_axis
+
+    @property
+    def r(self) -> int:
+        return self.dist.model_degree
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return getattr(torch, self.cfg.dtype)
+
+    @property
+    def device(self) -> torch.device:
+        return self.dist.device
+
+
+# ===========================================================================
+# parameter initialisation
+# ===========================================================================
+
+
+def _attn_shapes(cfg: ModelConfig):
+    d = cfg.d_model
+    sh = {
+        "wq": (d, cfg.q_dim),
+        "wk": (d, cfg.kv_dim),
+        "wv": (d, cfg.kv_dim),
+        "wo": (cfg.q_dim, d),
+        "ln": (d,),
+    }
+    if cfg.qkv_bias:
+        sh.update(bq=(cfg.q_dim,), bk=(cfg.kv_dim,), bv=(cfg.kv_dim,))
+    return sh
+
+
+def _mlp_shapes(cfg: ModelConfig):
+    d, f = cfg.d_model, cfg.d_ff
+    sh = {"w_up": (d, f), "w_down": (f, d), "ln": (d,)}
+    if is_gated(cfg.act):
+        sh["w_gate"] = (d, f)
+    return sh
+
+
+def _block_shapes(cfg: ModelConfig, kind: str) -> dict:
+    if kind in ("G", "L"):
+        if cfg.is_moe:
+            raise not_ported("MoE blocks", "A4")
+        sh = dict(_attn_shapes(cfg))
+        sh.update({f"mlp.{k}": v for k, v in _mlp_shapes(cfg).items()})
+        return sh
+    if kind == "M":
+        raise not_ported("Mamba2 blocks", "A5")
+    if kind in ("S", "X"):
+        raise not_ported(f"layer kind {kind!r}", "A6")
+    raise ValueError(kind)
+
+
+def _unit_and_reps(cfg: ModelConfig) -> tuple[str, int]:
+    unit = cfg.layer_pattern
+    if cfg.n_layers % len(unit):
+        raise ValueError(
+            f"{cfg.name}: n_layers {cfg.n_layers} not a multiple of "
+            f"pattern {unit!r}"
+        )
+    return unit, cfg.n_layers // len(unit)
+
+
+def _check_model(cfg: ModelConfig):
+    if cfg.n_enc_layers:
+        raise not_ported("encoder-decoder models", "A6")
+    if cfg.frontend:
+        raise not_ported("modality frontends", "A6")
+
+
+def param_shapes(cfg: ModelConfig) -> dict:
+    """The parameter tree's leaf shapes (no allocation)."""
+    _check_model(cfg)
+    vp = padded_vocab(cfg)
+    unit, reps = _unit_and_reps(cfg)
+    shapes: dict[str, Any] = {
+        "embed": (vp, cfg.d_model),
+        "final_ln": (cfg.d_model,),
+    }
+    if not cfg.tie_embeddings:
+        shapes["lm_head"] = (cfg.d_model, vp)
+    shapes["layers"] = {
+        f"u{pos}": {
+            name: (reps, *shape)
+            for name, shape in _block_shapes(cfg, kind).items()
+        }
+        for pos, kind in enumerate(unit)
+    }
+    return shapes
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator, device):
+    """Random parameters with the reference's shapes and distributions:
+    norm scales and biases zero, weights normal x 1/sqrt(fan_in), the
+    embedding normal x 0.02.  (The draws differ from the reference's: JAX
+    keys cannot be replayed in torch; ``weights.params_from_jax`` converts
+    the reference's own tree where bit-equal weights are needed.)"""
+    dtype = getattr(torch, cfg.dtype)
+    shapes = param_shapes(cfg)
+
+    def kw():
+        return dict(dtype=dtype, device=device)
+
+    d = cfg.d_model
+    params: dict[str, Any] = {
+        "embed": embed_init(generator, shapes["embed"], **kw()),
+        "final_ln": torch.zeros(shapes["final_ln"], **kw()),
+    }
+    if "lm_head" in shapes:
+        params["lm_head"] = dense_init(generator, shapes["lm_head"],
+                                       in_dim=d, **kw())
+    layers = {}
+    for unit, block in shapes["layers"].items():
+        out = {}
+        for name, shape in sorted(block.items()):
+            reps, per = shape[0], shape[1:]
+            if len(per) == 1:  # norm scales and biases
+                out[name] = torch.zeros(shape, **kw())
+                continue
+            w = torch.empty(shape, **kw())
+            for i in range(reps):  # one rep at a time: small fp32 staging
+                w[i] = dense_init(generator, per, in_dim=per[-2], **kw())
+            out[name] = w
+        layers[unit] = out
+    params["layers"] = layers
+    return params
+
+
+# ===========================================================================
+# building blocks
+# ===========================================================================
+
+
+def _linear(ctx: RunCtx, x, w, b=None):
+    """Phase-aware linear.  x: [B, s, in]."""
+    if ctx.par.strategy != "tatp":
+        raise not_ported(f"strategy {ctx.par.strategy!r}", "A3")
+    if ctx.phase == "decode":
+        # plain product (the reference's einsum accumulates in fp32 and
+        # casts to x.dtype; cuBLAS accumulates bf16 products in fp32)
+        y = torch.matmul(x, w)
+    else:  # tatp streamed (one local tile at r = 1) on the GEMM hook
+        bsz, s, din = x.shape
+        xf = x.reshape(bsz * s, din)
+        yf = tatp.tatp_matmul(xf, w, ctx.axis, ctx.r, ctx.par.bidirectional,
+                              ctx.par.stream_dtype, dot=ctx.dot)
+        y = yf.reshape(bsz, s, -1)
+    if b is not None:
+        y = y + b
+    return y
+
+
+def _split_heads(x, n_heads, head_dim):
+    b, s, _ = x.shape
+    return x.reshape(b, s, n_heads, head_dim)
+
+
+def attn_block(ctx: RunCtx, p, x, *, kind: str, pos_offset, cache=None,
+               cache_len=None):
+    """Pre-norm self-attention block with residual.  Returns
+    (y, new_cache): in ``prefill`` the new cache is this block's K/V; in
+    ``decode`` the given cache updated in place."""
+    cfg = ctx.cfg
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    window = cfg.sliding_window if kind == "L" else None
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+
+    q = _split_heads(_linear(ctx, h, p["wq"], p.get("bq")), hq, hd)
+    k = _split_heads(_linear(ctx, h, p["wk"], p.get("bk")), hkv, hd)
+    v = _split_heads(_linear(ctx, h, p["wv"], p.get("bv")), hkv, hd)
+
+    new_cache = cache
+    if ctx.phase == "decode":
+        # cache_len: scalar (uniform batch) or [B] (per-row positions)
+        qpos = torch.as_tensor(cache_len, device=x.device) - 1
+        rope_pos = qpos[:, None] if qpos.ndim else qpos.reshape(1)
+        q = apply_rope(q, rope_pos, cfg.rope_theta)
+        k = apply_rope(k, rope_pos, cfg.rope_theta)
+        kc, vc = attn_lib.write_kv_cache(cache["k"], cache["v"], k, v, qpos,
+                                         axis=ctx.axis, axis_size=ctx.r)
+        new_cache = {"k": kc, "v": vc}
+        out = attn_lib.decode_attention(q, kc, vc, cache_len, axis=ctx.axis,
+                                        axis_size=ctx.r, window=window,
+                                        cap=cfg.attn_softcap)
+    else:
+        if ctx.r != 1:
+            raise not_ported("ring attention", "A3")
+        qp = pos_offset + torch.arange(x.shape[1], device=x.device)
+        q = apply_rope(q, qp, cfg.rope_theta)
+        k = apply_rope(k, qp, cfg.rope_theta)
+        # [B, S, H, D] viewed as [B, H, S, D]: the kernel reads the strides
+        out = ctx.attention(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), causal=True, window=window,
+                            cap=cfg.attn_softcap).transpose(1, 2)
+        if ctx.phase == "prefill":
+            new_cache = {"k": k, "v": v}
+
+    b, s = out.shape[:2]
+    y = _linear(ctx, out.reshape(b, s, -1), p["wo"])
+    return x + y.to(x.dtype), new_cache
+
+
+def mlp_block(ctx: RunCtx, p, x, prefix="mlp."):
+    cfg = ctx.cfg
+    h = rms_norm(x, p[prefix + "ln"], cfg.norm_eps)
+    f = act_fn(cfg.act)
+    up = _linear(ctx, h, p[prefix + "w_up"])
+    if is_gated(cfg.act):
+        up = f(_linear(ctx, h, p[prefix + "w_gate"])) * up
+    else:
+        up = f(up)
+    y = _linear(ctx, up, p[prefix + "w_down"])
+    return x + y.to(x.dtype)
