@@ -8,23 +8,30 @@ imports nothing of jax or of the JAX package ``repro``.  Phases, each of
 which fails the run (non-zero exit, no final ``ok`` line) on any error:
 
 1. device — the card's name and power limit from ``nvidia-smi``;
-2. build — both CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
-   per source, in parallel), with the compiler's register/shared-memory
-   report;
+2. build — the three CUDA kernels from ``src/repro_torch/csrc`` (one
+   ``nvcc`` per source, in parallel), with the compiler's
+   register/shared-memory report;
 3. kernels — each kernel against its plain PyTorch version on the card at
-   ragged shapes, every mask option and the main path's shapes (fp32 with
+   ragged shapes, every mask option and the main paths' shapes (fp32 with
    TF32 off: rtol = atol = 1e-3; bf16: 2e-2, as ``tests/test_kernels.py``),
-   and timings of the kernel, its plain version and one PyTorch library
-   call computing the same function (a yardstick the port never calls);
-4. parity — deepseek-7b at full width, 2 layers, fp32: prefill and 4
-   greedy decode steps through the kernels and again with every kernel
+   and timings of the kernel, its plain version and, where one exists, one
+   PyTorch library call computing the same function (a yardstick the port
+   never calls): the GEMM and flash attention at deepseek-7b's prefill
+   shapes, flash attention at zamba2-2.7b's (D = 80), the SSD intra-chunk
+   pass at mamba2-780m's and zamba2-2.7b's;
+4. parity — at full width in fp32, deepseek-7b (2 layers), mamba2-780m
+   (2 layers) and zamba2-2.7b (6 layers, one ``MMMMMS`` unit): prefill and
+   4 greedy decode steps through the kernels and again with every kernel
    call replaced by its plain version; last-position logits within
    rtol = atol = 1e-3 and identical tokens;
-5. main path — ``repro_torch.launch.serve`` one-shot on deepseek-7b, all 30
-   layers, bf16, batch 4, prompt 128, 32 generated tokens; the launch
-   counts are zeroed just before and read just after, and must be exactly
-   210 GEMM and 30 flash-attention launches (one prefill); outputs finite
-   and tokens in range.
+5. main paths — ``repro_torch.launch.serve`` one-shot, bf16, batch 4,
+   32 generated tokens: deepseek-7b (30 layers, prompt 128), mamba2-780m
+   (48 layers, prompt 512 = two SSD chunks) and zamba2-2.7b (54 layers,
+   prompt 512).  Before each path every launch count is zeroed; just after
+   it the counts must be exactly the path's (GEMM, flash, SSD): 210/30/0,
+   96/0/48 and 144/9/45 (one prefill each; decode runs no kernel).
+   Outputs finite and tokens in range; prefill time (median of 3), decode
+   ms/token, peak memory and a profiler breakdown of each path.
 
 It then prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``.
@@ -51,14 +58,42 @@ PEAK_BYTES = 3.35e12
 GEMM_TOL = {"float32": (1e-3, 1e-3), "bfloat16": (2e-2, 2e-2)}
 ATTN_TOL = GEMM_TOL
 
-# the main path: deepseek-7b prefill at batch 4 x prompt 128
-MAIN = dict(batch=4, prompt_len=128, gen=32)
+SSD_TOL = (1e-3, 1e-3)  # fp32, TF32 off
+
+# the main paths: one-shot serve at batch 4 with 32 generated tokens, and
+# the exact kernel launches of each (one prefill; decode runs no kernel)
+PATHS = {
+    "deepseek-7b": dict(prompt_len=128, n_layers=30, launches=dict(
+        tatp_matmul=210, flash_attention=30, ssd=0)),
+    "mamba2-780m": dict(prompt_len=512, n_layers=48, launches=dict(
+        tatp_matmul=96, flash_attention=0, ssd=48)),
+    "zamba2-2.7b": dict(prompt_len=512, n_layers=54, launches=dict(
+        tatp_matmul=144, flash_attention=9, ssd=45)),
+}
+BATCH, GEN = 4, 32
+
+# deepseek-7b's prefill at batch 4 x prompt 128: the GEMM and flash rows
+MAIN = dict(batch=BATCH, prompt_len=PATHS["deepseek-7b"]["prompt_len"],
+            gen=GEN)
 M_MAIN = MAIN["batch"] * MAIN["prompt_len"]
 D_MODEL, D_FF, HEADS, HEAD_DIM = 4096, 11008, 32, 128
 # (N, K, launches per layer) of the prefill linears: wq wk wv wo / w_up
 # w_gate / w_down
 LAYER_GEMMS = ((D_MODEL, D_MODEL, 4), (D_MODEL, D_FF, 2), (D_FF, D_MODEL, 1))
-N_LAYERS = 30
+# the SSM paths' prefill linears at batch 4 x prompt 512: (arch, N, K,
+# launches per prefill): in_proj / out_proj of every Mamba-2 layer, and
+# zamba2's shared block (wq wk wv wo, w_up, w_down; gelu is not gated)
+M_SSM = BATCH * 512
+SSM_GEMMS = (("mamba2-780m", 1536, 6448, 48), ("mamba2-780m", 3072, 1536, 48),
+             ("zamba2-2.7b", 2560, 10448, 45), ("zamba2-2.7b", 5120, 2560, 45),
+             ("zamba2-2.7b", 2560, 2560, 36), ("zamba2-2.7b", 2560, 10240, 9),
+             ("zamba2-2.7b", 10240, 2560, 9))
+# zamba2-2.7b's shared attention at batch 4 x prompt 512: [B, H, S, D]
+ZAMBA_ATTN = (BATCH, 32, 512, 80)
+# the SSD intra-chunk pass of one prefill layer at batch 4 x prompt 512:
+# (B * nc chunks, Q, H, P, N)
+SSD_SHAPES = {"mamba2-780m": (8, 256, 48, 64, 128),
+              "zamba2-2.7b": (8, 256, 80, 64, 64)}
 
 
 class SmokeFailure(RuntimeError):
@@ -246,10 +281,30 @@ def phase_kernels(torch):
     gemm_bound, gemm_by = bound(tot["flops"], tot["nbytes"], "bfloat16")
     log(f"  timings per layer of prefill (7 GEMMs, bf16): "
         f"{json.dumps(shapes)}")
+    ssm_shapes = []
+    for arch, n, k, per_prefill in SSM_GEMMS:
+        a = randn(M_SSM, n, dtype=torch.bfloat16)
+        b = randn(n, k, dtype=torch.bfloat16, scale=n ** -0.5)
+        got = tatp_dot(a, b)
+        torch.cuda.synchronize()
+        gemm_err = max(gemm_err, compare(
+            f"bf16 {arch} {M_SSM}x{n}x{k}", got, matmul_ref(a, b),
+            *GEMM_TOL["bfloat16"]))
+        flops = 2 * M_SSM * n * k
+        row = dict(arch=arch, shape=[M_SSM, n, k], per_prefill=per_prefill,
+                   ms=time_ms(torch, lambda: tatp_dot(a, b)),
+                   plain_ms=time_ms(torch, lambda: matmul_ref(a, b)),
+                   library_ms=time_ms(torch, lambda: torch.matmul(a, b)))
+        row["bound_ms"], _ = bound(flops, 2 * (M_SSM * n + n * k + M_SSM * k),
+                                   "bfloat16")
+        row["tflops"] = flops / row["ms"] / 1e9
+        ssm_shapes.append(row)
+    log(f"  timings of the SSM paths' prefill GEMMs (bf16): "
+        f"{json.dumps(ssm_shapes)}")
 
     log("[kernels] flash_attention vs attention_ref")
     attn_err = 0.0
-    for d in (64, 128, 256):
+    for d in (64, 80, 128, 256):
         for name, hq, hkv, sq, skv, causal, window, cap in (
             ("causal", 4, 4, 100, 100, True, None, None),
             ("non-causal", 4, 4, 100, 100, False, None, None),
@@ -293,6 +348,8 @@ def phase_kernels(torch):
     attn_bytes = 4 * b * HEADS * s * HEAD_DIM * 2  # q, k, v in; o out
     attn["bound_ms"], attn_by = bound(attn_flops, attn_bytes, "bfloat16")
     log(f"  timing [4,32,128,128] bf16 causal: {json.dumps(attn)}")
+    attn["d80"] = flash_d80(torch, randn)
+    ssd = ssd_checks_and_timing(torch, randn, g)
 
     return [
         dict(name="tatp_matmul", route="cuda",
@@ -303,8 +360,9 @@ def phase_kernels(torch):
              ms=tot["ms"], kernel_ms=tot["ms"], plain_ms=tot["plain_ms"],
              bound_ms=gemm_bound, bound_by=gemm_by,
              library_ms=tot["library_ms"],
-             timed="the 7 GEMMs of one layer's prefill, M=512, bf16",
-             shapes=shapes),
+             timed="the 7 GEMMs of one deepseek-7b layer's prefill, "
+                   "M=512, bf16",
+             shapes=shapes, ssm_shapes=ssm_shapes),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:26",
@@ -314,45 +372,208 @@ def phase_kernels(torch):
              plain_ms=attn["plain_ms"], bound_ms=attn["bound_ms"],
              bound_by=attn_by, library_ms=attn["library_ms"],
              timed="one layer's prefill attention, [4,32,128,128] bf16 "
-                   "causal"),
+                   "causal",
+             d80=attn["d80"]),
+        ssd,
     ]
 
 
-def phase_parity(torch):
-    """Full width, 2 layers, fp32: kernels vs plain versions."""
+def flash_d80(torch, randn):
+    """The flash kernel at zamba2-2.7b's shared attention: D = 80, the
+    model's [B, S, H, D] layout viewed as [B, H, S, D], bf16, causal."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    b, h, s, d = ZAMBA_ATTN
+    q, k, v = (randn(b, s, h, d, dtype=torch.bfloat16).transpose(1, 2)
+               for _ in range(3))
+    got = attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    err = compare(f"bf16 [{b},{h},{s},{d}] causal strided", got,
+                  attention_ref(q, k, v, causal=True),
+                  *ATTN_TOL["bfloat16"])
+    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+    row = dict(
+        shape=[b, h, s, d], max_abs_err=err,
+        ms=time_ms(torch, lambda: attention(q, k, v, causal=True), 50),
+        plain_ms=time_ms(torch,
+                         lambda: attention_ref(q, k, v, causal=True), 50),
+        library_ms=time_ms(
+            torch,
+            lambda: F.scaled_dot_product_attention(qc, kc, vc,
+                                                   is_causal=True), 50),
+    )
+    pairs = b * h * s * (s + 1) // 2
+    row["bound_ms"], row["bound_by"] = bound(4 * pairs * d,
+                                             4 * b * h * s * d * 2,
+                                             "bfloat16")
+    log(f"  timing {row['shape']} bf16 causal: {json.dumps(row)}")
+    return row
+
+
+def ssd_bound(bc, q, h, p, n):
+    """The SSD intra-chunk pass's least work: the multiply-adds of C.B^T
+    (once per chunk), M @ x and the state, counting only the causal
+    (s <= q) pairs, in fp32 on the CUDA cores; and its bytes, each input
+    read once and each output written once."""
+    pairs = q * (q + 1) // 2
+    flops = bc * (2 * n * pairs + h * (2 * p * pairs + 2 * q * p * n))
+    nbytes = 4 * (2 * bc * q * h * p + bc * h * p * n + bc * h
+                  + 2 * bc * q * n + bc * q * h + h)
+    ms, by = bound(flops, nbytes, "float32")
+    return ms, by, flops, nbytes
+
+
+def ssd_checks_and_timing(torch, randn, g):
+    """The SSD kernel against its plain version (fp32, TF32 off) at the
+    reduced configs' shape, a ragged one and both models' full shapes,
+    contiguous and strided as mamba_block passes them; timings at the full
+    shapes.  Returns the kernels-line record."""
+    from repro_torch.kernels.ssd.ops import ssd_intra_chunk
+    from repro_torch.kernels.ssd.ref import ssd_intra_chunk_ref
+
+    dev = torch.device("cuda")
+
+    def inputs(bc, q, h, p, n, strided=False, dt_value=None):
+        if strided:  # x, B, C column slices of one buffer (the conv out)
+            buf = randn(bc, q, h * p + 2 * n)
+            x = buf[..., :h * p].reshape(bc, q, h, p)
+            bm, cm = buf[..., h * p:h * p + n], buf[..., h * p + n:]
+        else:
+            x, bm, cm = randn(bc, q, h, p), randn(bc, q, n), randn(bc, q, n)
+        if dt_value is None:  # the range of softplus(dt_bias) at init
+            dt = torch.rand(bc, q, h, generator=g, device=dev) * 0.1
+        else:
+            dt = torch.full((bc, q, h), dt_value, device=dev)
+        a = -torch.linspace(1.0, 16.0, h, device=dev)  # -exp(a_log) at init
+        return x, dt, a, bm, cm
+
+    log("[kernels] ssd vs ssd_intra_chunk_ref")
+    cases = [("reduced", (6, 8, 8, 16, 16), {}),
+             ("ragged", (3, 100, 5, 20, 40), {})]
+    cases += [(arch, shape, {}) for arch, shape in SSD_SHAPES.items()]
+    cases += [(arch + " strided", shape, dict(strided=True))
+              for arch, shape in SSD_SHAPES.items()]
+    # cum falls to ~-410 over the chunk: the masked decay must select
+    cases += [("mamba2-780m dt=0.1", SSD_SHAPES["mamba2-780m"],
+               dict(dt_value=0.1))]
+    max_err = 0.0
+    for name, shape, kw in cases:
+        ins = inputs(*shape, **kw)
+        got = ssd_intra_chunk(*ins)
+        torch.cuda.synchronize()
+        for part, gt, rf in zip(("y", "state", "decay"), got,
+                                ssd_intra_chunk_ref(*ins)):
+            err = compare(f"f32 {name} {list(shape)} {part}", gt, rf,
+                          *SSD_TOL)
+            if shape in SSD_SHAPES.values():
+                max_err = max(max_err, err)
+
+    rows = {}
+    for arch, shape in SSD_SHAPES.items():
+        ins = inputs(*shape)
+        row = dict(
+            shape=list(shape),
+            ms=time_ms(torch, lambda: ssd_intra_chunk(*ins)),
+            plain_ms=time_ms(torch, lambda: ssd_intra_chunk_ref(*ins)),
+        )
+        row["bound_ms"], row["bound_by"], flops, nbytes = ssd_bound(*shape)
+        row["gflop"], row["mbytes"] = flops / 1e9, nbytes / 1e6
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        rows[arch] = row
+    log(f"  timings [B*nc, Q, H, P, N] fp32: {json.dumps(rows)}")
+    main = rows["mamba2-780m"]
+    return dict(name="ssd", route="cuda",
+                source="src/repro_torch/csrc/ssd.cu",
+                replaces="src/repro/kernels/ssd/kernel.py:20",
+                max_abs_err=max_err, rtol=SSD_TOL[0], atol=SSD_TOL[1],
+                ms=main["ms"], kernel_ms=main["ms"],
+                plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                bound_by=main["bound_by"], library_ms=None,
+                timed="one mamba2-780m prefill layer's SSD intra-chunk "
+                      "pass, [8,256,48,64] N=128 fp32",
+                per_arch=rows)
+
+
+def counters():
+    """The three kernel wrappers, by kernel name (each counts its own
+    launches in ``.launches``)."""
+    from repro_torch.kernels.flash_attention.ops import attention
+    from repro_torch.kernels.ssd.ops import ssd_intra_chunk
+    from repro_torch.kernels.tatp_matmul.ops import tatp_dot
+    return {"tatp_matmul": tatp_dot, "flash_attention": attention,
+            "ssd": ssd_intra_chunk}
+
+
+def read_launches():
+    return {name: fn.launches for name, fn in counters().items()}
+
+
+def zero_launches():
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def prefill_launches(cfg):
+    """Kernel launches of one prefill: per attention slot (G, L or S) the
+    four attention linears, the MLP's (three gated, two not) and one
+    flash; per Mamba-2 slot in_proj, out_proj and one SSD pass."""
+    from repro_torch.models.common import is_gated
+    n = {"tatp_matmul": 0, "flash_attention": 0, "ssd": 0}
+    for kind in cfg.pattern_for_layers():
+        if kind == "M":
+            n["tatp_matmul"] += 2
+            n["ssd"] += 1
+        else:
+            n["tatp_matmul"] += 4 + (3 if is_gated(cfg.act) else 2)
+            n["flash_attention"] += 1
+    return n
+
+
+def serve_bundle(torch, cfg, **hooks):
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.core.dist import Dist
+    from repro_torch.train.train_loop import make_serve_fns
+    return make_serve_fns(cfg, ParallelConfig(strategy="tatp", remat=False),
+                          Dist(torch.device("cuda")), **hooks)
+
+
+# (arch, layers, batch, prompt) of the fp32 parity runs; the SSM prompts
+# are two 256-token chunks, so the inter-chunk recurrence runs
+PARITY = (("deepseek-7b", 2, 2, 128), ("mamba2-780m", 2, 2, 512),
+          ("zamba2-2.7b", 6, 2, 512))
+
+
+def phase_parity(torch, arch, n_layers, b, s, steps=4):
+    """Full width, ``n_layers`` layers, fp32: kernels vs plain versions."""
     from dataclasses import replace
 
     import numpy as np
 
     from repro_torch.configs import get_config
-    from repro_torch.configs.base import ParallelConfig
-    from repro_torch.core.dist import Dist
-    from repro_torch.kernels.flash_attention.ops import attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
-    from repro_torch.kernels.tatp_matmul.ops import tatp_dot
     from repro_torch.kernels.tatp_matmul.ref import matmul_ref
     from repro_torch.models import lm
+    from repro_torch.models.ssm import ssd_chunked
     from repro_torch.models.transformer import init_params
-    from repro_torch.train.train_loop import make_serve_fns
 
     dev = torch.device("cuda")
-    cfg = replace(get_config("deepseek-7b"), n_layers=2, dtype="float32")
-    b, s, steps = 2, 128, 4
+    cfg = replace(get_config(arch), n_layers=n_layers, dtype="float32")
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(1),
                          dev)
-    par = ParallelConfig(strategy="tatp", remat=False)
-    kern = make_serve_fns(cfg, par, Dist(dev))
-    plain = make_serve_fns(cfg, par, Dist(dev), dot=matmul_ref,
-                           attention=attention_ref)
+    kern = serve_bundle(torch, cfg)
+    plain = serve_bundle(torch, cfg, dot=matmul_ref,
+                         attention=attention_ref, ssd=ssd_chunked)
     rng = np.random.RandomState(1)
     toks = torch.as_tensor(rng.randint(0, cfg.vocab_size, (b, s)),
                            device=dev)
     runs = []
     for sb in (kern, plain):
-        n0 = (tatp_dot.launches, attention.launches)
+        zero_launches()
         caches, logits = sb.prefill_fn(params, {"tokens": toks})
         torch.cuda.synchronize()
-        launched = (tatp_dot.launches - n0[0], attention.launches - n0[1])
+        launched = read_launches()
         big = lm.graft_cache_slots(lm.init_cache(sb.ctx, b, s + steps),
                                    caches, slots=range(b))
         tok = logits[:, -1:, :].argmax(dim=-1) % cfg.vocab_size
@@ -361,12 +582,16 @@ def phase_parity(torch):
             cl = torch.full((b,), s + i + 1, device=dev)
             tok, lg, big = sb.decode_fn(params, tok, big, cl)
             out.append((lg[:, -1], tok))
+        need(read_launches() == launched, "decode launched a kernel")
         runs.append((launched, out))
-    need(runs[0][0] == (7 * cfg.n_layers, cfg.n_layers),
-         f"kernel prefill launched {runs[0][0]} (GEMM, flash)")
-    need(runs[1][0] == (0, 0), f"plain prefill launched {runs[1][0]}")
-    log(f"[parity] deepseek-7b full width, {cfg.n_layers} layers, fp32, "
-        f"batch {b}, prompt {s}, {steps} decode steps")
+    need(runs[0][0] == prefill_launches(cfg),
+         f"kernel prefill launched {runs[0][0]}, want "
+         f"{prefill_launches(cfg)}")
+    need(not any(runs[1][0].values()), f"plain prefill launched "
+         f"{runs[1][0]}")
+    log(f"[parity] {arch} full width, {cfg.n_layers} layers, fp32, "
+        f"batch {b}, prompt {s}, {steps} decode steps; kernel launches "
+        f"{runs[0][0]}")
     for i, ((lk, tk), (lp, tp)) in enumerate(zip(runs[0][1], runs[1][1])):
         what = "prefill" if i == 0 else f"decode step {i}"
         compare(f"{what} logits", lk, lp, 1e-3, 1e-3)
@@ -378,20 +603,25 @@ def phase_parity(torch):
     torch.cuda.empty_cache()
 
 
-def phase_main_path(torch):
-    """One-shot serve of deepseek-7b (30 layers, bf16) through the entry
+def phase_main_path(torch, arch):
+    """One-shot serve of ``arch`` (all layers, bf16) through the entry
     point a user calls; the launch counts cover exactly this run."""
+    import numpy as np
+
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention.ops import attention
-    from repro_torch.kernels.tatp_matmul.ops import tatp_dot
     from repro_torch.launch.serve import serve
-    from repro_torch.models.transformer import init_params
+    from repro_torch.models import lm
+    from repro_torch.models.transformer import init_params, padded_vocab
 
     dev = torch.device("cuda")
-    cfg = get_config("deepseek-7b")
-    need(cfg.n_layers == N_LAYERS, "deepseek-7b is not 30 layers")
-    args = Namespace(arch="deepseek-7b", reduced=False, device="cuda",
-                     **MAIN)
+    spec = PATHS[arch]
+    cfg = get_config(arch)
+    need(cfg.n_layers == spec["n_layers"],
+         f"{arch} is not {spec['n_layers']} layers")
+    need(prefill_launches(cfg) == spec["launches"],
+         f"{arch}: layer pattern gives {prefill_launches(cfg)}")
+    run = dict(batch=BATCH, prompt_len=spec["prompt_len"], gen=GEN)
+    args = Namespace(arch=arch, reduced=False, device="cuda", **run)
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                          dev)
@@ -399,21 +629,17 @@ def phase_main_path(torch):
     init_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
 
-    tatp_dot.launches = 0
-    attention.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     res = serve(args, params=params)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = {"tatp_matmul": tatp_dot.launches,
-                "flash_attention": attention.launches}
+    launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
 
-    need(launches["tatp_matmul"] == 7 * N_LAYERS,
-         f"GEMM launches {launches['tatp_matmul']} != {7 * N_LAYERS}")
-    need(launches["flash_attention"] == N_LAYERS,
-         f"flash launches {launches['flash_attention']} != {N_LAYERS}")
-    need(res["generated_shape"] == [MAIN["batch"], MAIN["gen"] + 1],
+    need(launches == spec["launches"],
+         f"{arch}: launches {launches} != {spec['launches']}")
+    need(res["generated_shape"] == [BATCH, GEN + 1],
          f"generated shape {res['generated_shape']}")
     need(all(0 <= t < cfg.vocab_size for t in res["sample"]),
          f"token out of range in {res['sample']}")
@@ -421,16 +647,9 @@ def phase_main_path(torch):
          "bad tokens/s")
 
     # prefill time and output check, after the counted run
-    from repro_torch.configs.base import ParallelConfig
-    from repro_torch.core.dist import Dist
-    from repro_torch.models import lm
-    from repro_torch.train.train_loop import make_serve_fns
-    import numpy as np
-
-    sb = make_serve_fns(cfg, ParallelConfig(strategy="tatp", remat=False),
-                        Dist(dev))
+    sb = serve_bundle(torch, cfg)
     prompts = np.random.RandomState(0).randint(
-        0, cfg.vocab_size, (MAIN["batch"], MAIN["prompt_len"]))
+        0, cfg.vocab_size, (BATCH, run["prompt_len"]))
     batch = {"tokens": torch.as_tensor(prompts, device=dev)}
     times = []
     for _ in range(3):
@@ -439,11 +658,11 @@ def phase_main_path(torch):
         caches, logits = sb.prefill_fn(params, batch)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    need(tuple(logits.shape) == (MAIN["batch"], 1, 102400)
+    need(tuple(logits.shape) == (BATCH, 1, padded_vocab(cfg))
          and logits.dtype == torch.float32, f"logits {logits.shape}")
     need(bool(logits.isfinite().all()), "non-finite prefill logits")
     need(all(bool(t.isfinite().all()) for c in caches.values()
-             for t in c.values()), "non-finite KV cache")
+             for t in c.values()), "non-finite cache")
     first = (logits[:, -1].argmax(-1) % cfg.vocab_size)[0].item()
     need(first == res["sample"][0], "prefill is not deterministic")
 
@@ -451,13 +670,13 @@ def phase_main_path(torch):
     # them (token to the host after each step)
     steps = 4
     big = lm.graft_cache_slots(
-        lm.init_cache(sb.ctx, MAIN["batch"], MAIN["prompt_len"] + steps),
-        caches, slots=range(MAIN["batch"]))
+        lm.init_cache(sb.ctx, BATCH, run["prompt_len"] + steps),
+        caches, slots=range(BATCH))
     state = [logits[:, -1:].argmax(-1) % cfg.vocab_size, big]
 
     def decode_steps():
         for i in range(steps):
-            cl = torch.full((MAIN["batch"],), MAIN["prompt_len"] + i + 1,
+            cl = torch.full((BATCH,), run["prompt_len"] + i + 1,
                             device=dev)
             tok, _, state[1] = sb.decode_fn(params, state[0], state[1], cl)
             state[0] = tok
@@ -466,12 +685,16 @@ def phase_main_path(torch):
     prof = dict(prefill=profile_window(
                     torch, lambda: sb.prefill_fn(params, batch)),
                 decode_4_steps=profile_window(torch, decode_steps))
+    need(all(bool(t.isfinite().all()) for c in state[1].values()
+             for t in c.values()), "non-finite cache after decode")
     out = dict(serve=res, launches=launches,
                prefill_ms=sorted(times)[1], prefill_ms_runs=times,
                peak_mem_gb=peak / 1e9, init_s=init_s, serve_wall_s=wall_s,
                profile=prof)
-    log(f"[main path] deepseek-7b 30 layers bf16 batch {MAIN['batch']} "
-        f"prompt {MAIN['prompt_len']} gen {MAIN['gen']}: {json.dumps(out)}")
+    log(f"[main path] {arch} {cfg.n_layers} layers bf16 batch {BATCH} "
+        f"prompt {run['prompt_len']} gen {GEN}: {json.dumps(out)}")
+    del params, caches, state, big
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -494,10 +717,12 @@ def main() -> int:
     name, smi = phase_device(torch)
     phase_build()
     kernels = phase_kernels(torch)
-    phase_parity(torch)
-    launches = phase_main_path(torch)
+    for arch, n_layers, b, s in PARITY:
+        phase_parity(torch, arch, n_layers, b, s)
+    by_path = {arch: phase_main_path(torch, arch) for arch in PATHS}
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches"] = sum(n[k["name"]] for n in by_path.values())
+        k["launches_by_path"] = {a: n[k["name"]] for a, n in by_path.items()}
     log(json.dumps({"kernels": kernels}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(smi)

@@ -20,6 +20,8 @@ from repro_torch.configs.base import (
 # arch id -> module name (ported architectures only)
 ARCHITECTURES: dict[str, str] = {
     "deepseek-7b": "deepseek_7b",
+    "mamba2-780m": "mamba2_780m",
+    "zamba2-2.7b": "zamba2_2_7b",
 }
 
 

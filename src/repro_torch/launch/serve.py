@@ -5,13 +5,15 @@ fixed number of tokens, at ring degree 1 with strategy ``tatp``::
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-7b \\
         --batch 4 --prompt-len 128 --gen 32
 
-It runs on the GPU unless ``--device cpu`` is given; with no GPU it
-raises.  Prompts come from ``numpy.random.RandomState(0)`` as in the
-reference, so both packages serve the same prompts; weights are random
-(seed 0, as the reference's ``jax.random.key(0)``) unless the caller
-passes ``params``.  The printed JSON has
-the reference's keys.  Engine mode (``--serve``, plan-driven continuous
-batching) is ROADMAP.md item A1.
+Architectures: ``deepseek-7b``, ``mamba2-780m`` and ``zamba2-2.7b``; for
+the two SSM models ``--prompt-len`` must be a multiple of ``ssm_chunk``
+(256, or 8 with ``--reduced``).  It runs on the GPU unless
+``--device cpu`` is given; with no GPU it raises.  Prompts come from
+``numpy.random.RandomState(0)`` as in the reference, so both packages
+serve the same prompts; weights are random (seed 0, as the reference's
+``jax.random.key(0)``) unless the caller passes ``params``.  The printed
+JSON has the reference's keys.  Engine mode (``--serve``, plan-driven
+continuous batching) is ROADMAP.md item A1.
 """
 
 from __future__ import annotations

@@ -4,19 +4,21 @@ at ring degree 1: the serving entry points :func:`prefill` and
 
 The reference scans the stacked layer reps with ``lax.scan``; here a Python
 loop walks the rep axis, indexing each stacked parameter (a view, no copy).
+Layer kinds ``G``/``L`` (attention + MLP), ``M`` (Mamba-2) and ``S``
+(zamba2's shared attention + MLP, one parameter set for every slot) run;
+each slot keeps its own cache (K/V, or the SSM state and conv tail).
 """
 
 from __future__ import annotations
 
 from dataclasses import replace
-from typing import Any
-
 import torch
 
 from repro_torch import not_ported
 from repro_torch.models.common import rms_norm, softcap
-from repro_torch.models.transformer import (RunCtx, _unit_and_reps,
-                                            attn_block, mlp_block)
+from repro_torch.models.transformer import (CONV_K, RunCtx, _unit_and_reps,
+                                            attn_block, mamba_block,
+                                            mlp_block)
 
 
 def embed_tokens(ctx: RunCtx, embed, tokens, prefix_embeds=None):
@@ -48,42 +50,51 @@ def lm_head_logits(ctx: RunCtx, params, x):
 def _stack(ctx: RunCtx, params, x, caches=None, cache_len=None):
     """Run the decoder stack.  Returns (x, aux_loss, new_caches).
 
-    ``prefill`` returns each attention block's K/V stacked on the rep axis;
-    ``decode`` updates ``caches`` in place and returns it."""
+    ``prefill`` returns each block's cache leaves stacked on the rep axis
+    (``{"k", "v"}`` for attention slots, ``{"state", "conv"}`` for Mamba-2
+    slots); ``decode`` updates ``caches`` in place and returns it."""
     cfg = ctx.cfg
     if cfg.is_moe:
         raise not_ported("MoE blocks", "A4")
     unit, reps = _unit_and_reps(cfg)
+    shared = params.get("shared")
     collect = caches is None and ctx.phase == "prefill"
-    new: dict[str, Any] = {f"u{pos}": {"k": [], "v": []} for pos in
-                           range(len(unit))}
+    new: dict[str, dict[str, list]] = {f"u{pos}": {} for pos in
+                                       range(len(unit))}
     for i in range(reps):
         for pos, kind in enumerate(unit):
             key = f"u{pos}"
-            p = {n: t[i] for n, t in params["layers"][key].items()}
+            if kind == "S":
+                p = shared
+            else:
+                p = {n: t[i] for n, t in params["layers"][key].items()}
             c = None
             if caches is not None:
                 c = {n: t[i] for n, t in caches[key].items()}
-            if kind not in ("G", "L"):
-                raise not_ported(f"layer kind {kind!r}",
-                                 "A5" if kind == "M" else "A6")
-            x, nc = attn_block(ctx, p, x, kind=kind, pos_offset=0, cache=c,
-                               cache_len=cache_len)
-            x = mlp_block(ctx, p, x)
+            if kind in ("G", "L", "S"):
+                x, nc = attn_block(ctx, p, x, kind=kind, pos_offset=0,
+                                   cache=c, cache_len=cache_len)
+                x = mlp_block(ctx, p, x)
+            elif kind == "M":
+                x, nc = mamba_block(ctx, p, x, cache=c, cache_len=cache_len)
+            else:
+                raise not_ported(f"layer kind {kind!r}", "A6")
             if collect:
-                new[key]["k"].append(nc["k"])
-                new[key]["v"].append(nc["v"])
+                for n, t in nc.items():
+                    new[key].setdefault(n, []).append(t)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if collect:
-        return x, aux, {key: {n: torch.stack(ts) for n, ts in kv.items()}
-                        for key, kv in new.items()}
+        return x, aux, {key: {n: torch.stack(ts) for n, ts in leaves.items()}
+                        for key, leaves in new.items()}
     return x, aux, caches
 
 
 def prefill(ctx: RunCtx, params, batch):
     """Build caches from a full prompt.  Returns (caches, last_logits):
-    caches ``{"u0": {"k", "v"}}`` with leaves [reps, B, s, Hkv, D], and
-    fp32 logits [B, 1, Vp] for the final position."""
+    caches ``{"u<pos>": leaves}`` in :func:`init_cache`'s layout with the
+    prompt's length on the K/V sequence axis, and fp32 logits [B, 1, Vp]
+    for the final position.  With Mamba-2 layers the prompt length must
+    be a multiple of ``cfg.ssm_chunk`` (it is never padded)."""
     cfg = ctx.cfg
     ctx = replace(ctx, phase="prefill")
     x = embed_tokens(ctx, params["embed"], batch["tokens"],
@@ -113,23 +124,35 @@ def decode_step(ctx: RunCtx, params, tokens, caches, cache_len):
 
 
 def init_cache(ctx: RunCtx, batch_local: int, max_seq: int):
-    """Zero caches matching :func:`_stack`'s layout: leaves
-    [reps, B, max_seq, Hkv, D] (axis 0 the rep, axis 1 the batch slot)."""
+    """Zero caches matching :func:`_stack`'s layout (axis 0 the rep, axis 1
+    the batch slot): attention slots ``{"k", "v"}`` [reps, B, max_seq,
+    Hkv, D] in the activation dtype; Mamba-2 slots ``{"state"}``
+    [reps, B, H, P, N] in fp32 and ``{"conv"}`` [reps, B, CONV_K - 1,
+    d_inner + 2N] in the activation dtype."""
     cfg = ctx.cfg
     if cfg.n_enc_layers:
         raise not_ported("cross-attention caches", "A6")
     unit, reps = _unit_and_reps(cfg)
-    shape = (reps, batch_local, max_seq // ctx.r, cfg.n_kv_heads,
-             cfg.head_dim)
+    kw = dict(dtype=ctx.dtype, device=ctx.device)
     caches = {}
     for pos, kind in enumerate(unit):
-        if kind not in ("G", "L"):
-            raise not_ported(f"{kind!r} caches", "A5" if kind == "M"
-                             else "A6")
-        caches[f"u{pos}"] = {
-            n: torch.zeros(shape, dtype=ctx.dtype, device=ctx.device)
-            for n in ("k", "v")
-        }
+        if kind in ("G", "L", "S"):
+            shape = (reps, batch_local, max_seq // ctx.r, cfg.n_kv_heads,
+                     cfg.head_dim)
+            leaves = {n: torch.zeros(shape, **kw) for n in ("k", "v")}
+        elif kind == "M":
+            conv_dim = cfg.d_inner + 2 * cfg.ssm_state
+            leaves = {
+                "state": torch.zeros(
+                    (reps, batch_local, cfg.ssm_heads // ctx.r,
+                     cfg.ssm_head_dim, cfg.ssm_state),
+                    dtype=torch.float32, device=ctx.device),
+                "conv": torch.zeros((reps, batch_local, CONV_K - 1,
+                                     conv_dim), **kw),
+            }
+        else:
+            raise not_ported(f"{kind!r} caches", "A6")
+        caches[f"u{pos}"] = leaves
     return caches
 
 
@@ -152,8 +175,10 @@ def graft_cache_slots(big, small, slots, rows=None):
     every cache leaf; axis 0 is the rep axis) and return ``big``.
 
     Attention K/V leaves copy the common head of the sequence axis (a
-    prompt window into the head of a longer slot).  The reference does this
-    on the host with numpy; here it is an in-place copy on the device."""
+    prompt window into the head of a longer slot); SSM state and conv
+    leaves, whose axis 2 has no context length, copy whole rows.  The
+    reference does this on the host with numpy; here it is an in-place
+    copy on the device."""
     rows = list(rows) if rows is not None else list(range(len(slots)))
     slots = list(slots)
     if not slots:

@@ -6,35 +6,45 @@ convert leaf for leaf: ``embed [Vp, D]``, ``final_ln [D]``,
 ``lm_head [D, Vp]`` (untied heads) and ``layers/u<pos>/<name>`` stacked on
 a leading rep axis; weights are ``[in, out]``.
 
+Zamba2's shared attention+MLP block (layer kind ``S``) keeps one
+unstacked parameter set under ``shared``, used by every ``S`` slot.
+
 In the ``prefill``/``train`` phases every linear runs through
-:func:`repro_torch.core.tatp.tatp_matmul` on the hand-written GEMM and
-self-attention on the hand-written flash kernel; ``RunCtx.dot`` and
-``RunCtx.attention`` hold those two hooks (parity checks swap in the plain
-versions).  Decode linears are a plain product, as in the reference.
+:func:`repro_torch.core.tatp.tatp_matmul` on the hand-written GEMM,
+self-attention on the hand-written flash kernel and the Mamba-2 SSD
+intra-chunk pass on the hand-written SSD kernel; ``RunCtx.dot``,
+``RunCtx.attention`` and ``RunCtx.ssd`` hold those three hooks (parity
+checks swap in the plain versions).  Decode linears, decode attention and
+the SSM decode step are plain torch, as in the reference.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
 item): the ring and the ``megatron``/``fsdp`` strategies (A3), MoE blocks
-(A4), Mamba2 blocks (A5), shared, cross-attention and encoder blocks (A6).
+(A4), cross-attention and encoder blocks and the modality frontends (A6).
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any, Callable
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import not_ported
 from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.core import tatp
 from repro_torch.core.dist import Dist
 from repro_torch.kernels.flash_attention.ops import attention as flash
+from repro_torch.kernels.ssd.ops import ssd_chunked
 from repro_torch.kernels.tatp_matmul.ops import tatp_dot
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import (act_fn, apply_rope, dense_init,
                                        embed_init, is_gated, rms_norm)
 
 VOCAB_PAD_MULTIPLE = 512
+CONV_K = 4  # mamba2 depthwise conv width
 
 
 def padded_vocab(cfg: ModelConfig) -> int:
@@ -48,10 +58,12 @@ class RunCtx:
     par: ParallelConfig
     dist: Dist
     phase: str = "train"  # train | prefill | decode
-    # kernel hooks: the GEMM under every prefill/train linear and the
-    # prefill/train self-attention core ([B, H, S, D] layout)
+    # kernel hooks: the GEMM under every prefill/train linear, the
+    # prefill/train self-attention core ([B, H, S, D] layout) and the
+    # chunked SSD of the prefill/train Mamba-2 blocks
     dot: Callable = tatp_dot
     attention: Callable = flash
+    ssd: Callable = ssd_chunked
 
     @property
     def axis(self) -> str:
@@ -97,16 +109,33 @@ def _mlp_shapes(cfg: ModelConfig):
     return sh
 
 
+def _mamba_shapes(cfg: ModelConfig):
+    d, di, n, nh = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    dip = 2 * di + 2 * n + nh
+    conv_dim = di + 2 * n
+    return {
+        "in_proj": (d, dip),
+        "conv_w": (CONV_K, conv_dim),
+        "conv_b": (conv_dim,),
+        "a_log": (nh,),
+        "d_skip": (nh,),
+        "dt_bias": (nh,),
+        "out_proj": (di, d),
+        "ln": (d,),
+        "gln": (di,),  # gated RMSNorm scale before out_proj
+    }
+
+
 def _block_shapes(cfg: ModelConfig, kind: str) -> dict:
-    if kind in ("G", "L"):
-        if cfg.is_moe:
+    if kind in ("G", "L", "S"):  # S: zamba2's shared attention+MLP block
+        if cfg.is_moe and kind != "S":
             raise not_ported("MoE blocks", "A4")
         sh = dict(_attn_shapes(cfg))
         sh.update({f"mlp.{k}": v for k, v in _mlp_shapes(cfg).items()})
         return sh
     if kind == "M":
-        raise not_ported("Mamba2 blocks", "A5")
-    if kind in ("S", "X"):
+        return _mamba_shapes(cfg)
+    if kind == "X":
         raise not_ported(f"layer kind {kind!r}", "A6")
     raise ValueError(kind)
 
@@ -144,17 +173,44 @@ def param_shapes(cfg: ModelConfig) -> dict:
             name: (reps, *shape)
             for name, shape in _block_shapes(cfg, kind).items()
         }
-        for pos, kind in enumerate(unit)
+        for pos, kind in enumerate(unit) if kind != "S"
     }
+    if "S" in unit:  # shared blocks are not stacked
+        shapes["shared"] = _block_shapes(cfg, "S")
     return shapes
+
+
+def _init_leaf(name, shape, generator, dtype, device):
+    """One (unstacked) leaf by the reference's rules
+    (``repro.models.transformer._init_block``)."""
+    if name.endswith("ln"):  # norm scales, gated-norm scale included
+        return torch.zeros(shape, dtype=dtype, device=device)
+    if name == "a_log":
+        return torch.log(torch.linspace(1.0, 16.0, shape[0],
+                                        device=device)).to(dtype)
+    if name == "d_skip":
+        return torch.ones(shape, dtype=dtype, device=device)
+    if name == "dt_bias":  # inverse softplus of a log-uniform [1e-3, 1e-1]
+        lo, hi = math.log(1e-3), math.log(1e-1)
+        u = torch.rand(shape, generator=generator, dtype=torch.float32,
+                       device=device)
+        return torch.log(torch.expm1(torch.exp(lo + (hi - lo) * u))).to(
+            dtype)
+    if len(shape) == 1:  # biases (bq/bk/bv, conv_b)
+        return torch.zeros(shape, dtype=dtype, device=device)
+    return dense_init(generator, shape, in_dim=shape[-2], dtype=dtype,
+                      device=device)
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device):
     """Random parameters with the reference's shapes and distributions:
-    norm scales and biases zero, weights normal x 1/sqrt(fan_in), the
-    embedding normal x 0.02.  (The draws differ from the reference's: JAX
-    keys cannot be replayed in torch; ``weights.params_from_jax`` converts
-    the reference's own tree where bit-equal weights are needed.)"""
+    norm scales and biases zero, weights normal x 1/sqrt(fan_in) (the conv
+    taps' fan-in is ``CONV_K``), the embedding normal x 0.02, and the SSM
+    leaves ``a_log = log(linspace(1, 16))``, ``d_skip = 1`` and
+    ``dt_bias`` the inverse softplus of a log-uniform draw in
+    [1e-3, 1e-1].  (The draws differ from the reference's: JAX keys cannot
+    be replayed in torch; ``weights.params_from_jax`` converts the
+    reference's own tree where bit-equal weights are needed.)"""
     dtype = getattr(torch, cfg.dtype)
     shapes = param_shapes(cfg)
 
@@ -173,16 +229,17 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device):
     for unit, block in shapes["layers"].items():
         out = {}
         for name, shape in sorted(block.items()):
-            reps, per = shape[0], shape[1:]
-            if len(per) == 1:  # norm scales and biases
-                out[name] = torch.zeros(shape, **kw())
-                continue
             w = torch.empty(shape, **kw())
-            for i in range(reps):  # one rep at a time: small fp32 staging
-                w[i] = dense_init(generator, per, in_dim=per[-2], **kw())
+            for i in range(shape[0]):  # one rep at a time: small staging
+                w[i] = _init_leaf(name, shape[1:], generator, **kw())
             out[name] = w
         layers[unit] = out
     params["layers"] = layers
+    if "shared" in shapes:
+        params["shared"] = {
+            name: _init_leaf(name, shape, generator, **kw())
+            for name, shape in sorted(shapes["shared"].items())
+        }
     return params
 
 
@@ -271,3 +328,63 @@ def mlp_block(ctx: RunCtx, p, x, prefix="mlp."):
         up = f(up)
     y = _linear(ctx, up, p[prefix + "w_down"])
     return x + y.to(x.dtype)
+
+
+def mamba_block(ctx: RunCtx, p, x, cache=None, cache_len=None):
+    """Pre-norm Mamba-2 block with residual.  Returns (y, new_cache): in
+    ``prefill`` the new cache is the final SSM state (fp32) and the conv's
+    last ``CONV_K - 1`` inputs (activation dtype); in ``decode`` the given
+    cache updated in place.  The dtype flow is the reference's: the SSD
+    inputs and the skip are fp32, the conv runs in the activation dtype."""
+    cfg = ctx.cfg
+    if ctx.r != 1:
+        raise not_ported("the sequence-sharded SSD scan over the ring", "A3")
+    di, n, nh, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, \
+        cfg.ssm_head_dim
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    zxbcdt = _linear(ctx, h, p["in_proj"])
+    z = zxbcdt[..., :di]
+    xbc = zxbcdt[..., di:di + di + 2 * n]
+    dt_raw = zxbcdt[..., di + di + 2 * n:]
+    a = -torch.exp(p["a_log"].float())
+    d_skip = p["d_skip"].float()
+    dt_bias = p["dt_bias"].float()
+
+    if ctx.phase == "decode":
+        conv_out, conv_cache = ssm_lib.conv_decode_step(
+            xbc[:, 0, :], cache["conv"], p["conv_w"], p["conv_b"])
+        conv_out = F.silu(conv_out)
+        xs = conv_out[:, :di]
+        bmat = conv_out[:, di:di + n]
+        cmat = conv_out[:, di + n:]
+        dt = F.softplus(dt_raw[:, 0, :].float() + dt_bias)
+        y, state_new = ssm_lib.ssd_decode_step(
+            xs.reshape(-1, nh, hd).float(), dt, a, bmat.float(),
+            cmat.float(), d_skip, cache["state"])
+        y = y.reshape(-1, 1, di).to(x.dtype)
+        cache["state"].copy_(state_new)
+        cache["conv"].copy_(conv_cache)
+        new_cache = cache
+    else:
+        conv_out = ssm_lib.causal_conv1d(xbc, p["conv_w"], p["conv_b"],
+                                         axis=ctx.axis, axis_size=1)
+        conv_out = F.silu(conv_out)
+        xs = conv_out[..., :di]
+        bmat = conv_out[..., di:di + n].float()
+        cmat = conv_out[..., di + n:].float()
+        dt = F.softplus(dt_raw.float() + dt_bias)
+        b_, l_ = xs.shape[:2]
+        xh = xs.reshape(b_, l_, nh, hd).float()
+        out = ctx.ssd(xh, dt, a, bmat, cmat, cfg.ssm_chunk)
+        y = out.y + d_skip[None, None, :, None] * xh
+        y = y.reshape(b_, l_, di).to(x.dtype)
+        new_cache = None
+        if ctx.phase == "prefill":
+            # a copy, so the cache does not hold the whole in_proj output
+            new_cache = {"state": out.state.float(),
+                         "conv": xbc[:, -(CONV_K - 1):, :].clone()}
+
+    y = y * F.silu(z.float()).to(x.dtype)
+    y = rms_norm(y, p["gln"], cfg.norm_eps)
+    out = _linear(ctx, y, p["out_proj"])
+    return x + out.to(x.dtype), new_cache

@@ -69,12 +69,14 @@ def _rep(tree, i=0):
 # ---------------------------------------------------------------------------
 
 
-def test_configs_match_reference():
+@pytest.mark.parametrize("arch", ["deepseek-7b", "mamba2-780m",
+                                  "zamba2-2.7b"])
+def test_configs_match_reference(arch):
     from repro.configs import get_config as jax_config
-    assert get_config(ARCH) == _as_port(jax_config(ARCH))
-    assert get_reduced(ARCH) == _as_port(jax_reduced(ARCH))
+    assert get_config(arch) == _as_port(jax_config(arch))
+    assert get_reduced(arch) == _as_port(jax_reduced(arch))
     with pytest.raises(KeyError, match="not ported"):
-        get_config("mamba2-780m")
+        get_config("olmoe-1b-7b")
 
 
 def _as_port(jcfg):

@@ -179,8 +179,8 @@ def test_unported_paths_name_their_roadmap_item(model):
     cfg, _, _, tctx, _ = model
     with pytest.raises(NotImplementedError, match="A4"):
         ttf.param_shapes(replace(cfg, n_experts=8, top_k=2))
-    with pytest.raises(NotImplementedError, match="A5"):
-        ttf.param_shapes(replace(cfg, layer_pattern="M"))
+    with pytest.raises(NotImplementedError, match="A6"):
+        ttf.param_shapes(replace(cfg, layer_pattern="X"))
     with pytest.raises(NotImplementedError, match="A3"):
         ttf._linear(replace(tctx, par=ParallelConfig(strategy="megatron")),
                     torch.zeros(1, 1, 4), torch.zeros(4, 4))

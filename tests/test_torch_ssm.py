@@ -1,0 +1,408 @@
+"""The repro_torch SSM slice against repro on the CPU: the SSD kernel's
+plain version against the Pallas kernel (interpret mode) and the jnp
+oracle, the chunked SSD, the SSM decode step and convs, the Mamba-2 block
+on converted weights, the reduced mamba2-780m and zamba2-2.7b models
+(prefill plus greedy decode) and their one-shot serve, and the SSM leaves
+of ``init_params``; on a machine with an NVIDIA GPU and nvcc, the SSD
+kernel against its plain version.
+
+Reduced configs (fp32): mamba2-780m 2 x ``M``, zamba2-2.7b ``MMS`` (d_model
+64, d_inner 128, 8 SSM heads of 16, state 16, chunk 8).  Inputs are made
+with numpy from a seed and fed to both packages."""
+
+import argparse
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_reduced as jax_reduced
+from repro.configs.base import ParallelConfig as JaxPar
+from repro.core.dist import Dist as JaxDist
+from repro.core.dist import make_mesh
+from repro.kernels.ssd.kernel import ssd_intra_chunk as pallas_ssd
+from repro.kernels.ssd.ref import ssd_intra_chunk_ref as jax_ssd_ref
+from repro.models import lm as jlm
+from repro.models import ssm as jssm
+from repro.models import transformer as jtf
+from repro_torch.configs import get_reduced
+from repro_torch.configs.base import ParallelConfig
+from repro_torch.core.dist import Dist
+from repro_torch.kernels.ssd import ops as ssd_ops
+from repro_torch.kernels.ssd.ref import ssd_intra_chunk_ref
+from repro_torch.models import lm as tlm
+from repro_torch.models import ssm as tssm
+from repro_torch.models import transformer as ttf
+from repro_torch.weights import params_from_jax
+
+ARCHS = ("mamba2-780m", "zamba2-2.7b")
+# logits and caches after a whole model: fp32, different summation order
+MODEL_TOL = dict(rtol=5e-4, atol=5e-4)
+# one module: fp32, different summation order
+TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a, np.float32))
+
+
+def _j(a):
+    return jnp.asarray(np.asarray(a, np.float32))
+
+
+def _close(got, ref, **kw):
+    np.testing.assert_allclose(got.detach().float().numpy(),
+                               np.asarray(ref, np.float32), **{**TOL, **kw})
+
+
+def _ssd_inputs(rng, b, q, h, p, n):
+    return (rng.randn(b, q, h, p), np.abs(rng.randn(b, q, h)) * 0.1,
+            -(np.abs(rng.randn(h)) + 0.1), rng.randn(b, q, n),
+            rng.randn(b, q, n))
+
+
+# ---------------------------------------------------------------------------
+# the SSD intra-chunk kernel's plain version
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("h,p,n", [(8, 16, 16), (16, 64, 32), (8, 64, 128)])
+def test_ssd_intra_chunk_ref_matches_pallas(h, p, n):
+    """The shapes of tests/test_kernels.py's Pallas check."""
+    ins = _ssd_inputs(np.random.RandomState(4), 3, 32, h, p, n)
+    got = ssd_intra_chunk_ref(*map(_t, ins))
+    pallas = pallas_ssd(*map(_j, ins), interpret=True)
+    oracle = jax_ssd_ref(*map(_j, ins))
+    for g, pr, o, name in zip(got, pallas, oracle, ("y", "state", "decay")):
+        _close(g, pr, **TOL, err_msg=name)
+        _close(g, o, **TOL, err_msg=name)
+
+
+def test_ssd_intra_chunk_large_decay_is_finite():
+    """cum falls to ~-400 over a 256-token chunk at a = -16, dt = 0.1: the
+    masked decay must select (not multiply), so no inf * 0 = NaN."""
+    rng = np.random.RandomState(5)
+    x, _, _, bm, cm = _ssd_inputs(rng, 1, 256, 2, 16, 16)
+    dt = np.full((1, 256, 2), 0.1)
+    a = np.array([-16.0, -1.0])
+    got = ssd_intra_chunk_ref(*map(_t, (x, dt, a, bm, cm)))
+    ref = jax_ssd_ref(*map(_j, (x, dt, a, bm, cm)))
+    for g, r in zip(got, ref):
+        assert torch.isfinite(g).all()
+        _close(g, r)
+
+
+def test_ssd_intra_chunk_cpu_uses_plain_version():
+    ins = [_t(a) for a in _ssd_inputs(np.random.RandomState(6), 2, 8, 4,
+                                      16, 16)]
+    before = ssd_ops.ssd_intra_chunk.launches
+    got = ssd_ops.ssd_intra_chunk(*ins)
+    for g, r in zip(got, ssd_intra_chunk_ref(*ins)):
+        assert torch.equal(g, r)
+    assert ssd_ops.ssd_intra_chunk.launches == before
+
+
+def test_ssd_wrapper_raises_off_cpu_and_cuda():
+    """A tensor neither on the CPU nor on a CUDA device gets no plain-path
+    fallback: the wrapper raises and counts no launch."""
+    x = torch.empty(2, 8, 4, 16, device="meta")
+    dt = torch.empty(2, 8, 4, device="meta")
+    a = torch.empty(4, device="meta")
+    bm = torch.empty(2, 8, 16, device="meta")
+    before = ssd_ops.ssd_intra_chunk.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_ops.ssd_intra_chunk(x, dt, a, bm, bm)
+    assert ssd_ops.ssd_intra_chunk.launches == before
+
+
+# ---------------------------------------------------------------------------
+# chunked SSD, decode step and convs
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("fn", ["kernel_backed", "oracle"])
+def test_ssd_chunked_matches_reference(fn):
+    """nc = 4 chunks, so the inter-chunk recurrence runs."""
+    rng = np.random.RandomState(7)
+    b, l, h, p, n, chunk = 2, 64, 8, 16, 16, 16
+    ins = _ssd_inputs(rng, b, l, h, p, n)
+    ref = jssm.ssd_chunked(*map(_j, ins), chunk)
+    f = ssd_ops.ssd_chunked if fn == "kernel_backed" else tssm.ssd_chunked
+    got = f(*map(_t, ins), chunk)
+    for g, r, name in zip(got, ref, ("y", "state", "decay")):
+        _close(g, r, err_msg=name)
+
+
+def test_ssd_chunked_oracle_h_init():
+    rng = np.random.RandomState(8)
+    ins = _ssd_inputs(rng, 2, 32, 4, 16, 8)
+    h0 = rng.randn(2, 4, 16, 8)
+    ref = jssm.ssd_chunked(*map(_j, ins), 8, h_init=_j(h0))
+    got = tssm.ssd_chunked(*map(_t, ins), 8, h_init=_t(h0))
+    for g, r in zip(got, ref):
+        _close(g, r)
+
+
+@pytest.mark.parametrize("f", [ssd_ops.ssd_chunked, tssm.ssd_chunked])
+def test_ssd_chunked_never_pads(f):
+    ins = [_t(a) for a in _ssd_inputs(np.random.RandomState(9), 1, 12, 2,
+                                      16, 8)]
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        f(*ins, 8)
+
+
+def test_ssd_decode_step():
+    rng = np.random.RandomState(10)
+    b, h, p, n = 3, 4, 16, 8
+    ins = (rng.randn(b, h, p), np.abs(rng.randn(b, h)) * 0.1,
+           -(np.abs(rng.randn(h)) + 0.1), rng.randn(b, n), rng.randn(b, n),
+           rng.randn(h), rng.randn(b, h, p, n))
+    state = _t(ins[-1])
+    kept = state.clone()
+    got = tssm.ssd_decode_step(*map(_t, ins[:-1]), state)
+    ref = jssm.ssd_decode_step(*map(_j, ins))
+    for g, r in zip(got, ref):
+        _close(g, r)
+    assert torch.equal(state, kept)
+
+
+def test_causal_conv1d():
+    rng = np.random.RandomState(11)
+    x, w, bias = rng.randn(2, 9, 12), rng.randn(4, 12), rng.randn(12)
+    got = tssm.causal_conv1d(_t(x), _t(w), _t(bias), axis="model",
+                             axis_size=1)
+    ref = jssm.causal_conv1d(_j(x), _j(w), _j(bias), axis="model",
+                             axis_size=1)
+    _close(got, ref)
+    with pytest.raises(NotImplementedError, match="A3"):
+        tssm.causal_conv1d(_t(x), _t(w), _t(bias), axis="model",
+                           axis_size=2)
+
+
+def test_conv_decode_step():
+    rng = np.random.RandomState(12)
+    xn, cache = rng.randn(2, 12), rng.randn(2, 3, 12)
+    w, bias = rng.randn(4, 12), rng.randn(12)
+    got = tssm.conv_decode_step(*map(_t, (xn, cache, w, bias)))
+    ref = jssm.conv_decode_step(*map(_j, (xn, cache, w, bias)))
+    for g, r in zip(got, ref):
+        _close(g, r)
+
+
+# ---------------------------------------------------------------------------
+# the Mamba-2 block and whole models on converted weights
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def model(request):
+    arch = request.param
+    jcfg, cfg = jax_reduced(arch), get_reduced(arch)
+    jparams = jax.jit(lambda k: jtf.init_params(k, jcfg))(jax.random.key(0))
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), cfg, "cpu")
+    return arch, cfg, jcfg, jparams, params
+
+
+def _ctxs(cfg, jcfg, phase):
+    jctx = jtf.RunCtx(jcfg, JaxPar(strategy="tatp", remat=False),
+                      JaxDist(make_mesh((1,), ("model",))), phase=phase)
+    tctx = ttf.RunCtx(cfg, ParallelConfig(strategy="tatp", remat=False),
+                      Dist(torch.device("cpu")), phase=phase)
+    return jctx, tctx
+
+
+@pytest.mark.parametrize("phase", ["prefill", "decode"])
+def test_mamba_block(model, phase):
+    _, cfg, jcfg, jparams, params = model
+    jctx, tctx = _ctxs(cfg, jcfg, phase)
+    rng = np.random.RandomState(13)
+    b, s = 2, (1 if phase == "decode" else 16)
+    x = rng.randn(b, s, cfg.d_model)
+    jp = {k: v[-1] for k, v in jparams["layers"]["u0"].items()}
+    tp = {k: v[-1] for k, v in params["layers"]["u0"].items()}
+    kw_j, kw_t = {}, {}
+    if phase == "decode":
+        conv_dim = cfg.d_inner + 2 * cfg.ssm_state
+        st = rng.randn(b, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state)
+        cv = rng.randn(b, ttf.CONV_K - 1, conv_dim)
+        kw_j = dict(cache={"state": _j(st), "conv": _j(cv)},
+                    cache_len=jnp.asarray([5, 9]))
+        kw_t = dict(cache={"state": _t(st), "conv": _t(cv)},
+                    cache_len=torch.as_tensor([5, 9]))
+    ref, ref_c = jax.jit(lambda p, x, kw: jtf.mamba_block(jctx, p, x, **kw))(
+        jp, _j(x), kw_j)
+    got, got_c = ttf.mamba_block(tctx, tp, _t(x), **kw_t)
+    _close(got, ref)
+    for n in ("state", "conv"):
+        _close(got_c[n], ref_c[n])
+    if phase == "decode":  # updated in place
+        assert got_c["state"] is kw_t["cache"]["state"]
+    else:
+        assert got_c["state"].dtype == torch.float32
+        assert got_c["conv"].is_contiguous()
+
+
+def _prefill_and_decode(model, steps=4, b=2, s=16):
+    _, cfg, jcfg, jparams, params = model
+    jctx, tctx = _ctxs(cfg, jcfg, "decode")
+    max_seq = s + steps
+    toks = np.random.RandomState(14).randint(0, cfg.vocab_size, (b, s))
+    jc, jl = jax.jit(lambda p, t: jlm.prefill(jctx, p, t))(
+        jparams, {"tokens": jnp.asarray(toks)})
+    tc, tl = tlm.prefill(tctx, params, {"tokens": torch.as_tensor(toks)})
+    jbig = jax.tree.map(jnp.asarray, jlm.graft_cache_slots(
+        jax.device_get(jlm.init_cache(jctx, b, max_seq)),
+        jax.device_get(jc), slots=range(b)))
+    tbig = tlm.graft_cache_slots(tlm.init_cache(tctx, b, max_seq), tc,
+                                 slots=range(b))
+    out = [((tl, jl), (tc, jc))]
+    jt = jnp.argmax(jl[:, -1:, :], axis=-1).astype(jnp.int32) \
+        % cfg.vocab_size
+    tt = tl[:, -1:, :].argmax(dim=-1) % cfg.vocab_size
+    step = jax.jit(lambda p, t, c, n: jlm.decode_step(jctx, p, t, c, n))
+    toks_out = [(tt, jt)]
+    for i in range(steps):
+        n = s + i + 1
+        jt, jlog, jbig = step(jparams, jt, jbig, jnp.full((b,), n,
+                                                          jnp.int32))
+        tt, tlog, tbig = tlm.decode_step(tctx, params, tt, tbig,
+                                         torch.full((b,), n))
+        snap = {k: {n: t.clone() for n, t in v.items()}
+                for k, v in tbig.items()}  # tbig is updated in place
+        out.append(((tlog, jlog), (snap, jbig)))
+        toks_out.append((tt, jt))
+    return out, toks_out
+
+
+def test_reduced_model_prefill_and_decode(model):
+    """Prefill plus 4 greedy decode steps: logits and every cache leaf
+    within 5e-4, identical tokens."""
+    out, toks = _prefill_and_decode(model)
+    for (tl, jl), (tc, jc) in out:
+        _close(tl, jl, **MODEL_TOL)
+        for key, leaves in tc.items():
+            assert set(leaves) == set(jc[key])
+            for n, t in leaves.items():
+                assert tuple(t.shape) == jc[key][n].shape, (key, n)
+                _close(t, jc[key][n], **MODEL_TOL)
+    for tt, jt in toks:
+        assert np.array_equal(tt.numpy(), np.asarray(jt))
+
+
+def test_graft_cache_slots_ssm_leaves(model):
+    """Prompt-window caches grafted into permuted slots of a longer cache:
+    K/V copy the window's head, SSM state and conv leaves whole rows."""
+    _, cfg, jcfg, _, _ = model
+    jctx, tctx = _ctxs(cfg, jcfg, "decode")
+    rng = np.random.RandomState(16)
+    small = jax.tree.map(lambda a: rng.randn(*a.shape).astype(np.float32),
+                         jax.device_get(jlm.init_cache(jctx, 2, 8)))
+    tsmall = jax.tree.map(_t, small)
+    ref = jlm.graft_cache_slots(jax.device_get(jlm.init_cache(jctx, 3, 12)),
+                                small, slots=[2, 0])
+    got = tlm.graft_cache_slots(tlm.init_cache(tctx, 3, 12), tsmall,
+                                slots=[2, 0])
+    assert set(got) == set(ref)
+    for key, leaves in got.items():
+        assert set(leaves) == set(ref[key])
+        for n, t in leaves.items():
+            assert tuple(t.shape) == ref[key][n].shape, (key, n)
+            np.testing.assert_array_equal(t.numpy(), ref[key][n])
+
+
+def test_param_shapes_and_conversion(model):
+    arch, cfg, jcfg, jparams, params = model
+    jshapes = jax.tree.map(lambda a: tuple(a.shape),
+                           jtf.param_shapes(jcfg))
+    assert ttf.param_shapes(cfg) == jshapes
+    assert ("shared" in params) == ("S" in cfg.layer_pattern)
+    if "shared" in params:  # one unstacked set for every S slot
+        assert params["shared"]["wq"].shape == (cfg.d_model, cfg.q_dim)
+        np.testing.assert_array_equal(params["shared"]["mlp.w_up"].numpy(),
+                                      np.asarray(jparams["shared"]
+                                                 ["mlp.w_up"]))
+
+
+def test_init_params_ssm_leaves():
+    """The reference's SSM distributions (not zeros): a_log = log(1..16),
+    d_skip = 1, dt_bias = softplus^-1 of a log-uniform [1e-3, 1e-1] draw,
+    zero norm scales and conv bias, conv taps normal x 1/sqrt(CONV_K)."""
+    from dataclasses import replace
+    # 32 SSM heads, two reps of MMS
+    cfg = replace(get_reduced("zamba2-2.7b"), ssm_head_dim=4, n_layers=6)
+    params = ttf.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    blk = params["layers"]["u0"]
+    nh = cfg.ssm_heads
+    want_alog = torch.log(torch.linspace(1.0, 16.0, nh))
+    for i in range(blk["a_log"].shape[0]):
+        torch.testing.assert_close(blk["a_log"][i], want_alog)
+    assert torch.equal(blk["d_skip"], torch.ones_like(blk["d_skip"]))
+    dt0 = torch.nn.functional.softplus(blk["dt_bias"])
+    assert dt0.min() >= 1e-3 * (1 - 1e-4) and dt0.max() <= 1e-1 * (1 + 1e-4)
+    assert dt0.max() / dt0.min() > 5  # a spread, not one value
+    assert not torch.equal(blk["dt_bias"][0], blk["dt_bias"][-1])
+    for name in ("ln", "gln", "conv_b"):
+        assert torch.count_nonzero(blk[name]) == 0, name
+    assert abs(blk["conv_w"].std().item() - ttf.CONV_K ** -0.5) < 0.05
+    assert abs(blk["in_proj"].std().item() - cfg.d_model ** -0.5) < 0.01
+    shared = params["shared"]
+    assert shared["wq"].dim() == 2 and torch.count_nonzero(
+        shared["ln"]) == 0
+
+
+def _serve_args(arch, **kw):
+    base = dict(arch=arch, reduced=True, batch=2, prompt_len=16, gen=6,
+                mesh=[1, 1], plan=None, auto_plan=False, plan_cache=None,
+                device="cpu")
+    base.update(kw)
+    return argparse.Namespace(**base)
+
+
+def test_serve_matches_reference(model):
+    from repro.launch.serve import serve as jax_serve
+    from repro_torch.launch.serve import serve
+    arch, _, _, _, params = model
+    args = _serve_args(arch)
+    ref = jax_serve(args)
+    got = serve(args, params=params)
+    assert got["generated_shape"] == ref["generated_shape"] == [2, 7]
+    assert got["sample"] == ref["sample"]
+
+
+def test_serve_prompt_not_a_chunk_multiple_raises():
+    from repro_torch.launch.serve import serve
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        serve(_serve_args("mamba2-780m", prompt_len=12))
+
+
+# ---------------------------------------------------------------------------
+# on the card: the SSD kernel against its plain version
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (sm_90a) and nvcc")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bc,q,h,p,n", [(8, 256, 48, 64, 128),
+                                        (8, 256, 80, 64, 64),
+                                        (6, 8, 8, 16, 16),
+                                        (3, 100, 5, 20, 40)])
+def test_ssd_kernel_matches_plain(cuda_device, bc, q, h, p, n):
+    ins = [_t(a).to(cuda_device) for a in
+           _ssd_inputs(np.random.RandomState(15), bc, q, h, p, n)]
+    before = ssd_ops.ssd_intra_chunk.launches
+    got = ssd_ops.ssd_intra_chunk(*ins)
+    torch.cuda.synchronize()
+    assert ssd_ops.ssd_intra_chunk.launches == before + 1
+    for g, r in zip(got, ssd_intra_chunk_ref(*ins)):
+        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
+                                   rtol=1e-3, atol=1e-3)
