@@ -14,22 +14,26 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
 3. kernels — each kernel against its plain PyTorch version on the card at
    ragged shapes, every mask option and the main paths' shapes (fp32 with
    TF32 off: rtol = atol = 1e-3; bf16: 2e-2, as ``tests/test_kernels.py``),
-   and timings of the kernel, its plain version and, where one exists, one
-   PyTorch library call computing the same function (a yardstick the port
-   never calls): the GEMM and flash attention at deepseek-7b's prefill
-   shapes, flash attention at zamba2-2.7b's (D = 80), the SSD intra-chunk
-   pass at mamba2-780m's and zamba2-2.7b's;
+   each case asserting the kernel path it took (GEMM: ``wgmma`` for bf16
+   that TMA can describe, ``wmma`` for other bf16, ``simt`` for fp32;
+   flash: ``mma`` for bf16, ``simt`` for fp32), and device timings of the
+   kernel, its plain version and, where one exists, one PyTorch library
+   call computing the same function (a yardstick the port never calls):
+   the GEMM and flash attention at deepseek-7b's prefill shapes, the GEMM
+   at the SSM paths', flash attention at zamba2-2.7b's (D = 80), the SSD
+   intra-chunk pass at mamba2-780m's and zamba2-2.7b's;
 4. parity — at full width in fp32, deepseek-7b (2 layers), mamba2-780m
    (2 layers) and zamba2-2.7b (6 layers, one ``MMMMMS`` unit): prefill and
-   4 greedy decode steps through the kernels and again with every kernel
-   call replaced by its plain version; last-position logits within
-   rtol = atol = 1e-3 and identical tokens;
+   4 greedy decode steps through the kernels (all on their fp32 ``simt``
+   paths) and again with every kernel call replaced by its plain version;
+   last-position logits within rtol = atol = 1e-3 and identical tokens;
 5. main paths — ``repro_torch.launch.serve`` one-shot, bf16, batch 4,
    32 generated tokens: deepseek-7b (30 layers, prompt 128), mamba2-780m
    (48 layers, prompt 512 = two SSD chunks) and zamba2-2.7b (54 layers,
    prompt 512).  Before each path every launch count is zeroed; just after
    it the counts must be exactly the path's (GEMM, flash, SSD): 210/30/0,
-   96/0/48 and 144/9/45 (one prefill each; decode runs no kernel).
+   96/0/48 and 144/9/45 (one prefill each; decode runs no kernel), every
+   GEMM launch on ``wgmma`` and every flash launch on ``mma``.
    Outputs finite and tokens in range; prefill time (median of 3), decode
    ms/token, peak memory and a profiler breakdown of each path.
 
@@ -54,6 +58,9 @@ SRC = ROOT / "src"
 # cores, HBM3 bandwidth
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
+# cycles a second of torch.cuda._sleep's spin: the H100's top SM clock, so
+# the spin lasts at least as long as asked
+SPIN_HZ = 1.98e9
 
 GEMM_TOL = {"float32": (1e-3, 1e-3), "bfloat16": (2e-2, 2e-2)}
 ATTN_TOL = GEMM_TOL
@@ -71,6 +78,8 @@ PATHS = {
         tatp_matmul=144, flash_attention=9, ssd=45)),
 }
 BATCH, GEN = 4, 32
+# the kernel path every bf16 main-path launch must take
+MAIN_PATH_KERNEL = {"tatp_matmul": "wgmma", "flash_attention": "mma"}
 
 # deepseek-7b's prefill at batch 4 x prompt 128: the GEMM and flash rows
 MAIN = dict(batch=BATCH, prompt_len=PATHS["deepseek-7b"]["prompt_len"],
@@ -88,6 +97,15 @@ SSM_GEMMS = (("mamba2-780m", 1536, 6448, 48), ("mamba2-780m", 3072, 1536, 48),
              ("zamba2-2.7b", 2560, 10448, 45), ("zamba2-2.7b", 5120, 2560, 45),
              ("zamba2-2.7b", 2560, 2560, 36), ("zamba2-2.7b", 2560, 10240, 9),
              ("zamba2-2.7b", 10240, 2560, 9))
+# flash checks: (name, Hq, Hkv, Sq, Skv, causal, window, cap)
+ATTN_CASES = (
+    ("causal", 4, 4, 100, 100, True, None, None),
+    ("non-causal", 4, 4, 100, 100, False, None, None),
+    ("window16", 4, 4, 100, 100, True, 16, None),
+    ("cap50", 4, 4, 100, 100, True, None, 50.0),
+    ("gqa8/2", 8, 2, 100, 100, True, None, None),
+    ("rect100x160", 4, 2, 100, 160, False, 16, 50.0),
+)
 # zamba2-2.7b's shared attention at batch 4 x prompt 512: [B, H, S, D]
 ZAMBA_ATTN = (BATCH, 32, 512, 80)
 # the SSD intra-chunk pass of one prefill layer at batch 4 x prompt 512:
@@ -115,12 +133,22 @@ def log(*parts):
 
 
 def time_ms(torch, fn, iters=20, warmup=3):
-    """Mean device time of ``fn`` over ``iters`` launches (CUDA events)."""
+    """Mean device time of ``fn`` over ``iters`` back-to-back launches
+    (CUDA events).  A device-side spin queued first outlasts the host's
+    enqueueing of the launches, so the events time the device alone even
+    where the host takes longer to issue a call than the device to run
+    it."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2 * host_s * SPIN_HZ) + 100_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -218,6 +246,17 @@ def phase_build():
     return secs
 
 
+def gemm_path(a, b):
+    from repro_torch.kernels.tatp_matmul import ops
+    return ops._path(a.dtype, b.shape[0], a.stride(0), b.stride(0),
+                     a.data_ptr(), b.data_ptr())
+
+
+def gemm_tile_n(torch, m, k):
+    from repro_torch.kernels.tatp_matmul import ops
+    return ops._tile_n(m, k, ops._sm_count(torch.cuda.current_device()))
+
+
 def phase_kernels(torch):
     """Each kernel vs its plain version; timings at the main path's
     shapes.  Returns the per-kernel records for the kernels line."""
@@ -235,26 +274,43 @@ def phase_kernels(torch):
         return x.to(dtype)
 
     log("[kernels] tatp_matmul vs matmul_ref")
-    # ragged fp32 (SIMT path), ragged bf16 rows not 16-byte aligned (masked
-    # scalar loads), both output dtypes, then the main path's shapes
+    # ragged fp32 (SIMT path), ragged bf16 rows not 16-byte aligned (wmma
+    # with masked scalar loads), ragged bf16 that TMA can describe (wgmma:
+    # zero-filled boxes, masked stores), both output dtypes, then the main
+    # path's shapes
     cases = [
-        ("f32 100x200x300", 100, 200, 300, torch.float32, None),
-        ("f32->bf16 64x96x80", 64, 96, 80, torch.float32, torch.bfloat16),
-        ("bf16 100x203x301", 100, 203, 301, torch.bfloat16, None),
+        ("f32 100x200x300", 100, 200, 300, torch.float32, None, "simt"),
+        ("f32->bf16 64x96x80", 64, 96, 80, torch.float32, torch.bfloat16,
+         "simt"),
+        ("bf16 100x203x301", 100, 203, 301, torch.bfloat16, None, "wmma"),
+        ("bf16->f32 100x203x301", 100, 203, 301, torch.bfloat16,
+         torch.float32, "wmma"),
         ("bf16->f32 77x256x11008", 77, 256, 11008, torch.bfloat16,
-         torch.float32),
+         torch.float32, "wgmma"),
+        ("bf16 77x256x11008", 77, 256, 11008, torch.bfloat16, None,
+         "wgmma"),
+        ("bf16 100x208x304", 100, 208, 304, torch.bfloat16, None, "wgmma"),
+        ("bf16 1x8x8", 1, 8, 8, torch.bfloat16, None, "wgmma"),
+        ("bf16 300x1000x1000", 300, 1000, 1000, torch.bfloat16, None,
+         "wgmma"),
+        ("bf16->f32 2048x2560x10448", M_SSM, 2560, 10448, torch.bfloat16,
+         torch.float32, "wgmma"),
     ]
-    cases += [(f"bf16 {M_MAIN}x{n}x{k}", M_MAIN, n, k, torch.bfloat16, None)
-              for n, k, _ in LAYER_GEMMS]
+    cases += [(f"bf16 {M_MAIN}x{n}x{k}", M_MAIN, n, k, torch.bfloat16, None,
+               "wgmma") for n, k, _ in LAYER_GEMMS]
     gemm_err = 0.0
-    for name, m, n, k, dt, odt in cases:
+    for name, m, n, k, dt, odt, path in cases:
         a = randn(m, n, dtype=dt)
         b = randn(n, k, dtype=dt, scale=n ** -0.5)
+        before = dict(tatp_dot.launches_by_path)
         got = tatp_dot(a, b, out_dtype=odt)
         torch.cuda.synchronize()
+        need(tatp_dot.launches_by_path[path] == before[path] + 1,
+             f"{name}: did not take the {path} path")
         tol = GEMM_TOL["bfloat16" if torch.bfloat16 in (dt, odt)
                        else "float32"]
-        err = compare(name, got, matmul_ref(a, b, out_dtype=odt), *tol)
+        err = compare(f"{name} ({path})", got,
+                      matmul_ref(a, b, out_dtype=odt), *tol)
         if m == M_MAIN:
             gemm_err = max(gemm_err, err)
 
@@ -265,6 +321,7 @@ def phase_kernels(torch):
         b = randn(n, k, dtype=torch.bfloat16, scale=n ** -0.5)
         row = dict(
             shape=[M_MAIN, n, k], per_layer=per_layer,
+            path=gemm_path(a, b), tile_n=gemm_tile_n(torch, M_MAIN, k),
             ms=time_ms(torch, lambda: tatp_dot(a, b)),
             plain_ms=time_ms(torch, lambda: matmul_ref(a, b)),
             library_ms=time_ms(torch, lambda: torch.matmul(a, b)),
@@ -292,42 +349,46 @@ def phase_kernels(torch):
             *GEMM_TOL["bfloat16"]))
         flops = 2 * M_SSM * n * k
         row = dict(arch=arch, shape=[M_SSM, n, k], per_prefill=per_prefill,
+                   path=gemm_path(a, b), tile_n=gemm_tile_n(torch, M_SSM, k),
                    ms=time_ms(torch, lambda: tatp_dot(a, b)),
                    plain_ms=time_ms(torch, lambda: matmul_ref(a, b)),
                    library_ms=time_ms(torch, lambda: torch.matmul(a, b)))
         row["bound_ms"], _ = bound(flops, 2 * (M_SSM * n + n * k + M_SSM * k),
                                    "bfloat16")
         row["tflops"] = flops / row["ms"] / 1e9
+        row["library_ratio"] = row["ms"] / row["library_ms"]
         ssm_shapes.append(row)
     log(f"  timings of the SSM paths' prefill GEMMs (bf16): "
         f"{json.dumps(ssm_shapes)}")
 
     log("[kernels] flash_attention vs attention_ref")
-    attn_err = 0.0
-    for d in (64, 80, 128, 256):
-        for name, hq, hkv, sq, skv, causal, window, cap in (
-            ("causal", 4, 4, 100, 100, True, None, None),
-            ("non-causal", 4, 4, 100, 100, False, None, None),
-            ("window16", 4, 4, 100, 100, True, 16, None),
-            ("cap50", 4, 4, 100, 100, True, None, 50.0),
-            ("gqa8/2", 8, 2, 100, 100, True, None, None),
-            ("rect100x160", 4, 2, 100, 160, False, 16, 50.0),
-        ):
-            q = randn(2, hq, sq, d)
-            k = randn(2, hkv, skv, d)
-            v = randn(2, hkv, skv, d)
-            kw = dict(causal=causal, window=window, cap=cap)
-            got = attention(q, k, v, **kw)
-            torch.cuda.synchronize()
-            compare(f"f32 D={d} {name}", got, attention_ref(q, k, v, **kw),
-                    *ATTN_TOL["float32"])
+    # every mask option at every instantiated head size, fp32 (SIMT, true
+    # fp32 products) and bf16 (tensor cores, P rounded to bf16 for P.V)
+    for dt, path in ((torch.float32, "simt"), (torch.bfloat16, "mma")):
+        tol = ATTN_TOL["bfloat16" if dt == torch.bfloat16 else "float32"]
+        for d in (64, 80, 128, 256):
+            for name, hq, hkv, sq, skv, causal, window, cap in ATTN_CASES:
+                q = randn(2, hq, sq, d, dtype=dt)
+                k = randn(2, hkv, skv, d, dtype=dt)
+                v = randn(2, hkv, skv, d, dtype=dt)
+                kw = dict(causal=causal, window=window, cap=cap)
+                before = attention.launches_by_path[path]
+                got = attention(q, k, v, **kw)
+                torch.cuda.synchronize()
+                need(attention.launches_by_path[path] == before + 1,
+                     f"flash D={d} {name}: did not take the {path} path")
+                compare(f"{str(dt)[6:]} D={d} {name} ({path})", got,
+                        attention_ref(q, k, v, **kw), *tol)
     # the main path's shape and layout: [B, S, H, D] activations viewed as
     # [B, H, S, D] (strided, no copy), bf16, causal
     b, s = MAIN["batch"], MAIN["prompt_len"]
     q, k, v = (randn(b, s, HEADS, HEAD_DIM, dtype=torch.bfloat16)
                .transpose(1, 2) for _ in range(3))
+    before = attention.launches_by_path["mma"]
     got = attention(q, k, v, causal=True)
     torch.cuda.synchronize()
+    need(attention.launches_by_path["mma"] == before + 1,
+         "flash at the main shape did not take the mma path")
     need(got.stride() == q.stride(), "flash output lost the input layout")
     attn_err = compare(f"bf16 [{b},{HEADS},{s},{HEAD_DIM}] causal strided",
                        got, attention_ref(q, k, v, causal=True),
@@ -347,12 +408,14 @@ def phase_kernels(torch):
     attn_flops = 4 * pairs * HEAD_DIM
     attn_bytes = 4 * b * HEADS * s * HEAD_DIM * 2  # q, k, v in; o out
     attn["bound_ms"], attn_by = bound(attn_flops, attn_bytes, "bfloat16")
+    attn["share_of_bound"] = attn["bound_ms"] / attn["ms"]
+    attn["library_ratio"] = attn["ms"] / attn["library_ms"]
     log(f"  timing [4,32,128,128] bf16 causal: {json.dumps(attn)}")
     attn["d80"] = flash_d80(torch, randn)
     ssd = ssd_checks_and_timing(torch, randn, g)
 
     return [
-        dict(name="tatp_matmul", route="cuda",
+        dict(name="tatp_matmul", route="cuda", path="wgmma",
              source="src/repro_torch/csrc/tatp_matmul.cu",
              replaces="src/repro/kernels/tatp_matmul/kernel.py:24",
              max_abs_err=gemm_err, rtol=GEMM_TOL["bfloat16"][0],
@@ -360,10 +423,12 @@ def phase_kernels(torch):
              ms=tot["ms"], kernel_ms=tot["ms"], plain_ms=tot["plain_ms"],
              bound_ms=gemm_bound, bound_by=gemm_by,
              library_ms=tot["library_ms"],
+             share_of_bound=gemm_bound / tot["ms"],
+             library_ratio=tot["ms"] / tot["library_ms"],
              timed="the 7 GEMMs of one deepseek-7b layer's prefill, "
                    "M=512, bf16",
              shapes=shapes, ssm_shapes=ssm_shapes),
-        dict(name="flash_attention", route="cuda",
+        dict(name="flash_attention", route="cuda", path="mma",
              source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:26",
              max_abs_err=attn_err, rtol=ATTN_TOL["bfloat16"][0],
@@ -371,6 +436,8 @@ def phase_kernels(torch):
              ms=attn["ms"], kernel_ms=attn["ms"],
              plain_ms=attn["plain_ms"], bound_ms=attn["bound_ms"],
              bound_by=attn_by, library_ms=attn["library_ms"],
+             share_of_bound=attn["share_of_bound"],
+             library_ratio=attn["library_ratio"],
              timed="one layer's prefill attention, [4,32,128,128] bf16 "
                    "causal",
              d80=attn["d80"]),
@@ -388,14 +455,19 @@ def flash_d80(torch, randn):
     b, h, s, d = ZAMBA_ATTN
     q, k, v = (randn(b, s, h, d, dtype=torch.bfloat16).transpose(1, 2)
                for _ in range(3))
+    before = attention.launches_by_path["mma"]
     got = attention(q, k, v, causal=True)
     torch.cuda.synchronize()
+    need(attention.launches_by_path["mma"] == before + 1,
+         "flash at zamba2's shape did not take the mma path")
     err = compare(f"bf16 [{b},{h},{s},{d}] causal strided", got,
                   attention_ref(q, k, v, causal=True),
                   *ATTN_TOL["bfloat16"])
     qc, kc, vc = (t.contiguous() for t in (q, k, v))
+    compare(f"bf16 [{b},{h},{s},{d}] contiguous == strided",
+            attention(qc, kc, vc), got, 0, 0)
     row = dict(
-        shape=[b, h, s, d], max_abs_err=err,
+        shape=[b, h, s, d], path="mma", max_abs_err=err,
         ms=time_ms(torch, lambda: attention(q, k, v, causal=True), 50),
         plain_ms=time_ms(torch,
                          lambda: attention_ref(q, k, v, causal=True), 50),
@@ -408,6 +480,8 @@ def flash_d80(torch, randn):
     row["bound_ms"], row["bound_by"] = bound(4 * pairs * d,
                                              4 * b * h * s * d * 2,
                                              "bfloat16")
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    row["library_ratio"] = row["ms"] / row["library_ms"]
     log(f"  timing {row['shape']} bf16 causal: {json.dumps(row)}")
     return row
 
@@ -484,7 +558,7 @@ def ssd_checks_and_timing(torch, randn, g):
         rows[arch] = row
     log(f"  timings [B*nc, Q, H, P, N] fp32: {json.dumps(rows)}")
     main = rows["mamba2-780m"]
-    return dict(name="ssd", route="cuda",
+    return dict(name="ssd", route="cuda", path="simt",
                 source="src/repro_torch/csrc/ssd.cu",
                 replaces="src/repro/kernels/ssd/kernel.py:20",
                 max_abs_err=max_err, rtol=SSD_TOL[0], atol=SSD_TOL[1],
@@ -510,9 +584,17 @@ def read_launches():
     return {name: fn.launches for name, fn in counters().items()}
 
 
+def read_paths():
+    """Launches by kernel path, for the wrappers that choose one."""
+    return {name: dict(fn.launches_by_path) for name, fn in counters().items()
+            if hasattr(fn, "launches_by_path")}
+
+
 def zero_launches():
     for fn in counters().values():
         fn.launches = 0
+        for path in getattr(fn, "launches_by_path", {}):
+            fn.launches_by_path[path] = 0
 
 
 def prefill_launches(cfg):
@@ -574,6 +656,9 @@ def phase_parity(torch, arch, n_layers, b, s, steps=4):
         caches, logits = sb.prefill_fn(params, {"tokens": toks})
         torch.cuda.synchronize()
         launched = read_launches()
+        for name, by_path in read_paths().items():
+            need(by_path["simt"] == launched[name],
+                 f"fp32 {name} launches by path {by_path}: not all simt")
         big = lm.graft_cache_slots(lm.init_cache(sb.ctx, b, s + steps),
                                    caches, slots=range(b))
         tok = logits[:, -1:, :].argmax(dim=-1) % cfg.vocab_size
@@ -635,10 +720,16 @@ def phase_main_path(torch, arch):
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = read_launches()
+    paths = read_paths()
     peak = torch.cuda.max_memory_allocated()
 
     need(launches == spec["launches"],
          f"{arch}: launches {launches} != {spec['launches']}")
+    # every GEMM on wgmma + TMA, every flash on the tensor cores
+    for name, path in MAIN_PATH_KERNEL.items():
+        need(paths[name][path] == launches[name],
+             f"{arch}: {name} launches by path {paths[name]}, want all "
+             f"{launches[name]} on {path}")
     need(res["generated_shape"] == [BATCH, GEN + 1],
          f"generated shape {res['generated_shape']}")
     need(all(0 <= t < cfg.vocab_size for t in res["sample"]),
@@ -687,7 +778,7 @@ def phase_main_path(torch, arch):
                 decode_4_steps=profile_window(torch, decode_steps))
     need(all(bool(t.isfinite().all()) for c in state[1].values()
              for t in c.values()), "non-finite cache after decode")
-    out = dict(serve=res, launches=launches,
+    out = dict(serve=res, launches=launches, launches_by_path=paths,
                prefill_ms=sorted(times)[1], prefill_ms_runs=times,
                peak_mem_gb=peak / 1e9, init_s=init_s, serve_wall_s=wall_s,
                profile=prof)
@@ -695,7 +786,7 @@ def phase_main_path(torch, arch):
         f"prompt {run['prompt_len']} gen {GEN}: {json.dumps(out)}")
     del params, caches, state, big
     torch.cuda.empty_cache()
-    return launches
+    return launches, paths
 
 
 def main() -> int:
@@ -719,10 +810,14 @@ def main() -> int:
     kernels = phase_kernels(torch)
     for arch, n_layers, b, s in PARITY:
         phase_parity(torch, arch, n_layers, b, s)
-    by_path = {arch: phase_main_path(torch, arch) for arch in PATHS}
+    runs = {arch: phase_main_path(torch, arch) for arch in PATHS}
     for k in kernels:
-        k["launches"] = sum(n[k["name"]] for n in by_path.values())
-        k["launches_by_path"] = {a: n[k["name"]] for a, n in by_path.items()}
+        k["launches"] = sum(n[k["name"]] for n, _ in runs.values())
+        k["launches_by_path"] = {a: n[k["name"]]
+                                 for a, (n, _) in runs.items()}
+        if k["name"] in MAIN_PATH_KERNEL:
+            k["launches_by_kernel_path"] = {
+                a: p[k["name"]] for a, (_, p) in runs.items()}
     log(json.dumps({"kernels": kernels}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(smi)

@@ -5,47 +5,63 @@
 // one TATP ring round's tile with an fp32 accumulator in VMEM scratch and
 // writes each output block once, cast to the output dtype.
 //
-// What bounds it on this card: at the main path's prefill shapes
-// (M = batch * prompt_len = 512, N x K in {4096x4096, 4096x11008,
-// 11008x4096}) a GEMM does ~1000 bf16 operations per byte of weight it
-// reads, far above the H100's ~295 operations/byte balance point, so it is
-// bound by tensor-core throughput.
+// What bounds it on this card: at the main paths' prefill shapes (M 512
+// for deepseek-7b, 2048 for the SSM models; N x K from 1536 x 6448 to
+// 11008 x 4096) a GEMM does 300-800 bf16 operations per byte it must
+// move, above the H100's ~295 operations/byte balance point, so it is
+// bound by tensor-core throughput.  Only wgmma reaches that rate (mma.sync
+// and the wmma fragments built on it cannot), and wgmma wants both
+// operands in shared memory in the layout TMA writes, so the kernel is
+// built around TMA and wgmma.
 //
-// Design (first, simple version; wgmma + TMA + warp specialisation come
-// later):
-//   * bf16: one 256-thread block per 128 x 128 output tile.  The TPU
-//     grid's sequential contraction axis becomes a loop over 32-wide
-//     slices of N inside the block.  A and B slices are staged through
-//     shared memory in two buffers: cp.async (16-byte, zero-filling past
-//     the ragged edge) loads slice t+1 while the tensor cores (nvcuda::wmma
-//     bf16 16x16x16 fragments, fp32 accumulate) consume slice t.  Each of
-//     the 8 warps owns a 64 x 32 sub-tile held in fp32 registers.  The
-//     epilogue goes through a 1 KB per-warp staging tile, masks the ragged
-//     M/K edge and casts to the output dtype.  Operands whose rows are not
-//     16-byte aligned take the same kernel with plain masked loads.
-//   * fp32: a SIMT kernel (one 256-thread block per 64 x 64 tile, 4 x 4
-//     outputs per thread, 16-wide contraction slices in shared memory,
-//     fp32 FMA) so fp32 results are true fp32 products (no TF32).
-//   * Ragged M, N and K are masked in-kernel: no shape needs a tile
-//     multiple (11008 = 43 x 256 is not a multiple of 512).
+// Three paths, chosen by the wrapper (kernels/tatp_matmul/ops.py:_path)
+// and refused here (cudaErrorInvalidValue) if their preconditions fail:
+//   * wgmma (bf16 operands that TMA can describe: 16-byte aligned bases,
+//     row pitches a multiple of 16 bytes): a persistent grid of clusters
+//     of two blocks, one block per SM, walks pairs of vertically adjacent
+//     128 x BN output tiles (BN 128 or 256, picked by the wrapper).  In
+//     each block one producer warpgroup (registers lowered with
+//     setmaxnreg) has one thread issue TMA loads (128-byte swizzle) of
+//     64-wide contraction slices of A (K-major in wgmma terms) and B (the
+//     weights as stored, [N, K] row-major: MN-major, read with wgmma's
+//     transpose bit, so the weights are never copied) into a ring of 4-6
+//     stages guarded by full/empty mbarrier pairs.  The two blocks of a
+//     cluster need the same B slice: each loads half of its boxes and
+//     multicasts them to both, which halves B's traffic out of L2, the
+//     limit of a 128 x BN tile's loads on this card.  Two consumer
+//     warpgroups (registers raised) each run wgmma.m64nBNk16 on 64 rows,
+//     keeping one stage's products in flight while the previous stage is
+//     released to both blocks' producers, and accumulate in fp32
+//     registers.  TMA zero-fills boxes past the matrices, so ragged M, N
+//     and K need no special case; the epilogue masks stores past M and K
+//     and converts to the output type as it writes.  The producer runs
+//     ahead into the next tile while the consumers store this one.
+//   * wmma (other bf16): one 256-thread block per 128 x 128 tile,
+//     nvcuda::wmma fragments fed by a two-stage cp.async pipeline (masked
+//     scalar loads where rows are not 16-byte aligned).
+//   * simt (fp32): one 256-thread block per 64 x 64 tile, fp32 FMAs, so
+//     fp32 results are true fp32 products (no TF32).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 using namespace nvcuda;
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
-
 // dtype codes shared with kernels/tatp_matmul/ops.py
 constexpr int kF32 = 0;
 constexpr int kBF16 = 1;
 
+// path codes shared with kernels/tatp_matmul/ops.py (_PATHS)
+constexpr int kPathSimt = 0;
+constexpr int kPathWmma = 1;
+constexpr int kPathWgmma = 2;
+
 // ---------------------------------------------------------------------------
-// bf16 tensor-core path
+// bf16 legacy tensor-core path (wmma): operands TMA cannot describe
 // ---------------------------------------------------------------------------
 
 constexpr int TM = 128;  // output rows per block (M)
@@ -60,23 +76,6 @@ struct __align__(128) Smem {
   bf16 b[2][TN * B_LD];
   float c[THREADS / 32][16 * 16];
 };
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  int n = pred ? 16 : 0;  // 0 source bytes: the 16 destination bytes zero
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 __device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_out(bf16* p, float v) {
@@ -199,6 +198,171 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 // ---------------------------------------------------------------------------
+// bf16 wgmma path: TMA ring, one producer warpgroup, two consumer
+// warpgroups
+// ---------------------------------------------------------------------------
+
+constexpr int WG_BM = 128;  // output rows per block: 64 per consumer
+constexpr int WG_BK = 64;   // contraction slice: one 128-byte swizzle row
+constexpr int WG_THREADS = 384;
+constexpr int A_STAGE = WG_BM * WG_BK * 2;  // 16 KB
+constexpr int B_CHUNK = WG_BK * 64 * 2;     // one 64 x 64 box of B, 8 KB
+
+template <int BN>
+struct WgCfg {
+  static constexpr int STAGES = BN == 256 ? 4 : 6;
+  static constexpr int STAGE = A_STAGE + (BN / 64) * B_CHUNK;
+  // stages, the full/empty barriers, and slack to align the ring to the
+  // 1024-byte swizzle atom
+  static constexpr int SMEM = STAGES * STAGE + 2 * STAGES * 8 + 1024;
+};
+
+template <typename OutT>
+__device__ __forceinline__ void store_pair(OutT* p, float x, float y,
+                                           bool two, bool vec) {
+  if (two && vec) {
+    if constexpr (sizeof(OutT) == 4)
+      *reinterpret_cast<float2*>(p) = make_float2(x, y);
+    else
+      *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+  } else {
+    store_out(p, x);
+    if (two) store_out(p + 1, y);
+  }
+}
+
+// Persistent, in clusters of two blocks on neighbouring SMs: cluster c
+// computes tile pairs c, c + clusters, ..., each pair two vertically
+// adjacent WG_BM x BN output tiles (M-pair index fastest, so the clusters
+// in flight share B's columns), one per block.  For each tile, stage s of
+// the ring holds A[m0:+128, n:+64] as one 128 x 64 box (K-major for wgmma:
+// each row one 128-byte swizzled line) and B[n:+64, k0:+BN] as BN / 64
+// boxes of 64 x 64 (MN-major: output columns contiguous), zero past the
+// matrices.  Both blocks of a pair need the same B: each loads half of its
+// boxes and multicasts them to both, so B crosses L2 once per pair.  A
+// block's producer may refill stage s only when the consumers of both
+// blocks have released it, so each consumer warp arrives on the empty
+// barrier of both blocks.  The producer runs ahead across tiles, so the
+// next tile's loads overlap this tile's epilogue.
+template <int BN, typename OutT>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(WG_THREADS, 1)
+    gemm_wgmma(const __grid_constant__ CUtensorMap ta,
+               const __grid_constant__ CUtensorMap tb, OutT* __restrict__ C,
+               int M, int K, int n_iters, int64_t ldc) {
+  using Cfg = WgCfg<BN>;
+  constexpr int STAGES = Cfg::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * Cfg::STAGE);
+  uint64_t* empty = full + STAGES;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);    // the producer's arrive + the TMA bytes
+      mbar_init(&empty[s], 16);  // each consumer warp of both blocks
+    }
+    mbar_fence_init();
+  }
+  cluster_sync();  // both blocks' barriers exist before any remote use
+  const uint32_t rank = cluster_ctarank();
+  const int m_pairs = ((M + WG_BM - 1) / WG_BM + 1) / 2;
+  const int pairs = m_pairs * ((K + BN - 1) / BN);
+  const int cluster = blockIdx.x / 2, clusters = gridDim.x / 2;
+
+  if (wg == 0) {  // producer: one thread keeps the ring full
+    setmaxnreg_dec<40>();
+    if (tid == 0) {
+      int it = 0;  // ring position, carried across tiles
+      for (int pt = cluster; pt < pairs; pt += clusters) {
+        const int m0 = ((pt % m_pairs) * 2 + rank) * WG_BM;
+        const int k0 = (pt / m_pairs) * BN;
+        for (int kb = 0; kb < n_iters; ++kb, ++it) {
+          const int s = it % STAGES;
+          mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+          uint8_t* st = ring + s * Cfg::STAGE;
+          mbar_arrive_expect_tx(&full[s], Cfg::STAGE);
+          tma_load_2d(st, &ta, &full[s], kb * WG_BK, m0);
+#pragma unroll
+          for (int j = rank; j < BN / 64; j += 2)
+            tma_load_2d_multicast(st + A_STAGE + j * B_CHUNK, &tb, &full[s],
+                                  k0 + j * 64, kb * WG_BK, 0x3);
+        }
+      }
+      // stay until both blocks' consumers have released every stage: no
+      // remote arrive or multicast may reach this block after it exits
+      for (int j = it - STAGES > 0 ? it - STAGES : 0; j < it; ++j)
+        mbar_wait(&empty[j % STAGES], (j / STAGES) & 1);
+    }
+  } else {  // consumers: 64 rows x BN columns each, fp32 in registers
+    setmaxnreg_inc<232>();
+    const int cw = wg - 1;
+    const int warp = tid / 32, lane = tid % 32;
+    const bool vec = (ldc % 2) == 0;
+    float acc[BN / 2];
+    int it = 0;
+    for (int pt = cluster; pt < pairs; pt += clusters) {
+      const int m0 = ((pt % m_pairs) * 2 + rank) * WG_BM;
+      const int k0 = (pt / m_pairs) * BN;
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+      for (int kb = 0; kb < n_iters; ++kb, ++it) {
+        const int s = it % STAGES;
+        mbar_wait(&full[s], (it / STAGES) & 1);
+        const uint8_t* st = ring + s * Cfg::STAGE;
+        wgmma_fence_regs(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < WG_BK / 16; ++kk) {
+          // A: this consumer's 64 rows, 16 contraction columns (32 bytes)
+          // in; B: 16 contraction rows (2 KB) down, BN / 64 chunks apart
+          const uint64_t da =
+              wgmma_desc(st + cw * 64 * 128 + kk * 32, 16, 1024);
+          const uint64_t db =
+              wgmma_desc(st + A_STAGE + kk * 16 * 128, B_CHUNK, 1024);
+          if constexpr (BN == 256)
+            wgmma_m64n256k16_tb(acc, da, db);
+          else
+            wgmma_m64n128k16_tb(acc, da, db);
+        }
+        wgmma_commit();
+        // keep this stage's products in flight; the previous stage's are
+        // done, so its buffers go back to both blocks' producers
+        wgmma_wait<1>();
+        wgmma_fence_regs(acc);
+        if (kb > 0 && lane == 0) {
+          mbar_arrive_cluster(&empty[(it + STAGES - 1) % STAGES], 0);
+          mbar_arrive_cluster(&empty[(it + STAGES - 1) % STAGES], 1);
+        }
+      }
+      wgmma_wait<0>();
+      wgmma_fence_regs(acc);
+      if (n_iters > 0 && lane == 0) {
+        mbar_arrive_cluster(&empty[(it + STAGES - 1) % STAGES], 0);
+        mbar_arrive_cluster(&empty[(it + STAGES - 1) % STAGES], 1);
+      }
+
+      // accumulator layout: per 8-column block j, rows g and g + 8 of this
+      // warp's 16, columns 2 (lane % 4) + {0, 1}
+      const int r0 = m0 + cw * 64 + warp * 16 + lane / 4;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = k0 + j * 8 + 2 * (lane % 4);
+        if (col < K) {
+          const bool two = col + 1 < K;
+          if (r0 < M)
+            store_pair(&C[r0 * ldc + col], acc[4 * j], acc[4 * j + 1], two,
+                       vec);
+          if (r0 + 8 < M)
+            store_pair(&C[(r0 + 8) * ldc + col], acc[4 * j + 2],
+                       acc[4 * j + 3], two, vec);
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // fp32 SIMT path
 // ---------------------------------------------------------------------------
 
@@ -289,6 +453,56 @@ void launch_f32(const void* a, const void* b, void* c, int64_t M, int64_t N,
                                           lda, ldb, ldc);
 }
 
+// What TMA can describe: 16-byte aligned bases, row pitches a multiple of
+// 16 bytes, a non-empty contraction, 32-bit coordinates.
+bool tma_ok(const void* a, const void* b, int64_t M, int64_t N, int64_t K,
+            int64_t lda, int64_t ldb) {
+  return reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(b) % 16 == 0 && lda % 8 == 0 &&
+         ldb % 8 == 0 && N >= 1 && M < (int64_t(1) << 31) &&
+         N < (int64_t(1) << 31) && K < (int64_t(1) << 31);
+}
+
+template <int BN, typename OutT>
+int launch_wgmma(const void* a, const void* b, void* c, int64_t M, int64_t N,
+                 int64_t K, int64_t lda, int64_t ldb, int64_t ldc,
+                 cudaStream_t s) {
+  CUtensorMap ta, tb;
+  if (!make_tma_2d_bf16(&ta, a, M, N, lda, WG_BM, WG_BK) ||
+      !make_tma_2d_bf16(&tb, b, N, K, ldb, WG_BK, 64))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = WgCfg<BN>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(
+      gemm_wgmma<BN, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // one cluster of two blocks per pair of tiles, at most one block per SM
+  const int64_t pairs =
+      ((M + WG_BM - 1) / WG_BM + 1) / 2 * ((K + BN - 1) / BN);
+  const unsigned grid =
+      2 * static_cast<unsigned>(pairs < sms / 2 ? pairs : sms / 2);
+  gemm_wgmma<BN, OutT><<<grid, WG_THREADS, smem, s>>>(
+      ta, tb, static_cast<OutT*>(c), static_cast<int>(M),
+      static_cast<int>(K), static_cast<int>((N + WG_BK - 1) / WG_BK), ldc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename OutT>
+int launch_wgmma_n(const void* a, const void* b, void* c, int64_t M,
+                   int64_t N, int64_t K, int64_t lda, int64_t ldb,
+                   int64_t ldc, int tile_n, cudaStream_t s) {
+  if (tile_n == 256)
+    return launch_wgmma<256, OutT>(a, b, c, M, N, K, lda, ldb, ldc, s);
+  if (tile_n == 128)
+    return launch_wgmma<128, OutT>(a, b, c, M, N, K, lda, ldb, ldc, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 extern "C" {
@@ -297,26 +511,44 @@ const char* repro_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Returns cudaGetLastError() after the launch (0 = launched).
+// path: kPathSimt (fp32 operands), kPathWmma (bf16, any unit-stride rows)
+// or kPathWgmma (bf16 that TMA can describe; tile_n 128 or 256 output
+// columns per block).  A path whose preconditions fail returns
+// cudaErrorInvalidValue without launching; otherwise the result is
+// cudaGetLastError() after the launch (0 = launched).
 int tatp_matmul_launch(const void* a, const void* b, void* c, int64_t M,
                        int64_t N, int64_t K, int64_t lda, int64_t ldb,
-                       int64_t ldc, int in_dtype, int out_dtype,
-                       void* stream) {
+                       int64_t ldc, int in_dtype, int out_dtype, int path,
+                       int tile_n, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
   // the row-tile index is blockIdx.y (at most 65535 tiles of >= 64 rows)
-  if (M <= 0 || K <= 0 || N < 0 || (M + FM - 1) / FM > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (in_dtype == kBF16 && out_dtype == kBF16)
-    launch_bf16<bf16>(a, b, c, M, N, K, lda, ldb, ldc, s);
-  else if (in_dtype == kBF16 && out_dtype == kF32)
-    launch_bf16<float>(a, b, c, M, N, K, lda, ldb, ldc, s);
-  else if (in_dtype == kF32 && out_dtype == kF32)
-    launch_f32<float>(a, b, c, M, N, K, lda, ldb, ldc, s);
-  else if (in_dtype == kF32 && out_dtype == kBF16)
-    launch_f32<bf16>(a, b, c, M, N, K, lda, ldb, ldc, s);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  if (M <= 0 || K <= 0 || N < 0 || (M + FM - 1) / FM > 65535 ||
+      (out_dtype != kF32 && out_dtype != kBF16))
+    return bad;
+  const bool out_f32 = out_dtype == kF32;
+  if (path == kPathSimt && in_dtype == kF32) {
+    if (out_f32)
+      launch_f32<float>(a, b, c, M, N, K, lda, ldb, ldc, s);
+    else
+      launch_f32<bf16>(a, b, c, M, N, K, lda, ldb, ldc, s);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (path == kPathWmma && in_dtype == kBF16) {
+    if (out_f32)
+      launch_bf16<float>(a, b, c, M, N, K, lda, ldb, ldc, s);
+    else
+      launch_bf16<bf16>(a, b, c, M, N, K, lda, ldb, ldc, s);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (path == kPathWgmma && in_dtype == kBF16 &&
+      tma_ok(a, b, M, N, K, lda, ldb)) {
+    return out_f32 ? launch_wgmma_n<float>(a, b, c, M, N, K, lda, ldb, ldc,
+                                           tile_n, s)
+                   : launch_wgmma_n<bf16>(a, b, c, M, N, K, lda, ldb, ldc,
+                                          tile_n, s);
+  }
+  return bad;
 }
 
 }  // extern "C"

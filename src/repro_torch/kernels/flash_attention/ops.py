@@ -8,7 +8,14 @@ strides (so ``[B, S, H, D]`` activations viewed as ``[B, H, S, D]`` need no
 copy) and masks ragged sequence edges itself; anything the kernel does not
 take raises.  There is no fallback on the GPU.
 
-``attention.launches`` counts the kernel's launches.
+The kernel is chosen here, by :func:`_path`, a pure function of dtype and
+head dim, and passed to the launcher, which refuses (and this wrapper
+raises) if its preconditions do not hold: ``"mma"`` (bf16 on the tensor
+cores, ``mma.sync``) or ``"simt"`` (fp32 on the CUDA cores, true fp32
+products).  Nothing is chosen by whether a build or a launch succeeded.
+
+``attention.launches`` counts the kernel's launches and
+``attention.launches_by_path`` the same launches by path.
 """
 
 from __future__ import annotations
@@ -21,8 +28,9 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
-# dtype codes shared with csrc/flash_attention.cu
+# dtype and path codes shared with csrc/flash_attention.cu
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_PATHS = {"simt": 0, "mma": 1}
 MAX_HEAD_DIM = 256
 
 _P, _I64, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, \
@@ -34,9 +42,21 @@ def _lib():
     fn = lib.flash_attention_launch
     if fn.argtypes is None:  # else ctypes would pass 32-bit ints
         fn.argtypes = ([_P] * 4 + [_I] * 6 + [_I64] * 12
-                       + [_F, _I, _I, _F, _I, _P])
+                       + [_F, _I, _I, _F, _I, _I, _P])
         fn.restype = _I
     return lib
+
+
+def _path(dtype, d) -> str:
+    """The kernel for q/k/v of ``dtype`` and head dim ``d``."""
+    if not 0 < d <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention kernel takes D <= 256, got {d}")
+    if dtype == torch.bfloat16:
+        return "mma"
+    if dtype == torch.float32:
+        return "simt"
+    raise ValueError(
+        f"flash_attention kernel takes fp32 or bf16 q/k/v, got {dtype}")
 
 
 def attention(q, k, v, *, causal=True, window=None, cap=None, scale=None):
@@ -66,9 +86,7 @@ def attention(q, k, v, *, causal=True, window=None, cap=None, scale=None):
             f"q{tuple(q.shape)} does not match k/v{tuple(k.shape)} "
             f"(Hq must be a multiple of Hkv)"
         )
-    if not 0 < d <= MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention kernel takes D <= 256, got {d}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(
             f"flash_attention kernel takes fp32 or bf16 q/k/v of one dtype, "
             f"got {q.dtype}, {k.dtype}, {v.dtype}"
@@ -80,6 +98,7 @@ def attention(q, k, v, *, causal=True, window=None, cap=None, scale=None):
             f"flash_attention kernel takes window > 0 and cap > 0, got "
             f"window={window}, cap={cap}"
         )
+    path = _path(q.dtype, d)
     o = torch.empty_like(q)  # q's layout when q is dense, else contiguous
     if o.numel() == 0:
         return o
@@ -92,12 +111,14 @@ def attention(q, k, v, *, causal=True, window=None, cap=None, scale=None):
         float(scale), int(bool(causal)),
         0 if window is None else int(window),
         0.0 if cap is None else float(cap),
-        _DTYPES[q.dtype],
+        _DTYPES[q.dtype], _PATHS[path],
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    _build.check(lib, err, "flash_attention")
+    _build.check(lib, err, f"flash_attention ({path})")
     attention.launches += 1
+    attention.launches_by_path[path] += 1
     return o
 
 
 attention.launches = 0
+attention.launches_by_path = dict.fromkeys(_PATHS, 0)

@@ -8,20 +8,30 @@ CUDA tensors it launches the hand-written kernel, which masks ragged edges
 itself, so every shape runs on the kernel; anything the kernel does not
 take raises.  There is no fallback on the GPU.
 
-``tatp_dot.launches`` counts the kernel's launches.
+Which kernel runs is decided here, by :func:`_path`, a pure function of
+the dtype, the row strides and the pointers' alignment, and passed to the
+launcher, which refuses (and this wrapper raises) if the path's
+preconditions do not hold: ``"wgmma"`` (bf16 that TMA can describe: 16-byte
+aligned bases and row pitches), ``"wmma"`` (any other bf16), ``"simt"``
+(fp32).  Nothing is chosen by whether a build or a launch succeeded.
+
+``tatp_dot.launches`` counts the kernel's launches and
+``tatp_dot.launches_by_path`` the same launches by path.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.tatp_matmul.ref import matmul_ref
 
-# dtype codes shared with csrc/tatp_matmul.cu
+# dtype and path codes shared with csrc/tatp_matmul.cu
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_PATHS = {"simt": 0, "wmma": 1, "wgmma": 2}
 
 _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 
@@ -31,9 +41,41 @@ def _lib():
     fn = lib.tatp_matmul_launch
     if fn.argtypes is None:  # else ctypes would pass 32-bit ints
         fn.argtypes = [_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64,
-                       _I, _I, _P]
+                       _I, _I, _I, _I, _P]
         fn.restype = _I
     return lib
+
+
+def _path(dtype, n, lda, ldb, a_ptr, b_ptr) -> str:
+    """The kernel for operands of ``dtype`` with contraction ``n``, row
+    strides ``lda``/``ldb`` (elements) at addresses ``a_ptr``/``b_ptr``."""
+    if dtype == torch.float32:
+        return "simt"
+    if dtype != torch.bfloat16:
+        raise ValueError(f"tatp_matmul kernel takes fp32 or bf16, got {dtype}")
+    tma = (a_ptr % 16 == 0 and b_ptr % 16 == 0 and lda % 8 == 0
+           and ldb % 8 == 0 and n >= 1)
+    return "wgmma" if tma else "wmma"
+
+
+# time of one 128 x 256 output tile over one 128 x 128 tile in the wgmma
+# kernel, measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md)
+_WIDE_TILE_COST = 1.7
+
+
+def _tile_n(m, k, sms) -> int:
+    """Output columns per block (128 or 256) of the persistent wgmma
+    kernel for an ``m x k`` output on ``sms`` SMs: the one with the fewer
+    waves of tiles, each wave weighted by its tile's cost; 128 on a tie."""
+    def cost(tn, weight):
+        tiles = -(-m // 128) * -(-k // tn)
+        return -(-tiles // sms) * weight
+    return 256 if cost(256, _WIDE_TILE_COST) < cost(128, 1.0) else 128
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def tatp_dot(a: torch.Tensor, b: torch.Tensor, out_dtype=None):
@@ -70,16 +112,21 @@ def tatp_dot(a: torch.Tensor, b: torch.Tensor, out_dtype=None):
     m = a2.shape[0]
     c = torch.empty((m, k), dtype=out_dtype, device=a.device)
     if m and k:
+        path = _path(a.dtype, n, a2.stride(0), b.stride(0), a2.data_ptr(),
+                     b.data_ptr())
         lib = _lib()
         err = lib.tatp_matmul_launch(
             a2.data_ptr(), b.data_ptr(), c.data_ptr(),
             m, n, k, a2.stride(0), b.stride(0), c.stride(0),
-            _DTYPES[a.dtype], _DTYPES[out_dtype],
+            _DTYPES[a.dtype], _DTYPES[out_dtype], _PATHS[path],
+            _tile_n(m, k, _sm_count(a.device.index)),
             torch.cuda.current_stream(a.device).cuda_stream,
         )
-        _build.check(lib, err, "tatp_matmul")
+        _build.check(lib, err, f"tatp_matmul ({path})")
         tatp_dot.launches += 1
+        tatp_dot.launches_by_path[path] += 1
     return c.reshape(*a.shape[:-1], k)
 
 
 tatp_dot.launches = 0
+tatp_dot.launches_by_path = dict.fromkeys(_PATHS, 0)

@@ -5,6 +5,9 @@ their plain versions.
 
 Inputs are made with numpy from a seed and fed to both packages."""
 
+import ctypes
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,8 +18,10 @@ from repro.kernels.flash_attention.ref import attention_ref as jax_attention
 from repro.kernels.tatp_matmul.kernel import matmul as pallas_matmul
 from repro.kernels.tatp_matmul.ref import matmul_ref as jax_matmul_ref
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ops import attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.tatp_matmul import ops as gemm_ops
 from repro_torch.kernels.tatp_matmul.ops import tatp_dot
 from repro_torch.kernels.tatp_matmul.ref import matmul_ref
 
@@ -178,6 +183,112 @@ def test_build_names_one_library_per_source():
 
 
 # ---------------------------------------------------------------------------
+# path selection: a pure function of dtype, shape, strides and alignment
+# ---------------------------------------------------------------------------
+
+# the prefill linears of the three main paths as (M, N, K): deepseek-7b at
+# batch 4 x prompt 128, the SSM models at batch 4 x prompt 512
+_MAIN_GEMMS = [(512, 4096, 4096), (512, 4096, 11008), (512, 11008, 4096),
+               (2048, 1536, 6448), (2048, 3072, 1536), (2048, 2560, 10448),
+               (2048, 5120, 2560), (2048, 2560, 2560), (2048, 2560, 10240),
+               (2048, 10240, 2560)]
+_BF16, _F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("dtype,n,lda,ldb,a_ptr,b_ptr,want", [
+    # every main-path GEMM, contiguous operands from the allocator
+    *[(_BF16, n, n, k, 1 << 20, 1 << 21, "wgmma") for _, n, k in _MAIN_GEMMS],
+    # ragged but TMA-aligned: still wgmma
+    (_BF16, 2560, 2560, 10448, 256, 512, "wgmma"),
+    (_BF16, 256, 256, 11008, 256, 512, "wgmma"),
+    # rows not a multiple of 16 bytes, or an unaligned base: wmma
+    (_BF16, 203, 203, 301, 256, 512, "wmma"),
+    (_BF16, 4096, 4100, 4096, 256, 512, "wmma"),
+    (_BF16, 4096, 4096, 4096, 256 + 2, 512, "wmma"),
+    (_BF16, 4096, 4096, 4096, 256, 512 + 8, "wmma"),
+    (_BF16, 0, 8, 8, 256, 512, "wmma"),  # nothing to contract
+    # fp32 keeps the SIMT kernel whatever the layout
+    (_F32, 4096, 4096, 4096, 256, 512, "simt"),
+    (_F32, 203, 203, 301, 4, 8, "simt"),
+    # what no kernel takes
+    (torch.float16, 64, 64, 64, 256, 512, ValueError),
+    (torch.int8, 64, 64, 64, 256, 512, ValueError),
+])
+def test_tatp_dot_path(dtype, n, lda, ldb, a_ptr, b_ptr, want):
+    if want is ValueError:
+        with pytest.raises(ValueError):
+            gemm_ops._path(dtype, n, lda, ldb, a_ptr, b_ptr)
+        return
+    assert gemm_ops._path(dtype, n, lda, ldb, a_ptr, b_ptr) == want
+    assert want in gemm_ops._PATHS and want in tatp_dot.launches_by_path
+
+
+# the tile width that timed best at each main-path shape on an H100 SXM
+# (132 SMs; PERF.md)
+@pytest.mark.parametrize("m,k,want", [
+    (m, k, 256 if (m, k) in {(2048, 6448), (2048, 1536), (2048, 10448),
+                             (2048, 10240)} else 128)
+    for m, _, k in _MAIN_GEMMS
+])
+def test_tatp_dot_tile_n(m, k, want):
+    assert gemm_ops._tile_n(m, k, 132) == want
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    (_BF16, 128, "mma"),  # deepseek-7b [4, 32, 128, 128]
+    (_BF16, 80, "mma"),   # zamba2-2.7b [4, 32, 512, 80]
+    (_BF16, 64, "mma"), (_BF16, 256, "mma"), (_BF16, 1, "mma"),
+    (_BF16, 100, "mma"),
+    (_F32, 128, "simt"), (_F32, 80, "simt"), (_F32, 256, "simt"),
+    (_BF16, 257, ValueError), (_BF16, 0, ValueError),
+    (_F32, 512, ValueError), (torch.float16, 64, ValueError),
+])
+def test_attention_path(dtype, d, want):
+    if want is ValueError:
+        with pytest.raises(ValueError):
+            flash_ops._path(dtype, d)
+        return
+    assert flash_ops._path(dtype, d) == want
+    assert want in flash_ops._PATHS and want in attention.launches_by_path
+
+
+@pytest.mark.parametrize("lib,fn,argtypes", [
+    ("tatp_matmul", "tatp_matmul_launch",
+     [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 6 + [ctypes.c_int] * 4
+     + [ctypes.c_void_p]),
+    ("flash_attention", "flash_attention_launch",
+     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_int64] * 12
+     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
+])
+def test_launcher_argtypes_match_c_signature(monkeypatch, lib, fn, argtypes):
+    """The wrappers' ctypes argtypes against the C launchers' parameter
+    lists, read from the sources (no compiler needed)."""
+    src = (_build.CSRC / f"{lib}.cu").read_text()
+    params = re.search(rf"int {fn}\(([^)]*)\)", src).group(1)
+    c_types = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
+               "int64_t": ctypes.c_int64, "int": ctypes.c_int,
+               "float": ctypes.c_float}
+    parsed = [c_types[" ".join(p.split()[:-1])] for p in params.split(",")]
+    assert parsed == argtypes
+
+    class Fn:
+        argtypes = None
+        restype = None
+
+    class Lib:
+        pass
+
+    stub = Lib()
+    setattr(stub, fn, Fn())
+    monkeypatch.setattr(_build, "load", lambda name: stub)
+    ops = gemm_ops if lib == "tatp_matmul" else flash_ops
+    ops._lib()
+    assert getattr(stub, fn).argtypes == argtypes
+    assert getattr(stub, fn).restype is ctypes.c_int
+
+
+# ---------------------------------------------------------------------------
 # on the card: the CUDA kernels against their plain versions
 # ---------------------------------------------------------------------------
 
@@ -192,37 +303,51 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,n,k,dtype", [(100, 200, 300, "float32"),
-                                         (512, 4096, 1000, "bfloat16"),
-                                         (77, 256, 11008, "bfloat16")])
-def test_tatp_dot_kernel_matches_plain(cuda_device, m, n, k, dtype):
+@pytest.mark.parametrize("m,n,k,dtype,path", [
+    (100, 200, 300, "float32", "simt"),
+    (100, 203, 301, "bfloat16", "wmma"),
+    (512, 4096, 1000, "bfloat16", "wgmma"),
+    (77, 256, 11008, "bfloat16", "wgmma"),
+    (2048, 2560, 10448, "bfloat16", "wgmma"),
+])
+def test_tatp_dot_kernel_matches_plain(cuda_device, m, n, k, dtype, path):
     g = torch.Generator(device=cuda_device).manual_seed(0)
     a = torch.randn(m, n, generator=g, device=cuda_device).to(_TORCH[dtype])
     b = torch.randn(n, k, generator=g, device=cuda_device).to(_TORCH[dtype])
     before = tatp_dot.launches
+    before_path = tatp_dot.launches_by_path[path]
     got = tatp_dot(a, b)
     torch.cuda.synchronize()
     assert tatp_dot.launches == before + 1
+    assert tatp_dot.launches_by_path[path] == before_path + 1
     np.testing.assert_allclose(_np(got.cpu()), _np(matmul_ref(a, b).cpu()),
                                **_tol(dtype))
 
 
+_KERNEL_ATTN_CASES = [
+    # hq, hkv, s, causal, window, cap
+    (4, 4, 100, True, None, None),
+    (8, 2, 100, False, 16, None),
+    (4, 4, 100, True, None, 50.0),
+    (8, 2, 130, True, 32, 30.0),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("hq,hkv,s,d,causal,window,cap", [
-    (4, 4, 100, 64, True, None, None),
-    (8, 2, 100, 128, False, 16, None),
-    (4, 4, 100, 256, True, None, 50.0),
-])
-def test_attention_kernel_matches_plain(cuda_device, hq, hkv, s, d, causal,
-                                        window, cap):
+@pytest.mark.parametrize("dtype,path", [("float32", "simt"),
+                                        ("bfloat16", "mma")])
+@pytest.mark.parametrize("d", [64, 80, 128, 256])
+@pytest.mark.parametrize("hq,hkv,s,causal,window,cap", _KERNEL_ATTN_CASES)
+def test_attention_kernel_matches_plain(cuda_device, hq, hkv, s, causal,
+                                        window, cap, d, dtype, path):
     g = torch.Generator(device=cuda_device).manual_seed(0)
-    q = torch.randn(2, hq, s, d, generator=g, device=cuda_device)
-    k = torch.randn(2, hkv, s, d, generator=g, device=cuda_device)
-    v = torch.randn(2, hkv, s, d, generator=g, device=cuda_device)
+    q, k, v = (torch.randn(2, h, s, d, generator=g, device=cuda_device)
+               .to(_TORCH[dtype]) for h in (hq, hkv, hkv))
     before = attention.launches
+    before_path = attention.launches_by_path[path]
     got = attention(q, k, v, causal=causal, window=window, cap=cap)
     torch.cuda.synchronize()
     assert attention.launches == before + 1
+    assert attention.launches_by_path[path] == before_path + 1
     ref = attention_ref(q, k, v, causal=causal, window=window, cap=cap)
-    np.testing.assert_allclose(_np(got.cpu()), _np(ref.cpu()), rtol=1e-3,
-                               atol=1e-3)
+    np.testing.assert_allclose(_np(got.cpu()), _np(ref.cpu()), **_tol(dtype))
