@@ -21,7 +21,10 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    call computing the same function (a yardstick the port never calls):
    the GEMM and flash attention at deepseek-7b's prefill shapes, the GEMM
    at the SSM paths', flash attention at zamba2-2.7b's (D = 80), the SSD
-   intra-chunk pass at mamba2-780m's and zamba2-2.7b's;
+   intra-chunk pass at mamba2-780m's and zamba2-2.7b's (one path,
+   ``mma_3xtf32``: fp32-accurate products on the TF32 tensor cores; its
+   bound takes the operations at 495 / 3 TFLOP/s, the fp32 CUDA-core
+   bound beside it);
 4. parity — at full width in fp32, deepseek-7b (2 layers), mamba2-780m
    (2 layers) and zamba2-2.7b (6 layers, one ``MMMMMS`` unit): prefill and
    4 greedy decode steps through the kernels (all on their fp32 ``simt``
@@ -55,8 +58,9 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 # published peaks of one H100 SXM (dense): bf16 tensor cores, fp32 CUDA
-# cores, HBM3 bandwidth
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# cores, fp32-accurate products on the TF32 tensor cores (495 TFLOP/s over
+# the three products of a 3xTF32 split), HBM3 bandwidth
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32x3": 495e12 / 3}
 PEAK_BYTES = 3.35e12
 # cycles a second of torch.cuda._sleep's spin: the H100's top SM clock, so
 # the spin lasts at least as long as asked
@@ -66,6 +70,8 @@ GEMM_TOL = {"float32": (1e-3, 1e-3), "bfloat16": (2e-2, 2e-2)}
 ATTN_TOL = GEMM_TOL
 
 SSD_TOL = (1e-3, 1e-3)  # fp32, TF32 off
+# the SSD kernel's one path: mma.sync m16n8k8 TF32 with the 3xTF32 split
+SSD_PATH = "mma_3xtf32"
 
 # the main paths: one-shot serve at batch 4 with 32 generated tokens, and
 # the exact kernel launches of each (one prefill; decode runs no kernel)
@@ -489,14 +495,16 @@ def flash_d80(torch, randn):
 def ssd_bound(bc, q, h, p, n):
     """The SSD intra-chunk pass's least work: the multiply-adds of C.B^T
     (once per chunk), M @ x and the state, counting only the causal
-    (s <= q) pairs, in fp32 on the CUDA cores; and its bytes, each input
-    read once and each output written once."""
+    (s <= q) pairs; and its bytes, each input read once and each output
+    written once.  The bound takes the operations at the card's fastest
+    fp32-accurate rate (3xTF32 on the tensor cores); the fp32 CUDA-core
+    bound is kept beside it."""
     pairs = q * (q + 1) // 2
     flops = bc * (2 * n * pairs + h * (2 * p * pairs + 2 * q * p * n))
     nbytes = 4 * (2 * bc * q * h * p + bc * h * p * n + bc * h
                   + 2 * bc * q * n + bc * q * h + h)
-    ms, by = bound(flops, nbytes, "float32")
-    return ms, by, flops, nbytes
+    ms, by = bound(flops, nbytes, "tf32x3")
+    return ms, by, flops, nbytes, bound(flops, nbytes, "float32")[0]
 
 
 def ssd_checks_and_timing(torch, randn, g):
@@ -509,11 +517,12 @@ def ssd_checks_and_timing(torch, randn, g):
 
     dev = torch.device("cuda")
 
-    def inputs(bc, q, h, p, n, strided=False, dt_value=None):
+    def inputs(bc, q, h, p, n, strided=False, dt_value=None, pad=0):
         if strided:  # x, B, C column slices of one buffer (the conv out)
-            buf = randn(bc, q, h * p + 2 * n)
+            buf = randn(bc, q, h * p + 2 * n + pad)
             x = buf[..., :h * p].reshape(bc, q, h, p)
-            bm, cm = buf[..., h * p:h * p + n], buf[..., h * p + n:]
+            bm = buf[..., h * p:h * p + n]
+            cm = buf[..., h * p + n:h * p + 2 * n]
         else:
             x, bm, cm = randn(bc, q, h, p), randn(bc, q, n), randn(bc, q, n)
         if dt_value is None:  # the range of softplus(dt_bias) at init
@@ -532,39 +541,57 @@ def ssd_checks_and_timing(torch, randn, g):
     # cum falls to ~-410 over the chunk: the masked decay must select
     cases += [("mamba2-780m dt=0.1", SSD_SHAPES["mamba2-780m"],
                dict(dt_value=0.1))]
-    max_err = 0.0
+    # H not a multiple of the head block, and rows whose pitch is not a
+    # multiple of 4 floats (no 16-byte cp.async: scalar loads)
+    cases += [("H=7", (2, 256, 7, 64, 128), {}),
+              ("H=7 pitch%4=1", (2, 256, 7, 64, 128),
+               dict(strided=True, pad=1)),
+              ("ragged pitch%4=3", (3, 100, 5, 20, 40),
+               dict(strided=True, pad=3)),
+              ("N=64 H=7 pitch%4=2", (2, 200, 7, 64, 64),
+               dict(strided=True, pad=2))]
+    max_err, arch_err = 0.0, {arch: 0.0 for arch in SSD_SHAPES}
     for name, shape, kw in cases:
         ins = inputs(*shape, **kw)
+        before = ssd_intra_chunk.launches
         got = ssd_intra_chunk(*ins)
         torch.cuda.synchronize()
+        need(ssd_intra_chunk.launches == before + 1,
+             f"ssd {name}: did not launch the kernel")
         for part, gt, rf in zip(("y", "state", "decay"), got,
                                 ssd_intra_chunk_ref(*ins)):
-            err = compare(f"f32 {name} {list(shape)} {part}", gt, rf,
-                          *SSD_TOL)
-            if shape in SSD_SHAPES.values():
-                max_err = max(max_err, err)
+            err = compare(f"f32 {name} {list(shape)} {part} ({SSD_PATH})",
+                          gt, rf, *SSD_TOL)
+            for arch, full in SSD_SHAPES.items():
+                if shape == full:
+                    arch_err[arch] = max(arch_err[arch], err)
+                    max_err = max(max_err, err)
+    log(f"  ssd max_abs_err at the full shapes: {json.dumps(arch_err)}")
 
     rows = {}
     for arch, shape in SSD_SHAPES.items():
         ins = inputs(*shape)
         row = dict(
-            shape=list(shape),
+            shape=list(shape), path=SSD_PATH, max_abs_err=arch_err[arch],
             ms=time_ms(torch, lambda: ssd_intra_chunk(*ins)),
             plain_ms=time_ms(torch, lambda: ssd_intra_chunk_ref(*ins)),
         )
-        row["bound_ms"], row["bound_by"], flops, nbytes = ssd_bound(*shape)
+        (row["bound_ms"], row["bound_by"], flops, nbytes,
+         row["bound_fp32_cuda_ms"]) = ssd_bound(*shape)
         row["gflop"], row["mbytes"] = flops / 1e9, nbytes / 1e6
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
         rows[arch] = row
     log(f"  timings [B*nc, Q, H, P, N] fp32: {json.dumps(rows)}")
     main = rows["mamba2-780m"]
-    return dict(name="ssd", route="cuda", path="simt",
+    return dict(name="ssd", route="cuda", path=SSD_PATH,
                 source="src/repro_torch/csrc/ssd.cu",
                 replaces="src/repro/kernels/ssd/kernel.py:20",
                 max_abs_err=max_err, rtol=SSD_TOL[0], atol=SSD_TOL[1],
                 ms=main["ms"], kernel_ms=main["ms"],
                 plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
-                bound_by=main["bound_by"], library_ms=None,
+                bound_by=main["bound_by"],
+                bound_fp32_cuda_ms=main["bound_fp32_cuda_ms"],
+                share_of_bound=main["share_of_bound"], library_ms=None,
                 timed="one mamba2-780m prefill layer's SSD intra-chunk "
                       "pass, [8,256,48,64] N=128 fp32",
                 per_arch=rows)

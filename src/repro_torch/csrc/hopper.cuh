@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels.
 //
 //   * cp.async (Ampere-style 16-byte asynchronous copies, zero-filling)
-//   * ldmatrix and mma.sync m16n8k16 (warp-level bf16 tensor cores)
+//   * ldmatrix and mma.sync m16n8k16 (warp-level bf16 tensor cores) and
+//     m16n8k8 (tf32)
 //   * mbarrier (arrive / expect_tx / parity wait)
 //   * TMA: 2-D tiled loads (cp.async.bulk.tensor) and, on the host, the
 //     tensor-map encoder reached through cudaGetDriverEntryPointByVersion
@@ -85,6 +86,19 @@ __device__ __forceinline__ void mma_16816(float (&c)[4],
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
       "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c[16 x 8] += a[16 x 8] (row) * b[8 x 8] (col), tf32 in, fp32 out.  With
+// g = lane / 4 and t = lane % 4, a holds (g, t), (g + 8, t), (g, t + 4),
+// (g + 8, t + 4); b holds (t, g), (t + 4, g); c as mma_16816.  Not volatile:
+// a pure function of its operands, so the compiler may schedule it.
+__device__ __forceinline__ void mma_1688_tf32(float (&c)[4],
+                                              const uint32_t (&a)[4],
+                                              uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }

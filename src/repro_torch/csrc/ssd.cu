@@ -9,266 +9,414 @@
 //   st[c,h,p,n] = sum_s exp(cum_{Q-1} - cum_s) dt[c,s,h] x[c,s,h,p] B[c,s,n]
 //   g[c,h]      = exp(cum_{Q-1})
 //
-// all in fp32.  The inter-chunk recurrence that stitches the chunks
-// together stays in torch (kernels/ssd/ops.py), as the reference keeps it
-// outside its Pallas call.
+// all in fp32 in and out.  The inter-chunk recurrence that stitches the
+// chunks together stays in torch (kernels/ssd/ops.py), as the reference
+// keeps it outside its Pallas call.
 //
 // What bounds it on this card: at mamba2-780m's prefill shape (8 chunks of
 // Q = 256, H = 48, P = 64, N = 128) one launch needs ~3.3 GFLOP counting
 // only the causal (s <= q) pairs and C.B^T once per chunk, and moves
-// ~65 MB (x in, y out, states out, B/C/dt in): ~50 operations per byte,
-// above the fp32 CUDA-core balance point (67 TFLOP/s over 3.35 TB/s = 20),
-// so its floor is arithmetic (~49 us at 67 TFLOP/s).  This first version
-// recomputes C.B^T for every head (48x the C.B^T work at mamba2's shape)
-// and feeds its FMAs from shared memory, so in practice it is bound by
-// shared-memory bandwidth and FMA issue; sharing C.B^T across a head block
-// and tensor cores (TF32 or split-bf16 wgmma) are the first things a later
-// version changes.
+// ~65 MB (x in, y out, states out, B/C/dt in).  Its products run on the
+// tensor cores at fp32 accuracy, whose fastest rate is 495 TF32 TFLOP/s
+// over three products (165 TFLOP/s): ~20 us of operations beside ~20 us
+// of bytes (zamba2-2.7b: 25 us beside 29 us).  In practice the kernel is
+// bound by instruction issue and latency around the mma.sync (splitting
+// operands, the masked decay's exp, fragment loads from shared memory,
+// one barrier-separated step a head) at two to three 4-warp blocks an SM.
 //
 // Design:
-//   * One 256-thread block per (chunk, head).  The TPU kernel holds a
-//     [Q, Q, heads] decay tensor in VMEM (~6 MB at Q = 256 with 8 heads);
-//     here nothing quadratic leaves registers and shared memory: the block
-//     walks 64-row q tiles and, inside each, the 64-column s tiles up to
-//     the diagonal.  For each pair it forms the C.B^T tile over N (4 x 4
-//     outputs a thread), scales it by the masked decay and dt_s into a
-//     shared 64 x 64 tile M, and accumulates y += M @ x_tile in registers;
-//     the y tile is written once.
-//   * cum is a sequential fp32 sum over the chunk in one thread (the order
-//     of torch.cumsum on the CPU; Q adds, negligible beside the products).
+//   * B and C are shared by every head of a chunk (one group), so C.B^T is
+//     too.  A y block owns (chunk, head block of HB heads, 64-row q tile):
+//     for each s tile up to the diagonal it computes the 64 x 64 C.B^T
+//     tile once and applies it to all HB heads,
+//     M_h = select(s <= q, CB exp(cum_q - cum_s) dt_s, 0), y_h += M_h x_h.
+//     Warp w owns q rows 16 w .. 16 w + 15; the C.B^T tile and the y tiles
+//     of the HB heads stay in registers.  HB is 4, or 2 at N <= 64.
+//   * A state block owns (chunk, head): st = (x * w)^T B over all s tiles,
+//     w_s = exp(cum_{Q-1} - cum_s) dt_s; warp w owns p rows 16 w .. 16 w
+//     + 15.
+//   * Causal balance: blocks are numbered heaviest first (y of the last q
+//     tiles, then the states, then y of q tile 0), so the block scheduler
+//     fills the SMs evenly whatever the shape.
+//   * Products on mma.sync m16n8k8 tf32 with the 3xTF32 split:
+//     a = a_hi + a_lo, a_hi = tf32(a), a_lo = tf32(a - a_hi), and
+//     a b ~ a_hi b_hi + a_hi b_lo + a_lo b_hi, ~21 bits of mantissa, fp32
+//     sums.  Single-pass TF32 (10 bits) misses rtol = atol = 1e-3 on y.
+//   * Registers, not shared memory, carry M into M @ x: the k order inside
+//     an m16n8k8 product is free, so the accumulator's (row, 2t) and
+//     (row, 2t + 1) are fed as k = t and t + 4 of the A fragment, and the
+//     B fragment (x, or B in the state) reads rows 2t and 2t + 1 to match.
+//     Row pitches of 4 (mod 32) floats make every fragment read
+//     conflict-free.
+//   * Loads overlap math, by cp.async: a y block keeps its C tile, loads
+//     the next B tile once C.B^T is done with the current one, and each
+//     step's x tile during the step before; a state block double-buffers
+//     (B, x).  ~110 KB of shared memory at N = 128 (two blocks an SM),
+//     ~74 KB at N = 64 (three).  Rows whose address or pitch is not
+//     16-byte aligned load scalars into the same layout in the same
+//     kernel; ragged Q, P, N and H are zero-filled or masked.
+//   * cum is a sequential fp32 sum over the chunk in one thread per head
+//     (the order of torch.cumsum on the CPU; Q adds, negligible).
 //   * The decay is selected with the causal mask, never multiplied by it:
 //     exp(cum_q - cum_s) overflows to inf above the diagonal (cum falls to
 //     ~-400 over a chunk at a = -16, dt = 0.1), and inf * 0 is NaN.  The
 //     quotient exp(cum_q) / exp(cum_s) is never formed (0 / 0 there).
-//   * A second pass builds the state, st = (x * w)^T @ B with
-//     w_s = exp(cum_{Q-1} - cum_s) dt_s, in 64 x 64 output tiles.
 //   * Inputs are read through their strides (unit stride on the last dim),
 //     so the model's column slices of the conv output need no copy.
-//     Ragged Q, P and N edges are masked in the kernel.  Shared memory:
-//     ~101 KB at N = 128, P = 64 (dynamic, above the 48 KB default).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;  // a 16 x 16 grid of threads
-constexpr int TILE = 64;      // q, s, p and n tile edge
+constexpr int THREADS = 128;  // 4 warps, 16 rows of a 64-row tile each
+constexpr int TILE = 64;      // q, s and p tile edge
+constexpr int LDX = TILE + 4;  // x tile pitch (floats)
 constexpr int MAX_P = 64;
 constexpr int MAX_N = 256;
+// heads sharing one C.B^T tile: 4, or 2 at N <= 64, where the smaller
+// register file of two heads lets three blocks share an SM
+template <int NP>
+constexpr int hb_max() {
+  return NP <= 64 ? 2 : 4;
+}
+constexpr int SMEM_MAX = 232448;
 
-struct Layout {
-  int ldc, ldb, ldx;  // padded row pitches of the C, B and x tiles
-  size_t floats;      // total shared floats
+// two [TILE][NP + 4] tiles (C and B, or two B), two [TILE][LDX] x tiles,
+// and cum and dt of hb heads
+template <int NP>
+size_t smem_bytes(int hb, int Q) {
+  return sizeof(float) *
+         (2 * static_cast<size_t>(TILE) * (NP + 4 + LDX) +
+          2 * static_cast<size_t>(hb) * Q);
+}
+
+// x = hi + lo, both tf32 (the top 19 bits of an fp32): hi is x truncated,
+// x - hi is exact in fp32, and lo is that truncated, so hi + lo keeps ~21
+// of x's 24 mantissa bits.  Two LOP3s and an FADD (cvt.rna.tf32 costs more).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
+}
+
+// c += a b at fp32 accuracy: three tf32 products, the small ones first.
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], float b0,
+                                           float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split_tf32(b0, bh0, bl0);
+  split_tf32(b1, bh1, bl1);
+  mma_1688_tf32(c, al, bh0, bh1);
+  mma_1688_tf32(c, ah, bl0, bl1);
+  mma_1688_tf32(c, ah, bh0, bh1);
+}
+
+// The A fragment of a 16 x 8 block given as its rows g and g + 8 at k
+// columns (t, t + 4): v = {(g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)}.
+__device__ __forceinline__ void split_a(float v0, float v1, float v2,
+                                        float v3, uint32_t (&ah)[4],
+                                        uint32_t (&al)[4]) {
+  split_tf32(v0, ah[0], al[0]);
+  split_tf32(v1, ah[1], al[1]);
+  split_tf32(v2, ah[2], al[2]);
+  split_tf32(v3, ah[3], al[3]);
+}
+
+// rows [r0, r0 + TILE) of a [rows, cols] fp32 matrix (row pitch ld) into a
+// [TILE][LD] smem tile of W columns, zero past `rows` and `cols`; 16-byte
+// cp.async where vec (base, pitch and cols multiples of 4 floats), else
+// scalar loads into the same layout.
+template <int W, int LD>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          int r0, int rows, int cols,
+                                          int64_t ld, bool vec) {
+  constexpr int CH = W / 4;  // 16-byte chunks a row
+  for (int e = threadIdx.x; e < TILE * CH; e += THREADS) {
+    const int r = e / CH, k = (e % CH) * 4;
+    float* d = dst + r * LD + k;
+    const bool in = r0 + r < rows;
+    const float* s = src + static_cast<int64_t>(r0 + r) * ld + k;
+    if (vec) {
+      const bool ok = in && k < cols;
+      cp_async16(d, ok ? s : src, ok);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) d[i] = (in && k + i < cols) ? s[i] : 0.f;
+    }
+  }
+}
+
+// v0, v1 to p[0], p[1] where n (the columns left) allows; paired when even
+// (p 8-byte aligned).
+__device__ __forceinline__ void store2(float* p, float v0, float v1, int n,
+                                       bool even) {
+  if (n >= 2 && even) {
+    *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+  } else {
+    if (n >= 1) p[0] = v0;
+    if (n >= 2) p[1] = v1;
+  }
+}
+
+struct Args {
+  const float *x, *dt, *a, *bm, *cm;
+  float *y, *st, *g;
+  int BC, H, Q, P, N;
+  int64_t xsb, xsq, xsh, dsb, dsq, bsb, bsq, csb, csq;
+  bool vx, vb, vc;  // x / B / C rows 16-byte aligned (cp.async)
 };
 
-__host__ __device__ inline Layout layout(int Q, int P, int N) {
-  Layout L;
-  L.ldc = N + 1;
-  L.ldb = (N > TILE ? N : TILE) + 1;
-  L.ldx = P + 1;
-  L.floats = 3 * static_cast<size_t>(Q) +
-             static_cast<size_t>(TILE) * (L.ldc + L.ldb + L.ldx + TILE + 1);
-  return L;
-}
-
-// PJ: p columns a thread owns in the y pass (and p rows in the state
-// pass), 16 apart; P <= 16 * PJ.
-template <int PJ>
+// NP: N padded to a multiple of 64 (B tile width); HB: heads a block.
+template <int NP, int HB>
 __global__ void __launch_bounds__(THREADS)
-    ssd_chunk_fwd(const float* __restrict__ x, const float* __restrict__ dt,
-                  const float* __restrict__ a, const float* __restrict__ bm,
-                  const float* __restrict__ cm, float* __restrict__ y,
-                  float* __restrict__ st, float* __restrict__ g, int H,
-                  int Q, int P, int N, int64_t xsb, int64_t xsq,
-                  int64_t xsh, int64_t dsb, int64_t dsq, int64_t bsb,
-                  int64_t bsq, int64_t csb, int64_t csq) {
-  extern __shared__ float smem[];
-  const Layout L = layout(Q, P, N);
-  float* cum = smem;                 // [Q]
-  float* dts = cum + Q;              // [Q]
-  float* ws = dts + Q;               // [Q] state weights
-  float* Cs = ws + Q;                // [TILE][ldc]
-  float* Bs = Cs + TILE * L.ldc;     // [TILE][ldb]
-  float* Xs = Bs + TILE * L.ldb;     // [TILE][ldx]
-  float* Ms = Xs + TILE * L.ldx;     // [TILE][TILE + 1]
-  constexpr int LDM = TILE + 1;
+    ssd_chunk_fwd(const Args A) {
+  constexpr int LDB = NP + 4;  // B and C tile pitch
+  constexpr int NT = NP / 8;   // n8 tiles of the state
+  extern __shared__ __align__(16) float smem[];
+  const int Q = A.Q, P = A.P, N = A.N;
+  // [C or B][B][x][x] tiles, then cum and dt of the block's heads
+  float* const xs = smem + 2 * TILE * LDB;
+  float* const cum = xs + 2 * TILE * LDX;  // [HB][Q]
+  float* const dts = cum + HB * Q;         // [HB][Q]
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int c = blockIdx.x / H, h = blockIdx.x % H;
+  // block roles, heaviest first so that the block scheduler balances the
+  // causal work: y of q tiles nq-1 .. 1 (per chunk and head block), the
+  // chunk state of one head, y of q tile 0
+  const int nq = (Q + TILE - 1) / TILE;
+  const int nhb = (A.H + HB - 1) / HB;
+  const int n_late = A.BC * nhb * (nq - 1);
+  int b = blockIdx.x, qt = 0, c, h0, nh;
+  bool state = false;
+  if (b < n_late || b >= n_late + A.BC * A.H) {
+    if (b < n_late) {
+      qt = nq - 1 - b / (A.BC * nhb);
+      b %= A.BC * nhb;
+    } else {
+      b -= n_late + A.BC * A.H;
+    }
+    c = b / nhb;
+    h0 = (b % nhb) * HB;
+    nh = min(HB, A.H - h0);
+  } else {
+    state = true;
+    b -= n_late;
+    c = b / A.H;
+    h0 = b % A.H;
+    nh = 1;
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
 
-  const float* xb = x + c * xsb + h * xsh;
-  const float* db = dt + c * dsb + h;
-  const float* bb = bm + c * bsb;
-  const float* cb = cm + c * csb;
+  const float* xc = A.x + c * A.xsb;
+  const float* bc = A.bm + c * A.bsb;
 
-  for (int s = tid; s < Q; s += THREADS) dts[s] = db[s * dsq];
+  // dt, and cum = cumsum(dt * a), of the block's heads
+  const float* db = A.dt + c * A.dsb + h0;
+  for (int e = threadIdx.x; e < nh * Q; e += THREADS) {
+    const int s = e / nh, hl = e % nh;
+    dts[hl * Q + s] = db[s * A.dsq + hl];
+  }
   __syncthreads();
-  if (tid == 0) {
-    const float ah = a[h];
+  if (threadIdx.x < nh) {
+    const int hl = threadIdx.x;
+    const float ah = A.a[h0 + hl];
     float run = 0.f;
+#pragma unroll 8
     for (int s = 0; s < Q; ++s) {
-      run = run + __fmul_rn(dts[s], ah);  // round dt*a first, as torch does
-      cum[s] = run;
+      run = run + __fmul_rn(dts[hl * Q + s], ah);  // round dt*a first
+      cum[hl * Q + s] = run;
     }
-    g[static_cast<int64_t>(c) * H + h] = expf(run);
+    if (state) A.g[static_cast<int64_t>(c) * A.H + h0] = expf(run);
   }
-  __syncthreads();
-  // decay from s to the chunk's end, times dt_s (the state's weights)
-  for (int s = tid; s < Q; s += THREADS)
-    ws[s] = expf(cum[Q - 1] - cum[s]) * dts[s];
+  // (the loops below meet a __syncthreads before reading cum)
 
-  // ---- pass 1: y ---------------------------------------------------------
-  float* yb = y + (static_cast<int64_t>(c) * Q * H + h) * P;
-  for (int q0 = 0; q0 < Q; q0 += TILE) {
-    __syncthreads();  // previous tile's reads of Cs done
-    for (int e = tid; e < TILE * N; e += THREADS) {
-      const int r = e / N, n = e % N;
-      Cs[r * L.ldc + n] = (q0 + r < Q) ? cb[(q0 + r) * csq + n] : 0.f;
-    }
-    float acc[4][PJ];
+  if (!state) {
+    // ---- y of q tile qt: steps (s tile, head).  The C tile stays for the
+    // block; the B tile of s tile ts + 1 loads once C.B^T of ts is done; a
+    // step's x tile loads during the step before.
+    float* const Cs = smem;
+    float* const Bs = smem + TILE * LDB;
+    float acc[HB][8][4];  // y: 16 q rows x 64 p of each head
+    float cbt[8][4];      // C.B^T: 16 q rows x 64 s
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int h = 0; h < HB; ++h)
 #pragma unroll
-      for (int j = 0; j < PJ; ++j) acc[i][j] = 0.f;
-
-    for (int s0 = 0; s0 <= q0; s0 += TILE) {
-      __syncthreads();  // previous pair's reads of Bs, Xs, Ms done
-      for (int e = tid; e < TILE * N; e += THREADS) {
-        const int r = e / N, n = e % N;
-        Bs[r * L.ldb + n] = (s0 + r < Q) ? bb[(s0 + r) * bsq + n] : 0.f;
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[h][j][i] = 0.f;
+    auto load_x = [&](int s_t, int h, int buf) {
+      load_tile<TILE, LDX>(xs + buf * TILE * LDX, xc + (h0 + h) * A.xsh,
+                           s_t * TILE, Q, P, A.xsq, A.vx);
+    };
+    load_tile<NP, LDB>(Cs, A.cm + c * A.csb, qt * TILE, Q, N, A.csq, A.vc);
+    load_tile<NP, LDB>(Bs, bc, 0, Q, N, A.bsq, A.vb);
+    load_x(0, 0, 0);
+    cp_async_commit();
+    const int r0 = 16 * warp + gq;  // the lane's rows r0, r0 + 8 of the tile
+    const int q0 = qt * TILE + r0, q1 = q0 + 8;
+    int ts = 0, hh = 0;
+    for (int step = 0; ts <= qt; ++step) {
+      int ns = ts, nh2 = hh + 1;  // the next step
+      if (nh2 == nh) {
+        nh2 = 0;
+        ++ns;
       }
-      for (int e = tid; e < TILE * P; e += THREADS) {
-        const int r = e / P, p = e % P;
-        Xs[r * L.ldx + p] = (s0 + r < Q) ? xb[(s0 + r) * xsq + p] : 0.f;
-      }
+      if (ns <= qt) load_x(ns, nh2, (step + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
       __syncthreads();
-
-      float cbt[4][4];
+      if (hh == 0) {  // C.B^T of (q tile, s tile), once for all heads
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int j = 0; j < 8; ++j)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) cbt[i][j] = 0.f;
-      for (int n = 0; n < N; ++n) {
-        float cv[4], bv[4];
+          for (int i = 0; i < 4; ++i) cbt[j][i] = 0.f;
+#pragma unroll 4
+        for (int k0 = 0; k0 < NP; k0 += 8) {
+          // k order (2t, 2t + 1) as (t, t + 4) of both fragments
+          const int k = k0 + 2 * tq;
+          const float2 ca = *reinterpret_cast<const float2*>(Cs + r0 * LDB + k);
+          const float2 cb =
+              *reinterpret_cast<const float2*>(Cs + (r0 + 8) * LDB + k);
+          uint32_t ah[4], al[4];
+          split_a(ca.x, cb.x, ca.y, cb.y, ah, al);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) cv[i] = Cs[(ty + 16 * i) * L.ldc + n];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) bv[j] = Bs[(tx + 16 * j) * L.ldb + n];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) cbt[i][j] += cv[i] * bv[j];
+          for (int j = 0; j < 8; ++j) {
+            const float2 bv = *reinterpret_cast<const float2*>(
+                Bs + (8 * j + gq) * LDB + k);
+            mma_3xtf32(cbt[j], ah, al, bv.x, bv.y);
+          }
+        }
+        __syncthreads();  // every warp is done with Bs
+        if (ts < qt) load_tile<NP, LDB>(Bs, bc, (ts + 1) * TILE, Q, N, A.bsq,
+                                        A.vb);
+        cp_async_commit();
       }
+      const float* Xs = xs + (step & 1) * TILE * LDX;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int q = q0 + ty + 16 * i;
+      for (int h = 0; h < HB; ++h) {
+        if (h != hh) continue;
+        // M_h = select(s <= q, CB exp(cum_q - cum_s) dt_s, 0); y += M_h x
+        const float* cu = cum + h * Q;
+        const float* dh = dts + h * Q;
+        const float cq0 = q0 < Q ? cu[q0] : 0.f;
+        const float cq1 = q1 < Q ? cu[q1] : 0.f;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int s = s0 + tx + 16 * j;
-          // select, never multiply by the mask (inf above the diagonal)
-          float m = 0.f;
-          if (s <= q && q < Q)
-            m = cbt[i][j] * expf(cum[q] - cum[s]) * dts[s];
-          Ms[(ty + 16 * i) * LDM + tx + 16 * j] = m;
+        for (int kb = 0; kb < 8; ++kb) {
+          const int s = ts * TILE + 8 * kb + 2 * tq;
+          const bool in0 = s < Q, in1 = s + 1 < Q;
+          const float cs0 = in0 ? cu[s] : 0.f, cs1 = in1 ? cu[s + 1] : 0.f;
+          const float d0 = in0 ? dh[s] : 0.f, d1 = in1 ? dh[s + 1] : 0.f;
+          // select, never multiply by the mask (exp overflows to inf above
+          // the diagonal): masked exponents are -inf, and exp(-inf) = 0
+          const float m00 = cbt[kb][0] * d0 *
+                            expf(q0 < Q && s <= q0 ? cq0 - cs0 : -INFINITY);
+          const float m01 = cbt[kb][1] * d1 *
+                            expf(q0 < Q && s < q0 ? cq0 - cs1 : -INFINITY);
+          const float m10 = cbt[kb][2] * d0 *
+                            expf(q1 < Q && s <= q1 ? cq1 - cs0 : -INFINITY);
+          const float m11 = cbt[kb][3] * d1 *
+                            expf(q1 < Q && s < q1 ? cq1 - cs1 : -INFINITY);
+          uint32_t ah[4], al[4];
+          split_a(m00, m10, m01, m11, ah, al);
+          const float* xr = Xs + (8 * kb + 2 * tq) * LDX + gq;
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            mma_3xtf32(acc[h][j], ah, al, xr[8 * j], xr[LDX + 8 * j]);
         }
       }
+      __syncthreads();  // this x buffer's reads done before it is refilled
+      ts = ns;
+      hh = nh2;
+    }
+    const bool even = (P & 1) == 0;
+#pragma unroll
+    for (int h = 0; h < HB; ++h) {
+      if (h >= nh) continue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int p = 8 * j + 2 * tq;
+        if (p >= P) continue;
+        float* y0 = A.y + ((static_cast<int64_t>(c) * Q + q0) * A.H + h0 +
+                           h) * P + p;
+        if (q0 < Q) store2(y0, acc[h][j][0], acc[h][j][1], P - p, even);
+        if (q1 < Q)
+          store2(y0 + static_cast<int64_t>(8) * A.H * P, acc[h][j][2],
+                 acc[h][j][3], P - p, even);
+      }
+    }
+  } else {
+    // ---- the chunk state of head h0: steps (s tile), the B and x tiles
+    // double-buffered; st = (x w)^T B, w_s = exp(cum_{Q-1} - cum_s) dt_s
+    float acc[NT][4];  // 16 p rows x NP n
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+    auto issue = [&](int s_t, int buf) {
+      load_tile<NP, LDB>(smem + buf * TILE * LDB, bc, s_t * TILE, Q, N,
+                         A.bsq, A.vb);
+      load_tile<TILE, LDX>(xs + buf * TILE * LDX, xc + h0 * A.xsh,
+                           s_t * TILE, Q, P, A.xsq, A.vx);
+    };
+    issue(0, 0);
+    cp_async_commit();
+    const int p0 = 16 * warp + gq, p1 = p0 + 8;
+    for (int ts = 0; ts < nq; ++ts) {
+      if (ts + 1 < nq) issue(ts + 1, (ts + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
       __syncthreads();
-
-      const int s_end = min(TILE, Q - s0);
-      for (int s = 0; s < s_end; ++s) {
-        float mv[4], xv[PJ];
+      const float* Bs = smem + (ts & 1) * TILE * LDB;
+      const float* Xs = xs + (ts & 1) * TILE * LDX;
+      const float last = cum[Q - 1];
+#pragma unroll 2
+      for (int kb = 0; kb < 8; ++kb) {
+        const int s = ts * TILE + 8 * kb + 2 * tq;
+        const float w0 = s < Q ? expf(last - cum[s]) * dts[s] : 0.f;
+        const float w1 =
+            s + 1 < Q ? expf(last - cum[s + 1]) * dts[s + 1] : 0.f;
+        const float* xr = Xs + (8 * kb + 2 * tq) * LDX;
+        uint32_t ah[4], al[4];
+        split_a(xr[p0] * w0, xr[p1] * w0, xr[LDX + p0] * w1,
+                xr[LDX + p1] * w1, ah, al);
+        const float* br = Bs + (8 * kb + 2 * tq) * LDB + gq;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) mv[i] = Ms[(ty + 16 * i) * LDM + s];
-#pragma unroll
-        for (int j = 0; j < PJ; ++j) {
-          const int p = tx + 16 * j;
-          xv[j] = p < P ? Xs[s * L.ldx + p] : 0.f;
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < PJ; ++j) acc[i][j] += mv[i] * xv[j];
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int q = q0 + ty + 16 * i;
-      if (q >= Q) continue;
-#pragma unroll
-      for (int j = 0; j < PJ; ++j) {
-        const int p = tx + 16 * j;
-        if (p < P) yb[static_cast<int64_t>(q) * H * P + p] = acc[i][j];
-      }
-    }
-  }
-
-  // ---- pass 2: the chunk's outgoing state ---------------------------------
-  float* sb = st + (static_cast<int64_t>(c) * H + h) * P * N;
-  for (int n0 = 0; n0 < N; n0 += TILE) {
-    float acc[PJ][4];
-#pragma unroll
-    for (int i = 0; i < PJ; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    for (int s0 = 0; s0 < Q; s0 += TILE) {
-      __syncthreads();  // previous reads of Bs, Xs done
-      for (int e = tid; e < TILE * P; e += THREADS) {
-        const int r = e / P, p = e % P;
-        const int s = s0 + r;
-        Xs[r * L.ldx + p] = s < Q ? xb[s * xsq + p] * ws[s] : 0.f;
-      }
-      for (int e = tid; e < TILE * TILE; e += THREADS) {
-        const int r = e / TILE, nl = e % TILE;
-        const bool in = s0 + r < Q && n0 + nl < N;
-        Bs[r * L.ldb + nl] = in ? bb[(s0 + r) * bsq + n0 + nl] : 0.f;
+        for (int j = 0; j < NT; ++j)
+          mma_3xtf32(acc[j], ah, al, br[8 * j], br[LDB + 8 * j]);
       }
       __syncthreads();
-      const int s_end = min(TILE, Q - s0);
-      for (int s = 0; s < s_end; ++s) {
-        float xv[PJ], bv[4];
-#pragma unroll
-        for (int i = 0; i < PJ; ++i) {
-          const int p = ty + 16 * i;
-          xv[i] = p < P ? Xs[s * L.ldx + p] : 0.f;
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) bv[j] = Bs[s * L.ldb + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < PJ; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] += xv[i] * bv[j];
-      }
     }
+    const bool even = (N & 1) == 0;
+    float* s0 = A.st + ((static_cast<int64_t>(c) * A.H + h0) * P + p0) * N;
 #pragma unroll
-    for (int i = 0; i < PJ; ++i) {
-      const int p = ty + 16 * i;
-      if (p >= P) continue;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = n0 + tx + 16 * j;
-        if (n < N) sb[static_cast<int64_t>(p) * N + n] = acc[i][j];
-      }
+    for (int j = 0; j < NT; ++j) {
+      const int n = 8 * j + 2 * tq;
+      if (n >= N) continue;
+      if (p0 < P) store2(s0 + n, acc[j][0], acc[j][1], N - n, even);
+      if (p1 < P) store2(s0 + 8 * N + n, acc[j][2], acc[j][3], N - n, even);
     }
   }
 }
 
-template <int PJ>
-int launch(const float* x, const float* dt, const float* a, const float* bm,
-           const float* cm, float* y, float* st, float* g, int BC, int H,
-           int Q, int P, int N, const int64_t* sd, cudaStream_t s) {
-  const size_t smem = layout(Q, P, N).floats * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        ssd_chunk_fwd<PJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const unsigned grid = static_cast<unsigned>(BC) * static_cast<unsigned>(H);
-  ssd_chunk_fwd<PJ><<<grid, THREADS, smem, s>>>(
-      x, dt, a, bm, cm, y, st, g, H, Q, P, N, sd[0], sd[1], sd[2], sd[3],
-      sd[4], sd[5], sd[6], sd[7], sd[8]);
+template <int NP>
+int launch(const Args& A, cudaStream_t s) {
+  // hb_max heads a block while the tiles and cum / dt fit, else one
+  constexpr int HB = hb_max<NP>();
+  const int hb = smem_bytes<NP>(HB, A.Q) <= SMEM_MAX ? HB : 1;
+  const size_t smem = smem_bytes<NP>(hb, A.Q);
+  if (smem > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = hb == HB ? ssd_chunk_fwd<NP, HB> : ssd_chunk_fwd<NP, 1>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // y blocks (chunk, head block, q tile) and state blocks (chunk, head)
+  const int64_t nq = (A.Q + TILE - 1) / TILE;
+  const int64_t grid = static_cast<int64_t>(A.BC) *
+                       (((A.H + hb - 1) / hb) * nq + A.H);
+  if (grid > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  kern<<<static_cast<unsigned>(grid), THREADS, smem, s>>>(A);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -293,15 +441,21 @@ int ssd_intra_chunk_launch(const float* x, const float* dt, const float* a,
                            int64_t bsq, int64_t csb, int64_t csq,
                            void* stream) {
   if (BC <= 0 || Q <= 0 || H <= 0 || P <= 0 || P > MAX_P || N <= 0 ||
-      N > MAX_N || static_cast<int64_t>(BC) * H > 0x7fffffff)
+      N > MAX_N)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t sd[9] = {xsb, xsq, xsh, dsb, dsq, bsb, bsq, csb, csq};
+  auto al16 = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const Args A{x, dt, a, bm, cm, y, st, g, BC, H, Q, P, N,
+               xsb, xsq, xsh, dsb, dsq, bsb, bsq, csb, csq,
+               al16(x) && xsb % 4 == 0 && xsq % 4 == 0 && xsh % 4 == 0 &&
+                   P % 4 == 0,
+               al16(bm) && bsb % 4 == 0 && bsq % 4 == 0 && N % 4 == 0,
+               al16(cm) && csb % 4 == 0 && csq % 4 == 0 && N % 4 == 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (P <= 16)
-    return launch<1>(x, dt, a, bm, cm, y, st, g, BC, H, Q, P, N, sd, s);
-  if (P <= 32)
-    return launch<2>(x, dt, a, bm, cm, y, st, g, BC, H, Q, P, N, sd, s);
-  return launch<4>(x, dt, a, bm, cm, y, st, g, BC, H, Q, P, N, sd, s);
+  if (N <= 64) return launch<64>(A, s);
+  if (N <= 128) return launch<128>(A, s);
+  return launch<256>(A, s);
 }
 
 }  // extern "C"

@@ -21,6 +21,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ops import attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.tatp_matmul import ops as gemm_ops
 from repro_torch.kernels.tatp_matmul.ops import tatp_dot
 from repro_torch.kernels.tatp_matmul.ref import matmul_ref
@@ -260,6 +261,9 @@ def test_attention_path(dtype, d, want):
      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_int64] * 12
      + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
+    ("ssd", "ssd_intra_chunk_launch",
+     [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_int64] * 9
+     + [ctypes.c_void_p]),
 ])
 def test_launcher_argtypes_match_c_signature(monkeypatch, lib, fn, argtypes):
     """The wrappers' ctypes argtypes against the C launchers' parameter
@@ -267,6 +271,7 @@ def test_launcher_argtypes_match_c_signature(monkeypatch, lib, fn, argtypes):
     src = (_build.CSRC / f"{lib}.cu").read_text()
     params = re.search(rf"int {fn}\(([^)]*)\)", src).group(1)
     c_types = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
+               "const float*": ctypes.c_void_p, "float*": ctypes.c_void_p,
                "int64_t": ctypes.c_int64, "int": ctypes.c_int,
                "float": ctypes.c_float}
     parsed = [c_types[" ".join(p.split()[:-1])] for p in params.split(",")]
@@ -282,7 +287,8 @@ def test_launcher_argtypes_match_c_signature(monkeypatch, lib, fn, argtypes):
     stub = Lib()
     setattr(stub, fn, Fn())
     monkeypatch.setattr(_build, "load", lambda name: stub)
-    ops = gemm_ops if lib == "tatp_matmul" else flash_ops
+    ops = {"tatp_matmul": gemm_ops, "flash_attention": flash_ops,
+           "ssd": ssd_ops}[lib]
     ops._lib()
     assert getattr(stub, fn).argtypes == argtypes
     assert getattr(stub, fn).restype is ctypes.c_int

@@ -392,13 +392,29 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bc,q,h,p,n", [(8, 256, 48, 64, 128),
-                                        (8, 256, 80, 64, 64),
-                                        (6, 8, 8, 16, 16),
-                                        (3, 100, 5, 20, 40)])
-def test_ssd_kernel_matches_plain(cuda_device, bc, q, h, p, n):
-    ins = [_t(a).to(cuda_device) for a in
-           _ssd_inputs(np.random.RandomState(15), bc, q, h, p, n)]
+@pytest.mark.parametrize("bc,q,h,p,n,pad", [
+    (8, 256, 48, 64, 128, None), (8, 256, 80, 64, 64, None),
+    (6, 8, 8, 16, 16, None), (3, 100, 5, 20, 40, None),
+    # H not a multiple of the kernel's head block
+    (2, 256, 7, 64, 128, None), (2, 200, 7, 64, 64, None),
+    # x, B and C column slices of one buffer whose row pitch is not a
+    # multiple of 4 floats (the kernel's scalar loads)
+    (2, 256, 7, 64, 128, 1), (3, 100, 5, 20, 40, 3), (2, 130, 3, 33, 256, 2),
+])
+def test_ssd_kernel_matches_plain(cuda_device, bc, q, h, p, n, pad):
+    x, dt, a, bm, cm = [_t(v).to(cuda_device) for v in
+                        _ssd_inputs(np.random.RandomState(15), bc, q, h, p,
+                                    n)]
+    if pad is not None:  # the same values, read through row pitch h*p+2n+pad
+        buf = torch.zeros((bc, q, h * p + 2 * n + pad), dtype=x.dtype,
+                          device=cuda_device)
+        buf[..., :h * p] = x.reshape(bc, q, h * p)
+        buf[..., h * p:h * p + n] = bm
+        buf[..., h * p + n:h * p + 2 * n] = cm
+        x = buf[..., :h * p].reshape(bc, q, h, p)
+        bm, cm = buf[..., h * p:h * p + n], buf[..., h * p + n:h * p + 2 * n]
+        assert x.stride(1) % 4 and bm.stride(1) % 4
+    ins = [x, dt, a, bm, cm]
     before = ssd_ops.ssd_intra_chunk.launches
     got = ssd_ops.ssd_intra_chunk(*ins)
     torch.cuda.synchronize()
