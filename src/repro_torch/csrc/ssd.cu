@@ -20,21 +20,27 @@
 // tensor cores at fp32 accuracy, whose fastest rate is 495 TF32 TFLOP/s
 // over three products (165 TFLOP/s): ~20 us of operations beside ~20 us
 // of bytes (zamba2-2.7b: 25 us beside 29 us).  In practice the kernel is
-// bound by instruction issue and latency around the mma.sync (splitting
-// operands, the masked decay's exp, fragment loads from shared memory,
-// one barrier-separated step a head) at two to three 4-warp blocks an SM.
+// bound by latency: at two to three 4-warp blocks an SM (registers and
+// shared memory allow no more) the warps cannot hide the chains of
+// fragment load, operand split, decay exp and mma.sync, and each step (one
+// s tile of one head) ends at a barrier.  Neither the tensor pipe nor
+// instruction issue is near full; occupancy is what moves it.
 //
 // Design:
 //   * B and C are shared by every head of a chunk (one group), so C.B^T is
 //     too.  A y block owns (chunk, head block of HB heads, 64-row q tile):
-//     for each s tile up to the diagonal it computes the 64 x 64 C.B^T
-//     tile once and applies it to all HB heads,
+//     for each TS-row s tile up to the diagonal it computes the 64 x TS
+//     C.B^T tile once and applies it to all HB heads,
 //     M_h = select(s <= q, CB exp(cum_q - cum_s) dt_s, 0), y_h += M_h x_h.
 //     Warp w owns q rows 16 w .. 16 w + 15; the C.B^T tile and the y tiles
-//     of the HB heads stay in registers.  HB is 4, or 2 at N <= 64.
-//   * A state block owns (chunk, head): st = (x * w)^T B over all s tiles,
-//     w_s = exp(cum_{Q-1} - cum_s) dt_s; warp w owns p rows 16 w .. 16 w
-//     + 15.
+//     of the HB heads stay in registers.  HB = 2 and TS = 32 at N = 128,
+//     HB = 2 and TS = 64 at N <= 64 (three blocks an SM); HB = 4 and
+//     TS = 64 at N = 256 (one); HB = 1 only where cum of HB heads would
+//     not fit (chunks of thousands of rows).
+//   * A state block owns (chunk, head): st^T = B^T (x * w) over all s
+//     tiles, w_s = exp(cum_{Q-1} - cum_s) dt_s; warp w owns a quarter of
+//     the n rows and all 64 p, so each warp splits only its quarter of a
+//     B tile.
 //   * Causal balance: blocks are numbered heaviest first (y of the last q
 //     tiles, then the states, then y of q tile 0), so the block scheduler
 //     fills the SMs evenly whatever the shape.
@@ -51,10 +57,10 @@
 //   * Loads overlap math, by cp.async: a y block keeps its C tile, loads
 //     the next B tile once C.B^T is done with the current one, and each
 //     step's x tile during the step before; a state block double-buffers
-//     (B, x).  ~110 KB of shared memory at N = 128 (two blocks an SM),
-//     ~74 KB at N = 64 (three).  Rows whose address or pitch is not
-//     16-byte aligned load scalars into the same layout in the same
-//     kernel; ragged Q, P, N and H are zero-filled or masked.
+//     (B, x).  ~72 KB of shared memory at N = 128, ~74 KB at N = 64.
+//     Rows whose address or pitch is not 16-byte aligned load scalars into
+//     the same layout in the same kernel; ragged Q, P, N and H are
+//     zero-filled or masked.
 //   * cum is a sequential fp32 sum over the chunk in one thread per head
 //     (the order of torch.cumsum on the CPU; Q adds, negligible).
 //   * The decay is selected with the causal mask, never multiplied by it:
@@ -69,25 +75,33 @@
 namespace {
 
 constexpr int THREADS = 128;  // 4 warps, 16 rows of a 64-row tile each
-constexpr int TILE = 64;      // q, s and p tile edge
+constexpr int TILE = 64;      // q tile rows and x tile columns (P <= 64)
 constexpr int LDX = TILE + 4;  // x tile pitch (floats)
 constexpr int MAX_P = 64;
 constexpr int MAX_N = 256;
-// heads sharing one C.B^T tile: 4, or 2 at N <= 64, where the smaller
-// register file of two heads lets three blocks share an SM
+constexpr int SMEM_MAX = 232448;  // dynamic shared memory a block can use
+// Per N padded to NP: the s tile's rows TS and the heads HB sharing one
+// C.B^T tile.  At N = 128, 32-row s tiles and two heads keep a block at
+// ~70 KB of shared memory and ~150 registers, three blocks an SM; at
+// N <= 64, 64-row s tiles do the same; N = 256 runs one block an SM.
 template <int NP>
-constexpr int hb_max() {
-  return NP <= 64 ? 2 : 4;
+__host__ __device__ constexpr int ts_rows() {
+  return NP == 128 ? 32 : 64;
 }
-constexpr int SMEM_MAX = 232448;
 
-// two [TILE][NP + 4] tiles (C and B, or two B), two [TILE][LDX] x tiles,
+template <int NP>
+__host__ __device__ constexpr int hb_max() {
+  return NP <= 128 ? 2 : 4;
+}
+
+// a [TILE][NP + 4] C tile, a [TS][NP + 4] B tile, two [TS][LDX] x tiles,
 // and cum and dt of hb heads
 template <int NP>
 size_t smem_bytes(int hb, int Q) {
+  constexpr int TS = ts_rows<NP>();
   return sizeof(float) *
-         (2 * static_cast<size_t>(TILE) * (NP + 4 + LDX) +
-          2 * static_cast<size_t>(hb) * Q);
+         (static_cast<size_t>(TILE + TS) * (NP + 4) +
+          2 * static_cast<size_t>(TS) * LDX + 2 * static_cast<size_t>(hb) * Q);
 }
 
 // x = hi + lo, both tf32 (the top 19 bits of an fp32): hi is x truncated,
@@ -102,14 +116,23 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
 // c += a b at fp32 accuracy: three tf32 products, the small ones first.
 __device__ __forceinline__ void mma_3xtf32(float (&c)[4],
                                            const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           uint32_t bh0, uint32_t bh1,
+                                           uint32_t bl0, uint32_t bl1) {
+  mma_1688_tf32(c, al, bh0, bh1);
+  mma_1688_tf32(c, ah, bl0, bl1);
+  mma_1688_tf32(c, ah, bh0, bh1);
+}
+
+// The same with b given in fp32 and split here.
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
+                                           const uint32_t (&ah)[4],
                                            const uint32_t (&al)[4], float b0,
                                            float b1) {
   uint32_t bh0, bl0, bh1, bl1;
   split_tf32(b0, bh0, bl0);
   split_tf32(b1, bh1, bl1);
-  mma_1688_tf32(c, al, bh0, bh1);
-  mma_1688_tf32(c, ah, bl0, bl1);
-  mma_1688_tf32(c, ah, bh0, bh1);
+  mma_3xtf32(c, ah, al, bh0, bh1, bl0, bl1);
 }
 
 // The A fragment of a 16 x 8 block given as its rows g and g + 8 at k
@@ -123,16 +146,16 @@ __device__ __forceinline__ void split_a(float v0, float v1, float v2,
   split_tf32(v3, ah[3], al[3]);
 }
 
-// rows [r0, r0 + TILE) of a [rows, cols] fp32 matrix (row pitch ld) into a
-// [TILE][LD] smem tile of W columns, zero past `rows` and `cols`; 16-byte
+// rows [r0, r0 + ROWS) of a [rows, cols] fp32 matrix (row pitch ld) into a
+// [ROWS][LD] smem tile of W columns, zero past `rows` and `cols`; 16-byte
 // cp.async where vec (base, pitch and cols multiples of 4 floats), else
 // scalar loads into the same layout.
-template <int W, int LD>
+template <int ROWS, int W, int LD>
 __device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           int r0, int rows, int cols,
                                           int64_t ld, bool vec) {
   constexpr int CH = W / 4;  // 16-byte chunks a row
-  for (int e = threadIdx.x; e < TILE * CH; e += THREADS) {
+  for (int e = threadIdx.x; e < ROWS * CH; e += THREADS) {
     const int r = e / CH, k = (e % CH) * 4;
     float* d = dst + r * LD + k;
     const bool in = r0 + r < rows;
@@ -167,17 +190,20 @@ struct Args {
   bool vx, vb, vc;  // x / B / C rows 16-byte aligned (cp.async)
 };
 
-// NP: N padded to a multiple of 64 (B tile width); HB: heads a block.
+// NP: N padded to a multiple of 64 (B and C tile width); HB: heads a
+// block.
 template <int NP, int HB>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, HB == 2 ? 3 : 1)
     ssd_chunk_fwd(const Args A) {
   constexpr int LDB = NP + 4;  // B and C tile pitch
-  constexpr int NT = NP / 8;   // n8 tiles of the state
+  constexpr int TS = ts_rows<NP>();
+  constexpr int KS = TS / 8;   // k8 blocks of an s tile
   extern __shared__ __align__(16) float smem[];
   const int Q = A.Q, P = A.P, N = A.N;
-  // [C or B][B][x][x] tiles, then cum and dt of the block's heads
-  float* const xs = smem + 2 * TILE * LDB;
-  float* const cum = xs + 2 * TILE * LDX;  // [HB][Q]
+  // C [TILE][LDB], B [TS][LDB] (a state block: two B tiles there), two
+  // x [TS][LDX], then cum and dt of the block's heads
+  float* const xs = smem + (TILE + TS) * LDB;
+  float* const cum = xs + 2 * TS * LDX;  // [HB][Q]
   float* const dts = cum + HB * Q;         // [HB][Q]
 
   // block roles, heaviest first so that the block scheduler balances the
@@ -238,7 +264,7 @@ __global__ void __launch_bounds__(THREADS)
     float* const Cs = smem;
     float* const Bs = smem + TILE * LDB;
     float acc[HB][8][4];  // y: 16 q rows x 64 p of each head
-    float cbt[8][4];      // C.B^T: 16 q rows x 64 s
+    float cbt[KS][4];     // C.B^T: 16 q rows x TS s
 #pragma unroll
     for (int h = 0; h < HB; ++h)
 #pragma unroll
@@ -246,29 +272,32 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[h][j][i] = 0.f;
     auto load_x = [&](int s_t, int h, int buf) {
-      load_tile<TILE, LDX>(xs + buf * TILE * LDX, xc + (h0 + h) * A.xsh,
-                           s_t * TILE, Q, P, A.xsq, A.vx);
+      load_tile<TS, TILE, LDX>(xs + buf * TS * LDX, xc + (h0 + h) * A.xsh,
+                               s_t * TS, Q, P, A.xsq, A.vx);
     };
-    load_tile<NP, LDB>(Cs, A.cm + c * A.csb, qt * TILE, Q, N, A.csq, A.vc);
-    load_tile<NP, LDB>(Bs, bc, 0, Q, N, A.bsq, A.vb);
+    load_tile<TILE, NP, LDB>(Cs, A.cm + c * A.csb, qt * TILE, Q, N, A.csq,
+                             A.vc);
+    load_tile<TS, NP, LDB>(Bs, bc, 0, Q, N, A.bsq, A.vb);
     load_x(0, 0, 0);
     cp_async_commit();
     const int r0 = 16 * warp + gq;  // the lane's rows r0, r0 + 8 of the tile
     const int q0 = qt * TILE + r0, q1 = q0 + 8;
+    // s tiles up to the q tile's last row
+    const int n_st = (min((qt + 1) * TILE, Q) + TS - 1) / TS;
     int ts = 0, hh = 0;
-    for (int step = 0; ts <= qt; ++step) {
+    for (int step = 0; ts < n_st; ++step) {
       int ns = ts, nh2 = hh + 1;  // the next step
       if (nh2 == nh) {
         nh2 = 0;
         ++ns;
       }
-      if (ns <= qt) load_x(ns, nh2, (step + 1) & 1);
+      if (ns < n_st) load_x(ns, nh2, (step + 1) & 1);
       cp_async_commit();
       cp_async_wait<1>();
       __syncthreads();
       if (hh == 0) {  // C.B^T of (q tile, s tile), once for all heads
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < KS; ++j)
 #pragma unroll
           for (int i = 0; i < 4; ++i) cbt[j][i] = 0.f;
 #pragma unroll 4
@@ -281,18 +310,18 @@ __global__ void __launch_bounds__(THREADS)
           uint32_t ah[4], al[4];
           split_a(ca.x, cb.x, ca.y, cb.y, ah, al);
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
+          for (int j = 0; j < KS; ++j) {
             const float2 bv = *reinterpret_cast<const float2*>(
                 Bs + (8 * j + gq) * LDB + k);
             mma_3xtf32(cbt[j], ah, al, bv.x, bv.y);
           }
         }
         __syncthreads();  // every warp is done with Bs
-        if (ts < qt) load_tile<NP, LDB>(Bs, bc, (ts + 1) * TILE, Q, N, A.bsq,
-                                        A.vb);
+        if (ts + 1 < n_st)
+          load_tile<TS, NP, LDB>(Bs, bc, (ts + 1) * TS, Q, N, A.bsq, A.vb);
         cp_async_commit();
       }
-      const float* Xs = xs + (step & 1) * TILE * LDX;
+      const float* Xs = xs + (step & 1) * TS * LDX;
 #pragma unroll
       for (int h = 0; h < HB; ++h) {
         if (h != hh) continue;
@@ -302,8 +331,8 @@ __global__ void __launch_bounds__(THREADS)
         const float cq0 = q0 < Q ? cu[q0] : 0.f;
         const float cq1 = q1 < Q ? cu[q1] : 0.f;
 #pragma unroll
-        for (int kb = 0; kb < 8; ++kb) {
-          const int s = ts * TILE + 8 * kb + 2 * tq;
+        for (int kb = 0; kb < KS; ++kb) {
+          const int s = ts * TS + 8 * kb + 2 * tq;
           const bool in0 = s < Q, in1 = s + 1 < Q;
           const float cs0 = in0 ? cu[s] : 0.f, cs1 = in1 ? cu[s + 1] : 0.f;
           const float d0 = in0 ? dh[s] : 0.f, d1 = in1 ? dh[s + 1] : 0.f;
@@ -347,55 +376,73 @@ __global__ void __launch_bounds__(THREADS)
     }
   } else {
     // ---- the chunk state of head h0: steps (s tile), the B and x tiles
-    // double-buffered; st = (x w)^T B, w_s = exp(cum_{Q-1} - cum_s) dt_s
-    float acc[NT][4];  // 16 p rows x NP n
+    // double-buffered; st^T = B^T (x w), w_s = exp(cum_{Q-1} - cum_s) dt_s.
+    // Warp w owns n rows w NP / 4 .. (w + 1) NP / 4 - 1 (MT m16 tiles) and
+    // all 64 p, so it splits only its quarter of each B tile.
+    constexpr int MT = NP / 64;
+    float acc[MT][8][4];
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
+    for (int m = 0; m < MT; ++m)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[m][j][i] = 0.f;
     auto issue = [&](int s_t, int buf) {
-      load_tile<NP, LDB>(smem + buf * TILE * LDB, bc, s_t * TILE, Q, N,
-                         A.bsq, A.vb);
-      load_tile<TILE, LDX>(xs + buf * TILE * LDX, xc + h0 * A.xsh,
-                           s_t * TILE, Q, P, A.xsq, A.vx);
+      load_tile<TS, NP, LDB>(smem + buf * TS * LDB, bc, s_t * TS, Q, N,
+                             A.bsq, A.vb);
+      load_tile<TS, TILE, LDX>(xs + buf * TS * LDX, xc + h0 * A.xsh,
+                               s_t * TS, Q, P, A.xsq, A.vx);
     };
     issue(0, 0);
     cp_async_commit();
-    const int p0 = 16 * warp + gq, p1 = p0 + 8;
-    for (int ts = 0; ts < nq; ++ts) {
-      if (ts + 1 < nq) issue(ts + 1, (ts + 1) & 1);
+    const int n0 = warp * (NP / 4);
+    const int n_st = (Q + TS - 1) / TS;
+    for (int ts = 0; ts < n_st; ++ts) {
+      if (ts + 1 < n_st) issue(ts + 1, (ts + 1) & 1);
       cp_async_commit();
       cp_async_wait<1>();
       __syncthreads();
-      const float* Bs = smem + (ts & 1) * TILE * LDB;
-      const float* Xs = xs + (ts & 1) * TILE * LDX;
+      const float* Bs = smem + (ts & 1) * TS * LDB;
+      const float* Xs = xs + (ts & 1) * TS * LDX;
       const float last = cum[Q - 1];
 #pragma unroll 2
-      for (int kb = 0; kb < 8; ++kb) {
-        const int s = ts * TILE + 8 * kb + 2 * tq;
+      for (int kb = 0; kb < KS; ++kb) {
+        const int s = ts * TS + 8 * kb + 2 * tq;
         const float w0 = s < Q ? expf(last - cum[s]) * dts[s] : 0.f;
         const float w1 =
             s + 1 < Q ? expf(last - cum[s + 1]) * dts[s + 1] : 0.f;
-        const float* xr = Xs + (8 * kb + 2 * tq) * LDX;
-        uint32_t ah[4], al[4];
-        split_a(xr[p0] * w0, xr[p1] * w0, xr[LDX + p0] * w1,
-                xr[LDX + p1] * w1, ah, al);
-        const float* br = Bs + (8 * kb + 2 * tq) * LDB + gq;
+        const float* br = Bs + (8 * kb + 2 * tq) * LDB + n0 + gq;
+        uint32_t ah[MT][4], al[MT][4];
 #pragma unroll
-        for (int j = 0; j < NT; ++j)
-          mma_3xtf32(acc[j], ah, al, br[8 * j], br[LDB + 8 * j]);
+        for (int m = 0; m < MT; ++m)
+          split_a(br[16 * m], br[16 * m + 8], br[LDB + 16 * m],
+                  br[LDB + 16 * m + 8], ah[m], al[m]);
+        const float* xr = Xs + (8 * kb + 2 * tq) * LDX + gq;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(xr[8 * j] * w0, bh0, bl0);
+          split_tf32(xr[LDX + 8 * j] * w1, bh1, bl1);
+#pragma unroll
+          for (int m = 0; m < MT; ++m)
+            mma_3xtf32(acc[m][j], ah[m], al[m], bh0, bh1, bl0, bl1);
+        }
       }
       __syncthreads();
     }
-    const bool even = (N & 1) == 0;
-    float* s0 = A.st + ((static_cast<int64_t>(c) * A.H + h0) * P + p0) * N;
+    float* sb = A.st + (static_cast<int64_t>(c) * A.H + h0) * P * N;
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int n = 8 * j + 2 * tq;
-      if (n >= N) continue;
-      if (p0 < P) store2(s0 + n, acc[j][0], acc[j][1], N - n, even);
-      if (p1 < P) store2(s0 + 8 * N + n, acc[j][2], acc[j][3], N - n, even);
-    }
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int n = n0 + 16 * m + gq, p = 8 * j + 2 * tq;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int ni = n + 8 * (i >> 1), pi = p + (i & 1);
+          if (ni < N && pi < P) sb[static_cast<int64_t>(pi) * N + ni] =
+              acc[m][j][i];
+        }
+      }
   }
 }
 
