@@ -45,9 +45,11 @@
 //     tiles, then the states, then y of q tile 0), so the block scheduler
 //     fills the SMs evenly whatever the shape.
 //   * Products on mma.sync m16n8k8 tf32 with the 3xTF32 split:
-//     a = a_hi + a_lo, a_hi = tf32(a), a_lo = tf32(a - a_hi), and
-//     a b ~ a_hi b_hi + a_hi b_lo + a_lo b_hi, ~21 bits of mantissa, fp32
-//     sums.  Single-pass TF32 (10 bits) misses rtol = atol = 1e-3 on y.
+//     a = a_hi + a_lo, a_hi = a truncated to tf32, a_lo = (a - a_hi)
+//     truncated, and a b ~ a_hi b_hi + a_hi b_lo + a_lo b_hi: ~21 bits of
+//     mantissa, fp32 sums (y within ~4e-5 of the fp32 reference at the
+//     main shapes).  Single-pass TF32 (10 bits) misses rtol = atol = 1e-3
+//     on y.
 //   * Registers, not shared memory, carry M into M @ x: the k order inside
 //     an m16n8k8 product is free, so the accumulator's (row, 2t) and
 //     (row, 2t + 1) are fed as k = t and t + 4 of the A fragment, and the
@@ -82,7 +84,7 @@ constexpr int MAX_N = 256;
 constexpr int SMEM_MAX = 232448;  // dynamic shared memory a block can use
 // Per N padded to NP: the s tile's rows TS and the heads HB sharing one
 // C.B^T tile.  At N = 128, 32-row s tiles and two heads keep a block at
-// ~70 KB of shared memory and ~150 registers, three blocks an SM; at
+// ~72 KB of shared memory and <= 168 registers, three blocks an SM; at
 // N <= 64, 64-row s tiles do the same; N = 256 runs one block an SM.
 template <int NP>
 __host__ __device__ constexpr int ts_rows() {
