@@ -253,9 +253,12 @@ def phase_build():
 
 
 def gemm_path(a, b):
+    """The path ``tatp_dot(a, b)`` takes (2-D operands, either layout)."""
     from repro_torch.kernels.tatp_matmul import ops
-    return ops._path(a.dtype, b.shape[0], a.stride(0), b.stride(0),
-                     a.data_ptr(), b.data_ptr())
+    _, lda = ops._operand(a.shape, a.stride())
+    _, ldb = ops._operand(b.shape, b.stride())
+    return ops._path(a.dtype, b.shape[0], lda, ldb, a.data_ptr(),
+                     b.data_ptr())
 
 
 def gemm_tile_n(torch, m, k):
@@ -595,6 +598,266 @@ def ssd_checks_and_timing(torch, randn, g):
                 timed="one mamba2-780m prefill layer's SSD intra-chunk "
                       "pass, [8,256,48,64] N=128 fp32",
                 per_arch=rows)
+
+
+# the GEMM's four operand layout pairs: (A transposed, B transposed) —
+# the forward, dgrad (dy @ w.T), wgrad (x.T @ dy), both
+LAYOUTS = ((False, False), (False, True), (True, False), (True, True))
+LAYOUT_NAMES = {(False, False): "fwd", (False, True): "dgrad",
+                (True, False): "wgrad", (True, True): "both-T"}
+
+# deepseek-7b's train step at batch 4 x seq 512, 4 layers
+TRAIN = dict(batch=4, seq=512, n_layers=4, steps=5)
+M_TRAIN = TRAIN["batch"] * TRAIN["seq"]
+
+
+def _operand(torch, randn, rows, cols, transposed, dtype, scale=1.0,
+             pad=0):
+    """A [rows, cols] operand: row-major (row pitch cols + pad), or the
+    transposed view of a [cols, rows] one (pitch rows + pad)."""
+    if transposed:
+        return randn(cols, rows + pad, dtype=dtype, scale=scale)[:, :rows].t()
+    return randn(rows, cols + pad, dtype=dtype, scale=scale)[:, :cols]
+
+
+def make_randn(torch, seed):
+    """randn(*shape, dtype, scale) on the card from a seeded generator."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        x = torch.randn(shape, generator=g, device="cuda") * scale
+        return x.to(dtype)
+
+    return randn
+
+
+def phase_gemm_layouts(torch, randn):
+    """The GEMM in all four layout pairs on every path against matmul_ref,
+    ragged shapes included, each case asserting its path; then the
+    backward's products of one deepseek-7b train layer (M = 2048, bf16)
+    timed in the dgrad and wgrad layouts beside their bound, the plain
+    version and torch.matmul on the same transposed views.  Returns the
+    kernels-line records of the two layouts."""
+    from repro_torch.kernels.tatp_matmul.ops import tatp_dot
+    from repro_torch.kernels.tatp_matmul.ref import matmul_ref
+
+    log("[kernels] tatp_matmul layouts vs matmul_ref")
+    # (name, m, n, k, dtype, out dtype, pad, path): pad > 0 makes pitches
+    # that TMA cannot describe (the wmma path)
+    cases = [
+        ("f32 100x200x300", 100, 200, 300, torch.float32, None, 0, "simt"),
+        ("f32 64x96x80 ->bf16", 64, 96, 80, torch.float32, torch.bfloat16,
+         0, "simt"),
+        ("bf16 100x203x301", 100, 203, 301, torch.bfloat16, None, 1,
+         "wmma"),
+        ("bf16 130x40x72 ->f32", 130, 40, 72, torch.bfloat16, torch.float32,
+         3, "wmma"),
+        ("bf16 100x208x304", 100, 208, 304, torch.bfloat16, None, 0,
+         "wgmma"),
+        ("bf16 77x256x1000 ->f32", 77, 256, 1000, torch.bfloat16,
+         torch.float32, 0, "wgmma"),
+        ("bf16 1x8x8", 1, 8, 8, torch.bfloat16, None, 0, "wgmma"),
+        ("bf16 300x1000x1000", 300, 1000, 1000, torch.bfloat16, None, 0,
+         "wgmma"),
+    ]
+    err_by_layout = {name: 0.0 for name in LAYOUT_NAMES.values()}
+    for name, m, n, k, dt, odt, pad, path in cases:
+        for ta, tb in LAYOUTS:
+            if pad == 0 and path == "wgmma" and m % 8 and ta:
+                continue  # a transposed A's pitch is m: TMA needs m % 8
+            a = _operand(torch, randn, m, n, ta, dt, pad=pad)
+            b = _operand(torch, randn, n, k, tb, dt, scale=n ** -0.5,
+                         pad=pad)
+            before = dict(tatp_dot.launches_by_path)
+            got = tatp_dot(a, b, out_dtype=odt)
+            torch.cuda.synchronize()
+            need(tatp_dot.launches_by_path[path] == before[path] + 1,
+                 f"{name} {LAYOUT_NAMES[ta, tb]}: did not take {path}")
+            tol = GEMM_TOL["bfloat16" if torch.bfloat16 in (dt, odt)
+                           else "float32"]
+            err = compare(f"{name} {LAYOUT_NAMES[ta, tb]} ({path})", got,
+                          matmul_ref(a, b, out_dtype=odt), *tol)
+            if dt == torch.bfloat16:
+                lay = LAYOUT_NAMES[ta, tb]
+                err_by_layout[lay] = max(err_by_layout[lay], err)
+
+    # one train layer's backward products, bf16, M = 2048: dgrad dy @ w.T
+    # and wgrad x.T @ dy for wq wk wv wo / w_up w_gate / w_down
+    records = []
+    for lay in ("dgrad", "wgrad"):
+        rows, tot = [], dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0,
+                             nbytes=0)
+        for n, k, per_layer in LAYER_GEMMS:
+            w = randn(n, k, dtype=torch.bfloat16, scale=n ** -0.5)
+            if lay == "dgrad":  # [M, K] @ [K, N]: w.T is B, transposed
+                a, b = randn(M_TRAIN, k, dtype=torch.bfloat16), w.t()
+            else:  # [N, M] @ [M, K]: x.T is A, transposed
+                a = randn(M_TRAIN, n, dtype=torch.bfloat16).t()
+                b = randn(M_TRAIN, k, dtype=torch.bfloat16)
+            got = tatp_dot(a, b)
+            torch.cuda.synchronize()
+            err_by_layout[lay] = max(err_by_layout[lay], compare(
+                f"bf16 {lay} {list(a.shape)}@{list(b.shape)}", got,
+                matmul_ref(a, b), *GEMM_TOL["bfloat16"]))
+            mm, nn = a.shape
+            kk = b.shape[1]
+            row = dict(shape=[mm, nn, kk], per_layer=per_layer,
+                       path=gemm_path(a, b),
+                       tile_n=gemm_tile_n(torch, mm, kk),
+                       ms=time_ms(torch, lambda: tatp_dot(a, b)),
+                       plain_ms=time_ms(torch, lambda: matmul_ref(a, b)),
+                       library_ms=time_ms(torch,
+                                          lambda: torch.matmul(a, b)))
+            need(row["path"] == "wgmma", f"{lay} {row['shape']} took "
+                 f"{row['path']}")
+            flops = 2 * mm * nn * kk
+            nbytes = 2 * (mm * nn + nn * kk + mm * kk)
+            row["bound_ms"], _ = bound(flops, nbytes, "bfloat16")
+            row["tflops"] = flops / row["ms"] / 1e9
+            rows.append(row)
+            for key in ("ms", "plain_ms", "library_ms"):
+                tot[key] += per_layer * row[key]
+            tot["flops"] += per_layer * flops
+            tot["nbytes"] += per_layer * nbytes
+        b_ms, b_by = bound(tot["flops"], tot["nbytes"], "bfloat16")
+        log(f"  timings of one train layer's {lay} GEMMs (7, bf16, M "
+            f"{M_TRAIN}): {json.dumps(rows)}")
+        records.append(dict(
+            name=f"tatp_matmul_{lay}", route="cuda", path="wgmma",
+            source="src/repro_torch/csrc/tatp_matmul.cu",
+            replaces="src/repro/kernels/tatp_matmul/kernel.py:24",
+            max_abs_err=err_by_layout[lay], rtol=GEMM_TOL["bfloat16"][0],
+            atol=GEMM_TOL["bfloat16"][1], ms=tot["ms"], kernel_ms=tot["ms"],
+            plain_ms=tot["plain_ms"], bound_ms=b_ms, bound_by=b_by,
+            library_ms=tot["library_ms"], share_of_bound=b_ms / tot["ms"],
+            library_ratio=tot["ms"] / tot["library_ms"],
+            timed=f"the 7 {lay} GEMMs of one deepseek-7b train layer, "
+                  f"M={M_TRAIN}, bf16", shapes=rows))
+    log(f"  max_abs_err by layout (bf16): {json.dumps(err_by_layout)}")
+    return records
+
+
+# flash backward checks: (name, Hq, Hkv, Sq, Skv, causal, window, cap)
+ATTN_BWD_CASES = (
+    ("causal", 4, 4, 100, 100, True, None, None),
+    ("non-causal", 4, 4, 100, 100, False, None, None),
+    ("window16", 4, 4, 100, 100, True, 16, None),
+    ("cap30", 4, 4, 100, 100, True, None, 30.0),
+    ("gqa8/2", 8, 2, 100, 100, True, None, None),
+    ("gqa8/2 window cap", 8, 2, 130, 130, True, 32, 30.0),
+    ("rect100x160", 4, 2, 100, 160, False, 16, 50.0),
+    ("masked rows 100x40", 4, 2, 100, 40, True, 16, None),
+)
+# deepseek-7b's train attention at batch 4 x seq 512: [B, H, S, D]
+TRAIN_ATTN = (TRAIN["batch"], HEADS, TRAIN["seq"], HEAD_DIM)
+
+
+def flash_grads(torch, fn, q, k, v, do, **kw):
+    """(o, dq, dk, dv) of ``fn`` by autograd."""
+    q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
+    o = fn(q, k, v, **kw)
+    dq, dk, dv = torch.autograd.grad(o, (q, k, v), do)
+    return o.detach(), dq, dk, dv
+
+
+def phase_flash_backward(torch, randn):
+    """The flash backward kernel (through ``attention``'s autograd
+    Function) against autograd through attention_ref: fp32 and bf16, every
+    mask option, GQA, ragged and fully masked rows, D 64, 80 and 128; then
+    its time at deepseek-7b's train shape beside its bound, the plain
+    version's backward and SDPA's.  Returns the kernels-line record."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import (_forward, attention,
+                                                         attention_bwd)
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    log("[kernels] flash_attention backward vs autograd of attention_ref")
+    max_err = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        tol = ATTN_TOL["bfloat16" if dt == torch.bfloat16 else "float32"]
+        for d in (64, 80, 128):
+            for name, hq, hkv, sq, skv, causal, window, cap in \
+                    ATTN_BWD_CASES:
+                q = randn(2, hq, sq, d, dtype=dt)
+                k = randn(2, hkv, skv, d, dtype=dt)
+                v = randn(2, hkv, skv, d, dtype=dt)
+                do = randn(2, hq, sq, d, dtype=dt)
+                kw = dict(causal=causal, window=window, cap=cap)
+                before = (attention.launches, attention_bwd.launches)
+                got = flash_grads(torch, attention, q, k, v, do, **kw)
+                torch.cuda.synchronize()
+                need((attention.launches, attention_bwd.launches)
+                     == (before[0] + 1, before[1] + 1),
+                     f"flash bwd D={d} {name}: launches")
+                ref = flash_grads(torch, attention_ref, q, k, v, do, **kw)
+                for part, g, r in zip(("dq", "dk", "dv"), got[1:], ref[1:]):
+                    err = compare(f"{str(dt)[6:]} D={d} {name} {part}", g,
+                                  r, *tol)
+                    if dt == torch.bfloat16:
+                        max_err = max(max_err, err)
+
+    # deepseek-7b's train shape: [B, S, H, D] activations viewed as
+    # [B, H, S, D], bf16, causal
+    b, h, s, d = TRAIN_ATTN
+    q, k, v, do = (randn(b, s, h, d, dtype=torch.bfloat16).transpose(1, 2)
+                   for _ in range(4))
+    got = flash_grads(torch, attention, q, k, v, do, causal=True)
+    ref = flash_grads(torch, attention_ref, q, k, v, do, causal=True)
+    for part, g, r in zip(("dq", "dk", "dv"), got[1:], ref[1:]):
+        max_err = max(max_err, compare(
+            f"bf16 {list(TRAIN_ATTN)} causal strided {part}", g, r,
+            *ATTN_TOL["bfloat16"]))
+        need(g.stride() == q.stride(), f"{part} lost the input layout")
+    o, lse = _forward(q, k, v, True, None, None, None, want_lse=True)
+
+    def fwd_bwd(fn, q, k, v, **kw):
+        def run():
+            qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
+            torch.autograd.grad(fn(qq, kk, vv, **kw), (qq, kk, vv), do)
+        return run
+
+    def fwd(fn, q, k, v, **kw):
+        return lambda: fn(q, k, v, **kw)
+
+    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+    row = dict(
+        shape=list(TRAIN_ATTN), path="simt",
+        ms=time_ms(torch, lambda: attention_bwd(q, k, v, o, lse, do,
+                                                causal=True), 10),
+        plain_ms=(time_ms(torch, fwd_bwd(attention_ref, q, k, v,
+                                         causal=True), 5)
+                  - time_ms(torch, fwd(attention_ref, q, k, v, causal=True),
+                            5)),
+        library_ms=(time_ms(torch, fwd_bwd(
+                        F.scaled_dot_product_attention, qc, kc, vc,
+                        is_causal=True), 10)
+                    - time_ms(torch, fwd(F.scaled_dot_product_attention, qc,
+                                         kc, vc, is_causal=True), 10)),
+    )
+    pairs = b * h * s * (s + 1) // 2
+    # recompute S, then dP, dV, dK, dQ: five products over the causal
+    # pairs; q, k, v, o, dO read and dQ, dK, dV written once, lse and
+    # delta (fp32 per row) read once
+    flops = 10 * pairs * d
+    nbytes = 8 * b * h * s * d * 2 + 2 * b * h * s * 4
+    row["bound_ms"], row["bound_by"] = bound(flops, nbytes, "bfloat16")
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    row["library_ratio"] = row["ms"] / row["library_ms"]
+    log(f"  timing backward {row['shape']} bf16 causal: {json.dumps(row)}")
+    return dict(
+        name="flash_attention_bwd", route="cuda", path="simt",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="none: the Pallas kernel "
+                 "src/repro/kernels/flash_attention/kernel.py:26 has no "
+                 "backward (JAX differentiates its jnp path)",
+        max_abs_err=max_err, rtol=ATTN_TOL["bfloat16"][0],
+        atol=ATTN_TOL["bfloat16"][1], ms=row["ms"], kernel_ms=row["ms"],
+        plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+        bound_by=row["bound_by"], library_ms=row["library_ms"],
+        share_of_bound=row["share_of_bound"],
+        library_ratio=row["library_ratio"],
+        timed="one deepseek-7b train layer's attention backward, "
+              "[4,32,512,128] bf16 causal", shape=row["shape"])
 
 
 def counters():

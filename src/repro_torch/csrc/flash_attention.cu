@@ -80,11 +80,12 @@ size_t smem_bytes(int D) {
 template <typename T, int DMAX>
 __global__ void __launch_bounds__(THREADS)
     flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ o, int Hq, int Hkv,
-              int Sq, int Skv, int D, int64_t qsb, int64_t qsh, int64_t qss,
-              int64_t ksb, int64_t ksh, int64_t kss, int64_t vsb,
-              int64_t vsh, int64_t vss, int64_t osb, int64_t osh,
-              int64_t oss, float scale, int causal, int window, float cap) {
+              const T* __restrict__ v, T* __restrict__ o,
+              float* __restrict__ lse, int Hq, int Hkv, int Sq, int Skv,
+              int D, int64_t qsb, int64_t qsh, int64_t qss, int64_t ksb,
+              int64_t ksh, int64_t kss, int64_t vsb, int64_t vsh,
+              int64_t vss, int64_t osb, int64_t osh, int64_t oss,
+              float scale, int causal, int window, float cap) {
   extern __shared__ float smem[];
   const int ld = D + 1;
   float* qs = smem;            // [BQ][ld]
@@ -187,6 +188,8 @@ __global__ void __launch_bounds__(THREADS)
 
   if (qpos < Sq) {
     const float lc = fmaxf(l, 1e-20f);
+    if (lse != nullptr && sub == 0)
+      lse[static_cast<int64_t>(bh) * Sq + qpos] = m + logf(lc);
     T* ob = o + b * osb + h * osh + static_cast<int64_t>(qpos) * oss;
 #pragma unroll
     for (int e = 0; e < DMAX / 4; ++e) {
@@ -197,10 +200,10 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 template <int DMAX>
-int launch_simt(const void* q, const void* k, const void* v, void* o, int B,
-                int Hq, int Hkv, int Sq, int Skv, int D, const int64_t* st,
-                float scale, int causal, int window, float cap,
-                cudaStream_t s) {
+int launch_simt(const void* q, const void* k, const void* v, void* o,
+                float* lse, int B, int Hq, int Hkv, int Sq, int Skv, int D,
+                const int64_t* st, float scale, int causal, int window,
+                float cap, cudaStream_t s) {
   const size_t smem = smem_bytes(D);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -212,24 +215,24 @@ int launch_simt(const void* q, const void* k, const void* v, void* o, int B,
             static_cast<unsigned>((Sq + BQ - 1) / BQ));
   flash_fwd<float, DMAX><<<grid, THREADS, smem, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), Hq, Hkv, Sq, Skv,
-      D, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      st[9], st[10], st[11], scale, causal, window, cap);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, Hq, Hkv,
+      Sq, Skv, D, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
+      st[8], st[9], st[10], st[11], scale, causal, window, cap);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch_simt_d(const void* q, const void* k, const void* v, void* o,
-                  int B, int Hq, int Hkv, int Sq, int Skv, int D,
+                  float* lse, int B, int Hq, int Hkv, int Sq, int Skv, int D,
                   const int64_t* st, float scale, int causal, int window,
                   float cap, cudaStream_t s) {
   if (D <= 64)
-    return launch_simt<64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, st, scale,
-                           causal, window, cap, s);
+    return launch_simt<64>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, D, st,
+                           scale, causal, window, cap, s);
   if (D <= 128)
-    return launch_simt<128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, st, scale,
-                            causal, window, cap, s);
-  return launch_simt<256>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, st, scale,
-                          causal, window, cap, s);
+    return launch_simt<128>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, D, st,
+                            scale, causal, window, cap, s);
+  return launch_simt<256>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, D, st,
+                          scale, causal, window, cap, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -290,8 +293,9 @@ __device__ __forceinline__ void store_pair_bf16(bf16* p, float x, float y,
 template <int DP, int BK, bool QREG, bool VEC>
 __global__ void __launch_bounds__(MMA_THREADS)
     flash_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, bf16* __restrict__ o, int Hq,
-              int Hkv, int Sq, int Skv, int D, int64_t qsb, int64_t qsh,
+              const bf16* __restrict__ v, bf16* __restrict__ o,
+              float* __restrict__ lse, int Hq, int Hkv, int Sq, int Skv,
+              int D, int64_t qsb, int64_t qsh,
               int64_t qss, int64_t ksb, int64_t ksh, int64_t kss,
               int64_t vsb, int64_t vsh, int64_t vss, int64_t osb,
               int64_t osh, int64_t oss, float scale, int causal, int window,
@@ -475,6 +479,11 @@ __global__ void __launch_bounds__(MMA_THREADS)
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     inv[i] = 1.f / fmaxf(l[i], 1e-20f);  // a fully masked row gives 0
   }
+  if (lse != nullptr && lane % 4 == 0) {  // natural log: m is in log2 units
+    float* lb = lse + static_cast<int64_t>(bh) * Sq;
+    if (row_lo < Sq) lb[row_lo] = (m[0] + log2f(fmaxf(l[0], 1e-20f))) / LOG2E;
+    if (row_hi < Sq) lb[row_hi] = (m[1] + log2f(fmaxf(l[1], 1e-20f))) / LOG2E;
+  }
   bf16* ob = o + b * osb + h * osh;
 #pragma unroll
   for (int t = 0; t < DT; ++t) {
@@ -492,10 +501,10 @@ __global__ void __launch_bounds__(MMA_THREADS)
 }
 
 template <int DP, int BK, bool QREG>
-int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
-               int Hq, int Hkv, int Sq, int Skv, int D, const int64_t* st,
-               float scale, int causal, int window, float cap, bool vec,
-               cudaStream_t s) {
+int launch_mma(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int Hq, int Hkv, int Sq, int Skv, int D,
+               const int64_t* st, float scale, int causal, int window,
+               float cap, bool vec, cudaStream_t s) {
   auto kern = vec ? flash_mma<DP, BK, QREG, true>
                   : flash_mma<DP, BK, QREG, false>;
   constexpr size_t smem = mma_smem<DP, BK>();
@@ -509,14 +518,14 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
             static_cast<unsigned>((Sq + MQ - 1) / MQ));
   kern<<<grid, MMA_THREADS, smem, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), Hq, Hkv, Sq, Skv,
-      D, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, Hq, Hkv, Sq,
+      Skv, D, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
       st[9], st[10], st[11], scale, causal, window, cap);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch_mma_d(const void* q, const void* k, const void* v, void* o,
-                 int B, int Hq, int Hkv, int Sq, int Skv, int D,
+                 float* lse, int B, int Hq, int Hkv, int Sq, int Skv, int D,
                  const int64_t* st, float scale, int causal, int window,
                  float cap, cudaStream_t s) {
   // 16-byte cp.async loads and paired stores need every row 16-byte
@@ -527,19 +536,400 @@ int launch_mma_d(const void* q, const void* k, const void* v, void* o,
     vec = vec && reinterpret_cast<uintptr_t>(ptrs[i]) % 16 == 0;
   for (int i = 0; i < 12; ++i) vec = vec && st[i] % 8 == 0;
   if (D <= 64)
-    return launch_mma<64, 64, true>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, st,
-                                    scale, causal, window, cap, vec, s);
+    return launch_mma<64, 64, true>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv,
+                                    D, st, scale, causal, window, cap, vec,
+                                    s);
   if (D <= 80)
-    return launch_mma<80, 64, true>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, st,
-                                    scale, causal, window, cap, vec, s);
+    return launch_mma<80, 64, true>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv,
+                                    D, st, scale, causal, window, cap, vec,
+                                    s);
   if (D <= 96)
-    return launch_mma<96, 64, true>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, st,
-                                    scale, causal, window, cap, vec, s);
+    return launch_mma<96, 64, true>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv,
+                                    D, st, scale, causal, window, cap, vec,
+                                    s);
   if (D <= 128)
-    return launch_mma<128, 64, true>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, st,
-                                     scale, causal, window, cap, vec, s);
-  return launch_mma<256, 32, false>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, st,
-                                    scale, causal, window, cap, vec, s);
+    return launch_mma<128, 64, true>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv,
+                                     D, st, scale, causal, window, cap, vec,
+                                     s);
+  return launch_mma<256, 32, false>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv,
+                                    D, st, scale, causal, window, cap, vec,
+                                    s);
+}
+
+// ---------------------------------------------------------------------------
+// backward: CUDA-core SIMT, fp32 arithmetic for fp32 and bf16 operands
+// ---------------------------------------------------------------------------
+//
+// After FlashAttention-2's split, without atomics, so gradients are
+// deterministic: (1) delta = rowsum(dO * O); (2) dK/dV, one block per
+// (batch * kv-head, 32-key tile), walking the group's q heads and the query
+// tiles that can see its keys (from the causal diagonal on, up to the
+// window's edge) and summing over them in registers; (3) dQ, one block per
+// (batch * q-head, 32-row query tile), walking the forward's key tiles.
+// Both recompute P = exp(s - lse) from the forward's row log-sum-exp,
+// selected to 0 where masked (so a fully masked row gets no gradient, not
+// NaN), and dS = P (dP - delta), times 1 - tanh^2(s / cap) under a
+// soft-cap, times the scale.  Like the forward's SIMT path: four threads a
+// row, tiles converted to fp32 in shared memory with a padded pitch.
+
+constexpr int BBQ = 32;  // query rows per tile
+constexpr int BBK = 32;  // keys per tile
+
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void store_out(bf16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+// rows [r0, r0 + ROWS) of a [S, D] matrix (row stride ld) as fp32 into a
+// [ROWS][D + 1] tile, zero past S
+template <typename T, int ROWS>
+__device__ __forceinline__ void load_f32(float* dst, const T* src, int r0,
+                                         int S, int D, int64_t ld) {
+  const int pitch = D + 1;
+  for (int e = threadIdx.x; e < ROWS * D; e += THREADS) {
+    const int r = e / D, c = e % D;
+    dst[r * pitch + c] =
+        r0 + r < S ? to_f(src[static_cast<int64_t>(r0 + r) * ld + c]) : 0.f;
+  }
+}
+
+// dS of one (query, key) pair from its raw product qk, dP and the row's
+// lse and delta; p receives P (0 where masked)
+__device__ __forceinline__ float grad_s(float qk, float dp, float lse,
+                                        float delta, bool ok, float scale,
+                                        float cap, float* p) {
+  float x = qk * scale, dcap = 1.f;
+  if (cap > 0.f) {
+    const float t = tanhf(x / cap);
+    x = t * cap;
+    dcap = 1.f - t * t;
+  }
+  *p = ok ? expf(x - lse) : 0.f;
+  return *p * (dp - delta) * dcap * scale;
+}
+
+__device__ __forceinline__ bool live(int qpos, int kpos, int Sq, int Skv,
+                                     int causal, int window) {
+  bool ok = qpos < Sq && kpos < Skv;
+  if (causal) ok = ok && kpos <= qpos;
+  if (window > 0) ok = ok && (qpos - kpos) < window;
+  return ok;
+}
+
+// delta[row] = sum_d dO[row, d] O[row, d] over the B * Hq * Sq rows, one
+// warp a row
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+    flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout,
+                    float* __restrict__ delta, int Hq, int Sq, int D,
+                    int64_t rows, int64_t osb, int64_t osh, int64_t oss,
+                    int64_t dsb, int64_t dsh, int64_t dss) {
+  const int64_t row =
+      static_cast<int64_t>(blockIdx.x) * (THREADS / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  const int64_t i = row % Sq, bh = row / Sq;
+  const int64_t b = bh / Hq, h = bh % Hq;
+  const T* orow = o + b * osb + h * osh + i * oss;
+  const T* drow = dout + b * dsb + h * dsh + i * dss;
+  float acc = 0.f;
+  for (int d = lane; d < D; d += 32) acc += to_f(orow[d]) * to_f(drow[d]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) delta[row] = acc;
+}
+
+size_t bwd_smem_bytes(int D) {
+  const int ld = D + 1;
+  return sizeof(float) * (4 * static_cast<size_t>(BBQ) * ld +
+                          2 * static_cast<size_t>(BBQ) * (BBK + 1) +
+                          2 * static_cast<size_t>(BBQ));
+}
+
+template <typename T, int DMAX>
+__global__ void __launch_bounds__(THREADS)
+    flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const T* __restrict__ dout,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, T* __restrict__ dk,
+                   T* __restrict__ dv, int Hq, int Hkv, int Sq, int Skv,
+                   int D, int64_t qsb, int64_t qsh, int64_t qss, int64_t ksb, int64_t ksh,
+                   int64_t kss, int64_t vsb, int64_t vsh, int64_t vss,
+                   int64_t dsb, int64_t dsh, int64_t dss, int64_t dksb,
+                   int64_t dksh, int64_t dkss, int64_t dvsb, int64_t dvsh,
+                   int64_t dvss, float scale, int causal, int window,
+                   float cap) {
+  extern __shared__ float smem[];
+  const int ld = D + 1;
+  float* ks = smem;              // [BBK][ld]
+  float* vs = ks + BBK * ld;     // [BBK][ld]
+  float* qs = vs + BBK * ld;     // [BBQ][ld]
+  float* dos = qs + BBQ * ld;    // [BBQ][ld]
+  float* ps = dos + BBQ * ld;    // [BBK][BBQ + 1]
+  float* ds_s = ps + BBK * (BBQ + 1);  // [BBK][BBQ + 1]
+  float* lse_s = ds_s + BBK * (BBQ + 1);  // [BBQ]
+  float* dl_s = lse_s + BBQ;             // [BBQ]
+
+  const int tid = threadIdx.x;
+  const int row = tid >> 2;  // key row within the tile
+  const int sub = tid & 3;
+  const int b = blockIdx.x / Hkv, hk = blockIdx.x % Hkv;
+  const int G = Hq / Hkv;
+  const int j0 = blockIdx.y * BBK;
+  const int kpos = j0 + row;
+
+  load_f32<T, BBK>(ks, k + b * ksb + hk * ksh, j0, Skv, D, kss);
+  load_f32<T, BBK>(vs, v + b * vsb + hk * vsh, j0, Skv, D, vss);
+
+  float dka[DMAX / 4], dva[DMAX / 4];
+#pragma unroll
+  for (int e = 0; e < DMAX / 4; ++e) dka[e] = dva[e] = 0.f;
+
+  // query tiles with an unmasked pair for some key of this tile
+  const int q_begin = causal ? j0 / BBQ * BBQ : 0;
+  const int q_end = window > 0 ? min(Sq, j0 + BBK - 1 + window) : Sq;
+
+  for (int g = 0; g < G; ++g) {
+    const int h = hk * G + g;
+    const T* qb = q + b * qsb + h * qsh;
+    const T* db = dout + b * dsb + h * dsh;
+    const float* lb = lse + (static_cast<int64_t>(b) * Hq + h) * Sq;
+    const float* deb = delta + (static_cast<int64_t>(b) * Hq + h) * Sq;
+    for (int i0 = q_begin; i0 < q_end; i0 += BBQ) {
+      __syncthreads();  // K, V staged / previous tile's reads done
+      load_f32<T, BBQ>(qs, qb, i0, Sq, D, qss);
+      load_f32<T, BBQ>(dos, db, i0, Sq, D, dss);
+      if (tid < BBQ) {
+        lse_s[tid] = i0 + tid < Sq ? lb[i0 + tid] : 0.f;
+        dl_s[tid] = i0 + tid < Sq ? deb[i0 + tid] : 0.f;
+      }
+      __syncthreads();
+
+      // this thread's key row against queries sub + 4 jj
+      float s[BBQ / 4], dp[BBQ / 4];
+#pragma unroll
+      for (int jj = 0; jj < BBQ / 4; ++jj) s[jj] = dp[jj] = 0.f;
+      for (int d = 0; d < D; ++d) {
+        const float kv = ks[row * ld + d], vv = vs[row * ld + d];
+#pragma unroll
+        for (int jj = 0; jj < BBQ / 4; ++jj) {
+          s[jj] = fmaf(kv, qs[(sub + 4 * jj) * ld + d], s[jj]);
+          dp[jj] = fmaf(vv, dos[(sub + 4 * jj) * ld + d], dp[jj]);
+        }
+      }
+#pragma unroll
+      for (int jj = 0; jj < BBQ / 4; ++jj) {
+        const int i = sub + 4 * jj;
+        float p;
+        const float ds =
+            grad_s(s[jj], dp[jj], lse_s[i], dl_s[i],
+                   live(i0 + i, kpos, Sq, Skv, causal, window), scale, cap,
+                   &p);
+        ps[row * (BBQ + 1) + i] = p;
+        ds_s[row * (BBQ + 1) + i] = ds;
+      }
+      __syncwarp();  // the row's P and dS are written by the 4 lanes
+
+      for (int i = 0; i < BBQ; ++i) {
+        const float p = ps[row * (BBQ + 1) + i];
+        const float ds = ds_s[row * (BBQ + 1) + i];
+        const float* qr = qs + i * ld;
+        const float* dr = dos + i * ld;
+#pragma unroll
+        for (int e = 0; e < DMAX / 4; ++e) {
+          const int d = sub + 4 * e;
+          if (d < D) {
+            dva[e] = fmaf(p, dr[d], dva[e]);
+            dka[e] = fmaf(ds, qr[d], dka[e]);
+          }
+        }
+      }
+    }
+  }
+
+  if (kpos < Skv) {
+    T* dkr = dk + b * dksb + hk * dksh + static_cast<int64_t>(kpos) * dkss;
+    T* dvr = dv + b * dvsb + hk * dvsh + static_cast<int64_t>(kpos) * dvss;
+#pragma unroll
+    for (int e = 0; e < DMAX / 4; ++e) {
+      const int d = sub + 4 * e;
+      if (d < D) {
+        store_out(&dkr[d], dka[e]);
+        store_out(&dvr[d], dva[e]);
+      }
+    }
+  }
+}
+
+template <typename T, int DMAX>
+__global__ void __launch_bounds__(THREADS)
+    flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const T* __restrict__ dout,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta, T* __restrict__ dq, int Hq,
+                 int Hkv, int Sq, int Skv, int D, int64_t qsb, int64_t qsh,
+                 int64_t qss, int64_t ksb, int64_t ksh, int64_t kss,
+                 int64_t vsb, int64_t vsh, int64_t vss, int64_t dsb,
+                 int64_t dsh, int64_t dss, int64_t dqsb, int64_t dqsh,
+                 int64_t dqss, float scale, int causal, int window,
+                 float cap) {
+  extern __shared__ float smem[];
+  const int ld = D + 1;
+  float* qs = smem;             // [BBQ][ld]
+  float* dos = qs + BBQ * ld;   // [BBQ][ld]
+  float* ks = dos + BBQ * ld;   // [BBK][ld]
+  float* vs = ks + BBK * ld;    // [BBK][ld]
+  float* ds_s = vs + BBK * ld;  // [BBQ][BBK + 1]
+
+  const int tid = threadIdx.x;
+  const int row = tid >> 2;  // query row within the tile
+  const int sub = tid & 3;
+  const int b = blockIdx.x / Hq, h = blockIdx.x % Hq;
+  const int hk = h / (Hq / Hkv);
+  const int q0 = blockIdx.y * BBQ;
+  const int qpos = q0 + row;
+
+  const T* kb = k + b * ksb + hk * ksh;
+  const T* vb = v + b * vsb + hk * vsh;
+  load_f32<T, BBQ>(qs, q + b * qsb + h * qsh, q0, Sq, D, qss);
+  load_f32<T, BBQ>(dos, dout + b * dsb + h * dsh, q0, Sq, D, dss);
+  const int64_t r = (static_cast<int64_t>(b) * Hq + h) * Sq + qpos;
+  const float my_lse = qpos < Sq ? lse[r] : 0.f;
+  const float my_delta = qpos < Sq ? delta[r] : 0.f;
+
+  float dqa[DMAX / 4];
+#pragma unroll
+  for (int e = 0; e < DMAX / 4; ++e) dqa[e] = 0.f;
+
+  // the forward's key tiles
+  int k_end = Skv;
+  if (causal) k_end = min(Skv, min(q0 + BBQ, Sq));
+  int k_begin = 0;
+  if (window > 0) k_begin = max(0, q0 - window + 1) / BBK * BBK;
+
+  for (int j0 = k_begin; j0 < k_end; j0 += BBK) {
+    __syncthreads();  // Q, dO staged / previous tile's reads done
+    load_f32<T, BBK>(ks, kb, j0, Skv, D, kss);
+    load_f32<T, BBK>(vs, vb, j0, Skv, D, vss);
+    __syncthreads();
+
+    float s[BBK / 4], dp[BBK / 4];
+#pragma unroll
+    for (int jj = 0; jj < BBK / 4; ++jj) s[jj] = dp[jj] = 0.f;
+    for (int d = 0; d < D; ++d) {
+      const float qv = qs[row * ld + d], ov = dos[row * ld + d];
+#pragma unroll
+      for (int jj = 0; jj < BBK / 4; ++jj) {
+        s[jj] = fmaf(qv, ks[(sub + 4 * jj) * ld + d], s[jj]);
+        dp[jj] = fmaf(ov, vs[(sub + 4 * jj) * ld + d], dp[jj]);
+      }
+    }
+#pragma unroll
+    for (int jj = 0; jj < BBK / 4; ++jj) {
+      const int j = sub + 4 * jj;
+      float p;
+      ds_s[row * (BBK + 1) + j] =
+          grad_s(s[jj], dp[jj], my_lse, my_delta,
+                 live(qpos, j0 + j, Sq, Skv, causal, window), scale, cap,
+                 &p);
+    }
+    __syncwarp();  // the row's dS is written by the 4 lanes that read it
+
+    for (int j = 0; j < BBK; ++j) {
+      const float ds = ds_s[row * (BBK + 1) + j];
+      const float* kr = ks + j * ld;
+#pragma unroll
+      for (int e = 0; e < DMAX / 4; ++e) {
+        const int d = sub + 4 * e;
+        if (d < D) dqa[e] = fmaf(ds, kr[d], dqa[e]);
+      }
+    }
+  }
+
+  if (qpos < Sq) {
+    T* dqr = dq + b * dqsb + h * dqsh + static_cast<int64_t>(qpos) * dqss;
+#pragma unroll
+    for (int e = 0; e < DMAX / 4; ++e) {
+      const int d = sub + 4 * e;
+      if (d < D) store_out(&dqr[d], dqa[e]);
+    }
+  }
+}
+
+// st: the (batch, head, seq) strides of q, k, v, o, dO, dQ, dK, dV
+template <typename T, int DMAX>
+int launch_bwd_simt(const void* q, const void* k, const void* v,
+                    const void* o, const void* dout, const float* lse,
+                    float* delta, void* dq, void* dk, void* dv, int B,
+                    int Hq, int Hkv, int Sq, int Skv, int D,
+                    const int64_t* st, float scale, int causal, int window,
+                    float cap, cudaStream_t s) {
+  const T* Q = static_cast<const T*>(q);
+  const T* K = static_cast<const T*>(k);
+  const T* V = static_cast<const T*>(v);
+  const T* O = static_cast<const T*>(o);
+  const T* DO = static_cast<const T*>(dout);
+  const int64_t rows = static_cast<int64_t>(B) * Hq * Sq;
+  const unsigned rblocks =
+      static_cast<unsigned>((rows + THREADS / 32 - 1) / (THREADS / 32));
+  flash_bwd_delta<T><<<rblocks, THREADS, 0, s>>>(
+      O, DO, delta, Hq, Sq, D, rows, st[9], st[10], st[11], st[12], st[13],
+      st[14]);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const size_t smem = bwd_smem_bytes(D);
+  auto kv_kern = flash_bwd_dkdv<T, DMAX>;
+  auto q_kern = flash_bwd_dq<T, DMAX>;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(kv_kern,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          q_kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (Skv > 0) {
+    dim3 grid(static_cast<unsigned>(B) * Hkv,
+              static_cast<unsigned>((Skv + BBK - 1) / BBK));
+    kv_kern<<<grid, THREADS, smem, s>>>(
+        Q, K, V, DO, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
+        Hq, Hkv, Sq, Skv, D, st[0], st[1], st[2], st[3], st[4],
+        st[5], st[6], st[7], st[8], st[12], st[13], st[14], st[18], st[19],
+        st[20], st[21], st[22], st[23], scale, causal, window, cap);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  dim3 grid(static_cast<unsigned>(B) * Hq,
+            static_cast<unsigned>((Sq + BBQ - 1) / BBQ));
+  q_kern<<<grid, THREADS, smem, s>>>(
+      Q, K, V, DO, lse, delta, static_cast<T*>(dq), Hq, Hkv, Sq, Skv, D,
+      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[12],
+      st[13], st[14], st[15], st[16], st[17], scale, causal, window, cap);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_bwd_simt_d(const void* q, const void* k, const void* v,
+                      const void* o, const void* dout, const float* lse,
+                      float* delta, void* dq, void* dk, void* dv, int B,
+                      int Hq, int Hkv, int Sq, int Skv, int D,
+                      const int64_t* st, float scale, int causal, int window,
+                      float cap, cudaStream_t s) {
+  if (D <= 64)
+    return launch_bwd_simt<T, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv,
+                                  B, Hq, Hkv, Sq, Skv, D, st, scale, causal,
+                                  window, cap, s);
+  if (D <= 128)
+    return launch_bwd_simt<T, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv,
+                                   B, Hq, Hkv, Sq, Skv, D, st, scale, causal,
+                                   window, cap, s);
+  return launch_bwd_simt<T, 256>(q, k, v, o, dout, lse, delta, dq, dk, dv,
+                                 B, Hq, Hkv, Sq, Skv, D, st, scale, causal,
+                                 window, cap, s);
 }
 
 }  // namespace
@@ -551,19 +941,21 @@ const char* repro_cuda_error_string(int err) {
 }
 
 // q: [B, Hq, Sq, D], k/v: [B, Hkv, Skv, D], o like q, each given by its
-// (batch, head, seq) element strides with unit stride on D.  window <= 0:
-// no window; cap <= 0: no soft-cap.  path: kPathSimt (fp32) or kPathMma
+// (batch, head, seq) element strides with unit stride on D.  lse: null, or
+// a contiguous fp32 [B, Hq, Sq] that receives each row's log-sum-exp of
+// the scaled (and capped) logits, for the backward.  window <= 0: no
+// window; cap <= 0: no soft-cap.  path: kPathSimt (fp32) or kPathMma
 // (bf16); a path whose preconditions fail returns cudaErrorInvalidValue
 // without launching, else the result is cudaGetLastError() after the
 // launch (0 = launched).
 int flash_attention_launch(const void* q, const void* k, const void* v,
-                           void* o, int B, int Hq, int Hkv, int Sq, int Skv,
-                           int D, int64_t qsb, int64_t qsh, int64_t qss,
-                           int64_t ksb, int64_t ksh, int64_t kss,
-                           int64_t vsb, int64_t vsh, int64_t vss,
-                           int64_t osb, int64_t osh, int64_t oss,
-                           float scale, int causal, int window, float cap,
-                           int dtype, int path, void* stream) {
+                           void* o, float* lse, int B, int Hq, int Hkv,
+                           int Sq, int Skv, int D, int64_t qsb, int64_t qsh,
+                           int64_t qss, int64_t ksb, int64_t ksh,
+                           int64_t kss, int64_t vsb, int64_t vsh,
+                           int64_t vss, int64_t osb, int64_t osh,
+                           int64_t oss, float scale, int causal, int window,
+                           float cap, int dtype, int path, void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 ||
       Skv < 0 || D <= 0 || D > 256 || (Sq + BQ - 1) / BQ > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -571,11 +963,46 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                           vsb, vsh, vss, osb, osh, oss};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (path == kPathMma && dtype == kBF16)
-    return launch_mma_d(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, st, scale,
+    return launch_mma_d(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, D, st, scale,
                         causal, window, cap, s);
   if (path == kPathSimt && dtype == kF32)
-    return launch_simt_d(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, st, scale,
+    return launch_simt_d(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, D, st, scale,
                          causal, window, cap, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The backward of flash_attention_launch: dq, dk, dv (q's, k's and v's
+// dtype, any (batch, head, seq) strides, unit stride on D) from q, k, v,
+// the forward's o and lse, and dout (o's shape).  delta: a contiguous fp32
+// [B, Hq, Sq] scratch.  The 24 strides are those of q, k, v, o, dout, dq,
+// dk and dv, three each.  path: kPathSimt (the CUDA-core kernels, fp32
+// arithmetic) for fp32 or bf16; others return cudaErrorInvalidValue.
+int flash_attention_bwd_launch(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const float* lse, float* delta, void* dq, void* dk,
+    void* dv, int B, int Hq, int Hkv, int Sq, int Skv, int D, int64_t qsb,
+    int64_t qsh, int64_t qss, int64_t ksb, int64_t ksh, int64_t kss,
+    int64_t vsb, int64_t vsh, int64_t vss, int64_t osb, int64_t osh,
+    int64_t oss, int64_t dsb, int64_t dsh, int64_t dss, int64_t dqsb,
+    int64_t dqsh, int64_t dqss, int64_t dksb, int64_t dksh, int64_t dkss,
+    int64_t dvsb, int64_t dvsh, int64_t dvss, float scale, int causal,
+    int window, float cap, int dtype, int path, void* stream) {
+  if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 ||
+      Skv < 0 || D <= 0 || D > 256 || (Sq + BBQ - 1) / BBQ > 65535 ||
+      (Skv + BBK - 1) / BBK > 65535 || path != kPathSimt)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t st[24] = {qsb,  qsh,  qss,  ksb,  ksh,  kss,  vsb,  vsh,
+                          vss,  osb,  osh,  oss,  dsb,  dsh,  dss,  dqsb,
+                          dqsh, dqss, dksb, dksh, dkss, dvsb, dvsh, dvss};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kF32)
+    return launch_bwd_simt_d<float>(q, k, v, o, dout, lse, delta, dq, dk, dv,
+                                    B, Hq, Hkv, Sq, Skv, D, st, scale,
+                                    causal, window, cap, s);
+  if (dtype == kBF16)
+    return launch_bwd_simt_d<bf16>(q, k, v, o, dout, lse, delta, dq, dk, dv,
+                                   B, Hq, Hkv, Sq, Skv, D, st, scale, causal,
+                                   window, cap, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -8,7 +8,8 @@
 //     tensor-map encoder reached through cudaGetDriverEntryPointByVersion
 //     so that no library needs -lcuda
 //   * wgmma: shared-memory matrix descriptors (128-byte swizzle), fence /
-//     commit / wait, m64n{128,256}k16 bf16 with an MN-major B operand
+//     commit / wait, m64n{128,256}k16 bf16 with either operand K-major or
+//     MN-major (the instruction's transpose bits)
 //   * thread block clusters: rank, cluster-wide barrier, remote mbarrier
 //     arrive, TMA multicast
 //   * setmaxnreg
@@ -267,9 +268,11 @@ __device__ __forceinline__ void setmaxnreg_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
-// d[64 x 128] += A[64 x 16] (K-major) * B[16 x 128] (MN-major)
-__device__ __forceinline__ void wgmma_m64n128k16_tb(float (&d)[64],
-                                                 uint64_t da, uint64_t db) {
+// d[64 x 128] += A[64 x 16] * B[16 x 128]; TA / TB: the transpose bits
+// (0: the operand is K-major, contraction contiguous; 1: MN-major)
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
+                                                 uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -277,7 +280,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_tb(float (&d)[64],
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      "}, %64, %65, p, 1, 1, %66, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -294,11 +297,12 @@ __device__ __forceinline__ void wgmma_m64n128k16_tb(float (&d)[64],
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db));
+      : "l"(da), "l"(db), "n"(TA), "n"(TB));
 }
 
-// d[64 x 256] += A[64 x 16] (K-major) * B[16 x 256] (MN-major)
-__device__ __forceinline__ void wgmma_m64n256k16_tb(float (&d)[128],
+// d[64 x 256] += A[64 x 16] * B[16 x 256]; TA / TB as wgmma_m64n128k16
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128],
                                                  uint64_t da, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
@@ -311,7 +315,7 @@ __device__ __forceinline__ void wgmma_m64n256k16_tb(float (&d)[128],
       "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      "}, %128, %129, p, 1, 1, %130, %131;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -344,7 +348,7 @@ __device__ __forceinline__ void wgmma_m64n256k16_tb(float (&d)[128],
         "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db));
+      : "l"(da), "l"(db), "n"(TA), "n"(TB));
 }
 
 // ---------------------------------------------------------------------------

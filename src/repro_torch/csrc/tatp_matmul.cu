@@ -14,6 +14,18 @@
 // operands in shared memory in the layout TMA writes, so the kernel is
 // built around TMA and wgmma.
 //
+// Operand layouts.  Each operand is read in place, rows contiguous
+// (layout 0: A[m, n] at a[m * lda + n], B[n, k] at b[n * ldb + k]) or
+// transposed (layout 1: A[m, n] at a[n * lda + m], B[n, k] at b[k * ldb +
+// n]), so the backward's products dgrad dy @ w^T (B transposed) and wgrad
+// x^T @ dy (A transposed) read the saved tensors as they lie.  In wgmma
+// terms the forward has a K-major A and an MN-major B; dgrad a K-major B
+// (the transpose bit cleared); wgrad an MN-major A (the transpose bit set,
+// which wgmma allows for bf16 operands in shared memory).  The TMA boxes
+// follow the layout: a K-major operand is loaded as boxes of rows of 64
+// contraction elements (one 128-byte swizzled line each), an MN-major one
+// as 64 x 64 boxes with the output index contiguous.
+//
 // Three paths, chosen by the wrapper (kernels/tatp_matmul/ops.py:_path)
 // and refused here (cudaErrorInvalidValue) if their preconditions fail:
 //   * wgmma (bf16 operands that TMA can describe: 16-byte aligned bases,
@@ -37,13 +49,17 @@
 //     and converts to the output type as it writes.  The producer runs
 //     ahead into the next tile while the consumers store this one.
 //   * wmma (other bf16): one 256-thread block per 128 x 128 tile,
-//     nvcuda::wmma fragments fed by a two-stage cp.async pipeline (masked
-//     scalar loads where rows are not 16-byte aligned).
+//     nvcuda::wmma fragments (col_major for a transposed operand) fed by a
+//     two-stage cp.async pipeline (masked scalar loads where rows are not
+//     16-byte aligned).
 //   * simt (fp32): one 256-thread block per 64 x 64 tile, fp32 FMAs, so
-//     fp32 results are true fp32 products (no TF32).
+//     fp32 results are true fp32 products (no TF32); it takes both strides
+//     of each operand.
 
 #include <mma.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -68,13 +84,21 @@ constexpr int TM = 128;  // output rows per block (M)
 constexpr int TK = 128;  // output cols per block (K)
 constexpr int TN = 32;   // contraction slice (N)
 constexpr int THREADS = 256;
-constexpr int A_LD = TN + 8;  // padded smem row pitch (elements)
+// padded smem pitches (elements): A as [TM][TN] (rows) or [TN][TM]
+// (transposed), B as [TN][TK] (rows) or [TK][TN] (transposed)
+constexpr int A_LD = TN + 8;
+constexpr int AT_LD = TM + 8;
 constexpr int B_LD = TK + 8;
+constexpr int BT_LD = TN + 8;
+constexpr int A_BUF = TM * A_LD > TN * AT_LD ? TM * A_LD : TN * AT_LD;
+constexpr int B_BUF = TN * B_LD > TK * BT_LD ? TN * B_LD : TK * BT_LD;
 
-struct __align__(128) Smem {
-  bf16 a[2][TM * A_LD];
-  bf16 b[2][TN * B_LD];
-  float c[THREADS / 32][16 * 16];
+union __align__(128) Smem {
+  struct {
+    bf16 a[2][A_BUF];
+    bf16 b[2][B_BUF];
+  } pipe;
+  float c[THREADS / 32][16 * 16];  // the epilogue's staging, after the loop
 };
 
 __device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
@@ -82,10 +106,27 @@ __device__ __forceinline__ void store_out(bf16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
-// Stage the A[m0:m0+TM, n0:n0+TN] and B[n0:n0+TN, k0:k0+TK] slices into
-// buffer `buf`, zero outside the matrices.  Each thread moves two 8-element
-// vectors of A and two of B.
+// 8 contiguous elements of one operand row at src (row r0 + r of the
+// stored matrix, columns c0 + 8 cv ..) into dst, zero past rows / cols.
 template <bool VEC>
+__device__ __forceinline__ void load8(bf16* dst, const bf16* base,
+                                      int64_t row, int64_t col, int64_t rows,
+                                      int64_t cols, int64_t ld) {
+  if (VEC) {
+    const bool ok = row < rows && col < cols;
+    cp_async16(dst, ok ? base + row * ld + col : base, ok);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      dst[e] = (row < rows && col + e < cols) ? base[row * ld + col + e]
+                                              : __float2bfloat16(0.f);
+  }
+}
+
+// Stage the A[m0:m0+TM, n0:n0+TN] and B[n0:n0+TN, k0:k0+TK] slices into
+// buffer `buf` in their stored layouts, zero outside the matrices.  Each
+// thread moves two 8-element vectors of A and two of B.
+template <bool VEC, bool TA, bool TB>
 __device__ __forceinline__ void load_slices(Smem& sm, int buf, const bf16* A,
                                             const bf16* B, int64_t M,
                                             int64_t N, int64_t K,
@@ -96,42 +137,36 @@ __device__ __forceinline__ void load_slices(Smem& sm, int buf, const bf16* A,
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int v = tid + i * THREADS;
-    {  // A: TM rows x (TN / 8) vectors
+    if (TA) {  // TN stored rows (n) x (TM / 8) vectors along m
+      const int r = v / (TM / 8), cv = v % (TM / 8);
+      load8<VEC>(&sm.pipe.a[buf][r * AT_LD + cv * 8], A, n0 + r,
+                 m0 + cv * 8, N, M, lda);
+    } else {  // TM rows (m) x (TN / 8) vectors along n
       const int r = v / (TN / 8), cv = v % (TN / 8);
-      const int64_t gm = m0 + r, gn = n0 + cv * 8;
-      bf16* dst = &sm.a[buf][r * A_LD + cv * 8];
-      if (VEC) {
-        const bool ok = gm < M && gn < N;
-        cp_async16(dst, ok ? A + gm * lda + gn : A, ok);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          dst[e] = (gm < M && gn + e < N) ? A[gm * lda + gn + e]
-                                          : __float2bfloat16(0.f);
-      }
+      load8<VEC>(&sm.pipe.a[buf][r * A_LD + cv * 8], A, m0 + r,
+                 n0 + cv * 8, M, N, lda);
     }
-    {  // B: TN rows x (TK / 8) vectors
+    if (TB) {  // TK stored rows (k) x (TN / 8) vectors along n
+      const int r = v / (TN / 8), cv = v % (TN / 8);
+      load8<VEC>(&sm.pipe.b[buf][r * BT_LD + cv * 8], B, k0 + r,
+                 n0 + cv * 8, K, N, ldb);
+    } else {  // TN rows (n) x (TK / 8) vectors along k
       const int r = v / (TK / 8), cv = v % (TK / 8);
-      const int64_t gn = n0 + r, gk = k0 + cv * 8;
-      bf16* dst = &sm.b[buf][r * B_LD + cv * 8];
-      if (VEC) {
-        const bool ok = gn < N && gk < K;
-        cp_async16(dst, ok ? B + gn * ldb + gk : B, ok);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          dst[e] = (gn < N && gk + e < K) ? B[gn * ldb + gk + e]
-                                          : __float2bfloat16(0.f);
-      }
+      load8<VEC>(&sm.pipe.b[buf][r * B_LD + cv * 8], B, n0 + r,
+                 k0 + cv * 8, N, K, ldb);
     }
   }
 }
 
-template <bool VEC, typename OutT>
+template <bool VEC, bool TA, bool TB, typename OutT>
 __global__ void __launch_bounds__(THREADS)
     gemm_bf16(const bf16* __restrict__ A, const bf16* __restrict__ B,
               OutT* __restrict__ C, int64_t M, int64_t N, int64_t K,
               int64_t lda, int64_t ldb, int64_t ldc) {
+  using LA = typename std::conditional<TA, wmma::col_major,
+                                       wmma::row_major>::type;
+  using LB = typename std::conditional<TB, wmma::col_major,
+                                       wmma::row_major>::type;
   __shared__ Smem sm;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wr = warp / 4, wc = warp % 4;  // warp sub-tile: 64 rows x 32 cols
@@ -145,32 +180,40 @@ __global__ void __launch_bounds__(THREADS)
     for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
 
   const int64_t n_slices = (N + TN - 1) / TN;
-  load_slices<VEC>(sm, 0, A, B, M, N, K, lda, ldb, m0, 0, k0);
+  load_slices<VEC, TA, TB>(sm, 0, A, B, M, N, K, lda, ldb, m0, 0, k0);
   cp_async_commit();
   for (int64_t t = 0; t < n_slices; ++t) {
     if (t + 1 < n_slices) {
-      load_slices<VEC>(sm, (t + 1) & 1, A, B, M, N, K, lda, ldb, m0,
-                       (t + 1) * TN, k0);
+      load_slices<VEC, TA, TB>(sm, (t + 1) & 1, A, B, M, N, K, lda, ldb, m0,
+                               (t + 1) * TN, k0);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const bf16* as = sm.a[t & 1];
-    const bf16* bs = sm.b[t & 1];
+    const bf16* as = sm.pipe.a[t & 1];
+    const bf16* bs = sm.pipe.b[t & 1];
 #pragma unroll
     for (int kk = 0; kk < TN; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LA> fa[4];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LB> fb[2];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(fa[i], as + (wr * 64 + i * 16) * A_LD + kk,
-                               A_LD);
+      for (int i = 0; i < 4; ++i) {
+        const int r = wr * 64 + i * 16;
+        if (TA)
+          wmma::load_matrix_sync(fa[i], as + kk * AT_LD + r, AT_LD);
+        else
+          wmma::load_matrix_sync(fa[i], as + r * A_LD + kk, A_LD);
+      }
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], bs + kk * B_LD + wc * 32 + j * 16,
-                               B_LD);
+      for (int j = 0; j < 2; ++j) {
+        const int c = wc * 32 + j * 16;
+        if (TB)
+          wmma::load_matrix_sync(fb[j], bs + c * BT_LD + kk, BT_LD);
+        else
+          wmma::load_matrix_sync(fb[j], bs + kk * B_LD + c, B_LD);
+      }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -180,7 +223,7 @@ __global__ void __launch_bounds__(THREADS)
     __syncthreads();  // the next iteration refills this buffer
   }
 
-  float* stage = sm.c[warp];
+  float* stage = sm.c[warp];  // the pipeline buffers are free now
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
 #pragma unroll
@@ -206,7 +249,7 @@ constexpr int WG_BM = 128;  // output rows per block: 64 per consumer
 constexpr int WG_BK = 64;   // contraction slice: one 128-byte swizzle row
 constexpr int WG_THREADS = 384;
 constexpr int A_STAGE = WG_BM * WG_BK * 2;  // 16 KB
-constexpr int B_CHUNK = WG_BK * 64 * 2;     // one 64 x 64 box of B, 8 KB
+constexpr int B_CHUNK = WG_BK * 64 * 2;     // one 64 x 64 box, 8 KB
 
 template <int BN>
 struct WgCfg {
@@ -235,16 +278,18 @@ __device__ __forceinline__ void store_pair(OutT* p, float x, float y,
 // computes tile pairs c, c + clusters, ..., each pair two vertically
 // adjacent WG_BM x BN output tiles (M-pair index fastest, so the clusters
 // in flight share B's columns), one per block.  For each tile, stage s of
-// the ring holds A[m0:+128, n:+64] as one 128 x 64 box (K-major for wgmma:
-// each row one 128-byte swizzled line) and B[n:+64, k0:+BN] as BN / 64
-// boxes of 64 x 64 (MN-major: output columns contiguous), zero past the
-// matrices.  Both blocks of a pair need the same B: each loads half of its
+// the ring holds A[m0:+128, n:+64] and B[n:+64, k0:+BN], zero past the
+// matrices: A in rows as one 128 x 64 box (K-major for wgmma: each row one
+// 128-byte swizzled line), or transposed (TA) as two 64 x 64 boxes with m
+// contiguous (MN-major); B in rows as BN / 64 boxes of 64 x 64 (MN-major:
+// output columns contiguous), or transposed (TB) as BN / 64 boxes of 64
+// output columns x 64 contraction elements (K-major).  Both blocks of a pair need the same B: each loads half of its
 // boxes and multicasts them to both, so B crosses L2 once per pair.  A
 // block's producer may refill stage s only when the consumers of both
 // blocks have released it, so each consumer warp arrives on the empty
 // barrier of both blocks.  The producer runs ahead across tiles, so the
 // next tile's loads overlap this tile's epilogue.
-template <int BN, typename OutT>
+template <int BN, bool TA, bool TB, typename OutT>
 __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(WG_THREADS, 1)
     gemm_wgmma(const __grid_constant__ CUtensorMap ta,
                const __grid_constant__ CUtensorMap tb, OutT* __restrict__ C,
@@ -282,11 +327,21 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(WG_THREADS, 1)
           mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
           uint8_t* st = ring + s * Cfg::STAGE;
           mbar_arrive_expect_tx(&full[s], Cfg::STAGE);
-          tma_load_2d(st, &ta, &full[s], kb * WG_BK, m0);
+          if (TA) {
+            tma_load_2d(st, &ta, &full[s], m0, kb * WG_BK);
+            tma_load_2d(st + B_CHUNK, &ta, &full[s], m0 + 64, kb * WG_BK);
+          } else {
+            tma_load_2d(st, &ta, &full[s], kb * WG_BK, m0);
+          }
 #pragma unroll
-          for (int j = rank; j < BN / 64; j += 2)
-            tma_load_2d_multicast(st + A_STAGE + j * B_CHUNK, &tb, &full[s],
-                                  k0 + j * 64, kb * WG_BK, 0x3);
+          for (int j = rank; j < BN / 64; j += 2) {
+            if (TB)
+              tma_load_2d_multicast(st + A_STAGE + j * B_CHUNK, &tb,
+                                    &full[s], kb * WG_BK, k0 + j * 64, 0x3);
+            else
+              tma_load_2d_multicast(st + A_STAGE + j * B_CHUNK, &tb,
+                                    &full[s], k0 + j * 64, kb * WG_BK, 0x3);
+          }
         }
       }
       // stay until both blocks' consumers have released every stage: no
@@ -314,16 +369,20 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(WG_THREADS, 1)
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < WG_BK / 16; ++kk) {
-          // A: this consumer's 64 rows, 16 contraction columns (32 bytes)
-          // in; B: 16 contraction rows (2 KB) down, BN / 64 chunks apart
+          // K-major: 16 contraction columns (32 bytes) in, 8-row groups
+          // 1 KB apart.  MN-major: 16 contraction rows (2 KB) down, 64-wide
+          // chunks 8 KB apart.  A: this consumer's 64 rows (its chunk).
           const uint64_t da =
-              wgmma_desc(st + cw * 64 * 128 + kk * 32, 16, 1024);
+              TA ? wgmma_desc(st + cw * B_CHUNK + kk * 16 * 128, B_CHUNK,
+                              1024)
+                 : wgmma_desc(st + cw * 64 * 128 + kk * 32, 16, 1024);
           const uint64_t db =
-              wgmma_desc(st + A_STAGE + kk * 16 * 128, B_CHUNK, 1024);
+              TB ? wgmma_desc(st + A_STAGE + kk * 32, 16, 1024)
+                 : wgmma_desc(st + A_STAGE + kk * 16 * 128, B_CHUNK, 1024);
           if constexpr (BN == 256)
-            wgmma_m64n256k16_tb(acc, da, db);
+            wgmma_m64n256k16<TA ? 1 : 0, TB ? 0 : 1>(acc, da, db);
           else
-            wgmma_m64n128k16_tb(acc, da, db);
+            wgmma_m64n128k16<TA ? 1 : 0, TB ? 0 : 1>(acc, da, db);
         }
         wgmma_commit();
         // keep this stage's products in flight; the previous stage's are
@@ -368,11 +427,15 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(WG_THREADS, 1)
 
 constexpr int FM = 64, FK = 64, FN = 16;
 
+// A[m, n] at A[m * sam + n * san], B[n, k] at B[n * sbn + k * sbk]; a_t /
+// b_t (the operand's unit stride is on m / on n) pick the staging order
+// that keeps a warp's loads on neighbouring addresses.
 template <typename OutT>
 __global__ void __launch_bounds__(THREADS)
     gemm_f32(const float* __restrict__ A, const float* __restrict__ B,
              OutT* __restrict__ C, int64_t M, int64_t N, int64_t K,
-             int64_t lda, int64_t ldb, int64_t ldc) {
+             int64_t sam, int64_t san, int64_t sbn, int64_t sbk,
+             int64_t ldc, int a_t, int b_t) {
   __shared__ float as[FN][FM + 4];  // A slice, transposed: as[n][m]
   __shared__ float bs[FN][FK + 4];
   const int tid = threadIdx.x;
@@ -385,14 +448,14 @@ __global__ void __launch_bounds__(THREADS)
     for (int i = 0; i < 4; ++i) {
       const int e = tid + i * THREADS;
       {
-        const int r = e / FN, c = e % FN;
+        const int r = a_t ? e % FM : e / FN, c = a_t ? e / FM : e % FN;
         const int64_t gm = m0 + r, gn = n0 + c;
-        as[c][r] = (gm < M && gn < N) ? A[gm * lda + gn] : 0.f;
+        as[c][r] = (gm < M && gn < N) ? A[gm * sam + gn * san] : 0.f;
       }
       {
-        const int r = e / FK, c = e % FK;
+        const int r = b_t ? e % FN : e / FK, c = b_t ? e / FN : e % FK;
         const int64_t gn = n0 + r, gk = k0 + c;
-        bs[r][c] = (gn < N && gk < K) ? B[gn * ldb + gk] : 0.f;
+        bs[r][c] = (gn < N && gk < K) ? B[gn * sbn + gk * sbk] : 0.f;
       }
     }
     __syncthreads();
@@ -421,12 +484,14 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <typename OutT>
+template <bool TA, bool TB, typename OutT>
 void launch_bf16(const void* a, const void* b, void* c, int64_t M, int64_t N,
                  int64_t K, int64_t lda, int64_t ldb, int64_t ldc,
                  cudaStream_t s) {
-  const bool vec = lda % 8 == 0 && ldb % 8 == 0 && N % 8 == 0 &&
-                   K % 8 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+  // 16-byte vectors run along each operand's contiguous dim
+  const bool vec = lda % 8 == 0 && ldb % 8 == 0 && (TA ? M : N) % 8 == 0 &&
+                   (TB ? N : K) % 8 == 0 &&
+                   reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(b) % 16 == 0;
   dim3 grid(static_cast<unsigned>((K + TK - 1) / TK),
             static_cast<unsigned>((M + TM - 1) / TM));
@@ -434,27 +499,41 @@ void launch_bf16(const void* a, const void* b, void* c, int64_t M, int64_t N,
   const bf16* B = static_cast<const bf16*>(b);
   OutT* C = static_cast<OutT*>(c);
   if (vec)
-    gemm_bf16<true, OutT><<<grid, THREADS, 0, s>>>(A, B, C, M, N, K, lda,
-                                                   ldb, ldc);
+    gemm_bf16<true, TA, TB, OutT><<<grid, THREADS, 0, s>>>(A, B, C, M, N, K,
+                                                           lda, ldb, ldc);
   else
-    gemm_bf16<false, OutT><<<grid, THREADS, 0, s>>>(A, B, C, M, N, K, lda,
-                                                    ldb, ldc);
+    gemm_bf16<false, TA, TB, OutT><<<grid, THREADS, 0, s>>>(A, B, C, M, N,
+                                                            K, lda, ldb, ldc);
+}
+
+template <typename OutT>
+void launch_bf16_l(const void* a, const void* b, void* c, int64_t M,
+                   int64_t N, int64_t K, int64_t lda, int64_t ldb,
+                   int64_t ldc, int la, int lb, cudaStream_t s) {
+  if (la == 0 && lb == 0)
+    launch_bf16<false, false, OutT>(a, b, c, M, N, K, lda, ldb, ldc, s);
+  else if (la == 0)
+    launch_bf16<false, true, OutT>(a, b, c, M, N, K, lda, ldb, ldc, s);
+  else if (lb == 0)
+    launch_bf16<true, false, OutT>(a, b, c, M, N, K, lda, ldb, ldc, s);
+  else
+    launch_bf16<true, true, OutT>(a, b, c, M, N, K, lda, ldb, ldc, s);
 }
 
 template <typename OutT>
 void launch_f32(const void* a, const void* b, void* c, int64_t M, int64_t N,
-                int64_t K, int64_t lda, int64_t ldb, int64_t ldc,
-                cudaStream_t s) {
+                int64_t K, int64_t lda, int64_t ldb, int64_t ldc, int la,
+                int lb, cudaStream_t s) {
   dim3 grid(static_cast<unsigned>((K + FK - 1) / FK),
             static_cast<unsigned>((M + FM - 1) / FM));
-  gemm_f32<OutT><<<grid, THREADS, 0, s>>>(static_cast<const float*>(a),
-                                          static_cast<const float*>(b),
-                                          static_cast<OutT*>(c), M, N, K,
-                                          lda, ldb, ldc);
+  gemm_f32<OutT><<<grid, THREADS, 0, s>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b),
+      static_cast<OutT*>(c), M, N, K, la ? 1 : lda, la ? lda : 1,
+      lb ? 1 : ldb, lb ? ldb : 1, ldc, la, lb);
 }
 
-// What TMA can describe: 16-byte aligned bases, row pitches a multiple of
-// 16 bytes, a non-empty contraction, 32-bit coordinates.
+// What TMA can describe: 16-byte aligned bases, pitches a multiple of 16
+// bytes, a non-empty contraction, 32-bit coordinates.
 bool tma_ok(const void* a, const void* b, int64_t M, int64_t N, int64_t K,
             int64_t lda, int64_t ldb) {
   return reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
@@ -463,18 +542,21 @@ bool tma_ok(const void* a, const void* b, int64_t M, int64_t N, int64_t K,
          N < (int64_t(1) << 31) && K < (int64_t(1) << 31);
 }
 
-template <int BN, typename OutT>
+template <int BN, bool TA, bool TB, typename OutT>
 int launch_wgmma(const void* a, const void* b, void* c, int64_t M, int64_t N,
                  int64_t K, int64_t lda, int64_t ldb, int64_t ldc,
                  cudaStream_t s) {
   CUtensorMap ta, tb;
-  if (!make_tma_2d_bf16(&ta, a, M, N, lda, WG_BM, WG_BK) ||
-      !make_tma_2d_bf16(&tb, b, N, K, ldb, WG_BK, 64))
-    return static_cast<int>(cudaErrorInvalidValue);
+  const bool maps =
+      (TA ? make_tma_2d_bf16(&ta, a, N, M, lda, WG_BK, 64)
+          : make_tma_2d_bf16(&ta, a, M, N, lda, WG_BM, WG_BK)) &&
+      (TB ? make_tma_2d_bf16(&tb, b, K, N, ldb, 64, WG_BK)
+          : make_tma_2d_bf16(&tb, b, N, K, ldb, WG_BK, 64));
+  if (!maps) return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = gemm_wgmma<BN, TA, TB, OutT>;
   const int smem = WgCfg<BN>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
-      gemm_wgmma<BN, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   int dev = 0, sms = 0;
   err = cudaGetDevice(&dev);
@@ -486,20 +568,39 @@ int launch_wgmma(const void* a, const void* b, void* c, int64_t M, int64_t N,
       ((M + WG_BM - 1) / WG_BM + 1) / 2 * ((K + BN - 1) / BN);
   const unsigned grid =
       2 * static_cast<unsigned>(pairs < sms / 2 ? pairs : sms / 2);
-  gemm_wgmma<BN, OutT><<<grid, WG_THREADS, smem, s>>>(
+  kern<<<grid, WG_THREADS, smem, s>>>(
       ta, tb, static_cast<OutT*>(c), static_cast<int>(M),
       static_cast<int>(K), static_cast<int>((N + WG_BK - 1) / WG_BK), ldc);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int BN, typename OutT>
+int launch_wgmma_l(const void* a, const void* b, void* c, int64_t M,
+                   int64_t N, int64_t K, int64_t lda, int64_t ldb,
+                   int64_t ldc, int la, int lb, cudaStream_t s) {
+  if (la == 0 && lb == 0)
+    return launch_wgmma<BN, false, false, OutT>(a, b, c, M, N, K, lda, ldb,
+                                                ldc, s);
+  if (la == 0)
+    return launch_wgmma<BN, false, true, OutT>(a, b, c, M, N, K, lda, ldb,
+                                               ldc, s);
+  if (lb == 0)
+    return launch_wgmma<BN, true, false, OutT>(a, b, c, M, N, K, lda, ldb,
+                                               ldc, s);
+  return launch_wgmma<BN, true, true, OutT>(a, b, c, M, N, K, lda, ldb, ldc,
+                                            s);
+}
+
 template <typename OutT>
 int launch_wgmma_n(const void* a, const void* b, void* c, int64_t M,
                    int64_t N, int64_t K, int64_t lda, int64_t ldb,
-                   int64_t ldc, int tile_n, cudaStream_t s) {
+                   int64_t ldc, int la, int lb, int tile_n, cudaStream_t s) {
   if (tile_n == 256)
-    return launch_wgmma<256, OutT>(a, b, c, M, N, K, lda, ldb, ldc, s);
+    return launch_wgmma_l<256, OutT>(a, b, c, M, N, K, lda, ldb, ldc, la, lb,
+                                     s);
   if (tile_n == 128)
-    return launch_wgmma<128, OutT>(a, b, c, M, N, K, lda, ldb, ldc, s);
+    return launch_wgmma_l<128, OutT>(a, b, c, M, N, K, lda, ldb, ldc, la, lb,
+                                     s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -511,42 +612,47 @@ const char* repro_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// path: kPathSimt (fp32 operands), kPathWmma (bf16, any unit-stride rows)
-// or kPathWgmma (bf16 that TMA can describe; tile_n 128 or 256 output
-// columns per block).  A path whose preconditions fail returns
-// cudaErrorInvalidValue without launching; otherwise the result is
-// cudaGetLastError() after the launch (0 = launched).
+// C[M, K] = A[M, N] @ B[N, K].  la / lb: each operand's layout, 0 (rows
+// contiguous; lda / ldb the stride between rows) or 1 (transposed: the
+// stored matrix is A^T [N, M] or B^T [K, N]; lda / ldb the stride between
+// its rows).  C is row-major with row stride ldc.  path: kPathSimt (fp32
+// operands), kPathWmma (bf16) or kPathWgmma (bf16 that TMA can describe;
+// tile_n 128 or 256 output columns per block).  A path whose
+// preconditions fail returns cudaErrorInvalidValue without launching;
+// otherwise the result is cudaGetLastError() after the launch (0 =
+// launched).
 int tatp_matmul_launch(const void* a, const void* b, void* c, int64_t M,
                        int64_t N, int64_t K, int64_t lda, int64_t ldb,
-                       int64_t ldc, int in_dtype, int out_dtype, int path,
-                       int tile_n, void* stream) {
+                       int64_t ldc, int la, int lb, int in_dtype,
+                       int out_dtype, int path, int tile_n, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   // the row-tile index is blockIdx.y (at most 65535 tiles of >= 64 rows)
   if (M <= 0 || K <= 0 || N < 0 || (M + FM - 1) / FM > 65535 ||
-      (out_dtype != kF32 && out_dtype != kBF16))
+      (out_dtype != kF32 && out_dtype != kBF16) || (la != 0 && la != 1) ||
+      (lb != 0 && lb != 1))
     return bad;
   const bool out_f32 = out_dtype == kF32;
   if (path == kPathSimt && in_dtype == kF32) {
     if (out_f32)
-      launch_f32<float>(a, b, c, M, N, K, lda, ldb, ldc, s);
+      launch_f32<float>(a, b, c, M, N, K, lda, ldb, ldc, la, lb, s);
     else
-      launch_f32<bf16>(a, b, c, M, N, K, lda, ldb, ldc, s);
+      launch_f32<bf16>(a, b, c, M, N, K, lda, ldb, ldc, la, lb, s);
     return static_cast<int>(cudaGetLastError());
   }
   if (path == kPathWmma && in_dtype == kBF16) {
     if (out_f32)
-      launch_bf16<float>(a, b, c, M, N, K, lda, ldb, ldc, s);
+      launch_bf16_l<float>(a, b, c, M, N, K, lda, ldb, ldc, la, lb, s);
     else
-      launch_bf16<bf16>(a, b, c, M, N, K, lda, ldb, ldc, s);
+      launch_bf16_l<bf16>(a, b, c, M, N, K, lda, ldb, ldc, la, lb, s);
     return static_cast<int>(cudaGetLastError());
   }
   if (path == kPathWgmma && in_dtype == kBF16 &&
       tma_ok(a, b, M, N, K, lda, ldb)) {
     return out_f32 ? launch_wgmma_n<float>(a, b, c, M, N, K, lda, ldb, ldc,
-                                           tile_n, s)
+                                           la, lb, tile_n, s)
                    : launch_wgmma_n<bf16>(a, b, c, M, N, K, lda, ldb, ldc,
-                                          tile_n, s);
+                                          la, lb, tile_n, s);
   }
   return bad;
 }

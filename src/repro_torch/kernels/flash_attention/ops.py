@@ -14,8 +14,18 @@ raises) if its preconditions do not hold: ``"mma"`` (bf16 on the tensor
 cores, ``mma.sync``) or ``"simt"`` (fp32 on the CUDA cores, true fp32
 products).  Nothing is chosen by whether a build or a launch succeeded.
 
-``attention.launches`` counts the kernel's launches and
-``attention.launches_by_path`` the same launches by path.
+For CUDA tensors under autograd (grad mode on and an input that requires
+grad), :func:`attention` runs through an ``autograd.Function``: the
+forward also writes each row's log-sum-exp, and the backward is the
+hand-written backward kernel (:func:`attention_bwd`: dQ, dK and dV in
+q/k/v's dtype, fp32 arithmetic, deterministic).  Its path is chosen by
+:func:`_bwd_path`: ``"simt"`` (CUDA cores) for fp32 and bf16.  For CPU
+tensors autograd differentiates the plain version.
+
+``attention.launches`` counts the forward kernel's launches and
+``attention.launches_by_path`` the same launches by path;
+``attention_bwd.launches`` and ``attention_bwd.launches_by_path`` count
+the backward's (one per backward call, which runs its three kernels).
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 # dtype and path codes shared with csrc/flash_attention.cu
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PATHS = {"simt": 0, "mma": 1}
+_BWD_PATHS = {"simt": 0}
 MAX_HEAD_DIM = 256
 
 _P, _I64, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, \
@@ -41,7 +52,12 @@ def _lib():
     lib = _build.load("flash_attention")
     fn = lib.flash_attention_launch
     if fn.argtypes is None:  # else ctypes would pass 32-bit ints
-        fn.argtypes = ([_P] * 4 + [_I] * 6 + [_I64] * 12
+        fn.argtypes = ([_P] * 5 + [_I] * 6 + [_I64] * 12
+                       + [_F, _I, _I, _F, _I, _I, _P])
+        fn.restype = _I
+    fn = lib.flash_attention_bwd_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([_P] * 10 + [_I] * 6 + [_I64] * 24
                        + [_F, _I, _I, _F, _I, _I, _P])
         fn.restype = _I
     return lib
@@ -59,15 +75,30 @@ def _path(dtype, d) -> str:
         f"flash_attention kernel takes fp32 or bf16 q/k/v, got {dtype}")
 
 
+def _bwd_path(dtype, d) -> str:
+    """The backward kernel for q/k/v of ``dtype`` and head dim ``d``."""
+    _path(dtype, d)  # the same dtypes and head dims as the forward
+    return "simt"
+
+
 def attention(q, k, v, *, causal=True, window=None, cap=None, scale=None):
     """q: [B, Hq, Sq, D]; k/v: [B, Hkv, Skv, D] -> [B, Hq, Sq, D].
 
     On CUDA: q/k/v one dtype (fp32 or bf16), unit stride on D, D <= 256,
     Hq a multiple of Hkv.  The output has q's dtype and q's memory layout.
+    Under autograd the backward runs on the backward kernel.
     """
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return attention_ref(q, k, v, causal=causal, window=window, cap=cap,
                              scale=scale)
+    _check(q, k, v, window, cap)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, causal, window, cap, scale)
+    return _forward(q, k, v, causal, window, cap, scale, want_lse=False)[0]
+
+
+def _check(q, k, v, window, cap):
+    """Raise on what the kernels do not take (for CUDA tensors)."""
     dev = q.device
     if dev.type != "cuda" or k.device != dev or v.device != dev:
         raise ValueError(
@@ -98,27 +129,103 @@ def attention(q, k, v, *, causal=True, window=None, cap=None, scale=None):
             f"flash_attention kernel takes window > 0 and cap > 0, got "
             f"window={window}, cap={cap}"
         )
+    _path(q.dtype, d)
+
+
+def _forward(q, k, v, causal, window, cap, scale, want_lse):
+    """One forward launch on checked tensors: (o, lse or None)."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
     path = _path(q.dtype, d)
     o = torch.empty_like(q)  # q's layout when q is dense, else contiguous
+    lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+           if want_lse else None)
     if o.numel() == 0:
-        return o
+        return o, lse
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     lib = _lib()
     err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        0 if lse is None else lse.data_ptr(),
         b, hq, hkv, sq, skv, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
         float(scale), int(bool(causal)),
         0 if window is None else int(window),
         0.0 if cap is None else float(cap),
         _DTYPES[q.dtype], _PATHS[path],
-        torch.cuda.current_stream(dev).cuda_stream,
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, err, f"flash_attention ({path})")
     attention.launches += 1
     attention.launches_by_path[path] += 1
-    return o
+    return o, lse
+
+
+def attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None,
+                  cap=None, scale=None):
+    """(dq, dk, dv) of :func:`attention` at ``do`` (o's shape), from the
+    forward's ``o`` and ``lse`` ([B, Hq, Sq] fp32, contiguous), on the
+    backward kernel.  CUDA tensors only; the gradients take q's, k's and
+    v's dtypes and layouts."""
+    _check(q, k, v, window, cap)
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"o{tuple(o.shape)} / do{tuple(do.shape)} do not "
+                         f"match q{tuple(q.shape)}")
+    if do.dtype != q.dtype or o.dtype != q.dtype:
+        raise ValueError(f"o and do must have q's dtype {q.dtype}")
+    if o.stride(3) != 1 or do.stride(3) != 1:
+        raise ValueError("flash_attention backward needs unit stride on D")
+    if (lse.dtype != torch.float32 or tuple(lse.shape) != (b, hq, sq)
+            or not lse.is_contiguous()):
+        raise ValueError("lse must be a contiguous fp32 [B, Hq, Sq]")
+    path = _bwd_path(q.dtype, d)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if dq.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    lib = _lib()
+    err = lib.flash_attention_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b, hq, hkv, sq, skv, d,
+        *(s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]),
+        float(scale), int(bool(causal)),
+        0 if window is None else int(window),
+        0.0 if cap is None else float(cap),
+        _DTYPES[q.dtype], _BWD_PATHS[path],
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(lib, err, f"flash_attention backward ({path})")
+    attention_bwd.launches += 1
+    attention_bwd.launches_by_path[path] += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """:func:`attention` on CUDA under autograd: the forward kernel with
+    the row log-sum-exp saved, the backward kernel for the gradients."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, cap, scale):
+        o, lse = _forward(q, k, v, causal, window, cap, scale,
+                          want_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.opts = dict(causal=causal, window=window, cap=cap, scale=scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        if do.stride(3) != 1:
+            do = do.contiguous()
+        dq, dk, dv = attention_bwd(q, k, v, o, lse, do, **ctx.opts)
+        return dq, dk, dv, None, None, None, None
 
 
 attention.launches = 0
 attention.launches_by_path = dict.fromkeys(_PATHS, 0)
+attention_bwd.launches = 0
+attention_bwd.launches_by_path = dict.fromkeys(_BWD_PATHS, 0)

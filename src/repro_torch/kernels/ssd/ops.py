@@ -14,6 +14,11 @@ fallback on the GPU, at any chunk or head size.
 kernel, then the inter-chunk recurrence and its output contraction in
 torch (the reference also computes those outside its Pallas call).
 
+There is no backward kernel yet: on CUDA :func:`ssd_intra_chunk` raises
+when autograd would need its gradient (grad mode on and an input that
+requires grad), so training a Mamba-2 layer on the card fails loudly
+instead of training with ``None`` gradients (ROADMAP.md A2b).
+
 ``ssd_intra_chunk.launches`` counts the kernel's launches.
 """
 
@@ -23,6 +28,7 @@ import ctypes
 
 import torch
 
+from repro_torch import not_ported
 from repro_torch.kernels import _build
 from repro_torch.kernels.ssd.ref import ssd_intra_chunk_ref
 from repro_torch.models.ssm import SSDOut, check_chunking, chunk_recurrence
@@ -62,6 +68,9 @@ def ssd_intra_chunk(x, dt, a, bmat, cmat):
             f"ssd kernel needs every input on one CUDA device, got "
             f"{[str(t.device) for t in ts]}"
         )
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise not_ported("the SSD backward kernel (training Mamba-2 layers "
+                         "on the GPU)", "A2b")
     if any(t.dtype != torch.float32 for t in ts):
         raise ValueError(
             f"ssd kernel takes fp32 inputs, got {[t.dtype for t in ts]}"

@@ -8,12 +8,27 @@ CUDA tensors it launches the hand-written kernel, which masks ragged edges
 itself, so every shape runs on the kernel; anything the kernel does not
 take raises.  There is no fallback on the GPU.
 
+Each operand is read in place in one of two layouts, derived from its
+strides by :func:`_operand`: rows contiguous (unit stride on the last dim,
+as the forward's activations and weights) or transposed (unit stride on
+the first dim, as the backward's ``w.T`` and ``x.T`` views).  The four
+layout pairs are the forward (both rows), dgrad ``dy @ w.T`` (B
+transposed) and wgrad ``x.T @ dy`` (A transposed), and both transposed;
+every path takes all four.  Nothing is ever copied to make an operand
+fit: a tensor with neither unit stride raises.
+
 Which kernel runs is decided here, by :func:`_path`, a pure function of
-the dtype, the row strides and the pointers' alignment, and passed to the
-launcher, which refuses (and this wrapper raises) if the path's
-preconditions do not hold: ``"wgmma"`` (bf16 that TMA can describe: 16-byte
-aligned bases and row pitches), ``"wmma"`` (any other bf16), ``"simt"``
+the dtype, the operands' pitches and the pointers' alignment, and passed
+to the launcher, which refuses (and this wrapper raises) if the path's
+preconditions do not hold: ``"wgmma"`` (bf16 that TMA can describe:
+16-byte aligned bases and pitches), ``"wmma"`` (any other bf16), ``"simt"``
 (fp32).  Nothing is chosen by whether a build or a launch succeeded.
+
+The wrapper is a forward function: on CUDA it raises when autograd would
+need its gradient (grad mode on and an operand that requires grad), so a
+kernel output is never silently detached.  Training reaches it through
+the ``autograd.Function``s that call it for each product
+(:func:`repro_torch.core.tatp.tatp_matmul`, the lm head).
 
 ``tatp_dot.launches`` counts the kernel's launches and
 ``tatp_dot.launches_by_path`` the same launches by path.
@@ -36,19 +51,39 @@ _PATHS = {"simt": 0, "wmma": 1, "wgmma": 2}
 _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 
 
+# operand layout codes shared with csrc/tatp_matmul.cu
+ROWS, TRANSPOSED = 0, 1
+
+
 def _lib():
     lib = _build.load("tatp_matmul")
     fn = lib.tatp_matmul_launch
     if fn.argtypes is None:  # else ctypes would pass 32-bit ints
         fn.argtypes = [_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64,
-                       _I, _I, _I, _I, _P]
+                       _I, _I, _I, _I, _I, _I, _P]
         fn.restype = _I
     return lib
 
 
+def _operand(shape, stride) -> tuple[int, int]:
+    """(layout, pitch) of a 2-D operand of ``shape`` and ``stride``:
+    ``ROWS`` with the stride between rows, or ``TRANSPOSED`` (unit stride
+    on dim 0) with the stride between columns.  A dim of size 1 has no
+    stride to honour; a lone row or column gets its length as pitch."""
+    (r, c), (s0, s1) = shape, stride
+    if s1 == 1 or c == 1:
+        return ROWS, s0 if r > 1 else c
+    if s0 == 1 or r == 1:
+        return TRANSPOSED, s1 if c > 1 else r
+    raise ValueError(
+        f"tatp_matmul kernel needs unit stride on one dim of each operand, "
+        f"got shape {tuple(shape)} strides {tuple(stride)}")
+
+
 def _path(dtype, n, lda, ldb, a_ptr, b_ptr) -> str:
-    """The kernel for operands of ``dtype`` with contraction ``n``, row
-    strides ``lda``/``ldb`` (elements) at addresses ``a_ptr``/``b_ptr``."""
+    """The kernel for operands of ``dtype`` with contraction ``n``,
+    pitches ``lda``/``ldb`` (elements, in each operand's layout; see
+    :func:`_operand`) at addresses ``a_ptr``/``b_ptr``."""
     if dtype == torch.float32:
         return "simt"
     if dtype != torch.bfloat16:
@@ -83,8 +118,9 @@ def tatp_dot(a: torch.Tensor, b: torch.Tensor, out_dtype=None):
     ``out_dtype`` (default ``a.dtype``); the leading dims of ``a`` are
     flattened into the GEMM's M.
 
-    On CUDA: both operands fp32 or both bf16, unit column stride (any row
-    stride), output fp32 or bf16, allocated contiguous.
+    On CUDA: both operands fp32 or both bf16, each with unit stride on one
+    of its two (last) dims, output fp32 or bf16, allocated contiguous; not
+    under autograd.
     """
     out_dtype = out_dtype or a.dtype
     if a.device.type == "cpu" and b.device.type == "cpu":
@@ -93,6 +129,11 @@ def tatp_dot(a: torch.Tensor, b: torch.Tensor, out_dtype=None):
         raise ValueError(
             f"tatp_matmul kernel needs both operands on one CUDA device, "
             f"got {a.device} and {b.device}"
+        )
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        raise RuntimeError(
+            "tatp_dot is not differentiable: under autograd call it through "
+            "repro_torch.core.tatp.tatp_matmul (or another autograd.Function)"
         )
     if b.dim() != 2 or a.dim() < 1 or a.shape[-1] != b.shape[0]:
         raise ValueError(
@@ -106,18 +147,18 @@ def tatp_dot(a: torch.Tensor, b: torch.Tensor, out_dtype=None):
     if out_dtype not in _DTYPES:
         raise ValueError(f"tatp_matmul kernel cannot write {out_dtype}")
     n, k = b.shape
-    a2 = a.reshape(-1, n)  # a view for the activations the model passes
-    if a2.stride(1) != 1 or b.stride(1) != 1:
-        raise ValueError("tatp_matmul kernel needs unit column stride")
+    # a view for the activations the model passes (2-D operands as given)
+    a2 = a if a.dim() == 2 else a.reshape(-1, n)
     m = a2.shape[0]
+    la, lda = _operand(a2.shape, a2.stride())
+    lb, ldb = _operand(b.shape, b.stride())
     c = torch.empty((m, k), dtype=out_dtype, device=a.device)
     if m and k:
-        path = _path(a.dtype, n, a2.stride(0), b.stride(0), a2.data_ptr(),
-                     b.data_ptr())
+        path = _path(a.dtype, n, lda, ldb, a2.data_ptr(), b.data_ptr())
         lib = _lib()
         err = lib.tatp_matmul_launch(
             a2.data_ptr(), b.data_ptr(), c.data_ptr(),
-            m, n, k, a2.stride(0), b.stride(0), c.stride(0),
+            m, n, k, lda, ldb, c.stride(0), la, lb,
             _DTYPES[a.dtype], _DTYPES[out_dtype], _PATHS[path],
             _tile_n(m, k, _sm_count(a.device.index)),
             torch.cuda.current_stream(a.device).cuda_stream,

@@ -1,18 +1,25 @@
 """Top-level language-model assembly (counterpart of ``repro.models.lm``)
-at ring degree 1: the serving entry points :func:`prefill` and
+at ring degree 1: the training loss :func:`loss_fn` with
+:func:`vocab_parallel_xent`, the serving entry points :func:`prefill` and
 :func:`decode_step`, the decode cache, and the slot graft.
 
 The reference scans the stacked layer reps with ``lax.scan``; here a Python
-loop walks the rep axis, indexing each stacked parameter (a view, no copy).
-Layer kinds ``G``/``L`` (attention + MLP), ``M`` (Mamba-2) and ``S``
-(zamba2's shared attention + MLP, one parameter set for every slot) run;
-each slot keeps its own cache (K/V, or the SSM state and conv tail).
+loop walks the rep axis, indexing each stacked parameter (a view, no copy,
+so gradients accumulate into the stacked leaf).  With
+``ParallelConfig.remat`` the ``train`` phase checkpoints each rep, as the
+reference wraps its scan body in ``jax.checkpoint``.  Layer kinds
+``G``/``L`` (attention + MLP), ``M`` (Mamba-2) and ``S`` (zamba2's shared
+attention + MLP, one parameter set for every slot) run; each slot keeps
+its own cache (K/V, or the SSM state and conv tail).
 """
 
 from __future__ import annotations
 
 from dataclasses import replace
+from functools import partial
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import not_ported
 from repro_torch.models.common import rms_norm, softcap
@@ -35,16 +42,108 @@ def embed_tokens(ctx: RunCtx, embed, tokens, prefix_embeds=None):
     return x
 
 
+def _bf16_terms(g):
+    """fp32 ``g`` as three bf16 tensors whose sum is ``g`` (each term holds
+    the next 8 significant bits of the remainder, so the split is exact
+    to fp32 precision)."""
+    hi = g.to(torch.bfloat16)
+    r = g - hi.float()
+    mid = r.to(torch.bfloat16)
+    return hi, mid, (r - mid.float()).to(torch.bfloat16)
+
+
+class _HeadMatmul(torch.autograd.Function):
+    """``logits = x @ w`` in the train phase: the operands in the model
+    dtype, accumulated and returned in fp32 on the ``dot`` hook, as the
+    reference's einsum with fp32 preferred element type.
+
+    JAX transposes that einsum into products of the fp32 cotangent with
+    the operands *promoted to fp32* (``dot_general(g_f32, w_bf16)``, which
+    XLA evaluates in fp32; checked on a small bf16 case on the CPU), then
+    casts dx and dw to the model dtype.  Where the model dtype is bf16 the
+    backward therefore splits g exactly into three bf16 terms
+    (:func:`_bf16_terms`): every term times a bf16 operand is exact in the
+    GEMM's fp32 accumulator, so the bf16 tensor cores give the fp32
+    products.  The dgrad stacks the terms on M in one GEMM and sums the
+    three fp32 partials; the wgrad stacks them on the contraction (x
+    repeated three times) in one GEMM."""
+
+    @staticmethod
+    def forward(ctx, x, w, dot):
+        ctx.save_for_backward(x, w)
+        ctx.dot = dot
+        return dot(x, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dot = ctx.dot
+        if x.dtype == g.dtype:
+            return dot(g, w.t()), dot(x.t(), g).to(w.dtype), None
+        m = g.shape[0]
+        gs = torch.cat(_bf16_terms(g), dim=0)  # [3M, V]
+        dx = dot(gs, w.t(), out_dtype=torch.float32).view(3, m, -1)
+        dx = (dx[0] + dx[1] + dx[2]).to(x.dtype)
+        xs = torch.cat([x, x, x], dim=0)  # [3M, D]
+        return dx, dot(xs.t(), gs, out_dtype=w.dtype), None
+
+
 def lm_head_logits(ctx: RunCtx, params, x):
-    """fp32 logits over the padded vocab (a plain product accumulated and
-    returned in fp32, as the reference's einsum with fp32 preferred
-    element type)."""
+    """fp32 logits over the padded vocab.  In the ``train`` phase the
+    product runs on the ``dot`` hook with the operands in the model dtype
+    (:class:`_HeadMatmul`), as the reference computes it; the serve phases
+    keep a plain product of fp32 upcasts."""
     cfg = ctx.cfg
-    if cfg.tie_embeddings:
-        logits = torch.matmul(x.float(), params["embed"].float().t())
+    w = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+    if ctx.phase == "train":
+        lead = x.shape[:-1]
+        logits = _HeadMatmul.apply(x.reshape(-1, x.shape[-1]), w, ctx.dot)
+        logits = logits.reshape(*lead, -1)
     else:
-        logits = torch.matmul(x.float(), params["lm_head"].float())
+        logits = torch.matmul(x.float(), w.float())
     return softcap(logits, cfg.logit_softcap)
+
+
+def vocab_parallel_xent(ctx: RunCtx, logits, labels, valid):
+    """Cross-entropy at ring degree 1: the whole padded vocab is local.
+
+    logits: [B, s, Vp] fp32; labels/valid: [B, s].  Padded columns are
+    masked to -1e30; the max shift is a stop-gradient, as the reference's.
+    Returns (sum_nll, sum_count)."""
+    cfg = ctx.cfg
+    if ctx.r != 1:
+        raise not_ported("the vocab-parallel cross-entropy's ring", "A3")
+    cols = torch.arange(logits.shape[-1], device=logits.device)
+    logits = torch.where(cols < cfg.vocab_size, logits, -1e30)
+    m = logits.amax(dim=-1).detach()
+    se = torch.exp(logits - m[..., None]).sum(dim=-1)
+    lse = torch.log(se) + m
+    tgt = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = (lse - tgt) * valid
+    return nll.sum(), valid.float().sum()
+
+
+def loss_fn(ctx: RunCtx, params, batch):
+    """Training loss.  batch: tokens/labels [B, s] (+ an optional ``valid``
+    mask, ones by default).  Returns (nll_sum, count, aux_total)."""
+    cfg = ctx.cfg
+    if cfg.n_enc_layers:
+        raise not_ported("encoder-decoder training", "A6")
+    ctx = replace(ctx, phase="train")
+    x = embed_tokens(ctx, params["embed"], batch["tokens"],
+                     batch.get("prefix_embeds"))
+    x, aux, _ = _stack(ctx, params, x)
+    x = rms_norm(x, params["final_ln"], cfg.norm_eps)
+    valid = batch.get("valid")
+    if valid is None:
+        valid = torch.ones(batch["labels"].shape, dtype=torch.float32,
+                           device=x.device)
+    if ctx.par.strategy == "tatp" and ctx.r > 1:
+        raise not_ported("streamed_vocab_xent", "A3")
+    logits = lm_head_logits(ctx, params, x)
+    nll_sum, cnt = vocab_parallel_xent(ctx, logits, batch["labels"], valid)
+    # MoE models (whose aux term the reference adds here) raise in _stack
+    return nll_sum, cnt, 0.0
 
 
 def _stack(ctx: RunCtx, params, x, caches=None, cache_len=None):
@@ -52,16 +151,23 @@ def _stack(ctx: RunCtx, params, x, caches=None, cache_len=None):
 
     ``prefill`` returns each block's cache leaves stacked on the rep axis
     (``{"k", "v"}`` for attention slots, ``{"state", "conv"}`` for Mamba-2
-    slots); ``decode`` updates ``caches`` in place and returns it."""
+    slots); ``decode`` updates ``caches`` in place and returns it.  In the
+    ``train`` phase with ``par.remat`` each rep is checkpointed (its
+    activations are recomputed in the backward)."""
     cfg = ctx.cfg
     if cfg.is_moe:
         raise not_ported("MoE blocks", "A4")
     unit, reps = _unit_and_reps(cfg)
     shared = params.get("shared")
     collect = caches is None and ctx.phase == "prefill"
+    remat = ctx.par.remat and ctx.phase == "train"
+    if remat and ctx.par.remat_policy == "tatp_outputs":
+        raise not_ported("remat_policy='tatp_outputs'", "A2b")
     new: dict[str, dict[str, list]] = {f"u{pos}": {} for pos in
                                        range(len(unit))}
-    for i in range(reps):
+
+    def rep_body(i, x):
+        out = {}
         for pos, kind in enumerate(unit):
             key = f"u{pos}"
             if kind == "S":
@@ -79,7 +185,17 @@ def _stack(ctx: RunCtx, params, x, caches=None, cache_len=None):
                 x, nc = mamba_block(ctx, p, x, cache=c, cache_len=cache_len)
             else:
                 raise not_ported(f"layer kind {kind!r}", "A6")
-            if collect:
+            out[key] = nc
+        return x, out
+
+    for i in range(reps):
+        if remat:  # partial binds i: the recompute runs after the loop
+            x = checkpoint(lambda f, x: f(x)[0], partial(rep_body, i), x,
+                           use_reentrant=False)
+            continue
+        x, out = rep_body(i, x)
+        if collect:
+            for key, nc in out.items():
                 for n, t in nc.items():
                     new[key].setdefault(n, []).append(t)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)

@@ -1,24 +1,111 @@
-"""Serve-step factory (counterpart of ``repro.train.train_loop``'s
-``ServeBundle`` / ``make_serve_fns``).
+"""Train and serve step factories (counterpart of
+``repro.train.train_loop``'s ``TrainBundle`` / ``make_train_step`` and
+``ServeBundle`` / ``make_serve_fns``) at ring degree 1 on one device.
 
-The reference wraps :func:`lm.prefill` and :func:`lm.decode_step` in
-``jit(shard_map(...))`` with partition specs for params, batches and
-caches, which is why it also takes the serve shape.  On one device the
-port needs none of that: the bundle holds plain closures that run the
-model without autograd.  The train step is ROADMAP.md item A2.
+The reference wraps its steps in ``jit(shard_map(...))`` with partition
+specs for params, optimizer state, batches and caches.  On one device the
+port needs none of that: the bundles hold plain closures.  The train step
+is the reference's: the loss's gradients (autograd through the TATP
+linears' explicit dgrad/wgrad and the attention kernel's backward), the
+gradient bookkeeping over the token and ring axes (identities at degree
+1: :func:`token_axes` is empty and :func:`reduce_model_axis_grads`
+returns the grads), then AdamW.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
-from repro_torch.configs.base import ModelConfig, ParallelConfig
+from repro_torch import not_ported
+from repro_torch.configs.base import ModelConfig, ParallelConfig, ShapeConfig
 from repro_torch.core.dist import Dist
 from repro_torch.models import lm
-from repro_torch.models.transformer import RunCtx
+from repro_torch.models.transformer import RunCtx, init_params
+from repro_torch.train.optimizer import (AdamW, AdamWConfig, OptState,
+                                         tree_leaves)
+
+
+def token_axes(par: ParallelConfig, dist: Dist) -> tuple[str, ...]:
+    """Mesh axes over which training tokens are partitioned: none on one
+    device."""
+    if dist.model_degree > 1:
+        raise not_ported("sequence-sharded training tokens", "A3")
+    return ()
+
+
+def reduce_model_axis_grads(grads, par: ParallelConfig, dist: Dist):
+    """The ring's gradient reduction of ring-replicated leaves; at degree
+    1 the gradients are already complete."""
+    if par.strategy == "tatp" and dist.model_degree > 1:
+        raise not_ported("the ring's gradient reduction", "A3")
+    return grads
+
+
+@dataclass(frozen=True)
+class TrainBundle:
+    step_fn: Callable  # (params, opt, batch) -> (params, opt, metrics)
+    init_fn: Callable  # (generator) -> (params, opt)
+    ctx: RunCtx
+    opt: AdamW
+
+
+def make_train_step(cfg: ModelConfig, par: ParallelConfig, dist: Dist,
+                    shape: ShapeConfig,
+                    opt_cfg: Optional[AdamWConfig] = None,
+                    **hooks) -> TrainBundle:
+    """``step_fn(params, opt_state, batch) -> (params, opt_state,
+    metrics)`` with the reference's metric keys (``loss``, ``tokens``,
+    ``grad_norm``, ``lr``; 0-d tensors), and ``init_fn(generator) ->
+    (params, opt_state)``.  ``step_fn`` updates ``params`` and the state
+    in place (see :class:`AdamW`).  ``hooks`` override :class:`RunCtx`'s
+    kernel hooks (``dot``, ``attention``, ``ssd``)."""
+    if shape.kind != "train":
+        raise ValueError(f"make_train_step needs a train shape, got "
+                         f"{shape.kind!r}")
+    ctx = RunCtx(cfg, par, dist, phase="train", **hooks)
+    opt_cfg = opt_cfg or AdamWConfig(zero1=par.zero1,
+                                     grad_compress=par.grad_compress)
+    opt = AdamW(opt_cfg)
+    token_axes(par, dist)  # none: the counts need no reduction
+
+    def step_fn(params, opt_state: OptState, batch):
+        flat = [p for _, p in tree_leaves(params)]
+        for p in flat:
+            p.requires_grad_(True)
+        try:
+            nll, cnt, aux = lm.loss_fn(ctx, params, batch)
+            cnt_g = cnt.detach()
+            loss = nll / cnt_g + aux  # one loss shard
+            grads = torch.autograd.grad(loss, flat)
+        finally:
+            for p in flat:
+                p.requires_grad_(False)
+        grads = _unflatten(params, grads)
+        grads = reduce_model_axis_grads(grads, par, dist)
+        params, opt_state, om = opt.update(params, grads, opt_state)
+        metrics = {"loss": (nll / cnt_g).detach(), "tokens": cnt_g, **om}
+        return params, opt_state, metrics
+
+    def init_fn(generator: torch.Generator):
+        params = init_params(cfg, generator, dist.device)
+        return params, opt.init(params)
+
+    return TrainBundle(step_fn, init_fn, ctx, opt)
+
+
+def _unflatten(tree, leaves):
+    """``leaves`` (in :func:`tree_leaves` order) in ``tree``'s layout."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node)}
+        return next(it)
+
+    return build(tree)
 
 
 @dataclass(frozen=True)

@@ -224,6 +224,67 @@ def test_tatp_dot_path(dtype, n, lda, ldb, a_ptr, b_ptr, want):
     assert want in gemm_ops._PATHS and want in tatp_dot.launches_by_path
 
 
+# the GEMM's operand layouts: (A transposed, B transposed) per product
+_LAYOUT_PAIRS = {"forward": (False, False), "dgrad": (False, True),
+                 "wgrad": (True, False), "both": (True, True)}
+
+
+def _view(rows, cols, transposed, pad=0):
+    """A [rows, cols] bf16 view (on the meta device: strides, no memory),
+    row-major or the transpose of a [cols, rows] tensor, with ``pad``
+    extra elements in each stored row."""
+    kw = dict(dtype=_BF16, device="meta")
+    if transposed:
+        return torch.empty(cols, rows + pad, **kw)[:, :rows].t()
+    return torch.empty(rows, cols + pad, **kw)[:, :cols]
+
+
+@pytest.mark.parametrize("rows,cols,transposed,pad,want", [
+    (4, 8, False, 0, (gemm_ops.ROWS, 8)),
+    (4, 8, False, 3, (gemm_ops.ROWS, 11)),
+    (4, 8, True, 0, (gemm_ops.TRANSPOSED, 4)),
+    (4, 8, True, 5, (gemm_ops.TRANSPOSED, 9)),
+    (1, 8, True, 0, (gemm_ops.ROWS, 8)),  # a lone row is its own layout
+    (8, 1, False, 0, (gemm_ops.ROWS, 1)),
+])
+def test_tatp_dot_operand_layout(rows, cols, transposed, pad, want):
+    t = _view(rows, cols, transposed, pad)
+    assert gemm_ops._operand(t.shape, t.stride()) == want
+
+
+def test_tatp_dot_operand_without_unit_stride_raises():
+    t = torch.empty(6, 8, device="meta")[::2, ::2]
+    with pytest.raises(ValueError, match="unit stride"):
+        gemm_ops._operand(t.shape, t.stride())
+
+
+# the backward products of the main path's linears: deepseek-7b's train
+# step at batch 4 x seq 512 (M 2048), and its lm head (the dgrad stacks
+# the three bf16 terms of the fp32 cotangent on M, the wgrad on the
+# contraction)
+_TRAIN_GEMMS = [(2048, 4096, 4096), (2048, 4096, 11008), (2048, 11008, 4096),
+                (2048, 4096, 102400)]
+
+
+@pytest.mark.parametrize("product", list(_LAYOUT_PAIRS))
+@pytest.mark.parametrize("m,n,k", _MAIN_GEMMS + _TRAIN_GEMMS)
+def test_tatp_dot_path_by_layout(product, m, n, k):
+    """Every layout pair of every main-path linear's products picks wgmma:
+    forward x @ w, dgrad dy @ w.T, wgrad x.T @ dy (here [N, M] @ [M, K])."""
+    ta, tb = _LAYOUT_PAIRS[product]
+    if product in ("wgrad", "both"):  # the output is the weight's [N, K]
+        m, n = n, m
+    a, b = _view(m, n, ta), _view(n, k, tb)
+    (la, lda), (lb, ldb) = (gemm_ops._operand(t.shape, t.stride())
+                            for t in (a, b))
+    assert (la, lb) == (int(ta), int(tb))
+    assert gemm_ops._path(_BF16, n, lda, ldb, 1 << 20, 1 << 21) == "wgmma"
+    # a pitch TMA cannot describe in either layout: wmma
+    a = _view(m, n, ta, pad=1)
+    _, lda = gemm_ops._operand(a.shape, a.stride())
+    assert gemm_ops._path(_BF16, n, lda, ldb, 1 << 20, 1 << 21) == "wmma"
+
+
 # the tile width that timed best at each main-path shape on an H100 SXM
 # (132 SMs; PERF.md)
 @pytest.mark.parametrize("m,k,want", [
@@ -254,11 +315,21 @@ def test_attention_path(dtype, d, want):
 
 
 @pytest.mark.parametrize("lib,fn,argtypes", [
+    # a, b, c; M, N, K, lda, ldb, ldc; the two operand layouts, in/out
+    # dtype, path, tile_n; stream
     ("tatp_matmul", "tatp_matmul_launch",
-     [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 6 + [ctypes.c_int] * 4
+     [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 6 + [ctypes.c_int] * 6
      + [ctypes.c_void_p]),
+    # q, k, v, o, lse; B, Hq, Hkv, Sq, Skv, D; 12 strides; scale, causal,
+    # window, cap, dtype, path; stream
     ("flash_attention", "flash_attention_launch",
-     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_int64] * 12
+     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_int64] * 12
+     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
+    # q, k, v, o, do, lse, delta, dq, dk, dv; the six sizes; 24 strides;
+    # scale, causal, window, cap, dtype, path; stream
+    ("flash_attention", "flash_attention_bwd_launch",
+     [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_int64] * 24
      + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
     ("ssd", "ssd_intra_chunk_launch",
@@ -285,7 +356,8 @@ def test_launcher_argtypes_match_c_signature(monkeypatch, lib, fn, argtypes):
         pass
 
     stub = Lib()
-    setattr(stub, fn, Fn())
+    for name in re.findall(r"^int (\w+_launch)\(", src, re.M):
+        setattr(stub, name, Fn())
     monkeypatch.setattr(_build, "load", lambda name: stub)
     ops = {"tatp_matmul": gemm_ops, "flash_attention": flash_ops,
            "ssd": ssd_ops}[lib]
