@@ -77,15 +77,16 @@ SSD_PATH = "mma_3xtf32"
 # the exact kernel launches of each (one prefill; decode runs no kernel)
 PATHS = {
     "deepseek-7b": dict(prompt_len=128, n_layers=30, launches=dict(
-        tatp_matmul=210, flash_attention=30, ssd=0)),
+        tatp_matmul=210, flash_attention=30, ssd=0, flash_attention_bwd=0)),
     "mamba2-780m": dict(prompt_len=512, n_layers=48, launches=dict(
-        tatp_matmul=96, flash_attention=0, ssd=48)),
+        tatp_matmul=96, flash_attention=0, ssd=48, flash_attention_bwd=0)),
     "zamba2-2.7b": dict(prompt_len=512, n_layers=54, launches=dict(
-        tatp_matmul=144, flash_attention=9, ssd=45)),
+        tatp_matmul=144, flash_attention=9, ssd=45, flash_attention_bwd=0)),
 }
 BATCH, GEN = 4, 32
 # the kernel path every bf16 main-path launch must take
-MAIN_PATH_KERNEL = {"tatp_matmul": "wgmma", "flash_attention": "mma"}
+MAIN_PATH_KERNEL = {"tatp_matmul": "wgmma", "flash_attention": "mma",
+                    "flash_attention_bwd": "mma"}
 
 # deepseek-7b's prefill at batch 4 x prompt 128: the GEMM and flash rows
 MAIN = dict(batch=BATCH, prompt_len=PATHS["deepseek-7b"]["prompt_len"],
@@ -604,7 +605,7 @@ def ssd_checks_and_timing(torch, randn, g):
 # the forward, dgrad (dy @ w.T), wgrad (x.T @ dy), both
 LAYOUTS = ((False, False), (False, True), (True, False), (True, True))
 LAYOUT_NAMES = {(False, False): "fwd", (False, True): "dgrad",
-                (True, False): "wgrad", (True, True): "both-T"}
+                (True, False): "wgrad", (True, True): "both"}
 
 # deepseek-7b's train step at batch 4 x seq 512, 4 layers
 TRAIN = dict(batch=4, seq=512, n_layers=4, steps=5)
@@ -693,7 +694,8 @@ def phase_gemm_layouts(torch, randn):
                 a, b = randn(M_TRAIN, k, dtype=torch.bfloat16), w.t()
             else:  # [N, M] @ [M, K]: x.T is A, transposed
                 a = randn(M_TRAIN, n, dtype=torch.bfloat16).t()
-                b = randn(M_TRAIN, k, dtype=torch.bfloat16)
+                b = randn(M_TRAIN, k, dtype=torch.bfloat16,
+                          scale=M_TRAIN ** -0.5)
             got = tatp_dot(a, b)
             torch.cuda.synchronize()
             err_by_layout[lay] = max(err_by_layout[lay], compare(
@@ -775,25 +777,29 @@ def phase_flash_backward(torch, randn):
     max_err = 0.0
     for dt in (torch.float32, torch.bfloat16):
         tol = ATTN_TOL["bfloat16" if dt == torch.bfloat16 else "float32"]
-        for d in (64, 80, 128):
-            for name, hq, hkv, sq, skv, causal, window, cap in \
-                    ATTN_BWD_CASES:
+        for d in (64, 80, 128, 256):
+            # D 256: the CUDA-core backward for bf16 too; a few cases
+            cases = ATTN_BWD_CASES if d < 256 else ATTN_BWD_CASES[-3:]
+            path = "mma" if dt == torch.bfloat16 and d <= 128 else "simt"
+            for name, hq, hkv, sq, skv, causal, window, cap in cases:
                 q = randn(2, hq, sq, d, dtype=dt)
                 k = randn(2, hkv, skv, d, dtype=dt)
                 v = randn(2, hkv, skv, d, dtype=dt)
                 do = randn(2, hq, sq, d, dtype=dt)
                 kw = dict(causal=causal, window=window, cap=cap)
-                before = (attention.launches, attention_bwd.launches)
+                before = (attention.launches,
+                          attention_bwd.launches_by_path[path])
                 got = flash_grads(torch, attention, q, k, v, do, **kw)
                 torch.cuda.synchronize()
-                need((attention.launches, attention_bwd.launches)
+                need((attention.launches,
+                      attention_bwd.launches_by_path[path])
                      == (before[0] + 1, before[1] + 1),
-                     f"flash bwd D={d} {name}: launches")
+                     f"flash bwd D={d} {name}: did not take {path}")
                 ref = flash_grads(torch, attention_ref, q, k, v, do, **kw)
                 for part, g, r in zip(("dq", "dk", "dv"), got[1:], ref[1:]):
-                    err = compare(f"{str(dt)[6:]} D={d} {name} {part}", g,
-                                  r, *tol)
-                    if dt == torch.bfloat16:
+                    err = compare(f"{str(dt)[6:]} D={d} {name} {part} "
+                                  f"({path})", g, r, *tol)
+                    if dt == torch.bfloat16 and path == "mma":
                         max_err = max(max_err, err)
 
     # deepseek-7b's train shape: [B, S, H, D] activations viewed as
@@ -820,8 +826,12 @@ def phase_flash_backward(torch, randn):
         return lambda: fn(q, k, v, **kw)
 
     qc, kc, vc = (t.contiguous() for t in (q, k, v))
+    before = attention_bwd.launches_by_path["mma"]
+    attention_bwd(q, k, v, o, lse, do, causal=True)
+    need(attention_bwd.launches_by_path["mma"] == before + 1,
+         "flash backward at the train shape did not take mma")
     row = dict(
-        shape=list(TRAIN_ATTN), path="simt",
+        shape=list(TRAIN_ATTN), path="mma",
         ms=time_ms(torch, lambda: attention_bwd(q, k, v, o, lse, do,
                                                 causal=True), 10),
         plain_ms=(time_ms(torch, fwd_bwd(attention_ref, q, k, v,
@@ -845,7 +855,7 @@ def phase_flash_backward(torch, randn):
     row["library_ratio"] = row["ms"] / row["library_ms"]
     log(f"  timing backward {row['shape']} bf16 causal: {json.dumps(row)}")
     return dict(
-        name="flash_attention_bwd", route="cuda", path="simt",
+        name="flash_attention_bwd", route="cuda", path="mma",
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="none: the Pallas kernel "
                  "src/repro/kernels/flash_attention/kernel.py:26 has no "
@@ -861,13 +871,15 @@ def phase_flash_backward(torch, randn):
 
 
 def counters():
-    """The three kernel wrappers, by kernel name (each counts its own
-    launches in ``.launches``)."""
-    from repro_torch.kernels.flash_attention.ops import attention
+    """The kernel wrappers, by kernel name (each counts its own launches
+    in ``.launches``): the three forward kernels and flash attention's
+    backward."""
+    from repro_torch.kernels.flash_attention.ops import (attention,
+                                                         attention_bwd)
     from repro_torch.kernels.ssd.ops import ssd_intra_chunk
     from repro_torch.kernels.tatp_matmul.ops import tatp_dot
     return {"tatp_matmul": tatp_dot, "flash_attention": attention,
-            "ssd": ssd_intra_chunk}
+            "ssd": ssd_intra_chunk, "flash_attention_bwd": attention_bwd}
 
 
 def read_launches():
@@ -880,11 +892,17 @@ def read_paths():
             if hasattr(fn, "launches_by_path")}
 
 
+def read_layouts():
+    """The GEMM's launches by operand layout pair."""
+    return dict(counters()["tatp_matmul"].launches_by_layout)
+
+
 def zero_launches():
     for fn in counters().values():
         fn.launches = 0
-        for path in getattr(fn, "launches_by_path", {}):
-            fn.launches_by_path[path] = 0
+        for attr in ("launches_by_path", "launches_by_layout"):
+            for key in getattr(fn, attr, {}):
+                getattr(fn, attr)[key] = 0
 
 
 def prefill_launches(cfg):
@@ -892,7 +910,8 @@ def prefill_launches(cfg):
     four attention linears, the MLP's (three gated, two not) and one
     flash; per Mamba-2 slot in_proj, out_proj and one SSD pass."""
     from repro_torch.models.common import is_gated
-    n = {"tatp_matmul": 0, "flash_attention": 0, "ssd": 0}
+    n = {"tatp_matmul": 0, "flash_attention": 0, "ssd": 0,
+         "flash_attention_bwd": 0}
     for kind in cfg.pattern_for_layers():
         if kind == "M":
             n["tatp_matmul"] += 2
@@ -1079,6 +1098,273 @@ def phase_main_path(torch, arch):
     return launches, paths
 
 
+def train_launches(cfg, remat):
+    """Kernel launches of one train step of a dense model: per layer the
+    seven linears' forward (again in the backward under remat), dgrad and
+    wgrad, the attention forward (again under remat) and its backward;
+    the lm head's forward, dgrad and wgrad once.  Returns (launches by
+    kernel, GEMM launches by layout pair)."""
+    layers = cfg.n_layers
+    fwd = 7 * layers * (2 if remat else 1) + 1
+    grads = 7 * layers + 1
+    n = {"tatp_matmul": fwd + 2 * grads,
+         "flash_attention": layers * (2 if remat else 1), "ssd": 0,
+         "flash_attention_bwd": layers}
+    return n, {"fwd": fwd, "dgrad": grads, "wgrad": grads, "both": 0}
+
+
+def _leaves(tree):
+    from repro_torch.train.optimizer import tree_leaves
+    return list(tree_leaves(tree))
+
+
+def loss_and_grads(torch, bundle, params, batch):
+    """The train step's loss and gradients (by leaf name) on ``params``,
+    without the optimizer."""
+    from repro_torch.models import lm
+    named = _leaves(params)
+    flat = [p for _, p in named]
+    for p in flat:
+        p.requires_grad_(True)
+    nll, cnt, _ = lm.loss_fn(bundle.ctx, params, batch)
+    loss = nll / cnt
+    grads = torch.autograd.grad(loss, flat)
+    for p in flat:
+        p.requires_grad_(False)
+    return loss.detach(), {"/".join(k): g for (k, _), g in zip(named, grads)}
+
+
+# the fp32 train parity: full width, 2 layers, batch 2 x seq 256, 2 steps;
+# each gradient leaf within this relative L2 error of the plain path's
+TRAIN_PARITY = dict(n_layers=2, batch=2, seq=256, steps=2)
+GRAD_REL_TOL = 1e-4
+
+
+def phase_train_parity(torch):
+    """deepseek-7b at full width, 2 layers, fp32 (TF32 off), remat on: the
+    train step through the kernels (every GEMM on simt, flash forward and
+    backward on simt) against the same step with the hooks swapped to the
+    plain versions, on the same parameters and batches: the loss, every
+    gradient leaf (relative L2 error), and the parameters after 2 AdamW
+    steps (atol = 2 * sum(lr_t): Adam's first steps are ~lr * sign(g), so
+    where g ~ 0 two right answers differ by up to 2 lr_t)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ParallelConfig, ShapeConfig
+    from repro_torch.core.dist import Dist
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.tatp_matmul.ref import matmul_ref
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train.data import SyntheticDataset
+    from repro_torch.train.train_loop import make_train_step
+
+    dev = torch.device("cuda")
+    tp = TRAIN_PARITY
+    cfg = replace(get_config("deepseek-7b"), n_layers=tp["n_layers"],
+                  dtype="float32")
+    par = ParallelConfig(strategy="tatp", remat=True)
+    dist = Dist(dev)
+    shape = ShapeConfig("parity", "train", tp["seq"], tp["batch"])
+    kern = make_train_step(cfg, par, dist, shape)
+    plain = make_train_step(cfg, par, dist, shape, dot=matmul_ref,
+                            attention=attention_ref)
+    data = SyntheticDataset(cfg, shape, dist, seed=1)
+    batches = [data.batch(i) for i in range(tp["steps"])]
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(1), dev)
+    want, want_layouts = train_launches(cfg, remat=True)
+
+    zero_launches()
+    loss_k, grads_k = loss_and_grads(torch, kern, params, batches[0])
+    torch.cuda.synchronize()
+    need(read_launches() == want, f"fp32 kernel train step launched "
+         f"{read_launches()}, want {want}")
+    need(read_layouts() == want_layouts, f"fp32 GEMM layouts "
+         f"{read_layouts()}, want {want_layouts}")
+    for name, by_path in read_paths().items():
+        need(by_path["simt"] == want[name],
+             f"fp32 {name} launches by path {by_path}: not all simt")
+    zero_launches()
+    loss_p, grads_p = loss_and_grads(torch, plain, params, batches[0])
+    need(not any(read_launches().values()),
+         f"plain train step launched {read_launches()}")
+    log(f"[train parity] deepseek-7b full width, {cfg.n_layers} layers, "
+        f"fp32, batch {tp['batch']} x seq {tp['seq']}, remat; kernel "
+        f"launches {want}, by layout {want_layouts}")
+    compare("train loss", loss_k, loss_p, 1e-5, 1e-5)
+    rel = {}
+    for name, gk in grads_k.items():
+        gp = grads_p[name]
+        need(bool(gk.isfinite().all()), f"grad {name}: non-finite")
+        rel[name] = ((gk - gp).norm() / gp.norm().clamp_min(1e-30)).item()
+    leaf = max(rel, key=rel.get)
+    log(f"  gradient leaves: {len(rel)}, worst relative L2 error "
+        f"{rel[leaf]:.3e} ({leaf}); all: {json.dumps(rel)}")
+    need(rel[leaf] <= GRAD_REL_TOL,
+         f"grad {leaf}: relative error {rel[leaf]:.3e} > {GRAD_REL_TOL}")
+    del grads_k, grads_p
+
+    # two AdamW steps each, from the same parameters
+    params_k = _clone_tree(torch, params)
+    runs = []
+    for bundle, p in ((kern, params_k), (plain, params)):
+        state = bundle.opt.init(p)
+        lrs, losses = [], []
+        for batch in batches:
+            p, state, m = bundle.step_fn(p, state, batch)
+            lrs.append(float(m["lr"]))
+            losses.append(float(m["loss"]))
+        runs.append((lrs, losses))
+        del state
+        torch.cuda.empty_cache()
+    need(runs[0][0] == runs[1][0], f"lr differs {runs[0][0]} {runs[1][0]}")
+    atol = 2 * sum(runs[0][0])
+    worst = 0.0
+    for (name, pk), (_, pp) in zip(_leaves(params_k), _leaves(params)):
+        err = (pk - pp).abs().max().item()
+        worst = max(worst, err)
+        need(err <= atol, f"param {'/'.join(name)} after "
+             f"{tp['steps']} steps: max_abs_err {err:.3e} > {atol:.3e}")
+    log(f"  losses kernel {runs[0][1]} plain {runs[1][1]}; params after "
+        f"{tp['steps']} steps max_abs_err {worst:.3e} (atol {atol:.3e})")
+    del params, params_k
+    torch.cuda.empty_cache()
+    return dict(loss=loss_k.item(), worst_grad_rel=max(rel.values()),
+                param_max_abs_err=worst, param_atol=atol)
+
+
+def _clone_tree(torch, tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(torch, v) for k, v in tree.items()}
+    return tree.clone()
+
+
+def mfu(step_s, n_tokens, cfg, seq):
+    """Model FLOPs utilisation at the card's bf16 peak: 6 * tokens * the
+    parameters of every product (the layers' linears and the lm head; the
+    embedding is a lookup), plus attention's products over the causal
+    pairs (forward 4 * pairs * D a head, backward twice that)."""
+    from repro_torch.models.transformer import padded_vocab
+    d, f = cfg.d_model, cfg.d_ff
+    layer = d * cfg.q_dim + 2 * d * cfg.kv_dim + cfg.q_dim * d + 3 * d * f
+    n_params = cfg.n_layers * layer + d * padded_vocab(cfg)
+    b = n_tokens // seq
+    pairs = b * seq * (seq + 1) // 2
+    attn = 3 * 4 * pairs * cfg.head_dim * cfg.n_heads * cfg.n_layers
+    flops = 6 * n_tokens * n_params + attn
+    return flops / step_s / PEAK_FLOPS["bfloat16"], flops, n_params
+
+
+def phase_train_main(torch):
+    """The bf16 main train path: deepseek-7b at full width, 4 layers,
+    batch 4 x seq 512, the reference's defaults (remat on, AdamWConfig()),
+    through make_train_step and SyntheticDataset, 5 steps.  Launch counts
+    are zeroed before each step and must be exactly one step's after it,
+    every GEMM on wgmma and every flash forward on mma; losses and grad
+    norms finite; then 3 steps on one fixed batch must lower its loss.
+    Reports step ms (host clock), tokens/s, MFU, peak GB and a profiler
+    window of one step."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ParallelConfig, ShapeConfig
+    from repro_torch.core.dist import Dist
+    from repro_torch.models import lm
+    from repro_torch.train.data import SyntheticDataset
+    from repro_torch.train.train_loop import make_train_step
+
+    dev = torch.device("cuda")
+    cfg = replace(get_config("deepseek-7b"), n_layers=TRAIN["n_layers"])
+    need(cfg.dtype == "bfloat16", f"deepseek-7b dtype {cfg.dtype}")
+    par = ParallelConfig(strategy="tatp")  # remat on, as the reference
+    need(par.remat, "the reference's default trains with remat")
+    dist = Dist(dev)
+    shape = ShapeConfig("train", "train", TRAIN["seq"], TRAIN["batch"])
+    bundle = make_train_step(cfg, par, dist, shape)
+    data = SyntheticDataset(cfg, shape, dist, seed=0)
+    want, want_layouts = train_launches(cfg, remat=True)
+
+    t0 = time.perf_counter()
+    params, state = bundle.init_fn(
+        torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_state = sum(p.numel() for _, p in _leaves(params))
+    torch.cuda.reset_peak_memory_stats()
+    totals = {name: 0 for name in want}
+    layouts = {name: 0 for name in want_layouts}
+    losses, gnorms, lrs, step_ms = [], [], [], []
+    for step in range(TRAIN["steps"]):
+        batch = data.batch(step)
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        params, state, m = bundle.step_fn(params, state, batch)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        launched, paths, lay = read_launches(), read_paths(), read_layouts()
+        need(launched == want, f"train step {step}: launches {launched}, "
+             f"want {want}")
+        need(lay == want_layouts, f"train step {step}: GEMM layouts {lay}, "
+             f"want {want_layouts}")
+        for name, path in MAIN_PATH_KERNEL.items():
+            need(paths[name][path] == launched[name],
+                 f"train: {name} launches by path {paths[name]}, want all "
+                 f"on {path}")
+        need(math.isfinite(loss) and math.isfinite(gnorm),
+             f"train step {step}: loss {loss} grad_norm {gnorm}")
+        need(int(m["tokens"]) == TRAIN["batch"] * TRAIN["seq"],
+             f"tokens {float(m['tokens'])}")
+        for name in totals:
+            totals[name] += launched[name]
+        for name in layouts:
+            layouts[name] += lay[name]
+        losses.append(loss)
+        gnorms.append(gnorm)
+        lrs.append(float(m["lr"]))
+    peak = torch.cuda.max_memory_allocated()
+    steady = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+
+    # three steps on one fixed batch lower its loss
+    fixed = data.batch(0)
+    with torch.no_grad():
+        before = lm.loss_fn(bundle.ctx, params, fixed)
+        before = (before[0] / before[1]).item()
+    for _ in range(3):
+        params, state, _ = bundle.step_fn(params, state, fixed)
+    with torch.no_grad():
+        after = lm.loss_fn(bundle.ctx, params, fixed)
+        after = (after[0] / after[1]).item()
+    need(math.isfinite(after) and after < before,
+         f"3 steps on a fixed batch: loss {before} -> {after}")
+
+    state_box = [params, state]
+
+    def one_step():
+        state_box[0], state_box[1], _ = bundle.step_fn(
+            state_box[0], state_box[1], data.batch(TRAIN["steps"]))
+
+    prof = profile_window(torch, one_step)
+    n_tok = TRAIN["batch"] * TRAIN["seq"]
+    util, flops, n_params = mfu(steady / 1e3, n_tok, cfg, TRAIN["seq"])
+    out = dict(
+        layers=cfg.n_layers, batch=TRAIN["batch"], seq=TRAIN["seq"],
+        params=n_state, model_params_for_mfu=n_params,
+        launches_per_step=want, layouts_per_step=want_layouts,
+        losses=losses, grad_norms=gnorms, lrs=lrs,
+        fixed_batch_loss=[before, after], step_ms=step_ms,
+        step_ms_median_after_first=steady, tokens_per_s=n_tok / steady * 1e3,
+        mfu=util, model_flops_per_step=flops, peak_mem_gb=peak / 1e9,
+        init_s=init_s, profile=prof)
+    log(f"[train main path] deepseek-7b {cfg.n_layers} layers bf16 batch "
+        f"{TRAIN['batch']} x seq {TRAIN['seq']}, {TRAIN['steps']} steps: "
+        f"{json.dumps(out)}")
+    del params, state, state_box
+    torch.cuda.empty_cache()
+    return totals, layouts, out
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke: src/repro_torch not found beside chip_smoke.py; "
@@ -1098,13 +1384,26 @@ def main() -> int:
     name, smi = phase_device(torch)
     phase_build()
     kernels = phase_kernels(torch)
+    randn = make_randn(torch, 1)
+    kernels += phase_gemm_layouts(torch, randn)
+    kernels.append(phase_flash_backward(torch, randn))
     for arch, n_layers, b, s in PARITY:
         phase_parity(torch, arch, n_layers, b, s)
+    phase_train_parity(torch)
     runs = {arch: phase_main_path(torch, arch) for arch in PATHS}
+    train_n, train_layouts, _ = phase_train_main(torch)
+    # each record's launches: the counts of every main path's run (the
+    # serve paths and the train path), read just after it
+    counts = {arch: n for arch, (n, _) in runs.items()}
+    counts["deepseek-7b train"] = train_n
     for k in kernels:
-        k["launches"] = sum(n[k["name"]] for n, _ in runs.values())
-        k["launches_by_path"] = {a: n[k["name"]]
-                                 for a, (n, _) in runs.items()}
+        if k["name"] in ("tatp_matmul_dgrad", "tatp_matmul_wgrad"):
+            lay = k["name"].rsplit("_", 1)[1]
+            k["launches"] = train_layouts[lay]
+            k["launches_by_path"] = {"deepseek-7b train": train_layouts[lay]}
+            continue
+        k["launches"] = sum(n[k["name"]] for n in counts.values())
+        k["launches_by_path"] = {a: n[k["name"]] for a, n in counts.items()}
         if k["name"] in MAIN_PATH_KERNEL:
             k["launches_by_kernel_path"] = {
                 a: p[k["name"]] for a, (_, p) in runs.items()}

@@ -932,6 +932,456 @@ int launch_bwd_simt_d(const void* q, const void* k, const void* v,
                                  window, cap, s);
 }
 
+// ---------------------------------------------------------------------------
+// backward, bf16 on the tensor cores (mma.sync m16n8k16), D <= 128
+// ---------------------------------------------------------------------------
+//
+// The same split and recomputation as the SIMT backward, with every
+// product on the tensor cores as in the forward's mma path.  dQ: one
+// 128-thread block per (batch * q-head, 64-row query tile), warp w owning
+// 16 query rows; per 64-key tile S = Q K^T and dP = dO V^T (K and V rows as
+// the col B operand, ldmatrix), then dQ += dS K with dS rounded to bf16 as
+// the A fragment (two adjacent n8 accumulator tiles make one k16
+// fragment) and K through ldmatrix.trans.  dK/dV: one block per (batch *
+// kv-head, 64-key tile), warp w owning 16 keys; per group head and 32-row
+// query tile S^T = K Q^T and dP^T = V dO^T, then dV += P^T dO and
+// dK += dS^T Q (P^T and dS^T rounded to bf16, dO and Q through
+// ldmatrix.trans).  lse and delta are per query: per row in the dQ
+// kernel, per column (from shared memory) in the dK/dV kernel.  Tiles are
+// loaded with 16-byte cp.async where rows are 16-byte aligned, else with
+// masked scalar loads into the same layout; the accumulators stay fp32.
+
+constexpr int BQ_M = 64;  // dQ kernel: query rows per block
+constexpr int BK_M = 64;  // dQ kernel: keys per tile; dK/dV: keys per block
+constexpr int BQ_T = 32;  // dK/dV kernel: query rows per tile
+
+template <int DP>
+constexpr size_t bwd_mma_smem() {
+  // dQ: Q, dO, K, V tiles of 64 rows; dK/dV: K, V of 64, Q, dO of 32 and
+  // the tile's lse and delta
+  return sizeof(bf16) * pitch<DP>() * 4 * 64;
+}
+
+template <int DP, bool VEC>
+__global__ void __launch_bounds__(MMA_THREADS)
+    flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v,
+                     const bf16* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, bf16* __restrict__ dq,
+                     int Hq, int Hkv, int Sq, int Skv, int D, int64_t qsb,
+                     int64_t qsh, int64_t qss, int64_t ksb, int64_t ksh,
+                     int64_t kss, int64_t vsb, int64_t vsh, int64_t vss,
+                     int64_t dsb, int64_t dsh, int64_t dss, int64_t dqsb,
+                     int64_t dqsh, int64_t dqss, float scale, int causal,
+                     int window, float cap) {
+  constexpr int LD = pitch<DP>();
+  constexpr int NT = BK_M / 8;  // key n8 tiles of S
+  constexpr int DT = DP / 8;    // d n8 tiles of dQ
+  constexpr int KD = DP / 16;   // k16 steps over d
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [64][LD]
+  bf16* dos = qs + BQ_M * LD;                    // [64][LD]
+  bf16* ks = dos + BQ_M * LD;                    // [64][LD]
+  bf16* vs = ks + BK_M * LD;                     // [64][LD]
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int b = blockIdx.x / Hq, h = blockIdx.x % Hq;
+  const int hk = h / (Hq / Hkv);
+  // heaviest causal tiles first: the last query tile sees the most keys
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ_M;
+  const int row_lo = q0 + warp * 16 + lane / 4, row_hi = row_lo + 8;
+
+  const bf16* kb = k + b * ksb + hk * ksh;
+  const bf16* vb = v + b * vsb + hk * vsh;
+  load_tile<DP, BQ_M, VEC>(qs, q + b * qsb + h * qsh, q0, Sq, D, qss);
+  load_tile<DP, BQ_M, VEC>(dos, dout + b * dsb + h * dsh, q0, Sq, D, dss);
+  cp_async_commit();
+
+  // per row: lse in log2 units and delta (0 past Sq: those rows' Q and dO
+  // are zero, so they contribute nothing)
+  const float* lb = lse + (static_cast<int64_t>(b) * Hq + h) * Sq;
+  const float* db = delta + (static_cast<int64_t>(b) * Hq + h) * Sq;
+  const float l2[2] = {row_lo < Sq ? lb[row_lo] * LOG2E : 0.f,
+                       row_hi < Sq ? lb[row_hi] * LOG2E : 0.f};
+  const float dl[2] = {row_lo < Sq ? db[row_lo] : 0.f,
+                       row_hi < Sq ? db[row_hi] : 0.f};
+
+  float acc[DT][4];
+#pragma unroll
+  for (int t = 0; t < DT; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
+
+  int k_end = Skv;
+  if (causal) k_end = min(Skv, min(q0 + BQ_M, Sq));
+  int k_begin = 0;
+  if (window > 0) k_begin = max(0, q0 - window + 1) / BK_M * BK_M;
+
+  for (int j0 = k_begin; j0 < k_end; j0 += BK_M) {
+    __syncthreads();  // the previous tile's reads are done
+    load_tile<DP, BK_M, VEC>(ks, kb, j0, Skv, D, kss);
+    load_tile<DP, BK_M, VEC>(vs, vb, j0, Skv, D, vss);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+
+    // S = Q K^T and dP = dO V^T: K and V rows are the col B operands
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[t][e] = dp[t][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t aq[4], ao[4];
+      const int a_off = (warp * 16 + lane % 16) * LD + kk * 16 +
+                        (lane / 16) * 8;
+      ldmatrix_x4(aq, qs + a_off);
+      ldmatrix_x4(ao, dos + a_off);
+#pragma unroll
+      for (int t2 = 0; t2 < NT / 2; ++t2) {
+        const int b_off = (t2 * 16 + (lane / 16) * 8 + lane % 8) * LD +
+                          kk * 16 + ((lane / 8) % 2) * 8;
+        uint32_t bfr[4];
+        ldmatrix_x4(bfr, ks + b_off);
+        mma_16816(s[2 * t2], aq, bfr[0], bfr[1]);
+        mma_16816(s[2 * t2 + 1], aq, bfr[2], bfr[3]);
+        ldmatrix_x4(bfr, vs + b_off);
+        mma_16816(dp[2 * t2], ao, bfr[0], bfr[1]);
+        mma_16816(dp[2 * t2 + 1], ao, bfr[2], bfr[3]);
+      }
+    }
+
+    const bool need_mask = j0 + BK_M > Skv || q0 + BQ_M > Sq ||
+                           (causal && j0 + BK_M - 1 > q0) ||
+                           (window > 0 && q0 + BQ_M - 1 - j0 >= window);
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[t][e] * scale, dcap = 1.f;
+        if (cap > 0.f) {
+          const float th = tanhf(x / cap);
+          x = th * cap;
+          dcap = 1.f - th * th;
+        }
+        bool ok = true;
+        if (need_mask)
+          ok = live(e < 2 ? row_lo : row_hi,
+                    j0 + t * 8 + 2 * (lane % 4) + (e & 1), Sq, Skv, causal,
+                    window);
+        const float p = ok ? exp2f(x * LOG2E - l2[e / 2]) : 0.f;
+        s[t][e] = p * (dp[t][e] - dl[e / 2]) * dcap * scale;  // dS
+      }
+    }
+
+    // dQ += dS K: dS rounded to bf16 as the A fragment, K via ldmatrix.trans
+#pragma unroll
+    for (int t2 = 0; t2 < NT / 2; ++t2) {
+      const uint32_t a[4] = {pack_bf16(s[2 * t2][0], s[2 * t2][1]),
+                             pack_bf16(s[2 * t2][2], s[2 * t2][3]),
+                             pack_bf16(s[2 * t2 + 1][0], s[2 * t2 + 1][1]),
+                             pack_bf16(s[2 * t2 + 1][2], s[2 * t2 + 1][3])};
+#pragma unroll
+      for (int d2 = 0; d2 < DP / 16; ++d2) {
+        uint32_t bfr[4];
+        ldmatrix_x4_trans(bfr, ks + (t2 * 16 + ((lane / 8) % 2) * 8 +
+                                     lane % 8) * LD +
+                                   d2 * 16 + (lane / 16) * 8);
+        mma_16816(acc[2 * d2], a, bfr[0], bfr[1]);
+        mma_16816(acc[2 * d2 + 1], a, bfr[2], bfr[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  bf16* ob = dq + b * dqsb + h * dqsh;
+#pragma unroll
+  for (int t = 0; t < DT; ++t) {
+    const int col = t * 8 + 2 * (lane % 4);
+    if (col < D) {
+      const bool two = col + 1 < D;
+      if (row_lo < Sq)
+        store_pair_bf16(ob + row_lo * dqss + col, acc[t][0], acc[t][1], two,
+                        VEC);
+      if (row_hi < Sq)
+        store_pair_bf16(ob + row_hi * dqss + col, acc[t][2], acc[t][3], two,
+                        VEC);
+    }
+  }
+}
+
+template <int DP, bool VEC>
+__global__ void __launch_bounds__(MMA_THREADS)
+    flash_bwd_dkdv_mma(const bf16* __restrict__ q,
+                       const bf16* __restrict__ k,
+                       const bf16* __restrict__ v,
+                       const bf16* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       bf16* __restrict__ dk, bf16* __restrict__ dv, int Hq,
+                       int Hkv, int Sq, int Skv, int D, int64_t qsb,
+                       int64_t qsh, int64_t qss, int64_t ksb, int64_t ksh,
+                       int64_t kss, int64_t vsb, int64_t vsh, int64_t vss,
+                       int64_t dsb, int64_t dsh, int64_t dss, int64_t dksb,
+                       int64_t dksh, int64_t dkss, int64_t dvsb,
+                       int64_t dvsh, int64_t dvss, float scale, int causal,
+                       int window, float cap) {
+  constexpr int LD = pitch<DP>();
+  constexpr int NQ = BQ_T / 8;  // query n8 tiles of S^T
+  constexpr int DT = DP / 8;
+  constexpr int KD = DP / 16;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // [64][LD]
+  bf16* vs = ks + BK_M * LD;                     // [64][LD]
+  bf16* qs = vs + BK_M * LD;                     // [32][LD]
+  bf16* dos = qs + BQ_T * LD;                    // [32][LD]
+  float* l2s = reinterpret_cast<float*>(dos + BQ_T * LD);  // [32]
+  float* dls = l2s + BQ_T;                                  // [32]
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int b = blockIdx.x / Hkv, hk = blockIdx.x % Hkv;
+  const int G = Hq / Hkv;
+  const int j0 = blockIdx.y * BK_M;  // the first key tiles see most rows
+  const int key_lo = j0 + warp * 16 + lane / 4, key_hi = key_lo + 8;
+
+  load_tile<DP, BK_M, VEC>(ks, k + b * ksb + hk * ksh, j0, Skv, D, kss);
+  load_tile<DP, BK_M, VEC>(vs, v + b * vsb + hk * vsh, j0, Skv, D, vss);
+  cp_async_commit();
+
+  float dka[DT][4], dva[DT][4];
+#pragma unroll
+  for (int t = 0; t < DT; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[t][e] = dva[t][e] = 0.f;
+
+  // query tiles with an unmasked pair for some key of this tile
+  const int q_begin = causal ? j0 / BQ_T * BQ_T : 0;
+  const int q_end = window > 0 ? min(Sq, j0 + BK_M - 1 + window) : Sq;
+
+  for (int g = 0; g < G; ++g) {
+    const int h = hk * G + g;
+    const bf16* qb = q + b * qsb + h * qsh;
+    const bf16* db = dout + b * dsb + h * dsh;
+    const float* lb = lse + (static_cast<int64_t>(b) * Hq + h) * Sq;
+    const float* deb = delta + (static_cast<int64_t>(b) * Hq + h) * Sq;
+    for (int i0 = q_begin; i0 < q_end; i0 += BQ_T) {
+      __syncthreads();  // the previous tile's reads are done
+      load_tile<DP, BQ_T, VEC>(qs, qb, i0, Sq, D, qss);
+      load_tile<DP, BQ_T, VEC>(dos, db, i0, Sq, D, dss);
+      cp_async_commit();
+      if (threadIdx.x < BQ_T) {
+        const int i = i0 + threadIdx.x;
+        l2s[threadIdx.x] = i < Sq ? lb[i] * LOG2E : 0.f;
+        dls[threadIdx.x] = i < Sq ? deb[i] : 0.f;
+      }
+      cp_async_wait<0>();
+      __syncthreads();
+
+      // S^T = K Q^T and dP^T = V dO^T: K and V rows the A operand, Q and
+      // dO rows the col B operand
+      float st[NQ][4], dpt[NQ][4];
+#pragma unroll
+      for (int t = 0; t < NQ; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[t][e] = dpt[t][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        uint32_t ak[4], av[4];
+        const int a_off = (warp * 16 + lane % 16) * LD + kk * 16 +
+                          (lane / 16) * 8;
+        ldmatrix_x4(ak, ks + a_off);
+        ldmatrix_x4(av, vs + a_off);
+#pragma unroll
+        for (int t2 = 0; t2 < NQ / 2; ++t2) {
+          const int b_off = (t2 * 16 + (lane / 16) * 8 + lane % 8) * LD +
+                            kk * 16 + ((lane / 8) % 2) * 8;
+          uint32_t bfr[4];
+          ldmatrix_x4(bfr, qs + b_off);
+          mma_16816(st[2 * t2], ak, bfr[0], bfr[1]);
+          mma_16816(st[2 * t2 + 1], ak, bfr[2], bfr[3]);
+          ldmatrix_x4(bfr, dos + b_off);
+          mma_16816(dpt[2 * t2], av, bfr[0], bfr[1]);
+          mma_16816(dpt[2 * t2 + 1], av, bfr[2], bfr[3]);
+        }
+      }
+
+      const bool need_mask = j0 + BK_M > Skv || i0 + BQ_T > Sq ||
+                             (causal && i0 < j0 + BK_M - 1) ||
+                             (window > 0 && i0 + BQ_T - 1 - j0 >= window);
+#pragma unroll
+      for (int t = 0; t < NQ; ++t) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = t * 8 + 2 * (lane % 4) + (e & 1);
+          float x = st[t][e] * scale, dcap = 1.f;
+          if (cap > 0.f) {
+            const float th = tanhf(x / cap);
+            x = th * cap;
+            dcap = 1.f - th * th;
+          }
+          bool ok = true;
+          if (need_mask)
+            ok = live(i0 + col, e < 2 ? key_lo : key_hi, Sq, Skv, causal,
+                      window);
+          const float p = ok ? exp2f(x * LOG2E - l2s[col]) : 0.f;
+          st[t][e] = p;                                           // P^T
+          dpt[t][e] = p * (dpt[t][e] - dls[col]) * dcap * scale;  // dS^T
+        }
+      }
+
+      // dV += P^T dO and dK += dS^T Q: P^T and dS^T rounded to bf16 as
+      // A fragments, dO and Q through ldmatrix.trans
+#pragma unroll
+      for (int t2 = 0; t2 < NQ / 2; ++t2) {
+        const uint32_t ap[4] = {
+            pack_bf16(st[2 * t2][0], st[2 * t2][1]),
+            pack_bf16(st[2 * t2][2], st[2 * t2][3]),
+            pack_bf16(st[2 * t2 + 1][0], st[2 * t2 + 1][1]),
+            pack_bf16(st[2 * t2 + 1][2], st[2 * t2 + 1][3])};
+        const uint32_t ad[4] = {
+            pack_bf16(dpt[2 * t2][0], dpt[2 * t2][1]),
+            pack_bf16(dpt[2 * t2][2], dpt[2 * t2][3]),
+            pack_bf16(dpt[2 * t2 + 1][0], dpt[2 * t2 + 1][1]),
+            pack_bf16(dpt[2 * t2 + 1][2], dpt[2 * t2 + 1][3])};
+#pragma unroll
+        for (int d2 = 0; d2 < DP / 16; ++d2) {
+          const int b_off = (t2 * 16 + ((lane / 8) % 2) * 8 + lane % 8) * LD +
+                            d2 * 16 + (lane / 16) * 8;
+          uint32_t bfr[4];
+          ldmatrix_x4_trans(bfr, dos + b_off);
+          mma_16816(dva[2 * d2], ap, bfr[0], bfr[1]);
+          mma_16816(dva[2 * d2 + 1], ap, bfr[2], bfr[3]);
+          ldmatrix_x4_trans(bfr, qs + b_off);
+          mma_16816(dka[2 * d2], ad, bfr[0], bfr[1]);
+          mma_16816(dka[2 * d2 + 1], ad, bfr[2], bfr[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  bf16* kob = dk + b * dksb + hk * dksh;
+  bf16* vob = dv + b * dvsb + hk * dvsh;
+#pragma unroll
+  for (int t = 0; t < DT; ++t) {
+    const int col = t * 8 + 2 * (lane % 4);
+    if (col < D) {
+      const bool two = col + 1 < D;
+      if (key_lo < Skv) {
+        store_pair_bf16(kob + key_lo * dkss + col, dka[t][0], dka[t][1], two,
+                        VEC);
+        store_pair_bf16(vob + key_lo * dvss + col, dva[t][0], dva[t][1], two,
+                        VEC);
+      }
+      if (key_hi < Skv) {
+        store_pair_bf16(kob + key_hi * dkss + col, dka[t][2], dka[t][3], two,
+                        VEC);
+        store_pair_bf16(vob + key_hi * dvss + col, dva[t][2], dva[t][3], two,
+                        VEC);
+      }
+    }
+  }
+}
+
+template <int DP, bool VEC>
+int launch_bwd_mma(const bf16* Q, const bf16* K, const bf16* V,
+                   const bf16* DO, const float* lse, const float* delta,
+                   void* dq, void* dk, void* dv, int B, int Hq, int Hkv,
+                   int Sq, int Skv, int D, const int64_t* st, float scale,
+                   int causal, int window, float cap, cudaStream_t s) {
+  constexpr size_t smem = bwd_mma_smem<DP>();
+  auto kv_kern = flash_bwd_dkdv_mma<DP, VEC>;
+  auto q_kern = flash_bwd_dq_mma<DP, VEC>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kv_kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(q_kern,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (Skv > 0) {
+    dim3 grid(static_cast<unsigned>(B) * Hkv,
+              static_cast<unsigned>((Skv + BK_M - 1) / BK_M));
+    kv_kern<<<grid, MMA_THREADS, smem, s>>>(
+        Q, K, V, DO, lse, delta, static_cast<bf16*>(dk),
+        static_cast<bf16*>(dv), Hq, Hkv, Sq, Skv, D, st[0], st[1], st[2],
+        st[3], st[4], st[5], st[6], st[7], st[8], st[12], st[13], st[14],
+        st[18], st[19], st[20], st[21], st[22], st[23], scale, causal,
+        window, cap);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  dim3 grid(static_cast<unsigned>(B) * Hq,
+            static_cast<unsigned>((Sq + BQ_M - 1) / BQ_M));
+  q_kern<<<grid, MMA_THREADS, smem, s>>>(
+      Q, K, V, DO, lse, delta, static_cast<bf16*>(dq), Hq, Hkv, Sq, Skv, D,
+      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[12],
+      st[13], st[14], st[15], st[16], st[17], scale, causal, window, cap);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DP>
+int launch_bwd_mma_v(const bf16* Q, const bf16* K, const bf16* V,
+                     const bf16* DO, const float* lse, const float* delta,
+                     void* dq, void* dk, void* dv, int B, int Hq, int Hkv,
+                     int Sq, int Skv, int D, const int64_t* st, float scale,
+                     int causal, int window, float cap, bool vec,
+                     cudaStream_t s) {
+  if (vec)
+    return launch_bwd_mma<DP, true>(Q, K, V, DO, lse, delta, dq, dk, dv, B,
+                                    Hq, Hkv, Sq, Skv, D, st, scale, causal,
+                                    window, cap, s);
+  return launch_bwd_mma<DP, false>(Q, K, V, DO, lse, delta, dq, dk, dv, B,
+                                   Hq, Hkv, Sq, Skv, D, st, scale, causal,
+                                   window, cap, s);
+}
+
+int launch_bwd_mma_d(const void* q, const void* k, const void* v,
+                     const void* o, const void* dout, const float* lse,
+                     float* delta, void* dq, void* dk, void* dv, int B,
+                     int Hq, int Hkv, int Sq, int Skv, int D,
+                     const int64_t* st, float scale, int causal, int window,
+                     float cap, cudaStream_t s) {
+  const bf16* Q = static_cast<const bf16*>(q);
+  const bf16* K = static_cast<const bf16*>(k);
+  const bf16* V = static_cast<const bf16*>(v);
+  const bf16* DO = static_cast<const bf16*>(dout);
+  const int64_t rows = static_cast<int64_t>(B) * Hq * Sq;
+  const unsigned rblocks =
+      static_cast<unsigned>((rows + THREADS / 32 - 1) / (THREADS / 32));
+  flash_bwd_delta<bf16><<<rblocks, THREADS, 0, s>>>(
+      static_cast<const bf16*>(o), DO, delta, Hq, Sq, D, rows, st[9], st[10],
+      st[11], st[12], st[13], st[14]);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // 16-byte cp.async loads and paired stores need every row 16-byte
+  // aligned; otherwise the same kernels load scalars into the same layout
+  const void* ptrs[7] = {q, k, v, dout, dq, dk, dv};
+  bool vec = D % 8 == 0;
+  for (int i = 0; i < 7; ++i)
+    vec = vec && reinterpret_cast<uintptr_t>(ptrs[i]) % 16 == 0;
+  for (int i = 0; i < 24; ++i)
+    vec = vec && (i / 3 == 3 || st[i] % 8 == 0);  // o is read by delta only
+  if (D <= 64)
+    return launch_bwd_mma_v<64>(Q, K, V, DO, lse, delta, dq, dk, dv, B, Hq,
+                                Hkv, Sq, Skv, D, st, scale, causal, window,
+                                cap, vec, s);
+  if (D <= 80)
+    return launch_bwd_mma_v<80>(Q, K, V, DO, lse, delta, dq, dk, dv, B, Hq,
+                                Hkv, Sq, Skv, D, st, scale, causal, window,
+                                cap, vec, s);
+  if (D <= 96)
+    return launch_bwd_mma_v<96>(Q, K, V, DO, lse, delta, dq, dk, dv, B, Hq,
+                                Hkv, Sq, Skv, D, st, scale, causal, window,
+                                cap, vec, s);
+  return launch_bwd_mma_v<128>(Q, K, V, DO, lse, delta, dq, dk, dv, B, Hq,
+                               Hkv, Sq, Skv, D, st, scale, causal, window,
+                               cap, vec, s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -976,7 +1426,8 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
 // the forward's o and lse, and dout (o's shape).  delta: a contiguous fp32
 // [B, Hq, Sq] scratch.  The 24 strides are those of q, k, v, o, dout, dq,
 // dk and dv, three each.  path: kPathSimt (the CUDA-core kernels, fp32
-// arithmetic) for fp32 or bf16; others return cudaErrorInvalidValue.
+// arithmetic) for fp32 or bf16, or kPathMma (tensor cores) for bf16 with
+// D <= 128; others return cudaErrorInvalidValue.
 int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* delta, void* dq, void* dk,
@@ -989,12 +1440,17 @@ int flash_attention_bwd_launch(
     int window, float cap, int dtype, int path, void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 ||
       Skv < 0 || D <= 0 || D > 256 || (Sq + BBQ - 1) / BBQ > 65535 ||
-      (Skv + BBK - 1) / BBK > 65535 || path != kPathSimt)
+      (Skv + BBK - 1) / BBK > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t st[24] = {qsb,  qsh,  qss,  ksb,  ksh,  kss,  vsb,  vsh,
                           vss,  osb,  osh,  oss,  dsb,  dsh,  dss,  dqsb,
                           dqsh, dqss, dksb, dksh, dkss, dvsb, dvsh, dvss};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (path == kPathMma && dtype == kBF16 && D <= 128)
+    return launch_bwd_mma_d(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Hq,
+                            Hkv, Sq, Skv, D, st, scale, causal, window, cap,
+                            s);
+  if (path != kPathSimt) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == kF32)
     return launch_bwd_simt_d<float>(q, k, v, o, dout, lse, delta, dq, dk, dv,
                                     B, Hq, Hkv, Sq, Skv, D, st, scale,

@@ -18,9 +18,11 @@ For CUDA tensors under autograd (grad mode on and an input that requires
 grad), :func:`attention` runs through an ``autograd.Function``: the
 forward also writes each row's log-sum-exp, and the backward is the
 hand-written backward kernel (:func:`attention_bwd`: dQ, dK and dV in
-q/k/v's dtype, fp32 arithmetic, deterministic).  Its path is chosen by
-:func:`_bwd_path`: ``"simt"`` (CUDA cores) for fp32 and bf16.  For CPU
-tensors autograd differentiates the plain version.
+q/k/v's dtype with fp32 accumulation, no atomics, so deterministic).  Its
+path is chosen by :func:`_bwd_path`: ``"mma"`` (bf16 on the tensor cores,
+``mma.sync``, D <= 128) or ``"simt"`` (CUDA cores, fp32 arithmetic: fp32,
+and bf16 at D > 128).  For CPU tensors autograd differentiates the plain
+version.
 
 ``attention.launches`` counts the forward kernel's launches and
 ``attention.launches_by_path`` the same launches by path;
@@ -41,7 +43,8 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 # dtype and path codes shared with csrc/flash_attention.cu
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PATHS = {"simt": 0, "mma": 1}
-_BWD_PATHS = {"simt": 0}
+_BWD_PATHS = {"simt": 0, "mma": 1}
+MAX_MMA_BWD_HEAD_DIM = 128  # the mma backward keeps dK and dV in registers
 MAX_HEAD_DIM = 256
 
 _P, _I64, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, \
@@ -77,8 +80,8 @@ def _path(dtype, d) -> str:
 
 def _bwd_path(dtype, d) -> str:
     """The backward kernel for q/k/v of ``dtype`` and head dim ``d``."""
-    _path(dtype, d)  # the same dtypes and head dims as the forward
-    return "simt"
+    fwd = _path(dtype, d)  # the same dtypes and head dims as the forward
+    return "mma" if fwd == "mma" and d <= MAX_MMA_BWD_HEAD_DIM else "simt"
 
 
 def attention(q, k, v, *, causal=True, window=None, cap=None, scale=None):

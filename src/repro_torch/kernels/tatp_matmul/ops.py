@@ -30,8 +30,10 @@ kernel output is never silently detached.  Training reaches it through
 the ``autograd.Function``s that call it for each product
 (:func:`repro_torch.core.tatp.tatp_matmul`, the lm head).
 
-``tatp_dot.launches`` counts the kernel's launches and
-``tatp_dot.launches_by_path`` the same launches by path.
+``tatp_dot.launches`` counts the kernel's launches,
+``tatp_dot.launches_by_path`` the same launches by path and
+``tatp_dot.launches_by_layout`` by operand layout pair (``"fwd"``,
+``"dgrad"``, ``"wgrad"``, ``"both"``: which of A and B were transposed).
 """
 
 from __future__ import annotations
@@ -53,6 +55,9 @@ _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 
 # operand layout codes shared with csrc/tatp_matmul.cu
 ROWS, TRANSPOSED = 0, 1
+# the products each layout pair serves, by (A's layout, B's layout)
+_LAYOUT_PAIRS = {(ROWS, ROWS): "fwd", (ROWS, TRANSPOSED): "dgrad",
+                 (TRANSPOSED, ROWS): "wgrad", (TRANSPOSED, TRANSPOSED): "both"}
 
 
 def _lib():
@@ -166,8 +171,10 @@ def tatp_dot(a: torch.Tensor, b: torch.Tensor, out_dtype=None):
         _build.check(lib, err, f"tatp_matmul ({path})")
         tatp_dot.launches += 1
         tatp_dot.launches_by_path[path] += 1
+        tatp_dot.launches_by_layout[_LAYOUT_PAIRS[la, lb]] += 1
     return c.reshape(*a.shape[:-1], k)
 
 
 tatp_dot.launches = 0
 tatp_dot.launches_by_path = dict.fromkeys(_PATHS, 0)
+tatp_dot.launches_by_layout = dict.fromkeys(_LAYOUT_PAIRS.values(), 0)

@@ -314,6 +314,22 @@ def test_attention_path(dtype, d, want):
     assert want in flash_ops._PATHS and want in attention.launches_by_path
 
 
+@pytest.mark.parametrize("dtype,d,want", [
+    (_BF16, 128, "mma"),  # deepseek-7b's train attention [4, 32, 512, 128]
+    (_BF16, 80, "mma"), (_BF16, 64, "mma"), (_BF16, 1, "mma"),
+    (_BF16, 129, "simt"), (_BF16, 256, "simt"),  # dK, dV too large
+    (_F32, 128, "simt"), (_F32, 256, "simt"),
+    (_BF16, 257, ValueError), (torch.float16, 64, ValueError),
+])
+def test_attention_backward_path(dtype, d, want):
+    if want is ValueError:
+        with pytest.raises(ValueError):
+            flash_ops._bwd_path(dtype, d)
+        return
+    assert flash_ops._bwd_path(dtype, d) == want
+    assert want in flash_ops.attention_bwd.launches_by_path
+
+
 @pytest.mark.parametrize("lib,fn,argtypes", [
     # a, b, c; M, N, K, lda, ldb, ldc; the two operand layouts, in/out
     # dtype, path, tile_n; stream
@@ -429,3 +445,85 @@ def test_attention_kernel_matches_plain(cuda_device, hq, hkv, s, causal,
     assert attention.launches_by_path[path] == before_path + 1
     ref = attention_ref(q, k, v, causal=causal, window=window, cap=cap)
     np.testing.assert_allclose(_np(got.cpu()), _np(ref.cpu()), **_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ta,tb", [(False, False), (False, True),
+                                   (True, False), (True, True)],
+                         ids=["fwd", "dgrad", "wgrad", "both"])
+@pytest.mark.parametrize("m,n,k,dtype,pad,path", [
+    (100, 200, 300, "float32", 0, "simt"),
+    (100, 203, 301, "bfloat16", 1, "wmma"),
+    (104, 208, 304, "bfloat16", 0, "wgmma"),
+    (512, 4096, 1000, "bfloat16", 0, "wgmma"),
+])
+def test_tatp_dot_kernel_layouts_match_plain(cuda_device, m, n, k, dtype,
+                                             pad, path, ta, tb):
+    """The four operand layout pairs on every path, read in place."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+
+    def operand(rows, cols, transposed):
+        shape = (cols, rows + pad) if transposed else (rows, cols + pad)
+        t = torch.randn(shape, generator=g, device=cuda_device).to(
+            _TORCH[dtype])
+        return t[:, :rows].t() if transposed else t[:, :cols]
+
+    a, b = operand(m, n, ta), operand(n, k, tb)
+    before = tatp_dot.launches_by_path[path]
+    got = tatp_dot(a, b)
+    torch.cuda.synchronize()
+    assert tatp_dot.launches_by_path[path] == before + 1
+    np.testing.assert_allclose(_np(got.cpu()), _np(matmul_ref(a, b).cpu()),
+                               **_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("hq,hkv,s,causal,window,cap", _KERNEL_ATTN_CASES)
+def test_attention_backward_kernel_matches_plain(cuda_device, hq, hkv, s,
+                                                 causal, window, cap, d,
+                                                 dtype):
+    """dQ, dK, dV of the backward kernel (through ``attention``'s autograd
+    Function) against autograd through the plain version."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    q, k, v, do = (torch.randn(2, h, s, d, generator=g, device=cuda_device)
+                   .to(_TORCH[dtype]) for h in (hq, hkv, hkv, hq))
+    kw = dict(causal=causal, window=window, cap=cap)
+    before = flash_ops.attention_bwd.launches
+    grads = []
+    for fn in (attention, attention_ref):
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        grads.append(torch.autograd.grad(fn(*leaves, **kw), leaves, do))
+    torch.cuda.synchronize()
+    assert flash_ops.attention_bwd.launches == before + 1
+    for got, ref in zip(*grads):
+        assert got.dtype == ref.dtype
+        np.testing.assert_allclose(_np(got.cpu()), _np(ref.cpu()),
+                                   **_tol(dtype))
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_never_return_detached_outputs(cuda_device):
+    """Under autograd the GEMM wrapper raises (training calls it through
+    its autograd.Functions), flash attention runs its Function (the
+    output has a grad_fn and a backward kernel), and the SSD, which has no
+    backward kernel yet, raises naming ROADMAP.md A2b."""
+    a = torch.randn(64, 64, device=cuda_device, requires_grad=True)
+    with pytest.raises(RuntimeError, match="not differentiable"):
+        tatp_dot(a, a.detach())
+    with torch.no_grad():
+        assert tatp_dot(a, a).grad_fn is None
+    q = torch.randn(1, 2, 16, 64, device=cuda_device, requires_grad=True)
+    o = attention(q, q.detach(), q.detach())
+    assert o.grad_fn is not None
+    before = flash_ops.attention_bwd.launches
+    o.sum().backward()
+    assert flash_ops.attention_bwd.launches == before + 1
+    assert q.grad is not None and torch.isfinite(q.grad).all()
+    x = torch.randn(2, 8, 2, 16, device=cuda_device, requires_grad=True)
+    dt = torch.rand(2, 8, 2, device=cuda_device)
+    a_ = -torch.ones(2, device=cuda_device)
+    bm = torch.randn(2, 8, 16, device=cuda_device)
+    with pytest.raises(NotImplementedError, match="A2b"):
+        ssd_ops.ssd_intra_chunk(x, dt, a_, bm, bm)

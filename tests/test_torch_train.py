@@ -465,3 +465,32 @@ def test_train_without_cuda_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["--reduced", "--steps", "1"])
+
+
+@pytest.mark.parametrize("remat,n_dot,n_attn", [(True, 115, 8),
+                                                (False, 87, 4)])
+def test_train_step_calls_each_hook_once_per_product(remat, n_dot, n_attn):
+    """One train step of a 4-layer dense model calls the GEMM hook for
+    every linear's forward (again in the backward under remat), dgrad and
+    wgrad, plus the lm head's three products, and the attention hook once
+    per layer (twice under remat): the per-step launch counts the card
+    checks (7 * 4 * (2 + 2) + 3 = 115 GEMMs with remat)."""
+    from dataclasses import replace
+    cfg = replace(get_reduced(ARCH), n_layers=4)
+    calls = {"dot": 0, "attention": 0}
+
+    def dot(a, b, out_dtype=None):
+        calls["dot"] += 1
+        return matmul_ref(a, b, out_dtype)
+
+    def attention(*args, **kw):
+        calls["attention"] += 1
+        return attention_ref(*args, **kw)
+
+    shape = ShapeConfig("t", "train", 16, 2)
+    bundle = make_train_step(cfg, ParallelConfig(remat=remat), Dist(CPU),
+                             shape, dot=dot, attention=attention)
+    params, state = bundle.init_fn(torch.Generator().manual_seed(0))
+    batch = data.SyntheticDataset(cfg, shape, Dist(CPU)).batch(0)
+    bundle.step_fn(params, state, batch)
+    assert calls == {"dot": n_dot, "attention": n_attn}
