@@ -24,21 +24,40 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    intra-chunk pass at mamba2-780m's and zamba2-2.7b's (one path,
    ``mma_3xtf32``: fp32-accurate products on the TF32 tensor cores; its
    bound takes the operations at 495 / 3 TFLOP/s, the fp32 CUDA-core
-   bound beside it);
+   bound beside it); then the GEMM in all four operand layouts (forward,
+   dgrad ``dy @ w.T``, wgrad ``x.T @ dy``, both transposed) on every path,
+   timed in the dgrad and wgrad layouts at one deepseek-7b train layer's
+   shapes beside ``torch.matmul`` on the same views; and flash
+   attention's backward kernel against autograd through the plain
+   version (fp32 and bf16; causal, window, cap, GQA, ragged and fully
+   masked rows; D 64, 80, 128 and 256), timed at deepseek-7b's train
+   shape beside SDPA's backward;
 4. parity — at full width in fp32, deepseek-7b (2 layers), mamba2-780m
    (2 layers) and zamba2-2.7b (6 layers, one ``MMMMMS`` unit): prefill and
    4 greedy decode steps through the kernels (all on their fp32 ``simt``
    paths) and again with every kernel call replaced by its plain version;
    last-position logits within rtol = atol = 1e-3 and identical tokens;
+   then deepseek-7b's train step (2 layers, fp32, remat): the loss, every
+   gradient leaf (relative L2 error <= 1e-4) and the parameters after 2
+   AdamW steps (atol = 2 * sum(lr_t)), kernels against plain versions;
 5. main paths — ``repro_torch.launch.serve`` one-shot, bf16, batch 4,
    32 generated tokens: deepseek-7b (30 layers, prompt 128), mamba2-780m
    (48 layers, prompt 512 = two SSD chunks) and zamba2-2.7b (54 layers,
    prompt 512).  Before each path every launch count is zeroed; just after
-   it the counts must be exactly the path's (GEMM, flash, SSD): 210/30/0,
-   96/0/48 and 144/9/45 (one prefill each; decode runs no kernel), every
-   GEMM launch on ``wgmma`` and every flash launch on ``mma``.
-   Outputs finite and tokens in range; prefill time (median of 3), decode
-   ms/token, peak memory and a profiler breakdown of each path.
+   it the counts must be exactly the path's (GEMM, flash, SSD, flash
+   backward): 210/30/0/0, 96/0/48/0 and 144/9/45/0 (one prefill each;
+   decode runs no kernel), every GEMM launch on ``wgmma`` and every flash
+   launch on ``mma``.  Outputs finite and tokens in range; prefill time
+   (median of 3), decode ms/token, peak memory and a profiler breakdown
+   of each path.  Then the train path: deepseek-7b at full width with 4
+   layers, bf16, batch 4 x seq 512, the reference's defaults (remat,
+   ``AdamWConfig()``), through ``make_train_step`` and
+   ``SyntheticDataset``, 5 steps, each with exactly 115 GEMMs (57 forward
+   with remat's recompute, 29 dgrad, 29 wgrad; the lm head's three
+   included) on ``wgmma``, 8 flash forwards and 4 flash backwards on
+   ``mma``; finite losses and grad norms; 3 steps on one fixed batch
+   lower its loss; step time, tokens/s, MFU, peak memory, the device
+   time of the gradients and of the AdamW update, and a profiler window.
 
 It then prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``.
@@ -46,6 +65,7 @@ and last ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -179,7 +199,7 @@ def compare(name, got, ref, rtol, atol):
     return max_err
 
 
-def profile_window(torch, fn):
+def profile_window(torch, fn, top=8):
     """One call of ``fn`` under ``torch.profiler``: host wall time, device
     busy time (the summed durations of the device's kernels and copies,
     which run one at a time on the one stream), the device's idle share,
@@ -202,14 +222,14 @@ def profile_window(torch, fn):
     for e in dev:
         ms, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    heaviest = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
     return dict(
         wall_ms=wall,
         device_busy_ms=busy if dev else "not measured",
         idle_share=1 - busy / wall if dev else "not measured",
         device_events=len(dev),
         host_ops=sum(1 for e in events if e.device_type == DeviceType.CPU),
-        top=[[name[:80], ms, n] for name, (ms, n) in top],
+        top=[[name[:80], ms, n] for name, (ms, n) in heaviest],
     )
 
 
@@ -1113,6 +1133,15 @@ def train_launches(cfg, remat):
     return n, {"fwd": fwd, "dgrad": grads, "wgrad": grads, "both": 0}
 
 
+def release(torch):
+    """Free a phase's tensors before the next phase measures its peak: the
+    first checkpointed step imports inside torch, and the traceback kept
+    by that import holds the step's frames (and so its tensors) in a
+    reference cycle that only the collector frees."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def _leaves(tree):
     from repro_torch.train.optimizer import tree_leaves
     return list(tree_leaves(tree))
@@ -1228,7 +1257,7 @@ def phase_train_parity(torch):
     log(f"  losses kernel {runs[0][1]} plain {runs[1][1]}; params after "
         f"{tp['steps']} steps max_abs_err {worst:.3e} (atol {atol:.3e})")
     del params, params_k
-    torch.cuda.empty_cache()
+    release(torch)
     return dict(loss=loss_k.item(), worst_grad_rel=max(rel.values()),
                 param_max_abs_err=worst, param_atol=atol)
 
@@ -1339,13 +1368,36 @@ def phase_train_main(torch):
     need(math.isfinite(after) and after < before,
          f"3 steps on a fixed batch: loss {before} -> {after}")
 
+    # device time of the step's two halves: the loss and its gradients
+    # (forward, recomputed forward and backward), then the AdamW update
+    batch = data.batch(TRAIN["steps"])
+    grads = {}
+
+    def fwd_bwd():
+        grads["g"] = loss_and_grads(torch, bundle, params, batch)[1]
+
+    def update():
+        named = [k for k, _ in _leaves(params)]
+        g = grads["g"]
+        tree = {}
+        for path in named:  # the gradients in the parameters' layout
+            node = tree
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            node[path[-1]] = g["/".join(path)]
+        bundle.opt.update(params, tree, state)
+
+    halves = dict(loss_and_grads_ms=time_ms(torch, fwd_bwd, 3, 1),
+                  adamw_update_ms=time_ms(torch, update, 3, 1))
+    del grads["g"]
+
     state_box = [params, state]
 
     def one_step():
         state_box[0], state_box[1], _ = bundle.step_fn(
-            state_box[0], state_box[1], data.batch(TRAIN["steps"]))
+            state_box[0], state_box[1], batch)
 
-    prof = profile_window(torch, one_step)
+    prof = profile_window(torch, one_step, top=16)
     n_tok = TRAIN["batch"] * TRAIN["seq"]
     util, flops, n_params = mfu(steady / 1e3, n_tok, cfg, TRAIN["seq"])
     out = dict(
@@ -1356,12 +1408,12 @@ def phase_train_main(torch):
         fixed_batch_loss=[before, after], step_ms=step_ms,
         step_ms_median_after_first=steady, tokens_per_s=n_tok / steady * 1e3,
         mfu=util, model_flops_per_step=flops, peak_mem_gb=peak / 1e9,
-        init_s=init_s, profile=prof)
+        init_s=init_s, device_ms=halves, profile=prof)
     log(f"[train main path] deepseek-7b {cfg.n_layers} layers bf16 batch "
         f"{TRAIN['batch']} x seq {TRAIN['seq']}, {TRAIN['steps']} steps: "
         f"{json.dumps(out)}")
     del params, state, state_box
-    torch.cuda.empty_cache()
+    release(torch)
     return totals, layouts, out
 
 

@@ -152,8 +152,8 @@ def tatp_dot(a: torch.Tensor, b: torch.Tensor, out_dtype=None):
     if out_dtype not in _DTYPES:
         raise ValueError(f"tatp_matmul kernel cannot write {out_dtype}")
     n, k = b.shape
-    # a view for the activations the model passes (2-D operands as given)
-    a2 = a if a.dim() == 2 else a.reshape(-1, n)
+    # leading dims flattened as a view (raises rather than copies)
+    a2 = a if a.dim() == 2 else a.view(-1, n)
     m = a2.shape[0]
     la, lda = _operand(a2.shape, a2.stride())
     lb, ldb = _operand(b.shape, b.stride())

@@ -98,14 +98,15 @@ def make_train_step(cfg: ModelConfig, par: ParallelConfig, dist: Dist,
 
 def _unflatten(tree, leaves):
     """``leaves`` (in :func:`tree_leaves` order) in ``tree``'s layout."""
-    it = iter(leaves)
+    return _build(tree, iter(leaves))
 
-    def build(node):
-        if isinstance(node, dict):
-            return {k: build(node[k]) for k in sorted(node)}
-        return next(it)
 
-    return build(tree)
+def _build(node, it):
+    # a plain function, not a closure that calls itself: that would be a
+    # reference cycle keeping the step's gradients alive until the next gc
+    if isinstance(node, dict):
+        return {k: _build(node[k], it) for k in sorted(node)}
+    return next(it)
 
 
 @dataclass(frozen=True)
