@@ -82,6 +82,8 @@ class _TatpMatmul(torch.autograd.Function):
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
         axis, axis_size, bidirectional, wire, dot = ctx.cfg
+        if dy.stride(-1) != 1:  # e.g. the expanded cotangent of a sum
+            dy = dy.contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
             dx = dgrad_stream_w(dy, w, axis, axis_size,

@@ -35,9 +35,8 @@ from repro_torch.train.train_loop import make_train_step
 
 def build(cfg, dist: Dist, par: ParallelConfig, batch: int, seq: int):
     shape = ShapeConfig("cli", "train", seq, batch)
-    bundle = make_train_step(cfg, par, dist, shape)
-    data = SyntheticDataset(cfg, shape, dist)
-    return dist, bundle, data
+    return make_train_step(cfg, par, dist, shape), SyntheticDataset(
+        cfg, shape, dist)
 
 
 def setup(args):
@@ -61,7 +60,7 @@ def _sync(device: torch.device):
 
 def train(args) -> dict:
     cfg, dist, par = setup(args)
-    dist, bundle, data = build(cfg, dist, par, args.batch, args.seq)
+    bundle, data = build(cfg, dist, par, args.batch, args.seq)
     gen = torch.Generator(device=dist.device).manual_seed(args.seed)
     params, opt_state = bundle.init_fn(gen)
 

@@ -78,6 +78,8 @@ class _HeadMatmul(torch.autograd.Function):
     def backward(ctx, g):
         x, w = ctx.saved_tensors
         dot = ctx.dot
+        if g.stride(-1) != 1:  # e.g. the expanded cotangent of a sum
+            g = g.contiguous()
         if x.dtype == g.dtype:
             return dot(g, w.t()), dot(x.t(), g).to(w.dtype), None
         m = g.shape[0]

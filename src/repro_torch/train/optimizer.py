@@ -21,7 +21,7 @@ than one rank and int8 gradient compression belong to the DP wire
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, NamedTuple, Optional
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -86,18 +86,10 @@ class AdamW:
     """AdamW on one data-parallel rank (the reference's ``AdamW`` with no
     data axes and no shard axis)."""
 
-    def __init__(self, cfg: AdamWConfig, data_axes: tuple[str, ...] = (),
-                 shard_axis: Optional[str] = None, shard_size: int = 1):
+    def __init__(self, cfg: AdamWConfig):
         if cfg.grad_compress:
             raise not_ported("int8 gradient compression", "A3")
-        if data_axes or shard_size > 1:
-            raise not_ported(
-                f"data-parallel AdamW (axes {data_axes}, shard {shard_size})",
-                "A3")
         self.cfg = cfg
-        self.data_axes = data_axes
-        self.shard_axis = None
-        self.dp = 1
 
     def init(self, params) -> OptState:
         master = tree_map(lambda p: p.detach().float().clone(), params)

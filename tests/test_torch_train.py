@@ -173,11 +173,9 @@ def test_adamw_update_matches_reference(grad_scale):
         _close(_flat(state.v)[k], _flat(jstate.v)[k])
 
 
-def test_adamw_unported_options_raise():
+def test_adamw_grad_compress_raises():
     with pytest.raises(NotImplementedError, match="A3"):
         optimizer.AdamW(optimizer.AdamWConfig(grad_compress=True))
-    with pytest.raises(NotImplementedError, match="A3"):
-        optimizer.AdamW(optimizer.AdamWConfig(), ("data",), "data", 4)
 
 
 # ---------------------------------------------------------------------------
@@ -494,3 +492,39 @@ def test_train_step_calls_each_hook_once_per_product(remat, n_dot, n_attn):
     batch = data.SyntheticDataset(cfg, shape, Dist(CPU)).batch(0)
     bundle.step_fn(params, state, batch)
     assert calls == {"dot": n_dot, "attention": n_attn}
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (sm_90a) and nvcc")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_tatp_matmul_grads_on_the_gemm_kernel(cuda_device, dtype, tol):
+    """On the card the TATP linear's dgrad and wgrad run on the GEMM
+    kernel (dgrad and wgrad layouts), against autograd through the plain
+    product; the cotangent of a sum (expanded, no unit stride) too."""
+    from repro_torch.kernels.tatp_matmul.ops import tatp_dot
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn(256, 512, generator=g, device=cuda_device).to(dtype)
+    w = (torch.randn(512, 384, generator=g, device=cuda_device)
+         / 512 ** 0.5).to(dtype)
+    grads = []
+    before = dict(tatp_dot.launches_by_layout)
+    for dot in (tatp_dot, matmul_ref):
+        xt, wt = (t.detach().requires_grad_(True) for t in (x, w))
+        y = tatp.tatp_matmul(xt, wt, "model", 1, dot=dot)
+        y.float().sum().backward()
+        grads.append((xt.grad.float(), wt.grad.float()))
+    torch.cuda.synchronize()
+    after = tatp_dot.launches_by_layout
+    assert [after[k] - before[k] for k in ("fwd", "dgrad", "wgrad")] == \
+        [1, 1, 1]
+    for got, ref in zip(*grads):
+        np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                                   rtol=tol, atol=tol)
