@@ -1,4 +1,4 @@
-"""Training driver (counterpart of ``repro.launch.train``'s ``build`` /
+"""Training entry point (counterpart of ``repro.launch.train``'s ``build`` /
 ``setup`` / ``train`` / ``main``, the legacy-flag path) at ring degree 1
 with strategy ``tatp`` on one device::
 

@@ -2,7 +2,7 @@
 synthetic data, the learning-rate schedule, AdamW, the cross-entropy, the
 TATP linear's and the attention's gradients, the loss's gradients, a
 3-step ``make_train_step`` trajectory, remat, the lm head's mixed-precision
-backward, and the training driver.  Reduced deepseek-7b (2 layers,
+backward, and the training CLI.  Reduced deepseek-7b (2 layers,
 d_model 64, 4 heads of 16, fp32) on converted weights; inputs made with
 numpy from a seed.
 
@@ -373,7 +373,7 @@ def test_bf16_terms_split_exactly():
 
 
 # ---------------------------------------------------------------------------
-# the train step and the driver
+# the train step and the CLI
 # ---------------------------------------------------------------------------
 
 
