@@ -27,7 +27,11 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    bound beside it); then the GEMM in all four operand layouts (forward,
    dgrad ``dy @ w.T``, wgrad ``x.T @ dy``, both transposed) on every path,
    timed in the dgrad and wgrad layouts at one deepseek-7b train layer's
-   shapes beside ``torch.matmul`` on the same views; and flash
+   shapes beside ``torch.matmul`` on the same views; every other GEMM of
+   the train step at its real shape, layouts and output dtype, on
+   ``wgmma``: the 7 layer forwards at M 2048 and the lm head's forward,
+   dgrad and wgrad (contraction or width 102400), the head's products and
+   whole backward timed; and flash
    attention's backward kernel against autograd through the plain
    version (fp32 and bf16; causal, window, cap, GQA, ragged and fully
    masked rows; D 64, 80, 128 and 256), timed at deepseek-7b's train
@@ -107,6 +111,10 @@ BATCH, GEN = 4, 32
 # the kernel path every bf16 main-path launch must take
 MAIN_PATH_KERNEL = {"tatp_matmul": "wgmma", "flash_attention": "mma",
                     "flash_attention_bwd": "mma"}
+
+# the GEMM's kernels-line records and the operand layout each counts
+GEMM_RECORD_LAYOUT = {"tatp_matmul": "fwd", "tatp_matmul_dgrad": "dgrad",
+                      "tatp_matmul_wgrad": "wgrad"}
 
 # deepseek-7b's prefill at batch 4 x prompt 128: the GEMM and flash rows
 MAIN = dict(batch=BATCH, prompt_len=PATHS["deepseek-7b"]["prompt_len"],
@@ -702,6 +710,7 @@ def phase_gemm_layouts(torch, randn):
                 lay = LAYOUT_NAMES[ta, tb]
                 err_by_layout[lay] = max(err_by_layout[lay], err)
 
+    head = train_path_gemms(torch, randn, err_by_layout)
     # one train layer's backward products, bf16, M = 2048: dgrad dy @ w.T
     # and wgrad x.T @ dy for wq wk wv wo / w_up w_gate / w_down
     records = []
@@ -754,9 +763,84 @@ def phase_gemm_layouts(torch, randn):
             library_ms=tot["library_ms"], share_of_bound=b_ms / tot["ms"],
             library_ratio=tot["ms"] / tot["library_ms"],
             timed=f"the 7 {lay} GEMMs of one deepseek-7b train layer, "
-                  f"M={M_TRAIN}, bf16", shapes=rows))
+                  f"M={M_TRAIN}, bf16", shapes=rows, lm_head=head[lay]))
     log(f"  max_abs_err by layout (bf16): {json.dumps(err_by_layout)}")
     return records
+
+
+def train_path_gemms(torch, randn, err_by_layout):
+    """The train step's GEMMs that the layout cases above do not cover, at
+    their real shapes, operand layouts and output dtypes, each against
+    matmul_ref and asserted on wgmma: the 7 layer forwards at M 2048 (run
+    again by remat's recompute), and the lm head's three products
+    (models/lm.py:_HeadMatmul): forward x @ w -> fp32, dgrad on the
+    stacked three-term cotangent [3M, Vp] @ w.T -> fp32, wgrad
+    [x; x; x].T @ [3M, Vp] -> bf16.  Then the head's products are timed
+    beside their bound, the plain version and the library call, and its
+    whole backward (the cotangent's split included) through autograd.
+    Updates ``err_by_layout``; returns the head's rows by layout."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.tatp_matmul.ops import tatp_dot
+    from repro_torch.kernels.tatp_matmul.ref import matmul_ref
+    from repro_torch.models.lm import _HeadMatmul
+    from repro_torch.models.transformer import padded_vocab
+
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def check(name, lay, a, b, odt):
+        before = tatp_dot.launches_by_path["wgmma"]
+        got = tatp_dot(a, b, out_dtype=odt)
+        torch.cuda.synchronize()
+        need(tatp_dot.launches_by_path["wgmma"] == before + 1,
+             f"{name}: did not take wgmma")
+        err_by_layout[lay] = max(err_by_layout[lay], compare(
+            f"bf16 {name} {list(a.shape)}@{list(b.shape)} -> "
+            f"{str(got.dtype)[6:]} (wgmma)", got,
+            matmul_ref(a, b, out_dtype=odt), *GEMM_TOL["bfloat16"]))
+
+    log(f"[kernels] tatp_matmul at the train path's shapes, M {M_TRAIN}")
+    for n, k, _ in LAYER_GEMMS:
+        check("layer fwd", "fwd", randn(M_TRAIN, n, dtype=bf),
+              randn(n, k, dtype=bf, scale=n ** -0.5), None)
+    d, vp = D_MODEL, padded_vocab(get_config("deepseek-7b"))
+    x = randn(M_TRAIN, d, dtype=bf)
+    w = randn(d, vp, dtype=bf, scale=d ** -0.5)
+    gs = randn(3 * M_TRAIN, vp, dtype=bf)
+    products = {"fwd": (x, w, f32), "dgrad": (gs, w.t(), f32),
+                "wgrad": (torch.cat([x, x, x]).t(), gs, bf)}
+    head = {}
+    for lay, (a, b, odt) in products.items():
+        check(f"lm head {lay}", lay, a, b, odt)
+        mm, nn = a.shape
+        kk = b.shape[1]
+        flops = 2 * mm * nn * kk
+        nbytes = 2 * (mm * nn + nn * kk) + mm * kk * odt.itemsize
+        row = dict(shape=[mm, nn, kk], out=str(odt)[6:],
+                   ms=time_ms(torch, lambda: tatp_dot(a, b, out_dtype=odt),
+                              5, 1),
+                   plain_ms=time_ms(torch, lambda: matmul_ref(
+                       a, b, out_dtype=odt), 3, 1),
+                   library_ms=time_ms(torch, lambda: torch.mm(
+                       a, b, out_dtype=odt) if odt == f32 else
+                       torch.mm(a, b), 5, 1))
+        row["bound_ms"], row["bound_by"] = bound(flops, nbytes, "bfloat16")
+        row["tflops"] = flops / row["ms"] / 1e9
+        head[lay] = row
+    del products, gs
+
+    # the head's whole backward as the train step runs it
+    xr, wr = x.requires_grad_(True), w.requires_grad_(True)
+    logits = _HeadMatmul.apply(xr, wr, tatp_dot)
+    g = randn(M_TRAIN, vp, scale=1.0 / M_TRAIN)
+
+    def head_backward():
+        torch.autograd.grad(logits, (xr, wr), g, retain_graph=True)
+
+    head["backward_ms"] = time_ms(torch, head_backward, 5, 1)
+    log(f"  lm head's train products (bf16 operands; ms, plain, "
+        f"torch.mm, bound) and its whole backward: {json.dumps(head)}")
+    del logits, xr, wr, x, w, g
+    return head
 
 
 # flash backward checks: (name, Hq, Hkv, Sq, Skv, causal, window, cap)
@@ -1147,20 +1231,12 @@ def _leaves(tree):
     return list(tree_leaves(tree))
 
 
-def loss_and_grads(torch, bundle, params, batch):
+def named_grads(bundle, params, batch):
     """The train step's loss and gradients (by leaf name) on ``params``,
     without the optimizer."""
-    from repro_torch.models import lm
-    named = _leaves(params)
-    flat = [p for _, p in named]
-    for p in flat:
-        p.requires_grad_(True)
-    nll, cnt, _ = lm.loss_fn(bundle.ctx, params, batch)
-    loss = nll / cnt
-    grads = torch.autograd.grad(loss, flat)
-    for p in flat:
-        p.requires_grad_(False)
-    return loss.detach(), {"/".join(k): g for (k, _), g in zip(named, grads)}
+    from repro_torch.train.train_loop import loss_and_grads
+    nll, cnt, grads = loss_and_grads(bundle.ctx, params, batch)
+    return nll / cnt, {"/".join(k): g for k, g in _leaves(grads)}
 
 
 # the fp32 train parity: full width, 2 layers, batch 2 x seq 256, 2 steps;
@@ -1186,6 +1262,7 @@ def phase_train_parity(torch):
     from repro_torch.kernels.tatp_matmul.ref import matmul_ref
     from repro_torch.models.transformer import init_params
     from repro_torch.train.data import SyntheticDataset
+    from repro_torch.train.optimizer import tree_map
     from repro_torch.train.train_loop import make_train_step
 
     dev = torch.device("cuda")
@@ -1204,7 +1281,7 @@ def phase_train_parity(torch):
     want, want_layouts = train_launches(cfg, remat=True)
 
     zero_launches()
-    loss_k, grads_k = loss_and_grads(torch, kern, params, batches[0])
+    loss_k, grads_k = named_grads(kern, params, batches[0])
     torch.cuda.synchronize()
     need(read_launches() == want, f"fp32 kernel train step launched "
          f"{read_launches()}, want {want}")
@@ -1214,7 +1291,7 @@ def phase_train_parity(torch):
         need(by_path["simt"] == want[name],
              f"fp32 {name} launches by path {by_path}: not all simt")
     zero_launches()
-    loss_p, grads_p = loss_and_grads(torch, plain, params, batches[0])
+    loss_p, grads_p = named_grads(plain, params, batches[0])
     need(not any(read_launches().values()),
          f"plain train step launched {read_launches()}")
     log(f"[train parity] deepseek-7b full width, {cfg.n_layers} layers, "
@@ -1234,7 +1311,7 @@ def phase_train_parity(torch):
     del grads_k, grads_p
 
     # two AdamW steps each, from the same parameters
-    params_k = _clone_tree(torch, params)
+    params_k = tree_map(lambda t: t.clone(), params)
     runs = []
     for bundle, p in ((kern, params_k), (plain, params)):
         state = bundle.opt.init(p)
@@ -1260,12 +1337,6 @@ def phase_train_parity(torch):
     release(torch)
     return dict(loss=loss_k.item(), worst_grad_rel=max(rel.values()),
                 param_max_abs_err=worst, param_atol=atol)
-
-
-def _clone_tree(torch, tree):
-    if isinstance(tree, dict):
-        return {k: _clone_tree(torch, v) for k, v in tree.items()}
-    return tree.clone()
 
 
 def mfu(step_s, n_tokens, cfg, seq):
@@ -1300,7 +1371,7 @@ def phase_train_main(torch):
     from repro_torch.core.dist import Dist
     from repro_torch.models import lm
     from repro_torch.train.data import SyntheticDataset
-    from repro_torch.train.train_loop import make_train_step
+    from repro_torch.train.train_loop import loss_and_grads, make_train_step
 
     dev = torch.device("cuda")
     cfg = replace(get_config("deepseek-7b"), n_layers=TRAIN["n_layers"])
@@ -1322,6 +1393,7 @@ def phase_train_main(torch):
     torch.cuda.reset_peak_memory_stats()
     totals = {name: 0 for name in want}
     layouts = {name: 0 for name in want_layouts}
+    by_path = {name: dict.fromkeys(p, 0) for name, p in read_paths().items()}
     losses, gnorms, lrs, step_ms = [], [], [], []
     for step in range(TRAIN["steps"]):
         batch = data.batch(step)
@@ -1349,6 +1421,9 @@ def phase_train_main(torch):
             totals[name] += launched[name]
         for name in layouts:
             layouts[name] += lay[name]
+        for name, p in paths.items():
+            for key in p:
+                by_path[name][key] += p[key]
         losses.append(loss)
         gnorms.append(gnorm)
         lrs.append(float(m["lr"]))
@@ -1374,18 +1449,10 @@ def phase_train_main(torch):
     grads = {}
 
     def fwd_bwd():
-        grads["g"] = loss_and_grads(torch, bundle, params, batch)[1]
+        grads["g"] = loss_and_grads(bundle.ctx, params, batch)[2]
 
     def update():
-        named = [k for k, _ in _leaves(params)]
-        g = grads["g"]
-        tree = {}
-        for path in named:  # the gradients in the parameters' layout
-            node = tree
-            for key in path[:-1]:
-                node = node.setdefault(key, {})
-            node[path[-1]] = g["/".join(path)]
-        bundle.opt.update(params, tree, state)
+        bundle.opt.update(params, grads["g"], state)
 
     halves = dict(loss_and_grads_ms=time_ms(torch, fwd_bwd, 3, 1),
                   adamw_update_ms=time_ms(torch, update, 3, 1))
@@ -1414,7 +1481,7 @@ def phase_train_main(torch):
         f"{json.dumps(out)}")
     del params, state, state_box
     release(torch)
-    return totals, layouts, out
+    return totals, layouts, by_path, out
 
 
 def main() -> int:
@@ -1443,22 +1510,28 @@ def main() -> int:
         phase_parity(torch, arch, n_layers, b, s)
     phase_train_parity(torch)
     runs = {arch: phase_main_path(torch, arch) for arch in PATHS}
-    train_n, train_layouts, _ = phase_train_main(torch)
+    train = "deepseek-7b train"
+    train_n, train_layouts, train_paths, _ = phase_train_main(torch)
     # each record's launches: the counts of every main path's run (the
-    # serve paths and the train path), read just after it
-    counts = {arch: n for arch, (n, _) in runs.items()}
-    counts["deepseek-7b train"] = train_n
+    # serve paths and the train path), read just after it.  The GEMM's
+    # three records split its train launches by layout: tatp_matmul counts
+    # the forward ones (serve's too), tatp_matmul_dgrad and _wgrad theirs;
+    # every one took wgmma, as phase_train_main asserts step by step
+    all_runs = dict(runs)
+    all_runs[train] = (train_n, train_paths)
     for k in kernels:
-        if k["name"] in ("tatp_matmul_dgrad", "tatp_matmul_wgrad"):
-            lay = k["name"].rsplit("_", 1)[1]
-            k["launches"] = train_layouts[lay]
-            k["launches_by_path"] = {"deepseek-7b train": train_layouts[lay]}
-            continue
-        k["launches"] = sum(n[k["name"]] for n in counts.values())
-        k["launches_by_path"] = {a: n[k["name"]] for a, n in counts.items()}
-        if k["name"] in MAIN_PATH_KERNEL:
-            k["launches_by_kernel_path"] = {
-                a: p[k["name"]] for a, (_, p) in runs.items()}
+        lay = GEMM_RECORD_LAYOUT.get(k["name"])
+        counter = "tatp_matmul" if lay else k["name"]
+        of = {} if lay in ("dgrad", "wgrad") else {
+            a: (n[counter], p.get(counter)) for a, (n, p) in all_runs.items()}
+        if lay:
+            n = train_layouts[lay]
+            of[train] = (n, {key: n if key == "wgmma" else 0
+                             for key in train_paths[counter]})
+        k["launches"] = sum(n for n, _ in of.values())
+        k["launches_by_path"] = {a: n for a, (n, _) in of.items()}
+        if counter in MAIN_PATH_KERNEL:
+            k["launches_by_kernel_path"] = {a: p for a, (_, p) in of.items()}
     log(json.dumps({"kernels": kernels}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(smi)

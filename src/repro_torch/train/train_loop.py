@@ -72,21 +72,10 @@ def make_train_step(cfg: ModelConfig, par: ParallelConfig, dist: Dist,
     token_axes(par, dist)  # none: the counts need no reduction
 
     def step_fn(params, opt_state: OptState, batch):
-        flat = [p for _, p in tree_leaves(params)]
-        for p in flat:
-            p.requires_grad_(True)
-        try:
-            nll, cnt, aux = lm.loss_fn(ctx, params, batch)
-            cnt_g = cnt.detach()
-            loss = nll / cnt_g + aux  # one loss shard
-            grads = torch.autograd.grad(loss, flat)
-        finally:
-            for p in flat:
-                p.requires_grad_(False)
-        grads = _unflatten(params, grads)
+        nll, cnt, grads = loss_and_grads(ctx, params, batch)
         grads = reduce_model_axis_grads(grads, par, dist)
         params, opt_state, om = opt.update(params, grads, opt_state)
-        metrics = {"loss": (nll / cnt_g).detach(), "tokens": cnt_g, **om}
+        metrics = {"loss": nll / cnt, "tokens": cnt, **om}
         return params, opt_state, metrics
 
     def init_fn(generator: torch.Generator):
@@ -94,6 +83,24 @@ def make_train_step(cfg: ModelConfig, par: ParallelConfig, dist: Dist,
         return params, opt.init(params)
 
     return TrainBundle(step_fn, init_fn, ctx, opt)
+
+
+def loss_and_grads(ctx: RunCtx, params, batch):
+    """The gradient half of the train step: ``(nll_sum, count, grads)``,
+    the sums detached and ``grads`` in ``params``' layout.  The parameters
+    require grad only during the call."""
+    flat = [p for _, p in tree_leaves(params)]
+    for p in flat:
+        p.requires_grad_(True)
+    try:
+        nll, cnt, aux = lm.loss_fn(ctx, params, batch)
+        cnt = cnt.detach()
+        loss = nll / cnt + aux  # one loss shard
+        grads = torch.autograd.grad(loss, flat)
+    finally:
+        for p in flat:
+            p.requires_grad_(False)
+    return nll.detach(), cnt, _unflatten(params, grads)
 
 
 def _unflatten(tree, leaves):

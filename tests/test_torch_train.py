@@ -42,7 +42,7 @@ from repro_torch.kernels.tatp_matmul.ref import matmul_ref
 from repro_torch.models import lm
 from repro_torch.models import transformer as ttf
 from repro_torch.train import data, optimizer
-from repro_torch.train.train_loop import make_train_step
+from repro_torch.train.train_loop import loss_and_grads, make_train_step
 from repro_torch.weights import params_from_jax
 
 ARCH = "deepseek-7b"
@@ -285,13 +285,8 @@ def _loss_grads_ref(jctx, jparams, batch):
 
 
 def _loss_grads(tctx, params, batch):
-    flat = _flat(params)
-    for p in flat.values():
-        p.requires_grad_(True)
-    nll, cnt, aux = lm.loss_fn(tctx, params, batch)
-    loss = nll / cnt + aux
-    grads = torch.autograd.grad(loss, list(flat.values()))
-    return loss, dict(zip(flat, grads))
+    nll, cnt, grads = loss_and_grads(tctx, params, batch)
+    return nll / cnt, _flat(grads)
 
 
 def test_loss_fn_grads_match_reference(model):
@@ -310,6 +305,23 @@ def test_loss_fn_grads_match_reference(model):
     for name, g in grads.items():
         np.testing.assert_allclose(_np(g), _np(g_ref[name]), **GRAD_TOL,
                                    err_msg=name)
+
+
+def test_loss_and_grads_leaves_params_as_it_found_them(model):
+    """The train step's gradient half returns detached sums and gradients
+    in the parameters' layout, and leaves no parameter requiring grad."""
+    cfg, jcfg, jparams = model
+    _, tctx = _ctxs(cfg, jcfg)
+    params = params_from_jax(jparams, cfg, CPU)
+    batch = {k: torch.as_tensor(v) for k, v in
+             _batch(cfg.vocab_size).items()}
+    nll, cnt, grads = loss_and_grads(tctx, params, batch)
+    assert not nll.requires_grad and not cnt.requires_grad
+    assert float(cnt) == batch["labels"].numel()
+    assert set(_flat(grads)) == set(_flat(params))
+    for name, p in _flat(params).items():
+        assert not p.requires_grad, name
+        assert _flat(grads)[name].shape == p.shape, name
 
 
 def test_remat_gives_the_same_grads(model):
