@@ -1,6 +1,13 @@
 """Plain PyTorch version of the SSD intra-chunk pass (counterpart of
 ``repro.kernels.ssd.ref``; mirrors ``repro.models.ssm.ssd_chunked``'s
-intra-chunk math on a single chunk batch), in fp32."""
+intra-chunk math on a single chunk batch), in fp32.
+
+The causal decay masks the exponent, ``exp(where(s <= q, rel, -inf))``,
+where the reference selects after it, ``where(s <= q, exp(rel), 0)``.
+The forward is bitwise the same (``exp(-inf)`` is exactly 0), but above
+the diagonal ``rel`` is positive and ``exp(rel)`` overflows to inf over a
+256-token chunk, so the reference's gradient there is ``0 * inf = NaN``
+(ROADMAP.md C); this one is finite."""
 
 import torch
 
@@ -19,7 +26,7 @@ def ssd_intra_chunk_ref(x, dt, a, bmat, cmat):
     cum = torch.cumsum(da, dim=1)  # [B, Q, H]
     rel = cum[:, :, None, :] - cum[:, None, :, :]  # [B,q,s,H]
     tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
-    decay = torch.where(tri[None, :, :, None], torch.exp(rel), 0.0)
+    decay = torch.exp(torch.where(tri[None, :, :, None], rel, -torch.inf))
     cb = torch.einsum("bqn,bsn->bqs", cmat, bmat)
     m = cb[..., None] * decay * dt[:, None, :, :]
     y = torch.einsum("bqsh,bshp->bqhp", m, x)

@@ -56,12 +56,16 @@ def ssd_chunked(x, dt, a, bmat, cmat, chunk: int, h_init=None) -> SSDOut:
     cc = cmat.reshape(b, nc, chunk, n)
 
     cum = torch.cumsum(dac, dim=2)  # [B, nc, Q, H]
-    # intra-chunk (quadratic, attention-like); the mask selects, so the
-    # overflowing exp above the diagonal never meets a zero
+    # intra-chunk (quadratic, attention-like).  The mask selects the
+    # exponent, not the exp: above the diagonal exp(rel) overflows to inf,
+    # and a select after it would send 0 * inf = NaN into the gradient
+    # (the reference does; ROADMAP.md C).  exp(-inf) = 0 keeps the forward
+    # bitwise the reference's.
     rel = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # [B,nc,q,s,H]
     mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                  device=x.device))
-    decay = torch.where(mask[None, None, :, :, None], torch.exp(rel), 0.0)
+    decay = torch.exp(torch.where(mask[None, None, :, :, None], rel,
+                                  -torch.inf))
     cb = torch.einsum("bcqn,bcsn->bcqs", cc, bc)  # [B,nc,q,s]
     m = cb[..., None] * decay * dtc[:, :, None, :, :]  # [B,nc,q,s,H]
     y_intra = torch.einsum("bcqsh,bcshp->bcqhp", m, xc)
