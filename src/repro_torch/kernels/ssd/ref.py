@@ -34,3 +34,63 @@ def ssd_intra_chunk_ref(x, dt, a, bmat, cmat):
     st = torch.einsum("bsh,bsn,bshp->bhpn", dt * dec_out, bmat, x)
     g = torch.exp(cum[:, -1, :])
     return y, st, g
+
+
+def ssd_intra_chunk_bwd_ref(x, dt, a, bmat, cmat, dy=None, dst=None,
+                            dg=None):
+    """The gradients of :func:`ssd_intra_chunk_ref` at the cotangents
+    ``dy`` [B,Q,H,P], ``dst`` [B,H,P,N] and ``dg`` [B,H] (each may be
+    ``None``, read as zero), written out: the math the backward kernel
+    (``csrc/ssd_bwd.cu``) follows, not autograd.  Returns (dx [B,Q,H,P],
+    ddt [B,Q,H], da [H], dB [B,Q,N], dC [B,Q,N]), fp32.
+
+    With cum the prefix sum of dt * a, per chunk row and head:
+    L[q,s] = select(s <= q, exp(cum_q - cum_s), 0), M = (C B^T) * L * dt_s,
+    w_s = exp(cum_{Q-1} - cum_s) dt_s, y = M x, st = x^T (w B), g =
+    exp(cum_{Q-1}).  B and C are shared by every head, so dM * L * dt_s is
+    summed over the heads before its products with B and C.
+    """
+    x, dt, bmat, cmat = (t.float() for t in (x, dt, bmat, cmat))
+    a = a.float()
+    q = x.shape[1]
+    cum = torch.cumsum(dt * a[None, None, :], dim=1)  # [B, Q, H]
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    rel = cum[:, :, None, :] - cum[:, None, :, :]  # [B,q,s,H]
+    decay = torch.exp(torch.where(tri[None, :, :, None], rel, -torch.inf))
+    dx = torch.zeros_like(x)
+    ddt = torch.zeros_like(dt)
+    dcum = torch.zeros_like(dt)  # d loss / d cum
+    db = torch.zeros_like(bmat)
+    dc = torch.zeros_like(cmat)
+    if dy is not None:
+        dy = dy.float()
+        cb = torch.einsum("bqn,bsn->bqs", cmat, bmat)
+        m = cb[..., None] * decay * dt[:, None, :, :]
+        dx = dx + torch.einsum("bqsh,bqhp->bshp", m, dy)
+        dm = torch.einsum("bqhp,bshp->bqsh", dy, x)
+        dm_l = dm * decay  # zero above the diagonal
+        dcb = torch.sum(dm_l * dt[:, None, :, :], dim=-1)  # head sum first
+        dc = dc + torch.einsum("bqs,bsn->bqn", dcb, bmat)
+        db = db + torch.einsum("bqs,bqn->bsn", dcb, cmat)
+        t = dm_l * cb[..., None]  # d loss / d (L dt_s), times L
+        ddt = ddt + torch.sum(t, dim=1)
+        r = t * dt[:, None, :, :]  # d loss / d rel
+        dcum = dcum + torch.sum(r, dim=2) - torch.sum(r, dim=1)
+    if dst is not None:
+        dst = dst.float()
+        e = torch.exp(cum[:, -1:, :] - cum)  # [B, Q, H]
+        w = e * dt
+        ebp = torch.einsum("bsn,bhpn->bshp", bmat, dst)
+        dx = dx + w[..., None] * ebp
+        db = db + torch.einsum("bsh,bshp,bhpn->bsn", w, x, dst)
+        dw = torch.sum(x * ebp, dim=-1)  # [B, Q, H]
+        ddt = ddt + dw * e
+        dcum = dcum - dw * w
+        dcum[:, -1] = dcum[:, -1] + torch.sum(dw * w, dim=1)
+    if dg is not None:
+        dcum[:, -1] = dcum[:, -1] + dg.float() * torch.exp(cum[:, -1])
+    # cum = cumsum(dt * a): d loss / d (dt * a) is the reverse cumsum
+    dda = torch.flip(torch.cumsum(torch.flip(dcum, (1,)), dim=1), (1,))
+    ddt = ddt + dda * a[None, None, :]
+    da = torch.sum(dda * dt, dim=(0, 1))
+    return dx, ddt, da, db, dc

@@ -31,7 +31,8 @@ from repro_torch.configs import get_reduced
 from repro_torch.configs.base import ParallelConfig
 from repro_torch.core.dist import Dist
 from repro_torch.kernels.ssd import ops as ssd_ops
-from repro_torch.kernels.ssd.ref import ssd_intra_chunk_ref
+from repro_torch.kernels.ssd.ref import (ssd_intra_chunk_bwd_ref,
+                                         ssd_intra_chunk_ref)
 from repro_torch.models import lm as tlm
 from repro_torch.models import ssm as tssm
 from repro_torch.models import transformer as ttf
@@ -92,6 +93,100 @@ def test_ssd_intra_chunk_large_decay_is_finite():
     for g, r in zip(got, ref):
         assert torch.isfinite(g).all()
         _close(g, r)
+
+
+# (Q, H, P, N): one chunk of the reduced configs, ragged ones, and Q 64
+_BWD_SHAPES = [(8, 8, 16, 16), (20, 3, 6, 5), (37, 2, 33, 70), (64, 4, 16, 8)]
+_COTANGENTS = ("all", "dy", "dst", "dg")
+
+
+def _cotangents(rng, b, q, h, p, n, which):
+    cots = [rng.randn(b, q, h, p), rng.randn(b, h, p, n), rng.randn(b, h)]
+    return [c if which in ("all", name) else None
+            for c, name in zip(cots, ("dy", "dst", "dg"))]
+
+
+@pytest.mark.parametrize("which", _COTANGENTS)
+@pytest.mark.parametrize("q,h,p,n", _BWD_SHAPES)
+def test_ssd_intra_chunk_bwd_ref_matches_autograd_and_jax(q, h, p, n, which):
+    """The plain backward, written out, against torch autograd through
+    ssd_intra_chunk_ref and jax.vjp of the reference's oracle, at moderate
+    decays, with cotangents on all three outputs or on one alone."""
+    rng = np.random.RandomState(20)
+    b = 2
+    ins = _ssd_inputs(rng, b, q, h, p, n)
+    cots = _cotangents(rng, b, q, h, p, n, which)
+    got = ssd_intra_chunk_bwd_ref(*map(_t, ins),
+                                  *[None if c is None else _t(c)
+                                    for c in cots])
+
+    leaves = [_t(v).requires_grad_(True) for v in ins]
+    outs = ssd_intra_chunk_ref(*leaves)
+    total = sum((o * _t(c)).sum() for o, c in zip(outs, cots)
+                if c is not None)
+    auto = torch.autograd.grad(total, leaves, allow_unused=True)
+
+    outs_j, vjp = jax.vjp(jax_ssd_ref, *map(_j, ins))
+    ref = vjp(tuple(jnp.zeros_like(o) if c is None else _j(c)
+                    for o, c in zip(outs_j, cots)))
+    for name, g, t, r in zip(("dx", "ddt", "da", "dB", "dC"), got, auto,
+                             ref):
+        assert g.shape == _t(r).shape, name
+        _close(g, np.zeros(g.shape) if t is None else t, err_msg=name)
+        _close(g, r, err_msg=name)
+
+
+def _old_select_decay_ref(x, dt, a, bmat, cmat):
+    """ssd_intra_chunk_ref as it was, with the reference's select after
+    the exp (where(mask, exp(rel), 0))."""
+    q = x.shape[1]
+    da = dt * a[None, None, :]
+    cum = torch.cumsum(da, dim=1)
+    rel = cum[:, :, None, :] - cum[:, None, :, :]
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool))
+    decay = torch.where(tri[None, :, :, None], torch.exp(rel), 0.0)
+    cb = torch.einsum("bqn,bsn->bqs", cmat, bmat)
+    m = cb[..., None] * decay * dt[:, None, :, :]
+    y = torch.einsum("bqsh,bshp->bqhp", m, x)
+    dec_out = torch.exp(cum[:, -1:, :] - cum)
+    st = torch.einsum("bsh,bsn,bshp->bhpn", dt * dec_out, bmat, x)
+    return y, st, torch.exp(cum[:, -1, :])
+
+
+def test_ssd_large_decay_gradients_are_finite():
+    """At the published chunk of 256 and a = -16, exp(cum_q - cum_s)
+    overflows above the diagonal.  The port's plain versions mask the
+    exponent: their forward is bitwise what selecting after the exp gives,
+    and their gradients are finite.  The reference selects after the exp,
+    so jax.grad gives NaN dt and a gradients (ROADMAP.md C)."""
+    rng = np.random.RandomState(21)
+    b, q, h, p, n = 1, 256, 2, 16, 16
+    x, _, _, bm, cm = _ssd_inputs(rng, b, q, h, p, n)
+    dt = rng.uniform(0.5, 1.0, (b, q, h))
+    a = np.array([-1.0, -16.0])
+    ins = (x, dt, a, bm, cm)
+    for got, old in zip(ssd_intra_chunk_ref(*map(_t, ins)),
+                        _old_select_decay_ref(*map(_t, ins))):
+        assert torch.equal(got, old)
+
+    def loss_t(f):
+        leaves = [_t(v).requires_grad_(True) for v in ins]
+        out = f(*leaves)
+        return torch.autograd.grad(sum(o.sum() for o in out), leaves)
+
+    for f in (ssd_intra_chunk_ref, lambda *v: tssm.ssd_chunked(*v, q)):
+        for name, g in zip(("x", "dt", "a", "B", "C"), loss_t(f)):
+            assert torch.isfinite(g).all(), name
+    ones = [_t(np.ones(s)) for s in ((b, q, h, p), (b, h, p, n), (b, h))]
+    for got in ssd_intra_chunk_bwd_ref(*map(_t, ins), *ones):
+        assert torch.isfinite(got).all()
+
+    def loss_j(*v):
+        return sum(o.sum() for o in jax_ssd_ref(*v))
+
+    ref = jax.grad(loss_j, argnums=(0, 1, 2, 3, 4))(*map(_j, ins))
+    finite = [bool(np.isfinite(np.asarray(g)).all()) for g in ref]
+    assert finite == [True, False, False, True, True]
 
 
 def test_ssd_intra_chunk_cpu_uses_plain_version():
