@@ -23,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 REPO = Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO / "build" / "repro_torch_kernels"
-SOURCES = ("tatp_matmul", "flash_attention", "ssd")
+SOURCES = ("tatp_matmul", "flash_attention", "ssd", "ssd_bwd")
 NVCC_FLAGS = (
     "-gencode",
     "arch=compute_90a,code=sm_90a",
