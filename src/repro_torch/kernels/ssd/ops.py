@@ -1,25 +1,32 @@
-"""Public wrappers for the Mamba-2 SSD intra-chunk kernel (``csrc/ssd.cu``).
+"""Public wrappers for the Mamba-2 SSD intra-chunk kernel (``csrc/ssd.cu``)
+and its backward kernel (``csrc/ssd_bwd.cu``).
 
 :func:`ssd_intra_chunk` keeps the reference's layout
 (``repro.kernels.ssd.kernel.ssd_intra_chunk``): the caller has already cut
 the sequence into chunks, so its batch axis is ``B * nc``.  For tensors on
-the CPU it computes the plain version (:func:`ssd_intra_chunk_ref`).  For
-CUDA tensors it launches the hand-written kernel, which reads its inputs
-through their strides (unit stride on the last dim) and masks ragged
-edges itself; anything the kernel does not take raises.  There is no
-fallback on the GPU, at any chunk or head size.
+the CPU it computes the plain version (:func:`ssd_intra_chunk_ref`), and
+autograd differentiates that.  For CUDA tensors it launches the
+hand-written kernel, which reads its inputs through their strides (unit
+stride on the last dim) and masks ragged edges itself; anything the
+kernel does not take raises.  There is no fallback on the GPU, at any
+chunk or head size.
+
+For CUDA tensors under autograd (grad mode on and an input that requires
+grad), :func:`ssd_intra_chunk` runs through an ``autograd.Function``: the
+forward kernel, with the fp32 inputs saved, and the backward kernel
+(:func:`ssd_intra_chunk_bwd`; no atomics, so the gradients are
+deterministic).  The reference has no backward kernel: JAX differentiates
+its jnp path; the backward's math is :func:`ssd_intra_chunk_bwd_ref`.
 
 :func:`ssd_chunked` is the counterpart of
 ``repro.kernels.ssd.ops.ssd_chunked_fast``: the intra-chunk pass on the
 kernel, then the inter-chunk recurrence and its output contraction in
-torch (the reference also computes those outside its Pallas call).
+torch (the reference also computes those outside its Pallas call), which
+autograd differentiates around the Function.
 
-There is no backward kernel yet: on CUDA :func:`ssd_intra_chunk` raises
-when autograd would need its gradient (grad mode on and an input that
-requires grad), so training a Mamba-2 layer on the card fails loudly
-instead of training with ``None`` gradients (ROADMAP.md A2b).
-
-``ssd_intra_chunk.launches`` counts the kernel's launches.
+``ssd_intra_chunk.launches`` counts the forward kernel's launches and
+``ssd_intra_chunk_bwd.launches`` the backward's (one per backward call,
+which runs its five kernels).
 """
 
 from __future__ import annotations
@@ -28,9 +35,9 @@ import ctypes
 
 import torch
 
-from repro_torch import not_ported
 from repro_torch.kernels import _build
-from repro_torch.kernels.ssd.ref import ssd_intra_chunk_ref
+from repro_torch.kernels.ssd.ref import (ssd_intra_chunk_bwd_ref,
+                                         ssd_intra_chunk_ref)
 from repro_torch.models.ssm import SSDOut, check_chunking, chunk_recurrence
 
 MAX_HEAD_DIM = 64  # P
@@ -48,6 +55,17 @@ def _lib():
     return lib
 
 
+def _bwd_lib():
+    lib = _build.load("ssd_bwd")
+    fn = lib.ssd_intra_chunk_bwd_launch
+    if fn.argtypes is None:
+        fn.argtypes = [_P] * 14 + [_I] * 5 + [_I64] * 9 + [_P]
+        fn.restype = _I
+        lib.ssd_intra_chunk_bwd_sizes.argtypes = [_I, _I, _I, _P]
+        lib.ssd_intra_chunk_bwd_sizes.restype = None
+    return lib
+
+
 def _unit_last(t):
     return t if t.stride(-1) == 1 else t.contiguous()
 
@@ -57,20 +75,27 @@ def ssd_intra_chunk(x, dt, a, bmat, cmat):
     one chunk per batch row.  Returns (y_intra [B,Q,H,P], states
     [B,H,P,N], decays [B,H]), fp32.
 
-    On CUDA: fp32 inputs on one device, P <= 64, N <= 256.
+    On CUDA: fp32 inputs on one device, P <= 64, N <= 256.  Under
+    autograd the backward runs on the backward kernel.
     """
     ts = (x, dt, a, bmat, cmat)
     if all(t.device.type == "cpu" for t in ts):
         return ssd_intra_chunk_ref(x, dt, a, bmat, cmat)
+    _check(x, dt, a, bmat, cmat)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        return _SSDIntraChunk.apply(x, dt, a, bmat, cmat)
+    return _forward(x, dt, a, bmat, cmat)
+
+
+def _check(x, dt, a, bmat, cmat):
+    """Raise on what the kernels do not take (for CUDA tensors)."""
+    ts = (x, dt, a, bmat, cmat)
     dev = x.device
     if dev.type != "cuda" or any(t.device != dev for t in ts):
         raise ValueError(
             f"ssd kernel needs every input on one CUDA device, got "
             f"{[str(t.device) for t in ts]}"
         )
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
-        raise not_ported("the SSD backward kernel (training Mamba-2 layers "
-                         "on the GPU)", "A2b")
     if any(t.dtype != torch.float32 for t in ts):
         raise ValueError(
             f"ssd kernel takes fp32 inputs, got {[t.dtype for t in ts]}"
@@ -93,6 +118,13 @@ def ssd_intra_chunk(x, dt, a, bmat, cmat):
             f"ssd kernel takes 0 < P <= {MAX_HEAD_DIM} and 0 < N <= "
             f"{MAX_STATE} and Q > 0, got Q={q}, P={p}, N={n}"
         )
+
+
+def _forward(x, dt, a, bmat, cmat):
+    """One forward launch on checked tensors."""
+    b, q, h, p = x.shape
+    n = bmat.shape[-1]
+    dev = x.device
     x, dt, bmat, cmat = (_unit_last(t) for t in (x, dt, bmat, cmat))
     a = a.contiguous()
     y = torch.empty((b, q, h, p), dtype=torch.float32, device=dev)
@@ -121,6 +153,78 @@ def _launch(x, dt, a, bmat, cmat, y, st, g, stream: int):
         *cmat.stride()[:2], stream,
     )
     _build.check(lib, err, "ssd")
+
+
+def ssd_intra_chunk_bwd(x, dt, a, bmat, cmat, dy=None, dst=None, dg=None):
+    """The gradients (dx [B,Q,H,P], ddt [B,Q,H], da [H], dB [B,Q,N], dC
+    [B,Q,N]) of :func:`ssd_intra_chunk` at the cotangents dy [B,Q,H,P],
+    dst [B,H,P,N] and dg [B,H] (each may be ``None``, read as zero), fp32.
+    For tensors on the CPU the plain version
+    (:func:`ssd_intra_chunk_bwd_ref`); for CUDA tensors the backward
+    kernel, which takes what the forward kernel takes."""
+    ts = (x, dt, a, bmat, cmat)
+    if all(t.device.type == "cpu" for t in ts):
+        return ssd_intra_chunk_bwd_ref(x, dt, a, bmat, cmat, dy, dst, dg)
+    _check(x, dt, a, bmat, cmat)
+    b, q, h, p = x.shape
+    n = bmat.shape[-1]
+    dev = x.device
+    cots = []
+    for name, t, shape in (("dy", dy, (b, q, h, p)), ("dst", dst,
+                           (b, h, p, n)), ("dg", dg, (b, h))):
+        if t is None:
+            t = torch.zeros(shape, dtype=torch.float32, device=dev)
+        if (t.device != dev or t.dtype != torch.float32
+                or tuple(t.shape) != shape):
+            raise ValueError(
+                f"ssd backward: {name} must be fp32 {shape} on {dev}, got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device}")
+        cots.append(t.contiguous())
+    x, dt, bmat, cmat = (_unit_last(t) for t in (x, dt, bmat, cmat))
+    a = a.contiguous()
+    dx = torch.empty((b, q, h, p), dtype=torch.float32, device=dev)
+    ddt = torch.empty((b, q, h), dtype=torch.float32, device=dev)
+    if not (b and h):
+        return (dx, ddt, torch.zeros(h, device=dev),
+                torch.zeros((b, q, n), device=dev),
+                torch.zeros((b, q, n), device=dev))
+    lib = _bwd_lib()
+    sizes = (ctypes.c_int64 * 2)()
+    lib.ssd_intra_chunk_bwd_sizes(b, q, h, sizes)
+    nhb, n_scratch = sizes
+    da_part = torch.empty((b, h), dtype=torch.float32, device=dev)
+    db_part, dc_part = (torch.empty((nhb, b, q, n), dtype=torch.float32,
+                                    device=dev) for _ in range(2))
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=dev)
+    err = lib.ssd_intra_chunk_bwd_launch(
+        x.data_ptr(), dt.data_ptr(), a.data_ptr(), bmat.data_ptr(),
+        cmat.data_ptr(), *(t.data_ptr() for t in cots), dx.data_ptr(),
+        ddt.data_ptr(), da_part.data_ptr(), db_part.data_ptr(),
+        dc_part.data_ptr(), scratch.data_ptr(), b, q, h, p, n,
+        *x.stride()[:3], *dt.stride()[:2], *bmat.stride()[:2],
+        *cmat.stride()[:2], torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(lib, err, "ssd backward")
+    ssd_intra_chunk_bwd.launches += 1
+    # the partials' sums (per head block, per chunk row) in a fixed order
+    return dx, ddt, da_part.sum(0), db_part.sum(0), dc_part.sum(0)
+
+
+ssd_intra_chunk_bwd.launches = 0
+
+
+class _SSDIntraChunk(torch.autograd.Function):
+    """:func:`ssd_intra_chunk` on CUDA under autograd: the forward kernel
+    with its fp32 inputs saved, the backward kernel for the gradients."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, bmat, cmat):
+        ctx.save_for_backward(x, dt, a, bmat, cmat)
+        return _forward(x, dt, a, bmat, cmat)
+
+    @staticmethod
+    def backward(ctx, dy, dst, dg):
+        return ssd_intra_chunk_bwd(*ctx.saved_tensors, dy, dst, dg)
 
 
 def ssd_chunked(x, dt, a, bmat, cmat, chunk: int) -> SSDOut:

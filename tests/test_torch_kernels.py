@@ -351,6 +351,11 @@ def test_attention_backward_path(dtype, d, want):
     ("ssd", "ssd_intra_chunk_launch",
      [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_int64] * 9
      + [ctypes.c_void_p]),
+    # x, dt, a, B, C, dy, dst, dg, dx, ddt, da, dB, dC partials, scratch;
+    # BC, Q, H, P, N; 9 strides; stream
+    ("ssd_bwd", "ssd_intra_chunk_bwd_launch",
+     [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_int64] * 9
+     + [ctypes.c_void_p]),
 ])
 def test_launcher_argtypes_match_c_signature(monkeypatch, lib, fn, argtypes):
     """The wrappers' ctypes argtypes against the C launchers' parameter
@@ -372,12 +377,11 @@ def test_launcher_argtypes_match_c_signature(monkeypatch, lib, fn, argtypes):
         pass
 
     stub = Lib()
-    for name in re.findall(r"^int (\w+_launch)\(", src, re.M):
+    for name in re.findall(r"^(?:int|void) (\w+)\(", src, re.M):
         setattr(stub, name, Fn())
     monkeypatch.setattr(_build, "load", lambda name: stub)
-    ops = {"tatp_matmul": gemm_ops, "flash_attention": flash_ops,
-           "ssd": ssd_ops}[lib]
-    ops._lib()
+    {"tatp_matmul": gemm_ops._lib, "flash_attention": flash_ops._lib,
+     "ssd": ssd_ops._lib, "ssd_bwd": ssd_ops._bwd_lib}[lib]()
     assert getattr(stub, fn).argtypes == argtypes
     assert getattr(stub, fn).restype is ctypes.c_int
 
@@ -506,9 +510,9 @@ def test_attention_backward_kernel_matches_plain(cuda_device, hq, hkv, s,
 @pytest.mark.cuda
 def test_kernel_wrappers_never_return_detached_outputs(cuda_device):
     """Under autograd the GEMM wrapper raises (training calls it through
-    its autograd.Functions), flash attention runs its Function (the
-    output has a grad_fn and a backward kernel), and the SSD, which has no
-    backward kernel yet, raises naming ROADMAP.md A2b."""
+    its autograd.Functions), and flash attention and the SSD run their
+    Functions: the output has a grad_fn and the backward runs the
+    backward kernel once, with finite gradients."""
     a = torch.randn(64, 64, device=cuda_device, requires_grad=True)
     with pytest.raises(RuntimeError, match="not differentiable"):
         tatp_dot(a, a.detach())
@@ -525,5 +529,9 @@ def test_kernel_wrappers_never_return_detached_outputs(cuda_device):
     dt = torch.rand(2, 8, 2, device=cuda_device)
     a_ = -torch.ones(2, device=cuda_device)
     bm = torch.randn(2, 8, 16, device=cuda_device)
-    with pytest.raises(NotImplementedError, match="A2b"):
-        ssd_ops.ssd_intra_chunk(x, dt, a_, bm, bm)
+    y, st, g = ssd_ops.ssd_intra_chunk(x, dt, a_, bm, bm)
+    assert y.grad_fn is not None and st.grad_fn is not None
+    before = ssd_ops.ssd_intra_chunk_bwd.launches
+    (y.sum() + st.sum() + g.sum()).backward()
+    assert ssd_ops.ssd_intra_chunk_bwd.launches == before + 1
+    assert x.grad is not None and torch.isfinite(x.grad).all()

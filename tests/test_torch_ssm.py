@@ -1,10 +1,11 @@
 """The repro_torch SSM slice against repro on the CPU: the SSD kernel's
 plain version against the Pallas kernel (interpret mode) and the jnp
-oracle, the chunked SSD, the SSM decode step and convs, the Mamba-2 block
-on converted weights, the reduced mamba2-780m and zamba2-2.7b models
+oracle, the SSD's plain backward against autograd and ``jax.vjp``, the
+chunked SSD, the SSM decode step and convs, the Mamba-2 block on
+converted weights, the reduced mamba2-780m and zamba2-2.7b models
 (prefill plus greedy decode) and their one-shot serve, and the SSM leaves
 of ``init_params``; on a machine with an NVIDIA GPU and nvcc, the SSD
-kernel against its plain version.
+kernel and its backward kernel against their plain versions.
 
 Reduced configs (fp32): mamba2-780m 2 x ``M``, zamba2-2.7b ``MMS`` (d_model
 64, d_inner 128, 8 SSM heads of 16, state 16, chunk 8).  Inputs are made
@@ -199,6 +200,17 @@ def test_ssd_intra_chunk_cpu_uses_plain_version():
     assert ssd_ops.ssd_intra_chunk.launches == before
 
 
+def test_ssd_intra_chunk_bwd_cpu_uses_plain_version():
+    rng = np.random.RandomState(22)
+    ins = [_t(a) for a in _ssd_inputs(rng, 2, 8, 4, 16, 16)]
+    cots = [_t(c) for c in _cotangents(rng, 2, 8, 4, 16, 16, "all")]
+    before = ssd_ops.ssd_intra_chunk_bwd.launches
+    got = ssd_ops.ssd_intra_chunk_bwd(*ins, *cots)
+    for g, r in zip(got, ssd_intra_chunk_bwd_ref(*ins, *cots)):
+        assert torch.equal(g, r)
+    assert ssd_ops.ssd_intra_chunk_bwd.launches == before
+
+
 def test_ssd_wrapper_raises_off_cpu_and_cuda():
     """A tensor neither on the CPU nor on a CUDA device gets no plain-path
     fallback: the wrapper raises and counts no launch."""
@@ -206,10 +218,14 @@ def test_ssd_wrapper_raises_off_cpu_and_cuda():
     dt = torch.empty(2, 8, 4, device="meta")
     a = torch.empty(4, device="meta")
     bm = torch.empty(2, 8, 16, device="meta")
-    before = ssd_ops.ssd_intra_chunk.launches
+    before = (ssd_ops.ssd_intra_chunk.launches,
+              ssd_ops.ssd_intra_chunk_bwd.launches)
     with pytest.raises(ValueError, match="CUDA"):
         ssd_ops.ssd_intra_chunk(x, dt, a, bm, bm)
-    assert ssd_ops.ssd_intra_chunk.launches == before
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_ops.ssd_intra_chunk_bwd(x, dt, a, bm, bm, x)
+    assert (ssd_ops.ssd_intra_chunk.launches,
+            ssd_ops.ssd_intra_chunk_bwd.launches) == before
 
 
 # ---------------------------------------------------------------------------
@@ -517,3 +533,38 @@ def test_ssd_kernel_matches_plain(cuda_device, bc, q, h, p, n, pad):
     for g, r in zip(got, ssd_intra_chunk_ref(*ins)):
         np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
                                    rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bc,q,h,p,n,pad", [
+    (3, 100, 3, 48, 40, None), (2, 130, 3, 33, 70, 2),
+    (6, 8, 8, 16, 16, None), (2, 200, 5, 64, 256, None),
+    # H not a multiple of the kernel's head block of 4
+    (2, 256, 7, 64, 128, 1),
+])
+def test_ssd_backward_kernel_matches_plain(cuda_device, bc, q, h, p, n, pad):
+    """The backward kernel's five gradients against the plain backward,
+    each within 1e-3 of its largest magnitude (fp32; da is a sum over the
+    chunk rows and positions of terms that cancel)."""
+    rng = np.random.RandomState(23)
+    x, dt, a, bm, cm = [_t(v).to(cuda_device) for v in
+                        _ssd_inputs(rng, bc, q, h, p, n)]
+    if pad is not None:  # x, B and C column slices of one buffer
+        buf = torch.zeros((bc, q, h * p + 2 * n + pad), device=cuda_device)
+        buf[..., :h * p] = x.reshape(bc, q, h * p)
+        buf[..., h * p:h * p + n] = bm
+        buf[..., h * p + n:h * p + 2 * n] = cm
+        x = buf[..., :h * p].reshape(bc, q, h, p)
+        bm, cm = buf[..., h * p:h * p + n], buf[..., h * p + n:h * p + 2 * n]
+    ins = [x, dt, a, bm, cm]
+    cots = [_t(c).to(cuda_device)
+            for c in _cotangents(rng, bc, q, h, p, n, "all")]
+    before = ssd_ops.ssd_intra_chunk_bwd.launches
+    got = ssd_ops.ssd_intra_chunk_bwd(*ins, *cots)
+    torch.cuda.synchronize()
+    assert ssd_ops.ssd_intra_chunk_bwd.launches == before + 1
+    for name, g, r in zip(("dx", "ddt", "da", "dB", "dC"), got,
+                          ssd_intra_chunk_bwd_ref(*ins, *cots)):
+        assert torch.isfinite(g).all(), name
+        err = (g - r).abs().max() / r.abs().max()
+        assert err <= 1e-3, (name, float(err))
