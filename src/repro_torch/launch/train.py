@@ -5,6 +5,9 @@ with strategy ``tatp`` on one device::
     PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-7b \\
         --reduced --device cpu --steps 3 --batch 4 --seq 64
 
+``--arch mamba2-780m`` and ``--arch zamba2-2.7b`` train the same way; their
+``--seq`` must be a multiple of ``ssm_chunk`` (8 reduced, 256 at full
+width).
 It runs on the GPU unless ``--device cpu`` is given; with no GPU it raises.
 Weights are random from ``--seed`` and the data is the reference's
 synthetic LCG stream (:class:`repro_torch.train.data.SyntheticDataset`),
@@ -12,7 +15,7 @@ so both packages train on the same tokens.  As in the reference, reduced
 configs train without remat and full ones with it.  The printed JSON has
 the reference's summary keys.  Plan-driven and multi-wafer launches
 (``--plan``, ``--auto-plan``, ``--wafers``) are ROADMAP.md item A1,
-checkpoint/restart (``--ckpt-dir``, ``--fail-at-step``) A2b, and any
+checkpoint/restart (``--ckpt-dir``, ``--fail-at-step``) A2e, and any
 mesh other than ``1 1`` A3.
 """
 
@@ -44,7 +47,7 @@ def setup(args):
     if args.plan or args.auto_plan or args.wafers > 1:
         raise not_ported("plan-driven and multi-wafer launches", "A1")
     if args.ckpt_dir or args.fail_at_step is not None:
-        raise not_ported("checkpoint/restart", "A2b")
+        raise not_ported("checkpoint/restart", "A2e")
     if list(args.mesh) not in ([1, 1], [1]):
         raise not_ported(f"mesh {args.mesh}", "A3")
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)

@@ -164,7 +164,7 @@ def _stack(ctx: RunCtx, params, x, caches=None, cache_len=None):
     collect = caches is None and ctx.phase == "prefill"
     remat = ctx.par.remat and ctx.phase == "train"
     if remat and ctx.par.remat_policy == "tatp_outputs":
-        raise not_ported("remat_policy='tatp_outputs'", "A2b")
+        raise not_ported("remat_policy='tatp_outputs'", "A2e")
     new: dict[str, dict[str, list]] = {f"u{pos}": {} for pos in
                                        range(len(unit))}
 

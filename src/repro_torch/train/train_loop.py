@@ -6,7 +6,8 @@ The reference wraps its steps in ``jit(shard_map(...))`` with partition
 specs for params, optimizer state, batches and caches.  On one device the
 port needs none of that: the bundles hold plain closures.  The train step
 is the reference's: the loss's gradients (autograd through the TATP
-linears' explicit dgrad/wgrad and the attention kernel's backward), the
+linears' explicit dgrad/wgrad and the attention and SSD kernels'
+backwards), the
 gradient bookkeeping over the token and ring axes (identities at degree
 1: :func:`token_axes` is empty and :func:`reduce_model_axis_grads`
 returns the grads), then AdamW.

@@ -345,7 +345,7 @@ def test_remat_policy_tatp_outputs_raises(model):
     tctx = replace(tctx, par=replace(tctx.par, remat_policy="tatp_outputs"))
     batch = {k: torch.as_tensor(v) for k, v in
              _batch(cfg.vocab_size).items()}
-    with pytest.raises(NotImplementedError, match="A2b"):
+    with pytest.raises(NotImplementedError, match="A2e"):
         lm.loss_fn(tctx, params_from_jax(jparams, cfg, CPU), batch)
 
 
@@ -461,8 +461,8 @@ def test_train_main_prints_reference_keys(capsys):
 
 @pytest.mark.parametrize("flags,item", [
     (["--auto-plan"], "A1"), (["--plan", "p.json"], "A1"),
-    (["--wafers", "2"], "A1"), (["--ckpt-dir", "ck"], "A2b"),
-    (["--fail-at-step", "1"], "A2b"), (["--mesh", "2", "1"], "A3"),
+    (["--wafers", "2"], "A1"), (["--ckpt-dir", "ck"], "A2e"),
+    (["--fail-at-step", "1"], "A2e"), (["--mesh", "2", "1"], "A3"),
 ])
 def test_train_unported_flags_raise(flags, item):
     from repro_torch.launch.train import main
