@@ -8,9 +8,9 @@ imports nothing of jax or of the JAX package ``repro``.  Phases, each of
 which fails the run (non-zero exit, no final ``ok`` line) on any error:
 
 1. device — the card's name and power limit from ``nvidia-smi``;
-2. build — the three CUDA kernels from ``src/repro_torch/csrc`` (one
-   ``nvcc`` per source, in parallel), with the compiler's
-   register/shared-memory report;
+2. build — the four CUDA sources from ``src/repro_torch/csrc`` (GEMM,
+   flash attention, the SSD and its backward; one ``nvcc`` per source,
+   in parallel), with the compiler's register/shared-memory report;
 3. kernels — each kernel against its plain PyTorch version on the card at
    ragged shapes, every mask option and the main paths' shapes (fp32 with
    TF32 off: rtol = atol = 1e-3; bf16: 2e-2, as ``tests/test_kernels.py``),
@@ -35,33 +35,45 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    attention's backward kernel against autograd through the plain
    version (fp32 and bf16; causal, window, cap, GQA, ragged and fully
    masked rows; D 64, 80, 128 and 256), timed at deepseek-7b's train
-   shape beside SDPA's backward;
+   shape beside SDPA's backward; and the SSD backward kernel against the
+   plain backward (fp32: ragged, the train step's shapes contiguous and
+   strided, large decays; each gradient within 1e-3 of its largest
+   magnitude, and finite), timed at both SSM train shapes beside its
+   bound and the plain backward's;
 4. parity — at full width in fp32, deepseek-7b (2 layers), mamba2-780m
    (2 layers) and zamba2-2.7b (6 layers, one ``MMMMMS`` unit): prefill and
    4 greedy decode steps through the kernels (all on their fp32 ``simt``
    paths) and again with every kernel call replaced by its plain version;
    last-position logits within rtol = atol = 1e-3 and identical tokens;
-   then deepseek-7b's train step (2 layers, fp32, remat): the loss, every
-   gradient leaf (relative L2 error <= 1e-4) and the parameters after 2
-   AdamW steps (atol = 2 * sum(lr_t)), kernels against plain versions;
+   then the train step (fp32, remat) of deepseek-7b (2 layers, 2 x 256
+   tokens), mamba2-780m (2 layers) and zamba2-2.7b (6 layers), the SSM
+   models at 2 x 512 tokens so the recurrence's gradient runs: the loss,
+   every gradient leaf (relative L2 error <= 1e-4) and the parameters
+   after 2 AdamW steps (atol = 2 * sum(lr_t)), kernels against plain
+   versions;
 5. main paths — ``repro_torch.launch.serve`` one-shot, bf16, batch 4,
    32 generated tokens: deepseek-7b (30 layers, prompt 128), mamba2-780m
    (48 layers, prompt 512 = two SSD chunks) and zamba2-2.7b (54 layers,
    prompt 512).  Before each path every launch count is zeroed; just after
    it the counts must be exactly the path's (GEMM, flash, SSD, flash
-   backward): 210/30/0/0, 96/0/48/0 and 144/9/45/0 (one prefill each;
+   backward, SSD backward): 210/30/0/0/0, 96/0/48/0/0 and 144/9/45/0/0
+   (one prefill each;
    decode runs no kernel), every GEMM launch on ``wgmma`` and every flash
    launch on ``mma``.  Outputs finite and tokens in range; prefill time
    (median of 3), decode ms/token, peak memory and a profiler breakdown
-   of each path.  Then the train path: deepseek-7b at full width with 4
-   layers, bf16, batch 4 x seq 512, the reference's defaults (remat,
-   ``AdamWConfig()``), through ``make_train_step`` and
-   ``SyntheticDataset``, 5 steps, each with exactly 115 GEMMs (57 forward
-   with remat's recompute, 29 dgrad, 29 wgrad; the lm head's three
-   included) on ``wgmma``, 8 flash forwards and 4 flash backwards on
-   ``mma``; finite losses and grad norms; 3 steps on one fixed batch
-   lower its loss; step time, tokens/s, MFU, peak memory, the device
-   time of the gradients and of the AdamW update, and a profiler window.
+   of each path.  Then the train paths at full width, bf16, batch 4 x
+   seq 512, the reference's defaults (remat, ``AdamWConfig()``), through
+   ``make_train_step`` and ``SyntheticDataset``, 5 steps each:
+   deepseek-7b with 4 layers (each step exactly 115 GEMMs: 57 forward
+   with remat's recompute, 29 dgrad, 29 wgrad, the lm head's three
+   included; 8 flash forwards and 4 flash backwards), mamba2-780m at its
+   48 layers (387 GEMMs, 96 SSD forwards, 48 SSD backwards) and
+   zamba2-2.7b at its 54 (579 GEMMs, 18 flash forwards, 9 flash
+   backwards, 90 SSD forwards, 45 SSD backwards); every GEMM on
+   ``wgmma``, every flash on ``mma``; finite losses and grad norms; 3
+   steps on one fixed batch lower its loss; step time, tokens/s, MFU,
+   peak memory, the device time of the gradients and of the AdamW
+   update, and a profiler window with device time by kernel family.
 
 It then prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``.
@@ -101,11 +113,14 @@ SSD_PATH = "mma_3xtf32"
 # the exact kernel launches of each (one prefill; decode runs no kernel)
 PATHS = {
     "deepseek-7b": dict(prompt_len=128, n_layers=30, launches=dict(
-        tatp_matmul=210, flash_attention=30, ssd=0, flash_attention_bwd=0)),
+        tatp_matmul=210, flash_attention=30, ssd=0, flash_attention_bwd=0,
+        ssd_bwd=0)),
     "mamba2-780m": dict(prompt_len=512, n_layers=48, launches=dict(
-        tatp_matmul=96, flash_attention=0, ssd=48, flash_attention_bwd=0)),
+        tatp_matmul=96, flash_attention=0, ssd=48, flash_attention_bwd=0,
+        ssd_bwd=0)),
     "zamba2-2.7b": dict(prompt_len=512, n_layers=54, launches=dict(
-        tatp_matmul=144, flash_attention=9, ssd=45, flash_attention_bwd=0)),
+        tatp_matmul=144, flash_attention=9, ssd=45, flash_attention_bwd=0,
+        ssd_bwd=0)),
 }
 BATCH, GEN = 4, 32
 # the kernel path every bf16 main-path launch must take
@@ -147,6 +162,21 @@ ZAMBA_ATTN = (BATCH, 32, 512, 80)
 # (B * nc chunks, Q, H, P, N)
 SSD_SHAPES = {"mamba2-780m": (8, 256, 48, 64, 128),
               "zamba2-2.7b": (8, 256, 80, 64, 64)}
+# the SSD backward (fp32, TF32 off): each gradient's largest error within
+# this share of its largest magnitude.  da sums, over the chunk rows and
+# positions, terms that cancel: ~1e-4 of its size at a = -16.
+SSD_BWD_TOL = 1e-3
+# the backward kernel's one path: fp32 products on the CUDA cores
+SSD_BWD_PATH = "simt"
+
+
+# the port's kernels by the names of their __global__ functions, for the
+# profiler's device time by family
+KERNEL_FAMILIES = {"gemm": ("gemm_wgmma", "gemm_bf16", "gemm_f32"),
+                   "flash_fwd": ("flash_fwd", "flash_mma"),
+                   "flash_bwd": ("flash_bwd_",),
+                   "ssd_fwd": ("ssd_chunk_fwd",),
+                   "ssd_bwd": ("ssd_bwd_",)}
 
 
 class SmokeFailure(RuntimeError):
@@ -231,6 +261,12 @@ def profile_window(torch, fn, top=8):
         ms, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
     heaviest = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    groups = {}
+    for name, (ms, n) in by_name.items():
+        fam = next((f for f, keys in KERNEL_FAMILIES.items()
+                    if any(k in name for k in keys)), "other")
+        gms, gn = groups.get(fam, (0.0, 0))
+        groups[fam] = (gms + ms, gn + n)
     return dict(
         wall_ms=wall,
         device_busy_ms=busy if dev else "not measured",
@@ -238,6 +274,7 @@ def profile_window(torch, fn, top=8):
         device_events=len(dev),
         host_ops=sum(1 for e in events if e.device_type == DeviceType.CPU),
         top=[[name[:80], ms, n] for name, (ms, n) in heaviest],
+        by_family={f: [ms, n] for f, (ms, n) in sorted(groups.items())},
     )
 
 
@@ -629,6 +666,124 @@ def ssd_checks_and_timing(torch, randn, g):
                 per_arch=rows)
 
 
+def ssd_bwd_work(bc, q, h, p, n):
+    """The SSD backward's least work: the multiply-adds of C.B^T, dCB B
+    and dCB^T C (once per chunk: B and C are shared by the heads), and per
+    head dM = dy x^T and M^T dy over the causal (s <= q) pairs and the
+    state's B dst^T and (w x)^T dst; and its bytes, each input (x, dt, a,
+    B, C, dy, dst, dg) read once and each output (dx, ddt, da, dB, dC)
+    written once.  Returns (flops, bytes)."""
+    pairs = q * (q + 1) // 2
+    flops = bc * (6 * n * pairs + h * (4 * p * pairs + 4 * q * p * n))
+    nbytes = 4 * (3 * bc * q * h * p + bc * h * p * n + bc * h
+                  + 2 * bc * q * h + 2 * h + 4 * bc * q * n)
+    return flops, nbytes
+
+
+def phase_ssd_backward(torch, randn):
+    """The SSD backward kernel against the plain backward
+    (ssd_intra_chunk_bwd_ref, fp32, TF32 off) at ragged shapes, the train
+    step's shapes (contiguous and strided as mamba_block passes them) and
+    large decays (a = -16 over the 256-token chunk, where the gradients
+    must stay finite); then its time at both train shapes beside its
+    bound and the plain backward's (no library call computes it).
+    Returns the kernels-line record."""
+    from repro_torch.kernels.ssd.ops import ssd_intra_chunk_bwd
+    from repro_torch.kernels.ssd.ref import ssd_intra_chunk_bwd_ref
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+
+    def inputs(bc, q, h, p, n, strided=False, large=False):
+        if strided:  # x, B, C column slices of one buffer (the conv out)
+            buf = randn(bc, q, h * p + 2 * n + 1)
+            x = buf[..., :h * p].reshape(bc, q, h, p)
+            bm = buf[..., h * p:h * p + n]
+            cm = buf[..., h * p + n:h * p + 2 * n]
+        else:
+            x, bm, cm = randn(bc, q, h, p), randn(bc, q, n), randn(bc, q, n)
+        if large:  # cum falls to ~-3000 over the chunk
+            dt = torch.rand(bc, q, h, generator=g, device=dev) * 0.5 + 0.5
+            a = torch.full((h,), -16.0, device=dev)
+        else:  # the range of softplus(dt_bias) and -exp(a_log) at init
+            dt = torch.rand(bc, q, h, generator=g, device=dev) * 0.1
+            a = -torch.linspace(1.0, 16.0, h, device=dev)
+        cots = (randn(bc, q, h, p), randn(bc, h, p, n), randn(bc, h))
+        return (x, dt, a, bm, cm), cots
+
+    log("[kernels] ssd backward vs ssd_intra_chunk_bwd_ref")
+    cases = [("ragged", (3, 100, 3, 48, 40), {}),
+             ("ragged strided", (2, 130, 5, 33, 70), dict(strided=True))]
+    cases += [(arch, shape, {}) for arch, shape in SSD_SHAPES.items()]
+    cases += [(arch + " strided", shape, dict(strided=True))
+              for arch, shape in SSD_SHAPES.items()]
+    cases += [("large decay a=-16", SSD_SHAPES["mamba2-780m"],
+               dict(large=True))]
+    max_abs, max_rel = 0.0, 0.0
+    for name, shape, kw in cases:
+        ins, cots = inputs(*shape, **kw)
+        before = ssd_intra_chunk_bwd.launches
+        got = ssd_intra_chunk_bwd(*ins, *cots)
+        torch.cuda.synchronize()
+        need(ssd_intra_chunk_bwd.launches == before + 1,
+             f"ssd backward {name}: did not launch the kernel")
+        rel = {}
+        for part, gt, rf in zip(("dx", "ddt", "da", "dB", "dC"), got,
+                                ssd_intra_chunk_bwd_ref(*ins, *cots)):
+            need(bool(gt.isfinite().all()),
+                 f"ssd backward {name} {part}: non-finite kernel output")
+            need(bool(rf.isfinite().all()),
+                 f"ssd backward {name} {part}: non-finite plain output")
+            err = (gt - rf).abs().max().item()
+            rel[part] = err / max(rf.abs().max().item(), 1e-30)
+            if shape in SSD_SHAPES.values():
+                max_abs = max(max_abs, err)
+        worst = max(rel.values())
+        max_rel = max(max_rel, worst)
+        ok = worst <= SSD_BWD_TOL
+        log(f"  check f32 {name} {list(shape)} ({SSD_BWD_PATH}): max "
+            f"relative error {worst:.3e} (each gradient's max |error| / "
+            f"max |plain|: {json.dumps(rel)}) tol {SSD_BWD_TOL} "
+            f"{'ok' if ok else 'FAIL'}")
+        need(ok, f"ssd backward {name}: kernel disagrees with the plain "
+             f"backward")
+
+    rows = {}
+    for arch, shape in SSD_SHAPES.items():
+        ins, cots = inputs(*shape)
+        flops, nbytes = ssd_bwd_work(*shape)
+        row = dict(
+            shape=list(shape), path=SSD_BWD_PATH,
+            ms=time_ms(torch, lambda: ssd_intra_chunk_bwd(*ins, *cots)),
+            plain_ms=time_ms(torch, lambda: ssd_intra_chunk_bwd_ref(
+                *ins, *cots), 5, 1),
+            gflop=flops / 1e9, mbytes=nbytes / 1e6)
+        # the least time at the card's fastest fp32-accurate rate (3xTF32
+        # on the tensor cores), the fp32 CUDA-core bound beside it
+        row["bound_ms"], row["bound_by"] = bound(flops, nbytes, "tf32x3")
+        row["bound_fp32_cuda_ms"] = bound(flops, nbytes, "float32")[0]
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        rows[arch] = row
+    log(f"  timings of the backward [B*nc, Q, H, P, N] fp32: "
+        f"{json.dumps(rows)}")
+    main = rows["mamba2-780m"]
+    return dict(name="ssd_bwd", route="cuda", path=SSD_BWD_PATH,
+                source="src/repro_torch/csrc/ssd_bwd.cu",
+                replaces="none: JAX differentiates its jnp SSD path "
+                         "(src/repro/models/ssm.py:ssd_chunked); the Pallas "
+                         "kernel src/repro/kernels/ssd/kernel.py:20 has no "
+                         "backward",
+                max_abs_err=max_abs, max_rel_err=max_rel,
+                rel_tol=SSD_BWD_TOL, ms=main["ms"], kernel_ms=main["ms"],
+                plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                bound_by=main["bound_by"],
+                bound_fp32_cuda_ms=main["bound_fp32_cuda_ms"],
+                share_of_bound=main["share_of_bound"], library_ms=None,
+                timed="one mamba2-780m train layer's SSD backward, "
+                      "[8,256,48,64] N=128 fp32",
+                per_arch=rows)
+
+
 # the GEMM's four operand layout pairs: (A transposed, B transposed) —
 # the forward, dgrad (dy @ w.T), wgrad (x.T @ dy), both
 LAYOUTS = ((False, False), (False, True), (True, False), (True, True))
@@ -638,6 +793,12 @@ LAYOUT_NAMES = {(False, False): "fwd", (False, True): "dgrad",
 # deepseek-7b's train step at batch 4 x seq 512, 4 layers
 TRAIN = dict(batch=4, seq=512, n_layers=4, steps=5)
 M_TRAIN = TRAIN["batch"] * TRAIN["seq"]
+# the bf16 train main paths at batch 4 x seq 512: (arch, layers).
+# deepseek-7b's 30 layers need ~110 GB with AdamW's state (16 B a
+# parameter); mamba2-780m (0.781 B parameters, ~12.5 GB) and zamba2-2.7b
+# (1.956 B in this config, ~31 GB) fit one card at full depth.
+TRAIN_RUNS = (("deepseek-7b", TRAIN["n_layers"]), ("mamba2-780m", 48),
+              ("zamba2-2.7b", 54))
 
 
 def _operand(torch, randn, rows, cols, transposed, dtype, scale=1.0,
@@ -976,14 +1137,16 @@ def phase_flash_backward(torch, randn):
 
 def counters():
     """The kernel wrappers, by kernel name (each counts its own launches
-    in ``.launches``): the three forward kernels and flash attention's
-    backward."""
+    in ``.launches``): the three forward kernels and the backward kernels
+    of flash attention and the SSD."""
     from repro_torch.kernels.flash_attention.ops import (attention,
                                                          attention_bwd)
-    from repro_torch.kernels.ssd.ops import ssd_intra_chunk
+    from repro_torch.kernels.ssd.ops import (ssd_intra_chunk,
+                                             ssd_intra_chunk_bwd)
     from repro_torch.kernels.tatp_matmul.ops import tatp_dot
     return {"tatp_matmul": tatp_dot, "flash_attention": attention,
-            "ssd": ssd_intra_chunk, "flash_attention_bwd": attention_bwd}
+            "ssd": ssd_intra_chunk, "flash_attention_bwd": attention_bwd,
+            "ssd_bwd": ssd_intra_chunk_bwd}
 
 
 def read_launches():
@@ -1015,7 +1178,7 @@ def prefill_launches(cfg):
     flash; per Mamba-2 slot in_proj, out_proj and one SSD pass."""
     from repro_torch.models.common import is_gated
     n = {"tatp_matmul": 0, "flash_attention": 0, "ssd": 0,
-         "flash_attention_bwd": 0}
+         "flash_attention_bwd": 0, "ssd_bwd": 0}
     for kind in cfg.pattern_for_layers():
         if kind == "M":
             n["tatp_matmul"] += 2
@@ -1203,17 +1366,30 @@ def phase_main_path(torch, arch):
 
 
 def train_launches(cfg, remat):
-    """Kernel launches of one train step of a dense model: per layer the
-    seven linears' forward (again in the backward under remat), dgrad and
-    wgrad, the attention forward (again under remat) and its backward;
-    the lm head's forward, dgrad and wgrad once.  Returns (launches by
-    kernel, GEMM launches by layout pair)."""
-    layers = cfg.n_layers
-    fwd = 7 * layers * (2 if remat else 1) + 1
-    grads = 7 * layers + 1
-    n = {"tatp_matmul": fwd + 2 * grads,
-         "flash_attention": layers * (2 if remat else 1), "ssd": 0,
-         "flash_attention_bwd": layers}
+    """Kernel launches of one train step: per layer its linears' forward
+    (again in the backward under remat), dgrad and wgrad; per attention
+    slot (G, L or S: the four attention linears and the MLP's, three
+    gated or two) one flash forward (again under remat) and one flash
+    backward; per Mamba-2 slot (in_proj, out_proj) one SSD forward (again
+    under remat) and one SSD backward; the lm head's forward, dgrad and
+    wgrad once (with tied embeddings its forward reads the embedding
+    transposed and its dgrad reads it row-major, so the layout counts are
+    the same).  Returns (launches by kernel, GEMM launches by layout
+    pair)."""
+    from repro_torch.models.common import is_gated
+    per = 2 if remat else 1
+    linears = attn = mamba = 0
+    for kind in cfg.pattern_for_layers():
+        if kind == "M":
+            linears += 2
+            mamba += 1
+        else:
+            linears += 4 + (3 if is_gated(cfg.act) else 2)
+            attn += 1
+    fwd = per * linears + 1
+    grads = linears + 1
+    n = {"tatp_matmul": fwd + 2 * grads, "flash_attention": per * attn,
+         "ssd": per * mamba, "flash_attention_bwd": attn, "ssd_bwd": mamba}
     return n, {"fwd": fwd, "dgrad": grads, "wgrad": grads, "both": 0}
 
 
@@ -1239,20 +1415,27 @@ def named_grads(bundle, params, batch):
     return nll / cnt, {"/".join(k): g for k, g in _leaves(grads)}
 
 
-# the fp32 train parity: full width, 2 layers, batch 2 x seq 256, 2 steps;
-# each gradient leaf within this relative L2 error of the plain path's
-TRAIN_PARITY = dict(n_layers=2, batch=2, seq=256, steps=2)
+# the fp32 train parity runs at full width, 2 steps each: (arch, layers,
+# batch, seq).  The SSM runs take two 256-token chunks a row, so the
+# inter-chunk recurrence's gradient runs; zamba2's 6 layers are one
+# MMMMMS unit.  Each gradient leaf within GRAD_REL_TOL relative L2 error
+# of the plain path's.
+TRAIN_PARITY = (("deepseek-7b", 2, 2, 256), ("mamba2-780m", 2, 2, 512),
+                ("zamba2-2.7b", 6, 2, 512))
+TRAIN_PARITY_STEPS = 2
 GRAD_REL_TOL = 1e-4
 
 
-def phase_train_parity(torch):
-    """deepseek-7b at full width, 2 layers, fp32 (TF32 off), remat on: the
-    train step through the kernels (every GEMM on simt, flash forward and
-    backward on simt) against the same step with the hooks swapped to the
-    plain versions, on the same parameters and batches: the loss, every
-    gradient leaf (relative L2 error), and the parameters after 2 AdamW
-    steps (atol = 2 * sum(lr_t): Adam's first steps are ~lr * sign(g), so
-    where g ~ 0 two right answers differ by up to 2 lr_t)."""
+def phase_train_parity(torch, arch, n_layers, batch, seq):
+    """``arch`` at full width, ``n_layers`` layers, fp32 (TF32 off), remat
+    on: the train step through the kernels (every GEMM on simt, flash
+    forward and backward on simt, the SSD on its forward and backward
+    kernels) against the same step with the hooks swapped to the plain
+    versions (the plain chunked SSD: autograd through its NaN-safe jnp
+    mirror), on the same parameters and batches: the loss, every gradient
+    leaf (relative L2 error), and the parameters after 2 AdamW steps
+    (atol = 2 * sum(lr_t): Adam's first steps are ~lr * sign(g), so where
+    g ~ 0 two right answers differ by up to 2 lr_t)."""
     from dataclasses import replace
 
     from repro_torch.configs import get_config
@@ -1260,23 +1443,22 @@ def phase_train_parity(torch):
     from repro_torch.core.dist import Dist
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.tatp_matmul.ref import matmul_ref
+    from repro_torch.models.ssm import ssd_chunked
     from repro_torch.models.transformer import init_params
     from repro_torch.train.data import SyntheticDataset
     from repro_torch.train.optimizer import tree_map
     from repro_torch.train.train_loop import make_train_step
 
     dev = torch.device("cuda")
-    tp = TRAIN_PARITY
-    cfg = replace(get_config("deepseek-7b"), n_layers=tp["n_layers"],
-                  dtype="float32")
+    cfg = replace(get_config(arch), n_layers=n_layers, dtype="float32")
     par = ParallelConfig(strategy="tatp", remat=True)
     dist = Dist(dev)
-    shape = ShapeConfig("parity", "train", tp["seq"], tp["batch"])
+    shape = ShapeConfig("parity", "train", seq, batch)
     kern = make_train_step(cfg, par, dist, shape)
     plain = make_train_step(cfg, par, dist, shape, dot=matmul_ref,
-                            attention=attention_ref)
+                            attention=attention_ref, ssd=ssd_chunked)
     data = SyntheticDataset(cfg, shape, dist, seed=1)
-    batches = [data.batch(i) for i in range(tp["steps"])]
+    batches = [data.batch(i) for i in range(TRAIN_PARITY_STEPS)]
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(1), dev)
     want, want_layouts = train_launches(cfg, remat=True)
 
@@ -1294,9 +1476,9 @@ def phase_train_parity(torch):
     loss_p, grads_p = named_grads(plain, params, batches[0])
     need(not any(read_launches().values()),
          f"plain train step launched {read_launches()}")
-    log(f"[train parity] deepseek-7b full width, {cfg.n_layers} layers, "
-        f"fp32, batch {tp['batch']} x seq {tp['seq']}, remat; kernel "
-        f"launches {want}, by layout {want_layouts}")
+    log(f"[train parity] {arch} full width, {cfg.n_layers} layers, "
+        f"fp32, batch {batch} x seq {seq}, remat; kernel launches {want}, "
+        f"by layout {want_layouts}")
     compare("train loss", loss_k, loss_p, 1e-5, 1e-5)
     rel = {}
     for name, gk in grads_k.items():
@@ -1316,8 +1498,8 @@ def phase_train_parity(torch):
     for bundle, p in ((kern, params_k), (plain, params)):
         state = bundle.opt.init(p)
         lrs, losses = [], []
-        for batch in batches:
-            p, state, m = bundle.step_fn(p, state, batch)
+        for b in batches:
+            p, state, m = bundle.step_fn(p, state, b)
             lrs.append(float(m["lr"]))
             losses.append(float(m["loss"]))
         runs.append((lrs, losses))
@@ -1330,9 +1512,11 @@ def phase_train_parity(torch):
         err = (pk - pp).abs().max().item()
         worst = max(worst, err)
         need(err <= atol, f"param {'/'.join(name)} after "
-             f"{tp['steps']} steps: max_abs_err {err:.3e} > {atol:.3e}")
+             f"{TRAIN_PARITY_STEPS} steps: max_abs_err {err:.3e} > "
+             f"{atol:.3e}")
     log(f"  losses kernel {runs[0][1]} plain {runs[1][1]}; params after "
-        f"{tp['steps']} steps max_abs_err {worst:.3e} (atol {atol:.3e})")
+        f"{TRAIN_PARITY_STEPS} steps max_abs_err {worst:.3e} (atol "
+        f"{atol:.3e})")
     del params, params_k
     release(torch)
     return dict(loss=loss_k.item(), worst_grad_rel=max(rel.values()),
@@ -1341,29 +1525,48 @@ def phase_train_parity(torch):
 
 def mfu(step_s, n_tokens, cfg, seq):
     """Model FLOPs utilisation at the card's bf16 peak: 6 * tokens * the
-    parameters of every product (the layers' linears and the lm head; the
-    embedding is a lookup), plus attention's products over the causal
-    pairs (forward 4 * pairs * D a head, backward twice that)."""
+    parameters of every product (each slot's linears, zamba2's shared
+    block once per use, and the lm head; the embedding is a lookup), plus
+    attention's products over the causal pairs in each attention slot
+    (forward 4 * pairs * D a head, backward twice that), plus the SSD's
+    intra-chunk products in each Mamba-2 slot (forward as ``ssd_bound``
+    and backward as ``ssd_bwd_work`` count them; the inter-chunk
+    recurrence is not counted).  Remat's recompute is not model work.
+    Returns (MFU, model flops, product parameters)."""
+    from repro_torch.models.common import is_gated
     from repro_torch.models.transformer import padded_vocab
-    d, f = cfg.d_model, cfg.d_ff
-    layer = d * cfg.q_dim + 2 * d * cfg.kv_dim + cfg.q_dim * d + 3 * d * f
-    n_params = cfg.n_layers * layer + d * padded_vocab(cfg)
+    d = cfg.d_model
     b = n_tokens // seq
     pairs = b * seq * (seq + 1) // 2
-    attn = 3 * 4 * pairs * cfg.head_dim * cfg.n_heads * cfg.n_layers
-    flops = 6 * n_tokens * n_params + attn
+    attn_slot = (d * cfg.q_dim + 2 * d * cfg.kv_dim + cfg.q_dim * d
+                 + (3 if is_gated(cfg.act) else 2) * d * cfg.d_ff)
+    mamba_slot = (d * (2 * cfg.d_inner + 2 * cfg.ssm_state + cfg.ssm_heads)
+                  + cfg.d_inner * d)
+    n_params, extra = d * padded_vocab(cfg), 0
+    for kind in cfg.pattern_for_layers():
+        if kind == "M":
+            n_params += mamba_slot
+            ssd = (b * seq // cfg.ssm_chunk, cfg.ssm_chunk, cfg.ssm_heads,
+                   cfg.ssm_head_dim, cfg.ssm_state)
+            extra += ssd_bound(*ssd)[2] + ssd_bwd_work(*ssd)[0]
+        else:
+            n_params += attn_slot
+            extra += 3 * 4 * pairs * cfg.head_dim * cfg.n_heads
+    flops = 6 * n_tokens * n_params + extra
     return flops / step_s / PEAK_FLOPS["bfloat16"], flops, n_params
 
 
-def phase_train_main(torch):
-    """The bf16 main train path: deepseek-7b at full width, 4 layers,
-    batch 4 x seq 512, the reference's defaults (remat on, AdamWConfig()),
-    through make_train_step and SyntheticDataset, 5 steps.  Launch counts
-    are zeroed before each step and must be exactly one step's after it,
-    every GEMM on wgmma and every flash forward on mma; losses and grad
-    norms finite; then 3 steps on one fixed batch must lower its loss.
-    Reports step ms (host clock), tokens/s, MFU, peak GB and a profiler
-    window of one step."""
+def phase_train_main(torch, arch, n_layers):
+    """A bf16 main train path: ``arch`` at full width with ``n_layers``
+    layers, batch 4 x seq 512, the reference's defaults (remat on,
+    AdamWConfig()), through make_train_step and SyntheticDataset, 5 steps.
+    Launch counts are zeroed before each step and must be exactly one
+    step's after it (train_launches: every SSD backward on its kernel),
+    every GEMM on wgmma and every flash forward and backward on mma;
+    losses and grad norms finite; then 3 steps on one fixed batch must
+    lower its loss.  Reports step ms (host clock), tokens/s, MFU, peak GB,
+    the device time of the gradients and of the AdamW update, and a
+    profiler window of one step with the device time by kernel family."""
     from dataclasses import replace
 
     from repro_torch.configs import get_config
@@ -1374,8 +1577,9 @@ def phase_train_main(torch):
     from repro_torch.train.train_loop import loss_and_grads, make_train_step
 
     dev = torch.device("cuda")
-    cfg = replace(get_config("deepseek-7b"), n_layers=TRAIN["n_layers"])
-    need(cfg.dtype == "bfloat16", f"deepseek-7b dtype {cfg.dtype}")
+    full = get_config(arch)
+    cfg = replace(full, n_layers=n_layers)
+    need(cfg.dtype == "bfloat16", f"{arch} dtype {cfg.dtype}")
     par = ParallelConfig(strategy="tatp")  # remat on, as the reference
     need(par.remat, "the reference's default trains with remat")
     dist = Dist(dev)
@@ -1468,7 +1672,10 @@ def phase_train_main(torch):
     n_tok = TRAIN["batch"] * TRAIN["seq"]
     util, flops, n_params = mfu(steady / 1e3, n_tok, cfg, TRAIN["seq"])
     out = dict(
-        layers=cfg.n_layers, batch=TRAIN["batch"], seq=TRAIN["seq"],
+        layers=cfg.n_layers, published_layers=full.n_layers,
+        depth_cut=f"{full.n_layers} -> {cfg.n_layers} layers"
+        if cfg.n_layers != full.n_layers else "none",
+        batch=TRAIN["batch"], seq=TRAIN["seq"],
         params=n_state, model_params_for_mfu=n_params,
         launches_per_step=want, layouts_per_step=want_layouts,
         losses=losses, grad_norms=gnorms, lrs=lrs,
@@ -1476,7 +1683,7 @@ def phase_train_main(torch):
         step_ms_median_after_first=steady, tokens_per_s=n_tok / steady * 1e3,
         mfu=util, model_flops_per_step=flops, peak_mem_gb=peak / 1e9,
         init_s=init_s, device_ms=halves, profile=prof)
-    log(f"[train main path] deepseek-7b {cfg.n_layers} layers bf16 batch "
+    log(f"[train main path] {arch} {cfg.n_layers} layers bf16 batch "
         f"{TRAIN['batch']} x seq {TRAIN['seq']}, {TRAIN['steps']} steps: "
         f"{json.dumps(out)}")
     del params, state, state_box
@@ -1506,28 +1713,32 @@ def main() -> int:
     randn = make_randn(torch, 1)
     kernels += phase_gemm_layouts(torch, randn)
     kernels.append(phase_flash_backward(torch, randn))
+    kernels.append(phase_ssd_backward(torch, randn))
     for arch, n_layers, b, s in PARITY:
         phase_parity(torch, arch, n_layers, b, s)
-    phase_train_parity(torch)
+    for arch, n_layers, b, s in TRAIN_PARITY:
+        phase_train_parity(torch, arch, n_layers, b, s)
     runs = {arch: phase_main_path(torch, arch) for arch in PATHS}
-    train = "deepseek-7b train"
-    train_n, train_layouts, train_paths, _ = phase_train_main(torch)
+    trains = {f"{arch} train": phase_train_main(torch, arch, n_layers)[:3]
+              for arch, n_layers in TRAIN_RUNS}
     # each record's launches: the counts of every main path's run (the
-    # serve paths and the train path), read just after it.  The GEMM's
+    # serve paths and the train paths), read just after it.  The GEMM's
     # three records split its train launches by layout: tatp_matmul counts
     # the forward ones (serve's too), tatp_matmul_dgrad and _wgrad theirs;
     # every one took wgmma, as phase_train_main asserts step by step
     all_runs = dict(runs)
-    all_runs[train] = (train_n, train_paths)
+    for train, (train_n, _, train_paths) in trains.items():
+        all_runs[train] = (train_n, train_paths)
     for k in kernels:
         lay = GEMM_RECORD_LAYOUT.get(k["name"])
         counter = "tatp_matmul" if lay else k["name"]
         of = {} if lay in ("dgrad", "wgrad") else {
             a: (n[counter], p.get(counter)) for a, (n, p) in all_runs.items()}
         if lay:
-            n = train_layouts[lay]
-            of[train] = (n, {key: n if key == "wgmma" else 0
-                             for key in train_paths[counter]})
+            for train, (_, train_layouts, train_paths) in trains.items():
+                n = train_layouts[lay]
+                of[train] = (n, {key: n if key == "wgmma" else 0
+                                 for key in train_paths[counter]})
         k["launches"] = sum(n for n, _ in of.values())
         k["launches_by_path"] = {a: n for a, (n, _) in of.items()}
         if counter in MAIN_PATH_KERNEL:

@@ -26,24 +26,26 @@
 //
 // Design (a first, simple kernel; fp32 throughout, no atomics, so the
 // gradients are deterministic):
-//   * Five kernels in stream order.  k_cb: C.B^T per chunk, once for all
-//     heads, in 64 x 64 lower-triangle tiles.  k_main, per (s tile, chunk,
-//     head block of HB heads): for each head and each q tile at or below
-//     the diagonal, dM, M, T and dM * L * dt_s of the 64 x 64 tile; dx of
-//     the s tile accumulates M^T dy in registers; dM * L * dt_s is summed
-//     over the block's heads into a per-(chunk, head block) scratch before
-//     any product with B or C; row sums of T dt_s go to scratch per s
-//     tile, column sums stay in the block.  Then the state's terms E, dx
-//     and dw.  k_dt, per (chunk, head): dcum, its reverse cumsum, ddt and
-//     the (chunk, head) partial of da.  k_dc and k_db, per (head block,
-//     chunk, 64-row tile, 64-column n tile): dC = dCB B and dB = dCB^T C +
-//     sum_h (w x_h)^T dst_h, each a partial over head blocks.  The wrapper
+//   * Five kernels in stream order.  ssd_bwd_cb: C.B^T per chunk, once
+//     for all heads, in 64 x 64 lower-triangle tiles.  ssd_bwd_main, per
+//     (s tile, chunk, head block of HB heads): for each head and each q
+//     tile at or below the diagonal, dM, M, T and dM * L * dt_s of the
+//     64 x 64 tile; dx of the s tile accumulates M^T dy in registers;
+//     dM * L * dt_s is summed over the block's heads into a per-(chunk,
+//     head block) scratch before any product with B or C; row sums of
+//     T dt_s go to scratch per s tile, column sums stay in the block.
+//     Then the state's terms E, dx and dw.  ssd_bwd_dt, per (chunk, head):
+//     dcum, its reverse cumsum, ddt and the (chunk, head) partial of da.
+//     ssd_bwd_dc and ssd_bwd_db, per (head block, chunk, 64-row tile,
+//     64-column n tile): dC = dCB B and dB = dCB^T C + sum_h (w x_h)^T
+//     dst_h, each a partial over head blocks.  The wrapper
 //     (kernels/ssd/ops.py) sums the head-block partials of dB and dC and
 //     the chunk partials of da in torch: sums in a fixed order, no product.
 //   * Each tile product is 256 threads of 4 x 4 outputs over shared-memory
 //     tiles of pitch 65 floats (odd), so row and column reads are both
-//     free of bank conflicts.  At 8 chunk rows the grids are 80 (k_cb) to
-//     768 blocks, heaviest first where the causal work differs.
+//     free of bank conflicts.  At 8 chunk rows the grids are 80
+//     (ssd_bwd_cb) to 768 blocks, heaviest first where the causal work
+//     differs.
 //   * The decay is selected with the causal mask, never multiplied by it:
 //     exp(cum_q - cum_s) overflows to inf above the diagonal, and a select
 //     after the exp would make 0 * inf = NaN.  Masked exponents are -inf.
@@ -63,7 +65,7 @@ constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 outputs each
 constexpr int T = 64;         // tile rows and columns
 constexpr int LD = T + 1;     // odd pitch: rows and columns conflict-free
 constexpr int TILE = T * LD;  // floats of one tile
-constexpr int HB = 4;         // heads a block of k_main and k_db
+constexpr int HB = 4;         // heads a block (ssd_bwd_main, ssd_bwd_db)
 constexpr int MAX_P = 64;
 constexpr int MAX_N = 256;
 constexpr int SMEM_MAX = 232448;  // dynamic shared memory a block can use
@@ -160,7 +162,7 @@ __device__ void block_cum(float* cum, float* dts, const Args& A, int c,
 }
 
 // C.B^T of chunk c in lower-triangle tile pairs (q tile >= s tile)
-__global__ void __launch_bounds__(THREADS) k_cb(const Args A) {
+__global__ void __launch_bounds__(THREADS) ssd_bwd_cb(const Args A) {
   __shared__ float cs[TILE], bs[TILE];
   const int npair = A.nq * (A.nq + 1) / 2;
   const int c = blockIdx.x / npair;
@@ -193,7 +195,7 @@ __global__ void __launch_bounds__(THREADS) k_cb(const Args A) {
 
 // per (s tile, chunk, head block): dx of the s tile, the head-block sum
 // of dM * L * dt_s, and the dcum / ddt terms of the s tile
-__global__ void __launch_bounds__(THREADS, 2) k_main(const Args A) {
+__global__ void __launch_bounds__(THREADS, 2) ssd_bwd_main(const Args A) {
   extern __shared__ float sm[];
   float* const xs = sm;           // x of the head, s tile [s][p]
   float* const dys = xs + TILE;   // dy of the head, q tile [q][p]; B [s][n]
@@ -343,7 +345,7 @@ __global__ void __launch_bounds__(THREADS, 2) k_main(const Args A) {
 }
 
 // per (chunk, head): dcum, its reverse cumsum, ddt and da's partial
-__global__ void __launch_bounds__(THREADS) k_dt(const Args A) {
+__global__ void __launch_bounds__(THREADS) ssd_bwd_dt(const Args A) {
   extern __shared__ float sm[];
   const int Q = A.Q;
   float* const dts = sm;
@@ -381,7 +383,7 @@ __global__ void __launch_bounds__(THREADS) k_dt(const Args A) {
 
 // per (q tile, head block, chunk, n tile): dC's head-block partial,
 // sum_{s <= q} dCB[q][s] B[s][n]
-__global__ void __launch_bounds__(THREADS) k_dc(const Args A) {
+__global__ void __launch_bounds__(THREADS) ssd_bwd_dc(const Args A) {
   __shared__ float as[TILE], bs[TILE];
   const int Q = A.Q, nn = (A.N + T - 1) / T;
   const int per_qt = A.nhb * A.BC * nn;
@@ -418,7 +420,7 @@ __global__ void __launch_bounds__(THREADS) k_dc(const Args A) {
 
 // per (s tile, head block, chunk, n tile): dB's head-block partial,
 // sum_{q >= s} dCB[q][s] C[q][n] + sum_h sum_p w_s x_h[s][p] dst_h[p][n]
-__global__ void __launch_bounds__(THREADS) k_db(const Args A) {
+__global__ void __launch_bounds__(THREADS) ssd_bwd_db(const Args A) {
   extern __shared__ float sm[];
   float* const as = sm;
   float* const bs = as + TILE;
@@ -557,20 +559,20 @@ int ssd_intra_chunk_bwd_launch(
   const size_t sm_dt = sizeof(float) * 3 * static_cast<size_t>(Q);
   const size_t sm_db =
       sizeof(float) * (2 * TILE + T + 2 * static_cast<size_t>(HB) * Q);
-  int err = set_smem(reinterpret_cast<const void*>(k_main), sm_main);
-  if (!err) err = set_smem(reinterpret_cast<const void*>(k_dt), sm_dt);
-  if (!err) err = set_smem(reinterpret_cast<const void*>(k_db), sm_db);
+  int err = set_smem(reinterpret_cast<const void*>(ssd_bwd_main), sm_main);
+  if (!err) err = set_smem(reinterpret_cast<const void*>(ssd_bwd_dt), sm_dt);
+  if (!err) err = set_smem(reinterpret_cast<const void*>(ssd_bwd_db), sm_db);
   if (err) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  k_cb<<<static_cast<unsigned>(grids[0]), THREADS, 0, s>>>(A);
+  ssd_bwd_cb<<<static_cast<unsigned>(grids[0]), THREADS, 0, s>>>(A);
   if ((err = static_cast<int>(cudaGetLastError()))) return err;
-  k_main<<<static_cast<unsigned>(grids[1]), THREADS, sm_main, s>>>(A);
+  ssd_bwd_main<<<static_cast<unsigned>(grids[1]), THREADS, sm_main, s>>>(A);
   if ((err = static_cast<int>(cudaGetLastError()))) return err;
-  k_dt<<<static_cast<unsigned>(grids[2]), THREADS, sm_dt, s>>>(A);
+  ssd_bwd_dt<<<static_cast<unsigned>(grids[2]), THREADS, sm_dt, s>>>(A);
   if ((err = static_cast<int>(cudaGetLastError()))) return err;
-  k_dc<<<static_cast<unsigned>(grids[3]), THREADS, 0, s>>>(A);
+  ssd_bwd_dc<<<static_cast<unsigned>(grids[3]), THREADS, 0, s>>>(A);
   if ((err = static_cast<int>(cudaGetLastError()))) return err;
-  k_db<<<static_cast<unsigned>(grids[4]), THREADS, sm_db, s>>>(A);
+  ssd_bwd_db<<<static_cast<unsigned>(grids[4]), THREADS, sm_db, s>>>(A);
   return static_cast<int>(cudaGetLastError());
 }
 
