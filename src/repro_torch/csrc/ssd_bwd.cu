@@ -14,8 +14,12 @@
 //                                                      + sum_h w_s x_h^T dst_h
 //   T = dM * CB * L: ddt_s gets sum_q T + dw_s exp(cum_{Q-1} - cum_s) and
 //   a times the reverse cumsum of dcum, where dcum gathers
-//   +sum_s T dt_s (q side), -dt_s sum_q T (s side), -dw_s w_s at s,
-//   sum_s dw_s w_s + dg g at Q - 1;  da = sum (reverse cumsum) * dt.
+//   +sum_{s<q} T dt_s (q side), -dt_s sum_{q>s} T (s side), -dw_s w_s at
+//   s < Q - 1, sum_{s<Q-1} dw_s w_s + dg g at Q - 1;  da = sum (reverse
+//   cumsum) * dt.  The pairs whose exponent is identically 0 (s = q; s =
+//   Q - 1 in w) are left out of dcum: their two sides cancel exactly, and
+//   summed apart their rounding residue would swamp the ~1e-5 smaller
+//   terms that reach cum at large decays.
 //
 // What bounds it on this card: at mamba2-780m's train shape (8 chunk rows
 // of Q = 256, H = 48, P = 64, N = 128) one call needs ~6.7 GFLOP counting
@@ -201,9 +205,11 @@ __global__ void __launch_bounds__(THREADS, 2) ssd_bwd_main(const Args A) {
   float* const dys = xs + TILE;   // dy of the head, q tile [q][p]; B [s][n]
   float* const cbs = dys + TILE;  // C.B^T tile [q][s]; dst [p][n]
   float* const ms = cbs + TILE;   // M tile [q][s]
-  float* const red = ms + TILE;   // [16][T] column partial sums
-  float* const colt = red + 16 * T;  // [T] sum_q T of the s tile
-  float* const dws = colt + T;       // [T] dw_s, then dw_s w_s
+  float* const red = ms + TILE;   // [16][T] column partial sums of T
+  float* const redo = red + 16 * T;  // [16][T] the same over q > s
+  float* const colt = redo + 16 * T;  // [T] sum_q T of the s tile
+  float* const colto = colt + T;      // [T] sum_{q>s} T
+  float* const dws = colto + T;       // [T] dw_s, then dw_s w_s
   float* const cum = dws + T;        // [HB][Q]
   float* const dts = cum + HB * A.Q;  // [HB][Q]
 
@@ -226,7 +232,7 @@ __global__ void __launch_bounds__(THREADS, 2) ssd_bwd_main(const Args A) {
     const float* const cu = cum + hl * Q;
     const float* const dh = dts + hl * Q;
     load_tile(xs, A.x + c * A.xsb + h * A.xsh, s0, Q, 0, P, A.xsq);
-    if (threadIdx.x < T) colt[threadIdx.x] = 0.f;
+    if (threadIdx.x < T) colt[threadIdx.x] = colto[threadIdx.x] = 0.f;
     float cs[4], ds[4];
     bool sin[4];
 #pragma unroll
@@ -248,7 +254,7 @@ __global__ void __launch_bounds__(THREADS, 2) ssd_bwd_main(const Args A) {
       float dm[4][4];
       zero(dm);
       tile_mm<false, true>(dm, dys, xs);  // dM[q][s] = sum_p dy x
-      float colp[4] = {0.f, 0.f, 0.f, 0.f};
+      float colp[4] = {0.f, 0.f, 0.f, 0.f}, colo[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int ql = ty + 16 * i, q = q0 + ql;
@@ -266,8 +272,10 @@ __global__ void __launch_bounds__(THREADS, 2) ssd_bwd_main(const Args A) {
           const float ldt = l * ds[j];
           ms[ql * LD + sl] = cbv * ldt;
           const float t = dm[i][j] * cbv * l;
-          rowp += t * ds[j];
+          const float to = s < q ? t : 0.f;  // off the diagonal
+          rowp += to * ds[j];
           colp[j] += t;
+          colo[j] += to;
           if (qin && sin[j]) {  // this thread owns (q, s) for every head
             float* const pp = dcbp + static_cast<int64_t>(q) * Q + s;
             const float v = dm[i][j] * ldt;
@@ -279,12 +287,19 @@ __global__ void __launch_bounds__(THREADS, 2) ssd_bwd_main(const Args A) {
           A.rowsum[(ch * A.nq + st) * Q + q] = rowp;
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) red[ty * T + tx + 16 * j] = colp[j];
+      for (int j = 0; j < 4; ++j) {
+        red[ty * T + tx + 16 * j] = colp[j];
+        redo[ty * T + tx + 16 * j] = colo[j];
+      }
       __syncthreads();
       if (threadIdx.x < T) {
-        float v = 0.f;
-        for (int y = 0; y < 16; ++y) v += red[y * T + threadIdx.x];
+        float v = 0.f, vo = 0.f;
+        for (int y = 0; y < 16; ++y) {
+          v += red[y * T + threadIdx.x];
+          vo += redo[y * T + threadIdx.x];
+        }
         colt[threadIdx.x] += v;
+        colto[threadIdx.x] += vo;
       }
       tile_mm<true, false>(dx, ms, dys);  // dx[s][p] += sum_q M dy
       __syncthreads();
@@ -327,10 +342,10 @@ __global__ void __launch_bounds__(THREADS, 2) ssd_bwd_main(const Args A) {
       if (s < Q) {
         const float es = expf(last - cu[s]);
         const float w = es * dh[s];
-        const float ct = colt[sl], dw = dws[sl];
-        A.sdir[ch * Q + s] = ct + dw * es;
-        A.scum[ch * Q + s] = -dh[s] * ct - dw * w;
-        dww = dw * w;
+        const float dw = dws[sl];
+        A.sdir[ch * Q + s] = colt[sl] + dw * es;
+        dww = s < Q - 1 ? dw * w : 0.f;  // s = Q - 1: exponent 0
+        A.scum[ch * Q + s] = -dh[s] * colto[sl] - dww;
       }
       dws[sl] = dww;
     }
@@ -555,7 +570,7 @@ int ssd_intra_chunk_bwd_launch(
   for (int64_t g : grids)
     if (g > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
   const size_t sm_main =
-      sizeof(float) * (4 * TILE + 18 * T + 2 * static_cast<size_t>(HB) * Q);
+      sizeof(float) * (4 * TILE + 35 * T + 2 * static_cast<size_t>(HB) * Q);
   const size_t sm_dt = sizeof(float) * 3 * static_cast<size_t>(Q);
   const size_t sm_db =
       sizeof(float) * (2 * TILE + T + 2 * static_cast<size_t>(HB) * Q);

@@ -49,12 +49,21 @@ def ssd_intra_chunk_bwd_ref(x, dt, a, bmat, cmat, dy=None, dst=None,
     w_s = exp(cum_{Q-1} - cum_s) dt_s, y = M x, st = x^T (w B), g =
     exp(cum_{Q-1}).  B and C are shared by every head, so dM * L * dt_s is
     summed over the heads before its products with B and C.
+
+    The gradient reaches cum through the exponents cum_q - cum_s (and
+    cum_{Q-1} - cum_s): +R on the q side, -R on the s side.  The pairs
+    whose exponent is identically 0 (s = q, and s = Q - 1 in w) are left
+    out: their two terms cancel exactly, but summed apart they leave a
+    rounding residue of an O(1) term, while at large decays (a = -16
+    over a 256-token chunk) everything else that reaches cum is ~1e-5 of
+    it, and da would be wrong by ~10 %.
     """
     x, dt, bmat, cmat = (t.float() for t in (x, dt, bmat, cmat))
     a = a.float()
     q = x.shape[1]
     cum = torch.cumsum(dt * a[None, None, :], dim=1)  # [B, Q, H]
     tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    below = torch.tril(tri, diagonal=-1)  # s < q
     rel = cum[:, :, None, :] - cum[:, None, :, :]  # [B,q,s,H]
     decay = torch.exp(torch.where(tri[None, :, :, None], rel, -torch.inf))
     dx = torch.zeros_like(x)
@@ -74,7 +83,8 @@ def ssd_intra_chunk_bwd_ref(x, dt, a, bmat, cmat, dy=None, dst=None,
         db = db + torch.einsum("bqs,bqn->bsn", dcb, cmat)
         t = dm_l * cb[..., None]  # d loss / d (L dt_s), times L
         ddt = ddt + torch.sum(t, dim=1)
-        r = t * dt[:, None, :, :]  # d loss / d rel
+        # d loss / d rel, without the diagonal (rel = 0 there)
+        r = torch.where(below[None, :, :, None], t * dt[:, None, :, :], 0.0)
         dcum = dcum + torch.sum(r, dim=2) - torch.sum(r, dim=1)
     if dst is not None:
         dst = dst.float()
@@ -85,8 +95,9 @@ def ssd_intra_chunk_bwd_ref(x, dt, a, bmat, cmat, dy=None, dst=None,
         db = db + torch.einsum("bsh,bshp,bhpn->bsn", w, x, dst)
         dw = torch.sum(x * ebp, dim=-1)  # [B, Q, H]
         ddt = ddt + dw * e
-        dcum = dcum - dw * w
-        dcum[:, -1] = dcum[:, -1] + torch.sum(dw * w, dim=1)
+        dww = (dw * w)[:, :-1]  # without s = Q - 1 (exponent 0)
+        dcum[:, :-1] = dcum[:, :-1] - dww
+        dcum[:, -1] = dcum[:, -1] + torch.sum(dww, dim=1)
     if dg is not None:
         dcum[:, -1] = dcum[:, -1] + dg.float() * torch.exp(cum[:, -1])
     # cum = cumsum(dt * a): d loss / d (dt * a) is the reverse cumsum

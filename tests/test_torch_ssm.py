@@ -190,6 +190,46 @@ def test_ssd_large_decay_gradients_are_finite():
     assert finite == [True, False, False, True, True]
 
 
+def _ssd_grads_f64(x, dt, a, bm, cm, dy, dst, dg):
+    """Autograd of the intra-chunk pass in float64 (the exponent masked)."""
+    leaves = [torch.from_numpy(np.asarray(v, np.float64)).requires_grad_(True)
+              for v in (x, dt, a, bm, cm)]
+    x, dt, a, bm, cm = leaves
+    q = x.shape[1]
+    cum = torch.cumsum(dt * a, dim=1)
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool))[None, :, :, None]
+    rel = cum[:, :, None, :] - cum[:, None, :, :]
+    m = (torch.einsum("bqn,bsn->bqs", cm, bm)[..., None]
+         * torch.exp(torch.where(tri, rel, -torch.inf)) * dt[:, None])
+    y = torch.einsum("bqsh,bshp->bqhp", m, x)
+    w = dt * torch.exp(cum[:, -1:] - cum)
+    st = torch.einsum("bsh,bsn,bshp->bhpn", w, bm, x)
+    g = torch.exp(cum[:, -1])
+    total = sum((o * torch.from_numpy(np.asarray(c, np.float64))).sum()
+                for o, c in zip((y, st, g), (dy, dst, dg)))
+    return torch.autograd.grad(total, leaves)
+
+
+def test_ssd_intra_chunk_bwd_ref_is_accurate_at_large_decays():
+    """At a = -16 over a 256-token chunk the decays fall ~1e-5 a step, so
+    what reaches cum is ~1e-5 of the diagonal pairs' terms, which cancel
+    exactly between the q and s sides.  The plain backward leaves those
+    pairs out; every gradient, da included, stays within 1e-3 of a
+    float64 evaluation (summed apart, da was off by ~10 %)."""
+    rng = np.random.RandomState(24)
+    b, q, h, p, n = 2, 256, 2, 16, 16
+    x, _, _, bm, cm = _ssd_inputs(rng, b, q, h, p, n)
+    dt = rng.uniform(0.5, 1.0, (b, q, h))
+    a = np.array([-16.0, -16.0])
+    cots = _cotangents(rng, b, q, h, p, n, "all")
+    got = ssd_intra_chunk_bwd_ref(*map(_t, (x, dt, a, bm, cm)),
+                                  *map(_t, cots))
+    exact = _ssd_grads_f64(x, dt, a, bm, cm, *cots)
+    for name, g, e in zip(("dx", "ddt", "da", "dB", "dC"), got, exact):
+        err = (g.double() - e).abs().max() / e.abs().max()
+        assert err <= 1e-3, (name, float(err))
+
+
 def test_ssd_intra_chunk_cpu_uses_plain_version():
     ins = [_t(a) for a in _ssd_inputs(np.random.RandomState(6), 2, 8, 4,
                                       16, 16)]
