@@ -171,12 +171,14 @@ SSD_BWD_PATH = "simt"
 
 
 # the port's kernels by the names of their __global__ functions, for the
-# profiler's device time by family
-KERNEL_FAMILIES = {"gemm": ("gemm_wgmma", "gemm_bf16", "gemm_f32"),
-                   "flash_fwd": ("flash_fwd", "flash_mma"),
-                   "flash_bwd": ("flash_bwd_",),
-                   "ssd_fwd": ("ssd_chunk_fwd",),
-                   "ssd_bwd": ("ssd_bwd_",)}
+# profiler's device time by family (they live in anonymous namespaces;
+# library kernels such as cuBLAS's "..._gemm_f32..." fall under "other")
+KERNEL_FAMILIES = {"gemm": ("namespace)::gemm_",),
+                   "flash_fwd": ("namespace)::flash_fwd",
+                                 "namespace)::flash_mma"),
+                   "flash_bwd": ("namespace)::flash_bwd_",),
+                   "ssd_fwd": ("namespace)::ssd_chunk_fwd",),
+                   "ssd_bwd": ("namespace)::ssd_bwd_",)}
 
 
 class SmokeFailure(RuntimeError):
@@ -576,6 +578,27 @@ def ssd_bound(bc, q, h, p, n):
     return ms, by, flops, nbytes, bound(flops, nbytes, "float32")[0]
 
 
+def ssd_inputs(torch, randn, g, bc, q, h, p, n, strided=False,
+               dt_value=None, pad=0):
+    """(x, dt, a, B, C) of the SSD intra-chunk pass on the card; strided:
+    x, B and C column slices of one buffer of row pitch h p + 2 n + pad,
+    as mamba_block passes the conv output."""
+    dev = torch.device("cuda")
+    if strided:
+        buf = randn(bc, q, h * p + 2 * n + pad)
+        x = buf[..., :h * p].reshape(bc, q, h, p)
+        bm = buf[..., h * p:h * p + n]
+        cm = buf[..., h * p + n:h * p + 2 * n]
+    else:
+        x, bm, cm = randn(bc, q, h, p), randn(bc, q, n), randn(bc, q, n)
+    if dt_value is None:  # the range of softplus(dt_bias) at init
+        dt = torch.rand(bc, q, h, generator=g, device=dev) * 0.1
+    else:
+        dt = torch.full((bc, q, h), dt_value, device=dev)
+    a = -torch.linspace(1.0, 16.0, h, device=dev)  # -exp(a_log) at init
+    return x, dt, a, bm, cm
+
+
 def ssd_checks_and_timing(torch, randn, g):
     """The SSD kernel against its plain version (fp32, TF32 off) at the
     reduced configs' shape, a ragged one and both models' full shapes,
@@ -584,22 +607,8 @@ def ssd_checks_and_timing(torch, randn, g):
     from repro_torch.kernels.ssd.ops import ssd_intra_chunk
     from repro_torch.kernels.ssd.ref import ssd_intra_chunk_ref
 
-    dev = torch.device("cuda")
-
-    def inputs(bc, q, h, p, n, strided=False, dt_value=None, pad=0):
-        if strided:  # x, B, C column slices of one buffer (the conv out)
-            buf = randn(bc, q, h * p + 2 * n + pad)
-            x = buf[..., :h * p].reshape(bc, q, h, p)
-            bm = buf[..., h * p:h * p + n]
-            cm = buf[..., h * p + n:h * p + 2 * n]
-        else:
-            x, bm, cm = randn(bc, q, h, p), randn(bc, q, n), randn(bc, q, n)
-        if dt_value is None:  # the range of softplus(dt_bias) at init
-            dt = torch.rand(bc, q, h, generator=g, device=dev) * 0.1
-        else:
-            dt = torch.full((bc, q, h), dt_value, device=dev)
-        a = -torch.linspace(1.0, 16.0, h, device=dev)  # -exp(a_log) at init
-        return x, dt, a, bm, cm
+    def inputs(*shape, **kw):
+        return ssd_inputs(torch, randn, g, *shape, **kw)
 
     log("[kernels] ssd vs ssd_intra_chunk_ref")
     cases = [("reduced", (6, 8, 8, 16, 16), {}),
@@ -695,19 +704,11 @@ def phase_ssd_backward(torch, randn):
     g = torch.Generator(device=dev).manual_seed(2)
 
     def inputs(bc, q, h, p, n, strided=False, large=False):
-        if strided:  # x, B, C column slices of one buffer (the conv out)
-            buf = randn(bc, q, h * p + 2 * n + 1)
-            x = buf[..., :h * p].reshape(bc, q, h, p)
-            bm = buf[..., h * p:h * p + n]
-            cm = buf[..., h * p + n:h * p + 2 * n]
-        else:
-            x, bm, cm = randn(bc, q, h, p), randn(bc, q, n), randn(bc, q, n)
+        x, dt, a, bm, cm = ssd_inputs(torch, randn, g, bc, q, h, p, n,
+                                      strided=strided, pad=1)
         if large:  # cum falls to ~-3000 over the chunk
             dt = torch.rand(bc, q, h, generator=g, device=dev) * 0.5 + 0.5
             a = torch.full((h,), -16.0, device=dev)
-        else:  # the range of softplus(dt_bias) and -exp(a_log) at init
-            dt = torch.rand(bc, q, h, generator=g, device=dev) * 0.1
-            a = -torch.linspace(1.0, 16.0, h, device=dev)
         cots = (randn(bc, q, h, p), randn(bc, h, p, n), randn(bc, h))
         return (x, dt, a, bm, cm), cots
 
@@ -1648,7 +1649,11 @@ def phase_train_main(torch, arch, n_layers):
          f"3 steps on a fixed batch: loss {before} -> {after}")
 
     # device time of the step's two halves: the loss and its gradients
-    # (forward, recomputed forward and backward), then the AdamW update
+    # (forward, recomputed forward and backward), then the AdamW update,
+    # each as the profiler's device busy time of one call.  (CUDA events
+    # around a call would time the host where a call issues more
+    # launches than the launch queue holds, as an SSM step does: the
+    # host then waits behind time_ms's spin.)
     batch = data.batch(TRAIN["steps"])
     grads = {}
 
@@ -1658,8 +1663,10 @@ def phase_train_main(torch, arch, n_layers):
     def update():
         bundle.opt.update(params, grads["g"], state)
 
-    halves = dict(loss_and_grads_ms=time_ms(torch, fwd_bwd, 3, 1),
-                  adamw_update_ms=time_ms(torch, update, 3, 1))
+    fwd_bwd()  # warm, and the gradients the update reads
+    halves = dict(
+        loss_and_grads_ms=profile_window(torch, fwd_bwd)["device_busy_ms"],
+        adamw_update_ms=profile_window(torch, update)["device_busy_ms"])
     del grads["g"]
 
     state_box = [params, state]

@@ -170,8 +170,8 @@ def ssd_intra_chunk_bwd(x, dt, a, bmat, cmat, dy=None, dst=None, dg=None):
     n = bmat.shape[-1]
     dev = x.device
     cots = []
-    for name, t, shape in (("dy", dy, (b, q, h, p)), ("dst", dst,
-                           (b, h, p, n)), ("dg", dg, (b, h))):
+    shapes = {"dy": (b, q, h, p), "dst": (b, h, p, n), "dg": (b, h)}
+    for (name, shape), t in zip(shapes.items(), (dy, dst, dg)):
         if t is None:
             t = torch.zeros(shape, dtype=torch.float32, device=dev)
         if (t.device != dev or t.dtype != torch.float32

@@ -137,15 +137,19 @@ def test_ssd_intra_chunk_bwd_ref_matches_autograd_and_jax(q, h, p, n, which):
         _close(g, r, err_msg=name)
 
 
-def _old_select_decay_ref(x, dt, a, bmat, cmat):
-    """ssd_intra_chunk_ref as it was, with the reference's select after
-    the exp (where(mask, exp(rel), 0))."""
+def _ssd_intra_chunk(x, dt, a, bmat, cmat, select_after_exp=False):
+    """ssd_intra_chunk_ref's ops in the inputs' dtype; with
+    ``select_after_exp`` the decay is the reference's where(mask,
+    exp(rel), 0), as the port's was."""
     q = x.shape[1]
     da = dt * a[None, None, :]
     cum = torch.cumsum(da, dim=1)
     rel = cum[:, :, None, :] - cum[:, None, :, :]
-    tri = torch.tril(torch.ones((q, q), dtype=torch.bool))
-    decay = torch.where(tri[None, :, :, None], torch.exp(rel), 0.0)
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool))[None, :, :, None]
+    if select_after_exp:
+        decay = torch.where(tri, torch.exp(rel), 0.0)
+    else:
+        decay = torch.exp(torch.where(tri, rel, -torch.inf))
     cb = torch.einsum("bqn,bsn->bqs", cmat, bmat)
     m = cb[..., None] * decay * dt[:, None, :, :]
     y = torch.einsum("bqsh,bshp->bqhp", m, x)
@@ -167,7 +171,8 @@ def test_ssd_large_decay_gradients_are_finite():
     a = np.array([-1.0, -16.0])
     ins = (x, dt, a, bm, cm)
     for got, old in zip(ssd_intra_chunk_ref(*map(_t, ins)),
-                        _old_select_decay_ref(*map(_t, ins))):
+                        _ssd_intra_chunk(*map(_t, ins),
+                                         select_after_exp=True)):
         assert torch.equal(got, old)
 
     def loss_t(f):
@@ -191,22 +196,11 @@ def test_ssd_large_decay_gradients_are_finite():
 
 
 def _ssd_grads_f64(x, dt, a, bm, cm, dy, dst, dg):
-    """Autograd of the intra-chunk pass in float64 (the exponent masked)."""
+    """Autograd of the intra-chunk pass in float64."""
     leaves = [torch.from_numpy(np.asarray(v, np.float64)).requires_grad_(True)
               for v in (x, dt, a, bm, cm)]
-    x, dt, a, bm, cm = leaves
-    q = x.shape[1]
-    cum = torch.cumsum(dt * a, dim=1)
-    tri = torch.tril(torch.ones((q, q), dtype=torch.bool))[None, :, :, None]
-    rel = cum[:, :, None, :] - cum[:, None, :, :]
-    m = (torch.einsum("bqn,bsn->bqs", cm, bm)[..., None]
-         * torch.exp(torch.where(tri, rel, -torch.inf)) * dt[:, None])
-    y = torch.einsum("bqsh,bshp->bqhp", m, x)
-    w = dt * torch.exp(cum[:, -1:] - cum)
-    st = torch.einsum("bsh,bsn,bshp->bhpn", w, bm, x)
-    g = torch.exp(cum[:, -1])
     total = sum((o * torch.from_numpy(np.asarray(c, np.float64))).sum()
-                for o, c in zip((y, st, g), (dy, dst, dg)))
+                for o, c in zip(_ssd_intra_chunk(*leaves), (dy, dst, dg)))
     return torch.autograd.grad(total, leaves)
 
 
