@@ -34,9 +34,10 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    whole backward timed; and flash
    attention's backward kernel against autograd through the plain
    version (fp32 and bf16; causal, window, cap, GQA, ragged and fully
-   masked rows; D 64, 80, 128 and 256), timed at deepseek-7b's train
-   shape beside SDPA's backward; and the SSD backward kernel against the
-   plain backward (fp32: ragged, the train step's shapes contiguous and
+   masked rows; D 64, 80, 128 and 256), two launches at deepseek-7b's
+   train shape bitwise equal, timed there and at zamba2-2.7b's (D 80)
+   beside SDPA's backward; and the SSD backward kernel against the plain
+   backward (fp32: ragged, the train step's shapes contiguous and
    strided, large decays; each gradient within 1e-3 of its largest
    magnitude, and finite), timed at both SSM train shapes beside its
    bound and the plain backward's;
@@ -1031,9 +1032,11 @@ def flash_grads(torch, fn, q, k, v, do, **kw):
 def phase_flash_backward(torch, randn):
     """The flash backward kernel (through ``attention``'s autograd
     Function) against autograd through attention_ref: fp32 and bf16, every
-    mask option, GQA, ragged and fully masked rows, D 64, 80 and 128; then
-    its time at deepseek-7b's train shape beside its bound, the plain
-    version's backward and SDPA's.  Returns the kernels-line record."""
+    mask option, GQA, ragged and fully masked rows, D 64, 80 and 128, and
+    deepseek-7b's train shape, where two launches must give bitwise equal
+    gradients; then its time at deepseek-7b's and zamba2-2.7b's train
+    shapes beside its bound, the plain version's backward and SDPA's.
+    Returns the kernels-line record."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ops import (_forward, attention,
                                                          attention_bwd)
@@ -1068,21 +1071,11 @@ def phase_flash_backward(torch, randn):
                     if dt == torch.bfloat16 and path == "mma":
                         max_err = max(max_err, err)
 
-    # deepseek-7b's train shape: [B, S, H, D] activations viewed as
-    # [B, H, S, D], bf16, causal
-    b, h, s, d = TRAIN_ATTN
-    q, k, v, do = (randn(b, s, h, d, dtype=torch.bfloat16).transpose(1, 2)
-                   for _ in range(4))
-    got = flash_grads(torch, attention, q, k, v, do, causal=True)
-    ref = flash_grads(torch, attention_ref, q, k, v, do, causal=True)
-    for part, g, r in zip(("dq", "dk", "dv"), got[1:], ref[1:]):
-        max_err = max(max_err, compare(
-            f"bf16 {list(TRAIN_ATTN)} causal strided {part}", g, r,
-            *ATTN_TOL["bfloat16"]))
-        need(g.stride() == q.stride(), f"{part} lost the input layout")
-    o, lse = _forward(q, k, v, True, None, None, None, want_lse=True)
-
-    def fwd_bwd(fn, q, k, v, **kw):
+    # the train shapes, [B, S, H, D] activations viewed as [B, H, S, D],
+    # bf16, causal: deepseek-7b's (checked, run twice for bitwise
+    # repeatable gradients, timed) and zamba2-2.7b's shared attention
+    # (timed)
+    def fwd_bwd(fn, q, k, v, do, **kw):
         def run():
             qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
             torch.autograd.grad(fn(qq, kk, vv, **kw), (qq, kk, vv), do)
@@ -1091,37 +1084,66 @@ def phase_flash_backward(torch, randn):
     def fwd(fn, q, k, v, **kw):
         return lambda: fn(q, k, v, **kw)
 
-    qc, kc, vc = (t.contiguous() for t in (q, k, v))
-    before = attention_bwd.launches_by_path["mma"]
-    attention_bwd(q, k, v, o, lse, do, causal=True)
-    need(attention_bwd.launches_by_path["mma"] == before + 1,
-         "flash backward at the train shape did not take mma")
-    row = dict(
-        shape=list(TRAIN_ATTN), path="mma",
-        ms=time_ms(torch, lambda: attention_bwd(q, k, v, o, lse, do,
-                                                causal=True), 10),
-        plain_ms=(time_ms(torch, fwd_bwd(attention_ref, q, k, v,
-                                         causal=True), 5)
-                  - time_ms(torch, fwd(attention_ref, q, k, v, causal=True),
-                            5)),
-        library_ms=(time_ms(torch, fwd_bwd(
-                        F.scaled_dot_product_attention, qc, kc, vc,
-                        is_causal=True), 10)
-                    - time_ms(torch, fwd(F.scaled_dot_product_attention, qc,
-                                         kc, vc, is_causal=True), 10)),
-    )
-    pairs = b * h * s * (s + 1) // 2
-    # recompute S, then dP, dV, dK, dQ: five products over the causal
-    # pairs; q, k, v, o, dO read and dQ, dK, dV written once, lse and
-    # delta (fp32 per row) read once
-    flops = 10 * pairs * d
-    nbytes = 8 * b * h * s * d * 2 + 2 * b * h * s * 4
-    row["bound_ms"], row["bound_by"] = bound(flops, nbytes, "bfloat16")
-    row["share_of_bound"] = row["bound_ms"] / row["ms"]
-    row["library_ratio"] = row["ms"] / row["library_ms"]
-    log(f"  timing backward {row['shape']} bf16 causal: {json.dumps(row)}")
+    rows = {}
+    for arch, shape in (("deepseek-7b", TRAIN_ATTN),
+                        ("zamba2-2.7b", ZAMBA_ATTN)):
+        b, h, s, d = shape
+        q, k, v, do = (randn(b, s, h, d, dtype=torch.bfloat16)
+                       .transpose(1, 2) for _ in range(4))
+        if arch == "deepseek-7b":
+            got = flash_grads(torch, attention, q, k, v, do, causal=True)
+            ref = flash_grads(torch, attention_ref, q, k, v, do, causal=True)
+            for part, g, r in zip(("dq", "dk", "dv"), got[1:], ref[1:]):
+                max_err = max(max_err, compare(
+                    f"bf16 {list(shape)} causal strided {part}", g, r,
+                    *ATTN_TOL["bfloat16"]))
+                need(g.stride() == q.stride(),
+                     f"{part} lost the input layout")
+        o, lse = _forward(q, k, v, True, None, None, None, want_lse=True)
+        before = attention_bwd.launches_by_path["mma"]
+        first = attention_bwd(q, k, v, o, lse, do, causal=True)
+        need(attention_bwd.launches_by_path["mma"] == before + 1,
+             f"flash backward at {arch}'s train shape did not take mma")
+        if arch == "deepseek-7b":
+            again = attention_bwd(q, k, v, o, lse, do, causal=True)
+            same = all(torch.equal(x, y) for x, y in zip(first, again))
+            log(f"  determinism {list(shape)}: two launches bitwise equal "
+                f"on dq, dk, dv: {same}")
+            need(same, "flash backward: gradients differ between two "
+                 "launches on the same inputs")
+        qc, kc, vc = (t.contiguous() for t in (q, k, v))
+        row = dict(
+            shape=list(shape), path="mma",
+            ms=time_ms(torch, lambda: attention_bwd(q, k, v, o, lse, do,
+                                                    causal=True), 10),
+            plain_ms=(time_ms(torch, fwd_bwd(attention_ref, q, k, v, do,
+                                             causal=True), 5)
+                      - time_ms(torch, fwd(attention_ref, q, k, v,
+                                           causal=True), 5)),
+            library_ms=(time_ms(torch, fwd_bwd(
+                            F.scaled_dot_product_attention, qc, kc, vc, do,
+                            is_causal=True), 10)
+                        - time_ms(torch, fwd(F.scaled_dot_product_attention,
+                                             qc, kc, vc, is_causal=True),
+                                  10)),
+        )
+        pairs = b * h * s * (s + 1) // 2
+        # recompute S, then dP, dV, dK, dQ: five products over the causal
+        # pairs; q, k, v, o, dO read and dQ, dK, dV written once, lse and
+        # delta (fp32 per row) read once
+        flops = 10 * pairs * d
+        nbytes = 8 * b * h * s * d * 2 + 2 * b * h * s * 4
+        row["bound_ms"], row["bound_by"] = bound(flops, nbytes, "bfloat16")
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        row["library_ratio"] = row["ms"] / row["library_ms"]
+        log(f"  timing backward {row['shape']} bf16 causal: "
+            f"{json.dumps(row)}")
+        rows[arch] = row
+    row = rows["deepseek-7b"]
     return dict(
         name="flash_attention_bwd", route="cuda", path="mma",
+        design="two launches (dQ with delta, then dK/dV), tiles "
+               "double-buffered with cp.async",
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="none: the Pallas kernel "
                  "src/repro/kernels/flash_attention/kernel.py:26 has no "
@@ -1133,7 +1155,8 @@ def phase_flash_backward(torch, randn):
         share_of_bound=row["share_of_bound"],
         library_ratio=row["library_ratio"],
         timed="one deepseek-7b train layer's attention backward, "
-              "[4,32,512,128] bf16 causal", shape=row["shape"])
+              "[4,32,512,128] bf16 causal", shape=row["shape"],
+        per_arch=rows)
 
 
 def counters():

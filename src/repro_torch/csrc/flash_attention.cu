@@ -43,6 +43,23 @@
 //     fp32 results are true fp32 products: one 128-thread block per
 //     (batch * q-head, 32-row query tile), four threads a row, Q, K and V
 //     converted to fp32 in shared memory with a padded pitch (D + 1).
+//
+// The backward (flash_attention_bwd_launch) has no Pallas counterpart: the
+// reference differentiates its jnp attention.  What bounds it on this
+// card: at deepseek-7b's train shape ([4, 32, 512, 128] bf16, causal) its
+// five products over the causal pairs take 21.5 GFLOP (22 us at 989
+// TFLOP/s) beside 0.135 GB of tensors moved once (40 us at 3.35 TB/s), so
+// bytes bound it at 0.0402 ms; in practice the mma.sync path is bound by
+// shared-memory traffic and latency: each warp owns 16 rows, so every
+// B fragment is read from shared memory by all four warps of a block.
+// The design (below) keeps dQ free of atomics by recomputing S and dP in
+// a second kernel, double-buffers every streamed tile, fuses delta into
+// the dQ kernel (two launches) and compiles the soft-cap only where one
+// is given.  Measured (scripts/compare_backward.py and chip_smoke.py,
+// NVIDIA H100 80GB HBM3, 700.00 W): 0.207 ms at [4, 32, 512, 128], 19 % of
+// that bound, 1.45x SDPA's backward; 0.137 ms at [4, 32, 512, 80], 18 %,
+// 1.26x SDPA.  The next step is wgmma (64-row warpgroup tiles read B
+// from shared memory once for four warps; ROADMAP.md B4).
 
 #include <stdint.h>
 
@@ -937,53 +954,94 @@ int launch_bwd_simt_d(const void* q, const void* k, const void* v,
 // ---------------------------------------------------------------------------
 //
 // The same split and recomputation as the SIMT backward, with every
-// product on the tensor cores as in the forward's mma path.  dQ: one
-// 128-thread block per (batch * q-head, 64-row query tile), warp w owning
-// 16 query rows; per 64-key tile S = Q K^T and dP = dO V^T (K and V rows as
-// the col B operand, ldmatrix), then dQ += dS K with dS rounded to bf16 as
-// the A fragment (two adjacent n8 accumulator tiles make one k16
-// fragment) and K through ldmatrix.trans.  dK/dV: one block per (batch *
-// kv-head, 64-key tile), warp w owning 16 keys; per group head and 32-row
-// query tile S^T = K Q^T and dP^T = V dO^T, then dV += P^T dO and
-// dK += dS^T Q (P^T and dS^T rounded to bf16, dO and Q through
-// ldmatrix.trans).  lse and delta are per query: per row in the dQ
-// kernel, per column (from shared memory) in the dK/dV kernel.  Tiles are
-// loaded with 16-byte cp.async where rows are 16-byte aligned, else with
-// masked scalar loads into the same layout; the accumulators stay fp32.
+// product on the tensor cores as in the forward's mma path, in two
+// launches.  (1) dQ, one 128-thread block per (batch * q-head, 64-row
+// query tile), warp w owning 16 query rows, heaviest causal tiles first.
+// It first forms delta = rowsum(dO * O) of its rows (O read once, dO
+// from the shared tile) and writes it for (2); then per 32-key tile
+// S = Q K^T and dP = dO V^T (K and V rows as the col B operand, ldmatrix)
+// and dQ += dS K with dS rounded to bf16 as the A fragment (two adjacent
+// n8 accumulator tiles make one k16 fragment) and K through
+// ldmatrix.trans.  K and V tiles are double-buffered with cp.async: tile
+// j + 1 loads while tile j computes.  (2) dK/dV, one block per (batch *
+// kv-head, 64-key tile), warp w owning 16 keys, walking (group head,
+// query tile) with Q, dO and the tile's lse and delta double-buffered
+// the same way; each step is one or two 32-query halves of S^T = K Q^T
+// and dP^T = V dO^T, then dV += P^T dO and dK += dS^T Q (P^T and dS^T
+// rounded to bf16, dO and Q through ldmatrix.trans).  The soft-cap is a
+// template flag, so the common uncapped kernels carry no tanh code, and
+// the softmax scale multiplies dQ and dK once at the end.  No atomics:
+// dQ is recomputed rather than summed across key tiles, so the gradients
+// are deterministic.  Tiles are loaded with 16-byte cp.async where rows
+// are 16-byte aligned, else with masked scalar loads into the same
+// layout; the accumulators stay fp32.
 
-constexpr int BQ_M = 64;  // dQ kernel: query rows per block
-constexpr int BK_M = 64;  // dQ kernel: keys per tile; dK/dV: keys per block
-constexpr int BQ_T = 32;  // dK/dV kernel: query rows per tile
+// Tile shapes, chosen by measurement on the H100 (PERF.md §6): dQ walks
+// 32-key tiles at three blocks an SM; dK/dV steps over 32 query rows at
+// three blocks an SM for D <= 80, over 64 rows at D 96 and 128 (whose dK
+// and dV take 128 registers a thread, so three blocks would spill).
+constexpr int BQ_M = 64;  // dQ: query rows per block
+constexpr int BK_Q = 32;  // dQ: keys per tile
+constexpr int BK_M = 64;  // dK/dV: keys per block
+constexpr int BQ_S = 32;  // dK/dV: the query columns of one S^T half
 
-template <int DP>
-constexpr size_t bwd_mma_smem() {
-  // dQ: Q, dO, K, V tiles of 64 rows; dK/dV: K, V of 64, Q, dO of 32 and
-  // the tile's lse and delta
-  return sizeof(bf16) * pitch<DP>() * 4 * 64;
+// 2^x by ex2.approx (~2^-22 relative error, 0 at -inf): a probability of
+// P, which is rounded to bf16 before any product
+__device__ __forceinline__ float bwd_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-template <int DP, bool VEC>
-__global__ void __launch_bounds__(MMA_THREADS)
+// dK/dV: query rows per step, and blocks an SM
+template <int DP>
+__host__ __device__ constexpr int kv_rows() {
+  return DP <= 80 ? 32 : 64;
+}
+template <int DP>
+__host__ __device__ constexpr int kv_blocks() {
+  return DP <= 80 ? 3 : 1;
+}
+
+// dQ: Q and dO of 64 rows and two buffers of K and V of BK rows
+template <int DP, int BK>
+constexpr size_t dq_smem() {
+  return sizeof(bf16) * pitch<DP>() * (2 * BQ_M + 4 * BK);
+}
+
+// dK/dV: K and V of 64 rows, two buffers of Q and dO of QT rows and of
+// their lse and delta
+template <int DP, int QT>
+constexpr size_t dkdv_smem() {
+  return sizeof(bf16) * pitch<DP>() * (2 * BK_M + 4 * QT) +
+         sizeof(float) * 4 * QT;
+}
+
+// BK: keys per tile; CAP: a soft-cap is given
+template <int DP, bool VEC, int BK, bool CAP>
+__global__ void __launch_bounds__(MMA_THREADS, 3)
     flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v,
+                     const bf16* __restrict__ v, const bf16* __restrict__ o,
                      const bf16* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, bf16* __restrict__ dq,
+                     float* __restrict__ delta, bf16* __restrict__ dq,
                      int Hq, int Hkv, int Sq, int Skv, int D, int64_t qsb,
                      int64_t qsh, int64_t qss, int64_t ksb, int64_t ksh,
                      int64_t kss, int64_t vsb, int64_t vsh, int64_t vss,
-                     int64_t dsb, int64_t dsh, int64_t dss, int64_t dqsb,
-                     int64_t dqsh, int64_t dqss, float scale, int causal,
-                     int window, float cap) {
+                     int64_t osb, int64_t osh, int64_t oss, int64_t dsb,
+                     int64_t dsh, int64_t dss, int64_t dqsb, int64_t dqsh,
+                     int64_t dqss, float scale, int causal, int window,
+                     float cap) {
   constexpr int LD = pitch<DP>();
-  constexpr int NT = BK_M / 8;  // key n8 tiles of S
+  constexpr int NT = BK / 8;  // key n8 tiles of S
   constexpr int DT = DP / 8;    // d n8 tiles of dQ
+  const float scale_log2 = scale * LOG2E;
   constexpr int KD = DP / 16;   // k16 steps over d
   extern __shared__ __align__(16) uint8_t smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [64][LD]
   bf16* dos = qs + BQ_M * LD;                    // [64][LD]
-  bf16* ks = dos + BQ_M * LD;                    // [64][LD]
-  bf16* vs = ks + BK_M * LD;                     // [64][LD]
+  bf16* ks = dos + BQ_M * LD;                    // [2][BK][LD]
+  bf16* vs = ks + 2 * BK * LD;                 // [2][BK][LD]
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int b = blockIdx.x / Hq, h = blockIdx.x % Hq;
@@ -998,14 +1056,59 @@ __global__ void __launch_bounds__(MMA_THREADS)
   load_tile<DP, BQ_M, VEC>(dos, dout + b * dsb + h * dsh, q0, Sq, D, dss);
   cp_async_commit();
 
+  int k_end = Skv;
+  if (causal) k_end = min(Skv, min(q0 + BQ_M, Sq));
+  int k_begin = 0;
+  if (window > 0) k_begin = max(0, q0 - window + 1) / BK * BK;
+  if (k_begin < k_end) {
+    load_tile<DP, BK, VEC>(ks, kb, k_begin, Skv, D, kss);
+    load_tile<DP, BK, VEC>(vs, vb, k_begin, Skv, D, vss);
+  }
+  cp_async_commit();
+  cp_async_wait<1>();  // Q and dO
+  __syncthreads();
+
+  // delta = rowsum(dO * O): lanes 2r and 2r + 1 sum the two halves of the
+  // warp's row r (0 past Sq: those rows' dO is zero)
+  const int64_t bhq = static_cast<int64_t>(b) * Hq + h;
+  float dsum = 0.f;
+  {
+    const int r = warp * 16 + lane / 2, row = q0 + r;
+    const int c0 = (lane % 2) * (DP / 2);
+    if (row < Sq) {
+      const bf16* orow = o + b * osb + h * osh + static_cast<int64_t>(row) * oss;
+      const bf16* drow = dos + r * LD;
+#pragma unroll
+      for (int c = c0; c < c0 + DP / 2; c += 8) {
+        if (VEC) {  // D % 8 == 0: a chunk is all in or all out
+          if (c < D) {
+            const uint4 ov = *reinterpret_cast<const uint4*>(orow + c);
+            const uint4 dv = *reinterpret_cast<const uint4*>(drow + c);
+            const bf16* op = reinterpret_cast<const bf16*>(&ov);
+            const bf16* dp = reinterpret_cast<const bf16*>(&dv);
+#pragma unroll
+            for (int x = 0; x < 8; ++x)
+              dsum += __bfloat162float(op[x]) * __bfloat162float(dp[x]);
+          }
+        } else {
+#pragma unroll
+          for (int x = 0; x < 8; ++x)
+            if (c + x < D)
+              dsum += __bfloat162float(orow[c + x]) *
+                      __bfloat162float(drow[c + x]);
+        }
+      }
+    }
+    dsum += __shfl_xor_sync(0xffffffffu, dsum, 1);
+    if (lane % 2 == 0 && row < Sq) delta[bhq * Sq + row] = dsum;
+  }
   // per row: lse in log2 units and delta (0 past Sq: those rows' Q and dO
   // are zero, so they contribute nothing)
-  const float* lb = lse + (static_cast<int64_t>(b) * Hq + h) * Sq;
-  const float* db = delta + (static_cast<int64_t>(b) * Hq + h) * Sq;
+  const float* lb = lse + bhq * Sq;
   const float l2[2] = {row_lo < Sq ? lb[row_lo] * LOG2E : 0.f,
                        row_hi < Sq ? lb[row_hi] * LOG2E : 0.f};
-  const float dl[2] = {row_lo < Sq ? db[row_lo] : 0.f,
-                       row_hi < Sq ? db[row_hi] : 0.f};
+  const float dl[2] = {__shfl_sync(0xffffffffu, dsum, 2 * (lane / 4)),
+                       __shfl_sync(0xffffffffu, dsum, 2 * (lane / 4) + 16)};
 
   float acc[DT][4];
 #pragma unroll
@@ -1013,18 +1116,21 @@ __global__ void __launch_bounds__(MMA_THREADS)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
 
-  int k_end = Skv;
-  if (causal) k_end = min(Skv, min(q0 + BQ_M, Sq));
-  int k_begin = 0;
-  if (window > 0) k_begin = max(0, q0 - window + 1) / BK_M * BK_M;
-
-  for (int j0 = k_begin; j0 < k_end; j0 += BK_M) {
-    __syncthreads();  // the previous tile's reads are done
-    load_tile<DP, BK_M, VEC>(ks, kb, j0, Skv, D, kss);
-    load_tile<DP, BK_M, VEC>(vs, vb, j0, Skv, D, vss);
-    cp_async_commit();
-    cp_async_wait<0>();
+  int buf = 0;
+  for (int j0 = k_begin; j0 < k_end; j0 += BK, buf ^= 1) {
+    if (j0 + BK < k_end) {  // the next tile loads while this one computes
+      load_tile<DP, BK, VEC>(ks + (buf ^ 1) * BK * LD, kb, j0 + BK,
+                               Skv, D, kss);
+      load_tile<DP, BK, VEC>(vs + (buf ^ 1) * BK * LD, vb, j0 + BK,
+                               Skv, D, vss);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
     __syncthreads();
+    const bf16* kt = ks + buf * BK * LD;
+    const bf16* vt = vs + buf * BK * LD;
 
     // S = Q K^T and dP = dO V^T: K and V rows are the col B operands
     float s[NT][4], dp[NT][4];
@@ -1044,35 +1150,37 @@ __global__ void __launch_bounds__(MMA_THREADS)
         const int b_off = (t2 * 16 + (lane / 16) * 8 + lane % 8) * LD +
                           kk * 16 + ((lane / 8) % 2) * 8;
         uint32_t bfr[4];
-        ldmatrix_x4(bfr, ks + b_off);
+        ldmatrix_x4(bfr, kt + b_off);
         mma_16816(s[2 * t2], aq, bfr[0], bfr[1]);
         mma_16816(s[2 * t2 + 1], aq, bfr[2], bfr[3]);
-        ldmatrix_x4(bfr, vs + b_off);
+        ldmatrix_x4(bfr, vt + b_off);
         mma_16816(dp[2 * t2], ao, bfr[0], bfr[1]);
         mma_16816(dp[2 * t2 + 1], ao, bfr[2], bfr[3]);
       }
     }
 
-    const bool need_mask = j0 + BK_M > Skv || q0 + BQ_M > Sq ||
-                           (causal && j0 + BK_M - 1 > q0) ||
+    const bool need_mask = j0 + BK > Skv || q0 + BQ_M > Sq ||
+                           (causal && j0 + BK - 1 > q0) ||
                            (window > 0 && q0 + BQ_M - 1 - j0 >= window);
 #pragma unroll
     for (int t = 0; t < NT; ++t) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float x = s[t][e] * scale, dcap = 1.f;
-        if (cap > 0.f) {
-          const float th = tanhf(x / cap);
-          x = th * cap;
+        float x2, dcap = 1.f;  // the scaled (and capped) logit, log2 units
+        if (CAP) {
+          const float th = tanhf(s[t][e] * scale / cap);
+          x2 = th * cap * LOG2E;
           dcap = 1.f - th * th;
+        } else {
+          x2 = s[t][e] * scale_log2;
         }
         bool ok = true;
         if (need_mask)
           ok = live(e < 2 ? row_lo : row_hi,
                     j0 + t * 8 + 2 * (lane % 4) + (e & 1), Sq, Skv, causal,
                     window);
-        const float p = ok ? exp2f(x * LOG2E - l2[e / 2]) : 0.f;
-        s[t][e] = p * (dp[t][e] - dl[e / 2]) * dcap * scale;  // dS
+        const float p = ok ? bwd_exp2(x2 - l2[e / 2]) : 0.f;
+        s[t][e] = p * (dp[t][e] - dl[e / 2]) * dcap;  // dS / scale
       }
     }
 
@@ -1086,13 +1194,14 @@ __global__ void __launch_bounds__(MMA_THREADS)
 #pragma unroll
       for (int d2 = 0; d2 < DP / 16; ++d2) {
         uint32_t bfr[4];
-        ldmatrix_x4_trans(bfr, ks + (t2 * 16 + ((lane / 8) % 2) * 8 +
+        ldmatrix_x4_trans(bfr, kt + (t2 * 16 + ((lane / 8) % 2) * 8 +
                                      lane % 8) * LD +
                                    d2 * 16 + (lane / 16) * 8);
         mma_16816(acc[2 * d2], a, bfr[0], bfr[1]);
         mma_16816(acc[2 * d2 + 1], a, bfr[2], bfr[3]);
       }
     }
+    __syncthreads();  // the next iteration refills the other buffer
   }
   cp_async_wait<0>();
 
@@ -1103,17 +1212,18 @@ __global__ void __launch_bounds__(MMA_THREADS)
     if (col < D) {
       const bool two = col + 1 < D;
       if (row_lo < Sq)
-        store_pair_bf16(ob + row_lo * dqss + col, acc[t][0], acc[t][1], two,
-                        VEC);
+        store_pair_bf16(ob + row_lo * dqss + col, acc[t][0] * scale,
+                        acc[t][1] * scale, two, VEC);
       if (row_hi < Sq)
-        store_pair_bf16(ob + row_hi * dqss + col, acc[t][2], acc[t][3], two,
-                        VEC);
+        store_pair_bf16(ob + row_hi * dqss + col, acc[t][2] * scale,
+                        acc[t][3] * scale, two, VEC);
     }
   }
 }
 
-template <int DP, bool VEC>
-__global__ void __launch_bounds__(MMA_THREADS)
+// QT: query rows per step; CAP: a soft-cap is given
+template <int DP, bool VEC, int QT, bool CAP>
+__global__ void __launch_bounds__(MMA_THREADS, kv_blocks<DP>())
     flash_bwd_dkdv_mma(const bf16* __restrict__ q,
                        const bf16* __restrict__ k,
                        const bf16* __restrict__ v,
@@ -1129,16 +1239,17 @@ __global__ void __launch_bounds__(MMA_THREADS)
                        int64_t dvsh, int64_t dvss, float scale, int causal,
                        int window, float cap) {
   constexpr int LD = pitch<DP>();
-  constexpr int NQ = BQ_T / 8;  // query n8 tiles of S^T
+  constexpr int NQ = BQ_S / 8;  // query n8 tiles of an S^T half
   constexpr int DT = DP / 8;
+  const float scale_log2 = scale * LOG2E;
   constexpr int KD = DP / 16;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // [64][LD]
   bf16* vs = ks + BK_M * LD;                     // [64][LD]
-  bf16* qs = vs + BK_M * LD;                     // [32][LD]
-  bf16* dos = qs + BQ_T * LD;                    // [32][LD]
-  float* l2s = reinterpret_cast<float*>(dos + BQ_T * LD);  // [32]
-  float* dls = l2s + BQ_T;                                  // [32]
+  bf16* qs = vs + BK_M * LD;                     // [2][QT][LD]
+  bf16* dos = qs + 2 * QT * LD;                // [2][QT][LD]
+  float* lses = reinterpret_cast<float*>(dos + 2 * QT * LD);  // [2][QT]
+  float* dls = lses + 2 * QT;                                 // [2][QT]
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int b = blockIdx.x / Hkv, hk = blockIdx.x % Hkv;
@@ -1156,28 +1267,55 @@ __global__ void __launch_bounds__(MMA_THREADS)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dka[t][e] = dva[t][e] = 0.f;
 
-  // query tiles with an unmasked pair for some key of this tile
-  const int q_begin = causal ? j0 / BQ_T * BQ_T : 0;
+  // query tiles with an unmasked pair for some key of this tile, for
+  // each head of the group: the block's steps
+  const int q_begin = causal ? j0 / QT * QT : 0;
   const int q_end = window > 0 ? min(Sq, j0 + BK_M - 1 + window) : Sq;
+  const int nqt = q_end > q_begin ? (q_end - q_begin + QT - 1) / QT : 0;
+  const int n_steps = G * nqt;
 
-  for (int g = 0; g < G; ++g) {
-    const int h = hk * G + g;
-    const bf16* qb = q + b * qsb + h * qsh;
-    const bf16* db = dout + b * dsb + h * dsh;
-    const float* lb = lse + (static_cast<int64_t>(b) * Hq + h) * Sq;
-    const float* deb = delta + (static_cast<int64_t>(b) * Hq + h) * Sq;
-    for (int i0 = q_begin; i0 < q_end; i0 += BQ_T) {
-      __syncthreads();  // the previous tile's reads are done
-      load_tile<DP, BQ_T, VEC>(qs, qb, i0, Sq, D, qss);
-      load_tile<DP, BQ_T, VEC>(dos, db, i0, Sq, D, dss);
+  // Q, dO, lse and delta of step `it` into buffer `buf`
+  auto issue = [&](int it, int buf) {
+    const int h = hk * G + it / nqt;
+    const int i0 = q_begin + (it % nqt) * QT;
+    load_tile<DP, QT, VEC>(qs + buf * QT * LD, q + b * qsb + h * qsh, i0,
+                           Sq, D, qss);
+    load_tile<DP, QT, VEC>(dos + buf * QT * LD, dout + b * dsb + h * dsh,
+                           i0, Sq, D, dss);
+    const int t = threadIdx.x % QT;  // threads [0, QT) lse, [QT, 2 QT) delta
+    if (threadIdx.x < 2 * QT) {
+      const float* src = (threadIdx.x < QT ? lse : delta) +
+                         (static_cast<int64_t>(b) * Hq + h) * Sq;
+      float* dst = (threadIdx.x < QT ? lses : dls) + buf * QT + t;
+      const bool ok = i0 + t < Sq;
+      cp_async4(dst, ok ? src + i0 + t : src, ok);
+    }
+  };
+  if (n_steps > 0) issue(0, 0);
+  cp_async_commit();
+
+  for (int it = 0; it < n_steps; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < n_steps) {  // the next step loads while this one computes
+      issue(it + 1, buf ^ 1);
       cp_async_commit();
-      if (threadIdx.x < BQ_T) {
-        const int i = i0 + threadIdx.x;
-        l2s[threadIdx.x] = i < Sq ? lb[i] * LOG2E : 0.f;
-        dls[threadIdx.x] = i < Sq ? deb[i] : 0.f;
-      }
+      cp_async_wait<1>();
+    } else {
       cp_async_wait<0>();
-      __syncthreads();
+    }
+    __syncthreads();
+    const int i0 = q_begin + (it % nqt) * QT;
+    const bf16* qt = qs + buf * QT * LD;
+    const bf16* dt = dos + buf * QT * LD;
+    const float* lt = lses + buf * QT;
+    const float* dlt = dls + buf * QT;
+
+#pragma unroll
+    for (int half = 0; half < QT / BQ_S; ++half) {
+      const int i0s = i0 + half * BQ_S;  // this half's first query
+      if (i0s >= q_end || (causal && i0s + BQ_S - 1 < j0)) continue;
+      const bf16* qh = qt + half * BQ_S * LD;
+      const bf16* dh = dt + half * BQ_S * LD;
 
       // S^T = K Q^T and dP^T = V dO^T: K and V rows the A operand, Q and
       // dO rows the col B operand
@@ -1198,36 +1336,38 @@ __global__ void __launch_bounds__(MMA_THREADS)
           const int b_off = (t2 * 16 + (lane / 16) * 8 + lane % 8) * LD +
                             kk * 16 + ((lane / 8) % 2) * 8;
           uint32_t bfr[4];
-          ldmatrix_x4(bfr, qs + b_off);
+          ldmatrix_x4(bfr, qh + b_off);
           mma_16816(st[2 * t2], ak, bfr[0], bfr[1]);
           mma_16816(st[2 * t2 + 1], ak, bfr[2], bfr[3]);
-          ldmatrix_x4(bfr, dos + b_off);
+          ldmatrix_x4(bfr, dh + b_off);
           mma_16816(dpt[2 * t2], av, bfr[0], bfr[1]);
           mma_16816(dpt[2 * t2 + 1], av, bfr[2], bfr[3]);
         }
       }
 
-      const bool need_mask = j0 + BK_M > Skv || i0 + BQ_T > Sq ||
-                             (causal && i0 < j0 + BK_M - 1) ||
-                             (window > 0 && i0 + BQ_T - 1 - j0 >= window);
+      const bool need_mask = j0 + BK_M > Skv || i0s + BQ_S > Sq ||
+                             (causal && i0s < j0 + BK_M - 1) ||
+                             (window > 0 && i0s + BQ_S - 1 - j0 >= window);
 #pragma unroll
       for (int t = 0; t < NQ; ++t) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int col = t * 8 + 2 * (lane % 4) + (e & 1);
-          float x = st[t][e] * scale, dcap = 1.f;
-          if (cap > 0.f) {
-            const float th = tanhf(x / cap);
-            x = th * cap;
+          const int col = half * BQ_S + t * 8 + 2 * (lane % 4) + (e & 1);
+          float x2, dcap = 1.f;  // the scaled (and capped) logit, log2
+          if (CAP) {
+            const float th = tanhf(st[t][e] * scale / cap);
+            x2 = th * cap * LOG2E;
             dcap = 1.f - th * th;
+          } else {
+            x2 = st[t][e] * scale_log2;
           }
           bool ok = true;
           if (need_mask)
             ok = live(i0 + col, e < 2 ? key_lo : key_hi, Sq, Skv, causal,
                       window);
-          const float p = ok ? exp2f(x * LOG2E - l2s[col]) : 0.f;
-          st[t][e] = p;                                           // P^T
-          dpt[t][e] = p * (dpt[t][e] - dls[col]) * dcap * scale;  // dS^T
+          const float p = ok ? bwd_exp2(x2 - lt[col] * LOG2E) : 0.f;
+          st[t][e] = p;                                    // P^T
+          dpt[t][e] = p * (dpt[t][e] - dlt[col]) * dcap;  // dS^T / scale
         }
       }
 
@@ -1250,15 +1390,16 @@ __global__ void __launch_bounds__(MMA_THREADS)
           const int b_off = (t2 * 16 + ((lane / 8) % 2) * 8 + lane % 8) * LD +
                             d2 * 16 + (lane / 16) * 8;
           uint32_t bfr[4];
-          ldmatrix_x4_trans(bfr, dos + b_off);
+          ldmatrix_x4_trans(bfr, dh + b_off);
           mma_16816(dva[2 * d2], ap, bfr[0], bfr[1]);
           mma_16816(dva[2 * d2 + 1], ap, bfr[2], bfr[3]);
-          ldmatrix_x4_trans(bfr, qs + b_off);
+          ldmatrix_x4_trans(bfr, qh + b_off);
           mma_16816(dka[2 * d2], ad, bfr[0], bfr[1]);
           mma_16816(dka[2 * d2 + 1], ad, bfr[2], bfr[3]);
         }
       }
     }
+    __syncthreads();  // the next step refills the other buffer
   }
   cp_async_wait<0>();
 
@@ -1270,14 +1411,14 @@ __global__ void __launch_bounds__(MMA_THREADS)
     if (col < D) {
       const bool two = col + 1 < D;
       if (key_lo < Skv) {
-        store_pair_bf16(kob + key_lo * dkss + col, dka[t][0], dka[t][1], two,
-                        VEC);
+        store_pair_bf16(kob + key_lo * dkss + col, dka[t][0] * scale,
+                        dka[t][1] * scale, two, VEC);
         store_pair_bf16(vob + key_lo * dvss + col, dva[t][0], dva[t][1], two,
                         VEC);
       }
       if (key_hi < Skv) {
-        store_pair_bf16(kob + key_hi * dkss + col, dka[t][2], dka[t][3], two,
-                        VEC);
+        store_pair_bf16(kob + key_hi * dkss + col, dka[t][2] * scale,
+                        dka[t][3] * scale, two, VEC);
         store_pair_bf16(vob + key_hi * dvss + col, dva[t][2], dva[t][3], two,
                         VEC);
       }
@@ -1285,56 +1426,74 @@ __global__ void __launch_bounds__(MMA_THREADS)
   }
 }
 
-template <int DP, bool VEC>
-int launch_bwd_mma(const bf16* Q, const bf16* K, const bf16* V,
-                   const bf16* DO, const float* lse, const float* delta,
-                   void* dq, void* dk, void* dv, int B, int Hq, int Hkv,
-                   int Sq, int Skv, int D, const int64_t* st, float scale,
-                   int causal, int window, float cap, cudaStream_t s) {
-  constexpr size_t smem = bwd_mma_smem<DP>();
-  auto kv_kern = flash_bwd_dkdv_mma<DP, VEC>;
-  auto q_kern = flash_bwd_dq_mma<DP, VEC>;
+template <int DP, bool VEC, bool CAP>
+int launch_bwd_mma_c(const bf16* Q, const bf16* K, const bf16* V,
+                   const bf16* O, const bf16* DO, const float* lse,
+                   float* delta, void* dq, void* dk, void* dv, int B, int Hq,
+                   int Hkv, int Sq, int Skv, int D, const int64_t* st,
+                   float scale, int causal, int window, float cap,
+                   cudaStream_t s) {
+  constexpr int QT = kv_rows<DP>(), BK = BK_Q;
+  constexpr size_t smem_kv = dkdv_smem<DP, QT>(), smem_q = dq_smem<DP, BK>();
+  auto kv_kern = flash_bwd_dkdv_mma<DP, VEC, QT, CAP>;
+  auto q_kern = flash_bwd_dq_mma<DP, VEC, BK, CAP>;
   cudaError_t err = cudaFuncSetAttribute(
       kv_kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      static_cast<int>(smem_kv));
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(q_kern,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
+                               static_cast<int>(smem_q));
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (Skv > 0) {
-    dim3 grid(static_cast<unsigned>(B) * Hkv,
-              static_cast<unsigned>((Skv + BK_M - 1) / BK_M));
-    kv_kern<<<grid, MMA_THREADS, smem, s>>>(
-        Q, K, V, DO, lse, delta, static_cast<bf16*>(dk),
-        static_cast<bf16*>(dv), Hq, Hkv, Sq, Skv, D, st[0], st[1], st[2],
-        st[3], st[4], st[5], st[6], st[7], st[8], st[12], st[13], st[14],
-        st[18], st[19], st[20], st[21], st[22], st[23], scale, causal,
-        window, cap);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  // dQ first: it writes delta, which dK/dV reads
   dim3 grid(static_cast<unsigned>(B) * Hq,
             static_cast<unsigned>((Sq + BQ_M - 1) / BQ_M));
-  q_kern<<<grid, MMA_THREADS, smem, s>>>(
-      Q, K, V, DO, lse, delta, static_cast<bf16*>(dq), Hq, Hkv, Sq, Skv, D,
-      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[12],
-      st[13], st[14], st[15], st[16], st[17], scale, causal, window, cap);
+  q_kern<<<grid, MMA_THREADS, smem_q, s>>>(
+      Q, K, V, O, DO, lse, delta, static_cast<bf16*>(dq), Hq, Hkv, Sq, Skv,
+      D, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
+      st[9], st[10], st[11], st[12], st[13], st[14], st[15], st[16], st[17],
+      scale, causal, window, cap);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || Skv == 0) return static_cast<int>(err);
+  dim3 kv_grid(static_cast<unsigned>(B) * Hkv,
+               static_cast<unsigned>((Skv + BK_M - 1) / BK_M));
+  kv_kern<<<kv_grid, MMA_THREADS, smem_kv, s>>>(
+      Q, K, V, DO, lse, delta, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), Hq, Hkv, Sq, Skv, D, st[0], st[1], st[2],
+      st[3], st[4], st[5], st[6], st[7], st[8], st[12], st[13], st[14],
+      st[18], st[19], st[20], st[21], st[22], st[23], scale, causal, window,
+      cap);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int DP, bool VEC>
+int launch_bwd_mma(const bf16* Q, const bf16* K, const bf16* V,
+                   const bf16* O, const bf16* DO, const float* lse,
+                   float* delta, void* dq, void* dk, void* dv, int B, int Hq,
+                   int Hkv, int Sq, int Skv, int D, const int64_t* st,
+                   float scale, int causal, int window, float cap,
+                   cudaStream_t s) {
+  if (cap > 0.f)
+    return launch_bwd_mma_c<DP, VEC, true>(Q, K, V, O, DO, lse, delta, dq,
+                                           dk, dv, B, Hq, Hkv, Sq, Skv, D,
+                                           st, scale, causal, window, cap, s);
+  return launch_bwd_mma_c<DP, VEC, false>(Q, K, V, O, DO, lse, delta, dq, dk,
+                                          dv, B, Hq, Hkv, Sq, Skv, D, st,
+                                          scale, causal, window, cap, s);
 }
 
 template <int DP>
 int launch_bwd_mma_v(const bf16* Q, const bf16* K, const bf16* V,
-                     const bf16* DO, const float* lse, const float* delta,
-                     void* dq, void* dk, void* dv, int B, int Hq, int Hkv,
-                     int Sq, int Skv, int D, const int64_t* st, float scale,
-                     int causal, int window, float cap, bool vec,
-                     cudaStream_t s) {
+                     const bf16* O, const bf16* DO, const float* lse,
+                     float* delta, void* dq, void* dk, void* dv, int B,
+                     int Hq, int Hkv, int Sq, int Skv, int D,
+                     const int64_t* st, float scale, int causal, int window,
+                     float cap, bool vec, cudaStream_t s) {
   if (vec)
-    return launch_bwd_mma<DP, true>(Q, K, V, DO, lse, delta, dq, dk, dv, B,
-                                    Hq, Hkv, Sq, Skv, D, st, scale, causal,
-                                    window, cap, s);
-  return launch_bwd_mma<DP, false>(Q, K, V, DO, lse, delta, dq, dk, dv, B,
+    return launch_bwd_mma<DP, true>(Q, K, V, O, DO, lse, delta, dq, dk, dv,
+                                    B, Hq, Hkv, Sq, Skv, D, st, scale,
+                                    causal, window, cap, s);
+  return launch_bwd_mma<DP, false>(Q, K, V, O, DO, lse, delta, dq, dk, dv, B,
                                    Hq, Hkv, Sq, Skv, D, st, scale, causal,
                                    window, cap, s);
 }
@@ -1348,36 +1507,29 @@ int launch_bwd_mma_d(const void* q, const void* k, const void* v,
   const bf16* Q = static_cast<const bf16*>(q);
   const bf16* K = static_cast<const bf16*>(k);
   const bf16* V = static_cast<const bf16*>(v);
+  const bf16* O = static_cast<const bf16*>(o);
   const bf16* DO = static_cast<const bf16*>(dout);
-  const int64_t rows = static_cast<int64_t>(B) * Hq * Sq;
-  const unsigned rblocks =
-      static_cast<unsigned>((rows + THREADS / 32 - 1) / (THREADS / 32));
-  flash_bwd_delta<bf16><<<rblocks, THREADS, 0, s>>>(
-      static_cast<const bf16*>(o), DO, delta, Hq, Sq, D, rows, st[9], st[10],
-      st[11], st[12], st[13], st[14]);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // 16-byte cp.async loads and paired stores need every row 16-byte
-  // aligned; otherwise the same kernels load scalars into the same layout
-  const void* ptrs[7] = {q, k, v, dout, dq, dk, dv};
+  // 16-byte cp.async loads, O's 16-byte reads and paired stores need every
+  // row 16-byte aligned; otherwise the same kernels load scalars into the
+  // same layout
+  const void* ptrs[8] = {q, k, v, o, dout, dq, dk, dv};
   bool vec = D % 8 == 0;
-  for (int i = 0; i < 7; ++i)
+  for (int i = 0; i < 8; ++i)
     vec = vec && reinterpret_cast<uintptr_t>(ptrs[i]) % 16 == 0;
-  for (int i = 0; i < 24; ++i)
-    vec = vec && (i / 3 == 3 || st[i] % 8 == 0);  // o is read by delta only
+  for (int i = 0; i < 24; ++i) vec = vec && st[i] % 8 == 0;
   if (D <= 64)
-    return launch_bwd_mma_v<64>(Q, K, V, DO, lse, delta, dq, dk, dv, B, Hq,
-                                Hkv, Sq, Skv, D, st, scale, causal, window,
-                                cap, vec, s);
+    return launch_bwd_mma_v<64>(Q, K, V, O, DO, lse, delta, dq, dk, dv, B,
+                                Hq, Hkv, Sq, Skv, D, st, scale, causal,
+                                window, cap, vec, s);
   if (D <= 80)
-    return launch_bwd_mma_v<80>(Q, K, V, DO, lse, delta, dq, dk, dv, B, Hq,
-                                Hkv, Sq, Skv, D, st, scale, causal, window,
-                                cap, vec, s);
+    return launch_bwd_mma_v<80>(Q, K, V, O, DO, lse, delta, dq, dk, dv, B,
+                                Hq, Hkv, Sq, Skv, D, st, scale, causal,
+                                window, cap, vec, s);
   if (D <= 96)
-    return launch_bwd_mma_v<96>(Q, K, V, DO, lse, delta, dq, dk, dv, B, Hq,
-                                Hkv, Sq, Skv, D, st, scale, causal, window,
-                                cap, vec, s);
-  return launch_bwd_mma_v<128>(Q, K, V, DO, lse, delta, dq, dk, dv, B, Hq,
+    return launch_bwd_mma_v<96>(Q, K, V, O, DO, lse, delta, dq, dk, dv, B,
+                                Hq, Hkv, Sq, Skv, D, st, scale, causal,
+                                window, cap, vec, s);
+  return launch_bwd_mma_v<128>(Q, K, V, O, DO, lse, delta, dq, dk, dv, B, Hq,
                                Hkv, Sq, Skv, D, st, scale, causal, window,
                                cap, vec, s);
 }
