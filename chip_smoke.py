@@ -36,11 +36,12 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    version (fp32 and bf16; causal, window, cap, GQA, ragged and fully
    masked rows; D 64, 80, 128 and 256), two launches at deepseek-7b's
    train shape bitwise equal, timed there and at zamba2-2.7b's (D 80)
-   beside SDPA's backward; and the SSD backward kernel against the plain
-   backward (fp32: ragged, the train step's shapes contiguous and
-   strided, large decays; each gradient within 1e-3 of its largest
-   magnitude, and finite), timed at both SSM train shapes beside its
-   bound and the plain backward's;
+   beside SDPA's backward; and the SSD backward kernel (``mma_3xtf32``)
+   against the plain backward (fp32: ragged, the train step's shapes
+   contiguous and strided, large decays; each gradient within 1e-3 of its
+   largest magnitude, and finite; two launches at each train shape
+   bitwise equal), timed at both SSM train shapes beside its bound and
+   the plain backward's;
 4. parity — at full width in fp32, deepseek-7b (2 layers), mamba2-780m
    (2 layers) and zamba2-2.7b (6 layers, one ``MMMMMS`` unit): prefill and
    4 greedy decode steps through the kernels (all on their fp32 ``simt``
@@ -167,8 +168,9 @@ SSD_SHAPES = {"mamba2-780m": (8, 256, 48, 64, 128),
 # this share of its largest magnitude.  da sums, over the chunk rows and
 # positions, terms that cancel: ~1e-4 of its size at a = -16.
 SSD_BWD_TOL = 1e-3
-# the backward kernel's one path: fp32 products on the CUDA cores
-SSD_BWD_PATH = "simt"
+# the backward kernel's one path: mma.sync m16n8k8 TF32 with the 3xTF32
+# split, as the forward's
+SSD_BWD_PATH = "mma_3xtf32"
 
 
 # the port's kernels by the names of their __global__ functions, for the
@@ -695,8 +697,9 @@ def phase_ssd_backward(torch, randn):
     (ssd_intra_chunk_bwd_ref, fp32, TF32 off) at ragged shapes, the train
     step's shapes (contiguous and strided as mamba_block passes them) and
     large decays (a = -16 over the 256-token chunk, where the gradients
-    must stay finite); then its time at both train shapes beside its
-    bound and the plain backward's (no library call computes it).
+    must stay finite), two launches at each train shape bitwise equal;
+    then its time at both train shapes beside its bound and the plain
+    backward's (no library call computes it).
     Returns the kernels-line record."""
     from repro_torch.kernels.ssd.ops import ssd_intra_chunk_bwd
     from repro_torch.kernels.ssd.ref import ssd_intra_chunk_bwd_ref
@@ -749,6 +752,13 @@ def phase_ssd_backward(torch, randn):
             f"{'ok' if ok else 'FAIL'}")
         need(ok, f"ssd backward {name}: kernel disagrees with the plain "
              f"backward")
+        if shape in SSD_SHAPES.values():  # the train shapes: run it again
+            again = ssd_intra_chunk_bwd(*ins, *cots)
+            same = all(torch.equal(x, y) for x, y in zip(got, again))
+            log(f"  determinism {name}: two launches bitwise equal on every "
+                f"gradient: {same}")
+            need(same, f"ssd backward {name}: gradients differ between two "
+                 f"launches on the same inputs")
 
     rows = {}
     for arch, shape in SSD_SHAPES.items():

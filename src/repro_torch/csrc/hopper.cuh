@@ -2,7 +2,7 @@
 //
 //   * cp.async (Ampere-style 16-byte asynchronous copies, zero-filling)
 //   * ldmatrix and mma.sync m16n8k16 (warp-level bf16 tensor cores) and
-//     m16n8k8 (tf32)
+//     m16n8k8 (tf32), with the 3xTF32 split for fp32-accurate products
 //   * mbarrier (arrive / expect_tx / parity wait)
 //   * TMA: 2-D tiled loads (cp.async.bulk.tensor) and, on the host, the
 //     tensor-map encoder reached through cudaGetDriverEntryPointByVersion
@@ -110,6 +110,50 @@ __device__ __forceinline__ void mma_1688_tf32(float (&c)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ---- fp32-accurate products on the tf32 tensor cores (3xTF32) ----
+
+// x = hi + lo, both tf32 (the top 19 bits of an fp32): hi is x truncated,
+// x - hi is exact in fp32, and lo is that truncated, so hi + lo keeps ~21
+// of x's 24 mantissa bits.  Two LOP3s and an FADD (cvt.rna.tf32 costs more).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
+}
+
+// c += a b at fp32 accuracy: three tf32 products, the small ones first.
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           uint32_t bh0, uint32_t bh1,
+                                           uint32_t bl0, uint32_t bl1) {
+  mma_1688_tf32(c, al, bh0, bh1);
+  mma_1688_tf32(c, ah, bl0, bl1);
+  mma_1688_tf32(c, ah, bh0, bh1);
+}
+
+// The same with b given in fp32 and split here.
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], float b0,
+                                           float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split_tf32(b0, bh0, bl0);
+  split_tf32(b1, bh1, bl1);
+  mma_3xtf32(c, ah, al, bh0, bh1, bl0, bl1);
+}
+
+// The A fragment of a 16 x 8 block given as its rows g and g + 8 at k
+// columns (t, t + 4): v = {(g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)}.
+__device__ __forceinline__ void split_a(float v0, float v1, float v2,
+                                        float v3, uint32_t (&ah)[4],
+                                        uint32_t (&al)[4]) {
+  split_tf32(v0, ah[0], al[0]);
+  split_tf32(v1, ah[1], al[1]);
+  split_tf32(v2, ah[2], al[2]);
+  split_tf32(v3, ah[3], al[3]);
 }
 
 // Two floats rounded to bf16 and packed, lo in the low half.

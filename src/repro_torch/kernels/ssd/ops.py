@@ -26,7 +26,7 @@ autograd differentiates around the Function.
 
 ``ssd_intra_chunk.launches`` counts the forward kernel's launches and
 ``ssd_intra_chunk_bwd.launches`` the backward's (one per backward call,
-which runs its five kernels).
+which runs its two kernels).
 """
 
 from __future__ import annotations
@@ -59,9 +59,9 @@ def _bwd_lib():
     lib = _build.load("ssd_bwd")
     fn = lib.ssd_intra_chunk_bwd_launch
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 14 + [_I] * 5 + [_I64] * 9 + [_P]
+        fn.argtypes = [_P] * 15 + [_I] * 5 + [_I64] * 9 + [_P]
         fn.restype = _I
-        lib.ssd_intra_chunk_bwd_sizes.argtypes = [_I, _I, _I, _P]
+        lib.ssd_intra_chunk_bwd_sizes.argtypes = [_I, _I, _I, _I, _P]
         lib.ssd_intra_chunk_bwd_sizes.restype = None
     return lib
 
@@ -190,24 +190,24 @@ def ssd_intra_chunk_bwd(x, dt, a, bmat, cmat, dy=None, dst=None, dg=None):
                 torch.zeros((b, q, n), device=dev))
     lib = _bwd_lib()
     sizes = (ctypes.c_int64 * 2)()
-    lib.ssd_intra_chunk_bwd_sizes(b, q, h, sizes)
-    nhb, n_scratch = sizes
-    da_part = torch.empty((b, h), dtype=torch.float32, device=dev)
-    db_part, dc_part = (torch.empty((nhb, b, q, n), dtype=torch.float32,
-                                    device=dev) for _ in range(2))
+    lib.ssd_intra_chunk_bwd_sizes(b, q, h, n, sizes)
+    n_scratch, n_count = sizes
+    da = torch.empty(h, dtype=torch.float32, device=dev)
+    db, dc = (torch.empty((b, q, n), dtype=torch.float32, device=dev)
+              for _ in range(2))
     scratch = torch.empty(n_scratch, dtype=torch.float32, device=dev)
+    count = torch.zeros(n_count, dtype=torch.int32, device=dev)
     err = lib.ssd_intra_chunk_bwd_launch(
         x.data_ptr(), dt.data_ptr(), a.data_ptr(), bmat.data_ptr(),
         cmat.data_ptr(), *(t.data_ptr() for t in cots), dx.data_ptr(),
-        ddt.data_ptr(), da_part.data_ptr(), db_part.data_ptr(),
-        dc_part.data_ptr(), scratch.data_ptr(), b, q, h, p, n,
+        ddt.data_ptr(), da.data_ptr(), db.data_ptr(), dc.data_ptr(),
+        scratch.data_ptr(), count.data_ptr(), b, q, h, p, n,
         *x.stride()[:3], *dt.stride()[:2], *bmat.stride()[:2],
         *cmat.stride()[:2], torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, err, "ssd backward")
     ssd_intra_chunk_bwd.launches += 1
-    # the partials' sums (per head block, per chunk row) in a fixed order
-    return dx, ddt, da_part.sum(0), db_part.sum(0), dc_part.sum(0)
+    return dx, ddt, da, db, dc
 
 
 ssd_intra_chunk_bwd.launches = 0

@@ -351,10 +351,10 @@ def test_attention_backward_path(dtype, d, want):
     ("ssd", "ssd_intra_chunk_launch",
      [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_int64] * 9
      + [ctypes.c_void_p]),
-    # x, dt, a, B, C, dy, dst, dg, dx, ddt, da, dB, dC partials, scratch;
+    # x, dt, a, B, C, dy, dst, dg, dx, ddt, da, dB, dC, scratch, counters;
     # BC, Q, H, P, N; 9 strides; stream
     ("ssd_bwd", "ssd_intra_chunk_bwd_launch",
-     [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_int64] * 9
+     [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 + [ctypes.c_int64] * 9
      + [ctypes.c_void_p]),
 ])
 def test_launcher_argtypes_match_c_signature(monkeypatch, lib, fn, argtypes):
@@ -364,6 +364,7 @@ def test_launcher_argtypes_match_c_signature(monkeypatch, lib, fn, argtypes):
     params = re.search(rf"int {fn}\(([^)]*)\)", src).group(1)
     c_types = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
                "const float*": ctypes.c_void_p, "float*": ctypes.c_void_p,
+               "int*": ctypes.c_void_p,
                "int64_t": ctypes.c_int64, "int": ctypes.c_int,
                "float": ctypes.c_float}
     parsed = [c_types[" ".join(p.split()[:-1])] for p in params.split(",")]
