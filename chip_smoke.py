@@ -1152,8 +1152,8 @@ def phase_flash_backward(torch, randn):
     row = rows["deepseek-7b"]
     return dict(
         name="flash_attention_bwd", route="cuda", path="mma",
-        design="two launches (dQ with delta, then dK/dV), tiles "
-               "double-buffered with cp.async",
+        design="two launches (dQ with delta, then dK/dV); wgmma at D 80 "
+               "and 128 with aligned rows, mma.sync otherwise",
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="none: the Pallas kernel "
                  "src/repro/kernels/flash_attention/kernel.py:26 has no "

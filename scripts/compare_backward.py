@@ -42,7 +42,8 @@ from pathlib import Path
 PEAK_BF16, PEAK_TF32X3, PEAK_F32, PEAK_BYTES = 989e12, 495e12 / 3, 67e12, \
     3.35e12
 SPIN_HZ = 1.98e9
-FLASH_SHAPES = {"deepseek-7b": (4, 32, 512, 128), "zamba2-2.7b": (4, 32, 512, 80)}
+FLASH_SHAPES = {"deepseek-7b": (4, 32, 512, 128),
+                "zamba2-2.7b": (4, 32, 512, 80)}
 SSD_SHAPES = {"mamba2-780m": (8, 256, 48, 64, 128),
               "zamba2-2.7b": (8, 256, 80, 64, 64)}
 TRAIN_RUNS = (("deepseek-7b", 4), ("mamba2-780m", 48), ("zamba2-2.7b", 54))
@@ -114,7 +115,8 @@ def flash_rows(torch):
                - time_ms(torch, lambda: F.scaled_dot_product_attention(
                    qc, kc, vc, is_causal=True), 10))
         pairs = b * h * s * (s + 1) // 2
-        flops, nbytes = 10 * pairs * d, 8 * b * h * s * d * 2 + 2 * b * h * s * 4
+        flops = 10 * pairs * d
+        nbytes = 8 * b * h * s * d * 2 + 2 * b * h * s * 4
         bound = max(flops / PEAK_BF16, nbytes / PEAK_BYTES) * 1e3
         kern, _ = device_kernels(torch, run)
         rows[arch] = dict(shape=[b, h, s, d], ms=ms, sdpa_bwd_ms=lib,

@@ -49,17 +49,19 @@
 // card: at deepseek-7b's train shape ([4, 32, 512, 128] bf16, causal) its
 // five products over the causal pairs take 21.5 GFLOP (22 us at 989
 // TFLOP/s) beside 0.135 GB of tensors moved once (40 us at 3.35 TB/s), so
-// bytes bound it at 0.0402 ms; in practice the mma.sync path is bound by
-// shared-memory traffic and latency: each warp owns 16 rows, so every
-// B fragment is read from shared memory by all four warps of a block.
-// The design (below) keeps dQ free of atomics by recomputing S and dP in
-// a second kernel, double-buffers every streamed tile, fuses delta into
-// the dQ kernel (two launches) and compiles the soft-cap only where one
-// is given.  Measured (scripts/compare_backward.py and chip_smoke.py,
-// NVIDIA H100 80GB HBM3, 700.00 W): 0.207 ms at [4, 32, 512, 128], 19 % of
-// that bound, 1.45x SDPA's backward; 0.137 ms at [4, 32, 512, 80], 18 %,
-// 1.26x SDPA.  The next step is wgmma (64-row warpgroup tiles read B
-// from shared memory once for four warps; ROADMAP.md B4).
+// bytes bound it at 0.0402 ms.  mma.sync, whose warps own 16 rows, reads
+// every B fragment from shared memory once a warp and stalled on that and
+// on latency at ~27 % of its own rate (PERF.md §6); so at D 80 and 128
+// (bf16, aligned rows) both backward kernels run on wgmma: 64-row
+// warpgroup tiles whose operands the tensor cores read from
+// 128-byte-swizzled shared memory once for all four warps, P^T and dS
+// (dS^T) fed from registers.  dQ is recomputed in its own kernel, which also forms delta,
+// so no atomics are needed (two launches; gradients bitwise repeatable).
+// Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W): 0.169 ms at
+// [4, 32, 512, 128], 24 % of that bound, 1.2x SDPA's backward (0.140);
+// 0.128 ms at [4, 32, 512, 80], 20 %, 1.17x SDPA (0.110).  What is left:
+// each block runs its products, its softmax gradient and its next
+// products in turn, and two blocks an SM do not hide all of it.
 
 #include <stdint.h>
 
@@ -976,10 +978,12 @@ int launch_bwd_simt_d(const void* q, const void* k, const void* v,
 // are 16-byte aligned, else with masked scalar loads into the same
 // layout; the accumulators stay fp32.
 
-// Tile shapes, chosen by measurement on the H100 (PERF.md §6): dQ walks
-// 32-key tiles at three blocks an SM; dK/dV steps over 32 query rows at
-// three blocks an SM for D <= 80, over 64 rows at D 96 and 128 (whose dK
-// and dV take 128 registers a thread, so three blocks would spill).
+// At D 80 and 128 with 16-byte aligned rows both kernels run on wgmma
+// (below); otherwise on mma.sync, with tile shapes chosen by measurement
+// on the H100 (PERF.md §6): dQ walks 32-key tiles at three blocks an SM;
+// dK/dV steps over 32 query rows at three blocks an SM for D <= 80, over
+// 64 rows at D 96 and 128 (whose dK and dV take 128 registers a thread,
+// so three blocks would spill).
 constexpr int BQ_M = 64;  // dQ: query rows per block
 constexpr int BK_Q = 32;  // dQ: keys per tile
 constexpr int BK_M = 64;  // dK/dV: keys per block
@@ -1076,7 +1080,8 @@ __global__ void __launch_bounds__(MMA_THREADS, 3)
     const int r = warp * 16 + lane / 2, row = q0 + r;
     const int c0 = (lane % 2) * (DP / 2);
     if (row < Sq) {
-      const bf16* orow = o + b * osb + h * osh + static_cast<int64_t>(row) * oss;
+      const bf16* orow =
+          o + b * osb + h * osh + static_cast<int64_t>(row) * oss;
       const bf16* drow = dos + r * LD;
 #pragma unroll
       for (int c = c0; c < c0 + DP / 2; c += 8) {
@@ -1426,17 +1431,419 @@ __global__ void __launch_bounds__(MMA_THREADS, kv_blocks<DP>())
   }
 }
 
-template <int DP, bool VEC, bool CAP>
-int launch_bwd_mma_c(const bf16* Q, const bf16* K, const bf16* V,
-                   const bf16* O, const bf16* DO, const float* lse,
-                   float* delta, void* dq, void* dk, void* dv, int B, int Hq,
-                   int Hkv, int Sq, int Skv, int D, const int64_t* st,
-                   float scale, int causal, int window, float cap,
-                   cudaStream_t s) {
-  constexpr int QT = kv_rows<DP>(), BK = BK_Q;
-  constexpr size_t smem_kv = dkdv_smem<DP, QT>(), smem_q = dq_smem<DP, BK>();
-  auto kv_kern = flash_bwd_dkdv_mma<DP, VEC, QT, CAP>;
-  auto q_kern = flash_bwd_dq_mma<DP, VEC, BK, CAP>;
+// dK/dV on wgmma at D 80 and 128 (DP), for 16-byte aligned rows.  One
+// warpgroup (128 threads) per (batch * kv-head, 64-key tile): the 64 keys
+// are the M of every product, so each Q, dO, K and V element in shared
+// memory is read once by the tensor cores for all four warps (mma.sync
+// reads every B fragment once a warp).  Per step (group head, 64-row query
+// tile): S^T = K Q^T and dP^T = V dO^T (m64n64k16, both operands K-major
+// from shared memory), P^T and dS^T in registers as in the mma.sync
+// kernel, then dV += P^T dO and dK += dS^T Q (m64n{DP}k16 with A from
+// registers, dO and Q MN-major).  Tiles are [2 chunks of 64 columns][64
+// rows] with the 128-byte swizzle (zero past D), loaded by 16-byte
+// cp.async; Q, dO, lse and delta are double-buffered across steps.  Two
+// blocks an SM.
+constexpr int SW_TILE = 64 * 128 * 2;  // one [64][128] bf16 tile, 16 KB
+
+// byte offset of row r's 16-byte piece c (0 .. 15) in a swizzled tile
+__device__ __forceinline__ int sw128(int r, int c) {
+  return (c >> 3) * 8192 + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+}
+
+// rows [r0, r0 + 64) of a [S, D] bf16 matrix (row stride ld, rows 16-byte
+// aligned) into a swizzled tile, zero past S and past D
+__device__ __forceinline__ void load_sw(uint8_t* dst, const bf16* src,
+                                        int r0, int S, int D, int64_t ld) {
+  for (int e = threadIdx.x; e < 64 * 16; e += MMA_THREADS) {
+    const int r = e / 16, c = e % 16;
+    const bool ok = r0 + r < S && c * 8 < D;
+    const bf16* g = src + static_cast<int64_t>(r0 + r) * ld + c * 8;
+    cp_async16(dst + sw128(r, c), ok ? g : src, ok);
+  }
+}
+
+template <int DP, bool CAP>
+__global__ void __launch_bounds__(MMA_THREADS, 2)
+    flash_bwd_dkdv_wgmma(const bf16* __restrict__ q,
+                         const bf16* __restrict__ k,
+                         const bf16* __restrict__ v,
+                         const bf16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         bf16* __restrict__ dk, bf16* __restrict__ dv,
+                         int Hq, int Hkv, int Sq, int Skv, int D,
+                         int64_t qsb, int64_t qsh, int64_t qss, int64_t ksb,
+                         int64_t ksh, int64_t kss, int64_t vsb, int64_t vsh,
+                         int64_t vss, int64_t dsb, int64_t dsh, int64_t dss,
+                         int64_t dksb, int64_t dksh, int64_t dkss,
+                         int64_t dvsb, int64_t dvsh, int64_t dvss,
+                         float scale, int causal, int window, float cap) {
+  extern __shared__ uint8_t smem_raw[];
+  // the swizzle's 1024-byte atoms need a 1024-byte aligned base
+  uint8_t* const base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* const Ks = base;
+  uint8_t* const Vs = base + SW_TILE;
+  uint8_t* const Qs = base + 2 * SW_TILE;   // [2] buffers
+  uint8_t* const DOs = base + 4 * SW_TILE;  // [2] buffers
+  float* const lses = reinterpret_cast<float*>(base + 6 * SW_TILE);  // [2][64]
+  float* const dls = lses + 2 * 64;                                  // [2][64]
+  const float scale_log2 = scale * LOG2E;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int b = blockIdx.x / Hkv, hk = blockIdx.x % Hkv;
+  const int G = Hq / Hkv;
+  const int j0 = blockIdx.y * BK_M;  // the first key tiles see most rows
+  const int key_lo = j0 + warp * 16 + lane / 4, key_hi = key_lo + 8;
+
+  load_sw(Ks, k + b * ksb + hk * ksh, j0, Skv, D, kss);
+  load_sw(Vs, v + b * vsb + hk * vsh, j0, Skv, D, vss);
+  cp_async_commit();
+
+  float dka[DP / 2], dva[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dka[i] = dva[i] = 0.f;
+
+  const int q_begin = causal ? j0 / 64 * 64 : 0;
+  const int q_end = window > 0 ? min(Sq, j0 + BK_M - 1 + window) : Sq;
+  const int nqt = q_end > q_begin ? (q_end - q_begin + 63) / 64 : 0;
+  const int n_steps = G * nqt;
+
+  auto issue = [&](int it, int buf) {
+    const int h = hk * G + it / nqt;
+    const int i0 = q_begin + (it % nqt) * 64;
+    load_sw(Qs + buf * SW_TILE, q + b * qsb + h * qsh, i0, Sq, D, qss);
+    load_sw(DOs + buf * SW_TILE, dout + b * dsb + h * dsh, i0, Sq, D, dss);
+    const int t = threadIdx.x % 64;  // threads 0-63 lse, 64-127 delta
+    const float* src = (threadIdx.x < 64 ? lse : delta) +
+                       (static_cast<int64_t>(b) * Hq + h) * Sq;
+    float* dst = (threadIdx.x < 64 ? lses : dls) + buf * 64 + t;
+    const bool ok = i0 + t < Sq;
+    cp_async4(dst, ok ? src + i0 + t : src, ok);
+  };
+  if (n_steps > 0) issue(0, 0);
+  cp_async_commit();
+
+  for (int it = 0; it < n_steps; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < n_steps) {  // the next step loads while this one computes
+      issue(it + 1, buf ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_proxy_async();  // the copies, seen by wgmma
+    __syncthreads();
+    const int i0 = q_begin + (it % nqt) * 64;
+    const uint8_t* qt = Qs + buf * SW_TILE;
+    const uint8_t* dt = DOs + buf * SW_TILE;
+    const float* lt = lses + buf * 64;
+    const float* dlt = dls + buf * 64;
+
+    // S^T = K Q^T and dP^T = V dO^T: 16 d columns (32 bytes) a k step,
+    // the second 64-column chunk 8 KB on
+    float st[32], dpt[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
+    wgmma_fence_regs(st);
+    wgmma_fence_regs(dpt);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      const int off = (kk >> 2) * 8192 + (kk & 3) * 32;
+      wgmma_m64n64k16<0, 0>(st, wgmma_desc(Ks + off, 16, 1024),
+                            wgmma_desc(qt + off, 16, 1024));
+    }
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      const int off = (kk >> 2) * 8192 + (kk & 3) * 32;
+      wgmma_m64n64k16<0, 0>(dpt, wgmma_desc(Vs + off, 16, 1024),
+                            wgmma_desc(dt + off, 16, 1024));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_fence_regs(st);
+    wgmma_fence_regs(dpt);
+
+    // accumulator layout: per 8-query block j, keys g and g + 8 of this
+    // warp's 16, queries 2 (lane % 4) + {0, 1}
+    const bool need_mask = j0 + BK_M > Skv || i0 + 64 > Sq ||
+                           (causal && i0 < j0 + BK_M - 1) ||
+                           (window > 0 && i0 + 63 - j0 >= window);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = j * 8 + 2 * (lane % 4) + (e & 1);
+        float x2, dcap = 1.f;  // the scaled (and capped) logit, log2
+        if (CAP) {
+          const float th = tanhf(st[4 * j + e] * scale / cap);
+          x2 = th * cap * LOG2E;
+          dcap = 1.f - th * th;
+        } else {
+          x2 = st[4 * j + e] * scale_log2;
+        }
+        bool ok = true;
+        if (need_mask)
+          ok = live(i0 + col, e < 2 ? key_lo : key_hi, Sq, Skv, causal,
+                    window);
+        const float p = ok ? bwd_exp2(x2 - lt[col] * LOG2E) : 0.f;
+        st[4 * j + e] = p;                                        // P^T
+        dpt[4 * j + e] = p * (dpt[4 * j + e] - dlt[col]) * dcap;  // dS^T
+      }
+    }
+
+    // dV += P^T dO and dK += dS^T Q over the 64 queries: P^T and dS^T
+    // rounded to bf16 as A fragments (two adjacent n8 blocks make one
+    // k16), dO and Q MN-major (16 query rows a k step, d chunks 8 KB
+    // apart)
+    wgmma_fence_regs(dva);
+    wgmma_fence_regs(dka);
+    wgmma_fence();
+#pragma unroll
+    for (int kb = 0; kb < 4; ++kb) {
+      const uint32_t ap[4] = {pack_bf16(st[8 * kb], st[8 * kb + 1]),
+                              pack_bf16(st[8 * kb + 2], st[8 * kb + 3]),
+                              pack_bf16(st[8 * kb + 4], st[8 * kb + 5]),
+                              pack_bf16(st[8 * kb + 6], st[8 * kb + 7])};
+      const uint32_t ad[4] = {pack_bf16(dpt[8 * kb], dpt[8 * kb + 1]),
+                              pack_bf16(dpt[8 * kb + 2], dpt[8 * kb + 3]),
+                              pack_bf16(dpt[8 * kb + 4], dpt[8 * kb + 5]),
+                              pack_bf16(dpt[8 * kb + 6], dpt[8 * kb + 7])};
+      wgmma_rs<DP, 1>(dva, ap,
+                             wgmma_desc(dt + kb * 16 * 128, 8192, 1024));
+      wgmma_rs<DP, 1>(dka, ad,
+                             wgmma_desc(qt + kb * 16 * 128, 8192, 1024));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_fence_regs(dva);
+    wgmma_fence_regs(dka);
+    __syncthreads();  // the next step refills the other buffer
+  }
+  cp_async_wait<0>();
+
+  bf16* kob = dk + b * dksb + hk * dksh;
+  bf16* vob = dv + b * dvsb + hk * dvsh;
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j) {
+    const int col = j * 8 + 2 * (lane % 4);
+    if (col < D) {
+      const bool two = col + 1 < D;
+      if (key_lo < Skv) {
+        store_pair_bf16(kob + key_lo * dkss + col, dka[4 * j] * scale,
+                        dka[4 * j + 1] * scale, two, true);
+        store_pair_bf16(vob + key_lo * dvss + col, dva[4 * j],
+                        dva[4 * j + 1], two, true);
+      }
+      if (key_hi < Skv) {
+        store_pair_bf16(kob + key_hi * dkss + col, dka[4 * j + 2] * scale,
+                        dka[4 * j + 3] * scale, two, true);
+        store_pair_bf16(vob + key_hi * dvss + col, dva[4 * j + 2],
+                        dva[4 * j + 3], two, true);
+      }
+    }
+  }
+}
+
+// dQ on wgmma at D 80 and 128 (DP), for 16-byte aligned rows: one
+// warpgroup per (batch * q-head, 64-row query tile), heaviest causal tiles
+// first.  It forms delta = rowsum(dO * O) of its rows and writes it for
+// the dK/dV kernel, then per 64-key tile S = Q K^T and dP = dO V^T
+// (m64n64k16, operands K-major from shared memory) and dQ += dS K
+// (m64n{DP}k16, dS from registers, K MN-major).  Q and dO stay for the
+// block; K and V tiles are double-buffered.
+template <int DP, bool CAP>
+__global__ void __launch_bounds__(MMA_THREADS, 2)
+    flash_bwd_dq_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, const bf16* __restrict__ o,
+                       const bf16* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       float* __restrict__ delta, bf16* __restrict__ dq,
+                       int Hq, int Hkv, int Sq, int Skv, int D, int64_t qsb,
+                       int64_t qsh, int64_t qss, int64_t ksb, int64_t ksh,
+                       int64_t kss, int64_t vsb, int64_t vsh, int64_t vss,
+                       int64_t osb, int64_t osh, int64_t oss, int64_t dsb,
+                       int64_t dsh, int64_t dss, int64_t dqsb, int64_t dqsh,
+                       int64_t dqss, float scale, int causal, int window,
+                       float cap) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* const base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* const Qs = base;
+  uint8_t* const DOs = base + SW_TILE;
+  uint8_t* const Ks = base + 2 * SW_TILE;  // [2] buffers
+  uint8_t* const Vs = base + 4 * SW_TILE;  // [2] buffers
+  const float scale_log2 = scale * LOG2E;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int b = blockIdx.x / Hq, h = blockIdx.x % Hq;
+  const int hk = h / (Hq / Hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * 64;
+  const int row_lo = q0 + warp * 16 + lane / 4, row_hi = row_lo + 8;
+
+  const bf16* kb = k + b * ksb + hk * ksh;
+  const bf16* vb = v + b * vsb + hk * vsh;
+  const bf16* db = dout + b * dsb + h * dsh;
+  load_sw(Qs, q + b * qsb + h * qsh, q0, Sq, D, qss);
+  load_sw(DOs, db, q0, Sq, D, dss);
+  cp_async_commit();
+
+  int k_end = Skv;
+  if (causal) k_end = min(Skv, min(q0 + 64, Sq));
+  int k_begin = 0;
+  if (window > 0) k_begin = max(0, q0 - window + 1) / 64 * 64;
+  if (k_begin < k_end) {
+    load_sw(Ks, kb, k_begin, Skv, D, kss);
+    load_sw(Vs, vb, k_begin, Skv, D, vss);
+  }
+  cp_async_commit();
+
+  // delta = rowsum(dO * O) from global rows: lanes 2r and 2r + 1 sum the
+  // two halves of the warp's row r (0 past Sq)
+  const int64_t bhq = static_cast<int64_t>(b) * Hq + h;
+  float dsum = 0.f;
+  {
+    const int row = q0 + warp * 16 + lane / 2;
+    const int c0 = (lane % 2) * (DP / 2);
+    if (row < Sq) {
+      const bf16* orow =
+          o + b * osb + h * osh + static_cast<int64_t>(row) * oss;
+      const bf16* drow = db + static_cast<int64_t>(row) * dss;
+#pragma unroll
+      for (int c = c0; c < c0 + DP / 2; c += 8) {
+        if (c < D) {  // D % 8 == 0 here
+          const uint4 ov = *reinterpret_cast<const uint4*>(orow + c);
+          const uint4 dv = *reinterpret_cast<const uint4*>(drow + c);
+          const bf16* op = reinterpret_cast<const bf16*>(&ov);
+          const bf16* dp = reinterpret_cast<const bf16*>(&dv);
+#pragma unroll
+          for (int x = 0; x < 8; ++x)
+            dsum += __bfloat162float(op[x]) * __bfloat162float(dp[x]);
+        }
+      }
+    }
+    dsum += __shfl_xor_sync(0xffffffffu, dsum, 1);
+    if (lane % 2 == 0 && row < Sq) delta[bhq * Sq + row] = dsum;
+  }
+  const float* lb = lse + bhq * Sq;
+  const float l2[2] = {row_lo < Sq ? lb[row_lo] * LOG2E : 0.f,
+                       row_hi < Sq ? lb[row_hi] * LOG2E : 0.f};
+  const float dl[2] = {__shfl_sync(0xffffffffu, dsum, 2 * (lane / 4)),
+                       __shfl_sync(0xffffffffu, dsum, 2 * (lane / 4) + 16)};
+
+  float acc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+
+  int buf = 0;
+  for (int j0 = k_begin; j0 < k_end; j0 += 64, buf ^= 1) {
+    if (j0 + 64 < k_end) {  // the next tile loads while this one computes
+      load_sw(Ks + (buf ^ 1) * SW_TILE, kb, j0 + 64, Skv, D, kss);
+      load_sw(Vs + (buf ^ 1) * SW_TILE, vb, j0 + 64, Skv, D, vss);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_proxy_async();
+    __syncthreads();
+    const uint8_t* kt = Ks + buf * SW_TILE;
+    const uint8_t* vt = Vs + buf * SW_TILE;
+
+    // S = Q K^T and dP = dO V^T
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    wgmma_fence_regs(s);
+    wgmma_fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      const int off = (kk >> 2) * 8192 + (kk & 3) * 32;
+      wgmma_m64n64k16<0, 0>(s, wgmma_desc(Qs + off, 16, 1024),
+                            wgmma_desc(kt + off, 16, 1024));
+    }
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      const int off = (kk >> 2) * 8192 + (kk & 3) * 32;
+      wgmma_m64n64k16<0, 0>(dp, wgmma_desc(DOs + off, 16, 1024),
+                            wgmma_desc(vt + off, 16, 1024));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_fence_regs(s);
+    wgmma_fence_regs(dp);
+
+    const bool need_mask = j0 + 64 > Skv || q0 + 64 > Sq ||
+                           (causal && j0 + 63 > q0) ||
+                           (window > 0 && q0 + 63 - j0 >= window);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x2, dcap = 1.f;  // the scaled (and capped) logit, log2 units
+        if (CAP) {
+          const float th = tanhf(s[4 * j + e] * scale / cap);
+          x2 = th * cap * LOG2E;
+          dcap = 1.f - th * th;
+        } else {
+          x2 = s[4 * j + e] * scale_log2;
+        }
+        bool ok = true;
+        if (need_mask)
+          ok = live(e < 2 ? row_lo : row_hi, j0 + j * 8 + 2 * (lane % 4) +
+                    (e & 1), Sq, Skv, causal, window);
+        const float p = ok ? bwd_exp2(x2 - l2[e / 2]) : 0.f;
+        s[4 * j + e] = p * (dp[4 * j + e] - dl[e / 2]) * dcap;  // dS/scale
+      }
+    }
+
+    // dQ += dS K: dS rounded to bf16 as A fragments, K MN-major
+    wgmma_fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kb2 = 0; kb2 < 4; ++kb2) {
+      const uint32_t a[4] = {pack_bf16(s[8 * kb2], s[8 * kb2 + 1]),
+                             pack_bf16(s[8 * kb2 + 2], s[8 * kb2 + 3]),
+                             pack_bf16(s[8 * kb2 + 4], s[8 * kb2 + 5]),
+                             pack_bf16(s[8 * kb2 + 6], s[8 * kb2 + 7])};
+      wgmma_rs<DP, 1>(acc, a,
+                      wgmma_desc(kt + kb2 * 16 * 128, 8192, 1024));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_fence_regs(acc);
+    __syncthreads();  // the next iteration refills the other buffer
+  }
+  cp_async_wait<0>();
+
+  bf16* ob = dq + b * dqsb + h * dqsh;
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j) {
+    const int col = j * 8 + 2 * (lane % 4);
+    if (col < D) {
+      const bool two = col + 1 < D;
+      if (row_lo < Sq)
+        store_pair_bf16(ob + row_lo * dqss + col, acc[4 * j] * scale,
+                        acc[4 * j + 1] * scale, two, true);
+      if (row_hi < Sq)
+        store_pair_bf16(ob + row_hi * dqss + col, acc[4 * j + 2] * scale,
+                        acc[4 * j + 3] * scale, two, true);
+    }
+  }
+}
+
+// dQ (which writes delta) and then dK/dV, each on its kernel
+template <typename QKern, typename KVKern>
+int launch_bwd_pair(QKern q_kern, KVKern kv_kern, size_t smem_q,
+                    size_t smem_kv, const bf16* Q, const bf16* K,
+                    const bf16* V, const bf16* O, const bf16* DO,
+                    const float* lse, float* delta, void* dq, void* dk,
+                    void* dv, int B, int Hq, int Hkv, int Sq, int Skv, int D,
+                    const int64_t* st, float scale, int causal, int window,
+                    float cap, cudaStream_t s) {
   cudaError_t err = cudaFuncSetAttribute(
       kv_kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem_kv));
@@ -1445,7 +1852,6 @@ int launch_bwd_mma_c(const bf16* Q, const bf16* K, const bf16* V,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem_q));
   if (err != cudaSuccess) return static_cast<int>(err);
-  // dQ first: it writes delta, which dK/dV reads
   dim3 grid(static_cast<unsigned>(B) * Hq,
             static_cast<unsigned>((Sq + BQ_M - 1) / BQ_M));
   q_kern<<<grid, MMA_THREADS, smem_q, s>>>(
@@ -1464,6 +1870,30 @@ int launch_bwd_mma_c(const bf16* Q, const bf16* K, const bf16* V,
       st[18], st[19], st[20], st[21], st[22], st[23], scale, causal, window,
       cap);
   return static_cast<int>(cudaGetLastError());
+}
+
+// wgmma at D 80 and 128 with 16-byte aligned rows, else mma.sync
+template <int DP, bool VEC, bool CAP>
+int launch_bwd_mma_c(const bf16* Q, const bf16* K, const bf16* V,
+                     const bf16* O, const bf16* DO, const float* lse,
+                     float* delta, void* dq, void* dk, void* dv, int B,
+                     int Hq, int Hkv, int Sq, int Skv, int D,
+                     const int64_t* st, float scale, int causal, int window,
+                     float cap, cudaStream_t s) {
+  if constexpr ((DP == 80 || DP == 128) && VEC) {
+    return launch_bwd_pair(
+        flash_bwd_dq_wgmma<DP, CAP>, flash_bwd_dkdv_wgmma<DP, CAP>,
+        6 * SW_TILE + 1024, 6 * SW_TILE + 4 * 64 * sizeof(float) + 1024, Q,
+        K, V, O, DO, lse, delta, dq, dk, dv, B, Hq, Hkv, Sq, Skv, D, st,
+        scale, causal, window, cap, s);
+  } else {
+    constexpr int QT = kv_rows<DP>();
+    return launch_bwd_pair(
+        flash_bwd_dq_mma<DP, VEC, BK_Q, CAP>,
+        flash_bwd_dkdv_mma<DP, VEC, QT, CAP>, dq_smem<DP, BK_Q>(),
+        dkdv_smem<DP, QT>(), Q, K, V, O, DO, lse, delta, dq, dk, dv, B, Hq,
+        Hkv, Sq, Skv, D, st, scale, causal, window, cap, s);
+  }
 }
 
 template <int DP, bool VEC>

@@ -28,12 +28,14 @@
 // fp32 accuracy on the tensor cores (495 TF32 TFLOP/s over a 3xTF32
 // split) that is 40 / 50 us of operations beside 28 / 42 us of bytes:
 // operations bound it.  Measured (chip_smoke.py, NVIDIA H100 80GB HBM3,
-// 700.00 W): ~0.45 ms (mamba2) and ~0.56 ms (zamba2), 9 % of that bound;
-// the old CUDA-core design took 0.764 / 0.915 ms.  Every product phase
-// (C.B^T, dM, dx, the state's E and dB terms) costs about the same per
-// mma.sync issued, and neither a second accumulator chain per output nor
-// more heads per block moved it (PERF.md §6): the warp-level tf32
-// mma.sync path, not the math, is the limit; wgmma is the next step.
+// 700.00 W): ~0.45 ms (mamba2) and ~0.56 ms (zamba2), 9 % of that bound,
+// and ~22 % of the rate its mma.sync instructions allow (322 TF32
+// TFLOP/s, scripts/mma_rate.py).  Every product phase (C.B^T, dM, dx,
+// the state's E and dB terms) costs about the same per mma.sync issued,
+// and neither a second accumulator chain per output, four heads a block
+// nor conflict-free row pitches moved it (PERF.md §6), so neither the
+// tensor pipe, mma latency nor bank conflicts is what holds it; the next
+// step is wgmma, whose warpgroup tiles read shared operands once.
 //
 // Design (no float atomics: every cross-block sum is taken in a fixed
 // order, so the gradients are bitwise repeatable):
@@ -203,7 +205,8 @@ __device__ __forceinline__ void flush_rows(const Args& A, const float* red,
     const int q = qt * T + threadIdx.x;
     if (q < A.Q)
       A.rowsum[((static_cast<int64_t>(c) * A.H + h) * A.nq + st) * A.Q + q] =
-          ((red[threadIdx.x] + red[T + threadIdx.x]) + red[2 * T + threadIdx.x]) +
+          ((red[threadIdx.x] + red[T + threadIdx.x]) +
+           red[2 * T + threadIdx.x]) +
           red[3 * T + threadIdx.x];
   }
 }
@@ -636,7 +639,8 @@ __global__ void __launch_bounds__(THREADS, 1) ssd_bwd_main(const Args A) {
 
 template <int NP>
 constexpr size_t fin_smem_floats(int Q) {
-  const size_t tiles = static_cast<size_t>(T) * LDX + static_cast<size_t>(T) * (NP + 4);
+  const size_t tiles =
+      static_cast<size_t>(T) * LDX + static_cast<size_t>(T) * (NP + 4);
   const size_t dt = 3 * static_cast<size_t>(Q);
   return tiles > dt ? tiles : dt;
 }

@@ -20,14 +20,16 @@ forward also writes each row's log-sum-exp, and the backward is the
 hand-written backward kernel (:func:`attention_bwd`: dQ, dK and dV in
 q/k/v's dtype with fp32 accumulation, no atomics, so deterministic).  Its
 path is chosen by :func:`_bwd_path`: ``"mma"`` (bf16 on the tensor cores,
-``mma.sync``, D <= 128) or ``"simt"`` (CUDA cores, fp32 arithmetic: fp32,
+D <= 128: ``wgmma`` at D 80 and 128 with 16-byte aligned rows,
+``mma.sync`` otherwise) or ``"simt"`` (CUDA cores, fp32 arithmetic: fp32,
 and bf16 at D > 128).  For CPU tensors autograd differentiates the plain
 version.
 
 ``attention.launches`` counts the forward kernel's launches and
 ``attention.launches_by_path`` the same launches by path;
 ``attention_bwd.launches`` and ``attention_bwd.launches_by_path`` count
-the backward's (one per backward call, which runs its three kernels).
+the backward's (one per backward call, which runs two kernels on the
+tensor cores or three on the CUDA cores).
 """
 
 from __future__ import annotations
