@@ -28,8 +28,8 @@
 // fp32 accuracy on the tensor cores (495 TF32 TFLOP/s over a 3xTF32
 // split) that is 40 / 50 us of operations beside 28 / 42 us of bytes:
 // operations bound it.  Measured (chip_smoke.py, NVIDIA H100 80GB HBM3,
-// 700.00 W): ~0.45 ms (mamba2) and ~0.56 ms (zamba2), 9 % of that bound,
-// and ~22 % of the rate its mma.sync instructions allow (322 TF32
+// 700.00 W): ~0.41 ms (mamba2) and ~0.52 ms (zamba2), ~10 % of that
+// bound, and ~25 % of the rate its mma.sync instructions allow (322 TF32
 // TFLOP/s, scripts/mma_rate.py).  Every product phase (C.B^T, dM, dx,
 // the state's E and dB terms) costs about the same per mma.sync issued,
 // and neither a second accumulator chain per output, four heads a block
@@ -50,11 +50,12 @@
 //     dw, and the head block's share of (w x)^T dst for dB), with both
 //     heads' dst tiles loaded at once.  The last block of a (chunk, s
 //     tile) to finish (an integer arrival counter) sums the head blocks'
-//     dCB^T tiles in head-block order.  ssd_bwd_fin: per (chunk, s tile)
-//     dB = dCB^T C plus the head blocks' state terms, per (chunk, q tile)
-//     dC = dCB B, and per (chunk, head) dcum, its reverse cumsum, ddt and
-//     da's chunk partial, the last chunk of a head summing da in chunk
-//     order.
+//     dCB^T tiles in head-block order.  ssd_bwd_fin: per (chunk, s tile,
+//     32 columns of N) dB = dCB^T C plus the head blocks' state terms (the
+//     column split spreads the reads of those partials over more blocks),
+//     per (chunk, q tile, 32 columns) dC = dCB B, and per (chunk, head)
+//     dcum, its reverse cumsum, ddt and da's chunk partial, the last chunk
+//     of a head summing da in chunk order.
 //   * Warps: warp w owns s rows 16 (w % 4) .. + 15 of the tile, and q
 //     columns (for C.B^T, dM^T, T) or p columns (for dx and E) 32 (w / 4)
 //     .. + 31, so each warp keeps 16 x 32 accumulators a head: dx of the
@@ -76,7 +77,8 @@
 //     exp(cum_q - cum_s) overflows to inf above the diagonal, and a select
 //     after the exp would make 0 * inf = NaN.  Masked exponents are -inf.
 //   * cum is the forward kernel's: a sequential fp32 sum of
-//     __fmul_rn(dt, a) in one thread per head.
+//     __fmul_rn(dt, a) in one thread per head (loading eight values at a
+//     time, so the chain of adds does not wait on each load).
 
 #include "hopper.cuh"
 
@@ -88,6 +90,7 @@ constexpr int LDX = T + 4;    // pitch of the x, dy, M^T and dCB^T tiles
 constexpr int MAX_P = 64;
 constexpr int MAX_N = 256;
 constexpr int SMEM_MAX = 232448;  // dynamic shared memory a block can use
+constexpr int FW = 32;  // ssd_bwd_fin: the columns of N a dB or dC block owns
 
 constexpr int HB = 2;  // heads a main block
 
@@ -188,11 +191,23 @@ __device__ void block_cum(float* cum, float* dts, const Args& A, int c,
   if (threadIdx.x < nh) {
     const int hl = threadIdx.x;
     const float ah = A.a[h0 + hl];
+    const float* d = dts + hl * Q;
+    float* cu = cum + hl * Q;
     float run = 0.f;
-#pragma unroll 8
-    for (int s = 0; s < Q; ++s) {
-      run = run + __fmul_rn(dts[hl * Q + s], ah);
-      cum[hl * Q + s] = run;
+    int s = 0;
+    for (; s + 8 <= Q; s += 8) {  // eight loads in flight, then the adds
+      float v[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[i] = d[s + i];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        run = run + __fmul_rn(v[i], ah);
+        cu[s + i] = run;
+      }
+    }
+    for (; s < Q; ++s) {
+      run = run + __fmul_rn(d[s], ah);
+      cu[s] = run;
     }
   }
   __syncthreads();
@@ -639,40 +654,38 @@ __global__ void __launch_bounds__(THREADS, 1) ssd_bwd_main(const Args A) {
 
 template <int NP>
 constexpr size_t fin_smem_floats(int Q) {
-  const size_t tiles =
-      static_cast<size_t>(T) * LDX + static_cast<size_t>(T) * (NP + 4);
+  const size_t tiles = static_cast<size_t>(T) * (LDX + FW + 4);
   const size_t dt = 3 * static_cast<size_t>(Q);
   return tiles > dt ? tiles : dt;
 }
 
-// per (chunk, s tile): dB; per (chunk, q tile): dC; per (chunk, head):
-// dcum, ddt and da
+// per (chunk, s tile, FW columns of N): dB; per (chunk, q tile, FW
+// columns): dC; per (chunk, head): dcum, ddt and da.  The column split
+// spreads the reads of dB's head-block partials over more blocks.
 template <int NP>
 __global__ void __launch_bounds__(THREADS) ssd_bwd_fin(const Args A) {
-  constexpr int LDB = NP + 4;
-  constexpr int NH = NP / 16;
+  constexpr int LDW = FW + 4;  // the C / B column slice's pitch
+  constexpr int NCH = NP / FW;  // column slices
   extern __shared__ __align__(16) float smem[];
   const int Q = A.Q, N = A.N, nq = A.nq;
-  const int nbc = A.BC * nq;
+  const int nbc = A.BC * nq * NCH;
   int b = blockIdx.x;
   if (b < 2 * nbc) {
     // dB rows of s tile `tile` (the most q tiles first), then dC rows of
     // q tile `tile` (the most s tiles first)
     const bool is_db = b < nbc;
     if (!is_db) b -= nbc;
-    const int tile = is_db ? b / A.BC : nq - 1 - b / A.BC;
-    const int c = b % A.BC;
+    const int tile = is_db ? b / (A.BC * NCH) : nq - 1 - b / (A.BC * NCH);
+    const int c = b % (A.BC * NCH) / NCH;
+    const int n0 = b % NCH * FW;  // the block's first column
+    if (n0 >= N) return;
     float* const Ds = smem;           // [T][LDX] dCB^T of a pair (s, q)
-    float* const Ws = Ds + T * LDX;   // [T][LDB] C of the q tile / B of s
+    float* const Ws = Ds + T * LDX;   // [T][LDW] C of the q tile / B of s
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int rg = warp & 3, hf = warp >> 2;
     const int g = lane >> 2, t = lane & 3;
     const int rl = 16 * rg + g;  // the lane's local output rows rl, rl + 8
-    float acc[NH][4];
-#pragma unroll
-    for (int j = 0; j < NH; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    float acc[2][4] = {};  // 16 rows x 16 columns (half hf of the slice)
     const int lo = is_db ? tile : 0, hi = is_db ? nq - 1 : tile;
     for (int o = lo; o <= hi; ++o) {
       const int st = is_db ? tile : o, qt = is_db ? o : tile;
@@ -682,11 +695,11 @@ __global__ void __launch_bounds__(THREADS) ssd_bwd_fin(const Args A) {
                        pair_index(st, qt, nq)) * T * T,
           0, T, T, T, true);
       if (is_db)
-        load_tile<T, NP, LDB>(Ws, A.cm + c * A.csb, qt * T, Q, N, A.csq,
-                              A.vc);
+        load_tile<T, FW, LDW>(Ws, A.cm + c * A.csb + n0, qt * T, Q, N - n0,
+                              A.csq, A.vc);
       else
-        load_tile<T, NP, LDB>(Ws, A.bm + c * A.bsb, st * T, Q, N, A.bsq,
-                              A.vb);
+        load_tile<T, FW, LDW>(Ws, A.bm + c * A.bsb + n0, st * T, Q, N - n0,
+                              A.bsq, A.vb);
       cp_async_commit();
       cp_async_wait<0>();
       __syncthreads();
@@ -704,16 +717,16 @@ __global__ void __launch_bounds__(THREADS) ssd_bwd_fin(const Args A) {
                   al);
         }
 #pragma unroll
-        for (int j = 0; j < NH; ++j) {
-          const int n = hf * (NP / 2) + 8 * j + g;
-          mma_3xtf32(acc[j], ah, al, Ws[k * LDB + n], Ws[(k + 1) * LDB + n]);
+        for (int j = 0; j < 2; ++j) {
+          const int n = hf * 16 + 8 * j + g;
+          mma_3xtf32(acc[j], ah, al, Ws[k * LDW + n], Ws[(k + 1) * LDW + n]);
         }
       }
     }
     const bool n_even = (N & 1) == 0;
 #pragma unroll
-    for (int j = 0; j < NH; ++j) {
-      const int n = hf * (NP / 2) + 8 * j + 2 * t;
+    for (int j = 0; j < 2; ++j) {
+      const int n = n0 + hf * 16 + 8 * j + 2 * t;
 #pragma unroll
       for (int rr = 0; rr < 2; ++rr) {
         const int row = tile * T + rl + 8 * rr;
@@ -757,11 +770,25 @@ __global__ void __launch_bounds__(THREADS) ssd_bwd_fin(const Args A) {
     dcum[Q - 1] += v + A.dg[ch] * expf(cum[Q - 1]);
     // cum = cumsum(dt a): d loss / d (dt a)_s is the reverse cumsum
     float run = 0.f, da = 0.f;
-#pragma unroll 8
-    for (int s = Q - 1; s >= 0; --s) {
-      run += dcum[s];
-      dcum[s] = run;
-      da += run * dts[s];
+    int s = Q;
+    for (; s >= 8; s -= 8) {  // eight of each load in flight, then the adds
+      float dc[8], d[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        dc[i] = dcum[s - 1 - i];
+        d[i] = dts[s - 1 - i];
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        run += dc[i];
+        dcum[s - 1 - i] = run;
+        da += run * d[i];
+      }
+    }
+    for (; s > 0; --s) {
+      run += dcum[s - 1];
+      dcum[s - 1] = run;
+      da += run * dts[s - 1];
     }
     A.da_part[ch] = da;
   }
@@ -813,8 +840,8 @@ int launch(const Args& A, cudaStream_t s) {
   if (sm_main > SMEM_MAX || sm_fin > SMEM_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t g_main = static_cast<int64_t>(A.nq) * A.BC * A.nhb;
-  const int64_t g_fin =
-      2 * static_cast<int64_t>(A.BC) * A.nq + static_cast<int64_t>(A.BC) * A.H;
+  const int64_t g_fin = 2 * static_cast<int64_t>(A.BC) * A.nq * (NP / FW) +
+                        static_cast<int64_t>(A.BC) * A.H;
   if (g_main > 0x7fffffff || g_fin > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
