@@ -57,9 +57,9 @@
 // 128-byte-swizzled shared memory once for all four warps, P^T and dS
 // (dS^T) fed from registers.  dQ is recomputed in its own kernel, which also forms delta,
 // so no atomics are needed (two launches; gradients bitwise repeatable).
-// Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W): 0.169 ms at
-// [4, 32, 512, 128], 24 % of that bound, 1.2x SDPA's backward (0.140);
-// 0.128 ms at [4, 32, 512, 80], 20 %, 1.17x SDPA (0.110).  What is left:
+// Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W): 0.173 ms at
+// [4, 32, 512, 128], 23 % of that bound, 1.24x SDPA's backward (0.140);
+// 0.129 ms at [4, 32, 512, 80], 19 %, 1.18x SDPA (0.110).  What is left:
 // each block runs its products, its softmax gradient and its next
 // products in turn, and two blocks an SM do not hide all of it.
 
