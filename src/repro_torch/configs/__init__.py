@@ -22,6 +22,9 @@ ARCHITECTURES: dict[str, str] = {
     "deepseek-7b": "deepseek_7b",
     "mamba2-780m": "mamba2_780m",
     "zamba2-2.7b": "zamba2_2_7b",
+    "olmoe-1b-7b": "olmoe_1b_7b",
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
+    "deepseek-v3-moe": "deepseek_v3_moe",
 }
 
 

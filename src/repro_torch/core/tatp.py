@@ -16,8 +16,10 @@ dtype as the reference's ``_dot`` does:
 
 :func:`tatp_matmul` ties them together as the reference's ``custom_vjp``
 does, as a ``torch.autograd.Function``; the transposed operands are views,
-which the GEMM reads through their strides.  The ring (R > 1) and the wire
-codecs are ROADMAP.md item A3.
+which the GEMM reads through their strides.  Under the ``tatp_outputs``
+remat policy its output is saved (:mod:`repro_torch.core.remat`), so the
+recompute runs no forward product.  The ring (R > 1) and the wire codecs
+are ROADMAP.md item A3.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from typing import Callable
 import torch
 
 from repro_torch import not_ported
+from repro_torch.core import remat
 from repro_torch.kernels.tatp_matmul.ops import tatp_dot
 
 Dot = Callable[..., torch.Tensor]
@@ -74,9 +77,15 @@ class _TatpMatmul(torch.autograd.Function):
     def forward(ctx, x, w, axis, axis_size, bidirectional, wire, dot):
         ctx.save_for_backward(x, w)
         ctx.cfg = (axis, axis_size, bidirectional, wire, dot)
-        return ag_matmul_stream_w(x, w, axis, axis_size,
-                                  bidirectional=bidirectional, dot=dot,
-                                  wire=wire)
+        saved = remat.active()  # tatp_outputs: the reference's "tatp_y"
+        if saved is not None and saved.replaying:
+            return saved.take().detach()
+        y = ag_matmul_stream_w(x, w, axis, axis_size,
+                               bidirectional=bidirectional, dot=dot,
+                               wire=wire)
+        if saved is not None:
+            saved.put(y.detach())
+        return y
 
     @staticmethod
     def backward(ctx, dy):

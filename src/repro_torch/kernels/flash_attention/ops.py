@@ -14,16 +14,20 @@ raises) if its preconditions do not hold: ``"mma"`` (bf16 on the tensor
 cores, ``mma.sync``) or ``"simt"`` (fp32 on the CUDA cores, true fp32
 products).  Nothing is chosen by whether a build or a launch succeeded.
 
-For CUDA tensors under autograd (grad mode on and an input that requires
-grad), :func:`attention` runs through an ``autograd.Function``: the
-forward also writes each row's log-sum-exp, and the backward is the
-hand-written backward kernel (:func:`attention_bwd`: dQ, dK and dV in
-q/k/v's dtype with fp32 accumulation, no atomics, so deterministic).  Its
-path is chosen by :func:`_bwd_path`: ``"mma"`` (bf16 on the tensor cores,
-D <= 128: ``wgmma`` at D 80 and 128 with 16-byte aligned rows,
-``mma.sync`` otherwise) or ``"simt"`` (CUDA cores, fp32 arithmetic: fp32,
-and bf16 at D > 128).  For CPU tensors autograd differentiates the plain
-version.
+Under autograd (grad mode on and an input that requires grad),
+:func:`attention` runs through an ``autograd.Function``: the forward also
+writes each row's log-sum-exp, and the backward is the hand-written
+backward kernel (:func:`attention_bwd`: dQ, dK and dV in q/k/v's dtype
+with fp32 accumulation, no atomics, so deterministic).  Its path is chosen
+by :func:`_bwd_path`: ``"mma"`` (bf16 on the tensor cores, D <= 128:
+``wgmma`` at D 80 and 128 with 16-byte aligned rows, ``mma.sync``
+otherwise) or ``"simt"`` (CUDA cores, fp32 arithmetic: fp32, and bf16 at
+D > 128).  For CPU tensors the same Function runs the plain versions of
+both (:func:`attention_ref` with its log-sum-exp, and
+:func:`attention_bwd_ref`).  Under the ``tatp_outputs`` remat policy the
+Function saves its output and log-sum-exp (:mod:`repro_torch.core.remat`)
+and the recompute rebuilds its node from them (:class:`_Replay`, called
+by the model's attention block), so no forward runs again.
 
 ``attention.launches`` counts the forward kernel's launches and
 ``attention.launches_by_path`` the same launches by path;
@@ -39,8 +43,10 @@ import math
 
 import torch
 
+from repro_torch.core import remat
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                     attention_ref)
 
 # dtype and path codes shared with csrc/flash_attention.cu
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -93,12 +99,15 @@ def attention(q, k, v, *, causal=True, window=None, cap=None, scale=None):
     Hq a multiple of Hkv.  The output has q's dtype and q's memory layout.
     Under autograd the backward runs on the backward kernel.
     """
-    if all(t.device.type == "cpu" for t in (q, k, v)):
+    cpu = all(t.device.type == "cpu" for t in (q, k, v))
+    if not cpu:
+        _check(q, k, v, window, cap)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, causal, window, cap, scale,
+                                     None)
+    if cpu:
         return attention_ref(q, k, v, causal=causal, window=window, cap=cap,
                              scale=scale)
-    _check(q, k, v, window, cap)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _FlashAttention.apply(q, k, v, causal, window, cap, scale)
     return _forward(q, k, v, causal, window, cap, scale, want_lse=False)[0]
 
 
@@ -210,15 +219,26 @@ def attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None,
 
 
 class _FlashAttention(torch.autograd.Function):
-    """:func:`attention` on CUDA under autograd: the forward kernel with
-    the row log-sum-exp saved, the backward kernel for the gradients."""
+    """:func:`attention` under autograd: the forward kernel with the row
+    log-sum-exp saved, the backward kernel for the gradients (for CPU
+    tensors their plain versions).  ``saved`` is a forward's (o, lse),
+    given when the ``tatp_outputs`` recompute replays this node."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, cap, scale):
-        o, lse = _forward(q, k, v, causal, window, cap, scale,
-                          want_lse=True)
+    def forward(ctx, q, k, v, causal, window, cap, scale, saved):
+        opts = dict(causal=causal, window=window, cap=cap, scale=scale)
+        if saved is not None:
+            o, lse = saved[0].detach(), saved[1]
+        elif q.device.type == "cpu":
+            o, lse = attention_ref(q, k, v, return_lse=True, **opts)
+        else:
+            o, lse = _forward(q, k, v, causal, window, cap, scale,
+                              want_lse=True)
+        rec = remat.active()
+        if rec is not None and not rec.replaying:
+            rec.put(_Replay(q.shape, (o.detach(), lse), opts))
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.opts = dict(causal=causal, window=window, cap=cap, scale=scale)
+        ctx.opts = opts
         return o
 
     @staticmethod
@@ -226,8 +246,27 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         if do.stride(3) != 1:
             do = do.contiguous()
-        dq, dk, dv = attention_bwd(q, k, v, o, lse, do, **ctx.opts)
-        return dq, dk, dv, None, None, None, None
+        bwd = attention_bwd_ref if q.device.type == "cpu" else attention_bwd
+        dq, dk, dv = bwd(q, k, v, o, lse, do, **ctx.opts)
+        return dq, dk, dv, None, None, None, None, None
+
+
+class _Replay:
+    """A recorded attention forward, for the ``tatp_outputs`` recompute:
+    called with that pass's q, k and v, it rebuilds the autograd node from
+    the recorded (o, lse) without running the forward."""
+
+    def __init__(self, shape, saved, opts):
+        self.shape, self.saved, self.opts = tuple(shape), saved, opts
+
+    def __call__(self, q, k, v):
+        if tuple(q.shape) != self.shape:
+            raise RuntimeError(
+                f"tatp_outputs replay: q{tuple(q.shape)} where the first "
+                f"pass had q{self.shape}")
+        o = self.opts
+        return _FlashAttention.apply(q, k, v, o["causal"], o["window"],
+                                     o["cap"], o["scale"], self.saved)
 
 
 attention.launches = 0

@@ -1,24 +1,29 @@
 """Plain PyTorch version of flash attention (counterpart of
 ``repro.kernels.flash_attention.ref``): masked softmax attention with GQA,
 a top-left causal mask, a sliding window and logit soft-capping, in fp32.
-Fully masked rows give 0, not NaN."""
+Fully masked rows give 0, not NaN.
+
+:func:`attention_bwd_ref` is the plain version of the backward kernel:
+the gradients written out from the forward's output and row log-sum-exp,
+as the kernel computes them."""
 
 import math
 
 import torch
 
 
-def attention_ref(q, k, v, *, causal=True, window=None, cap=None,
-                  scale=None):
-    """q: [B, Hq, Sq, D]; k/v: [B, Hkv, Skv, D]."""
+def _scores(q, k, causal, window, cap, scale):
+    """fp32 scores [B, Hkv, G, Sq, Skv] (soft-capped, masked to -1e30),
+    the mask, tanh of the capped scores (None without a cap) and the
+    grouped fp32 q."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
-    g = hq // hkv
-    scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    qg = q.reshape(b, hkv, g, sq, d).float()
+    qg = q.reshape(b, hkv, hq // hkv, sq, d).float()
     s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) * scale
+    t = None
     if cap is not None:
-        s = torch.tanh(s / cap) * cap
+        t = torch.tanh(s / cap)
+        s = t * cap
     qpos = torch.arange(sq, device=q.device)[:, None]
     kpos = torch.arange(skv, device=q.device)[None, :]
     mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
@@ -26,9 +31,52 @@ def attention_ref(q, k, v, *, causal=True, window=None, cap=None,
         mask &= kpos <= qpos
     if window is not None:
         mask &= (qpos - kpos) < window
-    s = torch.where(mask, s, -1e30)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    return torch.where(mask, s, -1e30), mask, t, qg
+
+
+def attention_ref(q, k, v, *, causal=True, window=None, cap=None,
+                  scale=None, return_lse=False):
+    """q: [B, Hq, Sq, D]; k/v: [B, Hkv, Skv, D].  With ``return_lse``
+    also each row's fp32 log-sum-exp of the scores, [B, Hq, Sq] (about
+    -1e30 on a fully masked row)."""
+    b, hq, sq, d = q.shape
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    s, mask, _, _ = _scores(q, k, causal, window, cap, scale)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
     p = torch.where(mask, p, 0.0)
-    p = p / p.sum(dim=-1, keepdim=True).clamp_min(1e-20)
+    denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-20)
+    p = p / denom
     o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
-    return o.reshape(b, hq, sq, d).to(q.dtype)
+    o = o.reshape(b, hq, sq, d).to(q.dtype)
+    if not return_lse:
+        return o
+    return o, (m + torch.log(denom)).reshape(b, hq, sq)
+
+
+def attention_bwd_ref(q, k, v, o, lse, do, *, causal=True, window=None,
+                      cap=None, scale=None):
+    """(dq, dk, dv) of :func:`attention_ref` at ``do``, from its output
+    ``o`` and ``lse``: P = exp(S - lse) on the unmasked pairs,
+    dV = P^T dO, dS = P (dO V^T - rowsum(dO O)), through the cap's tanh,
+    dQ = dS K scale and dK = dS^T Q scale (GQA groups summed into dK and
+    dV).  fp32 arithmetic; each gradient in its input's dtype."""
+    b, hq, sq, d = q.shape
+    hkv = k.shape[1]
+    g = hq // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    s, mask, t, qg = _scores(q, k, causal, window, cap, scale)
+    p = torch.where(mask, torch.exp(s - lse.reshape(b, hkv, g, sq, 1)),
+                    0.0)
+    dog = do.reshape(b, hkv, g, sq, d).float()
+    og = o.reshape(b, hkv, g, sq, d).float()
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", p, dog)
+    dp = torch.einsum("bhgqd,bhkd->bhgqk", dog, v.float())
+    ds = p * (dp - (dog * og).sum(dim=-1, keepdim=True))
+    if t is not None:
+        ds = ds * (1 - t * t)
+    ds = ds * scale
+    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, k.float())
+    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, qg)
+    return (dq.reshape(b, hq, sq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))

@@ -7,16 +7,29 @@ with strategy ``tatp`` on one device::
 
 ``--arch mamba2-780m`` and ``--arch zamba2-2.7b`` train the same way; their
 ``--seq`` must be a multiple of ``ssm_chunk`` (8 reduced, 256 at full
-width).
+width).  ``--arch olmoe-1b-7b`` (and the other MoE configs) adds the
+routers' load-balance loss to the objective, as the reference does.
 It runs on the GPU unless ``--device cpu`` is given; with no GPU it raises.
 Weights are random from ``--seed`` and the data is the reference's
 synthetic LCG stream (:class:`repro_torch.train.data.SyntheticDataset`),
 so both packages train on the same tokens.  As in the reference, reduced
 configs train without remat and full ones with it.  The printed JSON has
-the reference's summary keys.  Plan-driven and multi-wafer launches
-(``--plan``, ``--auto-plan``, ``--wafers``) are ROADMAP.md item A1,
-checkpoint/restart (``--ckpt-dir``, ``--fail-at-step``) A2e, and any
-mesh other than ``1 1`` A3.
+the reference's summary keys.
+
+Restart, as the reference's: with ``--ckpt-dir`` the run resumes from the
+directory's ``LATEST`` checkpoint if there is one (parameters and
+optimizer state, :mod:`repro_torch.train.checkpoint`), saves every
+``--ckpt-every`` steps and at the end, and keeps the ``--keep`` newest;
+``--fail-at-step N`` raises before step N on a run that started at step
+0 (a simulated node failure)::
+
+    python -m repro_torch.launch.train --reduced --device cpu --steps 8 \
+        --ckpt-dir ck --ckpt-every 2 --fail-at-step 4   # fails
+    python -m repro_torch.launch.train --reduced --device cpu --steps 8 \
+        --ckpt-dir ck --ckpt-every 2                   # resumes at 4
+
+Plan-driven and multi-wafer launches (``--plan``, ``--auto-plan``,
+``--wafers``) are ROADMAP.md item A1, and any mesh other than ``1 1`` A3.
 """
 
 from __future__ import annotations
@@ -32,6 +45,7 @@ from repro_torch import not_ported
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.configs.base import ParallelConfig, ShapeConfig
 from repro_torch.core.dist import Dist, resolve_device
+from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.data import SyntheticDataset
 from repro_torch.train.train_loop import make_train_step
 
@@ -46,8 +60,6 @@ def setup(args):
     """cfg + Dist + ParallelConfig from the legacy flags."""
     if args.plan or args.auto_plan or args.wafers > 1:
         raise not_ported("plan-driven and multi-wafer launches", "A1")
-    if args.ckpt_dir or args.fail_at_step is not None:
-        raise not_ported("checkpoint/restart", "A2e")
     if list(args.mesh) not in ([1, 1], [1]):
         raise not_ported(f"mesh {args.mesh}", "A3")
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
@@ -67,8 +79,17 @@ def train(args) -> dict:
     gen = torch.Generator(device=dist.device).manual_seed(args.seed)
     params, opt_state = bundle.init_fn(gen)
 
+    start_step = 0
+    if args.ckpt_dir and ckpt.latest_step(args.ckpt_dir) is not None:
+        print(f"resuming from {args.ckpt_dir}")
+        (params, opt_state), start_step = ckpt.restore(
+            args.ckpt_dir, (params, opt_state))
+
     losses, times = [], []
-    for step in range(args.steps):
+    for step in range(start_step, args.steps):
+        if args.fail_at_step is not None and step == args.fail_at_step \
+                and start_step == 0:
+            raise RuntimeError(f"simulated node failure at step {step}")
         batch = data.batch(step)
         _sync(dist.device)
         t0 = time.perf_counter()
@@ -85,6 +106,12 @@ def train(args) -> dict:
             print(f"step {step:5d} loss {loss:8.4f} "
                   f"gnorm {float(metrics['grad_norm']):8.3f} {dt*1e3:7.1f}ms",
                   flush=True)
+        if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
+            ckpt.save(args.ckpt_dir, step + 1, (params, opt_state),
+                      keep=args.keep)
+    if args.ckpt_dir:
+        ckpt.save(args.ckpt_dir, args.steps, (params, opt_state),
+                  keep=args.keep)
     return {"first_loss": losses[0] if losses else None,
             "last_loss": losses[-1] if losses else None,
             "steps": len(losses),
@@ -106,7 +133,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--auto-plan", action="store_true")
     ap.add_argument("--wafers", type=int, default=1)
     ap.add_argument("--ckpt-dir", default=None)
-    ap.add_argument("--fail-at-step", type=int, default=None)
+    ap.add_argument("--ckpt-every", type=int, default=10)
+    ap.add_argument("--keep", type=int, default=3)
+    ap.add_argument("--fail-at-step", type=int, default=None,
+                    help="simulate a node failure before this step (only "
+                         "on a run that starts at step 0)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=5)
     ap.add_argument("--device", default="cuda",

@@ -7,10 +7,15 @@ The reference scans the stacked layer reps with ``lax.scan``; here a Python
 loop walks the rep axis, indexing each stacked parameter (a view, no copy,
 so gradients accumulate into the stacked leaf).  With
 ``ParallelConfig.remat`` the ``train`` phase checkpoints each rep, as the
-reference wraps its scan body in ``jax.checkpoint``.  Layer kinds
-``G``/``L`` (attention + MLP), ``M`` (Mamba-2) and ``S`` (zamba2's shared
-attention + MLP, one parameter set for every slot) run; each slot keeps
-its own cache (K/V, or the SSM state and conv tail).
+reference wraps its scan body in ``jax.checkpoint``; with
+``remat_policy="tatp_outputs"`` the rep's TATP linear outputs and attention
+outputs are saved and the recompute reuses them
+(:mod:`repro_torch.core.remat`), as the reference's
+``save_only_these_names("tatp_y")``.  Layer kinds ``G``/``L`` (attention +
+MLP, or + MoE FFN for MoE models, whose load-balance losses sum into
+``aux``), ``M`` (Mamba-2) and ``S`` (zamba2's shared attention + MLP, one
+parameter set for every slot) run; each slot keeps its own cache (K/V, or
+the SSM state and conv tail).
 """
 
 from __future__ import annotations
@@ -22,10 +27,11 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import not_ported
+from repro_torch.core.remat import SavedOutputs
 from repro_torch.models.common import rms_norm, softcap
 from repro_torch.models.transformer import (CONV_K, RunCtx, _unit_and_reps,
                                             attn_block, mamba_block,
-                                            mlp_block)
+                                            mlp_block, moe_block)
 
 
 def embed_tokens(ctx: RunCtx, embed, tokens, prefix_embeds=None):
@@ -144,8 +150,8 @@ def loss_fn(ctx: RunCtx, params, batch):
         raise not_ported("streamed_vocab_xent", "A3")
     logits = lm_head_logits(ctx, params, x)
     nll_sum, cnt = vocab_parallel_xent(ctx, logits, batch["labels"], valid)
-    # MoE models (whose aux term the reference adds here) raise in _stack
-    return nll_sum, cnt, 0.0
+    aux_total = cfg.aux_coef * aux if cfg.is_moe else 0.0
+    return nll_sum, cnt, aux_total
 
 
 def _stack(ctx: RunCtx, params, x, caches=None, cache_len=None):
@@ -155,21 +161,24 @@ def _stack(ctx: RunCtx, params, x, caches=None, cache_len=None):
     (``{"k", "v"}`` for attention slots, ``{"state", "conv"}`` for Mamba-2
     slots); ``decode`` updates ``caches`` in place and returns it.  In the
     ``train`` phase with ``par.remat`` each rep is checkpointed (its
-    activations are recomputed in the backward)."""
+    activations are recomputed in the backward; with the ``tatp_outputs``
+    policy but for the saved outputs).  ``aux`` is the fp32 sum of the
+    MoE blocks' load-balance losses (0 without MoE)."""
     cfg = ctx.cfg
-    if cfg.is_moe:
-        raise not_ported("MoE blocks", "A4")
     unit, reps = _unit_and_reps(cfg)
     shared = params.get("shared")
     collect = caches is None and ctx.phase == "prefill"
     remat = ctx.par.remat and ctx.phase == "train"
-    if remat and ctx.par.remat_policy == "tatp_outputs":
-        raise not_ported("remat_policy='tatp_outputs'", "A2e")
+    policy = ctx.par.remat_policy
+    if remat and policy not in ("full", "tatp_outputs"):
+        raise ValueError(f"unknown remat_policy {policy!r}")
     new: dict[str, dict[str, list]] = {f"u{pos}": {} for pos in
                                        range(len(unit))}
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def rep_body(i, x):
         out = {}
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for pos, kind in enumerate(unit):
             key = f"u{pos}"
             if kind == "S":
@@ -182,29 +191,41 @@ def _stack(ctx: RunCtx, params, x, caches=None, cache_len=None):
             if kind in ("G", "L", "S"):
                 x, nc = attn_block(ctx, p, x, kind=kind, pos_offset=0,
                                    cache=c, cache_len=cache_len)
-                x = mlp_block(ctx, p, x)
+                if cfg.is_moe and kind != "S":
+                    x, a = moe_block(ctx, p, x)
+                    aux = aux + a
+                else:
+                    x = mlp_block(ctx, p, x)
             elif kind == "M":
                 x, nc = mamba_block(ctx, p, x, cache=c, cache_len=cache_len)
             else:
                 raise not_ported(f"layer kind {kind!r}", "A6")
             out[key] = nc
-        return x, out
+        return x, aux, out
 
     for i in range(reps):
         if remat:  # partial binds i: the recompute runs after the loop
-            x = checkpoint(lambda f, x: f(x)[0], partial(rep_body, i), x,
-                           use_reentrant=False)
+            body = partial(_rep_outputs, partial(rep_body, i))
+            if policy == "tatp_outputs":
+                body = partial(SavedOutputs().run, body)
+            x, a = checkpoint(body, x, use_reentrant=False)
+            aux = aux + a
             continue
-        x, out = rep_body(i, x)
+        x, a, out = rep_body(i, x)
+        aux = aux + a
         if collect:
             for key, nc in out.items():
                 for n, t in nc.items():
                     new[key].setdefault(n, []).append(t)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if collect:
         return x, aux, {key: {n: torch.stack(ts) for n, ts in leaves.items()}
                         for key, leaves in new.items()}
     return x, aux, caches
+
+
+def _rep_outputs(body, x):
+    """A checkpointed rep's outputs: (x, aux); its caches are None."""
+    return body(x)[:2]
 
 
 def prefill(ctx: RunCtx, params, batch):

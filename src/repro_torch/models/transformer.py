@@ -17,28 +17,35 @@ intra-chunk pass on the hand-written SSD kernel; ``RunCtx.dot``,
 checks swap in the plain versions).  Decode linears, decode attention and
 the SSM decode step are plain torch, as in the reference.
 
+MoE models (``cfg.is_moe``) replace the MLP of every ``G``/``L`` slot with
+:func:`moe_block` (:mod:`repro_torch.models.moe`); their expert leaves are
+``mlp.w_up``/``mlp.w_gate`` ``[E, D, F]``, ``mlp.w_down`` ``[E, F, D]`` and
+``mlp.router`` ``[D, E]``.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
-item): the ring and the ``megatron``/``fsdp`` strategies (A3), MoE blocks
-(A4), cross-attention and encoder blocks and the modality frontends (A6).
+item): the ring, expert parallelism and the ``megatron``/``fsdp``
+strategies (A3), cross-attention and encoder blocks and the modality
+frontends (A6).
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch import not_ported
 from repro_torch.configs.base import ModelConfig, ParallelConfig
-from repro_torch.core import tatp
+from repro_torch.core import remat, tatp
 from repro_torch.core.dist import Dist
 from repro_torch.kernels.flash_attention.ops import attention as flash
 from repro_torch.kernels.ssd.ops import ssd_chunked
 from repro_torch.kernels.tatp_matmul.ops import tatp_dot
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import (act_fn, apply_rope, dense_init,
                                        embed_init, is_gated, rms_norm)
@@ -64,6 +71,9 @@ class RunCtx:
     dot: Callable = tatp_dot
     attention: Callable = flash
     ssd: Callable = ssd_chunked
+    # if a list, every MoE block appends its moe.Routing (expert ids, keep
+    # mask, capacity), so a check can compare two runs' routing
+    routing: Optional[list] = None
 
     @property
     def axis(self) -> str:
@@ -109,6 +119,12 @@ def _mlp_shapes(cfg: ModelConfig):
     return sh
 
 
+def _moe_shapes(cfg: ModelConfig):
+    sh = dict(moe_lib.moe_param_shapes(cfg, cfg.n_experts))
+    sh["ln"] = (cfg.d_model,)
+    return sh
+
+
 def _mamba_shapes(cfg: ModelConfig):
     d, di, n, nh = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     dip = 2 * di + 2 * n + nh
@@ -128,10 +144,10 @@ def _mamba_shapes(cfg: ModelConfig):
 
 def _block_shapes(cfg: ModelConfig, kind: str) -> dict:
     if kind in ("G", "L", "S"):  # S: zamba2's shared attention+MLP block
-        if cfg.is_moe and kind != "S":
-            raise not_ported("MoE blocks", "A4")
         sh = dict(_attn_shapes(cfg))
-        sh.update({f"mlp.{k}": v for k, v in _mlp_shapes(cfg).items()})
+        moe = cfg.is_moe and kind != "S"
+        mlp = _moe_shapes(cfg) if moe else _mlp_shapes(cfg)
+        sh.update({f"mlp.{k}": v for k, v in mlp.items()})
         return sh
     if kind == "M":
         return _mamba_shapes(cfg)
@@ -306,15 +322,34 @@ def attn_block(ctx: RunCtx, p, x, *, kind: str, pos_offset, cache=None,
         q = apply_rope(q, qp, cfg.rope_theta)
         k = apply_rope(k, qp, cfg.rope_theta)
         # [B, S, H, D] viewed as [B, H, S, D]: the kernel reads the strides
-        out = ctx.attention(q.transpose(1, 2), k.transpose(1, 2),
-                            v.transpose(1, 2), causal=True, window=window,
-                            cap=cfg.attn_softcap).transpose(1, 2)
+        out = _attention_core(ctx, q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), window).transpose(1, 2)
         if ctx.phase == "prefill":
             new_cache = {"k": k, "v": v}
 
     b, s = out.shape[:2]
     y = _linear(ctx, out.reshape(b, s, -1), p["wo"])
     return x + y.to(x.dtype), new_cache
+
+
+def _attention_core(ctx: RunCtx, q, k, v, window):
+    """The prefill/train attention core on the ``attention`` hook.  In a
+    ``tatp_outputs`` recompute it rebuilds the node the flash wrapper
+    recorded in the first pass instead of calling the hook; a hook that
+    records nothing (a plain function) runs again."""
+    kw = dict(causal=True, window=window, cap=ctx.cfg.attn_softcap)
+    saved = remat.active()
+    if saved is None:
+        return ctx.attention(q, k, v, **kw)
+    if saved.replaying:
+        replay = saved.take()
+        return ctx.attention(q, k, v, **kw) if replay is None \
+            else replay(q, k, v)
+    n = len(saved)
+    out = ctx.attention(q, k, v, **kw)
+    if len(saved) == n:
+        saved.put(None)
+    return out
 
 
 def mlp_block(ctx: RunCtx, p, x, prefix="mlp."):
@@ -328,6 +363,19 @@ def mlp_block(ctx: RunCtx, p, x, prefix="mlp."):
         up = f(up)
     y = _linear(ctx, up, p[prefix + "w_down"])
     return x + y.to(x.dtype)
+
+
+def moe_block(ctx: RunCtx, p, x):
+    """Pre-norm MoE FFN with residual.  Returns (y, aux_loss)."""
+    cfg = ctx.cfg
+    h = rms_norm(x, p["mlp.ln"], cfg.norm_eps)
+    sub = {k.split(".", 1)[1]: v for k, v in p.items()
+           if k.startswith("mlp.") and k != "mlp.ln"}
+    out = moe_lib.moe_ffn(
+        h, sub, n_experts=cfg.n_experts, top_k=cfg.top_k, act=cfg.act,
+        axis=ctx.axis, axis_size=ctx.r if ctx.par.strategy == "tatp" else 1,
+        capacity_factor=cfg.capacity_factor, routing=ctx.routing)
+    return x + out.y.to(x.dtype), out.aux_loss
 
 
 def mamba_block(ctx: RunCtx, p, x, cache=None, cache_len=None):

@@ -76,7 +76,7 @@ def test_configs_match_reference(arch):
     assert get_config(arch) == _as_port(jax_config(arch))
     assert get_reduced(arch) == _as_port(jax_reduced(arch))
     with pytest.raises(KeyError, match="not ported"):
-        get_config("olmoe-1b-7b")
+        get_config("gemma-7b")
 
 
 def _as_port(jcfg):

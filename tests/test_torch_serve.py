@@ -177,13 +177,25 @@ def test_serve_without_cuda_raises(monkeypatch):
 def test_unported_paths_name_their_roadmap_item(model):
     from dataclasses import replace
     cfg, _, _, tctx, _ = model
-    with pytest.raises(NotImplementedError, match="A4"):
-        ttf.param_shapes(replace(cfg, n_experts=8, top_k=2))
+    moe = replace(cfg, n_experts=8, top_k=2)
+    p = {n: t[0] for n, t in ttf.init_params(
+        moe, torch.Generator().manual_seed(0), "cpu")["layers"]["u0"].items()}
+    ring = replace(tctx, cfg=moe, dist=_RingDist(torch.device("cpu")))
+    with pytest.raises(NotImplementedError, match="A3"):
+        ttf.moe_block(ring, p, torch.zeros(1, 4, cfg.d_model))
     with pytest.raises(NotImplementedError, match="A6"):
         ttf.param_shapes(replace(cfg, layer_pattern="X"))
     with pytest.raises(NotImplementedError, match="A3"):
         ttf._linear(replace(tctx, par=ParallelConfig(strategy="megatron")),
                     torch.zeros(1, 1, 4), torch.zeros(4, 4))
+
+
+class _RingDist(Dist):
+    """A ring of two (the MoE block's expert all-to-all is not ported)."""
+
+    @property
+    def model_degree(self) -> int:
+        return 2
 
 
 # ---------------------------------------------------------------------------
