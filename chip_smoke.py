@@ -43,23 +43,28 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    bitwise equal), timed at both SSM train shapes beside its bound and
    the plain backward's;
 4. parity — at full width in fp32, deepseek-7b (2 layers), mamba2-780m
-   (2 layers) and zamba2-2.7b (6 layers, one ``MMMMMS`` unit): prefill and
-   4 greedy decode steps through the kernels (all on their fp32 ``simt``
-   paths) and again with every kernel call replaced by its plain version;
-   last-position logits within rtol = atol = 1e-3 and identical tokens;
-   then the train step (fp32, remat) of deepseek-7b (2 layers, 2 x 256
-   tokens), mamba2-780m (2 layers) and zamba2-2.7b (6 layers), the SSM
-   models at 2 x 512 tokens so the recurrence's gradient runs: the loss,
-   every gradient leaf (relative L2 error <= 1e-4) and the parameters
-   after 2 AdamW steps (atol = 2 * sum(lr_t)), kernels against plain
-   versions;
+   (2 layers), zamba2-2.7b (6 layers, one ``MMMMMS`` unit) and
+   olmoe-1b-7b (2 layers): prefill and 4 greedy decode steps through the
+   kernels (all on their fp32 ``simt`` paths) and again with every kernel
+   call replaced by its plain version; last-position logits within
+   rtol = atol = 1e-3 and identical tokens; then the train step (fp32,
+   remat) of deepseek-7b (2 layers, 2 x 256 tokens), mamba2-780m (2
+   layers), zamba2-2.7b (6 layers) and olmoe-1b-7b (2 layers, 2 x 256),
+   the SSM models at 2 x 512 tokens so the recurrence's gradient runs:
+   the loss, every gradient leaf (relative L2 error <= 1e-4) and the
+   parameters after 2 AdamW steps (atol = 2 * sum(lr_t)), kernels against
+   plain versions.  For olmoe every MoE call's expert ids and keep mask
+   must be identical between the two runs (a differing token is reported
+   with its layer and probability margin, and fails the phase unless the
+   margin is below ``NEAR_TIE``);
 5. main paths — ``repro_torch.launch.serve`` one-shot, bf16, batch 4,
    32 generated tokens: deepseek-7b (30 layers, prompt 128), mamba2-780m
-   (48 layers, prompt 512 = two SSD chunks) and zamba2-2.7b (54 layers,
-   prompt 512).  Before each path every launch count is zeroed; just after
-   it the counts must be exactly the path's (GEMM, flash, SSD, flash
-   backward, SSD backward): 210/30/0/0/0, 96/0/48/0/0 and 144/9/45/0/0
-   (one prefill each;
+   (48 layers, prompt 512 = two SSD chunks), zamba2-2.7b (54 layers,
+   prompt 512) and olmoe-1b-7b (16 layers, prompt 128).  Before each path
+   every launch count is zeroed; just after it the counts must be exactly
+   the path's (GEMM, flash, SSD, flash backward, SSD backward):
+   210/30/0/0/0, 96/0/48/0/0, 144/9/45/0/0 and 64/16/0/0/0 (one prefill
+   each;
    decode runs no kernel), every GEMM launch on ``wgmma`` and every flash
    launch on ``mma``.  Outputs finite and tokens in range; prefill time
    (median of 3), decode ms/token, peak memory and a profiler breakdown
@@ -71,11 +76,25 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    included; 8 flash forwards and 4 flash backwards), mamba2-780m at its
    48 layers (387 GEMMs, 96 SSD forwards, 48 SSD backwards) and
    zamba2-2.7b at its 54 (579 GEMMs, 18 flash forwards, 9 flash
-   backwards, 90 SSD forwards, 45 SSD backwards); every GEMM on
+   backwards, 90 SSD forwards, 45 SSD backwards) and olmoe-1b-7b with 4
+   layers (33 forward GEMMs, 17 dgrad, 17 wgrad, 8 flash forwards, 4
+   backwards; the router and expert products are torch); every GEMM on
    ``wgmma``, every flash on ``mma``; finite losses and grad norms; 3
-   steps on one fixed batch lower its loss; step time, tokens/s, MFU,
-   peak memory, the device time of the gradients and of the AdamW
-   update, and a profiler window with device time by kernel family.
+   steps on one fixed batch lower its loss; step time, tokens/s, MFU (a
+   MoE model counts its active parameters), peak memory, the device time
+   of the gradients and of the AdamW update, and a profiler window with
+   device time by kernel family;
+6. tatp_outputs — deepseek-7b, 4 layers at full width, bf16, batch 4 x
+   seq 512: one step under ``remat_policy="tatp_outputs"`` against full
+   remat on the same weights and batch: loss and every gradient leaf
+   bitwise equal, launches exactly 29/29/29 GEMMs (forward, dgrad,
+   wgrad: the recompute runs none) and 4/4 flash; then 2 steps under each
+   with step ms and peak GB;
+7. restart — ``repro_torch.launch.train`` on the card, reduced
+   deepseek-7b: a run failed at step 4 by ``--fail-at-step`` and
+   restarted from its checkpoint ends bitwise equal to a straight run;
+   the restore lies on the card in the template's dtypes, and a bf16 tree
+   round-trips bitwise.
 
 It then prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``.
@@ -122,6 +141,11 @@ PATHS = {
         ssd_bwd=0)),
     "zamba2-2.7b": dict(prompt_len=512, n_layers=54, launches=dict(
         tatp_matmul=144, flash_attention=9, ssd=45, flash_attention_bwd=0,
+        ssd_bwd=0)),
+    # MoE: the four attention linears a layer (the router and the expert
+    # products are torch, as the reference's einsums)
+    "olmoe-1b-7b": dict(prompt_len=128, n_layers=16, launches=dict(
+        tatp_matmul=64, flash_attention=16, ssd=0, flash_attention_bwd=0,
         ssd_bwd=0)),
 }
 BATCH, GEN = 4, 32
@@ -181,7 +205,10 @@ KERNEL_FAMILIES = {"gemm": ("namespace)::gemm_",),
                                  "namespace)::flash_mma"),
                    "flash_bwd": ("namespace)::flash_bwd_",),
                    "ssd_fwd": ("namespace)::ssd_chunk_fwd",),
-                   "ssd_bwd": ("namespace)::ssd_bwd_",)}
+                   "ssd_bwd": ("namespace)::ssd_bwd_",),
+                   # other GEMMs (cuBLAS: the MoE router and expert
+                   # products, the serve lm head)
+                   "library_gemm": ("gemm",)}
 
 
 class SmokeFailure(RuntimeError):
@@ -808,9 +835,11 @@ M_TRAIN = TRAIN["batch"] * TRAIN["seq"]
 # the bf16 train main paths at batch 4 x seq 512: (arch, layers).
 # deepseek-7b's 30 layers need ~110 GB with AdamW's state (16 B a
 # parameter); mamba2-780m (0.781 B parameters, ~12.5 GB) and zamba2-2.7b
-# (1.956 B in this config, ~31 GB) fit one card at full depth.
+# (1.956 B in this config, ~31 GB) fit one card at full depth;
+# olmoe-1b-7b's 16 layers (6.9 B, ~111 GB) do not, its 4 layers (1.88 B,
+# ~30 GB) do.
 TRAIN_RUNS = (("deepseek-7b", TRAIN["n_layers"]), ("mamba2-780m", 48),
-              ("zamba2-2.7b", 54))
+              ("zamba2-2.7b", 54), ("olmoe-1b-7b", TRAIN["n_layers"]))
 
 
 def _operand(torch, randn, rows, cols, transposed, dtype, scale=1.0,
@@ -1206,19 +1235,30 @@ def zero_launches():
                 getattr(fn, attr)[key] = 0
 
 
-def prefill_launches(cfg):
-    """Kernel launches of one prefill: per attention slot (G, L or S) the
-    four attention linears, the MLP's (three gated, two not) and one
-    flash; per Mamba-2 slot in_proj, out_proj and one SSD pass."""
+def slot_linears(cfg, kind):
+    """The GEMM-kernel linears of one layer slot: a Mamba-2 slot's in_proj
+    and out_proj; an attention slot's four attention linears and its MLP's
+    (three gated, two not), or none for a MoE FFN (torch products, as the
+    reference's einsums)."""
     from repro_torch.models.common import is_gated
+    if kind == "M":
+        return 2
+    if cfg.is_moe and kind != "S":
+        return 4
+    return 4 + (3 if is_gated(cfg.act) else 2)
+
+
+def prefill_launches(cfg):
+    """Kernel launches of one prefill: per attention slot (G, L or S) its
+    linears (:func:`slot_linears`) and one flash; per Mamba-2 slot
+    in_proj, out_proj and one SSD pass."""
     n = {"tatp_matmul": 0, "flash_attention": 0, "ssd": 0,
          "flash_attention_bwd": 0, "ssd_bwd": 0}
     for kind in cfg.pattern_for_layers():
+        n["tatp_matmul"] += slot_linears(cfg, kind)
         if kind == "M":
-            n["tatp_matmul"] += 2
             n["ssd"] += 1
         else:
-            n["tatp_matmul"] += 4 + (3 if is_gated(cfg.act) else 2)
             n["flash_attention"] += 1
     return n
 
@@ -1234,7 +1274,42 @@ def serve_bundle(torch, cfg, **hooks):
 # (arch, layers, batch, prompt) of the fp32 parity runs; the SSM prompts
 # are two 256-token chunks, so the inter-chunk recurrence runs
 PARITY = (("deepseek-7b", 2, 2, 128), ("mamba2-780m", 2, 2, 512),
-          ("zamba2-2.7b", 6, 2, 512))
+          ("zamba2-2.7b", 6, 2, 512), ("olmoe-1b-7b", 2, 2, 128))
+# a routing choice whose k-th and (k+1)-th expert probabilities lie closer
+# than this is a near-tie: fp32 rounding (~1e-6 between the kernel and
+# plain paths) may flip it
+NEAR_TIE = 1e-5
+
+
+def check_routing(what, got, want, n_layers):
+    """Every MoE call's expert ids and keep mask, kernel run against plain
+    run.  A differing token is reported with its layer and the plain
+    run's margin; the check fails unless every such token is a
+    near-tie."""
+    import torch
+    need(len(got) == len(want) and got, f"{what}: {len(got)} routed MoE "
+         f"calls vs {len(want)}")
+    flips = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        need(g.cap == w.cap, f"{what}: capacity {g.cap} vs {w.cap}")
+        rows = (g.experts != w.experts).any(dim=1)
+        rows |= (g.keep != w.keep).reshape(rows.shape[0], -1).any(dim=1)
+        for t in torch.nonzero(rows).flatten().tolist():
+            flips.append(dict(call=i, layer=i % n_layers, token=t,
+                              margin=w.margin[t].item(),
+                              kernel=g.experts[t].tolist(),
+                              plain=w.experts[t].tolist()))
+    if flips:
+        log(f"  routing {what}: {len(flips)} tokens differ: "
+            f"{json.dumps(flips[:8])}")
+        need(all(f["margin"] < NEAR_TIE for f in flips),
+             f"{what}: routing differs away from a near-tie")
+    else:
+        margin = min(r.margin.min().item() for r in want)
+        log(f"  routing {what}: expert ids and keep masks identical in all "
+            f"{len(got)} MoE calls (smallest margin {margin:.3e}; "
+            f"capacities {sorted({r.cap for r in want})})")
+    return flips
 
 
 def phase_parity(torch, arch, n_layers, b, s, steps=4):
@@ -1254,9 +1329,11 @@ def phase_parity(torch, arch, n_layers, b, s, steps=4):
     cfg = replace(get_config(arch), n_layers=n_layers, dtype="float32")
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(1),
                          dev)
-    kern = serve_bundle(torch, cfg)
+    routes = ([], [])
+    kern = serve_bundle(torch, cfg, routing=routes[0])
     plain = serve_bundle(torch, cfg, dot=matmul_ref,
-                         attention=attention_ref, ssd=ssd_chunked)
+                         attention=attention_ref, ssd=ssd_chunked,
+                         routing=routes[1])
     rng = np.random.RandomState(1)
     toks = torch.as_tensor(rng.randint(0, cfg.vocab_size, (b, s)),
                            device=dev)
@@ -1294,6 +1371,8 @@ def phase_parity(torch, arch, n_layers, b, s, steps=4):
              f"{tk.flatten().tolist()} vs {tp.flatten().tolist()}")
     log(f"  greedy tokens identical: "
         f"{[t.flatten().tolist() for _, t in runs[0][1]]}")
+    if cfg.is_moe:
+        check_routing("prefill and decode", *routes, cfg.n_layers)
     del params
     torch.cuda.empty_cache()
 
@@ -1399,7 +1478,7 @@ def phase_main_path(torch, arch):
     return launches, paths
 
 
-def train_launches(cfg, remat):
+def train_launches(cfg, remat, saved=False):
     """Kernel launches of one train step: per layer its linears' forward
     (again in the backward under remat), dgrad and wgrad; per attention
     slot (G, L or S: the four attention linears and the MLP's, three
@@ -1408,23 +1487,24 @@ def train_launches(cfg, remat):
     under remat) and one SSD backward; the lm head's forward, dgrad and
     wgrad once (with tied embeddings its forward reads the embedding
     transposed and its dgrad reads it row-major, so the layout counts are
-    the same).  Returns (launches by kernel, GEMM launches by layout
-    pair)."""
-    from repro_torch.models.common import is_gated
+    the same).  A MoE slot's linears are its four attention linears
+    (:func:`slot_linears`).  With ``saved`` (the ``tatp_outputs`` remat
+    policy) the recompute runs no linear and no flash forward.  Returns
+    (launches by kernel, GEMM launches by layout pair)."""
     per = 2 if remat else 1
     linears = attn = mamba = 0
     for kind in cfg.pattern_for_layers():
+        linears += slot_linears(cfg, kind)
         if kind == "M":
-            linears += 2
             mamba += 1
         else:
-            linears += 4 + (3 if is_gated(cfg.act) else 2)
             attn += 1
-    fwd = per * linears + 1
-    grads = linears + 1
-    n = {"tatp_matmul": fwd + 2 * grads, "flash_attention": per * attn,
+    fwd = (1 if saved else per) * linears + 1
+    n = {"tatp_matmul": fwd + 2 * (linears + 1),
+         "flash_attention": (1 if saved else per) * attn,
          "ssd": per * mamba, "flash_attention_bwd": attn, "ssd_bwd": mamba}
-    return n, {"fwd": fwd, "dgrad": grads, "wgrad": grads, "both": 0}
+    return n, {"fwd": fwd, "dgrad": linears + 1, "wgrad": linears + 1,
+               "both": 0}
 
 
 def release(torch):
@@ -1455,7 +1535,7 @@ def named_grads(bundle, params, batch):
 # MMMMMS unit.  Each gradient leaf within GRAD_REL_TOL relative L2 error
 # of the plain path's.
 TRAIN_PARITY = (("deepseek-7b", 2, 2, 256), ("mamba2-780m", 2, 2, 512),
-                ("zamba2-2.7b", 6, 2, 512))
+                ("zamba2-2.7b", 6, 2, 512), ("olmoe-1b-7b", 2, 2, 256))
 TRAIN_PARITY_STEPS = 2
 GRAD_REL_TOL = 1e-4
 
@@ -1488,9 +1568,11 @@ def phase_train_parity(torch, arch, n_layers, batch, seq):
     par = ParallelConfig(strategy="tatp", remat=True)
     dist = Dist(dev)
     shape = ShapeConfig("parity", "train", seq, batch)
-    kern = make_train_step(cfg, par, dist, shape)
+    routes = ([], [])
+    kern = make_train_step(cfg, par, dist, shape, routing=routes[0])
     plain = make_train_step(cfg, par, dist, shape, dot=matmul_ref,
-                            attention=attention_ref, ssd=ssd_chunked)
+                            attention=attention_ref, ssd=ssd_chunked,
+                            routing=routes[1])
     data = SyntheticDataset(cfg, shape, dist, seed=1)
     batches = [data.batch(i) for i in range(TRAIN_PARITY_STEPS)]
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(1), dev)
@@ -1525,6 +1607,8 @@ def phase_train_parity(torch, arch, n_layers, batch, seq):
     need(rel[leaf] <= GRAD_REL_TOL,
          f"grad {leaf}: relative error {rel[leaf]:.3e} > {GRAD_REL_TOL}")
     del grads_k, grads_p
+    if cfg.is_moe:  # the forward's and the recompute's routing
+        check_routing("train step", *routes, cfg.n_layers)
 
     # two AdamW steps each, from the same parameters
     params_k = tree_map(lambda t: t.clone(), params)
@@ -1565,15 +1649,20 @@ def mfu(step_s, n_tokens, cfg, seq):
     (forward 4 * pairs * D a head, backward twice that), plus the SSD's
     intra-chunk products in each Mamba-2 slot (forward as ``ssd_bound``
     and backward as ``ssd_bwd_work`` count them; the inter-chunk
-    recurrence is not counted).  Remat's recompute is not model work.
-    Returns (MFU, model flops, product parameters)."""
+    recurrence is not counted).  A MoE slot counts its active parameters:
+    the attention linears, the router and the ``top_k`` experts each token
+    runs (capacity padding and dropped tokens are not model work).
+    Remat's recompute is not model work.  Returns (MFU, model flops,
+    product parameters)."""
     from repro_torch.models.common import is_gated
     from repro_torch.models.transformer import padded_vocab
     d = cfg.d_model
     b = n_tokens // seq
     pairs = b * seq * (seq + 1) // 2
-    attn_slot = (d * cfg.q_dim + 2 * d * cfg.kv_dim + cfg.q_dim * d
-                 + (3 if is_gated(cfg.act) else 2) * d * cfg.d_ff)
+    attn = d * cfg.q_dim + 2 * d * cfg.kv_dim + cfg.q_dim * d
+    ffn = (3 if is_gated(cfg.act) else 2) * d * cfg.d_ff
+    attn_slot = attn + ffn
+    moe_slot = attn + d * cfg.n_experts + cfg.top_k * ffn
     mamba_slot = (d * (2 * cfg.d_inner + 2 * cfg.ssm_state + cfg.ssm_heads)
                   + cfg.d_inner * d)
     n_params, extra = d * padded_vocab(cfg), 0
@@ -1584,7 +1673,8 @@ def mfu(step_s, n_tokens, cfg, seq):
                    cfg.ssm_head_dim, cfg.ssm_state)
             extra += ssd_bound(*ssd)[2] + ssd_bwd_work(*ssd)[0]
         else:
-            n_params += attn_slot
+            n_params += moe_slot if cfg.is_moe and kind != "S" \
+                else attn_slot
             extra += 3 * 4 * pairs * cfg.head_dim * cfg.n_heads
     flops = 6 * n_tokens * n_params + extra
     return flops / step_s / PEAK_FLOPS["bfloat16"], flops, n_params
@@ -1731,6 +1821,167 @@ def phase_train_main(torch, arch, n_layers):
     return totals, layouts, by_path, out
 
 
+def phase_tatp_outputs(torch):
+    """``remat_policy="tatp_outputs"`` on deepseek-7b, 4 layers at full
+    width, bf16, batch 4 x seq 512: one step's loss and gradients against
+    full remat's on the same weights and batch, bitwise; each with its
+    exact launches (tatp_outputs: 29 forward GEMMs, the recompute running
+    none, 29 dgrad, 29 wgrad, 4 flash forwards, 4 backwards; every GEMM
+    on wgmma, every flash on mma); then 2 steps on one batch under each
+    policy from the same parameters (losses bitwise equal), with step ms
+    (host clock) and peak GB."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ParallelConfig, ShapeConfig
+    from repro_torch.core.dist import Dist
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train.data import SyntheticDataset
+    from repro_torch.train.train_loop import make_train_step
+
+    dev = torch.device("cuda")
+    cfg = replace(get_config("deepseek-7b"), n_layers=TRAIN["n_layers"])
+    dist = Dist(dev)
+    shape = ShapeConfig("train", "train", TRAIN["seq"], TRAIN["batch"])
+    policies = ("full", "tatp_outputs")
+    bundles = {pol: make_train_step(cfg, ParallelConfig(
+        strategy="tatp", remat_policy=pol), dist, shape) for pol in policies}
+    batch = SyntheticDataset(cfg, shape, dist, seed=0).batch(0)
+
+    def fresh():
+        return init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           dev)
+
+    params = fresh()
+    grads, counts = {}, {}
+    for pol in policies:
+        want, want_layouts = train_launches(cfg, remat=True,
+                                            saved=pol == "tatp_outputs")
+        zero_launches()
+        grads[pol] = named_grads(bundles[pol], params, batch)
+        torch.cuda.synchronize()
+        launched, paths = read_launches(), read_paths()
+        need(launched == want, f"{pol}: launches {launched}, want {want}")
+        need(read_layouts() == want_layouts, f"{pol}: GEMM layouts "
+             f"{read_layouts()}, want {want_layouts}")
+        for name, path in MAIN_PATH_KERNEL.items():
+            need(paths[name][path] == launched[name],
+                 f"{pol}: {name} launches by path {paths[name]}")
+        counts[pol] = dict(launches=launched, layouts=want_layouts)
+    (lf, gf), (lt, gt) = grads["full"], grads["tatp_outputs"]
+    need(bool(torch.isfinite(lf)) and torch.equal(lf, lt),
+         f"tatp_outputs loss {lt.item()} != full remat's {lf.item()}")
+    differ = [n for n in gf if not torch.equal(gf[n], gt[n])]
+    need(not differ, f"tatp_outputs gradients differ from full remat's: "
+         f"{differ[:5]}")
+    log(f"[tatp_outputs] deepseek-7b {cfg.n_layers} layers bf16 batch "
+        f"{TRAIN['batch']} x seq {TRAIN['seq']}: loss and all {len(gf)} "
+        f"gradient leaves bitwise equal to full remat's; launches "
+        f"{json.dumps(counts)}")
+    del grads, gf, gt, params
+    release(torch)
+
+    runs = {}
+    for pol in policies:
+        params = fresh()
+        state = bundles[pol].opt.init(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms, losses = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            params, state, m = bundles[pol].step_fn(params, state, batch)
+            losses.append(m["loss"].item())
+            ms.append((time.perf_counter() - t0) * 1e3)
+        runs[pol] = dict(step_ms=ms, losses=losses,
+                         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        del params, state
+        release(torch)
+    need(runs["full"]["losses"] == runs["tatp_outputs"]["losses"],
+         f"2-step losses differ: {runs}")
+    log(f"  2 steps on one batch from the same parameters: "
+        f"{json.dumps(runs)}")
+    return runs
+
+
+def phase_restart(torch):
+    """``repro_torch.launch.train`` on the card, reduced deepseek-7b (fp32):
+    an 8-step run with a checkpoint every 2 steps, and a run that fails at
+    step 4 (``--fail-at-step``) and is restarted from its checkpoint; the
+    final checkpoints (parameters, masters, moments, step) bitwise equal.
+    The restored tree lies on the card in the template's dtypes, and a
+    bf16 tree on the card round-trips bitwise."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.optimizer import tree_leaves
+
+    common = ["--arch", "deepseek-7b", "--reduced", "--device", "cuda",
+              "--steps", "8", "--batch", "2", "--seq", "32",
+              "--ckpt-every", "2", "--log-every", "100"]
+    with tempfile.TemporaryDirectory() as tmp:
+        straight, failed = f"{tmp}/straight", f"{tmp}/failed"
+        train_main(common + ["--ckpt-dir", straight])
+        try:
+            train_main(common + ["--ckpt-dir", failed, "--fail-at-step",
+                                 "4"])
+            raised = None
+        except RuntimeError as e:  # the simulated failure is the test
+            raised = str(e)
+        need(raised is not None and "simulated node failure" in raised,
+             f"--fail-at-step 4 did not fail the run ({raised})")
+        need(ckpt.latest_step(failed) == 4,
+             f"failed run's latest checkpoint {ckpt.latest_step(failed)}")
+        train_main(common + ["--ckpt-dir", failed])
+        need(ckpt.latest_step(failed) == ckpt.latest_step(straight) == 8,
+             "restarted run did not reach step 8")
+        files = [np.load(f"{d}/step_00000008/proc00.npz")
+                 for d in (straight, failed)]
+        need(files[0].files == files[1].files, "checkpoint keys differ")
+        differ = [k for k in files[0].files
+                  if not np.array_equal(files[0][k], files[1][k])]
+        n_leaves = len(files[0].files)
+        for f in files:
+            f.close()
+        need(not differ, f"restarted state differs from the straight "
+             f"run's: {differ[:5]}")
+
+        # the restore's device and dtypes
+        from repro_torch.configs import get_reduced
+        from repro_torch.configs.base import ParallelConfig, ShapeConfig
+        from repro_torch.core.dist import Dist
+        from repro_torch.train.train_loop import make_train_step
+        b = make_train_step(get_reduced("deepseek-7b"),
+                            ParallelConfig(remat=False),
+                            Dist(torch.device("cuda")),
+                            ShapeConfig("t", "train", 32, 2))
+        template = b.init_fn(torch.Generator(device="cuda").manual_seed(9))
+        (p, o), step = ckpt.restore(failed, template)
+        leaves = list(tree_leaves({"p": p, "m": o.master, "v": o.v}))
+        like = list(tree_leaves({"p": template[0], "m": template[1].master,
+                                 "v": template[1].v}))
+        need(step == 8 and o.step == 8, f"restored step {step}, {o.step}")
+        need(all(t.device.type == "cuda" and t.dtype == u.dtype
+                 for (_, t), (_, u) in zip(leaves, like)),
+             "restored leaves not on the card in the template's dtypes")
+        bf = {"w": torch.randn(64, 48, device="cuda").bfloat16(),
+              "b": torch.randn(48, device="cuda").bfloat16()}
+        ckpt.save(f"{tmp}/bf16", 1, bf)
+        got, _ = ckpt.restore(f"{tmp}/bf16", {k: torch.zeros_like(v)
+                                              for k, v in bf.items()})
+        need(all(torch.equal(got[k], bf[k]) and got[k].is_cuda
+                 and got[k].dtype == torch.bfloat16 for k in bf),
+             "bf16 checkpoint round trip on the card is not bitwise")
+    log(f"[restart] reduced deepseek-7b on the card: fail at step 4, "
+        f"restart from the step-4 checkpoint, final state (all {n_leaves} "
+        f"leaves) bitwise equal to a straight 8-step run's; restore on "
+        f"cuda in the template's dtypes; bf16 round trip bitwise")
+    release(torch)
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke: src/repro_torch not found beside chip_smoke.py; "
@@ -1761,6 +2012,8 @@ def main() -> int:
     runs = {arch: phase_main_path(torch, arch) for arch in PATHS}
     trains = {f"{arch} train": phase_train_main(torch, arch, n_layers)[:3]
               for arch, n_layers in TRAIN_RUNS}
+    phase_tatp_outputs(torch)
+    phase_restart(torch)
     # each record's launches: the counts of every main path's run (the
     # serve paths and the train paths), read just after it.  The GEMM's
     # three records split its train launches by layout: tatp_matmul counts

@@ -74,12 +74,18 @@ def capacity(t: int, top_k: int, n_experts: int,
 
 def slots(experts, n_experts: int, cap: int):
     """(slot [T * k], keep [T * k]) of the flat assignments: each one's
-    running position within its expert (cumsum of one-hots in flat
-    order), kept below ``cap``; overflow goes to the drop slot
-    ``n_experts * cap``."""
+    running position within its expert, kept below ``cap``; overflow goes
+    to the drop slot ``n_experts * cap``.  The reference takes the
+    position from a cumsum of one-hots in flat order; here it is the
+    assignment's rank in a stable sort by expert less its expert's first
+    rank, the same integers without a [T * k, E] scan."""
     flat_e = experts.reshape(-1)
-    one_hot = torch.nn.functional.one_hot(flat_e, n_experts).to(torch.int32)
-    pos = torch.cumsum(one_hot, dim=0).gather(1, flat_e[:, None])[:, 0] - 1
+    order = torch.argsort(flat_e, stable=True)
+    counts = torch.bincount(flat_e, minlength=n_experts)
+    first = torch.cumsum(counts, dim=0) - counts
+    rank = torch.arange(flat_e.numel(), device=flat_e.device)
+    pos = torch.empty_like(flat_e).scatter_(0, order,
+                                            rank - first[flat_e[order]])
     keep = pos < cap
     slot = torch.where(keep, flat_e * cap + pos,
                        torch.full_like(flat_e, n_experts * cap))

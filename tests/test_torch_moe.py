@@ -221,6 +221,24 @@ def test_slot_cumsum_and_keep_mask():
     assert set(slot[~keep].tolist()) == {E * cap}
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_slots_equal_the_reference_cumsum(seed):
+    """The sort-based slot positions are the reference's cumsum-of-one-hots
+    positions (``repro/models/moe.py:64-68``), keep mask and drop slot."""
+    rng = np.random.default_rng(seed)
+    t, k, e = 37, 3, 8
+    experts = rng.integers(0, e, size=(t, k))
+    cap = int(rng.integers(1, 8))
+    flat_e = jnp.asarray(experts.reshape(-1))
+    one_hot = jax.nn.one_hot(flat_e, e, dtype=jnp.int32)
+    pos = jnp.cumsum(one_hot, axis=0)[jnp.arange(t * k), flat_e] - 1
+    keep = pos < cap
+    slot = jnp.where(keep, flat_e * cap + pos, e * cap)
+    got_slot, got_keep = tmoe.slots(torch.from_numpy(experts), e, cap)
+    assert got_slot.tolist() == np.asarray(slot).tolist()
+    assert got_keep.tolist() == np.asarray(keep).tolist()
+
+
 def test_overflow_tokens_are_dropped():
     y = _cap_run(0.5)
     assert np.any(y[0] != 0.0)
