@@ -26,8 +26,8 @@ D > 128).  For CPU tensors the same Function runs the plain versions of
 both (:func:`attention_ref` with its log-sum-exp, and
 :func:`attention_bwd_ref`).  Under the ``tatp_outputs`` remat policy the
 Function saves its output and log-sum-exp (:mod:`repro_torch.core.remat`)
-and the recompute rebuilds its node from them (:class:`_Replay`, called
-by the model's attention block), so no forward runs again.
+and the recompute rebuilds its node from them (:func:`_replay`, called by
+the model's attention block), so no forward runs again.
 
 ``attention.launches`` counts the forward kernel's launches and
 ``attention.launches_by_path`` the same launches by path;
@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from functools import partial
 
 import torch
 
@@ -236,7 +237,8 @@ class _FlashAttention(torch.autograd.Function):
                               want_lse=True)
         rec = remat.active()
         if rec is not None and not rec.replaying:
-            rec.put(_Replay(q.shape, (o.detach(), lse), opts))
+            rec.put(partial(_replay, (o.detach(), lse), causal, window,
+                            cap, scale))
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.opts = opts
         return o
@@ -251,22 +253,11 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None
 
 
-class _Replay:
-    """A recorded attention forward, for the ``tatp_outputs`` recompute:
-    called with that pass's q, k and v, it rebuilds the autograd node from
-    the recorded (o, lse) without running the forward."""
-
-    def __init__(self, shape, saved, opts):
-        self.shape, self.saved, self.opts = tuple(shape), saved, opts
-
-    def __call__(self, q, k, v):
-        if tuple(q.shape) != self.shape:
-            raise RuntimeError(
-                f"tatp_outputs replay: q{tuple(q.shape)} where the first "
-                f"pass had q{self.shape}")
-        o = self.opts
-        return _FlashAttention.apply(q, k, v, o["causal"], o["window"],
-                                     o["cap"], o["scale"], self.saved)
+def _replay(saved, causal, window, cap, scale, q, k, v):
+    """A recorded attention forward in the ``tatp_outputs`` recompute: the
+    autograd node for this pass's q, k and v, built from the recorded
+    (o, lse) without running the forward."""
+    return _FlashAttention.apply(q, k, v, causal, window, cap, scale, saved)
 
 
 attention.launches = 0

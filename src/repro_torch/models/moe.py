@@ -123,13 +123,8 @@ class _ExpertBmm(torch.autograd.Function):
 def expert_bmm(a, b):
     """[E, C, K] @ [E, K, N] -> fp32 [E, C, N]: the products of ``a`` and
     ``b`` (one dtype) accumulated in fp32."""
-    if a.dtype != b.dtype:
-        raise ValueError(f"expert_bmm takes one dtype, got {a.dtype} and "
-                         f"{b.dtype}")
     if a.dtype == torch.float32:
         return torch.bmm(a, b)
-    if a.dtype != torch.bfloat16:
-        raise ValueError(f"expert_bmm takes fp32 or bf16, got {a.dtype}")
     return _ExpertBmm.apply(a, b)
 
 

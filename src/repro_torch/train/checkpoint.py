@@ -31,18 +31,14 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-# dtypes numpy lacks: (torch view dtype, numpy storage dtype) of their bits
-_BITS = {"bfloat16": (torch.int16, np.uint16)}
-
-
 def _flatten(tree, prefix=()) -> list[tuple[str, Any]]:
     """(key, leaf) pairs in the reference's order."""
     if isinstance(tree, dict):
         return [kv for k in sorted(tree)
                 for kv in _flatten(tree[k], prefix + (str(k),))]
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return [kv for name in tree._fields
-                for kv in _flatten(getattr(tree, name), prefix + (f".{name}",))]
+        return [kv for n in tree._fields
+                for kv in _flatten(getattr(tree, n), prefix + (f".{n}",))]
     if isinstance(tree, (tuple, list)):
         return [kv for i, t in enumerate(tree)
                 for kv in _flatten(t, prefix + (str(i),))]
@@ -77,9 +73,9 @@ def _host(leaf) -> np.ndarray:
     if not isinstance(leaf, torch.Tensor):
         return np.asarray(leaf, np.int32)
     t = leaf.detach()
-    bits = _BITS.get(_dtype_name(t))
-    if bits is not None:  # numpy has no bf16: keep the 16-bit patterns
-        return t.view(bits[0]).to("cpu", copy=True).numpy().view(bits[1])
+    if t.dtype == torch.bfloat16:  # numpy has none: keep the bit patterns
+        return t.view(torch.int16).to("cpu", copy=True).numpy().view(
+            np.uint16)
     return t.to("cpu", copy=True).numpy()
 
 
@@ -181,11 +177,10 @@ def restore(ckpt_dir: str, template: Any,
             if not isinstance(like, torch.Tensor):
                 out[key] = int(arr)
                 continue
-            bits = _BITS.get(dtypes[key])
-            if bits is None:
-                t = torch.from_numpy(np.array(arr))
-            else:  # numpy holds the bit patterns; view them as the dtype
+            if dtypes[key] == "bfloat16":  # stored as its bit patterns
                 t = torch.from_numpy(np.array(arr).view(np.int16)).view(
-                    getattr(torch, dtypes[key]))
+                    torch.bfloat16)
+            else:
+                t = torch.from_numpy(np.array(arr))
             out[key] = t.to(device=like.device, dtype=like.dtype)
     return _unflatten(template, out), step

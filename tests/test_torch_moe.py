@@ -187,13 +187,10 @@ def _cap_params(seed=0):
     rng = np.random.default_rng(seed)
     router = np.zeros((D, E), np.float32)
     router[:, 0] = 1.0
-    return {
-        "router": torch.from_numpy(router),
-        "w_gate": torch.tensor(rng.normal(size=(E, D, F)), dtype=torch.float32),
-        "w_up": torch.tensor(rng.normal(size=(E, D, F)), dtype=torch.float32),
-        "w_down": torch.tensor(rng.normal(size=(E, F, D)),
-                               dtype=torch.float32),
-    }
+    experts = {n: torch.tensor(rng.normal(size=shape), dtype=torch.float32)
+               for n, shape in (("w_gate", (E, D, F)), ("w_up", (E, D, F)),
+                                ("w_down", (E, F, D)))}
+    return {"router": torch.from_numpy(router), **experts}
 
 
 def _cap_x(seed=1):
@@ -440,3 +437,36 @@ def test_plain_hooks_give_the_same_moe_logits(model):
     _, a = tlm.prefill(tctx, params, {"tokens": toks})
     _, b = tlm.prefill(plain, params, {"tokens": toks})
     assert torch.equal(a, b)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_expert_bmm_on_the_card(cuda_device):
+    """bf16 expert products on the card (one cuBLAS batched GEMM with an
+    fp32 result) against the CPU's product of fp32 upcasts: the same
+    exact products summed in another order, within 1e-5 of the largest
+    magnitude; the backward's gradients, fp32 sums rounded to bf16, within
+    one bf16 step (2^-8) of the largest magnitude."""
+    g = torch.Generator().manual_seed(0)
+    a = torch.randn(8, 40, 256, generator=g).bfloat16()
+    b = torch.randn(8, 256, 96, generator=g).bfloat16()
+    gy = torch.randn(8, 40, 96, generator=g)
+    outs = []
+    for dev in (torch.device("cpu"), cuda_device):
+        ad = a.to(dev).requires_grad_(True)
+        bd = b.to(dev).requires_grad_(True)
+        y = tmoe.expert_bmm(ad, bd)
+        assert y.dtype == torch.float32
+        outs.append([y, *torch.autograd.grad(y, (ad, bd), gy.to(dev))])
+    for i, (want, got) in enumerate(zip(*outs)):
+        want, got = want.float(), got.float().cpu()
+        tol = (1e-5 if i == 0 else 2.0**-8) * want.abs().max().item()
+        assert (got - want).abs().max().item() <= tol
+
