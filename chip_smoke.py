@@ -88,8 +88,9 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    seq 512: one step under ``remat_policy="tatp_outputs"`` against full
    remat on the same weights and batch: loss and every gradient leaf
    bitwise equal, launches exactly 29/29/29 GEMMs (forward, dgrad,
-   wgrad: the recompute runs none) and 4/4 flash; then 2 steps under each
-   with step ms and peak GB;
+   wgrad: the recompute runs none) and 4/4 flash, and the gradients'
+   device busy time under each; then 2 steps under each with step ms and
+   peak GB;
 7. restart — ``repro_torch.launch.train`` on the card, reduced
    deepseek-7b: a run failed at step 4 by ``--fail-at-step`` and
    restarted from its checkpoint ends bitwise equal to a straight run;
@@ -1827,9 +1828,10 @@ def phase_tatp_outputs(torch):
     full remat's on the same weights and batch, bitwise; each with its
     exact launches (tatp_outputs: 29 forward GEMMs, the recompute running
     none, 29 dgrad, 29 wgrad, 4 flash forwards, 4 backwards; every GEMM
-    on wgmma, every flash on mma); then 2 steps on one batch under each
-    policy from the same parameters (losses bitwise equal), with step ms
-    (host clock) and peak GB."""
+    on wgmma, every flash on mma), and the profiler's device busy time of
+    the loss and gradients under each; then 2 steps on one batch under
+    each policy from the same parameters (losses bitwise equal), with
+    step ms (host clock) and peak GB."""
     from dataclasses import replace
 
     from repro_torch.configs import get_config
@@ -1867,7 +1869,10 @@ def phase_tatp_outputs(torch):
         for name, path in MAIN_PATH_KERNEL.items():
             need(paths[name][path] == launched[name],
                  f"{pol}: {name} launches by path {paths[name]}")
-        counts[pol] = dict(launches=launched, layouts=want_layouts)
+        busy = profile_window(torch, lambda: named_grads(
+            bundles[pol], params, batch))["device_busy_ms"]
+        counts[pol] = dict(launches=launched, layouts=want_layouts,
+                           loss_and_grads_device_ms=busy)
     (lf, gf), (lt, gt) = grads["full"], grads["tatp_outputs"]
     need(bool(torch.isfinite(lf)) and torch.equal(lf, lt),
          f"tatp_outputs loss {lt.item()} != full remat's {lf.item()}")
