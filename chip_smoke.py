@@ -27,11 +27,9 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    bound beside it); then the GEMM in all four operand layouts (forward,
    dgrad ``dy @ w.T``, wgrad ``x.T @ dy``, both transposed) on every path,
    timed in the dgrad and wgrad layouts at one deepseek-7b train layer's
-   shapes beside ``torch.matmul`` on the same views; every other GEMM of
-   the train step at its real shape, layouts and output dtype, on
-   ``wgmma``: the 7 layer forwards at M 2048 and the lm head's forward,
-   dgrad and wgrad (contraction or width 102400), the head's products and
-   whole backward timed; and flash
+   shapes beside ``torch.matmul`` on the same views; deepseek-7b's train
+   lm head (width 102400), its three products and whole backward timed;
+   and flash
    attention's backward kernel against autograd through the plain
    version (fp32 and bf16; causal, window, cap, GQA, ragged and fully
    masked rows; D 64, 80, 128 and 256), two launches at deepseek-7b's
@@ -41,7 +39,12 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    contiguous and strided, large decays; each gradient within 1e-3 of its
    largest magnitude, and finite; two launches at each train shape
    bitwise equal), timed at both SSM train shapes beside its bound and
-   the plain backward's;
+   the plain backward's; and every GEMM and flash shape of the main
+   paths, derived from each architecture's config (``PATHS``,
+   ``TRAIN_RUNS``): the GEMM on ``wgmma`` at each prefill linear, each
+   train linear's forward, dgrad and wgrad and the lm head's three
+   products at their layouts and output dtypes, flash on ``mma`` at each
+   prefill's attention and each train run's forward and backward;
 4. parity — at full width in fp32, deepseek-7b (2 layers), mamba2-780m
    (2 layers), zamba2-2.7b (6 layers, one ``MMMMMS`` unit) and
    olmoe-1b-7b (2 layers): prefill and 4 greedy decode steps through the
@@ -68,7 +71,10 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    decode runs no kernel), every GEMM launch on ``wgmma`` and every flash
    launch on ``mma``.  Outputs finite and tokens in range; prefill time
    (median of 3), decode ms/token, peak memory and a profiler breakdown
-   of each path.  Then the train paths at full width, bf16, batch 4 x
+   of each path; for olmoe also the device time of one layer's expert
+   up product at the decode, prefill and train capacities, the port's
+   form (bf16 operands, fp32 output) against fp32 upcasts (within 1e-5
+   of the largest magnitude) and beside its bound.  Then the train paths at full width, bf16, batch 4 x
    seq 512, the reference's defaults (remat, ``AdamWConfig()``), through
    ``make_train_step`` and ``SyntheticDataset``, 5 steps each:
    deepseek-7b with 4 layers (each step exactly 115 GEMMs: 57 forward
@@ -404,8 +410,6 @@ def phase_kernels(torch):
         ("bf16->f32 2048x2560x10448", M_SSM, 2560, 10448, torch.bfloat16,
          torch.float32, "wgmma"),
     ]
-    cases += [(f"bf16 {M_MAIN}x{n}x{k}", M_MAIN, n, k, torch.bfloat16, None,
-               "wgmma") for n, k, _ in LAYER_GEMMS]
     gemm_err = 0.0
     for name, m, n, k, dt, odt, path in cases:
         a = randn(m, n, dtype=dt)
@@ -417,10 +421,8 @@ def phase_kernels(torch):
              f"{name}: did not take the {path} path")
         tol = GEMM_TOL["bfloat16" if torch.bfloat16 in (dt, odt)
                        else "float32"]
-        err = compare(f"{name} ({path})", got,
-                      matmul_ref(a, b, out_dtype=odt), *tol)
-        if m == M_MAIN:
-            gemm_err = max(gemm_err, err)
+        compare(f"{name} ({path})", got, matmul_ref(a, b, out_dtype=odt),
+                *tol)
 
     shapes, tot = [], dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0,
                            nbytes=0)
@@ -913,7 +915,7 @@ def phase_gemm_layouts(torch, randn):
                 lay = LAYOUT_NAMES[ta, tb]
                 err_by_layout[lay] = max(err_by_layout[lay], err)
 
-    head = train_path_gemms(torch, randn, err_by_layout)
+    head = lm_head_timing(torch, randn)
     # one train layer's backward products, bf16, M = 2048: dgrad dy @ w.T
     # and wgrad x.T @ dy for wq wk wv wo / w_up w_gate / w_down
     records = []
@@ -971,17 +973,14 @@ def phase_gemm_layouts(torch, randn):
     return records
 
 
-def train_path_gemms(torch, randn, err_by_layout):
-    """The train step's GEMMs that the layout cases above do not cover, at
-    their real shapes, operand layouts and output dtypes, each against
-    matmul_ref and asserted on wgmma: the 7 layer forwards at M 2048 (run
-    again by remat's recompute), and the lm head's three products
-    (models/lm.py:_HeadMatmul): forward x @ w -> fp32, dgrad on the
-    stacked three-term cotangent [3M, Vp] @ w.T -> fp32, wgrad
-    [x; x; x].T @ [3M, Vp] -> bf16.  Then the head's products are timed
-    beside their bound, the plain version and the library call, and its
-    whole backward (the cotangent's split included) through autograd.
-    Updates ``err_by_layout``; returns the head's rows by layout."""
+def lm_head_timing(torch, randn):
+    """deepseek-7b's lm head in the train step (models/lm.py:_HeadMatmul;
+    each product is checked by :func:`phase_path_shapes`): its three
+    products timed beside their bound, the plain version and the library
+    call: forward x @ w -> fp32, dgrad on the stacked three-term
+    cotangent [3M, Vp] @ w.T -> fp32, wgrad [x; x; x].T @ [3M, Vp] ->
+    bf16; then its whole backward (the cotangent's split included)
+    through autograd.  Returns the head's rows by layout."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.tatp_matmul.ops import tatp_dot
     from repro_torch.kernels.tatp_matmul.ref import matmul_ref
@@ -990,21 +989,7 @@ def train_path_gemms(torch, randn, err_by_layout):
 
     bf, f32 = torch.bfloat16, torch.float32
 
-    def check(name, lay, a, b, odt):
-        before = tatp_dot.launches_by_path["wgmma"]
-        got = tatp_dot(a, b, out_dtype=odt)
-        torch.cuda.synchronize()
-        need(tatp_dot.launches_by_path["wgmma"] == before + 1,
-             f"{name}: did not take wgmma")
-        err_by_layout[lay] = max(err_by_layout[lay], compare(
-            f"bf16 {name} {list(a.shape)}@{list(b.shape)} -> "
-            f"{str(got.dtype)[6:]} (wgmma)", got,
-            matmul_ref(a, b, out_dtype=odt), *GEMM_TOL["bfloat16"]))
-
-    log(f"[kernels] tatp_matmul at the train path's shapes, M {M_TRAIN}")
-    for n, k, _ in LAYER_GEMMS:
-        check("layer fwd", "fwd", randn(M_TRAIN, n, dtype=bf),
-              randn(n, k, dtype=bf, scale=n ** -0.5), None)
+    log(f"[kernels] tatp_matmul: deepseek-7b's train lm head, M {M_TRAIN}")
     d, vp = D_MODEL, padded_vocab(get_config("deepseek-7b"))
     x = randn(M_TRAIN, d, dtype=bf)
     w = randn(d, vp, dtype=bf, scale=d ** -0.5)
@@ -1013,7 +998,6 @@ def train_path_gemms(torch, randn, err_by_layout):
                 "wgrad": (torch.cat([x, x, x]).t(), gs, bf)}
     head = {}
     for lay, (a, b, odt) in products.items():
-        check(f"lm head {lay}", lay, a, b, odt)
         mm, nn = a.shape
         kk = b.shape[1]
         flops = 2 * mm * nn * kk
@@ -1199,6 +1183,119 @@ def phase_flash_backward(torch, randn):
         per_arch=rows)
 
 
+def phase_path_shapes(torch, randn):
+    """Each kernel at every shape the main paths give it, derived from the
+    configs of ``PATHS`` and ``TRAIN_RUNS`` (:func:`linear_shapes`,
+    :func:`attention_shapes`), bf16, against its plain version on the
+    path the main paths take: the GEMM on ``wgmma`` at every prefill
+    linear (M = batch x prompt) and, in training (M = batch x seq), at
+    every linear's forward ``x @ w``, dgrad ``dy @ w.T`` and wgrad
+    ``x.T @ dy`` and the lm head's three products at their layouts and
+    output dtypes (``models/lm.py:_HeadMatmul``; a tied head reads the
+    embedding transposed); flash on ``mma``, forward at every prefill's
+    attention shape and, through autograd against autograd through
+    attention_ref, forward and backward at every train run's, in the
+    model's ``[B, S, H, D]`` layout viewed as ``[B, H, S, D]``.  A shape
+    two paths share is checked once.  Returns the largest error by
+    kernels-line record."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import (attention,
+                                                         attention_bwd)
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.tatp_matmul.ops import tatp_dot
+    from repro_torch.kernels.tatp_matmul.ref import matmul_ref
+    from repro_torch.models.transformer import padded_vocab
+
+    bf, f32 = torch.bfloat16, torch.float32
+    errs = dict.fromkeys(("tatp_matmul", "tatp_matmul_dgrad",
+                          "tatp_matmul_wgrad", "flash_attention",
+                          "flash_attention_bwd"), 0.0)
+    seen = set()
+
+    def gemm(what, record, m, n, k, ta=False, tb=False, odt=None):
+        if (m, n, k, ta, tb, odt) in seen:
+            return
+        seen.add((m, n, k, ta, tb, odt))
+        a = _operand(torch, randn, m, n, ta, bf)
+        b = _operand(torch, randn, n, k, tb, bf, scale=n ** -0.5)
+        before = tatp_dot.launches_by_path["wgmma"]
+        got = tatp_dot(a, b, out_dtype=odt)
+        torch.cuda.synchronize()
+        need(tatp_dot.launches_by_path["wgmma"] == before + 1,
+             f"{what} [{m},{n}]@[{n},{k}]: did not take wgmma")
+        errs[record] = max(errs[record], compare(
+            f"bf16 {what} [{m},{n}]{'.T' if ta else ''}@[{n},{k}]"
+            f"{'.T' if tb else ''} -> {str(got.dtype)[6:]} (wgmma)", got,
+            matmul_ref(a, b, out_dtype=odt), *GEMM_TOL["bfloat16"]))
+
+    def heads(b, hq, hkv, s, d):
+        return [randn(b, s, h, d, dtype=bf).transpose(1, 2)
+                for h in (hq, hkv, hkv, hq)]
+
+    def flash(what, b, s, hq, hkv, d, window, cap, train):
+        if (b, s, hq, hkv, d, window, cap, train) in seen:
+            return
+        seen.add((b, s, hq, hkv, d, window, cap, train))
+        q, k, v, do = heads(b, hq, hkv, s, d)
+        kw = dict(causal=True, window=window, cap=cap)
+        name = (f"bf16 {what} [{b},{hq},{s},{d}] kv {hkv} window {window} "
+                f"cap {cap}")
+        before = (attention.launches_by_path["mma"],
+                  attention_bwd.launches_by_path["mma"])
+        if not train:
+            errs["flash_attention"] = max(errs["flash_attention"], compare(
+                f"{name} (mma)", attention(q, k, v, **kw),
+                attention_ref(q, k, v, **kw), *ATTN_TOL["bfloat16"]))
+            need(attention.launches_by_path["mma"] == before[0] + 1,
+                 f"{name}: did not take mma")
+            return
+        got = flash_grads(torch, attention, q, k, v, do, **kw)
+        torch.cuda.synchronize()
+        need((attention.launches_by_path["mma"],
+              attention_bwd.launches_by_path["mma"])
+             == (before[0] + 1, before[1] + 1),
+             f"{name}: forward or backward did not take mma")
+        ref = flash_grads(torch, attention_ref, q, k, v, do, **kw)
+        for part, g, r in zip(("o", "dq", "dk", "dv"), got, ref):
+            rec = "flash_attention" if part == "o" else "flash_attention_bwd"
+            errs[rec] = max(errs[rec], compare(
+                f"{name} {part} (mma)", g, r, *ATTN_TOL["bfloat16"]))
+
+    log("[kernels] every kernel at the main paths' shapes, from their "
+        "configs")
+    for arch, spec in PATHS.items():
+        cfg, s = get_config(arch), spec["prompt_len"]
+        for n, k in linear_shapes(cfg):
+            gemm(f"{arch} prefill", "tatp_matmul", BATCH * s, n, k)
+        for hq, hkv, d, window, cap in attention_shapes(cfg):
+            flash(f"{arch} prefill", BATCH, s, hq, hkv, d, window, cap,
+                  False)
+    m = M_TRAIN
+    for arch, _ in TRAIN_RUNS:
+        cfg = get_config(arch)
+        for n, k in linear_shapes(cfg):
+            gemm(f"{arch} train fwd", "tatp_matmul", m, n, k)
+            gemm(f"{arch} train dgrad", "tatp_matmul_dgrad", m, k, n,
+                 tb=True)
+            gemm(f"{arch} train wgrad", "tatp_matmul_wgrad", n, m, k,
+                 ta=True)
+        # the head: x [M, D] @ w [D, Vp] -> fp32; its cotangent's three
+        # bf16 terms stacked [3M, Vp] @ w.T -> fp32; [x; x; x].T @ them ->
+        # bf16.  A tied head's w is the embedding [Vp, D] transposed.
+        d, vp, tied = cfg.d_model, padded_vocab(cfg), cfg.tie_embeddings
+        gemm(f"{arch} lm head fwd", "tatp_matmul", m, d, vp, tb=tied,
+             odt=f32)
+        gemm(f"{arch} lm head dgrad", "tatp_matmul_dgrad", 3 * m, vp, d,
+             tb=not tied, odt=f32)
+        gemm(f"{arch} lm head wgrad", "tatp_matmul_wgrad", d, 3 * m, vp,
+             ta=True, odt=bf)
+        for hq, hkv, hd, window, cap in attention_shapes(cfg):
+            flash(f"{arch} train", TRAIN["batch"], TRAIN["seq"], hq, hkv,
+                  hd, window, cap, True)
+    log(f"  {len(seen)} shapes; max_abs_err by record: {json.dumps(errs)}")
+    return errs
+
+
 def counters():
     """The kernel wrappers, by kernel name (each counts its own launches
     in ``.launches``): the three forward kernels and the backward kernels
@@ -1249,6 +1346,38 @@ def slot_linears(cfg, kind):
     return 4 + (3 if is_gated(cfg.act) else 2)
 
 
+# the parameter leaves that a prefill or train linear multiplies on the GEMM
+# kernel (a MoE FFN's expert leaves are 3-D and run in torch)
+GEMM_LEAVES = ("wq", "wk", "wv", "wo", "w_up", "w_gate", "w_down", "in_proj",
+               "out_proj")
+
+
+def linear_shapes(cfg):
+    """``{(N, K): launches per prefill}`` of the linears on the GEMM kernel,
+    from the config's parameter shapes: every attention slot's wq wk wv wo
+    and its MLP's (none for a MoE FFN), every Mamba-2 slot's in_proj and
+    out_proj.  They sum to :func:`prefill_launches`' GEMM count."""
+    from repro_torch.models.transformer import _block_shapes
+    out = {}
+    for kind in cfg.pattern_for_layers():
+        for name, shape in _block_shapes(cfg, kind).items():
+            if name.split(".")[-1] in GEMM_LEAVES and len(shape) == 2:
+                out[shape] = out.get(shape, 0) + 1
+    need(sum(out.values()) == prefill_launches(cfg)["tatp_matmul"],
+         f"{cfg.name}: linear shapes {out} miss a GEMM of the prefill")
+    return out
+
+
+def attention_shapes(cfg):
+    """The flash calls' ``(Hq, Hkv, D, window, cap)`` over the attention
+    slots (``models/transformer.py:attn_block``)."""
+    return sorted({(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                    cfg.sliding_window if kind == "L" else None,
+                    cfg.attn_softcap)
+                   for kind in cfg.pattern_for_layers() if kind != "M"},
+                  key=str)
+
+
 def prefill_launches(cfg):
     """Kernel launches of one prefill: per attention slot (G, L or S) its
     linears (:func:`slot_linears`) and one flash; per Mamba-2 slot
@@ -1282,21 +1411,25 @@ PARITY = (("deepseek-7b", 2, 2, 128), ("mamba2-780m", 2, 2, 512),
 NEAR_TIE = 1e-5
 
 
-def check_routing(what, got, want, n_layers):
+def check_routing(what, got, want):
     """Every MoE call's expert ids and keep mask, kernel run against plain
-    run.  A differing token is reported with its layer and the plain
-    run's margin; the check fails unless every such token is a
+    run, call by call (a train step's list holds each layer's forward,
+    then the backward's recompute in reverse layer order).  A differing
+    token is reported with its call, its layer (recorded by the call) and
+    the plain run's margin; the check fails unless every such token is a
     near-tie."""
     import torch
     need(len(got) == len(want) and got, f"{what}: {len(got)} routed MoE "
          f"calls vs {len(want)}")
     flips = []
     for i, (g, w) in enumerate(zip(got, want)):
-        need(g.cap == w.cap, f"{what}: capacity {g.cap} vs {w.cap}")
+        need((g.cap, g.layer) == (w.cap, w.layer),
+             f"{what}: call {i} capacity {g.cap} vs {w.cap}, layer "
+             f"{g.layer} vs {w.layer}")
         rows = (g.experts != w.experts).any(dim=1)
         rows |= (g.keep != w.keep).reshape(rows.shape[0], -1).any(dim=1)
         for t in torch.nonzero(rows).flatten().tolist():
-            flips.append(dict(call=i, layer=i % n_layers, token=t,
+            flips.append(dict(call=i, layer=g.layer, token=t,
                               margin=w.margin[t].item(),
                               kernel=g.experts[t].tolist(),
                               plain=w.experts[t].tolist()))
@@ -1373,9 +1506,46 @@ def phase_parity(torch, arch, n_layers, b, s, steps=4):
     log(f"  greedy tokens identical: "
         f"{[t.flatten().tolist() for _, t in runs[0][1]]}")
     if cfg.is_moe:
-        check_routing("prefill and decode", *routes, cfg.n_layers)
+        check_routing("prefill and decode", *routes)
     del params
     torch.cuda.empty_cache()
+
+
+def expert_products(torch, cfg):
+    """One MoE layer's up product ``[E, cap, D] @ [E, D, F]``, bf16
+    operands with fp32 accumulation, at the capacities of the serve
+    path's decode (batch 4 tokens) and prefill (batch x prompt) and of
+    the train path (batch x seq): the port's form
+    (``models/moe.py:expert_bmm``, one cuBLAS ``bmm`` with an fp32 output)
+    against a ``bmm`` of fp32 upcasts (the same function), device ms of
+    each beside the bound of the bf16 product, and their largest
+    difference.  Torch products both, as the reference's einsums."""
+    from repro_torch.models.moe import capacity, expert_bmm
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    w = torch.randn(e, d, f, device="cuda", generator=g).bfloat16()
+    tokens = {"decode": BATCH, "prefill": BATCH * PATHS[cfg.name][
+        "prompt_len"], "train": M_TRAIN}
+    rows = {}
+    for phase, t in tokens.items():
+        cap = capacity(t, cfg.top_k, e, cfg.capacity_factor)
+        a = torch.randn(e, cap, d, device="cuda", generator=g).bfloat16()
+        got, ref = expert_bmm(a, w), torch.bmm(a.float(), w.float())
+        need(got.dtype == torch.float32, "expert_bmm's output is not fp32")
+        row = dict(capacity=cap,
+                   ms=time_ms(torch, lambda: expert_bmm(a, w)),
+                   upcast_ms=time_ms(torch, lambda: torch.bmm(a.float(),
+                                                              w.float())),
+                   max_abs_diff=(got - ref).abs().max().item(),
+                   max_abs=ref.abs().max().item())
+        need(row["max_abs_diff"] <= 1e-5 * row["max_abs"],
+             f"expert products at capacity {cap}: the two forms differ")
+        row["bound_ms"], row["bound_by"] = bound(
+            2 * e * cap * d * f, 2 * (e * cap * d + e * d * f)
+            + 4 * e * cap * f, "bfloat16")
+        rows[phase] = row
+    return rows
 
 
 def phase_main_path(torch, arch):
@@ -1472,6 +1642,8 @@ def phase_main_path(torch, arch):
                prefill_ms=sorted(times)[1], prefill_ms_runs=times,
                peak_mem_gb=peak / 1e9, init_s=init_s, serve_wall_s=wall_s,
                profile=prof)
+    if cfg.is_moe:
+        out["expert_products"] = expert_products(torch, cfg)
     log(f"[main path] {arch} {cfg.n_layers} layers bf16 batch {BATCH} "
         f"prompt {run['prompt_len']} gen {GEN}: {json.dumps(out)}")
     del params, caches, state, big
@@ -1609,7 +1781,7 @@ def phase_train_parity(torch, arch, n_layers, batch, seq):
          f"grad {leaf}: relative error {rel[leaf]:.3e} > {GRAD_REL_TOL}")
     del grads_k, grads_p
     if cfg.is_moe:  # the forward's and the recompute's routing
-        check_routing("train step", *routes, cfg.n_layers)
+        check_routing("train step", *routes)
 
     # two AdamW steps each, from the same parameters
     params_k = tree_map(lambda t: t.clone(), params)
@@ -2009,6 +2181,10 @@ def main() -> int:
     randn = make_randn(torch, 1)
     kernels += phase_gemm_layouts(torch, randn)
     kernels.append(phase_flash_backward(torch, randn))
+    path_errs = phase_path_shapes(torch, randn)
+    for k in kernels:
+        if k["name"] in path_errs:
+            k["max_abs_err"] = max(k["max_abs_err"], path_errs[k["name"]])
     kernels.append(phase_ssd_backward(torch, randn))
     for arch, n_layers, b, s in PARITY:
         phase_parity(torch, arch, n_layers, b, s)

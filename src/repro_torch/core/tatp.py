@@ -77,15 +77,10 @@ class _TatpMatmul(torch.autograd.Function):
     def forward(ctx, x, w, axis, axis_size, bidirectional, wire, dot):
         ctx.save_for_backward(x, w)
         ctx.cfg = (axis, axis_size, bidirectional, wire, dot)
-        saved = remat.active()  # tatp_outputs: the reference's "tatp_y"
-        if saved is not None and saved.replaying:
-            return saved.take().detach()
-        y = ag_matmul_stream_w(x, w, axis, axis_size,
-                               bidirectional=bidirectional, dot=dot,
-                               wire=wire)
-        if saved is not None:
-            saved.put(y.detach())
-        return y
+        # tatp_outputs saves y: the reference's "tatp_y"
+        return remat.saved_or_run("linear", lambda: ag_matmul_stream_w(
+            x, w, axis, axis_size, bidirectional=bidirectional, dot=dot,
+            wire=wire))
 
     @staticmethod
     def backward(ctx, dy):

@@ -26,8 +26,7 @@ D > 128).  For CPU tensors the same Function runs the plain versions of
 both (:func:`attention_ref` with its log-sum-exp, and
 :func:`attention_bwd_ref`).  Under the ``tatp_outputs`` remat policy the
 Function saves its output and log-sum-exp (:mod:`repro_torch.core.remat`)
-and the recompute rebuilds its node from them (:func:`_replay`, called by
-the model's attention block), so no forward runs again.
+and the recompute builds its node from them, so no forward runs again.
 
 ``attention.launches`` counts the forward kernel's launches and
 ``attention.launches_by_path`` the same launches by path;
@@ -40,8 +39,6 @@ from __future__ import annotations
 
 import ctypes
 import math
-from functools import partial
-
 import torch
 
 from repro_torch.core import remat
@@ -104,8 +101,7 @@ def attention(q, k, v, *, causal=True, window=None, cap=None, scale=None):
     if not cpu:
         _check(q, k, v, window, cap)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _FlashAttention.apply(q, k, v, causal, window, cap, scale,
-                                     None)
+        return _FlashAttention.apply(q, k, v, causal, window, cap, scale)
     if cpu:
         return attention_ref(q, k, v, causal=causal, window=window, cap=cap,
                              scale=scale)
@@ -222,23 +218,20 @@ def attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None,
 class _FlashAttention(torch.autograd.Function):
     """:func:`attention` under autograd: the forward kernel with the row
     log-sum-exp saved, the backward kernel for the gradients (for CPU
-    tensors their plain versions).  ``saved`` is a forward's (o, lse),
-    given when the ``tatp_outputs`` recompute replays this node."""
+    tensors their plain versions).  Under ``tatp_outputs`` the recompute
+    takes the first pass's (o, lse) instead of running the forward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, cap, scale, saved):
+    def forward(ctx, q, k, v, causal, window, cap, scale):
         opts = dict(causal=causal, window=window, cap=cap, scale=scale)
-        if saved is not None:
-            o, lse = saved[0].detach(), saved[1]
-        elif q.device.type == "cpu":
-            o, lse = attention_ref(q, k, v, return_lse=True, **opts)
-        else:
-            o, lse = _forward(q, k, v, causal, window, cap, scale,
-                              want_lse=True)
-        rec = remat.active()
-        if rec is not None and not rec.replaying:
-            rec.put(partial(_replay, (o.detach(), lse), causal, window,
-                            cap, scale))
+
+        def run():
+            if q.device.type == "cpu":
+                return attention_ref(q, k, v, return_lse=True, **opts)
+            return _forward(q, k, v, causal, window, cap, scale,
+                            want_lse=True)
+
+        o, lse = remat.saved_or_run("attention", run)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.opts = opts
         return o
@@ -250,14 +243,7 @@ class _FlashAttention(torch.autograd.Function):
             do = do.contiguous()
         bwd = attention_bwd_ref if q.device.type == "cpu" else attention_bwd
         dq, dk, dv = bwd(q, k, v, o, lse, do, **ctx.opts)
-        return dq, dk, dv, None, None, None, None, None
-
-
-def _replay(saved, causal, window, cap, scale, q, k, v):
-    """A recorded attention forward in the ``tatp_outputs`` recompute: the
-    autograd node for this pass's q, k and v, built from the recorded
-    (o, lse) without running the forward."""
-    return _FlashAttention.apply(q, k, v, causal, window, cap, scale, saved)
+        return dq, dk, dv, None, None, None, None
 
 
 attention.launches = 0

@@ -192,7 +192,7 @@ def _stack(ctx: RunCtx, params, x, caches=None, cache_len=None):
                 x, nc = attn_block(ctx, p, x, kind=kind, pos_offset=0,
                                    cache=c, cache_len=cache_len)
                 if cfg.is_moe and kind != "S":
-                    x, a = moe_block(ctx, p, x)
+                    x, a = moe_block(ctx, p, x, i * len(unit) + pos)
                     aux = aux + a
                 else:
                     x = mlp_block(ctx, p, x)

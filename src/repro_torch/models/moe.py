@@ -37,14 +37,15 @@ class MoEOut(NamedTuple):
 
 class Routing(NamedTuple):
     """What the router decided for the flat (token-major, k-minor)
-    assignments: expert ids [T, k], keep mask [T * k], capacity, and each
+    assignments: expert ids [T, k], keep mask [T * k], capacity, each
     token's margin [T]: its k-th expert's probability less the best
     unchosen one's (inf when every expert is chosen), how near the choice
-    was to a tie."""
+    was to a tie; and the model layer of the call."""
     experts: torch.Tensor
     keep: torch.Tensor
     cap: int
     margin: torch.Tensor
+    layer: int
 
 
 def router_topk(xf, w_router, n_experts: int, top_k: int):
@@ -130,10 +131,11 @@ def expert_bmm(a, b):
 
 def moe_ffn(x, params, *, n_experts: int, top_k: int, act: str,
             axis: str, axis_size: int, capacity_factor: float = 1.25,
-            routing: list | None = None) -> MoEOut:
+            routing: list | None = None, layer: int = 0) -> MoEOut:
     """x: [B, S, D].  params: ``router [D, E]``, ``w_gate/w_up [E, D, F]``,
     ``w_down [E, F, D]``.  ``routing``, if given, gets this call's
-    :class:`Routing` appended (for checks of the router's choices)."""
+    :class:`Routing` appended, labelled with ``layer`` (for checks of the
+    router's choices)."""
     if axis_size > 1:
         raise not_ported("the MoE all-to-all over the ring (expert "
                          "parallelism)", "A3")
@@ -154,7 +156,7 @@ def moe_ffn(x, params, *, n_experts: int, top_k: int, act: str,
             margin = p[:, -2] - p[:, -1]
         else:
             margin = torch.full((t,), float("inf"), device=x.device)
-        routing.append(Routing(experts, keep, cap, margin))
+        routing.append(Routing(experts, keep, cap, margin, layer))
     # each token's row k times, token-major (an expand: its backward sums
     # over k); the drop row past the end takes every overflow assignment
     x_rep = xf[:, None, :].expand(t, top_k, d).reshape(t * top_k, d)

@@ -39,7 +39,7 @@ import torch.nn.functional as F
 
 from repro_torch import not_ported
 from repro_torch.configs.base import ModelConfig, ParallelConfig
-from repro_torch.core import remat, tatp
+from repro_torch.core import tatp
 from repro_torch.core.dist import Dist
 from repro_torch.kernels.flash_attention.ops import attention as flash
 from repro_torch.kernels.ssd.ops import ssd_chunked
@@ -322,34 +322,15 @@ def attn_block(ctx: RunCtx, p, x, *, kind: str, pos_offset, cache=None,
         q = apply_rope(q, qp, cfg.rope_theta)
         k = apply_rope(k, qp, cfg.rope_theta)
         # [B, S, H, D] viewed as [B, H, S, D]: the kernel reads the strides
-        out = _attention_core(ctx, q.transpose(1, 2), k.transpose(1, 2),
-                              v.transpose(1, 2), window).transpose(1, 2)
+        out = ctx.attention(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), causal=True, window=window,
+                            cap=cfg.attn_softcap).transpose(1, 2)
         if ctx.phase == "prefill":
             new_cache = {"k": k, "v": v}
 
     b, s = out.shape[:2]
     y = _linear(ctx, out.reshape(b, s, -1), p["wo"])
     return x + y.to(x.dtype), new_cache
-
-
-def _attention_core(ctx: RunCtx, q, k, v, window):
-    """The prefill/train attention core on the ``attention`` hook.  In a
-    ``tatp_outputs`` recompute it rebuilds the node the flash wrapper
-    recorded in the first pass instead of calling the hook; a hook that
-    records nothing (a plain function) runs again."""
-    kw = dict(causal=True, window=window, cap=ctx.cfg.attn_softcap)
-    saved = remat.active()
-    if saved is None:
-        return ctx.attention(q, k, v, **kw)
-    if saved.replaying:
-        replay = saved.take()
-        return ctx.attention(q, k, v, **kw) if replay is None \
-            else replay(q, k, v)
-    n = len(saved)
-    out = ctx.attention(q, k, v, **kw)
-    if len(saved) == n:
-        saved.put(None)
-    return out
 
 
 def mlp_block(ctx: RunCtx, p, x, prefix="mlp."):
@@ -365,8 +346,9 @@ def mlp_block(ctx: RunCtx, p, x, prefix="mlp."):
     return x + y.to(x.dtype)
 
 
-def moe_block(ctx: RunCtx, p, x):
-    """Pre-norm MoE FFN with residual.  Returns (y, aux_loss)."""
+def moe_block(ctx: RunCtx, p, x, layer: int = 0):
+    """Pre-norm MoE FFN with residual, the model's layer ``layer`` (which
+    labels its routing record).  Returns (y, aux_loss)."""
     cfg = ctx.cfg
     h = rms_norm(x, p["mlp.ln"], cfg.norm_eps)
     sub = {k.split(".", 1)[1]: v for k, v in p.items()
@@ -374,7 +356,8 @@ def moe_block(ctx: RunCtx, p, x):
     out = moe_lib.moe_ffn(
         h, sub, n_experts=cfg.n_experts, top_k=cfg.top_k, act=cfg.act,
         axis=ctx.axis, axis_size=ctx.r if ctx.par.strategy == "tatp" else 1,
-        capacity_factor=cfg.capacity_factor, routing=ctx.routing)
+        capacity_factor=cfg.capacity_factor, routing=ctx.routing,
+        layer=layer)
     return x + out.y.to(x.dtype), out.aux_loss
 
 

@@ -227,26 +227,38 @@ def _flat(tree, prefix=""):
 
 @pytest.mark.parametrize("arch,seq", [("deepseek-7b", 16),
                                       ("zamba2-2.7b", 16)])
-def test_tatp_outputs_gradients_and_recompute(arch, seq):
+def test_tatp_outputs_gradients_and_recompute(arch, seq, monkeypatch):
     """Full remat and tatp_outputs on the same weights and batch, through
-    counting hooks around the port's own GEMM and attention wrappers:
-    the loss and every gradient bitwise equal; the tatp_outputs recompute
-    calls neither hook (full remat's calls the GEMM for every linear of
-    every rep again); and the gradients match jax.grad of the reference
-    under its tatp_outputs policy."""
+    counting hooks around the port's own GEMM and attention wrappers and
+    a count of the attention wrapper's forwards (its plain forward on the
+    CPU): the loss and every gradient bitwise equal; the tatp_outputs
+    recompute calls the GEMM hook not at all and calls the attention hook
+    without running a forward (full remat's runs every linear and every
+    attention forward of every rep again); and the gradients match
+    jax.grad of the reference under its tatp_outputs policy."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
     cfg, jcfg = get_reduced(arch), jax_reduced(arch)
     jparams = jax.tree.map(np.asarray, jtf.init_params(jax.random.key(0),
                                                        jcfg))
     batch = _lcg_batch(cfg.vocab_size, s=seq)
     tb = {k: torch.as_tensor(v) for k, v in batch.items()}
     runs = {}
+    plain_fwd = flash_ops.attention_ref
     for policy in ("full", "tatp_outputs"):
         calls = {"dot": 0, "attention": 0, "dot_recompute": 0,
-                 "attention_recompute": 0}
+                 "attention_recompute": 0, "attention_fwd": 0,
+                 "attention_fwd_recompute": 0}
 
         def in_recompute():
             saved = remat.active()
             return saved is not None and saved.replaying
+
+        def attention_fwd(*args, **kw):
+            calls["attention_fwd"] += 1
+            calls["attention_fwd_recompute"] += in_recompute()
+            return plain_fwd(*args, **kw)
+
+        monkeypatch.setattr(flash_ops, "attention_ref", attention_fwd)
 
         def dot(a, b, out_dtype=None):
             calls["dot"] += 1
@@ -280,11 +292,13 @@ def test_tatp_outputs_gradients_and_recompute(arch, seq):
     # the linears (and the head) run their dgrad and wgrad either way; the
     # full recompute runs each rep's forward linears and attention again
     n_linear = ff["dot"] - 1
-    assert ct["dot_recompute"] == ct["attention_recompute"] == 0
-    assert ct["attention"] == ft["attention"]
+    assert ff["attention_fwd"] == ff["attention"] > 0
+    assert ct["dot_recompute"] == ct["attention_fwd_recompute"] == 0
+    assert ct["attention_recompute"] == ft["attention"]
+    assert ct["attention_fwd"] == ft["attention_fwd"]
     assert ct["dot"] == ft["dot"] + 2 * (n_linear + 1)
     assert cf["dot"] == ct["dot"] + n_linear
-    assert cf["attention"] == 2 * ff["attention"]
+    assert cf["attention_fwd"] == 2 * ff["attention_fwd"]
 
     jctx = jtf.RunCtx(jcfg, JaxPar(strategy="tatp", remat=True,
                                    remat_policy="tatp_outputs"),
@@ -335,16 +349,30 @@ def test_unknown_remat_policy_raises():
 
 
 def test_saved_outputs_replay_in_order():
+    """Each kind replays in its own call order, whatever the other kind
+    recorded between; a tagged computation runs only outside a replay."""
     saved = remat.SavedOutputs()
-    saved.run(lambda: [saved.put(i) for i in range(3)])
-    assert len(saved) == 3 and remat.active() is None
-    got = saved.run(lambda: [saved.take() for _ in range(3)])
-    assert got == [0, 1, 2]
-    with pytest.raises(RuntimeError, match="more saved outputs"):
-        saved.run(lambda: [saved.take() for _ in range(4)])
+    saved.run(lambda: [saved.put(kind, (kind, i)) for i in range(3)
+                       for kind in ("linear", "attention")])
+    assert len(saved) == 6 and remat.active() is None
+    got = saved.run(lambda: [saved.take("attention") for _ in range(3)]
+                    + [saved.take("linear") for _ in range(3)])
+    assert got == [("attention", i) for i in range(3)] + [
+        ("linear", i) for i in range(3)]
+    with pytest.raises(RuntimeError, match="more saved linear outputs"):
+        saved.run(lambda: [saved.take("linear") for _ in range(4)])
     with pytest.raises(RuntimeError, match="cannot record"):
-        saved.run(lambda: saved.put(9))
+        saved.run(lambda: saved.put("linear", 9))
     assert remat.active() is None
+
+    ran = []
+    rep = remat.SavedOutputs()
+    first = rep.run(lambda: remat.saved_or_run(
+        "linear", lambda: ran.append(1) or torch.ones(2)))
+    again = rep.run(lambda: remat.saved_or_run(
+        "linear", lambda: ran.append(2) or torch.zeros(2)))
+    assert ran == [1] and torch.equal(first, again) and again is not first
+    assert remat.saved_or_run("linear", lambda: 7) == 7
 
 
 def test_flash_wrapper_on_cpu_runs_the_plain_backward():

@@ -356,7 +356,7 @@ def test_routing_is_recorded_per_layer(model):
     toks = torch.as_tensor(np.random.RandomState(0).randint(
         0, cfg.vocab_size, (2, 8)))
     tlm.prefill(tctx, params, {"tokens": toks})
-    assert len(routing) == cfg.n_layers
+    assert [r.layer for r in routing] == list(range(cfg.n_layers))
     for r in routing:
         assert tuple(r.experts.shape) == (16, cfg.top_k)
         assert r.keep.shape[0] == 16 * cfg.top_k
