@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+
 import torch
 
 from repro_torch.core import remat
