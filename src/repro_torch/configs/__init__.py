@@ -1,9 +1,9 @@
-"""Config registry for the ported architectures:
-``get_config(arch_id)`` / ``get_reduced(arch_id)``.
+"""Config registry: ``get_config(arch_id)`` / ``get_reduced(arch_id)``.
 
-Only architectures whose every layer kind the port runs are registered;
-any other name raises ``KeyError`` (the reference's registry lists all
-eleven; ROADMAP.md queues the rest).
+Every architecture of the reference's registry is registered (the dense,
+SSM, hybrid and MoE decoders, the vision-prefixed internvl2-1b and the
+encoder-decoder seamless-m4t-large-v2), each a copy of its reference
+config; any other name raises ``KeyError``.
 """
 
 from __future__ import annotations
@@ -17,9 +17,14 @@ from repro_torch.configs.base import (
     reduced_config,
 )
 
-# arch id -> module name (ported architectures only)
+# arch id -> module name
 ARCHITECTURES: dict[str, str] = {
     "deepseek-7b": "deepseek_7b",
+    "gemma-7b": "gemma_7b",
+    "gemma2-9b": "gemma2_9b",
+    "qwen2-72b": "qwen2_72b",
+    "internvl2-1b": "internvl2_1b",
+    "seamless-m4t-large-v2": "seamless_m4t_large_v2",
     "mamba2-780m": "mamba2_780m",
     "zamba2-2.7b": "zamba2_2_7b",
     "olmoe-1b-7b": "olmoe_1b_7b",
@@ -31,9 +36,7 @@ ARCHITECTURES: dict[str, str] = {
 def _module(arch: str):
     if arch not in ARCHITECTURES:
         raise KeyError(
-            f"arch {arch!r} is not ported to repro_torch yet "
-            f"(ported: {sorted(ARCHITECTURES)}; see ROADMAP.md)"
-        )
+            f"unknown arch {arch!r} (known: {sorted(ARCHITECTURES)})")
     mod = ARCHITECTURES[arch]
     return importlib.import_module(f"repro_torch.configs.{mod}")
 

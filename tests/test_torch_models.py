@@ -69,14 +69,22 @@ def _rep(tree, i=0):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ["deepseek-7b", "mamba2-780m",
-                                  "zamba2-2.7b"])
+ALL_ARCHS = ["deepseek-7b", "mamba2-780m", "zamba2-2.7b", "olmoe-1b-7b",
+             "qwen3-moe-235b-a22b", "deepseek-v3-moe", "gemma-7b",
+             "gemma2-9b", "qwen2-72b", "internvl2-1b",
+             "seamless-m4t-large-v2"]
+
+
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_configs_match_reference(arch):
+    from repro.configs import ARCHITECTURES as JAX_ARCHS
     from repro.configs import get_config as jax_config
+    from repro_torch.configs import ARCHITECTURES
+    assert set(ARCHITECTURES) == set(JAX_ARCHS) == set(ALL_ARCHS)
     assert get_config(arch) == _as_port(jax_config(arch))
     assert get_reduced(arch) == _as_port(jax_reduced(arch))
-    with pytest.raises(KeyError, match="not ported"):
-        get_config("gemma-7b")
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("no-such-arch")
 
 
 def _as_port(jcfg):
@@ -101,7 +109,7 @@ def test_apply_rope(per_row):
            jcommon.apply_rope(_j(x), jnp.asarray(pos), 10_000.0))
 
 
-@pytest.mark.parametrize("name", ["swiglu", "gelu"])
+@pytest.mark.parametrize("name", ["swiglu", "geglu", "gelu"])
 def test_act_fn(name):
     x = np.linspace(-4, 4, 33)
     _close(tcommon.act_fn(name)(_t(x)), jcommon.act_fn(name)(_j(x)))
