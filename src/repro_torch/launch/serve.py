@@ -5,13 +5,17 @@ fixed number of tokens, at ring degree 1 with strategy ``tatp``::
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-7b \\
         --batch 4 --prompt-len 128 --gen 32
 
-Architectures: ``deepseek-7b``, ``mamba2-780m`` and ``zamba2-2.7b``; for
-the two SSM models ``--prompt-len`` must be a multiple of ``ssm_chunk``
-(256, or 8 with ``--reduced``).  It runs on the GPU unless
-``--device cpu`` is given; with no GPU it raises.  Prompts come from
-``numpy.random.RandomState(0)`` as in the reference, so both packages
-serve the same prompts; weights are random (seed 0, as the reference's
-``jax.random.key(0)``) unless the caller passes ``params``.  The printed
+Architectures: every one the config registry lists (``--arch``); for the
+SSM models (``mamba2-780m``, ``zamba2-2.7b``) ``--prompt-len`` must be a
+multiple of ``ssm_chunk`` (256, or 8 with ``--reduced``).  ``internvl2-1b``
+takes stub image embeddings for its first ``frontend_tokens`` (256)
+positions, so its prompt should be longer than that; ``seamless-m4t-large-
+v2`` takes stub speech frames (1024) for its encoder.  It runs on the GPU
+unless ``--device cpu`` is given; with no GPU it raises.  Prompts and the
+stub embeddings come from ``numpy.random.RandomState(0)`` as in the
+reference, so both packages serve the same inputs; weights are random
+(seed 0, as the reference's ``jax.random.key(0)``) unless the caller
+passes ``params``.  The printed
 JSON has the reference's keys.  Engine mode (``--serve``, plan-driven
 continuous batching) is ROADMAP.md item A1.
 """
@@ -30,12 +34,28 @@ from repro_torch.configs.base import ParallelConfig
 from repro_torch.core.dist import Dist, resolve_device
 from repro_torch.models import lm
 from repro_torch.models.transformer import init_params
+from repro_torch.train.data import stub_embeds
 from repro_torch.train.train_loop import make_serve_fns
 
 
 def _sync(device: torch.device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def prompt_batch(cfg, batch: int, prompt_len: int) -> dict:
+    """The prefill batch as the reference's serve draws it from
+    ``RandomState(0)``: the prompts, then a vision-prefixed model's
+    ``prefix_embeds`` or an encoder-decoder's ``enc_embeds`` (numpy; the
+    embeddings fp32)."""
+    rng = np.random.RandomState(0)
+    out = {"tokens": rng.randint(0, cfg.vocab_size, (batch, prompt_len))}
+    emb = (batch, cfg.frontend_tokens, cfg.d_model)
+    if cfg.frontend and cfg.family != "encdec":
+        out["prefix_embeds"] = stub_embeds(rng, emb, cfg.dtype)
+    if cfg.n_enc_layers:
+        out["enc_embeds"] = stub_embeds(rng, emb, cfg.dtype)
+    return out
 
 
 def serve(args, params=None) -> dict:
@@ -50,14 +70,15 @@ def serve(args, params=None) -> dict:
         gen = torch.Generator(device=device).manual_seed(0)
         params = init_params(cfg, gen, device)
 
-    rng = np.random.RandomState(0)
-    prompts = rng.randint(0, cfg.vocab_size, (args.batch, args.prompt_len))
-    batch = {"tokens": torch.as_tensor(prompts, device=device)}
+    batch = {name: torch.as_tensor(arr, device=device)
+             for name, arr in prompt_batch(cfg, args.batch,
+                                           args.prompt_len).items()}
 
     # prefill produces prompt-length caches; graft them into the max_seq
     # decode layout (every slot at once)
     caches, logits = sb.prefill_fn(params, batch)
-    big = lm.init_cache(sb.ctx, args.batch, max_seq)
+    big = lm.init_cache(sb.ctx, args.batch, max_seq,
+                        enc_len=cfg.frontend_tokens or None)
     caches = lm.graft_cache_slots(big, caches, slots=range(args.batch))
 
     # the first token: argmax over the padded vocab, padded columns

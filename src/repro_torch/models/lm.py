@@ -34,17 +34,26 @@ from repro_torch.models.transformer import (CONV_K, RunCtx, _unit_and_reps,
                                             mlp_block, moe_block)
 
 
-def embed_tokens(ctx: RunCtx, embed, tokens, prefix_embeds=None):
-    """tokens: [B, s]; embed: [Vp, D] (the whole vocab at r = 1)."""
+def embed_tokens(ctx: RunCtx, embed, tokens, prefix_embeds=None,
+                 pos_offset=0):
+    """tokens: [B, s]; embed: [Vp, D] (the whole vocab at r = 1).
+
+    With a modality frontend (``cfg.frontend_tokens``) and
+    ``prefix_embeds`` [B, frontend_tokens, D], the positions
+    ``pos_offset + arange(s)`` below ``frontend_tokens`` take the
+    precomputed embeddings instead, after the embedding scale."""
     cfg = ctx.cfg
     if ctx.r != 1:
         raise not_ported("vocab-parallel embedding", "A3")
-    if prefix_embeds is not None and cfg.frontend_tokens:
-        raise not_ported("modality frontend embeddings", "A6")
     x = embed[tokens]
     if cfg.scale_embed:
         x = x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype,
                              device=x.device)
+    if prefix_embeds is not None and cfg.frontend_tokens:
+        f = cfg.frontend_tokens
+        pos = pos_offset + torch.arange(tokens.shape[1], device=x.device)
+        pref = prefix_embeds[:, pos.clamp(0, f - 1)].to(x.dtype)
+        x = torch.where((pos < f)[None, :, None], pref, x)
     return x
 
 
@@ -262,7 +271,8 @@ def decode_step(ctx: RunCtx, params, tokens, caches, cache_len):
     return next_tok, logits, caches
 
 
-def init_cache(ctx: RunCtx, batch_local: int, max_seq: int):
+def init_cache(ctx: RunCtx, batch_local: int, max_seq: int,
+               enc_len=None):
     """Zero caches matching :func:`_stack`'s layout (axis 0 the rep, axis 1
     the batch slot): attention slots ``{"k", "v"}`` [reps, B, max_seq,
     Hkv, D] in the activation dtype; Mamba-2 slots ``{"state"}``

@@ -169,8 +169,6 @@ def _unit_and_reps(cfg: ModelConfig) -> tuple[str, int]:
 def _check_model(cfg: ModelConfig):
     if cfg.n_enc_layers:
         raise not_ported("encoder-decoder models", "A6")
-    if cfg.frontend:
-        raise not_ported("modality frontends", "A6")
 
 
 def param_shapes(cfg: ModelConfig) -> dict:

@@ -2,7 +2,10 @@
 
 A copy of the reference's LCG grammar: every (step, sample) cell is a pure
 function of the seed, drawn with numpy exactly as the reference draws it,
-so both packages train on the same tokens bit for bit.  The reference
+so both packages train on the same tokens bit for bit.  The modality
+stubs are the reference's too: a vision-prefixed model's batch carries
+``prefix_embeds`` and an encoder-decoder's ``enc_embeds``
+(:func:`stub_embeds`, the same seeds and values).  The reference
 materialises each host's shard of the global batch on its mesh; on one
 device :meth:`SyntheticDataset.batch` returns the whole batch as tensors
 on that device.
@@ -15,7 +18,6 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from repro_torch import not_ported
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.dist import Dist
 
@@ -36,6 +38,20 @@ def _lcg_tokens(seed: int, b: int, s: int, vocab: int,
     return toks.astype(np.int32)
 
 
+def stub_embeds(rng: np.random.RandomState, shape, dtype: str) -> np.ndarray:
+    """Precomputed frontend embeddings as the reference draws them:
+    ``rng.randn(*shape).astype(dtype) * 0.02``, the product in fp32 (numpy
+    promotes a bfloat16 array times a Python float to fp32).  The bf16
+    rounding goes through torch, whose float64 -> bfloat16 cast rounds to
+    nearest even as the reference's numpy bfloat16 does."""
+    x = rng.randn(*shape)
+    if dtype == "bfloat16":
+        x = torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+    else:
+        x = x.astype(dtype)
+    return x * np.float32(0.02)
+
+
 @dataclass
 class SyntheticDataset:
     cfg: ModelConfig
@@ -44,15 +60,26 @@ class SyntheticDataset:
     seed: int = 0
 
     def _host_batch(self, step: int) -> dict[str, np.ndarray]:
-        if self.cfg.frontend or self.cfg.n_enc_layers:
-            raise not_ported("frontend and encoder batch stubs", "A6")
+        cfg = self.cfg
         b, s = self.shape.global_batch, self.shape.seq_len
         toks = _lcg_tokens(self.seed * 100_003 + step, b, s + 1,
-                           self.cfg.vocab_size)
-        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+                           cfg.vocab_size)
+        out = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        emb = (b, cfg.frontend_tokens, cfg.d_model)
+        if cfg.frontend and cfg.family != "encdec":
+            out["prefix_embeds"] = stub_embeds(
+                np.random.RandomState(self.seed + step + 1), emb, cfg.dtype)
+        if cfg.n_enc_layers:
+            out["enc_embeds"] = stub_embeds(
+                np.random.RandomState(self.seed + step + 2), emb, cfg.dtype)
+        return out
 
     def batch(self, step: int) -> dict[str, torch.Tensor]:
-        """This step's batch on ``dist.device`` (int64 token ids)."""
+        """This step's batch on ``dist.device``: int64 token ids, the stub
+        embeddings in fp32 as the reference's host batch holds them (the
+        model casts them to its dtype)."""
         return {name: torch.from_numpy(np.ascontiguousarray(arr)).to(
-                    self.dist.device, dtype=torch.int64)
+                    self.dist.device,
+                    dtype=torch.float32 if arr.dtype.kind == "f"
+                    else torch.int64)
                 for name, arr in self._host_batch(step).items()}

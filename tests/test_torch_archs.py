@@ -46,7 +46,7 @@ from repro_torch.train import data
 from repro_torch.train.train_loop import loss_and_grads
 from repro_torch.weights import params_from_jax
 
-ARCHS = ["gemma-7b", "gemma2-9b", "qwen2-72b"]
+ARCHS = ["gemma-7b", "gemma2-9b", "qwen2-72b", "internvl2-1b"]
 TOL = dict(rtol=5e-4, atol=5e-4)
 LOSS_TOL = dict(rtol=1e-5, atol=1e-5)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -204,7 +204,7 @@ def test_serve_matches_reference(model):
     assert got["sample"] == ref["sample"]
 
 
-@pytest.mark.parametrize("arch", ["gemma2-9b"])
+@pytest.mark.parametrize("arch", ["internvl2-1b", "gemma2-9b"])
 def test_host_batch_at_full_width_matches_reference(arch):
     """The synthetic batch of the full config (bf16 stub embeddings
     included) equals the reference's, value for value."""
@@ -230,6 +230,31 @@ def test_host_batch_at_full_width_matches_reference(arch):
 # ---------------------------------------------------------------------------
 # the features one by one
 # ---------------------------------------------------------------------------
+
+
+def test_prefix_replaces_scaled_embeddings():
+    """internvl2's prefix takes the first frontend_tokens positions after
+    the embedding scale (here forced on), as the reference's; positions
+    count from pos_offset."""
+    cfg = replace(get_reduced("internvl2-1b"), scale_embed=True)
+    jcfg = replace(jax_reduced("internvl2-1b"), scale_embed=True)
+    jctx, tctx = _ctxs(cfg, jcfg, "prefill")
+    rng = np.random.RandomState(4)
+    embed = rng.randn(512, cfg.d_model).astype(np.float32)
+    toks = rng.randint(0, cfg.vocab_size, (2, 7))
+    pref = rng.randn(2, cfg.frontend_tokens, cfg.d_model).astype(np.float32)
+    for off in (0, 2, 6):
+        ref = jlm.embed_tokens(jctx, jnp.asarray(embed), jnp.asarray(toks),
+                               jnp.asarray(pref), pos_offset=off)
+        got = tlm.embed_tokens(tctx, torch.as_tensor(embed),
+                               torch.as_tensor(toks), torch.as_tensor(pref),
+                               pos_offset=off)
+        _close(got, ref, dict(rtol=0, atol=0), f"pos_offset {off}")
+    got = tlm.embed_tokens(tctx, torch.as_tensor(embed),
+                           torch.as_tensor(toks), torch.as_tensor(pref))
+    np.testing.assert_array_equal(got[:, :4].numpy(), pref)
+    np.testing.assert_array_equal(got[:, 4:].numpy(),
+                                  embed[toks[:, 4:]] * cfg.d_model ** 0.5)
 
 
 @pytest.mark.parametrize("window", [None, 5])
