@@ -16,7 +16,12 @@ instead of computing it: the recompute launches no forward GEMM and no
 flash forward.  The recompute's autograd nodes are the first pass's own
 kinds and save the same tensors, so the gradients are those of full remat.
 Each kind keeps its own queue, so a hook that records nothing (a plain
-attention function) leaves the other kind's order intact.
+attention function) leaves the other kind's order intact.  An
+encoder-decoder's cross-attention blocks run inside the decoder's reps,
+so their linears and attention cores are recorded and replayed with the
+rep's own; its encoder is checkpointed in full outside any rep's pass
+(``models/lm.py:_encoder``), so it records nothing and its recompute
+takes nothing.
 """
 
 from __future__ import annotations

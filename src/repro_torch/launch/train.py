@@ -9,6 +9,9 @@ with strategy ``tatp`` on one device::
 ``--seq`` must be a multiple of ``ssm_chunk`` (8 reduced, 256 at full
 width).  ``--arch olmoe-1b-7b`` (and the other MoE configs) adds the
 routers' load-balance loss to the objective, as the reference does.
+``gemma-7b``, ``gemma2-9b``, ``qwen2-72b``, ``internvl2-1b`` (its batch
+carries the stub image prefix) and ``seamless-m4t-large-v2`` (its batch
+carries the encoder's stub speech frames) train the same way.
 It runs on the GPU unless ``--device cpu`` is given; with no GPU it raises.
 Weights are random from ``--seed`` and the data is the reference's
 synthetic LCG stream (:class:`repro_torch.train.data.SyntheticDataset`),

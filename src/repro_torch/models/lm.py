@@ -15,7 +15,11 @@ outputs are saved and the recompute reuses them
 MLP, or + MoE FFN for MoE models, whose load-balance losses sum into
 ``aux``), ``M`` (Mamba-2) and ``S`` (zamba2's shared attention + MLP, one
 parameter set for every slot) run; each slot keeps its own cache (K/V, or
-the SSM state and conv tail).
+the SSM state and conv tail).  An encoder-decoder first runs its encoder
+(:func:`_encoder`) over the batch's ``enc_embeds``; the decoder then
+cross-attends to its output after every ``G`` slot.  A vision-prefixed
+model's ``prefix_embeds`` take the first ``frontend_tokens`` positions
+(:func:`embed_tokens`).
 """
 
 from __future__ import annotations
@@ -142,14 +146,15 @@ def vocab_parallel_xent(ctx: RunCtx, logits, labels, valid):
 
 def loss_fn(ctx: RunCtx, params, batch):
     """Training loss.  batch: tokens/labels [B, s] (+ an optional ``valid``
-    mask, ones by default).  Returns (nll_sum, count, aux_total)."""
+    mask, ones by default; ``prefix_embeds`` for a vision-prefixed model,
+    ``enc_embeds`` [B, T, D] for an encoder-decoder).  Returns (nll_sum,
+    count, aux_total)."""
     cfg = ctx.cfg
-    if cfg.n_enc_layers:
-        raise not_ported("encoder-decoder training", "A6")
     ctx = replace(ctx, phase="train")
+    enc_out = _encoder(ctx, params, batch)
     x = embed_tokens(ctx, params["embed"], batch["tokens"],
                      batch.get("prefix_embeds"))
-    x, aux, _ = _stack(ctx, params, x)
+    x, aux, _ = _stack(ctx, params, x, enc_out=enc_out)
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
     valid = batch.get("valid")
     if valid is None:
@@ -163,40 +168,77 @@ def loss_fn(ctx: RunCtx, params, batch):
     return nll_sum, cnt, aux_total
 
 
-def _stack(ctx: RunCtx, params, x, caches=None, cache_len=None):
+def _encoder(ctx: RunCtx, params, batch):
+    """The encoder of an encoder-decoder (None for any other model): its
+    blocks (bidirectional self-attention + MLP) over ``enc_embeds`` [B, T,
+    D], cast to the model dtype, then its own final norm.  In the
+    ``train`` phase with ``par.remat`` each block is checkpointed in full,
+    whatever ``remat_policy`` says, as the reference wraps the encoder's
+    scan body in a plain ``jax.checkpoint``: it saves no outputs for the
+    ``tatp_outputs`` policy and its recompute takes none."""
+    cfg = ctx.cfg
+    if not cfg.n_enc_layers:
+        return None
+    x = batch["enc_embeds"].to(ctx.dtype)
+    blocks = params["enc"]["blocks"]
+
+    def body(i, x):
+        p = {n: t[i] for n, t in blocks.items()}
+        x, _ = attn_block(ctx, p, x, kind="G", pos_offset=0, bidir_self=True)
+        return mlp_block(ctx, p, x)
+
+    for i in range(cfg.n_enc_layers):
+        if ctx.par.remat and ctx.phase == "train":
+            x = checkpoint(partial(body, i), x, use_reentrant=False)
+        else:
+            x = body(i, x)
+    return rms_norm(x, params["enc"]["final_ln"], cfg.norm_eps)
+
+
+def _stack(ctx: RunCtx, params, x, caches=None, cache_len=None,
+           enc_out=None):
     """Run the decoder stack.  Returns (x, aux_loss, new_caches).
 
     ``prefill`` returns each block's cache leaves stacked on the rep axis
     (``{"k", "v"}`` for attention slots, ``{"state", "conv"}`` for Mamba-2
-    slots); ``decode`` updates ``caches`` in place and returns it.  In the
-    ``train`` phase with ``par.remat`` each rep is checkpointed (its
-    activations are recomputed in the backward; with the ``tatp_outputs``
-    policy but for the saved outputs).  ``aux`` is the fp32 sum of the
-    MoE blocks' load-balance losses (0 without MoE)."""
+    slots); ``decode`` updates ``caches`` in place and returns it.  An
+    encoder-decoder runs a cross-attention block over ``enc_out`` after
+    every ``G`` slot, with the rep's ``cross`` parameters; its cache is
+    the rep's ``"cross"`` leaves (the encoder's K/V, written by prefill
+    and read by decode).  In the ``train`` phase with ``par.remat`` each
+    rep is checkpointed (its activations are recomputed in the backward;
+    with the ``tatp_outputs`` policy but for the saved outputs, the cross
+    blocks' included).  ``aux`` is the fp32 sum of the MoE blocks'
+    load-balance losses (0 without MoE)."""
     cfg = ctx.cfg
     unit, reps = _unit_and_reps(cfg)
     shared = params.get("shared")
+    has_cross = cfg.n_enc_layers > 0
     collect = caches is None and ctx.phase == "prefill"
     remat = ctx.par.remat and ctx.phase == "train"
     policy = ctx.par.remat_policy
     if remat and policy not in ("full", "tatp_outputs"):
         raise ValueError(f"unknown remat_policy {policy!r}")
-    new: dict[str, dict[str, list]] = {f"u{pos}": {} for pos in
-                                       range(len(unit))}
+    keys = [f"u{pos}" for pos in range(len(unit))]
+    new: dict[str, dict[str, list]] = {
+        key: {} for key in keys + (["cross"] if has_cross else [])}
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
-    def rep_body(i, x):
+    def rep_cache(key, i):
+        if caches is None:
+            return None
+        return {n: t[i] for n, t in caches[key].items()}
+
+    def rep_body(i, x, enc_out):
         out = {}
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for pos, kind in enumerate(unit):
-            key = f"u{pos}"
+            key = keys[pos]
             if kind == "S":
                 p = shared
             else:
                 p = {n: t[i] for n, t in params["layers"][key].items()}
-            c = None
-            if caches is not None:
-                c = {n: t[i] for n, t in caches[key].items()}
+            c = rep_cache(key, i)
             if kind in ("G", "L", "S"):
                 x, nc = attn_block(ctx, p, x, kind=kind, pos_offset=0,
                                    cache=c, cache_len=cache_len)
@@ -208,8 +250,14 @@ def _stack(ctx: RunCtx, params, x, caches=None, cache_len=None):
             elif kind == "M":
                 x, nc = mamba_block(ctx, p, x, cache=c, cache_len=cache_len)
             else:
-                raise not_ported(f"layer kind {kind!r}", "A6")
+                raise ValueError(f"layer kind {kind!r}")
             out[key] = nc
+            if has_cross and kind == "G":
+                pc = {n: t[i] for n, t in params["cross"].items()}
+                x, out["cross"] = attn_block(
+                    ctx, pc, x, kind="G", pos_offset=0,
+                    cache=rep_cache("cross", i), cache_len=cache_len,
+                    xattn_kv=enc_out, is_cross=True)
         return x, aux, out
 
     for i in range(reps):
@@ -217,10 +265,10 @@ def _stack(ctx: RunCtx, params, x, caches=None, cache_len=None):
             body = partial(_rep_outputs, partial(rep_body, i))
             if policy == "tatp_outputs":
                 body = partial(SavedOutputs().run, body)
-            x, a = checkpoint(body, x, use_reentrant=False)
+            x, a = checkpoint(body, x, enc_out, use_reentrant=False)
             aux = aux + a
             continue
-        x, a, out = rep_body(i, x)
+        x, a, out = rep_body(i, x, enc_out)
         aux = aux + a
         if collect:
             for key, nc in out.items():
@@ -232,22 +280,25 @@ def _stack(ctx: RunCtx, params, x, caches=None, cache_len=None):
     return x, aux, caches
 
 
-def _rep_outputs(body, x):
+def _rep_outputs(body, x, enc_out):
     """A checkpointed rep's outputs: (x, aux); its caches are None."""
-    return body(x)[:2]
+    return body(x, enc_out)[:2]
 
 
 def prefill(ctx: RunCtx, params, batch):
     """Build caches from a full prompt.  Returns (caches, last_logits):
     caches ``{"u<pos>": leaves}`` in :func:`init_cache`'s layout with the
-    prompt's length on the K/V sequence axis, and fp32 logits [B, 1, Vp]
-    for the final position.  With Mamba-2 layers the prompt length must
+    prompt's length on the K/V sequence axis (an encoder-decoder's
+    ``"cross"`` leaves hold the encoder's K/V, the batch's
+    ``enc_embeds`` length), and fp32 logits [B, 1, Vp] for the final
+    position.  With Mamba-2 layers the prompt length must
     be a multiple of ``cfg.ssm_chunk`` (it is never padded)."""
     cfg = ctx.cfg
     ctx = replace(ctx, phase="prefill")
+    enc_out = _encoder(ctx, params, batch)
     x = embed_tokens(ctx, params["embed"], batch["tokens"],
                      batch.get("prefix_embeds"))
-    x, _, caches = _stack(ctx, params, x)
+    x, _, caches = _stack(ctx, params, x, enc_out=enc_out)
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
     logits = lm_head_logits(ctx, params, x[:, -1:, :])
     return caches, logits
@@ -277,19 +328,23 @@ def init_cache(ctx: RunCtx, batch_local: int, max_seq: int,
     the batch slot): attention slots ``{"k", "v"}`` [reps, B, max_seq,
     Hkv, D] in the activation dtype; Mamba-2 slots ``{"state"}``
     [reps, B, H, P, N] in fp32 and ``{"conv"}`` [reps, B, CONV_K - 1,
-    d_inner + 2N] in the activation dtype."""
+    d_inner + 2N] in the activation dtype; an encoder-decoder's
+    ``"cross"`` ``{"k", "v"}`` [reps, B, T, Hkv, D] with T ``enc_len``
+    (default ``frontend_tokens``)."""
     cfg = ctx.cfg
-    if cfg.n_enc_layers:
-        raise not_ported("cross-attention caches", "A6")
     unit, reps = _unit_and_reps(cfg)
     kw = dict(dtype=ctx.dtype, device=ctx.device)
+
+    def kv(seq):
+        shape = (reps, batch_local, seq // ctx.r, cfg.n_kv_heads,
+                 cfg.head_dim)
+        return {n: torch.zeros(shape, **kw) for n in ("k", "v")}
+
     caches = {}
     for pos, kind in enumerate(unit):
         if kind in ("G", "L", "S"):
-            shape = (reps, batch_local, max_seq // ctx.r, cfg.n_kv_heads,
-                     cfg.head_dim)
-            leaves = {n: torch.zeros(shape, **kw) for n in ("k", "v")}
-        elif kind == "M":
+            leaves = kv(max_seq)
+        else:
             conv_dim = cfg.d_inner + 2 * cfg.ssm_state
             leaves = {
                 "state": torch.zeros(
@@ -299,9 +354,9 @@ def init_cache(ctx: RunCtx, batch_local: int, max_seq: int,
                 "conv": torch.zeros((reps, batch_local, CONV_K - 1,
                                      conv_dim), **kw),
             }
-        else:
-            raise not_ported(f"{kind!r} caches", "A6")
         caches[f"u{pos}"] = leaves
+    if cfg.n_enc_layers:
+        caches["cross"] = kv(enc_len or cfg.frontend_tokens)
     return caches
 
 

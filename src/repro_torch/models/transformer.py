@@ -22,10 +22,14 @@ MoE models (``cfg.is_moe``) replace the MLP of every ``G``/``L`` slot with
 ``mlp.w_up``/``mlp.w_gate`` ``[E, D, F]``, ``mlp.w_down`` ``[E, F, D]`` and
 ``mlp.router`` ``[D, E]``.
 
+An encoder-decoder (``cfg.n_enc_layers``) adds the encoder's blocks under
+``enc`` (bidirectional self-attention + MLP, ``bidir_self``) and one
+cross-attention block (layer kind ``X``: the attention leaves only) per
+decoder rep under ``cross`` (:func:`attn_block` with ``is_cross``).
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
 item): the ring, expert parallelism and the ``megatron``/``fsdp``
-strategies (A3), cross-attention and encoder blocks and the modality
-frontends (A6).
+strategies (A3).
 """
 
 from __future__ import annotations
@@ -151,8 +155,8 @@ def _block_shapes(cfg: ModelConfig, kind: str) -> dict:
         return sh
     if kind == "M":
         return _mamba_shapes(cfg)
-    if kind == "X":
-        raise not_ported(f"layer kind {kind!r}", "A6")
+    if kind == "X":  # attention-only (the decoder's cross-attention) block
+        return dict(_attn_shapes(cfg))
     raise ValueError(kind)
 
 
@@ -166,14 +170,16 @@ def _unit_and_reps(cfg: ModelConfig) -> tuple[str, int]:
     return unit, cfg.n_layers // len(unit)
 
 
-def _check_model(cfg: ModelConfig):
-    if cfg.n_enc_layers:
-        raise not_ported("encoder-decoder models", "A6")
+def _stacked(cfg: ModelConfig, kind: str, n: int) -> dict:
+    return {name: (n, *shape) for name, shape in
+            _block_shapes(cfg, kind).items()}
 
 
 def param_shapes(cfg: ModelConfig) -> dict:
-    """The parameter tree's leaf shapes (no allocation)."""
-    _check_model(cfg)
+    """The parameter tree's leaf shapes (no allocation).  An
+    encoder-decoder also has ``enc`` (``blocks``: ``n_enc_layers``
+    stacked attention + MLP blocks, and its own ``final_ln``) and
+    ``cross`` (one cross-attention block per decoder rep, stacked)."""
     vp = padded_vocab(cfg)
     unit, reps = _unit_and_reps(cfg)
     shapes: dict[str, Any] = {
@@ -182,15 +188,14 @@ def param_shapes(cfg: ModelConfig) -> dict:
     }
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (cfg.d_model, vp)
-    shapes["layers"] = {
-        f"u{pos}": {
-            name: (reps, *shape)
-            for name, shape in _block_shapes(cfg, kind).items()
-        }
-        for pos, kind in enumerate(unit) if kind != "S"
-    }
+    shapes["layers"] = {f"u{pos}": _stacked(cfg, kind, reps)
+                        for pos, kind in enumerate(unit) if kind != "S"}
     if "S" in unit:  # shared blocks are not stacked
         shapes["shared"] = _block_shapes(cfg, "S")
+    if cfg.n_enc_layers:
+        shapes["enc"] = {"blocks": _stacked(cfg, "G", cfg.n_enc_layers),
+                         "final_ln": (cfg.d_model,)}
+        shapes["cross"] = _stacked(cfg, "X", reps)
     return shapes
 
 
@@ -239,21 +244,26 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device):
     if "lm_head" in shapes:
         params["lm_head"] = dense_init(generator, shapes["lm_head"],
                                        in_dim=d, **kw())
-    layers = {}
-    for unit, block in shapes["layers"].items():
+    def stacked(block):
         out = {}
         for name, shape in sorted(block.items()):
             w = torch.empty(shape, **kw())
             for i in range(shape[0]):  # one rep at a time: small staging
                 w[i] = _init_leaf(name, shape[1:], generator, **kw())
             out[name] = w
-        layers[unit] = out
-    params["layers"] = layers
+        return out
+
+    params["layers"] = {unit: stacked(block)
+                        for unit, block in shapes["layers"].items()}
     if "shared" in shapes:
         params["shared"] = {
             name: _init_leaf(name, shape, generator, **kw())
             for name, shape in sorted(shapes["shared"].items())
         }
+    if "enc" in shapes:
+        params["enc"] = {"blocks": stacked(shapes["enc"]["blocks"]),
+                         "final_ln": torch.zeros(d, **kw())}
+        params["cross"] = stacked(shapes["cross"])
     return params
 
 
@@ -287,44 +297,67 @@ def _split_heads(x, n_heads, head_dim):
 
 
 def attn_block(ctx: RunCtx, p, x, *, kind: str, pos_offset, cache=None,
-               cache_len=None):
-    """Pre-norm self-attention block with residual.  Returns
-    (y, new_cache): in ``prefill`` the new cache is this block's K/V; in
-    ``decode`` the given cache updated in place."""
+               cache_len=None, xattn_kv=None, is_cross=False,
+               bidir_self=False):
+    """Pre-norm attention block with residual.  Returns (y, new_cache): in
+    ``prefill`` the new cache is this block's K/V; in ``decode`` the given
+    cache (updated in place for self-attention).
+
+    ``is_cross``: cross-attention (no rope, no mask); its keys and values
+    come from ``xattn_kv`` (the encoder's output [B, T, D], normed with
+    this block's ``ln``) in ``train``/``prefill`` and from the static cross
+    cache, read at its full length, in ``decode``.  ``bidir_self``:
+    non-causal self-attention (the encoder's blocks)."""
     cfg = ctx.cfg
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     window = cfg.sliding_window if kind == "L" else None
+    causal = not (is_cross or bidir_self)
     h = rms_norm(x, p["ln"], cfg.norm_eps)
-
     q = _split_heads(_linear(ctx, h, p["wq"], p.get("bq")), hq, hd)
-    k = _split_heads(_linear(ctx, h, p["wk"], p.get("bk")), hkv, hd)
-    v = _split_heads(_linear(ctx, h, p["wv"], p.get("bv")), hkv, hd)
 
-    new_cache = cache
-    if ctx.phase == "decode":
-        # cache_len: scalar (uniform batch) or [B] (per-row positions)
-        qpos = torch.as_tensor(cache_len, device=x.device) - 1
-        rope_pos = qpos[:, None] if qpos.ndim else qpos.reshape(1)
-        q = apply_rope(q, rope_pos, cfg.rope_theta)
-        k = apply_rope(k, rope_pos, cfg.rope_theta)
-        kc, vc = attn_lib.write_kv_cache(cache["k"], cache["v"], k, v, qpos,
-                                         axis=ctx.axis, axis_size=ctx.r)
-        new_cache = {"k": kc, "v": vc}
-        out = attn_lib.decode_attention(q, kc, vc, cache_len, axis=ctx.axis,
-                                        axis_size=ctx.r, window=window,
-                                        cap=cfg.attn_softcap)
+    if ctx.phase == "decode" and is_cross:
+        # the encoder's K/V were cached by prefill; the reference also
+        # computes this step's (unused) K/V products, which change nothing
+        new_cache = cache
+        out = attn_lib.decode_attention(
+            q, cache["k"], cache["v"], cache["k"].shape[1], axis=ctx.axis,
+            axis_size=ctx.r, cap=cfg.attn_softcap)
     else:
-        if ctx.r != 1:
-            raise not_ported("ring attention", "A3")
-        qp = pos_offset + torch.arange(x.shape[1], device=x.device)
-        q = apply_rope(q, qp, cfg.rope_theta)
-        k = apply_rope(k, qp, cfg.rope_theta)
-        # [B, S, H, D] viewed as [B, H, S, D]: the kernel reads the strides
-        out = ctx.attention(q.transpose(1, 2), k.transpose(1, 2),
-                            v.transpose(1, 2), causal=True, window=window,
-                            cap=cfg.attn_softcap).transpose(1, 2)
-        if ctx.phase == "prefill":
-            new_cache = {"k": k, "v": v}
+        src = h
+        if is_cross:
+            src = rms_norm(xattn_kv, p["ln"], cfg.norm_eps)
+        k = _split_heads(_linear(ctx, src, p["wk"], p.get("bk")), hkv, hd)
+        v = _split_heads(_linear(ctx, src, p["wv"], p.get("bv")), hkv, hd)
+        new_cache = cache
+        if ctx.phase == "decode":
+            # cache_len: scalar (uniform batch) or [B] (per-row positions)
+            qpos = torch.as_tensor(cache_len, device=x.device) - 1
+            rope_pos = qpos[:, None] if qpos.ndim else qpos.reshape(1)
+            q = apply_rope(q, rope_pos, cfg.rope_theta)
+            k = apply_rope(k, rope_pos, cfg.rope_theta)
+            kc, vc = attn_lib.write_kv_cache(cache["k"], cache["v"], k, v,
+                                             qpos, axis=ctx.axis,
+                                             axis_size=ctx.r)
+            new_cache = {"k": kc, "v": vc}
+            out = attn_lib.decode_attention(q, kc, vc, cache_len,
+                                            axis=ctx.axis, axis_size=ctx.r,
+                                            window=window,
+                                            cap=cfg.attn_softcap)
+        else:
+            if ctx.r != 1:
+                raise not_ported("ring attention", "A3")
+            if not is_cross:
+                qp = pos_offset + torch.arange(x.shape[1], device=x.device)
+                q = apply_rope(q, qp, cfg.rope_theta)
+                k = apply_rope(k, qp, cfg.rope_theta)
+            # [B, S, H, D] viewed as [B, H, S, D]: the kernel reads the
+            # strides
+            out = ctx.attention(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), causal=causal,
+                                window=window,
+                                cap=cfg.attn_softcap).transpose(1, 2)
+            if ctx.phase == "prefill":
+                new_cache = {"k": k, "v": v}
 
     b, s = out.shape[:2]
     y = _linear(ctx, out.reshape(b, s, -1), p["wo"])

@@ -128,7 +128,9 @@ def make_serve_fns(cfg: ModelConfig, par: ParallelConfig, dist: Dist,
                    **hooks) -> ServeBundle:
     """``prefill_fn(params, batch) -> (caches, logits)`` and
     ``decode_fn(params, tokens, caches, cache_len) -> (next_tok, logits,
-    caches)``; ``cache_len`` is a [B] vector (or a scalar).  ``hooks``
+    caches)``; ``cache_len`` is a [B] vector (or a scalar).  The prefill
+    batch carries ``prefix_embeds`` or ``enc_embeds`` where the model
+    takes them (as the train step's batch does).  ``hooks``
     override :class:`RunCtx`'s kernel hooks (``dot``, ``attention``)."""
     ctx = RunCtx(cfg, par, dist, phase="prefill", **hooks)
 

@@ -183,8 +183,8 @@ def test_unported_paths_name_their_roadmap_item(model):
     ring = replace(tctx, cfg=moe, dist=_RingDist(torch.device("cpu")))
     with pytest.raises(NotImplementedError, match="A3"):
         ttf.moe_block(ring, p, torch.zeros(1, 4, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="A6"):
-        ttf.param_shapes(replace(cfg, layer_pattern="X"))
+    with pytest.raises(NotImplementedError, match="A3"):
+        tlm.embed_tokens(ring, p["wq"], torch.zeros(1, 4, dtype=torch.long))
     with pytest.raises(NotImplementedError, match="A3"):
         ttf._linear(replace(tctx, par=ParallelConfig(strategy="megatron")),
                     torch.zeros(1, 1, 4), torch.zeros(4, 4))
