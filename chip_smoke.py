@@ -39,21 +39,35 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    contiguous and strided, large decays; each gradient within 1e-3 of its
    largest magnitude, and finite; two launches at each train shape
    bitwise equal), timed at both SSM train shapes beside its bound and
-   the plain backward's; and every GEMM and flash shape of the main
-   paths, derived from each architecture's config (``PATHS``,
-   ``TRAIN_RUNS``): the GEMM on ``wgmma`` at each prefill linear, each
-   train linear's forward, dgrad and wgrad and the lm head's three
-   products at their layouts and output dtypes, flash on ``mma`` at each
-   prefill's attention and each train run's forward and backward;
+   the plain backward's; flash attention at the new architectures'
+   shapes, timed (gemma2-9b's windowed, soft-capped [1, 16, 8192, 256]
+   kv 8, with no library yardstick: SDPA takes no soft-cap; gemma-7b's D
+   256 prefill; seamless-m4t-large-v2's bidirectional encoder and its
+   cross attention of 128 queries to 1024 frames) and its backward at
+   gemma-7b's train shape on the CUDA cores (D 256); and every GEMM and
+   flash shape of the main paths, derived from each architecture's
+   config (``PATHS``, ``TRAIN_RUNS``, ``TRAIN_SHAPES_ONLY``): the GEMM on
+   ``wgmma`` at each prefill linear (an encoder's and the cross blocks'
+   wk and wv over the frames), each train linear's forward, dgrad and
+   wgrad and the lm head's three products at their layouts and output
+   dtypes, flash on ``mma`` at each prefill's attention and each train
+   shape's forward, and its backward (``mma`` at D <= 128, ``simt`` at
+   D 256);
 4. parity — at full width in fp32, deepseek-7b (2 layers), mamba2-780m
-   (2 layers), zamba2-2.7b (6 layers, one ``MMMMMS`` unit) and
-   olmoe-1b-7b (2 layers): prefill and 4 greedy decode steps through the
+   (2 layers), zamba2-2.7b (6 layers, one ``MMMMMS`` unit), olmoe-1b-7b
+   (2 layers), gemma2-9b (an ``L`` and a ``G`` layer, batch 1 x prompt
+   4608, past the 4096 window), internvl2-1b (2 layers, its 256 prefix
+   positions) and seamless-m4t-large-v2 (2 encoder and 2 decoder layers
+   over 1024 frames): prefill and 4 greedy decode steps through the
    kernels (all on their fp32 ``simt`` paths) and again with every kernel
    call replaced by its plain version; last-position logits within
    rtol = atol = 1e-3 and identical tokens; then the train step (fp32,
    remat) of deepseek-7b (2 layers, 2 x 256 tokens), mamba2-780m (2
-   layers), zamba2-2.7b (6 layers) and olmoe-1b-7b (2 layers, 2 x 256),
-   the SSM models at 2 x 512 tokens so the recurrence's gradient runs:
+   layers), zamba2-2.7b (6 layers), olmoe-1b-7b (2 layers, 2 x 256),
+   gemma2-9b (2 layers, 1 x 4608), internvl2-1b (2 layers, 2 x 512) and
+   seamless-m4t-large-v2 (2 + 2 layers, 2 x 256 tokens over 1024
+   frames), the SSM models at 2 x 512 tokens so the recurrence's
+   gradient runs:
    the loss, every gradient leaf (relative L2 error <= 1e-4) and the
    parameters after 2 AdamW steps (atol = 2 * sum(lr_t)), kernels against
    plain versions.  For olmoe every MoE call's expert ids and keep mask
@@ -63,13 +77,17 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
 5. main paths — ``repro_torch.launch.serve`` one-shot, bf16, batch 4,
    32 generated tokens: deepseek-7b (30 layers, prompt 128), mamba2-780m
    (48 layers, prompt 512 = two SSD chunks), zamba2-2.7b (54 layers,
-   prompt 512) and olmoe-1b-7b (16 layers, prompt 128).  Before each path
-   every launch count is zeroed; just after it the counts must be exactly
-   the path's (GEMM, flash, SSD, flash backward, SSD backward):
-   210/30/0/0/0, 96/0/48/0/0, 144/9/45/0/0 and 64/16/0/0/0 (one prefill
-   each;
-   decode runs no kernel), every GEMM launch on ``wgmma`` and every flash
-   launch on ``mma``.  Outputs finite and tokens in range; prefill time
+   prompt 512), olmoe-1b-7b (16 layers, prompt 128), gemma2-9b (42
+   layers, batch 1 x prompt 8192), gemma-7b (28 layers, prompt 128),
+   qwen2-72b (16 of its 80 layers, ``--layers 16``, prompt 128),
+   internvl2-1b (24 layers, prompt 512) and seamless-m4t-large-v2 (24 +
+   24 layers, prompt 128 over 1024 frames).  Before each path every
+   launch count is zeroed; just after it the counts must be exactly the
+   path's (GEMM, flash, SSD, flash backward, SSD backward):
+   210/30/0/0/0, 96/0/48/0/0, 144/9/45/0/0, 64/16/0/0/0, 294/42,
+   196/28, 112/16, 168/24 and 384/72 (one prefill each; decode runs no
+   kernel), every GEMM launch on ``wgmma`` and every flash launch on
+   ``mma``.  Outputs finite and tokens in range; prefill time
    (median of 3), decode ms/token, peak memory and a profiler breakdown
    of each path; for olmoe also the device time of one layer's expert
    up product at the decode, prefill and train capacities, the port's
@@ -84,8 +102,12 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    zamba2-2.7b at its 54 (579 GEMMs, 18 flash forwards, 9 flash
    backwards, 90 SSD forwards, 45 SSD backwards) and olmoe-1b-7b with 4
    layers (33 forward GEMMs, 17 dgrad, 17 wgrad, 8 flash forwards, 4
-   backwards; the router and expert products are torch); every GEMM on
-   ``wgmma``, every flash on ``mma``; finite losses and grad norms; 3
+   backwards; the router and expert products are torch), gemma2-9b with
+   4 layers (115 GEMMs, 8 / 4 flash; the backward on the CUDA cores at D
+   256), internvl2-1b at its 24 (675 GEMMs, 48 / 24 flash) and
+   seamless-m4t-large-v2 at its 24 + 24 (1539 GEMMs, 144 / 72 flash:
+   the encoder is recomputed under remat); every GEMM on ``wgmma``,
+   every flash forward on ``mma``; finite losses and grad norms; 3
    steps on one fixed batch lower its loss; step time, tokens/s, MFU (a
    MoE model counts its active parameters), peak memory, the device time
    of the gradients and of the AdamW update, and a profiler window with
@@ -153,6 +175,30 @@ PATHS = {
     # products are torch, as the reference's einsums)
     "olmoe-1b-7b": dict(prompt_len=128, n_layers=16, launches=dict(
         tatp_matmul=64, flash_attention=16, ssd=0, flash_attention_bwd=0,
+        ssd_bwd=0)),
+    # 42 layers alternating L (window 4096) and G; one prompt of 8192, so
+    # the window masks keys for the positions from 4096 on
+    "gemma2-9b": dict(batch=1, prompt_len=8192, n_layers=42, launches=dict(
+        tatp_matmul=294, flash_attention=42, ssd=0, flash_attention_bwd=0,
+        ssd_bwd=0)),
+    "gemma-7b": dict(prompt_len=128, n_layers=28, launches=dict(
+        tatp_matmul=196, flash_attention=28, ssd=0, flash_attention_bwd=0,
+        ssd_bwd=0)),
+    # cut to 16 of its 80 layers (widths unchanged): 80 layers of bf16
+    # weights (~145 GB) do not fit one card
+    "qwen2-72b": dict(prompt_len=128, n_layers=16, launches=dict(
+        tatp_matmul=112, flash_attention=16, ssd=0, flash_attention_bwd=0,
+        ssd_bwd=0)),
+    # the first 256 of the 512 positions take the stub image embeddings
+    "internvl2-1b": dict(prompt_len=512, n_layers=24, launches=dict(
+        tatp_matmul=168, flash_attention=24, ssd=0, flash_attention_bwd=0,
+        ssd_bwd=0)),
+    # the encoder's 24 layers over 1024 stub speech frames (6 GEMMs and a
+    # bidirectional flash each), then 24 decoder layers (6 GEMMs and a
+    # causal flash, and a cross block's 4 GEMMs and flash over the frames)
+    "seamless-m4t-large-v2": dict(prompt_len=128, n_layers=24,
+                                  launches=dict(
+        tatp_matmul=384, flash_attention=72, ssd=0, flash_attention_bwd=0,
         ssd_bwd=0)),
 }
 BATCH, GEN = 4, 32
@@ -349,9 +395,13 @@ def phase_build():
     log(f"[build] {len(_build.SOURCES)} kernels built in {secs:.1f} s "
         f"(nvcc {_build.nvcc_path()})")
     for name, text in _build.BUILD_LOG.items():
+        fn = ""  # the kernel the next lines report, its mangled name cut
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+            if "Function properties for" in line:
+                fn = line.rsplit(" ", 1)[-1].split("_cu_")[-1][8:56]
+            elif "Used" in line and "registers," in line \
+                    or "spill stores" in line:
+                log(f"  ptxas {name} {fn}: {line.strip()}")
     for name in _build.SOURCES:
         _build.load(name)
     return secs
@@ -840,9 +890,16 @@ M_TRAIN = TRAIN["batch"] * TRAIN["seq"]
 # parameter); mamba2-780m (0.781 B parameters, ~12.5 GB) and zamba2-2.7b
 # (1.956 B in this config, ~31 GB) fit one card at full depth;
 # olmoe-1b-7b's 16 layers (6.9 B, ~111 GB) do not, its 4 layers (1.88 B,
-# ~30 GB) do.
+# ~30 GB) do; gemma2-9b's 4 layers (two LG units, 1.71 B, ~27 GB) do, as
+# do internvl2-1b (0.49 B) and seamless-m4t-large-v2 (24 + 24 layers,
+# 1.37 B) at full depth.
 TRAIN_RUNS = (("deepseek-7b", TRAIN["n_layers"]), ("mamba2-780m", 48),
-              ("zamba2-2.7b", 54), ("olmoe-1b-7b", TRAIN["n_layers"]))
+              ("zamba2-2.7b", 54), ("olmoe-1b-7b", TRAIN["n_layers"]),
+              ("gemma2-9b", TRAIN["n_layers"]), ("internvl2-1b", 24),
+              ("seamless-m4t-large-v2", 24))
+# architectures whose train step is not run here but whose train GEMM and
+# flash shapes phase_path_shapes holds against the plain versions
+TRAIN_SHAPES_ONLY = ("gemma-7b", "qwen2-72b")
 
 
 def _operand(torch, randn, rows, cols, transposed, dtype, scale=1.0,
@@ -1183,23 +1240,149 @@ def phase_flash_backward(torch, randn):
         per_arch=rows)
 
 
+# flash attention at the new architectures' shapes, timed:
+# (name, [B, Hq, Sq, D], Hkv, Skv, causal, window, cap, library yardstick)
+FLASH_ARCH_ROWS = (
+    ("gemma2-9b prefill, L slot", (1, 16, 8192, 256), 8, 8192, True, 4096,
+     50.0, None),
+    ("gemma-7b prefill", (BATCH, 16, 128, 256), 16, 128, True, None, None,
+     "sdpa"),
+    ("seamless encoder", (BATCH, 16, 1024, 64), 16, 1024, False, None, None,
+     "sdpa"),
+    ("seamless cross", (BATCH, 16, 128, 64), 16, 1024, False, None, None,
+     "sdpa"),
+)
+# the flash backward at gemma-7b's train shape (D 256: the CUDA cores)
+FLASH_BWD_ARCH = ("gemma-7b train", (TRAIN["batch"], 16, TRAIN["seq"], 256))
+
+
+def phase_flash_arch_rows(torch, randn):
+    """Flash attention at the new architectures' shapes, bf16, in the
+    model's ``[B, S, H, D]`` layout viewed as ``[B, H, S, D]``: the forward
+    at gemma2-9b's windowed, soft-capped prefill (no library yardstick:
+    SDPA takes no soft-cap), gemma-7b's prefill (D 256), seamless's
+    bidirectional encoder and its cross attention of 128 queries to 1024
+    frames (against SDPA), and the backward at gemma-7b's train shape on
+    the CUDA cores (D 256 > ``MAX_MMA_BWD_HEAD_DIM``, against SDPA's
+    backward).  Each is checked against its plain version, asserts its
+    path, and is timed beside its bound over the pairs its masks leave
+    (:func:`attn_pairs`).  Returns (forward rows, backward row)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import (_bwd_path,
+                                                         _forward, attention,
+                                                         attention_bwd)
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    bf = torch.bfloat16
+    log("[kernels] flash_attention at the new architectures' shapes")
+
+    def layout(b, h, s, d):
+        return randn(b, s, h, d, dtype=bf).transpose(1, 2)
+
+    fwd_rows = []
+    for name, (b, hq, sq, d), hkv, skv, causal, window, cap, lib in \
+            FLASH_ARCH_ROWS:
+        q, k, v = layout(b, hq, sq, d), layout(b, hkv, skv, d), \
+            layout(b, hkv, skv, d)
+        kw = dict(causal=causal, window=window, cap=cap)
+        before = attention.launches_by_path["mma"]
+        got = attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        need(attention.launches_by_path["mma"] == before + 1,
+             f"flash {name}: did not take mma")
+        err = compare(f"bf16 {name} [{b},{hq},{sq},{d}] kv {hkv}x{skv}",
+                      got, attention_ref(q, k, v, **kw),
+                      *ATTN_TOL["bfloat16"])
+        pairs = b * hq * attn_pairs(sq, skv, causal, window)
+        row = dict(name=name, shape=[b, hq, sq, d], kv_heads=hkv, skv=skv,
+                   causal=causal, window=window, cap=cap, path="mma",
+                   max_abs_err=err,
+                   ms=time_ms(torch, lambda: attention(q, k, v, **kw), 20),
+                   plain_ms=time_ms(torch, lambda: attention_ref(
+                       q, k, v, **kw), 3, 1),
+                   library_ms=None,
+                   library="none: SDPA takes no soft-cap" if lib is None
+                   else "scaled_dot_product_attention")
+        if lib:
+            qc, kc, vc = (t.contiguous() for t in (q, k, v))
+            row["library_ms"] = time_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    qc, kc, vc, is_causal=causal), 20)
+            row["library_ratio"] = row["ms"] / row["library_ms"]
+        nbytes = 2 * d * (2 * b * hq * sq + 2 * b * hkv * skv)
+        row["bound_ms"], row["bound_by"] = bound(4 * pairs * d, nbytes,
+                                                 "bfloat16")
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        log(f"  timing {name}: {json.dumps(row)}")
+        fwd_rows.append(row)
+
+    name, (b, h, s, d) = FLASH_BWD_ARCH
+    path = _bwd_path(bf, d)
+    q, k, v, do = (layout(b, h, s, d) for _ in range(4))
+    o, lse = _forward(q, k, v, True, None, None, None, want_lse=True)
+    before = attention_bwd.launches_by_path[path]
+    got = attention_bwd(q, k, v, o, lse, do, causal=True)
+    torch.cuda.synchronize()
+    need(path == "simt" and
+         attention_bwd.launches_by_path[path] == before + 1,
+         f"flash backward {name}: did not take the CUDA-core path")
+    ref = flash_grads(torch, attention_ref, q, k, v, do, causal=True)
+    err = max(compare(f"bf16 {name} backward [{b},{h},{s},{d}] {part} "
+                      f"({path})", g, r, *ATTN_TOL["bfloat16"])
+              for part, g, r in zip(("dq", "dk", "dv"), got, ref[1:]))
+    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+
+    def sdpa_fwd_bwd():
+        qq, kk, vv = (t.detach().requires_grad_(True) for t in (qc, kc, vc))
+        torch.autograd.grad(F.scaled_dot_product_attention(
+            qq, kk, vv, is_causal=True), (qq, kk, vv), do)
+
+    def ref_fwd_bwd():
+        qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
+        torch.autograd.grad(attention_ref(qq, kk, vv, causal=True),
+                            (qq, kk, vv), do)
+
+    bwd = dict(
+        name=name, shape=[b, h, s, d], path=path, max_abs_err=err,
+        ms=time_ms(torch, lambda: attention_bwd(q, k, v, o, lse, do,
+                                                causal=True), 5, 1),
+        plain_ms=(time_ms(torch, ref_fwd_bwd, 3, 1)
+                  - time_ms(torch, lambda: attention_ref(q, k, v,
+                                                         causal=True), 3, 1)),
+        library_ms=(time_ms(torch, sdpa_fwd_bwd, 10)
+                    - time_ms(torch, lambda: F.scaled_dot_product_attention(
+                        qc, kc, vc, is_causal=True), 10)))
+    pairs = b * h * attn_pairs(s, s, True, None)
+    bwd["bound_ms"], bwd["bound_by"] = bound(
+        10 * pairs * d, 8 * b * h * s * d * 2 + 2 * b * h * s * 4,
+        "bfloat16")
+    bwd["share_of_bound"] = bwd["bound_ms"] / bwd["ms"]
+    bwd["library_ratio"] = bwd["ms"] / bwd["library_ms"]
+    log(f"  timing backward {name}: {json.dumps(bwd)}")
+    return fwd_rows, bwd
+
+
 def phase_path_shapes(torch, randn):
     """Each kernel at every shape the main paths give it, derived from the
-    configs of ``PATHS`` and ``TRAIN_RUNS`` (:func:`linear_shapes`,
-    :func:`attention_shapes`), bf16, against its plain version on the
-    path the main paths take: the GEMM on ``wgmma`` at every prefill
-    linear (M = batch x prompt) and, in training (M = batch x seq), at
-    every linear's forward ``x @ w``, dgrad ``dy @ w.T`` and wgrad
-    ``x.T @ dy`` and the lm head's three products at their layouts and
-    output dtypes (``models/lm.py:_HeadMatmul``; a tied head reads the
-    embedding transposed); flash on ``mma``, forward at every prefill's
-    attention shape and, through autograd against autograd through
-    attention_ref, forward and backward at every train run's, in the
+    configs of ``PATHS``, ``TRAIN_RUNS`` and ``TRAIN_SHAPES_ONLY``
+    (:func:`linear_shapes`, :func:`attention_shapes`), bf16, against its
+    plain version on the path the main paths take: the GEMM on ``wgmma``
+    at every prefill linear (M = batch x prompt, an encoder's and the
+    cross blocks' wk and wv batch x frames) and, in training (M = batch
+    x seq, or x frames), at every linear's forward ``x @ w``, dgrad
+    ``dy @ w.T`` and wgrad ``x.T @ dy`` and the lm head's three products
+    at their layouts and output dtypes (``models/lm.py:_HeadMatmul``; a
+    tied head reads the embedding transposed); flash forward on ``mma``
+    at every prefill's attention shape (causal, windowed, soft-capped,
+    bidirectional over the frames, or cross over them) and, through
+    autograd against autograd through attention_ref, forward and backward
+    (``mma`` at D <= 128, ``simt`` above) at every train shape, in the
     model's ``[B, S, H, D]`` layout viewed as ``[B, H, S, D]``.  A shape
     two paths share is checked once.  Returns the largest error by
     kernels-line record."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention.ops import (attention,
+    from repro_torch.kernels.flash_attention.ops import (_bwd_path,
+                                                         attention,
                                                          attention_bwd)
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.tatp_matmul.ops import tatp_dot
@@ -1228,20 +1411,23 @@ def phase_path_shapes(torch, randn):
             f"{'.T' if tb else ''} -> {str(got.dtype)[6:]} (wgmma)", got,
             matmul_ref(a, b, out_dtype=odt), *GEMM_TOL["bfloat16"]))
 
-    def heads(b, hq, hkv, s, d):
-        return [randn(b, s, h, d, dtype=bf).transpose(1, 2)
-                for h in (hq, hkv, hkv, hq)]
+    def heads(b, hq, hkv, d, sq, skv):
+        return [randn(b, n, h, d, dtype=bf).transpose(1, 2)
+                for h, n in ((hq, sq), (hkv, skv), (hkv, skv), (hq, sq))]
 
-    def flash(what, b, s, hq, hkv, d, window, cap, train):
-        if (b, s, hq, hkv, d, window, cap, train) in seen:
+    def flash(what, b, hq, hkv, d, sq, skv, causal, window, cap, train):
+        key = (b, hq, hkv, d, sq, skv, causal, window, cap, train)
+        if key in seen:
             return
-        seen.add((b, s, hq, hkv, d, window, cap, train))
-        q, k, v, do = heads(b, hq, hkv, s, d)
-        kw = dict(causal=True, window=window, cap=cap)
-        name = (f"bf16 {what} [{b},{hq},{s},{d}] kv {hkv} window {window} "
+        seen.add(key)
+        q, k, v, do = heads(b, hq, hkv, d, sq, skv)
+        kw = dict(causal=causal, window=window, cap=cap)
+        name = (f"bf16 {what} [{b},{hq},{sq},{d}] kv {hkv}x{skv} "
+                f"{'causal' if causal else 'non-causal'} window {window} "
                 f"cap {cap}")
+        bwd = _bwd_path(bf, d)
         before = (attention.launches_by_path["mma"],
-                  attention_bwd.launches_by_path["mma"])
+                  attention_bwd.launches_by_path[bwd])
         if not train:
             errs["flash_attention"] = max(errs["flash_attention"], compare(
                 f"{name} (mma)", attention(q, k, v, **kw),
@@ -1252,28 +1438,29 @@ def phase_path_shapes(torch, randn):
         got = flash_grads(torch, attention, q, k, v, do, **kw)
         torch.cuda.synchronize()
         need((attention.launches_by_path["mma"],
-              attention_bwd.launches_by_path["mma"])
+              attention_bwd.launches_by_path[bwd])
              == (before[0] + 1, before[1] + 1),
-             f"{name}: forward or backward did not take mma")
+             f"{name}: forward did not take mma or backward {bwd}")
         ref = flash_grads(torch, attention_ref, q, k, v, do, **kw)
         for part, g, r in zip(("o", "dq", "dk", "dv"), got, ref):
             rec = "flash_attention" if part == "o" else "flash_attention_bwd"
             errs[rec] = max(errs[rec], compare(
-                f"{name} {part} (mma)", g, r, *ATTN_TOL["bfloat16"]))
+                f"{name} {part} ({'mma' if part == 'o' else bwd})", g, r,
+                *ATTN_TOL["bfloat16"]))
 
     log("[kernels] every kernel at the main paths' shapes, from their "
         "configs")
     for arch, spec in PATHS.items():
         cfg, s = get_config(arch), spec["prompt_len"]
-        for n, k in linear_shapes(cfg):
-            gemm(f"{arch} prefill", "tatp_matmul", BATCH * s, n, k)
-        for hq, hkv, d, window, cap in attention_shapes(cfg):
-            flash(f"{arch} prefill", BATCH, s, hq, hkv, d, window, cap,
-                  False)
-    m = M_TRAIN
-    for arch, _ in TRAIN_RUNS:
+        b = spec.get("batch", BATCH)
+        for (m, n, k) in linear_shapes(cfg, b * s, b * cfg.frontend_tokens):
+            gemm(f"{arch} prefill", "tatp_matmul", m, n, k)
+        for shape in attention_shapes(cfg, s, cfg.frontend_tokens):
+            flash(f"{arch} prefill", b, *shape, False)
+    b, s = TRAIN["batch"], TRAIN["seq"]
+    for arch in [a for a, _ in TRAIN_RUNS] + list(TRAIN_SHAPES_ONLY):
         cfg = get_config(arch)
-        for n, k in linear_shapes(cfg):
+        for (m, n, k) in linear_shapes(cfg, b * s, b * cfg.frontend_tokens):
             gemm(f"{arch} train fwd", "tatp_matmul", m, n, k)
             gemm(f"{arch} train dgrad", "tatp_matmul_dgrad", m, k, n,
                  tb=True)
@@ -1282,6 +1469,7 @@ def phase_path_shapes(torch, randn):
         # the head: x [M, D] @ w [D, Vp] -> fp32; its cotangent's three
         # bf16 terms stacked [3M, Vp] @ w.T -> fp32; [x; x; x].T @ them ->
         # bf16.  A tied head's w is the embedding [Vp, D] transposed.
+        m = b * s
         d, vp, tied = cfg.d_model, padded_vocab(cfg), cfg.tie_embeddings
         gemm(f"{arch} lm head fwd", "tatp_matmul", m, d, vp, tb=tied,
              odt=f32)
@@ -1289,9 +1477,8 @@ def phase_path_shapes(torch, randn):
              tb=not tied, odt=f32)
         gemm(f"{arch} lm head wgrad", "tatp_matmul_wgrad", d, 3 * m, vp,
              ta=True, odt=bf)
-        for hq, hkv, hd, window, cap in attention_shapes(cfg):
-            flash(f"{arch} train", TRAIN["batch"], TRAIN["seq"], hq, hkv,
-                  hd, window, cap, True)
+        for shape in attention_shapes(cfg, s, cfg.frontend_tokens):
+            flash(f"{arch} train", b, *shape, True)
     log(f"  {len(seen)} shapes; max_abs_err by record: {json.dumps(errs)}")
     return errs
 
@@ -1333,15 +1520,30 @@ def zero_launches():
                 getattr(fn, attr)[key] = 0
 
 
+def model_blocks(cfg):
+    """The model's blocks in call order as (part, layer kind): an
+    encoder-decoder's encoder blocks (``enc``, ``G``: bidirectional
+    attention + MLP), then every decoder slot (``dec``) followed, in an
+    encoder-decoder, by a cross-attention block after each ``G`` slot
+    (``cross``, ``X``)."""
+    out = [("enc", "G")] * cfg.n_enc_layers
+    for kind in cfg.pattern_for_layers():
+        out.append(("dec", kind))
+        if cfg.n_enc_layers and kind == "G":
+            out.append(("cross", "X"))
+    return out
+
+
 def slot_linears(cfg, kind):
-    """The GEMM-kernel linears of one layer slot: a Mamba-2 slot's in_proj
-    and out_proj; an attention slot's four attention linears and its MLP's
-    (three gated, two not), or none for a MoE FFN (torch products, as the
-    reference's einsums)."""
+    """The GEMM-kernel linears of one block: a Mamba-2 slot's in_proj and
+    out_proj; a cross-attention block's four attention linears; an
+    attention slot's four attention linears and its MLP's (three gated,
+    two not), or none for a MoE FFN (torch products, as the reference's
+    einsums)."""
     from repro_torch.models.common import is_gated
     if kind == "M":
         return 2
-    if cfg.is_moe and kind != "S":
+    if kind == "X" or (cfg.is_moe and kind != "S"):
         return 4
     return 4 + (3 if is_gated(cfg.act) else 2)
 
@@ -1352,45 +1554,83 @@ GEMM_LEAVES = ("wq", "wk", "wv", "wo", "w_up", "w_gate", "w_down", "in_proj",
                "out_proj")
 
 
-def linear_shapes(cfg):
-    """``{(N, K): launches per prefill}`` of the linears on the GEMM kernel,
-    from the config's parameter shapes: every attention slot's wq wk wv wo
-    and its MLP's (none for a MoE FFN), every Mamba-2 slot's in_proj and
-    out_proj.  They sum to :func:`prefill_launches`' GEMM count."""
+def linear_shapes(cfg, tokens, frames=0):
+    """``{(M, N, K): launches per prefill}`` of the linears on the GEMM
+    kernel, from the config's parameter shapes, with ``tokens`` (batch x
+    sequence) rows and ``frames`` (batch x encoder frames) rows for the
+    encoder's linears and the cross blocks' wk and wv: every attention
+    slot's wq wk wv wo and its MLP's (none for a MoE FFN), every Mamba-2
+    slot's in_proj and out_proj.  They sum to :func:`prefill_launches`'
+    GEMM count."""
     from repro_torch.models.transformer import _block_shapes
     out = {}
-    for kind in cfg.pattern_for_layers():
+    for part, kind in model_blocks(cfg):
         for name, shape in _block_shapes(cfg, kind).items():
-            if name.split(".")[-1] in GEMM_LEAVES and len(shape) == 2:
-                out[shape] = out.get(shape, 0) + 1
+            leaf = name.split(".")[-1]
+            if leaf in GEMM_LEAVES and len(shape) == 2:
+                m = frames if part == "enc" or (
+                    part == "cross" and leaf in ("wk", "wv")) else tokens
+                out[(m, *shape)] = out.get((m, *shape), 0) + 1
     need(sum(out.values()) == prefill_launches(cfg)["tatp_matmul"],
          f"{cfg.name}: linear shapes {out} miss a GEMM of the prefill")
     return out
 
 
-def attention_shapes(cfg):
-    """The flash calls' ``(Hq, Hkv, D, window, cap)`` over the attention
-    slots (``models/transformer.py:attn_block``)."""
-    return sorted({(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-                    cfg.sliding_window if kind == "L" else None,
-                    cfg.attn_softcap)
-                   for kind in cfg.pattern_for_layers() if kind != "M"},
-                  key=str)
+def attention_shapes(cfg, seq, frames=0):
+    """The flash calls' ``(Hq, Hkv, D, Sq, Skv, causal, window, cap)``
+    over the attention blocks (``models/transformer.py:attn_block``) at a
+    decoder sequence ``seq`` and ``frames`` encoder frames: the encoder's
+    bidirectional self-attention, each decoder slot's causal
+    self-attention (an ``L`` slot's windowed) and the cross blocks'
+    unmasked attention of the decoder's queries to the frames."""
+    out = set()
+    for part, kind in model_blocks(cfg):
+        if kind == "M":
+            continue
+        sq, skv = (frames, frames) if part == "enc" else (
+            (seq, frames) if part == "cross" else (seq, seq))
+        out.add((cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, sq, skv,
+                 part == "dec", cfg.sliding_window if kind == "L" else None,
+                 cfg.attn_softcap))
+    return sorted(out, key=str)
+
+
+def attn_pairs(sq, skv, causal, window):
+    """The (query, key) pairs one head attends under the flash kernel's
+    masks (top-left causal, ``q - k < window``)."""
+    n = 0
+    for q in range(sq):
+        hi = min(skv - 1, q) if causal else skv - 1
+        lo = max(0, q - window + 1) if window else 0
+        n += max(0, hi - lo + 1)
+    return n
 
 
 def prefill_launches(cfg):
-    """Kernel launches of one prefill: per attention slot (G, L or S) its
-    linears (:func:`slot_linears`) and one flash; per Mamba-2 slot
-    in_proj, out_proj and one SSD pass."""
+    """Kernel launches of one prefill: per attention block (encoder, G, L,
+    S or cross) its linears (:func:`slot_linears`) and one flash; per
+    Mamba-2 slot in_proj, out_proj and one SSD pass."""
     n = {"tatp_matmul": 0, "flash_attention": 0, "ssd": 0,
          "flash_attention_bwd": 0, "ssd_bwd": 0}
-    for kind in cfg.pattern_for_layers():
+    for _, kind in model_blocks(cfg):
         n["tatp_matmul"] += slot_linears(cfg, kind)
         if kind == "M":
             n["ssd"] += 1
         else:
             n["flash_attention"] += 1
     return n
+
+
+def main_path_kernels(cfg):
+    """The kernel path every bf16 launch of ``cfg``'s main paths must take:
+    the GEMM on ``wgmma`` (every width here is a multiple of 8, so TMA
+    describes each operand), flash forward on ``mma``, and flash backward
+    on ``mma`` at D <= 128, else on the CUDA cores (``simt``)."""
+    from repro_torch.kernels.flash_attention.ops import MAX_MMA_BWD_HEAD_DIM
+    out = dict(MAIN_PATH_KERNEL)
+    if cfg.head_dim > MAX_MMA_BWD_HEAD_DIM:
+        out["flash_attention_bwd"] = "simt"
+    return out
 
 
 def serve_bundle(torch, cfg, **hooks):
@@ -1402,9 +1642,14 @@ def serve_bundle(torch, cfg, **hooks):
 
 
 # (arch, layers, batch, prompt) of the fp32 parity runs; the SSM prompts
-# are two 256-token chunks, so the inter-chunk recurrence runs
+# are two 256-token chunks, so the inter-chunk recurrence runs; gemma2-9b's
+# two layers are L then G, its prompt past the 4096 window; internvl2-1b's
+# prompt holds its 256 prefix positions; seamless-m4t-large-v2 has 2
+# encoder and 2 decoder layers over its 1024 stub frames
 PARITY = (("deepseek-7b", 2, 2, 128), ("mamba2-780m", 2, 2, 512),
-          ("zamba2-2.7b", 6, 2, 512), ("olmoe-1b-7b", 2, 2, 128))
+          ("zamba2-2.7b", 6, 2, 512), ("olmoe-1b-7b", 2, 2, 128),
+          ("gemma2-9b", 2, 1, 4608), ("internvl2-1b", 2, 2, 512),
+          ("seamless-m4t-large-v2", 2, 2, 128))
 # a routing choice whose k-th and (k+1)-th expert probabilities lie closer
 # than this is a near-tie: fp32 rounding (~1e-6 between the kernel and
 # plain paths) may flip it
@@ -1446,21 +1691,30 @@ def check_routing(what, got, want):
     return flips
 
 
-def phase_parity(torch, arch, n_layers, b, s, steps=4):
-    """Full width, ``n_layers`` layers, fp32: kernels vs plain versions."""
+def parity_config(arch, n_layers):
+    """``arch`` at full width in fp32 with ``n_layers`` layers (and as
+    many encoder layers, for an encoder-decoder)."""
     from dataclasses import replace
 
-    import numpy as np
-
     from repro_torch.configs import get_config
+    cfg = replace(get_config(arch), n_layers=n_layers, dtype="float32")
+    if cfg.n_enc_layers:
+        cfg = replace(cfg, n_enc_layers=n_layers)
+    return cfg
+
+
+def phase_parity(torch, arch, n_layers, b, s, steps=4):
+    """Full width, ``n_layers`` layers, fp32: kernels vs plain versions, on
+    the serve driver's prompts and stub embeddings (``prompt_batch``)."""
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.tatp_matmul.ref import matmul_ref
+    from repro_torch.launch.serve import prompt_batch
     from repro_torch.models import lm
     from repro_torch.models.ssm import ssd_chunked
     from repro_torch.models.transformer import init_params
 
     dev = torch.device("cuda")
-    cfg = replace(get_config(arch), n_layers=n_layers, dtype="float32")
+    cfg = parity_config(arch, n_layers)
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(1),
                          dev)
     routes = ([], [])
@@ -1468,13 +1722,12 @@ def phase_parity(torch, arch, n_layers, b, s, steps=4):
     plain = serve_bundle(torch, cfg, dot=matmul_ref,
                          attention=attention_ref, ssd=ssd_chunked,
                          routing=routes[1])
-    rng = np.random.RandomState(1)
-    toks = torch.as_tensor(rng.randint(0, cfg.vocab_size, (b, s)),
-                           device=dev)
+    batch = {name: torch.as_tensor(a, device=dev)
+             for name, a in prompt_batch(cfg, b, s).items()}
     runs = []
     for sb in (kern, plain):
         zero_launches()
-        caches, logits = sb.prefill_fn(params, {"tokens": toks})
+        caches, logits = sb.prefill_fn(params, batch)
         torch.cuda.synchronize()
         launched = read_launches()
         for name, by_path in read_paths().items():
@@ -1551,22 +1804,26 @@ def expert_products(torch, cfg):
 def phase_main_path(torch, arch):
     """One-shot serve of ``arch`` (all layers, bf16) through the entry
     point a user calls; the launch counts cover exactly this run."""
-    import numpy as np
+    from dataclasses import replace
 
     from repro_torch.configs import get_config
-    from repro_torch.launch.serve import serve
+    from repro_torch.launch.serve import prompt_batch, serve
     from repro_torch.models import lm
     from repro_torch.models.transformer import init_params, padded_vocab
 
     dev = torch.device("cuda")
     spec = PATHS[arch]
-    cfg = get_config(arch)
-    need(cfg.n_layers == spec["n_layers"],
-         f"{arch} is not {spec['n_layers']} layers")
+    full = get_config(arch)
+    need(full.n_layers >= spec["n_layers"],
+         f"{arch} has {full.n_layers} layers, not {spec['n_layers']}")
+    cut = spec["n_layers"] if spec["n_layers"] < full.n_layers else None
+    cfg = replace(full, n_layers=spec["n_layers"])
     need(prefill_launches(cfg) == spec["launches"],
          f"{arch}: layer pattern gives {prefill_launches(cfg)}")
-    run = dict(batch=BATCH, prompt_len=spec["prompt_len"], gen=GEN)
-    args = Namespace(arch=arch, reduced=False, device="cuda", **run)
+    bsz = spec.get("batch", BATCH)
+    run = dict(batch=bsz, prompt_len=spec["prompt_len"], gen=GEN)
+    args = Namespace(arch=arch, reduced=False, device="cuda", layers=cut,
+                     **run)
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                          dev)
@@ -1586,11 +1843,11 @@ def phase_main_path(torch, arch):
     need(launches == spec["launches"],
          f"{arch}: launches {launches} != {spec['launches']}")
     # every GEMM on wgmma + TMA, every flash on the tensor cores
-    for name, path in MAIN_PATH_KERNEL.items():
+    for name, path in main_path_kernels(cfg).items():
         need(paths[name][path] == launches[name],
              f"{arch}: {name} launches by path {paths[name]}, want all "
              f"{launches[name]} on {path}")
-    need(res["generated_shape"] == [BATCH, GEN + 1],
+    need(res["generated_shape"] == [bsz, GEN + 1],
          f"generated shape {res['generated_shape']}")
     need(all(0 <= t < cfg.vocab_size for t in res["sample"]),
          f"token out of range in {res['sample']}")
@@ -1599,9 +1856,8 @@ def phase_main_path(torch, arch):
 
     # prefill time and output check, after the counted run
     sb = serve_bundle(torch, cfg)
-    prompts = np.random.RandomState(0).randint(
-        0, cfg.vocab_size, (BATCH, run["prompt_len"]))
-    batch = {"tokens": torch.as_tensor(prompts, device=dev)}
+    batch = {name: torch.as_tensor(a, device=dev) for name, a in
+             prompt_batch(cfg, bsz, run["prompt_len"]).items()}
     times = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -1609,7 +1865,7 @@ def phase_main_path(torch, arch):
         caches, logits = sb.prefill_fn(params, batch)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    need(tuple(logits.shape) == (BATCH, 1, padded_vocab(cfg))
+    need(tuple(logits.shape) == (bsz, 1, padded_vocab(cfg))
          and logits.dtype == torch.float32, f"logits {logits.shape}")
     need(bool(logits.isfinite().all()), "non-finite prefill logits")
     need(all(bool(t.isfinite().all()) for c in caches.values()
@@ -1621,13 +1877,13 @@ def phase_main_path(torch, arch):
     # them (token to the host after each step)
     steps = 4
     big = lm.graft_cache_slots(
-        lm.init_cache(sb.ctx, BATCH, run["prompt_len"] + steps),
-        caches, slots=range(BATCH))
+        lm.init_cache(sb.ctx, bsz, run["prompt_len"] + steps),
+        caches, slots=range(bsz))
     state = [logits[:, -1:].argmax(-1) % cfg.vocab_size, big]
 
     def decode_steps():
         for i in range(steps):
-            cl = torch.full((BATCH,), run["prompt_len"] + i + 1,
+            cl = torch.full((bsz,), run["prompt_len"] + i + 1,
                             device=dev)
             tok, _, state[1] = sb.decode_fn(params, state[0], state[1], cl)
             state[0] = tok
@@ -1638,44 +1894,54 @@ def phase_main_path(torch, arch):
                 decode_4_steps=profile_window(torch, decode_steps))
     need(all(bool(t.isfinite().all()) for c in state[1].values()
              for t in c.values()), "non-finite cache after decode")
-    out = dict(serve=res, launches=launches, launches_by_path=paths,
+    out = dict(serve=res, layers=cfg.n_layers,
+               depth_cut=f"{full.n_layers} -> {cfg.n_layers} layers"
+               if cut else "none", launches=launches, launches_by_path=paths,
                prefill_ms=sorted(times)[1], prefill_ms_runs=times,
                peak_mem_gb=peak / 1e9, init_s=init_s, serve_wall_s=wall_s,
                profile=prof)
     if cfg.is_moe:
         out["expert_products"] = expert_products(torch, cfg)
-    log(f"[main path] {arch} {cfg.n_layers} layers bf16 batch {BATCH} "
+    log(f"[main path] {arch} {cfg.n_layers} layers bf16 batch {bsz} "
         f"prompt {run['prompt_len']} gen {GEN}: {json.dumps(out)}")
     del params, caches, state, big
-    torch.cuda.empty_cache()
+    release(torch)
     return launches, paths
 
 
 def train_launches(cfg, remat, saved=False):
     """Kernel launches of one train step: per layer its linears' forward
     (again in the backward under remat), dgrad and wgrad; per attention
-    slot (G, L or S: the four attention linears and the MLP's, three
-    gated or two) one flash forward (again under remat) and one flash
-    backward; per Mamba-2 slot (in_proj, out_proj) one SSD forward (again
-    under remat) and one SSD backward; the lm head's forward, dgrad and
-    wgrad once (with tied embeddings its forward reads the embedding
-    transposed and its dgrad reads it row-major, so the layout counts are
-    the same).  A MoE slot's linears are its four attention linears
-    (:func:`slot_linears`).  With ``saved`` (the ``tatp_outputs`` remat
-    policy) the recompute runs no linear and no flash forward.  Returns
-    (launches by kernel, GEMM launches by layout pair)."""
+    block (G, L, S, an encoder's or a cross block: the four attention
+    linears and the MLP's, three gated or two; a cross block's four) one
+    flash forward (again under remat) and one flash backward; per Mamba-2
+    slot (in_proj, out_proj) one SSD forward (again under remat) and one
+    SSD backward; the lm head's forward, dgrad and wgrad once (with tied
+    embeddings its forward reads the embedding transposed and its dgrad
+    reads it row-major, so the layout counts are the same).  A MoE slot's
+    linears are its four attention linears (:func:`slot_linears`).  With
+    ``saved`` (the ``tatp_outputs`` remat policy) the decoder's recompute
+    runs no linear and no flash forward; an encoder is recomputed in full
+    under either policy.  Returns (launches by kernel, GEMM launches by
+    layout pair)."""
     per = 2 if remat else 1
-    linears = attn = mamba = 0
-    for kind in cfg.pattern_for_layers():
-        linears += slot_linears(cfg, kind)
+    dec = 1 if saved else per
+    lin = {"enc": 0, "dec": 0}
+    attn = {"enc": 0, "dec": 0}
+    mamba = 0
+    for part, kind in model_blocks(cfg):
+        side = "enc" if part == "enc" else "dec"
+        lin[side] += slot_linears(cfg, kind)
         if kind == "M":
             mamba += 1
         else:
-            attn += 1
-    fwd = (1 if saved else per) * linears + 1
+            attn[side] += 1
+    linears = lin["enc"] + lin["dec"]
+    fwd = dec * lin["dec"] + per * lin["enc"] + 1
     n = {"tatp_matmul": fwd + 2 * (linears + 1),
-         "flash_attention": (1 if saved else per) * attn,
-         "ssd": per * mamba, "flash_attention_bwd": attn, "ssd_bwd": mamba}
+         "flash_attention": dec * attn["dec"] + per * attn["enc"],
+         "ssd": per * mamba, "flash_attention_bwd": attn["enc"] + attn["dec"],
+         "ssd_bwd": mamba}
     return n, {"fwd": fwd, "dgrad": linears + 1, "wgrad": linears + 1,
                "both": 0}
 
@@ -1705,10 +1971,14 @@ def named_grads(bundle, params, batch):
 # the fp32 train parity runs at full width, 2 steps each: (arch, layers,
 # batch, seq).  The SSM runs take two 256-token chunks a row, so the
 # inter-chunk recurrence's gradient runs; zamba2's 6 layers are one
-# MMMMMS unit.  Each gradient leaf within GRAD_REL_TOL relative L2 error
-# of the plain path's.
+# MMMMMS unit; gemma2-9b's L and G layers run past the 4096 window;
+# internvl2-1b's rows hold its 256 prefix positions; seamless-m4t-large-v2
+# has 2 encoder layers over 1024 frames a row and 2 decoder layers.  Each
+# gradient leaf within GRAD_REL_TOL relative L2 error of the plain path's.
 TRAIN_PARITY = (("deepseek-7b", 2, 2, 256), ("mamba2-780m", 2, 2, 512),
-                ("zamba2-2.7b", 6, 2, 512), ("olmoe-1b-7b", 2, 2, 256))
+                ("zamba2-2.7b", 6, 2, 512), ("olmoe-1b-7b", 2, 2, 256),
+                ("gemma2-9b", 2, 1, 4608), ("internvl2-1b", 2, 2, 512),
+                ("seamless-m4t-large-v2", 2, 2, 256))
 TRAIN_PARITY_STEPS = 2
 GRAD_REL_TOL = 1e-4
 
@@ -1723,9 +1993,6 @@ def phase_train_parity(torch, arch, n_layers, batch, seq):
     leaf (relative L2 error), and the parameters after 2 AdamW steps
     (atol = 2 * sum(lr_t): Adam's first steps are ~lr * sign(g), so where
     g ~ 0 two right answers differ by up to 2 lr_t)."""
-    from dataclasses import replace
-
-    from repro_torch.configs import get_config
     from repro_torch.configs.base import ParallelConfig, ShapeConfig
     from repro_torch.core.dist import Dist
     from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -1737,7 +2004,7 @@ def phase_train_parity(torch, arch, n_layers, batch, seq):
     from repro_torch.train.train_loop import make_train_step
 
     dev = torch.device("cuda")
-    cfg = replace(get_config(arch), n_layers=n_layers, dtype="float32")
+    cfg = parity_config(arch, n_layers)
     par = ParallelConfig(strategy="tatp", remat=True)
     dist = Dist(dev)
     shape = ShapeConfig("parity", "train", seq, batch)
@@ -1814,42 +2081,57 @@ def phase_train_parity(torch, arch, n_layers, batch, seq):
                 param_max_abs_err=worst, param_atol=atol)
 
 
-def mfu(step_s, n_tokens, cfg, seq):
-    """Model FLOPs utilisation at the card's bf16 peak: 6 * tokens * the
-    parameters of every product (each slot's linears, zamba2's shared
-    block once per use, and the lm head; the embedding is a lookup), plus
-    attention's products over the causal pairs in each attention slot
-    (forward 4 * pairs * D a head, backward twice that), plus the SSD's
-    intra-chunk products in each Mamba-2 slot (forward as ``ssd_bound``
-    and backward as ``ssd_bwd_work`` count them; the inter-chunk
-    recurrence is not counted).  A MoE slot counts its active parameters:
-    the attention linears, the router and the ``top_k`` experts each token
-    runs (capacity padding and dropped tokens are not model work).
-    Remat's recompute is not model work.  Returns (MFU, model flops,
-    product parameters)."""
+def mfu(step_s, cfg, batch, seq):
+    """Model FLOPs utilisation at the card's bf16 peak: 6 * rows * the
+    parameters of every product (each slot's linears over the tokens,
+    zamba2's shared block once per use, an encoder's linears over its
+    frames, a cross block's wq and wo over the tokens and wk and wv over
+    the frames, and the lm head; the embedding is a lookup), plus
+    attention's products over the pairs each head attends (forward
+    4 * pairs * D, backward twice that: causal pairs in a decoder slot,
+    limited to the window in an ``L`` slot, all S^2 pairs in the encoder,
+    Sq x Skv in a cross block), plus the SSD's intra-chunk products in
+    each Mamba-2 slot (forward as ``ssd_bound`` and backward as
+    ``ssd_bwd_work`` count them; the inter-chunk recurrence is not
+    counted).  A MoE slot counts its active parameters: the attention
+    linears, the router and the ``top_k`` experts each token runs
+    (capacity padding and dropped tokens are not model work).  Remat's
+    recompute is not model work.  Returns (MFU, model flops, product
+    parameters)."""
     from repro_torch.models.common import is_gated
     from repro_torch.models.transformer import padded_vocab
-    d = cfg.d_model
-    b = n_tokens // seq
-    pairs = b * seq * (seq + 1) // 2
-    attn = d * cfg.q_dim + 2 * d * cfg.kv_dim + cfg.q_dim * d
+    d, frames = cfg.d_model, cfg.frontend_tokens if cfg.n_enc_layers else 0
+    tok, frm = batch * seq, batch * frames
+    qo, kv = 2 * d * cfg.q_dim, 2 * d * cfg.kv_dim
     ffn = (3 if is_gated(cfg.act) else 2) * d * cfg.d_ff
-    attn_slot = attn + ffn
-    moe_slot = attn + d * cfg.n_experts + cfg.top_k * ffn
+    moe_slot = qo + kv + d * cfg.n_experts + cfg.top_k * ffn
     mamba_slot = (d * (2 * cfg.d_inner + 2 * cfg.ssm_state + cfg.ssm_heads)
                   + cfg.d_inner * d)
-    n_params, extra = d * padded_vocab(cfg), 0
-    for kind in cfg.pattern_for_layers():
+    head = d * padded_vocab(cfg)
+    n_params, flops, extra = head, 6 * tok * head, 0
+    per_head = 3 * 4 * batch * cfg.head_dim * cfg.n_heads
+    for part, kind in model_blocks(cfg):
         if kind == "M":
             n_params += mamba_slot
-            ssd = (b * seq // cfg.ssm_chunk, cfg.ssm_chunk, cfg.ssm_heads,
+            flops += 6 * tok * mamba_slot
+            ssd = (tok // cfg.ssm_chunk, cfg.ssm_chunk, cfg.ssm_heads,
                    cfg.ssm_head_dim, cfg.ssm_state)
             extra += ssd_bound(*ssd)[2] + ssd_bwd_work(*ssd)[0]
+        elif part == "enc":
+            n_params += qo + kv + ffn
+            flops += 6 * frm * (qo + kv + ffn)
+            extra += per_head * attn_pairs(frames, frames, False, None)
+        elif part == "cross":
+            n_params += qo + kv
+            flops += 6 * (tok * qo + frm * kv)
+            extra += per_head * attn_pairs(seq, frames, False, None)
         else:
-            n_params += moe_slot if cfg.is_moe and kind != "S" \
-                else attn_slot
-            extra += 3 * 4 * pairs * cfg.head_dim * cfg.n_heads
-    flops = 6 * n_tokens * n_params + extra
+            slot = moe_slot if cfg.is_moe and kind != "S" else qo + kv + ffn
+            n_params += slot
+            flops += 6 * tok * slot
+            window = cfg.sliding_window if kind == "L" else None
+            extra += per_head * attn_pairs(seq, seq, True, window)
+    flops += extra
     return flops / step_s / PEAK_FLOPS["bfloat16"], flops, n_params
 
 
@@ -1910,7 +2192,7 @@ def phase_train_main(torch, arch, n_layers):
              f"want {want}")
         need(lay == want_layouts, f"train step {step}: GEMM layouts {lay}, "
              f"want {want_layouts}")
-        for name, path in MAIN_PATH_KERNEL.items():
+        for name, path in main_path_kernels(cfg).items():
             need(paths[name][path] == launched[name],
                  f"train: {name} launches by path {paths[name]}, want all "
                  f"on {path}")
@@ -1973,7 +2255,8 @@ def phase_train_main(torch, arch, n_layers):
 
     prof = profile_window(torch, one_step, top=16)
     n_tok = TRAIN["batch"] * TRAIN["seq"]
-    util, flops, n_params = mfu(steady / 1e3, n_tok, cfg, TRAIN["seq"])
+    util, flops, n_params = mfu(steady / 1e3, cfg, TRAIN["batch"],
+                                TRAIN["seq"])
     out = dict(
         layers=cfg.n_layers, published_layers=full.n_layers,
         depth_cut=f"{full.n_layers} -> {cfg.n_layers} layers"
@@ -2181,8 +2464,17 @@ def main() -> int:
     randn = make_randn(torch, 1)
     kernels += phase_gemm_layouts(torch, randn)
     kernels.append(phase_flash_backward(torch, randn))
+    fwd_rows, bwd_row = phase_flash_arch_rows(torch, randn)
     path_errs = phase_path_shapes(torch, randn)
     for k in kernels:
+        if k["name"] == "flash_attention":
+            k["arch_shapes"] = fwd_rows
+            k["max_abs_err"] = max([k["max_abs_err"]] + [
+                r["max_abs_err"] for r in fwd_rows])
+        if k["name"] == "flash_attention_bwd":
+            k["arch_shapes"] = [bwd_row]
+            k["path"] = "mma at D <= 128, simt at D 256"
+            k["max_abs_err"] = max(k["max_abs_err"], bwd_row["max_abs_err"])
         if k["name"] in path_errs:
             k["max_abs_err"] = max(k["max_abs_err"], path_errs[k["name"]])
     kernels.append(phase_ssd_backward(torch, randn))

@@ -9,15 +9,16 @@ Architectures: every one the config registry lists (``--arch``); for the
 SSM models (``mamba2-780m``, ``zamba2-2.7b``) ``--prompt-len`` must be a
 multiple of ``ssm_chunk`` (256, or 8 with ``--reduced``).  ``internvl2-1b``
 takes stub image embeddings for its first ``frontend_tokens`` (256)
-positions, so its prompt should be longer than that; ``seamless-m4t-large-
-v2`` takes stub speech frames (1024) for its encoder.  It runs on the GPU
-unless ``--device cpu`` is given; with no GPU it raises.  Prompts and the
+positions, so its prompt should be longer than that; the encoder of
+``seamless-m4t-large-v2`` reads stub speech frames (1024).  It runs on the
+GPU unless ``--device cpu`` is given; with no GPU it raises.  Prompts and the
 stub embeddings come from ``numpy.random.RandomState(0)`` as in the
 reference, so both packages serve the same inputs; weights are random
 (seed 0, as the reference's ``jax.random.key(0)``) unless the caller
-passes ``params``.  The printed
-JSON has the reference's keys.  Engine mode (``--serve``, plan-driven
-continuous batching) is ROADMAP.md item A1.
+passes ``params``.  The printed JSON has the reference's keys.
+``--layers N`` serves the model cut to its first N layers, widths
+unchanged, where the whole model does not fit one card.  Engine mode
+(``--serve``, plan-driven continuous batching) is ROADMAP.md item A1.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from __future__ import annotations
 import argparse
 import json
 import time
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -63,6 +65,8 @@ def serve(args, params=None) -> dict:
     on ``args.device`` (default: random weights from seed 0)."""
     device = resolve_device(args.device)
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    if getattr(args, "layers", None):  # a cut in depth only
+        cfg = replace(cfg, n_layers=args.layers)
     max_seq = args.prompt_len + args.gen
     par = ParallelConfig(strategy="tatp", remat=False)
     sb = make_serve_fns(cfg, par, Dist(device))
@@ -109,6 +113,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="serve only the first N layers (a cut in depth, "
+                         "widths unchanged: e.g. qwen2-72b's 80 layers "
+                         "of bf16 weights, ~145 GB, do not fit one card)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu only on request)")
     return ap

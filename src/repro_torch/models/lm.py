@@ -219,9 +219,7 @@ def _stack(ctx: RunCtx, params, x, caches=None, cache_len=None,
     policy = ctx.par.remat_policy
     if remat and policy not in ("full", "tatp_outputs"):
         raise ValueError(f"unknown remat_policy {policy!r}")
-    keys = [f"u{pos}" for pos in range(len(unit))]
-    new: dict[str, dict[str, list]] = {
-        key: {} for key in keys + (["cross"] if has_cross else [])}
+    new: dict[str, dict[str, list]] = {}
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def rep_cache(key, i):
@@ -233,7 +231,7 @@ def _stack(ctx: RunCtx, params, x, caches=None, cache_len=None,
         out = {}
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for pos, kind in enumerate(unit):
-            key = keys[pos]
+            key = f"u{pos}"
             if kind == "S":
                 p = shared
             else:
@@ -273,7 +271,7 @@ def _stack(ctx: RunCtx, params, x, caches=None, cache_len=None,
         if collect:
             for key, nc in out.items():
                 for n, t in nc.items():
-                    new[key].setdefault(n, []).append(t)
+                    new.setdefault(key, {}).setdefault(n, []).append(t)
     if collect:
         return x, aux, {key: {n: torch.stack(ts) for n, ts in leaves.items()}
                         for key, leaves in new.items()}
@@ -344,7 +342,7 @@ def init_cache(ctx: RunCtx, batch_local: int, max_seq: int,
     for pos, kind in enumerate(unit):
         if kind in ("G", "L", "S"):
             leaves = kv(max_seq)
-        else:
+        elif kind == "M":
             conv_dim = cfg.d_inner + 2 * cfg.ssm_state
             leaves = {
                 "state": torch.zeros(
@@ -354,6 +352,8 @@ def init_cache(ctx: RunCtx, batch_local: int, max_seq: int,
                 "conv": torch.zeros((reps, batch_local, CONV_K - 1,
                                      conv_dim), **kw),
             }
+        else:
+            raise ValueError(f"layer kind {kind!r}")
         caches[f"u{pos}"] = leaves
     if cfg.n_enc_layers:
         caches["cross"] = kv(enc_len or cfg.frontend_tokens)
