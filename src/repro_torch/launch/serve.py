@@ -36,7 +36,7 @@ from repro_torch.configs.base import ParallelConfig
 from repro_torch.core.dist import Dist, resolve_device
 from repro_torch.models import lm
 from repro_torch.models.transformer import init_params
-from repro_torch.train.data import stub_embeds
+from repro_torch.train.data import stub_inputs
 from repro_torch.train.train_loop import make_serve_fns
 
 
@@ -45,18 +45,14 @@ def _sync(device: torch.device):
         torch.cuda.synchronize(device)
 
 
-def prompt_batch(cfg, batch: int, prompt_len: int) -> dict:
+def prompt_batch(cfg, batch: int, prompt_len: int, seed: int = 0) -> dict:
     """The prefill batch as the reference's serve draws it from
-    ``RandomState(0)``: the prompts, then a vision-prefixed model's
-    ``prefix_embeds`` or an encoder-decoder's ``enc_embeds`` (numpy; the
-    embeddings fp32)."""
-    rng = np.random.RandomState(0)
+    ``RandomState(seed)`` (0 there): the prompts, then the stub frontend
+    inputs the config takes (:func:`stub_inputs`; numpy, the embeddings
+    fp32)."""
+    rng = np.random.RandomState(seed)
     out = {"tokens": rng.randint(0, cfg.vocab_size, (batch, prompt_len))}
-    emb = (batch, cfg.frontend_tokens, cfg.d_model)
-    if cfg.frontend and cfg.family != "encdec":
-        out["prefix_embeds"] = stub_embeds(rng, emb, cfg.dtype)
-    if cfg.n_enc_layers:
-        out["enc_embeds"] = stub_embeds(rng, emb, cfg.dtype)
+    out.update(stub_inputs(cfg, batch, lambda name: rng))
     return out
 
 
@@ -81,8 +77,7 @@ def serve(args, params=None) -> dict:
     # prefill produces prompt-length caches; graft them into the max_seq
     # decode layout (every slot at once)
     caches, logits = sb.prefill_fn(params, batch)
-    big = lm.init_cache(sb.ctx, args.batch, max_seq,
-                        enc_len=cfg.frontend_tokens or None)
+    big = lm.init_cache(sb.ctx, args.batch, max_seq)
     caches = lm.graft_cache_slots(big, caches, slots=range(args.batch))
 
     # the first token: argmax over the padded vocab, padded columns

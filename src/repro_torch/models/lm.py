@@ -38,14 +38,14 @@ from repro_torch.models.transformer import (CONV_K, RunCtx, _unit_and_reps,
                                             mlp_block, moe_block)
 
 
-def embed_tokens(ctx: RunCtx, embed, tokens, prefix_embeds=None,
-                 pos_offset=0):
+def embed_tokens(ctx: RunCtx, embed, tokens, prefix_embeds=None):
     """tokens: [B, s]; embed: [Vp, D] (the whole vocab at r = 1).
 
     With a modality frontend (``cfg.frontend_tokens``) and
-    ``prefix_embeds`` [B, frontend_tokens, D], the positions
-    ``pos_offset + arange(s)`` below ``frontend_tokens`` take the
-    precomputed embeddings instead, after the embedding scale."""
+    ``prefix_embeds`` [B, frontend_tokens, D], the first
+    ``frontend_tokens`` positions take the precomputed embeddings instead,
+    after the embedding scale.  (The reference's ``pos_offset`` counts
+    positions from a decode step's offset, where no prefix is passed.)"""
     cfg = ctx.cfg
     if ctx.r != 1:
         raise not_ported("vocab-parallel embedding", "A3")
@@ -55,7 +55,7 @@ def embed_tokens(ctx: RunCtx, embed, tokens, prefix_embeds=None,
                              device=x.device)
     if prefix_embeds is not None and cfg.frontend_tokens:
         f = cfg.frontend_tokens
-        pos = pos_offset + torch.arange(tokens.shape[1], device=x.device)
+        pos = torch.arange(tokens.shape[1], device=x.device)
         pref = prefix_embeds[:, pos.clamp(0, f - 1)].to(x.dtype)
         x = torch.where((pos < f)[None, :, None], pref, x)
     return x

@@ -52,6 +52,21 @@ def stub_embeds(rng: np.random.RandomState, shape, dtype: str) -> np.ndarray:
     return x * np.float32(0.02)
 
 
+def stub_inputs(cfg: ModelConfig, batch: int, rng_of) -> dict:
+    """The stub frontend inputs ``cfg`` takes, by name, in the reference's
+    order: a vision-prefixed model's ``prefix_embeds`` and an
+    encoder-decoder's ``enc_embeds``, each ``[batch, frontend_tokens,
+    d_model]`` drawn by :func:`stub_embeds` from ``rng_of(name)``."""
+    names = []
+    if cfg.frontend and cfg.family != "encdec":
+        names.append("prefix_embeds")
+    if cfg.n_enc_layers:
+        names.append("enc_embeds")
+    shape = (batch, cfg.frontend_tokens, cfg.d_model)
+    return {name: stub_embeds(rng_of(name), shape, cfg.dtype)
+            for name in names}
+
+
 @dataclass
 class SyntheticDataset:
     cfg: ModelConfig
@@ -65,13 +80,9 @@ class SyntheticDataset:
         toks = _lcg_tokens(self.seed * 100_003 + step, b, s + 1,
                            cfg.vocab_size)
         out = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
-        emb = (b, cfg.frontend_tokens, cfg.d_model)
-        if cfg.frontend and cfg.family != "encdec":
-            out["prefix_embeds"] = stub_embeds(
-                np.random.RandomState(self.seed + step + 1), emb, cfg.dtype)
-        if cfg.n_enc_layers:
-            out["enc_embeds"] = stub_embeds(
-                np.random.RandomState(self.seed + step + 2), emb, cfg.dtype)
+        # the prefix from RandomState(seed + step + 1), the frames from + 2
+        out.update(stub_inputs(cfg, b, lambda name: np.random.RandomState(
+            self.seed + step + (1 if name == "prefix_embeds" else 2))))
         return out
 
     def batch(self, step: int) -> dict[str, torch.Tensor]:

@@ -234,8 +234,7 @@ def test_host_batch_at_full_width_matches_reference(arch):
 
 def test_prefix_replaces_scaled_embeddings():
     """internvl2's prefix takes the first frontend_tokens positions after
-    the embedding scale (here forced on), as the reference's; positions
-    count from pos_offset."""
+    the embedding scale (here forced on), as the reference's."""
     cfg = replace(get_reduced("internvl2-1b"), scale_embed=True)
     jcfg = replace(jax_reduced("internvl2-1b"), scale_embed=True)
     jctx, tctx = _ctxs(cfg, jcfg, "prefill")
@@ -243,15 +242,11 @@ def test_prefix_replaces_scaled_embeddings():
     embed = rng.randn(512, cfg.d_model).astype(np.float32)
     toks = rng.randint(0, cfg.vocab_size, (2, 7))
     pref = rng.randn(2, cfg.frontend_tokens, cfg.d_model).astype(np.float32)
-    for off in (0, 2, 6):
-        ref = jlm.embed_tokens(jctx, jnp.asarray(embed), jnp.asarray(toks),
-                               jnp.asarray(pref), pos_offset=off)
-        got = tlm.embed_tokens(tctx, torch.as_tensor(embed),
-                               torch.as_tensor(toks), torch.as_tensor(pref),
-                               pos_offset=off)
-        _close(got, ref, dict(rtol=0, atol=0), f"pos_offset {off}")
+    ref = jlm.embed_tokens(jctx, jnp.asarray(embed), jnp.asarray(toks),
+                           jnp.asarray(pref))
     got = tlm.embed_tokens(tctx, torch.as_tensor(embed),
                            torch.as_tensor(toks), torch.as_tensor(pref))
+    _close(got, ref, dict(rtol=0, atol=0), "prefix")
     np.testing.assert_array_equal(got[:, :4].numpy(), pref)
     np.testing.assert_array_equal(got[:, 4:].numpy(),
                                   embed[toks[:, 4:]] * cfg.d_model ** 0.5)
