@@ -57,9 +57,10 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    RMS in the reference where it is below 1 (an output averaged over
    thousands of keys is ~0.02).  Every soft-capped flash check scales q
    by twice the cap (``cap_scale``), so most scores lie beyond it and the
-   cap changes the result; at a model's cap the backward is held against
-   its plain version (``attention_bwd_ref``) on the kernel's own O and
-   LSE, and the backward's own cases take caps of 1 and 0.5;
+   cap changes the result; a capped backward, at a model's cap too, is
+   held against autograd through the plain version with ``atol`` scaled
+   by the gradient's RMS (the backward's own cases take caps of 1, 0.5
+   and 30);
 4. parity — at full width in fp32, deepseek-7b (2 layers), mamba2-780m
    (2 layers), zamba2-2.7b (6 layers, one ``MMMMMS`` unit), olmoe-1b-7b
    (2 layers), gemma2-9b (an ``L`` and a ``G`` layer, batch 1 x prompt
@@ -1135,12 +1136,11 @@ def lm_head_timing(torch, randn):
 
 
 # flash backward checks: (name, Hq, Hkv, Sq, Skv, causal, window, cap).
-# The caps are small, so with q scaled by ``cap_scale`` most scores lie
-# beyond them while the softmax stays spread.  At a model's cap (30-50)
-# scores that reach it make the softmax nearly one-hot; dS = P (dP -
-# rowsum(dO O)) then cancels, and the kernel's bf16 O and dS leave dQ and
-# dK far from autograd's fp32 values.  The model's cap is held in
-# phase_path_shapes against the backward's plain version on the same O.
+# With q scaled by ``cap_scale`` most scores lie beyond the cap.  At caps 1
+# and 0.5 the softmax stays spread; at cap 30 (a model's) it is nearly
+# one-hot, so dS = P (dP - rowsum(dO O)) cancels and only an fp32-accurate
+# delta keeps dQ and dK at autograd's fp32 values.  A capped case's
+# gradients take atol scaled by the gradient's RMS (``rms="tensor"``).
 ATTN_BWD_CASES = (
     ("causal", 4, 4, 100, 100, True, None, None),
     ("non-causal", 4, 4, 100, 100, False, None, None),
@@ -1150,6 +1150,7 @@ ATTN_BWD_CASES = (
     ("gqa8/2 window cap", 8, 2, 130, 130, True, 32, 0.5),
     ("rect100x160", 4, 2, 100, 160, False, 16, 1.0),
     ("masked rows 100x40", 4, 2, 100, 40, True, 16, None),
+    ("cap30 gqa4/2", 4, 2, 100, 100, True, None, 30.0),
 )
 # deepseek-7b's train attention at batch 4 x seq 512: [B, H, S, D]
 TRAIN_ATTN = (TRAIN["batch"], HEADS, TRAIN["seq"], HEAD_DIM)
@@ -1201,7 +1202,8 @@ def phase_flash_backward(torch, randn):
                 ref = flash_grads(torch, attention_ref, q, k, v, do, **kw)
                 for part, g, r in zip(("dq", "dk", "dv"), got[1:], ref[1:]):
                     err = compare(f"{str(dt)[6:]} D={d} {name} {part} "
-                                  f"({path})", g, r, *tol)
+                                  f"({path})", g, r, *tol,
+                                  rms="tensor" if cap else None)
                     if dt == torch.bfloat16 and path == "mma":
                         max_err = max(max_err, err)
 
@@ -1430,18 +1432,16 @@ def phase_path_shapes(torch, randn):
     (``mma`` at D <= 128, ``simt`` above) at every train shape, in the
     model's ``[B, S, H, D]`` layout viewed as ``[B, H, S, D]``.  A
     soft-capped shape scales q so most scores lie beyond the cap
-    (:func:`cap_scale`), and holds its backward against attention_bwd_ref
-    on the kernel's own O and LSE.  Flash outputs take ``atol`` scaled
-    by each row's RMS below 1, a soft-capped shape's gradients by the
-    tensor's (:func:`compare`).  A shape two paths share is checked once.
+    (:func:`cap_scale`), so its softmax is nearly one-hot and its
+    backward needs an fp32-accurate delta.  Flash outputs take ``atol``
+    scaled by each row's RMS below 1, a soft-capped shape's gradients by
+    the tensor's (:func:`compare`).  A shape two paths share is checked once.
     Returns the largest error by kernels-line record."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention.ops import (_bwd_path,
-                                                         _forward,
                                                          attention,
                                                          attention_bwd)
-    from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
-                                                         attention_ref)
+    from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.tatp_matmul.ops import tatp_dot
     from repro_torch.kernels.tatp_matmul.ref import matmul_ref
     from repro_torch.models.transformer import padded_vocab
@@ -1494,17 +1494,8 @@ def phase_path_shapes(torch, randn):
             need(attention.launches_by_path["mma"] == before[0] + 1,
                  f"{name}: did not take mma")
             return
-        if cap is None:
-            got = flash_grads(torch, attention, q, k, v, do, **kw)
-            ref = flash_grads(torch, attention_ref, q, k, v, do, **kw)
-        else:
-            # scores beyond the cap: the backward against its plain
-            # version on the kernel's own O and LSE (see ATTN_BWD_CASES)
-            o, lse = _forward(q, k, v, causal, window, cap, None,
-                              want_lse=True)
-            got = (o, *attention_bwd(q, k, v, o, lse, do, **kw))
-            ref = (attention_ref(q, k, v, **kw),
-                   *attention_bwd_ref(q, k, v, o, lse, do, **kw))
+        got = flash_grads(torch, attention, q, k, v, do, **kw)
+        ref = flash_grads(torch, attention_ref, q, k, v, do, **kw)
         torch.cuda.synchronize()
         need((attention.launches_by_path["mma"],
               attention_bwd.launches_by_path[bwd])

@@ -55,13 +55,20 @@
 // (bf16, aligned rows) both backward kernels run on wgmma: 64-row
 // warpgroup tiles whose operands the tensor cores read from
 // 128-byte-swizzled shared memory once for all four warps, P^T and dS
-// (dS^T) fed from registers.  dQ is recomputed in its own kernel, which also forms delta,
-// so no atomics are needed (two launches; gradients bitwise repeatable).
-// Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W): 0.173 ms at
-// [4, 32, 512, 128], 23 % of that bound, 1.24x SDPA's backward (0.140);
-// 0.129 ms at [4, 32, 512, 80], 19 %, 1.18x SDPA (0.110).  What is left:
-// each block runs its products, its softmax gradient and its next
-// products in turn, and two blocks an SM do not hide all of it.
+// (dS^T) fed from registers.  dQ is recomputed in its own kernel, so no
+// atomics are needed (two launches; gradients bitwise repeatable).  The
+// dQ kernel also forms delta = rowsum(dO O) for both, as rowsum(P dP) in
+// fp32 over a first sweep of its key tiles: where scores pass a soft-cap
+// the softmax is nearly one-hot, dS = P (dP - delta) cancels, and a delta
+// from the bf16 O (or from an fp32 O whose P was rounded to bf16 in the
+// forward) puts that rounding into dS.  The sweep costs the dQ kernel its
+// S and dP products again.  Measured (scripts/compare_backward.py, NVIDIA
+// H100 80GB HBM3, 700.00 W): 0.188 ms at [4, 32, 512, 128] (0.172 with
+// delta from the bf16 O), 21 % of that bound, 1.34x SDPA's backward
+// (0.140); 0.156 ms at [4, 32, 512, 80] (0.132), 16 %, 1.42x SDPA
+// (0.109).  What is left: each block runs its products, its softmax
+// gradient and its next products in turn, and two blocks an SM do not
+// hide all of it.
 
 #include <stdint.h>
 
@@ -580,7 +587,9 @@ int launch_mma_d(const void* q, const void* k, const void* v, void* o,
 // ---------------------------------------------------------------------------
 //
 // After FlashAttention-2's split, without atomics, so gradients are
-// deterministic: (1) delta = rowsum(dO * O); (2) dK/dV, one block per
+// deterministic: (1) delta = rowsum(dO * O) (for bf16, whose O is
+// rounded, the dQ kernel (3) forms it as rowsum(P dP) over a first sweep
+// and runs first); (2) dK/dV, one block per
 // (batch * kv-head, 32-key tile), walking the group's q heads and the query
 // tiles that can see its keys (from the causal diagonal on, up to the
 // window's edge) and summing over them in registers; (3) dQ, one block per
@@ -781,12 +790,15 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <typename T, int DMAX>
+// SWEEP: delta is formed here, rowsum(P dP) over a first sweep of the key
+// tiles, and written for the dK/dV kernel (bf16: its O is rounded); else
+// it is read
+template <typename T, int DMAX, bool SWEEP>
 __global__ void __launch_bounds__(THREADS)
     flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const T* __restrict__ dout,
                  const float* __restrict__ lse,
-                 const float* __restrict__ delta, T* __restrict__ dq, int Hq,
+                 float* __restrict__ delta, T* __restrict__ dq, int Hq,
                  int Hkv, int Sq, int Skv, int D, int64_t qsb, int64_t qsh,
                  int64_t qss, int64_t ksb, int64_t ksh, int64_t kss,
                  int64_t vsb, int64_t vsh, int64_t vss, int64_t dsb,
@@ -815,7 +827,7 @@ __global__ void __launch_bounds__(THREADS)
   load_f32<T, BBQ>(dos, dout + b * dsb + h * dsh, q0, Sq, D, dss);
   const int64_t r = (static_cast<int64_t>(b) * Hq + h) * Sq + qpos;
   const float my_lse = qpos < Sq ? lse[r] : 0.f;
-  const float my_delta = qpos < Sq ? delta[r] : 0.f;
+  float my_delta = !SWEEP && qpos < Sq ? delta[r] : 0.f;
 
   float dqa[DMAX / 4];
 #pragma unroll
@@ -827,41 +839,53 @@ __global__ void __launch_bounds__(THREADS)
   int k_begin = 0;
   if (window > 0) k_begin = max(0, q0 - window + 1) / BBK * BBK;
 
-  for (int j0 = k_begin; j0 < k_end; j0 += BBK) {
-    __syncthreads();  // Q, dO staged / previous tile's reads done
-    load_f32<T, BBK>(ks, kb, j0, Skv, D, kss);
-    load_f32<T, BBK>(vs, vb, j0, Skv, D, vss);
-    __syncthreads();
+  for (int sweep = SWEEP ? 0 : 1; sweep < 2; ++sweep) {
+    if (sweep == 1 && SWEEP) {
+      my_delta += __shfl_xor_sync(0xffffffffu, my_delta, 1);
+      my_delta += __shfl_xor_sync(0xffffffffu, my_delta, 2);
+      if (sub == 0 && qpos < Sq) delta[r] = my_delta;
+    }
+    for (int j0 = k_begin; j0 < k_end; j0 += BBK) {
+      __syncthreads();  // Q, dO staged / previous tile's reads done
+      load_f32<T, BBK>(ks, kb, j0, Skv, D, kss);
+      load_f32<T, BBK>(vs, vb, j0, Skv, D, vss);
+      __syncthreads();
 
-    float s[BBK / 4], dp[BBK / 4];
+      float s[BBK / 4], dp[BBK / 4];
 #pragma unroll
-    for (int jj = 0; jj < BBK / 4; ++jj) s[jj] = dp[jj] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float qv = qs[row * ld + d], ov = dos[row * ld + d];
+      for (int jj = 0; jj < BBK / 4; ++jj) s[jj] = dp[jj] = 0.f;
+      for (int d = 0; d < D; ++d) {
+        const float qv = qs[row * ld + d], ov = dos[row * ld + d];
+#pragma unroll
+        for (int jj = 0; jj < BBK / 4; ++jj) {
+          s[jj] = fmaf(qv, ks[(sub + 4 * jj) * ld + d], s[jj]);
+          dp[jj] = fmaf(ov, vs[(sub + 4 * jj) * ld + d], dp[jj]);
+        }
+      }
 #pragma unroll
       for (int jj = 0; jj < BBK / 4; ++jj) {
-        s[jj] = fmaf(qv, ks[(sub + 4 * jj) * ld + d], s[jj]);
-        dp[jj] = fmaf(ov, vs[(sub + 4 * jj) * ld + d], dp[jj]);
+        const int j = sub + 4 * jj;
+        float p;
+        const float ds =
+            grad_s(s[jj], dp[jj], my_lse, my_delta,
+                   live(qpos, j0 + j, Sq, Skv, causal, window), scale, cap,
+                   &p);
+        if (sweep == 0)
+          my_delta += p * dp[jj];  // this lane's part of rowsum(P dP)
+        else
+          ds_s[row * (BBK + 1) + j] = ds;
       }
-    }
-#pragma unroll
-    for (int jj = 0; jj < BBK / 4; ++jj) {
-      const int j = sub + 4 * jj;
-      float p;
-      ds_s[row * (BBK + 1) + j] =
-          grad_s(s[jj], dp[jj], my_lse, my_delta,
-                 live(qpos, j0 + j, Sq, Skv, causal, window), scale, cap,
-                 &p);
-    }
-    __syncwarp();  // the row's dS is written by the 4 lanes that read it
+      if (sweep == 0) continue;
+      __syncwarp();  // the row's dS is written by the 4 lanes that read it
 
-    for (int j = 0; j < BBK; ++j) {
-      const float ds = ds_s[row * (BBK + 1) + j];
-      const float* kr = ks + j * ld;
+      for (int j = 0; j < BBK; ++j) {
+        const float ds = ds_s[row * (BBK + 1) + j];
+        const float* kr = ks + j * ld;
 #pragma unroll
-      for (int e = 0; e < DMAX / 4; ++e) {
-        const int d = sub + 4 * e;
-        if (d < D) dqa[e] = fmaf(ds, kr[d], dqa[e]);
+        for (int e = 0; e < DMAX / 4; ++e) {
+          const int d = sub + 4 * e;
+          if (d < D) dqa[e] = fmaf(ds, kr[d], dqa[e]);
+        }
       }
     }
   }
@@ -889,18 +913,24 @@ int launch_bwd_simt(const void* q, const void* k, const void* v,
   const T* V = static_cast<const T*>(v);
   const T* O = static_cast<const T*>(o);
   const T* DO = static_cast<const T*>(dout);
-  const int64_t rows = static_cast<int64_t>(B) * Hq * Sq;
-  const unsigned rblocks =
-      static_cast<unsigned>((rows + THREADS / 32 - 1) / (THREADS / 32));
-  flash_bwd_delta<T><<<rblocks, THREADS, 0, s>>>(
-      O, DO, delta, Hq, Sq, D, rows, st[9], st[10], st[11], st[12], st[13],
-      st[14]);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  // bf16: the dQ kernel forms delta from P and dP (a bf16 O is rounded)
+  // and runs first; fp32: delta = rowsum(dO O) by its own kernel
+  constexpr bool SWEEP = sizeof(T) < sizeof(float);
+  cudaError_t err = cudaSuccess;
+  if (!SWEEP) {
+    const int64_t rows = static_cast<int64_t>(B) * Hq * Sq;
+    const unsigned rblocks =
+        static_cast<unsigned>((rows + THREADS / 32 - 1) / (THREADS / 32));
+    flash_bwd_delta<T><<<rblocks, THREADS, 0, s>>>(
+        O, DO, delta, Hq, Sq, D, rows, st[9], st[10], st[11], st[12],
+        st[13], st[14]);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
 
   const size_t smem = bwd_smem_bytes(D);
   auto kv_kern = flash_bwd_dkdv<T, DMAX>;
-  auto q_kern = flash_bwd_dq<T, DMAX>;
+  auto q_kern = flash_bwd_dq<T, DMAX, SWEEP>;
   if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(kv_kern,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -911,6 +941,17 @@ int launch_bwd_simt(const void* q, const void* k, const void* v,
           static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
+  auto run_q = [&] {
+    dim3 grid(static_cast<unsigned>(B) * Hq,
+              static_cast<unsigned>((Sq + BBQ - 1) / BBQ));
+    q_kern<<<grid, THREADS, smem, s>>>(
+        Q, K, V, DO, lse, delta, static_cast<T*>(dq), Hq, Hkv, Sq, Skv, D,
+        st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
+        st[12], st[13], st[14], st[15], st[16], st[17], scale, causal,
+        window, cap);
+    return cudaGetLastError();
+  };
+  if (SWEEP && (err = run_q()) != cudaSuccess) return static_cast<int>(err);
   if (Skv > 0) {
     dim3 grid(static_cast<unsigned>(B) * Hkv,
               static_cast<unsigned>((Skv + BBK - 1) / BBK));
@@ -922,13 +963,7 @@ int launch_bwd_simt(const void* q, const void* k, const void* v,
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  dim3 grid(static_cast<unsigned>(B) * Hq,
-            static_cast<unsigned>((Sq + BBQ - 1) / BBQ));
-  q_kern<<<grid, THREADS, smem, s>>>(
-      Q, K, V, DO, lse, delta, static_cast<T*>(dq), Hq, Hkv, Sq, Skv, D,
-      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[12],
-      st[13], st[14], st[15], st[16], st[17], scale, causal, window, cap);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(SWEEP ? err : run_q());
 }
 
 template <typename T>
@@ -959,12 +994,12 @@ int launch_bwd_simt_d(const void* q, const void* k, const void* v,
 // product on the tensor cores as in the forward's mma path, in two
 // launches.  (1) dQ, one 128-thread block per (batch * q-head, 64-row
 // query tile), warp w owning 16 query rows, heaviest causal tiles first.
-// It first forms delta = rowsum(dO * O) of its rows (O read once, dO
-// from the shared tile) and writes it for (2); then per 32-key tile
-// S = Q K^T and dP = dO V^T (K and V rows as the col B operand, ldmatrix)
-// and dQ += dS K with dS rounded to bf16 as the A fragment (two adjacent
-// n8 accumulator tiles make one k16 fragment) and K through
-// ldmatrix.trans.  K and V tiles are double-buffered with cp.async: tile
+// Per 32-key tile it recomputes S = Q K^T and dP = dO V^T (K and V rows
+// as the col B operand, ldmatrix) and P: a first sweep over the tiles
+// sums delta = rowsum(P dP) of its rows in fp32 and writes it for (2), the
+// second forms dS and dQ += dS K with dS rounded to bf16 as the A
+// fragment (two adjacent n8 accumulator tiles make one k16 fragment) and K
+// through ldmatrix.trans.  K and V tiles are double-buffered with cp.async: tile
 // j + 1 loads while tile j computes.  (2) dK/dV, one block per (batch *
 // kv-head, 64-key tile), warp w owning 16 keys, walking (group head,
 // query tile) with Q, dO and the tile's lse and delta double-buffered
@@ -997,6 +1032,13 @@ __device__ __forceinline__ float bwd_exp2(float x) {
   return y;
 }
 
+// the sum of x over the four lanes of a quad (the lanes that hold one
+// accumulator row)
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
 // dK/dV: query rows per step, and blocks an SM
 template <int DP>
 __host__ __device__ constexpr int kv_rows() {
@@ -1025,17 +1067,16 @@ constexpr size_t dkdv_smem() {
 template <int DP, bool VEC, int BK, bool CAP>
 __global__ void __launch_bounds__(MMA_THREADS, 3)
     flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ o,
+                     const bf16* __restrict__ v,
                      const bf16* __restrict__ dout,
                      const float* __restrict__ lse,
                      float* __restrict__ delta, bf16* __restrict__ dq,
                      int Hq, int Hkv, int Sq, int Skv, int D, int64_t qsb,
                      int64_t qsh, int64_t qss, int64_t ksb, int64_t ksh,
                      int64_t kss, int64_t vsb, int64_t vsh, int64_t vss,
-                     int64_t osb, int64_t osh, int64_t oss, int64_t dsb,
-                     int64_t dsh, int64_t dss, int64_t dqsb, int64_t dqsh,
-                     int64_t dqss, float scale, int causal, int window,
-                     float cap) {
+                     int64_t dsb, int64_t dsh, int64_t dss, int64_t dqsb,
+                     int64_t dqsh, int64_t dqss, float scale, int causal,
+                     int window, float cap) {
   constexpr int LD = pitch<DP>();
   constexpr int NT = BK / 8;  // key n8 tiles of S
   constexpr int DT = DP / 8;    // d n8 tiles of dQ
@@ -1072,48 +1113,13 @@ __global__ void __launch_bounds__(MMA_THREADS, 3)
   cp_async_wait<1>();  // Q and dO
   __syncthreads();
 
-  // delta = rowsum(dO * O): lanes 2r and 2r + 1 sum the two halves of the
-  // warp's row r (0 past Sq: those rows' dO is zero)
+  // per row: lse in log2 units, and delta = rowsum(P dP), summed in fp32
+  // over the first sweep (0 past Sq: those rows' P is masked to 0)
   const int64_t bhq = static_cast<int64_t>(b) * Hq + h;
-  float dsum = 0.f;
-  {
-    const int r = warp * 16 + lane / 2, row = q0 + r;
-    const int c0 = (lane % 2) * (DP / 2);
-    if (row < Sq) {
-      const bf16* orow =
-          o + b * osb + h * osh + static_cast<int64_t>(row) * oss;
-      const bf16* drow = dos + r * LD;
-#pragma unroll
-      for (int c = c0; c < c0 + DP / 2; c += 8) {
-        if (VEC) {  // D % 8 == 0: a chunk is all in or all out
-          if (c < D) {
-            const uint4 ov = *reinterpret_cast<const uint4*>(orow + c);
-            const uint4 dv = *reinterpret_cast<const uint4*>(drow + c);
-            const bf16* op = reinterpret_cast<const bf16*>(&ov);
-            const bf16* dp = reinterpret_cast<const bf16*>(&dv);
-#pragma unroll
-            for (int x = 0; x < 8; ++x)
-              dsum += __bfloat162float(op[x]) * __bfloat162float(dp[x]);
-          }
-        } else {
-#pragma unroll
-          for (int x = 0; x < 8; ++x)
-            if (c + x < D)
-              dsum += __bfloat162float(orow[c + x]) *
-                      __bfloat162float(drow[c + x]);
-        }
-      }
-    }
-    dsum += __shfl_xor_sync(0xffffffffu, dsum, 1);
-    if (lane % 2 == 0 && row < Sq) delta[bhq * Sq + row] = dsum;
-  }
-  // per row: lse in log2 units and delta (0 past Sq: those rows' Q and dO
-  // are zero, so they contribute nothing)
   const float* lb = lse + bhq * Sq;
   const float l2[2] = {row_lo < Sq ? lb[row_lo] * LOG2E : 0.f,
                        row_hi < Sq ? lb[row_hi] * LOG2E : 0.f};
-  const float dl[2] = {__shfl_sync(0xffffffffu, dsum, 2 * (lane / 4)),
-                       __shfl_sync(0xffffffffu, dsum, 2 * (lane / 4) + 16)};
+  float dl[2] = {0.f, 0.f};
 
   float acc[DT][4];
 #pragma unroll
@@ -1121,94 +1127,115 @@ __global__ void __launch_bounds__(MMA_THREADS, 3)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
 
-  int buf = 0;
-  for (int j0 = k_begin; j0 < k_end; j0 += BK, buf ^= 1) {
-    if (j0 + BK < k_end) {  // the next tile loads while this one computes
-      load_tile<DP, BK, VEC>(ks + (buf ^ 1) * BK * LD, kb, j0 + BK,
-                               Skv, D, kss);
-      load_tile<DP, BK, VEC>(vs + (buf ^ 1) * BK * LD, vb, j0 + BK,
-                               Skv, D, vss);
+  // sweep 0 forms delta, sweep 1 dQ; each recomputes S, dP and P per tile
+  for (int sweep = 0; sweep < 2; ++sweep) {
+    if (sweep == 1) {
+      dl[0] = quad_sum(dl[0]);
+      dl[1] = quad_sum(dl[1]);
+      if (lane % 4 == 0) {  // for the dK/dV kernel
+        if (row_lo < Sq) delta[bhq * Sq + row_lo] = dl[0];
+        if (row_hi < Sq) delta[bhq * Sq + row_hi] = dl[1];
+      }
+      if (k_begin < k_end) {  // the first tile again (all reads are done)
+        load_tile<DP, BK, VEC>(ks, kb, k_begin, Skv, D, kss);
+        load_tile<DP, BK, VEC>(vs, vb, k_begin, Skv, D, vss);
+      }
       cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
     }
-    __syncthreads();
-    const bf16* kt = ks + buf * BK * LD;
-    const bf16* vt = vs + buf * BK * LD;
+    int buf = 0;
+    for (int j0 = k_begin; j0 < k_end; j0 += BK, buf ^= 1) {
+      if (j0 + BK < k_end) {  // the next tile loads while this one computes
+        load_tile<DP, BK, VEC>(ks + (buf ^ 1) * BK * LD, kb, j0 + BK,
+                                 Skv, D, kss);
+        load_tile<DP, BK, VEC>(vs + (buf ^ 1) * BK * LD, vb, j0 + BK,
+                                 Skv, D, vss);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const bf16* kt = ks + buf * BK * LD;
+      const bf16* vt = vs + buf * BK * LD;
 
-    // S = Q K^T and dP = dO V^T: K and V rows are the col B operands
-    float s[NT][4], dp[NT][4];
+      // S = Q K^T and dP = dO V^T: K and V rows are the col B operands
+      float s[NT][4], dp[NT][4];
 #pragma unroll
-    for (int t = 0; t < NT; ++t)
+      for (int t = 0; t < NT; ++t)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[t][e] = dp[t][e] = 0.f;
+        for (int e = 0; e < 4; ++e) s[t][e] = dp[t][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      uint32_t aq[4], ao[4];
-      const int a_off = (warp * 16 + lane % 16) * LD + kk * 16 +
-                        (lane / 16) * 8;
-      ldmatrix_x4(aq, qs + a_off);
-      ldmatrix_x4(ao, dos + a_off);
+      for (int kk = 0; kk < KD; ++kk) {
+        uint32_t aq[4], ao[4];
+        const int a_off = (warp * 16 + lane % 16) * LD + kk * 16 +
+                          (lane / 16) * 8;
+        ldmatrix_x4(aq, qs + a_off);
+        ldmatrix_x4(ao, dos + a_off);
+#pragma unroll
+        for (int t2 = 0; t2 < NT / 2; ++t2) {
+          const int b_off = (t2 * 16 + (lane / 16) * 8 + lane % 8) * LD +
+                            kk * 16 + ((lane / 8) % 2) * 8;
+          uint32_t bfr[4];
+          ldmatrix_x4(bfr, kt + b_off);
+          mma_16816(s[2 * t2], aq, bfr[0], bfr[1]);
+          mma_16816(s[2 * t2 + 1], aq, bfr[2], bfr[3]);
+          ldmatrix_x4(bfr, vt + b_off);
+          mma_16816(dp[2 * t2], ao, bfr[0], bfr[1]);
+          mma_16816(dp[2 * t2 + 1], ao, bfr[2], bfr[3]);
+        }
+      }
+
+      const bool need_mask = j0 + BK > Skv || q0 + BQ_M > Sq ||
+                             (causal && j0 + BK - 1 > q0) ||
+                             (window > 0 && q0 + BQ_M - 1 - j0 >= window);
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x2, dcap = 1.f;  // the scaled (and capped) logit, log2 units
+          if (CAP) {
+            const float th = tanhf(s[t][e] * scale / cap);
+            x2 = th * cap * LOG2E;
+            dcap = 1.f - th * th;
+          } else {
+            x2 = s[t][e] * scale_log2;
+          }
+          bool ok = true;
+          if (need_mask)
+            ok = live(e < 2 ? row_lo : row_hi,
+                      j0 + t * 8 + 2 * (lane % 4) + (e & 1), Sq, Skv, causal,
+                      window);
+          const float p = ok ? bwd_exp2(x2 - l2[e / 2]) : 0.f;
+          if (sweep == 0) dl[e / 2] += p * dp[t][e];
+          s[t][e] = p * (dp[t][e] - dl[e / 2]) * dcap;  // dS / scale
+        }
+      }
+      if (sweep == 0) {
+        __syncthreads();  // the next iteration refills the other buffer
+        continue;
+      }
+
+      // dQ += dS K: dS rounded to bf16 as the A fragment, K via ldmatrix.trans
 #pragma unroll
       for (int t2 = 0; t2 < NT / 2; ++t2) {
-        const int b_off = (t2 * 16 + (lane / 16) * 8 + lane % 8) * LD +
-                          kk * 16 + ((lane / 8) % 2) * 8;
-        uint32_t bfr[4];
-        ldmatrix_x4(bfr, kt + b_off);
-        mma_16816(s[2 * t2], aq, bfr[0], bfr[1]);
-        mma_16816(s[2 * t2 + 1], aq, bfr[2], bfr[3]);
-        ldmatrix_x4(bfr, vt + b_off);
-        mma_16816(dp[2 * t2], ao, bfr[0], bfr[1]);
-        mma_16816(dp[2 * t2 + 1], ao, bfr[2], bfr[3]);
-      }
-    }
-
-    const bool need_mask = j0 + BK > Skv || q0 + BQ_M > Sq ||
-                           (causal && j0 + BK - 1 > q0) ||
-                           (window > 0 && q0 + BQ_M - 1 - j0 >= window);
+        const uint32_t a[4] = {pack_bf16(s[2 * t2][0], s[2 * t2][1]),
+                               pack_bf16(s[2 * t2][2], s[2 * t2][3]),
+                               pack_bf16(s[2 * t2 + 1][0], s[2 * t2 + 1][1]),
+                               pack_bf16(s[2 * t2 + 1][2], s[2 * t2 + 1][3])};
 #pragma unroll
-    for (int t = 0; t < NT; ++t) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x2, dcap = 1.f;  // the scaled (and capped) logit, log2 units
-        if (CAP) {
-          const float th = tanhf(s[t][e] * scale / cap);
-          x2 = th * cap * LOG2E;
-          dcap = 1.f - th * th;
-        } else {
-          x2 = s[t][e] * scale_log2;
+        for (int d2 = 0; d2 < DP / 16; ++d2) {
+          uint32_t bfr[4];
+          ldmatrix_x4_trans(bfr, kt + (t2 * 16 + ((lane / 8) % 2) * 8 +
+                                       lane % 8) * LD +
+                                     d2 * 16 + (lane / 16) * 8);
+          mma_16816(acc[2 * d2], a, bfr[0], bfr[1]);
+          mma_16816(acc[2 * d2 + 1], a, bfr[2], bfr[3]);
         }
-        bool ok = true;
-        if (need_mask)
-          ok = live(e < 2 ? row_lo : row_hi,
-                    j0 + t * 8 + 2 * (lane % 4) + (e & 1), Sq, Skv, causal,
-                    window);
-        const float p = ok ? bwd_exp2(x2 - l2[e / 2]) : 0.f;
-        s[t][e] = p * (dp[t][e] - dl[e / 2]) * dcap;  // dS / scale
       }
+      __syncthreads();  // the next iteration refills the other buffer
     }
-
-    // dQ += dS K: dS rounded to bf16 as the A fragment, K via ldmatrix.trans
-#pragma unroll
-    for (int t2 = 0; t2 < NT / 2; ++t2) {
-      const uint32_t a[4] = {pack_bf16(s[2 * t2][0], s[2 * t2][1]),
-                             pack_bf16(s[2 * t2][2], s[2 * t2][3]),
-                             pack_bf16(s[2 * t2 + 1][0], s[2 * t2 + 1][1]),
-                             pack_bf16(s[2 * t2 + 1][2], s[2 * t2 + 1][3])};
-#pragma unroll
-      for (int d2 = 0; d2 < DP / 16; ++d2) {
-        uint32_t bfr[4];
-        ldmatrix_x4_trans(bfr, kt + (t2 * 16 + ((lane / 8) % 2) * 8 +
-                                     lane % 8) * LD +
-                                   d2 * 16 + (lane / 16) * 8);
-        mma_16816(acc[2 * d2], a, bfr[0], bfr[1]);
-        mma_16816(acc[2 * d2 + 1], a, bfr[2], bfr[3]);
-      }
-    }
-    __syncthreads();  // the next iteration refills the other buffer
+    cp_async_wait<0>();
   }
-  cp_async_wait<0>();
 
   bf16* ob = dq + b * dqsb + h * dqsh;
 #pragma unroll
@@ -1657,17 +1684,16 @@ __global__ void __launch_bounds__(MMA_THREADS, 2)
 template <int DP, bool CAP>
 __global__ void __launch_bounds__(MMA_THREADS, 2)
     flash_bwd_dq_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, const bf16* __restrict__ o,
+                       const bf16* __restrict__ v,
                        const bf16* __restrict__ dout,
                        const float* __restrict__ lse,
                        float* __restrict__ delta, bf16* __restrict__ dq,
                        int Hq, int Hkv, int Sq, int Skv, int D, int64_t qsb,
                        int64_t qsh, int64_t qss, int64_t ksb, int64_t ksh,
                        int64_t kss, int64_t vsb, int64_t vsh, int64_t vss,
-                       int64_t osb, int64_t osh, int64_t oss, int64_t dsb,
-                       int64_t dsh, int64_t dss, int64_t dqsb, int64_t dqsh,
-                       int64_t dqss, float scale, int causal, int window,
-                       float cap) {
+                       int64_t dsb, int64_t dsh, int64_t dss, int64_t dqsb,
+                       int64_t dqsh, int64_t dqss, float scale, int causal,
+                       int window, float cap) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* const base = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -1700,124 +1726,120 @@ __global__ void __launch_bounds__(MMA_THREADS, 2)
   }
   cp_async_commit();
 
-  // delta = rowsum(dO * O) from global rows: lanes 2r and 2r + 1 sum the
-  // two halves of the warp's row r (0 past Sq)
+  // per row: lse in log2 units, and delta = rowsum(P dP), summed in fp32
+  // over the first sweep
   const int64_t bhq = static_cast<int64_t>(b) * Hq + h;
-  float dsum = 0.f;
-  {
-    const int row = q0 + warp * 16 + lane / 2;
-    const int c0 = (lane % 2) * (DP / 2);
-    if (row < Sq) {
-      const bf16* orow =
-          o + b * osb + h * osh + static_cast<int64_t>(row) * oss;
-      const bf16* drow = db + static_cast<int64_t>(row) * dss;
-#pragma unroll
-      for (int c = c0; c < c0 + DP / 2; c += 8) {
-        if (c < D) {  // D % 8 == 0 here
-          const uint4 ov = *reinterpret_cast<const uint4*>(orow + c);
-          const uint4 dv = *reinterpret_cast<const uint4*>(drow + c);
-          const bf16* op = reinterpret_cast<const bf16*>(&ov);
-          const bf16* dp = reinterpret_cast<const bf16*>(&dv);
-#pragma unroll
-          for (int x = 0; x < 8; ++x)
-            dsum += __bfloat162float(op[x]) * __bfloat162float(dp[x]);
-        }
-      }
-    }
-    dsum += __shfl_xor_sync(0xffffffffu, dsum, 1);
-    if (lane % 2 == 0 && row < Sq) delta[bhq * Sq + row] = dsum;
-  }
   const float* lb = lse + bhq * Sq;
   const float l2[2] = {row_lo < Sq ? lb[row_lo] * LOG2E : 0.f,
                        row_hi < Sq ? lb[row_hi] * LOG2E : 0.f};
-  const float dl[2] = {__shfl_sync(0xffffffffu, dsum, 2 * (lane / 4)),
-                       __shfl_sync(0xffffffffu, dsum, 2 * (lane / 4) + 16)};
+  float dl[2] = {0.f, 0.f};
 
   float acc[DP / 2];
 #pragma unroll
   for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
 
-  int buf = 0;
-  for (int j0 = k_begin; j0 < k_end; j0 += 64, buf ^= 1) {
-    if (j0 + 64 < k_end) {  // the next tile loads while this one computes
-      load_sw(Ks + (buf ^ 1) * SW_TILE, kb, j0 + 64, Skv, D, kss);
-      load_sw(Vs + (buf ^ 1) * SW_TILE, vb, j0 + 64, Skv, D, vss);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    fence_proxy_async();
-    __syncthreads();
-    const uint8_t* kt = Ks + buf * SW_TILE;
-    const uint8_t* vt = Vs + buf * SW_TILE;
-
-    // S = Q K^T and dP = dO V^T
-    float s[32], dp[32];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
-    wgmma_fence_regs(s);
-    wgmma_fence_regs(dp);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) {
-      const int off = (kk >> 2) * 8192 + (kk & 3) * 32;
-      wgmma_m64n64k16<0, 0>(s, wgmma_desc(Qs + off, 16, 1024),
-                            wgmma_desc(kt + off, 16, 1024));
-    }
-#pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) {
-      const int off = (kk >> 2) * 8192 + (kk & 3) * 32;
-      wgmma_m64n64k16<0, 0>(dp, wgmma_desc(DOs + off, 16, 1024),
-                            wgmma_desc(vt + off, 16, 1024));
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-    wgmma_fence_regs(s);
-    wgmma_fence_regs(dp);
-
-    const bool need_mask = j0 + 64 > Skv || q0 + 64 > Sq ||
-                           (causal && j0 + 63 > q0) ||
-                           (window > 0 && q0 + 63 - j0 >= window);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x2, dcap = 1.f;  // the scaled (and capped) logit, log2 units
-        if (CAP) {
-          const float th = tanhf(s[4 * j + e] * scale / cap);
-          x2 = th * cap * LOG2E;
-          dcap = 1.f - th * th;
-        } else {
-          x2 = s[4 * j + e] * scale_log2;
-        }
-        bool ok = true;
-        if (need_mask)
-          ok = live(e < 2 ? row_lo : row_hi, j0 + j * 8 + 2 * (lane % 4) +
-                    (e & 1), Sq, Skv, causal, window);
-        const float p = ok ? bwd_exp2(x2 - l2[e / 2]) : 0.f;
-        s[4 * j + e] = p * (dp[4 * j + e] - dl[e / 2]) * dcap;  // dS/scale
+  // sweep 0 forms delta, sweep 1 dQ; each recomputes S, dP and P per tile
+  for (int sweep = 0; sweep < 2; ++sweep) {
+    if (sweep == 1) {
+      dl[0] = quad_sum(dl[0]);
+      dl[1] = quad_sum(dl[1]);
+      if (lane % 4 == 0) {  // for the dK/dV kernel
+        if (row_lo < Sq) delta[bhq * Sq + row_lo] = dl[0];
+        if (row_hi < Sq) delta[bhq * Sq + row_hi] = dl[1];
       }
+      if (k_begin < k_end) {  // the first tile again (all reads are done)
+        load_sw(Ks, kb, k_begin, Skv, D, kss);
+        load_sw(Vs, vb, k_begin, Skv, D, vss);
+      }
+      cp_async_commit();
     }
+    int buf = 0;
+    for (int j0 = k_begin; j0 < k_end; j0 += 64, buf ^= 1) {
+      if (j0 + 64 < k_end) {  // the next tile loads while this one computes
+        load_sw(Ks + (buf ^ 1) * SW_TILE, kb, j0 + 64, Skv, D, kss);
+        load_sw(Vs + (buf ^ 1) * SW_TILE, vb, j0 + 64, Skv, D, vss);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      fence_proxy_async();
+      __syncthreads();
+      const uint8_t* kt = Ks + buf * SW_TILE;
+      const uint8_t* vt = Vs + buf * SW_TILE;
 
-    // dQ += dS K: dS rounded to bf16 as A fragments, K MN-major
-    wgmma_fence_regs(acc);
-    wgmma_fence();
+      // S = Q K^T and dP = dO V^T
+      float s[32], dp[32];
 #pragma unroll
-    for (int kb2 = 0; kb2 < 4; ++kb2) {
-      const uint32_t a[4] = {pack_bf16(s[8 * kb2], s[8 * kb2 + 1]),
-                             pack_bf16(s[8 * kb2 + 2], s[8 * kb2 + 3]),
-                             pack_bf16(s[8 * kb2 + 4], s[8 * kb2 + 5]),
-                             pack_bf16(s[8 * kb2 + 6], s[8 * kb2 + 7])};
-      wgmma_rs<DP, 1>(acc, a,
-                      wgmma_desc(kt + kb2 * 16 * 128, 8192, 1024));
+      for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+      wgmma_fence_regs(s);
+      wgmma_fence_regs(dp);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const int off = (kk >> 2) * 8192 + (kk & 3) * 32;
+        wgmma_m64n64k16<0, 0>(s, wgmma_desc(Qs + off, 16, 1024),
+                              wgmma_desc(kt + off, 16, 1024));
+      }
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const int off = (kk >> 2) * 8192 + (kk & 3) * 32;
+        wgmma_m64n64k16<0, 0>(dp, wgmma_desc(DOs + off, 16, 1024),
+                              wgmma_desc(vt + off, 16, 1024));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      wgmma_fence_regs(s);
+      wgmma_fence_regs(dp);
+
+      const bool need_mask = j0 + 64 > Skv || q0 + 64 > Sq ||
+                             (causal && j0 + 63 > q0) ||
+                             (window > 0 && q0 + 63 - j0 >= window);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x2, dcap = 1.f;  // the scaled (and capped) logit, log2 units
+          if (CAP) {
+            const float th = tanhf(s[4 * j + e] * scale / cap);
+            x2 = th * cap * LOG2E;
+            dcap = 1.f - th * th;
+          } else {
+            x2 = s[4 * j + e] * scale_log2;
+          }
+          bool ok = true;
+          if (need_mask)
+            ok = live(e < 2 ? row_lo : row_hi, j0 + j * 8 + 2 * (lane % 4) +
+                      (e & 1), Sq, Skv, causal, window);
+          const float p = ok ? bwd_exp2(x2 - l2[e / 2]) : 0.f;
+          if (sweep == 0) dl[e / 2] += p * dp[4 * j + e];
+          s[4 * j + e] = p * (dp[4 * j + e] - dl[e / 2]) * dcap;  // dS/scale
+        }
+      }
+      if (sweep == 0) {
+        __syncthreads();  // the next iteration refills the other buffer
+        continue;
+      }
+
+      // dQ += dS K: dS rounded to bf16 as A fragments, K MN-major
+      wgmma_fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kb2 = 0; kb2 < 4; ++kb2) {
+        const uint32_t a[4] = {pack_bf16(s[8 * kb2], s[8 * kb2 + 1]),
+                               pack_bf16(s[8 * kb2 + 2], s[8 * kb2 + 3]),
+                               pack_bf16(s[8 * kb2 + 4], s[8 * kb2 + 5]),
+                               pack_bf16(s[8 * kb2 + 6], s[8 * kb2 + 7])};
+        wgmma_rs<DP, 1>(acc, a,
+                        wgmma_desc(kt + kb2 * 16 * 128, 8192, 1024));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      wgmma_fence_regs(acc);
+      __syncthreads();  // the next iteration refills the other buffer
     }
-    wgmma_commit();
-    wgmma_wait<0>();
-    wgmma_fence_regs(acc);
-    __syncthreads();  // the next iteration refills the other buffer
+    cp_async_wait<0>();
   }
-  cp_async_wait<0>();
 
   bf16* ob = dq + b * dqsb + h * dqsh;
 #pragma unroll
@@ -1839,7 +1861,7 @@ __global__ void __launch_bounds__(MMA_THREADS, 2)
 template <typename QKern, typename KVKern>
 int launch_bwd_pair(QKern q_kern, KVKern kv_kern, size_t smem_q,
                     size_t smem_kv, const bf16* Q, const bf16* K,
-                    const bf16* V, const bf16* O, const bf16* DO,
+                    const bf16* V, const bf16* DO,
                     const float* lse, float* delta, void* dq, void* dk,
                     void* dv, int B, int Hq, int Hkv, int Sq, int Skv, int D,
                     const int64_t* st, float scale, int causal, int window,
@@ -1855,10 +1877,9 @@ int launch_bwd_pair(QKern q_kern, KVKern kv_kern, size_t smem_q,
   dim3 grid(static_cast<unsigned>(B) * Hq,
             static_cast<unsigned>((Sq + BQ_M - 1) / BQ_M));
   q_kern<<<grid, MMA_THREADS, smem_q, s>>>(
-      Q, K, V, O, DO, lse, delta, static_cast<bf16*>(dq), Hq, Hkv, Sq, Skv,
-      D, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      st[9], st[10], st[11], st[12], st[13], st[14], st[15], st[16], st[17],
-      scale, causal, window, cap);
+      Q, K, V, DO, lse, delta, static_cast<bf16*>(dq), Hq, Hkv, Sq, Skv, D,
+      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[12],
+      st[13], st[14], st[15], st[16], st[17], scale, causal, window, cap);
   err = cudaGetLastError();
   if (err != cudaSuccess || Skv == 0) return static_cast<int>(err);
   dim3 kv_grid(static_cast<unsigned>(B) * Hkv,
@@ -1875,7 +1896,7 @@ int launch_bwd_pair(QKern q_kern, KVKern kv_kern, size_t smem_q,
 // wgmma at D 80 and 128 with 16-byte aligned rows, else mma.sync
 template <int DP, bool VEC, bool CAP>
 int launch_bwd_mma_c(const bf16* Q, const bf16* K, const bf16* V,
-                     const bf16* O, const bf16* DO, const float* lse,
+                     const bf16* DO, const float* lse,
                      float* delta, void* dq, void* dk, void* dv, int B,
                      int Hq, int Hkv, int Sq, int Skv, int D,
                      const int64_t* st, float scale, int causal, int window,
@@ -1884,52 +1905,52 @@ int launch_bwd_mma_c(const bf16* Q, const bf16* K, const bf16* V,
     return launch_bwd_pair(
         flash_bwd_dq_wgmma<DP, CAP>, flash_bwd_dkdv_wgmma<DP, CAP>,
         6 * SW_TILE + 1024, 6 * SW_TILE + 4 * 64 * sizeof(float) + 1024, Q,
-        K, V, O, DO, lse, delta, dq, dk, dv, B, Hq, Hkv, Sq, Skv, D, st,
+        K, V, DO, lse, delta, dq, dk, dv, B, Hq, Hkv, Sq, Skv, D, st,
         scale, causal, window, cap, s);
   } else {
     constexpr int QT = kv_rows<DP>();
     return launch_bwd_pair(
         flash_bwd_dq_mma<DP, VEC, BK_Q, CAP>,
         flash_bwd_dkdv_mma<DP, VEC, QT, CAP>, dq_smem<DP, BK_Q>(),
-        dkdv_smem<DP, QT>(), Q, K, V, O, DO, lse, delta, dq, dk, dv, B, Hq,
+        dkdv_smem<DP, QT>(), Q, K, V, DO, lse, delta, dq, dk, dv, B, Hq,
         Hkv, Sq, Skv, D, st, scale, causal, window, cap, s);
   }
 }
 
 template <int DP, bool VEC>
 int launch_bwd_mma(const bf16* Q, const bf16* K, const bf16* V,
-                   const bf16* O, const bf16* DO, const float* lse,
+                   const bf16* DO, const float* lse,
                    float* delta, void* dq, void* dk, void* dv, int B, int Hq,
                    int Hkv, int Sq, int Skv, int D, const int64_t* st,
                    float scale, int causal, int window, float cap,
                    cudaStream_t s) {
   if (cap > 0.f)
-    return launch_bwd_mma_c<DP, VEC, true>(Q, K, V, O, DO, lse, delta, dq,
+    return launch_bwd_mma_c<DP, VEC, true>(Q, K, V, DO, lse, delta, dq,
                                            dk, dv, B, Hq, Hkv, Sq, Skv, D,
                                            st, scale, causal, window, cap, s);
-  return launch_bwd_mma_c<DP, VEC, false>(Q, K, V, O, DO, lse, delta, dq, dk,
+  return launch_bwd_mma_c<DP, VEC, false>(Q, K, V, DO, lse, delta, dq, dk,
                                           dv, B, Hq, Hkv, Sq, Skv, D, st,
                                           scale, causal, window, cap, s);
 }
 
 template <int DP>
 int launch_bwd_mma_v(const bf16* Q, const bf16* K, const bf16* V,
-                     const bf16* O, const bf16* DO, const float* lse,
+                     const bf16* DO, const float* lse,
                      float* delta, void* dq, void* dk, void* dv, int B,
                      int Hq, int Hkv, int Sq, int Skv, int D,
                      const int64_t* st, float scale, int causal, int window,
                      float cap, bool vec, cudaStream_t s) {
   if (vec)
-    return launch_bwd_mma<DP, true>(Q, K, V, O, DO, lse, delta, dq, dk, dv,
+    return launch_bwd_mma<DP, true>(Q, K, V, DO, lse, delta, dq, dk, dv,
                                     B, Hq, Hkv, Sq, Skv, D, st, scale,
                                     causal, window, cap, s);
-  return launch_bwd_mma<DP, false>(Q, K, V, O, DO, lse, delta, dq, dk, dv, B,
+  return launch_bwd_mma<DP, false>(Q, K, V, DO, lse, delta, dq, dk, dv, B,
                                    Hq, Hkv, Sq, Skv, D, st, scale, causal,
                                    window, cap, s);
 }
 
 int launch_bwd_mma_d(const void* q, const void* k, const void* v,
-                     const void* o, const void* dout, const float* lse,
+                     const void* dout, const float* lse,
                      float* delta, void* dq, void* dk, void* dv, int B,
                      int Hq, int Hkv, int Sq, int Skv, int D,
                      const int64_t* st, float scale, int causal, int window,
@@ -1937,29 +1958,29 @@ int launch_bwd_mma_d(const void* q, const void* k, const void* v,
   const bf16* Q = static_cast<const bf16*>(q);
   const bf16* K = static_cast<const bf16*>(k);
   const bf16* V = static_cast<const bf16*>(v);
-  const bf16* O = static_cast<const bf16*>(o);
   const bf16* DO = static_cast<const bf16*>(dout);
-  // 16-byte cp.async loads, O's 16-byte reads and paired stores need every
-  // row 16-byte aligned; otherwise the same kernels load scalars into the
-  // same layout
-  const void* ptrs[8] = {q, k, v, o, dout, dq, dk, dv};
+  // 16-byte cp.async loads and paired stores need every row 16-byte
+  // aligned; otherwise the same kernels load scalars into the same layout
+  // (o, st[9..11], is not read)
+  const void* ptrs[7] = {q, k, v, dout, dq, dk, dv};
   bool vec = D % 8 == 0;
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < 7; ++i)
     vec = vec && reinterpret_cast<uintptr_t>(ptrs[i]) % 16 == 0;
-  for (int i = 0; i < 24; ++i) vec = vec && st[i] % 8 == 0;
+  for (int i = 0; i < 24; ++i)
+    vec = vec && (i / 3 == 3 || st[i] % 8 == 0);
   if (D <= 64)
-    return launch_bwd_mma_v<64>(Q, K, V, O, DO, lse, delta, dq, dk, dv, B,
+    return launch_bwd_mma_v<64>(Q, K, V, DO, lse, delta, dq, dk, dv, B,
                                 Hq, Hkv, Sq, Skv, D, st, scale, causal,
                                 window, cap, vec, s);
   if (D <= 80)
-    return launch_bwd_mma_v<80>(Q, K, V, O, DO, lse, delta, dq, dk, dv, B,
+    return launch_bwd_mma_v<80>(Q, K, V, DO, lse, delta, dq, dk, dv, B,
                                 Hq, Hkv, Sq, Skv, D, st, scale, causal,
                                 window, cap, vec, s);
   if (D <= 96)
-    return launch_bwd_mma_v<96>(Q, K, V, O, DO, lse, delta, dq, dk, dv, B,
+    return launch_bwd_mma_v<96>(Q, K, V, DO, lse, delta, dq, dk, dv, B,
                                 Hq, Hkv, Sq, Skv, D, st, scale, causal,
                                 window, cap, vec, s);
-  return launch_bwd_mma_v<128>(Q, K, V, O, DO, lse, delta, dq, dk, dv, B, Hq,
+  return launch_bwd_mma_v<128>(Q, K, V, DO, lse, delta, dq, dk, dv, B, Hq,
                                Hkv, Sq, Skv, D, st, scale, causal, window,
                                cap, vec, s);
 }
@@ -2029,9 +2050,8 @@ int flash_attention_bwd_launch(
                           dqsh, dqss, dksb, dksh, dkss, dvsb, dvsh, dvss};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (path == kPathMma && dtype == kBF16 && D <= 128)
-    return launch_bwd_mma_d(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Hq,
-                            Hkv, Sq, Skv, D, st, scale, causal, window, cap,
-                            s);
+    return launch_bwd_mma_d(q, k, v, dout, lse, delta, dq, dk, dv, B, Hq, Hkv,
+                            Sq, Skv, D, st, scale, causal, window, cap, s);
   if (path != kPathSimt) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == kF32)
     return launch_bwd_simt_d<float>(q, k, v, o, dout, lse, delta, dq, dk, dv,

@@ -56,11 +56,17 @@ def attention_ref(q, k, v, *, causal=True, window=None, cap=None,
 
 def attention_bwd_ref(q, k, v, o, lse, do, *, causal=True, window=None,
                       cap=None, scale=None):
-    """(dq, dk, dv) of :func:`attention_ref` at ``do``, from its output
-    ``o`` and ``lse``: P = exp(S - lse) on the unmasked pairs,
-    dV = P^T dO, dS = P (dO V^T - rowsum(dO O)), through the cap's tanh,
+    """(dq, dk, dv) of :func:`attention_ref` at ``do``, from its row
+    ``lse``: P = exp(S - lse) on the unmasked pairs, dV = P^T dO,
+    dP = dO V^T, dS = P (dP - rowsum(P dP)), through the cap's tanh,
     dQ = dS K scale and dK = dS^T Q scale (GQA groups summed into dK and
-    dV).  fp32 arithmetic; each gradient in its input's dtype."""
+    dV).  fp32 arithmetic; each gradient in its input's dtype.
+
+    rowsum(P dP) equals rowsum(dO O) (O = P V) but is formed in fp32 from
+    P, so the rounded output ``o`` is not read (it is taken for the
+    kernel's signature): where scores pass a soft-cap the softmax is nearly
+    one-hot, dP - rowsum cancels, and a bf16 O's rounding would be all of
+    dS."""
     b, hq, sq, d = q.shape
     hkv = k.shape[1]
     g = hq // hkv
@@ -69,10 +75,9 @@ def attention_bwd_ref(q, k, v, o, lse, do, *, causal=True, window=None,
     p = torch.where(mask, torch.exp(s - lse.reshape(b, hkv, g, sq, 1)),
                     0.0)
     dog = do.reshape(b, hkv, g, sq, d).float()
-    og = o.reshape(b, hkv, g, sq, d).float()
     dv = torch.einsum("bhgqk,bhgqd->bhkd", p, dog)
     dp = torch.einsum("bhgqd,bhkd->bhgqk", dog, v.float())
-    ds = p * (dp - (dog * og).sum(dim=-1, keepdim=True))
+    ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
     if t is not None:
         ds = ds * (1 - t * t)
     ds = ds * scale
