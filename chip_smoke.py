@@ -44,16 +44,17 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    256] kv 8, with no library yardstick: SDPA takes no soft-cap;
    gemma-7b's D 256 prefill; seamless-m4t-large-v2's bidirectional
    encoder and its cross attention of 128 queries to 1024 frames) and its
-   backward at gemma-7b's train shape on the CUDA cores (D 256); and
-   every GEMM and
+   backward on ``mma`` at D 256, gemma-7b's train shape (beside SDPA's
+   backward) and gemma2-9b's windowed, soft-capped one (two launches
+   bitwise equal); and every GEMM and
    flash shape of the main paths, derived from each architecture's
    config (``PATHS``, ``TRAIN_RUNS``, ``TRAIN_SHAPES_ONLY``): the GEMM on
    ``wgmma`` at each prefill linear (an encoder's and the cross blocks'
    wk and wv over the frames), each train linear's forward, dgrad and
    wgrad and the lm head's three products at their layouts and output
    dtypes, flash on ``mma`` at each prefill's attention and each train
-   shape's forward, and its backward (``mma`` at D <= 128, ``simt`` at
-   D 256), flash outputs with each row's ``atol`` scaled by that row's
+   shape's forward, and its backward on ``mma``, flash outputs with each
+   row's ``atol`` scaled by that row's
    RMS in the reference where it is below 1 (an output averaged over
    thousands of keys is ~0.02).  Every soft-capped flash check scales q
    by twice the cap (``cap_scale``), so most scores lie beyond it and the
@@ -111,11 +112,11 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    backwards, 90 SSD forwards, 45 SSD backwards) and olmoe-1b-7b with 4
    layers (33 forward GEMMs, 17 dgrad, 17 wgrad, 8 flash forwards, 4
    backwards; the router and expert products are torch), gemma2-9b with
-   4 layers (115 GEMMs, 8 / 4 flash; the backward on the CUDA cores at D
-   256), internvl2-1b at its 24 (675 GEMMs, 48 / 24 flash) and
+   4 layers (115 GEMMs, 8 / 4 flash, the backward on ``mma`` at D 256),
+   internvl2-1b at its 24 (675 GEMMs, 48 / 24 flash) and
    seamless-m4t-large-v2 at its 24 + 24 (1539 GEMMs, 144 / 72 flash:
    the encoder is recomputed under remat); every GEMM on ``wgmma``,
-   every flash forward on ``mma``; finite losses and grad norms; 3
+   every flash forward and backward on ``mma``; finite losses and grad norms; 3
    steps on one fixed batch lower its loss; step time, tokens/s, MFU (a
    MoE model counts its active parameters), peak memory, the device time
    of the gradients and of the AdamW update, and a profiler window with
@@ -212,7 +213,8 @@ PATHS = {
         ssd_bwd=0)),
 }
 BATCH, GEN = 4, 32
-# the kernel path every bf16 main-path launch must take
+# the kernel path every bf16 main-path launch must take (every width here
+# is a multiple of 8, so TMA describes each GEMM operand)
 MAIN_PATH_KERNEL = {"tatp_matmul": "wgmma", "flash_attention": "mma",
                     "flash_attention_bwd": "mma"}
 
@@ -1138,9 +1140,10 @@ def lm_head_timing(torch, randn):
 # flash backward checks: (name, Hq, Hkv, Sq, Skv, causal, window, cap).
 # With q scaled by ``cap_scale`` most scores lie beyond the cap.  At caps 1
 # and 0.5 the softmax stays spread; at cap 30 (a model's) it is nearly
-# one-hot, so dS = P (dP - rowsum(dO O)) cancels and only an fp32-accurate
-# delta keeps dQ and dK at autograd's fp32 values.  A capped case's
-# gradients take atol scaled by the gradient's RMS (``rms="tensor"``).
+# one-hot, so dS = P (dP - rowsum(dO O)) cancels: only an fp32-accurate
+# delta, and P and dS taken as two bf16 terms, keep the gradients at
+# autograd's fp32 values.  A capped case's gradients take atol scaled by
+# the gradient's RMS (``rms="tensor"``).
 ATTN_BWD_CASES = (
     ("causal", 4, 4, 100, 100, True, None, None),
     ("non-causal", 4, 4, 100, 100, False, None, None),
@@ -1167,11 +1170,12 @@ def flash_grads(torch, fn, q, k, v, do, **kw):
 def phase_flash_backward(torch, randn):
     """The flash backward kernel (through ``attention``'s autograd
     Function) against autograd through attention_ref: fp32 and bf16, every
-    mask option, GQA, ragged and fully masked rows, D 64, 80 and 128, and
-    deepseek-7b's train shape, where two launches must give bitwise equal
-    gradients; then its time at deepseek-7b's and zamba2-2.7b's train
-    shapes beside its bound, the plain version's backward and SDPA's.
-    Returns the kernels-line record."""
+    mask option, GQA, ragged and fully masked rows, D 64, 80, 128 and 256
+    (bf16 on ``mma`` at every D), and deepseek-7b's train shape, where two
+    launches must give bitwise equal gradients; then its time at
+    deepseek-7b's and zamba2-2.7b's train shapes beside its bound, the
+    plain version's backward and SDPA's.  Returns the kernels-line
+    record."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ops import (_forward, attention,
                                                          attention_bwd)
@@ -1181,10 +1185,11 @@ def phase_flash_backward(torch, randn):
     max_err = 0.0
     for dt in (torch.float32, torch.bfloat16):
         tol = ATTN_TOL["bfloat16" if dt == torch.bfloat16 else "float32"]
+        path = "mma" if dt == torch.bfloat16 else "simt"
         for d in (64, 80, 128, 256):
-            # D 256: the CUDA-core backward for bf16 too; a few cases
-            cases = ATTN_BWD_CASES if d < 256 else ATTN_BWD_CASES[-3:]
-            path = "mma" if dt == torch.bfloat16 and d <= 128 else "simt"
+            # fp32 at D 256 (off the main paths): a few cases
+            cases = (ATTN_BWD_CASES if d < 256 or path == "mma"
+                     else ATTN_BWD_CASES[-3:])
             for name, hq, hkv, sq, skv, causal, window, cap in cases:
                 q = randn(2, hq, sq, d, dtype=dt, scale=cap_scale(cap))
                 k = randn(2, hkv, skv, d, dtype=dt)
@@ -1278,8 +1283,9 @@ def phase_flash_backward(torch, randn):
     row = rows["deepseek-7b"]
     return dict(
         name="flash_attention_bwd", route="cuda", path="mma",
-        design="two launches (dQ with delta, then dK/dV); wgmma at D 80 "
-               "and 128 with aligned rows, mma.sync otherwise",
+        design="two launches (dQ, whose first sweep forms delta, then "
+               "dK/dV); wgmma at D 256 (dK/dV on two warpgroups) and at D "
+               "80 and 128 with aligned rows, mma.sync otherwise",
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="none: the Pallas kernel "
                  "src/repro/kernels/flash_attention/kernel.py:26 has no "
@@ -1298,11 +1304,12 @@ def phase_flash_backward(torch, randn):
 # flash attention timed at the new architectures' shapes: (arch, block
 # part, layer kind) of one prefill attention call (:func:`attention_shape`
 # at the serve path's batch and prompt, the encoder's frames), and of the
-# backward at one train attention call (D 256: the CUDA cores)
+# backward at one train attention call at D 256 (gemma2's the windowed,
+# soft-capped slot, with no library yardstick)
 FLASH_ARCH_ROWS = (("gemma2-9b", "dec", "L"), ("gemma-7b", "dec", "G"),
                    ("seamless-m4t-large-v2", "enc", "G"),
                    ("seamless-m4t-large-v2", "cross", "X"))
-FLASH_BWD_ARCH = ("gemma-7b", "dec", "G")
+FLASH_BWD_ARCH = (("gemma-7b", "dec", "G"), ("gemma2-9b", "dec", "L"))
 
 
 def phase_flash_arch_rows(torch, randn):
@@ -1311,13 +1318,14 @@ def phase_flash_arch_rows(torch, randn):
     forward at gemma2-9b's windowed, soft-capped prefill (no library
     yardstick: SDPA takes no soft-cap), gemma-7b's prefill (D 256),
     seamless's bidirectional encoder and its cross attention of the
-    prompt's queries to the frames (against SDPA), and the backward at
-    gemma-7b's train shape on the CUDA cores (D 256 >
-    ``MAX_MMA_BWD_HEAD_DIM``, against SDPA's backward).  Each asserts its
-    path and is timed beside its bound over the pairs its masks leave
-    (:func:`attn_pairs`); :func:`phase_path_shapes` checks every one of
-    these shapes against the plain version.  Returns (forward rows,
-    backward row)."""
+    prompt's queries to the frames (against SDPA), and the backward on
+    ``mma`` at D 256: gemma-7b's train shape (against SDPA's backward) and
+    gemma2-9b's windowed, soft-capped one (q scaled by
+    :func:`cap_scale`), where two launches must give bitwise equal
+    gradients.  Each asserts its path and is timed beside its bound over
+    the pairs its masks leave (:func:`attn_pairs`);
+    :func:`phase_path_shapes` checks every one of these shapes against the
+    plain version.  Returns (forward rows, backward rows)."""
     import torch.nn.functional as F
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention.ops import (_bwd_path,
@@ -1369,50 +1377,71 @@ def phase_flash_arch_rows(torch, randn):
         log(f"  timing {name}: {json.dumps(row)}")
         fwd_rows.append(row)
 
-    arch, part, kind = FLASH_BWD_ARCH
     b, s = TRAIN["batch"], TRAIN["seq"]
-    h, hkv, d, *_ = attention_shape(get_config(arch), part, kind, s)
-    need(hkv == h, f"{arch}: the timed backward assumes no GQA")
-    name = f"{arch} train"
-    path = _bwd_path(bf, d)
-    q, k, v, do = (layout(b, h, s, d) for _ in range(4))
-    o, lse = _forward(q, k, v, True, None, None, None, want_lse=True)
-    before = attention_bwd.launches_by_path[path]
-    attention_bwd(q, k, v, o, lse, do, causal=True)
-    torch.cuda.synchronize()
-    need(path == "simt" and
-         attention_bwd.launches_by_path[path] == before + 1,
-         f"flash backward {name}: did not take the CUDA-core path")
-    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+    bwd_rows = []
+    for arch, part, kind in FLASH_BWD_ARCH:
+        h, hkv, d, _, _, causal, window, cap = attention_shape(
+            get_config(arch), part, kind, s)
+        kw = dict(causal=causal, window=window, cap=cap)
+        name = f"{arch} train, {part} {kind}"
+        path = _bwd_path(bf, d)
+        q = layout(b, h, s, d, cap_scale(cap))
+        k, v = layout(b, hkv, s, d), layout(b, hkv, s, d)
+        do = layout(b, h, s, d)
+        o, lse = _forward(q, k, v, causal, window, cap, None, want_lse=True)
+        before = attention_bwd.launches_by_path["mma"]
+        first = attention_bwd(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        need(path == "mma" and
+             attention_bwd.launches_by_path["mma"] == before + 1,
+             f"flash backward {name}: did not take mma")
+        if cap is not None:
+            again = attention_bwd(q, k, v, o, lse, do, **kw)
+            same = all(torch.equal(x, y) for x, y in zip(first, again))
+            log(f"  determinism {name} {[b, h, s, d]}: two launches "
+                f"bitwise equal on dq, dk, dv: {same}")
+            need(same, f"flash backward {name}: gradients differ between "
+                 f"two launches on the same inputs")
 
-    def sdpa_fwd_bwd():
-        qq, kk, vv = (t.detach().requires_grad_(True) for t in (qc, kc, vc))
-        torch.autograd.grad(F.scaled_dot_product_attention(
-            qq, kk, vv, is_causal=True), (qq, kk, vv), do)
+        def ref_fwd_bwd():
+            qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
+            torch.autograd.grad(attention_ref(qq, kk, vv, **kw),
+                                (qq, kk, vv), do)
 
-    def ref_fwd_bwd():
-        qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
-        torch.autograd.grad(attention_ref(qq, kk, vv, causal=True),
-                            (qq, kk, vv), do)
+        bwd = dict(
+            name=name, shape=[b, h, s, d], kv_heads=hkv, window=window,
+            cap=cap, path=path,
+            ms=time_ms(torch, lambda: attention_bwd(q, k, v, o, lse, do,
+                                                    **kw), 10),
+            plain_ms=(time_ms(torch, ref_fwd_bwd, 3, 1)
+                      - time_ms(torch, lambda: attention_ref(q, k, v, **kw),
+                                3, 1)),
+            library_ms=None, library="none: SDPA takes no soft-cap")
+        if cap is None and window is None and hkv == h:
+            qc, kc, vc = (t.contiguous() for t in (q, k, v))
 
-    bwd = dict(
-        name=name, shape=[b, h, s, d], path=path,
-        ms=time_ms(torch, lambda: attention_bwd(q, k, v, o, lse, do,
-                                                causal=True), 5, 1),
-        plain_ms=(time_ms(torch, ref_fwd_bwd, 3, 1)
-                  - time_ms(torch, lambda: attention_ref(q, k, v,
-                                                         causal=True), 3, 1)),
-        library_ms=(time_ms(torch, sdpa_fwd_bwd, 10)
-                    - time_ms(torch, lambda: F.scaled_dot_product_attention(
-                        qc, kc, vc, is_causal=True), 10)))
-    pairs = b * h * attn_pairs(s, s, True, None)
-    bwd["bound_ms"], bwd["bound_by"] = bound(
-        10 * pairs * d, 8 * b * h * s * d * 2 + 2 * b * h * s * 4,
-        "bfloat16")
-    bwd["share_of_bound"] = bwd["bound_ms"] / bwd["ms"]
-    bwd["library_ratio"] = bwd["ms"] / bwd["library_ms"]
-    log(f"  timing backward {name}: {json.dumps(bwd)}")
-    return fwd_rows, bwd
+            def sdpa_fwd_bwd():
+                qq, kk, vv = (t.detach().requires_grad_(True)
+                              for t in (qc, kc, vc))
+                torch.autograd.grad(F.scaled_dot_product_attention(
+                    qq, kk, vv, is_causal=causal), (qq, kk, vv), do)
+
+            bwd["library"] = "scaled_dot_product_attention"
+            bwd["library_ms"] = (
+                time_ms(torch, sdpa_fwd_bwd, 10)
+                - time_ms(torch, lambda: F.scaled_dot_product_attention(
+                    qc, kc, vc, is_causal=causal), 10))
+            bwd["library_ratio"] = bwd["ms"] / bwd["library_ms"]
+        # five products over the attended pairs; q, o, dO, dQ (Hq heads)
+        # and k, v, dK, dV (Hkv heads) moved once, lse and delta per row
+        pairs = b * h * attn_pairs(s, s, causal, window)
+        bwd["bound_ms"], bwd["bound_by"] = bound(
+            10 * pairs * d, 8 * b * (h + hkv) * s * d + 2 * b * h * s * 4,
+            "bfloat16")
+        bwd["share_of_bound"] = bwd["bound_ms"] / bwd["ms"]
+        log(f"  timing backward {name}: {json.dumps(bwd)}")
+        bwd_rows.append(bwd)
+    return fwd_rows, bwd_rows
 
 
 def phase_path_shapes(torch, randn):
@@ -1429,13 +1458,13 @@ def phase_path_shapes(torch, randn):
     at every prefill's attention shape (causal, windowed, soft-capped,
     bidirectional over the frames, or cross over them) and, through
     autograd against autograd through attention_ref, forward and backward
-    (``mma`` at D <= 128, ``simt`` above) at every train shape, in the
-    model's ``[B, S, H, D]`` layout viewed as ``[B, H, S, D]``.  A
-    soft-capped shape scales q so most scores lie beyond the cap
-    (:func:`cap_scale`), so its softmax is nearly one-hot and its
-    backward needs an fp32-accurate delta.  Flash outputs take ``atol``
-    scaled by each row's RMS below 1, a soft-capped shape's gradients by
-    the tensor's (:func:`compare`).  A shape two paths share is checked once.
+    (both ``mma``) at every train shape, in the model's ``[B, S, H, D]``
+    layout viewed as ``[B, H, S, D]``.  A soft-capped shape scales q so most
+    scores lie beyond the cap (:func:`cap_scale`), so its softmax is nearly
+    one-hot and its backward needs an fp32-accurate delta.  Flash outputs take
+    ``atol`` scaled by each row's RMS below 1, a soft-capped shape's
+    gradients by the tensor's (:func:`compare`).  A shape two paths share is
+    checked once.
     Returns the largest error by kernels-line record."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention.ops import (_bwd_path,
@@ -1685,18 +1714,6 @@ def prefill_launches(cfg):
     return n
 
 
-def main_path_kernels(cfg):
-    """The kernel path every bf16 launch of ``cfg``'s main paths must take:
-    the GEMM on ``wgmma`` (every width here is a multiple of 8, so TMA
-    describes each operand), flash forward on ``mma``, and flash backward
-    on ``mma`` at D <= 128, else on the CUDA cores (``simt``)."""
-    from repro_torch.kernels.flash_attention.ops import MAX_MMA_BWD_HEAD_DIM
-    out = dict(MAIN_PATH_KERNEL)
-    if cfg.head_dim > MAX_MMA_BWD_HEAD_DIM:
-        out["flash_attention_bwd"] = "simt"
-    return out
-
-
 def serve_bundle(torch, cfg, **hooks):
     from repro_torch.configs.base import ParallelConfig
     from repro_torch.core.dist import Dist
@@ -1908,7 +1925,7 @@ def phase_main_path(torch, arch):
     need(launches == spec["launches"],
          f"{arch}: launches {launches} != {spec['launches']}")
     # every GEMM on wgmma + TMA, every flash on the tensor cores
-    for name, path in main_path_kernels(cfg).items():
+    for name, path in MAIN_PATH_KERNEL.items():
         need(paths[name][path] == launches[name],
              f"{arch}: {name} launches by path {paths[name]}, want all "
              f"{launches[name]} on {path}")
@@ -2257,7 +2274,7 @@ def phase_train_main(torch, arch, n_layers):
              f"want {want}")
         need(lay == want_layouts, f"train step {step}: GEMM layouts {lay}, "
              f"want {want_layouts}")
-        for name, path in main_path_kernels(cfg).items():
+        for name, path in MAIN_PATH_KERNEL.items():
             need(paths[name][path] == launched[name],
                  f"train: {name} launches by path {paths[name]}, want all "
                  f"on {path}")
@@ -2529,14 +2546,13 @@ def main() -> int:
     randn = make_randn(torch, 1)
     kernels += phase_gemm_layouts(torch, randn)
     kernels.append(phase_flash_backward(torch, randn))
-    fwd_rows, bwd_row = phase_flash_arch_rows(torch, randn)
+    fwd_rows, bwd_rows = phase_flash_arch_rows(torch, randn)
     path_errs = phase_path_shapes(torch, randn)
     for k in kernels:
         if k["name"] == "flash_attention":
             k["arch_shapes"] = fwd_rows
         if k["name"] == "flash_attention_bwd":
-            k["arch_shapes"] = [bwd_row]
-            k["path"] = "mma at D <= 128, simt at D 256"
+            k["arch_shapes"] = bwd_rows
         if k["name"] in path_errs:
             k["max_abs_err"] = max(k["max_abs_err"], path_errs[k["name"]])
     kernels.append(phase_ssd_backward(torch, randn))

@@ -12,7 +12,8 @@ events behind a device-side spin, as ``chip_smoke.py:time_ms``):
 
 * the flash backward (``attention_bwd``, bf16, causal, ``[B, S, H, D]``
   activations viewed as ``[B, H, S, D]``) at deepseek-7b's train shape
-  [4, 32, 512, 128] and zamba2-2.7b's [4, 32, 512, 80], beside its bound
+  [4, 32, 512, 128], zamba2-2.7b's [4, 32, 512, 80] and gemma-7b's
+  [4, 16, 512, 256], beside its bound
   (five products over the causal pairs; each tensor moved once) and
   SDPA's backward (autograd's forward and backward less the forward);
 * the SSD backward (``ssd_intra_chunk_bwd``, fp32) at mamba2-780m's
@@ -43,7 +44,8 @@ PEAK_BF16, PEAK_TF32X3, PEAK_F32, PEAK_BYTES = 989e12, 495e12 / 3, 67e12, \
     3.35e12
 SPIN_HZ = 1.98e9
 FLASH_SHAPES = {"deepseek-7b": (4, 32, 512, 128),
-                "zamba2-2.7b": (4, 32, 512, 80)}
+                "zamba2-2.7b": (4, 32, 512, 80),
+                "gemma-7b": (4, 16, 512, 256)}
 SSD_SHAPES = {"mamba2-780m": (8, 256, 48, 64, 128),
               "zamba2-2.7b": (8, 256, 80, 64, 64)}
 TRAIN_RUNS = (("deepseek-7b", 4), ("mamba2-780m", 48), ("zamba2-2.7b", 54))

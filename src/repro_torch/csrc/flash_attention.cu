@@ -45,30 +45,35 @@
 //     converted to fp32 in shared memory with a padded pitch (D + 1).
 //
 // The backward (flash_attention_bwd_launch) has no Pallas counterpart: the
-// reference differentiates its jnp attention.  What bounds it on this
-// card: at deepseek-7b's train shape ([4, 32, 512, 128] bf16, causal) its
-// five products over the causal pairs take 21.5 GFLOP (22 us at 989
-// TFLOP/s) beside 0.135 GB of tensors moved once (40 us at 3.35 TB/s), so
-// bytes bound it at 0.0402 ms.  mma.sync, whose warps own 16 rows, reads
-// every B fragment from shared memory once a warp and stalled on that and
-// on latency at ~27 % of its own rate (PERF.md §6); so at D 80 and 128
-// (bf16, aligned rows) both backward kernels run on wgmma: 64-row
-// warpgroup tiles whose operands the tensor cores read from
-// 128-byte-swizzled shared memory once for all four warps, P^T and dS
-// (dS^T) fed from registers.  dQ is recomputed in its own kernel, so no
-// atomics are needed (two launches; gradients bitwise repeatable).  The
-// dQ kernel also forms delta = rowsum(dO O) for both, as rowsum(P dP) in
-// fp32 over a first sweep of its key tiles: where scores pass a soft-cap
-// the softmax is nearly one-hot, dS = P (dP - delta) cancels, and a delta
-// from the bf16 O (or from an fp32 O whose P was rounded to bf16 in the
-// forward) puts that rounding into dS.  The sweep costs the dQ kernel its
-// S and dP products again.  Measured (scripts/compare_backward.py, NVIDIA
-// H100 80GB HBM3, 700.00 W): 0.188 ms at [4, 32, 512, 128] (0.172 with
-// delta from the bf16 O), 21 % of that bound, 1.34x SDPA's backward
-// (0.140); 0.156 ms at [4, 32, 512, 80] (0.132), 16 %, 1.42x SDPA
-// (0.109).  What is left: each block runs its products, its softmax
-// gradient and its next products in turn, and two blocks an SM do not
-// hide all of it.
+// reference differentiates its jnp attention.  What bounds it on this card:
+// at deepseek-7b's train shape ([4, 32, 512, 128] bf16, causal) its five
+// products over the causal pairs take 21.5 GFLOP (22 us at 989 TFLOP/s)
+// beside 0.135 GB of tensors moved once (40 us at 3.35 TB/s), so bytes bound
+// it at 0.0402 ms.  mma.sync, whose warps own 16 rows, reads every B fragment
+// from shared memory once a warp and stalled on that and on latency at ~27 %
+// of its own rate (PERF.md §6); so at D 80 and 128 (bf16, aligned rows) and
+// at D 256 both backward kernels run on wgmma: 64-row warpgroup tiles whose
+// operands the tensor cores read from 128-byte-swizzled shared memory once
+// for all four warps, P^T and dS (dS^T) fed from registers.  At D 256 the
+// dK/dV kernel gives dV and dK, m64n256 accumulators of 128 registers a
+// thread each, to two warpgroups (flash_bwd_dkdv_wgmma2): 0.226 ms at
+// gemma-7b's [4, 16, 512, 256] (chip_smoke.py, the card below; 1.40x
+// SDPA's backward, 0.161), where the
+// CUDA-core kernels took 7.26 ms.  dQ is recomputed in its own kernel, so no
+// atomics are needed (two launches; gradients bitwise repeatable).  The dQ
+// kernel also forms delta = rowsum(dO O) for both, as rowsum(P dP) in fp32
+// over a first sweep of its key tiles: where scores pass a soft-cap the
+// softmax is nearly one-hot, dS = P (dP - delta) cancels, and a delta from
+// the bf16 O (or from an fp32 O whose P was rounded to bf16 in the forward)
+// puts that rounding into dS.  The sweep costs the dQ kernel its S and dP
+// products again.  Under a soft-cap the kernels also take P and dS into their
+// products as two bf16 terms (frag_bf16).  Measured
+// (scripts/compare_backward.py, NVIDIA H100 80GB HBM3, 700.00 W): 0.188 ms
+// at [4, 32, 512, 128] (0.172 with delta from the bf16 O), 21 % of that
+// bound, 1.34x SDPA's backward (0.140); 0.156 ms at [4, 32, 512, 80]
+// (0.132), 16 %, 1.42x SDPA (0.109).  What is left: each block runs its
+// products, its softmax gradient and its next products in turn, and two
+// blocks an SM do not hide all of it.
 
 #include <stdint.h>
 
@@ -583,13 +588,11 @@ int launch_mma_d(const void* q, const void* k, const void* v, void* o,
 }
 
 // ---------------------------------------------------------------------------
-// backward: CUDA-core SIMT, fp32 arithmetic for fp32 and bf16 operands
+// backward: CUDA-core SIMT, fp32
 // ---------------------------------------------------------------------------
 //
 // After FlashAttention-2's split, without atomics, so gradients are
-// deterministic: (1) delta = rowsum(dO * O) (for bf16, whose O is
-// rounded, the dQ kernel (3) forms it as rowsum(P dP) over a first sweep
-// and runs first); (2) dK/dV, one block per
+// deterministic: (1) delta = rowsum(dO * O); (2) dK/dV, one block per
 // (batch * kv-head, 32-key tile), walking the group's q heads and the query
 // tiles that can see its keys (from the causal diagonal on, up to the
 // window's edge) and summing over them in registers; (3) dQ, one block per
@@ -598,26 +601,22 @@ int launch_mma_d(const void* q, const void* k, const void* v, void* o,
 // selected to 0 where masked (so a fully masked row gets no gradient, not
 // NaN), and dS = P (dP - delta), times 1 - tanh^2(s / cap) under a
 // soft-cap, times the scale.  Like the forward's SIMT path: four threads a
-// row, tiles converted to fp32 in shared memory with a padded pitch.
+// row, tiles in shared memory with a padded pitch.
 
 constexpr int BBQ = 32;  // query rows per tile
 constexpr int BBK = 32;  // keys per tile
 
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store_out(bf16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 
 // rows [r0, r0 + ROWS) of a [S, D] matrix (row stride ld) as fp32 into a
 // [ROWS][D + 1] tile, zero past S
-template <typename T, int ROWS>
-__device__ __forceinline__ void load_f32(float* dst, const T* src, int r0,
+template <int ROWS>
+__device__ __forceinline__ void load_f32(float* dst, const float* src, int r0,
                                          int S, int D, int64_t ld) {
   const int pitch = D + 1;
   for (int e = threadIdx.x; e < ROWS * D; e += THREADS) {
     const int r = e / D, c = e % D;
     dst[r * pitch + c] =
-        r0 + r < S ? to_f(src[static_cast<int64_t>(r0 + r) * ld + c]) : 0.f;
+        r0 + r < S ? src[static_cast<int64_t>(r0 + r) * ld + c] : 0.f;
   }
 }
 
@@ -646,9 +645,8 @@ __device__ __forceinline__ bool live(int qpos, int kpos, int Sq, int Skv,
 
 // delta[row] = sum_d dO[row, d] O[row, d] over the B * Hq * Sq rows, one
 // warp a row
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
-    flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout,
+    flash_bwd_delta(const float* __restrict__ o, const float* __restrict__ dout,
                     float* __restrict__ delta, int Hq, int Sq, int D,
                     int64_t rows, int64_t osb, int64_t osh, int64_t oss,
                     int64_t dsb, int64_t dsh, int64_t dss) {
@@ -658,10 +656,10 @@ __global__ void __launch_bounds__(THREADS)
   if (row >= rows) return;
   const int64_t i = row % Sq, bh = row / Sq;
   const int64_t b = bh / Hq, h = bh % Hq;
-  const T* orow = o + b * osb + h * osh + i * oss;
-  const T* drow = dout + b * dsb + h * dsh + i * dss;
+  const float* orow = o + b * osb + h * osh + i * oss;
+  const float* drow = dout + b * dsb + h * dsh + i * dss;
   float acc = 0.f;
-  for (int d = lane; d < D; d += 32) acc += to_f(orow[d]) * to_f(drow[d]);
+  for (int d = lane; d < D; d += 32) acc += orow[d] * drow[d];
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
@@ -675,19 +673,19 @@ size_t bwd_smem_bytes(int D) {
                           2 * static_cast<size_t>(BBQ));
 }
 
-template <typename T, int DMAX>
+template <int DMAX>
 __global__ void __launch_bounds__(THREADS)
-    flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, const T* __restrict__ dout,
+    flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, const float* __restrict__ dout,
                    const float* __restrict__ lse,
-                   const float* __restrict__ delta, T* __restrict__ dk,
-                   T* __restrict__ dv, int Hq, int Hkv, int Sq, int Skv,
-                   int D, int64_t qsb, int64_t qsh, int64_t qss, int64_t ksb, int64_t ksh,
-                   int64_t kss, int64_t vsb, int64_t vsh, int64_t vss,
-                   int64_t dsb, int64_t dsh, int64_t dss, int64_t dksb,
-                   int64_t dksh, int64_t dkss, int64_t dvsb, int64_t dvsh,
-                   int64_t dvss, float scale, int causal, int window,
-                   float cap) {
+                   const float* __restrict__ delta, float* __restrict__ dk,
+                   float* __restrict__ dv, int Hq, int Hkv, int Sq, int Skv,
+                   int D, int64_t qsb, int64_t qsh, int64_t qss,
+                   int64_t ksb, int64_t ksh, int64_t kss, int64_t vsb,
+                   int64_t vsh, int64_t vss, int64_t dsb, int64_t dsh,
+                   int64_t dss, int64_t dksb, int64_t dksh, int64_t dkss,
+                   int64_t dvsb, int64_t dvsh, int64_t dvss, float scale,
+                   int causal, int window, float cap) {
   extern __shared__ float smem[];
   const int ld = D + 1;
   float* ks = smem;              // [BBK][ld]
@@ -707,8 +705,8 @@ __global__ void __launch_bounds__(THREADS)
   const int j0 = blockIdx.y * BBK;
   const int kpos = j0 + row;
 
-  load_f32<T, BBK>(ks, k + b * ksb + hk * ksh, j0, Skv, D, kss);
-  load_f32<T, BBK>(vs, v + b * vsb + hk * vsh, j0, Skv, D, vss);
+  load_f32<BBK>(ks, k + b * ksb + hk * ksh, j0, Skv, D, kss);
+  load_f32<BBK>(vs, v + b * vsb + hk * vsh, j0, Skv, D, vss);
 
   float dka[DMAX / 4], dva[DMAX / 4];
 #pragma unroll
@@ -720,14 +718,14 @@ __global__ void __launch_bounds__(THREADS)
 
   for (int g = 0; g < G; ++g) {
     const int h = hk * G + g;
-    const T* qb = q + b * qsb + h * qsh;
-    const T* db = dout + b * dsb + h * dsh;
+    const float* qb = q + b * qsb + h * qsh;
+    const float* db = dout + b * dsb + h * dsh;
     const float* lb = lse + (static_cast<int64_t>(b) * Hq + h) * Sq;
     const float* deb = delta + (static_cast<int64_t>(b) * Hq + h) * Sq;
     for (int i0 = q_begin; i0 < q_end; i0 += BBQ) {
       __syncthreads();  // K, V staged / previous tile's reads done
-      load_f32<T, BBQ>(qs, qb, i0, Sq, D, qss);
-      load_f32<T, BBQ>(dos, db, i0, Sq, D, dss);
+      load_f32<BBQ>(qs, qb, i0, Sq, D, qss);
+      load_f32<BBQ>(dos, db, i0, Sq, D, dss);
       if (tid < BBQ) {
         lse_s[tid] = i0 + tid < Sq ? lb[i0 + tid] : 0.f;
         dl_s[tid] = i0 + tid < Sq ? deb[i0 + tid] : 0.f;
@@ -777,34 +775,31 @@ __global__ void __launch_bounds__(THREADS)
   }
 
   if (kpos < Skv) {
-    T* dkr = dk + b * dksb + hk * dksh + static_cast<int64_t>(kpos) * dkss;
-    T* dvr = dv + b * dvsb + hk * dvsh + static_cast<int64_t>(kpos) * dvss;
+    float* dkr = dk + b * dksb + hk * dksh + static_cast<int64_t>(kpos) * dkss;
+    float* dvr = dv + b * dvsb + hk * dvsh + static_cast<int64_t>(kpos) * dvss;
 #pragma unroll
     for (int e = 0; e < DMAX / 4; ++e) {
       const int d = sub + 4 * e;
       if (d < D) {
-        store_out(&dkr[d], dka[e]);
-        store_out(&dvr[d], dva[e]);
+        dkr[d] = dka[e];
+        dvr[d] = dva[e];
       }
     }
   }
 }
 
-// SWEEP: delta is formed here, rowsum(P dP) over a first sweep of the key
-// tiles, and written for the dK/dV kernel (bf16: its O is rounded); else
-// it is read
-template <typename T, int DMAX, bool SWEEP>
+template <int DMAX>
 __global__ void __launch_bounds__(THREADS)
-    flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ dout,
+    flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ dout,
                  const float* __restrict__ lse,
-                 float* __restrict__ delta, T* __restrict__ dq, int Hq,
-                 int Hkv, int Sq, int Skv, int D, int64_t qsb, int64_t qsh,
-                 int64_t qss, int64_t ksb, int64_t ksh, int64_t kss,
-                 int64_t vsb, int64_t vsh, int64_t vss, int64_t dsb,
-                 int64_t dsh, int64_t dss, int64_t dqsb, int64_t dqsh,
-                 int64_t dqss, float scale, int causal, int window,
-                 float cap) {
+                 const float* __restrict__ delta, float* __restrict__ dq,
+                 int Hq, int Hkv, int Sq, int Skv, int D, int64_t qsb,
+                 int64_t qsh, int64_t qss, int64_t ksb, int64_t ksh,
+                 int64_t kss, int64_t vsb, int64_t vsh, int64_t vss,
+                 int64_t dsb, int64_t dsh, int64_t dss, int64_t dqsb,
+                 int64_t dqsh, int64_t dqss, float scale, int causal,
+                 int window, float cap) {
   extern __shared__ float smem[];
   const int ld = D + 1;
   float* qs = smem;             // [BBQ][ld]
@@ -821,13 +816,13 @@ __global__ void __launch_bounds__(THREADS)
   const int q0 = blockIdx.y * BBQ;
   const int qpos = q0 + row;
 
-  const T* kb = k + b * ksb + hk * ksh;
-  const T* vb = v + b * vsb + hk * vsh;
-  load_f32<T, BBQ>(qs, q + b * qsb + h * qsh, q0, Sq, D, qss);
-  load_f32<T, BBQ>(dos, dout + b * dsb + h * dsh, q0, Sq, D, dss);
+  const float* kb = k + b * ksb + hk * ksh;
+  const float* vb = v + b * vsb + hk * vsh;
+  load_f32<BBQ>(qs, q + b * qsb + h * qsh, q0, Sq, D, qss);
+  load_f32<BBQ>(dos, dout + b * dsb + h * dsh, q0, Sq, D, dss);
   const int64_t r = (static_cast<int64_t>(b) * Hq + h) * Sq + qpos;
   const float my_lse = qpos < Sq ? lse[r] : 0.f;
-  float my_delta = !SWEEP && qpos < Sq ? delta[r] : 0.f;
+  const float my_delta = qpos < Sq ? delta[r] : 0.f;
 
   float dqa[DMAX / 4];
 #pragma unroll
@@ -839,98 +834,80 @@ __global__ void __launch_bounds__(THREADS)
   int k_begin = 0;
   if (window > 0) k_begin = max(0, q0 - window + 1) / BBK * BBK;
 
-  for (int sweep = SWEEP ? 0 : 1; sweep < 2; ++sweep) {
-    if (sweep == 1 && SWEEP) {
-      my_delta += __shfl_xor_sync(0xffffffffu, my_delta, 1);
-      my_delta += __shfl_xor_sync(0xffffffffu, my_delta, 2);
-      if (sub == 0 && qpos < Sq) delta[r] = my_delta;
-    }
-    for (int j0 = k_begin; j0 < k_end; j0 += BBK) {
-      __syncthreads();  // Q, dO staged / previous tile's reads done
-      load_f32<T, BBK>(ks, kb, j0, Skv, D, kss);
-      load_f32<T, BBK>(vs, vb, j0, Skv, D, vss);
-      __syncthreads();
+  for (int j0 = k_begin; j0 < k_end; j0 += BBK) {
+    __syncthreads();  // Q, dO staged / previous tile's reads done
+    load_f32<BBK>(ks, kb, j0, Skv, D, kss);
+    load_f32<BBK>(vs, vb, j0, Skv, D, vss);
+    __syncthreads();
 
-      float s[BBK / 4], dp[BBK / 4];
+    float s[BBK / 4], dp[BBK / 4];
 #pragma unroll
-      for (int jj = 0; jj < BBK / 4; ++jj) s[jj] = dp[jj] = 0.f;
-      for (int d = 0; d < D; ++d) {
-        const float qv = qs[row * ld + d], ov = dos[row * ld + d];
-#pragma unroll
-        for (int jj = 0; jj < BBK / 4; ++jj) {
-          s[jj] = fmaf(qv, ks[(sub + 4 * jj) * ld + d], s[jj]);
-          dp[jj] = fmaf(ov, vs[(sub + 4 * jj) * ld + d], dp[jj]);
-        }
-      }
+    for (int jj = 0; jj < BBK / 4; ++jj) s[jj] = dp[jj] = 0.f;
+    for (int d = 0; d < D; ++d) {
+      const float qv = qs[row * ld + d], ov = dos[row * ld + d];
 #pragma unroll
       for (int jj = 0; jj < BBK / 4; ++jj) {
-        const int j = sub + 4 * jj;
-        float p;
-        const float ds =
-            grad_s(s[jj], dp[jj], my_lse, my_delta,
-                   live(qpos, j0 + j, Sq, Skv, causal, window), scale, cap,
-                   &p);
-        if (sweep == 0)
-          my_delta += p * dp[jj];  // this lane's part of rowsum(P dP)
-        else
-          ds_s[row * (BBK + 1) + j] = ds;
+        s[jj] = fmaf(qv, ks[(sub + 4 * jj) * ld + d], s[jj]);
+        dp[jj] = fmaf(ov, vs[(sub + 4 * jj) * ld + d], dp[jj]);
       }
-      if (sweep == 0) continue;
-      __syncwarp();  // the row's dS is written by the 4 lanes that read it
-
-      for (int j = 0; j < BBK; ++j) {
-        const float ds = ds_s[row * (BBK + 1) + j];
-        const float* kr = ks + j * ld;
+    }
 #pragma unroll
-        for (int e = 0; e < DMAX / 4; ++e) {
-          const int d = sub + 4 * e;
-          if (d < D) dqa[e] = fmaf(ds, kr[d], dqa[e]);
-        }
+    for (int jj = 0; jj < BBK / 4; ++jj) {
+      const int j = sub + 4 * jj;
+      float p;
+      ds_s[row * (BBK + 1) + j] =
+          grad_s(s[jj], dp[jj], my_lse, my_delta,
+                 live(qpos, j0 + j, Sq, Skv, causal, window), scale, cap,
+                 &p);
+    }
+    __syncwarp();  // the row's dS is written by the 4 lanes that read it
+
+    for (int j = 0; j < BBK; ++j) {
+      const float ds = ds_s[row * (BBK + 1) + j];
+      const float* kr = ks + j * ld;
+#pragma unroll
+      for (int e = 0; e < DMAX / 4; ++e) {
+        const int d = sub + 4 * e;
+        if (d < D) dqa[e] = fmaf(ds, kr[d], dqa[e]);
       }
     }
   }
 
   if (qpos < Sq) {
-    T* dqr = dq + b * dqsb + h * dqsh + static_cast<int64_t>(qpos) * dqss;
+    float* dqr = dq + b * dqsb + h * dqsh + static_cast<int64_t>(qpos) * dqss;
 #pragma unroll
     for (int e = 0; e < DMAX / 4; ++e) {
       const int d = sub + 4 * e;
-      if (d < D) store_out(&dqr[d], dqa[e]);
+      if (d < D) dqr[d] = dqa[e];
     }
   }
 }
 
 // st: the (batch, head, seq) strides of q, k, v, o, dO, dQ, dK, dV
-template <typename T, int DMAX>
+template <int DMAX>
 int launch_bwd_simt(const void* q, const void* k, const void* v,
                     const void* o, const void* dout, const float* lse,
                     float* delta, void* dq, void* dk, void* dv, int B,
                     int Hq, int Hkv, int Sq, int Skv, int D,
                     const int64_t* st, float scale, int causal, int window,
                     float cap, cudaStream_t s) {
-  const T* Q = static_cast<const T*>(q);
-  const T* K = static_cast<const T*>(k);
-  const T* V = static_cast<const T*>(v);
-  const T* O = static_cast<const T*>(o);
-  const T* DO = static_cast<const T*>(dout);
-  // bf16: the dQ kernel forms delta from P and dP (a bf16 O is rounded)
-  // and runs first; fp32: delta = rowsum(dO O) by its own kernel
-  constexpr bool SWEEP = sizeof(T) < sizeof(float);
-  cudaError_t err = cudaSuccess;
-  if (!SWEEP) {
-    const int64_t rows = static_cast<int64_t>(B) * Hq * Sq;
-    const unsigned rblocks =
-        static_cast<unsigned>((rows + THREADS / 32 - 1) / (THREADS / 32));
-    flash_bwd_delta<T><<<rblocks, THREADS, 0, s>>>(
-        O, DO, delta, Hq, Sq, D, rows, st[9], st[10], st[11], st[12],
-        st[13], st[14]);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  const float* Q = static_cast<const float*>(q);
+  const float* K = static_cast<const float*>(k);
+  const float* V = static_cast<const float*>(v);
+  const float* O = static_cast<const float*>(o);
+  const float* DO = static_cast<const float*>(dout);
+  const int64_t rows = static_cast<int64_t>(B) * Hq * Sq;
+  const unsigned rblocks =
+      static_cast<unsigned>((rows + THREADS / 32 - 1) / (THREADS / 32));
+  flash_bwd_delta<<<rblocks, THREADS, 0, s>>>(
+      O, DO, delta, Hq, Sq, D, rows, st[9], st[10], st[11], st[12], st[13],
+      st[14]);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
 
   const size_t smem = bwd_smem_bytes(D);
-  auto kv_kern = flash_bwd_dkdv<T, DMAX>;
-  auto q_kern = flash_bwd_dq<T, DMAX, SWEEP>;
+  auto kv_kern = flash_bwd_dkdv<DMAX>;
+  auto q_kern = flash_bwd_dq<DMAX>;
   if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(kv_kern,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -941,32 +918,27 @@ int launch_bwd_simt(const void* q, const void* k, const void* v,
           static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  auto run_q = [&] {
-    dim3 grid(static_cast<unsigned>(B) * Hq,
-              static_cast<unsigned>((Sq + BBQ - 1) / BBQ));
-    q_kern<<<grid, THREADS, smem, s>>>(
-        Q, K, V, DO, lse, delta, static_cast<T*>(dq), Hq, Hkv, Sq, Skv, D,
-        st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-        st[12], st[13], st[14], st[15], st[16], st[17], scale, causal,
-        window, cap);
-    return cudaGetLastError();
-  };
-  if (SWEEP && (err = run_q()) != cudaSuccess) return static_cast<int>(err);
   if (Skv > 0) {
     dim3 grid(static_cast<unsigned>(B) * Hkv,
               static_cast<unsigned>((Skv + BBK - 1) / BBK));
     kv_kern<<<grid, THREADS, smem, s>>>(
-        Q, K, V, DO, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
+        Q, K, V, DO, lse, delta, static_cast<float*>(dk),
+        static_cast<float*>(dv),
         Hq, Hkv, Sq, Skv, D, st[0], st[1], st[2], st[3], st[4],
         st[5], st[6], st[7], st[8], st[12], st[13], st[14], st[18], st[19],
         st[20], st[21], st[22], st[23], scale, causal, window, cap);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  return static_cast<int>(SWEEP ? err : run_q());
+  dim3 grid(static_cast<unsigned>(B) * Hq,
+            static_cast<unsigned>((Sq + BBQ - 1) / BBQ));
+  q_kern<<<grid, THREADS, smem, s>>>(
+      Q, K, V, DO, lse, delta, static_cast<float*>(dq), Hq, Hkv, Sq, Skv, D,
+      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[12],
+      st[13], st[14], st[15], st[16], st[17], scale, causal, window, cap);
+  return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
 int launch_bwd_simt_d(const void* q, const void* k, const void* v,
                       const void* o, const void* dout, const float* lse,
                       float* delta, void* dq, void* dk, void* dv, int B,
@@ -974,46 +946,46 @@ int launch_bwd_simt_d(const void* q, const void* k, const void* v,
                       const int64_t* st, float scale, int causal, int window,
                       float cap, cudaStream_t s) {
   if (D <= 64)
-    return launch_bwd_simt<T, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv,
+    return launch_bwd_simt<64>(q, k, v, o, dout, lse, delta, dq, dk, dv,
                                   B, Hq, Hkv, Sq, Skv, D, st, scale, causal,
                                   window, cap, s);
   if (D <= 128)
-    return launch_bwd_simt<T, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv,
+    return launch_bwd_simt<128>(q, k, v, o, dout, lse, delta, dq, dk, dv,
                                    B, Hq, Hkv, Sq, Skv, D, st, scale, causal,
                                    window, cap, s);
-  return launch_bwd_simt<T, 256>(q, k, v, o, dout, lse, delta, dq, dk, dv,
+  return launch_bwd_simt<256>(q, k, v, o, dout, lse, delta, dq, dk, dv,
                                  B, Hq, Hkv, Sq, Skv, D, st, scale, causal,
                                  window, cap, s);
 }
 
 // ---------------------------------------------------------------------------
-// backward, bf16 on the tensor cores (mma.sync m16n8k16), D <= 128
+// backward, bf16 on the tensor cores (mma.sync m16n8k16, wgmma)
 // ---------------------------------------------------------------------------
 //
-// The same split and recomputation as the SIMT backward, with every
-// product on the tensor cores as in the forward's mma path, in two
-// launches.  (1) dQ, one 128-thread block per (batch * q-head, 64-row
-// query tile), warp w owning 16 query rows, heaviest causal tiles first.
-// Per 32-key tile it recomputes S = Q K^T and dP = dO V^T (K and V rows
-// as the col B operand, ldmatrix) and P: a first sweep over the tiles
-// sums delta = rowsum(P dP) of its rows in fp32 and writes it for (2), the
-// second forms dS and dQ += dS K with dS rounded to bf16 as the A
-// fragment (two adjacent n8 accumulator tiles make one k16 fragment) and K
-// through ldmatrix.trans.  K and V tiles are double-buffered with cp.async: tile
-// j + 1 loads while tile j computes.  (2) dK/dV, one block per (batch *
-// kv-head, 64-key tile), warp w owning 16 keys, walking (group head,
-// query tile) with Q, dO and the tile's lse and delta double-buffered
-// the same way; each step is one or two 32-query halves of S^T = K Q^T
-// and dP^T = V dO^T, then dV += P^T dO and dK += dS^T Q (P^T and dS^T
-// rounded to bf16, dO and Q through ldmatrix.trans).  The soft-cap is a
-// template flag, so the common uncapped kernels carry no tanh code, and
-// the softmax scale multiplies dQ and dK once at the end.  No atomics:
-// dQ is recomputed rather than summed across key tiles, so the gradients
-// are deterministic.  Tiles are loaded with 16-byte cp.async where rows
-// are 16-byte aligned, else with masked scalar loads into the same
-// layout; the accumulators stay fp32.
+// The same split and recomputation as the SIMT backward, with every product
+// on the tensor cores as in the forward's mma path, in two launches.  (1) dQ,
+// one 128-thread block per (batch * q-head, 64-row query tile), warp w owning
+// 16 query rows, heaviest causal tiles first.  Per 32-key tile it recomputes S
+// = Q K^T and dP = dO V^T (K and V rows as the col B operand, ldmatrix) and
+// P: a first sweep over the tiles sums delta = rowsum(P dP) of its rows in
+// fp32 and writes it for (2), the second forms dS and dQ += dS K with dS
+// rounded to bf16 as the A fragment (two adjacent n8 accumulator tiles make
+// one k16 fragment) and K through ldmatrix.trans.  K and V tiles are
+// double-buffered with cp.async: tile j + 1 loads while tile j computes.  (2)
+// dK/dV, one block per (batch * kv-head, 64-key tile), warp w owning 16 keys,
+// walking (group head, query tile) with Q, dO and the tile's lse and delta
+// double-buffered the same way; each step is one or two 32-query halves of
+// S^T = K Q^T and dP^T = V dO^T, then dV += P^T dO and dK += dS^T Q (P^T and
+// dS^T rounded to bf16, dO and Q through ldmatrix.trans).  The soft-cap is a
+// template flag, so the common uncapped kernels carry no tanh code, and the
+// softmax scale multiplies dQ and dK once at the end.  No atomics: dQ is
+// recomputed rather than summed across key tiles, so the gradients are
+// deterministic.  Tiles are loaded with 16-byte cp.async where rows are
+// 16-byte aligned, else with masked scalar loads into the same layout; the
+// accumulators stay fp32.
 
-// At D 80 and 128 with 16-byte aligned rows both kernels run on wgmma
+// At D 256 (to which 128 < D < 256 is padded; any row alignment) and at
+// D 80 and 128 with 16-byte aligned rows both kernels run on wgmma
 // (below); otherwise on mma.sync, with tile shapes chosen by measurement
 // on the H100 (PERF.md §6): dQ walks 32-key tiles at three blocks an SM;
 // dK/dV steps over 32 query rows at three blocks an SM for D <= 80, over
@@ -1030,6 +1002,23 @@ __device__ __forceinline__ float bwd_exp2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// An mma A fragment of 8 fp32 values (4 pairs along k) rounded to bf16
+// (hi), and what that rounding left, rounded again (lo).  Under a
+// soft-cap the gradients' sums cancel (a nearly one-hot softmax, the cap's
+// derivative near 0), so one bf16 rounding of P or dS shows in them: the
+// capped kernels take a product with hi and one with lo, whose sum keeps
+// 16 of fp32's 24 bits.
+__device__ __forceinline__ void frag_bf16(const float* v, uint32_t (&hi)[4],
+                                          uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    hi[i] = *reinterpret_cast<const uint32_t*>(&h);
+    lo[i] = pack_bf16(v[2 * i] - __low2float(h),
+                      v[2 * i + 1] - __high2float(h));
+  }
 }
 
 // the sum of x over the four lanes of a quad (the lanes that hold one
@@ -1215,13 +1204,12 @@ __global__ void __launch_bounds__(MMA_THREADS, 3)
         continue;
       }
 
-      // dQ += dS K: dS rounded to bf16 as the A fragment, K via ldmatrix.trans
+      // dQ += dS K: dS rounded to bf16 as the A fragment (under a cap also
+      // the remainder, frag_bf16), K via ldmatrix.trans
 #pragma unroll
       for (int t2 = 0; t2 < NT / 2; ++t2) {
-        const uint32_t a[4] = {pack_bf16(s[2 * t2][0], s[2 * t2][1]),
-                               pack_bf16(s[2 * t2][2], s[2 * t2][3]),
-                               pack_bf16(s[2 * t2 + 1][0], s[2 * t2 + 1][1]),
-                               pack_bf16(s[2 * t2 + 1][2], s[2 * t2 + 1][3])};
+        uint32_t a[4], alo[4];
+        frag_bf16(&s[2 * t2][0], a, alo);
 #pragma unroll
         for (int d2 = 0; d2 < DP / 16; ++d2) {
           uint32_t bfr[4];
@@ -1230,6 +1218,10 @@ __global__ void __launch_bounds__(MMA_THREADS, 3)
                                      d2 * 16 + (lane / 16) * 8);
           mma_16816(acc[2 * d2], a, bfr[0], bfr[1]);
           mma_16816(acc[2 * d2 + 1], a, bfr[2], bfr[3]);
+          if (CAP) {
+            mma_16816(acc[2 * d2], alo, bfr[0], bfr[1]);
+            mma_16816(acc[2 * d2 + 1], alo, bfr[2], bfr[3]);
+          }
         }
       }
       __syncthreads();  // the next iteration refills the other buffer
@@ -1404,19 +1396,13 @@ __global__ void __launch_bounds__(MMA_THREADS, kv_blocks<DP>())
       }
 
       // dV += P^T dO and dK += dS^T Q: P^T and dS^T rounded to bf16 as
-      // A fragments, dO and Q through ldmatrix.trans
+      // A fragments (under a cap also the remainders, frag_bf16), dO and Q
+      // through ldmatrix.trans
 #pragma unroll
       for (int t2 = 0; t2 < NQ / 2; ++t2) {
-        const uint32_t ap[4] = {
-            pack_bf16(st[2 * t2][0], st[2 * t2][1]),
-            pack_bf16(st[2 * t2][2], st[2 * t2][3]),
-            pack_bf16(st[2 * t2 + 1][0], st[2 * t2 + 1][1]),
-            pack_bf16(st[2 * t2 + 1][2], st[2 * t2 + 1][3])};
-        const uint32_t ad[4] = {
-            pack_bf16(dpt[2 * t2][0], dpt[2 * t2][1]),
-            pack_bf16(dpt[2 * t2][2], dpt[2 * t2][3]),
-            pack_bf16(dpt[2 * t2 + 1][0], dpt[2 * t2 + 1][1]),
-            pack_bf16(dpt[2 * t2 + 1][2], dpt[2 * t2 + 1][3])};
+        uint32_t ap[4], aplo[4], ad[4], adlo[4];
+        frag_bf16(&st[2 * t2][0], ap, aplo);
+        frag_bf16(&dpt[2 * t2][0], ad, adlo);
 #pragma unroll
         for (int d2 = 0; d2 < DP / 16; ++d2) {
           const int b_off = (t2 * 16 + ((lane / 8) % 2) * 8 + lane % 8) * LD +
@@ -1425,9 +1411,17 @@ __global__ void __launch_bounds__(MMA_THREADS, kv_blocks<DP>())
           ldmatrix_x4_trans(bfr, dh + b_off);
           mma_16816(dva[2 * d2], ap, bfr[0], bfr[1]);
           mma_16816(dva[2 * d2 + 1], ap, bfr[2], bfr[3]);
+          if (CAP) {
+            mma_16816(dva[2 * d2], aplo, bfr[0], bfr[1]);
+            mma_16816(dva[2 * d2 + 1], aplo, bfr[2], bfr[3]);
+          }
           ldmatrix_x4_trans(bfr, qh + b_off);
           mma_16816(dka[2 * d2], ad, bfr[0], bfr[1]);
           mma_16816(dka[2 * d2 + 1], ad, bfr[2], bfr[3]);
+          if (CAP) {
+            mma_16816(dka[2 * d2], adlo, bfr[0], bfr[1]);
+            mma_16816(dka[2 * d2 + 1], adlo, bfr[2], bfr[3]);
+          }
         }
       }
     }
@@ -1472,20 +1466,39 @@ __global__ void __launch_bounds__(MMA_THREADS, kv_blocks<DP>())
 // blocks an SM.
 constexpr int SW_TILE = 64 * 128 * 2;  // one [64][128] bf16 tile, 16 KB
 
-// byte offset of row r's 16-byte piece c (0 .. 15) in a swizzled tile
+// bytes of a swizzled tile of 64 rows and DP columns: 64-column chunks of
+// 8 KB (16 KB at DP 80 and 128, 32 KB at 256)
+template <int DP>
+__host__ __device__ constexpr int sw_tile() {
+  return (DP + 63) / 64 * 8192;
+}
+
+// byte offset of row r's 16-byte piece c (0 .. 8 * chunks - 1) in a
+// swizzled tile
 __device__ __forceinline__ int sw128(int r, int c) {
   return (c >> 3) * 8192 + r * 128 + (((c & 7) ^ (r & 7)) << 4);
 }
 
-// rows [r0, r0 + 64) of a [S, D] bf16 matrix (row stride ld, rows 16-byte
-// aligned) into a swizzled tile, zero past S and past D
+// rows [r0, r0 + 64) of a [S, D] bf16 matrix (row stride ld) into a
+// swizzled tile of NCH chunks, zero past S and past D, by NT threads:
+// 16-byte cp.async where rows are 16-byte aligned (VEC), else scalar loads
+// into the same layout (the reader's proxy fence covers both)
+template <int NCH = 2, int NT = MMA_THREADS, bool VEC = true>
 __device__ __forceinline__ void load_sw(uint8_t* dst, const bf16* src,
                                         int r0, int S, int D, int64_t ld) {
-  for (int e = threadIdx.x; e < 64 * 16; e += MMA_THREADS) {
-    const int r = e / 16, c = e % 16;
-    const bool ok = r0 + r < S && c * 8 < D;
+  for (int e = threadIdx.x; e < 64 * 8 * NCH; e += NT) {
+    const int r = e / (8 * NCH), c = e % (8 * NCH);
+    const bool in_row = r0 + r < S;
     const bf16* g = src + static_cast<int64_t>(r0 + r) * ld + c * 8;
-    cp_async16(dst + sw128(r, c), ok ? g : src, ok);
+    if (VEC) {
+      const bool ok = in_row && c * 8 < D;
+      cp_async16(dst + sw128(r, c), ok ? g : src, ok);
+    } else {
+      bf16* d = reinterpret_cast<bf16*>(dst + sw128(r, c));
+#pragma unroll
+      for (int x = 0; x < 8; ++x)
+        d[x] = (in_row && c * 8 + x < D) ? g[x] : __float2bfloat16(0.f);
+    }
   }
 }
 
@@ -1623,25 +1636,24 @@ __global__ void __launch_bounds__(MMA_THREADS, 2)
 
     // dV += P^T dO and dK += dS^T Q over the 64 queries: P^T and dS^T
     // rounded to bf16 as A fragments (two adjacent n8 blocks make one
-    // k16), dO and Q MN-major (16 query rows a k step, d chunks 8 KB
-    // apart)
+    // k16; under a cap also the remainders, frag_bf16), dO and Q MN-major
+    // (16 query rows a k step, d chunks 8 KB apart)
     wgmma_fence_regs(dva);
     wgmma_fence_regs(dka);
     wgmma_fence();
 #pragma unroll
     for (int kb = 0; kb < 4; ++kb) {
-      const uint32_t ap[4] = {pack_bf16(st[8 * kb], st[8 * kb + 1]),
-                              pack_bf16(st[8 * kb + 2], st[8 * kb + 3]),
-                              pack_bf16(st[8 * kb + 4], st[8 * kb + 5]),
-                              pack_bf16(st[8 * kb + 6], st[8 * kb + 7])};
-      const uint32_t ad[4] = {pack_bf16(dpt[8 * kb], dpt[8 * kb + 1]),
-                              pack_bf16(dpt[8 * kb + 2], dpt[8 * kb + 3]),
-                              pack_bf16(dpt[8 * kb + 4], dpt[8 * kb + 5]),
-                              pack_bf16(dpt[8 * kb + 6], dpt[8 * kb + 7])};
-      wgmma_rs<DP, 1>(dva, ap,
-                             wgmma_desc(dt + kb * 16 * 128, 8192, 1024));
-      wgmma_rs<DP, 1>(dka, ad,
-                             wgmma_desc(qt + kb * 16 * 128, 8192, 1024));
+      uint32_t ap[4], aplo[4], ad[4], adlo[4];
+      frag_bf16(&st[8 * kb], ap, aplo);
+      frag_bf16(&dpt[8 * kb], ad, adlo);
+      const uint64_t b_do = wgmma_desc(dt + kb * 16 * 128, 8192, 1024);
+      const uint64_t b_q = wgmma_desc(qt + kb * 16 * 128, 8192, 1024);
+      wgmma_rs<DP, 1>(dva, ap, b_do);
+      wgmma_rs<DP, 1>(dka, ad, b_q);
+      if (CAP) {
+        wgmma_rs<DP, 1>(dva, aplo, b_do);
+        wgmma_rs<DP, 1>(dka, adlo, b_q);
+      }
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -1674,15 +1686,220 @@ __global__ void __launch_bounds__(MMA_THREADS, 2)
   }
 }
 
-// dQ on wgmma at D 80 and 128 (DP), for 16-byte aligned rows: one
+// dK/dV on wgmma at D 256 (to which 128 < D < 256 is padded with zeros):
+// two warpgroups (256 threads) per (batch * kv-head, 64-key tile).  dK
+// and dV of the 64 keys are m64n256 accumulators of 128 registers a thread
+// each, so each warpgroup keeps one.  Per step (group head, 64-row query
+// tile) warpgroup 0 forms S^T = K Q^T and P^T, hands P^T times the cap's
+// derivative to warpgroup 1 through shared memory (fp32, a named barrier)
+// and accumulates dV += P^T dO; warpgroup 1 forms dP^T = V dO^T, dS^T =
+// P^T (dP^T - delta) and accumulates dK += dS^T Q.  So each warpgroup
+// runs one m64n64k16 product over D and one m64n256k16 product over the
+// 64 queries a step.  Shared memory: K and V for the block (32 KB each),
+// Q and dO double-buffered, the handed P^T (16 KB), lse and delta: 210
+// KB, one block an SM.  Rows that are not 16-byte aligned (VEC false)
+// load scalars into the same layout.
+constexpr int KV2_THREADS = 2 * MMA_THREADS;
+
+template <bool VEC, bool CAP>
+__global__ void __launch_bounds__(KV2_THREADS, 1)
+    flash_bwd_dkdv_wgmma2(const bf16* __restrict__ q,
+                          const bf16* __restrict__ k,
+                          const bf16* __restrict__ v,
+                          const bf16* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv,
+                          int Hq, int Hkv, int Sq, int Skv, int D,
+                          int64_t qsb, int64_t qsh, int64_t qss, int64_t ksb,
+                          int64_t ksh, int64_t kss, int64_t vsb, int64_t vsh,
+                          int64_t vss, int64_t dsb, int64_t dsh, int64_t dss,
+                          int64_t dksb, int64_t dksh, int64_t dkss,
+                          int64_t dvsb, int64_t dvsh, int64_t dvss,
+                          float scale, int causal, int window, float cap) {
+  constexpr int TILE = sw_tile<256>();
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* const base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* const Ks = base;
+  uint8_t* const Vs = base + TILE;
+  uint8_t* const Qs = base + 2 * TILE;   // [2] buffers
+  uint8_t* const DOs = base + 4 * TILE;  // [2] buffers
+  // P^T times the cap's derivative, element i of thread t at i * 128 + t
+  float* const Ps = reinterpret_cast<float*>(base + 6 * TILE);
+  float* const lses = Ps + 32 * MMA_THREADS;  // [2][64]
+  float* const dls = lses + 2 * 64;           // [2][64]
+  const float scale_log2 = scale * LOG2E;
+
+  const int wg = threadIdx.x / MMA_THREADS, t = threadIdx.x % MMA_THREADS;
+  const int warp = t / 32, lane = t % 32;
+  const int b = blockIdx.x / Hkv, hk = blockIdx.x % Hkv;
+  const int G = Hq / Hkv;
+  const int j0 = blockIdx.y * BK_M;  // the first key tiles see most rows
+  const int key_lo = j0 + warp * 16 + lane / 4, key_hi = key_lo + 8;
+
+  load_sw<4, KV2_THREADS, VEC>(Ks, k + b * ksb + hk * ksh, j0, Skv, D, kss);
+  load_sw<4, KV2_THREADS, VEC>(Vs, v + b * vsb + hk * vsh, j0, Skv, D, vss);
+  cp_async_commit();
+
+  float acc[128];  // warpgroup 0: dV; warpgroup 1: dK / scale
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+
+  const int q_begin = causal ? j0 / 64 * 64 : 0;
+  const int q_end = window > 0 ? min(Sq, j0 + BK_M - 1 + window) : Sq;
+  const int nqt = q_end > q_begin ? (q_end - q_begin + 63) / 64 : 0;
+  const int n_steps = G * nqt;
+
+  auto issue = [&](int it, int buf) {
+    const int h = hk * G + it / nqt;
+    const int i0 = q_begin + (it % nqt) * 64;
+    load_sw<4, KV2_THREADS, VEC>(Qs + buf * TILE, q + b * qsb + h * qsh, i0,
+                                 Sq, D, qss);
+    load_sw<4, KV2_THREADS, VEC>(DOs + buf * TILE, dout + b * dsb + h * dsh,
+                                 i0, Sq, D, dss);
+    if (threadIdx.x < 128) {  // threads 0-63 lse, 64-127 delta
+      const int r = threadIdx.x % 64;
+      const float* src = (threadIdx.x < 64 ? lse : delta) +
+                         (static_cast<int64_t>(b) * Hq + h) * Sq;
+      float* dst = (threadIdx.x < 64 ? lses : dls) + buf * 64 + r;
+      const bool ok = i0 + r < Sq;
+      cp_async4(dst, ok ? src + i0 + r : src, ok);
+    }
+  };
+  if (n_steps > 0) issue(0, 0);
+  cp_async_commit();
+
+  for (int it = 0; it < n_steps; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < n_steps) {  // the next step loads while this one computes
+      issue(it + 1, buf ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_proxy_async();  // the copies and scalar stores, seen by wgmma
+    __syncthreads();
+    const int i0 = q_begin + (it % nqt) * 64;
+    const uint8_t* qt = Qs + buf * TILE;
+    const uint8_t* dt = DOs + buf * TILE;
+
+    // warpgroup 0: S^T = K Q^T; warpgroup 1: dP^T = V dO^T (16 d columns
+    // a k step, 64-column chunks 8 KB apart)
+    const uint8_t* ka = wg == 0 ? Ks : Vs;
+    const uint8_t* kb = wg == 0 ? qt : dt;
+    float x[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) x[i] = 0.f;
+    wgmma_fence_regs(x);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 16; ++kk) {
+      const int off = (kk >> 2) * 8192 + (kk & 3) * 32;
+      wgmma_m64n64k16<0, 0>(x, wgmma_desc(ka + off, 16, 1024),
+                            wgmma_desc(kb + off, 16, 1024));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_fence_regs(x);
+
+    // accumulator layout: per 8-query block j, keys g and g + 8 of this
+    // warp's 16, queries 2 (lane % 4) + {0, 1}
+    if (wg == 0) {
+      const float* lt = lses + buf * 64;
+      const bool need_mask = j0 + BK_M > Skv || i0 + 64 > Sq ||
+                             (causal && i0 < j0 + BK_M - 1) ||
+                             (window > 0 && i0 + 63 - j0 >= window);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = j * 8 + 2 * (lane % 4) + (e & 1);
+          float x2, dcap = 1.f;  // the scaled (and capped) logit, log2
+          if (CAP) {
+            const float th = tanhf(x[4 * j + e] * scale / cap);
+            x2 = th * cap * LOG2E;
+            dcap = 1.f - th * th;
+          } else {
+            x2 = x[4 * j + e] * scale_log2;
+          }
+          bool ok = true;
+          if (need_mask)
+            ok = live(i0 + col, e < 2 ? key_lo : key_hi, Sq, Skv, causal,
+                      window);
+          const float p = ok ? bwd_exp2(x2 - lt[col] * LOG2E) : 0.f;
+          Ps[(4 * j + e) * MMA_THREADS + t] = p * dcap;
+          x[4 * j + e] = p;  // P^T
+        }
+      }
+      named_bar_arrive(1, KV2_THREADS);
+    } else {
+      const float* dlt = dls + buf * 64;
+      named_bar_sync(1, KV2_THREADS);  // warpgroup 0's P^T is in
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = j * 8 + 2 * (lane % 4) + (e & 1);
+          x[4 * j + e] = Ps[(4 * j + e) * MMA_THREADS + t] *
+                         (x[4 * j + e] - dlt[col]);  // dS^T / scale
+        }
+      }
+    }
+
+    // warpgroup 0: dV += P^T dO; warpgroup 1: dK += dS^T Q, over the 64
+    // queries: P^T or dS^T rounded to bf16 as A fragments (two adjacent n8
+    // blocks make one k16; under a cap also the remainder, frag_bf16), dO
+    // or Q MN-major (16 query rows a k step)
+    const uint8_t* mn = wg == 0 ? dt : qt;
+    wgmma_fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kb2 = 0; kb2 < 4; ++kb2) {
+      uint32_t a[4], alo[4];
+      frag_bf16(&x[8 * kb2], a, alo);
+      const uint64_t b_mn = wgmma_desc(mn + kb2 * 16 * 128, 8192, 1024);
+      wgmma_rs<256, 1>(acc, a, b_mn);
+      if (CAP) wgmma_rs<256, 1>(acc, alo, b_mn);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_fence_regs(acc);
+    __syncthreads();  // the next step refills the other buffer and P^T
+  }
+  cp_async_wait<0>();
+
+  const float mul = wg == 0 ? 1.f : scale;
+  bf16* ob = wg == 0 ? dv + b * dvsb + hk * dvsh : dk + b * dksb + hk * dksh;
+  const int64_t oss = wg == 0 ? dvss : dkss;
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    const int col = j * 8 + 2 * (lane % 4);
+    if (col < D) {
+      const bool two = col + 1 < D;
+      if (key_lo < Skv)
+        store_pair_bf16(ob + key_lo * oss + col, acc[4 * j] * mul,
+                        acc[4 * j + 1] * mul, two, VEC);
+      if (key_hi < Skv)
+        store_pair_bf16(ob + key_hi * oss + col, acc[4 * j + 2] * mul,
+                        acc[4 * j + 3] * mul, two, VEC);
+    }
+  }
+}
+
+// dQ on wgmma at D 80, 128 (16-byte aligned rows) and 256 (DP): one
 // warpgroup per (batch * q-head, 64-row query tile), heaviest causal tiles
-// first.  It forms delta = rowsum(dO * O) of its rows and writes it for
-// the dK/dV kernel, then per 64-key tile S = Q K^T and dP = dO V^T
-// (m64n64k16, operands K-major from shared memory) and dQ += dS K
-// (m64n{DP}k16, dS from registers, K MN-major).  Q and dO stay for the
-// block; K and V tiles are double-buffered.
-template <int DP, bool CAP>
-__global__ void __launch_bounds__(MMA_THREADS, 2)
+// first.  Per 64-key tile it recomputes S = Q K^T and dP = dO V^T
+// (m64n64k16, operands K-major from shared memory) and P; a first sweep
+// over the tiles sums delta = rowsum(P dP) in fp32 and writes it for the
+// dK/dV kernel, the second forms dS and dQ += dS K (m64n{DP}k16, dS from
+// registers, K MN-major).  Q and dO stay for the block; K and V tiles are
+// double-buffered.  At DP 256 the tiles take 192 KB (one block an SM) and
+// dQ 128 registers a thread; rows that are not 16-byte aligned (VEC false)
+// load scalars into the same layout.
+template <int DP, bool VEC, bool CAP>
+__global__ void __launch_bounds__(MMA_THREADS, DP > 128 ? 1 : 2)
     flash_bwd_dq_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v,
                        const bf16* __restrict__ dout,
@@ -1694,13 +1911,14 @@ __global__ void __launch_bounds__(MMA_THREADS, 2)
                        int64_t dsb, int64_t dsh, int64_t dss, int64_t dqsb,
                        int64_t dqsh, int64_t dqss, float scale, int causal,
                        int window, float cap) {
+  constexpr int TILE = sw_tile<DP>(), NCH = TILE / 8192;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* const base = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint8_t* const Qs = base;
-  uint8_t* const DOs = base + SW_TILE;
-  uint8_t* const Ks = base + 2 * SW_TILE;  // [2] buffers
-  uint8_t* const Vs = base + 4 * SW_TILE;  // [2] buffers
+  uint8_t* const DOs = base + TILE;
+  uint8_t* const Ks = base + 2 * TILE;  // [2] buffers
+  uint8_t* const Vs = base + 4 * TILE;  // [2] buffers
   const float scale_log2 = scale * LOG2E;
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -1712,8 +1930,8 @@ __global__ void __launch_bounds__(MMA_THREADS, 2)
   const bf16* kb = k + b * ksb + hk * ksh;
   const bf16* vb = v + b * vsb + hk * vsh;
   const bf16* db = dout + b * dsb + h * dsh;
-  load_sw(Qs, q + b * qsb + h * qsh, q0, Sq, D, qss);
-  load_sw(DOs, db, q0, Sq, D, dss);
+  load_sw<NCH, MMA_THREADS, VEC>(Qs, q + b * qsb + h * qsh, q0, Sq, D, qss);
+  load_sw<NCH, MMA_THREADS, VEC>(DOs, db, q0, Sq, D, dss);
   cp_async_commit();
 
   int k_end = Skv;
@@ -1721,8 +1939,8 @@ __global__ void __launch_bounds__(MMA_THREADS, 2)
   int k_begin = 0;
   if (window > 0) k_begin = max(0, q0 - window + 1) / 64 * 64;
   if (k_begin < k_end) {
-    load_sw(Ks, kb, k_begin, Skv, D, kss);
-    load_sw(Vs, vb, k_begin, Skv, D, vss);
+    load_sw<NCH, MMA_THREADS, VEC>(Ks, kb, k_begin, Skv, D, kss);
+    load_sw<NCH, MMA_THREADS, VEC>(Vs, vb, k_begin, Skv, D, vss);
   }
   cp_async_commit();
 
@@ -1748,16 +1966,18 @@ __global__ void __launch_bounds__(MMA_THREADS, 2)
         if (row_hi < Sq) delta[bhq * Sq + row_hi] = dl[1];
       }
       if (k_begin < k_end) {  // the first tile again (all reads are done)
-        load_sw(Ks, kb, k_begin, Skv, D, kss);
-        load_sw(Vs, vb, k_begin, Skv, D, vss);
+        load_sw<NCH, MMA_THREADS, VEC>(Ks, kb, k_begin, Skv, D, kss);
+        load_sw<NCH, MMA_THREADS, VEC>(Vs, vb, k_begin, Skv, D, vss);
       }
       cp_async_commit();
     }
     int buf = 0;
     for (int j0 = k_begin; j0 < k_end; j0 += 64, buf ^= 1) {
       if (j0 + 64 < k_end) {  // the next tile loads while this one computes
-        load_sw(Ks + (buf ^ 1) * SW_TILE, kb, j0 + 64, Skv, D, kss);
-        load_sw(Vs + (buf ^ 1) * SW_TILE, vb, j0 + 64, Skv, D, vss);
+        load_sw<NCH, MMA_THREADS, VEC>(Ks + (buf ^ 1) * TILE, kb, j0 + 64,
+                                       Skv, D, kss);
+        load_sw<NCH, MMA_THREADS, VEC>(Vs + (buf ^ 1) * TILE, vb, j0 + 64,
+                                       Skv, D, vss);
         cp_async_commit();
         cp_async_wait<1>();
       } else {
@@ -1765,8 +1985,8 @@ __global__ void __launch_bounds__(MMA_THREADS, 2)
       }
       fence_proxy_async();
       __syncthreads();
-      const uint8_t* kt = Ks + buf * SW_TILE;
-      const uint8_t* vt = Vs + buf * SW_TILE;
+      const uint8_t* kt = Ks + buf * TILE;
+      const uint8_t* vt = Vs + buf * TILE;
 
       // S = Q K^T and dP = dO V^T
       float s[32], dp[32];
@@ -1821,17 +2041,17 @@ __global__ void __launch_bounds__(MMA_THREADS, 2)
         continue;
       }
 
-      // dQ += dS K: dS rounded to bf16 as A fragments, K MN-major
+      // dQ += dS K: dS rounded to bf16 as A fragments (under a cap also
+      // the remainder, frag_bf16), K MN-major
       wgmma_fence_regs(acc);
       wgmma_fence();
 #pragma unroll
       for (int kb2 = 0; kb2 < 4; ++kb2) {
-        const uint32_t a[4] = {pack_bf16(s[8 * kb2], s[8 * kb2 + 1]),
-                               pack_bf16(s[8 * kb2 + 2], s[8 * kb2 + 3]),
-                               pack_bf16(s[8 * kb2 + 4], s[8 * kb2 + 5]),
-                               pack_bf16(s[8 * kb2 + 6], s[8 * kb2 + 7])};
-        wgmma_rs<DP, 1>(acc, a,
-                        wgmma_desc(kt + kb2 * 16 * 128, 8192, 1024));
+        uint32_t a[4], alo[4];
+        frag_bf16(&s[8 * kb2], a, alo);
+        const uint64_t b_k = wgmma_desc(kt + kb2 * 16 * 128, 8192, 1024);
+        wgmma_rs<DP, 1>(acc, a, b_k);
+        if (CAP) wgmma_rs<DP, 1>(acc, alo, b_k);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -1849,18 +2069,20 @@ __global__ void __launch_bounds__(MMA_THREADS, 2)
       const bool two = col + 1 < D;
       if (row_lo < Sq)
         store_pair_bf16(ob + row_lo * dqss + col, acc[4 * j] * scale,
-                        acc[4 * j + 1] * scale, two, true);
+                        acc[4 * j + 1] * scale, two, VEC);
       if (row_hi < Sq)
         store_pair_bf16(ob + row_hi * dqss + col, acc[4 * j + 2] * scale,
-                        acc[4 * j + 3] * scale, two, true);
+                        acc[4 * j + 3] * scale, two, VEC);
     }
   }
 }
 
-// dQ (which writes delta) and then dK/dV, each on its kernel
+// dQ (which writes delta) and then dK/dV, each on its kernel, the dK/dV
+// kernel with kv_threads threads a block
 template <typename QKern, typename KVKern>
 int launch_bwd_pair(QKern q_kern, KVKern kv_kern, size_t smem_q,
-                    size_t smem_kv, const bf16* Q, const bf16* K,
+                    size_t smem_kv, int kv_threads, const bf16* Q,
+                    const bf16* K,
                     const bf16* V, const bf16* DO,
                     const float* lse, float* delta, void* dq, void* dk,
                     void* dv, int B, int Hq, int Hkv, int Sq, int Skv, int D,
@@ -1884,7 +2106,7 @@ int launch_bwd_pair(QKern q_kern, KVKern kv_kern, size_t smem_q,
   if (err != cudaSuccess || Skv == 0) return static_cast<int>(err);
   dim3 kv_grid(static_cast<unsigned>(B) * Hkv,
                static_cast<unsigned>((Skv + BK_M - 1) / BK_M));
-  kv_kern<<<kv_grid, MMA_THREADS, smem_kv, s>>>(
+  kv_kern<<<kv_grid, kv_threads, smem_kv, s>>>(
       Q, K, V, DO, lse, delta, static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), Hq, Hkv, Sq, Skv, D, st[0], st[1], st[2],
       st[3], st[4], st[5], st[6], st[7], st[8], st[12], st[13], st[14],
@@ -1893,27 +2115,36 @@ int launch_bwd_pair(QKern q_kern, KVKern kv_kern, size_t smem_q,
   return static_cast<int>(cudaGetLastError());
 }
 
-// wgmma at D 80 and 128 with 16-byte aligned rows, else mma.sync
+// wgmma at D 256 (any row alignment) and at D 80 and 128 with 16-byte
+// aligned rows, else mma.sync
 template <int DP, bool VEC, bool CAP>
 int launch_bwd_mma_c(const bf16* Q, const bf16* K, const bf16* V,
-                     const bf16* DO, const float* lse,
-                     float* delta, void* dq, void* dk, void* dv, int B,
-                     int Hq, int Hkv, int Sq, int Skv, int D,
-                     const int64_t* st, float scale, int causal, int window,
-                     float cap, cudaStream_t s) {
-  if constexpr ((DP == 80 || DP == 128) && VEC) {
+                     const bf16* DO, const float* lse, float* delta,
+                     void* dq, void* dk, void* dv, int B, int Hq, int Hkv,
+                     int Sq, int Skv, int D, const int64_t* st, float scale,
+                     int causal, int window, float cap, cudaStream_t s) {
+  constexpr size_t lse_bytes = 4 * 64 * sizeof(float);
+  if constexpr (DP == 256) {
+    constexpr int tiles = 6 * sw_tile<256>();
     return launch_bwd_pair(
-        flash_bwd_dq_wgmma<DP, CAP>, flash_bwd_dkdv_wgmma<DP, CAP>,
-        6 * SW_TILE + 1024, 6 * SW_TILE + 4 * 64 * sizeof(float) + 1024, Q,
-        K, V, DO, lse, delta, dq, dk, dv, B, Hq, Hkv, Sq, Skv, D, st,
-        scale, causal, window, cap, s);
+        flash_bwd_dq_wgmma<256, VEC, CAP>, flash_bwd_dkdv_wgmma2<VEC, CAP>,
+        tiles + 1024,
+        tiles + 32 * MMA_THREADS * sizeof(float) + lse_bytes + 1024,
+        KV2_THREADS, Q, K, V, DO, lse, delta, dq, dk, dv, B, Hq, Hkv, Sq,
+        Skv, D, st, scale, causal, window, cap, s);
+  } else if constexpr ((DP == 80 || DP == 128) && VEC) {
+    return launch_bwd_pair(
+        flash_bwd_dq_wgmma<DP, true, CAP>, flash_bwd_dkdv_wgmma<DP, CAP>,
+        6 * SW_TILE + 1024, 6 * SW_TILE + lse_bytes + 1024, MMA_THREADS, Q,
+        K, V, DO, lse, delta, dq, dk, dv, B, Hq, Hkv, Sq, Skv, D, st, scale,
+        causal, window, cap, s);
   } else {
     constexpr int QT = kv_rows<DP>();
     return launch_bwd_pair(
         flash_bwd_dq_mma<DP, VEC, BK_Q, CAP>,
         flash_bwd_dkdv_mma<DP, VEC, QT, CAP>, dq_smem<DP, BK_Q>(),
-        dkdv_smem<DP, QT>(), Q, K, V, DO, lse, delta, dq, dk, dv, B, Hq,
-        Hkv, Sq, Skv, D, st, scale, causal, window, cap, s);
+        dkdv_smem<DP, QT>(), MMA_THREADS, Q, K, V, DO, lse, delta, dq, dk,
+        dv, B, Hq, Hkv, Sq, Skv, D, st, scale, causal, window, cap, s);
   }
 }
 
@@ -1980,7 +2211,11 @@ int launch_bwd_mma_d(const void* q, const void* k, const void* v,
     return launch_bwd_mma_v<96>(Q, K, V, DO, lse, delta, dq, dk, dv, B,
                                 Hq, Hkv, Sq, Skv, D, st, scale, causal,
                                 window, cap, vec, s);
-  return launch_bwd_mma_v<128>(Q, K, V, DO, lse, delta, dq, dk, dv, B, Hq,
+  if (D <= 128)
+    return launch_bwd_mma_v<128>(Q, K, V, DO, lse, delta, dq, dk, dv, B, Hq,
+                                 Hkv, Sq, Skv, D, st, scale, causal, window,
+                                 cap, vec, s);
+  return launch_bwd_mma_v<256>(Q, K, V, DO, lse, delta, dq, dk, dv, B, Hq,
                                Hkv, Sq, Skv, D, st, scale, causal, window,
                                cap, vec, s);
 }
@@ -2028,9 +2263,10 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
 // dtype, any (batch, head, seq) strides, unit stride on D) from q, k, v,
 // the forward's o and lse, and dout (o's shape).  delta: a contiguous fp32
 // [B, Hq, Sq] scratch.  The 24 strides are those of q, k, v, o, dout, dq,
-// dk and dv, three each.  path: kPathSimt (the CUDA-core kernels, fp32
-// arithmetic) for fp32 or bf16, or kPathMma (tensor cores) for bf16 with
-// D <= 128; others return cudaErrorInvalidValue.
+// dk and dv, three each.  path: kPathSimt (the CUDA-core kernels) for
+// fp32, or kPathMma (tensor cores) for bf16; others return
+// cudaErrorInvalidValue.  The bf16 kernels form delta from P and dP and
+// do not read o.
 int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* delta, void* dq, void* dk,
@@ -2049,18 +2285,13 @@ int flash_attention_bwd_launch(
                           vss,  osb,  osh,  oss,  dsb,  dsh,  dss,  dqsb,
                           dqsh, dqss, dksb, dksh, dkss, dvsb, dvsh, dvss};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (path == kPathMma && dtype == kBF16 && D <= 128)
+  if (path == kPathMma && dtype == kBF16)
     return launch_bwd_mma_d(q, k, v, dout, lse, delta, dq, dk, dv, B, Hq, Hkv,
                             Sq, Skv, D, st, scale, causal, window, cap, s);
-  if (path != kPathSimt) return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == kF32)
-    return launch_bwd_simt_d<float>(q, k, v, o, dout, lse, delta, dq, dk, dv,
-                                    B, Hq, Hkv, Sq, Skv, D, st, scale,
-                                    causal, window, cap, s);
-  if (dtype == kBF16)
-    return launch_bwd_simt_d<bf16>(q, k, v, o, dout, lse, delta, dq, dk, dv,
-                                   B, Hq, Hkv, Sq, Skv, D, st, scale, causal,
-                                   window, cap, s);
+  if (path == kPathSimt && dtype == kF32)
+    return launch_bwd_simt_d(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Hq,
+                             Hkv, Sq, Skv, D, st, scale, causal, window, cap,
+                             s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -16,17 +16,18 @@ products).  Nothing is chosen by whether a build or a launch succeeded.
 
 Under autograd (grad mode on and an input that requires grad),
 :func:`attention` runs through an ``autograd.Function``: the forward also
-writes each row's log-sum-exp, and the backward is the hand-written
-backward kernel (:func:`attention_bwd`: dQ, dK and dV in q/k/v's dtype
-with fp32 accumulation, no atomics, so deterministic).  Its path is chosen
-by :func:`_bwd_path`: ``"mma"`` (bf16 on the tensor cores, D <= 128:
-``wgmma`` at D 80 and 128 with 16-byte aligned rows, ``mma.sync``
-otherwise) or ``"simt"`` (CUDA cores, fp32 arithmetic: fp32, and bf16 at
-D > 128).  For CPU tensors the same Function runs the plain versions of
-both (:func:`attention_ref` with its log-sum-exp, and
+writes each row's log-sum-exp, and the backward is the hand-written backward
+kernel (:func:`attention_bwd`: dQ, dK and dV in q/k/v's dtype with fp32
+accumulation, no atomics, so deterministic).  Its path is chosen by
+:func:`_bwd_path`, the forward's: ``"mma"`` (bf16 on the tensor cores:
+``wgmma`` at D 256, to which 128 < D < 256 is padded, and at D 80 and 128 with
+16-byte aligned rows, ``mma.sync`` otherwise; delta = rowsum(dO O) formed from
+P and dP in fp32, not from the rounded O) or ``"simt"`` (fp32 on the CUDA
+cores).  For CPU tensors the same Function runs the plain versions of both
+(:func:`attention_ref` with its log-sum-exp, and
 :func:`attention_bwd_ref`).  Under the ``tatp_outputs`` remat policy the
-Function saves its output and log-sum-exp (:mod:`repro_torch.core.remat`)
-and the recompute builds its node from them, so no forward runs again.
+Function saves its output and log-sum-exp (:mod:`repro_torch.core.remat`) and
+the recompute builds its node from them, so no forward runs again.
 
 ``attention.launches`` counts the forward kernel's launches and
 ``attention.launches_by_path`` the same launches by path;
@@ -51,7 +52,6 @@ from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PATHS = {"simt": 0, "mma": 1}
 _BWD_PATHS = {"simt": 0, "mma": 1}
-MAX_MMA_BWD_HEAD_DIM = 128  # the mma backward keeps dK and dV in registers
 MAX_HEAD_DIM = 256
 
 _P, _I64, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, \
@@ -86,9 +86,9 @@ def _path(dtype, d) -> str:
 
 
 def _bwd_path(dtype, d) -> str:
-    """The backward kernel for q/k/v of ``dtype`` and head dim ``d``."""
-    fwd = _path(dtype, d)  # the same dtypes and head dims as the forward
-    return "mma" if fwd == "mma" and d <= MAX_MMA_BWD_HEAD_DIM else "simt"
+    """The backward kernel for q/k/v of ``dtype`` and head dim ``d``: the
+    forward's path, for the same dtypes and head dims."""
+    return _path(dtype, d)
 
 
 def attention(q, k, v, *, causal=True, window=None, cap=None, scale=None):

@@ -317,7 +317,7 @@ def test_attention_path(dtype, d, want):
 @pytest.mark.parametrize("dtype,d,want", [
     (_BF16, 128, "mma"),  # deepseek-7b's train attention [4, 32, 512, 128]
     (_BF16, 80, "mma"), (_BF16, 64, "mma"), (_BF16, 1, "mma"),
-    (_BF16, 129, "simt"), (_BF16, 256, "simt"),  # dK, dV too large
+    (_BF16, 129, "mma"), (_BF16, 256, "mma"),  # gemma's [4, 16, 512, 256]
     (_F32, 128, "simt"), (_F32, 256, "simt"),
     (_BF16, 257, ValueError), (torch.float16, 64, ValueError),
 ])
@@ -484,7 +484,7 @@ def test_tatp_dot_kernel_layouts_match_plain(cuda_device, m, n, k, dtype,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("d", [64, 80, 128, 256])
 @pytest.mark.parametrize("hq,hkv,s,causal,window,cap", _KERNEL_ATTN_CASES)
 def test_attention_backward_kernel_matches_plain(cuda_device, hq, hkv, s,
                                                  causal, window, cap, d,
