@@ -32,7 +32,7 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    and flash
    attention's backward kernel against autograd through the plain
    version (fp32 and bf16; causal, window, cap, GQA, ragged and fully
-   masked rows; D 64, 80, 128 and 256), two launches at deepseek-7b's
+   masked rows; D 64, 80, 128, 256 and 196), two launches at deepseek-7b's
    train shape bitwise equal, timed there and at zamba2-2.7b's (D 80)
    beside SDPA's backward; and the SSD backward kernel (``mma_3xtf32``)
    against the plain backward (fp32: ragged, the train step's shapes
@@ -1170,12 +1170,12 @@ def flash_grads(torch, fn, q, k, v, do, **kw):
 def phase_flash_backward(torch, randn):
     """The flash backward kernel (through ``attention``'s autograd
     Function) against autograd through attention_ref: fp32 and bf16, every
-    mask option, GQA, ragged and fully masked rows, D 64, 80, 128 and 256
-    (bf16 on ``mma`` at every D), and deepseek-7b's train shape, where two
-    launches must give bitwise equal gradients; then its time at
-    deepseek-7b's and zamba2-2.7b's train shapes beside its bound, the
-    plain version's backward and SDPA's.  Returns the kernels-line
-    record."""
+    mask option, GQA, ragged and fully masked rows, D 64, 80, 128, 256
+    and 196 (rows not 16-byte aligned; bf16 on ``mma`` at every D), and
+    deepseek-7b's train shape, where two launches must give bitwise equal
+    gradients; then its time at deepseek-7b's and zamba2-2.7b's train
+    shapes beside its bound, the plain version's backward and SDPA's.
+    Returns the kernels-line record."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ops import (_forward, attention,
                                                          attention_bwd)
@@ -1186,10 +1186,12 @@ def phase_flash_backward(torch, randn):
     for dt in (torch.float32, torch.bfloat16):
         tol = ATTN_TOL["bfloat16" if dt == torch.bfloat16 else "float32"]
         path = "mma" if dt == torch.bfloat16 else "simt"
-        for d in (64, 80, 128, 256):
-            # fp32 at D 256 (off the main paths): a few cases
-            cases = (ATTN_BWD_CASES if d < 256 or path == "mma"
-                     else ATTN_BWD_CASES[-3:])
+        for d in (64, 80, 128, 256, 196):
+            # D 196: padded to 256, rows not 16-byte aligned (scalar
+            # loads into the same layout); it and fp32 at D 256 (off the
+            # main paths) take a few cases
+            few = d == 196 or (d == 256 and path == "simt")
+            cases = ATTN_BWD_CASES[-3:] if few else ATTN_BWD_CASES
             for name, hq, hkv, sq, skv, causal, window, cap in cases:
                 q = randn(2, hq, sq, d, dtype=dt, scale=cap_scale(cap))
                 k = randn(2, hkv, skv, d, dtype=dt)

@@ -49,29 +49,28 @@
 // at deepseek-7b's train shape ([4, 32, 512, 128] bf16, causal) its five
 // products over the causal pairs take 21.5 GFLOP (22 us at 989 TFLOP/s)
 // beside 0.135 GB of tensors moved once (40 us at 3.35 TB/s), so bytes bound
-// it at 0.0402 ms.  mma.sync, whose warps own 16 rows, reads every B fragment
-// from shared memory once a warp and stalled on that and on latency at ~27 %
-// of its own rate (PERF.md §6); so at D 80 and 128 (bf16, aligned rows) and
-// at D 256 both backward kernels run on wgmma: 64-row warpgroup tiles whose
-// operands the tensor cores read from 128-byte-swizzled shared memory once
-// for all four warps, P^T and dS (dS^T) fed from registers.  At D 256 the
-// dK/dV kernel gives dV and dK, m64n256 accumulators of 128 registers a
-// thread each, to two warpgroups (flash_bwd_dkdv_wgmma2): 0.226 ms at
-// gemma-7b's [4, 16, 512, 256] (chip_smoke.py, the card below; 1.40x
-// SDPA's backward, 0.161), where the
-// CUDA-core kernels took 7.26 ms.  dQ is recomputed in its own kernel, so no
-// atomics are needed (two launches; gradients bitwise repeatable).  The dQ
-// kernel also forms delta = rowsum(dO O) for both, as rowsum(P dP) in fp32
-// over a first sweep of its key tiles: where scores pass a soft-cap the
-// softmax is nearly one-hot, dS = P (dP - delta) cancels, and a delta from
-// the bf16 O (or from an fp32 O whose P was rounded to bf16 in the forward)
-// puts that rounding into dS.  The sweep costs the dQ kernel its S and dP
-// products again.  Under a soft-cap the kernels also take P and dS into their
-// products as two bf16 terms (frag_bf16).  Measured
-// (scripts/compare_backward.py, NVIDIA H100 80GB HBM3, 700.00 W): 0.188 ms
-// at [4, 32, 512, 128] (0.172 with delta from the bf16 O), 21 % of that
-// bound, 1.34x SDPA's backward (0.140); 0.156 ms at [4, 32, 512, 80]
-// (0.132), 16 %, 1.42x SDPA (0.109).  What is left: each block runs its
+// it at 0.0402 ms.  mma.sync, whose warps own 16 rows, reads every B
+// fragment from shared memory once a warp and stalled on that and on latency
+// at ~27 % of its own rate (PERF.md §6); so at D 80 and 128 (bf16, aligned
+// rows) and at D 256 both backward kernels run on wgmma: 64-row warpgroup
+// tiles whose operands the tensor cores read from 128-byte-swizzled shared
+// memory once for all four warps, P^T and dS (dS^T) fed from registers.  At
+// D 256 the dK/dV kernel gives dV and dK, m64n256 accumulators of 128
+// registers a thread each, to two warpgroups (flash_bwd_dkdv_wgmma2).  dQ is
+// recomputed in its own kernel, so no atomics are needed (two launches;
+// gradients bitwise repeatable).  The dQ kernel also forms delta = rowsum(dO
+// O) for both, as rowsum(P dP) in fp32 over a first sweep of its key tiles:
+// where scores pass a soft-cap the softmax is nearly one-hot, dS = P (dP -
+// delta) cancels, and a delta from the bf16 O (or from an fp32 O whose P was
+// rounded to bf16 in the forward) puts that rounding into dS.  The sweep
+// costs the dQ kernel its S and dP products again.  Under a soft-cap the
+// kernels also take P and dS into their products as two bf16 terms
+// (frag_bf16).  Measured (scripts/compare_backward.py, NVIDIA H100 80GB
+// HBM3, 700.00 W): 0.188 ms at [4, 32, 512, 128] (0.174 with delta from the
+// bf16 O), 21 % of that bound, 1.34x SDPA's backward (0.140); 0.156 ms at
+// [4, 32, 512, 80] (0.131), 16 %, 1.42x SDPA (0.110); 0.227 ms at gemma-7b's
+// [4, 16, 512, 256], 18 % of its bound, 1.42x SDPA (0.160), where the
+// CUDA-core kernels took 7.26 ms.  What is left: each block runs its
 // products, its softmax gradient and its next products in turn, and two
 // blocks an SM do not hide all of it.
 

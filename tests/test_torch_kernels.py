@@ -484,13 +484,14 @@ def test_tatp_dot_kernel_layouts_match_plain(cuda_device, m, n, k, dtype,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", [64, 80, 128, 256])
+@pytest.mark.parametrize("d", [64, 80, 128, 196, 256])
 @pytest.mark.parametrize("hq,hkv,s,causal,window,cap", _KERNEL_ATTN_CASES)
 def test_attention_backward_kernel_matches_plain(cuda_device, hq, hkv, s,
                                                  causal, window, cap, d,
                                                  dtype):
     """dQ, dK, dV of the backward kernel (through ``attention``'s autograd
-    Function) against autograd through the plain version."""
+    Function) against autograd through the plain version; D 196 pads to
+    256 with rows that are not 16-byte aligned."""
     g = torch.Generator(device=cuda_device).manual_seed(0)
     q, k, v, do = (torch.randn(2, h, s, d, generator=g, device=cuda_device)
                    .to(_TORCH[dtype]) for h in (hq, hkv, hkv, hq))
