@@ -419,6 +419,14 @@ def bound(flops, nbytes, dtype):
                                      else "bytes")
 
 
+def flash_bwd_bytes(b, hq, hkv, sq, skv, d):
+    """Bytes the bf16 flash backward must move: q, dO and dQ (Hq heads, Sq
+    rows), k, v, dK and dV (Hkv heads, Skv rows) once each, and the fp32
+    row lse.  O is not read (the kernels form delta from P and dP), and
+    delta passes between the two kernels, so neither counts."""
+    return 2 * b * d * (3 * hq * sq + 4 * hkv * skv) + 4 * b * hq * sq
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -1272,11 +1280,9 @@ def phase_flash_backward(torch, randn):
         )
         pairs = b * h * s * (s + 1) // 2
         # recompute S, then dP, dV, dK, dQ: five products over the causal
-        # pairs; q, k, v, o, dO read and dQ, dK, dV written once, lse and
-        # delta (fp32 per row) read once
-        flops = 10 * pairs * d
-        nbytes = 8 * b * h * s * d * 2 + 2 * b * h * s * 4
-        row["bound_ms"], row["bound_by"] = bound(flops, nbytes, "bfloat16")
+        # pairs, and the bytes of flash_bwd_bytes
+        row["bound_ms"], row["bound_by"] = bound(
+            10 * pairs * d, flash_bwd_bytes(b, h, h, s, s, d), "bfloat16")
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
         row["library_ratio"] = row["ms"] / row["library_ms"]
         log(f"  timing backward {row['shape']} bf16 causal: "
@@ -1306,12 +1312,16 @@ def phase_flash_backward(torch, randn):
 # flash attention timed at the new architectures' shapes: (arch, block
 # part, layer kind) of one prefill attention call (:func:`attention_shape`
 # at the serve path's batch and prompt, the encoder's frames), and of the
-# backward at one train attention call at D 256 (gemma2's the windowed,
-# soft-capped slot, with no library yardstick)
+# backward at one train attention call: at D 256 (gemma2's the windowed,
+# soft-capped slot, with no library yardstick) and seamless's three at D 64
+# (on mma.sync)
 FLASH_ARCH_ROWS = (("gemma2-9b", "dec", "L"), ("gemma-7b", "dec", "G"),
                    ("seamless-m4t-large-v2", "enc", "G"),
                    ("seamless-m4t-large-v2", "cross", "X"))
-FLASH_BWD_ARCH = (("gemma-7b", "dec", "G"), ("gemma2-9b", "dec", "L"))
+FLASH_BWD_ARCH = (("gemma-7b", "dec", "G"), ("gemma2-9b", "dec", "L"),
+                  ("seamless-m4t-large-v2", "enc", "G"),
+                  ("seamless-m4t-large-v2", "dec", "G"),
+                  ("seamless-m4t-large-v2", "cross", "X"))
 
 
 def phase_flash_arch_rows(torch, randn):
@@ -1324,13 +1334,14 @@ def phase_flash_arch_rows(torch, randn):
     ``mma`` at D 256: gemma-7b's train shape (against SDPA's backward) and
     gemma2-9b's windowed, soft-capped one (q scaled by
     :func:`cap_scale`), where two launches must give bitwise equal
-    gradients.  Each asserts its path and is timed beside its bound over
+    gradients, and at D 64: seamless's encoder, decoder and cross
+    attention (against SDPA's backward).  Each asserts its path and is timed beside its bound over
     the pairs its masks leave (:func:`attn_pairs`);
     :func:`phase_path_shapes` checks every one of these shapes against the
     plain version.  Returns (forward rows, backward rows)."""
     import torch.nn.functional as F
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention.ops import (_bwd_path,
+    from repro_torch.kernels.flash_attention.ops import (_path,
                                                          _forward, attention,
                                                          attention_bwd)
     from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -1382,14 +1393,15 @@ def phase_flash_arch_rows(torch, randn):
     b, s = TRAIN["batch"], TRAIN["seq"]
     bwd_rows = []
     for arch, part, kind in FLASH_BWD_ARCH:
-        h, hkv, d, _, _, causal, window, cap = attention_shape(
-            get_config(arch), part, kind, s)
+        cfg = get_config(arch)
+        h, hkv, d, sq, skv, causal, window, cap = attention_shape(
+            cfg, part, kind, s, cfg.frontend_tokens)
         kw = dict(causal=causal, window=window, cap=cap)
         name = f"{arch} train, {part} {kind}"
-        path = _bwd_path(bf, d)
-        q = layout(b, h, s, d, cap_scale(cap))
-        k, v = layout(b, hkv, s, d), layout(b, hkv, s, d)
-        do = layout(b, h, s, d)
+        path = _path(bf, d)
+        q = layout(b, h, sq, d, cap_scale(cap))
+        k, v = layout(b, hkv, skv, d), layout(b, hkv, skv, d)
+        do = layout(b, h, sq, d)
         o, lse = _forward(q, k, v, causal, window, cap, None, want_lse=True)
         before = attention_bwd.launches_by_path["mma"]
         first = attention_bwd(q, k, v, o, lse, do, **kw)
@@ -1400,7 +1412,7 @@ def phase_flash_arch_rows(torch, randn):
         if cap is not None:
             again = attention_bwd(q, k, v, o, lse, do, **kw)
             same = all(torch.equal(x, y) for x, y in zip(first, again))
-            log(f"  determinism {name} {[b, h, s, d]}: two launches "
+            log(f"  determinism {name} {[b, h, sq, d]}: two launches "
                 f"bitwise equal on dq, dk, dv: {same}")
             need(same, f"flash backward {name}: gradients differ between "
                  f"two launches on the same inputs")
@@ -1411,8 +1423,8 @@ def phase_flash_arch_rows(torch, randn):
                                 (qq, kk, vv), do)
 
         bwd = dict(
-            name=name, shape=[b, h, s, d], kv_heads=hkv, window=window,
-            cap=cap, path=path,
+            name=name, shape=[b, h, sq, d], kv_heads=hkv, skv=skv,
+            causal=causal, window=window, cap=cap, path=path,
             ms=time_ms(torch, lambda: attention_bwd(q, k, v, o, lse, do,
                                                     **kw), 10),
             plain_ms=(time_ms(torch, ref_fwd_bwd, 3, 1)
@@ -1434,11 +1446,11 @@ def phase_flash_arch_rows(torch, randn):
                 - time_ms(torch, lambda: F.scaled_dot_product_attention(
                     qc, kc, vc, is_causal=causal), 10))
             bwd["library_ratio"] = bwd["ms"] / bwd["library_ms"]
-        # five products over the attended pairs; q, o, dO, dQ (Hq heads)
-        # and k, v, dK, dV (Hkv heads) moved once, lse and delta per row
-        pairs = b * h * attn_pairs(s, s, causal, window)
+        # five products over the attended pairs, and the bytes of
+        # flash_bwd_bytes
+        pairs = b * h * attn_pairs(sq, skv, causal, window)
         bwd["bound_ms"], bwd["bound_by"] = bound(
-            10 * pairs * d, 8 * b * (h + hkv) * s * d + 2 * b * h * s * 4,
+            10 * pairs * d, flash_bwd_bytes(b, h, hkv, sq, skv, d),
             "bfloat16")
         bwd["share_of_bound"] = bwd["bound_ms"] / bwd["ms"]
         log(f"  timing backward {name}: {json.dumps(bwd)}")
@@ -1469,8 +1481,7 @@ def phase_path_shapes(torch, randn):
     checked once.
     Returns the largest error by kernels-line record."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention.ops import (_bwd_path,
-                                                         attention,
+    from repro_torch.kernels.flash_attention.ops import (_path, attention,
                                                          attention_bwd)
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.tatp_matmul.ops import tatp_dot
@@ -1514,7 +1525,7 @@ def phase_path_shapes(torch, randn):
         name = (f"bf16 {what} [{b},{hq},{sq},{d}] kv {hkv}x{skv} "
                 f"{'causal' if causal else 'non-causal'} window {window} "
                 f"cap {cap}")
-        bwd = _bwd_path(bf, d)
+        bwd = _path(bf, d)
         before = (attention.launches_by_path["mma"],
                   attention_bwd.launches_by_path[bwd])
         if not train:

@@ -10,12 +10,18 @@ Each turn is one child process that puts ``<root>/src`` first on the path
 and builds that checkout's kernels.  It then times, as device time (CUDA
 events behind a device-side spin, as ``chip_smoke.py:time_ms``):
 
-* the flash backward (``attention_bwd``, bf16, causal, ``[B, S, H, D]``
-  activations viewed as ``[B, H, S, D]``) at deepseek-7b's train shape
-  [4, 32, 512, 128], zamba2-2.7b's [4, 32, 512, 80] and gemma-7b's
-  [4, 16, 512, 256], beside its bound
-  (five products over the causal pairs; each tensor moved once) and
-  SDPA's backward (autograd's forward and backward less the forward);
+* the flash backward (``attention_bwd``, bf16, ``[B, S, H, D]``
+  activations viewed as ``[B, H, S, D]``) at deepseek-7b's causal train
+  shape [4, 32, 512, 128], zamba2-2.7b's [4, 32, 512, 80], gemma-7b's
+  [4, 16, 512, 256] and seamless-m4t-large-v2's three at D 64 (the
+  decoder's causal [4, 16, 512, 64], the encoder's bidirectional 1024
+  frames, the cross attention of 512 queries to 1024 frames), beside its
+  bound (five products over the attended pairs; q, k, v, dO, dQ, dK, dV
+  and the row lse moved once: the bf16 kernels do not read O) and SDPA's
+  backward (autograd's forward and backward less the forward); and its
+  gradients' error against fp32 autograd of ``attention_ref`` on the same
+  bf16 values, held to ``tests/test_torch_attn_bwd.py``'s tolerance (2
+  bf16 ulps of the gradient's RMS plus one bf16 ulp of each element);
 * the SSD backward (``ssd_intra_chunk_bwd``, fp32) at mamba2-780m's
   [8, 256, 48, 64], N 128 and zamba2-2.7b's [8, 256, 80, 64], N 64,
   beside its bounds at 3xTF32 and at the fp32 CUDA-core rate;
@@ -34,6 +40,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -43,9 +50,15 @@ from pathlib import Path
 PEAK_BF16, PEAK_TF32X3, PEAK_F32, PEAK_BYTES = 989e12, 495e12 / 3, 67e12, \
     3.35e12
 SPIN_HZ = 1.98e9
-FLASH_SHAPES = {"deepseek-7b": (4, 32, 512, 128),
-                "zamba2-2.7b": (4, 32, 512, 80),
-                "gemma-7b": (4, 16, 512, 256)}
+# (B, Hq, Hkv, Sq, Skv, D, causal)
+FLASH_SHAPES = {"deepseek-7b": (4, 32, 32, 512, 512, 128, True),
+                "zamba2-2.7b": (4, 32, 32, 512, 512, 80, True),
+                "gemma-7b": (4, 16, 16, 512, 512, 256, True),
+                "seamless-m4t-large-v2 dec": (4, 16, 16, 512, 512, 64, True),
+                "seamless-m4t-large-v2 enc": (4, 16, 16, 1024, 1024, 64,
+                                              False),
+                "seamless-m4t-large-v2 cross": (4, 16, 16, 512, 1024, 64,
+                                                False)}
 SSD_SHAPES = {"mamba2-780m": (8, 256, 48, 64, 128),
               "zamba2-2.7b": (8, 256, 80, 64, 64)}
 TRAIN_RUNS = (("deepseek-7b", 4), ("mamba2-780m", 48), ("zamba2-2.7b", 54))
@@ -91,39 +104,63 @@ def device_kernels(torch, fn):
     return out, sum(out.values())
 
 
+def grad_err(torch, got, q, k, v, do, causal):
+    """{gradient: its largest error against fp32 autograd of attention_ref
+    beyond one bf16 ulp of the element (the final rounding both sides
+    share), over the gradient's RMS; the limit of 2 bf16 ulps of the RMS,
+    over the RMS; and whether every element keeps within it}."""
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    leaves = [t.float().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(attention_ref(*leaves, causal=causal), leaves,
+                               do.float())
+    out = {}
+    for name, g, r in zip(("dq", "dk", "dv"), got, want):
+        rms = r.pow(2).mean().sqrt().item()
+        excess = ((g.float() - r).abs() - 2.0 ** -8 * r.abs()).max().item()
+        limit = 2 * 2.0 ** (math.floor(math.log2(rms)) - 7)
+        out[name] = dict(excess_over_rms=excess / rms,
+                         limit_over_rms=limit / rms, ok=excess <= limit)
+    return out
+
+
 def flash_rows(torch):
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ops import (_forward,
                                                          attention_bwd)
     g = torch.Generator(device="cuda").manual_seed(0)
     rows = {}
-    for arch, (b, h, s, d) in FLASH_SHAPES.items():
+    for arch, (b, hq, hkv, sq, skv, d, causal) in FLASH_SHAPES.items():
         q, k, v, do = (torch.randn(b, s, h, d, generator=g, device="cuda")
-                       .to(torch.bfloat16).transpose(1, 2) for _ in range(4))
-        o, lse = _forward(q, k, v, True, None, None, None, want_lse=True)
+                       .to(torch.bfloat16).transpose(1, 2)
+                       for s, h in ((sq, hq), (skv, hkv), (skv, hkv),
+                                    (sq, hq)))
+        o, lse = _forward(q, k, v, causal, None, None, None, want_lse=True)
         qc, kc, vc = (t.contiguous() for t in (q, k, v))
 
         def run():
-            attention_bwd(q, k, v, o, lse, do, causal=True)
+            return attention_bwd(q, k, v, o, lse, do, causal=causal)
 
         def sdpa_fwd_bwd():
             qq, kk, vv = (t.detach().requires_grad_(True)
                           for t in (qc, kc, vc))
             torch.autograd.grad(F.scaled_dot_product_attention(
-                qq, kk, vv, is_causal=True), (qq, kk, vv), do)
+                qq, kk, vv, is_causal=causal), (qq, kk, vv), do)
 
         ms = time_ms(torch, run, 10)
         lib = (time_ms(torch, sdpa_fwd_bwd, 10)
                - time_ms(torch, lambda: F.scaled_dot_product_attention(
-                   qc, kc, vc, is_causal=True), 10))
-        pairs = b * h * s * (s + 1) // 2
+                   qc, kc, vc, is_causal=causal), 10))
+        pairs = b * hq * (sq * (sq + 1) // 2 if causal else sq * skv)
         flops = 10 * pairs * d
-        nbytes = 8 * b * h * s * d * 2 + 2 * b * h * s * 4
+        nbytes = 2 * b * d * (3 * hq * sq + 4 * hkv * skv) + 4 * b * hq * sq
         bound = max(flops / PEAK_BF16, nbytes / PEAK_BYTES) * 1e3
         kern, _ = device_kernels(torch, run)
-        rows[arch] = dict(shape=[b, h, s, d], ms=ms, sdpa_bwd_ms=lib,
-                          ratio=ms / lib, bound_ms=bound,
-                          share_of_bound=bound / ms, kernels=kern)
+        rows[arch] = dict(shape=[b, hq, sq, d], kv=[hkv, skv], causal=causal,
+                          ms=ms, sdpa_bwd_ms=lib, ratio=ms / lib,
+                          bound_ms=bound, share_of_bound=bound / ms,
+                          kernels=kern,
+                          grad_err=grad_err(torch, run(), q, k, v, do,
+                                            causal))
     return rows
 
 
@@ -280,6 +317,9 @@ def main(argv=None) -> int:
                 med[f"{part} {arch}"] = {
                     k: statistics.median(r[part][arch][k] for r in res)
                     for k in keys}
+                if "grad_err" in res[0][part][arch]:  # deterministic
+                    med[f"{part} {arch}"]["grad_err"] = \
+                        res[0][part][arch]["grad_err"]
         for arch in res[0].get("train", {}):
             rows = [r["train"][arch] for r in res]
             med[f"train {arch}"] = dict(

@@ -48,8 +48,9 @@
 // reference differentiates its jnp attention.  What bounds it on this card:
 // at deepseek-7b's train shape ([4, 32, 512, 128] bf16, causal) its five
 // products over the causal pairs take 21.5 GFLOP (22 us at 989 TFLOP/s)
-// beside 0.135 GB of tensors moved once (40 us at 3.35 TB/s), so bytes bound
-// it at 0.0402 ms.  mma.sync, whose warps own 16 rows, reads every B
+// beside 0.118 GB moved once (q, k, v, dO, dQ, dK, dV and the row lse; the
+// bf16 kernels do not read O), 35 us at 3.35 TB/s, so bytes bound it at
+// 0.0351 ms.  mma.sync, whose warps own 16 rows, reads every B
 // fragment from shared memory once a warp and stalled on that and on latency
 // at ~27 % of its own rate (PERF.md §6); so at D 80 and 128 (bf16, aligned
 // rows) and at D 256 both backward kernels run on wgmma: 64-row warpgroup
@@ -62,8 +63,12 @@
 // O) for both, as rowsum(P dP) in fp32 over a first sweep of its key tiles:
 // where scores pass a soft-cap the softmax is nearly one-hot, dS = P (dP -
 // delta) cancels, and a delta from the bf16 O (or from an fp32 O whose P was
-// rounded to bf16 in the forward) puts that rounding into dS.  The sweep
-// costs the dQ kernel its S and dP products again.  Under a soft-cap the
+// rounded to bf16 in the forward) puts that rounding into dS.  Uncapped, a
+// delta error e adds e times the P-weighted mean of K to a dQ row, which
+// does not cancel as dQ's own centred sum does: a causal uncapped backward
+// with delta from the bf16 O misses fp32 autograd by ~5 % of dQ's RMS
+// (tests/test_torch_attn_bwd.py, nocap), so every bf16 kernel sweeps.  The
+// sweep costs the dQ kernel its S and dP products again.  Under a soft-cap the
 // kernels also take P and dS into their products as two bf16 terms
 // (frag_bf16).  Measured (scripts/compare_backward.py, NVIDIA H100 80GB
 // HBM3, 700.00 W): 0.188 ms at [4, 32, 512, 128] (0.174 with delta from the

@@ -18,8 +18,8 @@ Under autograd (grad mode on and an input that requires grad),
 :func:`attention` runs through an ``autograd.Function``: the forward also
 writes each row's log-sum-exp, and the backward is the hand-written backward
 kernel (:func:`attention_bwd`: dQ, dK and dV in q/k/v's dtype with fp32
-accumulation, no atomics, so deterministic).  Its path is chosen by
-:func:`_bwd_path`, the forward's: ``"mma"`` (bf16 on the tensor cores:
+accumulation, no atomics, so deterministic).  It takes the forward's path,
+:func:`_path`: ``"mma"`` (bf16 on the tensor cores:
 ``wgmma`` at D 256, to which 128 < D < 256 is padded, and at D 80 and 128 with
 16-byte aligned rows, ``mma.sync`` otherwise; delta = rowsum(dO O) formed from
 P and dP in fp32, not from the rounded O) or ``"simt"`` (fp32 on the CUDA
@@ -51,7 +51,6 @@ from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
 # dtype and path codes shared with csrc/flash_attention.cu
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PATHS = {"simt": 0, "mma": 1}
-_BWD_PATHS = {"simt": 0, "mma": 1}
 MAX_HEAD_DIM = 256
 
 _P, _I64, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, \
@@ -83,12 +82,6 @@ def _path(dtype, d) -> str:
         return "simt"
     raise ValueError(
         f"flash_attention kernel takes fp32 or bf16 q/k/v, got {dtype}")
-
-
-def _bwd_path(dtype, d) -> str:
-    """The backward kernel for q/k/v of ``dtype`` and head dim ``d``: the
-    forward's path, for the same dtypes and head dims."""
-    return _path(dtype, d)
 
 
 def attention(q, k, v, *, causal=True, window=None, cap=None, scale=None):
@@ -192,7 +185,7 @@ def attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None,
     if (lse.dtype != torch.float32 or tuple(lse.shape) != (b, hq, sq)
             or not lse.is_contiguous()):
         raise ValueError("lse must be a contiguous fp32 [B, Hq, Sq]")
-    path = _bwd_path(q.dtype, d)
+    path = _path(q.dtype, d)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if dq.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
@@ -207,7 +200,7 @@ def attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None,
         float(scale), int(bool(causal)),
         0 if window is None else int(window),
         0.0 if cap is None else float(cap),
-        _DTYPES[q.dtype], _BWD_PATHS[path],
+        _DTYPES[q.dtype], _PATHS[path],
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, err, f"flash_attention backward ({path})")
@@ -250,4 +243,4 @@ class _FlashAttention(torch.autograd.Function):
 attention.launches = 0
 attention.launches_by_path = dict.fromkeys(_PATHS, 0)
 attention_bwd.launches = 0
-attention_bwd.launches_by_path = dict.fromkeys(_BWD_PATHS, 0)
+attention_bwd.launches_by_path = dict.fromkeys(_PATHS, 0)

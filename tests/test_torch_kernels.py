@@ -322,11 +322,12 @@ def test_attention_path(dtype, d, want):
     (_BF16, 257, ValueError), (torch.float16, 64, ValueError),
 ])
 def test_attention_backward_path(dtype, d, want):
+    # the backward takes the forward's path
     if want is ValueError:
         with pytest.raises(ValueError):
-            flash_ops._bwd_path(dtype, d)
+            flash_ops._path(dtype, d)
         return
-    assert flash_ops._bwd_path(dtype, d) == want
+    assert flash_ops._path(dtype, d) == want
     assert want in flash_ops.attention_bwd.launches_by_path
 
 
