@@ -89,6 +89,80 @@ class ModelConfig:
         reps = (self.n_layers + len(p) - 1) // len(p)
         return (p * reps)[: self.n_layers]
 
+    def param_count(self, active_only: bool = False) -> int:
+        d, h = self.d_model, self.head_dim
+        attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+        if self.qkv_bias:
+            attn += self.q_dim + 2 * self.kv_dim
+        if self.act in ("swiglu", "geglu"):
+            mlp_dense = 3 * d * self.d_ff
+        else:
+            mlp_dense = 2 * d * self.d_ff
+        n_params = 0
+        pat = self.pattern_for_layers()
+        shared_attn_counted = False
+        for kind in pat:
+            if kind in ("G", "L"):
+                n_params += attn + self.norm_params()
+                if self.is_moe:
+                    experts = self.n_experts if not active_only else self.top_k
+                    n_params += experts * 3 * d * self.d_ff + d * self.n_experts
+                else:
+                    n_params += mlp_dense
+            elif kind == "M":
+                di, ns = self.d_inner, self.ssm_state
+                nh = self.ssm_heads
+                # in_proj: d -> 2*di + 2*ns + nh (z, x, B, C, dt)
+                n_params += d * (2 * di + 2 * ns + nh) + di * d + self.norm_params()
+                n_params += nh * 2 + di  # A_log, D, dt_bias-ish / conv skipped
+            elif kind == "S":
+                if not shared_attn_counted or active_only:
+                    n_params += attn + mlp_dense + self.norm_params()
+                    shared_attn_counted = True
+        # encoder stack (same block shape as decoder global layers)
+        n_params += self.n_enc_layers * (attn + mlp_dense + self.norm_params())
+        # embeddings (+ output head if untied)
+        n_params += self.vocab_size * d
+        if not self.tie_embeddings:
+            n_params += self.vocab_size * d
+        n_params += d  # final norm
+        return n_params
+
+    def norm_params(self) -> int:
+        return 2 * self.d_model
+
+    # -- serving-side cache accounting (shared by the decode cost model and
+    # the continuous-batching engine's KV-budget admission) -----------------
+    def cache_bytes_per_seq(self, ctx_len: int, *, bytes_act: int = 2,
+                            bytes_state: int = 4) -> float:
+        """Decode-cache bytes one sequence holds at context ``ctx_len``,
+        summed over layers: per-token KV for attention layers (sliding
+        windows cap at the window), O(1) recurrent state for SSM layers.
+        The wafer decode objective and the serve engine's admission both
+        price a request through this one function, so the solver's KV
+        budget and the runtime's occupancy accounting cannot diverge."""
+        total = 0.0
+        kv_tok = 2 * self.kv_dim * bytes_act
+        for kind in self.pattern_for_layers():
+            if kind in ("G", "S"):
+                total += kv_tok * ctx_len
+            elif kind == "L":
+                w = min(ctx_len, self.sliding_window or ctx_len)
+                total += kv_tok * w
+            elif kind == "M":
+                # SSM recurrent state + conv tail: context-length-free
+                total += (self.d_inner * self.ssm_state
+                          + 4 * self.d_inner) * bytes_state
+        return total
+
+    def cache_bytes_per_token(self, ctx_len: int, *,
+                              bytes_act: int = 2) -> float:
+        """Marginal cache bytes appended per generated token at context
+        ``ctx_len`` (zero once every attention layer's window is full —
+        SSM state never grows)."""
+        grown = self.cache_bytes_per_seq(ctx_len + 1, bytes_act=bytes_act)
+        return grown - self.cache_bytes_per_seq(ctx_len, bytes_act=bytes_act)
+
 
 @dataclass(frozen=True)
 class ShapeConfig:
