@@ -132,7 +132,22 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    deepseek-7b: a run failed at step 4 by ``--fail-at-step`` and
    restarted from its checkpoint ends bitwise equal to a straight run;
    the restore lies on the card in the template's dtypes, and a bf16 tree
-   round-trips bitwise.
+   round-trips bitwise;
+8. plan launch — the plan-driven entry points at full width, bf16, each
+   with a temporary plan cache: ``repro_torch.launch.serve --auto-plan``
+   for deepseek-7b and gemma-7b (batch 4, prompt 128, 32 tokens; gemma's
+   plan prescribes ``megatron``, run at model degree 1) twice, the first
+   logging ``[plan] solved fresh`` and the second a cache hit, both with
+   tokens identical to the legacy flags' on the same weights and exactly
+   their launches (210/30 and 196/28); then ``repro_torch.launch.train
+   --arch deepseek-7b --wafers 8 --stage 0 --batch 4 --seq 512 --steps 5
+   --ckpt-dir``: the stage's 4 layers, 5 steps' launches, each loss
+   bitwise equal to ``make_train_step`` on ``solver.stage_config(cfg,
+   4)`` from the same seed, the plan hash and stage in the manifest; and a
+   relaunch with ``--failed-dies 3,9 --fail-wafer 1`` that re-solves only
+   wafer 1's stage and prints the reference's plan-drift warning.  The
+   ``[plan]`` lines give the serve runs' ms/token and the train run's
+   step ms, tokens/s, MFU and peak GB.
 
 It then prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``.
@@ -2537,6 +2552,263 @@ def phase_restart(torch):
     release(torch)
 
 
+# the plan-driven launches: one-shot serves under --auto-plan (gemma-7b's
+# plan prescribes megatron, run at degree 1), and the train stage that
+# --wafers 8 --stage 0 gives deepseek-7b at 4 x 512 (4 of its 30 layers)
+PLAN_SERVES = ("deepseek-7b", "gemma-7b")
+PLAN_TRAIN = dict(arch="deepseek-7b", wafers=8, stage=0, layers=4,
+                  fail_wafer=1, failed_dies="3,9")
+PLAN_FRESH = "[plan] solved fresh"
+PLAN_HIT = "[plan] cache hit (solver skipped): hash "
+
+
+def captured(fn, *a, **kw):
+    """(fn's result, the lines it printed), the lines echoed to the log."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*a, **kw)
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log(f"  | {line}")
+    return out, lines
+
+
+def plan_serve(torch, arch, cache):
+    """``launch.serve --arch arch --auto-plan`` twice (a fresh solve, then a
+    cache hit) between two runs with the legacy flags on the same weights
+    (legacy, plan, plan, legacy, so neither side has the first call):
+    identical generated tokens and exactly the legacy run's launches,
+    every GEMM on wgmma and every flash on mma.  The launch counts are
+    those of the first plan-driven run, zeroed just before it."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.plan import WaferPlan
+    from repro_torch.launch.planning import resolve_plan
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.transformer import init_params
+
+    dev = torch.device("cuda")
+    spec = PATHS[arch]
+    cfg = get_config(arch)
+    run = dict(batch=spec.get("batch", BATCH), prompt_len=spec["prompt_len"],
+               gen=GEN)
+    legacy_args = Namespace(arch=arch, reduced=False, device="cuda",
+                            layers=None, **run)
+    plan_args = Namespace(plan=None, auto_plan=True, plan_cache=cache,
+                          **vars(legacy_args))
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    legacy = serve(legacy_args, params=params, keep_tokens=True)
+    runs, counts = [], []
+    for _ in range(2):
+        zero_launches()
+        res, lines = captured(serve, plan_args, params=params,
+                              keep_tokens=True)
+        torch.cuda.synchronize()
+        counts.append((read_launches(), read_paths()))
+        runs.append((res, lines))
+    legacy_after = serve(legacy_args, params=params, keep_tokens=True)
+    need(legacy_after["tokens"] == legacy["tokens"],
+         f"{arch}: two legacy runs gave different tokens")
+    (fresh, fresh_lines), (hit, hit_lines) = runs
+    path, = Path(cache).glob("plan_*.json")
+    plan = WaferPlan.load(str(path))
+    need(fresh_lines[0].startswith(PLAN_FRESH),
+         f"{arch}: first --auto-plan launch logged {fresh_lines[0]!r}")
+    need(hit_lines[0] == PLAN_HIT + plan.plan_hash,
+         f"{arch}: second launch logged {hit_lines[0]!r}")
+    for res in (fresh, hit):
+        need(res["tokens"] == legacy["tokens"],
+             f"{arch}: plan-driven tokens differ from the legacy flags'")
+    for launches, paths in counts:
+        need(launches == spec["launches"],
+             f"{arch} --auto-plan: launches {launches} != "
+             f"{spec['launches']}")
+        for name, kpath in MAIN_PATH_KERNEL.items():
+            need(paths[name][kpath] == launches[name],
+                 f"{arch} --auto-plan: {name} by path {paths[name]}")
+    strategy = plan.parallel_config().strategy
+    if arch == "gemma-7b":
+        need(strategy == "megatron", f"gemma-7b's serve plan is {strategy}")
+    # the planning layer alone: a fresh solve and a cache hit, host clock
+    import tempfile
+    with tempfile.TemporaryDirectory() as solo:
+        plan_ms = {}
+        for kind in ("fresh", "hit"):
+            t0 = time.perf_counter()
+            captured(resolve_plan, cfg, run["batch"],
+                     run["prompt_len"] + GEN, cache_dir=solo, remat=False)
+            plan_ms[kind] = (time.perf_counter() - t0) * 1e3
+    out = dict(plan_hash=plan.plan_hash, degrees=plan.degrees_tuple(),
+               strategy=strategy, remat=plan.remat,
+               solver_search_s=plan.solver.get("search_time_s"),
+               plan_ms=plan_ms, launches=counts[0][0],
+               launches_by_path=counts[0][1],
+               ms_per_token={"legacy": legacy["ms_per_token"],
+                             "auto_plan_fresh": fresh["ms_per_token"],
+                             "auto_plan_hit": hit["ms_per_token"],
+                             "legacy_after": legacy_after["ms_per_token"]},
+               tokens_per_s={"legacy": legacy["tokens_per_s"],
+                             "auto_plan_fresh": fresh["tokens_per_s"],
+                             "auto_plan_hit": hit["tokens_per_s"],
+                             "legacy_after": legacy_after["tokens_per_s"]},
+               tokens_identical=True)
+    log(f"[plan] serve {arch} --auto-plan, {cfg.n_layers} layers bf16 batch "
+        f"{run['batch']} prompt {run['prompt_len']} gen {GEN}: "
+        f"{json.dumps(out)}")
+    log(f"[plan] serve {arch}: {fresh['ms_per_token']:.1f} and "
+        f"{hit['ms_per_token']:.1f} ms/token under --auto-plan (legacy flags "
+        f"{legacy['ms_per_token']:.1f} before, "
+        f"{legacy_after['ms_per_token']:.1f} after), plan "
+        f"{plan.degrees_tuple()} {strategy}")
+    del params
+    release(torch)
+    return counts[0]
+
+
+def plan_train(torch, cache, ckpt_dir):
+    """``launch.train --arch deepseek-7b --wafers 8 --stage 0 --batch 4
+    --seq 512 --steps 5 --ckpt-dir``: the MultiWaferPlan's stage 0 holds 4
+    layers; each step's loss bitwise equal to ``make_train_step`` on
+    ``solver.stage_config(cfg, 4)`` from the launcher's seed; the launches
+    exactly 5 steps' (counted over the launch); the manifest records the
+    plan hash and the stage.  Then a relaunch with ``--failed-dies`` on
+    ``--fail-wafer 1``: a fresh solve in which only wafer 1's stage changes
+    hash, and the reference's plan-drift warning."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ParallelConfig, ShapeConfig
+    from repro_torch.core.dist import Dist
+    from repro_torch.core.plan import MultiWaferPlan
+    from repro_torch.launch.train import build_parser, train
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.data import SyntheticDataset
+    from repro_torch.train.train_loop import make_train_step
+    from repro_torch.wafer.solver import stage_config
+
+    dev = torch.device("cuda")
+    t = PLAN_TRAIN
+    argv = ["--arch", t["arch"], "--wafers", str(t["wafers"]), "--stage",
+            str(t["stage"]), "--batch", str(TRAIN["batch"]), "--seq",
+            str(TRAIN["seq"]), "--steps", str(TRAIN["steps"]), "--device",
+            "cuda", "--plan-cache", cache, "--ckpt-dir", ckpt_dir,
+            "--log-every", "1"]
+    cfg = stage_config(get_config(t["arch"]), t["layers"])
+    want, want_layouts = train_launches(cfg, remat=True)
+    steps = TRAIN["steps"]
+
+    history = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    summary, lines = captured(train, build_parser().parse_args(argv),
+                              history)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches, paths, layouts = read_launches(), read_paths(), read_layouts()
+    peak = torch.cuda.max_memory_allocated()
+    plans = sorted(Path(cache).glob("mwplan_*.json"))
+    need(len(plans) == 1, f"plan cache holds {plans}")
+    plan = MultiWaferPlan.load(str(plans[0]))
+    need(lines[0].startswith(PLAN_FRESH), f"train logged {lines[0]!r}")
+    need(plan.pp == t["wafers"] and plan.stage_layers[t["stage"]]
+         == t["layers"], f"stage layers {plan.stage_layers}")
+    need(summary["plan_hash"] == plan.plan_hash and summary["steps"] == steps,
+         f"train summary {summary}")
+    need(launches == {k: steps * n for k, n in want.items()},
+         f"plan train: launches {launches}, want {steps} x {want}")
+    need(layouts == {k: steps * n for k, n in want_layouts.items()},
+         f"plan train: GEMM layouts {layouts}")
+    for name, kpath in MAIN_PATH_KERNEL.items():
+        need(paths[name][kpath] == launches[name],
+             f"plan train: {name} by path {paths[name]}")
+    meta = ckpt.read_meta(ckpt_dir)
+    need(meta == {"plan_hash": plan.plan_hash, "stage": t["stage"],
+                  "pp": plan.pp, "stage_layers": list(plan.stage_layers)},
+         f"checkpoint manifest meta {meta}")
+    losses = [h["loss"] for h in history]
+    need(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    release(torch)
+
+    # the same stage through make_train_step by hand
+    dist = Dist(dev)
+    shape = ShapeConfig("train", "train", TRAIN["seq"], TRAIN["batch"])
+    bundle = make_train_step(cfg, ParallelConfig(strategy="tatp"), dist,
+                             shape)
+    data = SyntheticDataset(cfg, shape, dist)
+    params, state = bundle.init_fn(torch.Generator(device=dev).manual_seed(0))
+    by_hand = []
+    for step in range(steps):
+        params, state, m = bundle.step_fn(params, state, data.batch(step))
+        by_hand.append(float(m["loss"]))
+    del params, state, bundle
+    release(torch)
+    need(losses == by_hand, f"plan-driven losses {losses} != "
+         f"make_train_step's {by_hand}")
+
+    # the degraded relaunch: only wafer 1's stage re-solves
+    again, relaunch = captured(train, build_parser().parse_args(
+        argv + ["--failed-dies", t["failed_dies"], "--fail-wafer",
+                str(t["fail_wafer"])]))
+    release(torch)
+    new, = [MultiWaferPlan.load(str(p)) for p in
+            Path(cache).glob("mwplan_*.json") if p != plans[0]]
+    changed = [i for i, (a, b) in enumerate(zip(plan.stages, new.stages))
+               if a.plan_hash != b.plan_hash]
+    need(relaunch[0].startswith(PLAN_FRESH), f"relaunch {relaunch[0]!r}")
+    need(changed == new.stages_of_wafer(t["fail_wafer"]) == [1],
+         f"stages re-solved: {changed}")
+    need(new.stage_layers[t["stage"]] == t["layers"],
+         f"degraded stage layers {new.stage_layers}")
+    warning = (f"[plan] WARNING: checkpoint was trained under plan "
+               f"{plan.plan_hash} but this launch runs plan {new.plan_hash} "
+               f"(wafer degraded or re-solved); state restores elastically "
+               f"onto the new mesh")
+    need(warning in relaunch, "the relaunch printed no plan-drift warning")
+    need(again["plan_hash"] == new.plan_hash, f"relaunch {again}")
+
+    step_ms = [h["ms"] for h in history]
+    steady = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    util, flops, _ = mfu(steady / 1e3, cfg, TRAIN["batch"], TRAIN["seq"])
+    out = dict(plan_hash=plan.plan_hash, pp=plan.pp, n_micro=plan.n_micro,
+               family=plan.family, stage_layers=list(plan.stage_layers),
+               stage_degrees=plan.stages[t["stage"]].degrees_tuple(),
+               strategy=plan.stages[t["stage"]].parallel_config().strategy,
+               degraded_plan_hash=new.plan_hash,
+               degraded_stage_layers=list(new.stage_layers),
+               stages_resolved=changed, losses=losses,
+               losses_equal_make_train_step=True, step_ms=step_ms,
+               step_ms_median_after_first=steady,
+               tokens_per_s=TRAIN["batch"] * TRAIN["seq"] / steady * 1e3,
+               mfu=util, peak_mem_gb=peak / 1e9, launch_wall_s=wall_s,
+               launches=launches, layouts=layouts)
+    log(f"[plan] train {t['arch']} --wafers {t['wafers']} --stage "
+        f"{t['stage']}: {json.dumps(out)}")
+    log(f"[plan] train step {steady:.1f} ms, "
+        f"{out['tokens_per_s']:.0f} tokens/s, MFU {100 * util:.2f} %, "
+        f"peak {peak / 1e9:.2f} GB")
+    return launches, layouts, paths
+
+
+def phase_plan_launch(torch):
+    """The plan-driven entry points on the card at full width, bf16, each
+    with a temporary plan cache: ``launch.serve --auto-plan`` for
+    deepseek-7b and gemma-7b (:func:`plan_serve`) and ``launch.train
+    --wafers 8 --stage 0`` for deepseek-7b (:func:`plan_train`).  Returns
+    each run's (launches, launches by path) and the train run's GEMM
+    layouts."""
+    import tempfile
+    serves = {}
+    for arch in PLAN_SERVES:
+        with tempfile.TemporaryDirectory() as cache:
+            serves[f"{arch} --auto-plan"] = plan_serve(torch, arch, cache)
+    with tempfile.TemporaryDirectory() as cache, \
+            tempfile.TemporaryDirectory() as ck:
+        trained = plan_train(torch, cache, ck)
+    return serves, trained
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke: src/repro_torch not found beside chip_smoke.py; "
@@ -2578,6 +2850,10 @@ def main() -> int:
               for arch, n_layers in TRAIN_RUNS}
     phase_tatp_outputs(torch)
     phase_restart(torch)
+    plan_serves, plan_trained = phase_plan_launch(torch)
+    runs.update(plan_serves)
+    trains[f"{PLAN_TRAIN['arch']} --wafers {PLAN_TRAIN['wafers']} --stage "
+           f"{PLAN_TRAIN['stage']} train"] = plan_trained
     # each record's launches: the counts of every main path's run (the
     # serve paths and the train paths), read just after it.  The GEMM's
     # three records split its train launches by layout: tatp_matmul counts

@@ -27,9 +27,12 @@ An encoder-decoder (``cfg.n_enc_layers``) adds the encoder's blocks under
 cross-attention block (layer kind ``X``: the attention leaves only) per
 decoder rep under ``cross`` (:func:`attn_block` with ``is_cross``).
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
-item): the ring, expert parallelism and the ``megatron``/``fsdp``
-strategies (A3).
+The ``megatron`` and ``fsdp`` strategies (which plans prescribe, e.g.
+gemma-7b's serve plan) run at model degree 1, where they compute what
+``tatp`` does (:func:`_linear`).  Not ported yet (each raises
+``NotImplementedError`` naming its ROADMAP.md item): the ring, expert
+parallelism and the ``megatron``/``fsdp`` strategies above degree 1
+(A3).
 """
 
 from __future__ import annotations
@@ -273,9 +276,17 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device):
 
 
 def _linear(ctx: RunCtx, x, w, b=None):
-    """Phase-aware linear.  x: [B, s, in]."""
-    if ctx.par.strategy != "tatp":
-        raise not_ported(f"strategy {ctx.par.strategy!r}", "A3")
+    """Phase-aware linear.  x: [B, s, in].
+
+    At model degree 1 the three strategies compute one product: the
+    reference's ``megatron`` and ``fsdp`` branches are a local einsum in
+    fp32 cast to x's dtype (fsdp's weight all-gather and megatron's
+    row-parallel psum and head split are identities at r = 1), which is
+    the TATP linear's one local tile, so all three take the GEMM hook.
+    Above degree 1 they are ROADMAP.md item A3."""
+    if ctx.par.strategy != "tatp" and ctx.r > 1:
+        raise not_ported(
+            f"strategy {ctx.par.strategy!r} at model degree {ctx.r}", "A3")
     if ctx.phase == "decode":
         # plain product (the reference's einsum accumulates in fp32 and
         # casts to x.dtype; cuBLAS accumulates bf16 products in fp32)

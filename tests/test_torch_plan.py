@@ -11,28 +11,52 @@ clocks (:func:`frozen_clocks`); nothing else is normalised.
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import glob
 import json
 import os
 import types
 
+import jax
+import jax.numpy as jnp
+import numpy as np
 import pytest
+import torch
+from jax.sharding import PartitionSpec as P
 
 from repro.analysis import verify as rverify
 from repro.configs import get_config as ref_config
+from repro.configs import get_reduced as jax_reduced
+from repro.configs.base import ParallelConfig as JaxPar
+from repro.configs.base import ShapeConfig as JaxShape
 from repro.core import plan as rplan
 from repro.core import schedule as rsched
+from repro.core.dist import Dist as JaxDist
+from repro.core.dist import make_mesh
+from repro.models import lm as jlm
+from repro.models import transformer as jtf
+from repro.train import data as jdata
+from repro.train.train_loop import batch_specs
+from repro.train.train_loop import make_serve_fns as jax_serve_fns
 from repro.wafer import mapping as rmap
 from repro.wafer import solver as rsolver
 from repro.wafer import topology as rtopo
 from repro_torch.analysis import verify as tverify
-from repro_torch.configs import ARCHITECTURES, get_config
+from repro_torch.configs import ARCHITECTURES, get_config, get_reduced
+from repro_torch.configs.base import ParallelConfig, ShapeConfig
 from repro_torch.core import plan as tplan
 from repro_torch.core import schedule as tsched
+from repro_torch.core.dist import Dist
+from repro_torch.launch.mesh import make_plan_dist, plan_mesh_shape
+from repro_torch.models import lm as tlm
+from repro_torch.models import transformer as ttf
+from repro_torch.train import data
+from repro_torch.train.train_loop import loss_and_grads, make_serve_fns
 from repro_torch.wafer import mapping as tmap
 from repro_torch.wafer import solver as tsolver
 from repro_torch.wafer import topology as ttopo
+from repro_torch.weights import params_from_jax
 
 REF = types.SimpleNamespace(plan=rplan, verify=rverify, topo=rtopo,
                             map=rmap, config=ref_config)
@@ -383,3 +407,334 @@ def test_key_builder_rule_holds_on_the_copies():
     assert bad != src
     hits = lint_source(bad, paths[0], rules)
     assert [v.rule for v in hits] == [RULE_DETERMINISM]
+
+
+# ---------------------------------------------------------------------------
+# the strategies a plan prescribes, at model degree 1
+# ---------------------------------------------------------------------------
+
+STRATEGY_ARCHS = ("deepseek-7b", "gemma-7b")
+B, S, STEPS = 2, 24, 4
+LOGIT_TOL = dict(rtol=5e-4, atol=5e-4)  # as tests/test_torch_serve.py
+LOSS_TOL = dict(rtol=1e-5, atol=1e-5)  # as tests/test_torch_train.py
+GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+@pytest.fixture(scope="module", params=[
+    (a, s) for a in STRATEGY_ARCHS for s in ("megatron", "fsdp")],
+    ids=lambda p: f"{p[0]}-{p[1]}")
+def strategy_model(request):
+    """A reduced config (fp32) under ``strategy`` at degree 1 in both
+    packages, on weights converted from the reference's tree."""
+    arch, strategy = request.param
+    cfg, jcfg = get_reduced(arch), jax_reduced(arch)
+    jparams = jax.tree.map(np.asarray,
+                           jtf.init_params(jax.random.key(0), jcfg))
+    params = params_from_jax(jparams, cfg, torch.device("cpu"))
+    jdist = JaxDist(make_mesh((1, 1), ("data", "model")))
+    return dict(arch=arch, strategy=strategy, cfg=cfg, jcfg=jcfg,
+                jparams=jparams, params=params, jdist=jdist,
+                jpar=JaxPar(strategy=strategy, remat=False),
+                par=ParallelConfig(strategy=strategy, remat=False),
+                dist=Dist(torch.device("cpu")))
+
+
+def test_strategy_param_layouts_agree_at_degree_one(strategy_model):
+    """The reference lays a strategy's leaves out by ``param_specs``; at
+    degree 1 no axis splits anything, so the tree and its shapes are the
+    ``tatp`` ones and ``params_from_jax`` carries the weights across
+    unchanged."""
+    m = strategy_model
+    specs = _flat(jtf.param_specs(m["jcfg"], m["strategy"]))
+    assert set(specs) == set(_flat(jtf.param_specs(m["jcfg"], "tatp")))
+    got = {k: _np(v) for k, v in _flat(m["params"]).items()}
+    ref = _flat(m["jparams"])
+    assert set(got) == set(ref) == set(specs)
+    for k in got:
+        assert got[k].shape == ref[k].shape and (got[k] == ref[k]).all(), k
+
+
+def test_strategy_prefill_and_decode_match_reference(strategy_model):
+    m = strategy_model
+    cfg = m["cfg"]
+    toks = np.random.RandomState(0).randint(0, cfg.vocab_size, (B, S))
+    jsb = jax_serve_fns(m["jcfg"], m["jpar"], m["jdist"],
+                        JaxShape("t", "decode", S + STEPS, B))
+    jc, jl = jsb.prefill_fn(m["jparams"], {"tokens": jnp.asarray(toks)})
+    sb = make_serve_fns(cfg, m["par"], m["dist"])
+    tc, tl = sb.prefill_fn(m["params"], {"tokens": torch.as_tensor(toks)})
+    np.testing.assert_allclose(_np(tl), _np(jl), **LOGIT_TOL)
+    jctx = jtf.RunCtx(m["jcfg"], m["jpar"], m["jdist"], phase="decode")
+    jcache = jax.tree.map(jnp.asarray, jlm.graft_cache_slots(
+        jax.device_get(jlm.init_cache(jctx, B, S + STEPS)),
+        jax.device_get(jc), slots=range(B)))
+    tcache = tlm.graft_cache_slots(tlm.init_cache(sb.ctx, B, S + STEPS), tc,
+                                   slots=range(B))
+    jt = jnp.argmax(jl[:, -1:, :], axis=-1).astype(jnp.int32) \
+        % cfg.vocab_size
+    tt = tl[:, -1:, :].argmax(dim=-1) % cfg.vocab_size
+    for i in range(STEPS):
+        n = S + i + 1
+        jt, jlog, jcache = jsb.decode_fn(m["jparams"], jt, jcache,
+                                         jnp.full((B,), n, jnp.int32))
+        tt, tlog, tcache = sb.decode_fn(m["params"], tt, tcache,
+                                        torch.full((B,), n))
+        np.testing.assert_allclose(_np(tlog), _np(jlog), **LOGIT_TOL,
+                                   err_msg=f"decode step {i}")
+        assert np.array_equal(np.asarray(jt), tt.numpy()), i
+
+
+def test_strategy_train_grads_match_reference(strategy_model):
+    """The loss and every gradient leaf of one train batch (remat on), the
+    reference's taken through its shard_map as its train step does."""
+    m = strategy_model
+    jpar = JaxPar(strategy=m["strategy"], remat=True)
+    shape = JaxShape("t", "train", S, B)
+    jctx = jtf.RunCtx(m["jcfg"], jpar, m["jdist"], phase="train")
+    batch = jdata.SyntheticDataset(m["jcfg"], shape, m["jdist"],
+                                   seed=3)._host_batch(1)
+
+    def local(p, b):
+        def f(q):
+            nll, cnt, aux = jlm.loss_fn(jctx, q, b)
+            return nll / cnt + aux
+        return jax.value_and_grad(f)(p)
+
+    pspecs = jtf.param_specs(m["jcfg"], m["strategy"])
+    fn = jax.jit(jax.shard_map(
+        local, mesh=m["jdist"].mesh,
+        in_specs=(pspecs, batch_specs(m["jcfg"], shape, jpar, m["jdist"])),
+        out_specs=(P(), pspecs), check_vma=False))
+    loss_ref, g_ref = fn(jax.tree.map(jnp.asarray, m["jparams"]),
+                         {k: jnp.asarray(v) for k, v in batch.items()})
+    tctx = ttf.RunCtx(m["cfg"], dataclasses.replace(m["par"], remat=True),
+                      m["dist"], phase="train")
+    tb = data.SyntheticDataset(m["cfg"], ShapeConfig("t", "train", S, B),
+                               m["dist"], seed=3).batch(1)
+    nll, cnt, grads = loss_and_grads(tctx, m["params"], tb)
+    np.testing.assert_allclose(_np(nll / cnt), _np(loss_ref), **LOSS_TOL)
+    grads, g_ref = _flat(grads), _flat(g_ref)
+    assert set(grads) == set(g_ref)
+    for name, g in grads.items():
+        np.testing.assert_allclose(_np(g), _np(g_ref[name]), **GRAD_TOL,
+                                   err_msg=name)
+
+
+def test_strategies_raise_a3_above_degree_one(tmp_path):
+
+
+    class Ring(Dist):
+        @property
+        def model_degree(self) -> int:
+            return 2
+
+    cfg = get_reduced("deepseek-7b")
+    for strategy in ("megatron", "fsdp"):
+        ctx = ttf.RunCtx(cfg, ParallelConfig(strategy=strategy),
+                         Ring(torch.device("cpu")), phase="prefill")
+        with pytest.raises(NotImplementedError, match="A3"):
+            ttf._linear(ctx, torch.zeros(1, 2, 4), torch.zeros(4, 4))
+    plan = tplan.compile_plan(_wafer(PORT, False), get_config("deepseek-7b"),
+                              4, 512, cache_dir=str(tmp_path))
+    assert plan.tatp == 8 and plan_mesh_shape(plan, 1) == (1, 1)
+    assert make_plan_dist(plan, "cpu").model_degree == 1
+    with pytest.raises(NotImplementedError, match="A3"):
+        plan_mesh_shape(plan, 8)
+
+
+# ---------------------------------------------------------------------------
+# plan-driven launches (--device cpu, reduced configs, a temporary cache)
+# ---------------------------------------------------------------------------
+
+
+def _train_main(capsys, argv):
+    from repro_torch.launch.train import main
+    main(["--arch", "deepseek-7b", "--reduced", "--device", "cpu",
+          "--batch", "4", "--seq", "32", "--log-every", "100", *argv])
+    lines = capsys.readouterr().out.strip().splitlines()
+    return lines, json.loads(lines[-1])
+
+
+def _ref_setup(capsys, **flags):
+    """The reference launcher's ``setup`` (plan resolution, config cut and
+    ParallelConfig) on the arguments ``_train_main`` passes; its log
+    lines, config, ParallelConfig and plan."""
+    from repro.launch import train as jtrain
+    args = argparse.Namespace(
+        arch="deepseek-7b", reduced=True, batch=4, seq=32, mesh=[1, 1],
+        strategy="tatp", plan=None, auto_plan=False, plan_cache=None,
+        failed_dies=None, wafers=1, stage=0, fail_wafer=0)
+    for k, v in flags.items():
+        setattr(args, k, v)
+    cfg, _mesh, par, plan = jtrain.setup(args)
+    return capsys.readouterr().out.strip().splitlines(), cfg, par, plan
+
+
+def test_train_auto_plan_solves_then_hits_the_cache(capsys, tmp_path,
+                                                    frozen_clocks):
+    cache = ["--auto-plan", "--steps", "2", "--plan-cache",
+             str(tmp_path / "port")]
+    first, out1 = _train_main(capsys, cache)
+    assert first[0].startswith("[plan] solved fresh (1 solver call): hash ")
+    second, out2 = _train_main(capsys, cache)
+    assert second[0] == "[plan] cache hit (solver skipped): hash " \
+        + out1["plan_hash"]
+    assert out1["plan_hash"] == out2["plan_hash"]
+    assert out1["steps"] == 2 and out1["mesh"] == [1, 1]
+    assert out1["first_loss"] == out2["first_loss"]
+    ref, _, jpar, jplan = _ref_setup(capsys, auto_plan=True,
+                                     plan_cache=str(tmp_path / "ref"))
+    assert jplan.plan_hash == out1["plan_hash"]
+    # the same log lines and summary, word for word
+    n = len(ref)
+    assert first[:n] == ref
+    plan = tplan.WaferPlan.load(_only_file(str(tmp_path / "port"), "plan"))
+    assert plan.summary().splitlines() == ref[1:]
+    assert dataclasses.asdict(ParallelConfig(**dataclasses.asdict(jpar))) \
+        == dataclasses.asdict(dataclasses.replace(
+            plan.parallel_config(), remat=False))
+
+
+def test_train_plan_file_replays_it(capsys, tmp_path):
+    _, out = _train_main(capsys, ["--auto-plan", "--steps", "1",
+                                  "--plan-cache", str(tmp_path)])
+    path = _only_file(str(tmp_path), "plan")
+    lines, again = _train_main(capsys, ["--plan", path, "--steps", "1"])
+    assert lines[0] == f"[plan] loaded {path} (hash {out['plan_hash']})"
+    assert again["plan_hash"] == out["plan_hash"]
+    assert again["first_loss"] == out["first_loss"]
+
+
+def test_train_wafers_stage_trains_its_layers(capsys, tmp_path,
+                                              frozen_clocks):
+    from repro_torch.launch.train import build_parser, setup
+    argv = ["--wafers", "2", "--stage", "1", "--plan-cache",
+            str(tmp_path / "port")]
+    args = build_parser().parse_args(
+        ["--arch", "deepseek-7b", "--reduced", "--device", "cpu",
+         "--batch", "4", "--seq", "32", *argv])
+    cfg, dist, par, plan = setup(args)
+    assert plan.pp == 2 and cfg.n_layers == plan.stage_layers[1]
+    assert par.remat is False and dist.model_degree == 1
+    assert dataclasses.asdict(par) == dataclasses.asdict(
+        dataclasses.replace(plan.stages[1].parallel_config(), remat=False))
+    capsys.readouterr()
+    lines, out = _train_main(capsys, argv + ["--steps", "2"])
+    assert lines[0].startswith("[plan] cache hit (solver skipped): hash ")
+    assert out["plan_hash"] == plan.plan_hash and out["steps"] == 2
+    assert np.isfinite(out["first_loss"]) and np.isfinite(out["last_loss"])
+    ref, jcfg, _, jplan = _ref_setup(capsys, wafers=2, stage=1,
+                                     plan_cache=str(tmp_path / "ref"))
+    assert jplan.plan_hash == plan.plan_hash
+    assert jcfg.n_layers == cfg.n_layers
+    assert ref[1:] == plan.summary().splitlines()
+    with pytest.raises(SystemExit, match="out of range"):
+        _train_main(capsys, ["--wafers", "2", "--stage", "2",
+                             "--plan-cache", str(tmp_path / "port")])
+
+
+@pytest.mark.parametrize("wafers", (1, 2))
+def test_degraded_relaunch_warns_of_plan_drift(capsys, tmp_path, wafers):
+    """A restart under a re-solved plan warns in the reference's words;
+    the manifest records the plan (and the stage of a pipeline)."""
+    from repro_torch.train import checkpoint as ckpt
+    ck = str(tmp_path / "ck")
+    plan_flags = ["--auto-plan"] if wafers == 1 else \
+        ["--wafers", "2", "--stage", "0"]
+    common = plan_flags + ["--plan-cache", str(tmp_path / "plans"),
+                           "--ckpt-dir", ck]
+    _, out = _train_main(capsys, common + ["--steps", "2"])
+    meta = ckpt.read_meta(ck)
+    assert meta["plan_hash"] == out["plan_hash"]
+    if wafers == 1:
+        assert meta["plan_degrees"] == [1, 1, 1, 1]
+        degraded = ["--failed-dies", "3,7,12"]
+    else:
+        assert (meta["stage"], meta["pp"], meta["stage_layers"]) == \
+            (0, 2, [1, 1])
+        degraded = ["--failed-dies", "3,9", "--fail-wafer", "1"]
+    lines, again = _train_main(capsys, common + degraded + ["--steps", "3"])
+    assert again["plan_hash"] != out["plan_hash"]
+    assert lines[0].startswith("[plan] solved fresh")
+    assert f"resuming from {ck}" in lines
+    assert (f"[plan] WARNING: checkpoint was trained under plan "
+            f"{out['plan_hash']} but this launch runs plan "
+            f"{again['plan_hash']} (wafer degraded or re-solved); state "
+            f"restores elastically onto the new mesh") in lines
+    assert again["steps"] == 1
+    if wafers == 2:
+        old = tplan.MultiWaferPlan.load(sorted(glob.glob(os.path.join(
+            str(tmp_path / "plans"), "mwplan_*.json")),
+            key=os.path.getmtime)[0])
+        new = tplan.MultiWaferPlan.load(sorted(glob.glob(os.path.join(
+            str(tmp_path / "plans"), "mwplan_*.json")),
+            key=os.path.getmtime)[-1])
+        assert old.stages[0].plan_hash == new.stages[0].plan_hash
+        assert old.stages[1].plan_hash != new.stages[1].plan_hash
+
+
+def _serve_main(capsys, argv):
+    from repro_torch.launch.serve import main
+    main(["--reduced", "--device", "cpu", "--batch", "2", "--prompt-len",
+          "16", "--gen", "4", *argv])
+    lines = capsys.readouterr().out.strip().splitlines()
+    return lines, json.loads(lines[-1])
+
+
+@pytest.mark.parametrize("arch", ("deepseek-7b", "gemma-7b"))
+def test_serve_auto_plan_serves_as_the_legacy_flags(arch, capsys,
+                                                    tmp_path):
+    cache = ["--arch", arch, "--auto-plan", "--plan-cache", str(tmp_path)]
+    lines, planned = _serve_main(capsys, cache)
+    assert lines[0].startswith("[plan] solved fresh (1 solver call)")
+    plan = tplan.WaferPlan.load(_only_file(str(tmp_path), "plan"))
+    assert plan.remat is False and (plan.batch, plan.seq) == (2, 20)
+    assert lines[1:-1] == plan.summary().splitlines()
+    lines, again = _serve_main(capsys, cache)
+    assert lines[0] == "[plan] cache hit (solver skipped): hash " \
+        + plan.plan_hash
+    _, legacy = _serve_main(capsys, ["--arch", arch])
+    assert set(planned) == set(legacy) == {
+        "generated_shape", "tokens_per_s", "ms_per_token", "sample"}
+    assert planned["sample"] == again["sample"] == legacy["sample"]
+    assert planned["generated_shape"] == [2, 5]
+
+
+def test_serve_auto_plan_matches_reference(tmp_path):
+    """The one-shot serve under ``--auto-plan`` against the reference's on
+    the same arguments, its plan and its weights (converted)."""
+    from repro.launch.serve import serve as jax_serve
+    from repro_torch.launch.serve import serve
+    args = argparse.Namespace(arch="deepseek-7b", reduced=True, batch=2,
+                              prompt_len=16, gen=4, mesh=[1, 1], plan=None,
+                              auto_plan=True, plan_cache=str(tmp_path),
+                              device="cpu", serve=False, layers=None)
+    ref = jax_serve(args)
+    jparams = jax.tree.map(np.asarray, jtf.init_params(
+        jax.random.key(0), jax_reduced("deepseek-7b")))
+    got = serve(args, params=params_from_jax(
+        jparams, get_reduced("deepseek-7b"), torch.device("cpu")))
+    assert got["generated_shape"] == ref["generated_shape"]
+    assert got["sample"] == ref["sample"]
+
+
+def test_serve_engine_mode_raises_a1():
+    from repro_torch.launch.serve import main
+    with pytest.raises(NotImplementedError, match="A1"):
+        main(["--reduced", "--device", "cpu", "--serve", "--auto-plan"])

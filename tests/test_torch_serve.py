@@ -185,9 +185,10 @@ def test_unported_paths_name_their_roadmap_item(model):
         ttf.moe_block(ring, p, torch.zeros(1, 4, cfg.d_model))
     with pytest.raises(NotImplementedError, match="A3"):
         tlm.embed_tokens(ring, p["wq"], torch.zeros(1, 4, dtype=torch.long))
-    with pytest.raises(NotImplementedError, match="A3"):
-        ttf._linear(replace(tctx, par=ParallelConfig(strategy="megatron")),
-                    torch.zeros(1, 1, 4), torch.zeros(4, 4))
+    for strategy in ("megatron", "fsdp"):  # run at degree 1, not above
+        with pytest.raises(NotImplementedError, match="A3"):
+            ttf._linear(replace(ring, par=ParallelConfig(strategy=strategy)),
+                        torch.zeros(1, 1, 4), torch.zeros(4, 4))
 
 
 class _RingDist(Dist):

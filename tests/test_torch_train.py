@@ -478,11 +478,9 @@ def test_train_main_prints_reference_keys(capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--auto-plan"], "A1"), (["--plan", "p.json"], "A1"),
-    (["--wafers", "2"], "A1"), (["--ckpt-dir", "ck", "--mesh", "1", "2"],
-                                "A3"),
-    (["--fail-at-step", "1", "--auto-plan"], "A1"), (["--mesh", "2", "1"],
-                                                     "A3"),
+    (["--ckpt-dir", "ck", "--mesh", "1", "2"], "A3"),
+    (["--mesh", "2", "1"], "A3"),
+    (["--strategy", "megatron", "--mesh", "1", "4"], "A3"),
 ])
 def test_train_unported_flags_raise(flags, item):
     from repro_torch.launch.train import main
