@@ -1,6 +1,5 @@
 """A plan's device layout for the port's launchers (counterpart of the
-plan half of ``repro.launch.mesh``: ``plan_device_permutation`` and
-``make_plan_mesh``).
+plan half of ``repro.launch.mesh``, ``make_plan_mesh``).
 
 The reference builds a jax ``(data, model)`` mesh from a plan's degrees
 and snake device order.  The port runs on one device, and a plan's mesh
@@ -16,19 +15,6 @@ from __future__ import annotations
 
 from repro_torch import not_ported
 from repro_torch.core.dist import Dist, resolve_device
-
-
-def plan_device_permutation(plan, n_devices: int) -> list[int]:
-    """Device permutation a plan prescribes for ``n_devices`` (the
-    reference's function, jax-free): the plan's own snake ``device_order``
-    compacted to device ranks at full scale, else the dense snake over
-    the shrunken ``(data, model)`` grid."""
-    from repro_torch.wafer.mapping import device_order_for_jax
-    if n_devices == len(plan.device_order):
-        rank = {die: k for k, die in enumerate(sorted(plan.alive_dies))}
-        return [rank[d] for d in plan.device_order]
-    data, model = plan.mesh_shape_for(n_devices)
-    return device_order_for_jax(data, model).tolist()
 
 
 def plan_mesh_shape(plan, n_devices: int = 1) -> tuple[int, int]:

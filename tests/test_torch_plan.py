@@ -237,7 +237,7 @@ def _violations(vs):
     return [dataclasses.astuple(v) for v in vs]
 
 
-def _both(fn):
+def _both(fn, tmp_path):
     """``fn(pkg, plan, wafer, cfg)`` on each package's own deepseek-7b
     train plan; the two lists of violations."""
     out = []
@@ -245,7 +245,8 @@ def _both(fn):
         w = _wafer(pkg, False)
         cfg = pkg.config("deepseek-7b")
         plan = pkg.plan.compile_plan(w, cfg, 512, 2048, use_cache=False,
-                                     cache_dir=_both.cache[pkg is PORT])
+                                     cache_dir=str(tmp_path / str(
+                                         pkg is PORT)))
         out.append(_violations(fn(pkg, plan, w, cfg)))
     return out
 
@@ -273,8 +274,7 @@ CORRUPTIONS = {
 
 @pytest.mark.parametrize("corruption", sorted(CORRUPTIONS))
 def test_verify_plan_matches_reference(corruption, tmp_path):
-    _both.cache = (str(tmp_path / "ref"), str(tmp_path / "port"))
-    r, t = _both(CORRUPTIONS[corruption])
+    r, t = _both(CORRUPTIONS[corruption], tmp_path)
     assert r == t
     assert (r == []) == (corruption == "clean")
 
@@ -381,22 +381,23 @@ def test_truncated_cache_entry_quarantines_and_resolves(tmp_path,
 
 
 # ---------------------------------------------------------------------------
-# the reference linter's key-builder rule on the port's copies
+# the reference linter's cache-key rules on the port's copies
 # ---------------------------------------------------------------------------
 
 _PORT_SRC = os.path.join(os.path.dirname(__file__), os.pardir, "src",
                          "repro_torch")
-_KEY_BUILDER_COPIES = ("core/plan.py", "wafer/solver.py", "analysis/verify.py")
+_CACHE_KEY_COPIES = ("core/plan.py", "wafer/solver.py", "analysis/verify.py")
 
 
-def test_key_builder_rule_holds_on_the_copies():
-    """The copies keep the reference's key builders (``plan_cache_key``,
-    ``plan_hash``, ``StepCostContext.resident``) so plan JSON stays
-    byte-identical; the reference linter's cache-key and determinism
-    rules, which judge exactly those builders, find nothing in them."""
+def test_cache_key_rules_hold_on_the_copies():
+    """The copies keep the reference's cache-identity functions
+    (``plan_cache_key``, ``plan_hash``, ``StepCostContext.resident``) so
+    plan JSON stays byte-identical; the reference linter's cache-key and
+    determinism rules, which judge exactly those functions, find nothing
+    in them."""
     from repro.analysis.lint import (RULE_CACHE_KEY, RULE_DETERMINISM,
                                      lint_paths, lint_source)
-    paths = [os.path.join(_PORT_SRC, p) for p in _KEY_BUILDER_COPIES]
+    paths = [os.path.join(_PORT_SRC, p) for p in _CACHE_KEY_COPIES]
     rules = (RULE_CACHE_KEY, RULE_DETERMINISM)
     assert lint_paths(paths, rules) == []
     # the rule does read the copies: a wall-clock read in the port's
