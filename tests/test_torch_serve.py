@@ -218,6 +218,9 @@ def _port_modules():
 def test_port_imports_without_jax_or_repro():
     mods = _port_modules()
     assert "repro_torch.launch.serve" in mods and len(mods) > 15
+    assert {"repro_torch.serve", "repro_torch.serve.engine",
+            "repro_torch.serve.governor", "repro_torch.serve.migrate",
+            "repro_torch.wafer.fault"} <= set(mods)
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -244,6 +247,8 @@ _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
 
 def test_port_sources_never_import_jax_or_repro():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert PORT / "serve" / "engine.py" in files
+    assert PORT / "wafer" / "fault.py" in files
     hits = [f"{f.relative_to(REPO)}: {m.group(0).strip()}"
             for f in files for m in _FORBIDDEN.finditer(f.read_text())]
     assert hits == []
