@@ -147,7 +147,25 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    relaunch with ``--failed-dies 3,9 --fail-wafer 1`` that re-solves only
    wafer 1's stage and prints the reference's plan-drift warning.  The
    ``[plan]`` lines give the serve runs' ms/token and the train run's
-   step ms, tokens/s, MFU and peak GB.
+   step ms, tokens/s, MFU and peak GB;
+9. engine — engine-mode serving (``repro_torch.launch.serve --serve
+   --auto-plan``, ``serve_engine``) of deepseek-7b at its 30 layers,
+   bf16, on ``TorchServeExecutor`` and a wall clock: 12 Poisson requests
+   at 4 a second into 4 decode slots, 128 prompt and 32 new tokens each,
+   with a fresh plan cache.  (a) Fault-free: every request finished with
+   its 32 tokens, and exactly 210 GEMM and 30 flash launches per prefill
+   group the engine ran (decode runs no kernel), all ``wgmma`` / ``mma``.
+   (b) The same with ``--fault-at 2.0``: exactly one replan, whose plan
+   hash equals ``replan_serve``'s offline solve for the same fault, and
+   every request finished or rejected with a reason.  Each run logs
+   TTFT and TPOT p50/p99, tokens/s, makespan, mean occupancy, peak GB and
+   the executor's call times; (b) its recovery event.  (c) fp32, TF32
+   off, at full width: deepseek-7b (2 layers, prompts of 128 and 96) and
+   zamba2-2.7b (6 layers, prompts of 256 and 512) through ``ServeEngine``
+   on a virtual clock, each executor call charged 1.0 s, with a die fault
+   at 1e-9 s so ``migrate`` runs; kernels against every hook's plain
+   version: identical token streams and reports, the SSD on its kernel
+   in zamba2's run.
 
 It then prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``.
@@ -2809,6 +2827,288 @@ def phase_plan_launch(torch):
     return serves, trained
 
 
+# engine-mode serving (``launch.serve --serve``): deepseek-7b at its 30
+# layers, bf16, 12 open-loop requests at 4 a second, 4 decode slots, 128
+# prompt tokens and 32 new tokens each; then the same with a die fault at
+# 2.0 s on the engine's clock (``--fault-at``, 1/8 of the dies, seeded)
+ENGINE = dict(arch="deepseek-7b", requests=12, rate=4.0, max_batch=4,
+              prompt_len=128, max_new=32, fault_at=2.0)
+# the fp32 engine parity runs (TF32 off): (arch, layers, prompt lengths);
+# the PARITY depths at full width, zamba2's prompts whole ssm_chunks
+ENGINE_PARITY = (("deepseek-7b", 2, (128, 96)),
+                 ("zamba2-2.7b", 6, (256, 512)))
+ENGINE_PARITY_NEW = 8
+
+
+class EngineCalls:
+    """A ServeEngine executor that passes each call to ``inner`` and
+    records its host time (the executor returns with the device
+    synchronised) and, for a prefill, its number of prompt-length groups:
+    ``TorchServeExecutor`` runs one prefill of the model per group.
+    With ``fixed`` set every call reports that duration (a virtual clock's
+    logical time, so a fault lands at the same point in every run)."""
+
+    def __init__(self, inner, fixed=None):
+        self.inner, self.fixed = inner, fixed
+        self.calls = []  # (kind, ms, prefill groups)
+
+    def _timed(self, kind, fn, groups=0):
+        t0 = time.perf_counter()
+        fn()
+        self.calls.append((kind, (time.perf_counter() - t0) * 1e3, groups))
+        return self.fixed
+
+    def prefill(self, states):
+        groups = len({st.req.prompt_len for st in states})
+        return self._timed("prefill", lambda: self.inner.prefill(states),
+                           groups)
+
+    def decode(self, states):
+        return self._timed("decode", lambda: self.inner.decode(states))
+
+    def migrate(self, new_plan, mig, wafer=None):
+        return self._timed(
+            "migrate", lambda: self.inner.migrate(new_plan, mig, wafer))
+
+    def summary(self):
+        out = {}
+        for kind in ("prefill", "decode", "migrate"):
+            ms = sorted(m for k, m, _ in self.calls if k == kind)
+            out[kind] = dict(n=len(ms), ms_p50=ms[len(ms) // 2] if ms
+                             else None, ms_max=ms[-1] if ms else None)
+        out["prefill"]["groups"] = sum(g for k, _, g in self.calls
+                                       if k == "prefill")
+        return out
+
+
+def engine_run(torch, params, cache, fault):
+    """``launch.serve --serve --auto-plan`` (``serve_engine``) on the card,
+    the launch counts zeroed just before it and read just after."""
+    from repro_torch.launch.serve import build_parser, serve_engine
+    e = ENGINE
+    argv = ["--arch", e["arch"], "--serve", "--auto-plan", "--device",
+            "cuda", "--plan-cache", cache]
+    for key in ("requests", "rate", "max_batch", "prompt_len", "max_new"):
+        argv += [f"--{key.replace('_', '-')}", str(e[key])]
+    if fault:
+        argv += ["--fault-at", str(e["fault_at"])]
+    wrapped = []
+
+    def wrap(ex):
+        wrapped.append(EngineCalls(ex))
+        return wrapped[0]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    rep, lines = captured(serve_engine, build_parser().parse_args(argv),
+                          params=params, executor=wrap)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches, paths = read_launches(), read_paths()
+    peak = torch.cuda.max_memory_allocated()
+    return rep, lines, wrapped[0], launches, paths, peak, wall_s
+
+
+def check_engine_launches(what, calls, launches, paths):
+    """Exactly one prefill's launches per prompt-length group the engine
+    prefilled (210 GEMMs and 30 flash for deepseek-7b; decode and
+    migration run no kernel), every GEMM on wgmma and flash on mma."""
+    groups = calls.summary()["prefill"]["groups"]
+    one = PATHS[ENGINE["arch"]]["launches"]
+    need(groups > 0, f"{what}: no prefill ran")
+    want = {k: n * groups for k, n in one.items()}
+    need(launches == want, f"{what}: launches {launches} != {groups} "
+         f"prefill groups x {one}")
+    for name, kpath in MAIN_PATH_KERNEL.items():
+        need(paths[name][kpath] == launches[name],
+             f"{what}: {name} by path {paths[name]}")
+    return groups
+
+
+def engine_metrics(rep, calls, launches, peak, wall_s):
+    keys = ("n_finished", "n_rejected", "generated_tokens", "makespan",
+            "tokens_per_s", "ttft_p50", "ttft_p99", "tpot_p50", "tpot_p99",
+            "mean_occupancy", "iterations", "n_replans", "n_evicted",
+            "n_readmitted", "plan_hash", "mode")
+    return dict({k: rep[k] for k in keys}, calls=calls.summary(),
+                launches=launches, peak_mem_gb=peak / 1e9, wall_s=wall_s)
+
+
+def engine_parity(torch, arch, n_layers, plens):
+    """fp32 (TF32 off) engine parity at full width: the same requests
+    through ``ServeEngine`` on a virtual clock (each executor call 1.0 s)
+    with a die fault at 1e-9 s, so ``migrate`` runs after the first
+    admission wave; once with the kernels and once with every kernel hook
+    replaced by its plain version.  Every request's token stream and the
+    whole report must be identical; the kernel run must have launched
+    each kernel the model's prefill runs (the plain run none)."""
+    import tempfile
+
+    from repro_torch.core.plan import compile_serve_plan
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.tatp_matmul.ref import matmul_ref
+    from repro_torch.launch.serve import TorchServeExecutor
+    from repro_torch.models.ssm import ssd_chunked
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.engine import Request, ServeEngine, VirtualClock
+    from repro_torch.wafer.fault import sample_die_faults
+    from repro_torch.wafer.topology import Wafer, WaferSpec
+
+    dev = torch.device("cuda")
+    cfg = parity_config(arch, n_layers)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(1),
+                         dev)
+    reqs = [Request(rid=i, arrival=0.0 if i < 4 else 4.5,
+                    prompt_len=plens[i % len(plens)],
+                    max_new_tokens=ENGINE_PARITY_NEW) for i in range(6)]
+    plain = dict(dot=matmul_ref, attention=attention_ref, ssd=ssd_chunked)
+    runs = {}
+    with tempfile.TemporaryDirectory() as cache:
+        wafer = Wafer(WaferSpec())
+        plan = compile_serve_plan(wafer, cfg, 4,
+                                  max(plens) + ENGINE_PARITY_NEW,
+                                  cache_dir=cache)
+        fault = sample_die_faults(wafer, 0.1, seed=2).as_event(1e-9)
+        for name, hooks in (("kernels", {}), ("plain", plain)):
+            ex = EngineCalls(TorchServeExecutor(plan, cfg, params=params,
+                                                **hooks), fixed=1.0)
+            eng = ServeEngine(plan, ex, clock=VirtualClock(), cfg=cfg,
+                              wafer=wafer, faults=[fault],
+                              plan_cache_dir=cache)
+            zero_launches()
+            rep = eng.run([Request(**vars(r)) for r in reqs])
+            torch.cuda.synchronize()
+            streams = sorted((st.req.rid, st.req.prior_tokens,
+                              tuple(st.tokens)) for st in eng.sched.finished)
+            runs[name] = (rep.to_dict(), streams, read_launches(),
+                          ex.summary())
+            del ex, eng
+            release(torch)
+    (rep, streams, launches, calls), (prep, pstreams, plaunches, _) = \
+        runs["kernels"], runs["plain"]
+    need(rep["n_finished"] == len(reqs) and rep["n_replans"] == 1,
+         f"engine parity {arch}: {rep['n_finished']} finished, "
+         f"{rep['n_replans']} replans")
+    need(calls["migrate"]["n"] == 1, f"engine parity {arch}: migrate ran "
+         f"{calls['migrate']['n']} times")
+    need(streams == pstreams, f"engine parity {arch}: token streams differ "
+         f"between the kernels and the plain versions")
+    need(rep == prep, f"engine parity {arch}: reports differ")
+    want = prefill_launches(cfg)
+    for k, n in want.items():
+        need((launches[k] > 0) == (n > 0),
+             f"engine parity {arch}: kernel run launched {launches}")
+    need(not any(plaunches.values()),
+         f"engine parity {arch}: the plain run launched {plaunches}")
+    out = dict(layers=n_layers, prompt_lens=list(plens),
+               requests=len(reqs), streams_identical=True,
+               reports_identical=True, replans=rep["n_replans"],
+               recovery=rep["recovery"][0], tokens=rep["generated_tokens"],
+               kernel_launches=launches, plain_launches=plaunches,
+               calls=calls)
+    log(f"[engine] parity {arch} fp32: {json.dumps(out)}")
+    del params
+    release(torch)
+
+
+def phase_engine(torch):
+    """Engine-mode serving on the card (``launch.serve --serve``): (a)
+    deepseek-7b at its 30 layers, bf16, fault-free, through
+    ``serve_engine`` (every request finished with all its tokens, exactly
+    one prefill's launches per prefill group); (b) the same with
+    ``--fault-at 2.0``: one replan, to the plan that ``replan_serve``
+    solves offline for the same fault, and every request finished or
+    rejected with a reason; (c) fp32 parity of the engine, kernels
+    against plain versions (:func:`engine_parity`).  Returns the launch
+    counts of (a) and (b)."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.plan import ServePlan, replan_serve
+    from repro_torch.models.transformer import init_params
+    from repro_torch.wafer.fault import sample_die_faults
+
+    dev = torch.device("cuda")
+    e = ENGINE
+    cfg = get_config(e["arch"])
+    need(cfg.n_layers == PATHS[e["arch"]]["n_layers"],
+         f"{e['arch']} has {cfg.n_layers} layers")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    counted = {}
+    for fault in (False, True):
+        what = f"{e['arch']} engine" + (" fault" if fault else "")
+        with tempfile.TemporaryDirectory() as cache:
+            rep, lines, calls, launches, paths, peak, wall_s = engine_run(
+                torch, params, cache, fault)
+            # the launch's plan and, after a fault, the adopted one
+            plans = {p.plan_hash: p for p in (
+                ServePlan.load(str(f))
+                for f in Path(cache).glob("splan_*.json"))}
+            need(len(plans) == 1 + fault and rep["plan_hash"] in plans,
+                 f"{what}: ran {rep['plan_hash']}, cache holds "
+                 f"{sorted(plans)}")
+            plan = plans[rep["plan_hash"]]
+            need(lines[0].startswith(PLAN_FRESH),
+                 f"{what}: logged {lines[0]!r}")
+            need(rep["mode"] == "torch", f"{what}: mode {rep['mode']}")
+            groups = check_engine_launches(what, calls, launches, paths)
+            out = engine_metrics(rep, calls, launches, peak, wall_s)
+            out["prefill_groups"] = groups
+            if not fault:
+                need(rep["n_finished"] == e["requests"]
+                     and rep["generated_tokens"]
+                     == e["requests"] * e["max_new"],
+                     f"{what}: {rep['n_finished']} finished, "
+                     f"{rep['generated_tokens']} tokens")
+                need(rep["n_replans"] == 0, f"{what}: replanned")
+            else:
+                need(rep["n_replans"] == 1 and len(rep["recovery"]) == 1,
+                     f"{what}: {rep['n_replans']} replans")
+                rec = rep["recovery"][0]
+                wafer = plan.plan.wafer()
+                dies = sample_die_faults(wafer, 0.125, seed=0).failed_dies
+                need(tuple(rec["failed_dies"]) == tuple(dies),
+                     f"{what}: fault killed {rec['failed_dies']}, the "
+                     f"sampler gives {dies}")
+                offline = replan_serve(plan, cfg, wafer.with_faults(
+                    dies, ()), use_cache=False)
+                need(rec["new_plan_hash"] == offline.plan_hash,
+                     f"{what}: adopted {rec['new_plan_hash']}, offline "
+                     f"replan_serve gives {offline.plan_hash}")
+                need(rep["n_finished"] + rep["n_rejected"] == e["requests"]
+                     and all(reason for _, reason in rep["rejected"]),
+                     f"{what}: {rep['n_finished']} finished, rejected "
+                     f"{rep['rejected']}")
+                need(calls.summary()["migrate"]["n"] == 1,
+                     f"{what}: migrate ran {calls.summary()['migrate']}")
+                out["recovery"] = {k: rec[k] for k in (
+                    "old_plan_hash", "new_plan_hash", "pause_s",
+                    "n_active", "n_survivors", "n_evicted",
+                    "old_max_batch", "new_max_batch", "failed_dies",
+                    "dip_depth", "time_to_recover", "recovered")}
+                out["offline_replan_hash"] = offline.plan_hash
+            need(all(math.isfinite(rep[k]) for k in (
+                "ttft_p50", "ttft_p99", "tpot_p50", "tpot_p99",
+                "tokens_per_s", "makespan")), f"{what}: {rep}")
+            log(f"[engine] {what} {cfg.n_layers} layers bf16: "
+                f"{json.dumps(out)}")
+            log(f"[engine] {what}: TTFT p50 {1e3 * rep['ttft_p50']:.1f} / "
+                f"p99 {1e3 * rep['ttft_p99']:.1f} ms, TPOT p50 "
+                f"{1e3 * rep['tpot_p50']:.1f} / p99 "
+                f"{1e3 * rep['tpot_p99']:.1f} ms, "
+                f"{rep['tokens_per_s']:.1f} tokens/s, occupancy "
+                f"{rep['mean_occupancy']:.2f}, peak {peak / 1e9:.2f} GB")
+            counted[what] = (launches, paths)
+    del params
+    release(torch)
+    for arch, n_layers, plens in ENGINE_PARITY:
+        engine_parity(torch, arch, n_layers, plens)
+    return counted
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke: src/repro_torch not found beside chip_smoke.py; "
@@ -2852,6 +3152,7 @@ def main() -> int:
     phase_restart(torch)
     plan_serves, plan_trained = phase_plan_launch(torch)
     runs.update(plan_serves)
+    runs.update(phase_engine(torch))
     trains[f"{PLAN_TRAIN['arch']} --wafers {PLAN_TRAIN['wafers']} --stage "
            f"{PLAN_TRAIN['stage']} train"] = plan_trained
     # each record's launches: the counts of every main path's run (the

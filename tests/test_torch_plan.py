@@ -735,7 +735,61 @@ def test_serve_auto_plan_matches_reference(tmp_path):
     assert got["sample"] == ref["sample"]
 
 
-def test_serve_engine_mode_raises_a1():
+ENGINE_ARGS = ["--reduced", "--serve", "--auto-plan", "--requests", "3",
+               "--rate", "50", "--max-batch", "2", "--prompt-len", "8",
+               "--max-new", "3"]
+
+
+def _ref_engine_keys(tmp_path):
+    """The keys of the reference's engine-mode JSON (its ``--sim`` run on
+    the same arguments)."""
+    from repro.launch.serve import serve_engine as jax_serve_engine
+    from repro_torch.launch.serve import build_parser
+    args = build_parser().parse_args(
+        ENGINE_ARGS + ["--sim", "--plan-cache", str(tmp_path / "ref")])
+    return set(jax_serve_engine(args))
+
+
+def test_serve_engine_mode_prints_the_reference_keys(capsys, tmp_path):
+    """``--serve`` on the CPU runs the engine on the port's executor and
+    prints the reference's keys, ``"mode"`` being ``"torch"``."""
     from repro_torch.launch.serve import main
-    with pytest.raises(NotImplementedError, match="A1"):
-        main(["--reduced", "--device", "cpu", "--serve", "--auto-plan"])
+    main(ENGINE_ARGS + ["--device", "cpu",
+                        "--plan-cache", str(tmp_path / "port")])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[0].startswith("[plan] solved fresh")
+    out = json.loads(lines[-1])
+    assert set(out) == _ref_engine_keys(tmp_path)
+    assert out["mode"] == "torch" and out["n_finished"] == 3
+    assert out["generated_tokens"] == 9
+    plan = tplan.ServePlan.load(_only_file(str(tmp_path / "port"), "splan"))
+    assert out["plan_hash"] == plan.plan_hash
+
+
+@pytest.mark.parametrize("extra", ([], ["--fault-at", "0.02",
+                                        "--readmission", "drain"],
+                                   ["--fault-trace", "cascade:1",
+                                    "--governor"]))
+def test_serve_engine_sim_matches_reference(capsys, tmp_path, extra):
+    """``--serve --sim`` prints the report the reference's
+    ``serve_engine`` gives for the same arguments."""
+    from repro.launch.serve import serve_engine as jax_serve_engine
+    from repro_torch.launch.serve import build_parser, main
+    argv = ENGINE_ARGS + ["--sim", "--requests", "12", "--rate", "4"] \
+        + extra
+    main(argv + ["--plan-cache", str(tmp_path / "port")])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    ref = jax_serve_engine(build_parser().parse_args(
+        argv + ["--plan-cache", str(tmp_path / "ref")]))
+    assert out["mode"] == "sim" and out["n_finished"] == 12
+    assert out["n_replans"] == (1 if "--fault-at" in extra else 3 if extra
+                                else 0)
+    assert out == json.loads(json.dumps(ref))  # as the reference prints it
+
+
+def test_serve_engine_mode_needs_a_gpu_or_device_cpu(monkeypatch, tmp_path):
+    """Without a GPU ``--serve`` raises unless ``--device cpu`` is given."""
+    from repro_torch.launch.serve import main
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(ENGINE_ARGS + ["--plan-cache", str(tmp_path)])
