@@ -754,16 +754,19 @@ def test_serve_engine_mode_prints_the_reference_keys(capsys, tmp_path):
     """``--serve`` on the CPU runs the engine on the port's executor and
     prints the reference's keys, ``"mode"`` being ``"torch"``."""
     from repro_torch.launch.serve import main
-    main(ENGINE_ARGS + ["--device", "cpu",
-                        "--plan-cache", str(tmp_path / "port")])
-    lines = capsys.readouterr().out.strip().splitlines()
-    assert lines[0].startswith("[plan] solved fresh")
-    out = json.loads(lines[-1])
-    assert set(out) == _ref_engine_keys(tmp_path)
-    assert out["mode"] == "torch" and out["n_finished"] == 3
-    assert out["generated_tokens"] == 9
-    plan = tplan.ServePlan.load(_only_file(str(tmp_path / "port"), "splan"))
-    assert out["plan_hash"] == plan.plan_hash
+    keys = _ref_engine_keys(tmp_path)
+    for layers in ([], ["--layers", "1"]):  # a cut in depth of the model
+        cache = str(tmp_path / f"port{len(layers)}")
+        main(ENGINE_ARGS + ["--device", "cpu", "--plan-cache", cache]
+             + layers)
+        lines = capsys.readouterr().out.strip().splitlines()
+        assert lines[0].startswith("[plan] solved fresh")
+        out = json.loads(lines[-1])
+        assert set(out) == keys
+        assert out["mode"] == "torch" and out["n_finished"] == 3
+        assert out["generated_tokens"] == 9
+        plan = tplan.ServePlan.load(_only_file(cache, "splan"))
+        assert out["plan_hash"] == plan.plan_hash
 
 
 @pytest.mark.parametrize("extra", ([], ["--fault-at", "0.02",

@@ -17,7 +17,6 @@ import types
 
 import pytest
 
-from repro.analysis import schema as rschema
 from repro.configs import get_config as ref_config
 from repro.configs import get_reduced as ref_reduced
 from repro.core import plan as rplan
@@ -26,7 +25,6 @@ from repro.serve import governor as rgov
 from repro.serve import migrate as rmig
 from repro.wafer import fault as rfault
 from repro.wafer import topology as rtopo
-from repro_torch.analysis import schema as tschema
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.core import plan as tplan
 from repro_torch.serve import engine as teng
@@ -36,11 +34,11 @@ from repro_torch.wafer import fault as tfault
 from repro_torch.wafer import topology as ttopo
 
 REF = types.SimpleNamespace(plan=rplan, eng=reng, gov=rgov, mig=rmig,
-                            fault=rfault, topo=rtopo, schema=rschema,
-                            config=ref_config, reduced=ref_reduced)
+                            fault=rfault, topo=rtopo, config=ref_config,
+                            reduced=ref_reduced)
 PORT = types.SimpleNamespace(plan=tplan, eng=teng, gov=tgov, mig=tmig,
-                             fault=tfault, topo=ttopo, schema=tschema,
-                             config=get_config, reduced=get_reduced)
+                             fault=tfault, topo=ttopo, config=get_config,
+                             reduced=get_reduced)
 PKGS = (REF, PORT)
 
 
