@@ -2828,11 +2828,19 @@ def phase_plan_launch(torch):
 
 
 # engine-mode serving (``launch.serve --serve``): deepseek-7b at its 30
-# layers, bf16, 12 open-loop requests at 4 a second, 4 decode slots, 128
-# prompt tokens and 32 new tokens each; then the same with a die fault at
-# 2.0 s on the engine's clock (``--fault-at``, 1/8 of the dies, seeded)
-ENGINE = dict(arch="deepseek-7b", requests=12, rate=4.0, max_batch=4,
-              prompt_len=128, max_new=32, fault_at=2.0)
+# layers, bf16, 4 decode slots, 128 prompt tokens and 32 new tokens each.
+# The measured load: 100 open-loop requests at 1.25 a second, below the
+# ~1.8 a second that 4 slots of ~2 s serve, so the queue has a steady
+# state and TTFT's p99 rests on 100 samples; then the same with a die
+# fault at 2.0 s on the engine's clock (``--fault-at``, 1/8 of the dies,
+# seeded).  The stress load: 12 requests at 4 a second, twice what the
+# slots serve, so TTFT grows with each request (queueing, not the server)
+ENGINE = dict(arch="deepseek-7b", max_batch=4, prompt_len=128, max_new=32,
+              fault_at=2.0)
+ENGINE_LOAD = dict(requests=100, rate=1.25)
+ENGINE_RUNS = (("engine", ENGINE_LOAD, False),
+               ("engine fault", ENGINE_LOAD, True),
+               ("engine stress", dict(requests=12, rate=4.0), False))
 # the fp32 engine parity runs (TF32 off): (arch, layers, prompt lengths);
 # the PARITY depths at full width, zamba2's prompts whole ssm_chunks
 ENGINE_PARITY = (("deepseek-7b", 2, (128, 96)),
@@ -2851,6 +2859,7 @@ class EngineCalls:
     def __init__(self, inner, fixed=None):
         self.inner, self.fixed = inner, fixed
         self.calls = []  # (kind, ms, prefill groups)
+        self.states = {}  # every request state prefilled, by id
 
     def _timed(self, kind, fn, groups=0):
         t0 = time.perf_counter()
@@ -2859,6 +2868,7 @@ class EngineCalls:
         return self.fixed
 
     def prefill(self, states):
+        self.states.update((id(st), st) for st in states)
         groups = len({st.req.prompt_len for st in states})
         return self._timed("prefill", lambda: self.inner.prefill(states),
                            groups)
@@ -2869,6 +2879,12 @@ class EngineCalls:
     def migrate(self, new_plan, mig, wafer=None):
         return self._timed(
             "migrate", lambda: self.inner.migrate(new_plan, mig, wafer))
+
+    def finished(self):
+        """The finished requests' states: the samples of the report's
+        TTFT and TPOT percentiles."""
+        return [st for st in self.states.values()
+                if math.isfinite(st.finished_at)]
 
     def summary(self):
         out = {}
@@ -2881,11 +2897,12 @@ class EngineCalls:
         return out
 
 
-def engine_run(torch, params, cache, fault):
-    """``launch.serve --serve --auto-plan`` (``serve_engine``) on the card,
-    the launch counts zeroed just before it and read just after."""
+def engine_run(torch, params, cache, load, fault):
+    """``launch.serve --serve --auto-plan`` (``serve_engine``) on the card
+    at ``load`` (requests and rate), the launch counts zeroed just before
+    it and read just after."""
     from repro_torch.launch.serve import build_parser, serve_engine
-    e = ENGINE
+    e = dict(ENGINE, **load)
     argv = ["--arch", e["arch"], "--serve", "--auto-plan", "--device",
             "cuda", "--plan-cache", cache]
     for key in ("requests", "rate", "max_batch", "prompt_len", "max_new"):
@@ -2927,12 +2944,33 @@ def check_engine_launches(what, calls, launches, paths):
     return groups
 
 
-def engine_metrics(rep, calls, launches, peak, wall_s):
+# the least number of samples that a nearest-rank p99 is reported over:
+# below it the p99 is the slowest request, and the max says so plainly
+P99_MIN_SAMPLES = 100
+
+
+def engine_metrics(rep, calls, launches, peak, wall_s, sent):
+    """The run's report, with the requests sent and TTFT as median and
+    max (p99 only where ``P99_MIN_SAMPLES`` back it).  The TTFT samples
+    are recomputed from the executor's states and must give the report's
+    own percentiles (``ServeReport``'s nearest-rank rule)."""
+    from repro_torch.serve.engine import _percentile
     keys = ("n_finished", "n_rejected", "generated_tokens", "makespan",
-            "tokens_per_s", "ttft_p50", "ttft_p99", "tpot_p50", "tpot_p99",
+            "tokens_per_s", "ttft_p50", "tpot_p50", "tpot_p99",
             "mean_occupancy", "iterations", "n_replans", "n_evicted",
             "n_readmitted", "plan_hash", "mode")
-    return dict({k: rep[k] for k in keys}, calls=calls.summary(),
+    fin = calls.finished()
+    ttfts = sorted(st.ttft for st in fin)
+    need(len(ttfts) == rep["n_finished"]
+         and _percentile(ttfts, 50) == rep["ttft_p50"]
+         and _percentile(ttfts, 99) == rep["ttft_p99"],
+         f"engine: {len(ttfts)} TTFT samples do not give the report's "
+         f"percentiles {rep['ttft_p50']}, {rep['ttft_p99']}")
+    tpot_n = sum(len(st.tpots) for st in fin)
+    return dict({k: rep[k] for k in keys}, requests_sent=sent,
+                ttft_max=ttfts[-1], ttft_n=len(ttfts),
+                ttft_p99=rep["ttft_p99"] if len(ttfts) >= P99_MIN_SAMPLES
+                else None, tpot_n=tpot_n, calls=calls.summary(),
                 launches=launches, peak_mem_gb=peak / 1e9, wall_s=wall_s)
 
 
@@ -3014,15 +3052,16 @@ def engine_parity(torch, arch, n_layers, plens):
 
 
 def phase_engine(torch):
-    """Engine-mode serving on the card (``launch.serve --serve``): (a)
-    deepseek-7b at its 30 layers, bf16, fault-free, through
-    ``serve_engine`` (every request finished with all its tokens, exactly
-    one prefill's launches per prefill group); (b) the same with
-    ``--fault-at 2.0``: one replan, to the plan that ``replan_serve``
-    solves offline for the same fault, and every request finished or
-    rejected with a reason; (c) fp32 parity of the engine, kernels
-    against plain versions (:func:`engine_parity`).  Returns the launch
-    counts of (a) and (b)."""
+    """Engine-mode serving on the card (``launch.serve --serve``),
+    deepseek-7b at its 30 layers, bf16, through ``serve_engine``: (a) at
+    the measured load, fault-free (every request finished with all its
+    tokens, exactly one prefill's launches per prefill group); (b) the
+    same with ``--fault-at 2.0``: one replan, to the plan that
+    ``replan_serve`` solves offline for the same fault, and every request
+    finished or rejected with a reason; (a') the stress load, fault-free,
+    as (a); (c) fp32 parity of the engine, kernels against plain versions
+    (:func:`engine_parity`).  Returns the launch counts of (a), (b) and
+    (a')."""
     import tempfile
 
     from repro_torch.configs import get_config
@@ -3038,11 +3077,12 @@ def phase_engine(torch):
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                          dev)
     counted = {}
-    for fault in (False, True):
-        what = f"{e['arch']} engine" + (" fault" if fault else "")
+    for label, load, fault in ENGINE_RUNS:
+        what = f"{e['arch']} {label}"
+        sent = load["requests"]
         with tempfile.TemporaryDirectory() as cache:
             rep, lines, calls, launches, paths, peak, wall_s = engine_run(
-                torch, params, cache, fault)
+                torch, params, cache, load, fault)
             # the launch's plan and, after a fault, the adopted one
             plans = {p.plan_hash: p for p in (
                 ServePlan.load(str(f))
@@ -3054,13 +3094,14 @@ def phase_engine(torch):
             need(lines[0].startswith(PLAN_FRESH),
                  f"{what}: logged {lines[0]!r}")
             need(rep["mode"] == "torch", f"{what}: mode {rep['mode']}")
+            need(rep["n_requests"] == sent,
+                 f"{what}: {rep['n_requests']} of {sent} requests seen")
             groups = check_engine_launches(what, calls, launches, paths)
-            out = engine_metrics(rep, calls, launches, peak, wall_s)
-            out["prefill_groups"] = groups
+            out = engine_metrics(rep, calls, launches, peak, wall_s, sent)
+            out.update(load, prefill_groups=groups)
             if not fault:
-                need(rep["n_finished"] == e["requests"]
-                     and rep["generated_tokens"]
-                     == e["requests"] * e["max_new"],
+                need(rep["n_finished"] == sent
+                     and rep["generated_tokens"] == sent * e["max_new"],
                      f"{what}: {rep['n_finished']} finished, "
                      f"{rep['generated_tokens']} tokens")
                 need(rep["n_replans"] == 0, f"{what}: replanned")
@@ -3078,7 +3119,7 @@ def phase_engine(torch):
                 need(rec["new_plan_hash"] == offline.plan_hash,
                      f"{what}: adopted {rec['new_plan_hash']}, offline "
                      f"replan_serve gives {offline.plan_hash}")
-                need(rep["n_finished"] + rep["n_rejected"] == e["requests"]
+                need(rep["n_finished"] + rep["n_rejected"] == sent
                      and all(reason for _, reason in rep["rejected"]),
                      f"{what}: {rep['n_finished']} finished, rejected "
                      f"{rep['rejected']}")
@@ -3095,10 +3136,14 @@ def phase_engine(torch):
                 "tokens_per_s", "makespan")), f"{what}: {rep}")
             log(f"[engine] {what} {cfg.n_layers} layers bf16: "
                 f"{json.dumps(out)}")
-            log(f"[engine] {what}: TTFT p50 {1e3 * rep['ttft_p50']:.1f} / "
-                f"p99 {1e3 * rep['ttft_p99']:.1f} ms, TPOT p50 "
-                f"{1e3 * rep['tpot_p50']:.1f} / p99 "
-                f"{1e3 * rep['tpot_p99']:.1f} ms, "
+            p99 = "" if out["ttft_p99"] is None else \
+                f" / p99 {1e3 * out['ttft_p99']:.1f}"
+            log(f"[engine] {what}: {sent} requests at {load['rate']}/s "
+                f"sent, {rep['n_finished']} finished, {rep['n_rejected']} "
+                f"rejected; TTFT p50 {1e3 * rep['ttft_p50']:.1f}{p99} / "
+                f"max {1e3 * out['ttft_max']:.1f} ms ({out['ttft_n']} "
+                f"samples), TPOT p50 {1e3 * rep['tpot_p50']:.1f} / p99 "
+                f"{1e3 * rep['tpot_p99']:.1f} ms ({out['tpot_n']} samples), "
                 f"{rep['tokens_per_s']:.1f} tokens/s, occupancy "
                 f"{rep['mean_occupancy']:.2f}, peak {peak / 1e9:.2f} GB")
             counted[what] = (launches, paths)
