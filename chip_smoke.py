@@ -3147,6 +3147,10 @@ def phase_engine(torch):
                 f"{rep['tokens_per_s']:.1f} tokens/s, occupancy "
                 f"{rep['mean_occupancy']:.2f}, peak {peak / 1e9:.2f} GB")
             counted[what] = (launches, paths)
+        # the executor holds its KV cache: free it before the next run
+        # measures its peak
+        del calls
+        release(torch)
     del params
     release(torch)
     for arch, n_layers, plens in ENGINE_PARITY:
