@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 from repro.configs import get_config as ref_config
+from repro.configs import paper_models as rpaper
 from repro.wafer import mapping as rmap
 from repro.wafer import placement as rplace
 from repro.wafer import simulator as rsim
@@ -23,6 +24,7 @@ from repro.wafer import tcme as rtcme
 from repro.wafer import topology as rtopo
 from repro.wafer import traffic as rtraffic
 from repro_torch.configs import ARCHITECTURES, get_config
+from repro_torch.configs import paper_models as tpaper
 from repro_torch.wafer import mapping as tmap
 from repro_torch.wafer import placement as tplace
 from repro_torch.wafer import simulator as tsim
@@ -97,6 +99,15 @@ def test_config_accounting_matches_reference():
             assert r.cache_bytes_per_seq(ctx) == t.cache_bytes_per_seq(ctx)
             assert r.cache_bytes_per_token(ctx) == \
                 t.cache_bytes_per_token(ctx)
+
+
+def test_paper_models_match_reference():
+    """Table II and the multi-wafer set, field for field."""
+    assert canon(rpaper.TABLE_II) == canon(tpaper.TABLE_II)
+    assert canon(rpaper.MULTI_WAFER) == canon(tpaper.MULTI_WAFER)
+    assert list(rpaper.TABLE_II) == list(tpaper.TABLE_II)
+    for key, (cfg, _shape) in tpaper.TABLE_II.items():
+        assert rpaper.TABLE_II[key][0].param_count() == cfg.param_count()
 
 
 @pytest.mark.parametrize("kind", sorted(FAULTS))
