@@ -338,10 +338,10 @@ def compile_plan(wafer: "Wafer", cfg: "ModelConfig", batch: int,
     written back so the next launch hits).
 
     ``tierb`` selects the cost-engine Tier-B backend for the solve
-    (``"numpy"``/``"jax"``, default from ``REPRO_TIERB``).  It is *not*
-    part of the cache key: both backends produce bitwise-identical
-    solutions (the jitted tier is pinned to the numpy anchor), so a plan
-    compiled under either backend is the same plan.
+    (``"numpy"``/``"torch"``/``"torch:cpu"``, default from
+    ``REPRO_TIERB``).  It is *not* part of the cache key: every backend
+    produces bitwise-identical solutions (the torch tier is pinned to the
+    numpy anchor), so a plan compiled under any backend is the same plan.
     """
     from repro_torch.wafer.solver import dlws_solve
 

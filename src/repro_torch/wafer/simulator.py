@@ -1,13 +1,14 @@
 """Wafer-scale training-step simulator (paper §VII-A, Eq. 2–4).
 
-Copy of ``repro.wafer.simulator`` with its numpy tiers only: the
-reference's jitted stage-1, Tier-B and decode twins (``_stage1_jax_fn``,
-``_tierb_jax_fn``, ``_decode_jax_fn`` and their helpers) are ROADMAP.md
-item A7, and a context asked for them (``stage1`` / ``tierb`` other than
-``"numpy"``, as an argument or through ``REPRO_STAGE1`` /
-``REPRO_TIERB``) raises.  Everything else keeps the reference's names,
-constants and float64 arithmetic in its order, so results are bitwise
-equal to the reference's numpy tiers.
+Copy of ``repro.wafer.simulator``.  Its numpy tiers keep the
+reference's names, constants and float64 arithmetic in its order, so
+results are bitwise equal to the reference's.  The reference's jitted
+stage-1, Tier-B and decode twins (``_stage1_jax_fn``, ``_tierb_jax_fn``,
+``_decode_jax_fn``) are torch float64 tiers here (``_stage1_torch``,
+``_tierb_torch``, ``_decode_torch``), which give the numpy tiers' bits
+too: a context asks for them with ``stage1`` / ``tierb`` = ``"torch"``
+(on the GPU) or ``"torch:cpu"``, as an argument or through
+``REPRO_STAGE1`` / ``REPRO_TIERB``; ``"jax"`` raises ``ValueError``.
 
 Models one training step of a transformer LM on the WSC for a hybrid
 parallel configuration ``(dp, tp, sp, tatp)`` under a mapping engine
@@ -54,9 +55,10 @@ from dataclasses import dataclass, field
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
-from repro_torch import not_ported
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.dist import resolve_device
 from repro_torch.wafer import mapping as wmap
 from repro_torch.wafer import tcme as wtcme
 from repro_torch.wafer.topology import Wafer
@@ -79,6 +81,15 @@ _DEGREE_ARRAYS_CAP = 4096
 # resident StepCostContext instances per wafer (Wafer._ctx_cache): each
 # holds a per-candidate result memo, so the cap bounds total memo memory
 _CTX_CACHE_CAP = 32
+# the cost engine's stage-1 / Tier-B backends: the numpy anchor, and the
+# torch float64 tier on the GPU or on the CPU
+TIER_BACKENDS = ("numpy", "torch", "torch:cpu")
+# the fused torch Tier B only pays for itself from a handful of candidates
+# up: below this batch size the device round trip + host epilogue costs
+# more than the numpy tier's lean loops, so tiny batches stay on numpy
+# (results are bitwise-identical either way — the gate is purely a perf
+# knob)
+_TIER_MIN_BATCH = 8
 
 
 @dataclass(frozen=True)
@@ -179,14 +190,6 @@ def _layer_active_params(cfg: ModelConfig) -> float:
 # ---------------------------------------------------------------------------
 
 
-def _numpy_tier(name: str, backend: str) -> str:
-    """The cost-engine backend ``name`` resolved to ``backend``; only the
-    numpy tier is ported."""
-    if backend != "numpy":
-        raise not_ported(f"the {name}={backend!r} cost-engine tier", "A7")
-    return backend
-
-
 class StepCostContext:
     """Degree-independent invariants + memoization for repeated scoring.
 
@@ -220,13 +223,13 @@ class StepCostContext:
         self.dies = list(dies) if dies is not None else wafer.alive_dies()
         self.evaluator = evaluator  # "batch" | "reference" (seed scalar path)
         # stage-1 arithmetic and Tier-B backends, read as the reference
-        # reads them (argument, else REPRO_STAGE1 / REPRO_TIERB); only
-        # the bitwise-pinned "numpy" anchor is ported: the jitted "jax"
-        # tiers are ROADMAP.md item A7 and raise here, never silently
-        self.stage1 = _numpy_tier(
-            "stage1", stage1 or os.environ.get("REPRO_STAGE1", "numpy"))
-        self.tierb = _numpy_tier(
-            "tierb", tierb or os.environ.get("REPRO_TIERB", "numpy"))
+        # reads them (argument, else REPRO_STAGE1 / REPRO_TIERB): "numpy"
+        # (default; the bitwise-pinned anchor) or the torch float64 tier,
+        # "torch" on the GPU or "torch:cpu" (bitwise equal to numpy;
+        # Tier B takes it for search-time evaluations only, so plan
+        # numbers are backend-invariant — see _tierb_torch_eval)
+        self.stage1 = _tier_backend("stage1", stage1)
+        self.tierb = _tier_backend("tierb", tierb)
         spec = wafer.spec
         self.spec = spec
         self.n_dies = len(self.dies)
@@ -298,10 +301,8 @@ class StepCostContext:
         backends), and the alive-die subset.  Uncached wafers (the seed's
         cold-cache reference behaviour) always get a fresh context.
         """
-        stage1 = _numpy_tier(
-            "stage1", stage1 or os.environ.get("REPRO_STAGE1", "numpy"))
-        tierb = _numpy_tier(
-            "tierb", tierb or os.environ.get("REPRO_TIERB", "numpy"))
+        stage1 = _tier_backend("stage1", stage1)
+        tierb = _tier_backend("tierb", tierb)
         if not wafer.cache_enabled:
             return cls(wafer, cfg, batch, seq, engine, fsdp=fsdp,
                        tatp_bidirectional=tatp_bidirectional, stream=stream,
@@ -493,14 +494,367 @@ def _degree_columns(degrees: list) -> tuple:
     return arrs
 
 
+# ---------------------------------------------------------------------------
+# the torch float64 tiers (stage1 / tierb = "torch" on the GPU, "torch:cpu")
+# ---------------------------------------------------------------------------
+#
+# Counterparts of the reference's jitted ``_stage1_jax_fn``,
+# ``_tierb_jax_fn`` and ``_decode_jax_fn``: the same arithmetic as eager
+# torch float64 ops, op for op in the numpy tier's order, so they give its
+# bits.  Eager torch rounds every op on its own (no FMA contraction, no
+# rewritten division chains), so the reference's strict-IEEE jit options
+# and optimization barriers have no counterpart here.  Three rules keep
+# the bits:
+#
+# * promotion — an int64 tensor against a Python float, and int64 / int64,
+#   give float32 in torch where numpy gives float64, so the degree columns
+#   enter float arithmetic as float64 tensors (exact: they are small ints);
+# * division — CUDA's true division by a CPU scalar (a Python number or a
+#   0-d CPU tensor) multiplies by the reciprocal, and ``number / tensor``
+#   is ``tensor.reciprocal() * number``: one rounding off either way.  So
+#   every division is tensor / tensor, its scalars committed once per
+#   workload as 0-d float64 tensors on the tier's device
+#   (:func:`_commit_scalars`);
+# * order — no fused op (``addcmul``, ``lerp``, ...), no ``torch.compile``,
+#   and the per-hop link-load chains add one hop at a time in the numpy
+#   tier's order (the chain is the invariant: repeated addition is not
+#   ``k * w``).
+#
+# Search-time evaluations only: final (recorded) evaluations stay on the
+# numpy tier, so plans are tier-invariant by construction, as in the
+# reference.
+
+# tier calls by stage since the counts were last zeroed (each call is one
+# candidate batch evaluated on the tier's device)
+TIER_CALLS = {"stage1": 0, "tierb": 0, "decode": 0}
+# committed scalar dicts keyed on (device, values): fresh contexts over
+# the same workload (the solver builds thousands) reuse the device
+# scalars instead of committing ~20 each
+_SCALARS_TORCH: dict = {}
+# device-resident decode degree columns (same identity / cap policy as
+# _DEGREE_ARRAYS, per device)
+_DEGREE_ARRAYS_TORCH: dict = {}
+
+
+def _tier_device(backend: str) -> torch.device:
+    """The device a torch tier runs on: the GPU for ``"torch"`` (raises
+    without one), the CPU for ``"torch:cpu"``."""
+    return resolve_device("cpu" if backend == "torch:cpu" else "cuda")
+
+
+def _tier_backend(name: str, backend: Optional[str]) -> str:
+    """The ``stage1`` / ``tierb`` backend asked for (the argument, else
+    ``REPRO_STAGE1`` / ``REPRO_TIERB``, else ``"numpy"``), checked:
+    ``"numpy"``, ``"torch"`` (the GPU, which must exist) or
+    ``"torch:cpu"``."""
+    backend = backend or os.environ.get("REPRO_" + name.upper(), "numpy")
+    if backend == "jax":
+        raise ValueError(
+            f"{name}='jax': the jitted cost-engine tier is 'torch' in "
+            f"repro_torch ('torch:cpu' to run it on the CPU)")
+    if backend not in TIER_BACKENDS:
+        raise ValueError(f"{name}={backend!r}: the cost engine's backends "
+                         f"are {', '.join(map(repr, TIER_BACKENDS))}")
+    if backend != "numpy":
+        _tier_device(backend)
+    return backend
+
+
+def _commit_scalars(dev: torch.device, flts: dict) -> dict:
+    """One dict of 0-d float64 tensors on ``dev``, memoized on the values
+    themselves.  ``float`` of a Python int rounds as numpy's int64 to
+    float64 conversion does."""
+    key = (str(dev), tuple(sorted(flts.items())))
+    sc = _SCALARS_TORCH.get(key)
+    if sc is None:
+        sc = {k: torch.tensor(float(v), dtype=torch.float64, device=dev)
+              for k, v in flts.items()}
+        if len(_SCALARS_TORCH) >= _DEGREE_ARRAYS_CAP:
+            _SCALARS_TORCH.clear()
+        _SCALARS_TORCH[key] = sc
+    return sc
+
+
+def _tierb_scalars(ctx: StepCostContext, dev: torch.device) -> dict:
+    """Context-invariant scalars of stage 1 and Tier B, each the value the
+    numpy tier divides by or into (its Python-int products folded first,
+    as numpy folds them)."""
+    spec = ctx.spec
+    full_layer = BYTES_W * ctx.p_layer
+    return _commit_scalars(dev, dict(
+        tokens=ctx.tokens, w_total=BYTES_W * ctx.p_total,
+        opt_total=BYTES_OPT * ctx.p_total, w_active=BYTES_W * ctx.p_active,
+        layer_flops=ctx.layer_flops, head_flops=ctx.head_flops, c0_7=0.7,
+        full_layer=full_layer, full_layer2=2 * full_layer,
+        link_bw=spec.link_bw))
+
+
+def _f64(*cols) -> tuple:
+    return tuple(c.to(torch.float64) for c in cols)
+
+
+def _stage1_torch_cols(ctx: StepCostContext, dp, tp, sp, ta, seq_par,
+                       sc: dict) -> dict:
+    """Stage 1 over device degree columns (int64 ``dp``..``ta``, bool
+    ``seq_par``): :func:`_stage1_numpy` op for op.  The micro-batch ladder
+    runs to the batch's bit length (``seqs_per_die`` never exceeds the
+    batch), so its last power never grows and the first non-growing power
+    is the numpy tier's."""
+    cfg, spec = ctx.cfg, ctx.spec
+    n_dies, n_l, fsdp = ctx.n_dies, ctx.n_l, ctx.fsdp
+    dpf, tpf, spf, taf = _f64(dp, tp, sp, ta)
+
+    zero = (ta > 1) | fsdp
+    w_shard = tpf * taf * (n_dies if fsdp else 1)
+    w_div = torch.clamp(w_shard, max=n_dies)
+    w_bytes = sc["w_total"] / w_div
+    g_bytes = w_bytes
+    opt_shard = torch.clamp(w_shard * torch.where(zero, dpf, 1.0),
+                            max=n_dies)
+    opt_bytes = sc["opt_total"] / opt_shard
+    act_tokens = sc["tokens"] / (dpf * spf * taf)
+    act_unit = ACT_COEFF * act_tokens * cfg.d_model * BYTES_ACT * n_l
+    act_full = torch.where((tp > 1) & ~seq_par,
+                           act_unit * (0.3 + sc["c0_7"] / tpf),
+                           act_unit / tpf)
+    transient = BYTES_W * ctx.p_layer if fsdp else 0.0
+    fixed = w_bytes + g_bytes + opt_bytes + transient
+    seqs_per_die = torch.clamp(ctx.batch // dp, min=1)
+    kb = max(int(ctx.batch).bit_length() + 1, 1)
+    pows = torch.tensor([1 << k for k in range(kb)], dtype=torch.int64,
+                        device=dp.device)
+    grow = (fixed[:, None] + act_full[:, None] / pows.to(torch.float64)
+            > spec.hbm_cap) & (pows < seqs_per_die[:, None])
+    n_micro = pows[grow.to(torch.uint8).argmin(dim=1)]
+    act_bytes = act_full / n_micro.to(torch.float64)
+    mem = fixed + act_bytes
+    oom = mem > spec.hbm_cap
+
+    comp_denom = tpf * spf * taf * dpf * spec.flops * spec.gemm_eff
+    comp_layer = sc["layer_flops"] / comp_denom
+    t_head = sc["head_flops"] / comp_denom
+
+    act_group_bytes = (sc["tokens"] / (dpf * spf)) * cfg.d_model * BYTES_ACT
+    w_stream = sc["w_active"] / tpf
+    a_stream = act_group_bytes / tpf
+    if cfg.n_kv_heads:
+        kv_bytes = (sc["tokens"] / (dpf * spf * taf)) * 2 * cfg.kv_dim \
+            * BYTES_ACT
+    else:
+        kv_bytes = torch.zeros_like(w_stream)
+    return dict(n_micro=n_micro, mem=mem, oom=oom, comp_layer=comp_layer,
+                t_head=t_head, act_group_bytes=act_group_bytes,
+                w_stream=w_stream, a_stream=a_stream, kv_bytes=kv_bytes)
+
+
+def _stage1_torch(ctx: StepCostContext, dp, tp, sp, ta, seq_par) -> dict:
+    """Stage 1 on the context's torch tier (``stage1="torch"`` /
+    ``"torch:cpu"``): numpy degree columns in, numpy fields out."""
+    dev = _tier_device(ctx.stage1)
+    TIER_CALLS["stage1"] += 1
+    cols = [torch.from_numpy(a).to(dev) for a in (dp, tp, sp, ta, seq_par)]
+    out = _stage1_torch_cols(ctx, *cols, _tierb_scalars(ctx, dev))
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def _tierb_torch_struct(degrees: list, st: dict,
+                        dev: torch.device) -> dict:
+    """Device-resident form of one batch struct and its degree columns
+    (what the device half of Tier B reads; no padding: eager torch has no
+    shapes to bucket).  Cached inside the ``_batch_cache`` entry, per
+    device."""
+    dp, tp, sp, ta, seq_par, _ep = _degree_columns(degrees)
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    names = ("present", "glen", "touched_e", "maxhops_e", "dp_present",
+             "dp_maxlen", "dp_glen", "dp_touched", "dp_mask")
+    out = {k: put(st[k]) for k in names}
+    out["deg"] = tuple(put(a) for a in (dp, tp, sp, ta, seq_par))
+    out["masks"] = [put(m) for _s, m, _dm in st["masks"]]
+    return out
+
+
+def _tierb_torch_eval(ctx: StepCostContext, st: dict, tst: dict,
+                      sc: dict) -> torch.Tensor:
+    """The device half of the fused Tier B for one feasible candidate
+    list: stage 1 (:func:`_stage1_torch_cols`) and stage 2's heavy part,
+    the per-hop link-load chains and their maxima (the reference's
+    ``_tierb_jax_fn`` body).  Returns the (12, nC) rows the host epilogue
+    of :func:`_tierb_torch` reads."""
+    spec = ctx.spec
+    dp, tp, sp, ta, seq_par = tst["deg"]
+    s1 = _stage1_torch_cols(ctx, dp, tp, sp, ta, seq_par, sc)
+    act_group_bytes, kv_bytes = s1["act_group_bytes"], s1["kv_bytes"]
+    w_stream, a_stream = s1["w_stream"], s1["a_stream"]
+    dpf, tpf, spf, taf = _f64(dp, tp, sp, ta)
+    active = st["active"]
+
+    # ---- stage 2 (mirrors _slot_weights and _traffic_and_power_batch) --
+    present, glen = tst["present"], tst["glen"]
+    bidir_f = 0.5 if ctx.tatp_bidirectional else 1.0
+    if ctx.stream == "auto":
+        sel = torch.minimum(w_stream, a_stream)
+    elif ctx.stream == "weights":
+        sel = w_stream
+    else:
+        sel = a_stream
+    zcol = torch.zeros_like(sel)
+    wcols = [zcol] * _N_SLOTS
+    chcols = [zcol] * _N_SLOTS
+    if 0 in active:
+        wcols[0] = sel * 3 * (taf - 1) / taf * bidir_f
+    if 1 in active:
+        wcols[1] = kv_bytes * torch.clamp(spf - 1, min=1)
+    if 2 in active:
+        g2 = glen[:, 2]
+        nb2 = torch.where(seq_par, 2 * act_group_bytes,
+                          4.0 * act_group_bytes)
+        wcols[2] = torch.where(seq_par, nb2 * (g2 - 1) / g2,
+                               2.0 * nb2 * (g2 - 1) / g2)
+        chcols[2] = nb2 / torch.clamp(g2, min=1)
+    if 3 in active:
+        g3 = glen[:, 3]
+        nb3 = 2 * act_group_bytes
+        wcols[3] = nb3 * (g3 - 1) / g3
+        chcols[3] = nb3 / torch.clamp(g3, min=1)
+    if 4 in active:
+        g4 = glen[:, 4]
+        wcols[4] = torch.where(g4 >= 2, sc["full_layer2"] * (g4 - 1) / g4,
+                               0.0)
+        chcols[4] = sc["full_layer2"] / torch.clamp(g4, min=1)
+    if 5 in active:
+        g5 = glen[:, 5]
+        wcols[5] = torch.where(g5 >= 2, sc["full_layer"] * (g5 - 1) / g5,
+                               0.0)
+        chcols[5] = sc["full_layer"] / torch.clamp(g5, min=1)
+    W = torch.where(present, torch.stack(wcols, dim=1), 0.0)
+
+    nc, n_links = dp.shape[0], tst["dp_mask"].shape[2]
+    exposed = bool(st["exposed"])
+    if exposed:
+        che = torch.stack(chcols[2:], dim=1)
+        effe = torch.where(che <= 0, 1.0, che / (che + spec.bw_half_size))
+        we = W[:, 2:] / torch.clamp(effe, min=1e-3)
+    l0 = torch.zeros((nc, n_links), dtype=torch.float64, device=dp.device)
+    l1 = torch.zeros_like(l0)
+    for m, s in zip(tst["masks"], active):
+        wm0 = W[:, s][:, None, None] * m
+        if s >= 2:
+            wm1 = we[:, s - 2][:, None, None] * m
+        # the numpy tier adds both lanes of one (candidate, link) chain in
+        # lock-step; split lanes keep each chain's order
+        for k in range(m.shape[1]):
+            l0 = l0 + wm0[:, k]
+            if s >= 2:
+                l1 = l1 + wm1[:, k]
+    mx_all = l0.amax(dim=1)
+    if exposed:
+        t_coll = torch.where(
+            tst["touched_e"],
+            l1.amax(dim=1) / sc["link_bw"]
+            + tst["maxhops_e"] * spec.hop_latency, 0.0)
+    else:
+        t_coll = torch.zeros_like(mx_all)
+
+    if st["dp_any"]:
+        dp_glen = tst["dp_glen"]
+        dmask = (dp > 1) & (not ctx.fsdp)
+        dpb = torch.where(dmask, sc["w_total"] / (tpf * taf), 0.0)
+        ph = 2.0 * dpb * (dp_glen - 1) / dp_glen
+        chunk_dp = dpb / torch.clamp(dp_glen, min=1)
+        eff_dp = torch.where(chunk_dp <= 0, 1.0,
+                             chunk_dp / (chunk_dp + spec.bw_half_size))
+        wdp = torch.where(tst["dp_present"],
+                          ph / torch.clamp(eff_dp, min=1e-3), 0.0)
+        mdp = tst["dp_mask"]
+        wmd = wdp[:, None, None] * mdp
+        ldp = torch.zeros_like(l0)
+        for k in range(mdp.shape[1]):
+            ldp = ldp + wmd[:, k]
+        t_dp = torch.where(
+            tst["dp_touched"],
+            0.5 * (ldp.amax(dim=1) / sc["link_bw"]
+                   + tst["dp_maxlen"] * spec.hop_latency), 0.0)
+    else:
+        t_dp = torch.zeros_like(mx_all)
+
+    # the candidate-sized chains past the per-link maxima (slot weights
+    # -> contention / ring stream time / D2D volume, the step fold, the
+    # power and ratio tail) are finished on the host through the numpy
+    # tier's own helpers, as the reference's jitted tier finishes them
+    return torch.stack([
+        s1["mem"], s1["comp_layer"], t_coll, t_dp, s1["t_head"], mx_all,
+        s1["n_micro"].to(torch.float64), s1["oom"].to(torch.float64),
+        act_group_bytes, w_stream, a_stream, kv_bytes])
+
+
+def _tierb_torch(ctx: StepCostContext,
+                 degrees: list[ParallelDegrees]) -> dict:
+    """Run the fused Tier B on the context's torch tier over one (feasible)
+    candidate list: the stage-1 fields plus the assembled stage-2 column
+    rows (the reference's ``_tierb_jax``)."""
+    dev = _tier_device(ctx.tierb)
+    st = _batch_struct(ctx, degrees)
+    skey = f"_torch:{dev}"
+    tst = st.get(skey)
+    if tst is None:
+        tst = st[skey] = _tierb_torch_struct(degrees, st, dev)
+    sc = getattr(ctx, "_tierb_sc", None)
+    if sc is None:
+        sc = ctx._tierb_sc = _tierb_scalars(ctx, dev)
+    TIER_CALLS["tierb"] += 1
+    out = _tierb_torch_eval(ctx, st, tst, sc).cpu().numpy()
+    (mem, comp_layer, t_coll, t_dp, t_head, mx_all,
+     n_micro, oomf, act_group_bytes, w_stream, a_stream, kv_bytes) = out
+    # the candidate-sized stage-2 chains + step fold + power / ratio
+    # tail, through the same numpy helpers as the numpy tier
+    dp, tp, sp, ta, seq_par, _ep = _degree_columns(degrees)
+    bidir = ctx.tatp_bidirectional
+    spec = ctx.spec
+    hopf, sp_hops = st["hopf"], st["sp_hops"]
+    sel = _stream_select(ctx.stream, w_stream, a_stream)
+    W, _ch = _slot_weights(st, sel, kv_bytes, act_group_bytes,
+                           ctx.p_layer, sp, ta, seq_par, bidir)
+    contention = _contention_factor(st, W, mx_all)
+    t_p2p = _overlap_stream_time(spec, sel, kv_bytes, hopf, sp_hops,
+                                 contention, sp, ta, seq_par, bidir)
+    rounds0 = (ta + 1) // 2 if bidir else ta - 1
+    t_sched = np.where(ta > 1, 3 * rounds0 * T_DISPATCH, 0.0)
+    t_layer = t_coll + np.maximum(comp_layer, t_p2p) + t_sched
+    step = ctx.n_l * t_layer + t_dp + t_head
+    thr = ctx.tokens / step
+    dmask = (dp > 1) & (not ctx.fsdp)
+    d2d = _d2d_volume(st, W, ctx.n_l)
+    d2d = np.where(dmask,
+                   d2d + 2 * BYTES_W * ctx.p_total / (tp * ta) * dp, d2d)
+    e_d2d = d2d * spec.e_d2d
+    e_static = 450.0 * ctx.n_dies * step
+    energy = ctx.e_comp + ctx.e_hbm + e_d2d + e_static
+    power = energy / step
+    power_eff = np.where(power > 0, thr / power, 0.0)
+    bw_cap = ctx.n_dies * 4 * spec.link_bw
+    bw_util = np.minimum(1.0, d2d / step / bw_cap)
+    coll_frac = (ctx.n_l * t_coll + t_dp) / step
+    cols = np.stack([step, thr, mem, power, power_eff, bw_util,
+                     comp_layer, t_p2p, t_coll, t_dp, t_head, coll_frac,
+                     e_d2d, hopf]).T.tolist()
+    return dict(
+        cols=cols, n_micro=n_micro.astype(np.int64), oom=oomf != 0.0,
+        mem=mem, comp_layer=comp_layer, t_head=t_head,
+        act_group_bytes=act_group_bytes, w_stream=w_stream,
+        a_stream=a_stream, kv_bytes=kv_bytes, fb_idx=st["fb_idx"])
+
+
 def simulate_batch(ctx: StepCostContext, degrees: list[ParallelDegrees], *,
                    run_tcme_optimizer: bool = False,
                    prune_oom: bool = False,
                    prune_dominated: bool = False) -> list[SimResult]:
     """Score a batch of candidate degree tuples against one context.
 
-    Stage 1 (:func:`_stage1_numpy`; the reference's jitted twin is not
-    ported) vectorizes the memory/compute/stream-byte
+    Stage 1 (:func:`_stage1_numpy`, or the torch twin behind
+    ``ctx.stage1 != "numpy"``) vectorizes the memory/compute/stream-byte
     arithmetic over all candidates; stage 2
     (:func:`_traffic_and_power_batch`) vectorizes the link-level traffic
     model over all surviving candidates on per-wafer link-template banks.
@@ -527,12 +881,60 @@ def simulate_batch(ctx: StepCostContext, degrees: list[ParallelDegrees], *,
     dp, tp, sp, ta, seq_par, _ep = _degree_columns(degrees)
     feasible = dp * tp * sp * ta <= n_dies
 
-    s1 = _stage1_numpy(ctx, dp, tp, sp, ta, seq_par)
-    n_micro, mem, oom = s1["n_micro"], s1["mem"], s1["oom"]
-    comp_layer, t_head = s1["comp_layer"], s1["t_head"]
-    act_group_bytes = s1["act_group_bytes"]
-    w_stream, a_stream = s1["w_stream"], s1["a_stream"]
-    kv_bytes = s1["kv_bytes"]
+    # fused torch Tier B: search-time evaluations only — final
+    # (recorded) evaluations always take the anchored numpy/scalar path,
+    # so plan-predicted numbers are backend-invariant by construction
+    jx = None
+    fidx = None
+    if ctx.tierb != "numpy" and nC >= _TIER_MIN_BATCH \
+            and ctx.wafer.cache_enabled and not run_tcme_optimizer:
+        if feasible.all():
+            jx = _tierb_torch(ctx, degrees)
+        else:
+            # struct building (hierarchical_map) needs feasible degrees;
+            # infeasible rows only ever produce the inf sentinel below
+            fidx = np.nonzero(feasible)[0]
+            if len(fidx):
+                jx = _tierb_torch(ctx, [degrees[i] for i in fidx])
+            if jx is None:
+                fidx = None
+
+    if jx is not None:
+        if fidx is None:
+            n_micro, mem, oom = jx["n_micro"], jx["mem"], jx["oom"]
+            comp_layer, t_head = jx["comp_layer"], jx["t_head"]
+            act_group_bytes = jx["act_group_bytes"]
+            w_stream, a_stream = jx["w_stream"], jx["a_stream"]
+            kv_bytes = jx["kv_bytes"]
+        else:  # scatter back; infeasible rows never read these fields
+            n_micro = np.ones(nC, np.int64)
+            mem = np.full(nC, np.inf)
+            oom = np.ones(nC, bool)
+            comp_layer = np.zeros(nC)
+            t_head = np.zeros(nC)
+            act_group_bytes = np.zeros(nC)
+            w_stream = np.zeros(nC)
+            a_stream = np.zeros(nC)
+            kv_bytes = np.zeros(nC)
+            n_micro[fidx] = jx["n_micro"]
+            mem[fidx] = jx["mem"]
+            oom[fidx] = jx["oom"]
+            comp_layer[fidx] = jx["comp_layer"]
+            t_head[fidx] = jx["t_head"]
+            act_group_bytes[fidx] = jx["act_group_bytes"]
+            w_stream[fidx] = jx["w_stream"]
+            a_stream[fidx] = jx["a_stream"]
+            kv_bytes[fidx] = jx["kv_bytes"]
+    else:
+        if ctx.stage1 != "numpy":
+            s1 = _stage1_torch(ctx, dp, tp, sp, ta, seq_par)
+        else:
+            s1 = _stage1_numpy(ctx, dp, tp, sp, ta, seq_par)
+        n_micro, mem, oom = s1["n_micro"], s1["mem"], s1["oom"]
+        comp_layer, t_head = s1["comp_layer"], s1["t_head"]
+        act_group_bytes = s1["act_group_bytes"]
+        w_stream, a_stream = s1["w_stream"], s1["a_stream"]
+        kv_bytes = s1["kv_bytes"]
 
     # ---------------- dominance pre-filter (search-only heuristic) --------
     # Byte dominance implies time dominance only while ring geometry is
@@ -626,7 +1028,35 @@ def simulate_batch(ctx: StepCostContext, degrees: list[ParallelDegrees], *,
         # traffic stage.
         scalar_route = (ctx.engine == "tcme" and run_tcme_optimizer) \
             or not ctx.wafer.cache_enabled or len(survivors) <= 4
-        if scalar_route:
+        if jx is not None:
+            # stage 2 already computed by the fused torch tier —
+            # assemble results straight from its column rows (structural
+            # fallback candidates keep the scalar path, as in the numpy
+            # tier)
+            pos = None if fidx is None \
+                else {int(i): j for j, i in enumerate(fidx)}
+            fbset = set(jx["fb_idx"])
+            cols = jx["cols"]
+            e_comp, e_hbm = ctx.e_comp, ctx.e_hbm
+            for i in survivors:
+                j = i if pos is None else pos[i]
+                if j in fbset:
+                    results[i] = _traffic_and_power(
+                        ctx, degrees[i],
+                        comp_layer=float(comp_layer[i]),
+                        t_head=float(t_head[i]),
+                        mem=float(mem[i]), oom=bool(oom[i]),
+                        n_micro=int(n_micro[i]),
+                        act_group_bytes=float(act_group_bytes[i]),
+                        w_stream=float(w_stream[i]),
+                        a_stream=float(a_stream[i]),
+                        kv_bytes=float(kv_bytes[i]),
+                        run_tcme_optimizer=run_tcme_optimizer)
+                else:
+                    results[i] = _result_from_cols(
+                        degrees[i], ctx.engine, cols[j], bool(oom[i]),
+                        int(n_micro[i]), e_comp, e_hbm)
+        elif scalar_route:
             for i in survivors:
                 results[i] = _traffic_and_power(
                     ctx, degrees[i],
@@ -1838,6 +2268,118 @@ def _decode_expert_placement(ctx: StepCostContext, deg: ParallelDegrees):
     return got
 
 
+def _decode_scalars(ctx: StepCostContext, dev: torch.device) -> dict:
+    """Context-invariant decode scalars, each the value the numpy tier
+    divides by or into (its Python-int products and the scalar-only
+    quotient ``kv_ctx / n_l`` folded on the host first, as numpy folds
+    them)."""
+    cfg, spec = ctx.cfg, ctx.spec
+    kv_ctx = ctx.kv_seq_bytes - ctx.state_seq_bytes
+    return _commit_scalars(dev, dict(
+        B=ctx.batch, w_total=BYTES_W * ctx.p_total,
+        w_dense=BYTES_W * ctx.p_dense_total,
+        w_expert=BYTES_W * ctx.p_expert_total,
+        w_active=BYTES_W * ctx.p_active,
+        w_active_dense=BYTES_W * ctx.p_active_dense,
+        p2_active=2 * ctx.p_active, kv_ctx=kv_ctx,
+        kv_ctx_layer=kv_ctx / ctx.n_l, state_seq=ctx.state_seq_bytes,
+        gemv_flops=spec.flops * DECODE_GEMV_EFF, hbm_bw=spec.hbm_bw,
+        head_bytes=BYTES_W * cfg.d_model * cfg.vocab_size,
+        dec_head_flops=ctx.dec_head_flops))
+
+
+def _decode_torch_eval(ctx: StepCostContext, deg: tuple, hops: tuple,
+                       sc: dict) -> torch.Tensor:
+    """The decode objective's device half over device degree columns
+    (int64 ``dp, tp, sp, ta, ep``) and hop / expert-read columns
+    (float64): :func:`simulate_decode_batch`'s numpy arithmetic op for op
+    (the reference's ``_decode_jax_fn`` body).  Returns the (11, nC) rows
+    its host epilogue reads."""
+    cfg, spec = ctx.cfg, ctx.spec
+    n_dies, n_l = ctx.n_dies, ctx.n_l
+    dp, tp, sp, ta, ep = deg
+    ta_hops, sp_hops, eff = hops
+    dpf, tpf, spf, taf, epf = _f64(dp, tp, sp, ta, ep)
+    tok = sc["B"] / dpf
+
+    # memory (EP shards only the expert tensors; ep == 1 keeps the
+    # pre-EP expression)
+    w_bytes = torch.where(
+        ep > 1,
+        sc["w_dense"] / torch.clamp(tpf * taf, max=n_dies)
+        + sc["w_expert"] / torch.clamp(tpf * taf * epf, max=n_dies),
+        sc["w_total"] / torch.clamp(tpf * taf, max=n_dies))
+    kv_div = dpf * spf * taf * torch.clamp(tpf, max=max(cfg.n_kv_heads, 1))
+    state_div = dpf * taf * tpf
+    cache_bytes = ctx.batch * (sc["kv_ctx"] / kv_div
+                               + sc["state_seq"] / state_div)
+    ws = tok * cfg.d_model * BYTES_ACT * DECODE_WS_COEFF
+    mem = w_bytes + cache_bytes + ws
+    oom = mem > spec.hbm_cap
+
+    # per-layer compute / HBM
+    lin_flops = sc["p2_active"] * tok / (tpf * taf)
+    attn_flops = 4 * ctx.seq * cfg.d_model * tok / (tpf * spf * taf)
+    t_flops = (lin_flops + attn_flops) / sc["gemv_flops"]
+    if cfg.is_moe:
+        w_read = sc["w_active_dense"] / (tpf * taf) \
+            + sc["w_expert"] * eff / (tpf * taf)
+    else:
+        w_read = sc["w_active"] / (tpf * taf)
+    kv_read = tok * sc["kv_ctx_layer"] / (kv_div / dpf)
+    t_hbm = (w_read + kv_read) / sc["hbm_bw"]
+    t_comp = torch.maximum(t_flops, t_hbm)
+
+    q_bytes = tok * cfg.d_model * BYTES_ACT
+    head_read = sc["head_bytes"] / (tpf * taf)
+    t_head = torch.maximum(
+        sc["dec_head_flops"] * tok / (tpf * taf) / sc["gemv_flops"],
+        head_read / sc["hbm_bw"])
+    hbm_step = (w_read + kv_read) * n_l * dpf \
+        * torch.clamp(tpf * taf, max=n_dies)
+    d2d_step = n_l * (q_bytes * (spf - 1) * sp_hops
+                      + q_bytes * (taf - 1) * ta_hops
+                      + torch.where(tp > 1, 4 * q_bytes * (tpf - 1),
+                                    0.0)) * dpf
+    # t_ring / t_coll, the latency fold and the power / ratio tail are
+    # finished on the host; q_bytes goes back so the host's ring and
+    # all-reduce chains round from the same value
+    return torch.stack([mem, oom.to(torch.float64), t_comp, t_hbm, t_head,
+                        w_bytes, cache_bytes, kv_read, hbm_step, d2d_step,
+                        q_bytes])
+
+
+def _decode_torch(ctx: StepCostContext, dkey: tuple, arrs: tuple,
+                  hkey: tuple, ta_hops: np.ndarray, sp_hops: np.ndarray,
+                  eff: np.ndarray) -> np.ndarray:
+    """Run the decode objective's device half on the context's torch tier
+    over one candidate list; the (11, nC) component matrix."""
+    dev = _tier_device(ctx.tierb)
+    key = (dkey, str(dev))
+    deg = _DEGREE_ARRAYS_TORCH.get(key)
+    if deg is None:
+        # (dp, tp, sp, ta, ep) — seq_par (arrs[4]) plays no decode role
+        deg = tuple(torch.from_numpy(a).to(dev)
+                    for a in arrs[:4] + (arrs[5],))
+        if len(_DEGREE_ARRAYS_TORCH) >= _DEGREE_ARRAYS_CAP:
+            _DEGREE_ARRAYS_TORCH.clear()
+        _DEGREE_ARRAYS_TORCH[key] = deg
+    tkey = ("_torch", str(dev)) + hkey
+    hops = ctx.wafer._groups_cache.get(tkey) \
+        if ctx.wafer.cache_enabled else None
+    if hops is None:
+        # eff is keyed by hkey too (it folds B, dp, ep, top_k, n_experts)
+        hops = tuple(torch.from_numpy(a).to(dev)
+                     for a in (ta_hops, sp_hops, eff))
+        if ctx.wafer.cache_enabled:
+            ctx.wafer._groups_cache[tkey] = hops
+    sc = getattr(ctx, "_dec_sc", None)
+    if sc is None:
+        sc = ctx._dec_sc = _decode_scalars(ctx, dev)
+    TIER_CALLS["decode"] += 1
+    return _decode_torch_eval(ctx, deg, hops, sc).cpu().numpy()
+
+
 # per-expert micro-batch dispatch overhead (s): every *distinct* expert a
 # replica activates in a layer is a separately launched sliced GEMV
 # (gather → tile GEMM → scatter bookkeeping on the dataflow fabric) — the
@@ -1852,9 +2394,10 @@ def _decode_a2a_epilogue(ctx: StepCostContext, dp, ep, q_bytes, eff,
     time, its per-step D2D byte·hop volume, and the per-layer expert
     micro-batch dispatch overhead.
 
-    Host-side numpy (the reference also calls it from its jitted decode
-    twin, which the port leaves to ROADMAP.md item A7).  Per ordered pair of an a2a set a
-    replica ships ``tok·top_k/ep`` token activations (balanced routing);
+    Host-side numpy for *both* Tier-B backends (the torch twin exports
+    ``q_bytes``; candidate-sized epilogues stay on the pinned numpy
+    path), so the two call sites are bitwise-identical by construction.
+    Per ordered pair of an a2a set a replica ships ``tok·top_k/ep`` token activations (balanced routing);
     the bottleneck link carries ``a2a_load`` such pair flows.  Decode
     messages are latency-bound like the ring-KV stream, so no
     granularity ramp applies; the ×2 is dispatch + combine.  ``ep == 1``
@@ -1983,85 +2526,124 @@ def simulate_decode_batch(ctx: StepCostContext,
     else:
         eff = np.ones(nC)
 
-    tok = B / dp  # tokens computed per dp replica per iteration
-
-    # ------------- memory (vectorized decode_memory_components) -------
-    # EP splits the weight shard: dense tensors over tp·ta, expert
-    # tensors additionally over ep.  The ep == 1 operand is the
-    # pre-EP expression unchanged (bitwise-pinned baselines)
-    w_bytes = np.where(
-        ep > 1,
-        BYTES_W * ctx.p_dense_total / np.minimum(tp * ta, n_dies)
-        + BYTES_W * ctx.p_expert_total
-        / np.minimum(tp * ta * ep, n_dies),
-        BYTES_W * ctx.p_total / np.minimum(tp * ta, n_dies))
-    kv_div, state_div = _decode_kv_divisors(cfg, dp, tp, sp, ta)
-    kv_ctx = ctx.kv_seq_bytes - ctx.state_seq_bytes
-    cache_bytes = B * (kv_ctx / kv_div
-                       + ctx.state_seq_bytes / state_div)
-    ws = tok * cfg.d_model * BYTES_ACT * DECODE_WS_COEFF
-    mem = w_bytes + cache_bytes + ws
-    oom = mem > spec.hbm_cap
-
-    # ------------- per-layer compute / HBM -----------------------------
-    lin_flops = 2 * ctx.p_active * tok / (tp * ta)
-    attn_flops = 4 * S * cfg.d_model * tok / (tp * sp * ta)
-    t_flops = (lin_flops + attn_flops) / (spec.flops * DECODE_GEMV_EFF)
-    # MoE weight read: dense tensors once per iteration (shared by
-    # the whole in-flight batch) + the expected distinct expert
-    # slice (``eff``) — mirrors the jitted kernel's select
-    if cfg.is_moe:
-        w_read = BYTES_W * ctx.p_active_dense / (tp * ta) \
-            + BYTES_W * ctx.p_expert_total * eff / (tp * ta)
+    # fused torch decode twin: search evaluations only — the final
+    # (recorded) evaluation stays on the anchored numpy path, so ServePlan
+    # numbers and plan hashes are backend-invariant by construction
+    dec = None
+    if ctx.tierb != "numpy" and nC >= _TIER_MIN_BATCH and not final:
+        dec = _decode_torch(ctx, dkey, arrs, hkey, ta_hops, sp_hops, eff)
+    if dec is not None:
+        (mem, oomf, t_comp, t_hbm, t_head,
+         w_bytes, cache_bytes, kv_read, hbm_step, d2d_step,
+         q_bytes) = dec
+        oom = oomf != 0.0
+        # ring / all-reduce chains + latency fold + power epilogue in
+        # numpy, op-for-op the numpy tier's
+        t_ring = (sp - 1) * (q_bytes / spec.link_bw
+                             + sp_hops * spec.hop_latency) \
+            + (ta - 1) * (q_bytes / spec.link_bw
+                          + ta_hops * spec.hop_latency)
+        ar_bytes = 2 * q_bytes / np.maximum(tp, 1)
+        t_coll = np.where(tp > 1,
+                          2 * 2 * (tp - 1) * (ar_bytes / spec.link_bw
+                                              + spec.hop_latency), 0.0)
+        t_sched = np.where(ta > 1, (ta + 1) // 2 * T_DISPATCH, 0.0) \
+            + np.where(sp > 1, T_DISPATCH, 0.0)
+        t_a2a, d2d_a2a, t_moe = _decode_a2a_epilogue(ctx, dp, ep, q_bytes,
+                                                     eff, a2a_load,
+                                                     a2a_hops)
+        t_layer = t_coll + np.maximum(t_comp, t_ring) + t_sched \
+            + t_moe + t_a2a
+        lat = ctx.n_l * t_layer + t_head
+        thr = B / lat
+        flops_step = (ctx.dec_layer_flops * ctx.n_l
+                      + ctx.dec_head_flops) * B
+        d2d_step = d2d_step + d2d_a2a
+        energy = flops_step * spec.e_flop + hbm_step * spec.e_hbm \
+            + d2d_step * spec.e_d2d + 450.0 * n_dies * lat
+        power = energy / lat
+        bw_cap = n_dies * 4 * spec.link_bw
+        bw_util = np.minimum(1.0, d2d_step / lat / bw_cap)
     else:
-        w_read = BYTES_W * ctx.p_active / (tp * ta)
-    kv_read = tok * (kv_ctx / ctx.n_l) / (kv_div / dp)  # KV scan
-    t_hbm = (w_read + kv_read) / spec.hbm_bw
-    t_comp = np.maximum(t_flops, t_hbm)
+        tok = B / dp  # tokens computed per dp replica per iteration
 
-    # ------------- ring-KV stream + TP collectives ---------------------
-    q_bytes = tok * cfg.d_model * BYTES_ACT  # query + partial block
-    t_ring = (sp - 1) * (q_bytes / spec.link_bw
-                         + sp_hops * spec.hop_latency) \
-        + (ta - 1) * (q_bytes / spec.link_bw
-                      + ta_hops * spec.hop_latency)
-    ar_bytes = 2 * q_bytes / np.maximum(tp, 1)  # ring all-reduce chunk
-    t_coll = np.where(tp > 1,
-                      2 * 2 * (tp - 1) * (ar_bytes / spec.link_bw
-                                          + spec.hop_latency), 0.0)
-    t_sched = np.where(ta > 1, (ta + 1) // 2 * T_DISPATCH, 0.0) \
-        + np.where(sp > 1, T_DISPATCH, 0.0)
+        # ------------- memory (vectorized decode_memory_components) -------
+        # EP splits the weight shard: dense tensors over tp·ta, expert
+        # tensors additionally over ep.  The ep == 1 operand is the
+        # pre-EP expression unchanged (bitwise-pinned baselines)
+        w_bytes = np.where(
+            ep > 1,
+            BYTES_W * ctx.p_dense_total / np.minimum(tp * ta, n_dies)
+            + BYTES_W * ctx.p_expert_total
+            / np.minimum(tp * ta * ep, n_dies),
+            BYTES_W * ctx.p_total / np.minimum(tp * ta, n_dies))
+        kv_div, state_div = _decode_kv_divisors(cfg, dp, tp, sp, ta)
+        kv_ctx = ctx.kv_seq_bytes - ctx.state_seq_bytes
+        cache_bytes = B * (kv_ctx / kv_div
+                           + ctx.state_seq_bytes / state_div)
+        ws = tok * cfg.d_model * BYTES_ACT * DECODE_WS_COEFF
+        mem = w_bytes + cache_bytes + ws
+        oom = mem > spec.hbm_cap
 
-    # ------------- EP dispatch/combine all-to-all ----------------------
-    t_a2a, d2d_a2a, t_moe = _decode_a2a_epilogue(ctx, dp, ep, q_bytes,
-                                                 eff, a2a_load,
-                                                 a2a_hops)
+        # ------------- per-layer compute / HBM -----------------------------
+        lin_flops = 2 * ctx.p_active * tok / (tp * ta)
+        attn_flops = 4 * S * cfg.d_model * tok / (tp * sp * ta)
+        t_flops = (lin_flops + attn_flops) / (spec.flops * DECODE_GEMV_EFF)
+        # MoE weight read: dense tensors once per iteration (shared by
+        # the whole in-flight batch) + the expected distinct expert
+        # slice (``eff``) — mirrors the jitted kernel's select
+        if cfg.is_moe:
+            w_read = BYTES_W * ctx.p_active_dense / (tp * ta) \
+                + BYTES_W * ctx.p_expert_total * eff / (tp * ta)
+        else:
+            w_read = BYTES_W * ctx.p_active / (tp * ta)
+        kv_read = tok * (kv_ctx / ctx.n_l) / (kv_div / dp)  # KV scan
+        t_hbm = (w_read + kv_read) / spec.hbm_bw
+        t_comp = np.maximum(t_flops, t_hbm)
 
-    # ------------- per-token latency / throughput ----------------------
-    t_layer = t_coll + np.maximum(t_comp, t_ring) + t_sched \
-        + t_moe + t_a2a
-    head_read = BYTES_W * cfg.d_model * cfg.vocab_size / (tp * ta)
-    t_head = np.maximum(ctx.dec_head_flops * tok / (tp * ta)
-                        / (spec.flops * DECODE_GEMV_EFF),
-                        head_read / spec.hbm_bw)
-    lat = ctx.n_l * t_layer + t_head
-    thr = B / lat
+        # ------------- ring-KV stream + TP collectives ---------------------
+        q_bytes = tok * cfg.d_model * BYTES_ACT  # query + partial block
+        t_ring = (sp - 1) * (q_bytes / spec.link_bw
+                             + sp_hops * spec.hop_latency) \
+            + (ta - 1) * (q_bytes / spec.link_bw
+                          + ta_hops * spec.hop_latency)
+        ar_bytes = 2 * q_bytes / np.maximum(tp, 1)  # ring all-reduce chunk
+        t_coll = np.where(tp > 1,
+                          2 * 2 * (tp - 1) * (ar_bytes / spec.link_bw
+                                              + spec.hop_latency), 0.0)
+        t_sched = np.where(ta > 1, (ta + 1) // 2 * T_DISPATCH, 0.0) \
+            + np.where(sp > 1, T_DISPATCH, 0.0)
 
-    # ------------- power -----------------------------------------------
-    flops_step = (ctx.dec_layer_flops * ctx.n_l
-                  + ctx.dec_head_flops) * B
-    hbm_step = (w_read + kv_read) * ctx.n_l * dp \
-        * np.minimum(tp * ta, n_dies)
-    d2d_step = ctx.n_l * (q_bytes * (sp - 1) * sp_hops
-                          + q_bytes * (ta - 1) * ta_hops
-                          + np.where(tp > 1, 4 * q_bytes * (tp - 1),
-                                     0.0)) * dp
-    d2d_step = d2d_step + d2d_a2a
-    energy = flops_step * spec.e_flop + hbm_step * spec.e_hbm \
-        + d2d_step * spec.e_d2d + 450.0 * n_dies * lat
-    power = energy / lat
-    bw_cap = n_dies * 4 * spec.link_bw
-    bw_util = np.minimum(1.0, d2d_step / lat / bw_cap)
+        # ------------- EP dispatch/combine all-to-all ----------------------
+        t_a2a, d2d_a2a, t_moe = _decode_a2a_epilogue(ctx, dp, ep, q_bytes,
+                                                     eff, a2a_load,
+                                                     a2a_hops)
+
+        # ------------- per-token latency / throughput ----------------------
+        t_layer = t_coll + np.maximum(t_comp, t_ring) + t_sched \
+            + t_moe + t_a2a
+        head_read = BYTES_W * cfg.d_model * cfg.vocab_size / (tp * ta)
+        t_head = np.maximum(ctx.dec_head_flops * tok / (tp * ta)
+                            / (spec.flops * DECODE_GEMV_EFF),
+                            head_read / spec.hbm_bw)
+        lat = ctx.n_l * t_layer + t_head
+        thr = B / lat
+
+        # ------------- power -----------------------------------------------
+        flops_step = (ctx.dec_layer_flops * ctx.n_l
+                      + ctx.dec_head_flops) * B
+        hbm_step = (w_read + kv_read) * ctx.n_l * dp \
+            * np.minimum(tp * ta, n_dies)
+        d2d_step = ctx.n_l * (q_bytes * (sp - 1) * sp_hops
+                              + q_bytes * (ta - 1) * ta_hops
+                              + np.where(tp > 1, 4 * q_bytes * (tp - 1),
+                                         0.0)) * dp
+        d2d_step = d2d_step + d2d_a2a
+        energy = flops_step * spec.e_flop + hbm_step * spec.e_hbm \
+            + d2d_step * spec.e_d2d + 450.0 * n_dies * lat
+        power = energy / lat
+        bw_cap = n_dies * 4 * spec.link_bw
+        bw_util = np.minimum(1.0, d2d_step / lat / bw_cap)
 
     out: list[SimResult] = []
     for i, deg in enumerate(degrees):

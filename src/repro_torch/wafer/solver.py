@@ -295,9 +295,10 @@ def dlws_solve(wafer: Wafer, cfg: ModelConfig, batch: int, seq: int, *,
     """Dual-level solve.  ``evaluator="reference"`` routes every score
     through the seed scalar path (same trajectory — results are bitwise
     identical — used by benchmarks to measure the engine speedup);
-    ``stage1="jax"`` runs the Tier-B stage-1 arithmetic through the jitted
-    twin (million-candidate sweeps); ``tierb="jax"`` (or ``REPRO_TIERB=jax``)
-    runs search-time evaluations through the fully-jitted Tier B — final
+    ``stage1="torch"`` runs the Tier-B stage-1 arithmetic through the
+    torch float64 twin on the GPU (``"torch:cpu"`` on the CPU; million-
+    candidate sweeps); ``tierb="torch"`` (or ``REPRO_TIERB=torch``) runs
+    search-time evaluations through the fused torch Tier B — final
     evaluations stay on the anchored numpy path, and the two tiers share
     the candidate-sized arithmetic verbatim, so the search trajectory,
     selected config and recorded throughput are backend-invariant.

@@ -54,6 +54,7 @@ from repro_torch.models import transformer as ttf
 from repro_torch.train import data
 from repro_torch.train.train_loop import loss_and_grads, make_serve_fns
 from repro_torch.wafer import mapping as tmap
+from repro_torch.wafer import simulator as tsim
 from repro_torch.wafer import solver as tsolver
 from repro_torch.wafer import topology as ttopo
 from repro_torch.weights import params_from_jax
@@ -212,20 +213,43 @@ def test_default_cache_dir_reads_the_same_variable(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("name", ("tierb", "stage1"))
-def test_jitted_tier_settings_raise_a7(name, tmp_path, monkeypatch):
+def test_jitted_tier_settings_raise_a7(name, tmp_path, monkeypatch,
+                                       frozen_clocks):
+    """The reference's jitted-tier setting ``"jax"`` (ROADMAP.md item A7)
+    raises ``ValueError`` in all three plan compilers, by argument
+    (``tierb``) and through ``REPRO_TIERB`` / ``REPRO_STAGE1``, before
+    anything is cached; the port's ``"torch:cpu"`` tier compiles the
+    reference's numpy-tier plans byte for byte, with equal hashes."""
     w, cfg = _wafer(PORT, False), get_config("deepseek-7b")
+    empty = str(tmp_path / "raised")
     if name == "tierb":
-        with pytest.raises(NotImplementedError, match="A7"):
-            tplan.compile_plan(w, cfg, 4, 512, tierb="jax",
-                               cache_dir=str(tmp_path))
-        with pytest.raises(NotImplementedError, match="A7"):
+        with pytest.raises(ValueError, match="'torch'"):
+            tplan.compile_plan(w, cfg, 4, 512, tierb="jax", cache_dir=empty)
+        with pytest.raises(ValueError, match="'torch'"):
             tplan.compile_serve_plan(w, cfg, 4, 160, tierb="jax",
-                                     cache_dir=str(tmp_path))
+                                     cache_dir=empty)
     monkeypatch.setenv("REPRO_" + name.upper(), "jax")
-    with pytest.raises(NotImplementedError, match="A7"):
-        tplan.compile_multiwafer_plan([w, w], cfg, 4, 512,
-                                      cache_dir=str(tmp_path))
-    assert not glob.glob(os.path.join(str(tmp_path), "*.json"))
+    with pytest.raises(ValueError, match="'torch'"):
+        tplan.compile_multiwafer_plan([w, w], cfg, 4, 512, cache_dir=empty)
+    assert not glob.glob(os.path.join(empty, "*.json"))
+    monkeypatch.delenv("REPRO_" + name.upper())
+    want = {kind: _compile(REF, kind, "olmoe-1b-7b", True,
+                           str(tmp_path / f"ref-{kind}"))
+            for kind in ("plan", "splan", "mwplan")}
+    monkeypatch.setenv("REPRO_" + name.upper(), "torch:cpu")
+    calls = dict(tsim.TIER_CALLS)
+    for kind, r in want.items():
+        t = _compile(PORT, kind, "olmoe-1b-7b", True,
+                     str(tmp_path / f"port-{kind}"))
+        assert t.dumps() == r.dumps(), kind
+        assert t.plan_hash == r.plan_hash, kind
+    assert tsim.TIER_CALLS[name] > calls[name]
+    if name == "tierb":
+        monkeypatch.delenv("REPRO_TIERB")
+        t = tplan.compile_serve_plan(
+            _wafer(PORT, True), get_config("olmoe-1b-7b"), 4, 160,
+            tierb="torch:cpu", cache_dir=str(tmp_path / "arg"))
+        assert t.dumps() == want["splan"].dumps()
 
 
 # ---------------------------------------------------------------------------

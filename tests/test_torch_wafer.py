@@ -13,6 +13,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get_config as ref_config
 from repro.configs import paper_models as rpaper
@@ -288,22 +289,247 @@ def test_scalar_reference_paths_match_reference():
         assert canon(r) == canon(t), arch
 
 
+# ---------------------------------------------------------------------------
+# the torch tiers (stage1 / tierb = "torch:cpu" here; "torch" is the GPU):
+# bitwise equal to the numpy tiers and to the reference's jitted "jax" tier
+# ---------------------------------------------------------------------------
+
+TORCH_CPU = "torch:cpu"
+
+
+def _bits(cols: dict) -> dict:
+    return {k: canon(np.asarray(v)) for k, v in cols.items()}
+
+
+@pytest.mark.parametrize("model,batch", (("gpt3-76b", 64),
+                                         ("gpt3-6.7b", 1536),
+                                         ("llama2-7b", 3)))
+def test_stage1_torch_matches_numpy(model, batch):
+    """Twin of the reference's ``test_stage1_jax_matches_numpy``, but
+    bitwise: every stage-1 field over every strategy space's candidates
+    equals the port's and the reference's numpy stage 1 and the
+    reference's jitted one (batches whose micro-batch ladder grows and one
+    that stays at 1)."""
+    rcfg, tcfg = rpaper.TABLE_II[model][0], tpaper.TABLE_II[model][0]
+    rw, tw = _wafers("pristine")
+    calls = tsim.TIER_CALLS["stage1"]
+    for space in sorted(rsim.STRATEGY_SPACES):
+        fsdp = rsim.STRATEGY_SPACES[space]["fsdp"]
+        cands = _grid(32, space, tsim)
+        cols = tsim._degree_columns(cands)[:5]
+        rctx = rsim.StepCostContext(rw, rcfg, batch, 2048, fsdp=fsdp)
+        tctx = tsim.StepCostContext(tw, tcfg, batch, 2048, fsdp=fsdp,
+                                    stage1=TORCH_CPU)
+        got = _bits(tsim._stage1_torch(tctx, *cols))
+        assert got == _bits(tsim._stage1_numpy(tctx, *cols)), space
+        assert got == _bits(rsim._stage1_numpy(rctx, *cols)), space
+        assert got == _bits(rsim._stage1_jax(rctx, *cols)), space
+    assert tsim.TIER_CALLS["stage1"] == calls + len(rsim.STRATEGY_SPACES)
+
+
+def _spread(cands, k=9):
+    """``tests/test_solver_fast.py``'s structurally diverse subsample."""
+    if len(cands) <= k:
+        return cands
+    picks = {0, len(cands) - 1}
+    picks.add(max(range(len(cands)), key=lambda i: cands[i].tatp))
+    picks.add(max(range(len(cands)), key=lambda i: cands[i].sp))
+    picks.add(max(range(len(cands)), key=lambda i: cands[i].tp))
+    step = max(1, len(cands) // k)
+    picks.update(range(0, len(cands), step))
+    return [cands[i] for i in sorted(picks)][:k + 4]
+
+
+@pytest.mark.parametrize("seed", range(4))
+@pytest.mark.parametrize("stream", ("auto", "weights", "acts"))
+def test_tierb_torch_bitwise_on_random_degraded_wafers(seed, stream):
+    """Twin of ``test_tierb_jax_bitwise_on_random_degraded_wafers``: the
+    fused torch Tier B on a random degraded wafer (dead dies, dead links,
+    a snake die subset), every stream policy, both orchestration
+    directions, equals the reference's numpy tier and its jitted tier in
+    every field and breakdown."""
+    from repro.wafer.fault import random_degraded_wafer as rdw_ref
+    from repro_torch.wafer.fault import random_degraded_wafer as rdw_port
+    rw, dies = rdw_ref(seed)
+    tw, tdies = rdw_port(seed)
+    assert dies == tdies
+    bidir = seed % 2 == 1
+    spec = rsim.STRATEGY_SPACES["temp"]
+    rc = _spread(rsim.candidate_degrees(len(dies), spec["allow"],
+                                        spec["seq_par"]))
+    tc = _spread(tsim.candidate_degrees(len(dies), spec["allow"],
+                                        spec["seq_par"]))
+    assert len(tc) >= tsim._TIER_MIN_BATCH, (seed, len(tc))
+    kw = dict(stream=stream, tatp_bidirectional=bidir, dies=dies)
+    cfg_r, cfg_t = rpaper.TABLE_II["gpt3-6.7b"][0], \
+        tpaper.TABLE_II["gpt3-6.7b"][0]
+    calls = tsim.TIER_CALLS["tierb"]
+    got = canon(tsim.simulate_batch(
+        tsim.StepCostContext(tw, cfg_t, 32, 2048, tierb=TORCH_CPU, **kw),
+        tc))
+    assert tsim.TIER_CALLS["tierb"] == calls + 1
+    for tier in ("numpy", "jax"):
+        want = rsim.simulate_batch(rsim.StepCostContext(
+            rw, cfg_r, 32, 2048, tierb=tier, **kw), rc)
+        assert got == canon(want), tier
+
+
+@pytest.mark.parametrize("arch", ("gpt3-6.7b", "olmoe-1b-7b"))
+def test_tierb_torch_bitwise_on_the_pristine_wafer(arch):
+    """Every strategy space's whole grid on the 4 x 8 wafer, search-time
+    (the tier) and final scoring (the numpy anchor), against the
+    reference's numpy and jitted tiers; both tiers of the port run their
+    stage 1 on torch too."""
+    rcfg = rpaper.TABLE_II[arch][0] if arch in rpaper.TABLE_II \
+        else ref_config(arch)
+    tcfg = tpaper.TABLE_II[arch][0] if arch in tpaper.TABLE_II \
+        else get_config(arch)
+    rw, tw = _wafers("pristine")
+    calls = dict(tsim.TIER_CALLS)
+    for space in sorted(rsim.STRATEGY_SPACES):
+        fsdp = rsim.STRATEGY_SPACES[space]["fsdp"]
+        rc, tc = _grid(32, space, rsim), _grid(32, space, tsim)
+        tctx = tsim.StepCostContext(tw, tcfg, 32, 2048, fsdp=fsdp,
+                                    tierb=TORCH_CPU, stage1=TORCH_CPU)
+        for final in (False, True):
+            got = canon(tsim.simulate_batch(tctx, tc,
+                                            run_tcme_optimizer=final,
+                                            prune_oom=not final))
+            for tier in ("numpy", "jax"):
+                rctx = rsim.StepCostContext(rw, rcfg, 32, 2048, fsdp=fsdp,
+                                            tierb=tier)
+                assert got == canon(rsim.simulate_batch(
+                    rctx, rc, run_tcme_optimizer=final,
+                    prune_oom=not final)), (space, final, tier)
+    for stage in ("stage1", "tierb"):
+        assert tsim.TIER_CALLS[stage] > calls[stage], stage
+
+
+@pytest.mark.parametrize("seed", (1, 5))
+def test_dlws_trajectory_identity_under_tierb_torch(seed):
+    """Twin of ``test_dlws_trajectory_identity_under_tierb_jax``: the torch
+    tiers walk the reference's search trajectory to the same solution
+    (the scalar reference evaluator's and the jitted tier's), with the
+    same number of evaluations."""
+    from repro.wafer.fault import random_degraded_wafer as rdw_ref
+    from repro_torch.wafer.fault import random_degraded_wafer as rdw_port
+    rw, dies = rdw_ref(seed)
+    tw, _ = rdw_port(seed)
+    rcfg, tcfg = rpaper.TABLE_II["llama2-7b"][0], \
+        tpaper.TABLE_II["llama2-7b"][0]
+    got = tsolver.dlws_solve(tw, tcfg, 16, 2048, space="temp", dies=dies,
+                             tierb=TORCH_CPU, stage1=TORCH_CPU)
+    ref = rsolver.dlws_solve(rw.uncached(), rcfg, 16, 2048, space="temp",
+                             dies=dies, evaluator="reference")
+    jx = rsolver.dlws_solve(rw, rcfg, 16, 2048, space="temp", dies=dies,
+                            tierb="jax")
+    assert _solve_fields(got) == _solve_fields(jx)
+    assert got.config.key == ref.config.key
+    assert got.best.throughput == ref.best.throughput
+    assert got.best.mem_per_die == ref.best.mem_per_die
+    assert got.evaluated == ref.evaluated
+
+
+@pytest.mark.parametrize("arch", ("llama2-7b", "olmoe-1b-7b"))
+def test_decode_objective_parity_tierb_torch(arch):
+    """Twin of ``test_decode_objective_parity_tierb_jax``, with an MoE
+    architecture whose candidates grow the EP axis: the torch decode tier
+    equals the reference's numpy and jitted tiers over a whole candidate
+    space, and a full decode solve picks the same serving config after
+    the same evaluations."""
+    rcfg = rpaper.TABLE_II[arch][0] if arch in rpaper.TABLE_II \
+        else ref_config(arch)
+    tcfg = tpaper.TABLE_II[arch][0] if arch in tpaper.TABLE_II \
+        else get_config(arch)
+    rc, tc = _grid(64, "temp", rsim), _grid(64, "temp", tsim)
+    if tcfg.is_moe:
+        rc = rc + [dataclasses.replace(d, ep=e) for d in rc for e in (2, 4, 8)
+                   if d.dp % e == 0]
+        tc = tc + [dataclasses.replace(d, ep=e) for d in tc for e in (2, 4, 8)
+                   if d.dp % e == 0]
+        assert any(d.ep > 1 for d in tc)
+    assert len(tc) >= tsim._TIER_MIN_BATCH
+    rw, tw = _wafers("pristine")
+    calls = tsim.TIER_CALLS["decode"]
+    got = canon(tsim.simulate_decode_batch(tsim.StepCostContext(
+        tw, tcfg, 64, 4096, objective="decode", tierb=TORCH_CPU), tc))
+    assert tsim.TIER_CALLS["decode"] == calls + 1
+    for tier in ("numpy", "jax"):
+        assert got == canon(rsim.simulate_decode_batch(rsim.StepCostContext(
+            rw, rcfg, 64, 4096, objective="decode", tierb=tier), rc)), tier
+    r = rsolver.dlws_solve(rtopo.Wafer(rtopo.WaferSpec()), rcfg, 64, 4096,
+                           space="temp", objective="decode")
+    t = tsolver.dlws_solve(ttopo.Wafer(ttopo.WaferSpec()), tcfg, 64, 4096,
+                           space="temp", objective="decode", tierb=TORCH_CPU)
+    assert _solve_fields(r) == _solve_fields(t)
+
+
+def test_resident_context_keys_the_tier():
+    """Twin of ``test_resident_context_reuse_and_isolation``'s key checks:
+    one context per cost-surface identity, the tier part of it."""
+    w = ttopo.Wafer(ttopo.WaferSpec())
+    cfg = tpaper.TABLE_II["gpt3-6.7b"][0]
+    a = tsim.StepCostContext.resident(w, cfg, 16, 2048, tierb="numpy")
+    assert tsim.StepCostContext.resident(w, cfg, 16, 2048,
+                                         tierb="numpy") is a
+    assert tsim.StepCostContext.resident(w, cfg, 16, 2048, tierb="numpy",
+                                         stream="weights") is not a
+    b = tsim.StepCostContext.resident(w, cfg, 16, 2048, tierb=TORCH_CPU)
+    assert b is not a and b.tierb == TORCH_CPU
+    assert tsim.StepCostContext.resident(w, cfg, 16, 2048,
+                                         tierb=TORCH_CPU) is b
+    assert tsim.StepCostContext.resident(w, cfg, 16, 2048, tierb="numpy",
+                                         stage1=TORCH_CPU) is not a
+    assert tsim.StepCostContext.resident(w, cfg, 32, 2048,
+                                         tierb="numpy") is not a
+    u = w.uncached()
+    assert tsim.StepCostContext.resident(u, cfg, 16, 2048,
+                                         tierb=TORCH_CPU) \
+        is not tsim.StepCostContext.resident(u, cfg, 16, 2048,
+                                             tierb=TORCH_CPU)
+
+
 @pytest.mark.parametrize("name,value", (("stage1", "jax"),
                                         ("tierb", "jax")))
 def test_jitted_tiers_raise_a7(name, value, monkeypatch):
+    """The reference's jitted-tier setting ``"jax"`` (ROADMAP.md item A7,
+    which once raised here as unported) raises ``ValueError`` naming
+    ``"torch"``, by argument and through ``REPRO_STAGE1`` /
+    ``REPRO_TIERB``, as does any other unknown backend; ``"torch"`` raises
+    without a GPU (never falling back to numpy); and ``"torch:cpu"``, by
+    argument and through the variable, gives the reference's solve."""
     tw = ttopo.Wafer(ttopo.WaferSpec())
     cfg = get_config("deepseek-7b")
-    with pytest.raises(NotImplementedError, match="A7"):
-        tsim.StepCostContext(tw, cfg, 4, 512, **{name: value})
-    with pytest.raises(NotImplementedError, match="A7"):
-        tsim.StepCostContext.resident(tw, cfg, 4, 512, **{name: value})
-    with pytest.raises(NotImplementedError, match="A7"):
-        tsolver.dlws_solve(tw, cfg, 4, 512, **{name: value})
+    for bad in (value, "numba"):
+        with pytest.raises(ValueError, match="'torch'"):
+            tsim.StepCostContext(tw, cfg, 4, 512, **{name: bad})
+        with pytest.raises(ValueError, match="'torch'"):
+            tsim.StepCostContext.resident(tw, cfg, 4, 512, **{name: bad})
+        with pytest.raises(ValueError, match="'torch'"):
+            tsolver.dlws_solve(tw, cfg, 4, 512, **{name: bad})
     monkeypatch.setenv("REPRO_" + name.upper(), value)
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(ValueError, match="'torch'"):
         tsim.StepCostContext(tw, cfg, 4, 512)
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tsim.StepCostContext(tw, cfg, 4, 512, **{name: "torch"})
+        m.setenv("REPRO_" + name.upper(), "torch")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tsolver.dlws_solve(tw, cfg, 4, 512)
     monkeypatch.setenv("REPRO_" + name.upper(), "numpy")
     assert getattr(tsim.StepCostContext(tw, cfg, 4, 512), name) == "numpy"
+    want = _solve_fields(rsolver.dlws_solve(
+        rtopo.Wafer(rtopo.WaferSpec()), ref_config("deepseek-7b"), 4, 512))
+    calls = dict(tsim.TIER_CALLS)
+    got = tsolver.dlws_solve(ttopo.Wafer(ttopo.WaferSpec()), cfg, 4, 512,
+                             **{name: TORCH_CPU})
+    assert _solve_fields(got) == want
+    monkeypatch.setenv("REPRO_" + name.upper(), TORCH_CPU)
+    assert getattr(tsim.StepCostContext(tw, cfg, 4, 512), name) == TORCH_CPU
+    got = tsolver.dlws_solve(ttopo.Wafer(ttopo.WaferSpec()), cfg, 4, 512)
+    assert _solve_fields(got) == want
+    assert tsim.TIER_CALLS[name] > calls[name]
 
 
 # ---------------------------------------------------------------------------
