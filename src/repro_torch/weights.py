@@ -4,6 +4,8 @@
 (for example ``jax.tree.map(np.asarray, init_params(key, cfg))``) and
 returns the port's parameters, leaf for leaf: both packages share the tree
 layout and the ``[in, out]`` weight layout, so no leaf is transposed.
+:func:`dnn_params_from_jax` does the same for the wafer cost surrogate's
+MLP (``repro.wafer.dnn_cost``'s ``w{i}`` / ``b{i}`` dict).
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.dist import resolve_device
 from repro_torch.models.transformer import param_shapes
 
 
@@ -59,3 +62,23 @@ def params_from_jax(tree, cfg: ModelConfig, device, dtype=None):
         return _to_tensor(node, device, dtype)
 
     return conv(tree)
+
+
+def dnn_params_from_jax(tree, device="cuda") -> dict:
+    """The cost surrogate's MLP parameters (``repro_torch.wafer.dnn_cost``)
+    from the reference's ``w{i}`` / ``b{i}`` dict (numpy leaves), as
+    float32 tensors on ``device``.  Each ``w{i}`` is ``[in, out]`` with a
+    ``b{i}`` of ``out``, layer ``i``'s ``out`` the next one's ``in``;
+    otherwise ``ValueError``."""
+    n = len(tree) // 2
+    names = {f"{p}{i}" for i in range(n) for p in "wb"}
+    shapes = {k: np.shape(v) for k, v in tree.items()}
+    chained = set(tree) == names and all(
+        len(shapes[f"w{i}"]) == 2
+        and shapes[f"b{i}"] == (shapes[f"w{i}"][1],)
+        and (i == 0 or shapes[f"w{i - 1}"][1] == shapes[f"w{i}"][0])
+        for i in range(n))
+    if not chained:
+        raise ValueError(f"not an MLP parameter dict: {shapes}")
+    dev = resolve_device(device)
+    return {k: _to_tensor(v, dev, torch.float32) for k, v in tree.items()}
