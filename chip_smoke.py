@@ -3158,6 +3158,341 @@ def phase_engine(torch):
     return counted
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the cost engine's torch tier and the DNN cost surrogate
+# ---------------------------------------------------------------------------
+
+# (arch, objectives) held tier against tier over the temp space: the train
+# step (simulate_batch) and the decode iteration (simulate_decode_batch;
+# olmoe's candidates grow the EP axis)
+COST_PARITY = (("deepseek-7b", ("train", "decode")),
+               ("qwen2-72b", ("train", "decode")),
+               ("olmoe-1b-7b", ("train", "decode")))
+COST_TRAIN = dict(batch=32, seq=2048)  # tests/test_solver_fast.py's shape
+COST_DECODE = dict(batch=64, seq=4096)  # its decode parity shape
+COST_DEGRADED_SEED = 3  # benchmarks/search_time.py's degraded gpt3 row
+# the search-time models and shapes of benchmarks/search_time.py
+COST_SEARCH = ("gpt3-6.7b", "llama2-7b", "gpt3-76b")
+COST_WARM_REPEATS = 3
+ILP_EVALS = 50_000  # ilp_search's cap
+# benchmarks/fig21_costmodel.py's protocol
+FIG21 = dict(models=("gpt3-6.7b", "llama2-7b", "gpt3-175b"), n=500,
+             train_frac=0.8, epochs=500)
+FIG21_CPU = ROOT / "results" / "bench" / "fig21_costmodel.json"
+
+
+def sim_bits(results):
+    """Every field of a list of ``SimResult``s, floats as their hex bits
+    (so ``inf`` and ``nan`` compare), the breakdown's too."""
+    def bits(x):
+        if isinstance(x, float):
+            return x.hex()
+        if isinstance(x, dict):
+            return tuple(sorted((k, bits(v)) for k, v in x.items()))
+        if isinstance(x, (list, tuple)):
+            return tuple(bits(v) for v in x)
+        return x
+    return [(r.degrees.key if r.degrees else None, r.engine, bits(
+        [r.step_time, r.throughput, r.mem_per_die, r.oom, r.power,
+         r.power_eff, r.bw_util, r.breakdown])) for r in results]
+
+
+def untimed(record):
+    """A plan record without its solves' wall-clock times."""
+    if isinstance(record, dict):
+        return {k: untimed(v) for k, v in record.items()
+                if k != "search_time_s"}
+    if isinstance(record, list):
+        return [untimed(v) for v in record]
+    return record
+
+
+def cost_grid(cfg, n_dies, objective):
+    import dataclasses
+
+    from repro_torch.wafer.simulator import STRATEGY_SPACES, candidate_degrees
+    spec = STRATEGY_SPACES["temp"]
+    cands = candidate_degrees(n_dies, spec["allow"], spec["seq_par"])
+    if objective == "decode" and cfg.is_moe:
+        cands = cands + [dataclasses.replace(d, ep=e) for d in cands
+                         for e in (2, 4, 8) if d.dp % e == 0]
+    return cands
+
+
+def cost_parity(arch, objective, wafer, dies, label):
+    """``simulate_batch`` (search-time: the fused Tier B; final: stage 1
+    alone) or ``simulate_decode_batch`` over the temp space under
+    ``"torch"`` against ``"numpy"``, every field bitwise."""
+    from repro_torch.configs import get_config
+    from repro_torch.wafer.simulator import (StepCostContext,
+                                             simulate_batch,
+                                             simulate_decode_batch)
+    cfg = get_config(arch)
+    n = len(dies) if dies is not None else len(wafer.alive_dies())
+    cands = cost_grid(cfg, n, objective)
+    if objective == "decode":
+        shape = COST_DECODE
+
+        def run(tier):
+            ctx = StepCostContext(wafer, cfg, shape["batch"], shape["seq"],
+                                  dies=dies, objective="decode", tierb=tier)
+            return sim_bits(simulate_decode_batch(ctx, cands))
+        runs = {t: run(t) for t in ("numpy", "torch")}
+    else:
+        shape = COST_TRAIN
+
+        def run(tier, final):
+            ctx = StepCostContext(wafer, cfg, shape["batch"], shape["seq"],
+                                  dies=dies, stage1=tier, tierb=tier)
+            return sim_bits(simulate_batch(ctx, cands,
+                                           run_tcme_optimizer=final,
+                                           prune_oom=not final))
+        runs = {t: run(t, False) + run(t, True) for t in ("numpy", "torch")}
+    same = runs["numpy"] == runs["torch"]
+    if not same:
+        bad = next(i for i, (a, b) in enumerate(zip(runs["numpy"],
+                                                      runs["torch"]))
+                   if a != b)
+        log(f"    first difference at {bad}: numpy {runs['numpy'][bad]}, "
+            f"torch {runs['torch'][bad]}")
+    log(f"  check cost {arch} {objective} on {label}: {len(cands)} "
+        f"candidates, torch == numpy bitwise {'ok' if same else 'FAIL'}")
+    need(same, f"cost engine: {arch} {objective} on {label}: the torch "
+         f"tier differs from numpy")
+    return len(cands)
+
+
+def timed_solves(cfg, shape, tier):
+    """DLWS on a fresh wafer (cold: the wafer's group, template and batch
+    caches empty), then warm solves on it with its resident contexts
+    dropped (so every evaluation runs again, on warm caches): seconds,
+    the solve and its evaluations."""
+    from repro_torch.wafer.solver import dlws_solve
+    from repro_torch.wafer.topology import Wafer, WaferSpec
+    wafer = Wafer(WaferSpec())
+    t0 = time.perf_counter()
+    sol = dlws_solve(wafer, cfg, shape.global_batch, shape.seq_len,
+                     space="temp", tierb=tier)
+    cold = time.perf_counter() - t0
+    warm = []
+    for _ in range(COST_WARM_REPEATS):
+        wafer._ctx_cache.clear()
+        t0 = time.perf_counter()
+        again = dlws_solve(wafer, cfg, shape.global_batch, shape.seq_len,
+                           space="temp", tierb=tier)
+        warm.append(time.perf_counter() - t0)
+        need(again.evaluated == sol.evaluated
+             and again.config.key == sol.config.key,
+             f"warm {cfg.name} solve under {tier} walked another path")
+    return cold, min(warm), sol
+
+
+def timed_ilp(cfg, shape, tier):
+    """``ilp_search`` (its 50,000-evaluation cap, 1024-candidate chunks)
+    with ``REPRO_TIERB`` set to ``tier``, on a fresh wafer."""
+    import os
+
+    from repro_torch.wafer.solver import ilp_search
+    from repro_torch.wafer.topology import Wafer, WaferSpec
+    old = os.environ.get("REPRO_TIERB")
+    os.environ["REPRO_TIERB"] = tier
+    try:
+        t0 = time.perf_counter()
+        res = ilp_search(Wafer(WaferSpec()), cfg, shape.global_batch,
+                         shape.seq_len, space="temp")
+        secs = time.perf_counter() - t0
+    finally:
+        if old is None:
+            del os.environ["REPRO_TIERB"]
+        else:
+            os.environ["REPRO_TIERB"] = old
+    need(res.evaluated == ILP_EVALS, f"ilp_search ran {res.evaluated}")
+    return secs, res
+
+
+def phase_fig21(torch, dev):
+    """benchmarks/fig21_costmodel.py's protocol with the surrogate on the
+    card: 500 cases of the three models, the first 80 % to train (500
+    epochs), the rest held out; the reference test's bar on log_step
+    (corr > 0.97, rel_err below 1.1 x the linear fit's); each target
+    beside the recorded CPU run; training time and one lookup against one
+    simulate_step."""
+    import numpy as np
+
+    from repro_torch.configs.paper_models import TABLE_II
+    from repro_torch.wafer.dnn_cost import (TARGETS, evaluate, featurize,
+                                            fit_linear, make_dataset,
+                                            train_dnn)
+    from repro_torch.wafer.simulator import ParallelDegrees, simulate_step
+    from repro_torch.wafer.topology import Wafer, WaferSpec
+    wafer = Wafer(WaferSpec())
+    cfgs = [TABLE_II[m][0] for m in FIG21["models"]]
+    t0 = time.perf_counter()
+    xs, ys = make_dataset(wafer, cfgs, n=FIG21["n"], seed=0)
+    data_s = time.perf_counter() - t0
+    n_tr = int(FIG21["train_frac"] * len(xs))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dnn = train_dnn(xs[:n_tr], ys[:n_tr], epochs=FIG21["epochs"],
+                    device=dev)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    need(all(p.device.type == dev.type for p in dnn.params.values()),
+         "fig21: the surrogate's weights are not on the card")
+    lin = fit_linear(xs[:n_tr], ys[:n_tr])
+    pred = dnn.predict(xs[n_tr:])
+    need(bool(np.isfinite(pred).all()) and pred.shape == ys[n_tr:].shape,
+         f"fig21: predictions {pred.shape}, finite "
+         f"{bool(np.isfinite(pred).all())}")
+    dnn_m = evaluate(pred, ys[n_tr:])
+    lin_m = evaluate(lin(xs[n_tr:]), ys[n_tr:])
+    cpu = json.loads(FIG21_CPU.read_text())
+    for t in TARGETS:
+        d, li, c = dnn_m[t], lin_m[t], cpu["dnn"][t]
+        log(f"  [fig21] {t}: dnn corr {d['corr']:.4f} rel_err "
+            f"{d['rel_err']:.4f} (CPU run: {c['corr']:.4f} / "
+            f"{c['rel_err']:.4f}); linear {li['corr']:.4f} / "
+            f"{li['rel_err']:.4f} (n {d['n']})")
+    step = dnn_m["log_step"]
+    ok = step["corr"] > 0.97 \
+        and step["rel_err"] < lin_m["log_step"]["rel_err"] * 1.1
+    cfg, deg = cfgs[0], ParallelDegrees(dp=2, tatp=16)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        simulate_step(wafer, cfg, 64, 2048, deg, "tcme")
+    t_sim = (time.perf_counter() - t0) / 20
+    x = featurize(cfg, 64, 2048, deg, "tcme")[None]
+    dnn.predict(x)
+    t0 = time.perf_counter()
+    for _ in range(200):
+        dnn.predict(x)  # each ends in a read-back of its numpy result
+    t_dnn = (time.perf_counter() - t0) / 200
+    out = dict(cases=len(xs), train=n_tr, epochs=FIG21["epochs"],
+               dataset_s=data_s, train_s=train_s,
+               train_ms_per_epoch=1e3 * train_s / FIG21["epochs"],
+               t_simulate_s=t_sim, t_lookup_s=t_dnn,
+               lookup_speedup=t_sim / t_dnn, dnn=dnn_m, linear=lin_m,
+               cpu_run=dict(dnn=cpu["dnn"], linear=cpu["linear"],
+                            t_lookup_s=cpu["t_lookup_s"],
+                            t_simulate_s=cpu["t_simulate_s"]))
+    log(f"[cost] fig21 on {dev}: {json.dumps(out)}")
+    log(f"  check fig21 log_step: corr {step['corr']:.4f} > 0.97, rel_err "
+        f"{step['rel_err']:.4f} < 1.1 x {lin_m['log_step']['rel_err']:.4f}"
+        f" {'ok' if ok else 'FAIL'}; train {train_s:.2f} s, lookup "
+        f"{1e6 * t_dnn:.1f} us vs simulate_step {1e6 * t_sim:.1f} us")
+    need(ok, "fig21: the surrogate misses the reference test's bar")
+    return out
+
+
+def phase_cost_engine(torch):
+    """The cost engine's torch tier on the card against the numpy tier,
+    bit for bit, with its calls counted (zeroed just before, read just
+    after); DLWS and ``compile_serve_plan`` under both tiers; the tiers'
+    search times; then the surrogate on fig21's protocol."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.paper_models import TABLE_II
+    from repro_torch.core.plan import compile_serve_plan
+    from repro_torch.wafer import simulator
+    from repro_torch.wafer.fault import random_degraded_wafer
+    from repro_torch.wafer.solver import dlws_solve
+    from repro_torch.wafer.topology import Wafer, WaferSpec
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    torch.zeros(1, device=dev).add_(1)
+    for k in simulator.TIER_CALLS:
+        simulator.TIER_CALLS[k] = 0
+    checked = 0
+    dw, dies = random_degraded_wafer(COST_DEGRADED_SEED)
+    for arch, objectives in COST_PARITY:
+        for objective in objectives:
+            checked += cost_parity(arch, objective, Wafer(WaferSpec()),
+                                   None, "the 4 x 8 wafer")
+            checked += cost_parity(arch, objective, dw, dies,
+                                   f"degraded seed {COST_DEGRADED_SEED} "
+                                   f"({len(dies)} dies)")
+    # a solve and a serve plan under both tiers: same degrees, same
+    # evaluations, same plan hash
+    cfg = get_config("deepseek-7b")
+    sols = {t: dlws_solve(Wafer(WaferSpec()), cfg, 4, 512, tierb=t)
+            for t in ("numpy", "torch")}
+    need(sols["numpy"].config.key == sols["torch"].config.key
+         and sols["numpy"].evaluated == sols["torch"].evaluated
+         and sols["numpy"].best.throughput == sols["torch"].best.throughput,
+         f"dlws_solve: {sols['numpy'].config} vs {sols['torch'].config}")
+    plans = {}
+    for t in ("numpy", "torch"):
+        with tempfile.TemporaryDirectory() as cache:
+            plans[t] = compile_serve_plan(Wafer(WaferSpec()), cfg, 4, 160,
+                                          tierb=t, cache_dir=cache)
+    need(plans["numpy"].plan_hash == plans["torch"].plan_hash
+         and untimed(plans["numpy"].to_dict())
+         == untimed(plans["torch"].to_dict()),
+         f"compile_serve_plan: {plans['numpy'].plan_hash} vs "
+         f"{plans['torch'].plan_hash}")
+    log(f"  check cost dlws_solve and compile_serve_plan (deepseek-7b) "
+        f"under both tiers: {sols['torch'].config.as_tuple()}, "
+        f"{sols['torch'].evaluated} evaluations, plan "
+        f"{plans['torch'].plan_hash} ok")
+    calls = dict(simulator.TIER_CALLS)
+    log(f"[cost] tier calls on the card while checking: {json.dumps(calls)}")
+    need(all(calls[k] > 0 for k in calls),
+         f"the torch tier did not run on every stage: {calls}")
+
+    # search times, tier against tier in turns (numpy, torch, torch, numpy)
+    search = {}
+    for model in COST_SEARCH:
+        mcfg, shape = TABLE_II[model]
+        row = {}
+        for tier in ("numpy", "torch", "torch", "numpy"):
+            for k in simulator.TIER_CALLS:
+                simulator.TIER_CALLS[k] = 0
+            cold, warm, sol = timed_solves(mcfg, shape, tier)
+            ilp_s, ilp = timed_ilp(mcfg, shape, tier)
+            got = dict(cold_s=cold, warm_s=warm, evals=sol.evaluated,
+                       cold_evals_per_s=sol.evaluated / cold,
+                       warm_evals_per_s=sol.evaluated / warm,
+                       config=sol.config.as_tuple(),
+                       throughput=sol.best.throughput, ilp_s=ilp_s,
+                       ilp_evals_per_s=ILP_EVALS / ilp_s,
+                       ilp_config=ilp.config.as_tuple(),
+                       tier_calls=dict(simulator.TIER_CALLS))
+            if tier == "torch":
+                need(got["tier_calls"]["tierb"] > 0,
+                     f"{model}: the torch tier never ran")
+            row.setdefault(tier, []).append(got)
+        first = row["numpy"][0]
+        for tier, runs in row.items():
+            for r in runs:
+                need(r["config"] == first["config"]
+                     and r["throughput"] == first["throughput"]
+                     and r["evals"] == first["evals"]
+                     and r["ilp_config"] == first["ilp_config"],
+                     f"{model}: {tier} found {r['config']} / "
+                     f"{r['ilp_config']}, numpy {first['config']} / "
+                     f"{first['ilp_config']}")
+        search[model] = row
+        for tier, runs in row.items():
+            log(f"  [search] {model} {tier}: dlws {runs[0]['evals']} evals,"
+                f" cold " + " / ".join(f"{1e3 * r['cold_s']:.1f}"
+                                       for r in runs)
+                + " ms, warm " + " / ".join(f"{1e3 * r['warm_s']:.2f}"
+                                            for r in runs)
+                + " ms (" + " / ".join(f"{r['warm_evals_per_s']:.0f}"
+                                       for r in runs)
+                + " evals/s); ilp 50k " + " / ".join(
+                    f"{r['ilp_s']:.3f}" for r in runs) + " s ("
+                + " / ".join(f"{r['ilp_evals_per_s']:.0f}" for r in runs)
+                + " evals/s)")
+    log(f"[cost] search: {json.dumps(search)}")
+    fig21 = phase_fig21(torch, dev)
+    log(f"[cost] phase {time.perf_counter() - t_phase:.1f} s, "
+        f"{checked} candidate evaluations checked bitwise")
+    return dict(search=search, fig21=fig21, tier_calls=calls)
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke: src/repro_torch not found beside chip_smoke.py; "
@@ -3202,6 +3537,7 @@ def main() -> int:
     plan_serves, plan_trained = phase_plan_launch(torch)
     runs.update(plan_serves)
     runs.update(phase_engine(torch))
+    phase_cost_engine(torch)
     trains[f"{PLAN_TRAIN['arch']} --wafers {PLAN_TRAIN['wafers']} --stage "
            f"{PLAN_TRAIN['stage']} train"] = plan_trained
     # each record's launches: the counts of every main path's run (the
