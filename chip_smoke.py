@@ -165,7 +165,24 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    on a virtual clock, each executor call charged 1.0 s, with a die fault
    at 1e-9 s so ``migrate`` runs; kernels against every hook's plain
    version: identical token streams and reports, the SSD on its kernel
-   in zamba2's run.
+   in zamba2's run;
+10. cost engine — the wafer cost engine's ``"torch"`` tier on the card
+   (float64, ``repro_torch.wafer.simulator``) against its numpy tier:
+   ``simulate_batch`` (search-time through the fused Tier B, final
+   through stage 1) and ``simulate_decode_batch`` over the temp space for
+   deepseek-7b, qwen2-72b and olmoe-1b-7b (its decode candidates with
+   ``ep > 1``), on the 4 x 8 wafer and a seeded degraded one, every
+   ``SimResult`` field bitwise; ``dlws_solve`` and ``compile_serve_plan``
+   under both tiers with the same degrees, evaluations and plan; the
+   tier's calls by stage (zeroed before, read after) above 0.  Then
+   ``dlws_solve`` cold (a fresh wafer) and warm (its caches warm, the
+   result memo dropped) and ``ilp_search`` (50,000 evaluations, the tier
+   through ``REPRO_TIERB``) for gpt3-6.7b, llama2-7b and gpt3-76b, numpy
+   and torch in turns, evaluations a second, the same answers; and the
+   DNN surrogate on ``benchmarks/fig21_costmodel.py``'s protocol, trained
+   on the card (500 cases, 80/20, 500 epochs): log_step's corr > 0.97 and
+   rel_err below 1.1 x the linear fit's, every target beside the recorded
+   CPU run, the training time and a lookup against ``simulate_step``.
 
 It then prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``.
@@ -3401,7 +3418,6 @@ def phase_cost_engine(torch):
 
     t_phase = time.perf_counter()
     dev = torch.device("cuda")
-    torch.zeros(1, device=dev).add_(1)
     for k in simulator.TIER_CALLS:
         simulator.TIER_CALLS[k] = 0
     checked = 0

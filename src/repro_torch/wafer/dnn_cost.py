@@ -220,11 +220,14 @@ def train_dnn(xs: np.ndarray, ys: np.ndarray, *, hidden=(256, 256, 128),
         with torch.no_grad():
             cur_lr = lr * torch.clamp(t / 100.0, max=1.0) \
                 * 0.5 * (1 + torch.cos(math.pi * t / epochs))
+            # the bias corrections, once a step (the same values every
+            # parameter's update divides by)
+            c1, c2 = 1 - 0.9 ** t, 1 - 0.999 ** t
             for (k, p), g in zip(list(params.items()), grads):
                 m[k] = 0.9 * m[k] + 0.1 * g
                 v[k] = 0.999 * v[k] + 0.001 * torch.square(g)
-                mh = m[k] / (1 - 0.9 ** t)
-                vh = v[k] / (1 - 0.999 ** t)
+                mh = m[k] / c1
+                vh = v[k] / c2
                 params[k] = p - cur_lr * mh / (torch.sqrt(vh) + 1e-8)
     return DNNCostModel(params, x_mu, x_sd, y_mu, y_sd)
 

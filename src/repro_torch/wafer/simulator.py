@@ -84,11 +84,10 @@ _CTX_CACHE_CAP = 32
 # the cost engine's stage-1 / Tier-B backends: the numpy anchor, and the
 # torch float64 tier on the GPU or on the CPU
 TIER_BACKENDS = ("numpy", "torch", "torch:cpu")
-# the fused torch Tier B only pays for itself from a handful of candidates
-# up: below this batch size the device round trip + host epilogue costs
-# more than the numpy tier's lean loops, so tiny batches stay on numpy
-# (results are bitwise-identical either way — the gate is purely a perf
-# knob)
+# batches below this size stay on the numpy tier, as the reference's
+# jitted tier does: a device round trip and the host epilogue cost more
+# than numpy's lean loops there (results are bitwise-identical either way
+# — the gate is purely a perf knob)
 _TIER_MIN_BATCH = 8
 
 
@@ -688,7 +687,7 @@ def _tierb_torch_eval(ctx: StepCostContext, st: dict, tst: dict,
     s1 = _stage1_torch_cols(ctx, dp, tp, sp, ta, seq_par, sc)
     act_group_bytes, kv_bytes = s1["act_group_bytes"], s1["kv_bytes"]
     w_stream, a_stream = s1["w_stream"], s1["a_stream"]
-    dpf, tpf, spf, taf = _f64(dp, tp, sp, ta)
+    tpf, spf, taf = _f64(tp, sp, ta)
     active = st["active"]
 
     # ---- stage 2 (mirrors _slot_weights and _traffic_and_power_batch) --
