@@ -11,6 +11,11 @@ float32 against jax float32, held to stated tolerances:
   ``1e-5`` and every prediction (log-seconds) within ``1e-4`` of the
   reference's ``train_dnn(seed=0)``.
 
+The reference runs in its own float32: other test modules switch jax's
+x64 mode on for the cost engine's jitted tiers, which would draw the
+reference's weights and run its MLP in float64, so every reference call
+here sits inside ``jax.enable_x64(False)``.
+
 Then the reference's own accuracy bar (``tests/test_wafer.py``'s
 ``test_dnn_cost_model_beats_regression``) on the port's surrogate trained
 from its own seeded weights.  Everything runs on the CPU (``device="cpu"``).
@@ -68,8 +73,11 @@ def paper_data():
 def ref_init(paper_data):
     (xs, ys), _ = paper_data
     sizes = (xs.shape[1], *HIDDEN, ys.shape[1])
-    return jax.tree.map(np.asarray, rdnn._mlp_init(jax.random.key(0),
-                                                   sizes))
+    with jax.enable_x64(False):
+        init = jax.tree.map(np.asarray, rdnn._mlp_init(jax.random.key(0),
+                                                       sizes))
+    assert all(v.dtype == np.float32 for v in init.values())
+    return init
 
 
 def test_names_and_features_match_reference():
@@ -110,7 +118,8 @@ def test_linear_baseline_and_metrics_match_reference(paper_data):
 
 def test_mlp_apply_matches_reference(paper_data, ref_init):
     (xs, _), _ = paper_data
-    want = np.asarray(rdnn._mlp_apply(ref_init, xs))
+    with jax.enable_x64(False):
+        want = np.asarray(rdnn._mlp_apply(ref_init, xs))
     params = dnn_params_from_jax(ref_init, "cpu")
     assert all(p.dtype == torch.float32 for p in params.values())
     with torch.no_grad():
@@ -123,26 +132,30 @@ def test_train_dnn_tracks_reference_from_its_weights(paper_data, ref_init):
     follows the reference's ``train_dnn(seed=0)`` for 20 epochs of the
     same Adam update (warmup, cosine rate, bias correction)."""
     (rx, ry), (tx, ty) = paper_data
-    ref = rdnn.train_dnn(rx[:96], ry[:96], epochs=TRAIN_EPOCHS, seed=0)
+    with jax.enable_x64(False):
+        ref = rdnn.train_dnn(rx[:96], ry[:96], epochs=TRAIN_EPOCHS, seed=0)
+        ref_pred = ref.predict(rx[96:])
+        ref_step = ref.predict_step_time(REF_TABLE["gpt3-6.7b"][0], 64,
+                                         2048, rsim.ParallelDegrees(2, 1, 1,
+                                                                    16),
+                                         "tcme")
     port = tdnn.train_dnn(tx[:96], ty[:96], epochs=TRAIN_EPOCHS,
                           device="cpu",
                           init=dnn_params_from_jax(ref_init, "cpu"))
     assert set(port.params) == set(ref.params)
     for k, p in port.params.items():
+        assert np.asarray(ref.params[k]).dtype == np.float32, k
         np.testing.assert_allclose(p.numpy(), np.asarray(ref.params[k]),
                                    rtol=0, atol=PARAM_ATOL, err_msg=k)
     for a in ("x_mu", "x_sd", "y_mu", "y_sd"):
         _same(getattr(ref, a), getattr(port, a))
     got = port.predict(tx[96:])
     assert isinstance(got, np.ndarray) and got.dtype == np.float32
-    np.testing.assert_allclose(got, ref.predict(rx[96:]), rtol=0,
-                               atol=PRED_ATOL)
-    deg = (2, 1, 1, 16)
+    np.testing.assert_allclose(got, ref_pred, rtol=0, atol=PRED_ATOL)
     assert port.predict_step_time(TABLE_II["gpt3-6.7b"][0], 64, 2048,
-                                  tsim.ParallelDegrees(*deg), "tcme") == \
-        pytest.approx(ref.predict_step_time(
-            REF_TABLE["gpt3-6.7b"][0], 64, 2048,
-            rsim.ParallelDegrees(*deg), "tcme"), rel=PRED_ATOL)
+                                  tsim.ParallelDegrees(2, 1, 1, 16),
+                                  "tcme") == \
+        pytest.approx(ref_step, rel=PRED_ATOL)
 
 
 def test_dnn_cost_model_beats_regression():
