@@ -43,6 +43,7 @@ import math
 
 import torch
 
+from repro_torch import not_ported
 from repro_torch.core import remat
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
@@ -84,22 +85,30 @@ def _path(dtype, d) -> str:
         f"flash_attention kernel takes fp32 or bf16 q/k/v, got {dtype}")
 
 
-def attention(q, k, v, *, causal=True, window=None, cap=None, scale=None):
+def attention(q, k, v, *, causal=True, window=None, cap=None, scale=None,
+              return_lse=False):
     """q: [B, Hq, Sq, D]; k/v: [B, Hkv, Skv, D] -> [B, Hq, Sq, D].
 
     On CUDA: q/k/v one dtype (fp32 or bf16), unit stride on D, D <= 256,
     Hq a multiple of Hkv.  The output has q's dtype and q's memory layout.
-    Under autograd the backward runs on the backward kernel.
+    Under autograd the backward runs on the backward kernel.  With
+    ``return_lse`` (not under autograd) it returns ``(o, lse)``, ``lse``
+    each row's fp32 log-sum-exp of the scaled (capped) scores, [B, Hq,
+    Sq]: ring attention merges its rounds' outputs with it.
     """
     cpu = all(t.device.type == "cpu" for t in (q, k, v))
     if not cpu:
         _check(q, k, v, window, cap)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if return_lse:
+            raise not_ported("ring attention under autograd", "A3a")
         return _FlashAttention.apply(q, k, v, causal, window, cap, scale)
     if cpu:
         return attention_ref(q, k, v, causal=causal, window=window, cap=cap,
-                             scale=scale)
-    return _forward(q, k, v, causal, window, cap, scale, want_lse=False)[0]
+                             scale=scale, return_lse=return_lse)
+    o, lse = _forward(q, k, v, causal, window, cap, scale,
+                      want_lse=return_lse)
+    return (o, lse) if return_lse else o
 
 
 def _check(q, k, v, window, cap):

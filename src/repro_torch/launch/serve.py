@@ -32,6 +32,21 @@ replays a plan file, and the one-shot serve runs under the plan's
 
 The plan is solved for the whole model, before a ``--layers`` cut.
 
+Over several ranks (``torch.distributed.run``; the ranks come from its
+``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK``) the one-shot serve runs the
+TATP ring: the plan's mesh for the world (``--auto-plan``: deepseek-7b's
+``(1, 4)`` on four ranks) or ``--mesh D M``, over ``--dist-backend``
+``gloo`` (default: host-staged, so ranks may share a card) or ``nccl``
+(one card a rank).  Each rank builds only its shard of the weights and
+serves its sequence block of the prompts; rank 0 prints the JSON::
+
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \
+        -m repro_torch.launch.serve --arch deepseek-7b --auto-plan \
+        --batch 4 --prompt-len 128 --gen 32
+
+The prompt length must be a multiple of the ring degree.  Engine mode
+over several ranks is ROADMAP.md item A3e.
+
 Engine mode (``--serve``, the counterpart of the reference's
 ``serve_engine``): compile (or load) a
 :class:`~repro_torch.core.plan.ServePlan` and run the continuous-batching
@@ -62,14 +77,20 @@ from dataclasses import replace
 import numpy as np
 import torch
 
+import torch.distributed as tdist
+
+from repro_torch import not_ported
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.configs.base import ParallelConfig
-from repro_torch.core.dist import Dist, resolve_device
+from repro_torch.core.dist import (Dist, init_world, make_mesh_dist,
+                                   resolve_device, world_from_env)
 from repro_torch.launch.mesh import make_plan_dist
 from repro_torch.models import lm
 from repro_torch.models.transformer import init_params
 from repro_torch.train.data import stub_inputs
-from repro_torch.train.train_loop import make_serve_fns
+from repro_torch.train.train_loop import (batch_rows, check_prompt_len,
+                                          make_serve_fns)
+from repro_torch.weights import init_sharded_params
 
 
 def _sync(device: torch.device):
@@ -88,47 +109,82 @@ def prompt_batch(cfg, batch: int, prompt_len: int, seed: int = 0) -> dict:
     return out
 
 
-def serve(args, params=None, keep_tokens: bool = False) -> dict:
-    """One-shot serve.  ``params``: a parameter tree for ``args``' config
-    on ``args.device`` (default: random weights from seed 0).  With
-    ``keep_tokens`` the result also holds every generated token
-    (``tokens``, [batch, gen + 1]); the CLI prints the reference's keys."""
+def serve_dist(args, plan=None) -> Dist:
+    """This rank's :class:`Dist`.  Outside ``torch.distributed.run`` one
+    device (``--mesh`` must be ``1 1``); under it the world from its
+    environment, initialised once with ``--dist-backend``, each rank on
+    ``cuda:(LOCAL_RANK mod the cards)`` (so gloo ranks may share one), on
+    ``plan``'s mesh or ``--mesh``."""
+    _, world, local = world_from_env()
+    device = resolve_device(args.device)
+    if world > 1 and device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", local % torch.cuda.device_count())
+    if device.type == "cuda" and device.index is not None:
+        torch.cuda.set_device(device)
+    if world > 1 and not tdist.is_initialized():
+        init_world(getattr(args, "dist_backend", "gloo"))
+    if plan is not None:
+        return make_plan_dist(plan, device)
+    return make_mesh_dist(getattr(args, "mesh", None) or (1, 1), device)
+
+
+def serve(args, params=None, keep_tokens: bool = False,
+          stats=None) -> dict:
+    """One-shot serve.  ``params``: a parameter tree (this rank's shard)
+    for ``args``' config on ``args.device`` (default: random weights from
+    seed 0, drawn shard by shard above degree 1).  With ``keep_tokens``
+    the result also holds every generated token (``tokens``, [batch, gen +
+    1]); the CLI prints the reference's keys.  ``stats``, a dict, gets the
+    run's ``dist``, the prefill's host ``prefill_ms`` (to the logits on
+    the host), its global ``prefill_logits`` and the host-staged
+    transport's seconds up to then (``prefill_transport_s``)."""
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     max_seq = args.prompt_len + args.gen
+    plan = None
     if getattr(args, "plan", None) or getattr(args, "auto_plan", False):
         from repro_torch.launch.planning import resolve_plan
         plan = resolve_plan(cfg, args.batch, max_seq,
                             plan_path=getattr(args, "plan", None),
                             cache_dir=getattr(args, "plan_cache", None),
                             remat=False)
-        print(plan.summary())
-        dist = make_plan_dist(plan, args.device)
+        if world_from_env()[0] == 0:
+            print(plan.summary())
         par = replace(plan.parallel_config(), remat=False)
     else:
-        dist = Dist(resolve_device(args.device))
         par = ParallelConfig(strategy="tatp", remat=False)
+    dist = serve_dist(args, plan)
+    check_prompt_len(dist, args.prompt_len)
     device = dist.device
     if getattr(args, "layers", None):  # a cut in depth only
         cfg = replace(cfg, n_layers=args.layers)
     sb = make_serve_fns(cfg, par, dist)
     if params is None:
         gen = torch.Generator(device=device).manual_seed(0)
-        params = init_params(cfg, gen, device)
+        params = init_params(cfg, gen, device) if dist.n_devices == 1 \
+            else init_sharded_params(cfg, gen, dist, par.strategy)
 
     batch = {name: torch.as_tensor(arr, device=device)
              for name, arr in prompt_batch(cfg, args.batch,
                                            args.prompt_len).items()}
 
-    # prefill produces prompt-length caches; graft them into the max_seq
-    # decode layout (every slot at once)
+    # prefill produces prompt-length caches (above degree 1 moved to the
+    # ranks owning those positions of the max_seq cache); graft them into
+    # the max_seq decode layout (every slot at once)
+    t0 = time.perf_counter()
     caches, logits = sb.prefill_fn(params, batch)
-    big = lm.init_cache(sb.ctx, args.batch, max_seq)
-    caches = lm.graft_cache_slots(big, caches, slots=range(args.batch))
-
     # the first token: argmax over the padded vocab, padded columns
     # included, folded back into range — as the reference does
     toks = logits[:, -1:, :].argmax(dim=-1) % cfg.vocab_size
     out_tokens = [toks.cpu()]
+    if stats is not None:
+        stats.update(dist=dist, prefill_logits=logits,
+                     prefill_ms=(time.perf_counter() - t0) * 1e3,
+                     prefill_transport_s=dist.stage.seconds
+                     if dist.stage else 0.0)
+    caches = lm.shard_prompt_cache(sb.ctx, caches, max_seq)
+    rows = len(range(args.batch)[batch_rows(dist, args.batch)])
+    big = lm.init_cache(sb.ctx, rows, max_seq)
+    caches = lm.graft_cache_slots(big, caches, slots=range(rows))
     _sync(device)
     t0 = time.perf_counter()
     for i in range(args.gen):
@@ -378,6 +434,15 @@ def build_parser() -> argparse.ArgumentParser:
                     help="comma-separated dead dies (degraded launch)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu only on request)")
+    ap.add_argument("--mesh", type=int, nargs="+", default=[1, 1],
+                    help="(data, model) mesh over torch.distributed.run's "
+                         "ranks (one number: data only); its size must be "
+                         "the world's")
+    ap.add_argument("--dist-backend", choices=("gloo", "nccl"),
+                    default="gloo",
+                    help="torch.distributed backend over several ranks: "
+                         "gloo stages through the host (ranks may share a "
+                         "card), nccl needs one card a rank")
     # engine mode
     ap.add_argument("--serve", action="store_true",
                     help="continuous-batching engine mode (needs "
@@ -442,10 +507,16 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.serve:
-        print(json.dumps(serve_engine(args)))
-    else:
-        print(json.dumps(serve(args)))
+    rank, world, _ = world_from_env()
+    if args.serve and world > 1:
+        raise not_ported("engine mode (--serve) over several ranks", "A3e")
+    try:
+        out = serve_engine(args) if args.serve else serve(args)
+    finally:
+        if tdist.is_initialized():
+            tdist.destroy_process_group()
+    if rank == 0:
+        print(json.dumps(out))
 
 
 if __name__ == "__main__":

@@ -52,7 +52,8 @@ the stage's own plan.  ``--failed-dies`` with ``--fail-wafer`` degrades
 one wafer, whose stage alone re-solves.  The checkpoint manifest records
 the plan hash (and the stage, ``pp`` and layer split, or the plan's
 degrees), and a restart under a different plan warns in the reference's
-words.  Any ``--mesh`` other than ``1 1`` is ROADMAP.md item A3.
+words.  Any ``--mesh`` other than ``1 1`` is the train ring, ROADMAP.md
+item A3a.
 """
 
 from __future__ import annotations
@@ -120,7 +121,7 @@ def setup(args):
             par = replace(par, remat=False)
     else:
         if list(args.mesh) not in ([1, 1], [1]):
-            raise not_ported(f"mesh {args.mesh}", "A3")
+            raise not_ported(f"training on mesh {args.mesh}", "A3a")
         dist = Dist(resolve_device(args.device))
         par = ParallelConfig(strategy=args.strategy, remat=not args.reduced)
     return cfg, dist, par, plan

@@ -20,6 +20,16 @@ the SSM state and conv tail).  An encoder-decoder first runs its encoder
 cross-attends to its output after every ``G`` slot.  A vision-prefixed
 model's ``prefix_embeds`` take the first ``frontend_tokens`` positions
 (:func:`embed_tokens`).
+
+Above model degree 1 (serving, strategy ``tatp``) the embedding and the
+head are vocab-parallel: prefill's sequence-sharded tokens are embedded
+by :func:`streamed_vocab_embed` (each rank adds its vocab rows as the
+token blocks pass), a decode token by each rank's rows and a psum; the
+last position's activation comes from the ring's last rank; the greedy
+token is the argmax over the vocab shards (pmax, then pmin of the global
+index: ties go to the lowest).  The caches are sequence-sharded
+(:func:`init_cache`, :func:`shard_prompt_cache`).  The streamed
+cross-entropy is the train ring's (ROADMAP.md A3a).
 """
 
 from __future__ import annotations
@@ -38,24 +48,59 @@ from repro_torch.models.transformer import (CONV_K, RunCtx, _unit_and_reps,
                                             mlp_block, moe_block)
 
 
+def _vocab_contrib(embed, tokens, off):
+    """This rank's vocab-slice contribution to the embedding of
+    ``tokens``: its rows for the ids in ``[off, off + Vloc)``, zero for
+    the rest."""
+    vloc = embed.shape[0]
+    in_range = (tokens >= off) & (tokens < off + vloc)
+    x = embed[torch.where(in_range, tokens - off, 0)]
+    return torch.where(in_range[..., None], x, 0)
+
+
+def streamed_vocab_embed(ctx: RunCtx, embed, tokens):
+    """Vocab-parallel embedding of *sequence-sharded* tokens: the
+    (token-block, partial-embedding) pair streams around the ring, every
+    rank adds its vocab slice's rows as the block passes, and after R
+    one-hop transfers the block arrives home fully embedded."""
+    r, axis, dist = ctx.r, ctx.axis, ctx.dist
+    off = dist.axis_index(axis) * embed.shape[0]
+    perm = [((p - 1) % r, p) for p in range(r)]  # blocks move +1
+    tok, acc = tokens, _vocab_contrib(embed, tokens, off)
+    for t in range(1, r + 1):
+        tok, acc = dist.ppermute((tok, acc), axis, perm)
+        if t < r:
+            acc = acc + _vocab_contrib(embed, tok, off)
+    return acc  # back at the owner, complete
+
+
 def embed_tokens(ctx: RunCtx, embed, tokens, prefix_embeds=None):
-    """tokens: [B, s]; embed: [Vp, D] (the whole vocab at r = 1).
+    """tokens: [B, s] (this rank's sequence block in a sharded prefill);
+    embed: [Vp/R, D], this rank's vocab rows.
 
     With a modality frontend (``cfg.frontend_tokens``) and
     ``prefix_embeds`` [B, frontend_tokens, D], the first
-    ``frontend_tokens`` positions take the precomputed embeddings instead,
-    after the embedding scale.  (The reference's ``pos_offset`` counts
-    positions from a decode step's offset, where no prefix is passed.)"""
-    cfg = ctx.cfg
-    if ctx.r != 1:
-        raise not_ported("vocab-parallel embedding", "A3")
-    x = embed[tokens]
+    ``frontend_tokens`` global positions take the precomputed embeddings
+    instead, after the embedding scale.  (The reference's ``pos_offset``
+    counts positions from a decode step's offset, where no prefix is
+    passed.)"""
+    cfg, r = ctx.cfg, ctx.r
+    seq_sharded = r > 1 and ctx.phase != "decode"
+    if seq_sharded:
+        x = streamed_vocab_embed(ctx, embed, tokens)
+    elif r > 1:  # one decode token, replicated over the ring
+        off = ctx.dist.axis_index(ctx.axis) * embed.shape[0]
+        x = ctx.dist.psum(_vocab_contrib(embed, tokens, off), ctx.axis)
+    else:
+        x = embed[tokens]
     if cfg.scale_embed:
         x = x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype,
                              device=x.device)
     if prefix_embeds is not None and cfg.frontend_tokens:
-        f = cfg.frontend_tokens
-        pos = torch.arange(tokens.shape[1], device=x.device)
+        f, s = cfg.frontend_tokens, tokens.shape[1]
+        pos = torch.arange(s, device=x.device)
+        if seq_sharded:
+            pos = pos + ctx.dist.axis_index(ctx.axis) * s
         pref = prefix_embeds[:, pos.clamp(0, f - 1)].to(x.dtype)
         x = torch.where((pos < f)[None, :, None], pref, x)
     return x
@@ -133,7 +178,7 @@ def vocab_parallel_xent(ctx: RunCtx, logits, labels, valid):
     Returns (sum_nll, sum_count)."""
     cfg = ctx.cfg
     if ctx.r != 1:
-        raise not_ported("the vocab-parallel cross-entropy's ring", "A3")
+        raise not_ported("the vocab-parallel cross-entropy's ring", "A3a")
     cols = torch.arange(logits.shape[-1], device=logits.device)
     logits = torch.where(cols < cfg.vocab_size, logits, -1e30)
     m = logits.amax(dim=-1).detach()
@@ -161,7 +206,7 @@ def loss_fn(ctx: RunCtx, params, batch):
         valid = torch.ones(batch["labels"].shape, dtype=torch.float32,
                            device=x.device)
     if ctx.par.strategy == "tatp" and ctx.r > 1:
-        raise not_ported("streamed_vocab_xent", "A3")
+        raise not_ported("streamed_vocab_xent", "A3a")
     logits = lm_head_logits(ctx, params, x)
     nll_sum, cnt = vocab_parallel_xent(ctx, logits, batch["labels"], valid)
     aux_total = cfg.aux_coef * aux if cfg.is_moe else 0.0
@@ -290,7 +335,12 @@ def prefill(ctx: RunCtx, params, batch):
     ``"cross"`` leaves hold the encoder's K/V, the batch's
     ``enc_embeds`` length), and fp32 logits [B, 1, Vp] for the final
     position.  With Mamba-2 layers the prompt length must
-    be a multiple of ``cfg.ssm_chunk`` (it is never padded)."""
+    be a multiple of ``cfg.ssm_chunk`` (it is never padded).
+
+    Above degree 1 the batch holds this rank's sequence block, the caches
+    its block of positions, and the logits its vocab block [B, 1, Vp/R]
+    (the final position lives on the ring's last rank, whose activation
+    every rank takes by a psum)."""
     cfg = ctx.cfg
     ctx = replace(ctx, phase="prefill")
     enc_out = _encoder(ctx, params, batch)
@@ -298,37 +348,52 @@ def prefill(ctx: RunCtx, params, batch):
                      batch.get("prefix_embeds"))
     x, _, caches = _stack(ctx, params, x, enc_out=enc_out)
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
-    logits = lm_head_logits(ctx, params, x[:, -1:, :])
+    last = x[:, -1:, :]
+    if ctx.r > 1:
+        if ctx.dist.axis_index(ctx.axis) != ctx.r - 1:
+            last = torch.zeros_like(last)
+        last = ctx.dist.psum(last, ctx.axis)
+    logits = lm_head_logits(ctx, params, last)
     return caches, logits
 
 
 def decode_step(ctx: RunCtx, params, tokens, caches, cache_len):
     """One decode step.  tokens: [B, 1]; cache_len includes the token being
     processed — a scalar or a [B] vector.  Returns (next_token [B, 1],
-    logits [B, 1, Vp], caches); the caches are updated in place.  The
+    logits [B, 1, Vp/R], caches); the caches are updated in place.  The
     greedy token is the argmax over the real vocab (padded columns masked
-    to -inf)."""
+    to -inf); above degree 1 over the vocab shards: the largest logit by
+    pmax, then the lowest global index that holds it by pmin, the
+    reference's tie-break."""
     cfg = ctx.cfg
     ctx = replace(ctx, phase="decode")
     x = embed_tokens(ctx, params["embed"], tokens)
     x, _, caches = _stack(ctx, params, x, caches=caches, cache_len=cache_len)
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
     logits = lm_head_logits(ctx, params, x)
-    cols = torch.arange(logits.shape[-1], device=logits.device)
+    vloc = logits.shape[-1]
+    off = ctx.dist.axis_index(ctx.axis) * vloc
+    cols = off + torch.arange(vloc, device=logits.device)
     lmask = torch.where(cols < cfg.vocab_size, logits, float("-inf"))
-    next_tok = lmask.argmax(dim=-1)
+    next_tok = off + lmask.argmax(dim=-1)
+    if ctx.r > 1:
+        best = lmask.amax(dim=-1)
+        top = ctx.dist.pmax(best, ctx.axis)
+        next_tok = ctx.dist.pmin(
+            torch.where(best >= top, next_tok, torch.iinfo(torch.int64).max),
+            ctx.axis)
     return next_tok, logits, caches
 
 
 def init_cache(ctx: RunCtx, batch_local: int, max_seq: int,
                enc_len=None):
     """Zero caches matching :func:`_stack`'s layout (axis 0 the rep, axis 1
-    the batch slot): attention slots ``{"k", "v"}`` [reps, B, max_seq,
-    Hkv, D] in the activation dtype; Mamba-2 slots ``{"state"}``
-    [reps, B, H, P, N] in fp32 and ``{"conv"}`` [reps, B, CONV_K - 1,
-    d_inner + 2N] in the activation dtype; an encoder-decoder's
-    ``"cross"`` ``{"k", "v"}`` [reps, B, T, Hkv, D] with T ``enc_len``
-    (default ``frontend_tokens``)."""
+    the batch slot): attention slots ``{"k", "v"}`` [reps, B, max_seq / R,
+    Hkv, D] (this rank's block of positions) in the activation dtype;
+    Mamba-2 slots ``{"state"}`` [reps, B, H, P, N] in fp32 and
+    ``{"conv"}`` [reps, B, CONV_K - 1, d_inner + 2N] in the activation
+    dtype; an encoder-decoder's ``"cross"`` ``{"k", "v"}`` [reps, B,
+    T / R, Hkv, D] with T ``enc_len`` (default ``frontend_tokens``)."""
     cfg = ctx.cfg
     unit, reps = _unit_and_reps(cfg)
     kw = dict(dtype=ctx.dtype, device=ctx.device)
@@ -358,6 +423,28 @@ def init_cache(ctx: RunCtx, batch_local: int, max_seq: int,
     if cfg.n_enc_layers:
         caches["cross"] = kv(enc_len or cfg.frontend_tokens)
     return caches
+
+
+def shard_prompt_cache(ctx: RunCtx, caches, max_seq: int):
+    """Prefill's self-attention K/V (sequence blocks of ``prompt / R``)
+    moved to the ranks that own those positions in a ``max_seq`` decode
+    cache (blocks of ``max_seq / R``): each leaf is all-gathered along the
+    sequence and this rank keeps its block's prompt positions (fewer than
+    ``max_seq / R``, or none, where the prompt ends inside or before it;
+    :func:`graft_cache_slots` copies the common head).  The cross blocks'
+    encoder K/V keep their blocks.  At R = 1 the caches as they are."""
+    if ctx.r == 1:
+        return caches
+    i = ctx.dist.axis_index(ctx.axis)
+    sloc = max_seq // ctx.r
+    out = {}
+    for key, leaves in caches.items():
+        if key == "cross" or "k" not in leaves:
+            out[key] = leaves
+            continue
+        out[key] = {n: ctx.dist.all_gather(t, ctx.axis, dim=2)[
+            :, :, i * sloc:(i + 1) * sloc] for n, t in leaves.items()}
+    return out
 
 
 def _leaves(tree, prefix=()):

@@ -17,7 +17,7 @@ dtype flow (:func:`expert_bmm`): exact products accumulated and returned
 in fp32, as its ``preferred_element_type=float32`` einsums.  The combine
 sums each token's k contributions as a reduction over k (no scatter-add),
 so forward and backward are deterministic.  The all-to-all over the ring
-(``axis_size > 1``) is ROADMAP.md item A3.
+(``axis_size > 1``) is ROADMAP.md item A3d.
 """
 
 from __future__ import annotations
@@ -138,7 +138,7 @@ def moe_ffn(x, params, *, n_experts: int, top_k: int, act: str,
     router's choices)."""
     if axis_size > 1:
         raise not_ported("the MoE all-to-all over the ring (expert "
-                         "parallelism)", "A3")
+                         "parallelism)", "A3d")
     b, s, d = x.shape
     t = b * s
     xf = x.reshape(t, d)

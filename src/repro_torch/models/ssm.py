@@ -8,7 +8,7 @@ inter-chunk recurrence (arXiv:2405.21060).  :func:`ssd_decode_step`,
 :func:`causal_conv1d` and :func:`conv_decode_step` are the reference's
 single-device paths.  The sequence-sharded scan over the ring
 (``ring_exclusive_scan``, ``ssd_sequence_sharded``) and the conv's halo
-exchange are ROADMAP.md item A3: ``mamba_block`` and
+exchange are ROADMAP.md item A3c: ``mamba_block`` and
 :func:`causal_conv1d` raise for a ring degree above 1.
 """
 
@@ -117,7 +117,7 @@ def causal_conv1d(x, w, b, *, axis: str, axis_size: int):
     """x: [B, S, C]; w: [K, C]; b: [C].  Zero history before the first
     position, and the reference's order of sums (tap 0 first)."""
     if axis_size != 1:
-        raise not_ported("the conv halo exchange over the ring", "A3")
+        raise not_ported("the conv halo exchange over the ring", "A3c")
     k = w.shape[0]
     b_, s, c = x.shape
     xp = torch.cat([x.new_zeros((b_, k - 1, c)), x], dim=1)  # [B, S+K-1, C]

@@ -27,12 +27,22 @@ An encoder-decoder (``cfg.n_enc_layers``) adds the encoder's blocks under
 cross-attention block (layer kind ``X``: the attention leaves only) per
 decoder rep under ``cross`` (:func:`attn_block` with ``is_cross``).
 
+Above model degree 1 (strategy ``tatp``, serving) each rank holds the
+shards :func:`param_specs` gives it (the K-block of every weight, a vocab
+block of the embedding and head).  ``prefill`` is sequence-sharded: every
+linear is the TATP ring (:func:`repro_torch.core.tatp.tatp_matmul`, each
+round's tile on the ``dot`` hook) and self-attention the ring attention
+(:func:`repro_torch.models.attention.ring_attention`, each round on the
+``attention`` hook) at the rank's global positions.  ``decode`` is
+column-parallel: each linear's local block, then an all-gather of the
+columns (:func:`_gather_cols`); the K/V cache stays sequence-sharded.
+
 The ``megatron`` and ``fsdp`` strategies (which plans prescribe, e.g.
 gemma-7b's serve plan) run at model degree 1, where they compute what
 ``tatp`` does (:func:`_linear`).  Not ported yet (each raises
-``NotImplementedError`` naming its ROADMAP.md item): the ring, expert
-parallelism and the ``megatron``/``fsdp`` strategies above degree 1
-(A3).
+``NotImplementedError`` naming its ROADMAP.md item): training above
+degree 1 (A3a), the Mamba-2 block above it (A3c), expert parallelism and
+the ``megatron``/``fsdp`` strategies above it (A3d).
 """
 
 from __future__ import annotations
@@ -202,6 +212,60 @@ def param_shapes(cfg: ModelConfig) -> dict:
     return shapes
 
 
+# ===========================================================================
+# sharding specs: per leaf, the mesh axis (or None) of each dim
+# ===========================================================================
+
+
+def _block_specs(cfg: ModelConfig, kind: str, strategy: str,
+                 stacked: bool) -> dict:
+    """The reference's ``_block_specs``: a spec is a tuple naming, for each
+    dim of the leaf, the mesh axis that shards it (or None)."""
+    mx = "model"
+    specs = {}
+    for name, shape in _block_shapes(cfg, kind).items():
+        nd = len(shape)
+        if strategy == "fsdp":
+            specs[name] = (mx,) + (None,) * (nd - 1)
+        elif name.endswith("ln") or nd == 1 or name == "conv_w" \
+                or name == "mlp.router":
+            specs[name] = (None,) * nd
+        elif name.startswith("mlp.w_") and cfg.is_moe and kind in ("G",
+                                                                   "L"):
+            specs[name] = (mx, None, None)  # expert-sharded [E, D, F]
+        elif strategy == "megatron" and name in ("wo", "mlp.w_down",
+                                                 "out_proj"):
+            specs[name] = (mx,) + (None,) * (nd - 1)  # row-parallel
+        elif strategy == "megatron" and name in ("wk", "wv") \
+                and cfg.n_kv_heads and cfg.n_kv_heads < 16:
+            specs[name] = (None,) * nd  # kv replicated
+        else:
+            specs[name] = (None,) * (nd - 1) + (mx,)  # column block
+    if stacked:
+        specs = {k: (None, *v) for k, v in specs.items()}
+    return specs
+
+
+def param_specs(cfg: ModelConfig, strategy: str = "tatp") -> dict:
+    """Each leaf's sharding over the ``(data, model)`` mesh, in
+    :func:`param_shapes`' layout (the reference's ``param_specs``): the
+    embedding's vocab rows and the head's vocab columns over ``model``,
+    and per block its weights' output columns (``tatp``)."""
+    unit, _ = _unit_and_reps(cfg)
+    specs: dict[str, Any] = {"embed": ("model", None), "final_ln": (None,)}
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = (None, "model")
+    specs["layers"] = {f"u{pos}": _block_specs(cfg, kind, strategy, True)
+                       for pos, kind in enumerate(unit) if kind != "S"}
+    if "S" in unit:
+        specs["shared"] = _block_specs(cfg, "S", strategy, False)
+    if cfg.n_enc_layers:
+        specs["enc"] = {"blocks": _block_specs(cfg, "G", strategy, True),
+                        "final_ln": (None,)}
+        specs["cross"] = _block_specs(cfg, "X", strategy, True)
+    return specs
+
+
 def _init_leaf(name, shape, generator, dtype, device):
     """One (unstacked) leaf by the reference's rules
     (``repro.models.transformer._init_block``)."""
@@ -283,23 +347,37 @@ def _linear(ctx: RunCtx, x, w, b=None):
     fp32 cast to x's dtype (fsdp's weight all-gather and megatron's
     row-parallel psum and head split are identities at r = 1), which is
     the TATP linear's one local tile, so all three take the GEMM hook.
-    Above degree 1 they are ROADMAP.md item A3."""
+    Above degree 1 (``tatp``): in decode the rank's column block (the
+    caller gathers the columns, :func:`_gather_cols`, and a bias is sliced
+    to the block); otherwise the TATP ring over the sequence-sharded
+    rows, every round's tile on the GEMM hook.  ``megatron`` and ``fsdp``
+    above degree 1 are ROADMAP.md item A3d."""
     if ctx.par.strategy != "tatp" and ctx.r > 1:
         raise not_ported(
-            f"strategy {ctx.par.strategy!r} at model degree {ctx.r}", "A3")
+            f"strategy {ctx.par.strategy!r} at model degree {ctx.r}", "A3d")
     if ctx.phase == "decode":
         # plain product (the reference's einsum accumulates in fp32 and
         # casts to x.dtype; cuBLAS accumulates bf16 products in fp32)
         y = torch.matmul(x, w)
-    else:  # tatp streamed (one local tile at r = 1) on the GEMM hook
+    else:  # tatp streamed on the GEMM hook (one local tile at r = 1)
         bsz, s, din = x.shape
         xf = x.reshape(bsz * s, din)
         yf = tatp.tatp_matmul(xf, w, ctx.axis, ctx.r, ctx.par.bidirectional,
-                              ctx.par.stream_dtype, dot=ctx.dot)
+                              ctx.par.stream_dtype, dot=ctx.dot,
+                              dist=ctx.dist)
         y = yf.reshape(bsz, s, -1)
     if b is not None:
+        if y.shape[-1] != b.shape[0]:  # column-parallel: the local block
+            blk = b.shape[0] // ctx.r
+            i = ctx.dist.axis_index(ctx.axis)
+            b = b[i * blk:(i + 1) * blk]
         y = y + b
     return y
+
+
+def _gather_cols(ctx: RunCtx, y):
+    """All-gather a column-parallel output to full width (decode)."""
+    return ctx.dist.all_gather(y, ctx.axis, dim=-1)
 
 
 def _split_heads(x, n_heads, head_dim):
@@ -323,24 +401,31 @@ def attn_block(ctx: RunCtx, p, x, *, kind: str, pos_offset, cache=None,
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     window = cfg.sliding_window if kind == "L" else None
     causal = not (is_cross or bidir_self)
-    h = rms_norm(x, p["ln"], cfg.norm_eps)
-    q = _split_heads(_linear(ctx, h, p["wq"], p.get("bq")), hq, hd)
+    decode = ctx.phase == "decode"
 
-    if ctx.phase == "decode" and is_cross:
+    def proj(x, w, b=None):  # decode gathers the column blocks
+        y = _linear(ctx, x, w, b)
+        return _gather_cols(ctx, y) if decode else y
+
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    q = _split_heads(proj(h, p["wq"], p.get("bq")), hq, hd)
+
+    if decode and is_cross:
         # the encoder's K/V were cached by prefill; the reference also
         # computes this step's (unused) K/V products, which change nothing
         new_cache = cache
         out = attn_lib.decode_attention(
-            q, cache["k"], cache["v"], cache["k"].shape[1], axis=ctx.axis,
-            axis_size=ctx.r, cap=cfg.attn_softcap)
+            q, cache["k"], cache["v"], cache["k"].shape[1] * ctx.r,
+            axis=ctx.axis, axis_size=ctx.r, cap=cfg.attn_softcap,
+            dist=ctx.dist)
     else:
         src = h
         if is_cross:
             src = rms_norm(xattn_kv, p["ln"], cfg.norm_eps)
-        k = _split_heads(_linear(ctx, src, p["wk"], p.get("bk")), hkv, hd)
-        v = _split_heads(_linear(ctx, src, p["wv"], p.get("bv")), hkv, hd)
+        k = _split_heads(proj(src, p["wk"], p.get("bk")), hkv, hd)
+        v = _split_heads(proj(src, p["wv"], p.get("bv")), hkv, hd)
         new_cache = cache
-        if ctx.phase == "decode":
+        if decode:
             # cache_len: scalar (uniform batch) or [B] (per-row positions)
             qpos = torch.as_tensor(cache_len, device=x.device) - 1
             rope_pos = qpos[:, None] if qpos.ndim else qpos.reshape(1)
@@ -348,35 +433,47 @@ def attn_block(ctx: RunCtx, p, x, *, kind: str, pos_offset, cache=None,
             k = apply_rope(k, rope_pos, cfg.rope_theta)
             kc, vc = attn_lib.write_kv_cache(cache["k"], cache["v"], k, v,
                                              qpos, axis=ctx.axis,
-                                             axis_size=ctx.r)
+                                             axis_size=ctx.r, dist=ctx.dist)
             new_cache = {"k": kc, "v": vc}
             out = attn_lib.decode_attention(q, kc, vc, cache_len,
                                             axis=ctx.axis, axis_size=ctx.r,
                                             window=window,
-                                            cap=cfg.attn_softcap)
+                                            cap=cfg.attn_softcap,
+                                            dist=ctx.dist)
         else:
-            if ctx.r != 1:
-                raise not_ported("ring attention", "A3")
-            if not is_cross:
-                qp = pos_offset + torch.arange(x.shape[1], device=x.device)
+            sl = x.shape[1]
+            if not is_cross:  # this rank's block of global positions
+                i = ctx.dist.axis_index(ctx.axis)
+                qp = pos_offset + i * sl + torch.arange(sl, device=x.device)
                 q = apply_rope(q, qp, cfg.rope_theta)
                 k = apply_rope(k, qp, cfg.rope_theta)
-            # [B, S, H, D] viewed as [B, H, S, D]: the kernel reads the
-            # strides
-            out = ctx.attention(q.transpose(1, 2), k.transpose(1, 2),
-                                v.transpose(1, 2), causal=causal,
-                                window=window,
-                                cap=cfg.attn_softcap).transpose(1, 2)
+            if ctx.r > 1:
+                out = attn_lib.ring_attention(
+                    q, k, v, axis=ctx.axis, axis_size=ctx.r, causal=causal,
+                    window=window, cap=cfg.attn_softcap,
+                    bidirectional=ctx.par.bidirectional,
+                    wire=ctx.par.stream_dtype, dist=ctx.dist,
+                    attention=ctx.attention)
+            else:
+                # [B, S, H, D] viewed as [B, H, S, D]: the kernel reads
+                # the strides
+                out = ctx.attention(q.transpose(1, 2), k.transpose(1, 2),
+                                    v.transpose(1, 2), causal=causal,
+                                    window=window,
+                                    cap=cfg.attn_softcap).transpose(1, 2)
             if ctx.phase == "prefill":
                 new_cache = {"k": k, "v": v}
 
     b, s = out.shape[:2]
-    y = _linear(ctx, out.reshape(b, s, -1), p["wo"])
+    y = proj(out.reshape(b, s, -1), p["wo"])
     return x + y.to(x.dtype), new_cache
 
 
 def mlp_block(ctx: RunCtx, p, x, prefix="mlp."):
+    """Pre-norm MLP with residual; in decode above degree 1 the hidden
+    and output column blocks are gathered, as the reference's."""
     cfg = ctx.cfg
+    gather = ctx.phase == "decode"
     h = rms_norm(x, p[prefix + "ln"], cfg.norm_eps)
     f = act_fn(cfg.act)
     up = _linear(ctx, h, p[prefix + "w_up"])
@@ -384,7 +481,11 @@ def mlp_block(ctx: RunCtx, p, x, prefix="mlp."):
         up = f(_linear(ctx, h, p[prefix + "w_gate"])) * up
     else:
         up = f(up)
+    if gather:
+        up = _gather_cols(ctx, up)
     y = _linear(ctx, up, p[prefix + "w_down"])
+    if gather:
+        y = _gather_cols(ctx, y)
     return x + y.to(x.dtype)
 
 
@@ -411,7 +512,7 @@ def mamba_block(ctx: RunCtx, p, x, cache=None, cache_len=None):
     inputs and the skip are fp32, the conv runs in the activation dtype."""
     cfg = ctx.cfg
     if ctx.r != 1:
-        raise not_ported("the sequence-sharded SSD scan over the ring", "A3")
+        raise not_ported("the Mamba-2 block over the ring", "A3c")
     di, n, nh, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, \
         cfg.ssm_head_dim
     h = rms_norm(x, p["ln"], cfg.norm_eps)

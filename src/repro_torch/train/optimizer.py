@@ -15,7 +15,7 @@ to ``jit``), :meth:`AdamW.update` updates the parameters, masters and
 moments in place and returns the same tensors: no second copy of the
 state exists at any time.  The DP reduction, ZeRO-1 sharding over more
 than one rank and int8 gradient compression belong to the DP wire
-(ROADMAP.md A3).
+(ROADMAP.md A3d).
 """
 
 from __future__ import annotations
@@ -88,7 +88,7 @@ class AdamW:
 
     def __init__(self, cfg: AdamWConfig):
         if cfg.grad_compress:
-            raise not_ported("int8 gradient compression", "A3")
+            raise not_ported("int8 gradient compression", "A3d")
         self.cfg = cfg
 
     def init(self, params) -> OptState:

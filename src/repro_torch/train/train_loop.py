@@ -1,16 +1,23 @@
 """Train and serve step factories (counterpart of
 ``repro.train.train_loop``'s ``TrainBundle`` / ``make_train_step`` and
-``ServeBundle`` / ``make_serve_fns``) at ring degree 1 on one device.
+``ServeBundle`` / ``make_serve_fns``).
 
 The reference wraps its steps in ``jit(shard_map(...))`` with partition
-specs for params, optimizer state, batches and caches.  On one device the
-port needs none of that: the bundles hold plain closures.  The train step
-is the reference's: the loss's gradients (autograd through the TATP
+specs for params, optimizer state, batches and caches.  Here every rank
+runs its own shard and the bundles hold plain closures: the serve steps
+take the global batch and slice this rank's part (:func:`shard_batch`,
+the counterpart of ``batch_specs``: rows over ``data``, the prompt's
+sequence over ``model``), and gather what the reference's ``out_specs``
+assemble (prefill's logits over both axes, decode's tokens over
+``data``); parameters and caches stay this rank's shards (``param_specs``,
+``lm.init_cache``).  On one device all of it is the identity.
+
+The train step runs at ring degree 1 (above it, ROADMAP.md A3a).  It is
+the reference's: the loss's gradients (autograd through the TATP
 linears' explicit dgrad/wgrad and the attention and SSD kernels'
-backwards), the
-gradient bookkeeping over the token and ring axes (identities at degree
-1: :func:`token_axes` is empty and :func:`reduce_model_axis_grads`
-returns the grads), then AdamW.
+backwards), the gradient bookkeeping over the token and ring axes
+(identities at degree 1: :func:`token_axes` is empty and
+:func:`reduce_model_axis_grads` returns the grads), then AdamW.
 """
 
 from __future__ import annotations
@@ -33,7 +40,7 @@ def token_axes(par: ParallelConfig, dist: Dist) -> tuple[str, ...]:
     """Mesh axes over which training tokens are partitioned: none on one
     device."""
     if dist.model_degree > 1:
-        raise not_ported("sequence-sharded training tokens", "A3")
+        raise not_ported("sequence-sharded training tokens", "A3a")
     return ()
 
 
@@ -41,7 +48,7 @@ def reduce_model_axis_grads(grads, par: ParallelConfig, dist: Dist):
     """The ring's gradient reduction of ring-replicated leaves; at degree
     1 the gradients are already complete."""
     if par.strategy == "tatp" and dist.model_degree > 1:
-        raise not_ported("the ring's gradient reduction", "A3")
+        raise not_ported("the ring's gradient reduction", "A3a")
     return grads
 
 
@@ -117,6 +124,53 @@ def _build(node, it):
     return next(it)
 
 
+def check_prompt_len(dist: Dist, prompt_len: int) -> None:
+    """A sequence-sharded prompt must split evenly over the ring."""
+    if prompt_len % dist.model_degree:
+        raise ValueError(f"prompt length {prompt_len} is not a multiple of "
+                         f"the ring degree {dist.model_degree}")
+
+
+def batch_rows(dist: Dist, n: int) -> slice:
+    """This rank's rows of a batch of ``n``: a block over ``data`` when
+    the data degree divides ``n``, else all (``Dist.batch_spec``)."""
+    deg = dist.batch_degree
+    if deg > 1 and n % deg == 0:
+        i = dist.axis_index("data")
+        return slice(i * n // deg, (i + 1) * n // deg)
+    return slice(None)
+
+
+def _seq_block(dist: Dist, t):
+    """This rank's block of dim 1 over the ring."""
+    r = dist.model_degree
+    blk = t.shape[1] // r
+    i = dist.axis_index(dist.model_axis)
+    return t[:, i * blk:(i + 1) * blk]
+
+
+def shard_batch(cfg: ModelConfig, batch: dict, dist: Dist) -> dict:
+    """This rank's part of a global prefill batch (the reference's
+    ``batch_specs`` for ``tatp``): the rows over ``data``; the tokens' and
+    an encoder's frames' sequence over ``model``; a vision prefix
+    replicated over ``model``."""
+    check_prompt_len(dist, batch["tokens"].shape[1])
+    out = {}
+    for name, t in batch.items():
+        t = t[batch_rows(dist, t.shape[0])]
+        if name in ("tokens", "enc_embeds"):
+            t = _seq_block(dist, t)
+        out[name] = t
+    return out
+
+
+def _gather_rows(dist: Dist, t, n: int):
+    """The global batch of ``n`` rows from each rank's :func:`batch_rows`."""
+    if batch_rows(dist, n) == slice(None):
+        return t
+    return dist.all_gather(t, "data", dim=0)
+
+
 @dataclass(frozen=True)
 class ServeBundle:
     prefill_fn: Callable
@@ -131,15 +185,30 @@ def make_serve_fns(cfg: ModelConfig, par: ParallelConfig, dist: Dist,
     caches)``; ``cache_len`` is a [B] vector (or a scalar).  The prefill
     batch carries ``prefix_embeds`` or ``enc_embeds`` where the model
     takes them (as the train step's batch does).  ``hooks``
-    override :class:`RunCtx`'s kernel hooks (``dot``, ``attention``)."""
+    override :class:`RunCtx`'s kernel hooks (``dot``, ``attention``).
+
+    ``params`` and ``caches`` are this rank's shards; ``batch``,
+    ``tokens`` and ``cache_len`` the global ones.  ``prefill_fn`` returns
+    the global logits [B, 1, Vp] and ``decode_fn`` the global next tokens
+    [B, 1] with this rank's logits (its rows and vocab block)."""
     ctx = RunCtx(cfg, par, dist, phase="prefill", **hooks)
 
     @torch.no_grad()
     def prefill_fn(params, batch):
-        return lm.prefill(ctx, params, batch)
+        b = batch["tokens"].shape[0]
+        caches, logits = lm.prefill(ctx, params, shard_batch(cfg, batch,
+                                                             dist))
+        logits = dist.all_gather(logits, dist.model_axis, dim=-1)
+        return caches, _gather_rows(dist, logits, b)
 
     @torch.no_grad()
     def decode_fn(params, tokens, caches, cache_len):
-        return lm.decode_step(ctx, params, tokens, caches, cache_len)
+        b = tokens.shape[0]
+        rows = batch_rows(dist, b)
+        if torch.is_tensor(cache_len) and cache_len.ndim:
+            cache_len = cache_len[rows]
+        tok, logits, caches = lm.decode_step(ctx, params, tokens[rows],
+                                             caches, cache_len)
+        return _gather_rows(dist, tok, b), logits, caches
 
     return ServeBundle(prefill_fn, decode_fn, ctx)

@@ -6,6 +6,13 @@ returns the port's parameters, leaf for leaf: both packages share the tree
 layout and the ``[in, out]`` weight layout, so no leaf is transposed.
 :func:`dnn_params_from_jax` does the same for the wafer cost surrogate's
 MLP (``repro.wafer.dnn_cost``'s ``w{i}`` / ``b{i}`` dict).
+
+Above model degree 1 each rank holds its shard of the tree
+(``models/transformer.py:param_specs``): :func:`shard_params` slices a
+full tree, and :func:`init_sharded_params` draws ``init_params``' values
+leaf by leaf and keeps the rank's slice, so no rank ever holds the whole
+model and the shards put back together are ``init_params``' tree bit for
+bit.
 """
 
 from __future__ import annotations
@@ -15,7 +22,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.dist import resolve_device
-from repro_torch.models.transformer import param_shapes
+from repro_torch.models.common import dense_init, embed_init
+from repro_torch.models.transformer import (_init_leaf, padded_vocab,
+                                            param_shapes, param_specs)
 
 
 def _flat(tree, prefix=""):
@@ -82,3 +91,70 @@ def dnn_params_from_jax(tree, device="cuda") -> dict:
         raise ValueError(f"not an MLP parameter dict: {shapes}")
     dev = resolve_device(device)
     return {k: _to_tensor(v, dev, torch.float32) for k, v in tree.items()}
+
+
+def _shard(t, spec, dist):
+    """``t``'s block on this rank: each dim that ``spec`` shards over the
+    model axis cut into ``R`` blocks, block ``axis_index``."""
+    for dim, axis in enumerate(spec):
+        if axis is not None and dist.axis_size(axis) > 1:
+            n = dist.axis_size(axis)
+            blk = t.shape[dim] // n
+            t = t.narrow(dim, dist.axis_index(axis) * blk, blk)
+    return t
+
+
+def _map_specs(fn, tree, specs):
+    if isinstance(tree, dict):
+        return {k: _map_specs(fn, v, specs[k]) for k, v in tree.items()}
+    return fn(tree, specs)
+
+
+def shard_params(params, cfg: ModelConfig, strategy: str, dist):
+    """This rank's shard of the full tree ``params`` by
+    :func:`param_specs` (copies, so the full tree can be freed)."""
+    return _map_specs(lambda t, spec: _shard(t, spec, dist).clone(), params,
+                      param_specs(cfg, strategy))
+
+
+def init_sharded_params(cfg: ModelConfig, generator: torch.Generator, dist,
+                        strategy: str = "tatp"):
+    """``init_params(cfg, generator, dist.device)``'s values, drawn in its
+    order (the embedding, the head, then each stacked leaf by name, one
+    rep at a time), of which this rank keeps its shard.  The largest
+    staging is one full leaf of one rep (the embedding)."""
+    dtype, dev = getattr(torch, cfg.dtype), dist.device
+    kw = dict(dtype=dtype, device=dev)
+    specs = param_specs(cfg, strategy)
+    vp, d = padded_vocab(cfg), cfg.d_model
+    params = {"embed": _shard(embed_init(generator, (vp, d), **kw),
+                              specs["embed"], dist).clone(),
+              "final_ln": torch.zeros(d, **kw)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = _shard(dense_init(generator, (d, vp), in_dim=d,
+                                              **kw),
+                                   specs["lm_head"], dist).clone()
+    shapes = param_shapes(cfg)
+
+    def stacked(block, block_specs):
+        out = {}
+        for name, shape in sorted(block.items()):
+            spec = block_specs[name][1:]
+            reps = [_shard(_init_leaf(name, shape[1:], generator, **kw),
+                           spec, dist).clone() for _ in range(shape[0])]
+            out[name] = torch.stack(reps)
+        return out
+
+    params["layers"] = {u: stacked(b, specs["layers"][u])
+                        for u, b in shapes["layers"].items()}
+    if "shared" in shapes:
+        params["shared"] = {
+            name: _shard(_init_leaf(name, shape, generator, **kw),
+                         specs["shared"][name], dist).clone()
+            for name, shape in sorted(shapes["shared"].items())}
+    if "enc" in shapes:
+        params["enc"] = {"blocks": stacked(shapes["enc"]["blocks"],
+                                           specs["enc"]["blocks"]),
+                         "final_ln": torch.zeros(d, **kw)}
+        params["cross"] = stacked(shapes["cross"], specs["cross"])
+    return params

@@ -178,9 +178,12 @@ def test_write_kv_cache(pos):
 
 
 def test_ring_paths_raise_with_roadmap_item():
-    q = torch.zeros(1, 1, 4, 16)
-    with pytest.raises(NotImplementedError, match="A3"):
-        tattn.decode_attention(q, q, q, 1, axis="model", axis_size=2)
+    """A sliding window in ring attention needs a key offset the flash
+    kernel does not take (the ring's decode attention runs since the
+    serve ring was ported)."""
+    q = torch.zeros(1, 4, 4, 16)
+    with pytest.raises(NotImplementedError, match="A3f"):
+        tattn.ring_attention(q, q, q, axis="model", axis_size=2, window=4)
 
 
 # ---------------------------------------------------------------------------

@@ -48,7 +48,8 @@ from repro_torch.configs.base import ParallelConfig, ShapeConfig
 from repro_torch.core import plan as tplan
 from repro_torch.core import schedule as tsched
 from repro_torch.core.dist import Dist
-from repro_torch.launch.mesh import make_plan_dist, plan_mesh_shape
+from repro_torch.launch.mesh import (make_mesh_dist, make_plan_dist,
+                                     plan_mesh_shape)
 from repro_torch.models import lm as tlm
 from repro_torch.models import transformer as ttf
 from repro_torch.train import data
@@ -579,8 +580,11 @@ def test_strategies_raise_a3_above_degree_one(tmp_path):
                               4, 512, cache_dir=str(tmp_path))
     assert plan.tatp == 8 and plan_mesh_shape(plan, 1) == (1, 1)
     assert make_plan_dist(plan, "cpu").model_degree == 1
-    with pytest.raises(NotImplementedError, match="A3"):
-        plan_mesh_shape(plan, 8)
+    # on 8 ranks the plan's ring runs (the serve ring); a mesh that is
+    # not the world's size raises
+    assert plan_mesh_shape(plan, 8) == (1, 8)
+    with pytest.raises(ValueError, match="world has 1 ranks"):
+        make_mesh_dist(plan_mesh_shape(plan, 8), "cpu")
 
 
 # ---------------------------------------------------------------------------

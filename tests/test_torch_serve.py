@@ -183,8 +183,10 @@ def test_unported_paths_name_their_roadmap_item(model):
     ring = replace(tctx, cfg=moe, dist=_RingDist(torch.device("cpu")))
     with pytest.raises(NotImplementedError, match="A3"):
         ttf.moe_block(ring, p, torch.zeros(1, 4, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="A3"):
-        tlm.embed_tokens(ring, p["wq"], torch.zeros(1, 4, dtype=torch.long))
+    with pytest.raises(NotImplementedError, match="A3a"):  # train ring
+        tlm.vocab_parallel_xent(ring, torch.zeros(1, 4, 8),
+                                torch.zeros(1, 4, dtype=torch.long),
+                                torch.ones(1, 4))
     for strategy in ("megatron", "fsdp"):  # run at degree 1, not above
         with pytest.raises(NotImplementedError, match="A3"):
             ttf._linear(replace(ring, par=ParallelConfig(strategy=strategy)),
@@ -192,7 +194,8 @@ def test_unported_paths_name_their_roadmap_item(model):
 
 
 class _RingDist(Dist):
-    """A ring of two (the MoE block's expert all-to-all is not ported)."""
+    """A ring of two (the MoE block's expert all-to-all and the train
+    ring's cross-entropy are not ported)."""
 
     @property
     def model_degree(self) -> int:
@@ -220,7 +223,9 @@ def test_port_imports_without_jax_or_repro():
     assert "repro_torch.launch.serve" in mods and len(mods) > 15
     assert {"repro_torch.serve", "repro_torch.serve.engine",
             "repro_torch.serve.governor", "repro_torch.serve.migrate",
-            "repro_torch.wafer.fault"} <= set(mods)
+            "repro_torch.wafer.fault", "repro_torch.core.dist",
+            "repro_torch.core.tatp", "repro_torch.launch.mesh",
+            "repro_torch.weights"} <= set(mods)
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -249,6 +254,7 @@ def test_port_sources_never_import_jax_or_repro():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert PORT / "serve" / "engine.py" in files
     assert PORT / "wafer" / "fault.py" in files
+    assert PORT / "core" / "dist.py" in files
     hits = [f"{f.relative_to(REPO)}: {m.group(0).strip()}"
             for f in files for m in _FORBIDDEN.finditer(f.read_text())]
     assert hits == []
