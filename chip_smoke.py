@@ -182,7 +182,29 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    DNN surrogate on ``benchmarks/fig21_costmodel.py``'s protocol, trained
    on the card (500 cases, 80/20, 500 epochs): log_step's corr > 0.97 and
    rel_err below 1.1 x the linear fit's, every target beside the recorded
-   CPU run, the training time and a lookup against ``simulate_step``.
+   CPU run, the training time and a lookup against ``simulate_step``;
+11. ring — deepseek-7b through the TATP ring at model degree 4: the GEMM
+   at the ring's per-round tiles ([128, 4096] x [4096, 1024], [4096,
+   2752], [128, 11008] x [11008, 1024]) and flash at a round's [4, 32,
+   32, 128] (causal on the own block, unmasked with its row LSE on an
+   earlier one) against their plain versions and timed in this process
+   alone; then ``torch.distributed.run`` starts four ranks of this script
+   (``--ring-rank``) sharing the card over gloo, each within RING's
+   wall-clock limit (a failure or timeout fails the phase): the
+   host-staged ppermute, psum, pmax, pmin and all-gather of CUDA tensors
+   bit for bit against the source ranks' values; fp32 at full width, 2
+   layers, batch 4, prompt 128, 8 new tokens, mesh (1, 4), against the
+   degree-1 fp32 run on the same card and the same weights (the shards
+   of one tree): prefill logits and caches within rtol = atol = 1e-3 (the
+   parity phase's), identical tokens, and the fp8 and bf16 wires on the
+   prefill within RING_WIRE_TOL; then the 30-layer bf16 serve through
+   ``launch.serve``'s ``serve`` under ``--auto-plan`` (prompt 128, 32 new
+   tokens): mesh (1, 4), exactly 840 GEMM launches (``wgmma``) and 30 /
+   60 / 90 / 120 flash launches (``mma``) a rank, the prefill's last
+   logits within RING_BF16_TOL of phase 5's degree-1 run of the same
+   weights and its first tokens identical (but at a near tie), with
+   each rank's prefill ms, ms/token, peak GB and the host-staged
+   transport's share, and the token agreement with degree 1 reported.
 
 It then prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``.
@@ -1946,9 +1968,11 @@ def expert_products(torch, cfg):
     return rows
 
 
-def phase_main_path(torch, arch):
+def phase_main_path(torch, arch, keep=None):
     """One-shot serve of ``arch`` (all layers, bf16) through the entry
-    point a user calls; the launch counts cover exactly this run."""
+    point a user calls; the launch counts cover exactly this run.  A dict
+    ``keep`` gets its generated ``tokens`` and its prefill's last
+    ``logits`` (on the host), which phase 11's ring is held to."""
     from dataclasses import replace
 
     from repro_torch.configs import get_config
@@ -1978,12 +2002,14 @@ def phase_main_path(torch, arch):
 
     zero_launches()
     t0 = time.perf_counter()
-    res = serve(args, params=params)
+    res = serve(args, params=params, keep_tokens=keep is not None)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = read_launches()
     paths = read_paths()
     peak = torch.cuda.max_memory_allocated()
+    if keep is not None:
+        keep["tokens"] = res.pop("tokens")
 
     need(launches == spec["launches"],
          f"{arch}: launches {launches} != {spec['launches']}")
@@ -2017,6 +2043,8 @@ def phase_main_path(torch, arch):
              for t in c.values()), "non-finite cache")
     first = (logits[:, -1].argmax(-1) % cfg.vocab_size)[0].item()
     need(first == res["sample"][0], "prefill is not deterministic")
+    if keep is not None:
+        keep["logits"] = logits[:, -1].float().cpu()
 
     # where the time goes: one prefill, then 4 decode steps as serve runs
     # them (token to the host after each step)
@@ -3509,6 +3537,464 @@ def phase_cost_engine(torch):
     return dict(search=search, fig21=fig21, tier_calls=calls)
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the TATP ring serves deepseek-7b over four ranks on the card
+# ---------------------------------------------------------------------------
+
+# the ring: four ranks (processes) joined by gloo, all on the one card, on
+# the (data, model) mesh (1, 4); the phase's wall-clock limit
+RING = dict(ranks=4, mesh=(1, 4), backend="gloo", timeout_s=600)
+# fp32 parity: deepseek-7b at full width, 2 layers, against the degree-1
+# run on the same card and the same weights (the shards of one tree)
+RING_PARITY = dict(arch="deepseek-7b", n_layers=2, batch=4, prompt_len=128,
+                   gen=8, seed=1)
+# the fp8 and bf16 wires on that prefill against the degree-1 fp32 run: the
+# largest difference of the logits over their largest magnitude, below
+# the reference's own limit for its fp8 wire ("lossy wire: close, not
+# severed", tests/multidevice/check_wire_grads.py:59), and for bf16 its
+# 1/16 (e4m3 rounds a streamed weight by up to 1/16 of its value, bf16 by
+# 1/256 of it)
+RING_WIRE_TOL = {"bf16": 0.30 / 16, "fp8": 0.30}
+# the bf16 serve through the entry point: 30 layers, --auto-plan
+RING_SERVE = dict(arch="deepseek-7b", batch=4, prompt_len=128, gen=32)
+# the 30-layer bf16 prefill's last logits against the degree-1 run's
+# (relative L2): the GEMM tiles are the degree-1 products' columns, but
+# each ring round's flash output is rounded to bf16 before the fp32 merge
+RING_BF16_TOL = 0.05
+# (N, kb, launches per layer) of one deepseek layer's per-round tiles at M
+# = batch x prompt / 4 = 128 rows: wq wk wv wo, w_up w_gate, w_down
+RING_GEMMS = ((D_MODEL, D_MODEL // 4, 4), (D_MODEL, D_FF // 4, 2),
+              (D_FF, D_MODEL // 4, 1))
+RING_M = RING_SERVE["batch"] * RING_SERVE["prompt_len"] // RING["ranks"]
+# one round of ring attention: [B, H, S/4, D], causal on the own block,
+# unmasked (with its row LSE) on an earlier one
+RING_ATTN = (RING_SERVE["batch"], HEADS,
+             RING_SERVE["prompt_len"] // RING["ranks"], HEAD_DIM)
+
+
+def ring_launches(cfg, r, i):
+    """Kernel launches of one ring prefill on rank ``i`` of ``r`` (a
+    causal decoder): every linear's ``r`` per-round tiles, and one flash
+    per round with a visible key (the own block and the ``i`` earlier
+    ones) in each attention block."""
+    n = prefill_launches(cfg)
+    n["tatp_matmul"] *= r
+    n["flash_attention"] *= i + 1
+    return n
+
+
+def phase_ring_rows(torch, randn):
+    """The GEMM and flash rows at the ring's per-round shapes, timed in
+    this process alone (four ranks time-slicing the card would blur
+    them); each against its plain version first."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.tatp_matmul.ops import tatp_dot
+    from repro_torch.kernels.tatp_matmul.ref import matmul_ref
+
+    r, layers = RING["ranks"], PATHS["deepseek-7b"]["n_layers"]
+    gemms = []
+    for n, kb, per_layer in RING_GEMMS:
+        a = randn(RING_M, n, dtype=torch.bfloat16)
+        b = randn(n, kb, dtype=torch.bfloat16, scale=n ** -0.5)
+        path = gemm_path(a, b)
+        need(path == "wgmma", f"ring tile {n}x{kb} takes {path}")
+        err = compare(f"ring tile bf16 {RING_M}x{n}x{kb}", tatp_dot(a, b),
+                      matmul_ref(a, b), *GEMM_TOL["bfloat16"])
+        flops = 2 * RING_M * n * kb
+        row = dict(shape=[RING_M, n, kb], path=path, max_abs_err=err,
+                   launches_per_rank=per_layer * r * layers,
+                   ms=time_ms(torch, lambda: tatp_dot(a, b)),
+                   plain_ms=time_ms(torch, lambda: matmul_ref(a, b)),
+                   library_ms=time_ms(torch, lambda: torch.matmul(a, b)))
+        row["bound_ms"], row["bound_by"] = bound(
+            flops, 2 * (RING_M * n + n * kb + RING_M * kb), "bfloat16")
+        gemms.append(row)
+    b, h, s, d = RING_ATTN
+    flashes = []
+    for causal, per_rank in ((True, f"{layers} on every rank"),
+                             (False, f"{layers} x i on rank i")):
+        q, k, v = (randn(b, s, h, d, dtype=torch.bfloat16).transpose(1, 2)
+                   for _ in range(3))
+        kw = dict(causal=causal, return_lse=True)
+        before = attention.launches_by_path["mma"]
+        o, lse = attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        need(attention.launches_by_path["mma"] == before + 1,
+             "a ring round's flash did not take the mma path")
+        o_ref, lse_ref = attention_ref(q, k, v, **kw)
+        what = "causal own block" if causal else "unmasked earlier block"
+        err = max(compare(f"ring round {what} [{b},{h},{s},{d}]", o, o_ref,
+                          *ATTN_TOL["bfloat16"]),
+                  compare(f"ring round {what} row LSE", lse, lse_ref,
+                          *ATTN_TOL["bfloat16"]))
+        qc, kc, vc = (t.contiguous() for t in (q, k, v))
+        pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+        row = dict(shape=[b, h, s, d], causal=causal, max_abs_err=err,
+                   launches_per_rank=per_rank,
+                   ms=time_ms(torch, lambda: attention(q, k, v, **kw), 50),
+                   plain_ms=time_ms(torch,
+                                    lambda: attention_ref(q, k, v, **kw), 50),
+                   library_ms=time_ms(torch, lambda: (
+                       F.scaled_dot_product_attention(qc, kc, vc,
+                                                      is_causal=causal)),
+                       50),
+                   library="SDPA (no LSE out)")
+        # q, k, v in and o out in bf16, the row LSE out in fp32
+        row["bound_ms"], row["bound_by"] = bound(
+            4 * pairs * d, 8 * b * h * s * d + 4 * b * h * s, "bfloat16")
+        flashes.append(row)
+    log(f"[ring rows] GEMM tiles {json.dumps(gemms)}; flash rounds "
+        f"{json.dumps(flashes)}")
+    return gemms, flashes
+
+
+def _ring_contrib(torch, g, shape=(64, 1024)):
+    """Rank ``g``'s values for the transport check: small integers as
+    fp32, so every order of summing them is exact."""
+    gen = torch.Generator().manual_seed(500 + g)
+    return torch.randint(-20, 20, shape, generator=gen).float()
+
+
+def ring_transport(torch, dist):
+    """The host-staged collectives on CUDA tensors, bit for bit against
+    the source ranks' values; then the time to move one w_up block
+    (22.5 MB bf16) one hop."""
+    dev, axis = dist.device, dist.model_axis
+    r, i = dist.model_degree, dist.axis_index(axis)
+    ranks = dist.groups[axis].ranks
+    src = [_ring_contrib(torch, g) for g in ranks]
+    x = src[i].to(dev)
+    right = [((p + 1) % r, p) for p in range(r)]
+    left = [((p - 1) % r, p) for p in range(r)]
+    up, dn = dist.ppermute_many([(x, right), (x.to(torch.bfloat16), left)],
+                                axis)
+    checks = dict(
+        ppermute=torch.equal(up.cpu(), src[(i + 1) % r]),
+        ppermute_bf16=torch.equal(dn.cpu(),
+                                  src[(i - 1) % r].to(torch.bfloat16)),
+        psum=torch.equal(dist.psum(x, axis).cpu(), sum(src)),
+        psum_bf16=torch.equal(dist.psum(x.to(torch.bfloat16), axis).cpu(),
+                              sum(src).to(torch.bfloat16)),
+        pmax=torch.equal(dist.pmax(x, axis).cpu(),
+                         torch.stack(src).amax(0)),
+        pmin_int64=torch.equal(dist.pmin(x.long(), axis).cpu(),
+                               torch.stack(src).long().amin(0)),
+        all_gather=torch.equal(dist.all_gather(x, axis, dim=-1).cpu(),
+                               torch.cat(src, dim=-1)))
+    need(all(checks.values()), f"rank {i}: transport {checks}")
+    blk = torch.randn(D_MODEL, D_FF // 4, device=dev).to(torch.bfloat16)
+    dist.ppermute(blk, axis, right)  # grow the staging buffers first
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        dist.ppermute(blk, axis, right)
+    hop_ms = (time.perf_counter() - t0) / 5 * 1e3
+    return dict(checks=checks, hop_ms=hop_ms,
+                hop_gb_s=blk.numel() * 2 / hop_ms / 1e6)
+
+
+def ring_parity(torch, dist, out_dir):
+    """fp32 at full width, 2 layers: the ring's prefill (launches,
+    logits, this rank's cache block) and greedy tokens on the weights
+    ``init_sharded_params`` draws from RING_PARITY's seed; then the
+    prefill on the bf16 and fp8 wires.  The tensors go to
+    ``parity<rank>.pt`` for the parent to compare."""
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.launch.serve import prompt_batch
+    from repro_torch.models import lm
+    from repro_torch.train.train_loop import make_serve_fns
+    from repro_torch.weights import init_sharded_params
+
+    spec = RING_PARITY
+    dev, i = dist.device, dist.axis_index(dist.model_axis)
+    cfg = parity_config(spec["arch"], spec["n_layers"])
+    params = init_sharded_params(
+        cfg, torch.Generator(device=dev).manual_seed(spec["seed"]), dist)
+    b, s = spec["batch"], spec["prompt_len"]
+    batch = {name: torch.as_tensor(a, device=dev) for name, a in
+             prompt_batch(cfg, b, s, seed=spec["seed"]).items()}
+    out, rec = {}, {}
+    for wire in ("native", "bf16", "fp8"):
+        sb = make_serve_fns(cfg, ParallelConfig(strategy="tatp", remat=False,
+                                                stream_dtype=wire), dist)
+        zero_launches()
+        caches, logits = sb.prefill_fn(params, batch)
+        torch.cuda.synchronize()
+        out[f"logits_{wire}"] = logits[:, -1].cpu()
+        if wire != "native":
+            continue
+        launches, paths = read_launches(), read_paths()
+        want = ring_launches(cfg, dist.model_degree, i)
+        need(launches == want, f"rank {i}: fp32 ring prefill launched "
+             f"{launches}, want {want}")
+        for name, by_path in paths.items():
+            need(by_path["simt"] == launches[name],
+                 f"rank {i}: fp32 {name} by path {by_path}: not all simt")
+        rec["launches"] = launches
+        out["caches"] = {u: {n: t.cpu() for n, t in leaves.items()}
+                         for u, leaves in caches.items()}
+        big = lm.graft_cache_slots(
+            lm.init_cache(sb.ctx, b, s + spec["gen"]),
+            lm.shard_prompt_cache(sb.ctx, caches, s + spec["gen"]),
+            slots=range(b))
+        tok = logits[:, -1:].argmax(-1) % cfg.vocab_size
+        toks = [tok]
+        for t in range(spec["gen"]):
+            cl = torch.full((b,), s + t + 1, device=dev)
+            tok, _, big = sb.decode_fn(params, tok, big, cl)
+            toks.append(tok)
+        out["tokens"] = torch.cat(toks, dim=1).cpu()
+    torch.save(out, Path(out_dir) / f"parity{i}.pt")
+    del params
+    release(torch)
+    return rec
+
+
+def ring_serve(torch, out_dir, rank):
+    """The bf16 serve through the entry point's ``serve`` with the CLI's
+    arguments (``--auto-plan``, 30 layers): launches by path from zero,
+    prefill ms, ms/token, peak GB and the host-staged transport's share;
+    the tokens and the prefill's last logits to ``serve<rank>.pt``."""
+    from repro_torch.launch.serve import build_parser, serve
+
+    spec = RING_SERVE
+    args = build_parser().parse_args([
+        "--arch", spec["arch"], "--auto-plan", "--batch", str(spec["batch"]),
+        "--prompt-len", str(spec["prompt_len"]), "--gen", str(spec["gen"]),
+        "--dist-backend", RING["backend"],
+        "--plan-cache", str(Path(out_dir) / f"plans{rank}")])
+    torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    zero_launches()
+    t0 = time.perf_counter()
+    res = serve(args, keep_tokens=True, stats=stats)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches, paths = read_launches(), read_paths()
+    dist = stats["dist"]
+    stage = dist.stage
+    decode_s = res["ms_per_token"] * spec["gen"] / 1e3
+    torch.save(dict(tokens=torch.tensor(res.pop("tokens")),
+                    logits=stats["prefill_logits"][:, -1].float().cpu()),
+               Path(out_dir) / f"serve{rank}.pt")
+    return dict(
+        serve=res, mesh=list(dist.mesh_shape), coords=list(dist.coords),
+        launches=launches, launches_by_path=paths,
+        prefill_ms=stats["prefill_ms"], ms_per_token=res["ms_per_token"],
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9, wall_s=wall_s,
+        transport_s=stage.seconds, transport_calls=stage.calls,
+        transport_gb=stage.bytes / 1e9,
+        prefill_transport_share=stats["prefill_transport_s"]
+        / (stats["prefill_ms"] / 1e3),
+        decode_transport_share=(stage.seconds - stats["prefill_transport_s"])
+        / decode_s)
+
+
+def ring_rank_main(out_dir) -> int:
+    """One rank of phase 11, started by ``torch.distributed.run``: the
+    transport check, fp32 parity and the bf16 serve, its record to
+    ``rank<rank>.json``."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.core.dist import (init_world, make_mesh_dist,
+                                       world_from_env)
+
+    rank, world, local = world_from_env()
+    dev = torch.device("cuda", local % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_world(RING["backend"])
+    try:
+        dist = make_mesh_dist(RING["mesh"], dev)
+        t0 = time.perf_counter()
+        rec = dict(rank=rank, transport=ring_transport(torch, dist))
+        rec["parity"] = ring_parity(torch, dist, out_dir)
+        rec["parity_s"] = time.perf_counter() - t0
+        rec.update(ring_serve(torch, out_dir, rank))
+        (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(rec))
+    finally:
+        tdist.destroy_process_group()
+    return 0
+
+
+def run_ranks(torch, out_dir):
+    """``torch.distributed.run`` of this script's rank entry on
+    RING["ranks"] processes, in a session of its own so a timeout stops
+    every rank; a failure or a timeout raises with the ranks' output."""
+    import os
+    import signal
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(RING["ranks"]), str(ROOT / "chip_smoke.py"),
+           "--ring-rank", str(out_dir)]
+    env = dict(os.environ, OMP_NUM_THREADS="2",
+               PYTHONPATH=os.pathsep.join(
+                   [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")]
+                                 if p]))
+    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=RING["timeout_s"])
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        raise SmokeFailure(f"the ring's ranks passed {RING['timeout_s']} s:"
+                           f"\n{out[-6000:]}")
+    for line in out.splitlines():
+        if "[plan]" in line or "WaferPlan" in line or "Traceback" in line:
+            log(f"  rank output: {line}")
+    need(proc.returncode == 0,
+         f"the ring's ranks failed (exit {proc.returncode}):\n{out[-8000:]}")
+
+
+def degree1_parity(torch):
+    """The degree-1 fp32 run RING_PARITY's ranks are held to: the same
+    tree whole on the card (``init_params``, same seed), through the
+    plain serve bundle: last prefill logits, caches and greedy tokens."""
+    from repro_torch.launch.serve import prompt_batch
+    from repro_torch.models import lm
+    from repro_torch.models.transformer import init_params
+
+    spec = RING_PARITY
+    dev = torch.device("cuda")
+    cfg = parity_config(spec["arch"], spec["n_layers"])
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(
+        spec["seed"]), dev)
+    b, s = spec["batch"], spec["prompt_len"]
+    batch = {name: torch.as_tensor(a, device=dev) for name, a in
+             prompt_batch(cfg, b, s, seed=spec["seed"]).items()}
+    sb = serve_bundle(torch, cfg)
+    caches, logits = sb.prefill_fn(params, batch)
+    out = dict(logits=logits[:, -1].cpu(),
+               caches={u: {n: t.cpu() for n, t in leaves.items()}
+                       for u, leaves in caches.items()})
+    big = lm.graft_cache_slots(lm.init_cache(sb.ctx, b, s + spec["gen"]),
+                               caches, slots=range(b))
+    tok = logits[:, -1:].argmax(-1) % cfg.vocab_size
+    toks = [tok]
+    for t in range(spec["gen"]):
+        cl = torch.full((b,), s + t + 1, device=dev)
+        tok, _, big = sb.decode_fn(params, tok, big, cl)
+        toks.append(tok)
+    out["tokens"] = torch.cat(toks, dim=1).cpu()
+    del params, caches, big
+    release(torch)
+    return out
+
+
+def rel_l2(got, ref):
+    return ((got.float() - ref.float()).norm() / ref.float().norm()).item()
+
+
+def phase_ring(torch, randn, degree1):
+    """Phase 11: deepseek-7b through the TATP ring at model degree 4 on
+    four ranks sharing the card (gloo, host-staged).  ``degree1`` holds
+    phase 5's degree-1 bf16 run of the same weights (its prefill's last
+    logits and tokens).  Returns the ring rows and each rank's run for
+    the kernels line."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    rows = phase_ring_rows(torch, randn)
+    ref = degree1_parity(torch)
+    r = RING["ranks"]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        run_ranks(torch, tmp)
+        ranks_s = time.perf_counter() - t0
+        recs = [json.loads((Path(tmp) / f"rank{i}.json").read_text())
+                for i in range(r)]
+        par = [torch.load(Path(tmp) / f"parity{i}.pt") for i in range(r)]
+        srv = [torch.load(Path(tmp) / f"serve{i}.pt") for i in range(r)]
+    for rec in recs:
+        log(f"[ring] rank {rec['rank']} transport "
+            f"{json.dumps(rec['transport'])}")
+    # fp32 parity: mesh (1, 4) against degree 1 on the same tree
+    cfg = parity_config(RING_PARITY["arch"], RING_PARITY["n_layers"])
+    tol = GEMM_TOL["float32"]
+    compare("ring fp32 prefill logits vs degree 1", par[0]["logits_native"],
+            ref["logits"], *tol)
+    sl = RING_PARITY["prompt_len"] // r
+    for i, p in enumerate(par):
+        need(torch.equal(p["logits_native"], par[0]["logits_native"]),
+             f"rank {i}'s gathered logits differ from rank 0's")
+        for u, leaves in p["caches"].items():
+            for n, t in leaves.items():
+                compare(f"ring fp32 rank {i} prefill cache {u}.{n}", t,
+                        ref["caches"][u][n][:, :, i * sl:(i + 1) * sl], *tol)
+        need(torch.equal(p["tokens"], ref["tokens"]),
+             f"rank {i}: ring tokens {p['tokens'].tolist()} != degree 1 "
+             f"{ref['tokens'].tolist()}")
+    log(f"  fp32 greedy tokens identical to degree 1: "
+        f"{ref['tokens'].tolist()}")
+    wires = {}
+    for wire in RING_WIRE_TOL:
+        got = par[0][f"logits_{wire}"]
+        wires[wire] = dict(
+            max_rel=((got - ref["logits"]).abs().max()
+                     / ref["logits"].abs().max()).item(),
+            rel_l2=rel_l2(got, ref["logits"]))
+    log(f"[ring] wires: prefill logits vs degree 1 fp32 {json.dumps(wires)}"
+        f" (max_rel limits {json.dumps(RING_WIRE_TOL)})")
+    for wire, wtol in RING_WIRE_TOL.items():
+        need(wires[wire]["max_rel"] <= wtol, f"{wire} wire: prefill logits "
+             f"max_rel {wires[wire]['max_rel']:.3e} > {wtol}")
+    # the bf16 serve: its numbers first, then the gates
+    full = get_config(RING_SERVE["arch"])
+    got, want = srv[0]["logits"], degree1["logits"]
+    err = rel_l2(got, want)
+    maxerr = (got - want).abs().max().item()
+    tokens1 = torch.tensor(degree1["tokens"])
+    first, first1 = srv[0]["tokens"][:, 0], tokens1[:, 0]
+    top2 = want.topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    agree = (srv[0]["tokens"] == tokens1).float()
+    summary = dict(
+        prefill_logits_rel_l2=err, prefill_logits_max_abs=maxerr,
+        first_tokens=first.tolist(), degree1_first_tokens=first1.tolist(),
+        degree1_top2_margin=margin.tolist(),
+        token_agreement=agree.mean().item(),
+        rows_identical=[bool(a.all()) for a in agree],
+        ranks_wall_s=ranks_s, phase_s=time.perf_counter() - t_phase,
+        per_rank=[{k: rec[k] for k in (
+            "prefill_ms", "ms_per_token", "peak_gb", "transport_s",
+            "transport_calls", "transport_gb", "prefill_transport_share",
+            "decode_transport_share", "wall_s", "parity_s", "mesh",
+            "launches", "launches_by_path")} for rec in recs])
+    log(f"[ring] deepseek-7b 30 layers bf16 over {r} ranks, mesh "
+        f"{RING['mesh']}, {RING['backend']}: {json.dumps(summary)}")
+    runs = {}
+    for i, rec in enumerate(recs):
+        need(rec["mesh"] == list(RING["mesh"]),
+             f"--auto-plan gave mesh {rec['mesh']}, not {RING['mesh']}")
+        want_n = ring_launches(full, r, rec["coords"][1])
+        need(rec["launches"] == want_n,
+             f"rank {i}: launches {rec['launches']} != {want_n}")
+        for name, path in MAIN_PATH_KERNEL.items():
+            need(rec["launches_by_path"][name][path] == want_n[name],
+                 f"rank {i}: {name} by path {rec['launches_by_path'][name]}")
+        need(torch.equal(srv[i]["tokens"], srv[0]["tokens"]),
+             f"rank {i}'s tokens differ from rank 0's")
+        runs[f"deepseek-7b ring {tuple(RING['mesh'])} rank {i}"] = (
+            rec["launches"], rec["launches_by_path"])
+    need(err <= RING_BF16_TOL, f"bf16 ring prefill logits rel L2 {err:.3e} "
+         f"> {RING_BF16_TOL}")
+    for row in range(len(first)):
+        # a flip is possible only where the degree-1 margin is within
+        # twice the logits' largest difference
+        need(first[row] == first1[row] or margin[row] <= 2 * maxerr,
+             f"row {row}: first token {first[row]} != degree 1's "
+             f"{first1[row]} at margin {margin[row]:.3e}")
+    return rows, runs
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke: src/repro_torch not found beside chip_smoke.py; "
@@ -3545,7 +4031,10 @@ def main() -> int:
         phase_parity(torch, arch, n_layers, b, s)
     for arch, n_layers, b, s in TRAIN_PARITY:
         phase_train_parity(torch, arch, n_layers, b, s)
-    runs = {arch: phase_main_path(torch, arch) for arch in PATHS}
+    degree1 = {}  # deepseek-7b's degree-1 run, for the ring's check
+    runs = {arch: phase_main_path(
+        torch, arch, degree1 if arch == RING_SERVE["arch"] else None)
+        for arch in PATHS}
     trains = {f"{arch} train": phase_train_main(torch, arch, n_layers)[:3]
               for arch, n_layers in TRAIN_RUNS}
     phase_tatp_outputs(torch)
@@ -3554,6 +4043,8 @@ def main() -> int:
     runs.update(plan_serves)
     runs.update(phase_engine(torch))
     phase_cost_engine(torch)
+    (ring_gemms, ring_flashes), ring_runs = phase_ring(torch, randn, degree1)
+    runs.update(ring_runs)
     trains[f"{PLAN_TRAIN['arch']} --wafers {PLAN_TRAIN['wafers']} --stage "
            f"{PLAN_TRAIN['stage']} train"] = plan_trained
     # each record's launches: the counts of every main path's run (the
@@ -3578,6 +4069,10 @@ def main() -> int:
         k["launches_by_path"] = {a: n for a, (n, _) in of.items()}
         if counter in MAIN_PATH_KERNEL:
             k["launches_by_kernel_path"] = {a: p for a, (_, p) in of.items()}
+    for k in kernels:  # the ring's per-round shapes (phase 11)
+        if k["name"] in ("tatp_matmul", "flash_attention"):
+            k["ring_shapes"] = (ring_gemms if k["name"] == "tatp_matmul"
+                                else ring_flashes)
     log(json.dumps({"kernels": kernels}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(smi)
@@ -3589,6 +4084,8 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == ["--ring-rank"]:  # one rank of phase 11
+            sys.exit(ring_rank_main(sys.argv[2]))
         sys.exit(main())
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
