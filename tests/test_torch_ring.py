@@ -18,8 +18,10 @@ and write numpy outputs, which the tests compare:
   ``decode_attention`` and ``write_kv_cache`` (scalar and [B] ``pos``) at
   R = 4 (fp32, 1e-5);
 * the reduced deepseek-7b's prefill (logits and caches) and 4 decode
-  steps with per-row ``cache_len`` at mesh (1, 4) and (2, 2) against the
-  reference's ``make_serve_fns`` on the same weights (fp32, 2e-4 as
+  steps with per-row ``cache_len`` at mesh (1, 4) and (2, 2), and the
+  reduced internvl2-1b (vision prefix) and seamless-m4t-large-v2
+  (encoder-decoder, its cross caches) at (1, 4), against the reference's
+  ``make_serve_fns`` on the same weights (fp32, 2e-4 as
   ``tests/test_torch_serve.py``'s 5e-4 at half);
 * the shards from ``shard_params`` and ``init_sharded_params`` put back
   together equal the full tree bit for bit;
@@ -53,6 +55,10 @@ ATTN_CASES = {"causal": (True, None, 4), "unmasked": (False, None, 4),
 # the model runs: batch, prompt, decode steps, decode cache length
 B, P, GEN, MAX_SEQ = 4, 16, 4, 24
 MESHES = ((1, 4), (2, 2))
+# the serve runs: the dense model on both meshes, and the vision-prefixed
+# and encoder-decoder models (their stub inputs from _model_batch) on (1, 4)
+RUNS = ((ARCH, (1, 4)), (ARCH, (2, 2)), ("internvl2-1b", (1, 4)),
+        ("seamless-m4t-large-v2", (1, 4)))
 TOL = dict(rtol=1e-5, atol=1e-5)
 MODEL_TOL = dict(rtol=2e-4, atol=2e-4)
 TIMEOUT = 300
@@ -112,6 +118,23 @@ def _np_params(shapes, rng=None, prefix=""):
         else:
             scale = 1.0 / np.sqrt(v[-2])
         out[k] = (rng.randn(*v) * scale).astype(np.float32)
+    return out
+
+
+def _run_tag(arch, shape):
+    return f"{arch}_{shape[0]}x{shape[1]}"
+
+
+def _model_batch(cfg, x):
+    """The prefill batch: the prompts, and the stub frontend inputs the
+    config takes, [B, frontend_tokens, D] (seeded)."""
+    out = {"tokens": x["prompts"]}
+    rng = np.random.RandomState(2)
+    shape = (B, cfg.frontend_tokens, cfg.d_model)
+    if cfg.frontend and cfg.family != "encdec":
+        out["prefix_embeds"] = (rng.randn(*shape) * 0.1).astype(np.float32)
+    if cfg.n_enc_layers:
+        out["enc_embeds"] = (rng.randn(*shape) * 0.1).astype(np.float32)
     return out
 
 
@@ -199,27 +222,28 @@ def _reference(out_path):
     for key, y in zip(("wvec_k", "wvec_v", "wsc_k", "wsc_v"), outs):
         res[key] = np.asarray(y)
 
-    # the reduced model's serve on each mesh, from the same weights
-    cfg = get_reduced(ARCH)
-    shapes = jax.tree.map(lambda s: tuple(s.shape), param_shapes(cfg))
-    params = jax.tree.map(jnp.asarray, _np_params(shapes))
+    # the reduced models' serves on each mesh, from the same weights
     par = ParallelConfig(strategy="tatp", remat=False)
-    for shape in MESHES:
-        tag = "x".join(map(str, shape))
+    for arch, shape in RUNS:
+        tag = "m" + _run_tag(arch, shape)
+        cfg = get_reduced(arch)
+        shapes = jax.tree.map(lambda s: tuple(s.shape), param_shapes(cfg))
+        params = jax.tree.map(jnp.asarray, _np_params(shapes))
         dist = Dist(make_mesh(shape, ("data", "model"), devices=devs))
         sb = make_serve_fns(cfg, par, dist, ShapeConfig("s", "decode",
                                                         MAX_SEQ, B))
-        caches, logits = sb.prefill_fn(params,
-                                       {"tokens": jnp.asarray(x["prompts"])})
-        res[f"m{tag}_prefill_logits"] = np.asarray(logits)
-        for u, leaves in caches.items():
-            for n, t in leaves.items():
-                res[f"m{tag}_prefill_{u}_{n}"] = np.asarray(t)
+        caches, logits = sb.prefill_fn(params, {
+            k: jnp.asarray(v) for k, v in _model_batch(cfg, x).items()})
+        res[f"{tag}_prefill_logits"] = np.asarray(logits)
         big = {}
         for u, leaves in caches.items():
             big[u] = {}
             for n, t in leaves.items():
                 t = np.asarray(t)
+                res[f"{tag}_prefill_{u}.{n}"] = t
+                if u == "cross":  # the encoder's K/V, decode reads as is
+                    big[u][n] = jnp.asarray(t)
+                    continue
                 z = np.zeros(t.shape[:2] + (MAX_SEQ,) + t.shape[3:], t.dtype)
                 z[:, :, :P] = t
                 big[u][n] = jnp.asarray(z)
@@ -230,11 +254,11 @@ def _reference(out_path):
             toks, lg, big = sb.decode_fn(params, toks, big,
                                          jnp.asarray(_step_len(t)))
             steps.append(np.asarray(toks))
-        res[f"m{tag}_tokens"] = np.concatenate(steps, axis=1)
-        res[f"m{tag}_decode_logits"] = np.asarray(lg)
+        res[f"{tag}_tokens"] = np.concatenate(steps, axis=1)
+        res[f"{tag}_decode_logits"] = np.asarray(lg)
         for u, leaves in big.items():
             for n, t in leaves.items():
-                res[f"m{tag}_decode_{u}_{n}"] = np.asarray(t)
+                res[f"{tag}_decode_{u}.{n}"] = np.asarray(t)
     np.savez(out_path, **res)
 
 
@@ -274,25 +298,30 @@ def _collectives(dist, tag, res):
     res[f"{tag}_coords"] = np.array(dist.coords)
 
 
-def _port_serve(dist, x, cfg, params_np, tag, res):
+def _port_serve(dist, x, arch, shape, res):
+    from repro_torch.configs import get_reduced
     from repro_torch.configs.base import ParallelConfig
     from repro_torch.models import lm
+    from repro_torch.models.transformer import param_shapes
     from repro_torch.train.train_loop import batch_rows, make_serve_fns
     from repro_torch.weights import params_from_jax, shard_params
 
+    tag = "m" + _run_tag(arch, shape)
+    cfg = get_reduced(arch)
     par = ParallelConfig(strategy="tatp", remat=False)
-    params = shard_params(params_from_jax(params_np, cfg, "cpu"), cfg,
-                          "tatp", dist)
+    params = shard_params(params_from_jax(_np_params(param_shapes(cfg)),
+                                          cfg, "cpu"), cfg, "tatp", dist)
     sb = make_serve_fns(cfg, par, dist)
-    caches, logits = sb.prefill_fn(
-        params, {"tokens": torch.as_tensor(x["prompts"])})
-    res[f"m{tag}_prefill_logits"] = logits.numpy()
+    caches, logits = sb.prefill_fn(params, {
+        k: torch.as_tensor(v) for k, v in _model_batch(cfg, x).items()})
+    res[f"{tag}_prefill_logits"] = logits.numpy()
     for u, leaves in caches.items():
         for n, t in leaves.items():
-            res[f"m{tag}_prefill_{u}_{n}"] = t.numpy()
+            res[f"{tag}_prefill_{u}.{n}"] = t.numpy()
     rows = len(range(B)[batch_rows(dist, B)])
     big = lm.graft_cache_slots(
-        lm.init_cache(sb.ctx, rows, MAX_SEQ),
+        lm.init_cache(sb.ctx, rows, MAX_SEQ,
+                      enc_len=cfg.frontend_tokens or None),
         lm.shard_prompt_cache(sb.ctx, caches, MAX_SEQ), slots=range(rows))
     toks = logits[:, -1:, :].argmax(dim=-1) % cfg.vocab_size
     steps = [toks]
@@ -300,11 +329,11 @@ def _port_serve(dist, x, cfg, params_np, tag, res):
         toks, lg, big = sb.decode_fn(params, toks, big,
                                      torch.as_tensor(_step_len(t)))
         steps.append(toks)
-    res[f"m{tag}_tokens"] = torch.cat(steps, dim=1).numpy()
-    res[f"m{tag}_decode_logits"] = lg.numpy()
+    res[f"{tag}_tokens"] = torch.cat(steps, dim=1).numpy()
+    res[f"{tag}_decode_logits"] = lg.numpy()
     for u, leaves in big.items():
         for n, t in leaves.items():
-            res[f"m{tag}_decode_{u}_{n}"] = t.numpy()
+            res[f"{tag}_decode_{u}.{n}"] = t.numpy()
 
 
 def _port_rank(world, rank, store_path, out_dir):
@@ -379,11 +408,12 @@ def _port_rank(world, rank, store_path, out_dir):
                 kc.clone(), vc.clone(), t(x["knew"]), t(x["vnew"]), pos,
                 axis="model", axis_size=4, dist=dist)
             res[key + "_k"], res[key + "_v"] = k2.numpy(), v2.numpy()
+        meshes = dict(zip(MESHES, (rings[4], rings[2])))
+        for arch, shape in RUNS:
+            _port_serve(meshes[shape], x, arch, shape, res)
         cfg = get_reduced(ARCH)
-        params_np = _np_params(param_shapes(cfg))
-        for shape, d in zip(MESHES, (rings[4], rings[2])):
+        for shape, d in meshes.items():
             tag = "x".join(map(str, shape))
-            _port_serve(d, x, cfg, params_np, tag, res)
             gen = torch.Generator().manual_seed(3)
             sharded = init_sharded_params(cfg, gen, d)
             cut = shard_params(init_params(
@@ -646,34 +676,43 @@ def _block(a, coords, shape, seq_axis=None, vocab=False):
     return a
 
 
-@pytest.mark.parametrize("shape", MESHES)
-def test_prefill_matches_reference(ring, shape):
+def _cache_keys(res, tag, phase):
+    pre = f"{tag}_{phase}_"
+    keys = [k for k in res if k.startswith(pre) and k != pre + "logits"]
+    assert keys, f"no {phase} cache in {sorted(res)[:8]}"
+    return keys
+
+
+@pytest.mark.parametrize("arch,shape", RUNS)
+def test_prefill_matches_reference(ring, arch, shape):
+    """Logits gathered over both axes; each rank's cache block."""
     ref, port = ring
-    tag = "x".join(map(str, shape))
+    tag = "m" + _run_tag(arch, shape)
+    mesh = "x".join(map(str, shape))
     for p in _ranks(port):
-        c = tuple(p[f"{tag}_coords"])
-        _close(p[f"m{tag}_prefill_logits"], ref[f"m{tag}_prefill_logits"],
+        c = tuple(p[f"{mesh}_coords"])
+        _close(p[f"{tag}_prefill_logits"], ref[f"{tag}_prefill_logits"],
                MODEL_TOL, "prefill logits")
-        for u in ("u0",):
-            for n in ("k", "v"):
-                key = f"m{tag}_prefill_{u}_{n}"
-                _close(p[key], _block(ref[key], c, shape, seq_axis=2),
-                       MODEL_TOL, key)
+        for key in _cache_keys(p, tag, "prefill"):
+            _close(p[key], _block(ref[key], c, shape, seq_axis=2),
+                   MODEL_TOL, key)
 
 
-@pytest.mark.parametrize("shape", MESHES)
-def test_decode_steps_match_reference(ring, shape):
+@pytest.mark.parametrize("arch,shape", RUNS)
+def test_decode_steps_match_reference(ring, arch, shape):
+    """4 greedy steps at per-row positions: identical tokens, each rank's
+    logits block and cache block (the prompt moved to its owners)."""
     ref, port = ring
-    tag = "x".join(map(str, shape))
+    tag = "m" + _run_tag(arch, shape)
+    mesh = "x".join(map(str, shape))
     for p in _ranks(port):
-        c = tuple(p[f"{tag}_coords"])
-        np.testing.assert_array_equal(p[f"m{tag}_tokens"],
-                                      ref[f"m{tag}_tokens"])
-        _close(p[f"m{tag}_decode_logits"],
-               _block(ref[f"m{tag}_decode_logits"], c, shape, vocab=True),
+        c = tuple(p[f"{mesh}_coords"])
+        np.testing.assert_array_equal(p[f"{tag}_tokens"],
+                                      ref[f"{tag}_tokens"])
+        _close(p[f"{tag}_decode_logits"],
+               _block(ref[f"{tag}_decode_logits"], c, shape, vocab=True),
                MODEL_TOL, "decode logits")
-        for n in ("k", "v"):
-            key = f"m{tag}_decode_u0_{n}"
+        for key in _cache_keys(p, tag, "decode"):
             _close(p[key], _block(ref[key], c, shape, seq_axis=2),
                    MODEL_TOL, key)
 
