@@ -109,12 +109,11 @@ def prompt_batch(cfg, batch: int, prompt_len: int, seed: int = 0) -> dict:
     return out
 
 
-def serve_dist(args, plan=None) -> Dist:
-    """This rank's :class:`Dist`.  Outside ``torch.distributed.run`` one
-    device (``--mesh`` must be ``1 1``); under it the world from its
-    environment, initialised once with ``--dist-backend``, each rank on
-    ``cuda:(LOCAL_RANK mod the cards)`` (so gloo ranks may share one), on
-    ``plan``'s mesh or ``--mesh``."""
+def join_world(args) -> torch.device:
+    """This rank's device.  Under ``torch.distributed.run`` the world from
+    its environment is initialised once, with ``--dist-backend``, and
+    each rank takes ``cuda:(LOCAL_RANK mod the cards)`` (so gloo ranks
+    may share one)."""
     _, world, local = world_from_env()
     device = resolve_device(args.device)
     if world > 1 and device.type == "cuda" and device.index is None:
@@ -123,9 +122,26 @@ def serve_dist(args, plan=None) -> Dist:
         torch.cuda.set_device(device)
     if world > 1 and not tdist.is_initialized():
         init_world(getattr(args, "dist_backend", "gloo"))
-    if plan is not None:
-        return make_plan_dist(plan, device)
-    return make_mesh_dist(getattr(args, "mesh", None) or (1, 1), device)
+    return device
+
+
+def resolve_rank_plan(cfg, args, max_seq):
+    """The plan for ``args`` (``--plan`` or ``--auto-plan``), resolved by
+    rank 0 first, so the other ranks of a world read its cache entry
+    instead of writing the same file at once."""
+    from repro_torch.launch.planning import resolve_plan
+
+    first = world_from_env()[0] == 0
+    joined = tdist.is_initialized()
+    if joined and not first:
+        tdist.barrier()
+    plan = resolve_plan(cfg, args.batch, max_seq,
+                        plan_path=getattr(args, "plan", None),
+                        cache_dir=getattr(args, "plan_cache", None),
+                        remat=False)
+    if joined and first:
+        tdist.barrier()
+    return plan
 
 
 def serve(args, params=None, keep_tokens: bool = False,
@@ -140,21 +156,17 @@ def serve(args, params=None, keep_tokens: bool = False,
     transport's seconds up to then (``prefill_transport_s``)."""
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     max_seq = args.prompt_len + args.gen
-    plan = None
+    device = join_world(args)
     if getattr(args, "plan", None) or getattr(args, "auto_plan", False):
-        from repro_torch.launch.planning import resolve_plan
-        plan = resolve_plan(cfg, args.batch, max_seq,
-                            plan_path=getattr(args, "plan", None),
-                            cache_dir=getattr(args, "plan_cache", None),
-                            remat=False)
+        plan = resolve_rank_plan(cfg, args, max_seq)
         if world_from_env()[0] == 0:
             print(plan.summary())
         par = replace(plan.parallel_config(), remat=False)
+        dist = make_plan_dist(plan, device)
     else:
         par = ParallelConfig(strategy="tatp", remat=False)
-    dist = serve_dist(args, plan)
+        dist = make_mesh_dist(getattr(args, "mesh", None) or (1, 1), device)
     check_prompt_len(dist, args.prompt_len)
-    device = dist.device
     if getattr(args, "layers", None):  # a cut in depth only
         cfg = replace(cfg, n_layers=args.layers)
     sb = make_serve_fns(cfg, par, dist)

@@ -741,20 +741,29 @@ def test_shards_reassemble_the_full_tree(ring, shape):
             np.testing.assert_array_equal(got, leaf.numpy(), err_msg=path)
 
 
-def test_serve_cli_under_torchrun_prints_reference_keys(tmp_path):
+@pytest.mark.parametrize("layout", ["mesh", "auto-plan"])
+def test_serve_cli_under_torchrun_prints_reference_keys(tmp_path, layout):
+    """Rank 0 alone prints the reference's keys.  Under ``--auto-plan``
+    rank 0 solves the plan and the other ranks read its cache entry (the
+    reduced plan's mesh is (4, 1): the batch over data)."""
+    flags = (["--mesh", "1", "4"] if layout == "mesh" else
+             ["--auto-plan", "--plan-cache", str(tmp_path / "plans")])
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc-per-node", "4", "-m", "repro_torch.launch.serve",
-           "--arch", ARCH, "--reduced", "--device", "cpu", "--mesh", "1",
-           "4", "--batch", "2", "--prompt-len", "8", "--gen", "3"]
+           "--arch", ARCH, "--reduced", "--device", "cpu", *flags,
+           "--batch", "4", "--prompt-len", "8", "--gen", "3"]
     res = subprocess.run(cmd, env=_env(OMP_NUM_THREADS="1"), cwd=tmp_path,
                          capture_output=True, text=True, timeout=TIMEOUT)
     assert res.returncode == 0, res.stderr[-4000:]
     lines = [ln for ln in res.stdout.splitlines() if ln.startswith("{")]
-    assert len(lines) == 1, res.stdout  # rank 0 alone prints
+    assert len(lines) == 1, res.stdout
     out = json.loads(lines[0])
     assert set(out) == {"generated_shape", "tokens_per_s", "ms_per_token",
                         "sample"}
-    assert out["generated_shape"] == [2, 4]
+    assert out["generated_shape"] == [4, 4]
+    if layout == "auto-plan":
+        assert res.stdout.count("[plan] solved fresh") == 1, res.stdout
+        assert res.stdout.count("[plan] cache hit") == 3, res.stdout
 
 
 # ---------------------------------------------------------------------------
