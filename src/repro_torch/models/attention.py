@@ -280,9 +280,3 @@ def write_kv_cache(k_cache, v_cache, k_new, v_new, pos, *, axis: str,
                                                               device=dev)
             cache.index_copy_(1, idx, torch.where(keep, new, cache[:, idx]))
     return k_cache, v_cache
-    s_new = k_new.shape[1]
-    idx = local.clamp(0, sloc - s_new) + torch.arange(s_new, device=dev)
-    for cache, new in ((k_cache, k_new), (v_cache, v_new)):
-        cache.index_copy_(1, idx, torch.where(keep, new.to(cache.dtype),
-                                              cache[:, idx]))
-    return k_cache, v_cache

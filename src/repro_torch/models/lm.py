@@ -1,5 +1,5 @@
-"""Top-level language-model assembly (counterpart of ``repro.models.lm``)
-at ring degree 1: the training loss :func:`loss_fn` with
+"""Top-level language-model assembly (counterpart of ``repro.models.lm``):
+the training loss :func:`loss_fn` with
 :func:`vocab_parallel_xent`, the serving entry points :func:`prefill` and
 :func:`decode_step`, the decode cache, and the slot graft.
 

@@ -38,7 +38,11 @@ from repro_torch.train.optimizer import (AdamW, AdamWConfig, OptState,
 
 def token_axes(par: ParallelConfig, dist: Dist) -> tuple[str, ...]:
     """Mesh axes over which training tokens are partitioned: none on one
-    device."""
+    device.  The batch over ``data`` and the sequence over the ring are
+    the train ring's (ROADMAP.md A3a): above degree 1 on either axis this
+    raises, so no rank trains the whole global batch as if alone."""
+    if dist.batch_degree > 1:
+        raise not_ported("data-parallel training", "A3a")
     if dist.model_degree > 1:
         raise not_ported("sequence-sharded training tokens", "A3a")
     return ()

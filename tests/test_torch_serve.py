@@ -187,6 +187,12 @@ def test_unported_paths_name_their_roadmap_item(model):
         tlm.vocab_parallel_xent(ring, torch.zeros(1, 4, 8),
                                 torch.zeros(1, 4, dtype=torch.long),
                                 torch.ones(1, 4))
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.train.train_loop import make_train_step
+    with pytest.raises(NotImplementedError, match="A3a"):  # data parallel
+        make_train_step(cfg, ParallelConfig(),
+                        Dist(torch.device("cpu"), mesh_shape=(2, 1)),
+                        ShapeConfig("t", "train", 16, 4))
     for strategy in ("megatron", "fsdp"):  # run at degree 1, not above
         with pytest.raises(NotImplementedError, match="A3"):
             ttf._linear(replace(ring, par=ParallelConfig(strategy=strategy)),
