@@ -28,6 +28,15 @@ picked by probing the machine.
 
 Every group has a timeout (:data:`GROUP_TIMEOUT_S`), so a lost rank fails
 the run instead of hanging it.
+
+Gradients: under autograd :meth:`Dist.ppermute` (and
+:meth:`Dist.ppermute_many`) and :meth:`Dist.psum` are differentiable, with
+the transposes jax 0.9 gives them under ``shard_map(check_vma=False)``
+(checked on fake devices): a ``ppermute``'s cotangent travels the inverse
+permutation, and a ``psum``'s cotangent is psummed.  Every rank runs the
+same graph, so the backward's collectives meet in the same order on all
+of them.  The other collectives are not differentiated (the optimizer's
+run under ``no_grad``).
 """
 
 from __future__ import annotations
@@ -98,6 +107,60 @@ def _identity_permute(x, perm):
     outs = tuple(t.clone() if (0, 0) in perm else torch.zeros_like(t)
                  for t in xs)
     return outs if isinstance(x, tuple) else outs[0]
+
+
+def _inverse(perm):
+    return [(d, s) for s, d in perm]
+
+
+def _float(t: torch.Tensor) -> bool:
+    return t.is_floating_point() or t.is_complex()
+
+
+class _PPermute(torch.autograd.Function):
+    """:meth:`Dist.ppermute_many` under autograd: ``items`` as ``(x,
+    perm)`` with ``x`` flattened into the tensor inputs; the backward moves
+    each floating output's cotangent along the inverse permutation (zeros
+    where none arrives), in one batch."""
+
+    @staticmethod
+    def forward(ctx, dist, axis, spec, *flat):
+        ctx.dist, ctx.axis, ctx.spec = dist, axis, spec
+        items, k = [], 0
+        for n, perm in spec:
+            items.append((tuple(flat[k:k + n]), perm))
+            k += n
+        outs = [t for res in dist._ppermute_raw(items, axis) for t in res]
+        ctx.mark_non_differentiable(*[o for o in outs if not _float(o)])
+        ctx.floats = [_float(t) for t in flat]
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        items, k = [], 0
+        for n, perm in ctx.spec:
+            gs = tuple(g for g, f in zip(grads[k:k + n], ctx.floats[k:k + n])
+                       if f)
+            if gs:
+                items.append((gs, _inverse(perm)))
+            k += n
+        back = iter(t for res in ctx.dist._ppermute_raw(items, ctx.axis)
+                    for t in res)
+        return (None, None, None,
+                *[next(back) if f else None for f in ctx.floats])
+
+
+class _PSum(torch.autograd.Function):
+    """:meth:`Dist.psum` under autograd: the cotangent is psummed too."""
+
+    @staticmethod
+    def forward(ctx, dist, axis, x):
+        ctx.dist, ctx.axis = dist, axis
+        return dist._all_reduce(x, axis, "SUM")
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None, ctx.dist._all_reduce(g, ctx.axis, "SUM")
 
 
 def _bytes(t: torch.Tensor) -> torch.Tensor:
@@ -180,7 +243,25 @@ class Dist:
         """Several :meth:`ppermute` calls ``[(x, perm), ...]`` in one batch
         of point-to-point operations (``batch_isend_irecv``), e.g. the two
         directions of a bidirectional ring round.  Between two ranks the
-        messages pair up in item order on both sides."""
+        messages pair up in item order on both sides.  Differentiable
+        (:class:`_PPermute`) when a floating input requires grad."""
+        flat = [t for x, _ in items
+                for t in (x if isinstance(x, tuple) else (x,))]
+        if (self.axis_size(axis) > 1 and torch.is_grad_enabled()
+                and any(t.requires_grad for t in flat)):
+            spec = tuple((len(x) if isinstance(x, tuple) else 1,
+                          tuple(perm)) for x, perm in items)
+            outs = _PPermute.apply(self, axis, spec, *flat)
+            res, k = [], 0
+            for (x, _), (n, _) in zip(items, spec):
+                part = tuple(outs[k:k + n])
+                res.append(part if isinstance(x, tuple) else part[0])
+                k += n
+            return res
+        return self._ppermute_raw(items, axis)
+
+    def _ppermute_raw(self, items, axis: str) -> list:
+        """:meth:`ppermute_many` outside autograd."""
         if self.axis_size(axis) == 1:
             return [_identity_permute(x, perm) for x, perm in items]
         ag = self.groups[axis]
@@ -237,8 +318,23 @@ class Dist:
         return out
 
     def psum(self, x, axis: str):
-        """``lax.psum`` over ``axis``, in ``x``'s dtype."""
+        """``lax.psum`` over ``axis``, in ``x``'s dtype (differentiable:
+        :class:`_PSum`)."""
+        if (self.axis_size(axis) > 1 and torch.is_grad_enabled()
+                and x.requires_grad):
+            return _PSum.apply(self, axis, x)
         return self._all_reduce(x, axis, "SUM")
+
+    def psum_scatter(self, x, axis: str):
+        """``lax.psum_scatter(x, axis, scatter_dimension=0, tiled=False)``:
+        ``x`` is ``[axis size, ...]``; this rank gets row ``axis_index``
+        of the sum over the axis.  Built from an all-reduce and a slice
+        (gloo has no reduce-scatter), staged as the other collectives."""
+        r = self.axis_size(axis)
+        if x.shape[0] != r:
+            raise ValueError(f"psum_scatter needs dim 0 of size {r}, got "
+                             f"{tuple(x.shape)}")
+        return self._all_reduce(x, axis, "SUM")[self.axis_index(axis)].clone()
 
     def pmax(self, x, axis: str):
         return self._all_reduce(x, axis, "MAX")

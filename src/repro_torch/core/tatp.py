@@ -20,11 +20,16 @@ in fp32 and casts to its first operand's dtype as the reference's
 
 :func:`tatp_matmul` ties them together as the reference's ``custom_vjp``
 does, as a ``torch.autograd.Function``; the transposed operands are views,
-which the GEMM reads through their strides.  Under the ``tatp_outputs``
-remat policy its output is saved (:mod:`repro_torch.core.remat`), so the
-recompute runs no forward product.  The backward rings (dgrad, wgrad,
-``wire_relay``'s straight-through gradient) are ROADMAP.md item A3a: above
-R = 1 they raise, and so does :func:`tatp_matmul` under autograd.
+which the GEMM reads through their strides.  Above R = 1 the backward rings
+are the reference's: the dgrad streams the weight blocks again (on the
+forward's wire) and sums its tiles locally, each tile ``dot(dy[..., j
+block], w_j.T)``; the wgrad is a reduce-scatter ring whose partial ``[N,
+kb]`` accumulators travel (natively) and collect each rank's tile
+``dot(x.T, dy[..., j block])``, two half-ring accumulators a block when
+bidirectional.  :func:`wire_relay`'s straight-through backward sends the
+cotangent along the inverse hop at native precision.  Under the
+``tatp_outputs`` remat policy its output is saved
+(:mod:`repro_torch.core.remat`), so the recompute runs no forward product.
 """
 
 from __future__ import annotations
@@ -33,7 +38,6 @@ from typing import Callable
 
 import torch
 
-from repro_torch import not_ported
 from repro_torch.core import remat
 from repro_torch.kernels.tatp_matmul.ops import tatp_dot
 
@@ -59,12 +63,6 @@ def _shift_perm(r: int, shift: int):
 
 def _n_rounds(r: int) -> int:
     return r // 2 + 1 if r % 2 == 0 else (r + 1) // 2
-
-
-def _train_ring(what: str, axis_size: int):
-    if axis_size != 1:
-        raise not_ported(f"{what} over the ring (axis_size={axis_size})",
-                         "A3a")
 
 
 # ---------------------------------------------------------------------------
@@ -101,16 +99,35 @@ def wire_decode(blk, wire: str, dtype):
     return blk[0]
 
 
-def wire_relay(x, axis: str, axis_size: int, shift: int,
-               wire: str = "native", *, dist):
-    """One ring hop of ``x`` by ``shift`` on the ``wire`` format (no
-    gradient: its straight-through backward is the train ring's,
-    A3a)."""
-    if torch.is_grad_enabled() and x.requires_grad:
-        _train_ring("wire_relay's backward", axis_size)
+def _relay(x, axis, axis_size, shift, wire, dist):
     enc = dist.ppermute(wire_encode(x, wire), axis,
                         _shift_perm(axis_size, shift))
     return wire_decode(enc, wire, x.dtype)
+
+
+class _WireRelay(torch.autograd.Function):
+    """:func:`wire_relay` under autograd (the reference's custom_vjp): the
+    cotangent rides the inverse hop at native precision."""
+
+    @staticmethod
+    def forward(ctx, x, axis, axis_size, shift, wire, dist):
+        ctx.cfg = (axis, axis_size, shift, dist)
+        return _relay(x, axis, axis_size, shift, wire, dist)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis, axis_size, shift, dist = ctx.cfg
+        return (dist.ppermute(g, axis, _shift_perm(axis_size, -shift)),
+                None, None, None, None, None)
+
+
+def wire_relay(x, axis: str, axis_size: int, shift: int,
+               wire: str = "native", *, dist):
+    """One ring hop of ``x`` by ``shift`` on the ``wire`` format, with the
+    straight-through backward of :class:`_WireRelay`."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _WireRelay.apply(x, axis, axis_size, shift, wire, dist)
+    return _relay(x, axis, axis_size, shift, wire, dist)
 
 
 # ---------------------------------------------------------------------------
@@ -162,58 +179,126 @@ def ag_matmul_stream_w(x, w, axis: str, axis_size: int, *,
 
 
 # ---------------------------------------------------------------------------
-# backward schedules (the rings above R = 1 are the train slice, A3a)
+# backward schedules
 # ---------------------------------------------------------------------------
 
 
 def dgrad_stream_w(dy, w, axis: str, axis_size: int, *,
                    bidirectional: bool = True, dot: Dot = tatp_dot,
                    wire: str = "native", dist=None):
-    """``dx[..., m, N] = dy[..., m, R*kb] @ W_full.T``; at R = 1,
-    ``dot(dy, w.T)``."""
-    _train_ring("dgrad_stream_w", axis_size)
-    return dot(dy, w.t())
+    """``dx[..., m, N] = dy[..., m, R*kb] @ W_full.T``: the weight blocks
+    stream as in the forward and each tile ``dot(dy[..., j block],
+    w_j.T)`` adds into ``dx`` (in dy's dtype, the reference's order)."""
+    r = axis_size
+    kb = w.shape[-1]
+
+    def contrib(blk, j):
+        return dot(dy[..., j * kb:(j + 1) * kb], blk.t())
+
+    if r == 1:
+        return contrib(w, 0)
+
+    def use(blk):
+        return wire_decode(blk, wire, w.dtype)
+
+    i = dist.axis_index(axis)
+    w_enc = wire_encode(w, wire)
+    acc = contrib(w, i)
+    if not bidirectional:
+        blk = w_enc
+        for t in range(1, r):
+            blk = dist.ppermute(blk, axis, _perm_from_right(r))
+            acc = acc + contrib(use(blk), (i + t) % r)
+        return acc
+    up, dn = w_enc, w_enc
+    for t in range(1, _n_rounds(r)):
+        if r % 2 == 0 and t == r // 2:  # antipodal: one block
+            up = dist.ppermute(up, axis, _perm_from_right(r))
+            acc = acc + contrib(use(up), (i + t) % r)
+            continue
+        up, dn = dist.ppermute_many(
+            [(up, _perm_from_right(r)), (dn, _perm_from_left(r))], axis)
+        acc = acc + contrib(use(up), (i + t) % r)
+        acc = acc + contrib(use(dn), (i - t) % r)
+    return acc
 
 
 def wgrad_rs(x, dy, axis: str, axis_size: int, *, bidirectional: bool = True,
              dot: Dot = tatp_dot, dist=None):
-    """This rank's ``dW`` block ``[N, kb]``; at R = 1, ``x.T @ dy`` over
-    the flattened leading dims, in x's dtype."""
-    _train_ring("wgrad_rs", axis_size)
-    xm = x.reshape(-1, x.shape[-1])
+    """This rank's ``dW`` block ``[N, kb]``, summed over the ring: ``x``
+    ``[..., m, N]`` and ``dy`` ``[..., m, R*kb]`` are both M-sharded, and
+    each rank's tile for block j is ``dot(x.T, dy[..., j block])`` (in x's
+    dtype).  Naive: block b's accumulator starts on rank b + 1 and moves
+    +1 a hop, collecting every rank's tile, to land on b.  Bidirectional:
+    two accumulators a block, one collecting ranks b + 1 .. b + h while
+    moving -1, the other b - h' .. b - 1 while moving +1 (h = R // 2, h' =
+    R - h - 1), moved in one batch a hop; the owner adds its own tile
+    last, as the reference does."""
+    r = axis_size
+    kb = dy.shape[-1] // r
+    xt = x.reshape(-1, x.shape[-1]).t()
     dym = dy.reshape(-1, dy.shape[-1])
-    return dot(xm.t(), dym)
+
+    def contrib(j):
+        return dot(xt, dym[:, j * kb:(j + 1) * kb])
+
+    if r == 1:
+        return contrib(0)
+    i = dist.axis_index(axis)
+    if not bidirectional:
+        acc = contrib((i - 1) % r)
+        for s in range(1, r):
+            acc = dist.ppermute(acc, axis, _perm_from_left(r))
+            acc = acc + contrib((i - 1 - s) % r)
+        return acc
+    h, hp = r // 2, r - r // 2 - 1
+    accl = contrib((i - h) % r)
+    accr = contrib((i + hp) % r) if hp else None
+    for s in range(1, h + 1):
+        if accr is not None and s <= hp:
+            accl, accr = dist.ppermute_many(
+                [(accl, _perm_from_right(r)), (accr, _perm_from_left(r))],
+                axis)
+        else:
+            accl = dist.ppermute(accl, axis, _perm_from_right(r))
+        if s < h:  # at s == h the accumulator has reached its owner
+            accl = accl + contrib((i - h + s) % r)
+        if accr is not None and s < hp:
+            accr = accr + contrib((i + hp - s) % r)
+    acc = accl if accr is None else accl + accr
+    return acc + contrib(i)
 
 
 class _TatpMatmul(torch.autograd.Function):
     """The reference's ``tatp_matmul`` custom_vjp (``_tatp_fwd`` /
     ``_tatp_bwd``): the forward saves (x, w); the backward runs the dgrad
-    and wgrad schedules, ``dx`` in x's dtype and ``dw`` cast to w's."""
+    ring (on the wire) and the wgrad ring (native), ``dx`` in x's dtype
+    and ``dw`` cast to w's."""
 
     @staticmethod
     def forward(ctx, x, w, axis, axis_size, bidirectional, wire, dot, dist):
-        _train_ring("tatp_matmul under autograd", axis_size)
         ctx.save_for_backward(x, w)
-        ctx.cfg = (axis, axis_size, bidirectional, wire, dot)
+        ctx.cfg = (axis, axis_size, bidirectional, wire, dot, dist)
         # tatp_outputs saves y: the reference's "tatp_y"
         return remat.saved_or_run("linear", lambda: ag_matmul_stream_w(
             x, w, axis, axis_size, bidirectional=bidirectional, dot=dot,
-            wire=wire))
+            wire=wire, dist=dist))
 
     @staticmethod
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
-        axis, axis_size, bidirectional, wire, dot = ctx.cfg
+        axis, axis_size, bidirectional, wire, dot, dist = ctx.cfg
         if dy.stride(-1) != 1:  # e.g. the expanded cotangent of a sum
             dy = dy.contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
             dx = dgrad_stream_w(dy, w, axis, axis_size,
                                 bidirectional=bidirectional, dot=dot,
-                                wire=wire)
+                                wire=wire, dist=dist)
         if ctx.needs_input_grad[1]:
             dw = wgrad_rs(x, dy, axis, axis_size,
-                          bidirectional=bidirectional, dot=dot).to(w.dtype)
+                          bidirectional=bidirectional, dot=dot,
+                          dist=dist).to(w.dtype)
         return dx, dw, None, None, None, None, None, None
 
 
@@ -221,8 +306,7 @@ def tatp_matmul(x, w, axis: str, axis_size: int, bidirectional: bool = True,
                 wire: str = "native", dot: Dot = tatp_dot, dist=None):
     """TATP streamed linear ``y = x @ W_full`` with the explicit dgrad and
     wgrad schedules as its backward.  Without autograd (no grad mode, or
-    no input that requires grad) it is the forward schedule alone; under
-    autograd above R = 1 it raises (A3a)."""
+    no input that requires grad) it is the forward schedule alone."""
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return _TatpMatmul.apply(x, w, axis, axis_size, bidirectional, wire,
                                  dot, dist)

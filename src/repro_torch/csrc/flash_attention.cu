@@ -894,7 +894,7 @@ int launch_bwd_simt(const void* q, const void* k, const void* v,
                     float* delta, void* dq, void* dk, void* dv, int B,
                     int Hq, int Hkv, int Sq, int Skv, int D,
                     const int64_t* st, float scale, int causal, int window,
-                    float cap, cudaStream_t s) {
+                    float cap, int delta_in, cudaStream_t s) {
   const float* Q = static_cast<const float*>(q);
   const float* K = static_cast<const float*>(k);
   const float* V = static_cast<const float*>(v);
@@ -903,11 +903,14 @@ int launch_bwd_simt(const void* q, const void* k, const void* v,
   const int64_t rows = static_cast<int64_t>(B) * Hq * Sq;
   const unsigned rblocks =
       static_cast<unsigned>((rows + THREADS / 32 - 1) / (THREADS / 32));
-  flash_bwd_delta<<<rblocks, THREADS, 0, s>>>(
-      O, DO, delta, Hq, Sq, D, rows, st[9], st[10], st[11], st[12], st[13],
-      st[14]);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaError_t err = cudaSuccess;
+  if (!delta_in) {
+    flash_bwd_delta<<<rblocks, THREADS, 0, s>>>(
+        O, DO, delta, Hq, Sq, D, rows, st[9], st[10], st[11], st[12],
+        st[13], st[14]);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
 
   const size_t smem = bwd_smem_bytes(D);
   auto kv_kern = flash_bwd_dkdv<DMAX>;
@@ -948,18 +951,18 @@ int launch_bwd_simt_d(const void* q, const void* k, const void* v,
                       float* delta, void* dq, void* dk, void* dv, int B,
                       int Hq, int Hkv, int Sq, int Skv, int D,
                       const int64_t* st, float scale, int causal, int window,
-                      float cap, cudaStream_t s) {
+                      float cap, int delta_in, cudaStream_t s) {
   if (D <= 64)
     return launch_bwd_simt<64>(q, k, v, o, dout, lse, delta, dq, dk, dv,
                                   B, Hq, Hkv, Sq, Skv, D, st, scale, causal,
-                                  window, cap, s);
+                                  window, cap, delta_in, s);
   if (D <= 128)
     return launch_bwd_simt<128>(q, k, v, o, dout, lse, delta, dq, dk, dv,
                                    B, Hq, Hkv, Sq, Skv, D, st, scale, causal,
-                                   window, cap, s);
+                                   window, cap, delta_in, s);
   return launch_bwd_simt<256>(q, k, v, o, dout, lse, delta, dq, dk, dv,
                                  B, Hq, Hkv, Sq, Skv, D, st, scale, causal,
-                                 window, cap, s);
+                                 window, cap, delta_in, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -1069,7 +1072,7 @@ __global__ void __launch_bounds__(MMA_THREADS, 3)
                      int64_t kss, int64_t vsb, int64_t vsh, int64_t vss,
                      int64_t dsb, int64_t dsh, int64_t dss, int64_t dqsb,
                      int64_t dqsh, int64_t dqss, float scale, int causal,
-                     int window, float cap) {
+                     int window, float cap, int delta_in) {
   constexpr int LD = pitch<DP>();
   constexpr int NT = BK / 8;  // key n8 tiles of S
   constexpr int DT = DP / 8;    // d n8 tiles of dQ
@@ -1120,9 +1123,15 @@ __global__ void __launch_bounds__(MMA_THREADS, 3)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
 
-  // sweep 0 forms delta, sweep 1 dQ; each recomputes S, dP and P per tile
-  for (int sweep = 0; sweep < 2; ++sweep) {
-    if (sweep == 1) {
+  // sweep 0 forms delta, sweep 1 dQ; each recomputes S, dP and P per tile.
+  // With delta_in the caller's delta is read and sweep 0 does not run: the
+  // first tile's load is already in flight, as at sweep 0's start
+  if (delta_in) {
+    if (row_lo < Sq) dl[0] = delta[bhq * Sq + row_lo];
+    if (row_hi < Sq) dl[1] = delta[bhq * Sq + row_hi];
+  }
+  for (int sweep = delta_in ? 1 : 0; sweep < 2; ++sweep) {
+    if (sweep == 1 && !delta_in) {
       dl[0] = quad_sum(dl[0]);
       dl[1] = quad_sum(dl[1]);
       if (lane % 4 == 0) {  // for the dK/dV kernel
@@ -1914,7 +1923,7 @@ __global__ void __launch_bounds__(MMA_THREADS, DP > 128 ? 1 : 2)
                        int64_t kss, int64_t vsb, int64_t vsh, int64_t vss,
                        int64_t dsb, int64_t dsh, int64_t dss, int64_t dqsb,
                        int64_t dqsh, int64_t dqss, float scale, int causal,
-                       int window, float cap) {
+                       int window, float cap, int delta_in) {
   constexpr int TILE = sw_tile<DP>(), NCH = TILE / 8192;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* const base = reinterpret_cast<uint8_t*>(
@@ -1960,9 +1969,15 @@ __global__ void __launch_bounds__(MMA_THREADS, DP > 128 ? 1 : 2)
 #pragma unroll
   for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
 
-  // sweep 0 forms delta, sweep 1 dQ; each recomputes S, dP and P per tile
-  for (int sweep = 0; sweep < 2; ++sweep) {
-    if (sweep == 1) {
+  // sweep 0 forms delta, sweep 1 dQ; each recomputes S, dP and P per tile.
+  // With delta_in the caller's delta is read and sweep 0 does not run: the
+  // first tile's load is already in flight, as at sweep 0's start
+  if (delta_in) {
+    if (row_lo < Sq) dl[0] = delta[bhq * Sq + row_lo];
+    if (row_hi < Sq) dl[1] = delta[bhq * Sq + row_hi];
+  }
+  for (int sweep = delta_in ? 1 : 0; sweep < 2; ++sweep) {
+    if (sweep == 1 && !delta_in) {
       dl[0] = quad_sum(dl[0]);
       dl[1] = quad_sum(dl[1]);
       if (lane % 4 == 0) {  // for the dK/dV kernel
@@ -2081,8 +2096,8 @@ __global__ void __launch_bounds__(MMA_THREADS, DP > 128 ? 1 : 2)
   }
 }
 
-// dQ (which writes delta) and then dK/dV, each on its kernel, the dK/dV
-// kernel with kv_threads threads a block
+// dQ (which writes delta, or reads it with delta_in) and then dK/dV, each
+// on its kernel, the dK/dV kernel with kv_threads threads a block
 template <typename QKern, typename KVKern>
 int launch_bwd_pair(QKern q_kern, KVKern kv_kern, size_t smem_q,
                     size_t smem_kv, int kv_threads, const bf16* Q,
@@ -2091,7 +2106,7 @@ int launch_bwd_pair(QKern q_kern, KVKern kv_kern, size_t smem_q,
                     const float* lse, float* delta, void* dq, void* dk,
                     void* dv, int B, int Hq, int Hkv, int Sq, int Skv, int D,
                     const int64_t* st, float scale, int causal, int window,
-                    float cap, cudaStream_t s) {
+                    float cap, int delta_in, cudaStream_t s) {
   cudaError_t err = cudaFuncSetAttribute(
       kv_kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem_kv));
@@ -2105,7 +2120,8 @@ int launch_bwd_pair(QKern q_kern, KVKern kv_kern, size_t smem_q,
   q_kern<<<grid, MMA_THREADS, smem_q, s>>>(
       Q, K, V, DO, lse, delta, static_cast<bf16*>(dq), Hq, Hkv, Sq, Skv, D,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[12],
-      st[13], st[14], st[15], st[16], st[17], scale, causal, window, cap);
+      st[13], st[14], st[15], st[16], st[17], scale, causal, window, cap,
+      delta_in);
   err = cudaGetLastError();
   if (err != cudaSuccess || Skv == 0) return static_cast<int>(err);
   dim3 kv_grid(static_cast<unsigned>(B) * Hkv,
@@ -2126,7 +2142,8 @@ int launch_bwd_mma_c(const bf16* Q, const bf16* K, const bf16* V,
                      const bf16* DO, const float* lse, float* delta,
                      void* dq, void* dk, void* dv, int B, int Hq, int Hkv,
                      int Sq, int Skv, int D, const int64_t* st, float scale,
-                     int causal, int window, float cap, cudaStream_t s) {
+                     int causal, int window, float cap, int delta_in,
+                     cudaStream_t s) {
   constexpr size_t lse_bytes = 4 * 64 * sizeof(float);
   if constexpr (DP == 256) {
     constexpr int tiles = 6 * sw_tile<256>();
@@ -2135,20 +2152,21 @@ int launch_bwd_mma_c(const bf16* Q, const bf16* K, const bf16* V,
         tiles + 1024,
         tiles + 32 * MMA_THREADS * sizeof(float) + lse_bytes + 1024,
         KV2_THREADS, Q, K, V, DO, lse, delta, dq, dk, dv, B, Hq, Hkv, Sq,
-        Skv, D, st, scale, causal, window, cap, s);
+        Skv, D, st, scale, causal, window, cap, delta_in, s);
   } else if constexpr ((DP == 80 || DP == 128) && VEC) {
     return launch_bwd_pair(
         flash_bwd_dq_wgmma<DP, true, CAP>, flash_bwd_dkdv_wgmma<DP, CAP>,
         6 * SW_TILE + 1024, 6 * SW_TILE + lse_bytes + 1024, MMA_THREADS, Q,
         K, V, DO, lse, delta, dq, dk, dv, B, Hq, Hkv, Sq, Skv, D, st, scale,
-        causal, window, cap, s);
+        causal, window, cap, delta_in, s);
   } else {
     constexpr int QT = kv_rows<DP>();
     return launch_bwd_pair(
         flash_bwd_dq_mma<DP, VEC, BK_Q, CAP>,
         flash_bwd_dkdv_mma<DP, VEC, QT, CAP>, dq_smem<DP, BK_Q>(),
         dkdv_smem<DP, QT>(), MMA_THREADS, Q, K, V, DO, lse, delta, dq, dk,
-        dv, B, Hq, Hkv, Sq, Skv, D, st, scale, causal, window, cap, s);
+        dv, B, Hq, Hkv, Sq, Skv, D, st, scale, causal, window, cap, delta_in,
+        s);
   }
 }
 
@@ -2162,10 +2180,12 @@ int launch_bwd_mma(const bf16* Q, const bf16* K, const bf16* V,
   if (cap > 0.f)
     return launch_bwd_mma_c<DP, VEC, true>(Q, K, V, DO, lse, delta, dq,
                                            dk, dv, B, Hq, Hkv, Sq, Skv, D,
-                                           st, scale, causal, window, cap, s);
+                                           st, scale, causal, window, cap,
+                                           delta_in, s);
   return launch_bwd_mma_c<DP, VEC, false>(Q, K, V, DO, lse, delta, dq, dk,
                                           dv, B, Hq, Hkv, Sq, Skv, D, st,
-                                          scale, causal, window, cap, s);
+                                          scale, causal, window, cap, delta_in,
+                                          s);
 }
 
 template <int DP>
@@ -2174,14 +2194,14 @@ int launch_bwd_mma_v(const bf16* Q, const bf16* K, const bf16* V,
                      float* delta, void* dq, void* dk, void* dv, int B,
                      int Hq, int Hkv, int Sq, int Skv, int D,
                      const int64_t* st, float scale, int causal, int window,
-                     float cap, bool vec, cudaStream_t s) {
+                     float cap, int delta_in, bool vec, cudaStream_t s) {
   if (vec)
     return launch_bwd_mma<DP, true>(Q, K, V, DO, lse, delta, dq, dk, dv,
                                     B, Hq, Hkv, Sq, Skv, D, st, scale,
-                                    causal, window, cap, s);
+                                    causal, window, cap, delta_in, s);
   return launch_bwd_mma<DP, false>(Q, K, V, DO, lse, delta, dq, dk, dv, B,
                                    Hq, Hkv, Sq, Skv, D, st, scale, causal,
-                                   window, cap, s);
+                                   window, cap, delta_in, s);
 }
 
 int launch_bwd_mma_d(const void* q, const void* k, const void* v,
@@ -2189,7 +2209,7 @@ int launch_bwd_mma_d(const void* q, const void* k, const void* v,
                      float* delta, void* dq, void* dk, void* dv, int B,
                      int Hq, int Hkv, int Sq, int Skv, int D,
                      const int64_t* st, float scale, int causal, int window,
-                     float cap, cudaStream_t s) {
+                     float cap, int delta_in, cudaStream_t s) {
   const bf16* Q = static_cast<const bf16*>(q);
   const bf16* K = static_cast<const bf16*>(k);
   const bf16* V = static_cast<const bf16*>(v);
@@ -2206,22 +2226,22 @@ int launch_bwd_mma_d(const void* q, const void* k, const void* v,
   if (D <= 64)
     return launch_bwd_mma_v<64>(Q, K, V, DO, lse, delta, dq, dk, dv, B,
                                 Hq, Hkv, Sq, Skv, D, st, scale, causal,
-                                window, cap, vec, s);
+                                window, cap, delta_in, vec, s);
   if (D <= 80)
     return launch_bwd_mma_v<80>(Q, K, V, DO, lse, delta, dq, dk, dv, B,
                                 Hq, Hkv, Sq, Skv, D, st, scale, causal,
-                                window, cap, vec, s);
+                                window, cap, delta_in, vec, s);
   if (D <= 96)
     return launch_bwd_mma_v<96>(Q, K, V, DO, lse, delta, dq, dk, dv, B,
                                 Hq, Hkv, Sq, Skv, D, st, scale, causal,
-                                window, cap, vec, s);
+                                window, cap, delta_in, vec, s);
   if (D <= 128)
     return launch_bwd_mma_v<128>(Q, K, V, DO, lse, delta, dq, dk, dv, B, Hq,
                                  Hkv, Sq, Skv, D, st, scale, causal, window,
-                                 cap, vec, s);
+                                 cap, delta_in, vec, s);
   return launch_bwd_mma_v<256>(Q, K, V, DO, lse, delta, dq, dk, dv, B, Hq,
                                Hkv, Sq, Skv, D, st, scale, causal, window,
-                               cap, vec, s);
+                               cap, delta_in, vec, s);
 }
 
 }  // namespace
@@ -2266,7 +2286,10 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
 // The backward of flash_attention_launch: dq, dk, dv (q's, k's and v's
 // dtype, any (batch, head, seq) strides, unit stride on D) from q, k, v,
 // the forward's o and lse, and dout (o's shape).  delta: a contiguous fp32
-// [B, Hq, Sq] scratch.  The 24 strides are those of q, k, v, o, dout, dq,
+// [B, Hq, Sq]; with delta_in 0 a scratch the kernels fill with rowsum(dO
+// O), with delta_in 1 the caller's delta, read and not formed (ring
+// attention's rounds need one delta over all of a row's keys, which no
+// round's launch sees).  The 24 strides are those of q, k, v, o, dout, dq,
 // dk and dv, three each.  path: kPathSimt (the CUDA-core kernels) for
 // fp32, or kPathMma (tensor cores) for bf16; others return
 // cudaErrorInvalidValue.  The bf16 kernels form delta from P and dP and
@@ -2280,7 +2303,7 @@ int flash_attention_bwd_launch(
     int64_t oss, int64_t dsb, int64_t dsh, int64_t dss, int64_t dqsb,
     int64_t dqsh, int64_t dqss, int64_t dksb, int64_t dksh, int64_t dkss,
     int64_t dvsb, int64_t dvsh, int64_t dvss, float scale, int causal,
-    int window, float cap, int dtype, int path, void* stream) {
+    int window, float cap, int delta_in, int dtype, int path, void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 ||
       Skv < 0 || D <= 0 || D > 256 || (Sq + BBQ - 1) / BBQ > 65535 ||
       (Skv + BBK - 1) / BBK > 65535)
@@ -2291,11 +2314,12 @@ int flash_attention_bwd_launch(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (path == kPathMma && dtype == kBF16)
     return launch_bwd_mma_d(q, k, v, dout, lse, delta, dq, dk, dv, B, Hq, Hkv,
-                            Sq, Skv, D, st, scale, causal, window, cap, s);
+                            Sq, Skv, D, st, scale, causal, window, cap,
+                            delta_in, s);
   if (path == kPathSimt && dtype == kF32)
     return launch_bwd_simt_d(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Hq,
                              Hkv, Sq, Skv, D, st, scale, causal, window, cap,
-                             s);
+                             delta_in, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

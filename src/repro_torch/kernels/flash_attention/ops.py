@@ -33,7 +33,12 @@ the recompute builds its node from them, so no forward runs again.
 ``attention.launches_by_path`` the same launches by path;
 ``attention_bwd.launches`` and ``attention_bwd.launches_by_path`` count
 the backward's (one per backward call, which runs two kernels on the
-tensor cores or three on the CUDA cores).
+tensor cores or three on the CUDA cores; two with an outside ``delta``).
+
+Ring attention (``models/attention.py``) calls the forward with
+``return_lse=True`` outside autograd and, in its own ``autograd.Function``,
+:func:`attention_bwd` once a visible round with the ring's global row LSE
+and an outside delta; a direct ``return_lse`` call under autograd raises.
 """
 
 from __future__ import annotations
@@ -68,7 +73,7 @@ def _lib():
     fn = lib.flash_attention_bwd_launch
     if fn.argtypes is None:
         fn.argtypes = ([_P] * 10 + [_I] * 6 + [_I64] * 24
-                       + [_F, _I, _I, _F, _I, _I, _P])
+                       + [_F, _I, _I, _F, _I, _I, _I, _P])
         fn.restype = _I
     return lib
 
@@ -100,8 +105,9 @@ def attention(q, k, v, *, causal=True, window=None, cap=None, scale=None,
     if not cpu:
         _check(q, k, v, window, cap)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        if return_lse:
-            raise not_ported("ring attention under autograd", "A3a")
+        if return_lse:  # the ring's Function reaches the backward itself
+            raise not_ported("the flash kernel's row LSE under autograd "
+                             "outside ring attention's Function", "A3a-2")
         return _FlashAttention.apply(q, k, v, causal, window, cap, scale)
     if cpu:
         return attention_ref(q, k, v, causal=causal, window=window, cap=cap,
@@ -176,11 +182,18 @@ def _forward(q, k, v, causal, window, cap, scale, want_lse):
 
 
 def attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None,
-                  cap=None, scale=None):
+                  cap=None, scale=None, delta=None):
     """(dq, dk, dv) of :func:`attention` at ``do`` (o's shape), from the
     forward's ``o`` and ``lse`` ([B, Hq, Sq] fp32, contiguous), on the
     backward kernel.  CUDA tensors only; the gradients take q's, k's and
-    v's dtypes and layouts."""
+    v's dtypes and layouts.
+
+    ``delta`` (a contiguous fp32 [B, Hq, Sq], rowsum(dO O) over all of a
+    row's keys): the kernel reads it instead of forming its own (the C
+    interface's ``delta_in``), so ``lse`` and ``delta`` may be a whole
+    row's while ``k``/``v`` are one block of its keys, as in a ring
+    attention round.  ``attention_bwd.launches_delta_in`` counts those
+    calls."""
     _check(q, k, v, window, cap)
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
@@ -194,11 +207,20 @@ def attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None,
     if (lse.dtype != torch.float32 or tuple(lse.shape) != (b, hq, sq)
             or not lse.is_contiguous()):
         raise ValueError("lse must be a contiguous fp32 [B, Hq, Sq]")
+    if delta is not None and (delta.dtype != torch.float32
+                              or tuple(delta.shape) != (b, hq, sq)
+                              or not delta.is_contiguous()
+                              or delta.device != q.device):
+        raise ValueError("delta must be a contiguous fp32 [B, Hq, Sq] on "
+                         "q's device")
     path = _path(q.dtype, d)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if dq.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
-    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    delta_in = delta is not None
+    if not delta_in:
+        delta = torch.empty((b, hq, sq), dtype=torch.float32,
+                            device=q.device)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     lib = _lib()
     err = lib.flash_attention_bwd_launch(
@@ -208,13 +230,14 @@ def attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None,
         *(s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]),
         float(scale), int(bool(causal)),
         0 if window is None else int(window),
-        0.0 if cap is None else float(cap),
+        0.0 if cap is None else float(cap), int(delta_in),
         _DTYPES[q.dtype], _PATHS[path],
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, err, f"flash_attention backward ({path})")
     attention_bwd.launches += 1
     attention_bwd.launches_by_path[path] += 1
+    attention_bwd.launches_delta_in += delta_in
     return dq, dk, dv
 
 
@@ -253,3 +276,5 @@ attention.launches = 0
 attention.launches_by_path = dict.fromkeys(_PATHS, 0)
 attention_bwd.launches = 0
 attention_bwd.launches_by_path = dict.fromkeys(_PATHS, 0)
+attention_bwd.launches_delta_in = 0
+attention.bwd = attention_bwd  # the backward ring attention's rounds take

@@ -55,7 +55,7 @@ def attention_ref(q, k, v, *, causal=True, window=None, cap=None,
 
 
 def attention_bwd_ref(q, k, v, o, lse, do, *, causal=True, window=None,
-                      cap=None, scale=None):
+                      cap=None, scale=None, delta=None):
     """(dq, dk, dv) of :func:`attention_ref` at ``do``, from its row
     ``lse``: P = exp(S - lse) on the unmasked pairs, dV = P^T dO,
     dP = dO V^T, dS = P (dP - rowsum(P dP)), through the cap's tanh,
@@ -66,7 +66,9 @@ def attention_bwd_ref(q, k, v, o, lse, do, *, causal=True, window=None,
     P, so the rounded output ``o`` is not read (it is taken for the
     kernel's signature): where scores pass a soft-cap the softmax is nearly
     one-hot, dP - rowsum cancels, and a bf16 O's rounding would be all of
-    dS."""
+    dS.  An outside ``delta`` ([B, Hq, Sq] fp32) replaces that rowsum, as
+    the kernel's ``delta_in`` does: with ``lse`` and ``delta`` of a whole
+    row, k/v may be one block of its keys (a ring round)."""
     b, hq, sq, d = q.shape
     hkv = k.shape[1]
     g = hq // hkv
@@ -77,7 +79,11 @@ def attention_bwd_ref(q, k, v, o, lse, do, *, causal=True, window=None,
     dog = do.reshape(b, hkv, g, sq, d).float()
     dv = torch.einsum("bhgqk,bhgqd->bhkd", p, dog)
     dp = torch.einsum("bhgqd,bhkd->bhgqk", dog, v.float())
-    ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+    if delta is None:
+        delta = (p * dp).sum(dim=-1, keepdim=True)
+    else:
+        delta = delta.reshape(b, hkv, g, sq, 1)
+    ds = p * (dp - delta)
     if t is not None:
         ds = ds * (1 - t * t)
     ds = ds * scale
@@ -85,3 +91,6 @@ def attention_bwd_ref(q, k, v, o, lse, do, *, causal=True, window=None,
     dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, qg)
     return (dq.reshape(b, hq, sq, d).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
+
+
+attention_ref.bwd = attention_bwd_ref  # as the kernel wrapper's .bwd

@@ -10,20 +10,25 @@ rank's :class:`~repro_torch.core.dist.Dist` on the plan's mesh for the
 world's size (``plan.mesh_shape_for``: the plan's ring degree shrunk to
 divide the ranks), with the plan's device permutation;
 :func:`make_mesh_dist` takes a shape instead (``--mesh``).  On one rank
-every plan's mesh is ``(1, 1)``.  The stage partition of a multi-wafer
-plan (``stage_device_partition``) and its submeshes belong to the train
-ring, ROADMAP.md item A3a.
+every plan's mesh is ``(1, 1)``.  :func:`join_world` and
+:func:`resolve_rank_plan` are the launchers' shared steps under
+``torch.distributed.run``.  The stage partition of a multi-wafer plan
+(``stage_device_partition``) and its submeshes over ranks are ROADMAP.md
+item A3a-2.
 """
 
 from __future__ import annotations
 
+import torch
 import torch.distributed as tdist
 
-from repro_torch.core.dist import Dist, make_mesh_dist
+from repro_torch.core.dist import (Dist, init_world, make_mesh_dist,
+                                   resolve_device, world_from_env)
 from repro_torch.wafer.mapping import device_order_for_jax
 
-__all__ = ["make_mesh_dist", "make_plan_dist", "plan_device_permutation",
-           "plan_mesh_shape"]
+__all__ = ["join_world", "make_mesh_dist", "make_plan_dist",
+           "plan_device_permutation", "plan_mesh_shape",
+           "resolve_rank_plan"]
 
 
 def plan_mesh_shape(plan, n_devices: int = 1) -> tuple[int, int]:
@@ -54,3 +59,38 @@ def make_plan_dist(plan, device="cuda") -> Dist:
     world = tdist.get_world_size() if tdist.is_initialized() else 1
     return make_mesh_dist(plan_mesh_shape(plan, world), device,
                           order=plan_device_permutation(plan, world))
+
+
+def join_world(args) -> torch.device:
+    """This rank's device.  Under ``torch.distributed.run`` the world from
+    its environment is initialised once, with ``--dist-backend``, and
+    each rank takes ``cuda:(LOCAL_RANK mod the cards)`` (so gloo ranks
+    may share one)."""
+    _, world, local = world_from_env()
+    device = resolve_device(args.device)
+    if world > 1 and device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", local % torch.cuda.device_count())
+    if device.type == "cuda" and device.index is not None:
+        torch.cuda.set_device(device)
+    if world > 1 and not tdist.is_initialized():
+        init_world(getattr(args, "dist_backend", "gloo"))
+    return device
+
+
+def resolve_rank_plan(cfg, args, seq: int, remat: bool, failed_dies=None):
+    """The plan for ``args`` (``--plan`` or ``--auto-plan``, ``--batch``,
+    ``seq``), resolved by rank 0 first, so the other ranks of a world read
+    its cache entry instead of writing the same file at once."""
+    from repro_torch.launch.planning import resolve_plan
+
+    first = world_from_env()[0] == 0
+    joined = tdist.is_initialized()
+    if joined and not first:
+        tdist.barrier()
+    plan = resolve_plan(cfg, args.batch, seq,
+                        plan_path=getattr(args, "plan", None),
+                        cache_dir=getattr(args, "plan_cache", None),
+                        failed_dies=failed_dies, remat=remat)
+    if joined and first:
+        tdist.barrier()
+    return plan

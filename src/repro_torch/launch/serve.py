@@ -82,9 +82,10 @@ import torch.distributed as tdist
 from repro_torch import not_ported
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.configs.base import ParallelConfig
-from repro_torch.core.dist import (Dist, init_world, make_mesh_dist,
-                                   resolve_device, world_from_env)
-from repro_torch.launch.mesh import make_plan_dist
+from repro_torch.core.dist import (Dist, make_mesh_dist, resolve_device,
+                                   world_from_env)
+from repro_torch.launch.mesh import (join_world, make_plan_dist,
+                                     resolve_rank_plan)
 from repro_torch.models import lm
 from repro_torch.models.transformer import init_params
 from repro_torch.train.data import stub_inputs
@@ -109,41 +110,6 @@ def prompt_batch(cfg, batch: int, prompt_len: int, seed: int = 0) -> dict:
     return out
 
 
-def join_world(args) -> torch.device:
-    """This rank's device.  Under ``torch.distributed.run`` the world from
-    its environment is initialised once, with ``--dist-backend``, and
-    each rank takes ``cuda:(LOCAL_RANK mod the cards)`` (so gloo ranks
-    may share one)."""
-    _, world, local = world_from_env()
-    device = resolve_device(args.device)
-    if world > 1 and device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", local % torch.cuda.device_count())
-    if device.type == "cuda" and device.index is not None:
-        torch.cuda.set_device(device)
-    if world > 1 and not tdist.is_initialized():
-        init_world(getattr(args, "dist_backend", "gloo"))
-    return device
-
-
-def resolve_rank_plan(cfg, args, max_seq):
-    """The plan for ``args`` (``--plan`` or ``--auto-plan``), resolved by
-    rank 0 first, so the other ranks of a world read its cache entry
-    instead of writing the same file at once."""
-    from repro_torch.launch.planning import resolve_plan
-
-    first = world_from_env()[0] == 0
-    joined = tdist.is_initialized()
-    if joined and not first:
-        tdist.barrier()
-    plan = resolve_plan(cfg, args.batch, max_seq,
-                        plan_path=getattr(args, "plan", None),
-                        cache_dir=getattr(args, "plan_cache", None),
-                        remat=False)
-    if joined and first:
-        tdist.barrier()
-    return plan
-
-
 def serve(args, params=None, keep_tokens: bool = False,
           stats=None) -> dict:
     """One-shot serve.  ``params``: a parameter tree (this rank's shard)
@@ -158,7 +124,7 @@ def serve(args, params=None, keep_tokens: bool = False,
     max_seq = args.prompt_len + args.gen
     device = join_world(args)
     if getattr(args, "plan", None) or getattr(args, "auto_plan", False):
-        plan = resolve_rank_plan(cfg, args, max_seq)
+        plan = resolve_rank_plan(cfg, args, max_seq, remat=False)
         if world_from_env()[0] == 0:
             print(plan.summary())
         par = replace(plan.parallel_config(), remat=False)

@@ -1,6 +1,5 @@
 """Training entry point (counterpart of ``repro.launch.train``'s ``build`` /
-``setup`` / ``train`` / ``main``, the legacy-flag path) at ring degree 1
-with strategy ``tatp`` on one device::
+``setup`` / ``train`` / ``main``)::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-7b \\
         --reduced --device cpu --steps 3 --batch 4 --seq 64
@@ -52,8 +51,21 @@ the stage's own plan.  ``--failed-dies`` with ``--fail-wafer`` degrades
 one wafer, whose stage alone re-solves.  The checkpoint manifest records
 the plan hash (and the stage, ``pp`` and layer split, or the plan's
 degrees), and a restart under a different plan warns in the reference's
-words.  Any ``--mesh`` other than ``1 1`` is the train ring, ROADMAP.md
-item A3a.
+words.
+
+The train ring: under ``torch.distributed.run`` every rank joins the
+world (``--dist-backend``, gloo by default: ranks may share one card) and
+trains its rows and its sequence block on the ``--mesh D M`` (``data``,
+``model``) mesh, or on a plan's mesh for the world's size; rank 0 prints
+the summary::
+
+    PYTHONPATH=src python -m torch.distributed.run --standalone \
+        --nproc-per-node 4 -m repro_torch.launch.train --arch deepseek-7b \
+        --reduced --device cpu --mesh 1 4 --steps 3 --batch 4 --seq 64
+
+Over several ranks, ``--ckpt-dir`` (sharded checkpoints) and ``--wafers
+N`` (a stage's submesh) are ROADMAP.md item A3a-2 and raise; a plan
+whose strategy is not ``tatp`` raises above model degree 1 (A3d).
 """
 
 from __future__ import annotations
@@ -69,8 +81,11 @@ import torch
 from repro_torch import not_ported
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.configs.base import ParallelConfig, ShapeConfig
-from repro_torch.core.dist import Dist, resolve_device
-from repro_torch.launch.mesh import make_plan_dist
+import torch.distributed as tdist
+
+from repro_torch.core.dist import Dist, make_mesh_dist, world_from_env
+from repro_torch.launch.mesh import (join_world, make_plan_dist,
+                                     resolve_rank_plan)
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.data import SyntheticDataset
 from repro_torch.train.train_loop import make_train_step
@@ -87,6 +102,14 @@ def setup(args):
     a plan or from the legacy flags, as the reference's ``setup``."""
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     plan = None
+    rank, world, _ = world_from_env()
+    if world > 1 and args.ckpt_dir:
+        raise not_ported("sharded checkpoints (--ckpt-dir over several "
+                         "ranks)", "A3a-2")
+    if world > 1 and args.wafers > 1:
+        raise not_ported("a pipeline stage's submesh (--wafers over "
+                         "several ranks)", "A3a-2")
+    device = join_world(args)
     if args.wafers > 1:
         # multi-wafer pipeline launch: this process runs ONE stage of the
         # pipeline (--stage); the MultiWaferPlan fixes the layer split and
@@ -103,26 +126,23 @@ def setup(args):
                              f"pp={plan.pp}")
         stage_plan = plan.stages[args.stage]
         cfg = replace(cfg, n_layers=plan.stage_layers[args.stage])
-        dist = make_plan_dist(stage_plan, args.device)
+        dist = make_plan_dist(stage_plan, device)
         par = stage_plan.parallel_config()
         if args.reduced and par.remat:
             par = replace(par, remat=False)
     elif args.plan or args.auto_plan:
-        from repro_torch.launch.planning import resolve_plan
-        plan = resolve_plan(cfg, args.batch, args.seq, plan_path=args.plan,
-                            cache_dir=args.plan_cache,
-                            failed_dies=args.failed_dies,
-                            remat=not args.reduced)
-        print(plan.summary())
-        dist = make_plan_dist(plan, args.device)
+        plan = resolve_rank_plan(cfg, args, args.seq,
+                                 remat=not args.reduced,
+                                 failed_dies=args.failed_dies)
+        if rank == 0:
+            print(plan.summary())
+        dist = make_plan_dist(plan, device)
         par = plan.parallel_config()
         if args.reduced and plan.remat:
             # reduced smoke runs never need remat, whatever the plan says
             par = replace(par, remat=False)
     else:
-        if list(args.mesh) not in ([1, 1], [1]):
-            raise not_ported(f"training on mesh {args.mesh}", "A3a")
-        dist = Dist(resolve_device(args.device))
+        dist = make_mesh_dist(args.mesh, device)
         par = ParallelConfig(strategy=args.strategy, remat=not args.reduced)
     return cfg, dist, par, plan
 
@@ -132,11 +152,16 @@ def _sync(device: torch.device):
         torch.cuda.synchronize(device)
 
 
-def train(args, history=None) -> dict:
+def train(args, history=None, stats=None) -> dict:
     """Run the launch; the printed summary has the reference's keys.
     ``history``, if a list, gets one ``{"step", "loss", "grad_norm",
-    "ms"}`` record a step (the CLI passes none)."""
+    "ms"}`` record a step (the CLI passes none); ``stats``, a dict, gets
+    the run's ``dist``."""
     cfg, dist, par, plan = setup(args)
+    if stats is not None:
+        stats["dist"] = dist
+    first = dist.axis_index("data") == 0 and dist.axis_index(
+        dist.model_axis) == 0
     bundle, data = build(cfg, dist, par, args.batch, args.seq)
     ckpt_meta = {}
     if plan is not None:
@@ -180,10 +205,10 @@ def train(args, history=None) -> dict:
             history.append({"step": step, "loss": loss, "grad_norm": float(
                 metrics["grad_norm"]), "ms": dt * 1e3})
         # straggler watchdog: flag steps >3x the running median
-        if len(times) > 5 and dt > 3 * float(np.median(times)):
+        if len(times) > 5 and dt > 3 * float(np.median(times)) and first:
             print(f"[watchdog] straggler step {step}: {dt:.2f}s "
                   f"(median {np.median(times):.2f}s)")
-        if step % args.log_every == 0:
+        if step % args.log_every == 0 and first:
             print(f"step {step:5d} loss {loss:8.4f} "
                   f"gnorm {float(metrics['grad_norm']):8.3f} {dt*1e3:7.1f}ms",
                   flush=True)
@@ -198,7 +223,7 @@ def train(args, history=None) -> dict:
             "steps": len(losses),
             "mean_step_s": float(np.mean(times)) if times else None,
             "plan_hash": plan.plan_hash if plan else None,
-            "mesh": [1, 1]}
+            "mesh": list(dist.mesh_shape)}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -208,7 +233,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
-    ap.add_argument("--mesh", type=int, nargs="+", default=[1, 1])
+    ap.add_argument("--mesh", type=int, nargs="+", default=[1, 1],
+                    help="(data, model) mesh over torch.distributed.run's "
+                         "ranks (one number: data only); its size must be "
+                         "the world's")
+    ap.add_argument("--dist-backend", choices=("gloo", "nccl"),
+                    default="gloo",
+                    help="torch.distributed backend over several ranks: "
+                         "gloo stages through the host (ranks may share a "
+                         "card), nccl needs one card a rank")
     ap.add_argument("--strategy", default="tatp")
     ap.add_argument("--plan", default=None,
                     help="launch from an explicit WaferPlan JSON file")
@@ -244,7 +277,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    print(json.dumps(train(args)))
+    try:
+        out = train(args)
+    finally:
+        if tdist.is_initialized():
+            tdist.destroy_process_group()
+    if world_from_env()[0] == 0:
+        print(json.dumps(out))
 
 
 if __name__ == "__main__":

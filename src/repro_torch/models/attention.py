@@ -12,16 +12,18 @@ sharded over the ring:
   flash kernel, or its plain version) each round is one launch — causal on
   the rank's own block, unmasked on an earlier one, skipped for a later
   one, whose keys every query masks — and the rounds merge in fp32 by each
-  launch's row log-sum-exp; without one, the reference's online-softmax
-  loop (:func:`_block_update`) absorbs them.
+  launch's row log-sum-exp; its backward (:class:`_RingAttention`) is one
+  backward launch a visible round with the global LSE and one outside
+  delta.  Without a hook, the reference's online-softmax loop
+  (:func:`_block_update`) absorbs them, and autograd differentiates it.
 * :func:`decode_attention` attends the token to the rank's slice of the
   sequence-sharded cache and merges the slices with the reference's
   (pmax, psum, psum) combine; :func:`write_kv_cache` writes the token's
   K/V on the rank that owns its position.
 
 A sliding window above degree 1 needs a key offset the flash kernel does
-not take, and raises (ROADMAP.md A3f); zigzag attention belongs to the
-train ring (A3a).
+not take, and raises (ROADMAP.md A3f); zigzag attention is ROADMAP.md
+A3a-2 (``models/lm.py:loss_fn`` raises).
 
 Masking keeps the reference's numerics: NEG_INF = -1e30, masked
 probabilities zeroed after the exp, and the row sum clamped at 1e-20, so a
@@ -133,6 +135,170 @@ def _merge(acc, lse, o, lse_o):
             + o * torch.exp(lse_o - new)[..., None]), new
 
 
+def _rounds(k, v, i: int, r: int, bidirectional: bool, relay):
+    """The K/V blocks rank ``i`` sees, in the forward's order, as
+    ``(stream, t, j, k_j, v_j)``: its own block (stream None, t 0), then
+    round by round the block from the right (``"up"``, j = i + t, relayed
+    by shift -1) and, bidirectional, the one from the left (``"dn"``, j = i
+    - t, shift +1; none in an even ring's antipodal round).  Naive rings
+    relay one way for R - 1 rounds."""
+    from repro_torch.core.tatp import _n_rounds
+
+    yield None, 0, i, k, v
+    if not bidirectional:
+        blk = (k, v)
+        for t in range(1, r):
+            blk = relay(blk, -1)  # block index grows
+            yield "up", t, (i + t) % r, *blk
+        return
+    up, dn = (k, v), (k, v)
+    for t in range(1, _n_rounds(r)):
+        up = relay(up, -1)
+        yield "up", t, (i + t) % r, *up
+        if not (r % 2 == 0 and t == r // 2):  # antipodal: one block
+            dn = relay(dn, +1)
+            yield "dn", t, (i - t) % r, *dn
+
+
+_BACK_SHIFT = {"up": +1, "dn": -1}  # a stream's hop, reversed
+
+
+def _hook_rounds(q, k, v, ring):
+    """The hook path's forward: one ``attention`` call a visible round
+    (causal on the own block, unmasked on an earlier one, none for a later
+    one), merged in fp32 by the rounds' row log-sum-exp.  Returns the
+    merged output [B, Hq, S, D] in fp32 and the global row LSE [B, Hq,
+    S]."""
+    i = ring.dist.axis_index(ring.axis)
+    qt = q.transpose(1, 2)
+    acc = lse = None
+    for _, _, j, kj, vj in _rounds(k, v, i, ring.r, ring.bidirectional,
+                                   ring.relay):
+        if ring.causal and j > i:  # every key lies after every query
+            continue
+        o, lse_j = ring.attention(qt, kj.transpose(1, 2), vj.transpose(1, 2),
+                                  causal=ring.causal and j == i,
+                                  cap=ring.cap, scale=ring.scale,
+                                  return_lse=True)
+        acc, lse = _merge(acc, lse, o, lse_j)
+    return acc, lse
+
+
+class _Ring:
+    """One ring attention call's settings (its hook path's closure)."""
+
+    def __init__(self, axis, r, causal, cap, bidirectional, scale, wire,
+                 dist, attention):
+        from repro_torch.core.tatp import wire_relay
+
+        self.axis, self.r, self.causal, self.cap = axis, r, causal, cap
+        self.bidirectional, self.scale, self.dist = bidirectional, scale, dist
+        self.attention = attention
+
+        def relay(kv, shift):
+            return tuple(wire_relay(t, axis, r, shift, wire, dist=dist)
+                         for t in kv)
+
+        self.relay = relay
+
+
+class _RingAttention(torch.autograd.Function):
+    """Ring attention's hook path under autograd (the counterpart of
+    ``jax.vjp`` through the reference's ``ring_attention``).
+
+    Forward: :func:`_hook_rounds`, saving q, the own K/V block, the merged
+    fp32 output O and the global row LSE.  Backward: delta = rowsum(dO ∘
+    O) once, from the fp32 O (not its rounded cast); the K/V blocks stream
+    again in the forward's order, and each visible round is one call of
+    the hook's backward (the flash kernel's on CUDA, its plain version on
+    the CPU) with the global LSE and that outside delta, causal on the
+    own block only.  dQ sums locally in fp32.  Each block's dK/dV partials
+    (fp32) return to its owner by retracing its stream: from the last
+    round back, an accumulator hops the reverse way and adds the rank's
+    partial at each stop (the transposes jax takes through the relays),
+    the two streams' hops in one batch."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, ring):
+        o32, lse = _hook_rounds(q, k, v, ring)
+        ctx.save_for_backward(q, k, v, o32, lse)
+        ctx.ring = ring
+        return o32.to(q.dtype).transpose(1, 2)
+
+    @staticmethod
+    def backward(ctx, do):
+        from repro_torch.core.tatp import _shift_perm
+
+        q, k, v, o32, lse = ctx.saved_tensors
+        ring = ctx.ring
+        dist, axis, r = ring.dist, ring.axis, ring.r
+        i = dist.axis_index(axis)
+        bwd = _attention_bwd(ring.attention, q)
+        qt, dot = q.transpose(1, 2), do.transpose(1, 2)
+        if dot.stride(3) != 1:
+            dot = dot.contiguous()
+        delta = (dot.float() * o32).sum(dim=-1).contiguous()
+        dq = None
+        parts = {}  # (stream, t) -> this rank's (dK, dV) of that block
+        for stream, t, j, kj, vj in _rounds(k, v, i, r, ring.bidirectional,
+                                            ring.relay):
+            if ring.causal and j > i:
+                parts[stream, t] = None
+                continue
+            # o is not read with an outside delta; do stands in for it
+            g = bwd(qt, kj.transpose(1, 2), vj.transpose(1, 2), dot, lse,
+                    dot, causal=ring.causal and j == i, cap=ring.cap,
+                    scale=ring.scale, delta=delta)
+            dq = g[0].float() if dq is None else dq + g[0].float()
+            parts[stream, t] = tuple(x.transpose(1, 2) for x in g[1:])
+
+        def part(key):
+            p = parts[key]
+            if p is None:
+                return torch.zeros(k.shape, dtype=torch.float32,
+                                   device=k.device), torch.zeros(
+                    v.shape, dtype=torch.float32, device=v.device)
+            return p[0].float(), p[1].float()
+
+        rounds = {s: max(t for (s2, t) in parts if s2 == s)
+                  for s in ("up", "dn") if any(s2 == s for s2, _ in parts)}
+        acc = {}
+        for t in range(max(rounds.values()), 0, -1):
+            back = [s for s in acc]  # round t + 1's accumulators hop back
+            if back:
+                moved = dist.ppermute_many(
+                    [(acc[s], _shift_perm(r, _BACK_SHIFT[s])) for s in back],
+                    axis)
+                acc.update(zip(back, moved))
+            for s, n in rounds.items():
+                if t <= n:
+                    c = part((s, t))
+                    acc[s] = c if s not in acc else (acc[s][0] + c[0],
+                                                     acc[s][1] + c[1])
+        dk, dv = part((None, 0))
+        moved = dist.ppermute_many(
+            [(acc[s], _shift_perm(r, _BACK_SHIFT[s])) for s in acc], axis)
+        for gk, gv in moved:
+            dk, dv = dk + gk, dv + gv
+        return (dq.transpose(1, 2).to(q.dtype), dk.to(k.dtype),
+                dv.to(v.dtype), None)
+
+
+def _attention_bwd(attention, q):
+    """The backward of the ``attention`` hook for tensors like ``q``: the
+    plain version on the CPU, else the hook's ``bwd`` (the flash kernel's
+    :func:`~repro_torch.kernels.flash_attention.ops.attention_bwd`)."""
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+
+    if q.device.type == "cpu":
+        return attention_bwd_ref
+    bwd = getattr(attention, "bwd", None)
+    if bwd is None:
+        raise ValueError(f"the attention hook {attention!r} names no "
+                         f"backward (its .bwd) for ring attention")
+    return bwd
+
+
 def ring_attention(q, k, v, *, axis: str, axis_size: int, causal=True,
                    window=None, cap=None, bidirectional=True, scale=None,
                    wire: str = "native", dist=None, attention=None):
@@ -142,10 +308,10 @@ def ring_attention(q, k, v, *, axis: str, axis_size: int, causal=True,
     ``dist.axis_index(axis)``): local token t sits at ``i * s_loc + t``.
     The blocks travel as ``wire`` (``core/tatp.py:wire_relay``).  With
     ``attention`` (the flash kernel's signature, ``[B, H, S, D]`` views,
-    ``return_lse=True``) each round that has a visible key is one call;
-    without it the reference's online-softmax loop."""
-    from repro_torch.core.tatp import _n_rounds, wire_relay
-
+    ``return_lse=True``) each round that has a visible key is one call,
+    and under autograd :class:`_RingAttention` gives the backward; without
+    it the reference's online-softmax loop, which autograd differentiates
+    through the relays' straight-through backward."""
     r = axis_size
     b, sl, hq, dh = q.shape
     hk = k.shape[2]
@@ -156,52 +322,23 @@ def ring_attention(q, k, v, *, axis: str, axis_size: int, causal=True,
     if window is not None:
         raise not_ported("a sliding window in ring attention", "A3f")
     i = dist.axis_index(axis)
-
-    def relay(kv, shift):
-        return (wire_relay(kv[0], axis, r, shift, wire, dist=dist),
-                wire_relay(kv[1], axis, r, shift, wire, dist=dist))
-
-    if attention is None:
-        qg = _group(q, hk)
-        ar = torch.arange(sl, device=q.device)
-        qpos = i * sl + ar
-        state = _init_state(b, hk, hq // hk, sl, dh, q.device)
-
-        def upd(state, kv, j):
-            return _block_update(qg, kv[0], kv[1], *state, qpos, j * sl + ar,
-                                 scale=scale, causal=causal, window=None,
-                                 cap=cap)
-    else:
-        qt = q.transpose(1, 2)
-
-        def upd(state, kv, j):
-            if causal and j > i:  # every key lies after every query
-                return state
-            o, lse = attention(qt, kv[0].transpose(1, 2),
-                               kv[1].transpose(1, 2),
-                               causal=causal and j == i, cap=cap,
-                               scale=scale, return_lse=True)
-            return _merge(*state, o, lse)
-
-        state = (None, None)
-
-    state = upd(state, (k, v), i)
-    if not bidirectional:
-        blk = (k, v)
-        for t in range(1, r):
-            blk = relay(blk, -1)  # block index grows
-            state = upd(state, blk, (i + t) % r)
-    else:
-        up, dn = (k, v), (k, v)
-        for t in range(1, _n_rounds(r)):
-            up = relay(up, -1)
-            state = upd(state, up, (i + t) % r)
-            if not (r % 2 == 0 and t == r // 2):  # antipodal: one block
-                dn = relay(dn, +1)
-                state = upd(state, dn, (i - t) % r)
-    if attention is None:
-        return _finish(*state, q.dtype)
-    return state[0].to(q.dtype).transpose(1, 2)
+    ring = _Ring(axis, r, causal, cap, bidirectional, scale, wire, dist,
+                 attention)
+    if attention is not None:
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v)):
+            return _RingAttention.apply(q, k, v, ring)
+        o32, _ = _hook_rounds(q, k, v, ring)
+        return o32.to(q.dtype).transpose(1, 2)
+    qg = _group(q, hk)
+    ar = torch.arange(sl, device=q.device)
+    qpos = i * sl + ar
+    state = _init_state(b, hk, hq // hk, sl, dh, q.device)
+    for _, _, j, kj, vj in _rounds(k, v, i, r, bidirectional, ring.relay):
+        state = _block_update(qg, kj, vj, *state, qpos, j * sl + ar,
+                              scale=scale, causal=causal, window=None,
+                              cap=cap)
+    return _finish(*state, q.dtype)
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, *, axis: str,

@@ -21,15 +21,19 @@ cross-attends to its output after every ``G`` slot.  A vision-prefixed
 model's ``prefix_embeds`` take the first ``frontend_tokens`` positions
 (:func:`embed_tokens`).
 
-Above model degree 1 (serving, strategy ``tatp``) the embedding and the
-head are vocab-parallel: prefill's sequence-sharded tokens are embedded
-by :func:`streamed_vocab_embed` (each rank adds its vocab rows as the
-token blocks pass), a decode token by each rank's rows and a psum; the
-last position's activation comes from the ring's last rank; the greedy
-token is the argmax over the vocab shards (pmax, then pmin of the global
-index: ties go to the lowest).  The caches are sequence-sharded
-(:func:`init_cache`, :func:`shard_prompt_cache`).  The streamed
-cross-entropy is the train ring's (ROADMAP.md A3a).
+Above model degree 1 (strategy ``tatp``) the embedding and the head are
+vocab-parallel: train's and prefill's sequence-sharded tokens are
+embedded by :func:`streamed_vocab_embed` (each rank adds its vocab rows
+as the token blocks pass), a decode token by each rank's rows and a psum;
+the training loss is :func:`streamed_vocab_xent` (the activation blocks
+pass every rank's head shard, then each block's statistics ring back to
+its owner); the last position's activation comes from the ring's last
+rank; the greedy token is the argmax over the vocab shards (pmax, then
+pmin of the global index: ties go to the lowest).  The caches are
+sequence-sharded (:func:`init_cache`, :func:`shard_prompt_cache`).  The
+encoder-decoder, the vision prefix, zigzag ring attention and
+``remat_policy="tatp_outputs"`` train on the ring only in the reference
+yet (ROADMAP.md A3a-2): :func:`loss_fn` raises for them.
 """
 
 from __future__ import annotations
@@ -175,10 +179,13 @@ def vocab_parallel_xent(ctx: RunCtx, logits, labels, valid):
 
     logits: [B, s, Vp] fp32; labels/valid: [B, s].  Padded columns are
     masked to -1e30; the max shift is a stop-gradient, as the reference's.
-    Returns (sum_nll, sum_count)."""
+    Returns (sum_nll, sum_count).  Above degree 1 the reference takes it
+    for ring-replicated tokens (``megatron``, ROADMAP.md A3d); ``tatp``
+    takes :func:`streamed_vocab_xent`."""
     cfg = ctx.cfg
     if ctx.r != 1:
-        raise not_ported("the vocab-parallel cross-entropy's ring", "A3a")
+        raise not_ported("the vocab-parallel cross-entropy over the ring "
+                         "(ring-replicated tokens)", "A3d")
     cols = torch.arange(logits.shape[-1], device=logits.device)
     logits = torch.where(cols < cfg.vocab_size, logits, -1e30)
     m = logits.amax(dim=-1).detach()
@@ -189,6 +196,63 @@ def vocab_parallel_xent(ctx: RunCtx, logits, labels, valid):
     return nll.sum(), valid.float().sum()
 
 
+def streamed_vocab_xent(ctx: RunCtx, params, x, labels, valid):
+    """Head and cross-entropy for *sequence-sharded* tokens (``tatp``
+    above degree 1; the reference's ``streamed_vocab_xent``).
+
+    Pass 1 streams the (activation, label) blocks around the ring (+1 a
+    hop): each rank computes every block's partial (max, sum of exp,
+    target logit) against its vocab shard, its head product on the
+    ``dot`` hook as :class:`_HeadMatmul` (fp32 logits of model-dtype
+    operands).  Pass 2 rings each block's statistics back to its owner
+    (-1 a hop), combining them.  No rank ever holds more than one [B,
+    s_loc, Vp/R] logits block.  The max shifts are stop-gradients; the
+    relays are differentiable (``Dist.ppermute``), so each rank's head
+    shard gathers the gradient of every block.  Returns (sum_nll,
+    sum_count) of this rank's block."""
+    cfg, r, axis, dist = ctx.cfg, ctx.r, ctx.axis, ctx.dist
+    w = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+    vloc = w.shape[1]
+    off = dist.axis_index(axis) * vloc
+    cols_ok = (off + torch.arange(vloc, device=x.device)) < cfg.vocab_size
+
+    def slice_stats(xb, lb):
+        logits = _HeadMatmul.apply(xb.reshape(-1, xb.shape[-1]), w, ctx.dot)
+        logits = softcap(logits.reshape(*xb.shape[:-1], vloc),
+                         cfg.logit_softcap)
+        logits = torch.where(cols_ok, logits, -1e30)
+        m = logits.amax(dim=-1).detach()
+        se = torch.exp(logits - m[..., None]).sum(dim=-1)
+        in_r = (lb >= off) & (lb < off + vloc)
+        ids = torch.where(in_r, lb - off, 0)
+        tgt = torch.gather(logits, -1, ids[..., None].long())[..., 0]
+        return m, se, torch.where(in_r, tgt, 0.0)
+
+    def combine(a, b):
+        (m1, s1, t1), (m2, s2, t2) = a, b
+        m1, m2 = m1.detach(), m2.detach()
+        m = torch.maximum(m1, m2)
+        return m, s1 * torch.exp(m1 - m) + s2 * torch.exp(m2 - m), t1 + t2
+
+    if r == 1:
+        m, se, tgt = slice_stats(x, labels)
+    else:
+        blk, stats = (x, labels), []
+        for t in range(r):  # pass 1: rank j's stats[t] covers block j - t
+            stats.append(slice_stats(*blk))
+            if t < r - 1:
+                blk = dist.ppermute(blk, axis,
+                                    [((p - 1) % r, p) for p in range(r)])
+        acc = stats[r - 1]  # pass 2: back to each block's owner
+        for s in range(1, r):
+            acc = dist.ppermute(acc, axis,
+                                [((p + 1) % r, p) for p in range(r)])
+            acc = combine(acc, stats[r - 1 - s])
+        m, se, tgt = acc
+    nll = (torch.log(se) + m - tgt) * valid
+    return nll.sum(), valid.float().sum()
+
+
 def loss_fn(ctx: RunCtx, params, batch):
     """Training loss.  batch: tokens/labels [B, s] (+ an optional ``valid``
     mask, ones by default; ``prefix_embeds`` for a vision-prefixed model,
@@ -196,6 +260,15 @@ def loss_fn(ctx: RunCtx, params, batch):
     count, aux_total)."""
     cfg = ctx.cfg
     ctx = replace(ctx, phase="train")
+    if ctx.r > 1:
+        if cfg.n_enc_layers or cfg.frontend_tokens:
+            raise not_ported(f"{cfg.name} (its encoder or frontend prefix) "
+                             f"on the train ring", "A3a-2")
+        if ctx.par.zigzag:
+            raise not_ported("zigzag ring attention", "A3a-2")
+        if ctx.par.remat and ctx.par.remat_policy == "tatp_outputs":
+            raise not_ported("remat_policy='tatp_outputs' over the ring",
+                             "A3a-2")
     enc_out = _encoder(ctx, params, batch)
     x = embed_tokens(ctx, params["embed"], batch["tokens"],
                      batch.get("prefix_embeds"))
@@ -206,9 +279,12 @@ def loss_fn(ctx: RunCtx, params, batch):
         valid = torch.ones(batch["labels"].shape, dtype=torch.float32,
                            device=x.device)
     if ctx.par.strategy == "tatp" and ctx.r > 1:
-        raise not_ported("streamed_vocab_xent", "A3a")
-    logits = lm_head_logits(ctx, params, x)
-    nll_sum, cnt = vocab_parallel_xent(ctx, logits, batch["labels"], valid)
+        nll_sum, cnt = streamed_vocab_xent(ctx, params, x, batch["labels"],
+                                           valid)
+    else:
+        logits = lm_head_logits(ctx, params, x)
+        nll_sum, cnt = vocab_parallel_xent(ctx, logits, batch["labels"],
+                                           valid)
     aux_total = cfg.aux_coef * aux if cfg.is_moe else 0.0
     return nll_sum, cnt, aux_total
 

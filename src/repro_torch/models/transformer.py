@@ -27,9 +27,10 @@ An encoder-decoder (``cfg.n_enc_layers``) adds the encoder's blocks under
 cross-attention block (layer kind ``X``: the attention leaves only) per
 decoder rep under ``cross`` (:func:`attn_block` with ``is_cross``).
 
-Above model degree 1 (strategy ``tatp``, serving) each rank holds the
-shards :func:`param_specs` gives it (the K-block of every weight, a vocab
-block of the embedding and head).  ``prefill`` is sequence-sharded: every
+Above model degree 1 (strategy ``tatp``) each rank holds the shards
+:func:`param_specs` gives it (the K-block of every weight, a vocab block
+of the embedding and head).  ``train`` and ``prefill`` are
+sequence-sharded: every
 linear is the TATP ring (:func:`repro_torch.core.tatp.tatp_matmul`, each
 round's tile on the ``dot`` hook) and self-attention the ring attention
 (:func:`repro_torch.models.attention.ring_attention`, each round on the
@@ -40,9 +41,10 @@ columns (:func:`_gather_cols`); the K/V cache stays sequence-sharded.
 The ``megatron`` and ``fsdp`` strategies (which plans prescribe, e.g.
 gemma-7b's serve plan) run at model degree 1, where they compute what
 ``tatp`` does (:func:`_linear`).  Not ported yet (each raises
-``NotImplementedError`` naming its ROADMAP.md item): training above
-degree 1 (A3a), the Mamba-2 block above it (A3c), expert parallelism and
-the ``megatron``/``fsdp`` strategies above it (A3d).
+``NotImplementedError`` naming its ROADMAP.md item): zigzag ring
+attention (A3a-2, raised by ``lm.loss_fn``), the Mamba-2 block above
+degree 1 (A3c), expert
+parallelism and the ``megatron``/``fsdp`` strategies above it (A3d).
 """
 
 from __future__ import annotations

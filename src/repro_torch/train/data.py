@@ -6,9 +6,11 @@ so both packages train on the same tokens bit for bit.  The modality
 stubs are the reference's too: a vision-prefixed model's batch carries
 ``prefix_embeds`` and an encoder-decoder's ``enc_embeds``
 (:func:`stub_embeds`, the same seeds and values).  The reference
-materialises each host's shard of the global batch on its mesh; on one
-device :meth:`SyntheticDataset.batch` returns the whole batch as tensors
-on that device.
+materialises each device's shard of the global batch by its
+``batch_specs``; :meth:`SyntheticDataset.batch` returns this rank's part
+(its rows over ``data``, its sequence block over the ring:
+``train_loop.shard_batch``) as tensors on its device, the whole batch on
+one device.
 """
 
 from __future__ import annotations
@@ -86,11 +88,14 @@ class SyntheticDataset:
         return out
 
     def batch(self, step: int) -> dict[str, torch.Tensor]:
-        """This step's batch on ``dist.device``: int64 token ids, the stub
-        embeddings in fp32 as the reference's host batch holds them (the
-        model casts them to its dtype)."""
+        """This rank's part of this step's batch on ``dist.device``: int64
+        token ids, the stub embeddings in fp32 as the reference's host
+        batch holds them (the model casts them to its dtype)."""
+        from repro_torch.train.train_loop import shard_batch
+
+        part = shard_batch(self.cfg, self._host_batch(step), self.dist)
         return {name: torch.from_numpy(np.ascontiguousarray(arr)).to(
                     self.dist.device,
                     dtype=torch.float32 if arr.dtype.kind == "f"
                     else torch.int64)
-                for name, arr in self._host_batch(step).items()}
+                for name, arr in part.items()}

@@ -1,21 +1,28 @@
-"""AdamW with fp32 master weights (counterpart of ``repro.train.optimizer``)
-at data-parallel degree 1.
+"""AdamW with fp32 master weights and ZeRO-1 (counterpart of
+``repro.train.optimizer``).
 
 A copy of the reference's update rule: fp32 master copies of every leaf,
 the learning rate from warmup plus cosine evaluated at the pre-increment
 step, bias correction at ``t = step + 1``, global-norm clipping at
 ``grad_clip / (gnorm + 1e-6)``, decoupled weight decay on every leaf with
 ``ndim >= 2`` (stacked norm scales included), and the new parameters cast
-back to the model dtype.  ZeRO-1 at dp = 1 is the full copy.  Leaves are
-visited in the reference's tree order (dict keys sorted), so the global
-norm sums in the same order.
+back to the model dtype.  Leaves are visited in the reference's tree
+order (dict keys sorted), so the global norm sums in the same order.
+
+Over the data axes, as the reference: the gradients psum over every data
+axis but the shard axis (``data``); under ZeRO-1 with ``data`` above 1
+each rank owns a 1/dp slice of every flattened, zero-padded leaf's
+master, m and v, the gradient is psum-scattered to the owner
+(:meth:`~repro_torch.core.dist.Dist.psum_scatter`), the global norm is
+psummed over ``data``, and the updated slices are all-gathered back into
+the parameters.  Without ZeRO-1 (or at dp = 1) every rank keeps the full
+copy.  The leaves are this rank's shards (``param_specs``), so on a
+``(data, model)`` mesh each slice is of the rank's model shard.
 
 Unlike the reference, which returns new arrays (and donates the old ones
 to ``jit``), :meth:`AdamW.update` updates the parameters, masters and
 moments in place and returns the same tensors: no second copy of the
-state exists at any time.  The DP reduction, ZeRO-1 sharding over more
-than one rank and int8 gradient compression belong to the DP wire
-(ROADMAP.md A3d).
+state exists at any time.  int8 gradient compression is ROADMAP.md A3d.
 """
 
 from __future__ import annotations
@@ -82,17 +89,42 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
-class AdamW:
-    """AdamW on one data-parallel rank (the reference's ``AdamW`` with no
-    data axes and no shard axis)."""
+def _flat_pad(x, dp: int):
+    """``x`` flattened, zero-padded to a multiple of ``dp`` and viewed as
+    ``[dp, -1]`` (the reference's ``_flat_pad``)."""
+    flat = x.reshape(-1)
+    pad = (-flat.numel()) % dp
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    return flat.view(dp, -1)
 
-    def __init__(self, cfg: AdamWConfig):
+
+class AdamW:
+    """The reference's manual-SPMD ``AdamW`` on ``dist``'s mesh (the
+    one-device ``Dist`` by default): ``data_axes`` the batch axes the
+    gradients reduce over, ZeRO-1's shard axis ``data`` when it has more
+    than one rank and ``cfg.zero1``."""
+
+    def __init__(self, cfg: AdamWConfig, dist=None):
         if cfg.grad_compress:
             raise not_ported("int8 gradient compression", "A3d")
         self.cfg = cfg
+        self.dist = dist
+        self.data_axes = dist.present_batch_axes if dist is not None else ()
+        dp = dist.axis_size("data") if dist is not None else 1
+        self.shard_axis = "data" if dp > 1 and cfg.zero1 else None
+        self.dp = dp if self.shard_axis else 1
+
+    def _own(self, x):
+        """This rank's ZeRO-1 slice of ``x`` (a copy), or ``x`` itself."""
+        if self.shard_axis is None:
+            return x
+        idx = self.dist.axis_index(self.shard_axis)
+        return _flat_pad(x, self.dp)[idx].clone()
 
     def init(self, params) -> OptState:
-        master = tree_map(lambda p: p.detach().float().clone(), params)
+        master = tree_map(lambda p: self._own(p.detach().float().clone()),
+                          params)
         return OptState(
             0, master, tree_map(torch.zeros_like, master),
             tree_map(torch.zeros_like, master),
@@ -113,12 +145,15 @@ class AdamW:
         if len(flat_g) != len(flat_p):
             raise ValueError("grads do not match the parameter tree")
 
+        flat_g = [self._reduce(g) for g in flat_g]
         # global grad-norm clip (over the full parameter set), fp32
         sq = None
         for g in flat_g:
             g32 = g.float()
             s = (g32 * g32).sum()
             sq = s if sq is None else sq + s
+        if self.shard_axis:
+            sq = self.dist.psum(sq, self.shard_axis)
         gnorm = torch.sqrt(sq)
         scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-6), max=1.0)
 
@@ -137,8 +172,40 @@ class AdamW:
             if p.dim() >= 2:
                 upd.add_(pm, alpha=cfg.weight_decay)
             pm.sub_(upd.mul_(lr))
-            p.copy_(pm)  # materialise at model precision
+            p.copy_(self._gather(pm, p))  # at model precision
         new_state = OptState(state.step + 1, state.master, state.m, state.v,
                              state.err)
         return params, new_state, {"grad_norm": gnorm,
                                    "lr": torch.tensor(lr)}
+
+    def _reduce(self, g):
+        """The data-parallel reduction: psum over the data axes but the
+        shard axis, then this rank's slice of the psum over it (fp32).
+        With nothing to reduce, ``g`` itself (no fp32 copy of every leaf
+        at once)."""
+        axes = [a for a in self.data_axes
+                if a != self.shard_axis and self.dist.axis_size(a) > 1]
+        if not axes and self.shard_axis is None:
+            return g
+        g = g.float()
+        for a in axes:
+            g = self.dist.psum(g, a)
+        if self.shard_axis is None:
+            return g
+        return self.dist.psum_scatter(_flat_pad(g, self.dp), self.shard_axis)
+
+    def _gather(self, pm, p):
+        """The full leaf from every rank's master slice (or ``pm``)."""
+        if self.shard_axis is None:
+            return pm
+        full = self.dist.all_gather(pm, self.shard_axis, dim=0)
+        return full[:p.numel()].view(p.shape)
+
+    def state_specs(self, pspecs):
+        """Each state leaf's sharding, as the reference's ``state_specs``:
+        the ZeRO-1 slices over ``data`` (``("data",)``), else the
+        parameters' specs; ``err`` replicated."""
+        sliced = (tree_map(lambda _: (self.shard_axis,), pspecs)
+                  if self.shard_axis else pspecs)
+        return OptState((), sliced, sliced, sliced,
+                        tree_map(lambda _: (), pspecs))

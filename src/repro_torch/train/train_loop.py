@@ -12,12 +12,18 @@ assemble (prefill's logits over both axes, decode's tokens over
 ``data``); parameters and caches stay this rank's shards (``param_specs``,
 ``lm.init_cache``).  On one device all of it is the identity.
 
-The train step runs at ring degree 1 (above it, ROADMAP.md A3a).  It is
-the reference's: the loss's gradients (autograd through the TATP
-linears' explicit dgrad/wgrad and the attention and SSD kernels'
-backwards), the gradient bookkeeping over the token and ring axes
-(identities at degree 1: :func:`token_axes` is empty and
-:func:`reduce_model_axis_grads` returns the grads), then AdamW.
+The train step is the reference's: each rank's loss over its rows (over
+``data``) and its sequence block (over the ring, ``tatp``) and its
+gradients (autograd through the TATP rings' explicit dgrad/wgrad, ring
+attention's rounds, the streamed cross-entropy and the collectives'
+transposes, on the GEMM and attention kernels), the gradient bookkeeping
+over the token and ring axes (:func:`token_axes`: the count psummed
+over them, each rank's loss ``nll / count + aux / shards``;
+:func:`reduce_model_axis_grads`: ring-replicated leaves psummed over the
+ring), then AdamW over the data axes (ZeRO-1 shards its state over
+``data``).  Every rank takes its part of the global batch
+(:func:`shard_batch`; ``SyntheticDataset`` does it).  On one device all
+of the bookkeeping is the identity.
 """
 
 from __future__ import annotations
@@ -27,33 +33,44 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch import not_ported
 from repro_torch.configs.base import ModelConfig, ParallelConfig, ShapeConfig
 from repro_torch.core.dist import Dist
 from repro_torch.models import lm
-from repro_torch.models.transformer import RunCtx, init_params
+from repro_torch.models.transformer import RunCtx, init_params, param_specs
 from repro_torch.train.optimizer import (AdamW, AdamWConfig, OptState,
                                          tree_leaves)
 
 
 def token_axes(par: ParallelConfig, dist: Dist) -> tuple[str, ...]:
-    """Mesh axes over which training tokens are partitioned: none on one
-    device.  The batch over ``data`` and the sequence over the ring are
-    the train ring's (ROADMAP.md A3a): above degree 1 on either axis this
-    raises, so no rank trains the whole global batch as if alone."""
-    if dist.batch_degree > 1:
-        raise not_ported("data-parallel training", "A3a")
-    if dist.model_degree > 1:
-        raise not_ported("sequence-sharded training tokens", "A3a")
-    return ()
-
-
-def reduce_model_axis_grads(grads, par: ParallelConfig, dist: Dist):
-    """The ring's gradient reduction of ring-replicated leaves; at degree
-    1 the gradients are already complete."""
+    """Mesh axes over which training tokens are partitioned: the batch
+    axes, and the ring under ``tatp`` above degree 1 (the reference's)."""
+    axes = dist.present_batch_axes
     if par.strategy == "tatp" and dist.model_degree > 1:
-        raise not_ported("the ring's gradient reduction", "A3a")
-    return grads
+        axes = axes + (dist.model_axis,)
+    return axes
+
+
+def _has_axis(spec, axis: str) -> bool:
+    return any(e == axis or (isinstance(e, (tuple, list)) and axis in e)
+               for e in spec)
+
+
+def reduce_model_axis_grads(grads, pspecs, par: ParallelConfig, dist: Dist):
+    """Under ``tatp`` the tokens are sharded over the ring, so the grads
+    of ring-replicated leaves (norm scales, biases, ...) psum over it;
+    ring-sharded leaves arrive complete through the collectives'
+    transposes.  ``pspecs``: :func:`param_specs` of the tree.  At degree 1
+    the grads as they are."""
+    if par.strategy != "tatp" or dist.model_degree <= 1:
+        return grads
+    mx = dist.model_axis
+
+    def red(g, spec):
+        if isinstance(g, dict):
+            return {k: red(g[k], spec[k]) for k in g}
+        return g if _has_axis(spec, mx) else dist.psum(g, mx)
+
+    return red(grads, pspecs)
 
 
 @dataclass(frozen=True)
@@ -80,18 +97,25 @@ def make_train_step(cfg: ModelConfig, par: ParallelConfig, dist: Dist,
     ctx = RunCtx(cfg, par, dist, phase="train", **hooks)
     opt_cfg = opt_cfg or AdamWConfig(zero1=par.zero1,
                                      grad_compress=par.grad_compress)
-    opt = AdamW(opt_cfg)
-    token_axes(par, dist)  # none: the counts need no reduction
+    opt = AdamW(opt_cfg, dist)
+    pspecs = param_specs(cfg, par.strategy)
+    tok_axes = token_axes(par, dist)
 
     def step_fn(params, opt_state: OptState, batch):
-        nll, cnt, grads = loss_and_grads(ctx, params, batch)
-        grads = reduce_model_axis_grads(grads, par, dist)
+        nll, cnt_g, grads = loss_and_grads(ctx, params, batch)
+        grads = reduce_model_axis_grads(grads, pspecs, par, dist)
         params, opt_state, om = opt.update(params, grads, opt_state)
-        metrics = {"loss": nll / cnt, "tokens": cnt, **om}
+        for a in tok_axes:
+            nll = dist.psum(nll, a)
+        metrics = {"loss": nll / cnt_g, "tokens": cnt_g, **om}
         return params, opt_state, metrics
 
     def init_fn(generator: torch.Generator):
-        params = init_params(cfg, generator, dist.device)
+        if dist.n_devices > 1:  # this rank's shards, drawn shard by shard
+            from repro_torch.weights import init_sharded_params
+            params = init_sharded_params(cfg, generator, dist, par.strategy)
+        else:
+            params = init_params(cfg, generator, dist.device)
         return params, opt.init(params)
 
     return TrainBundle(step_fn, init_fn, ctx, opt)
@@ -99,15 +123,25 @@ def make_train_step(cfg: ModelConfig, par: ParallelConfig, dist: Dist,
 
 def loss_and_grads(ctx: RunCtx, params, batch):
     """The gradient half of the train step: ``(nll_sum, count, grads)``,
-    the sums detached and ``grads`` in ``params``' layout.  The parameters
-    require grad only during the call."""
+    the sums detached and ``grads`` in ``params``' layout.  ``nll_sum``
+    is this rank's; ``count`` is psummed over :func:`token_axes`, and
+    each rank's loss is ``nll / count + aux / shards`` (shards: the
+    ranks over those axes), as the reference's.  The parameters require
+    grad only during the call."""
+    dist = ctx.dist
+    axes = token_axes(ctx.par, dist)
+    shards = 1
+    for a in axes:
+        shards *= dist.axis_size(a)
     flat = [p for _, p in tree_leaves(params)]
     for p in flat:
         p.requires_grad_(True)
     try:
         nll, cnt, aux = lm.loss_fn(ctx, params, batch)
         cnt = cnt.detach()
-        loss = nll / cnt + aux  # one loss shard
+        for a in axes:
+            cnt = dist.psum(cnt, a)
+        loss = nll / cnt + (aux / shards if shards > 1 else aux)
         grads = torch.autograd.grad(loss, flat)
     finally:
         for p in flat:
@@ -154,15 +188,15 @@ def _seq_block(dist: Dist, t):
 
 
 def shard_batch(cfg: ModelConfig, batch: dict, dist: Dist) -> dict:
-    """This rank's part of a global prefill batch (the reference's
-    ``batch_specs`` for ``tatp``): the rows over ``data``; the tokens' and
-    an encoder's frames' sequence over ``model``; a vision prefix
-    replicated over ``model``."""
+    """This rank's part of a global prefill or train batch (the
+    reference's ``batch_specs`` for ``tatp``): the rows over ``data``; the
+    tokens', labels' and an encoder's frames' sequence over ``model``; a
+    vision prefix replicated over ``model``."""
     check_prompt_len(dist, batch["tokens"].shape[1])
     out = {}
     for name, t in batch.items():
         t = t[batch_rows(dist, t.shape[0])]
-        if name in ("tokens", "enc_embeds"):
+        if name in ("tokens", "labels", "valid", "enc_embeds"):
             t = _seq_block(dist, t)
         out[name] = t
     return out

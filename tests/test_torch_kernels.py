@@ -20,7 +20,8 @@ from repro.kernels.tatp_matmul.ref import matmul_ref as jax_matmul_ref
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ops import attention
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                     attention_ref)
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.tatp_matmul import ops as gemm_ops
 from repro_torch.kernels.tatp_matmul.ops import tatp_dot
@@ -344,11 +345,11 @@ def test_attention_backward_path(dtype, d, want):
      + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
     # q, k, v, o, do, lse, delta, dq, dk, dv; the six sizes; 24 strides;
-    # scale, causal, window, cap, dtype, path; stream
+    # scale, causal, window, cap, delta_in, dtype, path; stream
     ("flash_attention", "flash_attention_bwd_launch",
      [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_int64] * 24
      + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
     ("ssd", "ssd_intra_chunk_launch",
      [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_int64] * 9
      + [ctypes.c_void_p]),
@@ -508,6 +509,38 @@ def test_attention_backward_kernel_matches_plain(cuda_device, hq, hkv, s,
         assert got.dtype == ref.dtype
         np.testing.assert_allclose(_np(got.cpu()), _np(ref.cpu()),
                                    **_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("causal,cap", [(True, None), (False, None),
+                                        (True, 30.0)])
+def test_attention_backward_outside_delta_matches_own(cuda_device, causal,
+                                                      cap, d, dtype):
+    """The backward kernel with an outside delta (``delta_in``, as ring
+    attention's rounds call it) at degree 1: delta = rowsum(dO O) from an
+    fp32 O gives the plain version's gradients with that delta and the
+    kernel's own-delta gradients, within the dtype's tolerance."""
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    q, k, v, do = (torch.randn(2, h, 96, d, generator=g, device=cuda_device)
+                   .to(_TORCH[dtype]) for h in (4, 2, 2, 4))
+    kw = dict(causal=causal, cap=cap)
+    with torch.no_grad():
+        o, lse = attention(q, k, v, return_lse=True, **kw)
+        o32 = attention_ref(q.float(), k.float(), v.float(), **kw)
+    delta = (do.float() * o32).sum(-1).contiguous()
+    before = flash_ops.attention_bwd.launches_delta_in
+    outside = flash_ops.attention_bwd(q, k, v, o, lse, do, delta=delta, **kw)
+    own = flash_ops.attention_bwd(q, k, v, o, lse, do, **kw)
+    plain = attention_bwd_ref(q, k, v, o, lse, do, delta=delta, **kw)
+    torch.cuda.synchronize()
+    assert flash_ops.attention_bwd.launches_delta_in == before + 1
+    for got, a, b in zip(outside, plain, own):
+        assert got.dtype == a.dtype
+        for want in (a, b):
+            np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()),
+                                       **_tol(dtype))
 
 
 @pytest.mark.cuda

@@ -776,26 +776,37 @@ def _ring_dist(r=2):
     return Dist(torch.device("cpu"), mesh_shape=(1, r))
 
 
-def test_unported_ring_paths_raise():
+def test_unported_ring_paths_raise(monkeypatch):
+    """What the train ring leaves (A3a-2) raises before any collective;
+    the ring's own checks hold."""
     sys.path.insert(0, str(SRC))
     from repro_torch.configs import get_reduced
-    from repro_torch.configs.base import ParallelConfig, ShapeConfig
-    from repro_torch.core import tatp
+    from repro_torch.configs.base import ParallelConfig
     from repro_torch.core.dist import check_transport
-    from repro_torch.train.train_loop import (check_prompt_len,
-                                              make_train_step)
+    from repro_torch.kernels.flash_attention.ops import attention as flash
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.models import lm
+    from repro_torch.models.transformer import RunCtx
+    from repro_torch.train.train_loop import check_prompt_len
 
     dist = _ring_dist()
-    w = torch.zeros(4, 2, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="A3a"):
-        tatp.tatp_matmul(torch.zeros(2, 4), w, "model", 2, dist=dist)
-    with pytest.raises(NotImplementedError, match="A3a"):
-        tatp.dgrad_stream_w(torch.zeros(2, 4), w, "model", 2, dist=dist)
-    with pytest.raises(NotImplementedError, match="A3a"):
-        tatp.wire_relay(w, "model", 2, 1, dist=dist)
-    with pytest.raises(NotImplementedError, match="A3a"):
-        make_train_step(get_reduced(ARCH), ParallelConfig(), dist,
-                        ShapeConfig("t", "train", 16, 2))
+    batch = {"tokens": torch.zeros(1, 4, dtype=torch.long)}
+    for name, par in (
+            ("internvl2-1b", ParallelConfig()),
+            ("seamless-m4t-large-v2", ParallelConfig()),
+            (ARCH, ParallelConfig(zigzag=True)),
+            (ARCH, ParallelConfig(remat=True,
+                                  remat_policy="tatp_outputs"))):
+        ctx = RunCtx(get_reduced(name), par, dist, phase="train")
+        with pytest.raises(NotImplementedError, match="A3a-2"):
+            lm.loss_fn(ctx, {}, batch)
+    q = torch.zeros(1, 2, 4, 8, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="A3a-2"):
+        flash(q, q, q, return_lse=True)
+    monkeypatch.setenv("WORLD_SIZE", "4")
+    for extra in (["--ckpt-dir", "ck"], ["--wafers", "2"]):
+        with pytest.raises(NotImplementedError, match="A3a-2"):
+            train_main(["--reduced", "--device", "cpu", *extra])
     with pytest.raises(ValueError, match="not a multiple of the ring"):
         check_prompt_len(_ring_dist(4), 18)
     with pytest.raises(ValueError, match="one GPU a rank"):

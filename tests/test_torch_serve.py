@@ -183,16 +183,20 @@ def test_unported_paths_name_their_roadmap_item(model):
     ring = replace(tctx, cfg=moe, dist=_RingDist(torch.device("cpu")))
     with pytest.raises(NotImplementedError, match="A3"):
         ttf.moe_block(ring, p, torch.zeros(1, 4, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="A3a"):  # train ring
+    # the cross-entropy of ring-replicated tokens (megatron's); tatp's
+    # ring takes the streamed one
+    with pytest.raises(NotImplementedError, match="A3d"):
         tlm.vocab_parallel_xent(ring, torch.zeros(1, 4, 8),
                                 torch.zeros(1, 4, dtype=torch.long),
                                 torch.ones(1, 4))
+    # data-parallel training runs (the rows over data, ZeRO-1 over it)
     from repro_torch.configs.base import ShapeConfig
-    from repro_torch.train.train_loop import make_train_step
-    with pytest.raises(NotImplementedError, match="A3a"):  # data parallel
-        make_train_step(cfg, ParallelConfig(),
-                        Dist(torch.device("cpu"), mesh_shape=(2, 1)),
-                        ShapeConfig("t", "train", 16, 4))
+    from repro_torch.train.train_loop import make_train_step, token_axes
+    dp = Dist(torch.device("cpu"), mesh_shape=(2, 1))
+    bundle = make_train_step(cfg, ParallelConfig(), dp,
+                             ShapeConfig("t", "train", 16, 4))
+    assert token_axes(ParallelConfig(), dp) == ("data",)
+    assert bundle.opt.shard_axis == "data" and bundle.opt.dp == 2
     for strategy in ("megatron", "fsdp"):  # run at degree 1, not above
         with pytest.raises(NotImplementedError, match="A3"):
             ttf._linear(replace(ring, par=ParallelConfig(strategy=strategy)),

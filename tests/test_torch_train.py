@@ -230,8 +230,7 @@ def test_tatp_matmul_grads_match_reference(shape):
     with torch.no_grad():  # no autograd: the forward schedule alone
         assert tatp.tatp_matmul(xt, wt, "model", 1,
                                 dot=matmul_ref).grad_fn is None
-    with pytest.raises(NotImplementedError, match="A3"):
-        tatp.tatp_matmul(xt, wt, "model", 2, dot=matmul_ref)
+    # above ring degree 1: tests/test_torch_ring_grads.py
 
 
 @pytest.mark.parametrize("hq,hkv,causal,window,cap", [
@@ -478,12 +477,18 @@ def test_train_main_prints_reference_keys(capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--ckpt-dir", "ck", "--mesh", "1", "2"], "A3"),
-    (["--mesh", "2", "1"], "A3"),
-    (["--strategy", "megatron", "--mesh", "1", "4"], "A3"),
+    (["--ckpt-dir", "ck", "--mesh", "1", "2"], "A3a-2"),
+    (["--wafers", "2", "--mesh", "2", "1"], "A3a-2"),
+    (["--strategy", "megatron", "--mesh", "1", "4", "--ckpt-dir", "ck"],
+     "A3a-2"),
 ])
-def test_train_unported_flags_raise(flags, item):
+def test_train_unported_flags_raise(flags, item, monkeypatch):
+    """Over several ranks (the mesh's, as ``torch.distributed.run`` would
+    set them) sharded checkpoints and a stage's submesh raise before the
+    rank joins the world."""
     from repro_torch.launch.train import main
+    mesh = [int(f) for f in flags[flags.index("--mesh") + 1:][:2]]
+    monkeypatch.setenv("WORLD_SIZE", str(mesh[0] * mesh[1]))
     with pytest.raises(NotImplementedError, match=item):
         main(["--reduced", "--device", "cpu", "--steps", "1", *flags])
 
