@@ -150,16 +150,19 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    step ms, tokens/s, MFU and peak GB;
 9. engine — engine-mode serving (``repro_torch.launch.serve --serve
    --auto-plan``, ``serve_engine``) of deepseek-7b at its 30 layers,
-   bf16, on ``TorchServeExecutor`` and a wall clock: 12 Poisson requests
-   at 4 a second into 4 decode slots, 128 prompt and 32 new tokens each,
-   with a fresh plan cache.  (a) Fault-free: every request finished with
-   its 32 tokens, and exactly 210 GEMM and 30 flash launches per prefill
-   group the engine ran (decode runs no kernel), all ``wgmma`` / ``mma``.
-   (b) The same with ``--fault-at 2.0``: exactly one replan, whose plan
-   hash equals ``replan_serve``'s offline solve for the same fault, and
-   every request finished or rejected with a reason.  Each run logs
-   TTFT and TPOT p50/p99, tokens/s, makespan, mean occupancy, peak GB and
-   the executor's call times; (b) its recovery event.  (c) fp32, TF32
+   bf16, on ``TorchServeExecutor`` and a wall clock, 4 decode slots, 128
+   prompt and 32 new tokens a request, each run with a fresh plan cache
+   (``ENGINE_RUNS``).  (a) Fault-free: 100 Poisson requests at 1.25 a
+   second (below the ~1.8 a second the slots serve), every request
+   finished with its 32 tokens, and exactly 210 GEMM and 30 flash
+   launches per prefill group the engine ran (decode runs no kernel), all
+   ``wgmma`` / ``mma``.  (b) The same load with ``--fault-at 2.0``:
+   exactly one replan, whose plan hash equals ``replan_serve``'s offline
+   solve for the same fault, and every request finished or rejected with
+   a reason.  (c) A labelled stress run: 12 requests at 4 a second, twice
+   what the slots serve.  Each run logs TTFT and TPOT p50 (p99 only over
+   100 samples or more) and max, tokens/s, makespan, mean occupancy, peak
+   GB and the executor's call times; (b) its recovery event.  (c) fp32, TF32
    off, at full width: deepseek-7b (2 layers, prompts of 128 and 96) and
    zamba2-2.7b (6 layers, prompts of 256 and 512) through ``ServeEngine``
    on a virtual clock, each executor call charged 1.0 s, with a die fault
@@ -204,7 +207,28 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    logits within RING_BF16_TOL of phase 5's degree-1 run of the same
    weights and its first tokens identical (but at a near tie), with
    each rank's prefill ms, ms/token, peak GB and the host-staged
-   transport's share, and the token agreement with degree 1 reported.
+   transport's share, and the token agreement with degree 1 reported;
+12. train ring — deepseek-7b trains through the TATP ring: the flash
+   backward with an outside delta (``delta_in``) at one round of the
+   (1, 4) train ([4, 32, 128, 128] bf16, the ring's global row LSE,
+   causal on the own block and unmasked on an earlier one) against its
+   plain version with the same delta, timed beside the own-delta mode and
+   SDPA's backward, and the dgrad and wgrad per-round GEMM tiles at 512
+   rows a rank against their plain versions and ``torch.matmul``, in this
+   process alone; the degree-1 fp32 run (2 layers, batch 4 x seq 128, 3
+   steps, TF32 off); then ``torch.distributed.run`` starts four ranks of
+   this script (``--train-rank``) sharing the card over gloo, every step
+   within RING_TRAIN's wall-clock limit: the fp32 run on meshes (1, 4)
+   and (2, 2) (ZeRO-1 over data) from the shards of the same tree, each
+   step's loss within 1e-4 of degree 1's, each rank's grad norm within
+   1e-4 of the degree-1 gradient's norm over that rank's shards (the
+   reference clips by it), each leaf's final parameters within 1e-4
+   relative L2, exact launches on ``simt``; then ``launch.train --mesh 1
+   4 --layers 4`` in bf16 (batch 4 x seq 512, remat, 3 steps): exact
+   GEMM launches a rank by layout, flash forwards and backwards (every
+   backward with an outside delta), every one on ``wgmma`` / ``mma``, the
+   first loss within 1e-2 of phase 5's degree-1 run on the same weights
+   and batch, and each rank's step ms, staged share, GB sent and peak GB.
 
 It then prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``.
@@ -1689,6 +1713,8 @@ def read_layouts():
 def zero_launches():
     for fn in counters().values():
         fn.launches = 0
+        if hasattr(fn, "launches_delta_in"):
+            fn.launches_delta_in = 0
         for attr in ("launches_by_path", "launches_by_layout"):
             for key in getattr(fn, attr, {}):
                 getattr(fn, attr)[key] = 0
@@ -3821,16 +3847,19 @@ def ring_rank_main(out_dir) -> int:
     return 0
 
 
-def run_ranks(torch, out_dir):
-    """``torch.distributed.run`` of this script's rank entry on
-    RING["ranks"] processes, in a session of its own so a timeout stops
-    every rank; a failure or a timeout raises with the ranks' output."""
+def run_ranks(torch, out_dir, entry="--ring-rank", timeout_s=None):
+    """``torch.distributed.run`` of this script's rank ``entry`` (phase
+    11's ``--ring-rank`` or phase 12's ``--train-rank``) on RING["ranks"]
+    processes, in a session of its own so a timeout (RING's by default)
+    stops every rank; a failure or a timeout raises with the ranks'
+    output."""
     import os
     import signal
 
+    timeout_s = timeout_s or RING["timeout_s"]
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc-per-node", str(RING["ranks"]), str(ROOT / "chip_smoke.py"),
-           "--ring-rank", str(out_dir)]
+           entry, str(out_dir)]
     env = dict(os.environ, OMP_NUM_THREADS="2",
                PYTHONPATH=os.pathsep.join(
                    [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")]
@@ -3839,11 +3868,11 @@ def run_ranks(torch, out_dir):
                             stderr=subprocess.STDOUT, text=True,
                             start_new_session=True)
     try:
-        out, _ = proc.communicate(timeout=RING["timeout_s"])
+        out, _ = proc.communicate(timeout=timeout_s)
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, signal.SIGKILL)
         out, _ = proc.communicate()
-        raise SmokeFailure(f"the ring's ranks passed {RING['timeout_s']} s:"
+        raise SmokeFailure(f"the ring's ranks passed {timeout_s} s:"
                            f"\n{out[-6000:]}")
     for line in out.splitlines():
         if "[plan]" in line or "WaferPlan" in line or "Traceback" in line:
@@ -3995,6 +4024,465 @@ def phase_ring(torch, randn, degree1):
     return rows, runs
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the TATP ring trains deepseek-7b over four ranks on the card
+# ---------------------------------------------------------------------------
+
+# four ranks of this script (``--train-rank``) sharing the card over gloo;
+# each train step within step_s of wall clock, the ranks within timeout_s
+RING_TRAIN = dict(ranks=4, backend="gloo", timeout_s=420, step_s=60)
+# fp32 parity (TF32 off): deepseek-7b at full width, 2 layers, batch 4 x
+# seq 128, 3 steps from the shards of one tree on each mesh, against the
+# degree-1 run of that tree on the card
+RING_TRAIN_PARITY = dict(arch="deepseek-7b", n_layers=2, batch=4, seq=128,
+                         steps=3, seed=2, meshes=((1, 4), (2, 2)))
+# relative: each step's loss and grad norm, each leaf's final parameters
+# (relative L2)
+RING_TRAIN_TOL = 1e-4
+# bf16 through launch.train --mesh 1 4 --layers 4: phase 5's deepseek-7b
+# train run (seed 0, batch 4 x seq 512, remat) over the ring
+RING_TRAIN_BF16 = dict(arch="deepseek-7b", layers=TRAIN["n_layers"],
+                       batch=TRAIN["batch"], seq=TRAIN["seq"], steps=3,
+                       mesh=(1, 4))
+RING_TRAIN_BF16_TOL = 1e-2  # the first step's loss against degree 1's
+# one rank's rows at (1, 4): batch x seq / 4, the GEMM tiles' M
+RING_TRAIN_M = TRAIN["batch"] * TRAIN["seq"] // RING_TRAIN["ranks"]
+# one round of the (1, 4) train ring's attention: [B, H, S/4, D]
+RING_TRAIN_ATTN = (TRAIN["batch"], HEADS, TRAIN["seq"] // RING_TRAIN["ranks"],
+                   HEAD_DIM)
+
+
+def ring_train_launches(cfg, r, i, remat):
+    """Kernel launches of one train step on rank ``i`` of a ring of ``r``
+    (a causal decoder, :func:`train_launches` at degree 1): every linear's
+    forward, dgrad and wgrad as ``r`` per-round tiles each, the streamed
+    head's three products once a block (``r`` blocks), and in every
+    attention block one flash forward (again under remat) and one flash
+    backward, all with an outside delta, a visible round (the own block
+    and the ``i`` earlier ones).  Returns (launches by kernel, GEMM
+    launches by layout, flash backwards with an outside delta)."""
+    n, lay = train_launches(cfg, remat)
+    n = dict(n, tatp_matmul=n["tatp_matmul"] * r,
+             flash_attention=n["flash_attention"] * (i + 1),
+             flash_attention_bwd=n["flash_attention_bwd"] * (i + 1))
+    return n, {k: v * r for k, v in lay.items()}, n["flash_attention_bwd"]
+
+
+def _model_cut(t, spec, r, m):
+    """``t``'s block on model index ``m`` of a ring of ``r`` by its
+    ``param_specs`` entry (the vocab or column dim over ``model``)."""
+    for dim, axis in enumerate(spec):
+        if axis == "model":
+            blk = t.shape[dim] // r
+            t = t.narrow(dim, m * blk, blk)
+    return t
+
+
+def phase_ring_train_rows(torch, randn):
+    """The train ring's kernel rows, in this process alone: the flash
+    backward with an outside delta at one round of the (1, 4) train
+    ([4, 32, 128, 128] bf16; rank 3's queries, whose merged output and
+    global row LSE come from its four rounds), causal on the own block and
+    unmasked on an earlier one, against its plain version with the same
+    delta and timed beside the own-delta mode and SDPA's backward; then
+    the dgrad and wgrad per-round GEMM tiles at 512 rows a rank, each
+    against its plain version and torch.matmul."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import (attention,
+                                                         attention_bwd)
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    from repro_torch.kernels.tatp_matmul.ops import tatp_dot
+    from repro_torch.kernels.tatp_matmul.ref import matmul_ref
+    from repro_torch.models.attention import _merge
+
+    b, h, s, d = RING_TRAIN_ATTN
+    r = RING_TRAIN["ranks"]
+
+    def blk():
+        return randn(b, s, h, d, dtype=torch.bfloat16).transpose(1, 2)
+
+    q, do = blk(), blk()
+    kv = [(blk(), blk()) for _ in range(r)]
+    acc = lse = None
+    with torch.no_grad():
+        for j, (k, v) in enumerate(kv):
+            o, lse_j = attention(q, k, v, causal=j == r - 1,
+                                 return_lse=True)
+            acc, lse = _merge(acc, lse, o, lse_j)
+    delta = (do.float() * acc).sum(-1).contiguous()
+    flashes, max_err = [], 0.0
+    for causal, j in ((True, r - 1), (False, 0)):
+        k, v = kv[j]
+        kw = dict(causal=causal, delta=delta)
+        before = (attention_bwd.launches_delta_in,
+                  attention_bwd.launches_by_path["mma"])
+        got = attention_bwd(q, k, v, do, lse, do, **kw)
+        torch.cuda.synchronize()
+        need((attention_bwd.launches_delta_in,
+              attention_bwd.launches_by_path["mma"])
+             == (before[0] + 1, before[1] + 1),
+             "the ring round's flash backward did not take mma with an "
+             "outside delta")
+        ref = attention_bwd_ref(q, k, v, do, lse, do, **kw)
+        what = "causal own block" if causal else "unmasked earlier block"
+        for part, g, want in zip(("dq", "dk", "dv"), got, ref):
+            max_err = max(max_err, compare(
+                f"ring train round {what} outside delta {part}", g, want,
+                *ATTN_TOL["bfloat16"]))
+        qc, kc, vc = (t.contiguous() for t in (q, k, v))
+
+        def sdpa(grad):
+            def run():
+                leaves = [t.detach().requires_grad_(grad)
+                          for t in (qc, kc, vc)]
+                o = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+                if grad:
+                    torch.autograd.grad(o, leaves, do)
+            return run
+
+        pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+        row = dict(
+            shape=[b, h, s, d], causal=causal, path="mma",
+            max_abs_err=max_err,
+            ms=time_ms(torch, lambda: attention_bwd(q, k, v, do, lse, do,
+                                                    **kw), 20),
+            own_delta_ms=time_ms(torch, lambda: attention_bwd(
+                q, k, v, do, lse, do, causal=causal), 20),
+            plain_ms=time_ms(torch, lambda: attention_bwd_ref(
+                q, k, v, do, lse, do, **kw), 5),
+            library_ms=time_ms(torch, sdpa(True), 20)
+            - time_ms(torch, sdpa(False), 20),
+            library="SDPA's backward (its own forward's LSE and delta)")
+        # recompute S, then dP, dV, dK, dQ: five products over the visible
+        # pairs; flash_bwd_bytes and the outside delta read once
+        row["bound_ms"], row["bound_by"] = bound(
+            10 * pairs * d, flash_bwd_bytes(b, h, h, s, s, d) + 4 * b * h * s,
+            "bfloat16")
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        row["library_ratio"] = row["ms"] / row["library_ms"]
+        flashes.append(row)
+    gemms = []
+    m = RING_TRAIN_M
+    for n, kb, per_layer in RING_GEMMS:
+        dy = randn(m, r * kb, dtype=torch.bfloat16)
+        w = randn(n, kb, dtype=torch.bfloat16, scale=kb ** -0.5)
+        x = randn(m, n, dtype=torch.bfloat16, scale=m ** -0.5)
+        dyj = dy[:, kb:2 * kb]  # a round's column block, read in place
+        for lay, a, bb, out in (("dgrad", dyj, w.t(), (m, n)),
+                                ("wgrad", x.t(), dyj, (n, kb))):
+            before = tatp_dot.launches_by_layout[lay]
+            path = gemm_path(a, bb)
+            got = tatp_dot(a, bb)
+            need(tatp_dot.launches_by_layout[lay] == before + 1
+                 and path == "wgmma",
+                 f"ring {lay} tile {list(a.shape)} x {list(bb.shape)}: "
+                 f"layout or path {path}")
+            err = compare(f"ring train {lay} tile {list(a.shape)} x "
+                          f"{list(bb.shape)}", got, matmul_ref(a, bb),
+                          *GEMM_TOL["bfloat16"])
+            contraction = a.shape[1]
+            row = dict(layout=lay, shape=[*a.shape, bb.shape[1]],
+                       path=path, max_abs_err=err,
+                       launches_per_rank_per_step=per_layer * r
+                       * RING_TRAIN_BF16["layers"],
+                       ms=time_ms(torch, lambda: tatp_dot(a, bb)),
+                       plain_ms=time_ms(torch, lambda: matmul_ref(a, bb)),
+                       library_ms=time_ms(torch, lambda: torch.matmul(a, bb)))
+            row["bound_ms"], row["bound_by"] = bound(
+                2 * out[0] * out[1] * contraction,
+                2 * (a.numel() + bb.numel() + out[0] * out[1]), "bfloat16")
+            row["share_of_bound"] = row["bound_ms"] / row["ms"]
+            row["library_ratio"] = row["ms"] / row["library_ms"]
+            gemms.append(row)
+    log(f"[ring train rows] flash backward, outside delta "
+        f"{json.dumps(flashes)}; GEMM tiles {json.dumps(gemms)}")
+    return flashes, gemms
+
+
+def ring_train_degree1(torch, path):
+    """RING_TRAIN_PARITY's degree-1 fp32 run on the card (the whole tree,
+    ``init_params``, same seed): each step's loss, the global grad norm
+    and, for each ring of 4 and 2, the norm of the gradient restricted to
+    each model index's shards (the norm a ring rank clips by: the
+    reference's AdamW psums it over the data axes, not the ring); the
+    final parameters to ``path`` (by leaf name) for the ranks to read."""
+    from repro_torch.configs.base import ParallelConfig, ShapeConfig
+    from repro_torch.core.dist import Dist
+    from repro_torch.models.transformer import param_specs
+    from repro_torch.train.data import SyntheticDataset
+    from repro_torch.train.train_loop import loss_and_grads, make_train_step
+
+    spec = RING_TRAIN_PARITY
+    dev = torch.device("cuda")
+    cfg = parity_config(spec["arch"], spec["n_layers"])
+    shape = ShapeConfig("ring", "train", spec["seq"], spec["batch"])
+    tb = make_train_step(cfg, ParallelConfig(strategy="tatp", remat=False),
+                         Dist(dev), shape)
+    params, state = tb.init_fn(
+        torch.Generator(device=dev).manual_seed(spec["seed"]))
+    data = SyntheticDataset(cfg, shape, Dist(dev), seed=spec["seed"])
+    specs = {"/".join(k): v for k, v in _leaves(param_specs(cfg))}
+    out = dict(losses=[], grad_norms=[], shard_norms={})
+    for step in range(spec["steps"]):
+        nll, cnt, grads = loss_and_grads(tb.ctx, params, data.batch(step))
+        for r in sorted({m for _, m in spec["meshes"]}):
+            out["shard_norms"].setdefault(str(r), []).append([
+                math.sqrt(sum(float(_model_cut(g, specs["/".join(k)], r, m)
+                                    .float().pow(2).sum())
+                              for k, g in _leaves(grads)))
+                for m in range(r)])
+        params, state, om = tb.opt.update(params, grads, state)
+        out["losses"].append(float(nll / cnt))
+        out["grad_norms"].append(float(om["grad_norm"]))
+        del grads
+    torch.save({"/".join(k): p.cpu() for k, p in _leaves(params)}, path)
+    del params, state
+    release(torch)
+    return out
+
+
+def ring_train_parity(torch, mesh, dev, ref_path):
+    """One rank's fp32 parity run on ``mesh``: RING_TRAIN_PARITY's steps
+    through ``make_train_step`` from ``init_sharded_params``' shards of
+    the degree-1 tree, each within RING_TRAIN's step limit; the launches
+    (every one on ``simt``) and each leaf's final rel L2 against its
+    block of the degree-1 run's parameters (``ref_path``, read mapped)."""
+    from repro_torch.configs.base import ParallelConfig, ShapeConfig
+    from repro_torch.core.dist import make_mesh_dist
+    from repro_torch.models.transformer import param_specs
+    from repro_torch.train.data import SyntheticDataset
+    from repro_torch.train.train_loop import make_train_step
+
+    spec = RING_TRAIN_PARITY
+    dist = make_mesh_dist(mesh, dev)
+    cfg = parity_config(spec["arch"], spec["n_layers"])
+    shape = ShapeConfig("ring", "train", spec["seq"], spec["batch"])
+    tb = make_train_step(cfg, ParallelConfig(strategy="tatp", remat=False),
+                         dist, shape)
+    params, state = tb.init_fn(
+        torch.Generator(device=dev).manual_seed(spec["seed"]))
+    data = SyntheticDataset(cfg, shape, dist, seed=spec["seed"])
+    rec = dict(mesh=list(mesh), coords=list(dist.coords), losses=[],
+               grad_norms=[], step_s=[], shard_axis=str(tb.opt.shard_axis))
+    zero_launches()
+    for step in range(spec["steps"]):
+        batch = data.batch(step)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = tb.step_fn(params, state, batch)
+        rec["losses"].append(float(m["loss"]))
+        rec["grad_norms"].append(float(m["grad_norm"]))
+        rec["step_s"].append(time.perf_counter() - t0)
+        need(rec["step_s"][-1] <= RING_TRAIN["step_s"],
+             f"mesh {mesh} rank {dist.coords}: step {step} took "
+             f"{rec['step_s'][-1]:.1f} s > {RING_TRAIN['step_s']} s")
+    rec["launches"], rec["launches_by_path"] = read_launches(), read_paths()
+    ref = torch.load(ref_path, mmap=True, map_location="cpu")
+    specs = {"/".join(k): v for k, v in _leaves(param_specs(cfg))}
+    errs = {}
+    for k, p in _leaves(params):
+        name = "/".join(k)
+        want = _model_cut(ref[name], specs[name], dist.model_degree,
+                          dist.axis_index(dist.model_axis))
+        errs[name] = rel_l2(p, want.to(dev))
+    worst = max(errs, key=errs.get)
+    rec["param_rel_l2"] = dict(max=errs[worst], leaf=worst)
+    need(errs[worst] <= RING_TRAIN_TOL, f"mesh {mesh} rank {dist.coords}: "
+         f"{worst} rel L2 {errs[worst]:.3e} against degree 1")
+    del params, state, ref
+    release(torch)
+    return rec
+
+
+def ring_train_bf16(torch, rank):
+    """The bf16 train through ``launch.train``'s ``train`` with the CLI's
+    arguments (``--mesh 1 4 --layers 4``): launches by kernel, path and
+    layout and the flash backwards with an outside delta, from zero; each
+    step's ms (within RING_TRAIN's limit), the host-staged transport's
+    seconds, calls and GB sent, and the peak GB."""
+    from repro_torch.kernels.flash_attention.ops import attention_bwd
+    from repro_torch.launch.train import build_parser, train
+
+    spec = RING_TRAIN_BF16
+    args = build_parser().parse_args([
+        "--arch", spec["arch"], "--layers", str(spec["layers"]),
+        "--mesh", *map(str, spec["mesh"]), "--steps", str(spec["steps"]),
+        "--batch", str(spec["batch"]), "--seq", str(spec["seq"]),
+        "--dist-backend", RING_TRAIN["backend"], "--log-every", "1000"])
+    torch.cuda.reset_peak_memory_stats()
+    history, stats = [], {}
+    zero_launches()
+    res = train(args, history=history, stats=stats)
+    torch.cuda.synchronize()
+    dist = stats["dist"]
+    stage = dist.stage
+    step_s = sum(hh["ms"] for hh in history) / 1e3
+    for hh in history:
+        need(hh["ms"] <= RING_TRAIN["step_s"] * 1e3,
+             f"rank {rank}: bf16 step {hh['step']} took {hh['ms']:.0f} ms")
+    return dict(
+        summary=res, mesh=list(dist.mesh_shape), coords=list(dist.coords),
+        losses=[hh["loss"] for hh in history],
+        grad_norms=[hh["grad_norm"] for hh in history],
+        step_ms=[hh["ms"] for hh in history],
+        launches=read_launches(), launches_by_path=read_paths(),
+        layouts=read_layouts(),
+        delta_in_launches=attention_bwd.launches_delta_in,
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+        transport_s=stage.seconds, transport_calls=stage.calls,
+        transport_gb=stage.bytes / 1e9,
+        staged_share=stage.seconds / step_s)
+
+
+def ring_train_rank_main(out_dir) -> int:
+    """One rank of phase 12, started by ``torch.distributed.run``: the
+    fp32 parity runs on each mesh, then the bf16 train, its record to
+    ``rank<rank>.json``."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.core.dist import init_world, world_from_env
+
+    rank, world, local = world_from_env()
+    dev = torch.device("cuda", local % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_world(RING_TRAIN["backend"])
+    try:
+        t0 = time.perf_counter()
+        rec = dict(rank=rank, parity={
+            "x".join(map(str, mesh)): ring_train_parity(
+                torch, mesh, dev, Path(out_dir) / "degree1.pt")
+            for mesh in RING_TRAIN_PARITY["meshes"]})
+        rec["parity_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rec["bf16"] = ring_train_bf16(torch, rank)
+        rec["bf16_s"] = time.perf_counter() - t0
+        (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(rec))
+    finally:
+        tdist.destroy_process_group()
+    return 0
+
+
+def phase_ring_train(torch, randn, degree1_loss):
+    """Phase 12: deepseek-7b trains through the TATP ring on four ranks
+    sharing the card (gloo, host-staged).  ``degree1_loss`` is phase 5's
+    first bf16 step loss on the same weights and batch.  Returns the
+    kernel rows, each rank's bf16 run (launches, layouts, paths) and the
+    flash backwards with an outside delta they launched."""
+    import os
+    import tempfile
+
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    flashes, gemms = phase_ring_train_rows(torch, randn)
+    r = RING_TRAIN["ranks"]
+    shm = "/dev/shm" if os.path.isdir("/dev/shm") else None
+    with tempfile.TemporaryDirectory(dir=shm) as tmp:
+        t0 = time.perf_counter()
+        ref = ring_train_degree1(torch, Path(tmp) / "degree1.pt")
+        degree1_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        run_ranks(torch, tmp, "--train-rank", RING_TRAIN["timeout_s"])
+        ranks_s = time.perf_counter() - t0
+        recs = [json.loads((Path(tmp) / f"rank{i}.json").read_text())
+                for i in range(r)]
+    cfg = parity_config(RING_TRAIN_PARITY["arch"],
+                        RING_TRAIN_PARITY["n_layers"])
+    steps = RING_TRAIN_PARITY["steps"]
+    parity = {}
+    for rec in recs:
+        for tag, p in rec["parity"].items():
+            mr = p["mesh"][1]
+            mi = p["coords"][1]
+            rel = max(abs(a - b) / abs(b)
+                      for a, b in zip(p["losses"], ref["losses"]))
+            want_norms = [ref["shard_norms"][str(mr)][t][mi]
+                          for t in range(steps)]
+            nrel = max(abs(a - b) / b
+                       for a, b in zip(p["grad_norms"], want_norms))
+            parity.setdefault(tag, []).append(dict(
+                rank=rec["rank"], loss_rel=rel, grad_norm_rel=nrel,
+                param_rel_l2=p["param_rel_l2"], step_s=p["step_s"],
+                shard_axis=p["shard_axis"]))
+            need(rel <= RING_TRAIN_TOL, f"mesh {tag} rank {rec['rank']}: "
+                 f"losses {p['losses']} vs degree 1 {ref['losses']}")
+            need(nrel <= RING_TRAIN_TOL, f"mesh {tag} rank {rec['rank']}: "
+                 f"grad norms {p['grad_norms']} vs degree 1's on its "
+                 f"shards {want_norms}")
+            want_n, _, want_delta = ring_train_launches(cfg, mr, mi,
+                                                        remat=False)
+            want_n = {k: v * steps for k, v in want_n.items()}
+            need(p["launches"] == want_n, f"mesh {tag} rank {rec['rank']}: "
+                 f"fp32 launches {p['launches']}, want {want_n}")
+            for name, by_path in p["launches_by_path"].items():
+                need(by_path["simt"] == p["launches"][name],
+                     f"mesh {tag}: fp32 {name} by path {by_path}")
+            need(p["shard_axis"] == ("data" if p["mesh"][0] > 1 else "None"),
+                 f"mesh {tag}: ZeRO-1 shard axis {p['shard_axis']}")
+    log(f"[ring train] fp32 parity vs degree 1 (losses "
+        f"{ref['losses']}, global grad norms {ref['grad_norms']}): "
+        f"{json.dumps(parity)}")
+    full = get_config(RING_TRAIN_BF16["arch"])
+    from dataclasses import replace
+    bcfg = replace(full, n_layers=RING_TRAIN_BF16["layers"])
+    bsteps = RING_TRAIN_BF16["steps"]
+    runs = {}
+    per_rank = []
+    for rec in recs:
+        bf = rec["bf16"]
+        i = bf["coords"][1]
+        need(bf["mesh"] == list(RING_TRAIN_BF16["mesh"]),
+             f"bf16 train mesh {bf['mesh']}")
+        want_n, want_lay, want_delta = ring_train_launches(
+            bcfg, RING_TRAIN_BF16["mesh"][1], i, remat=True)
+        want_n = {k: v * bsteps for k, v in want_n.items()}
+        want_lay = {k: v * bsteps for k, v in want_lay.items()}
+        need(bf["launches"] == want_n,
+             f"rank {rec['rank']}: bf16 launches {bf['launches']} != {want_n}")
+        need(bf["layouts"] == want_lay,
+             f"rank {rec['rank']}: GEMM layouts {bf['layouts']} != "
+             f"{want_lay}")
+        need(bf["delta_in_launches"] == want_delta * bsteps,
+             f"rank {rec['rank']}: {bf['delta_in_launches']} flash "
+             f"backwards with an outside delta, want {want_delta * bsteps}")
+        for name, path in MAIN_PATH_KERNEL.items():
+            need(bf["launches_by_path"][name][path] == want_n[name],
+                 f"rank {rec['rank']}: {name} by path "
+                 f"{bf['launches_by_path'][name]}")
+        need(all(math.isfinite(x) for x in bf["losses"] + bf["grad_norms"]),
+             f"rank {rec['rank']}: losses {bf['losses']}")
+        paths = {name: dict(p) for name, p in bf["launches_by_path"].items()}
+        runs[f"deepseek-7b ring train {tuple(RING_TRAIN_BF16['mesh'])} rank "
+             f"{rec['rank']}"] = (bf["launches"], bf["layouts"], paths)
+        per_rank.append({k: bf[k] for k in (
+            "coords", "losses", "grad_norms", "step_ms", "peak_gb",
+            "transport_s", "transport_calls", "transport_gb",
+            "staged_share", "delta_in_launches", "launches", "layouts")})
+    first = recs[0]["bf16"]["losses"][0]
+    first_rel = abs(first - degree1_loss) / abs(degree1_loss)
+    summary = dict(first_loss=first, degree1_first_loss=degree1_loss,
+                   first_loss_rel=first_rel, ranks_wall_s=ranks_s,
+                   degree1_s=degree1_s,
+                   parity_s=[rec["parity_s"] for rec in recs],
+                   bf16_s=[rec["bf16_s"] for rec in recs],
+                   phase_s=time.perf_counter() - t_phase, per_rank=per_rank)
+    log(f"[ring train] deepseek-7b {RING_TRAIN_BF16['layers']} layers bf16 "
+        f"batch {RING_TRAIN_BF16['batch']} x seq {RING_TRAIN_BF16['seq']} "
+        f"over {r} ranks, mesh {RING_TRAIN_BF16['mesh']}, "
+        f"{RING_TRAIN['backend']}: {json.dumps(summary)}")
+    for rec in recs:
+        need(abs(rec["bf16"]["losses"][0] - first) <= 1e-6 * abs(first),
+             f"rank {rec['rank']}'s loss differs from rank 0's")
+    need(first_rel <= RING_TRAIN_BF16_TOL,
+         f"bf16 ring first loss {first} vs degree 1 {degree1_loss}: "
+         f"{first_rel:.3e} > {RING_TRAIN_BF16_TOL}")
+    delta_in = sum(rec["bf16"]["delta_in_launches"] for rec in recs)
+    return flashes, gemms, runs, delta_in
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke: src/repro_torch not found beside chip_smoke.py; "
@@ -4035,8 +4523,10 @@ def main() -> int:
     runs = {arch: phase_main_path(
         torch, arch, degree1 if arch == RING_SERVE["arch"] else None)
         for arch in PATHS}
-    trains = {f"{arch} train": phase_train_main(torch, arch, n_layers)[:3]
-              for arch, n_layers in TRAIN_RUNS}
+    trains, train_outs = {}, {}
+    for arch, n_layers in TRAIN_RUNS:
+        *counts, train_outs[arch] = phase_train_main(torch, arch, n_layers)
+        trains[f"{arch} train"] = tuple(counts)
     phase_tatp_outputs(torch)
     phase_restart(torch)
     plan_serves, plan_trained = phase_plan_launch(torch)
@@ -4045,6 +4535,9 @@ def main() -> int:
     phase_cost_engine(torch)
     (ring_gemms, ring_flashes), ring_runs = phase_ring(torch, randn, degree1)
     runs.update(ring_runs)
+    train_flashes, train_gemms, ring_trains, delta_in = phase_ring_train(
+        torch, randn, train_outs[RING_TRAIN_BF16["arch"]]["losses"][0])
+    trains.update(ring_trains)
     trains[f"{PLAN_TRAIN['arch']} --wafers {PLAN_TRAIN['wafers']} --stage "
            f"{PLAN_TRAIN['stage']} train"] = plan_trained
     # each record's launches: the counts of every main path's run (the
@@ -4069,10 +4562,38 @@ def main() -> int:
         k["launches_by_path"] = {a: n for a, (n, _) in of.items()}
         if counter in MAIN_PATH_KERNEL:
             k["launches_by_kernel_path"] = {a: p for a, (_, p) in of.items()}
-    for k in kernels:  # the ring's per-round shapes (phase 11)
+    for k in kernels:  # the ring's per-round shapes (phases 11 and 12)
         if k["name"] in ("tatp_matmul", "flash_attention"):
             k["ring_shapes"] = (ring_gemms if k["name"] == "tatp_matmul"
                                 else ring_flashes)
+        lay = GEMM_RECORD_LAYOUT.get(k["name"])
+        if lay in ("dgrad", "wgrad"):
+            k["ring_train_shapes"] = [g for g in train_gemms
+                                      if g["layout"] == lay]
+    # the flash backward with an outside delta: ring attention's rounds in
+    # phase 12's bf16 train, timed at one round of it
+    row = train_flashes[0]
+    kernels.append(dict(
+        name="flash_attention_bwd_delta_in", route="cuda", path="mma",
+        design="the two backward launches with delta read from outside "
+               "(delta_in): the dQ kernel skips its delta sweep; one pair "
+               "a visible ring round, with the ring's global row LSE and "
+               "delta = rowsum(dO O) of its merged fp32 output",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="none: the Pallas kernel "
+                 "src/repro/kernels/flash_attention/kernel.py:26 has no "
+                 "backward (JAX differentiates ring attention's jnp loop)",
+        launches=delta_in,
+        max_abs_err=max(f["max_abs_err"] for f in train_flashes),
+        rtol=ATTN_TOL["bfloat16"][0], atol=ATTN_TOL["bfloat16"][1],
+        ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+        bound_by=row["bound_by"], library_ms=row["library_ms"],
+        own_delta_ms=row["own_delta_ms"],
+        share_of_bound=row["share_of_bound"],
+        library_ratio=row["library_ratio"],
+        timed="one round of the (1, 4) train ring's attention, "
+              "[4,32,128,128] bf16, causal on the own block",
+        shape=row["shape"], rounds=train_flashes))
     log(json.dumps({"kernels": kernels}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(smi)
@@ -4086,6 +4607,8 @@ if __name__ == "__main__":
     try:
         if sys.argv[1:2] == ["--ring-rank"]:  # one rank of phase 11
             sys.exit(ring_rank_main(sys.argv[2]))
+        if sys.argv[1:2] == ["--train-rank"]:  # one rank of phase 12
+            sys.exit(ring_train_rank_main(sys.argv[2]))
         sys.exit(main())
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)

@@ -101,6 +101,8 @@ def setup(args):
     """cfg + Dist + ParallelConfig + plan (None for the legacy flags), from
     a plan or from the legacy flags, as the reference's ``setup``."""
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    if getattr(args, "layers", None):  # a cut in depth only
+        cfg = replace(cfg, n_layers=args.layers)
     plan = None
     rank, world, _ = world_from_env()
     if world > 1 and args.ckpt_dir:
@@ -230,6 +232,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="deepseek-7b")
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="train only the first N layers (a cut in depth; "
+                         "the widths stay the config's)")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
