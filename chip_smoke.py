@@ -156,8 +156,8 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    second (below the ~1.8 a second the slots serve), every request
    finished with its 32 tokens, and exactly 210 GEMM and 30 flash
    launches per prefill group the engine ran (decode runs no kernel), all
-   ``wgmma`` / ``mma``.  (b) The same load with ``--fault-at 2.0``:
-   exactly one replan, whose plan hash equals ``replan_serve``'s offline
+   ``wgmma`` / ``mma``.  (b) 40 requests at that rate with
+   ``--fault-at 2.0``: exactly one replan, whose plan hash equals ``replan_serve``'s offline
    solve for the same fault, and every request finished or rejected with
    a reason.  (c) A labelled stress run: 12 requests at 4 a second, twice
    what the slots serve.  Each run logs TTFT and TPOT p50 (p99 only over
@@ -2902,15 +2902,19 @@ def phase_plan_launch(torch):
 # layers, bf16, 4 decode slots, 128 prompt tokens and 32 new tokens each.
 # The measured load: 100 open-loop requests at 1.25 a second, below the
 # ~1.8 a second that 4 slots of ~2 s serve, so the queue has a steady
-# state and TTFT's p99 rests on 100 samples; then the same with a die
-# fault at 2.0 s on the engine's clock (``--fault-at``, 1/8 of the dies,
-# seeded).  The stress load: 12 requests at 4 a second, twice what the
-# slots serve, so TTFT grows with each request (queueing, not the server)
+# state and TTFT's p99 rests on 100 samples; then the same rate with a
+# die fault at 2.0 s on the engine's clock (``--fault-at``, 1/8 of the
+# dies, seeded) over 40 requests: the replan and the migration land in
+# the first seconds, and the run's wall clock (~32 s, not ~80) keeps the
+# whole script inside its time limit with phase 12.
+# The stress load: 12 requests at 4 a second, twice what the slots serve,
+# so TTFT grows with each request (queueing, not the server)
 ENGINE = dict(arch="deepseek-7b", max_batch=4, prompt_len=128, max_new=32,
               fault_at=2.0)
 ENGINE_LOAD = dict(requests=100, rate=1.25)
+ENGINE_FAULT_LOAD = dict(ENGINE_LOAD, requests=40)
 ENGINE_RUNS = (("engine", ENGINE_LOAD, False),
-               ("engine fault", ENGINE_LOAD, True),
+               ("engine fault", ENGINE_FAULT_LOAD, True),
                ("engine stress", dict(requests=12, rate=4.0), False))
 # the fp32 engine parity runs (TF32 off): (arch, layers, prompt lengths);
 # the PARITY depths at full width, zamba2's prompts whole ssm_chunks
@@ -4033,9 +4037,14 @@ def phase_ring(torch, randn, degree1):
 RING_TRAIN = dict(ranks=4, backend="gloo", timeout_s=420, step_s=60)
 # fp32 parity (TF32 off): deepseek-7b at full width, 2 layers, batch 4 x
 # seq 128, 3 steps from the shards of one tree on each mesh, against the
-# degree-1 run of that tree on the card
+# degree-1 run of that tree on the card.  The clip is off (grad_clip
+# 1e30) on both sides: above model degree 1 each rank clips by the norm of
+# its own shards, as the reference's AdamW does (it psums the norm over
+# the data axes only), so with the clip on the ranks' updates differ from
+# degree 1's by design; the grad norms are held per shard instead
 RING_TRAIN_PARITY = dict(arch="deepseek-7b", n_layers=2, batch=4, seq=128,
-                         steps=3, seed=2, meshes=((1, 4), (2, 2)))
+                         steps=3, seed=2, meshes=((1, 4), (2, 2)),
+                         grad_clip=1e30)
 # relative: each step's loss and grad norm, each leaf's final parameters
 # (relative L2)
 RING_TRAIN_TOL = 1e-4
@@ -4210,6 +4219,7 @@ def ring_train_degree1(torch, path):
     from repro_torch.core.dist import Dist
     from repro_torch.models.transformer import param_specs
     from repro_torch.train.data import SyntheticDataset
+    from repro_torch.train.optimizer import AdamWConfig
     from repro_torch.train.train_loop import loss_and_grads, make_train_step
 
     spec = RING_TRAIN_PARITY
@@ -4217,7 +4227,8 @@ def ring_train_degree1(torch, path):
     cfg = parity_config(spec["arch"], spec["n_layers"])
     shape = ShapeConfig("ring", "train", spec["seq"], spec["batch"])
     tb = make_train_step(cfg, ParallelConfig(strategy="tatp", remat=False),
-                         Dist(dev), shape)
+                         Dist(dev), shape,
+                         AdamWConfig(grad_clip=spec["grad_clip"]))
     params, state = tb.init_fn(
         torch.Generator(device=dev).manual_seed(spec["seed"]))
     data = SyntheticDataset(cfg, shape, Dist(dev), seed=spec["seed"])
@@ -4244,13 +4255,15 @@ def ring_train_degree1(torch, path):
 def ring_train_parity(torch, mesh, dev, ref_path):
     """One rank's fp32 parity run on ``mesh``: RING_TRAIN_PARITY's steps
     through ``make_train_step`` from ``init_sharded_params``' shards of
-    the degree-1 tree, each within RING_TRAIN's step limit; the launches
-    (every one on ``simt``) and each leaf's final rel L2 against its
-    block of the degree-1 run's parameters (``ref_path``, read mapped)."""
+    the degree-1 tree, each within RING_TRAIN's step limit; its record
+    holds the losses, grad norms, launches and the largest leaf rel L2 of
+    its final parameters against their block of the degree-1 run's
+    (``ref_path``, read mapped), which the parent checks."""
     from repro_torch.configs.base import ParallelConfig, ShapeConfig
     from repro_torch.core.dist import make_mesh_dist
     from repro_torch.models.transformer import param_specs
     from repro_torch.train.data import SyntheticDataset
+    from repro_torch.train.optimizer import AdamWConfig
     from repro_torch.train.train_loop import make_train_step
 
     spec = RING_TRAIN_PARITY
@@ -4258,7 +4271,7 @@ def ring_train_parity(torch, mesh, dev, ref_path):
     cfg = parity_config(spec["arch"], spec["n_layers"])
     shape = ShapeConfig("ring", "train", spec["seq"], spec["batch"])
     tb = make_train_step(cfg, ParallelConfig(strategy="tatp", remat=False),
-                         dist, shape)
+                         dist, shape, AdamWConfig(grad_clip=spec["grad_clip"]))
     params, state = tb.init_fn(
         torch.Generator(device=dev).manual_seed(spec["seed"]))
     data = SyntheticDataset(cfg, shape, dist, seed=spec["seed"])
@@ -4287,8 +4300,6 @@ def ring_train_parity(torch, mesh, dev, ref_path):
         errs[name] = rel_l2(p, want.to(dev))
     worst = max(errs, key=errs.get)
     rec["param_rel_l2"] = dict(max=errs[worst], leaf=worst)
-    need(errs[worst] <= RING_TRAIN_TOL, f"mesh {mesh} rank {dist.coords}: "
-         f"{worst} rel L2 {errs[worst]:.3e} against degree 1")
     del params, state, ref
     release(torch)
     return rec
@@ -4373,6 +4384,7 @@ def phase_ring_train(torch, randn, degree1_loss):
     flash backwards with an outside delta they launched."""
     import os
     import tempfile
+    from dataclasses import replace
 
     from repro_torch.configs import get_config
 
@@ -4392,71 +4404,76 @@ def phase_ring_train(torch, randn, degree1_loss):
     cfg = parity_config(RING_TRAIN_PARITY["arch"],
                         RING_TRAIN_PARITY["n_layers"])
     steps = RING_TRAIN_PARITY["steps"]
-    parity = {}
+    parity, checks = {}, []
     for rec in recs:
         for tag, p in rec["parity"].items():
-            mr = p["mesh"][1]
-            mi = p["coords"][1]
-            rel = max(abs(a - b) / abs(b)
-                      for a, b in zip(p["losses"], ref["losses"]))
+            mr, mi = p["mesh"][1], p["coords"][1]
             want_norms = [ref["shard_norms"][str(mr)][t][mi]
                           for t in range(steps)]
-            nrel = max(abs(a - b) / b
-                       for a, b in zip(p["grad_norms"], want_norms))
-            parity.setdefault(tag, []).append(dict(
-                rank=rec["rank"], loss_rel=rel, grad_norm_rel=nrel,
+            want_n = {k: v * steps for k, v in ring_train_launches(
+                cfg, mr, mi, remat=False)[0].items()}
+            row = dict(
+                rank=rec["rank"], coords=p["coords"],
+                loss_rel=max(abs(a - b) / abs(b) for a, b in
+                             zip(p["losses"], ref["losses"])),
+                grad_norm_rel=max(abs(a - b) / b for a, b in
+                                  zip(p["grad_norms"], want_norms)),
                 param_rel_l2=p["param_rel_l2"], step_s=p["step_s"],
-                shard_axis=p["shard_axis"]))
-            need(rel <= RING_TRAIN_TOL, f"mesh {tag} rank {rec['rank']}: "
-                 f"losses {p['losses']} vs degree 1 {ref['losses']}")
-            need(nrel <= RING_TRAIN_TOL, f"mesh {tag} rank {rec['rank']}: "
-                 f"grad norms {p['grad_norms']} vs degree 1's on its "
-                 f"shards {want_norms}")
-            want_n, _, want_delta = ring_train_launches(cfg, mr, mi,
-                                                        remat=False)
-            want_n = {k: v * steps for k, v in want_n.items()}
-            need(p["launches"] == want_n, f"mesh {tag} rank {rec['rank']}: "
-                 f"fp32 launches {p['launches']}, want {want_n}")
-            for name, by_path in p["launches_by_path"].items():
-                need(by_path["simt"] == p["launches"][name],
-                     f"mesh {tag}: fp32 {name} by path {by_path}")
-            need(p["shard_axis"] == ("data" if p["mesh"][0] > 1 else "None"),
-                 f"mesh {tag}: ZeRO-1 shard axis {p['shard_axis']}")
+                shard_axis=p["shard_axis"], launches=p["launches"])
+            parity.setdefault(tag, []).append(row)
+            checks += [
+                (row["loss_rel"] <= RING_TRAIN_TOL,
+                 f"mesh {tag} rank {rec['rank']}: losses {p['losses']} vs "
+                 f"degree 1 {ref['losses']}"),
+                (row["grad_norm_rel"] <= RING_TRAIN_TOL,
+                 f"mesh {tag} rank {rec['rank']}: grad norms "
+                 f"{p['grad_norms']} vs degree 1's on its shards "
+                 f"{want_norms}"),
+                (p["param_rel_l2"]["max"] <= RING_TRAIN_TOL,
+                 f"mesh {tag} rank {rec['rank']}: final parameters "
+                 f"{p['param_rel_l2']} against degree 1"),
+                (p["launches"] == want_n, f"mesh {tag} rank {rec['rank']}: "
+                 f"fp32 launches {p['launches']}, want {want_n}"),
+                (all(bp["simt"] == p["launches"][name]
+                     for name, bp in p["launches_by_path"].items()),
+                 f"mesh {tag}: fp32 launches by path "
+                 f"{p['launches_by_path']}: not all simt"),
+                (p["shard_axis"] == ("data" if p["mesh"][0] > 1 else "None"),
+                 f"mesh {tag}: ZeRO-1 shard axis {p['shard_axis']}")]
     log(f"[ring train] fp32 parity vs degree 1 (losses "
         f"{ref['losses']}, global grad norms {ref['grad_norms']}): "
         f"{json.dumps(parity)}")
-    full = get_config(RING_TRAIN_BF16["arch"])
-    from dataclasses import replace
-    bcfg = replace(full, n_layers=RING_TRAIN_BF16["layers"])
+    for ok, msg in checks:
+        need(ok, msg)
+    bcfg = replace(get_config(RING_TRAIN_BF16["arch"]),
+                   n_layers=RING_TRAIN_BF16["layers"])
     bsteps = RING_TRAIN_BF16["steps"]
-    runs = {}
-    per_rank = []
+    runs, per_rank, checks = {}, [], []
     for rec in recs:
-        bf = rec["bf16"]
-        i = bf["coords"][1]
-        need(bf["mesh"] == list(RING_TRAIN_BF16["mesh"]),
-             f"bf16 train mesh {bf['mesh']}")
+        bf, g = rec["bf16"], rec["rank"]
         want_n, want_lay, want_delta = ring_train_launches(
-            bcfg, RING_TRAIN_BF16["mesh"][1], i, remat=True)
+            bcfg, RING_TRAIN_BF16["mesh"][1], bf["coords"][1], remat=True)
         want_n = {k: v * bsteps for k, v in want_n.items()}
         want_lay = {k: v * bsteps for k, v in want_lay.items()}
-        need(bf["launches"] == want_n,
-             f"rank {rec['rank']}: bf16 launches {bf['launches']} != {want_n}")
-        need(bf["layouts"] == want_lay,
-             f"rank {rec['rank']}: GEMM layouts {bf['layouts']} != "
-             f"{want_lay}")
-        need(bf["delta_in_launches"] == want_delta * bsteps,
-             f"rank {rec['rank']}: {bf['delta_in_launches']} flash "
-             f"backwards with an outside delta, want {want_delta * bsteps}")
-        for name, path in MAIN_PATH_KERNEL.items():
-            need(bf["launches_by_path"][name][path] == want_n[name],
-                 f"rank {rec['rank']}: {name} by path "
-                 f"{bf['launches_by_path'][name]}")
-        need(all(math.isfinite(x) for x in bf["losses"] + bf["grad_norms"]),
-             f"rank {rec['rank']}: losses {bf['losses']}")
-        paths = {name: dict(p) for name, p in bf["launches_by_path"].items()}
+        checks += [
+            (bf["mesh"] == list(RING_TRAIN_BF16["mesh"]),
+             f"bf16 train mesh {bf['mesh']}"),
+            (bf["launches"] == want_n,
+             f"rank {g}: bf16 launches {bf['launches']} != {want_n}"),
+            (bf["layouts"] == want_lay,
+             f"rank {g}: GEMM layouts {bf['layouts']} != {want_lay}"),
+            (bf["delta_in_launches"] == want_delta * bsteps,
+             f"rank {g}: {bf['delta_in_launches']} flash backwards with an "
+             f"outside delta, want {want_delta * bsteps}"),
+            (all(math.isfinite(x) for x in bf["losses"] + bf["grad_norms"]),
+             f"rank {g}: losses {bf['losses']}")]
+        checks += [(bf["launches_by_path"][name][path] == want_n[name],
+                    f"rank {g}: {name} by path "
+                    f"{bf['launches_by_path'][name]}")
+                   for name, path in MAIN_PATH_KERNEL.items()]
         runs[f"deepseek-7b ring train {tuple(RING_TRAIN_BF16['mesh'])} rank "
-             f"{rec['rank']}"] = (bf["launches"], bf["layouts"], paths)
+             f"{g}"] = (bf["launches"], bf["layouts"],
+                        {n: dict(p) for n, p in bf["launches_by_path"].items()})
         per_rank.append({k: bf[k] for k in (
             "coords", "losses", "grad_norms", "step_ms", "peak_gb",
             "transport_s", "transport_calls", "transport_gb",
@@ -4473,12 +4490,15 @@ def phase_ring_train(torch, randn, degree1_loss):
         f"batch {RING_TRAIN_BF16['batch']} x seq {RING_TRAIN_BF16['seq']} "
         f"over {r} ranks, mesh {RING_TRAIN_BF16['mesh']}, "
         f"{RING_TRAIN['backend']}: {json.dumps(summary)}")
-    for rec in recs:
-        need(abs(rec["bf16"]["losses"][0] - first) <= 1e-6 * abs(first),
-             f"rank {rec['rank']}'s loss differs from rank 0's")
-    need(first_rel <= RING_TRAIN_BF16_TOL,
-         f"bf16 ring first loss {first} vs degree 1 {degree1_loss}: "
-         f"{first_rel:.3e} > {RING_TRAIN_BF16_TOL}")
+    checks += [(abs(rec["bf16"]["losses"][0] - first) <= 1e-6 * abs(first),
+                f"rank {rec['rank']}'s loss differs from rank 0's")
+               for rec in recs]
+    checks.append((first_rel <= RING_TRAIN_BF16_TOL,
+                   f"bf16 ring first loss {first} vs degree 1 "
+                   f"{degree1_loss}: {first_rel:.3e} > "
+                   f"{RING_TRAIN_BF16_TOL}"))
+    for ok, msg in checks:
+        need(ok, msg)
     delta_in = sum(rec["bf16"]["delta_in_launches"] for rec in recs)
     return flashes, gemms, runs, delta_in
 

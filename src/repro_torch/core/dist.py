@@ -113,10 +113,6 @@ def _inverse(perm):
     return [(d, s) for s, d in perm]
 
 
-def _float(t: torch.Tensor) -> bool:
-    return t.is_floating_point() or t.is_complex()
-
-
 class _PPermute(torch.autograd.Function):
     """:meth:`Dist.ppermute_many` under autograd: ``items`` as ``(x,
     perm)`` with ``x`` flattened into the tensor inputs; the backward moves
@@ -131,8 +127,9 @@ class _PPermute(torch.autograd.Function):
             items.append((tuple(flat[k:k + n]), perm))
             k += n
         outs = [t for res in dist._ppermute_raw(items, axis) for t in res]
-        ctx.mark_non_differentiable(*[o for o in outs if not _float(o)])
-        ctx.floats = [_float(t) for t in flat]
+        ctx.mark_non_differentiable(*[o for o in outs
+                                      if not o.is_floating_point()])
+        ctx.floats = [t.is_floating_point() for t in flat]
         return tuple(outs)
 
     @staticmethod

@@ -2176,7 +2176,7 @@ int launch_bwd_mma(const bf16* Q, const bf16* K, const bf16* V,
                    float* delta, void* dq, void* dk, void* dv, int B, int Hq,
                    int Hkv, int Sq, int Skv, int D, const int64_t* st,
                    float scale, int causal, int window, float cap,
-                   cudaStream_t s) {
+                   int delta_in, cudaStream_t s) {
   if (cap > 0.f)
     return launch_bwd_mma_c<DP, VEC, true>(Q, K, V, DO, lse, delta, dq,
                                            dk, dv, B, Hq, Hkv, Sq, Skv, D,

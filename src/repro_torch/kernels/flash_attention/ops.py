@@ -277,4 +277,3 @@ attention.launches_by_path = dict.fromkeys(_PATHS, 0)
 attention_bwd.launches = 0
 attention_bwd.launches_by_path = dict.fromkeys(_PATHS, 0)
 attention_bwd.launches_delta_in = 0
-attention.bwd = attention_bwd  # the backward ring attention's rounds take

@@ -91,6 +91,3 @@ def attention_bwd_ref(q, k, v, o, lse, do, *, causal=True, window=None,
     dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, qg)
     return (dq.reshape(b, hq, sq, d).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
-
-
-attention_ref.bwd = attention_bwd_ref  # as the kernel wrapper's .bwd

@@ -286,17 +286,15 @@ class _RingAttention(torch.autograd.Function):
 
 def _attention_bwd(attention, q):
     """The backward of the ``attention`` hook for tensors like ``q``: the
-    plain version on the CPU, else the hook's ``bwd`` (the flash kernel's
-    :func:`~repro_torch.kernels.flash_attention.ops.attention_bwd`)."""
-    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    plain version on the CPU and for the plain hook, else the flash
+    kernel's backward."""
+    from repro_torch.kernels.flash_attention.ops import attention_bwd
+    from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                         attention_ref)
 
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" or attention is attention_ref:
         return attention_bwd_ref
-    bwd = getattr(attention, "bwd", None)
-    if bwd is None:
-        raise ValueError(f"the attention hook {attention!r} names no "
-                         f"backward (its .bwd) for ring attention")
-    return bwd
+    return attention_bwd
 
 
 def ring_attention(q, k, v, *, axis: str, axis_size: int, causal=True,

@@ -200,12 +200,3 @@ class AdamW:
             return pm
         full = self.dist.all_gather(pm, self.shard_axis, dim=0)
         return full[:p.numel()].view(p.shape)
-
-    def state_specs(self, pspecs):
-        """Each state leaf's sharding, as the reference's ``state_specs``:
-        the ZeRO-1 slices over ``data`` (``("data",)``), else the
-        parameters' specs; ``err`` replicated."""
-        sliced = (tree_map(lambda _: (self.shard_axis,), pspecs)
-                  if self.shard_axis else pspecs)
-        return OptState((), sliced, sliced, sliced,
-                        tree_map(lambda _: (), pspecs))
