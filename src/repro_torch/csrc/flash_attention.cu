@@ -1060,7 +1060,8 @@ constexpr size_t dkdv_smem() {
 }
 
 // BK: keys per tile; CAP: a soft-cap is given
-template <int DP, bool VEC, int BK, bool CAP>
+// DIN: delta comes from outside (the launcher's delta_in)
+template <int DP, bool VEC, int BK, bool CAP, bool DIN>
 __global__ void __launch_bounds__(MMA_THREADS, 3)
     flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v,
@@ -1072,7 +1073,7 @@ __global__ void __launch_bounds__(MMA_THREADS, 3)
                      int64_t kss, int64_t vsb, int64_t vsh, int64_t vss,
                      int64_t dsb, int64_t dsh, int64_t dss, int64_t dqsb,
                      int64_t dqsh, int64_t dqss, float scale, int causal,
-                     int window, float cap, int delta_in) {
+                     int window, float cap) {
   constexpr int LD = pitch<DP>();
   constexpr int NT = BK / 8;  // key n8 tiles of S
   constexpr int DT = DP / 8;    // d n8 tiles of dQ
@@ -1124,14 +1125,14 @@ __global__ void __launch_bounds__(MMA_THREADS, 3)
     for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
 
   // sweep 0 forms delta, sweep 1 dQ; each recomputes S, dP and P per tile.
-  // With delta_in the caller's delta is read and sweep 0 does not run: the
+  // With DIN the caller's delta is read and sweep 0 does not run: the
   // first tile's load is already in flight, as at sweep 0's start
-  if (delta_in) {
+  if (DIN) {
     if (row_lo < Sq) dl[0] = delta[bhq * Sq + row_lo];
     if (row_hi < Sq) dl[1] = delta[bhq * Sq + row_hi];
   }
-  for (int sweep = delta_in ? 1 : 0; sweep < 2; ++sweep) {
-    if (sweep == 1 && !delta_in) {
+  for (int sweep = DIN ? 1 : 0; sweep < 2; ++sweep) {
+    if (sweep == 1 && !DIN) {
       dl[0] = quad_sum(dl[0]);
       dl[1] = quad_sum(dl[1]);
       if (lane % 4 == 0) {  // for the dK/dV kernel
@@ -1911,7 +1912,7 @@ __global__ void __launch_bounds__(KV2_THREADS, 1)
 // double-buffered.  At DP 256 the tiles take 192 KB (one block an SM) and
 // dQ 128 registers a thread; rows that are not 16-byte aligned (VEC false)
 // load scalars into the same layout.
-template <int DP, bool VEC, bool CAP>
+template <int DP, bool VEC, bool CAP, bool DIN>
 __global__ void __launch_bounds__(MMA_THREADS, DP > 128 ? 1 : 2)
     flash_bwd_dq_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v,
@@ -1923,7 +1924,7 @@ __global__ void __launch_bounds__(MMA_THREADS, DP > 128 ? 1 : 2)
                        int64_t kss, int64_t vsb, int64_t vsh, int64_t vss,
                        int64_t dsb, int64_t dsh, int64_t dss, int64_t dqsb,
                        int64_t dqsh, int64_t dqss, float scale, int causal,
-                       int window, float cap, int delta_in) {
+                       int window, float cap) {
   constexpr int TILE = sw_tile<DP>(), NCH = TILE / 8192;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* const base = reinterpret_cast<uint8_t*>(
@@ -1970,14 +1971,14 @@ __global__ void __launch_bounds__(MMA_THREADS, DP > 128 ? 1 : 2)
   for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
 
   // sweep 0 forms delta, sweep 1 dQ; each recomputes S, dP and P per tile.
-  // With delta_in the caller's delta is read and sweep 0 does not run: the
+  // With DIN the caller's delta is read and sweep 0 does not run: the
   // first tile's load is already in flight, as at sweep 0's start
-  if (delta_in) {
+  if (DIN) {
     if (row_lo < Sq) dl[0] = delta[bhq * Sq + row_lo];
     if (row_hi < Sq) dl[1] = delta[bhq * Sq + row_hi];
   }
-  for (int sweep = delta_in ? 1 : 0; sweep < 2; ++sweep) {
-    if (sweep == 1 && !delta_in) {
+  for (int sweep = DIN ? 1 : 0; sweep < 2; ++sweep) {
+    if (sweep == 1 && !DIN) {
       dl[0] = quad_sum(dl[0]);
       dl[1] = quad_sum(dl[1]);
       if (lane % 4 == 0) {  // for the dK/dV kernel
@@ -2096,8 +2097,8 @@ __global__ void __launch_bounds__(MMA_THREADS, DP > 128 ? 1 : 2)
   }
 }
 
-// dQ (which writes delta, or reads it with delta_in) and then dK/dV, each
-// on its kernel, the dK/dV kernel with kv_threads threads a block
+// dQ (which writes delta, or reads it: its DIN) and then dK/dV, each on
+// its kernel, the dK/dV kernel with kv_threads threads a block
 template <typename QKern, typename KVKern>
 int launch_bwd_pair(QKern q_kern, KVKern kv_kern, size_t smem_q,
                     size_t smem_kv, int kv_threads, const bf16* Q,
@@ -2106,7 +2107,7 @@ int launch_bwd_pair(QKern q_kern, KVKern kv_kern, size_t smem_q,
                     const float* lse, float* delta, void* dq, void* dk,
                     void* dv, int B, int Hq, int Hkv, int Sq, int Skv, int D,
                     const int64_t* st, float scale, int causal, int window,
-                    float cap, int delta_in, cudaStream_t s) {
+                    float cap, cudaStream_t s) {
   cudaError_t err = cudaFuncSetAttribute(
       kv_kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem_kv));
@@ -2120,8 +2121,7 @@ int launch_bwd_pair(QKern q_kern, KVKern kv_kern, size_t smem_q,
   q_kern<<<grid, MMA_THREADS, smem_q, s>>>(
       Q, K, V, DO, lse, delta, static_cast<bf16*>(dq), Hq, Hkv, Sq, Skv, D,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[12],
-      st[13], st[14], st[15], st[16], st[17], scale, causal, window, cap,
-      delta_in);
+      st[13], st[14], st[15], st[16], st[17], scale, causal, window, cap);
   err = cudaGetLastError();
   if (err != cudaSuccess || Skv == 0) return static_cast<int>(err);
   dim3 kv_grid(static_cast<unsigned>(B) * Hkv,
@@ -2137,36 +2137,35 @@ int launch_bwd_pair(QKern q_kern, KVKern kv_kern, size_t smem_q,
 
 // wgmma at D 256 (any row alignment) and at D 80 and 128 with 16-byte
 // aligned rows, else mma.sync
-template <int DP, bool VEC, bool CAP>
+template <int DP, bool VEC, bool CAP, bool DIN>
 int launch_bwd_mma_c(const bf16* Q, const bf16* K, const bf16* V,
                      const bf16* DO, const float* lse, float* delta,
                      void* dq, void* dk, void* dv, int B, int Hq, int Hkv,
                      int Sq, int Skv, int D, const int64_t* st, float scale,
-                     int causal, int window, float cap, int delta_in,
-                     cudaStream_t s) {
+                     int causal, int window, float cap, cudaStream_t s) {
   constexpr size_t lse_bytes = 4 * 64 * sizeof(float);
   if constexpr (DP == 256) {
     constexpr int tiles = 6 * sw_tile<256>();
     return launch_bwd_pair(
-        flash_bwd_dq_wgmma<256, VEC, CAP>, flash_bwd_dkdv_wgmma2<VEC, CAP>,
+        flash_bwd_dq_wgmma<256, VEC, CAP, DIN>,
+        flash_bwd_dkdv_wgmma2<VEC, CAP>,
         tiles + 1024,
         tiles + 32 * MMA_THREADS * sizeof(float) + lse_bytes + 1024,
         KV2_THREADS, Q, K, V, DO, lse, delta, dq, dk, dv, B, Hq, Hkv, Sq,
-        Skv, D, st, scale, causal, window, cap, delta_in, s);
+        Skv, D, st, scale, causal, window, cap, s);
   } else if constexpr ((DP == 80 || DP == 128) && VEC) {
     return launch_bwd_pair(
-        flash_bwd_dq_wgmma<DP, true, CAP>, flash_bwd_dkdv_wgmma<DP, CAP>,
+        flash_bwd_dq_wgmma<DP, true, CAP, DIN>, flash_bwd_dkdv_wgmma<DP, CAP>,
         6 * SW_TILE + 1024, 6 * SW_TILE + lse_bytes + 1024, MMA_THREADS, Q,
         K, V, DO, lse, delta, dq, dk, dv, B, Hq, Hkv, Sq, Skv, D, st, scale,
-        causal, window, cap, delta_in, s);
+        causal, window, cap, s);
   } else {
     constexpr int QT = kv_rows<DP>();
     return launch_bwd_pair(
-        flash_bwd_dq_mma<DP, VEC, BK_Q, CAP>,
+        flash_bwd_dq_mma<DP, VEC, BK_Q, CAP, DIN>,
         flash_bwd_dkdv_mma<DP, VEC, QT, CAP>, dq_smem<DP, BK_Q>(),
         dkdv_smem<DP, QT>(), MMA_THREADS, Q, K, V, DO, lse, delta, dq, dk,
-        dv, B, Hq, Hkv, Sq, Skv, D, st, scale, causal, window, cap, delta_in,
-        s);
+        dv, B, Hq, Hkv, Sq, Skv, D, st, scale, causal, window, cap, s);
   }
 }
 
@@ -2177,15 +2176,15 @@ int launch_bwd_mma(const bf16* Q, const bf16* K, const bf16* V,
                    int Hkv, int Sq, int Skv, int D, const int64_t* st,
                    float scale, int causal, int window, float cap,
                    int delta_in, cudaStream_t s) {
-  if (cap > 0.f)
-    return launch_bwd_mma_c<DP, VEC, true>(Q, K, V, DO, lse, delta, dq,
-                                           dk, dv, B, Hq, Hkv, Sq, Skv, D,
-                                           st, scale, causal, window, cap,
-                                           delta_in, s);
-  return launch_bwd_mma_c<DP, VEC, false>(Q, K, V, DO, lse, delta, dq, dk,
-                                          dv, B, Hq, Hkv, Sq, Skv, D, st,
-                                          scale, causal, window, cap, delta_in,
-                                          s);
+  // the cap and delta_in as template arguments: each case is its own
+  // kernel, so the own-delta kernels carry nothing of delta_in
+  auto run = cap > 0.f
+                 ? (delta_in ? launch_bwd_mma_c<DP, VEC, true, true>
+                             : launch_bwd_mma_c<DP, VEC, true, false>)
+                 : (delta_in ? launch_bwd_mma_c<DP, VEC, false, true>
+                             : launch_bwd_mma_c<DP, VEC, false, false>);
+  return run(Q, K, V, DO, lse, delta, dq, dk, dv, B, Hq, Hkv, Sq, Skv, D, st,
+             scale, causal, window, cap, s);
 }
 
 template <int DP>
