@@ -420,44 +420,51 @@ def check_transport(backend: str, keys: Sequence[str]) -> None:
 
 
 def make_mesh_dist(shape: Sequence[int], device="cuda",
-                   order: Optional[Sequence[int]] = None) -> Dist:
+                   order: Optional[Sequence[int]] = None,
+                   ranks: Optional[Sequence[int]] = None) -> Optional[Dist]:
     """The :class:`Dist` of this rank on a ``(data, model)`` mesh over the
-    initialised world (:func:`init_world`).  Mesh position ``p = d * model
-    + m`` holds global rank ``order[p]`` (default: rank ``p``); a lone
-    degree is the data axis, as the reference's ``--mesh D``.  Every
-    rank builds every axis group in the same order, as
-    ``torch.distributed.new_group`` requires.  A mesh whose size is not
-    the world's raises.  Without a process group, ``(1, 1)`` gives the
+    initialised world (:func:`init_world`), or over its ``ranks`` (a
+    pipeline stage's block; default every rank).  Mesh position ``p = d *
+    model + m`` holds global rank ``order[p]`` (default: the ``p``-th of
+    ``ranks``); a lone degree is the data axis, as the reference's
+    ``--mesh D``.  Every rank of the world calls it and builds every axis
+    group in the same order, as ``torch.distributed.new_group`` requires;
+    a rank outside ``ranks`` gets None.  A mesh whose size is not that of
+    its ranks raises.  Without a process group, ``(1, 1)`` gives the
     one-device ``Dist(device)``."""
     shape = tuple(shape)
     data, model = (shape[0], 1) if len(shape) == 1 else shape
     dev = resolve_device(device)
     world = tdist.get_world_size() if tdist.is_initialized() else 1
-    if data * model != world:
+    ranks = list(ranks) if ranks is not None else list(range(world))
+    if data * model != len(ranks):
         raise ValueError(f"mesh ({data}, {model}) has {data * model} "
-                         f"positions but the world has {world} ranks")
+                         f"positions but the world has {len(ranks)} ranks")
     if world == 1:
         return Dist(dev)
     backend = tdist.get_backend()
-    order = list(order) if order is not None else list(range(world))
-    if sorted(order) != list(range(world)):
+    order = list(order) if order is not None else ranks
+    if sorted(order) != sorted(ranks) or len(set(ranks)) != len(ranks):
         raise ValueError(f"device order {order} is not a permutation of "
-                         f"the {world} ranks")
+                         f"the ranks {ranks}")
     keys = [None] * world
     probe = tdist.new_group(backend="gloo", timeout=_timeout())
     tdist.all_gather_object(keys, device_key(dev), group=probe)
-    check_transport(backend, keys)
-    pos = order.index(tdist.get_rank())
+    check_transport(backend, [keys[g] for g in ranks])
+    me = tdist.get_rank()
     groups = {}
     for axis, members in (
             (DATA_AXIS, [[order[d * model + m] for d in range(data)]
                          for m in range(model)]),
             (MODEL_AXIS, [[order[d * model + m] for m in range(model)]
                           for d in range(data)])):
-        for ranks in members:  # every rank creates every group
-            g = tdist.new_group(ranks, timeout=_timeout())
-            if order[pos] in ranks:
-                groups[axis] = AxisGroup(g, tuple(ranks))
+        for members_ in members:  # every rank creates every group
+            g = tdist.new_group(members_, timeout=_timeout())
+            if me in members_:
+                groups[axis] = AxisGroup(g, tuple(members_))
+    if me not in order:
+        return None
+    pos = order.index(me)
     return Dist(dev, mesh_shape=(data, model),
                 coords=(pos // model, pos % model), backend=backend,
                 groups=groups,

@@ -63,9 +63,22 @@ the summary::
         --nproc-per-node 4 -m repro_torch.launch.train --arch deepseek-7b \
         --reduced --device cpu --mesh 1 4 --steps 3 --batch 4 --seq 64
 
-Over several ranks, ``--ckpt-dir`` (sharded checkpoints) and ``--wafers
-N`` (a stage's submesh) are ROADMAP.md item A3a-2 and raise; a plan
-whose strategy is not ``tatp`` raises above model degree 1 (A3d).
+Over several ranks every rank saves and restores with the others
+(:mod:`repro_torch.train.checkpoint`): the files hold each leaf's global
+array, so a restart may run on another mesh (the state restores
+elastically, with the plan-hash warning where the plan changed)::
+
+    torchrun="python -m torch.distributed.run --standalone --nproc-per-node 4"
+    $torchrun -m repro_torch.launch.train --reduced --device cpu --mesh 1 4 \
+        --steps 6 --ckpt-dir ck --ckpt-every 2 --fail-at-step 4  # fails
+    $torchrun -m repro_torch.launch.train --reduced --device cpu --mesh 1 4 \
+        --steps 6 --ckpt-dir ck --ckpt-every 2        # resumes, bitwise
+    $torchrun -m repro_torch.launch.train --reduced --device cpu --mesh 2 2 \
+        --steps 8 --ckpt-dir ck --ckpt-every 2        # on another mesh
+
+``--wafers N --stage k`` over several ranks runs the stage on the stage
+plan's mesh for the world's size.  A strategy other than ``tatp`` raises
+above model degree 1 (A3d).
 """
 
 from __future__ import annotations
@@ -84,8 +97,8 @@ from repro_torch.configs.base import ParallelConfig, ShapeConfig
 import torch.distributed as tdist
 
 from repro_torch.core.dist import Dist, make_mesh_dist, world_from_env
-from repro_torch.launch.mesh import (join_world, make_plan_dist,
-                                     resolve_rank_plan)
+from repro_torch.launch.mesh import (first_resolves, join_world,
+                                     make_plan_dist, resolve_rank_plan)
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.data import SyntheticDataset
 from repro_torch.train.train_loop import make_train_step
@@ -105,24 +118,25 @@ def setup(args):
         cfg = replace(cfg, n_layers=args.layers)
     plan = None
     rank, world, _ = world_from_env()
-    if world > 1 and args.ckpt_dir:
-        raise not_ported("sharded checkpoints (--ckpt-dir over several "
-                         "ranks)", "A3a-2")
-    if world > 1 and args.wafers > 1:
-        raise not_ported("a pipeline stage's submesh (--wafers over "
-                         "several ranks)", "A3a-2")
+    if (world > 1 and not (args.plan or args.auto_plan or args.wafers > 1)
+            and args.strategy != "tatp" and len(args.mesh) == 2
+            and args.mesh[1] > 1):
+        raise not_ported(f"strategy {args.strategy!r} at model degree "
+                         f"{args.mesh[1]}", "A3d")
     device = join_world(args)
     if args.wafers > 1:
-        # multi-wafer pipeline launch: this process runs ONE stage of the
-        # pipeline (--stage); the MultiWaferPlan fixes the layer split and
-        # every stage's plan
+        # multi-wafer pipeline launch: this process group runs ONE stage
+        # of the pipeline (--stage) on the stage plan's mesh over its
+        # ranks; the MultiWaferPlan fixes the layer split and every
+        # stage's plan
         from repro_torch.launch.planning import resolve_multiwafer_plan
-        plan = resolve_multiwafer_plan(
+        plan = first_resolves(lambda: resolve_multiwafer_plan(
             cfg, args.batch, args.seq, n_wafers=args.wafers,
             plan_path=args.plan, cache_dir=args.plan_cache,
             failed_dies=args.failed_dies, fail_wafer=args.fail_wafer,
-            remat=not args.reduced)
-        print(plan.summary())
+            remat=not args.reduced))
+        if rank == 0:
+            print(plan.summary())
         if not 0 <= args.stage < plan.pp:
             raise SystemExit(f"--stage {args.stage} out of range for "
                              f"pp={plan.pp}")
@@ -177,18 +191,22 @@ def train(args, history=None, stats=None) -> dict:
     gen = torch.Generator(device=dist.device).manual_seed(args.seed)
     params, opt_state = bundle.init_fn(gen)
 
+    # each leaf's layout over the mesh: the checkpoints hold global arrays
+    io = dict(dist=dist, specs=bundle.specs(params))
     start_step = 0
     if args.ckpt_dir and ckpt.latest_step(args.ckpt_dir) is not None:
-        print(f"resuming from {args.ckpt_dir}")
+        if world_from_env()[0] == 0:
+            print(f"resuming from {args.ckpt_dir}")
         prev = ckpt.read_meta(args.ckpt_dir)
         if plan and prev.get("plan_hash") \
-                and prev["plan_hash"] != plan.plan_hash:
+                and prev["plan_hash"] != plan.plan_hash \
+                and world_from_env()[0] == 0:
             print(f"[plan] WARNING: checkpoint was trained under plan "
                   f"{prev['plan_hash']} but this launch runs plan "
                   f"{plan.plan_hash} (wafer degraded or re-solved); "
                   f"state restores elastically onto the new mesh")
         (params, opt_state), start_step = ckpt.restore(
-            args.ckpt_dir, (params, opt_state))
+            args.ckpt_dir, (params, opt_state), **io)
 
     losses, times = [], []
     for step in range(start_step, args.steps):
@@ -216,10 +234,10 @@ def train(args, history=None, stats=None) -> dict:
                   flush=True)
         if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
             ckpt.save(args.ckpt_dir, step + 1, (params, opt_state),
-                      keep=args.keep, meta=ckpt_meta)
+                      keep=args.keep, meta=ckpt_meta, **io)
     if args.ckpt_dir:
         ckpt.save(args.ckpt_dir, args.steps, (params, opt_state),
-                  keep=args.keep, meta=ckpt_meta)
+                  keep=args.keep, meta=ckpt_meta, **io)
     return {"first_loss": losses[0] if losses else None,
             "last_loss": losses[-1] if losses else None,
             "steps": len(losses),

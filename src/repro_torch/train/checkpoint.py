@@ -1,11 +1,11 @@
-"""Checkpointing (counterpart of ``repro.train.checkpoint``) on one device:
-atomic, keep-k, restartable.
+"""Checkpointing (counterpart of ``repro.train.checkpoint``): atomic,
+keep-k, restartable, and elastic over the ranks of a mesh.
 
 The reference's on-disk layout, one directory per step::
 
     ckpt_dir/step_000100/
         manifest.json        # step, meta, every leaf's key, shape, dtype
-        proc00.npz           # every leaf (one process, no shards)
+        proc00.npz           # every leaf's global array
     ckpt_dir/LATEST          # atomic pointer file
 
 A step is written into ``step_%08d.tmp`` and renamed into place, then
@@ -18,6 +18,34 @@ sorted, tuples by index, NamedTuple fields as ``.name``) and joined with
 int32 leaf, as the reference's ``OptState.step`` array is.  numpy has no
 bfloat16, so bf16 leaves are stored as their 16-bit patterns (uint16) with
 ``"bfloat16"`` in the manifest, and viewed back on restore.
+
+Over several ranks (``dist`` and ``specs``: each leaf's layout, the
+parameters' ``param_specs`` and the optimizer's
+:meth:`~repro_torch.train.optimizer.AdamW.state_specs`) every leaf is
+stored as its global array, as the reference's single process writes it
+(``proc00.npz``): a ring-sharded leaf gathered over ``model``, a ZeRO-1
+slice (:class:`~repro_torch.train.optimizer.ZeroSlice`) gathered over
+``data`` into its model shard's flat padded leaf, cropped to the shard and
+gathered over ``model``, a replicated leaf from one rank.  So the files
+do not depend on the mesh: a ZeRO-1 state is stored in its parameter's
+shape, which is the reference's layout at data degree 1 (the reference's
+own ZeRO-1 out spec, a 1-D concatenation over ``data`` replicated over
+``model``, keeps one model rank's slices only).  :func:`restore` gives
+every rank its block for the mesh it runs on, which may differ from the
+writer's.  The reference's 1-D ZeRO-1 layout is read where it is exact:
+its length the leaf's padded for this data degree, and the leaf whole on
+this rank (not split over ``model``).  A leaf that cannot be placed raises
+``ValueError`` naming it; nothing is padded or cropped but ZeRO-1's own
+pad.
+
+A replicated leaf's copies may differ between the ring's ranks (above
+model degree 1 each rank clips by the norm of its own shards, as the
+reference does).  Its global array is model rank 0's, as the reference's
+out spec takes one device's; where the copies differ, ``proc00.npz`` also
+holds them stacked under ``<key>@model`` (listed in the manifest's
+``ring_copies``, which the reference's restore does not read), and a
+restore at the same model degree gives each rank its own, so a restart is
+bitwise the run it resumes.
 """
 
 from __future__ import annotations
@@ -30,6 +58,9 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as tdist
+
+from repro_torch.train.optimizer import ZeroSlice
 
 def _flatten(tree, prefix=()) -> list[tuple[str, Any]]:
     """(key, leaf) pairs in the reference's order."""
@@ -59,6 +90,120 @@ def _unflatten(template, leaves: dict, prefix=()):
     return leaves["/".join(prefix)]
 
 
+COPIES = "@model"  # suffix of a replicated leaf's stacked per-ring-rank copies
+
+
+def _flatten_specs(tree, specs, prefix=()) -> dict:
+    """``{key: spec}``: ``specs`` read along ``tree``'s structure (a spec
+    is itself a tuple, so it is taken whole where ``tree`` has a leaf)."""
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(_flatten_specs(tree[k], specs[k], prefix + (str(k),)))
+        return out
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        out = {}
+        for n in tree._fields:
+            out.update(_flatten_specs(getattr(tree, n), getattr(specs, n),
+                                      prefix + (f".{n}",)))
+        return out
+    if isinstance(tree, (tuple, list)):
+        out = {}
+        for i, t in enumerate(tree):
+            out.update(_flatten_specs(t, specs[i], prefix + (str(i),)))
+        return out
+    return {"/".join(prefix): specs}
+
+
+def _numel(shape) -> int:
+    n = 1
+    for d in shape:
+        n *= d
+    return n
+
+
+def _sharded(spec, dist):
+    """``(dim, axis, degree)`` of each dim ``spec`` lays over an axis of
+    more than one rank."""
+    return [(dim, axis, dist.axis_size(axis))
+            for dim, axis in enumerate(spec or ())
+            if axis is not None and dist.axis_size(axis) > 1]
+
+
+def _global_leaf(leaf, spec, dist):
+    """``(global, copies)`` of this rank's ``leaf`` (every rank calls this
+    for every leaf, in one order: the gathers are collectives).  A leaf
+    replicated over an axis of several ranks may still differ between
+    them (above model degree 1 each rank clips by the norm of its own
+    shards, as the reference does, so the ring's copies of a replicated
+    leaf drift apart): its global array is model rank 0's, and ``copies``
+    stacks every model rank's where they differ (else None)."""
+    if not isinstance(leaf, torch.Tensor):
+        return leaf, None
+    if isinstance(spec, ZeroSlice):
+        n = _numel(spec.shape)
+        flat = dist.all_gather(leaf, spec.axis, dim=0)
+        leaf, spec = flat[:n].view(spec.shape), spec.spec
+    sharded = _sharded(spec, dist)
+    for dim, axis, _ in sharded:
+        leaf = dist.all_gather(leaf, axis, dim=dim)
+    mx = dist.model_axis
+    if sharded or dist.axis_size(mx) == 1:
+        return leaf, None
+    copies = dist.all_gather(leaf[None], mx, dim=0)
+    same = all(torch.equal(c, copies[0]) for c in copies[1:])
+    return copies[0], None if same else copies
+
+
+def _global_shape(shape, spec, dist):
+    shape = list(shape)
+    for dim, _, n in _sharded(spec, dist):
+        shape[dim] *= n
+    return tuple(shape)
+
+
+def _block(arr, spec, dist):
+    for dim, axis, n in _sharded(spec, dist):
+        blk = arr.shape[dim] // n
+        lo = dist.axis_index(axis) * blk
+        arr = arr[(slice(None),) * dim + (slice(lo, lo + blk),)]
+    return arr
+
+
+def _place(key, arr, like, spec, dist):
+    """This rank's block of the stored global ``arr`` for a leaf shaped
+    like ``like`` (its local shard), laid out by ``spec``."""
+    if isinstance(spec, ZeroSlice):
+        dp, idx = dist.axis_size(spec.axis), dist.axis_index(spec.axis)
+        n = _numel(spec.shape)
+        glob = _global_shape(spec.shape, spec.spec, dist)
+        padded = n + (-n) % dp
+        if tuple(arr.shape) == glob:
+            flat = np.ascontiguousarray(_block(arr, spec.spec, dist)).reshape(-1)
+            if padded > n:  # ZeRO-1's own pad
+                flat = np.concatenate([flat, np.zeros(padded - n, flat.dtype)])
+        elif arr.ndim == 1 and arr.shape[0] == padded and glob == spec.shape:
+            flat = arr  # the reference's 1-D ZeRO-1 layout, exact here
+        else:
+            raise ValueError(
+                f"{key}: a checkpoint leaf of shape {tuple(arr.shape)} "
+                f"cannot be placed as ZeRO-1's slice over {dp} {spec.axis} "
+                f"ranks of a leaf of global shape {glob} (its shard "
+                f"{tuple(spec.shape)}): neither the leaf's global shape nor "
+                f"the flat leaf padded to {padded}")
+        k = padded // dp
+        return flat[idx * k:(idx + 1) * k]
+    glob = _global_shape(np.shape(like), spec, dist)
+    if tuple(arr.shape) != glob:
+        raise ValueError(f"{key}: checkpoint shape {tuple(arr.shape)}, "
+                         f"template's global shape {glob}")
+    return _block(arr, spec, dist)
+
+
+def _several(dist) -> bool:
+    return dist is not None and dist.n_devices > 1
+
+
 def _dtype_name(leaf) -> str:
     if isinstance(leaf, torch.Tensor):
         return str(leaf.dtype).removeprefix("torch.")
@@ -80,27 +225,52 @@ def _host(leaf) -> np.ndarray:
 
 
 def save(ckpt_dir: str, step: int, tree: Any, *, keep: int = 3,
-         blocking: bool = True, meta: Optional[dict] = None) -> str:
+         blocking: bool = True, meta: Optional[dict] = None, dist=None,
+         specs: Any = None) -> str:
     """Write a checkpoint; returns its directory.  Idempotent: a step
     already published is left as it is.  ``meta`` lands verbatim in the
     manifest.  With ``blocking=False`` the files are written by a thread;
-    every leaf is copied to the host before it starts."""
+    every leaf is copied to the host before it starts.
+
+    Over several ranks (``dist`` with more than one, and ``specs``, each
+    leaf's layout in ``tree``'s structure) every rank calls ``save``: the
+    leaves are gathered into their global arrays in one order on every
+    rank, global rank 0 writes the files, and every rank passes a barrier
+    after the publish; such a save blocks."""
+    several = _several(dist)
+    if several and not blocking:
+        raise ValueError("a checkpoint over several ranks blocks: every "
+                         "rank waits for the publish")
     tag = f"step_{step:08d}"
     final = os.path.join(ckpt_dir, tag)
-    if os.path.exists(final):
+    if os.path.exists(final):  # every rank sees it: it was published
+        return final          # before this save began
+    writer = not several or tdist.get_rank() == 0
+    leaves = _flatten(tree)
+    if several:
+        spec_of = _flatten_specs(tree, specs)
+        glob = [(k, _global_leaf(leaf, spec_of[k], dist))
+                for k, leaf in leaves]
+        leaves = [(k, g) for k, (g, _) in glob]
+        copies = {k + COPIES: c for k, (_, c) in glob if c is not None}
+    else:
+        copies = {}
+    if not writer:
+        tdist.barrier()
         return final
     tmp = final + ".tmp"
     shutil.rmtree(tmp, ignore_errors=True)  # stale tmp from a crashed writer
     os.makedirs(tmp, exist_ok=True)
 
-    leaves = _flatten(tree)
     manifest = {
         "step": step,
         "meta": meta or {},
         "leaves": [{"key": k, "shape": list(np.shape(leaf)),
                     "dtype": _dtype_name(leaf)} for k, leaf in leaves],
     }
-    arrays = {k: _host(leaf) for k, leaf in leaves}
+    if copies:
+        manifest["ring_copies"] = sorted(copies)
+    arrays = {k: _host(leaf) for k, leaf in [*leaves, *copies.items()]}
 
     def _write():
         np.savez(os.path.join(tmp, "proc00.npz"), **arrays)
@@ -115,6 +285,8 @@ def save(ckpt_dir: str, step: int, tree: Any, *, keep: int = 3,
 
     if blocking:
         _write()
+        if several:
+            tdist.barrier()
     else:
         threading.Thread(target=_write, daemon=True).start()
     return final
@@ -148,12 +320,16 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
         return int(f.read().strip().split("_")[1])
 
 
-def restore(ckpt_dir: str, template: Any,
-            step: Optional[int] = None) -> tuple[Any, int]:
+def restore(ckpt_dir: str, template: Any, step: Optional[int] = None,
+            dist=None, specs: Any = None) -> tuple[Any, int]:
     """(tree, step): the checkpoint (latest by default) in ``template``'s
     structure, each tensor leaf new, on the template leaf's device and in
     its dtype; integer leaves come back as ints.  The checkpoint must hold
-    exactly the template's leaves, in its shapes."""
+    exactly the template's leaves.  On one device they have the
+    template's shapes; over several ranks (``dist`` and ``specs`` as
+    :func:`save` takes them) every rank reads the global leaves and keeps
+    its block for the mesh it runs on (``ValueError`` naming a leaf that
+    cannot be placed there)."""
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
@@ -167,10 +343,17 @@ def restore(ckpt_dir: str, template: Any,
             f"checkpoint {d} does not match the template: missing "
             f"{sorted(set(want) - set(dtypes))}, unexpected "
             f"{sorted(set(dtypes) - set(want))}")
+    spec_of = _flatten_specs(template, specs) if _several(dist) else None
     out = {}
     with np.load(os.path.join(d, "proc00.npz")) as data:
         for key, like in want.items():
             arr = data[key]
+            if spec_of is not None and key + COPIES in data.files:
+                mine = data[key + COPIES]  # this ring rank's own copy
+                if mine.shape[0] == dist.axis_size(dist.model_axis):
+                    arr = mine[dist.axis_index(dist.model_axis)]
+            if spec_of is not None:
+                arr = _place(key, arr, like, spec_of[key], dist)
             if tuple(arr.shape) != tuple(np.shape(like)):
                 raise ValueError(f"{key}: checkpoint shape {arr.shape}, "
                                  f"template {tuple(np.shape(like))}")

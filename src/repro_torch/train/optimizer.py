@@ -65,6 +65,16 @@ def lr_schedule(cfg: AdamWConfig, step) -> float:
     return float(f(cfg.lr) * warm * (ratio + (f(1) - ratio) * cos))
 
 
+class ZeroSlice(NamedTuple):
+    """The layout of a ZeRO-1 state leaf (:meth:`AdamW.state_specs`): this
+    rank's slice over ``axis`` of its model shard (``shape``, laid over
+    the mesh by the parameter's ``spec``) flattened and zero-padded."""
+
+    spec: tuple
+    shape: tuple
+    axis: str = "data"
+
+
 class OptState(NamedTuple):
     step: int
     master: Any  # fp32 master copies
@@ -87,6 +97,13 @@ def tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+def _map2(fn, tree, other):
+    """``fn(leaf, other_leaf)`` over ``tree``, ``other`` in its layout."""
+    if isinstance(tree, dict):
+        return {k: _map2(fn, v, other[k]) for k, v in tree.items()}
+    return fn(tree, other)
 
 
 def _flat_pad(x, dp: int):
@@ -130,6 +147,21 @@ class AdamW:
             tree_map(torch.zeros_like, master),
             tree_map(lambda p: torch.zeros((), dtype=torch.float32,
                                            device=p.device), master))
+
+    def state_specs(self, params, pspecs) -> OptState:
+        """The layout of :meth:`init`'s state over the mesh, for the
+        checkpoints (the reference's ``state_specs``): ``master``, ``m``
+        and ``v`` as ``pspecs`` (a leaf's spec: the mesh axis of each dim),
+        or a :class:`ZeroSlice` a leaf under ZeRO-1; the integer step and
+        the 0-d ``err`` leaves replicated."""
+        if self.shard_axis:
+            sliced = _map2(lambda p, s: ZeroSlice(tuple(s), tuple(p.shape),
+                                                  self.shard_axis),
+                           params, pspecs)
+        else:
+            sliced = pspecs
+        return OptState(None, sliced, sliced, sliced,
+                        tree_map(lambda _: (), params))
 
     @torch.no_grad()
     def update(self, params, grads, state: OptState):

@@ -29,7 +29,7 @@ of the bookkeeping is the identity.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -79,6 +79,12 @@ class TrainBundle:
     init_fn: Callable  # (generator) -> (params, opt)
     ctx: RunCtx
     opt: AdamW
+    pspecs: Any = None  # param_specs of the tree (the checkpoints' layout)
+
+    def specs(self, params):
+        """Each leaf's layout over the mesh for ``(params, opt_state)``
+        (:mod:`repro_torch.train.checkpoint`)."""
+        return self.pspecs, self.opt.state_specs(params, self.pspecs)
 
 
 def make_train_step(cfg: ModelConfig, par: ParallelConfig, dist: Dist,
@@ -118,7 +124,7 @@ def make_train_step(cfg: ModelConfig, par: ParallelConfig, dist: Dist,
             params = init_params(cfg, generator, dist.device)
         return params, opt.init(params)
 
-    return TrainBundle(step_fn, init_fn, ctx, opt)
+    return TrainBundle(step_fn, init_fn, ctx, opt, pspecs)
 
 
 def loss_and_grads(ctx: RunCtx, params, batch):

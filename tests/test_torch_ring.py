@@ -803,9 +803,16 @@ def test_unported_ring_paths_raise(monkeypatch):
     q = torch.zeros(1, 2, 4, 8, requires_grad=True)
     with pytest.raises(NotImplementedError, match="A3a-2"):
         flash(q, q, q, return_lse=True)
+    import repro_torch.launch.train as launch
+
+    def joined(args):
+        raise RuntimeError("joined the world")
+
+    monkeypatch.setattr(launch, "join_world", joined)
     monkeypatch.setenv("WORLD_SIZE", "4")
     for extra in (["--ckpt-dir", "ck"], ["--wafers", "2"]):
-        with pytest.raises(NotImplementedError, match="A3a-2"):
+        # sharded checkpoints and a stage's submesh go on to the world
+        with pytest.raises(RuntimeError, match="joined the world"):
             train_main(["--reduced", "--device", "cpu", *extra])
     with pytest.raises(ValueError, match="not a multiple of the ring"):
         check_prompt_len(_ring_dist(4), 18)

@@ -477,20 +477,33 @@ def test_train_main_prints_reference_keys(capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--ckpt-dir", "ck", "--mesh", "1", "2"], "A3a-2"),
-    (["--wafers", "2", "--mesh", "2", "1"], "A3a-2"),
+    (["--ckpt-dir", "ck", "--mesh", "1", "2"], None),
+    (["--wafers", "2", "--mesh", "2", "1"], None),
     (["--strategy", "megatron", "--mesh", "1", "4", "--ckpt-dir", "ck"],
-     "A3a-2"),
+     "A3d"),
 ])
 def test_train_unported_flags_raise(flags, item, monkeypatch):
     """Over several ranks (the mesh's, as ``torch.distributed.run`` would
-    set them) sharded checkpoints and a stage's submesh raise before the
-    rank joins the world."""
+    set them) sharded checkpoints and a stage's submesh pass the launch's
+    checks and go on to join the world (their runs under torchrun:
+    ``tests/test_torch_ring_launch.py``); a strategy other than ``tatp``
+    above model degree 1 raises before the rank joins."""
+    import repro_torch.launch.train as launch
     from repro_torch.launch.train import main
+
+    def joined(args):
+        raise RuntimeError("joined the world")
+
+    monkeypatch.setattr(launch, "join_world", joined)
     mesh = [int(f) for f in flags[flags.index("--mesh") + 1:][:2]]
     monkeypatch.setenv("WORLD_SIZE", str(mesh[0] * mesh[1]))
-    with pytest.raises(NotImplementedError, match=item):
-        main(["--reduced", "--device", "cpu", "--steps", "1", *flags])
+    argv = ["--reduced", "--device", "cpu", "--steps", "1", *flags]
+    if item is None:
+        with pytest.raises(RuntimeError, match="joined the world"):
+            main(argv)
+    else:
+        with pytest.raises(NotImplementedError, match=item):
+            main(argv)
 
 
 def test_train_without_cuda_raises(monkeypatch):
