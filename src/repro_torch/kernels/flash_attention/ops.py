@@ -48,7 +48,6 @@ import math
 
 import torch
 
-from repro_torch import not_ported
 from repro_torch.core import remat
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
@@ -106,8 +105,8 @@ def attention(q, k, v, *, causal=True, window=None, cap=None, scale=None,
         _check(q, k, v, window, cap)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         if return_lse:  # the ring's Function reaches the backward itself
-            raise not_ported("the flash kernel's row LSE under autograd "
-                             "outside ring attention's Function", "A3a-2")
+            raise ValueError("the row LSE under autograd is reached "
+                             "through ring attention's Functions")
         return _FlashAttention.apply(q, k, v, causal, window, cap, scale)
     if cpu:
         return attention_ref(q, k, v, causal=causal, window=window, cap=cap,

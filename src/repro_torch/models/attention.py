@@ -21,9 +21,13 @@ sharded over the ring:
   (pmax, psum, psum) combine; :func:`write_kv_cache` writes the token's
   K/V on the rank that owns its position.
 
+* :func:`zigzag_ring_attention` is the causal ring over the zigzag chunk
+  layout (rank i holds chunks i and 2R - 1 - i; the caller permutes the
+  sequence with :func:`zigzag_permutation`): uniform work a rank, 2R + 1
+  c x c launches on the hook path, sharing :class:`_RingAttention`.
+
 A sliding window above degree 1 needs a key offset the flash kernel does
-not take, and raises (ROADMAP.md A3f); zigzag attention is ROADMAP.md
-A3a-2 (``models/lm.py:loss_fn`` raises).
+not take, and raises (ROADMAP.md A3f).
 
 Masking keeps the reference's numerics: NEG_INF = -1e30, masked
 probabilities zeroed after the exp, and the row sum clamped at 1e-20, so a
@@ -38,6 +42,7 @@ from typing import Optional
 import torch
 
 from repro_torch import not_ported
+from repro_torch.core import remat
 from repro_torch.models.common import softcap
 
 NEG_INF = -1e30
@@ -164,42 +169,74 @@ _BACK_SHIFT = {"up": +1, "dn": -1}  # a stream's hop, reversed
 
 
 def _hook_rounds(q, k, v, ring):
-    """The hook path's forward: one ``attention`` call a visible round
-    (causal on the own block, unmasked on an earlier one, none for a later
-    one), merged in fp32 by the rounds' row log-sum-exp.  Returns the
-    merged output [B, Hq, S, D] in fp32 and the global row LSE [B, Hq,
-    S]."""
+    """The hook path's forward: one ``attention`` call a launch of each
+    round (:meth:`_Ring.launches`), each query slice's launches merged in
+    fp32 by their row log-sum-exp.  Returns the merged output [B, Hq, S,
+    D] in fp32 and the global row LSE [B, Hq, S]."""
     i = ring.dist.axis_index(ring.axis)
     qt = q.transpose(1, 2)
-    acc = lse = None
+    merged = {}  # query rows (start, stop) -> (acc, lse)
     for _, _, j, kj, vj in _rounds(k, v, i, ring.r, ring.bidirectional,
                                    ring.relay):
-        if ring.causal and j > i:  # every key lies after every query
-            continue
-        o, lse_j = ring.attention(qt, kj.transpose(1, 2), vj.transpose(1, 2),
-                                  causal=ring.causal and j == i,
-                                  cap=ring.cap, scale=ring.scale,
-                                  return_lse=True)
-        acc, lse = _merge(acc, lse, o, lse_j)
-    return acc, lse
+        kt, vt = kj.transpose(1, 2), vj.transpose(1, 2)
+        for qs, ks, causal in ring.launches(i, j, q.shape[1]):
+            o, lse_j = ring.attention(qt[:, :, qs], kt[:, :, ks],
+                                      vt[:, :, ks], causal=causal,
+                                      cap=ring.cap, scale=ring.scale,
+                                      return_lse=True)
+            key = (qs.start, qs.stop)
+            merged[key] = _merge(*merged.get(key, (None, None)), o, lse_j)
+    return (_join({key: m[0] for key, m in merged.items()}),
+            _join({key: m[1] for key, m in merged.items()}))
+
+
+def _join(parts):
+    """Slices' tensors ``{(start, stop): t}`` in row order, concatenated
+    along dim 2 (rows of [B, H, S, D] and [B, H, S])."""
+    ts = [parts[key] for key in sorted(parts)]
+    return ts[0] if len(ts) == 1 else torch.cat(ts, dim=2)
+
+
+_ALL = slice(0, None)
 
 
 class _Ring:
     """One ring attention call's settings (its hook path's closure)."""
 
     def __init__(self, axis, r, causal, cap, bidirectional, scale, wire,
-                 dist, attention):
+                 dist, attention, zigzag=False):
         from repro_torch.core.tatp import wire_relay
 
         self.axis, self.r, self.causal, self.cap = axis, r, causal, cap
         self.bidirectional, self.scale, self.dist = bidirectional, scale, dist
-        self.attention = attention
+        self.attention, self.zigzag = attention, zigzag
 
         def relay(kv, shift):
             return tuple(wire_relay(t, axis, r, shift, wire, dist=dist)
                          for t in kv)
 
         self.relay = relay
+
+    def launches(self, i: int, j: int, s_loc: int):
+        """The kernel launches of rank ``i``'s round on block ``j``, as
+        ``(query rows, key rows, causal)``.  Contiguous: the whole block,
+        causal on the own one, none for a later one (every key lies after
+        every query).  Zigzag (rank i holds chunks i and 2R - 1 - i, c
+        rows each, as A and B): on the own block q_A x k_A and q_B x k_B
+        causal and q_B x k_A unmasked (q_A x k_B is invisible); on an
+        earlier block (j < i) q_A and q_B x k_A, on a later one q_B x k_A
+        and q_B x k_B, all unmasked: 2R + 1 launches a rank."""
+        if not self.zigzag:
+            if self.causal and j > i:
+                return []
+            return [(_ALL, _ALL, self.causal and j == i)]
+        c = s_loc // 2
+        a, b = slice(0, c), slice(c, s_loc)
+        if j == i:
+            return [(a, a, True), (b, a, False), (b, b, True)]
+        if j < i:
+            return [(a, a, False), (b, a, False)]
+        return [(b, a, False), (b, b, False)]
 
 
 class _RingAttention(torch.autograd.Function):
@@ -220,7 +257,11 @@ class _RingAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, ring):
-        o32, lse = _hook_rounds(q, k, v, ring)
+        # tatp_outputs records what the backward reads (the fp32 output
+        # and the global LSE): the recompute runs no round and relays no
+        # K/V block
+        o32, lse = remat.saved_or_run("attention",
+                                      lambda: _hook_rounds(q, k, v, ring))
         ctx.save_for_backward(q, k, v, o32, lse)
         ctx.ring = ring
         return o32.to(q.dtype).transpose(1, 2)
@@ -238,19 +279,24 @@ class _RingAttention(torch.autograd.Function):
         if dot.stride(3) != 1:
             dot = dot.contiguous()
         delta = (dot.float() * o32).sum(dim=-1).contiguous()
-        dq = None
+        dq = {}  # query rows (start, stop) -> fp32 dQ
         parts = {}  # (stream, t) -> this rank's (dK, dV) of that block
         for stream, t, j, kj, vj in _rounds(k, v, i, r, ring.bidirectional,
                                             ring.relay):
-            if ring.causal and j > i:
-                parts[stream, t] = None
-                continue
-            # o is not read with an outside delta; do stands in for it
-            g = bwd(qt, kj.transpose(1, 2), vj.transpose(1, 2), dot, lse,
-                    dot, causal=ring.causal and j == i, cap=ring.cap,
-                    scale=ring.scale, delta=delta)
-            dq = g[0].float() if dq is None else dq + g[0].float()
-            parts[stream, t] = tuple(x.transpose(1, 2) for x in g[1:])
+            kt, vt = kj.transpose(1, 2), vj.transpose(1, 2)
+            got = {}  # key rows -> (dK, dV) in [B, H, S, D]
+            for qs, ks, causal in ring.launches(i, j, q.shape[1]):
+                # o is not read with an outside delta; do stands in for it
+                d = dot[:, :, qs]
+                g = bwd(qt[:, :, qs], kt[:, :, ks], vt[:, :, ks], d,
+                        _rows(lse, qs), d, causal=causal, cap=ring.cap,
+                        scale=ring.scale, delta=_rows(delta, qs))
+                qk, kk = (qs.start, qs.stop), (ks.start, ks.stop)
+                dq[qk] = g[0].float() if qk not in dq \
+                    else dq[qk] + g[0].float()
+                got[kk] = tuple(x.float() for x in g[1:]) if kk not in got \
+                    else tuple(a + x.float() for a, x in zip(got[kk], g[1:]))
+            parts[stream, t] = _kv_partial(got, k, v) if got else None
 
         def part(key):
             p = parts[key]
@@ -258,7 +304,7 @@ class _RingAttention(torch.autograd.Function):
                 return torch.zeros(k.shape, dtype=torch.float32,
                                    device=k.device), torch.zeros(
                     v.shape, dtype=torch.float32, device=v.device)
-            return p[0].float(), p[1].float()
+            return p
 
         rounds = {s: max(t for (s2, t) in parts if s2 == s)
                   for s in ("up", "dn") if any(s2 == s for s2, _ in parts)}
@@ -280,8 +326,29 @@ class _RingAttention(torch.autograd.Function):
             [(acc[s], _shift_perm(r, _BACK_SHIFT[s])) for s in acc], axis)
         for gk, gv in moved:
             dk, dv = dk + gk, dv + gv
+        dq = _join(dq)
         return (dq.transpose(1, 2).to(q.dtype), dk.to(k.dtype),
                 dv.to(v.dtype), None)
+
+
+def _rows(t, qs):
+    """Rows ``qs`` of a [B, H, S] LSE or delta, contiguous for the
+    kernel."""
+    return t if qs == _ALL else t[..., qs].contiguous()
+
+
+def _kv_partial(got, k, v):
+    """A block's fp32 (dK, dV) in k's [B, S, H, D] layout from its key
+    slices' [B, H, S, D] partials, zeros in rows no launch read."""
+    whole = (_ALL.start, _ALL.stop)
+    if list(got) == [whole]:
+        return tuple(x.transpose(1, 2) for x in got[whole])
+    out = [torch.zeros(t.shape, dtype=torch.float32, device=t.device)
+           for t in (k, v)]
+    for (lo, hi), gs in got.items():
+        for o, g in zip(out, gs):
+            o[:, lo:hi] += g.transpose(1, 2)
+    return tuple(out)
 
 
 def _attention_bwd(attention, q):
@@ -336,6 +403,112 @@ def ring_attention(q, k, v, *, axis: str, axis_size: int, causal=True,
         state = _block_update(qg, kj, vj, *state, qpos, j * sl + ar,
                               scale=scale, causal=causal, window=None,
                               cap=cap)
+    return _finish(*state, q.dtype)
+
+
+def zigzag_local_positions(axis: str, axis_size: int, s_loc: int,
+                           dist=None, device=None):
+    """Positions of this rank's tokens under the zigzag chunk layout: rank
+    i owns global sequence chunks ``i`` and ``2R - 1 - i`` (c = s_loc / 2
+    each)."""
+    c = s_loc // 2
+    i = dist.axis_index(axis) if axis_size > 1 else 0
+    ar = torch.arange(c, device=device)
+    return torch.cat([i * c + ar, (2 * axis_size - 1 - i) * c + ar])
+
+
+def zigzag_permutation(axis_size: int, seq_len: int):
+    """Host-side permutation of the global sequence dim so that sharding dim
+    1 over the ring delivers zigzag chunks: [chunk_i ‖ chunk_{2R−1−i}]."""
+    import numpy as _np
+    r = axis_size
+    c = seq_len // (2 * r)
+    idx = []
+    for i in range(r):
+        idx.append(_np.arange(i * c, (i + 1) * c))
+        j = 2 * r - 1 - i
+        idx.append(_np.arange(j * c, (j + 1) * c))
+    return _np.concatenate(idx)
+
+
+def zigzag_ring_attention(q, k, v, *, axis: str, axis_size: int,
+                          window=None, cap=None, bidirectional=True,
+                          scale=None, wire: str = "native", dist=None,
+                          attention=None):
+    """Causal ring attention over the zigzag chunk layout.
+
+    q/k/v: [B, s_loc, H(,kv), dh] with local tokens = global chunks (i,
+    2R - 1 - i).  Each streamed source costs exactly two (c x c) updates,
+    with uniform work a rank.  With ``attention`` (the flash kernel's
+    signature) every update is one launch on c x c blocks, none with a
+    position offset (:meth:`_Ring.launches`: 2R + 1 a rank), merged in
+    fp32 by row LSE, and under autograd :class:`_RingAttention` gives the
+    backward (2R + 1 backward launches).  Without it, the reference's
+    online-softmax loop, which autograd differentiates through the
+    relays."""
+    r = axis_size
+    b, sl, hq, dh = q.shape
+    hk = k.shape[2]
+    c = sl // 2
+    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    if r == 1:
+        return local_attention(q, k, v, causal=True, window=window, cap=cap,
+                               scale=scale)
+    if window is not None:
+        raise not_ported("a sliding window in ring attention", "A3f")
+    i = dist.axis_index(axis)
+    ring = _Ring(axis, r, True, cap, bidirectional, scale, wire, dist,
+                 attention, zigzag=True)
+    if attention is not None:
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v)):
+            return _RingAttention.apply(q, k, v, ring)
+        o32, _ = _hook_rounds(q, k, v, ring)
+        return o32.to(q.dtype).transpose(1, 2)
+    ar = torch.arange(c, device=q.device)
+    pos_a, pos_b = i * c + ar, (2 * r - 1 - i) * c + ar
+    qg = _group(q, hk)
+    qa, qb = qg[:, :c], qg[:, c:]
+    kw = dict(scale=scale, causal=True, window=None, cap=cap)
+    # round 0: the whole local block (the causal mask hides q_A x k_B)
+    my_pos = torch.cat([pos_a, pos_b])
+    state = _block_update(qg, k, v, *_init_state(b, hk, hq // hk, sl, dh,
+                                                 q.device),
+                          my_pos, my_pos, **kw)
+    sa = tuple(t[:, :, :, :c] for t in state)
+    sb = tuple(t[:, :, :, c:] for t in state)
+
+    def source(sa, sb, kv, j):
+        """Zigzag selection: exactly two (c x c) updates a source."""
+        kk, vv = kv
+        src_a = j * c + ar
+        if j < i:  # q_A and q_B x the source's chunk A
+            sa = _block_update(qa, kk[:, :c], vv[:, :c], *sa, pos_a, src_a,
+                               **kw)
+            sb = _block_update(qb, kk[:, :c], vv[:, :c], *sb, pos_b, src_a,
+                               **kw)
+        else:  # q_B x the source's chunks A and B
+            sb = _block_update(qb, kk[:, :c], vv[:, :c], *sb, pos_b, src_a,
+                               **kw)
+            sb = _block_update(qb, kk[:, c:], vv[:, c:], *sb, pos_b,
+                               (2 * r - 1 - j) * c + ar, **kw)
+        return sa, sb
+
+    if not bidirectional:  # the reference's order: blocks move +1
+        blk = (k, v)
+        for t in range(1, r):
+            blk = ring.relay(blk, +1)
+            sa, sb = source(sa, sb, blk, (i - t) % r)
+    else:
+        from repro_torch.core.tatp import _n_rounds
+        up, dn = (k, v), (k, v)
+        for t in range(1, _n_rounds(r)):
+            up = ring.relay(up, -1)
+            sa, sb = source(sa, sb, up, (i + t) % r)
+            if not (r % 2 == 0 and t == r // 2):  # antipodal: one block
+                dn = ring.relay(dn, +1)
+                sa, sb = source(sa, sb, dn, (i - t) % r)
+    state = tuple(torch.cat([x, y], dim=3) for x, y in zip(sa, sb))
     return _finish(*state, q.dtype)
 
 

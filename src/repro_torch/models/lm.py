@@ -31,9 +31,12 @@ its owner); the last position's activation comes from the ring's last
 rank; the greedy token is the argmax over the vocab shards (pmax, then
 pmin of the global index: ties go to the lowest).  The caches are
 sequence-sharded (:func:`init_cache`, :func:`shard_prompt_cache`).  The
-encoder-decoder, the vision prefix, zigzag ring attention and
-``remat_policy="tatp_outputs"`` train on the ring only in the reference
-yet (ROADMAP.md A3a-2): :func:`loss_fn` raises for them.
+encoder-decoder (its encoder's blocks bidirectional ring attention, its
+cross blocks streaming the sequence-sharded encoder output), the vision
+prefix (replicated over the ring, each rank taking its positions), zigzag
+ring attention (``ParallelConfig(zigzag=True)`` on a batch permuted by
+``attention.zigzag_permutation``) and ``remat_policy="tatp_outputs"``
+train on the ring as in the reference.
 """
 
 from __future__ import annotations
@@ -260,15 +263,6 @@ def loss_fn(ctx: RunCtx, params, batch):
     count, aux_total)."""
     cfg = ctx.cfg
     ctx = replace(ctx, phase="train")
-    if ctx.r > 1:
-        if cfg.n_enc_layers or cfg.frontend_tokens:
-            raise not_ported(f"{cfg.name} (its encoder or frontend prefix) "
-                             f"on the train ring", "A3a-2")
-        if ctx.par.zigzag:
-            raise not_ported("zigzag ring attention", "A3a-2")
-        if ctx.par.remat and ctx.par.remat_policy == "tatp_outputs":
-            raise not_ported("remat_policy='tatp_outputs' over the ring",
-                             "A3a-2")
     enc_out = _encoder(ctx, params, batch)
     x = embed_tokens(ctx, params["embed"], batch["tokens"],
                      batch.get("prefix_embeds"))

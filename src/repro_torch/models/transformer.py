@@ -41,9 +41,8 @@ columns (:func:`_gather_cols`); the K/V cache stays sequence-sharded.
 The ``megatron`` and ``fsdp`` strategies (which plans prescribe, e.g.
 gemma-7b's serve plan) run at model degree 1, where they compute what
 ``tatp`` does (:func:`_linear`).  Not ported yet (each raises
-``NotImplementedError`` naming its ROADMAP.md item): zigzag ring
-attention (A3a-2, raised by ``lm.loss_fn``), the Mamba-2 block above
-degree 1 (A3c), expert
+``NotImplementedError`` naming its ROADMAP.md item): the Mamba-2 block
+above degree 1 (A3c), expert
 parallelism and the ``megatron``/``fsdp`` strategies above it (A3d).
 """
 
@@ -444,12 +443,27 @@ def attn_block(ctx: RunCtx, p, x, *, kind: str, pos_offset, cache=None,
                                             dist=ctx.dist)
         else:
             sl = x.shape[1]
-            if not is_cross:  # this rank's block of global positions
-                i = ctx.dist.axis_index(ctx.axis)
-                qp = pos_offset + i * sl + torch.arange(sl, device=x.device)
+            zig = (ctx.par.zigzag and causal and ctx.phase == "train"
+                   and ctx.par.strategy == "tatp" and ctx.r > 1
+                   and sl % 2 == 0)
+            if not is_cross:  # this rank's global positions
+                if zig:
+                    qp = pos_offset + attn_lib.zigzag_local_positions(
+                        ctx.axis, ctx.r, sl, dist=ctx.dist, device=x.device)
+                else:
+                    i = ctx.dist.axis_index(ctx.axis)
+                    qp = pos_offset + i * sl + torch.arange(sl,
+                                                            device=x.device)
                 q = apply_rope(q, qp, cfg.rope_theta)
                 k = apply_rope(k, qp, cfg.rope_theta)
-            if ctx.r > 1:
+            if zig:
+                out = attn_lib.zigzag_ring_attention(
+                    q, k, v, axis=ctx.axis, axis_size=ctx.r, window=window,
+                    cap=cfg.attn_softcap,
+                    bidirectional=ctx.par.bidirectional,
+                    wire=ctx.par.stream_dtype, dist=ctx.dist,
+                    attention=ctx.attention)
+            elif ctx.r > 1:
                 out = attn_lib.ring_attention(
                     q, k, v, axis=ctx.axis, axis_size=ctx.r, causal=causal,
                     window=window, cap=cfg.attn_softcap,

@@ -777,33 +777,29 @@ def _ring_dist(r=2):
 
 
 def test_unported_ring_paths_raise(monkeypatch):
-    """What the train ring leaves (A3a-2) raises before any collective;
-    the ring's own checks hold."""
+    """What the train ring leaves raises before any collective: a window
+    under zigzag attention (A3f), the flash kernel's row LSE under autograd
+    outside ring attention's Functions; sharded checkpoints and a stage's
+    submesh go on to join the world (the encoder-decoder, the vision
+    prefix, zigzag and ``tatp_outputs`` train on the ring:
+    ``tests/test_torch_ring_{encdec,zigzag}.py``); the ring's own checks
+    hold."""
     sys.path.insert(0, str(SRC))
-    from repro_torch.configs import get_reduced
-    from repro_torch.configs.base import ParallelConfig
+    import repro_torch.launch.train as launch
     from repro_torch.core.dist import check_transport
     from repro_torch.kernels.flash_attention.ops import attention as flash
     from repro_torch.launch.train import main as train_main
-    from repro_torch.models import lm
-    from repro_torch.models.transformer import RunCtx
+    from repro_torch.models import attention as attn
     from repro_torch.train.train_loop import check_prompt_len
 
     dist = _ring_dist()
-    batch = {"tokens": torch.zeros(1, 4, dtype=torch.long)}
-    for name, par in (
-            ("internvl2-1b", ParallelConfig()),
-            ("seamless-m4t-large-v2", ParallelConfig()),
-            (ARCH, ParallelConfig(zigzag=True)),
-            (ARCH, ParallelConfig(remat=True,
-                                  remat_policy="tatp_outputs"))):
-        ctx = RunCtx(get_reduced(name), par, dist, phase="train")
-        with pytest.raises(NotImplementedError, match="A3a-2"):
-            lm.loss_fn(ctx, {}, batch)
+    x = torch.zeros(1, 4, 2, 8)
+    with pytest.raises(NotImplementedError, match="A3f"):
+        attn.zigzag_ring_attention(x, x, x, axis="model", axis_size=2,
+                                   window=4, dist=dist)
     q = torch.zeros(1, 2, 4, 8, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="A3a-2"):
+    with pytest.raises(ValueError, match="ring attention's Functions"):
         flash(q, q, q, return_lse=True)
-    import repro_torch.launch.train as launch
 
     def joined(args):
         raise RuntimeError("joined the world")
