@@ -231,7 +231,29 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    GEMM launches a rank by layout, flash forwards and backwards (every
    backward with an outside delta), every one on ``wgmma`` / ``mma``, the
    first loss within 1e-2 of phase 5's degree-1 run on the same weights
-   and batch, and each rank's step ms, staged share, GB sent and peak GB.
+   and batch, and each rank's step ms, staged share, GB sent and peak GB;
+13. the rest of the train ring — the zigzag launch (c x c, [4, 32, 64,
+   128] bf16, causal and unmasked) forward and backward (outside delta)
+   against their plain versions, timed beside them and SDPA, and the
+   degree-1 fp32 steps of internvl2-1b and seamless-m4t-large-v2 (2
+   layers, 2 + 2, at full width) in this process; then four ranks of
+   this script (``--ring-more-rank``) sharing the card over gloo: (a)
+   ``launch.train --mesh 1 4`` on the reduced deepseek-7b in fp32 with a
+   checkpoint every 2 steps, failing at step 4 and restarted: the final
+   checkpoint bitwise the straight run's, a restart of the step-4
+   checkpoint at ``--mesh 2 2`` within 2e-4 of its losses, and that
+   checkpoint restored at (2, 2) and saved again bitwise; (b) deepseek-7b
+   at full width, 4 layers, bf16, batch 4 x seq 512, mesh (1, 4): one
+   step's loss and every gradient under ``tatp_outputs`` bitwise full
+   remat's, with exact launches (forward GEMM tiles 228 under full remat,
+   116 under ``tatp_outputs``; no flash forward in its recompute), the
+   bytes each rank sent and its peak GB; (c) zigzag: the fp32 loss (2
+   layers, batch 4 x seq 128) on ``zigzag_permutation``-ed data within
+   1e-5 of the contiguous loss, and one bf16 step of (b)'s model with
+   2R + 1 = 9 flash forwards and 9 backwards a layer on every rank; (d)
+   one fp32 step of internvl2-1b (its image prefix) and of
+   seamless-m4t-large-v2 (its encoder on the ring) at (1, 4), each loss
+   within 1e-5 of its degree-1 step.
 
 It then prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``.
@@ -4078,16 +4100,17 @@ RING_TRAIN_ATTN = (TRAIN["batch"], HEADS, TRAIN["seq"] // RING_TRAIN["ranks"],
                    HEAD_DIM)
 
 
-def ring_train_launches(cfg, r, i, remat):
+def ring_train_launches(cfg, r, i, remat, saved=False):
     """Kernel launches of one train step on rank ``i`` of a ring of ``r``
     (a causal decoder, :func:`train_launches` at degree 1): every linear's
     forward, dgrad and wgrad as ``r`` per-round tiles each, the streamed
     head's three products once a block (``r`` blocks), and in every
     attention block one flash forward (again under remat) and one flash
     backward, all with an outside delta, a visible round (the own block
-    and the ``i`` earlier ones).  Returns (launches by kernel, GEMM
-    launches by layout, flash backwards with an outside delta)."""
-    n, lay = train_launches(cfg, remat)
+    and the ``i`` earlier ones); ``saved``: under ``tatp_outputs``, whose
+    recompute runs neither.  Returns (launches by kernel, GEMM launches by
+    layout, flash backwards with an outside delta)."""
+    n, lay = train_launches(cfg, remat, saved)
     n = dict(n, tatp_matmul=n["tatp_matmul"] * r,
              flash_attention=n["flash_attention"] * (i + 1),
              flash_attention_bwd=n["flash_attention_bwd"] * (i + 1))
@@ -4544,6 +4567,615 @@ def phase_ring_train(torch, randn, degree1_loss):
     return flashes, gemms, runs, delta_in
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the rest of the train ring
+# ---------------------------------------------------------------------------
+
+RING_MORE = dict(ranks=4, backend="gloo", timeout_s=420)
+# (a) launch.train's fail-and-restart over four ranks: reduced deepseek-7b,
+# fp32, a checkpoint every 2 steps; the restart at (2, 2) within 2e-4
+RING_RESTART = dict(arch="deepseek-7b", batch=4, seq=16, steps=6, every=2,
+                    fail_at=4, tol=2e-4)
+# (b) full remat against tatp_outputs: phase 12's bf16 model (deepseek-7b,
+# 4 layers at full width, batch 4 x seq 512) at (1, 4), one step each
+RING_REMAT = dict(arch="deepseek-7b", layers=TRAIN["n_layers"],
+                  batch=TRAIN["batch"], seq=TRAIN["seq"], mesh=(1, 4),
+                  seed=0)
+# (policy, record): full remat first (its call holds the set-up), then
+# tatp_outputs, then full remat again, timed
+REMAT_RUNS = (("full", "full_first"), ("tatp_outputs", "tatp_outputs"),
+              ("full", "full"))
+# (c) zigzag: fp32 at full width, 2 layers, batch 4 x seq 128, the zigzag
+# loss on zigzag_permutation-ed data against the contiguous loss; then one
+# bf16 step of (b)'s model, 2R + 1 flash launches a layer each way
+RING_ZIGZAG = dict(arch="deepseek-7b", n_layers=2, batch=4, seq=128, seed=2,
+                   tol=1e-5)
+# one zigzag launch of (c)'s bf16 step: c x c blocks, c = 512 / 4 / 2
+ZIGZAG_ATTN = (TRAIN["batch"], HEADS, TRAIN["seq"] // 8, HEAD_DIM)
+# (d) the vision prefix and the encoder-decoder: one fp32 step at (1, 4) of
+# 2 layers (2 + 2) at full width, its loss against degree 1's
+RING_FRONTENDS = (("internvl2-1b", 2, 2, 512),
+                  ("seamless-m4t-large-v2", 2, 2, 512))
+RING_FRONTEND_TOL = 1e-5
+RING_FRONTEND_SEED = 4
+
+
+def zigzag_rows(torch, randn):
+    """The zigzag round's launch, in this process alone: one c x c flash
+    forward and backward (the backward with an outside delta) of (c)'s
+    bf16 step ([4, 32, 64, 128] bf16), causal (an own block's diagonal
+    chunk) and unmasked (every other launch), each against its plain
+    version and timed beside it and SDPA."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import (attention,
+                                                         attention_bwd)
+    from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                         attention_ref)
+
+    b, h, c, d = ZIGZAG_ATTN
+    r = RING_MORE["ranks"]
+    rows = []
+
+    def blk():
+        return randn(b, c, h, d, dtype=torch.bfloat16).transpose(1, 2)
+
+    q, k, v, do = blk(), blk(), blk(), blk()
+    for causal in (True, False):
+        with torch.no_grad():
+            o, lse = attention(q, k, v, causal=causal, return_lse=True)
+            ro, rlse = attention_ref(q, k, v, causal=causal,
+                                     return_lse=True)
+        what = "causal" if causal else "unmasked"
+        err = max(compare(f"zigzag launch {what} forward", o, ro,
+                          *ATTN_TOL["bfloat16"]),
+                  compare(f"zigzag launch {what} row LSE", lse, rlse,
+                          *ATTN_TOL["bfloat16"]))
+        delta = (do.float() * o.float()).sum(-1).contiguous()
+        kw = dict(causal=causal, delta=delta)
+        got = attention_bwd(q, k, v, do, lse, do, **kw)
+        ref = attention_bwd_ref(q, k, v, do, lse, do, **kw)
+        berr = max(compare(f"zigzag launch {what} outside delta {p}", g, w,
+                           *ATTN_TOL["bfloat16"])
+                   for p, g, w in zip(("dq", "dk", "dv"), got, ref))
+        qc, kc, vc = (t.contiguous() for t in (q, k, v))
+
+        def sdpa(grad):
+            def run():
+                leaves = [t.detach().requires_grad_(grad)
+                          for t in (qc, kc, vc)]
+                out = F.scaled_dot_product_attention(*leaves,
+                                                     is_causal=causal)
+                if grad:
+                    torch.autograd.grad(out, leaves, do)
+            return run
+
+        pairs = b * h * (c * (c + 1) // 2 if causal else c * c)
+        fwd = dict(
+            direction="forward", shape=[b, h, c, d], causal=causal,
+            path="mma", max_abs_err=err,
+            launches_per_rank_per_layer=2 * r + 1,
+            ms=time_ms(torch, lambda: attention(q, k, v, causal=causal,
+                                                return_lse=True)),
+            plain_ms=time_ms(torch, lambda: attention_ref(
+                q, k, v, causal=causal, return_lse=True), 5),
+            library_ms=time_ms(torch, sdpa(False)))
+        fwd["bound_ms"], fwd["bound_by"] = bound(
+            4 * pairs * d, 2 * 4 * b * h * c * d + 4 * b * h * c,
+            "bfloat16")
+        bwd = dict(
+            direction="backward", shape=[b, h, c, d], causal=causal,
+            path="mma", max_abs_err=berr,
+            launches_per_rank_per_layer=2 * r + 1,
+            ms=time_ms(torch, lambda: attention_bwd(q, k, v, do, lse, do,
+                                                    **kw)),
+            plain_ms=time_ms(torch, lambda: attention_bwd_ref(
+                q, k, v, do, lse, do, **kw), 5),
+            library_ms=time_ms(torch, sdpa(True)) - time_ms(torch,
+                                                           sdpa(False)))
+        bwd["bound_ms"], bwd["bound_by"] = bound(
+            10 * pairs * d, flash_bwd_bytes(b, h, h, c, c, d) + 4 * b * h * c,
+            "bfloat16")
+        for row in (fwd, bwd):
+            row["share_of_bound"] = row["bound_ms"] / row["ms"]
+            row["library_ratio"] = row["ms"] / row["library_ms"]
+            rows.append(row)
+    log(f"[zigzag rows] {json.dumps(rows)}")
+    return rows
+
+
+def frontend_degree1(torch):
+    """RING_FRONTENDS' degree-1 fp32 steps on the card: each model's first
+    loss from ``init_params`` of RING_FRONTEND_SEED, the step's batch from
+    the same seed (the stub prefix or encoder frames included)."""
+    from repro_torch.configs.base import ParallelConfig, ShapeConfig
+    from repro_torch.core.dist import Dist
+    from repro_torch.train.data import SyntheticDataset
+    from repro_torch.train.train_loop import make_train_step
+
+    dev = torch.device("cuda")
+    out = {}
+    for arch, layers, b, s in RING_FRONTENDS:
+        cfg = parity_config(arch, layers)
+        shape = ShapeConfig("ring", "train", s, b)
+        tb = make_train_step(cfg, ParallelConfig(strategy="tatp",
+                                                 remat=False), Dist(dev),
+                             shape)
+        params, state = tb.init_fn(torch.Generator(device=dev).manual_seed(
+            RING_FRONTEND_SEED))
+        batch = SyntheticDataset(cfg, shape, Dist(dev),
+                                 seed=RING_FRONTEND_SEED).batch(0)
+        _, _, m = tb.step_fn(params, state, batch)
+        out[arch] = float(m["loss"])
+        del params, state, batch
+        release(torch)
+    return out
+
+
+def ring_restart(torch, out_dir, rank):
+    """(a) on this rank: ``launch.train``'s ``train`` with the CLI's
+    arguments, reduced deepseek-7b in fp32 on the card: a straight run at
+    (1, 4); a run that fails at step 4; its restart at (1, 4); a restart
+    of a copy of its step-4 checkpoint at (2, 2); and that checkpoint
+    restored at (2, 2) and saved at once.  Rank 0 compares the files."""
+    import shutil
+
+    import numpy as np
+    import torch.distributed as tdist
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.base import ParallelConfig, ShapeConfig
+    from repro_torch.core.dist import make_mesh_dist
+    from repro_torch.launch.train import build_parser, train
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.train_loop import make_train_step
+
+    spec = RING_RESTART
+    base = Path(out_dir) / "restart"
+
+    def run(mesh, name, *extra):
+        args = build_parser().parse_args([
+            "--arch", spec["arch"], "--reduced", "--device", "cuda",
+            "--batch", str(spec["batch"]), "--seq", str(spec["seq"]),
+            "--steps", str(spec["steps"]), "--ckpt-every",
+            str(spec["every"]), "--log-every", "1000", "--mesh",
+            *map(str, mesh), "--dist-backend", RING_MORE["backend"],
+            "--ckpt-dir", str(base / name), *extra])
+        history = []
+        train(args, history=history)
+        return [hh["loss"] for hh in history]
+
+    t0 = time.perf_counter()
+    straight = run((1, 4), "straight")
+    try:
+        run((1, 4), "failed", "--fail-at-step", str(spec["fail_at"]))
+        failed = None
+    except RuntimeError as e:  # the simulated failure is the test
+        failed = str(e)
+    if rank == 0:
+        shutil.copytree(base / "failed", base / "elastic")
+    tdist.barrier()
+    resumed = run((1, 4), "failed")
+    moved = run((2, 2), "elastic")
+    # the step-4 checkpoint restored at (2, 2) and saved again at once
+    dist = make_mesh_dist((2, 2), torch.device("cuda", torch.cuda
+                                               .current_device()))
+    tb = make_train_step(get_reduced(spec["arch"]),
+                         ParallelConfig(strategy="tatp", remat=False), dist,
+                         ShapeConfig("t", "train", spec["seq"],
+                                     spec["batch"]))
+    tree = tb.init_fn(torch.Generator(device="cuda").manual_seed(9))
+    io = dict(dist=dist, specs=tb.specs(tree[0]))
+    tree, step = ckpt.restore(str(base / "elastic"), tree,
+                              step=spec["fail_at"], **io)
+    ckpt.save(str(base / "again"), step, tree, **io)
+    rec = dict(straight=straight, failed=failed, resumed=resumed,
+               moved=moved, s=time.perf_counter() - t0)
+    if rank == 0:
+        def files(name, step, leaves_only=False):
+            with np.load(base / name / f"step_{step:08d}" / "proc00.npz") \
+                    as z:
+                return {k: z[k] for k in z.files
+                        if not (leaves_only and "@" in k)}
+
+        a, b = files("straight", spec["steps"]), files("failed",
+                                                       spec["steps"])
+        rec["final_keys"] = len(a)
+        rec["final_differ"] = sorted(
+            set(a) ^ set(b) | {k for k in set(a) & set(b)
+                               if not np.array_equal(a[k], b[k])})
+        a = files("elastic", spec["fail_at"], leaves_only=True)
+        b = files("again", spec["fail_at"], leaves_only=True)
+        rec["again_keys"] = len(a)
+        rec["again_differ"] = sorted(
+            set(a) ^ set(b) | {k for k in set(a) & set(b)
+                               if a[k].dtype != b[k].dtype
+                               or not np.array_equal(a[k], b[k])})
+    del tree
+    release(torch)
+    return rec
+
+
+def ring_remat(torch, rank):
+    """(b) on this rank: one step's loss and gradients of RING_REMAT's
+    model from the same shards and batch under each of REMAT_RUNS; for
+    each the launches by kernel, layout and path (from zero), the bytes
+    this rank sent, the step's wall clock and its peak GB above what was
+    allocated before it; whether its loss and every gradient are bitwise
+    the first run's.  Returns the record and the parameters (for
+    (c))."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ParallelConfig, ShapeConfig
+    from repro_torch.core.dist import make_mesh_dist
+    from repro_torch.kernels.flash_attention.ops import attention_bwd
+    from repro_torch.models.transformer import RunCtx, param_specs
+    from repro_torch.train.data import SyntheticDataset
+    from repro_torch.train.train_loop import (loss_and_grads,
+                                              reduce_model_axis_grads)
+    from repro_torch.weights import init_sharded_params
+
+    spec = RING_REMAT
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = replace(get_config(spec["arch"]), n_layers=spec["layers"])
+    dist = make_mesh_dist(spec["mesh"], dev)
+    shape = ShapeConfig("ring", "train", spec["seq"], spec["batch"])
+    params = init_sharded_params(
+        cfg, torch.Generator(device=dev).manual_seed(spec["seed"]), dist)
+    batch = SyntheticDataset(cfg, shape, dist, seed=spec["seed"]).batch(0)
+    rec, first = dict(coords=list(dist.coords)), None
+    # full remat twice: its first call holds the rank's set-up, so the
+    # second is the one timed against tatp_outputs
+    for pol, key in REMAT_RUNS:
+        par = ParallelConfig(strategy="tatp", remat=True, remat_policy=pol)
+        ctx = RunCtx(cfg, par, dist, phase="train")
+        release(torch)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        sent = dist.stage.bytes
+        zero_launches()
+        t0 = time.perf_counter()
+        nll, cnt, grads = loss_and_grads(ctx, params, batch)
+        grads = reduce_model_axis_grads(grads, param_specs(cfg), par, dist)
+        torch.cuda.synchronize()
+        rec[key] = dict(
+            launches=read_launches(), layouts=read_layouts(),
+            paths=read_paths(), delta_in=attention_bwd.launches_delta_in,
+            step_ms=(time.perf_counter() - t0) * 1e3,
+            sent_gb=(dist.stage.bytes - sent) / 1e9,
+            peak_gb=(torch.cuda.max_memory_allocated() - base) / 1e9,
+            loss=float(nll / cnt))
+        named = {"/".join(k): g for k, g in _leaves(grads)}
+        del grads
+        if first is None:  # the others are held to the first, bitwise
+            first = (nll, named)
+            rec["grad_leaves"] = len(named)
+            continue
+        rec[key]["loss_equal"] = bool(torch.equal(first[0], nll))
+        rec[key]["grads_differ"] = [n for n in named if not torch.equal(
+            first[1][n], named[n])]
+        del named
+    del first
+    release(torch)
+    return rec, (cfg, dist, shape, params, batch)
+
+
+def ring_zigzag(torch, model):
+    """(c) on this rank: RING_ZIGZAG's fp32 losses, contiguous and zigzag
+    (the batch permuted by ``zigzag_permutation``), forward only; then
+    one bf16 step of (b)'s model with zigzag on its permuted batch, its
+    launches from zero."""
+    import numpy as np
+
+    from repro_torch.configs.base import ParallelConfig, ShapeConfig
+    from repro_torch.core.dist import make_mesh_dist
+    from repro_torch.kernels.flash_attention.ops import attention_bwd
+    from repro_torch.models import lm
+    from repro_torch.models.attention import zigzag_permutation
+    from repro_torch.models.transformer import RunCtx
+    from repro_torch.train.data import SyntheticDataset
+    from repro_torch.train.train_loop import loss_and_grads, shard_batch
+    from repro_torch.weights import init_sharded_params
+
+    spec = RING_ZIGZAG
+    dev = torch.device("cuda", torch.cuda.current_device())
+    r = RING_MORE["ranks"]
+
+    def tensors(cfg, host, dist, zig):
+        if zig:
+            perm = zigzag_permutation(r, host["tokens"].shape[1])
+            host = {k: v[:, perm] for k, v in host.items()}
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(
+                    dev, dtype=torch.int64)
+                for k, v in shard_batch(cfg, host, dist).items()}
+
+    cfg = parity_config(spec["arch"], spec["n_layers"])
+    dist = make_mesh_dist((1, r), dev)
+    shape = ShapeConfig("ring", "train", spec["seq"], spec["batch"])
+    params = init_sharded_params(
+        cfg, torch.Generator(device=dev).manual_seed(spec["seed"]), dist)
+    host = SyntheticDataset(cfg, shape, dist, seed=spec["seed"]) \
+        ._host_batch(0)
+    rec = dict(fp32={})
+    for zig in (False, True):
+        ctx = RunCtx(cfg, ParallelConfig(strategy="tatp", remat=False,
+                                         zigzag=zig), dist, phase="train")
+        with torch.no_grad():
+            nll, cnt, _ = lm.loss_fn(ctx, params, tensors(cfg, host, dist,
+                                                          zig))
+        nll, cnt = dist.psum(nll, dist.model_axis), dist.psum(
+            cnt, dist.model_axis)
+        rec["fp32"]["zigzag" if zig else "contiguous"] = float(nll / cnt)
+    del params
+    release(torch)
+    bcfg, bdist, bshape, bparams, _ = model
+    host = SyntheticDataset(bcfg, bshape, bdist, seed=RING_REMAT["seed"]) \
+        ._host_batch(0)
+    ctx = RunCtx(bcfg, ParallelConfig(strategy="tatp", remat=False,
+                                      zigzag=True), bdist, phase="train")
+    batch = tensors(bcfg, host, bdist, True)
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    nll, cnt, grads = loss_and_grads(ctx, bparams, batch)
+    torch.cuda.synchronize()
+    rec["bf16"] = dict(
+        coords=list(bdist.coords), launches=read_launches(),
+        layouts=read_layouts(), paths=read_paths(),
+        delta_in=attention_bwd.launches_delta_in,
+        step_ms=(time.perf_counter() - t0) * 1e3,
+        loss=float(nll / cnt),
+        finite=all(bool(torch.isfinite(g).all())
+                   for _, g in _leaves(grads)))
+    del grads
+    release(torch)
+    return rec
+
+
+def ring_frontends(torch):
+    """(d) on this rank: RING_FRONTENDS' fp32 steps at (1, 4) from
+    ``init_sharded_params`` of the degree-1 run's seed."""
+    from repro_torch.configs.base import ParallelConfig, ShapeConfig
+    from repro_torch.core.dist import make_mesh_dist
+    from repro_torch.train.data import SyntheticDataset
+    from repro_torch.train.train_loop import make_train_step
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = {}
+    for arch, layers, b, s in RING_FRONTENDS:
+        cfg = parity_config(arch, layers)
+        dist = make_mesh_dist((1, RING_MORE["ranks"]), dev)
+        shape = ShapeConfig("ring", "train", s, b)
+        tb = make_train_step(cfg, ParallelConfig(strategy="tatp",
+                                                 remat=False), dist, shape)
+        params, state = tb.init_fn(torch.Generator(device=dev).manual_seed(
+            RING_FRONTEND_SEED))
+        batch = SyntheticDataset(cfg, shape, dist,
+                                 seed=RING_FRONTEND_SEED).batch(0)
+        t0 = time.perf_counter()
+        params, state, m = tb.step_fn(params, state, batch)
+        out[arch] = dict(loss=float(m["loss"]),
+                         grad_norm=float(m["grad_norm"]),
+                         step_s=time.perf_counter() - t0)
+        del params, state, batch
+        release(torch)
+    return out
+
+
+def ring_more_rank_main(out_dir) -> int:
+    """One rank of phase 13, started by ``torch.distributed.run``: (a) to
+    (d), each part's wall clock, its record to ``rank<rank>.json``."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.core.dist import init_world, world_from_env
+
+    rank, world, local = world_from_env()
+    dev = torch.device("cuda", local % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_world(RING_MORE["backend"])
+    try:
+        rec, laps = dict(rank=rank), {}
+        t0 = time.perf_counter()
+        rec["restart"] = ring_restart(torch, out_dir, rank)
+        laps["restart"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rec["remat"], model = ring_remat(torch, rank)
+        laps["remat"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rec["zigzag"] = ring_zigzag(torch, model)
+        laps["zigzag"] = time.perf_counter() - t0
+        del model
+        release(torch)
+        t0 = time.perf_counter()
+        rec["frontends"] = ring_frontends(torch)
+        laps["frontends"] = time.perf_counter() - t0
+        rec["laps"] = laps
+        (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(rec))
+    finally:
+        tdist.destroy_process_group()
+    return 0
+
+
+def check_ring_restart(recs):
+    spec = RING_RESTART
+    fail_at, n = spec["fail_at"], spec["steps"]
+    checks = []
+    for rec in recs:
+        a, g = rec["restart"], rec["rank"]
+        checks += [
+            (a["failed"] is not None
+             and f"simulated node failure at step {fail_at}" in a["failed"],
+             f"rank {g}: --fail-at-step {fail_at} did not fail the run "
+             f"({a['failed']})"),
+            (len(a["straight"]) == n and len(a["resumed"]) == n - fail_at
+             and len(a["moved"]) == n - fail_at,
+             f"rank {g}: steps run {len(a['straight'])}, "
+             f"{len(a['resumed'])}, {len(a['moved'])}"),
+            (a["resumed"] == a["straight"][fail_at:],
+             f"rank {g}: resumed losses {a['resumed']} != the straight "
+             f"run's {a['straight'][fail_at:]}"),
+            (all(abs(x - y) <= spec["tol"] * max(1.0, abs(y))
+                 for x, y in zip(a["moved"], a["straight"][fail_at:])),
+             f"rank {g}: the (2, 2) restart's losses {a['moved']} vs "
+             f"{a['straight'][fail_at:]}")]
+    a = recs[0]["restart"]
+    checks += [(not a["final_differ"],
+                f"restarted state differs from the straight run's: "
+                f"{a['final_differ'][:5]}"),
+               (not a["again_differ"],
+                f"the step-{fail_at} checkpoint restored at (2, 2) and saved "
+                f"again differs: {a['again_differ'][:5]}")]
+    return checks
+
+
+def phase_ring_more(torch, randn):
+    """Phase 13: the rest of the train ring on four ranks sharing the card
+    (gloo): the zigzag launch's rows and the frontends' degree-1 losses in
+    this process, then ``torch.distributed.run`` of this script's
+    ``--ring-more-rank`` (a) to (d).  Returns the zigzag rows and the bf16
+    runs' launches (by kernel, layout and path) for the kernels line, and
+    the flash backwards with an outside delta they launched."""
+    import os
+    import tempfile
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    rows = zigzag_rows(torch, randn)
+    t0 = time.perf_counter()
+    degree1 = frontend_degree1(torch)
+    degree1_s = time.perf_counter() - t0
+    r = RING_MORE["ranks"]
+    shm = "/dev/shm" if os.path.isdir("/dev/shm") else None
+    with tempfile.TemporaryDirectory(dir=shm) as tmp:
+        t0 = time.perf_counter()
+        run_ranks(torch, tmp, "--ring-more-rank", RING_MORE["timeout_s"])
+        ranks_s = time.perf_counter() - t0
+        recs = [json.loads((Path(tmp) / f"rank{i}.json").read_text())
+                for i in range(r)]
+    checks = check_ring_restart(recs)
+    a = recs[0]["restart"]
+    log(f"[ring restart] reduced deepseek-7b fp32, launch.train --mesh 1 4 "
+        f"--ckpt-every {RING_RESTART['every']}: fail at step "
+        f"{RING_RESTART['fail_at']}, restart, final state (all "
+        f"{a.get('final_keys')} arrays) bitwise the straight run's; "
+        f"restart at (2, 2): losses {[x['restart']['moved'] for x in recs]} "
+        f"vs {a['straight'][RING_RESTART['fail_at']:]}; restored at (2, 2) "
+        f"and saved again: {a.get('again_keys')} leaves bitwise; "
+        f"{[round(x['restart']['s'], 1) for x in recs]} s")
+
+    # (b) full remat against tatp_outputs
+    cfg = replace(get_config(RING_REMAT["arch"]),
+                  n_layers=RING_REMAT["layers"])
+    runs, remat, delta_in = {}, [], 0
+    for rec in recs:
+        b, g = rec["remat"], rec["rank"]
+        i = b["coords"][1]
+        for pol, key in REMAT_RUNS:
+            want, want_lay, _ = ring_train_launches(
+                cfg, r, i, remat=True, saved=pol == "tatp_outputs")
+            got = b[key]
+            checks += [
+                (got["launches"] == want,
+                 f"rank {g} {key}: launches {got['launches']}, want {want}"),
+                (got["layouts"] == want_lay,
+                 f"rank {g} {key}: GEMM layouts {got['layouts']}, want "
+                 f"{want_lay}"),
+                (got["delta_in"] == want["flash_attention_bwd"],
+                 f"rank {g} {key}: {got['delta_in']} flash backwards with "
+                 f"an outside delta, want {want['flash_attention_bwd']}")]
+            delta_in += got["delta_in"]
+            checks += [(got["paths"][name][path] == want[name],
+                        f"rank {g} {key}: {name} by path "
+                        f"{got['paths'][name]}")
+                       for name, path in MAIN_PATH_KERNEL.items()]
+            if "loss_equal" in got:
+                checks += [
+                    (got["loss_equal"], f"rank {g}: {key}'s loss "
+                     f"{got['loss']} != full remat's "
+                     f"{b['full_first']['loss']}"),
+                    (not got["grads_differ"], f"rank {g}: {key}'s "
+                     f"gradients differ from full remat's: "
+                     f"{got['grads_differ'][:5]}")]
+            runs[f"deepseek-7b ring {key} step {tuple(RING_REMAT['mesh'])} "
+                 f"rank {g}"] = (got["launches"], got["layouts"],
+                                 got["paths"])
+        remat.append({key: {k: b[key][k] for k in (
+            "step_ms", "sent_gb", "peak_gb", "layouts")} | dict(
+            flash_fwd=b[key]["launches"]["flash_attention"],
+            flash_bwd=b[key]["launches"]["flash_attention_bwd"])
+            for _, key in REMAT_RUNS})
+    log(f"[ring tatp_outputs] deepseek-7b {RING_REMAT['layers']} layers "
+        f"bf16 batch {RING_REMAT['batch']} x seq {RING_REMAT['seq']} mesh "
+        f"{RING_REMAT['mesh']}: loss and all "
+        f"{recs[0]['remat']['grad_leaves']} gradient leaves bitwise equal "
+        f"to full remat's on every rank; per rank {json.dumps(remat)}")
+
+    # (c) zigzag
+    zz = []
+    for rec in recs:
+        z, g = rec["zigzag"], rec["rank"]
+        f = z["fp32"]
+        rel = abs(f["zigzag"] - f["contiguous"]) / abs(f["contiguous"])
+        bf = z["bf16"]
+        want, want_lay, _ = ring_train_launches(cfg, r, bf["coords"][1],
+                                                remat=False)
+        per_layer = 2 * r + 1
+        want = dict(want, flash_attention=per_layer * cfg.n_layers,
+                    flash_attention_bwd=per_layer * cfg.n_layers)
+        checks += [
+            (rel <= RING_ZIGZAG["tol"],
+             f"rank {g}: fp32 zigzag loss {f['zigzag']} vs contiguous "
+             f"{f['contiguous']}: {rel:.2e} > {RING_ZIGZAG['tol']}"),
+            (bf["launches"] == want,
+             f"rank {g}: zigzag bf16 launches {bf['launches']}, want {want}"),
+            (bf["layouts"] == want_lay,
+             f"rank {g}: zigzag GEMM layouts {bf['layouts']}"),
+            (bf["delta_in"] == want["flash_attention_bwd"],
+             f"rank {g}: {bf['delta_in']} zigzag backwards with an outside "
+             f"delta"),
+            (bf["finite"] and math.isfinite(bf["loss"]),
+             f"rank {g}: zigzag bf16 loss {bf['loss']}")]
+        checks += [(bf["paths"][name][path] == want[name],
+                    f"rank {g}: zigzag {name} by path {bf['paths'][name]}")
+                   for name, path in MAIN_PATH_KERNEL.items()]
+        runs[f"deepseek-7b ring zigzag step (1, 4) rank {g}"] = (
+            bf["launches"], bf["layouts"], bf["paths"])
+        delta_in += bf["delta_in"]
+        zz.append(dict(coords=bf["coords"], fp32=f, fp32_rel=rel,
+                       bf16_loss=bf["loss"], step_ms=bf["step_ms"],
+                       flash=[bf["launches"]["flash_attention"],
+                              bf["launches"]["flash_attention_bwd"]]))
+    log(f"[ring zigzag] fp32 deepseek-7b {RING_ZIGZAG['n_layers']} layers "
+        f"batch {RING_ZIGZAG['batch']} x seq {RING_ZIGZAG['seq']}; bf16 "
+        f"{cfg.n_layers} layers: {2 * r + 1} flash forwards and backwards "
+        f"a layer on every rank; {json.dumps(zz)}")
+
+    # (d) the vision prefix and the encoder-decoder
+    fronts = {}
+    for rec in recs:
+        for arch, got in rec["frontends"].items():
+            rel = abs(got["loss"] - degree1[arch]) / abs(degree1[arch])
+            fronts.setdefault(arch, []).append(dict(got, rel=rel))
+            checks.append((rel <= RING_FRONTEND_TOL,
+                           f"rank {rec['rank']}: {arch} ring loss "
+                           f"{got['loss']} vs degree 1 {degree1[arch]}: "
+                           f"{rel:.2e} > {RING_FRONTEND_TOL}"))
+    summary = dict(ranks_wall_s=ranks_s, degree1_s=degree1_s,
+                   laps=[rec["laps"] for rec in recs],
+                   phase_s=time.perf_counter() - t_phase)
+    log(f"[ring frontends] fp32 one step at (1, 4) against degree 1 "
+        f"{json.dumps(degree1)}: {json.dumps(fronts)}; {json.dumps(summary)}")
+    for ok, msg in checks:
+        need(ok, msg)
+    return rows, runs, delta_in
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke: src/repro_torch not found beside chip_smoke.py; "
@@ -4616,6 +5248,9 @@ def main() -> int:
         torch, randn, train_outs[RING_TRAIN_BF16["arch"]]["losses"][0])
     trains.update(ring_trains)
     lap("train ring")
+    zigzag, more_trains, more_delta_in = phase_ring_more(torch, randn)
+    trains.update(more_trains)
+    lap("train ring, the rest")
     trains[f"{PLAN_TRAIN['arch']} --wafers {PLAN_TRAIN['wafers']} --stage "
            f"{PLAN_TRAIN['stage']} train"] = plan_trained
     # each record's launches: the counts of every main path's run (the
@@ -4644,6 +5279,9 @@ def main() -> int:
         if k["name"] in ("tatp_matmul", "flash_attention"):
             k["ring_shapes"] = (ring_gemms if k["name"] == "tatp_matmul"
                                 else ring_flashes)
+        if k["name"] == "flash_attention":  # phase 13's zigzag launch
+            k["zigzag_shapes"] = [z for z in zigzag
+                                  if z["direction"] == "forward"]
         lay = GEMM_RECORD_LAYOUT.get(k["name"])
         if lay in ("dgrad", "wgrad"):
             k["ring_train_shapes"] = [g for g in train_gemms
@@ -4661,8 +5299,10 @@ def main() -> int:
         replaces="none: the Pallas kernel "
                  "src/repro/kernels/flash_attention/kernel.py:26 has no "
                  "backward (JAX differentiates ring attention's jnp loop)",
-        launches=delta_in,
-        max_abs_err=max(f["max_abs_err"] for f in train_flashes),
+        launches=delta_in + more_delta_in,
+        max_abs_err=max(f["max_abs_err"] for f in train_flashes
+                        + [z for z in zigzag
+                           if z["direction"] == "backward"]),
         rtol=ATTN_TOL["bfloat16"][0], atol=ATTN_TOL["bfloat16"][1],
         ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
         bound_by=row["bound_by"], library_ms=row["library_ms"],
@@ -4671,7 +5311,8 @@ def main() -> int:
         library_ratio=row["library_ratio"],
         timed="one round of the (1, 4) train ring's attention, "
               "[4,32,128,128] bf16, causal on the own block",
-        shape=row["shape"], rounds=train_flashes))
+        shape=row["shape"], rounds=train_flashes,
+        zigzag_shapes=[z for z in zigzag if z["direction"] == "backward"]))
     log(json.dumps({"kernels": kernels}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(smi)
@@ -4687,6 +5328,8 @@ if __name__ == "__main__":
             sys.exit(ring_rank_main(sys.argv[2]))
         if sys.argv[1:2] == ["--train-rank"]:  # one rank of phase 12
             sys.exit(ring_train_rank_main(sys.argv[2]))
+        if sys.argv[1:2] == ["--ring-more-rank"]:  # one rank of phase 13
+            sys.exit(ring_more_rank_main(sys.argv[2]))
         sys.exit(main())
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)

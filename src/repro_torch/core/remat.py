@@ -10,7 +10,10 @@ tagged computations produce, through :func:`saved_or_run`: every TATP
 linear's output (:func:`repro_torch.core.tatp.tatp_matmul`, kind
 ``"linear"``) and the attention core's output with its row log-sum-exp
 (the flash-attention wrapper's ``autograd.Function``, kind
-``"attention"``; its backward reads both).  The backward's recompute runs
+``"attention"``; its backward reads both; above model degree 1 ring
+attention's hook Function records its merged fp32 output and global row
+LSE the same way, so the recompute relays no K/V block, and every rank
+replays in step).  The backward's recompute runs
 the rep again, and each tagged computation takes its recorded output
 instead of computing it: the recompute launches no forward GEMM and no
 flash forward.  The recompute's autograd nodes are the first pass's own

@@ -193,14 +193,14 @@ def train(args, history=None, stats=None) -> dict:
 
     # each leaf's layout over the mesh: the checkpoints hold global arrays
     io = dict(dist=dist, specs=bundle.specs(params))
+    rank0 = world_from_env()[0] == 0
     start_step = 0
     if args.ckpt_dir and ckpt.latest_step(args.ckpt_dir) is not None:
-        if world_from_env()[0] == 0:
+        if rank0:
             print(f"resuming from {args.ckpt_dir}")
         prev = ckpt.read_meta(args.ckpt_dir)
         if plan and prev.get("plan_hash") \
-                and prev["plan_hash"] != plan.plan_hash \
-                and world_from_env()[0] == 0:
+                and prev["plan_hash"] != plan.plan_hash and rank0:
             print(f"[plan] WARNING: checkpoint was trained under plan "
                   f"{prev['plan_hash']} but this launch runs plan "
                   f"{plan.plan_hash} (wafer degraded or re-solved); "

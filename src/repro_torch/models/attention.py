@@ -246,10 +246,12 @@ class _RingAttention(torch.autograd.Function):
     Forward: :func:`_hook_rounds`, saving q, the own K/V block, the merged
     fp32 output O and the global row LSE.  Backward: delta = rowsum(dO ∘
     O) once, from the fp32 O (not its rounded cast); the K/V blocks stream
-    again in the forward's order, and each visible round is one call of
-    the hook's backward (the flash kernel's on CUDA, its plain version on
-    the CPU) with the global LSE and that outside delta, causal on the
-    own block only.  dQ sums locally in fp32.  Each block's dK/dV partials
+    again in the forward's order, and each forward launch
+    (:meth:`_Ring.launches`) is one call of the hook's backward (the flash
+    kernel's on CUDA, its plain version on the CPU) on the same rows,
+    with their global LSE and that outside delta.  dQ sums locally in
+    fp32.  Under ``tatp_outputs`` the forward records O and the LSE
+    (:mod:`repro_torch.core.remat`), so the recompute runs no round.  Each block's dK/dV partials
     (fp32) return to its owner by retracing its stream: from the last
     round back, an accumulator hops the reverse way and adds the rank's
     partial at each stop (the transposes jax takes through the relays),
@@ -418,8 +420,9 @@ def zigzag_local_positions(axis: str, axis_size: int, s_loc: int,
 
 
 def zigzag_permutation(axis_size: int, seq_len: int):
-    """Host-side permutation of the global sequence dim so that sharding dim
-    1 over the ring delivers zigzag chunks: [chunk_i ‖ chunk_{2R−1−i}]."""
+    """Host-side permutation of the global sequence dim so that sharding
+    dim 1 over the ring delivers zigzag chunks: [chunk_i ‖
+    chunk_{2R−1−i}]."""
     import numpy as _np
     r = axis_size
     c = seq_len // (2 * r)

@@ -51,6 +51,7 @@ bitwise the run it resumes.
 from __future__ import annotations
 
 import json
+import math
 import os
 import shutil
 import threading
@@ -115,13 +116,6 @@ def _flatten_specs(tree, specs, prefix=()) -> dict:
     return {"/".join(prefix): specs}
 
 
-def _numel(shape) -> int:
-    n = 1
-    for d in shape:
-        n *= d
-    return n
-
-
 def _sharded(spec, dist):
     """``(dim, axis, degree)`` of each dim ``spec`` lays over an axis of
     more than one rank."""
@@ -141,7 +135,7 @@ def _global_leaf(leaf, spec, dist):
     if not isinstance(leaf, torch.Tensor):
         return leaf, None
     if isinstance(spec, ZeroSlice):
-        n = _numel(spec.shape)
+        n = math.prod(spec.shape)
         flat = dist.all_gather(leaf, spec.axis, dim=0)
         leaf, spec = flat[:n].view(spec.shape), spec.spec
     sharded = _sharded(spec, dist)
@@ -175,11 +169,12 @@ def _place(key, arr, like, spec, dist):
     like ``like`` (its local shard), laid out by ``spec``."""
     if isinstance(spec, ZeroSlice):
         dp, idx = dist.axis_size(spec.axis), dist.axis_index(spec.axis)
-        n = _numel(spec.shape)
+        n = math.prod(spec.shape)
         glob = _global_shape(spec.shape, spec.spec, dist)
         padded = n + (-n) % dp
         if tuple(arr.shape) == glob:
-            flat = np.ascontiguousarray(_block(arr, spec.spec, dist)).reshape(-1)
+            flat = np.ascontiguousarray(_block(arr, spec.spec,
+                                               dist)).reshape(-1)
             if padded > n:  # ZeRO-1's own pad
                 flat = np.concatenate([flat, np.zeros(padded - n, flat.dtype)])
         elif arr.ndim == 1 and arr.shape[0] == padded and glob == spec.shape:
