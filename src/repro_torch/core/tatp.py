@@ -99,35 +99,48 @@ def wire_decode(blk, wire: str, dtype):
     return blk[0]
 
 
-def _relay(x, axis, axis_size, shift, wire, dist):
-    enc = dist.ppermute(wire_encode(x, wire), axis,
-                        _shift_perm(axis_size, shift))
-    return wire_decode(enc, wire, x.dtype)
+def _relay(xs, axis, axis_size, shift, wire, dist):
+    """The tensors ``xs`` one hop by ``shift`` on ``wire``, all in one
+    batch of point-to-point operations."""
+    encs = [wire_encode(x, wire) for x in xs]
+    moved = dist.ppermute(tuple(t for e in encs for t in e), axis,
+                          _shift_perm(axis_size, shift))
+    out, k = [], 0
+    for x, e in zip(xs, encs):
+        out.append(wire_decode(moved[k:k + len(e)], wire, x.dtype))
+        k += len(e)
+    return tuple(out)
 
 
 class _WireRelay(torch.autograd.Function):
     """:func:`wire_relay` under autograd (the reference's custom_vjp): the
-    cotangent rides the inverse hop at native precision."""
+    cotangents ride the inverse hop at native precision, in one batch."""
 
     @staticmethod
-    def forward(ctx, x, axis, axis_size, shift, wire, dist):
+    def forward(ctx, axis, axis_size, shift, wire, dist, *xs):
         ctx.cfg = (axis, axis_size, shift, dist)
-        return _relay(x, axis, axis_size, shift, wire, dist)
+        return _relay(xs, axis, axis_size, shift, wire, dist)
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, *gs):
         axis, axis_size, shift, dist = ctx.cfg
-        return (dist.ppermute(g, axis, _shift_perm(axis_size, -shift)),
-                None, None, None, None, None)
+        back = dist.ppermute(tuple(gs), axis, _shift_perm(axis_size, -shift))
+        return (None, None, None, None, None, *back)
 
 
 def wire_relay(x, axis: str, axis_size: int, shift: int,
                wire: str = "native", *, dist):
     """One ring hop of ``x`` by ``shift`` on the ``wire`` format, with the
-    straight-through backward of :class:`_WireRelay`."""
-    if torch.is_grad_enabled() and x.requires_grad:
-        return _WireRelay.apply(x, axis, axis_size, shift, wire, dist)
-    return _relay(x, axis, axis_size, shift, wire, dist)
+    straight-through backward of :class:`_WireRelay`.  ``x`` is a tensor,
+    or a tuple of tensors that move in one batch (each encoded on its own,
+    bitwise what separate hops would deliver); the result has its
+    structure."""
+    xs = x if isinstance(x, tuple) else (x,)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in xs):
+        out = _WireRelay.apply(axis, axis_size, shift, wire, dist, *xs)
+    else:
+        out = _relay(xs, axis, axis_size, shift, wire, dist)
+    return tuple(out) if isinstance(x, tuple) else out[0]
 
 
 # ---------------------------------------------------------------------------

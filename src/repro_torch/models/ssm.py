@@ -1,15 +1,26 @@
 """Mamba-2 (SSD, state-space duality) pieces (counterpart of
-``repro.models.ssm``) at ring degree 1.
+``repro.models.ssm``).
 
 :func:`ssd_chunked` is the reference's plain chunked SSD (the oracle the
 kernel-backed :func:`repro_torch.kernels.ssd.ops.ssd_chunked` is held
 against): quadratic intra-chunk outputs, chunk states and a sequential
-inter-chunk recurrence (arXiv:2405.21060).  :func:`ssd_decode_step`,
-:func:`causal_conv1d` and :func:`conv_decode_step` are the reference's
-single-device paths.  The sequence-sharded scan over the ring
-(``ring_exclusive_scan``, ``ssd_sequence_sharded``) and the conv's halo
-exchange are ROADMAP.md item A3c: ``mamba_block`` and
-:func:`causal_conv1d` raise for a ring degree above 1.
+inter-chunk recurrence (arXiv:2405.21060).  :func:`ssd_decode_step` and
+:func:`conv_decode_step` are the reference's single-token steps.
+
+Above ring degree 1 training and prefill run with the sequence sharded
+over the TATP ring (:func:`ssd_sequence_sharded`): every rank runs its
+local chunks with a zero inbound state (the ``ssd`` hook: the SSD kernel
+on CUDA), the ranks' (decay, state) segments are combined by
+:func:`ring_exclusive_scan` (the paper's R - 1 one-hop steps, or
+⌈log₂R⌉ hops at power-of-two distances), and each rank adds its inbound
+prefix state's contribution to its outputs.  :func:`causal_conv1d` takes
+its first ``K - 1`` inputs from the rank before (the one-hop halo).
+
+Every rank runs every hop, forward and backward: a rank selects a
+received value with ``torch.where`` on a rank mask, as the reference's
+``jnp.where``, never with a Python ``if``, so each relay stays in every
+rank's autograd graph (with a zero cotangent where it is not taken) and
+the inverse hops of the backward meet on all ranks.
 """
 
 from __future__ import annotations
@@ -18,7 +29,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch import not_ported
+from repro_torch.core.tatp import _shift_perm, wire_relay
 
 
 class SSDOut(NamedTuple):
@@ -109,18 +120,123 @@ def ssd_decode_step(x, dt, a, bmat, cmat, d_skip, state):
 
 
 # ---------------------------------------------------------------------------
+# the sequence-sharded SSD over the ring
+# ---------------------------------------------------------------------------
+
+
+def segsum_combine(left, right):
+    """Segment monoid: h_out = G·h_in + S.  combine(left, then right)."""
+    gl, sl = left
+    gr, sr = right
+    return gl * gr, gr * sl + sr
+
+
+def _rank_is(dist, axis, device, pred):
+    """``pred(axis index)`` as a 0-d bool tensor on ``device``: the mask a
+    rank selects with (``torch.where``), so every rank runs the same
+    graph."""
+    return torch.full((), bool(pred(dist.axis_index(axis))),
+                      dtype=torch.bool, device=device)
+
+
+def _select(take, new, old):
+    return tuple(torch.where(take, a, b) for a, b in zip(new, old))
+
+
+def ring_exclusive_scan(seg, axis: str, axis_size: int, mode: str = "seq",
+                        wire: str = "fp32", *, dist):
+    """Exclusive scan of segment values over the ring axis.
+
+    ``seg = (G, S)`` with G broadcastable to S.  Returns the exclusive
+    prefix (the identity on rank 0).  ``seq``: R - 1 one-hop steps (the
+    paper's); ``log``: ⌈log₂R⌉ steps at power-of-two hop distances.  Both
+    end in the exclusive hop.  ``wire="bf16"`` sends the segments as bf16
+    (the local math stays fp32); G and S move in one batch a hop
+    (:func:`repro_torch.core.tatp.wire_relay`), whose backward sends the
+    cotangents along the inverse hop at native precision."""
+    r = axis_size
+    g, s = seg
+    if r == 1:
+        return torch.ones_like(g), torch.zeros_like(s)
+    code = "bf16" if wire == "bf16" else "native"
+
+    def relay(pair, shift):
+        return wire_relay(pair, axis, r, shift, code, dist=dist)
+
+    dev = s.device
+    if mode == "log":
+        pfx = (g, s)
+        d = 1
+        while d < r:
+            comb = segsum_combine(relay(pfx, d), pfx)
+            pfx = _select(_rank_is(dist, axis, dev, lambda i: i >= d),
+                          comb, pfx)
+            d *= 2
+    elif mode == "seq":
+        pfx = (g, s)
+        for t in range(1, r):
+            comb = segsum_combine(relay(pfx, 1), (g, s))
+            pfx = _select(_rank_is(dist, axis, dev, lambda i: i >= t),
+                          comb, pfx)
+    else:
+        raise ValueError(f"unknown ssm_scan_mode {mode!r}")
+    # inclusive -> exclusive: take from the left neighbour; rank 0 the
+    # identity
+    first = _rank_is(dist, axis, dev, lambda i: i == 0)
+    ge, se = relay(pfx, 1)
+    return (torch.where(first, torch.ones_like(ge), ge),
+            torch.where(first, torch.zeros_like(se), se))
+
+
+def ssd_sequence_sharded(x, dt, a, bmat, cmat, chunk: int, *, axis: str,
+                         axis_size: int, scan_mode: str = "seq",
+                         wire: str = "fp32", dist, ssd=ssd_chunked):
+    """SSD with the sequence sharded over the ring axis (context
+    parallel): the local pass ``ssd`` (the kernel-backed
+    ``kernels.ssd.ops.ssd_chunked`` in the model; this module's plain
+    :func:`ssd_chunked` by default) with a zero inbound state, the scan of
+    the ranks' (decay, state) segments, then the inbound prefix state's
+    contribution to the local outputs.  Returns (y, the state after this
+    rank's block)."""
+    local = ssd(x, dt, a, bmat, cmat, chunk)
+    if axis_size == 1:
+        return local.y, local.state
+    g = local.decay[:, :, None, None]  # [B,H,1,1]
+    _, se = ring_exclusive_scan((g, local.state), axis, axis_size,
+                                mode=scan_mode, wire=wire, dist=dist)
+    # for local token t the inbound state contributes C_t · (exp(cum_t)
+    # · h_in)
+    cum = torch.cumsum(dt * a, dim=1)  # [B, L, H]
+    y_corr = torch.einsum("bln,blh,bhpn->blhp", cmat, torch.exp(cum), se)
+    state_out = local.decay[:, :, None, None] * se + local.state
+    return local.y + y_corr, state_out
+
+
+# ---------------------------------------------------------------------------
 # depthwise causal conv
 # ---------------------------------------------------------------------------
 
 
-def causal_conv1d(x, w, b, *, axis: str, axis_size: int):
-    """x: [B, S, C]; w: [K, C]; b: [C].  Zero history before the first
-    position, and the reference's order of sums (tap 0 first)."""
-    if axis_size != 1:
-        raise not_ported("the conv halo exchange over the ring", "A3c")
+def causal_conv1d(x, w, b, *, axis: str, axis_size: int, dist=None):
+    """x: [B, S_loc, C] (sequence-sharded over ``axis`` above degree 1);
+    w: [K, C]; b: [C].  Rank 0 sees zero history before its first
+    position; above degree 1 every other rank takes the last ``K - 1``
+    inputs of the rank before it (a one-hop halo exchange over ``dist``).
+    The reference's order of sums (tap 0 first)."""
     k = w.shape[0]
     b_, s, c = x.shape
-    xp = torch.cat([x.new_zeros((b_, k - 1, c)), x], dim=1)  # [B, S+K-1, C]
+    halo = k - 1
+    if axis_size > 1:
+        if dist is None:
+            raise ValueError("causal_conv1d over a ring of "
+                             f"{axis_size} needs its dist for the halo")
+        prev = dist.ppermute(x[:, -halo:, :], axis,
+                             _shift_perm(axis_size, 1))
+        first = _rank_is(dist, axis, x.device, lambda i: i == 0)
+        prev = torch.where(first, torch.zeros_like(prev), prev)
+    else:
+        prev = x.new_zeros((b_, halo, c))
+    xp = torch.cat([prev, x], dim=1)  # [B, S+K-1, C]
     out = xp[:, 0:s, :] * w[0][None, None, :]
     for j in range(1, k):
         out = out + xp[:, j:j + s, :] * w[j][None, None, :]
