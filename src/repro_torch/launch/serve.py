@@ -7,7 +7,8 @@ fixed number of tokens, at ring degree 1 with strategy ``tatp``::
 
 Architectures: every one the config registry lists (``--arch``); for the
 SSM models (``mamba2-780m``, ``zamba2-2.7b``) ``--prompt-len`` must be a
-multiple of ``ssm_chunk`` (256, or 8 with ``--reduced``).  ``internvl2-1b``
+multiple of ``ssm_chunk`` (256, or 8 with ``--reduced``) times the ring
+degree (the ``--mesh`` model degree; 1 on one device).  ``internvl2-1b``
 takes stub image embeddings for its first ``frontend_tokens`` (256)
 positions, so its prompt should be longer than that; the encoder of
 ``seamless-m4t-large-v2`` reads stub speech frames (1024).  It runs on the
@@ -132,9 +133,9 @@ def serve(args, params=None, keep_tokens: bool = False,
     else:
         par = ParallelConfig(strategy="tatp", remat=False)
         dist = make_mesh_dist(getattr(args, "mesh", None) or (1, 1), device)
-    check_prompt_len(dist, args.prompt_len)
     if getattr(args, "layers", None):  # a cut in depth only
         cfg = replace(cfg, n_layers=args.layers)
+    check_prompt_len(dist, args.prompt_len, cfg)
     sb = make_serve_fns(cfg, par, dist)
     if params is None:
         gen = torch.Generator(device=device).manual_seed(0)

@@ -35,8 +35,9 @@ encoder-decoder (its encoder's blocks bidirectional ring attention, its
 cross blocks streaming the sequence-sharded encoder output), the vision
 prefix (replicated over the ring, each rank taking its positions), zigzag
 ring attention (``ParallelConfig(zigzag=True)`` on a batch permuted by
-``attention.zigzag_permutation``) and ``remat_policy="tatp_outputs"``
-train on the ring as in the reference.
+``attention.zigzag_permutation``), ``remat_policy="tatp_outputs"`` and
+the Mamba-2 slots (the sequence-sharded SSD and the conv halo; their
+decode state head-sharded) run on the ring as in the reference.
 """
 
 from __future__ import annotations

@@ -41,9 +41,9 @@ columns (:func:`_gather_cols`); the K/V cache stays sequence-sharded.
 The ``megatron`` and ``fsdp`` strategies (which plans prescribe, e.g.
 gemma-7b's serve plan) run at model degree 1, where they compute what
 ``tatp`` does (:func:`_linear`).  Not ported yet (each raises
-``NotImplementedError`` naming its ROADMAP.md item): the Mamba-2 block
-above degree 1 (A3c), expert
-parallelism and the ``megatron``/``fsdp`` strategies above it (A3d).
+``NotImplementedError`` naming its ROADMAP.md item): expert parallelism
+and the ``megatron``/``fsdp`` strategies above degree 1 (A3d).  The
+Mamba-2 block runs over the ring (:func:`mamba_block`).
 """
 
 from __future__ import annotations
@@ -525,14 +525,30 @@ def mamba_block(ctx: RunCtx, p, x, cache=None, cache_len=None):
     ``prefill`` the new cache is the final SSM state (fp32) and the conv's
     last ``CONV_K - 1`` inputs (activation dtype); in ``decode`` the given
     cache updated in place.  The dtype flow is the reference's: the SSD
-    inputs and the skip are fp32, the conv runs in the activation dtype."""
+    inputs and the skip are fp32, the conv runs in the activation dtype.
+
+    Above model degree 1 (``tatp``), as the reference's: ``train`` and
+    ``prefill`` are sequence-sharded, the conv with its one-hop halo and
+    the SSD through :func:`repro_torch.models.ssm.ssd_sequence_sharded`
+    (the local pass on the ``ssd`` hook, ``par.ssm_scan_mode`` and
+    ``par.ssm_state_wire``); prefill's final state and conv tail come
+    from the ring's last rank by a psum of a masked tensor (the tail in
+    the activation dtype), and each rank keeps its block of ``nh / R``
+    heads of the state.  ``decode`` gathers ``in_proj``'s and
+    ``out_proj``'s column blocks, runs the conv replicated, updates this
+    rank's heads of the state and all-gathers their outputs over the
+    heads."""
     cfg = ctx.cfg
-    if ctx.r != 1:
-        raise not_ported("the Mamba-2 block over the ring", "A3c")
+    r, axis, dist = ctx.r, ctx.axis, ctx.dist
     di, n, nh, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, \
         cfg.ssm_head_dim
+    nh_l = nh // r
+    i = dist.axis_index(axis)
+    heads = slice(i * nh_l, (i + 1) * nh_l)  # this rank's state heads
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     zxbcdt = _linear(ctx, h, p["in_proj"])
+    if ctx.phase == "decode":
+        zxbcdt = _gather_cols(ctx, zxbcdt)
     z = zxbcdt[..., :di]
     xbc = zxbcdt[..., di:di + di + 2 * n]
     dt_raw = zxbcdt[..., di + di + 2 * n:]
@@ -549,15 +565,19 @@ def mamba_block(ctx: RunCtx, p, x, cache=None, cache_len=None):
         cmat = conv_out[:, di + n:]
         dt = F.softplus(dt_raw[:, 0, :].float() + dt_bias)
         y, state_new = ssm_lib.ssd_decode_step(
-            xs.reshape(-1, nh, hd).float(), dt, a, bmat.float(),
-            cmat.float(), d_skip, cache["state"])
+            xs.reshape(-1, nh, hd)[:, heads].float(), dt[:, heads],
+            a[heads], bmat.float(), cmat.float(), d_skip[heads],
+            cache["state"])
+        y = dist.all_gather(y, axis, dim=1)
         y = y.reshape(-1, 1, di).to(x.dtype)
         cache["state"].copy_(state_new)
         cache["conv"].copy_(conv_cache)
         new_cache = cache
     else:
-        conv_out = ssm_lib.causal_conv1d(xbc, p["conv_w"], p["conv_b"],
-                                         axis=ctx.axis, axis_size=1)
+        seq_sharded = ctx.par.strategy == "tatp" and r > 1
+        conv_out = ssm_lib.causal_conv1d(
+            xbc, p["conv_w"], p["conv_b"], axis=axis,
+            axis_size=r if seq_sharded else 1, dist=dist)
         conv_out = F.silu(conv_out)
         xs = conv_out[..., :di]
         bmat = conv_out[..., di:di + n].float()
@@ -565,16 +585,34 @@ def mamba_block(ctx: RunCtx, p, x, cache=None, cache_len=None):
         dt = F.softplus(dt_raw.float() + dt_bias)
         b_, l_ = xs.shape[:2]
         xh = xs.reshape(b_, l_, nh, hd).float()
-        out = ctx.ssd(xh, dt, a, bmat, cmat, cfg.ssm_chunk)
-        y = out.y + d_skip[None, None, :, None] * xh
+        if seq_sharded:
+            y, state = ssm_lib.ssd_sequence_sharded(
+                xh, dt, a, bmat, cmat, cfg.ssm_chunk, axis=axis,
+                axis_size=r, scan_mode=ctx.par.ssm_scan_mode,
+                wire=ctx.par.ssm_state_wire, dist=dist, ssd=ctx.ssd)
+        else:
+            out = ctx.ssd(xh, dt, a, bmat, cmat, cfg.ssm_chunk)
+            y, state = out.y, out.state
+        y = y + d_skip[None, None, :, None] * xh
         y = y.reshape(b_, l_, di).to(x.dtype)
         new_cache = None
         if ctx.phase == "prefill":
-            # a copy, so the cache does not hold the whole in_proj output
-            new_cache = {"state": out.state.float(),
-                         "conv": xbc[:, -(CONV_K - 1):, :].clone()}
+            tail = xbc[:, -(CONV_K - 1):, :]
+            if seq_sharded:  # both live on the ring's last rank
+                last = torch.full((), i == r - 1, dtype=torch.bool,
+                                  device=x.device)
+                state = dist.psum(torch.where(last, state,
+                                              torch.zeros_like(state)), axis)
+                tail = dist.psum(torch.where(last, tail,
+                                             torch.zeros_like(tail)), axis)
+            # copies, so the cache holds neither the whole state nor the
+            # whole in_proj output
+            new_cache = {"state": state[:, heads].float().contiguous(),
+                         "conv": tail.clone()}
 
     y = y * F.silu(z.float()).to(x.dtype)
     y = rms_norm(y, p["gln"], cfg.norm_eps)
     out = _linear(ctx, y, p["out_proj"])
+    if ctx.phase == "decode":
+        out = _gather_cols(ctx, out)
     return x + out.to(x.dtype), new_cache

@@ -168,11 +168,24 @@ def _build(node, it):
     return next(it)
 
 
-def check_prompt_len(dist: Dist, prompt_len: int) -> None:
-    """A sequence-sharded prompt must split evenly over the ring."""
-    if prompt_len % dist.model_degree:
+def check_prompt_len(dist: Dist, prompt_len: int, cfg=None) -> None:
+    """A sequence-sharded prompt must split evenly over the ring; with
+    Mamba-2 layers (``cfg``'s ``M``) each rank's block must also be whole
+    SSD chunks, so the sequence must be a multiple of the ring degree
+    times ``ssm_chunk`` (sequences are never padded).  Raises before any
+    collective."""
+    r = dist.model_degree
+    if prompt_len % r:
         raise ValueError(f"prompt length {prompt_len} is not a multiple of "
-                         f"the ring degree {dist.model_degree}")
+                         f"the ring degree {r}")
+    if cfg is not None and "M" in cfg.layer_pattern:
+        step = r * cfg.ssm_chunk
+        if prompt_len % step:
+            raise ValueError(
+                f"sequence length {prompt_len} is not a multiple of the "
+                f"chunk size {cfg.ssm_chunk} (ssm_chunk) times the ring "
+                f"degree {r}, {step}: every rank's block must be whole SSD "
+                f"chunks and sequences are never padded")
 
 
 def batch_rows(dist: Dist, n: int) -> slice:
@@ -197,8 +210,9 @@ def shard_batch(cfg: ModelConfig, batch: dict, dist: Dist) -> dict:
     """This rank's part of a global prefill or train batch (the
     reference's ``batch_specs`` for ``tatp``): the rows over ``data``; the
     tokens', labels' and an encoder's frames' sequence over ``model``; a
-    vision prefix replicated over ``model``."""
-    check_prompt_len(dist, batch["tokens"].shape[1])
+    vision prefix replicated over ``model``.  The sequence is checked by
+    :func:`check_prompt_len` first."""
+    check_prompt_len(dist, batch["tokens"].shape[1], cfg)
     out = {}
     for name, t in batch.items():
         t = t[batch_rows(dist, t.shape[0])]

@@ -782,8 +782,9 @@ def test_unported_ring_paths_raise(monkeypatch):
     outside ring attention's Functions; sharded checkpoints and a stage's
     submesh go on to join the world (the encoder-decoder, the vision
     prefix, zigzag and ``tatp_outputs`` train on the ring:
-    ``tests/test_torch_ring_{encdec,zigzag}.py``); the ring's own checks
-    hold."""
+    ``tests/test_torch_ring_{encdec,zigzag}.py``; the Mamba-2 block serves
+    and trains on it: ``tests/test_torch_ring_ssm.py``); the ring's own
+    checks hold."""
     sys.path.insert(0, str(SRC))
     import repro_torch.launch.train as launch
     from repro_torch.core.dist import check_transport
