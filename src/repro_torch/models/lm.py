@@ -461,9 +461,9 @@ def init_cache(ctx: RunCtx, batch_local: int, max_seq: int,
     """Zero caches matching :func:`_stack`'s layout (axis 0 the rep, axis 1
     the batch slot): attention slots ``{"k", "v"}`` [reps, B, max_seq / R,
     Hkv, D] (this rank's block of positions) in the activation dtype;
-    Mamba-2 slots ``{"state"}`` [reps, B, H, P, N] in fp32 and
-    ``{"conv"}`` [reps, B, CONV_K - 1, d_inner + 2N] in the activation
-    dtype; an encoder-decoder's ``"cross"`` ``{"k", "v"}`` [reps, B,
+    Mamba-2 slots ``{"state"}`` [reps, B, H / R, P, N] (this rank's
+    heads) in fp32 and ``{"conv"}`` [reps, B, CONV_K - 1, d_inner + 2N]
+    in the activation dtype; an encoder-decoder's ``"cross"`` ``{"k", "v"}`` [reps, B,
     T / R, Hkv, D] with T ``enc_len`` (default ``frontend_tokens``)."""
     cfg = ctx.cfg
     unit, reps = _unit_and_reps(cfg)

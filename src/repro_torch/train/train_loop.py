@@ -15,8 +15,8 @@ assemble (prefill's logits over both axes, decode's tokens over
 The train step is the reference's: each rank's loss over its rows (over
 ``data``) and its sequence block (over the ring, ``tatp``) and its
 gradients (autograd through the TATP rings' explicit dgrad/wgrad, ring
-attention's rounds, the streamed cross-entropy and the collectives'
-transposes, on the GEMM and attention kernels), the gradient bookkeeping
+attention's rounds, the SSD's ring scan, the streamed cross-entropy and
+the collectives' transposes, on the GEMM, attention and SSD kernels), the gradient bookkeeping
 over the token and ring axes (:func:`token_axes`: the count psummed
 over them, each rank's loss ``nll / count + aux / shards``;
 :func:`reduce_model_axis_grads`: ring-replicated leaves psummed over the
