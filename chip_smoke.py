@@ -152,8 +152,9 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    --auto-plan``, ``serve_engine``) of deepseek-7b at its 30 layers,
    bf16, on ``TorchServeExecutor`` and a wall clock, 4 decode slots, 128
    prompt and 32 new tokens a request, each run with a fresh plan cache
-   (``ENGINE_RUNS``).  (a) Fault-free: 100 Poisson requests at 1.25 a
-   second (below the ~1.8 a second the slots serve), every request
+   (``ENGINE_RUNS``).  (a) Fault-free: 60 Poisson requests at 1.25 a
+   second (below the ~1.8 a second the slots serve; 100 until phase 14
+   needed the time, so no TTFT p99 now), every request
    finished with its 32 tokens, and exactly 210 GEMM and 30 flash
    launches per prefill group the engine ran (decode runs no kernel), all
    ``wgmma`` / ``mma``.  (b) 20 requests at that rate with
@@ -253,7 +254,44 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    2R + 1 = 9 flash forwards and 9 backwards a layer on every rank; (d)
    one fp32 step of internvl2-1b (its image prefix) and of
    seamless-m4t-large-v2 (its encoder on the ring) at (1, 4), each loss
-   within 1e-5 of its degree-1 step.
+   within 1e-5 of its degree-1 step;
+14. SSM ring — the Mamba-2 block over the TATP ring (the sequence-sharded
+   SSD scan, the conv halo, the head-sharded decode state): the SSD
+   forward and backward kernels at a rank's local shape of the (1, 4)
+   runs (mamba2-780m's [4, 256, 48, 64] N 128, zamba2-2.7b's [4, 256,
+   80, 64] N 64, strided) and mamba2-780m's per-round GEMM tiles at 1024
+   rows (in_proj's [1536, 1612] block on ``wmma``, the same from a
+   buffer of pitch 1616 on ``wgmma``, out_proj's on ``wgmma``) against
+   their plain versions and timed beside them, and every degree-1 run
+   the ranks are held to, in this process;
+   then four ranks of this script (``--ssm-ring-rank``) sharing the card
+   over gloo, every prompt and sequence two 256-token chunks a rank: (a)
+   fp32 at full width, batch 2 x prompt 2048, 8 new tokens, mesh (1, 4):
+   mamba2-780m (2 layers) and zamba2-2.7b (6 layers, one unit) against
+   the degree-1 run of the same tree, prefill logits and each rank's
+   caches (its heads of the state, the conv tail, zamba2's K/V block)
+   within rtol = atol = 1e-3 and identical tokens, exact launches on
+   ``simt``; the ``log`` scan within SSM_SCAN_TOL and the bf16 state
+   wire within SSM_STATE_WIRE_TOL of the ``seq`` scan's prefill logits;
+   (b) mamba2-780m at 48 layers and (c) zamba2-2.7b cut to 12 through
+   ``launch.serve``'s ``serve --mesh 1 4`` in bf16 (batch 2 x prompt
+   2048, 8 new tokens): exact launches a rank by kernel and path (384
+   GEMM tiles and 48 SSD passes; 128 GEMM tiles, 10 SSD passes and 2 (i
+   + 1) flash rounds on ``mma`` on rank i; every in_proj tile on
+   ``wmma``, 192 and 40, since TMA cannot take its block's pitch of 1612
+   or 2612 bf16 columns, the other tiles on ``wgmma``), the prefill's last
+   logits within RING_BF16_TOL of the degree-1 bf16 run of the same
+   weights and its first tokens identical (but at a near tie), each
+   rank's prefill ms, ms/token, peak GB, staged share and GB sent, and
+   the state scan's hops' share of the prefill's bytes; (d) fp32 train
+   parity of mamba2-780m (2 layers, 2 steps, the clip off) at (1, 4) on
+   batch 2 x 2048 and at (2, 2) on 2 x 1024, by phase 12's rules; then
+   one bf16 step of mamba2-780m at 8 layers (batch 2 x 2048, (1, 4))
+   under full remat, ``tatp_outputs`` and full remat again: loss and
+   every gradient bitwise equal, exact launches by layout, every GEMM on
+   ``wgmma`` or ``wmma``, 16 SSD forwards and 8 SSD backwards a rank
+   under either policy, the loss (the ranks' shares summed) within 1e-2
+   of degree 1's, and each rank's step ms, GB sent and peak GB.
 
 It then prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``.
@@ -2925,9 +2963,10 @@ def phase_plan_launch(torch):
 
 # engine-mode serving (``launch.serve --serve``): deepseek-7b at its 30
 # layers, bf16, 4 decode slots, 128 prompt tokens and 32 new tokens each.
-# The measured load: 100 open-loop requests at 1.25 a second, below the
+# The measured load: 60 open-loop requests at 1.25 a second, below the
 # ~1.8 a second that 4 slots of ~2 s serve, so the queue has a steady
-# state and TTFT's p99 rests on 100 samples; then the same rate with a
+# state (100 until phase 14 needed the time; 60 samples back no TTFT
+# p99, P99_MIN_SAMPLES, only the p50 and the max); then the same rate with a
 # die fault at 2.0 s on the engine's clock (``--fault-at``, 1/8 of the
 # dies, seeded) over 20 requests: the replan and the migration land in
 # the first seconds, and the run's wall clock (~16 s, not ~80) keeps the
@@ -2936,7 +2975,7 @@ def phase_plan_launch(torch):
 # so TTFT grows with each request (queueing, not the server)
 ENGINE = dict(arch="deepseek-7b", max_batch=4, prompt_len=128, max_new=32,
               fault_at=2.0)
-ENGINE_LOAD = dict(requests=100, rate=1.25)
+ENGINE_LOAD = dict(requests=60, rate=1.25)
 ENGINE_FAULT_LOAD = dict(ENGINE_LOAD, requests=20)
 ENGINE_RUNS = (("engine", ENGINE_LOAD, False),
                ("engine fault", ENGINE_FAULT_LOAD, True),
@@ -3913,15 +3952,17 @@ def run_ranks(torch, out_dir, entry="--ring-rank", timeout_s=None):
          f"the ring's ranks failed (exit {proc.returncode}):\n{out[-8000:]}")
 
 
-def degree1_parity(torch):
-    """The degree-1 fp32 run RING_PARITY's ranks are held to: the same
-    tree whole on the card (``init_params``, same seed), through the
-    plain serve bundle: last prefill logits, caches and greedy tokens."""
+def degree1_parity(torch, spec=None):
+    """The degree-1 fp32 run a ring's fp32 parity ranks are held to
+    (``spec``: arch, n_layers, batch, prompt_len, gen, seed; RING_PARITY
+    by default): the same tree whole on the card (``init_params``, same
+    seed), through the serve bundle: last prefill logits, caches and
+    greedy tokens."""
     from repro_torch.launch.serve import prompt_batch
     from repro_torch.models import lm
     from repro_torch.models.transformer import init_params
 
-    spec = RING_PARITY
+    spec = spec or RING_PARITY
     dev = torch.device("cuda")
     cfg = parity_config(spec["arch"], spec["n_layers"])
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(
@@ -4248,8 +4289,9 @@ def phase_ring_train_rows(torch, randn):
     return flashes, gemms
 
 
-def ring_train_degree1(torch, path):
-    """RING_TRAIN_PARITY's degree-1 fp32 run on the card (the whole tree,
+def ring_train_degree1(torch, path, spec=None):
+    """A ring train parity run's degree-1 fp32 run on the card (``spec``,
+    RING_TRAIN_PARITY by default; the whole tree,
     ``init_params``, same seed): each step's loss, the global grad norm
     and, for each ring of 4 and 2, the norm of the gradient restricted to
     each model index's shards (the norm a ring rank clips by: the
@@ -4262,19 +4304,21 @@ def ring_train_degree1(torch, path):
     from repro_torch.core.dist import Dist
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.tatp_matmul.ref import matmul_ref
+    from repro_torch.models.ssm import ssd_chunked
     from repro_torch.models.transformer import param_specs
     from repro_torch.train.data import SyntheticDataset
     from repro_torch.train.optimizer import AdamWConfig
     from repro_torch.train.train_loop import loss_and_grads, make_train_step
 
-    spec = RING_TRAIN_PARITY
+    spec = spec or RING_TRAIN_PARITY
     dev = torch.device("cuda")
     cfg = parity_config(spec["arch"], spec["n_layers"])
     shape = ShapeConfig("ring", "train", spec["seq"], spec["batch"])
     specs = {"/".join(k): v for k, v in _leaves(param_specs(cfg))}
     out = dict(losses=[], grad_norms=[], shard_norms={})
     finals = []
-    for hooks in ({}, dict(dot=matmul_ref, attention=attention_ref)):
+    for hooks in ({}, dict(dot=matmul_ref, attention=attention_ref,
+                           ssd=ssd_chunked)):
         tb = make_train_step(cfg, ParallelConfig(strategy="tatp",
                                                  remat=False),
                              Dist(dev), shape,
@@ -4307,8 +4351,9 @@ def ring_train_degree1(torch, path):
     return out
 
 
-def ring_train_parity(torch, mesh, dev, ref_path):
-    """One rank's fp32 parity run on ``mesh``: RING_TRAIN_PARITY's steps
+def ring_train_parity(torch, mesh, dev, ref_path, spec=None):
+    """One rank's fp32 parity run on ``mesh``: ``spec``'s steps
+    (RING_TRAIN_PARITY by default)
     through ``make_train_step`` from ``init_sharded_params``' shards of
     the degree-1 tree, each within RING_TRAIN's step limit; its record
     holds the losses, grad norms, launches and each leaf's rel L2 of its
@@ -4321,7 +4366,7 @@ def ring_train_parity(torch, mesh, dev, ref_path):
     from repro_torch.train.optimizer import AdamWConfig
     from repro_torch.train.train_loop import make_train_step
 
-    spec = RING_TRAIN_PARITY
+    spec = spec or RING_TRAIN_PARITY
     dist = make_mesh_dist(mesh, dev)
     cfg = parity_config(spec["arch"], spec["n_layers"])
     shape = ShapeConfig("ring", "train", spec["seq"], spec["batch"])
@@ -4430,6 +4475,64 @@ def ring_train_rank_main(out_dir) -> int:
     return 0
 
 
+def ring_train_parity_checks(cfg, steps, refs, parities):
+    """Phase 12's rules for fp32 train parity over the ring: each step's
+    loss within RING_TRAIN_TOL of the degree-1 run's, each rank's grad
+    norm within it of the degree-1 gradient's norm over that rank's
+    shards, each leaf's final parameters within RING_TRAIN_TOL relative L2
+    or RING_TRAIN_FLOOR times the leaf's fp32 floor where larger, exact
+    launches on ``simt``, ZeRO-1 over ``data`` where the data degree is
+    above 1.  ``parities``: (rank, tag, the rank's
+    :func:`ring_train_parity` record) for each run; ``refs``: each tag's
+    :func:`ring_train_degree1` record.  Returns (rows by tag, checks)."""
+    parity, checks = {}, []
+    for rank, tag, p in parities:
+        ref = refs[tag]
+        mr, mi = p["mesh"][1], p["coords"][1]
+        want_norms = [ref["shard_norms"][str(mr)][t][mi]
+                      for t in range(steps)]
+        want_n = {k: v * steps for k, v in ring_train_launches(
+            cfg, mr, mi, remat=False)[0].items()}
+        errs = p["param_rel_l2"]
+        bound_of = {k: max(RING_TRAIN_TOL,
+                           RING_TRAIN_FLOOR * ref["floor"][k])
+                    for k in errs}
+        worst = max(errs, key=lambda k: errs[k] / bound_of[k])
+        row = dict(
+            rank=rank, coords=p["coords"],
+            loss_rel=max(abs(a - b) / abs(b) for a, b in
+                         zip(p["losses"], ref["losses"])),
+            grad_norm_rel=max(abs(a - b) / b for a, b in
+                              zip(p["grad_norms"], want_norms)),
+            param_rel_l2=dict(
+                worst_to_bound=worst, largest=[
+                    [k, errs[k], ref["floor"][k], bound_of[k]]
+                    for k in sorted(errs, key=errs.get)[-3:]]),
+            step_s=p["step_s"], shard_axis=p["shard_axis"],
+            launches=p["launches"])
+        parity.setdefault(tag, []).append(row)
+        checks += [
+            (row["loss_rel"] <= RING_TRAIN_TOL,
+             f"mesh {tag} rank {rank}: losses {p['losses']} vs "
+             f"degree 1 {ref['losses']}"),
+            (row["grad_norm_rel"] <= RING_TRAIN_TOL,
+             f"mesh {tag} rank {rank}: grad norms "
+             f"{p['grad_norms']} vs degree 1's on its shards "
+             f"{want_norms}"),
+            (errs[worst] <= bound_of[worst],
+             f"mesh {tag} rank {rank}: final parameters "
+             f"{row['param_rel_l2']} against degree 1"),
+            (p["launches"] == want_n, f"mesh {tag} rank {rank}: "
+             f"fp32 launches {p['launches']}, want {want_n}"),
+            (all(bp["simt"] == p["launches"][name]
+                 for name, bp in p["launches_by_path"].items()),
+             f"mesh {tag}: fp32 launches by path "
+             f"{p['launches_by_path']}: not all simt"),
+            (p["shard_axis"] == ("data" if p["mesh"][0] > 1 else "None"),
+             f"mesh {tag}: ZeRO-1 shard axis {p['shard_axis']}")]
+    return parity, checks
+
+
 def phase_ring_train(torch, randn, degree1_loss):
     """Phase 12: deepseek-7b trains through the TATP ring on four ranks
     sharing the card (gloo, host-staged).  ``degree1_loss`` is phase 5's
@@ -4457,52 +4560,11 @@ def phase_ring_train(torch, randn, degree1_loss):
                 for i in range(r)]
     cfg = parity_config(RING_TRAIN_PARITY["arch"],
                         RING_TRAIN_PARITY["n_layers"])
-    steps = RING_TRAIN_PARITY["steps"]
-    parity, checks = {}, []
-    for rec in recs:
-        for tag, p in rec["parity"].items():
-            mr, mi = p["mesh"][1], p["coords"][1]
-            want_norms = [ref["shard_norms"][str(mr)][t][mi]
-                          for t in range(steps)]
-            want_n = {k: v * steps for k, v in ring_train_launches(
-                cfg, mr, mi, remat=False)[0].items()}
-            errs = p["param_rel_l2"]
-            bound_of = {k: max(RING_TRAIN_TOL,
-                               RING_TRAIN_FLOOR * ref["floor"][k])
-                        for k in errs}
-            worst = max(errs, key=lambda k: errs[k] / bound_of[k])
-            row = dict(
-                rank=rec["rank"], coords=p["coords"],
-                loss_rel=max(abs(a - b) / abs(b) for a, b in
-                             zip(p["losses"], ref["losses"])),
-                grad_norm_rel=max(abs(a - b) / b for a, b in
-                                  zip(p["grad_norms"], want_norms)),
-                param_rel_l2=dict(
-                    worst_to_bound=worst, largest=[
-                        [k, errs[k], ref["floor"][k], bound_of[k]]
-                        for k in sorted(errs, key=errs.get)[-3:]]),
-                step_s=p["step_s"], shard_axis=p["shard_axis"],
-                launches=p["launches"])
-            parity.setdefault(tag, []).append(row)
-            checks += [
-                (row["loss_rel"] <= RING_TRAIN_TOL,
-                 f"mesh {tag} rank {rec['rank']}: losses {p['losses']} vs "
-                 f"degree 1 {ref['losses']}"),
-                (row["grad_norm_rel"] <= RING_TRAIN_TOL,
-                 f"mesh {tag} rank {rec['rank']}: grad norms "
-                 f"{p['grad_norms']} vs degree 1's on its shards "
-                 f"{want_norms}"),
-                (errs[worst] <= bound_of[worst],
-                 f"mesh {tag} rank {rec['rank']}: final parameters "
-                 f"{row['param_rel_l2']} against degree 1"),
-                (p["launches"] == want_n, f"mesh {tag} rank {rec['rank']}: "
-                 f"fp32 launches {p['launches']}, want {want_n}"),
-                (all(bp["simt"] == p["launches"][name]
-                     for name, bp in p["launches_by_path"].items()),
-                 f"mesh {tag}: fp32 launches by path "
-                 f"{p['launches_by_path']}: not all simt"),
-                (p["shard_axis"] == ("data" if p["mesh"][0] > 1 else "None"),
-                 f"mesh {tag}: ZeRO-1 shard axis {p['shard_axis']}")]
+    parity, checks = ring_train_parity_checks(
+        cfg, RING_TRAIN_PARITY["steps"],
+        {tag: ref for tag in recs[0]["parity"]},
+        [(rec["rank"], tag, p) for rec in recs
+         for tag, p in rec["parity"].items()])
     floor = sorted(ref["floor"].items(), key=lambda kv: -kv[1])[:4]
     log(f"[ring train] fp32 parity vs degree 1 (losses "
         f"{ref['losses']}, global grad norms {ref['grad_norms']}; the "
@@ -4795,9 +4857,10 @@ def ring_restart(torch, out_dir, rank):
     return rec
 
 
-def ring_remat(torch, rank):
-    """(b) on this rank: one step's loss and gradients of RING_REMAT's
-    model from the same shards and batch under each of REMAT_RUNS; for
+def ring_remat(torch, rank, spec=None):
+    """(b) on this rank: one step's loss and gradients of ``spec``'s
+    (RING_REMAT's by default) model from the same shards and batch under
+    each of REMAT_RUNS; for
     each the launches by kernel, layout and path (from zero), the bytes
     this rank sent, the step's wall clock and its peak GB above what was
     allocated before it; whether its loss and every gradient are bitwise
@@ -4815,7 +4878,7 @@ def ring_remat(torch, rank):
                                               reduce_model_axis_grads)
     from repro_torch.weights import init_sharded_params
 
-    spec = RING_REMAT
+    spec = spec or RING_REMAT
     dev = torch.device("cuda", torch.cuda.current_device())
     cfg = replace(get_config(spec["arch"]), n_layers=spec["layers"])
     dist = make_mesh_dist(spec["mesh"], dev)
@@ -5176,6 +5239,644 @@ def phase_ring_more(torch, randn):
     return rows, runs, delta_in
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the Mamba-2 block over the TATP ring
+# ---------------------------------------------------------------------------
+
+# four ranks of this script (``--ssm-ring-rank``) sharing the card over gloo
+RING_SSM = dict(ranks=4, backend="gloo", timeout_s=480)
+# the serves' batch, prompt and new tokens: each rank's block at (1, 4) is
+# two 256-token chunks, so the in-rank recurrence and the cross-rank scan
+# both run
+SSM_RING = dict(batch=2, prompt_len=2048, gen=8)
+# (a) fp32 serve parity at full width against the degree-1 run of the same
+# tree on the card: (arch, layers, seed)
+SSM_RING_PARITY = (("mamba2-780m", 2, 5), ("zamba2-2.7b", 6, 5))
+# the ring's own variants of (a)'s prefill: (tag, ssm_scan_mode,
+# ssm_state_wire); "seq" is the one held to degree 1
+SSM_RING_VARIANTS = (("seq", "seq", "fp32"), ("log", "log", "fp32"),
+                     ("bf16", "seq", "bf16"))
+# the log scan's prefill logits against seq's: the largest difference over
+# the largest magnitude (fp32's association alone; 1.3e-7 and 1.7e-7 on
+# the reduced models on the CPU)
+SSM_SCAN_TOL = 1e-5
+# the bf16 state wire's prefill logits against the fp32 wire's, the same
+# measure: the wire rounds each relayed state element by at most 2^-9 of
+# its value, so twice that (1.0e-4 and 1.4e-4 on the reduced models on
+# the CPU, the reference at mesh (1, 4))
+SSM_STATE_WIRE_TOL = 2.0 ** -8
+# (b), (c) bf16 through launch.serve --mesh 1 4: (arch, layers)
+SSM_RING_SERVES = (("mamba2-780m", 48), ("zamba2-2.7b", 12))
+# (d) fp32 train parity, phase 12's rules: mamba2-780m, 2 layers at full
+# width, 2 steps, the clip off, each (mesh, batch, seq) against the
+# degree-1 run of the same tree and batches; two chunks a rank on either
+SSM_RING_TRAIN_PARITY = dict(arch="mamba2-780m", n_layers=2, steps=2,
+                             seed=6, grad_clip=1e30,
+                             runs=(((1, 4), 2, 2048), ((2, 2), 2, 1024)))
+# and one bf16 step of mamba2-780m, 8 layers, under full remat and under
+# tatp_outputs (REMAT_RUNS, bitwise), its loss within tol of degree 1's
+SSM_RING_TRAIN_BF16 = dict(arch="mamba2-780m", layers=8, batch=2, seq=2048,
+                           mesh=(1, 4), seed=0, tol=1e-2)
+# a rank's local SSD pass at (1, 4): [B * nc_loc, 256, H, P], N
+SSM_RING_SSD = {"mamba2-780m": (2 * 2, 256, 48, 64, 128),
+                "zamba2-2.7b": (2 * 2, 256, 80, 64, 64)}
+
+
+def ring_tile_path(n, kb):
+    """The GEMM path of a forward ring tile ``x[M, n] @ w_j[n, kb]``, both
+    operands contiguous (``kernels/tatp_matmul/ops.py:_path``): TMA, so
+    ``wgmma``, needs 16-byte pitches; a block of ``kb`` bf16 columns not
+    a multiple of 8 (mamba2-780m's and zamba2-2.7b's in_proj at R = 4:
+    6448 / 4 = 1612, 10448 / 4 = 2612) takes ``wmma``."""
+    return "wgmma" if n % 8 == 0 and kb % 8 == 0 else "wmma"
+
+
+def ring_prefill_paths(cfg, r):
+    """A rank's GEMM launches by path in one ring prefill of ``cfg``:
+    every linear's ``r`` tiles on :func:`ring_tile_path`."""
+    out = {"simt": 0, "wmma": 0, "wgmma": 0}
+    for (_, n, k), count in linear_shapes(cfg, 1).items():
+        out[ring_tile_path(n, k // r)] += count * r
+    return out
+
+
+def ssm_train_parity_spec(mesh, batch, seq):
+    return dict(SSM_RING_TRAIN_PARITY, batch=batch, seq=seq,
+                meshes=(tuple(mesh),))
+
+
+def ssm_ring_gemm_rows(torch, randn):
+    """mamba2-780m's per-round GEMM tiles at (1, 4) (M = 2 x 2048 / 4 =
+    1024 rows a rank), each against its plain version and timed beside
+    it and ``torch.matmul``: in_proj's [1536, 1612] block, whose pitch
+    TMA cannot take (``wmma``), the same block read from a buffer of
+    pitch 1616 (``wgmma``: what padding the block would buy), and
+    out_proj's [3072, 384] block (``wgmma``)."""
+    from repro_torch.kernels.tatp_matmul.ops import tatp_dot
+    from repro_torch.kernels.tatp_matmul.ref import matmul_ref
+
+    m = SSM_RING["batch"] * SSM_RING["prompt_len"] // RING_SSM["ranks"]
+    rows = []
+    for what, n, kb, pitch in (("in_proj", 1536, 1612, 1612),
+                               ("in_proj, pitch 1616", 1536, 1612, 1616),
+                               ("out_proj", 3072, 384, 384)):
+        a = randn(m, n, dtype=torch.bfloat16)
+        b = randn(n, pitch, dtype=torch.bfloat16, scale=n ** -0.5)[:, :kb]
+        path = gemm_path(a, b)
+        need(path == ring_tile_path(n, pitch),
+             f"ssm ring tile {what} takes {path}")
+        err = compare(f"ssm ring tile {what} bf16 {m}x{n}x{kb} ({path})",
+                      tatp_dot(a, b), matmul_ref(a, b), *GEMM_TOL["bfloat16"])
+        row = dict(tile=what, shape=[m, n, kb], path=path, max_abs_err=err,
+                   ms=time_ms(torch, lambda: tatp_dot(a, b)),
+                   plain_ms=time_ms(torch, lambda: matmul_ref(a, b)),
+                   library_ms=time_ms(torch, lambda: torch.matmul(a, b)))
+        row["bound_ms"], row["bound_by"] = bound(
+            2 * m * n * kb, 2 * (m * n + n * kb + m * kb), "bfloat16")
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        rows.append(row)
+    log(f"[ssm ring rows] mamba2-780m's GEMM tiles at (1, 4): "
+        f"{json.dumps(rows)}")
+    return rows
+
+
+def ssm_ring_rows(torch, randn):
+    """The SSD forward and backward kernels at a rank's local shape of the
+    (1, 4) runs (SSM_RING_SSD, the conv output's strided views), each
+    against its plain version and timed beside it, in this process
+    alone."""
+    from repro_torch.kernels.ssd.ops import (ssd_intra_chunk,
+                                             ssd_intra_chunk_bwd)
+    from repro_torch.kernels.ssd.ref import (ssd_intra_chunk_bwd_ref,
+                                             ssd_intra_chunk_ref)
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    rows = []
+    for arch, shape in SSM_RING_SSD.items():
+        bc, q, h, p, n = shape
+        ins = ssd_inputs(torch, randn, g, *shape, strided=True)
+        err = max(compare(f"ring local ssd {arch} {list(shape)} {part}", gt,
+                          rf, *SSD_TOL)
+                  for part, gt, rf in zip(("y", "state", "decay"),
+                                          ssd_intra_chunk(*ins),
+                                          ssd_intra_chunk_ref(*ins)))
+        fwd = dict(arch=arch, direction="forward", shape=list(shape),
+                   path=SSD_PATH, max_abs_err=err,
+                   ms=time_ms(torch, lambda: ssd_intra_chunk(*ins)),
+                   plain_ms=time_ms(torch, lambda: ssd_intra_chunk_ref(*ins)),
+                   library_ms=None)
+        fwd["bound_ms"], fwd["bound_by"], *_ = ssd_bound(*shape)
+        cots = (randn(bc, q, h, p), randn(bc, h, p, n), randn(bc, h))
+        got = ssd_intra_chunk_bwd(*ins, *cots)
+        want = ssd_intra_chunk_bwd_ref(*ins, *cots)
+        abs_err = max((a - b).abs().max().item() for a, b in zip(got, want))
+        rel = max((a - b).abs().max().item()
+                  / max(b.abs().max().item(), 1e-30)
+                  for a, b in zip(got, want))
+        need(all(bool(t.isfinite().all()) for t in got),
+             f"ring local ssd backward {arch}: non-finite gradients")
+        log(f"  check ring local ssd backward {arch} {list(shape)}: max "
+            f"relative error {rel:.3e} tol {SSD_BWD_TOL}")
+        need(rel <= SSD_BWD_TOL, f"ring local ssd backward {arch}: kernel "
+             f"disagrees with the plain backward")
+        flops, nbytes = ssd_bwd_work(*shape)
+        bwd = dict(arch=arch, direction="backward", shape=list(shape),
+                   path=SSD_BWD_PATH, max_abs_err=abs_err, max_rel_err=rel,
+                   ms=time_ms(torch, lambda: ssd_intra_chunk_bwd(*ins,
+                                                                 *cots)),
+                   plain_ms=time_ms(torch, lambda: ssd_intra_chunk_bwd_ref(
+                       *ins, *cots), 5, 1),
+                   library_ms=None)
+        bwd["bound_ms"], bwd["bound_by"] = bound(flops, nbytes, "tf32x3")
+        for row in (fwd, bwd):
+            row["share_of_bound"] = row["bound_ms"] / row["ms"]
+            rows.append(row)
+    log(f"[ssm ring rows] a rank's local SSD at (1, 4), fp32: "
+        f"{json.dumps(rows)}")
+    return rows
+
+
+def ssm_degree1_serve(torch, arch, layers):
+    """The degree-1 bf16 serve of ``arch`` cut to ``layers`` through the
+    entry point's ``serve`` (seed 0's weights, the ring's tree): its
+    tokens and the prefill's last logits; and bf16's own floor there: the
+    rel L2 by which the same prefill moves with every kernel replaced by
+    its plain version (another order of the same sums)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.tatp_matmul.ref import matmul_ref
+    from repro_torch.launch.serve import build_parser, prompt_batch, serve
+    from repro_torch.models.ssm import ssd_chunked
+    from repro_torch.models.transformer import init_params
+
+    spec = SSM_RING
+    args = build_parser().parse_args([
+        "--arch", arch, "--layers", str(layers), "--batch",
+        str(spec["batch"]), "--prompt-len", str(spec["prompt_len"]),
+        "--gen", str(spec["gen"])])
+    stats = {}
+    res = serve(args, keep_tokens=True, stats=stats)
+    out = dict(tokens=torch.tensor(res["tokens"]),
+               logits=stats["prefill_logits"][:, -1].float().cpu(),
+               prefill_ms=stats["prefill_ms"],
+               ms_per_token=res["ms_per_token"])
+    del stats
+    release(torch)
+    dev = torch.device("cuda")
+    cfg = replace(get_config(arch), n_layers=layers)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    batch = {name: torch.as_tensor(a, device=dev) for name, a in
+             prompt_batch(cfg, spec["batch"], spec["prompt_len"]).items()}
+    sb = serve_bundle(torch, cfg, dot=matmul_ref, attention=attention_ref,
+                      ssd=ssd_chunked)
+    _, logits = sb.prefill_fn(params, batch)
+    out["plain_rel_l2"] = rel_l2(logits[:, -1].float().cpu(), out["logits"])
+    del params, logits
+    release(torch)
+    return out
+
+
+def ssm_degree1_bf16_loss(torch):
+    """SSM_RING_TRAIN_BF16's first loss at degree 1 (the whole tree from
+    its seed, the same synthetic batch), forward only."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ParallelConfig, ShapeConfig
+    from repro_torch.core.dist import Dist
+    from repro_torch.models import lm
+    from repro_torch.models.transformer import RunCtx, init_params
+    from repro_torch.train.data import SyntheticDataset
+
+    spec = SSM_RING_TRAIN_BF16
+    dev = torch.device("cuda")
+    cfg = replace(get_config(spec["arch"]), n_layers=spec["layers"])
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(
+        spec["seed"]), dev)
+    shape = ShapeConfig("ring", "train", spec["seq"], spec["batch"])
+    batch = SyntheticDataset(cfg, shape, Dist(dev), seed=spec["seed"]) \
+        .batch(0)
+    ctx = RunCtx(cfg, ParallelConfig(strategy="tatp", remat=False),
+                 Dist(dev), phase="train")
+    with torch.no_grad():
+        nll, cnt, _ = lm.loss_fn(ctx, params, batch)
+    loss = float(nll / cnt)
+    del params
+    release(torch)
+    return loss
+
+
+def ssm_ring_parity(torch, dist, out_dir, arch, layers, seed):
+    """(a) on this rank: fp32 at full width, ``layers`` layers, from
+    ``init_sharded_params``' shards of the degree-1 tree: the prefill
+    under each of SSM_RING_VARIANTS, the "seq" one with exact launches on
+    ``simt`` and its caches and greedy tokens.  The tensors go to
+    ``ssm_<arch><rank>.pt`` for the parent to compare."""
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.launch.serve import prompt_batch
+    from repro_torch.models import lm
+    from repro_torch.train.train_loop import make_serve_fns
+    from repro_torch.weights import init_sharded_params
+
+    spec = SSM_RING
+    dev, i = dist.device, dist.axis_index(dist.model_axis)
+    cfg = parity_config(arch, layers)
+    params = init_sharded_params(
+        cfg, torch.Generator(device=dev).manual_seed(seed), dist)
+    b, s = spec["batch"], spec["prompt_len"]
+    batch = {name: torch.as_tensor(a, device=dev) for name, a in
+             prompt_batch(cfg, b, s, seed=seed).items()}
+    out, rec = {}, {}
+    for tag, mode, wire in SSM_RING_VARIANTS:
+        sb = make_serve_fns(cfg, ParallelConfig(
+            strategy="tatp", remat=False, ssm_scan_mode=mode,
+            ssm_state_wire=wire), dist)
+        zero_launches()
+        caches, logits = sb.prefill_fn(params, batch)
+        torch.cuda.synchronize()
+        out[f"logits_{tag}"] = logits[:, -1].cpu()
+        if tag != "seq":
+            continue
+        launches, paths = read_launches(), read_paths()
+        want = ring_launches(cfg, dist.model_degree, i)
+        need(launches == want, f"rank {i}: fp32 {arch} ring prefill "
+             f"launched {launches}, want {want}")
+        for name, by_path in paths.items():
+            need(by_path["simt"] == launches[name],
+                 f"rank {i}: fp32 {name} by path {by_path}: not all simt")
+        rec["launches"] = launches
+        out["caches"] = {u: {n: t.cpu() for n, t in leaves.items()}
+                         for u, leaves in caches.items()}
+        big = lm.graft_cache_slots(
+            lm.init_cache(sb.ctx, b, s + spec["gen"]),
+            lm.shard_prompt_cache(sb.ctx, caches, s + spec["gen"]),
+            slots=range(b))
+        tok = logits[:, -1:].argmax(-1) % cfg.vocab_size
+        toks = [tok]
+        for t in range(spec["gen"]):
+            cl = torch.full((b,), s + t + 1, device=dev)
+            tok, _, big = sb.decode_fn(params, tok, big, cl)
+            toks.append(tok)
+        out["tokens"] = torch.cat(toks, dim=1).cpu()
+        del big
+    torch.save(out, Path(out_dir) / f"ssm_{arch}{i}.pt")
+    del params
+    release(torch)
+    return rec
+
+
+def ssm_ring_serve(torch, out_dir, rank, arch, layers):
+    """(b), (c) on this rank: the bf16 serve through the entry point's
+    ``serve`` with the CLI's arguments (``--mesh 1 4 --layers``):
+    launches by path from zero, prefill ms, ms/token, peak GB, the
+    host-staged transport's share and bytes, and the bytes and seconds of
+    the state scan's hops (``ring_exclusive_scan``, counted around each
+    call); the tokens and the prefill's last logits to
+    ``ssm_serve_<arch><rank>.pt``."""
+    from repro_torch.launch.serve import build_parser, serve
+    from repro_torch.models import ssm as ssm_lib
+
+    spec = SSM_RING
+    args = build_parser().parse_args([
+        "--arch", arch, "--layers", str(layers), "--mesh", "1", "4",
+        "--batch", str(spec["batch"]), "--prompt-len",
+        str(spec["prompt_len"]), "--gen", str(spec["gen"]),
+        "--dist-backend", RING_SSM["backend"]])
+    scan = dict(bytes=0, seconds=0.0, calls=0, hops=0)
+    scan_fn = ssm_lib.ring_exclusive_scan
+
+    def counted(*a, **kw):
+        stage = kw["dist"].stage
+        b0, s0, c0 = stage.bytes, stage.seconds, stage.calls
+        out = scan_fn(*a, **kw)
+        scan["bytes"] += stage.bytes - b0
+        scan["seconds"] += stage.seconds - s0
+        scan["hops"] += stage.calls - c0
+        scan["calls"] += 1
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    ssm_lib.ring_exclusive_scan = counted
+    try:
+        zero_launches()
+        t0 = time.perf_counter()
+        res = serve(args, keep_tokens=True, stats=stats)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    finally:
+        ssm_lib.ring_exclusive_scan = scan_fn
+    launches, paths = read_launches(), read_paths()
+    dist = stats["dist"]
+    stage = dist.stage
+    decode_s = res["ms_per_token"] * spec["gen"] / 1e3
+    torch.save(dict(tokens=torch.tensor(res.pop("tokens")),
+                    logits=stats["prefill_logits"][:, -1].float().cpu()),
+               Path(out_dir) / f"ssm_serve_{arch}{rank}.pt")
+    prefill_s = stats["prefill_ms"] / 1e3
+    out = dict(
+        mesh=list(dist.mesh_shape), coords=list(dist.coords),
+        launches=launches, launches_by_path=paths,
+        prefill_ms=stats["prefill_ms"], ms_per_token=res["ms_per_token"],
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9, wall_s=wall_s,
+        prefill_gb_sent=stats["prefill_transport_bytes"] / 1e9,
+        prefill_staged_calls=stats["prefill_transport_calls"],
+        prefill_staged_share=stats["prefill_transport_s"] / prefill_s,
+        decode_gb_sent=(stage.bytes - stats["prefill_transport_bytes"])
+        / 1e9,
+        decode_staged_calls_per_token=(
+            stage.calls - stats["prefill_transport_calls"]) / spec["gen"],
+        decode_staged_share=(stage.seconds - stats["prefill_transport_s"])
+        / decode_s,
+        scan_calls=scan["calls"], scan_hops=scan["hops"],
+        scan_gb_sent=scan["bytes"] / 1e9, scan_s=scan["seconds"])
+    out["scan_share_of_prefill_bytes"] = scan["bytes"] / max(
+        stats["prefill_transport_bytes"], 1)
+    out["scan_share_of_prefill_s"] = scan["seconds"] / prefill_s
+    release(torch)
+    return out
+
+
+def ssm_ring_rank_main(out_dir) -> int:
+    """One rank of phase 14, started by ``torch.distributed.run``: (a) the
+    fp32 serve parity, (b) and (c) the bf16 serves, (d) the fp32 train
+    parity and the bf16 step under both remat policies; each part's wall
+    clock; its record to ``rank<rank>.json``."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.core.dist import (init_world, make_mesh_dist,
+                                       world_from_env)
+
+    rank, world, local = world_from_env()
+    dev = torch.device("cuda", local % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_world(RING_SSM["backend"])
+    try:
+        rec, laps = dict(rank=rank), {}
+        t0 = time.perf_counter()
+        dist = make_mesh_dist((1, RING_SSM["ranks"]), dev)
+        rec["parity"] = {arch: ssm_ring_parity(torch, dist, out_dir, arch,
+                                               layers, seed)
+                         for arch, layers, seed in SSM_RING_PARITY}
+        laps["parity"] = time.perf_counter() - t0
+        rec["serve"] = {}
+        for arch, layers in SSM_RING_SERVES:
+            t0 = time.perf_counter()
+            rec["serve"][arch] = ssm_ring_serve(torch, out_dir, rank, arch,
+                                                layers)
+            laps[f"serve {arch}"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rec["train_parity"] = {}
+        for mesh, b, s in SSM_RING_TRAIN_PARITY["runs"]:
+            tag = "x".join(map(str, mesh))
+            rec["train_parity"][tag] = ring_train_parity(
+                torch, mesh, dev, Path(out_dir) / f"ssm_degree1_{tag}.pt",
+                ssm_train_parity_spec(mesh, b, s))
+        laps["train parity"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rec["remat"], model = ring_remat(torch, rank, SSM_RING_TRAIN_BF16)
+        del model
+        release(torch)
+        laps["bf16 step"] = time.perf_counter() - t0
+        rec["laps"] = laps
+        (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(rec))
+    finally:
+        tdist.destroy_process_group()
+    return 0
+
+
+def check_ssm_parity(torch, ref, par, arch):
+    """(a)'s rules for ``arch``: ``par`` holds each rank's tensors, ``ref``
+    the degree-1 run's.  Returns the variants' errors."""
+    tol = GEMM_TOL["float32"]
+    r = len(par)
+    compare(f"ring fp32 {arch} prefill logits vs degree 1",
+            par[0]["logits_seq"], ref["logits"], *tol)
+    sl = SSM_RING["prompt_len"] // r
+    for i, p in enumerate(par):
+        need(torch.equal(p["logits_seq"], par[0]["logits_seq"]),
+             f"{arch}: rank {i}'s gathered logits differ from rank 0's")
+        for u, leaves in p["caches"].items():
+            for n, t in leaves.items():
+                full = ref["caches"][u][n]
+                if n == "state":  # this rank's heads
+                    hl = full.shape[2] // r
+                    want = full[:, :, i * hl:(i + 1) * hl]
+                elif n == "conv":  # the ring's last inputs, replicated
+                    want = full
+                else:  # an attention slot's block of positions
+                    want = full[:, :, i * sl:(i + 1) * sl]
+                compare(f"ring fp32 {arch} rank {i} prefill cache {u}.{n}",
+                        t, want, *tol)
+        need(torch.equal(p["tokens"], ref["tokens"]),
+             f"{arch} rank {i}: ring tokens {p['tokens'].tolist()} != "
+             f"degree 1 {ref['tokens'].tolist()}")
+    seq = par[0]["logits_seq"]
+    errs = {}
+    for tag, limit in (("log", SSM_SCAN_TOL), ("bf16", SSM_STATE_WIRE_TOL)):
+        got = par[0][f"logits_{tag}"]
+        errs[tag] = dict(max_rel=((got - seq).abs().max()
+                                  / seq.abs().max()).item(),
+                         rel_l2=rel_l2(got, seq), limit=limit)
+    return errs
+
+
+def phase_ssm_ring(torch, randn):
+    """Phase 14: the Mamba-2 block over the TATP ring on four ranks
+    sharing the card (gloo, host-staged).  The local SSD rows and every
+    degree-1 reference run in this process first, then
+    ``torch.distributed.run`` of this script's ``--ssm-ring-rank``.
+    Returns the SSD rows, mamba2's GEMM tile rows, the bf16 serves'
+    launches (by kernel and path) and the bf16 steps' (by kernel, layout
+    and path) for the kernels line."""
+    import os
+    import tempfile
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    rows = ssm_ring_rows(torch, randn)
+    gemm_rows = ssm_ring_gemm_rows(torch, randn)
+    t0 = time.perf_counter()
+    parity1 = {arch: degree1_parity(torch, dict(
+        SSM_RING, arch=arch, n_layers=layers, seed=seed))
+        for arch, layers, seed in SSM_RING_PARITY}
+    serve1 = {arch: ssm_degree1_serve(torch, arch, layers)
+              for arch, layers in SSM_RING_SERVES}
+    loss1 = ssm_degree1_bf16_loss(torch)
+    r = RING_SSM["ranks"]
+    shm = "/dev/shm" if os.path.isdir("/dev/shm") else None
+    with tempfile.TemporaryDirectory(dir=shm) as tmp:
+        train1 = {}
+        for mesh, b, s in SSM_RING_TRAIN_PARITY["runs"]:
+            tag = "x".join(map(str, mesh))
+            train1[tag] = ring_train_degree1(
+                torch, Path(tmp) / f"ssm_degree1_{tag}.pt",
+                ssm_train_parity_spec(mesh, b, s))
+        degree1_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        run_ranks(torch, tmp, "--ssm-ring-rank", RING_SSM["timeout_s"])
+        ranks_s = time.perf_counter() - t0
+        recs = [json.loads((Path(tmp) / f"rank{i}.json").read_text())
+                for i in range(r)]
+        par = {arch: [torch.load(Path(tmp) / f"ssm_{arch}{i}.pt")
+                      for i in range(r)] for arch, _, _ in SSM_RING_PARITY}
+        srv = {arch: [torch.load(Path(tmp) / f"ssm_serve_{arch}{i}.pt")
+                      for i in range(r)] for arch, _ in SSM_RING_SERVES}
+
+    # (a) fp32 serve parity
+    variants = {arch: check_ssm_parity(torch, parity1[arch], par[arch], arch)
+                for arch, _, _ in SSM_RING_PARITY}
+    log(f"[ssm ring] fp32 parity at (1, 4) against degree 1: logits, "
+        f"caches and {SSM_RING['gen']} greedy tokens hold on every rank; "
+        f"the log scan and the bf16 state wire against the seq scan's "
+        f"prefill logits: {json.dumps(variants)}")
+    checks = [(e["max_rel"] <= e["limit"],
+               f"{arch} {tag}: prefill logits max_rel {e['max_rel']:.3e} > "
+               f"{e['limit']}")
+              for arch, errs in variants.items() for tag, e in errs.items()]
+
+    # (b), (c) the bf16 serves
+    runs, serves = {}, {}
+    for arch, layers in SSM_RING_SERVES:
+        full = replace(get_config(arch), n_layers=layers)
+        got, want = srv[arch][0]["logits"], serve1[arch]["logits"]
+        err = rel_l2(got, want)
+        maxerr = (got - want).abs().max().item()
+        first = srv[arch][0]["tokens"][:, 0]
+        first1 = serve1[arch]["tokens"][:, 0]
+        top2 = want.topk(2, dim=-1).values
+        margin = top2[:, 0] - top2[:, 1]
+        agree = (srv[arch][0]["tokens"] == serve1[arch]["tokens"]).float()
+        serves[arch] = dict(
+            layers=layers, prefill_logits_rel_l2=err,
+            prefill_logits_max_abs=maxerr, first_tokens=first.tolist(),
+            degree1_first_tokens=first1.tolist(),
+            degree1_top2_margin=margin.tolist(),
+            token_agreement=agree.mean().item(),
+            degree1_plain_hooks_rel_l2=serve1[arch]["plain_rel_l2"],
+            degree1_prefill_ms=serve1[arch]["prefill_ms"],
+            degree1_ms_per_token=serve1[arch]["ms_per_token"],
+            per_rank=[rec["serve"][arch] for rec in recs])
+        for i, rec in enumerate(recs):
+            sv = rec["serve"][arch]
+            want_n = ring_launches(full, r, sv["coords"][1])
+            checks += [
+                (sv["mesh"] == [1, r], f"{arch} serve mesh {sv['mesh']}"),
+                (sv["launches"] == want_n,
+                 f"{arch} rank {i}: launches {sv['launches']} != {want_n}"),
+                (torch.equal(srv[arch][i]["tokens"],
+                             srv[arch][0]["tokens"]),
+                 f"{arch} rank {i}'s tokens differ from rank 0's")]
+            want_gemm = ring_prefill_paths(full, r)
+            checks += [
+                (sv["launches_by_path"]["tatp_matmul"] == want_gemm,
+                 f"{arch} rank {i}: GEMM by path "
+                 f"{sv['launches_by_path']['tatp_matmul']}, want "
+                 f"{want_gemm}"),
+                (sv["launches_by_path"]["flash_attention"]["mma"]
+                 == want_n["flash_attention"],
+                 f"{arch} rank {i}: flash by path "
+                 f"{sv['launches_by_path']['flash_attention']}")]
+            runs[f"{arch} {layers} layers ring (1, {r}) rank {i}"] = (
+                sv["launches"], sv["launches_by_path"])
+        checks.append((err <= RING_BF16_TOL,
+                       f"{arch} bf16 ring prefill logits rel L2 {err:.3e} "
+                       f"> {RING_BF16_TOL}"))
+        # a flip is possible only where the degree-1 margin is within
+        # twice the logits' largest difference
+        checks += [(first[row] == first1[row] or margin[row] <= 2 * maxerr,
+                    f"{arch} row {row}: first token {first[row]} != degree "
+                    f"1's {first1[row]} at margin {margin[row]:.3e}")
+                   for row in range(len(first))]
+        log(f"[ssm ring] {arch} {layers} layers bf16 batch "
+            f"{SSM_RING['batch']} x prompt {SSM_RING['prompt_len']}, "
+            f"{SSM_RING['gen']} new tokens, mesh (1, {r}), "
+            f"{RING_SSM['backend']}: {json.dumps(serves[arch])}")
+
+    # (d) train: fp32 parity, then the bf16 step under both policies
+    cfg = parity_config(SSM_RING_TRAIN_PARITY["arch"],
+                        SSM_RING_TRAIN_PARITY["n_layers"])
+    parity, more = ring_train_parity_checks(
+        cfg, SSM_RING_TRAIN_PARITY["steps"], train1,
+        [(rec["rank"], tag, p) for rec in recs
+         for tag, p in rec["train_parity"].items()])
+    checks += more
+    losses1 = {tag: ref["losses"] for tag, ref in train1.items()}
+    log(f"[ssm ring train] fp32 parity vs degree 1 (losses "
+        f"{json.dumps(losses1)}): {json.dumps(parity)}")
+    spec = SSM_RING_TRAIN_BF16
+    bcfg = replace(get_config(spec["arch"]), n_layers=spec["layers"])
+    trains, remat = {}, []
+    for rec in recs:
+        b, g = rec["remat"], rec["rank"]
+        i = b["coords"][1]
+        for pol, key in REMAT_RUNS:
+            want, want_lay, _ = ring_train_launches(
+                bcfg, r, i, remat=True, saved=pol == "tatp_outputs")
+            got = b[key]
+            checks += [
+                (got["launches"] == want,
+                 f"rank {g} {key}: launches {got['launches']}, want {want}"),
+                (got["layouts"] == want_lay,
+                 f"rank {g} {key}: GEMM layouts {got['layouts']}, want "
+                 f"{want_lay}"),
+                (math.isfinite(got["loss"]), f"rank {g} {key}: loss "
+                 f"{got['loss']}")]
+            # the tiles whose operand pitches TMA cannot take (ring_tile_
+            # path; in the dgrad and wgrad layouts also a column block of
+            # dy at an odd round's 8-byte offset) run on wmma: every GEMM
+            # on a bf16 tensor-core path, the split logged
+            gp = got["paths"]["tatp_matmul"]
+            checks.append((gp["simt"] == 0 and gp["wmma"] + gp["wgmma"]
+                           == want["tatp_matmul"],
+                           f"rank {g} {key}: GEMM by path {gp}"))
+            if "loss_equal" in got:
+                checks += [
+                    (got["loss_equal"], f"rank {g}: {key}'s loss "
+                     f"{got['loss']} != full remat's "
+                     f"{b['full_first']['loss']}"),
+                    (not got["grads_differ"], f"rank {g}: {key}'s "
+                     f"gradients differ from full remat's: "
+                     f"{got['grads_differ'][:5]}")]
+            trains[f"{spec['arch']} {spec['layers']} layers ring {key} step "
+                   f"{tuple(spec['mesh'])} rank {g}"] = (
+                got["launches"], got["layouts"], got["paths"])
+        remat.append({key: {k: b[key][k] for k in (
+            "step_ms", "sent_gb", "peak_gb", "layouts", "loss")} | dict(
+            ssd=b[key]["launches"]["ssd"],
+            ssd_bwd=b[key]["launches"]["ssd_bwd"],
+            gemm_paths=b[key]["paths"]["tatp_matmul"])
+            for _, key in REMAT_RUNS})
+    # each rank's loss is its tokens' nll over the global count: the
+    # step's loss is their sum over the ring (data degree 1)
+    first = sum(rec["remat"]["full_first"]["loss"] for rec in recs)
+    first_rel = abs(first - loss1) / abs(loss1)
+    checks.append((first_rel <= spec["tol"],
+                   f"bf16 ring loss {first} vs degree 1 {loss1}: "
+                   f"{first_rel:.3e} > {spec['tol']}"))
+    summary = dict(loss=first, degree1_loss=loss1, loss_rel=first_rel,
+                   grad_leaves=recs[0]["remat"]["grad_leaves"],
+                   per_rank=remat)
+    log(f"[ssm ring train] {spec['arch']} {spec['layers']} layers bf16 batch "
+        f"{spec['batch']} x seq {spec['seq']} mesh {spec['mesh']}, full remat "
+        f"then tatp_outputs then full remat: {json.dumps(summary)}")
+    log(f"[ssm ring] degree1_s {degree1_s:.1f} ranks_wall_s {ranks_s:.1f} "
+        f"laps {json.dumps([rec['laps'] for rec in recs])} phase_s "
+        f"{time.perf_counter() - t_phase:.1f}")
+    for ok, msg in checks:
+        need(ok, msg)
+    return rows, gemm_rows, runs, trains
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke: src/repro_torch not found beside chip_smoke.py; "
@@ -5251,6 +5952,10 @@ def main() -> int:
     zigzag, more_trains, more_delta_in = phase_ring_more(torch, randn)
     trains.update(more_trains)
     lap("train ring, the rest")
+    ssm_rows, ssm_gemms, ssm_runs, ssm_trains = phase_ssm_ring(torch, randn)
+    runs.update(ssm_runs)
+    trains.update(ssm_trains)
+    lap("ssm ring")
     trains[f"{PLAN_TRAIN['arch']} --wafers {PLAN_TRAIN['wafers']} --stage "
            f"{PLAN_TRAIN['stage']} train"] = plan_trained
     # each record's launches: the counts of every main path's run (the
@@ -5269,8 +5974,12 @@ def main() -> int:
         if lay:
             for train, (_, train_layouts, train_paths) in trains.items():
                 n = train_layouts[lay]
-                of[train] = (n, {key: n if key == "wgmma" else 0
-                                 for key in train_paths[counter]})
+                paths = train_paths[counter]
+                # a run whose tiles all took wgmma splits by layout; one
+                # with wmma tiles too (phase 14's) has its split by path
+                # over all layouts only, in its own record
+                of[train] = (n, None if paths.get("wmma") else {
+                    key: n if key == "wgmma" else 0 for key in paths})
         k["launches"] = sum(n for n, _ in of.values())
         k["launches_by_path"] = {a: n for a, (n, _) in of.items()}
         if counter in MAIN_PATH_KERNEL:
@@ -5282,6 +5991,12 @@ def main() -> int:
         if k["name"] == "flash_attention":  # phase 13's zigzag launch
             k["zigzag_shapes"] = [z for z in zigzag
                                   if z["direction"] == "forward"]
+        if k["name"] == "tatp_matmul":  # phase 14's SSM ring tiles
+            k["ssm_ring_shapes"] = ssm_gemms
+        if k["name"] in ("ssd", "ssd_bwd"):  # phase 14's local pass
+            way = "forward" if k["name"] == "ssd" else "backward"
+            k["ring_shapes"] = [s for s in ssm_rows
+                                if s["direction"] == way]
         lay = GEMM_RECORD_LAYOUT.get(k["name"])
         if lay in ("dgrad", "wgrad"):
             k["ring_train_shapes"] = [g for g in train_gemms
@@ -5330,6 +6045,8 @@ if __name__ == "__main__":
             sys.exit(ring_train_rank_main(sys.argv[2]))
         if sys.argv[1:2] == ["--ring-more-rank"]:  # one rank of phase 13
             sys.exit(ring_more_rank_main(sys.argv[2]))
+        if sys.argv[1:2] == ["--ssm-ring-rank"]:  # one rank of phase 14
+            sys.exit(ssm_ring_rank_main(sys.argv[2]))
         sys.exit(main())
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)

@@ -120,7 +120,8 @@ def serve(args, params=None, keep_tokens: bool = False,
     1]); the CLI prints the reference's keys.  ``stats``, a dict, gets the
     run's ``dist``, the prefill's host ``prefill_ms`` (to the logits on
     the host), its global ``prefill_logits`` and the host-staged
-    transport's seconds up to then (``prefill_transport_s``)."""
+    transport's seconds, bytes sent and calls up to then
+    (``prefill_transport_s``, ``_bytes``, ``_calls``)."""
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     max_seq = args.prompt_len + args.gen
     device = join_world(args)
@@ -156,10 +157,12 @@ def serve(args, params=None, keep_tokens: bool = False,
     toks = logits[:, -1:, :].argmax(dim=-1) % cfg.vocab_size
     out_tokens = [toks.cpu()]
     if stats is not None:
+        stage = dist.stage
         stats.update(dist=dist, prefill_logits=logits,
                      prefill_ms=(time.perf_counter() - t0) * 1e3,
-                     prefill_transport_s=dist.stage.seconds
-                     if dist.stage else 0.0)
+                     prefill_transport_s=stage.seconds if stage else 0.0,
+                     prefill_transport_bytes=stage.bytes if stage else 0,
+                     prefill_transport_calls=stage.calls if stage else 0)
     caches = lm.shard_prompt_cache(sb.ctx, caches, max_seq)
     rows = len(range(args.batch)[batch_rows(dist, args.batch)])
     big = lm.init_cache(sb.ctx, rows, max_seq)
