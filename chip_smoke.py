@@ -5962,7 +5962,8 @@ def main() -> int:
     # serve paths and the train paths), read just after it.  The GEMM's
     # three records split its train launches by layout: tatp_matmul counts
     # the forward ones (serve's too), tatp_matmul_dgrad and _wgrad theirs;
-    # every one took wgmma, as phase_train_main asserts step by step
+    # every one took wgmma, as phase_train_main asserts step by step, but
+    # in phase 14's steps, whose in_proj tiles take wmma
     all_runs = dict(runs)
     for train, (train_n, _, train_paths) in trains.items():
         all_runs[train] = (train_n, train_paths)

@@ -6,8 +6,9 @@
 
 ``--arch mamba2-780m`` and ``--arch zamba2-2.7b`` train the same way; their
 ``--seq`` must be a multiple of ``ssm_chunk`` (8 reduced, 256 at full
-width) times the ring degree (``--mesh D M``'s M).  ``--arch olmoe-1b-7b`` (and the other MoE configs) adds the
-routers' load-balance loss to the objective, as the reference does.
+width) times the ring degree (``--mesh D M``'s M).  ``--arch
+olmoe-1b-7b`` (and the other MoE configs) adds the routers'
+load-balance loss to the objective, as the reference does.
 ``gemma-7b``, ``gemma2-9b``, ``qwen2-72b``, ``internvl2-1b`` (its batch
 carries the stub image prefix) and ``seamless-m4t-large-v2`` (its batch
 carries the encoder's stub speech frames) train the same way.

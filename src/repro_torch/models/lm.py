@@ -463,8 +463,9 @@ def init_cache(ctx: RunCtx, batch_local: int, max_seq: int,
     Hkv, D] (this rank's block of positions) in the activation dtype;
     Mamba-2 slots ``{"state"}`` [reps, B, H / R, P, N] (this rank's
     heads) in fp32 and ``{"conv"}`` [reps, B, CONV_K - 1, d_inner + 2N]
-    in the activation dtype; an encoder-decoder's ``"cross"`` ``{"k", "v"}`` [reps, B,
-    T / R, Hkv, D] with T ``enc_len`` (default ``frontend_tokens``)."""
+    in the activation dtype; an encoder-decoder's ``"cross"`` ``{"k",
+    "v"}`` [reps, B, T / R, Hkv, D] with T ``enc_len`` (default
+    ``frontend_tokens``)."""
     cfg = ctx.cfg
     unit, reps = _unit_and_reps(cfg)
     kw = dict(dtype=ctx.dtype, device=ctx.device)

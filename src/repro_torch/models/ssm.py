@@ -131,12 +131,11 @@ def segsum_combine(left, right):
     return gl * gr, gr * sl + sr
 
 
-def _rank_is(dist, axis, device, pred):
-    """``pred(axis index)`` as a 0-d bool tensor on ``device``: the mask a
-    rank selects with (``torch.where``), so every rank runs the same
-    graph."""
-    return torch.full((), bool(pred(dist.axis_index(axis))),
-                      dtype=torch.bool, device=device)
+def rank_mask(cond: bool, device):
+    """A rank's ``cond`` as a 0-d bool tensor on ``device``, to select
+    with (``torch.where``) where a Python ``if`` would give the ranks
+    different graphs."""
+    return torch.full((), cond, dtype=torch.bool, device=device)
 
 
 def _select(take, new, old):
@@ -163,26 +162,24 @@ def ring_exclusive_scan(seg, axis: str, axis_size: int, mode: str = "seq",
     def relay(pair, shift):
         return wire_relay(pair, axis, r, shift, code, dist=dist)
 
-    dev = s.device
+    i, dev = dist.axis_index(axis), s.device
     if mode == "log":
         pfx = (g, s)
         d = 1
         while d < r:
             comb = segsum_combine(relay(pfx, d), pfx)
-            pfx = _select(_rank_is(dist, axis, dev, lambda i: i >= d),
-                          comb, pfx)
+            pfx = _select(rank_mask(i >= d, dev), comb, pfx)
             d *= 2
     elif mode == "seq":
         pfx = (g, s)
         for t in range(1, r):
             comb = segsum_combine(relay(pfx, 1), (g, s))
-            pfx = _select(_rank_is(dist, axis, dev, lambda i: i >= t),
-                          comb, pfx)
+            pfx = _select(rank_mask(i >= t, dev), comb, pfx)
     else:
         raise ValueError(f"unknown ssm_scan_mode {mode!r}")
     # inclusive -> exclusive: take from the left neighbour; rank 0 the
     # identity
-    first = _rank_is(dist, axis, dev, lambda i: i == 0)
+    first = rank_mask(i == 0, dev)
     ge, se = relay(pfx, 1)
     return (torch.where(first, torch.ones_like(ge), ge),
             torch.where(first, torch.zeros_like(se), se))
@@ -208,7 +205,7 @@ def ssd_sequence_sharded(x, dt, a, bmat, cmat, chunk: int, *, axis: str,
     # · h_in)
     cum = torch.cumsum(dt * a, dim=1)  # [B, L, H]
     y_corr = torch.einsum("bln,blh,bhpn->blhp", cmat, torch.exp(cum), se)
-    state_out = local.decay[:, :, None, None] * se + local.state
+    state_out = g * se + local.state
     return local.y + y_corr, state_out
 
 
@@ -232,7 +229,7 @@ def causal_conv1d(x, w, b, *, axis: str, axis_size: int, dist=None):
                              f"{axis_size} needs its dist for the halo")
         prev = dist.ppermute(x[:, -halo:, :], axis,
                              _shift_perm(axis_size, 1))
-        first = _rank_is(dist, axis, x.device, lambda i: i == 0)
+        first = rank_mask(dist.axis_index(axis) == 0, x.device)
         prev = torch.where(first, torch.zeros_like(prev), prev)
     else:
         prev = x.new_zeros((b_, halo, c))

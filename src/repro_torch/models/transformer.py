@@ -599,8 +599,7 @@ def mamba_block(ctx: RunCtx, p, x, cache=None, cache_len=None):
         if ctx.phase == "prefill":
             tail = xbc[:, -(CONV_K - 1):, :]
             if seq_sharded:  # both live on the ring's last rank
-                last = torch.full((), i == r - 1, dtype=torch.bool,
-                                  device=x.device)
+                last = ssm_lib.rank_mask(i == r - 1, x.device)
                 state = dist.psum(torch.where(last, state,
                                               torch.zeros_like(state)), axis)
                 tail = dist.psum(torch.where(last, tail,

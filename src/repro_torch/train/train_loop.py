@@ -16,9 +16,10 @@ The train step is the reference's: each rank's loss over its rows (over
 ``data``) and its sequence block (over the ring, ``tatp``) and its
 gradients (autograd through the TATP rings' explicit dgrad/wgrad, ring
 attention's rounds, the SSD's ring scan, the streamed cross-entropy and
-the collectives' transposes, on the GEMM, attention and SSD kernels), the gradient bookkeeping
-over the token and ring axes (:func:`token_axes`: the count psummed
-over them, each rank's loss ``nll / count + aux / shards``;
+the collectives' transposes, on the GEMM, attention and SSD kernels),
+the gradient bookkeeping over the token and ring axes
+(:func:`token_axes`: the count psummed over them, each rank's loss
+``nll / count + aux / shards``;
 :func:`reduce_model_axis_grads`: ring-replicated leaves psummed over the
 ring), then AdamW over the data axes (ZeRO-1 shards its state over
 ``data``).  Every rank takes its part of the global batch
