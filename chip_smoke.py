@@ -84,7 +84,7 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    with its layer and probability margin, and fails the phase unless the
    margin is below ``NEAR_TIE``);
 5. main paths — ``repro_torch.launch.serve`` one-shot, bf16, batch 4,
-   32 generated tokens: deepseek-7b (30 layers, prompt 128), mamba2-780m
+   16 generated tokens (32 until phase 14 needed the time): deepseek-7b (30 layers, prompt 128), mamba2-780m
    (48 layers, prompt 512 = two SSD chunks), zamba2-2.7b (54 layers,
    prompt 512), olmoe-1b-7b (16 layers, prompt 128), gemma2-9b (42
    layers, batch 1 x prompt 8192), gemma-7b (28 layers, prompt 128),
@@ -152,7 +152,7 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    --auto-plan``, ``serve_engine``) of deepseek-7b at its 30 layers,
    bf16, on ``TorchServeExecutor`` and a wall clock, 4 decode slots, 128
    prompt and 32 new tokens a request, each run with a fresh plan cache
-   (``ENGINE_RUNS``).  (a) Fault-free: 60 Poisson requests at 1.25 a
+   (``ENGINE_RUNS``).  (a) Fault-free: 40 Poisson requests at 1.25 a
    second (below the ~1.8 a second the slots serve; 100 until phase 14
    needed the time, so no TTFT p99 now), every request
    finished with its 32 tokens, and exactly 210 GEMM and 30 flash
@@ -202,8 +202,9 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    of one tree): prefill logits and caches within rtol = atol = 1e-3 (the
    parity phase's), identical tokens, and the fp8 and bf16 wires on the
    prefill within RING_WIRE_TOL; then the 30-layer bf16 serve through
-   ``launch.serve``'s ``serve`` under ``--auto-plan`` (prompt 128, 8 new
-   tokens, the first 9 compared with phase 5's): mesh (1, 4), exactly 840 GEMM launches (``wgmma``) and 30 /
+   ``launch.serve``'s ``serve`` under ``--auto-plan`` (prompt 128, 4 new
+   tokens, the first 5 compared with phase 5's): mesh (1, 4), exactly
+   840 GEMM launches (``wgmma``) and 30 /
    60 / 90 / 120 flash launches (``mma``) a rank, the prefill's last
    logits within RING_BF16_TOL of phase 5's degree-1 run of the same
    weights and its first tokens identical (but at a near tie), with
@@ -228,7 +229,8 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    fp32 floor where larger (the degree-1 run again with every kernel
    replaced by its plain version; the zero-initialised norm scales),
    exact launches on ``simt``; then ``launch.train --mesh 1
-   4 --layers 4`` in bf16 (batch 4 x seq 512, remat, 3 steps): exact
+   4 --layers 4`` in bf16 (batch 4 x seq 512, remat, 2 steps; the fp32
+   runs 2 steps too, 3 until phase 14 needed the time): exact
    GEMM launches a rank by layout, flash forwards and backwards (every
    backward with an outside delta), every one on ``wgmma`` / ``mma``, the
    first loss within 1e-2 of phase 5's degree-1 run on the same weights
@@ -372,6 +374,10 @@ PATHS = {
         ssd_bwd=0)),
 }
 BATCH, GEN = 4, 32
+# phase 5's serves decode SERVE_GEN tokens (GEN, 32, until phase 14 needed
+# the time; ms/token is an average either way, and phase 11 compares the
+# first 5); phase 8's keep GEN, the length its plans are solved for
+SERVE_GEN = 16
 # the kernel path every bf16 main-path launch must take (every width here
 # is a multiple of 8, so TMA describes each GEMM operand)
 MAIN_PATH_KERNEL = {"tatp_matmul": "wgmma", "flash_attention": "mma",
@@ -2079,7 +2085,7 @@ def phase_main_path(torch, arch, keep=None):
     need(prefill_launches(cfg) == spec["launches"],
          f"{arch}: layer pattern gives {prefill_launches(cfg)}")
     bsz = spec.get("batch", BATCH)
-    run = dict(batch=bsz, prompt_len=spec["prompt_len"], gen=GEN)
+    run = dict(batch=bsz, prompt_len=spec["prompt_len"], gen=SERVE_GEN)
     args = Namespace(arch=arch, reduced=False, device="cuda", layers=cut,
                      **run)
     t0 = time.perf_counter()
@@ -2107,7 +2113,7 @@ def phase_main_path(torch, arch, keep=None):
         need(paths[name][path] == launches[name],
              f"{arch}: {name} launches by path {paths[name]}, want all "
              f"{launches[name]} on {path}")
-    need(res["generated_shape"] == [bsz, GEN + 1],
+    need(res["generated_shape"] == [bsz, SERVE_GEN + 1],
          f"generated shape {res['generated_shape']}")
     need(all(0 <= t < cfg.vocab_size for t in res["sample"]),
          f"token out of range in {res['sample']}")
@@ -2165,7 +2171,7 @@ def phase_main_path(torch, arch, keep=None):
     if cfg.is_moe:
         out["expert_products"] = expert_products(torch, cfg)
     log(f"[main path] {arch} {cfg.n_layers} layers bf16 batch {bsz} "
-        f"prompt {run['prompt_len']} gen {GEN}: {json.dumps(out)}")
+        f"prompt {run['prompt_len']} gen {SERVE_GEN}: {json.dumps(out)}")
     del params, caches, state, big
     release(torch)
     return launches, paths
@@ -2963,9 +2969,9 @@ def phase_plan_launch(torch):
 
 # engine-mode serving (``launch.serve --serve``): deepseek-7b at its 30
 # layers, bf16, 4 decode slots, 128 prompt tokens and 32 new tokens each.
-# The measured load: 60 open-loop requests at 1.25 a second, below the
+# The measured load: 40 open-loop requests at 1.25 a second, below the
 # ~1.8 a second that 4 slots of ~2 s serve, so the queue has a steady
-# state (100 until phase 14 needed the time; 60 samples back no TTFT
+# state (100 until phase 14 needed the time; 40 samples back no TTFT
 # p99, P99_MIN_SAMPLES, only the p50 and the max); then the same rate with a
 # die fault at 2.0 s on the engine's clock (``--fault-at``, 1/8 of the
 # dies, seeded) over 20 requests: the replan and the migration land in
@@ -2975,7 +2981,7 @@ def phase_plan_launch(torch):
 # so TTFT grows with each request (queueing, not the server)
 ENGINE = dict(arch="deepseek-7b", max_batch=4, prompt_len=128, max_new=32,
               fault_at=2.0)
-ENGINE_LOAD = dict(requests=60, rate=1.25)
+ENGINE_LOAD = dict(requests=40, rate=1.25)
 ENGINE_FAULT_LOAD = dict(ENGINE_LOAD, requests=20)
 ENGINE_RUNS = (("engine", ENGINE_LOAD, False),
                ("engine fault", ENGINE_FAULT_LOAD, True),
@@ -3649,11 +3655,12 @@ RING_PARITY = dict(arch="deepseek-7b", n_layers=2, batch=4, prompt_len=128,
 # 1/16 (e4m3 rounds a streamed weight by up to 1/16 of its value, bf16 by
 # 1/256 of it)
 RING_WIRE_TOL = {"bf16": 0.30 / 16, "fp8": 0.30}
-# the bf16 serve through the entry point: 30 layers, --auto-plan; 8 new
-# tokens (32 until the train ring's phase 12 needed the time: each ring
-# decode token is ~1.2-2 s of host-staged collectives, and ms/token is an
-# average either way; the plan is the same (1, 1, 1, 4) for 136 tokens)
-RING_SERVE = dict(arch="deepseek-7b", batch=4, prompt_len=128, gen=8)
+# the bf16 serve through the entry point: 30 layers, --auto-plan; 4 new
+# tokens (32 until the train ring's phase 12 needed the time, 8 until
+# phase 14 did: each ring decode token is ~1.2-2 s of host-staged
+# collectives, and ms/token is an average either way; the plan is the
+# same (1, 1, 1, 4) for 132 tokens)
+RING_SERVE = dict(arch="deepseek-7b", batch=4, prompt_len=128, gen=4)
 # the 30-layer bf16 prefill's last logits against the degree-1 run's
 # (relative L2): the GEMM tiles are the degree-1 products' columns, but
 # each ring round's flash output is rounded to bf16 before the fp32 merge
@@ -4107,14 +4114,15 @@ def phase_ring(torch, randn, degree1):
 # each train step within step_s of wall clock, the ranks within timeout_s
 RING_TRAIN = dict(ranks=4, backend="gloo", timeout_s=420, step_s=60)
 # fp32 parity (TF32 off): deepseek-7b at full width, 2 layers, batch 4 x
-# seq 128, 3 steps from the shards of one tree on each mesh, against the
+# seq 128, 2 steps (3 until phase 14 needed the time) from the shards of
+# one tree on each mesh, against the
 # degree-1 run of that tree on the card.  The clip is off (grad_clip
 # 1e30) on both sides: above model degree 1 each rank clips by the norm of
 # its own shards, as the reference's AdamW does (it psums the norm over
 # the data axes only), so with the clip on the ranks' updates differ from
 # degree 1's by design; the grad norms are held per shard instead
 RING_TRAIN_PARITY = dict(arch="deepseek-7b", n_layers=2, batch=4, seq=128,
-                         steps=3, seed=2, meshes=((1, 4), (2, 2)),
+                         steps=2, seed=2, meshes=((1, 4), (2, 2)),
                          grad_clip=1e30)
 # relative: each step's loss and grad norm, each leaf's final parameters
 # (relative L2) -- or, for a leaf, RING_TRAIN_FLOOR times the rel L2 that
@@ -4131,7 +4139,7 @@ RING_TRAIN_FLOOR = 4.0
 # bf16 through launch.train --mesh 1 4 --layers 4: phase 5's deepseek-7b
 # train run (seed 0, batch 4 x seq 512, remat) over the ring
 RING_TRAIN_BF16 = dict(arch="deepseek-7b", layers=TRAIN["n_layers"],
-                       batch=TRAIN["batch"], seq=TRAIN["seq"], steps=3,
+                       batch=TRAIN["batch"], seq=TRAIN["seq"], steps=2,
                        mesh=(1, 4))
 RING_TRAIN_BF16_TOL = 1e-2  # the first step's loss against degree 1's
 # one rank's rows at (1, 4): batch x seq / 4, the GEMM tiles' M
