@@ -30,13 +30,18 @@ Every group has a timeout (:data:`GROUP_TIMEOUT_S`), so a lost rank fails
 the run instead of hanging it.
 
 Gradients: under autograd :meth:`Dist.ppermute` (and
-:meth:`Dist.ppermute_many`) and :meth:`Dist.psum` are differentiable, with
-the transposes jax 0.9 gives them under ``shard_map(check_vma=False)``
-(checked on fake devices): a ``ppermute``'s cotangent travels the inverse
-permutation, and a ``psum``'s cotangent is psummed.  Every rank runs the
-same graph, so the backward's collectives meet in the same order on all
-of them.  The other collectives are not differentiated (the optimizer's
-run under ``no_grad``).
+:meth:`Dist.ppermute_many`), :meth:`Dist.psum` and :meth:`Dist.all_to_all`
+are differentiable, with the transposes jax 0.9 gives them under
+``shard_map(check_vma=False)`` (checked on fake devices): a
+``ppermute``'s cotangent travels the inverse permutation, a ``psum``'s
+cotangent is psummed, and an ``all_to_all``'s cotangent takes the same
+all-to-all back.  ``megatron``'s tensor parallelism takes Megatron's two
+conjugate operators instead of ``psum`` (:meth:`Dist.psum_id_bwd`: psum
+forward, identity backward; :meth:`Dist.id_psum_bwd`: identity forward,
+psum backward), so its gradients are the degree-1 ones.  Every rank runs
+the same graph, so the backward's collectives meet in the same order on
+all of them.  The other collectives are not differentiated (the
+optimizer's run under ``no_grad``).
 """
 
 from __future__ import annotations
@@ -158,6 +163,45 @@ class _PSum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return None, None, ctx.dist._all_reduce(g, ctx.axis, "SUM")
+
+
+class _PSumIdBwd(torch.autograd.Function):
+    """:meth:`Dist.psum_id_bwd`: psum forward, the cotangent as it is."""
+
+    @staticmethod
+    def forward(ctx, dist, axis, x):
+        return dist._all_reduce(x, axis, "SUM")
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None, g
+
+
+class _IdPSumBwd(torch.autograd.Function):
+    """:meth:`Dist.id_psum_bwd`: ``x`` forward, the cotangent psummed."""
+
+    @staticmethod
+    def forward(ctx, dist, axis, x):
+        ctx.dist, ctx.axis = dist, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None, ctx.dist._all_reduce(g, ctx.axis, "SUM")
+
+
+class _AllToAll(torch.autograd.Function):
+    """:meth:`Dist.all_to_all` under autograd: the cotangent takes the same
+    all-to-all (it is its own transpose)."""
+
+    @staticmethod
+    def forward(ctx, dist, axis, x):
+        ctx.dist, ctx.axis = dist, axis
+        return dist._all_to_all_raw(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None, ctx.dist._all_to_all_raw(g, ctx.axis)
 
 
 def _bytes(t: torch.Tensor) -> torch.Tensor:
@@ -321,6 +365,59 @@ class Dist:
                 and x.requires_grad):
             return _PSum.apply(self, axis, x)
         return self._all_reduce(x, axis, "SUM")
+
+    def psum_id_bwd(self, x, axis: str):
+        """``psum`` over ``axis`` whose backward passes the cotangent on
+        unchanged (Megatron's all-reduce after a row-parallel product):
+        where every rank's copy of the result feeds the same replicated
+        loss, each rank's cotangent is already the whole one."""
+        if (self.axis_size(axis) > 1 and torch.is_grad_enabled()
+                and x.requires_grad):
+            return _PSumIdBwd.apply(self, axis, x)
+        return self._all_reduce(x, axis, "SUM")
+
+    def id_psum_bwd(self, x, axis: str):
+        """``x`` itself, whose cotangent is psummed over ``axis`` in the
+        backward (Megatron's identity before a column-parallel group): a
+        replicated activation that each rank multiplies by its own block
+        gathers every block's part of its gradient."""
+        if (self.axis_size(axis) > 1 and torch.is_grad_enabled()
+                and x.requires_grad):
+            return _IdPSumBwd.apply(self, axis, x)
+        return x
+
+    def all_to_all(self, x, axis: str):
+        """``lax.all_to_all(x, axis, split_axis=0, concat_axis=0)``: ``x``
+        is ``[axis size, ...]``; block ``j`` goes to the axis member ``j``,
+        and row ``j`` of the result is what member ``j`` sent this rank
+        (gloo's ``all_to_all_single``, staged as the other collectives;
+        differentiable, :class:`_AllToAll`)."""
+        if (self.axis_size(axis) > 1 and torch.is_grad_enabled()
+                and x.requires_grad):
+            return _AllToAll.apply(self, axis, x)
+        return self._all_to_all_raw(x, axis)
+
+    def _all_to_all_raw(self, x, axis: str):
+        r = self.axis_size(axis)
+        if x.shape[0] != r:
+            raise ValueError(f"all_to_all needs dim 0 of size {r}, got "
+                             f"{tuple(x.shape)}")
+        if r == 1:
+            return x.clone()
+        x = x.contiguous()
+        nbytes = x.numel() * x.element_size()
+        out = torch.empty_like(x)
+        t0 = self._clock(x)
+        staged = self._staged(x)
+        send, recv = _bytes(x), _bytes(out)
+        if staged:
+            send = self.stage.buffer("a2a_send", nbytes).copy_(send)
+            recv = self.stage.buffer("a2a_recv", nbytes)
+        tdist.all_to_all_single(recv, send, group=self.groups[axis].group)
+        if staged:
+            _bytes(out).copy_(recv)
+        self._tick(x, t0, nbytes)
+        return out
 
     def psum_scatter(self, x, axis: str):
         """``lax.psum_scatter(x, axis, scatter_dimension=0, tiled=False)``:

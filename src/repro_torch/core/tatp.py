@@ -289,13 +289,18 @@ class _TatpMatmul(torch.autograd.Function):
     and ``dw`` cast to w's."""
 
     @staticmethod
-    def forward(ctx, x, w, axis, axis_size, bidirectional, wire, dot, dist):
+    def forward(ctx, x, w, axis, axis_size, bidirectional, wire, dot, dist,
+                save):
         ctx.save_for_backward(x, w)
         ctx.cfg = (axis, axis_size, bidirectional, wire, dot, dist)
+
+        def run():
+            return ag_matmul_stream_w(x, w, axis, axis_size,
+                                      bidirectional=bidirectional, dot=dot,
+                                      wire=wire, dist=dist)
+
         # tatp_outputs saves y: the reference's "tatp_y"
-        return remat.saved_or_run("linear", lambda: ag_matmul_stream_w(
-            x, w, axis, axis_size, bidirectional=bidirectional, dot=dot,
-            wire=wire, dist=dist))
+        return remat.saved_or_run("linear", run) if save else run()
 
     @staticmethod
     def backward(ctx, dy):
@@ -312,17 +317,21 @@ class _TatpMatmul(torch.autograd.Function):
             dw = wgrad_rs(x, dy, axis, axis_size,
                           bidirectional=bidirectional, dot=dot,
                           dist=dist).to(w.dtype)
-        return dx, dw, None, None, None, None, None, None
+        return dx, dw, None, None, None, None, None, None, None
 
 
 def tatp_matmul(x, w, axis: str, axis_size: int, bidirectional: bool = True,
-                wire: str = "native", dot: Dot = tatp_dot, dist=None):
+                wire: str = "native", dot: Dot = tatp_dot, dist=None,
+                save: bool = True):
     """TATP streamed linear ``y = x @ W_full`` with the explicit dgrad and
     wgrad schedules as its backward.  Without autograd (no grad mode, or
-    no input that requires grad) it is the forward schedule alone."""
+    no input that requires grad) it is the forward schedule alone.
+    ``save``: the ``tatp_outputs`` policy keeps the output (as the
+    reference's ``"tatp_y"`` name); False for a product it does not
+    name."""
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return _TatpMatmul.apply(x, w, axis, axis_size, bidirectional, wire,
-                                 dot, dist)
+                                 dot, dist, save)
     return ag_matmul_stream_w(x, w, axis, axis_size,
                               bidirectional=bidirectional, dot=dot,
                               wire=wire, dist=dist)

@@ -45,8 +45,12 @@ serves its sequence block of the prompts; rank 0 prints the JSON::
         -m repro_torch.launch.serve --arch deepseek-7b --auto-plan \
         --batch 4 --prompt-len 128 --gen 32
 
-The prompt length must be a multiple of the ring degree.  Engine mode
-over several ranks is ROADMAP.md item A3e.
+The prompt length must be a multiple of the ring degree.  MoE models
+serve on the ring too (``--arch olmoe-1b-7b --mesh 1 4``: each rank holds
+its experts, the slots reach them by all-to-all).  A plan that prescribes
+``megatron`` or ``fsdp`` above model degree 1 raises before the mesh is
+built: the reference cannot decode under either (ROADMAP.md C5).  Engine
+mode over several ranks is ROADMAP.md item A3e.
 
 Engine mode (``--serve``, the counterpart of the reference's
 ``serve_engine``): compile (or load) a
@@ -86,9 +90,9 @@ from repro_torch.configs.base import ParallelConfig
 from repro_torch.core.dist import (Dist, make_mesh_dist, resolve_device,
                                    world_from_env)
 from repro_torch.launch.mesh import (join_world, make_plan_dist,
-                                     resolve_rank_plan)
+                                     plan_mesh_shape, resolve_rank_plan)
 from repro_torch.models import lm
-from repro_torch.models.transformer import init_params
+from repro_torch.models.transformer import check_strategy, init_params
 from repro_torch.train.data import stub_inputs
 from repro_torch.train.train_loop import (batch_rows, check_prompt_len,
                                           make_serve_fns)
@@ -130,6 +134,10 @@ def serve(args, params=None, keep_tokens: bool = False,
         if world_from_env()[0] == 0:
             print(plan.summary())
         par = replace(plan.parallel_config(), remat=False)
+        # the one-shot serve decodes: what the reference cannot run there
+        # raises before the mesh is built
+        check_strategy(cfg, par.strategy, plan_mesh_shape(
+            plan, world_from_env()[1])[1], "decode")
         dist = make_plan_dist(plan, device)
     else:
         par = ParallelConfig(strategy="tatp", remat=False)

@@ -78,8 +78,20 @@ elastically, with the plan-hash warning where the plan changed)::
         --steps 8 --ckpt-dir ck --ckpt-every 2        # on another mesh
 
 ``--wafers N --stage k`` over several ranks runs the stage on the stage
-plan's mesh for the world's size.  A strategy other than ``tatp`` raises
-above model degree 1 (A3d).
+plan's mesh for the world's size.
+
+``--strategy megatron`` above model degree 1 trains the reference's
+tensor-parallel baseline (the tokens replicated over the ring, each rank
+its heads and column / row blocks; its gradients the degree-1 ones)::
+
+    $torchrun -m repro_torch.launch.train --reduced --device cpu \
+        --strategy megatron --mesh 1 4 --steps 3 --batch 4 --seq 64
+
+What the reference itself cannot run (``fsdp`` above degree 1;
+``megatron`` above it with MoE or Mamba-2 layers, or fewer replicated kv
+heads than ranks) raises ``NotImplementedError`` naming ROADMAP.md C5:
+from the flags before the rank joins the world, from a plan once it
+resolves, before the mesh is built.
 """
 
 from __future__ import annotations
@@ -92,14 +104,15 @@ from dataclasses import replace
 import numpy as np
 import torch
 
-from repro_torch import not_ported
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.configs.base import ParallelConfig, ShapeConfig
 import torch.distributed as tdist
 
 from repro_torch.core.dist import Dist, make_mesh_dist, world_from_env
 from repro_torch.launch.mesh import (first_resolves, join_world,
-                                     make_plan_dist, resolve_rank_plan)
+                                     make_plan_dist, plan_mesh_shape,
+                                     resolve_rank_plan)
+from repro_torch.models.transformer import check_strategy
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.data import SyntheticDataset
 from repro_torch.train.train_loop import make_train_step
@@ -108,7 +121,7 @@ from repro_torch.train.train_loop import make_train_step
 def build(cfg, dist: Dist, par: ParallelConfig, batch: int, seq: int):
     shape = ShapeConfig("cli", "train", seq, batch)
     return make_train_step(cfg, par, dist, shape), SyntheticDataset(
-        cfg, shape, dist)
+        cfg, shape, dist, strategy=par.strategy)
 
 
 def setup(args):
@@ -119,11 +132,10 @@ def setup(args):
         cfg = replace(cfg, n_layers=args.layers)
     plan = None
     rank, world, _ = world_from_env()
-    if (world > 1 and not (args.plan or args.auto_plan or args.wafers > 1)
-            and args.strategy != "tatp" and len(args.mesh) == 2
-            and args.mesh[1] > 1):
-        raise not_ported(f"strategy {args.strategy!r} at model degree "
-                         f"{args.mesh[1]}", "A3d")
+    if world > 1 and not (args.plan or args.auto_plan or args.wafers > 1):
+        # what the reference cannot run raises before the rank joins
+        check_strategy(cfg, args.strategy,
+                       args.mesh[1] if len(args.mesh) == 2 else 1)
     device = join_world(args)
     if args.wafers > 1:
         # multi-wafer pipeline launch: this process group runs ONE stage
@@ -143,8 +155,10 @@ def setup(args):
                              f"pp={plan.pp}")
         stage_plan = plan.stages[args.stage]
         cfg = replace(cfg, n_layers=plan.stage_layers[args.stage])
-        dist = make_plan_dist(stage_plan, device)
         par = stage_plan.parallel_config()
+        check_strategy(cfg, par.strategy,
+                       plan_mesh_shape(stage_plan, world)[1])
+        dist = make_plan_dist(stage_plan, device)
         if args.reduced and par.remat:
             par = replace(par, remat=False)
     elif args.plan or args.auto_plan:
@@ -153,8 +167,9 @@ def setup(args):
                                  failed_dies=args.failed_dies)
         if rank == 0:
             print(plan.summary())
-        dist = make_plan_dist(plan, device)
         par = plan.parallel_config()
+        check_strategy(cfg, par.strategy, plan_mesh_shape(plan, world)[1])
+        dist = make_plan_dist(plan, device)
         if args.reduced and plan.remat:
             # reduced smoke runs never need remat, whatever the plan says
             par = replace(par, remat=False)

@@ -37,7 +37,17 @@ prefix (replicated over the ring, each rank taking its positions), zigzag
 ring attention (``ParallelConfig(zigzag=True)`` on a batch permuted by
 ``attention.zigzag_permutation``), ``remat_policy="tatp_outputs"`` and
 the Mamba-2 slots (the sequence-sharded SSD and the conv halo; their
-decode state head-sharded) run on the ring as in the reference.
+decode state head-sharded) and the MoE slots (expert-parallel, their
+slots moved by all-to-all) run on the ring as in the reference.
+
+``megatron`` above degree 1 trains and prefills with the tokens
+replicated over ``model``: each rank embeds the ids in its vocab rows and
+the contributions psum (:meth:`Dist.psum_id_bwd`); the head gives the
+rank's vocab block (its input through :meth:`Dist.id_psum_bwd`) and
+:func:`vocab_parallel_xent` reduces the statistics over the ring; prefill
+takes the last position where it is and returns each rank's kv heads of
+the cache.  Its decode, like ``fsdp`` above degree 1, is a path the
+reference cannot run (``transformer.check_strategy``, ROADMAP.md C5).
 """
 
 from __future__ import annotations
@@ -48,12 +58,12 @@ from functools import partial
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch import not_ported
 from repro_torch.core.remat import SavedOutputs
 from repro_torch.models.common import rms_norm, softcap
 from repro_torch.models.transformer import (CONV_K, RunCtx, _unit_and_reps,
-                                            attn_block, mamba_block,
-                                            mlp_block, moe_block)
+                                            attn_block, check_strategy,
+                                            mamba_block, mlp_block,
+                                            moe_block)
 
 
 def _vocab_contrib(embed, tokens, off):
@@ -93,12 +103,14 @@ def embed_tokens(ctx: RunCtx, embed, tokens, prefix_embeds=None):
     counts positions from a decode step's offset, where no prefix is
     passed.)"""
     cfg, r = ctx.cfg, ctx.r
-    seq_sharded = r > 1 and ctx.phase != "decode"
+    seq_sharded = (ctx.par.strategy == "tatp" and r > 1
+                   and ctx.phase != "decode")
     if seq_sharded:
         x = streamed_vocab_embed(ctx, embed, tokens)
-    elif r > 1:  # one decode token, replicated over the ring
+    elif r > 1:  # tokens replicated over the ring (megatron, decode)
         off = ctx.dist.axis_index(ctx.axis) * embed.shape[0]
-        x = ctx.dist.psum(_vocab_contrib(embed, tokens, off), ctx.axis)
+        x = ctx.dist.psum_id_bwd(_vocab_contrib(embed, tokens, off),
+                                 ctx.axis)
     else:
         x = embed[tokens]
     if cfg.scale_embed:
@@ -169,6 +181,8 @@ def lm_head_logits(ctx: RunCtx, params, x):
     keep a plain product of fp32 upcasts."""
     cfg = ctx.cfg
     w = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+    if ctx.r > 1:  # a replicated input to this rank's vocab columns
+        x = ctx.dist.id_psum_bwd(x, ctx.axis)
     if ctx.phase == "train":
         lead = x.shape[:-1]
         logits = _HeadMatmul.apply(x.reshape(-1, x.shape[-1]), w, ctx.dot)
@@ -179,23 +193,34 @@ def lm_head_logits(ctx: RunCtx, params, x):
 
 
 def vocab_parallel_xent(ctx: RunCtx, logits, labels, valid):
-    """Cross-entropy at ring degree 1: the whole padded vocab is local.
+    """Cross-entropy of ring-*replicated* tokens (``megatron``, or one
+    device) over vocab-parallel logits.
 
-    logits: [B, s, Vp] fp32; labels/valid: [B, s].  Padded columns are
-    masked to -1e30; the max shift is a stop-gradient, as the reference's.
-    Returns (sum_nll, sum_count).  Above degree 1 the reference takes it
-    for ring-replicated tokens (``megatron``, ROADMAP.md A3d); ``tatp``
-    takes :func:`streamed_vocab_xent`."""
-    cfg = ctx.cfg
-    if ctx.r != 1:
-        raise not_ported("the vocab-parallel cross-entropy over the ring "
-                         "(ring-replicated tokens)", "A3d")
-    cols = torch.arange(logits.shape[-1], device=logits.device)
+    logits: [B, s, Vp/R] fp32, this rank's vocab block; labels/valid:
+    [B, s].  Padded columns are masked to -1e30; the max shift is a
+    stop-gradient, as the reference's.  Above degree 1 the shift is the
+    pmax of the blocks' maxima and the sums of exponentials and the
+    target logits psum over the ring (:meth:`Dist.psum_id_bwd`: every
+    rank's loss is the whole one, so each block's cotangent is whole).
+    Returns (sum_nll, sum_count).  ``tatp`` above degree 1 takes
+    :func:`streamed_vocab_xent`."""
+    cfg, r, dist = ctx.cfg, ctx.r, ctx.dist
+    vloc = logits.shape[-1]
+    off = dist.axis_index(ctx.axis) * vloc if r > 1 else 0
+    cols = off + torch.arange(vloc, device=logits.device)
     logits = torch.where(cols < cfg.vocab_size, logits, -1e30)
     m = logits.amax(dim=-1).detach()
+    if r > 1:
+        m = dist.pmax(m, ctx.axis)
     se = torch.exp(logits - m[..., None]).sum(dim=-1)
+    if r > 1:
+        se = dist.psum_id_bwd(se, ctx.axis)
     lse = torch.log(se) + m
-    tgt = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    in_range = (labels >= off) & (labels < off + vloc)
+    local = torch.where(in_range, labels - off, 0)
+    tgt = torch.gather(logits, -1, local[..., None].long())[..., 0]
+    if r > 1:
+        tgt = dist.psum_id_bwd(torch.where(in_range, tgt, 0.0), ctx.axis)
     nll = (lse - tgt) * valid
     return nll.sum(), valid.float().sum()
 
@@ -264,6 +289,7 @@ def loss_fn(ctx: RunCtx, params, batch):
     count, aux_total)."""
     cfg = ctx.cfg
     ctx = replace(ctx, phase="train")
+    check_strategy(cfg, ctx.par.strategy, ctx.r, ctx.phase)
     enc_out = _encoder(ctx, params, batch)
     x = embed_tokens(ctx, params["embed"], batch["tokens"],
                      batch.get("prefix_embeds"))
@@ -410,17 +436,20 @@ def prefill(ctx: RunCtx, params, batch):
 
     Above degree 1 the batch holds this rank's sequence block, the caches
     its block of positions, and the logits its vocab block [B, 1, Vp/R]
-    (the final position lives on the ring's last rank, whose activation
-    every rank takes by a psum)."""
+    (under ``tatp`` the final position lives on the ring's last rank,
+    whose activation every rank takes by a psum; under ``megatron`` the
+    batch is the whole sequence, replicated over the ring, and the caches
+    hold this rank's kv heads)."""
     cfg = ctx.cfg
     ctx = replace(ctx, phase="prefill")
+    check_strategy(cfg, ctx.par.strategy, ctx.r, ctx.phase)
     enc_out = _encoder(ctx, params, batch)
     x = embed_tokens(ctx, params["embed"], batch["tokens"],
                      batch.get("prefix_embeds"))
     x, _, caches = _stack(ctx, params, x, enc_out=enc_out)
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
     last = x[:, -1:, :]
-    if ctx.r > 1:
+    if ctx.par.strategy == "tatp" and ctx.r > 1:
         if ctx.dist.axis_index(ctx.axis) != ctx.r - 1:
             last = torch.zeros_like(last)
         last = ctx.dist.psum(last, ctx.axis)
@@ -438,6 +467,7 @@ def decode_step(ctx: RunCtx, params, tokens, caches, cache_len):
     reference's tie-break."""
     cfg = ctx.cfg
     ctx = replace(ctx, phase="decode")
+    check_strategy(cfg, ctx.par.strategy, ctx.r, ctx.phase)
     x = embed_tokens(ctx, params["embed"], tokens)
     x, _, caches = _stack(ctx, params, x, caches=caches, cache_len=cache_len)
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)

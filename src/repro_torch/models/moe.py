@@ -1,11 +1,14 @@
-"""Mixture-of-Experts FFN (counterpart of ``repro.models.moe``) at expert
-degree 1: every expert is local.
+"""Mixture-of-Experts FFN (counterpart of ``repro.models.moe``) with
+expert parallelism over the TATP ring axis: experts are sharded
+contiguously over ``model`` (global expert ``e`` lives on rank ``e //
+(E / R)``; at degree 1 every expert is local).
 
-Dispatch is GShard-style with a fixed per-expert capacity, as the
+Dispatch is GShard-style with a fixed per-(rank, expert) capacity, as the
 reference's::
 
-  route (top-k) -> slot assignment via cumsum -> scatter into [E, C, D]
-  -> per-expert batched FFN -> weighted combine.
+  route (top-k) -> slot assignment -> scatter into [E, C, D]
+  -> all_to_all -> per-expert batched FFN -> all_to_all back
+  -> weighted combine.
 
 Tokens above capacity are dropped; the load-balance auxiliary loss keeps
 the router near-uniform so drops stay rare.  Routing is flat top-k over
@@ -16,8 +19,12 @@ computes them with ``jnp.einsum`` outside any Pallas kernel, with its
 dtype flow (:func:`expert_bmm`): exact products accumulated and returned
 in fp32, as its ``preferred_element_type=float32`` einsums.  The combine
 sums each token's k contributions as a reduction over k (no scatter-add),
-so forward and backward are deterministic.  The all-to-all over the ring
-(``axis_size > 1``) is ROADMAP.md item A3d.
+so forward and backward are deterministic.  Above degree 1 the two
+all-to-alls are :meth:`repro_torch.core.dist.Dist.all_to_all` in the
+reference's layout (``[R, E / R, C, D]`` out, ``[E / R, R * C, D]`` into
+the expert products), differentiable, so the expert shards gather every
+rank's tokens' gradients; the capacity and the load-balance loss are each
+rank's own, from its own tokens, as the reference's.
 """
 
 from __future__ import annotations
@@ -26,7 +33,6 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch import not_ported
 from repro_torch.models.common import act_fn, is_gated
 
 
@@ -131,14 +137,21 @@ def expert_bmm(a, b):
 
 def moe_ffn(x, params, *, n_experts: int, top_k: int, act: str,
             axis: str, axis_size: int, capacity_factor: float = 1.25,
-            routing: list | None = None, layer: int = 0) -> MoEOut:
-    """x: [B, S, D].  params: ``router [D, E]``, ``w_gate/w_up [E, D, F]``,
-    ``w_down [E, F, D]``.  ``routing``, if given, gets this call's
-    :class:`Routing` appended, labelled with ``layer`` (for checks of the
-    router's choices)."""
-    if axis_size > 1:
-        raise not_ported("the MoE all-to-all over the ring (expert "
-                         "parallelism)", "A3d")
+            routing: list | None = None, layer: int = 0,
+            dist=None) -> MoEOut:
+    """x: [B, S, D], this rank's tokens.  params: ``router [D, E]``
+    (replicated), ``w_gate/w_up [E_loc, D, F]``, ``w_down [E_loc, F, D]``
+    (this rank's ``E_loc = E / axis_size`` experts).  Above degree 1
+    ``dist`` moves the slots to their experts' ranks and back over
+    ``axis``.  ``routing``, if given, gets this call's :class:`Routing`
+    appended, labelled with ``layer`` (for checks of the router's
+    choices)."""
+    r = axis_size
+    if r > 1 and (dist is None or n_experts % r):
+        raise ValueError(f"expert parallelism over {r} ranks needs the "
+                         f"Dist and experts ({n_experts}) that divide "
+                         f"over them")
+    e_loc = n_experts // r
     b, s, d = x.shape
     t = b * s
     xf = x.reshape(t, d)
@@ -163,6 +176,12 @@ def moe_ffn(x, params, *, n_experts: int, top_k: int, act: str,
     buf = x.new_zeros((n_experts * cap + 1, d)).index_put((slot,), x_rep)
     toks = buf[:-1].reshape(n_experts, cap, d)
 
+    # dispatch to the experts' owners: row j of the result holds rank j's
+    # slots for this rank's experts
+    if r > 1:
+        toks = dist.all_to_all(toks.reshape(r, e_loc, cap, d), axis)
+        toks = toks.transpose(0, 1).reshape(e_loc, r * cap, d)
+
     # expert computation ---------------------------------------------------
     f = act_fn(act)
     h_in = toks.to(params["w_up"].dtype)
@@ -172,6 +191,11 @@ def moe_ffn(x, params, *, n_experts: int, top_k: int, act: str,
     else:
         hidden = f(up)
     out = expert_bmm(hidden.to(h_in.dtype), params["w_down"]).to(x.dtype)
+
+    # back to the slots' source ranks
+    if r > 1:
+        out = dist.all_to_all(out.reshape(e_loc, r, cap, d).transpose(0, 1),
+                              axis)
 
     # combine ----------------------------------------------------------------
     out = torch.cat([out.reshape(n_experts * cap, d),

@@ -38,12 +38,30 @@ round's tile on the ``dot`` hook) and self-attention the ring attention
 column-parallel: each linear's local block, then an all-gather of the
 columns (:func:`_gather_cols`); the K/V cache stays sequence-sharded.
 
-The ``megatron`` and ``fsdp`` strategies (which plans prescribe, e.g.
-gemma-7b's serve plan) run at model degree 1, where they compute what
-``tatp`` does (:func:`_linear`).  Not ported yet (each raises
-``NotImplementedError`` naming its ROADMAP.md item): expert parallelism
-and the ``megatron``/``fsdp`` strategies above degree 1 (A3d).  The
-Mamba-2 block runs over the ring (:func:`mamba_block`).
+MoE blocks above degree 1 (``tatp``) are expert-parallel: each rank
+holds ``E / R`` experts and the slots reach their owners by an all-to-all
+(:func:`repro_torch.models.moe.moe_ffn`).  The Mamba-2 block runs over
+the ring (:func:`mamba_block`).
+
+``megatron`` above degree 1 (the reference's tensor-parallel baseline):
+the tokens are replicated over ``model``; ``wq`` (with ``wk``/``wv``
+from 16 kv heads up), ``w_up`` and ``w_gate`` are column-parallel and
+``wo`` and ``w_down`` row-parallel, each rank's product one local tile on
+the GEMM hook (the degree-1 TATP linear, no ring), the row-parallel
+output psummed; below 16 kv heads ``wk``/``wv`` are replicated and each
+rank takes its kv group's columns; attention runs over the rank's ``hq /
+R`` heads on the ``attention`` hook, causal over the whole sequence.
+The forward is the reference's; its gradients are the degree-1 ones, by
+Megatron's conjugate operators (:meth:`Dist.id_psum_bwd` at the input of
+each column-parallel group, :meth:`Dist.psum_id_bwd` after each
+row-parallel product), where the reference's psums transpose to psums
+and scale its sharded gradients by R (ROADMAP.md C).  ``megatron`` and
+``fsdp`` at degree 1 compute what ``tatp`` does (:func:`_linear`).
+
+What the reference itself cannot run raises ``NotImplementedError``
+naming ROADMAP.md C5 (:func:`check_strategy`): ``fsdp`` above degree 1,
+and under ``megatron`` above degree 1 the decode, fewer kv heads than
+ranks (below 16), MoE and Mamba-2 layers.
 """
 
 from __future__ import annotations
@@ -340,6 +358,42 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device):
 # ===========================================================================
 
 
+def check_strategy(cfg: ModelConfig, strategy: str, r: int,
+                   phase: str = "train") -> None:
+    """Raise ``NotImplementedError`` naming ROADMAP.md C5 where the
+    reference itself cannot run ``strategy`` at model degree ``r`` in
+    ``phase`` (probed on fake devices): ``fsdp`` above degree 1 (its specs
+    shard the norm scales' dim 0 too), and under ``megatron`` above degree
+    1 the decode (its prefill's head-sharded K/V under a
+    sequence-sharded cache layout), replicated kv heads (below 16) fewer
+    than the ranks, MoE layers (an expert-sharded FFN at axis size 1) and
+    Mamba-2 layers.  There is nothing to port there.  Called before any
+    collective."""
+    if r <= 1 or strategy == "tatp":
+        return
+    what = None
+    if strategy == "fsdp":
+        what = "strategy 'fsdp' above model degree 1"
+    elif strategy != "megatron":
+        raise ValueError(f"unknown strategy {strategy!r}")
+    elif phase == "decode":
+        what = "the 'megatron' decode above model degree 1"
+    elif cfg.is_moe:
+        what = "MoE layers under 'megatron' above model degree 1"
+    elif "M" in cfg.layer_pattern:
+        what = "Mamba-2 layers under 'megatron' above model degree 1"
+    elif cfg.n_kv_heads < 16 and cfg.n_kv_heads < r:
+        what = (f"{cfg.n_kv_heads} replicated kv heads over {r} ranks "
+                f"under 'megatron'")
+    if what is not None:
+        raise not_ported(what, "C5")
+
+
+def _megatron(ctx: RunCtx) -> bool:
+    """Tensor parallelism over the ring (``megatron`` above degree 1)."""
+    return ctx.par.strategy == "megatron" and ctx.r > 1
+
+
 def _linear(ctx: RunCtx, x, w, b=None):
     """Phase-aware linear.  x: [B, s, in].
 
@@ -348,14 +402,14 @@ def _linear(ctx: RunCtx, x, w, b=None):
     fp32 cast to x's dtype (fsdp's weight all-gather and megatron's
     row-parallel psum and head split are identities at r = 1), which is
     the TATP linear's one local tile, so all three take the GEMM hook.
-    Above degree 1 (``tatp``): in decode the rank's column block (the
-    caller gathers the columns, :func:`_gather_cols`, and a bias is sliced
-    to the block); otherwise the TATP ring over the sequence-sharded
-    rows, every round's tile on the GEMM hook.  ``megatron`` and ``fsdp``
-    above degree 1 are ROADMAP.md item A3d."""
-    if ctx.par.strategy != "tatp" and ctx.r > 1:
-        raise not_ported(
-            f"strategy {ctx.par.strategy!r} at model degree {ctx.r}", "A3d")
+    Above degree 1: ``megatron``'s column- or row-parallel product is
+    that one local tile too (the caller psums a row-parallel output);
+    ``tatp`` in decode takes the rank's column block (the caller gathers
+    the columns, :func:`_gather_cols`, and a bias is sliced to the block),
+    otherwise the TATP ring over the sequence-sharded rows, every round's
+    tile on the GEMM hook.  Only ``tatp``'s outputs are saved under the
+    ``tatp_outputs`` policy, as the reference names only those."""
+    check_strategy(ctx.cfg, ctx.par.strategy, ctx.r, ctx.phase)
     if ctx.phase == "decode":
         # plain product (the reference's einsum accumulates in fp32 and
         # casts to x.dtype; cuBLAS accumulates bf16 products in fp32)
@@ -363,9 +417,10 @@ def _linear(ctx: RunCtx, x, w, b=None):
     else:  # tatp streamed on the GEMM hook (one local tile at r = 1)
         bsz, s, din = x.shape
         xf = x.reshape(bsz * s, din)
-        yf = tatp.tatp_matmul(xf, w, ctx.axis, ctx.r, ctx.par.bidirectional,
-                              ctx.par.stream_dtype, dot=ctx.dot,
-                              dist=ctx.dist)
+        tatp_ = ctx.par.strategy == "tatp"
+        yf = tatp.tatp_matmul(xf, w, ctx.axis, ctx.r if tatp_ else 1,
+                              ctx.par.bidirectional, ctx.par.stream_dtype,
+                              dot=ctx.dot, dist=ctx.dist, save=tatp_)
         y = yf.reshape(bsz, s, -1)
     if b is not None:
         if y.shape[-1] != b.shape[0]:  # column-parallel: the local block
@@ -399,16 +454,30 @@ def attn_block(ctx: RunCtx, p, x, *, kind: str, pos_offset, cache=None,
     cache, read at its full length, in ``decode``.  ``bidir_self``:
     non-causal self-attention (the encoder's blocks)."""
     cfg = ctx.cfg
+    check_strategy(cfg, ctx.par.strategy, ctx.r, ctx.phase)
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     window = cfg.sliding_window if kind == "L" else None
     causal = not (is_cross or bidir_self)
     decode = ctx.phase == "decode"
+    megatron = _megatron(ctx)
+    seq_sharded = ctx.par.strategy == "tatp" and ctx.r > 1
+    if megatron:  # this rank's heads
+        hq, hkv = hq // ctx.r, hkv // ctx.r
 
     def proj(x, w, b=None):  # decode gathers the column blocks
         y = _linear(ctx, x, w, b)
         return _gather_cols(ctx, y) if decode else y
 
+    def kv_proj(x, w, b=None):  # megatron: this rank's kv group
+        if megatron and cfg.n_kv_heads < 16:  # replicated wk / wv
+            cols = slice(ctx.dist.axis_index(ctx.axis) * hkv * hd,
+                         (ctx.dist.axis_index(ctx.axis) + 1) * hkv * hd)
+            w, b = w[:, cols], None if b is None else b[cols]
+        return proj(x, w, b)
+
     h = rms_norm(x, p["ln"], cfg.norm_eps)
+    if megatron:  # a column-parallel group's input
+        h = ctx.dist.id_psum_bwd(h, ctx.axis)
     q = _split_heads(proj(h, p["wq"], p.get("bq")), hq, hd)
 
     if decode and is_cross:
@@ -423,8 +492,10 @@ def attn_block(ctx: RunCtx, p, x, *, kind: str, pos_offset, cache=None,
         src = h
         if is_cross:
             src = rms_norm(xattn_kv, p["ln"], cfg.norm_eps)
-        k = _split_heads(proj(src, p["wk"], p.get("bk")), hkv, hd)
-        v = _split_heads(proj(src, p["wv"], p.get("bv")), hkv, hd)
+            if megatron:
+                src = ctx.dist.id_psum_bwd(src, ctx.axis)
+        k = _split_heads(kv_proj(src, p["wk"], p.get("bk")), hkv, hd)
+        v = _split_heads(kv_proj(src, p["wv"], p.get("bv")), hkv, hd)
         new_cache = cache
         if decode:
             # cache_len: scalar (uniform batch) or [B] (per-row positions)
@@ -444,14 +515,13 @@ def attn_block(ctx: RunCtx, p, x, *, kind: str, pos_offset, cache=None,
         else:
             sl = x.shape[1]
             zig = (ctx.par.zigzag and causal and ctx.phase == "train"
-                   and ctx.par.strategy == "tatp" and ctx.r > 1
-                   and sl % 2 == 0)
+                   and seq_sharded and sl % 2 == 0)
             if not is_cross:  # this rank's global positions
                 if zig:
                     qp = pos_offset + attn_lib.zigzag_local_positions(
                         ctx.axis, ctx.r, sl, dist=ctx.dist, device=x.device)
                 else:
-                    i = ctx.dist.axis_index(ctx.axis)
+                    i = ctx.dist.axis_index(ctx.axis) if seq_sharded else 0
                     qp = pos_offset + i * sl + torch.arange(sl,
                                                             device=x.device)
                 q = apply_rope(q, qp, cfg.rope_theta)
@@ -463,7 +533,7 @@ def attn_block(ctx: RunCtx, p, x, *, kind: str, pos_offset, cache=None,
                     bidirectional=ctx.par.bidirectional,
                     wire=ctx.par.stream_dtype, dist=ctx.dist,
                     attention=ctx.attention)
-            elif ctx.r > 1:
+            elif seq_sharded:
                 out = attn_lib.ring_attention(
                     q, k, v, axis=ctx.axis, axis_size=ctx.r, causal=causal,
                     window=window, cap=cfg.attn_softcap,
@@ -482,15 +552,22 @@ def attn_block(ctx: RunCtx, p, x, *, kind: str, pos_offset, cache=None,
 
     b, s = out.shape[:2]
     y = proj(out.reshape(b, s, -1), p["wo"])
+    if megatron:  # row-parallel
+        y = ctx.dist.psum_id_bwd(y, ctx.axis)
     return x + y.to(x.dtype), new_cache
 
 
 def mlp_block(ctx: RunCtx, p, x, prefix="mlp."):
     """Pre-norm MLP with residual; in decode above degree 1 the hidden
-    and output column blocks are gathered, as the reference's."""
+    and output column blocks are gathered, as the reference's; under
+    ``megatron`` above degree 1 ``w_up``/``w_gate`` are column-parallel
+    and ``w_down`` row-parallel, its output psummed."""
     cfg = ctx.cfg
     gather = ctx.phase == "decode"
+    megatron = _megatron(ctx)
     h = rms_norm(x, p[prefix + "ln"], cfg.norm_eps)
+    if megatron:
+        h = ctx.dist.id_psum_bwd(h, ctx.axis)
     f = act_fn(cfg.act)
     up = _linear(ctx, h, p[prefix + "w_up"])
     if is_gated(cfg.act):
@@ -502,13 +579,18 @@ def mlp_block(ctx: RunCtx, p, x, prefix="mlp."):
     y = _linear(ctx, up, p[prefix + "w_down"])
     if gather:
         y = _gather_cols(ctx, y)
+    if megatron:
+        y = ctx.dist.psum_id_bwd(y, ctx.axis)
     return x + y.to(x.dtype)
 
 
 def moe_block(ctx: RunCtx, p, x, layer: int = 0):
     """Pre-norm MoE FFN with residual, the model's layer ``layer`` (which
-    labels its routing record).  Returns (y, aux_loss)."""
+    labels its routing record).  Returns (y, aux_loss).  Above degree 1
+    (``tatp``) the experts are sharded over the ring and the slots travel
+    by all-to-all (:func:`repro_torch.models.moe.moe_ffn`)."""
     cfg = ctx.cfg
+    check_strategy(cfg, ctx.par.strategy, ctx.r, ctx.phase)
     h = rms_norm(x, p["mlp.ln"], cfg.norm_eps)
     sub = {k.split(".", 1)[1]: v for k, v in p.items()
            if k.startswith("mlp.") and k != "mlp.ln"}
@@ -516,7 +598,7 @@ def moe_block(ctx: RunCtx, p, x, layer: int = 0):
         h, sub, n_experts=cfg.n_experts, top_k=cfg.top_k, act=cfg.act,
         axis=ctx.axis, axis_size=ctx.r if ctx.par.strategy == "tatp" else 1,
         capacity_factor=cfg.capacity_factor, routing=ctx.routing,
-        layer=layer)
+        layer=layer, dist=ctx.dist)
     return x + out.y.to(x.dtype), out.aux_loss
 
 
@@ -539,6 +621,7 @@ def mamba_block(ctx: RunCtx, p, x, cache=None, cache_len=None):
     rank's heads of the state and all-gathers their outputs over the
     heads."""
     cfg = ctx.cfg
+    check_strategy(cfg, ctx.par.strategy, ctx.r, ctx.phase)
     r, axis, dist = ctx.r, ctx.axis, ctx.dist
     di, n, nh, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, \
         cfg.ssm_head_dim

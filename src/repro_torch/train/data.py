@@ -8,8 +8,8 @@ stubs are the reference's too: a vision-prefixed model's batch carries
 (:func:`stub_embeds`, the same seeds and values).  The reference
 materialises each device's shard of the global batch by its
 ``batch_specs``; :meth:`SyntheticDataset.batch` returns this rank's part
-(its rows over ``data``, its sequence block over the ring:
-``train_loop.shard_batch``) as tensors on its device, the whole batch on
+(its rows over ``data``, its sequence block over the ring under
+``tatp``: ``train_loop.shard_batch``) as tensors on its device, the whole batch on
 one device.
 """
 
@@ -75,6 +75,7 @@ class SyntheticDataset:
     shape: ShapeConfig
     dist: Dist
     seed: int = 0
+    strategy: str = "tatp"  # megatron replicates the sequence over model
 
     def _host_batch(self, step: int) -> dict[str, np.ndarray]:
         cfg = self.cfg
@@ -93,7 +94,8 @@ class SyntheticDataset:
         batch holds them (the model casts them to its dtype)."""
         from repro_torch.train.train_loop import shard_batch
 
-        part = shard_batch(self.cfg, self._host_batch(step), self.dist)
+        part = shard_batch(self.cfg, self._host_batch(step), self.dist,
+                           self.strategy)
         return {name: torch.from_numpy(np.ascontiguousarray(arr)).to(
                     self.dist.device,
                     dtype=torch.float32 if arr.dtype.kind == "f"

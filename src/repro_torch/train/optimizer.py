@@ -22,7 +22,16 @@ copy.  The leaves are this rank's shards (``param_specs``), so on a
 Unlike the reference, which returns new arrays (and donates the old ones
 to ``jit``), :meth:`AdamW.update` updates the parameters, masters and
 moments in place and returns the same tensors: no second copy of the
-state exists at any time.  int8 gradient compression is ROADMAP.md A3d.
+state exists at any time.
+
+int8 gradient compression with error feedback (``grad_compress``, the
+reference's ``_compressed_reduce``): each leaf's gradient plus its
+residual (under ZeRO-1 the residual slices all-gathered over ``data``)
+is quantised with one scale, the absolute max pmaxed over the data axes
+over 127, rounded half to even and clipped to [-127, 127]; the
+dequantised values are reduced as above, and the rounding error is the
+new residual (this rank's slice under ZeRO-1).  It runs at every mesh,
+one device included, as the reference's.
 """
 
 from __future__ import annotations
@@ -32,8 +41,6 @@ from typing import Any, NamedTuple
 
 import numpy as np
 import torch
-
-from repro_torch import not_ported
 
 
 @dataclass(frozen=True)
@@ -123,8 +130,6 @@ class AdamW:
     than one rank and ``cfg.zero1``."""
 
     def __init__(self, cfg: AdamWConfig, dist=None):
-        if cfg.grad_compress:
-            raise not_ported("int8 gradient compression", "A3d")
         self.cfg = cfg
         self.dist = dist
         self.data_axes = dist.present_batch_axes if dist is not None else ()
@@ -142,26 +147,30 @@ class AdamW:
     def init(self, params) -> OptState:
         master = tree_map(lambda p: self._own(p.detach().float().clone()),
                           params)
-        return OptState(
-            0, master, tree_map(torch.zeros_like, master),
-            tree_map(torch.zeros_like, master),
-            tree_map(lambda p: torch.zeros((), dtype=torch.float32,
-                                           device=p.device), master))
+        if self.cfg.grad_compress:  # the residuals: the master's layout
+            err = tree_map(torch.zeros_like, master)
+        else:
+            err = tree_map(lambda p: torch.zeros((), dtype=torch.float32,
+                                                 device=p.device), master)
+        return OptState(0, master, tree_map(torch.zeros_like, master),
+                        tree_map(torch.zeros_like, master), err)
 
     def state_specs(self, params, pspecs) -> OptState:
         """The layout of :meth:`init`'s state over the mesh, for the
         checkpoints (the reference's ``state_specs``): ``master``, ``m``
         and ``v`` as ``pspecs`` (a leaf's spec: the mesh axis of each dim),
-        or a :class:`ZeroSlice` a leaf under ZeRO-1; the integer step and
-        the 0-d ``err`` leaves replicated."""
+        or a :class:`ZeroSlice` a leaf under ZeRO-1; the integer step
+        replicated, and ``err`` as the master under ``grad_compress``,
+        else its 0-d leaves replicated."""
         if self.shard_axis:
             sliced = _map2(lambda p, s: ZeroSlice(tuple(s), tuple(p.shape),
                                                   self.shard_axis),
                            params, pspecs)
         else:
             sliced = pspecs
-        return OptState(None, sliced, sliced, sliced,
-                        tree_map(lambda _: (), params))
+        err = sliced if self.cfg.grad_compress else tree_map(lambda _: (),
+                                                            params)
+        return OptState(None, sliced, sliced, sliced, err)
 
     @torch.no_grad()
     def update(self, params, grads, state: OptState):
@@ -177,7 +186,12 @@ class AdamW:
         if len(flat_g) != len(flat_p):
             raise ValueError("grads do not match the parameter tree")
 
-        flat_g = [self._reduce(g) for g in flat_g]
+        if cfg.grad_compress:
+            flat_e = [t for _, t in tree_leaves(state.err)]
+            flat_g = [self._compressed_reduce(g, e)
+                      for g, e in zip(flat_g, flat_e)]
+        else:
+            flat_g = [self._reduce(g) for g in flat_g]
         # global grad-norm clip (over the full parameter set), fp32
         sq = None
         for g in flat_g:
@@ -225,6 +239,38 @@ class AdamW:
         if self.shard_axis is None:
             return g
         return self.dist.psum_scatter(_flat_pad(g, self.dp), self.shard_axis)
+
+    def _compressed_reduce(self, g, err):
+        """:meth:`_reduce` of ``g`` through int8 with error feedback: the
+        residual ``err`` (this rank's slice under ZeRO-1) is added, the
+        sum quantised with the data axes' shared scale, its dequantised
+        values reduced; ``err`` becomes the rounding error, in place."""
+        dist = self.dist
+        g = g.float()
+        e = err
+        if self.shard_axis:  # the residual slices, whole
+            e = dist.all_gather(err, self.shard_axis, dim=0)[
+                :g.numel()].view(g.shape)
+        gq = g + e
+        amax = gq.abs().amax()
+        for a in self.data_axes:
+            amax = dist.pmax(amax, a)
+        # tensor by tensor: a CUDA division by a Python scalar multiplies
+        # by its reciprocal, which rounds differently
+        scale = amax.clamp_min(1e-12) / torch.tensor(
+            127.0, dtype=torch.float32, device=g.device)
+        deq = torch.round(gq / scale).clamp_(-127, 127).mul_(scale)
+        residual = gq.sub_(deq)
+        red = deq
+        for a in self.data_axes:
+            if a != self.shard_axis:
+                red = dist.psum(red, a)
+        if self.shard_axis:
+            red = dist.psum_scatter(_flat_pad(red, self.dp), self.shard_axis)
+            residual = _flat_pad(residual, self.dp)[
+                dist.axis_index(self.shard_axis)]
+        err.copy_(residual)
+        return red
 
     def _gather(self, pm, p):
         """The full leaf from every rank's master slice (or ``pm``)."""

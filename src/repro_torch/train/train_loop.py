@@ -37,7 +37,8 @@ import torch
 from repro_torch.configs.base import ModelConfig, ParallelConfig, ShapeConfig
 from repro_torch.core.dist import Dist
 from repro_torch.models import lm
-from repro_torch.models.transformer import RunCtx, init_params, param_specs
+from repro_torch.models.transformer import (RunCtx, check_strategy,
+                                            init_params, param_specs)
 from repro_torch.train.optimizer import (AdamW, AdamWConfig, OptState,
                                          tree_leaves)
 
@@ -60,16 +61,26 @@ def reduce_model_axis_grads(grads, pspecs, par: ParallelConfig, dist: Dist):
     """Under ``tatp`` the tokens are sharded over the ring, so the grads
     of ring-replicated leaves (norm scales, biases, ...) psum over it;
     ring-sharded leaves arrive complete through the collectives'
-    transposes.  ``pspecs``: :func:`param_specs` of the tree.  At degree 1
-    the grads as they are."""
-    if par.strategy != "tatp" or dist.model_degree <= 1:
+    transposes.  Under ``megatron`` the tokens are replicated and every
+    rank's loss is the whole one: the sharded leaves and the norm scales
+    (each at a column-parallel group's input, whose cotangent is already
+    psummed) arrive complete, and the other replicated leaves, used only
+    through this rank's block (the biases, ``wk``/``wv`` below 16 kv
+    heads), psum over the ring.  ``pspecs``: :func:`param_specs` of the
+    tree.  At degree 1 the grads as they are."""
+    if par.strategy not in ("tatp", "megatron") or dist.model_degree <= 1:
         return grads
     mx = dist.model_axis
 
-    def red(g, spec):
+    def partial_(name, spec):
+        if _has_axis(spec, mx):
+            return False
+        return par.strategy == "tatp" or not name.endswith("ln")
+
+    def red(g, spec, name=""):
         if isinstance(g, dict):
-            return {k: red(g[k], spec[k]) for k in g}
-        return g if _has_axis(spec, mx) else dist.psum(g, mx)
+            return {k: red(g[k], spec[k], k) for k in g}
+        return dist.psum(g, mx) if partial_(name, spec) else g
 
     return red(grads, pspecs)
 
@@ -101,6 +112,7 @@ def make_train_step(cfg: ModelConfig, par: ParallelConfig, dist: Dist,
     if shape.kind != "train":
         raise ValueError(f"make_train_step needs a train shape, got "
                          f"{shape.kind!r}")
+    check_strategy(cfg, par.strategy, dist.model_degree)
     ctx = RunCtx(cfg, par, dist, phase="train", **hooks)
     opt_cfg = opt_cfg or AdamWConfig(zero1=par.zero1,
                                      grad_compress=par.grad_compress)
@@ -207,17 +219,22 @@ def _seq_block(dist: Dist, t):
     return t[:, i * blk:(i + 1) * blk]
 
 
-def shard_batch(cfg: ModelConfig, batch: dict, dist: Dist) -> dict:
+def shard_batch(cfg: ModelConfig, batch: dict, dist: Dist,
+                strategy: str = "tatp") -> dict:
     """This rank's part of a global prefill or train batch (the
-    reference's ``batch_specs`` for ``tatp``): the rows over ``data``; the
-    tokens', labels' and an encoder's frames' sequence over ``model``; a
-    vision prefix replicated over ``model``.  The sequence is checked by
-    :func:`check_prompt_len` first."""
-    check_prompt_len(dist, batch["tokens"].shape[1], cfg)
+    reference's ``batch_specs``): the rows over ``data``; under ``tatp``
+    the tokens', labels' and an encoder's frames' sequence over ``model``
+    (checked by :func:`check_prompt_len` first), under ``megatron`` the
+    whole sequence, replicated over ``model``; a vision prefix replicated
+    over ``model``."""
+    seq_sharded = strategy == "tatp"
+    if seq_sharded:
+        check_prompt_len(dist, batch["tokens"].shape[1], cfg)
     out = {}
     for name, t in batch.items():
         t = t[batch_rows(dist, t.shape[0])]
-        if name in ("tokens", "labels", "valid", "enc_embeds"):
+        if seq_sharded and name in ("tokens", "labels", "valid",
+                                    "enc_embeds"):
             t = _seq_block(dist, t)
         out[name] = t
     return out
@@ -249,19 +266,25 @@ def make_serve_fns(cfg: ModelConfig, par: ParallelConfig, dist: Dist,
     ``params`` and ``caches`` are this rank's shards; ``batch``,
     ``tokens`` and ``cache_len`` the global ones.  ``prefill_fn`` returns
     the global logits [B, 1, Vp] and ``decode_fn`` the global next tokens
-    [B, 1] with this rank's logits (its rows and vocab block)."""
+    [B, 1] with this rank's logits (its rows and vocab block).  Under
+    ``megatron`` above degree 1 the prefill takes each rank's rows and the
+    whole sequence and returns its kv heads' caches; its ``decode_fn``
+    raises (ROADMAP.md C5), as what the reference cannot run raises here
+    (:func:`~repro_torch.models.transformer.check_strategy`)."""
+    check_strategy(cfg, par.strategy, dist.model_degree, "prefill")
     ctx = RunCtx(cfg, par, dist, phase="prefill", **hooks)
 
     @torch.no_grad()
     def prefill_fn(params, batch):
         b = batch["tokens"].shape[0]
-        caches, logits = lm.prefill(ctx, params, shard_batch(cfg, batch,
-                                                             dist))
+        caches, logits = lm.prefill(ctx, params, shard_batch(
+            cfg, batch, dist, par.strategy))
         logits = dist.all_gather(logits, dist.model_axis, dim=-1)
         return caches, _gather_rows(dist, logits, b)
 
     @torch.no_grad()
     def decode_fn(params, tokens, caches, cache_len):
+        check_strategy(cfg, par.strategy, dist.model_degree, "decode")
         b = tokens.shape[0]
         rows = batch_rows(dist, b)
         if torch.is_tensor(cache_len) and cache_len.ndim:

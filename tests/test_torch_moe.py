@@ -167,11 +167,19 @@ def test_moe_ffn_bf16_matches_reference():
 
 
 def test_moe_ffn_ring_raises_a3():
+    """Expert parallelism over the ring runs (against the reference:
+    ``tests/test_torch_ring_moe.py``); without the Dist to move the slots,
+    or with experts that do not divide over the ranks, it raises before
+    any collective."""
     rng = np.random.default_rng(0)
     _, tp = _both(_ffn_params(rng, 8, 4, 8))
-    with pytest.raises(NotImplementedError, match="A3"):
+    with pytest.raises(ValueError, match="needs the Dist"):
         tmoe.moe_ffn(torch.zeros(1, 4, 8), tp, n_experts=4, top_k=1,
                      act="swiglu", axis="model", axis_size=2)
+    with pytest.raises(ValueError, match="divide"):
+        tmoe.moe_ffn(torch.zeros(1, 4, 8), tp, n_experts=4, top_k=1,
+                     act="swiglu", axis="model", axis_size=3,
+                     dist=Dist(CPU, mesh_shape=(1, 3)))
 
 
 # twins of tests/test_moe_capacity.py -------------------------------------
@@ -412,11 +420,15 @@ def test_train_step_loss_aux_and_grads_match_reference(model, remat):
 
 
 def test_moe_layer_on_the_ring_raises_a3(model):
+    """The MoE layer runs on the ring under ``tatp``
+    (``tests/test_torch_ring_moe.py``); under ``megatron`` above degree 1
+    the reference cannot run it, so it raises naming ROADMAP.md C5."""
     arch, cfg, jcfg, _, params = model
     _, tctx = _serve_ctxs(cfg, jcfg)
     p = {n: t[0] for n, t in params["layers"]["u0"].items()}
-    ring = replace(tctx, dist=_RingDist(CPU))
-    with pytest.raises(NotImplementedError, match="A3"):
+    ring = replace(tctx, dist=_RingDist(CPU),
+                   par=ParallelConfig(strategy="megatron"))
+    with pytest.raises(NotImplementedError, match="C5"):
         ttf.moe_block(ring, p, torch.zeros(1, 4, cfg.d_model))
 
 

@@ -571,11 +571,16 @@ def test_strategies_raise_a3_above_degree_one(tmp_path):
             return 2
 
     cfg = get_reduced("deepseek-7b")
-    for strategy in ("megatron", "fsdp"):
-        ctx = ttf.RunCtx(cfg, ParallelConfig(strategy=strategy),
-                         Ring(torch.device("cpu")), phase="prefill")
-        with pytest.raises(NotImplementedError, match="A3"):
-            ttf._linear(ctx, torch.zeros(1, 2, 4), torch.zeros(4, 4))
+    # megatron's column- or row-parallel product is one local tile; fsdp
+    # above degree 1 is a path the reference cannot run (ROADMAP.md C5)
+    x, w = torch.randn(1, 2, 4), torch.randn(4, 3)
+    ctx = ttf.RunCtx(cfg, ParallelConfig(strategy="megatron"),
+                     Ring(torch.device("cpu")), phase="prefill")
+    torch.testing.assert_close(ttf._linear(ctx, x, w), x @ w)
+    ctx = ttf.RunCtx(cfg, ParallelConfig(strategy="fsdp"),
+                     Ring(torch.device("cpu")), phase="prefill")
+    with pytest.raises(NotImplementedError, match="C5"):
+        ttf._linear(ctx, x, w)
     plan = tplan.compile_plan(_wafer(PORT, False), get_config("deepseek-7b"),
                               4, 512, cache_dir=str(tmp_path))
     assert plan.tatp == 8 and plan_mesh_shape(plan, 1) == (1, 1)

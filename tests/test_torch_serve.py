@@ -175,20 +175,21 @@ def test_serve_without_cuda_raises(monkeypatch):
 
 
 def test_unported_paths_name_their_roadmap_item(model):
+    """What the reference itself cannot run raises naming ROADMAP.md C5,
+    before any collective: MoE layers under ``megatron`` above degree 1,
+    ``fsdp`` above degree 1 and ``megatron``'s decode.  (The MoE
+    all-to-all under ``tatp``, ``megatron``'s linears and its
+    cross-entropy of ring-replicated tokens run:
+    ``tests/test_torch_ring_moe.py``, ``tests/test_torch_ring_megatron.py``.)"""
     from dataclasses import replace
     cfg, _, _, tctx, _ = model
     moe = replace(cfg, n_experts=8, top_k=2)
     p = {n: t[0] for n, t in ttf.init_params(
         moe, torch.Generator().manual_seed(0), "cpu")["layers"]["u0"].items()}
-    ring = replace(tctx, cfg=moe, dist=_RingDist(torch.device("cpu")))
-    with pytest.raises(NotImplementedError, match="A3"):
+    ring = replace(tctx, cfg=moe, dist=_RingDist(torch.device("cpu")),
+                   par=ParallelConfig(strategy="megatron"))
+    with pytest.raises(NotImplementedError, match="C5"):
         ttf.moe_block(ring, p, torch.zeros(1, 4, cfg.d_model))
-    # the cross-entropy of ring-replicated tokens (megatron's); tatp's
-    # ring takes the streamed one
-    with pytest.raises(NotImplementedError, match="A3d"):
-        tlm.vocab_parallel_xent(ring, torch.zeros(1, 4, 8),
-                                torch.zeros(1, 4, dtype=torch.long),
-                                torch.ones(1, 4))
     # data-parallel training runs (the rows over data, ZeRO-1 over it)
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.train.train_loop import make_train_step, token_axes
@@ -197,15 +198,16 @@ def test_unported_paths_name_their_roadmap_item(model):
                              ShapeConfig("t", "train", 16, 4))
     assert token_axes(ParallelConfig(), dp) == ("data",)
     assert bundle.opt.shard_axis == "data" and bundle.opt.dp == 2
-    for strategy in ("megatron", "fsdp"):  # run at degree 1, not above
-        with pytest.raises(NotImplementedError, match="A3"):
-            ttf._linear(replace(ring, par=ParallelConfig(strategy=strategy)),
-                        torch.zeros(1, 1, 4), torch.zeros(4, 4))
+    fsdp = replace(ring, cfg=cfg, par=ParallelConfig(strategy="fsdp"))
+    with pytest.raises(NotImplementedError, match="C5"):
+        ttf._linear(fsdp, torch.zeros(1, 1, 4), torch.zeros(4, 4))
+    decode = replace(ring, cfg=cfg, phase="decode")
+    with pytest.raises(NotImplementedError, match="C5"):
+        ttf._linear(decode, torch.zeros(1, 1, 4), torch.zeros(4, 4))
 
 
 class _RingDist(Dist):
-    """A ring of two (the MoE block's expert all-to-all and the train
-    ring's cross-entropy are not ported)."""
+    """A ring of two, for the checks that raise before any collective."""
 
     @property
     def model_degree(self) -> int:
