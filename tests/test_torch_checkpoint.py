@@ -29,6 +29,7 @@ from repro.models import lm as jlm
 from repro.models import transformer as jtf
 from repro.train import checkpoint as jckpt
 from repro.train import data as jdata
+from repro.train import optimizer as jopt
 from repro.train.train_loop import make_train_step as jax_train_step
 from repro_torch.configs import get_reduced
 from repro_torch.configs.base import ParallelConfig, ShapeConfig
@@ -40,7 +41,7 @@ from repro_torch.models import lm
 from repro_torch.models import transformer as ttf
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.data import SyntheticDataset
-from repro_torch.train.optimizer import OptState, tree_leaves
+from repro_torch.train.optimizer import AdamWConfig, OptState, tree_leaves
 from repro_torch.train.train_loop import loss_and_grads, make_train_step
 from repro_torch.weights import params_from_jax
 
@@ -176,6 +177,53 @@ def test_manifest_matches_reference(tmp_path):
             man[side] = json.load(f)
     assert man["port"]["leaves"] == man["ref"]["leaves"]
     assert len(man["port"]["leaves"]) > 50
+
+
+def test_compressed_state_checkpoints_in_the_reference_layout(tmp_path):
+    """With int8 gradient compression the optimizer state's ``err``
+    leaves are the master's shape: the manifest's keys, shapes and dtypes
+    are the reference's, the port restores its residuals bitwise and the
+    reference's restore reads the same values."""
+    arch = "deepseek-7b"
+    jdist = JaxDist(make_mesh((1, 1), ("data", "model")))
+    jb = jax_train_step(jax_reduced(arch),
+                        JaxPar(strategy="tatp", remat=False), jdist,
+                        JaxShape("t", "train", 16, 2),
+                        jopt.AdamWConfig(grad_compress=True))
+    jckpt.save(str(tmp_path / "ref"), 1, jb.init_fn(jax.random.key(0)))
+    cfg = get_reduced(arch)
+    tb = make_train_step(cfg, ParallelConfig(remat=False), Dist(CPU),
+                         ShapeConfig("t", "train", 16, 2),
+                         AdamWConfig(grad_compress=True))
+    params, state = tb.init_fn(torch.Generator().manual_seed(0))
+    ds = SyntheticDataset(cfg, ShapeConfig("t", "train", 16, 2), Dist(CPU))
+    for step in range(2):
+        params, state, _ = tb.step_fn(params, state, ds.batch(step))
+    ckpt.save(str(tmp_path / "port"), 2, (params, state))
+    man = {}
+    for side, step in (("ref", 1), ("port", 2)):
+        with open(tmp_path / side / f"step_{step:08d}" / "manifest.json") as f:
+            man[side] = json.load(f)
+    assert man["port"]["leaves"] == man["ref"]["leaves"]
+    assert any(k.startswith("1/.err/") and len(v["shape"]) == 2
+               for k, v in ((leaf["key"], leaf)
+                            for leaf in man["port"]["leaves"]))
+    (_, got), step = ckpt.restore(
+        str(tmp_path / "port"),
+        tb.init_fn(torch.Generator().manual_seed(1)))
+    assert step == 2
+    err = list(tree_leaves(state.err))
+    for (k, v), (_, w) in zip(err, tree_leaves(got.err)):
+        assert torch.equal(v, w), k
+    template = jax.eval_shape(lambda: jb.init_fn(jax.random.key(0)))
+    (_, jgot), _ = jckpt.restore(str(tmp_path / "port"), template, jdist,
+                                 (jb.pspecs, jb.ospecs))
+    jerr = jax.tree_util.tree_leaves(jgot.err)
+    assert len(jerr) == len(err)
+    for (k, v), j in zip(err, jerr):
+        np.testing.assert_array_equal(v.numpy(), np.asarray(j),
+                                      err_msg="/".join(k))
+    assert any(float(v.abs().max()) > 0 for _, v in err)
 
 
 # ---------------------------------------------------------------------------
