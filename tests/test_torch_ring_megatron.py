@@ -506,6 +506,45 @@ def test_megatron_train_cli_under_torchrun(tmp_path):
     assert np.isfinite(out["last_loss"])
 
 
+@pytest.mark.parametrize("entry,strategy", [("train", "fsdp"),
+                                            ("serve", "megatron")])
+def test_plans_the_reference_cannot_run_raise_before_the_mesh(
+        monkeypatch, entry, strategy):
+    """A plan that prescribes ``fsdp`` above model degree 1 (train), or
+    ``megatron`` there for the one-shot serve, which decodes, raises
+    naming C5 once it resolves, before the mesh is built."""
+    sys.path.insert(0, str(SRC))
+    import importlib
+
+    from repro_torch.configs.base import ParallelConfig
+
+    launch = importlib.import_module(f"repro_torch.launch.{entry}")
+
+    class Plan:
+        plan_hash = "stub"
+
+        def parallel_config(self):
+            return ParallelConfig(strategy=strategy)
+
+        def mesh_shape_for(self, n):
+            return (1, n)
+
+        def summary(self):
+            return f"a stub plan: {strategy} over the ring"
+
+    def built(*a, **kw):
+        raise AssertionError("the mesh was built")
+
+    monkeypatch.setenv("WORLD_SIZE", "4")
+    monkeypatch.setattr(launch, "join_world", lambda args: torch.device(
+        "cpu"))
+    monkeypatch.setattr(launch, "resolve_rank_plan",
+                        lambda *a, **kw: Plan())
+    monkeypatch.setattr(launch, "make_plan_dist", built)
+    with pytest.raises(NotImplementedError, match="C5"):
+        launch.main(["--reduced", "--device", "cpu", "--auto-plan"])
+
+
 @pytest.mark.parametrize("name,arch,strategy,what", C5_PATHS,
                          ids=[c[0] for c in C5_PATHS])
 def test_c5_paths_raise_in_both_packages(ring, name, arch, strategy, what):
