@@ -470,8 +470,8 @@ def attn_block(ctx: RunCtx, p, x, *, kind: str, pos_offset, cache=None,
 
     def kv_proj(x, w, b=None):  # megatron: this rank's kv group
         if megatron and cfg.n_kv_heads < 16:  # replicated wk / wv
-            cols = slice(ctx.dist.axis_index(ctx.axis) * hkv * hd,
-                         (ctx.dist.axis_index(ctx.axis) + 1) * hkv * hd)
+            lo = ctx.dist.axis_index(ctx.axis) * hkv * hd
+            cols = slice(lo, lo + hkv * hd)
             w, b = w[:, cols], None if b is None else b[cols]
         return proj(x, w, b)
 

@@ -224,11 +224,11 @@ def shard_batch(cfg: ModelConfig, batch: dict, dist: Dist,
     """This rank's part of a global prefill or train batch (the
     reference's ``batch_specs``): the rows over ``data``; under ``tatp``
     the tokens', labels' and an encoder's frames' sequence over ``model``
-    (checked by :func:`check_prompt_len` first), under ``megatron`` the
-    whole sequence, replicated over ``model``; a vision prefix replicated
-    over ``model``."""
+    (checked by :func:`check_prompt_len` first, as at degree 1), under
+    ``megatron`` the whole sequence, replicated over ``model``; a vision
+    prefix replicated over ``model``."""
     seq_sharded = strategy == "tatp"
-    if seq_sharded:
+    if seq_sharded or dist.model_degree == 1:
         check_prompt_len(dist, batch["tokens"].shape[1], cfg)
     out = {}
     for name, t in batch.items():
