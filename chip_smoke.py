@@ -84,7 +84,8 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    with its layer and probability margin, and fails the phase unless the
    margin is below ``NEAR_TIE``);
 5. main paths — ``repro_torch.launch.serve`` one-shot, bf16, batch 4,
-   16 generated tokens (32 until phase 14 needed the time): deepseek-7b (30 layers, prompt 128), mamba2-780m
+   8 generated tokens (32 until phase 14 needed the time, 16 until phase
+   15 did): deepseek-7b (30 layers, prompt 128), mamba2-780m
    (48 layers, prompt 512 = two SSD chunks), zamba2-2.7b (54 layers,
    prompt 512), olmoe-1b-7b (16 layers, prompt 128), gemma2-9b (42
    layers, batch 1 x prompt 8192), gemma-7b (28 layers, prompt 128),
@@ -159,7 +160,8 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    request
    finished with its 32 tokens, and exactly 210 GEMM and 30 flash
    launches per prefill group the engine ran (decode runs no kernel), all
-   ``wgmma`` / ``mma``.  (b) 20 requests at that rate with
+   ``wgmma`` / ``mma``.  (b) 12 requests at that rate (20 until phase 15
+   needed the time) with
    ``--fault-at 2.0``: exactly one replan, whose plan hash equals ``replan_serve``'s offline
    solve for the same fault, and every request finished or rejected with
    a reason.  (c) A labelled stress run: 12 requests at 4 a second, twice
@@ -199,7 +201,7 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    wall-clock limit (a failure or timeout fails the phase): the
    host-staged ppermute, psum, pmax, pmin and all-gather of CUDA tensors
    bit for bit against the source ranks' values; fp32 at full width, 2
-   layers, batch 4, prompt 128, 8 new tokens, mesh (1, 4), against the
+   layers, batch 4, prompt 128, 4 new tokens, mesh (1, 4), against the
    degree-1 fp32 run on the same card and the same weights (the shards
    of one tree): prefill logits and caches within rtol = atol = 1e-3 (the
    parity phase's), identical tokens, and the fp8 and bf16 wires on the
@@ -231,8 +233,9 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    fp32 floor where larger (the degree-1 run again with every kernel
    replaced by its plain version; the zero-initialised norm scales),
    exact launches on ``simt``; then ``launch.train --mesh 1
-   4 --layers 4`` in bf16 (batch 4 x seq 512, remat, 2 steps; the fp32
-   runs 2 steps too, 3 until phase 14 needed the time): exact
+   4 --layers 4`` in bf16 (batch 4 x seq 512, remat, one step, 2 until
+   phase 15 needed the time; the fp32 runs 2 steps, 3 until phase 14
+   did): exact
    GEMM launches a rank by layout, flash forwards and backwards (every
    backward with an outside delta), every one on ``wgmma`` / ``mma``, the
    first loss within 1e-2 of phase 5's degree-1 run on the same weights
@@ -270,19 +273,21 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    the ranks are held to, in this process;
    then four ranks of this script (``--ssm-ring-rank``) sharing the card
    over gloo, every prompt and sequence two 256-token chunks a rank: (a)
-   fp32 at full width, batch 2 x prompt 2048, 8 new tokens, mesh (1, 4):
+   fp32 at full width, batch 2 x prompt 2048, 4 new tokens (8 until phase
+   15 needed the time), mesh (1, 4):
    mamba2-780m (2 layers) and zamba2-2.7b (6 layers, one unit) against
    the degree-1 run of the same tree, prefill logits and each rank's
    caches (its heads of the state, the conv tail, zamba2's K/V block)
    within rtol = atol = 1e-3 and identical tokens, exact launches on
    ``simt``; the ``log`` scan within SSM_SCAN_TOL and the bf16 state
    wire within SSM_STATE_WIRE_TOL of the ``seq`` scan's prefill logits;
-   (b) mamba2-780m at 48 layers and (c) zamba2-2.7b cut to 12 through
+   (b) mamba2-780m cut to 24 layers (48 until phase 15 needed the time)
+   and (c) zamba2-2.7b cut to 12 through
    ``launch.serve``'s ``serve --mesh 1 4`` in bf16 (batch 2 x prompt
-   2048, 8 new tokens): exact launches a rank by kernel and path (384
-   GEMM tiles and 48 SSD passes; 128 GEMM tiles, 10 SSD passes and 2 (i
+   2048, 4 new tokens): exact launches a rank by kernel and path (192
+   GEMM tiles and 24 SSD passes; 128 GEMM tiles, 10 SSD passes and 2 (i
    + 1) flash rounds on ``mma`` on rank i; every in_proj tile on
-   ``wmma``, 192 and 40, since TMA cannot take its block's pitch of 1612
+   ``wmma``, 96 and 40, since TMA cannot take its block's pitch of 1612
    or 2612 bf16 columns, the other tiles on ``wgmma``), the prefill's last
    logits within RING_BF16_TOL of the degree-1 bf16 run of the same
    weights and its first tokens identical (but at a near tie), each
@@ -338,7 +343,7 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    equal, 115 GEMM launches a rank under each policy, 8 flash forwards
    under full remat and 4 under ``tatp_outputs``, the loss within 1e-2
    of phase 5's degree-1 run; (c) int8 gradient compression on (b)'s fp32
-   model under ``tatp`` at (2, 2): 2 steps' losses within 1e-2 of the
+   model under ``megatron`` at (2, 2): 2 steps' losses within 1e-2 of the
    degree-1 run's uncompressed ones, a nonzero residual, ZeRO-1 over
    ``data``.
 
@@ -422,9 +427,10 @@ PATHS = {
 }
 BATCH, GEN = 4, 32
 # phase 5's serves decode SERVE_GEN tokens (GEN, 32, until phase 14 needed
-# the time; ms/token is an average either way, and phase 11 compares the
-# first 5); phase 8's keep GEN, the length its plans are solved for
-SERVE_GEN = 16
+# the time, 16 until phase 15 did; ms/token is an average either way, and
+# phase 11 compares the first 5); phase 8's keep GEN, the length its plans
+# are solved for
+SERVE_GEN = 8
 # the kernel path every bf16 main-path launch must take (every width here
 # is a multiple of 8, so TMA describes each GEMM operand)
 MAIN_PATH_KERNEL = {"tatp_matmul": "wgmma", "flash_attention": "mma",
@@ -3032,15 +3038,15 @@ def phase_plan_launch(torch):
 # samples back no TTFT p99, P99_MIN_SAMPLES, only the p50 and the max);
 # then the same rate with a
 # die fault at 2.0 s on the engine's clock (``--fault-at``, 1/8 of the
-# dies, seeded) over 20 requests: the replan and the migration land in
-# the first seconds, and the run's wall clock (~16 s, not ~80) keeps the
-# whole script inside its time limit with phase 12.
+# dies, seeded) over 12 requests (20 until phase 15 needed the time): the
+# replan and the migration land in the first seconds, and the run's wall
+# clock (~10 s, not ~80) keeps the whole script inside its time limit.
 # The stress load: 12 requests at 4 a second, twice what the slots serve,
 # so TTFT grows with each request (queueing, not the server)
 ENGINE = dict(arch="deepseek-7b", max_batch=4, prompt_len=128, max_new=32,
               fault_at=2.0)
 ENGINE_LOAD = dict(requests=24, rate=1.25)
-ENGINE_FAULT_LOAD = dict(ENGINE_LOAD, requests=20)
+ENGINE_FAULT_LOAD = dict(ENGINE_LOAD, requests=12)
 ENGINE_RUNS = (("engine", ENGINE_LOAD, False),
                ("engine fault", ENGINE_FAULT_LOAD, True),
                ("engine stress", dict(requests=12, rate=4.0), False))
@@ -3703,9 +3709,10 @@ def phase_cost_engine(torch):
 # the (data, model) mesh (1, 4); the phase's wall-clock limit
 RING = dict(ranks=4, mesh=(1, 4), backend="gloo", timeout_s=600)
 # fp32 parity: deepseek-7b at full width, 2 layers, against the degree-1
-# run on the same card and the same weights (the shards of one tree)
+# run on the same card and the same weights (the shards of one tree); 4
+# greedy tokens (8 until phase 15 needed the time)
 RING_PARITY = dict(arch="deepseek-7b", n_layers=2, batch=4, prompt_len=128,
-                   gen=8, seed=1)
+                   gen=4, seed=1)
 # the fp8 and bf16 wires on that prefill against the degree-1 fp32 run: the
 # largest difference of the logits over their largest magnitude, below
 # the reference's own limit for its fp8 wire ("lossy wire: close, not
@@ -4196,9 +4203,10 @@ RING_TRAIN_PARITY = dict(arch="deepseek-7b", n_layers=2, batch=4, seq=128,
 RING_TRAIN_TOL = 1e-4
 RING_TRAIN_FLOOR = 4.0
 # bf16 through launch.train --mesh 1 4 --layers 4: phase 5's deepseek-7b
-# train run (seed 0, batch 4 x seq 512, remat) over the ring
+# train run (seed 0, batch 4 x seq 512, remat) over the ring, one step (2
+# until phase 15 needed the time; phase 13's (b) times the warm steps)
 RING_TRAIN_BF16 = dict(arch="deepseek-7b", layers=TRAIN["n_layers"],
-                       batch=TRAIN["batch"], seq=TRAIN["seq"], steps=2,
+                       batch=TRAIN["batch"], seq=TRAIN["seq"], steps=1,
                        mesh=(1, 4))
 RING_TRAIN_BF16_TOL = 1e-2  # the first step's loss against degree 1's
 # one rank's rows at (1, 4): batch x seq / 4, the GEMM tiles' M
@@ -5376,8 +5384,8 @@ def phase_ring_more(torch, randn):
 RING_SSM = dict(ranks=4, backend="gloo", timeout_s=480)
 # the serves' batch, prompt and new tokens: each rank's block at (1, 4) is
 # two 256-token chunks, so the in-rank recurrence and the cross-rank scan
-# both run
-SSM_RING = dict(batch=2, prompt_len=2048, gen=8)
+# both run; 4 new tokens (8 until phase 15 needed the time)
+SSM_RING = dict(batch=2, prompt_len=2048, gen=4)
 # (a) fp32 serve parity at full width against the degree-1 run of the same
 # tree on the card: (arch, layers, seed)
 SSM_RING_PARITY = (("mamba2-780m", 2, 5), ("zamba2-2.7b", 6, 5))
@@ -5394,8 +5402,9 @@ SSM_SCAN_TOL = 1e-5
 # its value, so twice that (1.0e-4 and 1.4e-4 on the reduced models on
 # the CPU, the reference at mesh (1, 4))
 SSM_STATE_WIRE_TOL = 2.0 ** -8
-# (b), (c) bf16 through launch.serve --mesh 1 4: (arch, layers)
-SSM_RING_SERVES = (("mamba2-780m", 48), ("zamba2-2.7b", 12))
+# (b), (c) bf16 through launch.serve --mesh 1 4: (arch, layers); mamba2-780m
+# cut to 24 of its 48 layers since phase 15 needed the time
+SSM_RING_SERVES = (("mamba2-780m", 24), ("zamba2-2.7b", 12))
 # (d) fp32 train parity, phase 12's rules: mamba2-780m, 2 layers at full
 # width, 2 steps, the clip off, each (mesh, batch, seq) against the
 # degree-1 run of the same tree and batches; two chunks a rank on either
@@ -6047,15 +6056,17 @@ MEG_PARITY = dict(RING_TRAIN_PARITY, strategy="megatron", grads=True)
 MEG_GRAD_TOL = 1e-4
 # the bf16 prefill of deepseek-7b's 30 layers through make_serve_fns'
 # prefill_fn at (1, 4): phase 5's weights (seed 0) and prompts, held to
-# its degree-1 run; 3 prefills, the first counted
+# its degree-1 run; 2 prefills, the first counted
 MEG_PREFILL = dict(arch="deepseek-7b", batch=MAIN["batch"],
-                   prompt_len=MAIN["prompt_len"], mesh=(1, 4), repeats=3)
+                   prompt_len=MAIN["prompt_len"], mesh=(1, 4), repeats=2)
 # one bf16 step of phase 5's 4-layer deepseek-7b (batch 4 x seq 512) at
 # (1, 4) under each remat policy (REMAT_RUNS), bitwise; its loss within tol
 # of phase 5's degree-1 first loss
 MEG_REMAT = dict(RING_REMAT, strategy="megatron", tol=1e-2)
-# (c) int8 gradient compression: MEG_PARITY's model at (2, 2) under tatp,
-# its 2 steps' losses within tol of the degree-1 run's uncompressed ones
+# (c) int8 gradient compression: MEG_PARITY's model at (2, 2) under
+# megatron (no weight blocks on the wire, so the ZeRO-1 reductions and the
+# residuals' gather are what the time buys), its 2 steps' losses within
+# tol of the degree-1 run's uncompressed ones
 COMPRESS = dict(mesh=(2, 2), tol=1e-2)
 # (d) what the reference cannot run: (what, arch, strategy, entry point);
 # internvl2-1b's 2 kv heads are fewer than the ring's 4 ranks
@@ -6379,9 +6390,10 @@ def meg_prefill(torch, dist, out_dir):
 
 
 def ring_compress(torch, dev):
-    """(c) on this rank: MEG_PARITY's model under ``tatp`` at COMPRESS's
-    mesh with int8 gradient compression (the clip off), its steps'
-    losses and the residuals' largest magnitude and nonzero share."""
+    """(c) on this rank: MEG_PARITY's model under its strategy at
+    COMPRESS's mesh with int8 gradient compression (the clip off), its
+    steps' losses and the residuals' largest magnitude and nonzero
+    share."""
     from repro_torch.configs.base import ParallelConfig, ShapeConfig
     from repro_torch.core.dist import make_mesh_dist
     from repro_torch.train.data import SyntheticDataset
@@ -6392,12 +6404,14 @@ def ring_compress(torch, dev):
     dist = make_mesh_dist(COMPRESS["mesh"], dev)
     cfg = parity_config(spec["arch"], spec["n_layers"])
     shape = ShapeConfig("ring", "train", spec["seq"], spec["batch"])
-    tb = make_train_step(cfg, ParallelConfig(strategy="tatp", remat=False),
+    tb = make_train_step(cfg, ParallelConfig(strategy=spec["strategy"],
+                                             remat=False),
                          dist, shape, AdamWConfig(grad_clip=spec["grad_clip"],
                                                   grad_compress=True))
     params, state = tb.init_fn(
         torch.Generator(device=dev).manual_seed(spec["seed"]))
-    data = SyntheticDataset(cfg, shape, dist, seed=spec["seed"])
+    data = SyntheticDataset(cfg, shape, dist, seed=spec["seed"],
+                            strategy=spec["strategy"])
     losses = []
     for step in range(spec["steps"]):
         params, state, m = tb.step_fn(params, state, data.batch(step))

@@ -414,13 +414,14 @@ def _linear(ctx: RunCtx, x, w, b=None):
         # plain product (the reference's einsum accumulates in fp32 and
         # casts to x.dtype; cuBLAS accumulates bf16 products in fp32)
         y = torch.matmul(x, w)
-    else:  # tatp streamed on the GEMM hook (one local tile at r = 1)
+    else:  # the TATP linear on the GEMM hook: one local tile but above
+        # degree 1 under tatp, where it streams the ring
         bsz, s, din = x.shape
         xf = x.reshape(bsz * s, din)
-        tatp_ = ctx.par.strategy == "tatp"
-        yf = tatp.tatp_matmul(xf, w, ctx.axis, ctx.r if tatp_ else 1,
+        streamed = ctx.par.strategy == "tatp"
+        yf = tatp.tatp_matmul(xf, w, ctx.axis, ctx.r if streamed else 1,
                               ctx.par.bidirectional, ctx.par.stream_dtype,
-                              dot=ctx.dot, dist=ctx.dist, save=tatp_)
+                              dot=ctx.dot, dist=ctx.dist, save=streamed)
         y = yf.reshape(bsz, s, -1)
     if b is not None:
         if y.shape[-1] != b.shape[0]:  # column-parallel: the local block
