@@ -100,10 +100,18 @@ class HostStage:
 @dataclass(frozen=True)
 class AxisGroup:
     """One mesh axis's process group and its members' global ranks in
-    axis-index order."""
+    axis-index order.  ``order`` is each axis member's rank within the
+    process group, which numbers its members by global rank: under a
+    plan's device order (the snake) the two differ, and the collectives
+    whose blocks follow the group's numbering (all-gather, all-to-all)
+    put them back in axis order."""
 
     group: object
     ranks: tuple[int, ...]
+    order: tuple[int, ...] = ()
+
+    def axis_ordered(self) -> bool:
+        return not self.order or list(self.order) == sorted(self.order)
 
 
 def _identity_permute(x, perm):
@@ -404,7 +412,11 @@ class Dist:
                              f"{tuple(x.shape)}")
         if r == 1:
             return x.clone()
-        x = x.contiguous()
+        ag = self.groups[axis]
+        # block j goes to axis member j, the group's member order[j]
+        perm = None if ag.axis_ordered() else list(ag.order)
+        inv = None if perm is None else [perm.index(g) for g in range(r)]
+        x = (x if perm is None else x[inv]).contiguous()
         nbytes = x.numel() * x.element_size()
         out = torch.empty_like(x)
         t0 = self._clock(x)
@@ -413,11 +425,11 @@ class Dist:
         if staged:
             send = self.stage.buffer("a2a_send", nbytes).copy_(send)
             recv = self.stage.buffer("a2a_recv", nbytes)
-        tdist.all_to_all_single(recv, send, group=self.groups[axis].group)
+        tdist.all_to_all_single(recv, send, group=ag.group)
         if staged:
             _bytes(out).copy_(recv)
         self._tick(x, t0, nbytes)
-        return out
+        return out if perm is None else out[perm]
 
     def psum_scatter(self, x, axis: str):
         """``lax.psum_scatter(x, axis, scatter_dimension=0, tiled=False)``:
@@ -451,11 +463,14 @@ class Dist:
         if staged:
             send = self.stage.buffer("gather_send", nbytes).copy_(send)
             recv = self.stage.buffer("gather_recv", r * nbytes)
+        ag = self.groups[axis]
         tdist.all_gather(list(recv.view(r, nbytes).unbind(0)), send,
-                         group=self.groups[axis].group)
+                         group=ag.group)
         if staged:
             _bytes(out).copy_(recv)
         self._tick(x, t0, nbytes)
+        if not ag.axis_ordered():  # the group's order to the axis's
+            out = out[list(ag.order)]
         return torch.cat(out.unbind(0), dim=dim)
 
 
@@ -558,7 +573,10 @@ def make_mesh_dist(shape: Sequence[int], device="cuda",
         for members_ in members:  # every rank creates every group
             g = tdist.new_group(members_, timeout=_timeout())
             if me in members_:
-                groups[axis] = AxisGroup(g, tuple(members_))
+                numbered = tdist.get_process_group_ranks(g)
+                groups[axis] = AxisGroup(
+                    g, tuple(members_),
+                    tuple(numbered.index(m) for m in members_))
     if me not in order:
         return None
     pos = order.index(me)

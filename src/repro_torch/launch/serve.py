@@ -49,8 +49,7 @@ The prompt length must be a multiple of the ring degree.  MoE models
 serve on the ring too (``--arch olmoe-1b-7b --mesh 1 4``: each rank holds
 its experts, the slots reach them by all-to-all).  A plan that prescribes
 ``megatron`` or ``fsdp`` above model degree 1 raises before the mesh is
-built: the reference cannot decode under either (ROADMAP.md C5).  Engine
-mode over several ranks is ROADMAP.md item A3e.
+built: the reference cannot decode under either (ROADMAP.md C5).
 
 Engine mode (``--serve``, the counterpart of the reference's
 ``serve_engine``): compile (or load) a
@@ -64,20 +63,44 @@ wall clock::
         --prompt-len 128 --max-new 32
 
 ``--sim`` swaps in the cost-model executor on a virtual clock (no
-tensors, no device).  ``--fault-at``/``--fault-frac``/``--readmission``,
-``--fault-trace``, ``--governor`` and its knobs, and
+tensors, no device; on one rank only).  ``--fault-at``/``--fault-frac``/
+``--readmission``, ``--fault-trace``, ``--governor`` and its knobs, and
 ``--prefill-chunk-tokens`` are the reference's, with its defaults.  The
 printed JSON has the reference's keys; ``"mode"`` is ``"sim"`` or
 ``"torch"`` (the reference prints ``"jax"``).
+
+Engine mode over several ranks runs on the ServePlan's mesh for the
+world (deepseek-7b's ``(1, 4)`` on four ranks; the reduced configs'
+``(4, 1)``)::
+
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \
+        -m repro_torch.launch.serve --arch deepseek-7b --serve \
+        --auto-plan --requests 12 --rate 1 --max-batch 4 \
+        --prompt-len 128 --max-new 8
+
+Rank 0 runs the engine, its clock, the fault timeline and the replans,
+and broadcasts each executor call before it makes it; the other ranks
+make the same calls on their shards (:class:`LeaderExecutor`,
+:func:`follow`) and rank 0 prints the report.  Each rank holds its rows
+(over ``data``), its block of positions and its Mamba-2 heads (over the
+ring) of the cache.  A fault that keeps the mesh grafts the survivors in
+place; one that changes it ((1, 4) <-> (2, 2)) gathers the survivors'
+rows and re-cuts the weights leaf by leaf for the new mesh.  The plan's
+``max_batch`` must split over its data degree and its ``max_seq`` and
+the prompts over its ring; windowed layers on the ring raise
+(ROADMAP.md A3f); all of it before the mesh is built.
 """
 
 from __future__ import annotations
 
 import argparse
+import datetime
 import json
 import math
+import pickle
 import time
 from dataclasses import replace
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -87,16 +110,19 @@ import torch.distributed as tdist
 from repro_torch import not_ported
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.configs.base import ParallelConfig
-from repro_torch.core.dist import (Dist, make_mesh_dist, resolve_device,
+from repro_torch.core.dist import (GROUP_TIMEOUT_S, Dist, make_mesh_dist,
                                    world_from_env)
-from repro_torch.launch.mesh import (join_world, make_plan_dist,
+from repro_torch.launch.mesh import (first_resolves, join_world,
+                                     make_plan_dist, plan_device_permutation,
                                      plan_mesh_shape, resolve_rank_plan)
 from repro_torch.models import lm
-from repro_torch.models.transformer import check_strategy, init_params
+from repro_torch.models.transformer import (check_strategy, init_params,
+                                            param_specs)
+from repro_torch.train.checkpoint import _global_leaf
 from repro_torch.train.data import stub_inputs
 from repro_torch.train.train_loop import (batch_rows, check_prompt_len,
                                           make_serve_fns)
-from repro_torch.weights import init_sharded_params
+from repro_torch.weights import _shard, init_sharded_params
 
 
 def _sync(device: torch.device):
@@ -201,8 +227,10 @@ def serve(args, params=None, keep_tokens: bool = False,
 
 
 class TorchServeExecutor:
-    """ServeEngine executor running the model off a ServePlan on one
-    device (counterpart of the reference's ``JaxServeExecutor``).
+    """ServeEngine executor running the model off a ServePlan
+    (counterpart of the reference's ``JaxServeExecutor``), on one device
+    or on the plan's ``(data, model)`` mesh over the world's ranks
+    (:func:`make_plan_dist`; every rank builds one, in the same order).
 
     Slot-structured as the reference's: the decode step always runs the
     plan's full ``max_batch`` rows (an idle slot carries token 0 at
@@ -210,45 +238,64 @@ class TorchServeExecutor:
     grouped by length and each group padded to ``max_batch`` rows of
     token 0, and grafts their prompt-window caches into the resident
     max-seq cache at their slots (:func:`repro_torch.models.lm.
-    graft_cache_slots`, an in-place copy on the device).  The padding is
-    the reference's exactly: olmoe's expert capacity couples a batch's
-    rows, so only identical padding gives identical tokens.
+    graft_cache_slots`, an in-place copy on the device).  At data degree
+    1 the prompts take rows 0, 1, ... as in the reference exactly
+    (olmoe's expert capacity couples a batch's rows, so only identical
+    padding gives identical tokens); above it each prompt takes the row
+    of its own slot, so every graft stays on the data rank that owns the
+    slot (slot // (max_batch / data degree)).  Each rank holds its rows,
+    its block of positions and its Mamba-2 heads of the cache
+    (:func:`lm.init_cache`, :func:`lm.cache_specs`) and its shard of the
+    weights.
 
-    Prompts come from ``RandomState(1000 + rid)`` and the stub frontend
-    inputs from one ``RandomState(0)`` that lives as long as the
-    executor, drawn in the reference's order.  ``params`` default to the
-    one-shot path's random weights (seed 0); ``hooks`` go to
-    :func:`make_serve_fns` (``dot``, ``attention``, ``ssd``: the plain
-    versions, for parity checks).  ``prefill``, ``decode`` and
-    ``migrate`` return None, so a wall clock's elapsed time stands; each
-    reads its tokens back to the host, so it returns with the device
-    synchronised."""
+    Prompts come from ``RandomState(1000 + req.rid)`` and the stub
+    frontend inputs from one ``RandomState(0)`` that lives as long as the
+    executor, drawn in the reference's order, so every rank builds the
+    same batch.  ``params`` (this rank's shard) default to the one-shot
+    path's random weights (seed 0, drawn shard by shard above degree 1);
+    ``hooks`` go to :func:`make_serve_fns` (``dot``, ``attention``,
+    ``ssd``: the plain versions, for parity checks).  ``prefill``,
+    ``decode`` and ``migrate`` return None, so a wall clock's elapsed time
+    stands; each reads its tokens back to the host, so it returns with
+    the device synchronised.  Over several ranks every rank makes the
+    same calls in the same order (:class:`LeaderExecutor`,
+    :func:`follow`)."""
 
     def __init__(self, plan, cfg, *, device="cuda", params=None, **hooks):
-        from repro_torch.models.transformer import init_params
-
         self.cfg = cfg
         self.hooks = hooks
         self._build(plan, device)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(0)
-            params = init_params(cfg, gen, self.device)
+            params = init_params(cfg, gen, self.device) \
+                if self.dist.n_devices == 1 \
+                else init_sharded_params(cfg, gen, self.dist,
+                                         self.par.strategy)
         self.params = params
         self.caches = self._fresh_cache()
         self.last_tok = np.zeros(plan.max_batch, np.int64)
         self._rng = np.random.RandomState(0)
+        self.last_migration: dict = {}
+        self.link = None  # engine mode over several ranks: its CommandLink
 
     def _build(self, plan, device):
         """The serve bundle for ``plan``: its ParallelConfig with remat
-        off, on its one-device mesh."""
+        off, on its mesh over the world (checked first)."""
+        check_serve_plan(plan, self.cfg, _world())
         self.plan = plan
-        dist = make_plan_dist(plan, device)
-        self.device = dist.device
-        par = replace(plan.parallel_config(), remat=False)
-        self.sb = make_serve_fns(self.cfg, par, dist, **self.hooks)
+        self.par = replace(plan.parallel_config(), remat=False)
+        self.dist = make_plan_dist(plan, device)
+        self.device = self.dist.device
+        self.sb = make_serve_fns(self.cfg, self.par, self.dist, **self.hooks)
+
+    def _rows(self, plan=None) -> range:
+        """This rank's global slots of ``plan``'s (default the current
+        one's) ``max_batch``."""
+        n = (plan or self.plan).max_batch
+        return range(n)[batch_rows(self.dist, n)]
 
     def _fresh_cache(self):
-        return lm.init_cache(self.sb.ctx, self.plan.max_batch,
+        return lm.init_cache(self.sb.ctx, len(self._rows()),
                              self.plan.max_seq,
                              enc_len=self.cfg.frontend_tokens or None)
 
@@ -256,7 +303,14 @@ class TorchServeExecutor:
         rng = np.random.RandomState(1000 + req.rid)
         return rng.randint(0, self.cfg.vocab_size, (req.prompt_len,))
 
+    def check(self, states):
+        """Raise, before any collective, where a prompt of ``states``
+        cannot be prefilled on this mesh (:func:`check_prompt_len`)."""
+        for n in sorted({st.req.prompt_len for st in states}):
+            check_prompt_len(self.dist, n, self.cfg)
+
     def prefill(self, states):
+        self.check(states)
         # prefill_fn returns only the final position's logits, so one call
         # cannot serve mixed prompt lengths: group by length
         by_len: dict = {}
@@ -267,25 +321,36 @@ class TorchServeExecutor:
         return None  # wall clock: real elapsed time stands
 
     def _prefill_group(self, states):
-        cfg, plan = self.cfg, self.plan
+        cfg, n = self.cfg, self.plan.max_batch
         plen = states[0].req.prompt_len
-        toks = np.zeros((plan.max_batch, plen), np.int64)
-        for i, st in enumerate(states):
-            toks[i] = self._prompt(st.req)
+        rows = [st.slot for st in states] if self.dist.batch_degree > 1 \
+            else list(range(len(states)))
+        # draw i of the stub inputs goes to row perm[i]: the prompts' rows,
+        # then the others in order (the identity at data degree 1)
+        perm = rows + [r for r in range(n) if r not in rows]
+        toks = np.zeros((n, plen), np.int64)
+        for row, st in zip(rows, states):
+            toks[row] = self._prompt(st.req)
         batch = {"tokens": toks}
-        batch.update(stub_inputs(cfg, plan.max_batch, lambda _: self._rng))
+        for name, arr in stub_inputs(cfg, n, lambda _: self._rng).items():
+            batch[name] = np.empty_like(arr)
+            batch[name][perm] = arr
         batch = {name: torch.as_tensor(arr, device=self.device)
                  for name, arr in batch.items()}
         small, logits = self.sb.prefill_fn(self.params, batch)
-        lm.graft_cache_slots(self.caches, small, [st.slot for st in states],
-                             rows=range(len(states)))
+        small = lm.shard_prompt_cache(self.sb.ctx, small, self.plan.max_seq)
+        mine = self._rows()
+        pairs = [(row - mine.start, st.slot - mine.start)
+                 for row, st in zip(rows, states) if st.slot in mine]
+        lm.graft_cache_slots(self.caches, small, [s for _, s in pairs],
+                             rows=[r for r, _ in pairs])
         # argmax over the padded vocab, folded back into range, as the
         # reference takes the first token
         first = (logits[:, -1, :].argmax(dim=-1) % cfg.vocab_size).cpu() \
             .numpy()
-        for i, st in enumerate(states):
-            st.tokens.append(int(first[i]))
-            self.last_tok[st.slot] = first[i]
+        for row, st in zip(rows, states):
+            st.tokens.append(int(first[row]))
+            self.last_tok[st.slot] = first[row]
 
     def decode(self, states):
         toks = np.zeros((self.plan.max_batch, 1), np.int64)
@@ -302,39 +367,314 @@ class TorchServeExecutor:
             self.last_tok[st.slot] = nxt[st.slot]
         return None
 
+    def global_cache(self, slots=None) -> dict:
+        """The cache's global rows ``slots`` (default every slot), each
+        leaf gathered over the mesh (:func:`lm.cache_specs`); a collective
+        every rank calls alike."""
+        slots = list(range(self.plan.max_batch)) if slots is None \
+            else list(slots)
+        specs = lm.cache_specs(self.sb.ctx, self.plan.max_batch)
+        return _map_leaves(
+            lambda leaf, spec: _global_leaf(leaf, spec, self.dist)[0][
+                :, slots], self.caches, specs)
+
     def migrate(self, new_plan, mig, wafer=None):
         """Adopt a post-fault plan: rebuild the serve bundle for the new
-        contract and graft the survivors' cache rows from the old cache
-        into their new slots of a fresh one (``graft_cache_slots`` with
-        an old-slot -> new-slot remap), then remap ``last_tok``.
+        contract and move the survivors' cache rows from their old slots
+        to their new ones in a fresh cache, then remap ``last_tok``.
 
-        The parameters are kept: the reference rebuilds them from the
-        same ``jax.random.key(0)``, and ``init_params`` does not read the
-        parallel config, so the values would be the same; rebuilding
-        them would cost time and a second copy on the device.  On one
-        device a degraded plan's mesh is still ``(1, 1)``
-        (:func:`make_plan_dist` raises otherwise).  Returns None: the
-        rebuild and graft take real time."""
+        Where the new plan keeps the mesh (its shape and device order)
+        the weights stay and every rank grafts the survivors' rows on its
+        own block, if each survivor's new slot is on the data rank of its
+        old one.  Otherwise the survivors' global rows are gathered over
+        the old mesh (:meth:`global_cache`), the new mesh is built and
+        each rank cuts its rows, positions and heads from them; the
+        weights are re-cut leaf by leaf (:func:`_recut_params`: one
+        leaf's global array at a time).  The reference rebuilds the
+        weights from the same ``jax.random.key(0)``, and ``init_params``
+        does not read the parallel config, so the values are the same
+        either way.  On one device every plan's mesh is ``(1, 1)``.
+        ``last_migration`` gets the path taken (``"graft"`` or
+        ``"reshard"``), its seconds and the cache and weight bytes this
+        rank contributed to the gathers.  Returns None: the rebuild and
+        the moves take real time."""
+        t0 = time.perf_counter()
         old_caches, old_last = self.caches, self.last_tok
+        old_dist, old_par, old_plan = self.dist, self.par, self.plan
+        moves = [(old, new) for _, old, new in mig.survivors]
+        world = _world()
+        kept = (plan_mesh_shape(new_plan, world)
+                == plan_mesh_shape(old_plan, world)
+                and plan_device_permutation(new_plan, world)
+                == plan_device_permutation(old_plan, world))
+        local = kept and all(
+            _owner(old, old_plan.max_batch, old_dist)
+            == _owner(new, new_plan.max_batch, old_dist)
+            for old, new in moves)
+        surv, moved = None, 0
+        if moves and not local:
+            surv = self.global_cache([old for old, _ in moves])
+            moved += _tree_bytes(old_caches)
+            old_caches = None
         self._build(new_plan, self.device)
         self.caches = self._fresh_cache()
-        if mig.survivors:
-            lm.graft_cache_slots(
-                self.caches, old_caches,
-                [new_slot for _, _, new_slot in mig.survivors],
-                rows=[old_slot for _, old_slot, _ in mig.survivors])
+        if moves and local:
+            was, now = self._rows(old_plan), self._rows()
+            pairs = [(old - was.start, new - now.start) for old, new in moves
+                     if new in now]
+            lm.graft_cache_slots(self.caches, old_caches,
+                                 [n for _, n in pairs],
+                                 rows=[o for o, _ in pairs])
+        elif moves:
+            specs = lm.cache_specs(self.sb.ctx, new_plan.max_batch)
+            now = self._rows()
+            pairs = [(j, new - now.start) for j, (_, new) in enumerate(moves)
+                     if new in now]
+            _place_rows(self.caches, surv, specs, self.dist, pairs)
+        if not kept or old_par.strategy != self.par.strategy:
+            moved += _tree_bytes(self.params)
+            self.params = _recut_params(self.cfg, self.params, old_dist,
+                                        old_par.strategy, self.dist,
+                                        self.par.strategy)
         self.last_tok = np.zeros(new_plan.max_batch, np.int64)
         for _, old_slot, new_slot in mig.survivors:
             self.last_tok[new_slot] = old_last[old_slot]
         _sync(self.device)
+        self.last_migration = {
+            "path": "graft" if local or not moves else "reshard",
+            "weights": "kept" if kept and old_par.strategy
+            == self.par.strategy else "recut",
+            "seconds": time.perf_counter() - t0, "bytes": moved}
         return None
 
 
-def serve_engine(args, params=None, executor=None) -> dict:
+def _world() -> int:
+    return tdist.get_world_size() if tdist.is_initialized() else 1
+
+
+def _owner(slot: int, max_batch: int, dist) -> int:
+    """The data rank that holds ``slot`` of ``max_batch`` (0 where the
+    rows are not split)."""
+    deg = dist.batch_degree
+    return slot // (max_batch // deg) if deg > 1 and max_batch % deg == 0 \
+        else 0
+
+
+def _map_leaves(fn, tree, specs):
+    """``fn(leaf, spec)`` over ``tree``'s leaves in sorted key order (the
+    same order on every rank: ``fn`` may be a collective)."""
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, tree[k], specs[k]) for k in sorted(tree)}
+    return fn(tree, specs)
+
+
+def _tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def _place_rows(caches, rows, specs, dist, pairs):
+    """Write ``rows``' global rows ``j`` (every leaf ``[reps, k, ...]``)
+    into this rank's local slots ``s`` of ``caches`` for each ``(j, s)``
+    of ``pairs``, each cut to this rank's block of the other dims."""
+    if not pairs:
+        return
+    js = [j for j, _ in pairs]
+    slots = [s for _, s in pairs]
+
+    def put(leaf, spec, src):
+        cut = _shard(src[:, js], (spec[0], None) + tuple(spec[2:]), dist)
+        leaf[:, torch.as_tensor(slots, device=leaf.device)] = cut.to(
+            device=leaf.device, dtype=leaf.dtype)
+
+    for key in sorted(caches):
+        for name in sorted(caches[key]):
+            put(caches[key][name], specs[key][name], rows[key][name])
+
+
+def _recut_params(cfg, params, old_dist, old_strategy, new_dist,
+                  new_strategy):
+    """``params`` (this rank's shards on ``old_dist``) re-cut for
+    ``new_dist``, leaf by leaf in sorted key order: each leaf's global
+    array is gathered over the old mesh (``checkpoint._global_leaf``),
+    this rank's block cut from it (``weights._shard``) and the global
+    array and the old shard freed before the next leaf, so the peak is one
+    leaf's global array above the tree."""
+    old_specs = param_specs(cfg, old_strategy)
+    new_specs = param_specs(cfg, new_strategy)
+
+    def walk(tree, olds, news):
+        for k in sorted(tree):
+            if isinstance(tree[k], dict):
+                walk(tree[k], olds[k], news[k])
+                continue
+            full = _global_leaf(tree[k], olds[k], old_dist)[0]
+            tree[k] = None  # the old shard goes before the next leaf
+            tree[k] = _shard(full, news[k], new_dist).clone()
+            del full
+
+    walk(params, old_specs, new_specs)
+    return params
+
+
+def check_serve_plan(plan, cfg, world: int, prompt_lens=()) -> None:
+    """Raise, before the mesh is built, where ``plan`` cannot serve
+    ``cfg`` over ``world`` ranks: its ``max_batch`` slots must split over
+    its data degree and its ``max_seq`` positions over its ring; what the
+    reference cannot decode raises naming C5 (:func:`check_strategy`); a
+    sliding window on the ring is ROADMAP.md A3f; each of ``prompt_lens``
+    must split over the ring (:func:`check_prompt_len`)."""
+    data, model = plan_mesh_shape(plan, world)
+    if plan.max_batch % data:
+        raise ValueError(f"the plan's {plan.max_batch} decode slots do not "
+                         f"split over its data degree {data}")
+    if plan.max_seq % model:
+        raise ValueError(f"the plan's max_seq {plan.max_seq} does not split "
+                         f"over its ring degree {model}")
+    check_strategy(cfg, plan.parallel_config().strategy, model, "decode")
+    if model > 1 and cfg.sliding_window and "L" in cfg.layer_pattern:
+        raise not_ported("a sliding window in ring attention", "A3f")
+    ring = Dist(torch.device("cpu"), mesh_shape=(data, model))
+    for n in sorted(set(prompt_lens)):
+        check_prompt_len(ring, n, cfg)
+
+
+# ---------------------------------------------------------------------------
+# engine mode over several ranks: rank 0 leads, the others follow
+# ---------------------------------------------------------------------------
+
+
+class CommandLink:
+    """The engine's commands from rank 0 to the other ranks: small host
+    objects broadcast over a gloo group of the whole world (created by
+    every rank alike, apart from the mesh's groups, so the ring's
+    :class:`~repro_torch.core.dist.HostStage` figures leave them out).
+    ``calls`` and ``bytes`` (pickled) count what went over it."""
+
+    def __init__(self):
+        self.group = tdist.new_group(
+            backend="gloo",
+            timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+        self.calls = 0
+        self.bytes = 0
+
+    def broadcast(self, cmd=None):
+        """Rank 0's ``cmd``, on every rank."""
+        box = [cmd]
+        tdist.broadcast_object_list(box, src=0, group=self.group)
+        self.calls += 1
+        self.bytes += len(pickle.dumps(box[0]))
+        return box[0]
+
+
+def _wire(states) -> list:
+    """What another rank needs of each state to make the same call."""
+    return [(st.req.rid, st.req.prompt_len, st.slot, st.context_len)
+            for st in states]
+
+
+def _states(wire) -> list:
+    """Stand-ins for the engine's states, from :func:`_wire`."""
+    return [SimpleNamespace(req=SimpleNamespace(rid=rid, prompt_len=plen),
+                            slot=slot, context_len=clen, tokens=[])
+            for rid, plen, slot, clen in wire]
+
+
+class LeaderExecutor:
+    """Rank 0's executor over several ranks: each call the engine makes is
+    first broadcast to the other ranks (:class:`CommandLink`; they make it
+    in :func:`follow`), then made here on ``inner`` (the
+    :class:`TorchServeExecutor` or a wrapper of it, as on the others).
+    What ``checks`` (default ``inner``, a :class:`TorchServeExecutor`)
+    refuses raises before the call is sent: a prefill's prompt lengths
+    (``checks.check``), a migration's plan (:func:`check_serve_plan`).
+    :meth:`stop` ends the followers."""
+
+    def __init__(self, inner, link: CommandLink, checks=None):
+        self.inner = inner
+        self.link = link
+        self.checks = checks if checks is not None else inner
+        self._busy = False
+
+    def _call(self, method, args, cmd):
+        self.link.broadcast(cmd)
+        self._busy = True  # the others are in the call now
+        out = getattr(self.inner, method)(*args)
+        self._busy = False
+        return out
+
+    def prefill(self, states):
+        self.checks.check(states)
+        return self._call("prefill", (states,), ("prefill", _wire(states)))
+
+    def decode(self, states):
+        return self._call("decode", (states,), ("decode", _wire(states)))
+
+    def migrate(self, new_plan, mig, wafer=None):
+        check_serve_plan(new_plan, self.checks.cfg, _world())
+        return self._call("migrate", (new_plan, mig, wafer),
+                          ("migrate", new_plan.dumps(),
+                           [list(s) for s in mig.survivors]))
+
+    def stop(self, error=None):
+        """End the followers, from the caller's ``finally``: ``stop``
+        carries ``error`` (what ended the run, if anything), which they
+        raise.  Nothing is sent while a call is under way on them (they
+        are in its collectives: the groups' timeout or the launcher ends
+        them), and with ``error`` set a failed send is dropped, so the
+        caller's error stands."""
+        if self._busy:
+            return
+        msg = None if error is None else f"{type(error).__name__}: {error}"
+        try:
+            self.link.broadcast(("stop", msg))
+        except Exception:
+            if error is None:
+                raise
+
+
+def follow(executor, link: CommandLink) -> int:
+    """A follower rank's loop: make each call rank 0 broadcasts on
+    ``executor`` until ``stop``; returns the number of calls.  A ``stop``
+    that carries rank 0's error raises it here."""
+    from repro_torch.core.plan import ServePlan
+    n = 0
+    while True:
+        cmd = link.broadcast()
+        kind = cmd[0]
+        if kind == "stop":
+            if cmd[1] is not None:
+                raise RuntimeError(f"rank 0 stopped the engine: {cmd[1]}")
+            return n
+        if kind == "prefill":
+            executor.prefill(_states(cmd[1]))
+        elif kind == "decode":
+            executor.decode(_states(cmd[1]))
+        elif kind == "migrate":
+            executor.migrate(ServePlan.loads(cmd[1]),
+                             SimpleNamespace(
+                                 survivors=[tuple(s) for s in cmd[2]]))
+        else:
+            raise ValueError(f"unknown engine command {kind!r}")
+        n += 1
+
+
+def serve_engine(args, params=None, executor=None):
     """Engine mode: solve -> ServePlan -> continuous-batching run (the
-    reference's ``serve_engine``).  ``params`` go to
-    :class:`TorchServeExecutor`; ``executor``, if given, wraps it
-    (``executor(ex) -> executor``, e.g. to count or time its calls)."""
+    reference's ``serve_engine``); the report as a dict.  ``params`` (this
+    rank's shard) go to :class:`TorchServeExecutor`; ``executor``, if
+    given, wraps it (``executor(ex) -> executor``, e.g. to count or time
+    its calls) on every rank alike.
+
+    Over several ranks (``torch.distributed.run``) every rank joins the
+    world, resolves the plan (rank 0 first, so the others read its cache
+    entry) and builds its executor on the plan's mesh; rank 0 alone runs
+    the engine, the fault timeline and the replans, broadcasting each
+    executor call before it makes it (:class:`LeaderExecutor`), and the
+    others make the same calls (:func:`follow`) until rank 0's ``stop``.
+    Rank 0 returns the report, the others None.  ``--sim`` has no tensors
+    to shard and raises over several ranks, before joining."""
     from repro_torch.launch.planning import resolve_serve_plan
     from repro_torch.serve.engine import (CostModelExecutor, ServeEngine,
                                           VirtualClock, WallClock,
@@ -342,60 +682,82 @@ def serve_engine(args, params=None, executor=None) -> dict:
     from repro_torch.wafer.topology import Wafer, WaferSpec
 
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
-    plan = resolve_serve_plan(cfg, args.max_batch,
-                              args.prompt_len + args.max_new,
-                              plan_path=args.plan,
-                              cache_dir=args.plan_cache,
-                              failed_dies=args.failed_dies,
-                              allow_ep=not args.no_ep)
-    print(plan.summary())
-    reqs = poisson_arrivals(
-        args.requests, args.rate, seed=args.seed,
-        prompt_len=args.prompt_len, max_new_tokens=args.max_new,
-        slo_ttft=args.slo_ttft or math.inf,
-        slo_tpot=args.slo_tpot or math.inf)
-    wafer = Wafer(WaferSpec(rows=plan.plan.wafer_rows,
-                            cols=plan.plan.wafer_cols),
-                  frozenset(plan.plan.failed_dies))
-    faults = ()
-    if args.fault_trace is not None:
-        from repro_torch.wafer.fault import parse_fault_trace
-        trace = parse_fault_trace(args.fault_trace, wafer)
-        faults = trace.events
-        print(f"fault trace '{args.fault_trace}': {len(faults)} event(s), "
-              f"kind={trace.kind}")
-    elif args.fault_at is not None:
-        from repro_torch.wafer.fault import sample_die_faults
-        rep_f = sample_die_faults(wafer, args.fault_frac, seed=args.seed)
-        faults = (rep_f.as_event(args.fault_at),)
-        print(f"fault scheduled at t={args.fault_at}s: "
-              f"dies {rep_f.failed_dies}")
-    governor = None
-    if args.governor:
-        from repro_torch.serve.governor import GovernorConfig
-        governor = GovernorConfig(
-            coalesce_s=args.coalesce_s, hysteresis=args.hysteresis,
-            backoff_base_s=args.backoff_base,
-            backoff_max_s=args.backoff_max,
-            replan_budget=args.replan_budget,
-            window_s=args.governor_window)
-    if args.sim:
-        ex = CostModelExecutor(plan, cfg, wafer)
-        clock = VirtualClock()
-    else:
-        run_cfg = replace(cfg, n_layers=args.layers) \
-            if getattr(args, "layers", None) else cfg
-        ex = TorchServeExecutor(plan, run_cfg, device=args.device,
-                                params=params)
-        clock = WallClock()
-    if executor is not None:
-        ex = executor(ex)
-    engine = ServeEngine(plan, ex, clock=clock, cfg=cfg, wafer=wafer,
-                         faults=faults, readmission=args.readmission,
-                         governor=governor,
-                         prefill_chunk_tokens=args.prefill_chunk_tokens,
-                         plan_cache_dir=args.plan_cache)
-    rep = engine.run(reqs)
+    rank, world, _ = world_from_env()
+    if args.sim and world > 1:
+        raise ValueError("--sim runs the cost model, with no tensors to "
+                         "shard: run it on one rank")
+    device = None if args.sim else join_world(args)
+    plan = first_resolves(lambda: resolve_serve_plan(
+        cfg, args.max_batch, args.prompt_len + args.max_new,
+        plan_path=args.plan, cache_dir=args.plan_cache,
+        failed_dies=args.failed_dies, allow_ep=not args.no_ep))
+    run_cfg = replace(cfg, n_layers=args.layers) \
+        if getattr(args, "layers", None) else cfg
+    link = ex = None
+    if not args.sim:
+        check_serve_plan(plan, run_cfg, world, [args.prompt_len])
+        link = CommandLink() if world > 1 else None
+        ex = TorchServeExecutor(plan, run_cfg, device=device, params=params)
+        ex.link = link
+        wrapped = executor(ex) if executor is not None else ex
+        if rank > 0:
+            follow(wrapped, link)
+            return None
+        if link is not None:
+            wrapped = LeaderExecutor(wrapped, link, checks=ex)
+    err = None
+    try:
+        print(plan.summary())
+        reqs = poisson_arrivals(
+            args.requests, args.rate, seed=args.seed,
+            prompt_len=args.prompt_len, max_new_tokens=args.max_new,
+            slo_ttft=args.slo_ttft or math.inf,
+            slo_tpot=args.slo_tpot or math.inf)
+        wafer = Wafer(WaferSpec(rows=plan.plan.wafer_rows,
+                                cols=plan.plan.wafer_cols),
+                      frozenset(plan.plan.failed_dies))
+        faults = ()
+        if args.fault_trace is not None:
+            from repro_torch.wafer.fault import parse_fault_trace
+            trace = parse_fault_trace(args.fault_trace, wafer)
+            faults = trace.events
+            print(f"fault trace '{args.fault_trace}': {len(faults)} "
+                  f"event(s), kind={trace.kind}")
+        elif args.fault_at is not None:
+            from repro_torch.wafer.fault import sample_die_faults
+            rep_f = sample_die_faults(wafer, args.fault_frac, seed=args.seed)
+            faults = (rep_f.as_event(args.fault_at),)
+            print(f"fault scheduled at t={args.fault_at}s: "
+                  f"dies {rep_f.failed_dies}")
+        governor = None
+        if args.governor:
+            from repro_torch.serve.governor import GovernorConfig
+            governor = GovernorConfig(
+                coalesce_s=args.coalesce_s, hysteresis=args.hysteresis,
+                backoff_base_s=args.backoff_base,
+                backoff_max_s=args.backoff_max,
+                replan_budget=args.replan_budget,
+                window_s=args.governor_window)
+        if args.sim:
+            wrapped = CostModelExecutor(plan, cfg, wafer)
+            if executor is not None:
+                wrapped = executor(wrapped)
+            clock = VirtualClock()
+        else:
+            clock = WallClock()
+        engine = ServeEngine(plan, wrapped, clock=clock, cfg=cfg,
+                             wafer=wafer, faults=faults,
+                             readmission=args.readmission,
+                             governor=governor,
+                             prefill_chunk_tokens=args.prefill_chunk_tokens,
+                             plan_cache_dir=args.plan_cache)
+        rep = engine.run(reqs)
+    except BaseException as e:
+        err = e
+        raise
+    finally:
+        if link is not None:
+            wrapped.stop(err)
     out = rep.to_dict()
     out["plan_hash"] = plan.plan_hash
     out["mode"] = "sim" if args.sim else "torch"
@@ -497,15 +859,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    rank, world, _ = world_from_env()
-    if args.serve and world > 1:
-        raise not_ported("engine mode (--serve) over several ranks", "A3e")
+    rank, _, _ = world_from_env()
     try:
         out = serve_engine(args) if args.serve else serve(args)
     finally:
         if tdist.is_initialized():
             tdist.destroy_process_group()
-    if rank == 0:
+    if out is not None and rank == 0:
         print(json.dumps(out))
 
 

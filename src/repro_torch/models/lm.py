@@ -527,6 +527,27 @@ def init_cache(ctx: RunCtx, batch_local: int, max_seq: int,
     return caches
 
 
+def cache_specs(ctx: RunCtx, batch: int):
+    """Each leaf's mesh axis per dim, in :func:`init_cache`'s structure,
+    for a cache of ``batch`` global rows (the reference's ``cache_specs``
+    on the port's layout): the batch over ``data`` where its degree
+    divides ``batch``; K/V positions, the cross blocks' encoder positions
+    and the Mamba-2 state's heads over the ring; the conv tail replicated
+    over it.  An axis of degree 1 is None."""
+    dist = ctx.dist
+    deg = dist.batch_degree
+    b = "data" if deg > 1 and batch % deg == 0 else None
+    mx = ctx.axis if ctx.r > 1 else None
+    unit, _ = _unit_and_reps(ctx.cfg)
+    kv = {n: (None, b, mx, None, None) for n in ("k", "v")}
+    ssm = {"state": (None, b, mx, None, None), "conv": (None, b, None, None)}
+    specs = {f"u{pos}": dict(kv if kind in ("G", "L", "S") else ssm)
+             for pos, kind in enumerate(unit)}
+    if ctx.cfg.n_enc_layers:
+        specs["cross"] = dict(kv)
+    return specs
+
+
 def shard_prompt_cache(ctx: RunCtx, caches, max_seq: int):
     """Prefill's self-attention K/V (sequence blocks of ``prompt / R``)
     moved to the ranks that own those positions in a ``max_seq`` decode

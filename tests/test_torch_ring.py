@@ -29,7 +29,8 @@ and write numpy outputs, which the tests compare:
   prints the reference's keys;
 
 and that the paths this slice leaves unported raise, naming their
-ROADMAP.md item."""
+ROADMAP.md item (engine mode over the ranks runs:
+``tests/test_torch_ring_engine.py``)."""
 
 import json
 import os
@@ -819,12 +820,20 @@ def test_unported_ring_paths_raise(monkeypatch):
     check_transport("gloo", ["h:GPU-0", "h:GPU-0"])
 
 
-def test_engine_mode_over_ranks_raises(monkeypatch):
+def test_engine_mode_over_ranks_joins_the_world(monkeypatch):
+    """Engine mode over several ranks goes on to join the world (it runs
+    there: ``tests/test_torch_ring_engine.py``)."""
     sys.path.insert(0, str(SRC))
-    from repro_torch.launch.serve import main
+    import repro_torch.launch.serve as launch
+
+    def joined(args):
+        raise RuntimeError("joined the world")
+
+    monkeypatch.setattr(launch, "join_world", joined)
     monkeypatch.setenv("WORLD_SIZE", "4")
-    with pytest.raises(NotImplementedError, match="A3e"):
-        main(["--serve", "--reduced", "--device", "cpu", "--auto-plan"])
+    with pytest.raises(RuntimeError, match="joined the world"):
+        launch.main(["--serve", "--reduced", "--device", "cpu",
+                     "--auto-plan"])
 
 
 def test_windowed_layer_over_the_ring_raises():
