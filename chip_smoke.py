@@ -214,6 +214,7 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    weights and its first tokens identical (but at a near tie), with
    each rank's prefill ms, ms/token, peak GB and the host-staged
    transport's share, and the token agreement with degree 1 reported;
+   then phase 16 in the same ranks;
 12. train ring — deepseek-7b trains through the TATP ring: the flash
    backward with an outside delta (``delta_in``) at one round of the
    (1, 4) train ([4, 32, 128, 128] bf16, the ring's global row LSE,
@@ -345,7 +346,34 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    of phase 5's degree-1 run; (c) int8 gradient compression on (b)'s fp32
    model under ``megatron`` at (2, 2): 2 steps' losses within 1e-2 of the
    degree-1 run's uncompressed ones, a nonzero residual, ZeRO-1 over
-   ``data``.
+   ``data``;
+16. engine on the ring — in phase 11's four ranks, after its serve:
+   ``launch.serve --serve --auto-plan --layers 4`` through
+   ``serve_engine`` on every rank, rank 0 leading (deepseek-7b at full
+   width cut to 4 layers, bf16, the full model's ServePlan: (1, 4), 4
+   slots, prompts of 128, 8 new tokens; ``RING_ENGINE``): (a) 6 Poisson
+   requests at 0.55 a second (at most 60 % of what the slots serve at
+   the measured call times), every request finished with its 8 tokens,
+   on every rank exactly one ring prefill's launches per prefill group
+   (112 GEMM tiles on ``wgmma``, 4 (i + 1) flash on ``mma`` on rank i)
+   and none in a decode, and every call made on every rank; (b) 5
+   requests with ``--fault-at 7.0 --fault-frac 0.125``: one replan, to
+   the plan ``replan_serve`` solves offline, the mesh kept at (1, 4),
+   the survivors grafted in place; (c) the same with ``--fault-frac
+   0.25``: one replan to (2, 2), the caches and weights resharded on the
+   card; (b, c) the survivors' global cache rows gathered before and
+   after the migration bit for bit, every request finished or rejected
+   with a reason; (d) fp32 (TF32 off), 2 layers, the engine at (1, 4) on
+   the kernels against the plain hooks on a virtual clock (1.0 s a
+   call): identical token streams and reports, every prefill's logits
+   within rtol = atol = 1e-3.  ``[engine ring]`` lines give TTFT, TPOT,
+   tokens/s, makespan, occupancy, each rank's staged seconds, GB and
+   calls and the command bytes, the recovery pause and the reshard's
+   seconds and bytes, the capacity the call times give and the phase's
+   time, each beside the card's name and power limit.  Alone (~4 min
+   with the build): ``phase_device``, ``phase_build`` and
+   ``phase_ring_engine_alone(torch)`` of ``chip_smoke`` with ``.`` and
+   ``src`` on ``sys.path`` and TF32 off.
 
 It then prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``.
@@ -508,6 +536,11 @@ class SmokeFailure(RuntimeError):
     pass
 
 
+# the card's name and power limit as nvidia-smi gives them (phase_device),
+# for the lines that give a time
+CARD = {"smi": "not read"}
+
+
 def need(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
@@ -659,6 +692,7 @@ def phase_device(torch):
     ).stdout.strip().splitlines()
     need(bool(smi), "nvidia-smi printed no card")
     name = torch.cuda.get_device_name(0)
+    CARD["smi"] = smi[0]
     log(f"[device] {name}; nvidia-smi: {smi[0]}; torch {torch.__version__}"
         f" cuda {torch.version.cuda}; count {torch.cuda.device_count()}")
     return name, smi[0]
@@ -3985,6 +4019,7 @@ def ring_rank_main(out_dir) -> int:
         rec["parity_s"] = time.perf_counter() - t0
         rec.update(ring_serve(torch, out_dir, rank))
         (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(rec))
+        ring_engine(torch, out_dir, rank)  # phase 16
     finally:
         tdist.destroy_process_group()
     return 0
@@ -4088,6 +4123,7 @@ def phase_ring(torch, randn, degree1):
                 for i in range(r)]
         par = [torch.load(Path(tmp) / f"parity{i}.pt") for i in range(r)]
         srv = [torch.load(Path(tmp) / f"serve{i}.pt") for i in range(r)]
+        engine_runs = phase_ring_engine(torch, tmp)  # phase 16
     for rec in recs:
         log(f"[ring] rank {rec['rank']} transport "
             f"{json.dumps(rec['transport'])}")
@@ -4161,6 +4197,7 @@ def phase_ring(torch, randn, degree1):
              f"rank {i}'s tokens differ from rank 0's")
         runs[f"deepseek-7b ring {tuple(RING['mesh'])} rank {i}"] = (
             rec["launches"], rec["launches_by_path"])
+    runs.update(engine_runs)
     need(err <= RING_BF16_TOL, f"bf16 ring prefill logits rel L2 {err:.3e} "
          f"> {RING_BF16_TOL}")
     for row in range(len(first)):
@@ -4170,6 +4207,436 @@ def phase_ring(torch, randn, degree1):
              f"row {row}: first token {first[row]} != degree 1's "
              f"{first1[row]} at margin {margin[row]:.3e}")
     return rows, runs
+
+
+# ---------------------------------------------------------------------------
+# phase 16: engine mode on the ring, in phase 11's ranks
+# ---------------------------------------------------------------------------
+
+# deepseek-7b at full width cut to 4 layers, bf16, under the full model's
+# --auto-plan ServePlan (4 slots x 136 tokens: (1, 4) on four ranks);
+# prompts of 128 tokens, 8 new tokens a request
+RING_ENGINE = dict(arch="deepseek-7b", layers=4, max_batch=4, prompt_len=128,
+                   max_new=8)
+# the offered load: Poisson arrivals at RING_ENGINE_RATE a second (seed 0),
+# at most 60 % of what 4 slots serve at the measured call times: a
+# prefill group 1.94 s and a decode call 0.29 s give 1.005 requests a
+# second (PERF.md section 5; 0.8 a second, 80 %, queued); the faults land
+# at RING_ENGINE_FAULT_AT s of the engine's clock, two requests in flight
+RING_ENGINE_RATE = 0.55
+RING_ENGINE_FAULT_AT = 7.0
+# (label, requests, --fault-frac or None, the mesh the run ends on)
+RING_ENGINE_RUNS = (("fault-free", 6, None, (1, 4)),
+                    ("fault 1/8", 5, 0.125, (1, 4)),
+                    ("fault 1/4", 5, 0.25, (2, 2)))
+# fp32 parity (TF32 off): 2 layers at full width under the same plan, the
+# kernels against the plain hooks, one wave of 4 requests on a virtual
+# clock (1.0 s a call)
+RING_ENGINE_PARITY = dict(n_layers=2, prompt_lens=(128, 64), max_new=4)
+RING_ENGINE_S = 60  # the phase's budget of wall clock
+
+
+class RankCalls:
+    """A rank's executor wrapper in phase 16 (every rank makes the same
+    calls): each call's kind, host ms, prompt-length groups, mesh and
+    ring index, its kernel launches (the counters read before and after
+    it) and the staged transport it added (seconds, bytes, calls; across
+    a migration the old mesh's stage and the new one's); each migration's
+    survivors' global cache rows gathered before and after it (a
+    collective, on every rank) and compared bit for bit.  Returns None:
+    the wall clock stands."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.calls, self.moves = [], []
+
+    def _staged(self, fn):
+        old = self.inner.dist.stage
+        s0 = (old.seconds, old.bytes, old.calls) if old else (0.0, 0, 0)
+        fn()
+        d = [getattr(old, k) - v if old else 0 for k, v in
+             zip(("seconds", "bytes", "calls"), s0)]
+        new = self.inner.dist.stage
+        if new is not old and new is not None:
+            d = [d[0] + new.seconds, d[1] + new.bytes, d[2] + new.calls]
+        return d
+
+    def _call(self, kind, fn, groups=0):
+        dist = self.inner.dist
+        rec = dict(kind=kind, groups=groups, mesh=list(dist.mesh_shape),
+                   ring_index=dist.coords[1])
+        before = read_launches()
+        t0 = time.perf_counter()
+        rec["staged_s"], rec["staged_bytes"], rec["staged_calls"] = \
+            self._staged(fn)
+        rec["ms"] = (time.perf_counter() - t0) * 1e3
+        after = read_launches()
+        rec["launches"] = {k: after[k] - before[k] for k in after}
+        self.calls.append(rec)
+
+    def prefill(self, states):
+        groups = len({st.req.prompt_len for st in states})
+        self._call("prefill", lambda: self.inner.prefill(states), groups)
+
+    def decode(self, states):
+        self._call("decode", lambda: self.inner.decode(states))
+
+    def migrate(self, new_plan, mig, wafer=None):
+        import torch
+        olds = [o for _, o, _ in mig.survivors]
+        news = [n for _, _, n in mig.survivors]
+        before = self.inner.global_cache(olds)
+        self._call("migrate",
+                   lambda: self.inner.migrate(new_plan, mig, wafer))
+        after = self.inner.global_cache(news)
+        self.moves.append(dict(
+            self.inner.last_migration, survivors=len(olds),
+            mesh=list(self.inner.dist.mesh_shape),
+            exact=all(torch.equal(before[u][n], after[u][n])
+                      for u in before for n in before[u])))
+
+
+def ring_engine_run(torch, out_dir, label, requests, frac):
+    """``serve_engine`` (``launch.serve --serve --auto-plan --layers 4``)
+    on every rank of the world, each rank's executor in a
+    :class:`RankCalls`: the launch counts zeroed just before it and read
+    just after."""
+    from repro_torch.launch.serve import build_parser, serve_engine
+
+    e = RING_ENGINE
+    argv = ["--arch", e["arch"], "--serve", "--auto-plan", "--layers",
+            str(e["layers"]), "--max-batch", str(e["max_batch"]),
+            "--prompt-len", str(e["prompt_len"]), "--max-new",
+            str(e["max_new"]), "--requests", str(requests), "--rate",
+            str(RING_ENGINE_RATE), "--dist-backend", RING["backend"],
+            "--plan-cache", str(Path(out_dir) / "engine_plans")]
+    if frac is not None:
+        argv += ["--fault-at", str(RING_ENGINE_FAULT_AT), "--fault-frac",
+                 str(frac)]
+    wrapped = []
+
+    def wrap(ex):
+        wrapped.append(RankCalls(ex))
+        return wrapped[0]
+
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    rep = serve_engine(build_parser().parse_args(argv), executor=wrap)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    calls = wrapped[0]
+    link = calls.inner.link
+    return dict(label=label, report=rep, calls=calls.calls,
+                moves=calls.moves, launches=read_launches(),
+                launches_by_path=read_paths(), wall_s=wall_s,
+                link_calls=link.calls, link_bytes=link.bytes,
+                mesh_after=list(calls.inner.dist.mesh_shape))
+
+
+def ring_engine_parity(torch, out_dir, rank):
+    """fp32 (TF32 off), 2 layers at full width under the (1, 4) plan of
+    the runs before: the engine on the kernels, then on the plain hooks,
+    each on a virtual clock (1.0 s a call), rank 0 leading; every
+    prefill's last logits and, on rank 0, the token streams and report."""
+    import dataclasses
+
+    from repro_torch.core.plan import ServePlan
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.tatp_matmul.ref import matmul_ref
+    from repro_torch.launch.serve import (CommandLink, LeaderExecutor,
+                                          TorchServeExecutor, follow)
+    from repro_torch.serve.engine import Request, ServeEngine, VirtualClock
+
+    spec = RING_ENGINE_PARITY
+    plans = [ServePlan.load(str(f)) for f in
+             sorted((Path(out_dir) / "engine_plans").glob("splan_*.json"))]
+    plan = next(p for p in plans if p.plan.tatp == 4
+                and not p.plan.failed_dies)
+    cfg = parity_config(RING_ENGINE["arch"], spec["n_layers"])
+    plens = spec["prompt_lens"]
+    reqs = [Request(rid=i, arrival=0.0, prompt_len=plens[i % len(plens)],
+                    max_new_tokens=spec["max_new"]) for i in range(4)]
+    plain = dict(dot=matmul_ref, attention=attention_ref)
+    link = CommandLink()
+    out = {}
+    for name, hooks in (("kernels", {}), ("plain", plain)):
+        ex = TorchServeExecutor(plan, cfg, device=torch.device(
+            "cuda", torch.cuda.current_device()), **hooks)
+        logits = []
+        inner = ex.sb.prefill_fn
+
+        def recorded(params, batch, inner=inner, logits=logits):
+            caches, lg = inner(params, batch)
+            logits.append(lg[:, -1].float().cpu())
+            return caches, lg
+
+        ex.sb = dataclasses.replace(ex.sb, prefill_fn=recorded)
+        calls = RankCalls(ex)
+        zero_launches()
+        if rank == 0:
+            lead = LeaderExecutor(calls, link)
+
+            class Fixed:
+                def prefill(self, states):
+                    lead.prefill(states)
+                    return 1.0
+
+                def decode(self, states):
+                    lead.decode(states)
+                    return 1.0
+
+            err = None
+            try:
+                eng = ServeEngine(plan, Fixed(), clock=VirtualClock(),
+                                  cfg=cfg)
+                rep = eng.run([Request(**vars(r)) for r in reqs])
+            except BaseException as e:
+                err = e
+                raise
+            finally:
+                lead.stop(err)
+            out[name] = dict(report=rep.to_dict(), streams=sorted(
+                (st.req.rid, tuple(st.tokens))
+                for st in eng.sched.finished))
+        else:
+            follow(calls, link)
+            out[name] = {}
+        torch.cuda.synchronize()
+        out[name].update(launches=read_launches(), calls=len(calls.calls))
+        torch.save(logits, Path(out_dir) / f"engine_parity_{name}{rank}.pt")
+        del ex, calls
+        release(torch)
+    return out
+
+
+def ring_engine(torch, out_dir, rank):
+    """Phase 16 on one rank: the fault-free run, the two faults, the fp32
+    parity; the records to ``engine<rank>.json``."""
+    t0 = time.perf_counter()
+    rec = dict(rank=rank, runs=[ring_engine_run(torch, out_dir, label, n,
+                                                frac)
+                                for label, n, frac, _ in RING_ENGINE_RUNS])
+    rec["runs_s"] = time.perf_counter() - t0
+    rec["parity"] = ring_engine_parity(torch, out_dir, rank)
+    rec["phase_s"] = time.perf_counter() - t0
+    (Path(out_dir) / f"engine{rank}.json").write_text(json.dumps(rec))
+
+
+def ring_engine_rank_main(out_dir) -> int:
+    """One rank of phase 16 alone (``--ring-engine-rank``)."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.core.dist import init_world, world_from_env
+
+    rank, _, local = world_from_env()
+    dev = torch.device("cuda", local % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_world(RING["backend"])
+    try:
+        ring_engine(torch, out_dir, rank)
+    finally:
+        tdist.destroy_process_group()
+    return 0
+
+
+def ring_engine_capacity(calls):
+    """Requests a second that 4 slots serve at a run's call times: one
+    prefill of a full group (its median) and ``max_new - 1`` decode calls
+    (their median) for every ``max_batch`` requests."""
+    e = RING_ENGINE
+    med = {}
+    for kind in ("prefill", "decode"):
+        ms = sorted(c["ms"] for c in calls if c["kind"] == kind)
+        med[kind] = ms[len(ms) // 2]
+    return med, e["max_batch"] / (
+        (med["prefill"] + (e["max_new"] - 1) * med["decode"]) / 1e3)
+
+
+def phase_ring_engine(torch, out_dir):
+    """Phase 16's checks on the ranks' records (``engine<rank>.json``):
+    (a) fault-free: every request finished with its 8 tokens, on every
+    rank exactly one ring prefill's launches per prefill group (28 GEMM
+    tiles a layer on ``wgmma``, i + 1 flash rounds a layer on rank i on
+    ``mma``) and none in a decode, every call on every rank; (b) one
+    replan at the 1/8 fault, to the plan ``replan_serve`` solves offline,
+    the mesh kept at (1, 4) and the survivors grafted in place bit for
+    bit; (c) one replan at the 1/4 fault to (2, 2), caches and weights
+    resharded, the survivors' rows moved bit for bit; (b, c) every
+    request finished or rejected with a reason; (d) fp32 parity of the
+    engine on the kernels against the plain hooks: identical token
+    streams and reports, every prefill's logits within phase 11's
+    tolerance.  Returns each rank's runs for the kernels line."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.plan import ServePlan, replan_serve
+    from repro_torch.wafer.fault import sample_die_faults
+
+    r = RING["ranks"]
+    recs = [json.loads((Path(out_dir) / f"engine{i}.json").read_text())
+            for i in range(r)]
+    e = RING_ENGINE
+    cfg = replace_layers(get_config(e["arch"]), e["layers"])
+    full = get_config(e["arch"])
+    plans = {p.plan_hash: p for p in (
+        ServePlan.load(str(f))
+        for f in (Path(out_dir) / "engine_plans").glob("splan_*.json"))}
+    card = CARD["smi"]
+    runs = {}
+    for k, (label, sent, frac, mesh) in enumerate(RING_ENGINE_RUNS):
+        what = f"ring engine {label}"
+        rep = recs[0]["runs"][k]["report"]
+        rank_runs = [rec["runs"][k] for rec in recs]
+        for i, run in enumerate(rank_runs):
+            n_calls = [c["kind"] for c in run["calls"]]
+            need(n_calls == [c["kind"] for c in rank_runs[0]["calls"]],
+                 f"{what}: rank {i} made calls {n_calls}, rank 0 "
+                 f"{[c['kind'] for c in rank_runs[0]['calls']]}")
+            need(run["link_calls"] == rank_runs[0]["link_calls"],
+                 f"{what}: rank {i} took {run['link_calls']} commands")
+            need(run["mesh_after"] == list(mesh),
+                 f"{what}: rank {i} ended on {run['mesh_after']}")
+            total = {}
+            for c in run["calls"]:
+                if c["kind"] == "prefill":
+                    one = ring_launches(cfg, c["mesh"][1], c["ring_index"])
+                    want = {n: v * c["groups"] for n, v in one.items()}
+                else:
+                    want = {n: 0 for n in c["launches"]}
+                need(c["launches"] == want, f"{what}: rank {i} {c['kind']} "
+                     f"on {c['mesh']} launched {c['launches']}, want {want}")
+                for n, v in c["launches"].items():
+                    total[n] = total.get(n, 0) + v
+            need(total == run["launches"], f"{what}: rank {i} launched "
+                 f"{run['launches']} in all, its calls {total}")
+            for name, kpath in MAIN_PATH_KERNEL.items():
+                need(run["launches_by_path"][name][kpath]
+                     == run["launches"][name],
+                     f"{what}: rank {i} {name} by path "
+                     f"{run['launches_by_path'][name]}")
+            runs[f"deepseek-7b engine ring {label} rank {i}"] = (
+                run["launches"], run["launches_by_path"])
+        need(rep["mode"] == "torch" and rep["n_requests"] == sent,
+             f"{what}: {rep['mode']}, {rep['n_requests']} of {sent}")
+        if frac is None:
+            need(rep["n_finished"] == sent and rep["generated_tokens"]
+                 == sent * e["max_new"] and rep["n_replans"] == 0,
+                 f"{what}: {rep['n_finished']} finished, "
+                 f"{rep['generated_tokens']} tokens, {rep['n_replans']} "
+                 f"replans")
+            med, cap = ring_engine_capacity(rank_runs[0]["calls"])
+            log(f"[engine ring] capacity: prefill group {med['prefill']:.1f}"
+                f" ms, decode call {med['decode']:.1f} ms (medians) -> "
+                f"{cap:.3f} requests/s; offered {RING_ENGINE_RATE}/s = "
+                f"{RING_ENGINE_RATE / cap:.1%} ({card})")
+        else:
+            need(rep["n_replans"] == 1 and len(rep["recovery"]) == 1,
+                 f"{what}: {rep['n_replans']} replans")
+            ev = rep["recovery"][0]
+            plan = plans[ev["old_plan_hash"]]
+            wafer = plan.plan.wafer()
+            dies = sample_die_faults(wafer, frac, seed=0).failed_dies
+            need(tuple(ev["failed_dies"]) == tuple(dies),
+                 f"{what}: the fault killed {ev['failed_dies']}, the "
+                 f"sampler gives {dies}")
+            offline = replan_serve(plan, full, wafer.with_faults(dies, ()),
+                                   use_cache=False)
+            need(ev["new_plan_hash"] == offline.plan_hash,
+                 f"{what}: adopted {ev['new_plan_hash']}, offline "
+                 f"replan_serve gives {offline.plan_hash}")
+            need(rep["n_finished"] + rep["n_rejected"] == sent
+                 and all(reason for _, reason in rep["rejected"]),
+                 f"{what}: {rep['n_finished']} finished, rejected "
+                 f"{rep['rejected']}")
+            for i, run in enumerate(rank_runs):
+                need(len(run["moves"]) == 1, f"{what}: rank {i} migrated "
+                     f"{len(run['moves'])} times")
+                mv = run["moves"][0]
+                want = ("graft", "kept") if mesh == (1, 4) \
+                    else ("reshard", "recut")
+                need((mv["path"], mv["weights"]) == want
+                     and mv["mesh"] == list(mesh),
+                     f"{what}: rank {i} migration {mv}")
+                need(mv["survivors"] > 0 and mv["exact"],
+                     f"{what}: rank {i} moved {mv['survivors']} survivors, "
+                     f"bit for bit {mv['exact']}")
+        staged = [dict(rank=i, s=sum(c["staged_s"] for c in run["calls"]),
+                       gb=sum(c["staged_bytes"] for c in run["calls"]) / 1e9,
+                       calls=sum(c["staged_calls"] for c in run["calls"]),
+                       command_bytes=run["link_bytes"],
+                       commands=run["link_calls"])
+                  for i, run in enumerate(rank_runs)]
+        keys = ("n_finished", "n_rejected", "generated_tokens", "ttft_p50",
+                "ttft_p99", "tpot_p50", "tpot_p99", "tokens_per_s",
+                "makespan", "mean_occupancy", "n_replans")
+        out = {k: rep[k] for k in keys}
+        calls0 = rank_runs[0]["calls"]
+        out.update(requests_sent=sent, rate=RING_ENGINE_RATE,
+                   prefill_groups=sum(c["groups"] for c in calls0
+                                      if c["kind"] == "prefill"),
+                   decode_calls=sum(c["kind"] == "decode" for c in calls0),
+                   wall_s=rank_runs[0]["wall_s"], staged=staged)
+        if frac is not None:
+            ev = rep["recovery"][0]
+            out["recovery"] = dict(
+                {key: ev[key] for key in (
+                    "old_plan_hash", "new_plan_hash", "pause_s", "n_active",
+                    "n_survivors", "n_evicted", "old_max_batch",
+                    "new_max_batch")},
+                migrate=[dict(rank=i, **run["moves"][0])
+                         for i, run in enumerate(rank_runs)],
+                migrate_ms=[c["ms"] for c in calls0
+                            if c["kind"] == "migrate"])
+        log(f"[engine ring] deepseek-7b {e['layers']} layers bf16, {label}: "
+            f"{json.dumps(out)} ({card})")
+    # (d) fp32 parity, kernels against plain hooks
+    par = recs[0]["parity"]
+    need(par["kernels"]["streams"] == par["plain"]["streams"],
+         "ring engine parity: token streams differ between the kernels "
+         "and the plain hooks")
+    need(par["kernels"]["report"] == par["plain"]["report"],
+         "ring engine parity: reports differ")
+    need(par["kernels"]["report"]["n_finished"] == 4,
+         f"ring engine parity: {par['kernels']['report']['n_finished']} "
+         f"finished")
+    tol = GEMM_TOL["float32"]
+    for i in range(r):
+        kern = torch.load(Path(out_dir) / f"engine_parity_kernels{i}.pt")
+        ref = torch.load(Path(out_dir) / f"engine_parity_plain{i}.pt")
+        need(len(kern) == len(ref) > 0, f"ring engine parity rank {i}: "
+             f"{len(kern)} and {len(ref)} prefills")
+        for j, (a, b) in enumerate(zip(kern, ref)):
+            compare(f"ring engine fp32 rank {i} prefill {j} logits", a, b,
+                    *tol)
+        p = recs[i]["parity"]
+        need(p["kernels"]["launches"]["tatp_matmul"] > 0
+             and p["kernels"]["launches"]["flash_attention"] > 0
+             and not any(p["plain"]["launches"].values()),
+             f"ring engine parity rank {i}: kernels launched "
+             f"{p['kernels']['launches']}, plain {p['plain']['launches']}")
+    log(f"[engine ring] fp32 parity, 2 layers, (1, 4): streams and report "
+        f"identical, {len(kern)} prefills' logits within {tol} "
+        f"({json.dumps(par['kernels']['streams'])})")
+    phase_s = recs[0]["phase_s"]
+    log(f"[engine ring] phase 16 on the ranks: {phase_s:.1f} s (runs "
+        f"{recs[0]['runs_s']:.1f} s; budget {RING_ENGINE_S} s) ({card})")
+    return runs
+
+
+def replace_layers(cfg, n_layers):
+    from dataclasses import replace
+    return replace(cfg, n_layers=n_layers)
+
+
+def phase_ring_engine_alone(torch):
+    """Phase 16 without phase 11 (its own four ranks): for a quick check
+    of the phase on the card after ``phase_device`` and ``phase_build``."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        run_ranks(torch, tmp, entry="--ring-engine-rank")
+        return phase_ring_engine(torch, tmp)
 
 
 # ---------------------------------------------------------------------------
@@ -6966,6 +7433,8 @@ if __name__ == "__main__":
     try:
         if sys.argv[1:2] == ["--ring-rank"]:  # one rank of phase 11
             sys.exit(ring_rank_main(sys.argv[2]))
+        if sys.argv[1:2] == ["--ring-engine-rank"]:  # phase 16 alone
+            sys.exit(ring_engine_rank_main(sys.argv[2]))
         if sys.argv[1:2] == ["--train-rank"]:  # one rank of phase 12
             sys.exit(ring_train_rank_main(sys.argv[2]))
         if sys.argv[1:2] == ["--ring-more-rank"]:  # one rank of phase 13

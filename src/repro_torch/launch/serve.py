@@ -303,14 +303,11 @@ class TorchServeExecutor:
         rng = np.random.RandomState(1000 + req.rid)
         return rng.randint(0, self.cfg.vocab_size, (req.prompt_len,))
 
-    def check(self, states):
-        """Raise, before any collective, where a prompt of ``states``
-        cannot be prefilled on this mesh (:func:`check_prompt_len`)."""
+    def prefill(self, states):
+        # a prompt the ring cannot split raises on every rank alike, before
+        # any collective
         for n in sorted({st.req.prompt_len for st in states}):
             check_prompt_len(self.dist, n, self.cfg)
-
-    def prefill(self, states):
-        self.check(states)
         # prefill_fn returns only the final position's logits, so one call
         # cannot serve mixed prompt lengths: group by length
         by_len: dict = {}
@@ -586,15 +583,13 @@ class LeaderExecutor:
     first broadcast to the other ranks (:class:`CommandLink`; they make it
     in :func:`follow`), then made here on ``inner`` (the
     :class:`TorchServeExecutor` or a wrapper of it, as on the others).
-    What ``checks`` (default ``inner``, a :class:`TorchServeExecutor`)
-    refuses raises before the call is sent: a prefill's prompt lengths
-    (``checks.check``), a migration's plan (:func:`check_serve_plan`).
+    What a call refuses (a prompt the ring cannot split, a plan the mesh
+    cannot take) it refuses on every rank alike before any collective.
     :meth:`stop` ends the followers."""
 
-    def __init__(self, inner, link: CommandLink, checks=None):
+    def __init__(self, inner, link: CommandLink):
         self.inner = inner
         self.link = link
-        self.checks = checks if checks is not None else inner
         self._busy = False
 
     def _call(self, method, args, cmd):
@@ -605,14 +600,12 @@ class LeaderExecutor:
         return out
 
     def prefill(self, states):
-        self.checks.check(states)
         return self._call("prefill", (states,), ("prefill", _wire(states)))
 
     def decode(self, states):
         return self._call("decode", (states,), ("decode", _wire(states)))
 
     def migrate(self, new_plan, mig, wafer=None):
-        check_serve_plan(new_plan, self.checks.cfg, _world())
         return self._call("migrate", (new_plan, mig, wafer),
                           ("migrate", new_plan.dumps(),
                            [list(s) for s in mig.survivors]))
@@ -704,7 +697,7 @@ def serve_engine(args, params=None, executor=None):
             follow(wrapped, link)
             return None
         if link is not None:
-            wrapped = LeaderExecutor(wrapped, link, checks=ex)
+            wrapped = LeaderExecutor(wrapped, link)
     err = None
     try:
         print(plan.summary())

@@ -118,6 +118,16 @@ class Stepped:
         return 1.0
 
 
+class FailsBetweenCalls(Stepped):
+    """Rank 0's engine failing after its first prefill, between calls."""
+
+    def __init__(self, inner):
+        super().__init__(inner, 4)
+
+    def decode(self, states):
+        raise RuntimeError("the scheduler failed")
+
+
 def _requests(eng, plens):
     """Four at once (the first wants 2 tokens), a fifth into the slot it
     frees, a sixth after the fault."""
@@ -241,6 +251,25 @@ def _reference(out_dir):
 # ---------------------------------------------------------------------------
 
 
+class GatherTracker:
+    """Stands in for ``launch.serve._global_leaf`` and records, at each
+    gather, how many global arrays of earlier gathers are still alive
+    (``peak_alive``: 0 means one leaf's global array at a time)."""
+
+    def __init__(self, fn):
+        import weakref
+        self.fn, self.ref = fn, weakref.ref
+        self.alive, self.peak_alive, self.gathers = [], 0, 0
+
+    def __call__(self, leaf, spec, dist):
+        self.alive = [r for r in self.alive if r() is not None]
+        self.peak_alive = max(self.peak_alive, len(self.alive))
+        full, copies = self.fn(leaf, spec, dist)
+        self.alive.append(self.ref(full))
+        self.gathers += 1
+        return full, copies
+
+
 class Probe:
     """Around a rank's executor: each migration's survivors' global cache
     rows gathered before and after it (a collective on every rank) and
@@ -282,6 +311,7 @@ def _wait_for(path, seconds=TIMEOUT):
 def _port_run(name, spec, rank, out_dir, link, params_from=None):
     """One engine run over the world: rank 0 leads, the others follow."""
     import torch
+    from repro_torch.launch import serve as launch
     from repro_torch.launch.serve import (LeaderExecutor, TorchServeExecutor,
                                           follow)
     from repro_torch.weights import params_from_jax, shard_params
@@ -298,8 +328,9 @@ def _port_run(name, spec, rank, out_dir, link, params_from=None):
         ex.params = shard_params(full, cfg, ex.par.strategy, ex.dist)
     probe = Probe(ex)
     rec = {"mesh": list(ex.dist.mesh_shape)}
+    tracker = launch._global_leaf = GatherTracker(launch._global_leaf)
     if rank == 0:
-        lead = LeaderExecutor(probe, link, checks=ex)
+        lead = LeaderExecutor(probe, link)
         stepped, err = Stepped(lead, after), None
         try:
             rec.update(_serve(pkg, plan, stepped, reqs, cfg, wafer,
@@ -312,8 +343,10 @@ def _port_run(name, spec, rank, out_dir, link, params_from=None):
         rec["calls"] = stepped.calls
     else:
         rec["followed"] = follow(probe, link)
+    launch._global_leaf = tracker.fn
     rec.update(moves=probe.moves, mesh_after=list(ex.dist.mesh_shape),
-               link_calls=link.calls)
+               link_calls=link.calls, gathers=tracker.gathers,
+               peak_alive=tracker.peak_alive)
     caches = {k: v.numpy() for k, v in _flat(ex.global_cache()).items()}
     if rank == 0:
         np.savez(Path(out_dir) / f"port_{name}_caches.npz", **caches)
@@ -329,20 +362,23 @@ def _raises(case, rank, out_dir, link):
 
     plans = Path(out_dir) / "plans"
     try:
-        if case == "leader":  # a prompt the ring cannot split, mid-run
+        if case in ("leader", "engine"):
             pkg = _packages("port")
             cfg, wafer, plan, _ = _setup(
                 pkg, "deepseek-7b", (8, 12), 20, 4, {},
                 Path(out_dir) / f"solved_{rank}")
             reqs = _requests(pkg.eng, (8, 12))
-            reqs[4] = dataclasses.replace(reqs[4], prompt_len=10)
+            if case == "leader":  # a prompt the ring cannot split, mid-run
+                reqs[4] = dataclasses.replace(reqs[4], prompt_len=10)
             ex = launch.TorchServeExecutor(plan, cfg, device="cpu")
             if rank == 0:
                 lead = launch.LeaderExecutor(ex, link)
+                stepped = Stepped(lead, 4) if case == "leader" \
+                    else FailsBetweenCalls(lead)
                 err = None
                 try:
-                    _serve(pkg, plan, Stepped(lead, 4), reqs, cfg, wafer,
-                           str(Path(out_dir) / "leader_plans"))
+                    _serve(pkg, plan, stepped, reqs, cfg, wafer,
+                           str(Path(out_dir) / f"{case}_plans"))
                 except Exception as e:
                     err = e
                     raise
@@ -354,11 +390,16 @@ def _raises(case, rank, out_dir, link):
             arch, plen, plan = {
                 "prompt": ("deepseek-7b", 10, "deepseek_1x4.json"),
                 "max_seq": ("deepseek-7b", 8, "deepseek_1x4_seq18.json"),
-                "window": ("gemma2-9b", 8, "gemma2_1x4.json")}[case]
+                "window": ("gemma2-9b", 8, "gemma2_1x4.json"),
+                "chunked": ("deepseek-7b", 8, "deepseek_1x4.json")}[case]
+            chunk = ["--prefill-chunk-tokens", "4"] if case == "chunked" \
+                else []
             args = launch.build_parser().parse_args([
                 "--serve", "--arch", arch, "--reduced", "--device", "cpu",
                 "--plan", str(plans / plan), "--prompt-len", str(plen),
-                "--max-new", str(GEN), "--requests", "2"])
+                "--max-new", str(GEN), "--requests", "2",
+                "--plan-cache", str(Path(out_dir) / f"{case}_plans"),
+                *chunk])
             assert isinstance(args, argparse.Namespace)
             launch.serve_engine(args)
         return ""
@@ -396,7 +437,8 @@ def _port_rank(rank, store_path, out_dir):
     link = CommandLink()
     _snake_collectives(rank, out_dir)
     raised = {case: _raises(case, rank, out_dir, link)
-              for case in ("prompt", "max_seq", "window", "leader")}
+              for case in ("prompt", "max_seq", "window", "leader",
+                           "engine", "chunked")}
     torch.distributed.barrier()  # nobody hangs after a raise
     _dump(Path(out_dir) / f"raised_{rank}.json", raised)
     for name, spec in REF_RUNS.items():
@@ -571,7 +613,9 @@ def test_ranks_match_the_one_rank_engine(runs, name):
 @pytest.mark.parametrize("name", RESHARDS)
 def test_migration_across_meshes_reshards(runs, name):
     """(1, 4) <-> (2, 2): the survivors' rows go through the global view
-    and the weights are re-cut; every rank ends on the new mesh."""
+    and the weights are re-cut leaf by leaf, so no gather starts while an
+    earlier one's global array is alive; every rank ends on the new
+    mesh."""
     _, _, _, before, after, _ = PORT_RUNS[name]
     for rec in _ranks(runs, name):
         assert rec["mesh"] == [4 // before, before]
@@ -579,6 +623,10 @@ def test_migration_across_meshes_reshards(runs, name):
         (move,) = rec["moves"]
         assert (move["path"], move["weights"]) == ("reshard", "recut")
         assert move["bytes"] > 0 and move["slots_moved"]
+        # the caches' leaves and every weight leaf went through the
+        # gather, one global array alive at a time
+        # (12 weight leaves, 2 cache leaves, the probe's 4 gathers)
+        assert rec["gathers"] == 18 and rec["peak_alive"] == 0
 
 
 def test_collectives_follow_the_plans_axis_order(runs):
@@ -620,15 +668,36 @@ def test_launcher_raises_on_every_rank(runs, case, want):
         assert all("A3f" in msg for msg in raised)
 
 
-def test_leader_refusal_ends_every_rank(runs):
-    """A prompt the ring cannot split, admitted mid-run: rank 0 refuses it
-    before sending the call, and its ``stop`` carries the error to the
-    others, which raise it."""
+def test_refused_call_ends_every_rank(runs):
+    """A prompt the ring cannot split, admitted mid-run: every rank
+    refuses the prefill before any collective, and none waits for
+    another."""
     raised = [_load(runs, f"raised_{r}.json")["leader"] for r in range(WORLD)]
-    assert raised[0].startswith("ValueError: prompt length 10"), raised
+    for msg in raised:
+        assert msg.startswith("ValueError: prompt length 10 is not a "
+                              "multiple of the ring degree 4"), raised
+
+
+def test_chunked_prefill_falls_back_as_on_one_rank(runs):
+    """``--prefill-chunk-tokens``: the engine chunks only where its
+    executor has a ``prefill_chunk``, which neither package's real
+    executor has, so it prefills in one pass on four ranks as on one."""
+    from repro_torch.launch.serve import LeaderExecutor, TorchServeExecutor
+    raised = [_load(runs, f"raised_{r}.json")["chunked"]
+              for r in range(WORLD)]
+    assert raised == [""] * WORLD
+    for cls in (LeaderExecutor, TorchServeExecutor):
+        assert not hasattr(cls, "prefill_chunk")
+
+
+def test_rank_0_error_ends_the_followers(runs):
+    """An error on rank 0 between calls (here the engine's scheduler):
+    its ``stop`` carries the error to the followers, which raise it."""
+    raised = [_load(runs, f"raised_{r}.json")["engine"] for r in range(WORLD)]
+    assert raised[0] == "RuntimeError: the scheduler failed", raised
     for msg in raised[1:]:
-        assert msg.startswith("RuntimeError: rank 0 stopped the engine: "
-                              "ValueError: prompt length 10"), raised
+        assert msg == ("RuntimeError: rank 0 stopped the engine: "
+                       "RuntimeError: the scheduler failed"), raised
 
 
 # ---------------------------------------------------------------------------
