@@ -428,7 +428,11 @@ class TorchServeExecutor:
             pairs = [(j, new - now.start) for j, (_, new) in enumerate(moves)
                      if new in now]
             _place_rows(self.caches, surv, specs, self.dist, pairs)
-        if not kept or old_par.strategy != self.par.strategy:
+        # the shards differ with the mesh, or with the strategy above
+        # model degree 1
+        recut = not kept or (self.dist.model_degree > 1
+                             and old_par.strategy != self.par.strategy)
+        if recut:
             moved += _tree_bytes(self.params)
             self.params = _recut_params(self.cfg, self.params, old_dist,
                                         old_par.strategy, self.dist,
@@ -439,8 +443,7 @@ class TorchServeExecutor:
         _sync(self.device)
         self.last_migration = {
             "path": "graft" if local or not moves else "reshard",
-            "weights": "kept" if kept and old_par.strategy
-            == self.par.strategy else "recut",
+            "weights": "recut" if recut else "kept",
             "seconds": time.perf_counter() - t0, "bytes": moved}
         return None
 
