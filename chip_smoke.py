@@ -222,8 +222,8 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    plain version with the same delta, timed beside the own-delta mode and
    SDPA's backward, and the dgrad and wgrad per-round GEMM tiles at 512
    rows a rank against their plain versions and ``torch.matmul``, in this
-   process alone; the degree-1 fp32 run (2 layers, batch 4 x seq 128, 3
-   steps, TF32 off); then ``torch.distributed.run`` starts four ranks of
+   process alone; the degree-1 fp32 run (2 layers, batch 4 x seq 128,
+   one step, TF32 off); then ``torch.distributed.run`` starts four ranks of
    this script (``--train-rank``) sharing the card over gloo, every step
    within RING_TRAIN's wall-clock limit: the fp32 run on meshes (1, 4)
    and (2, 2) (ZeRO-1 over data) from the shards of the same tree, each
@@ -235,8 +235,8 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    replaced by its plain version; the zero-initialised norm scales),
    exact launches on ``simt``; then ``launch.train --mesh 1
    4 --layers 4`` in bf16 (batch 4 x seq 512, remat, one step, 2 until
-   phase 15 needed the time; the fp32 runs 2 steps, 3 until phase 14
-   did): exact
+   phase 15 needed the time; the fp32 runs one step, 3 until phase 14
+   needed the time, 2 until phase 16 did): exact
    GEMM launches a rank by layout, flash forwards and backwards (every
    backward with an outside delta), every one on ``wgmma`` / ``mma``, the
    first loss within 1e-2 of phase 5's degree-1 run on the same weights
@@ -4470,6 +4470,8 @@ def phase_ring_engine(torch, out_dir):
     engine on the kernels against the plain hooks: identical token
     streams and reports, every prefill's logits within phase 11's
     tolerance.  Returns each rank's runs for the kernels line."""
+    from dataclasses import replace
+
     from repro_torch.configs import get_config
     from repro_torch.core.plan import ServePlan, replan_serve
     from repro_torch.wafer.fault import sample_die_faults
@@ -4478,7 +4480,7 @@ def phase_ring_engine(torch, out_dir):
     recs = [json.loads((Path(out_dir) / f"engine{i}.json").read_text())
             for i in range(r)]
     e = RING_ENGINE
-    cfg = replace_layers(get_config(e["arch"]), e["layers"])
+    cfg = replace(get_config(e["arch"]), n_layers=e["layers"])
     full = get_config(e["arch"])
     plans = {p.plan_hash: p for p in (
         ServePlan.load(str(f))
@@ -4573,11 +4575,21 @@ def phase_ring_engine(torch, out_dir):
                 "makespan", "mean_occupancy", "n_replans")
         out = {k: rep[k] for k in keys}
         calls0 = rank_runs[0]["calls"]
+        by_kind = {}
+        for kind in ("prefill", "decode", "migrate"):
+            cs = [c for c in calls0 if c["kind"] == kind]
+            if cs:
+                ms = sorted(c["ms"] for c in cs)
+                by_kind[kind] = dict(
+                    n=len(cs), ms_p50=ms[len(ms) // 2], ms_max=ms[-1],
+                    staged_share=sum(c["staged_s"] for c in cs)
+                    / (sum(ms) / 1e3),
+                    staged_gb=sum(c["staged_bytes"] for c in cs) / 1e9)
         out.update(requests_sent=sent, rate=RING_ENGINE_RATE,
                    prefill_groups=sum(c["groups"] for c in calls0
                                       if c["kind"] == "prefill"),
-                   decode_calls=sum(c["kind"] == "decode" for c in calls0),
-                   wall_s=rank_runs[0]["wall_s"], staged=staged)
+                   calls=by_kind, wall_s=rank_runs[0]["wall_s"],
+                   staged=staged)
         if frac is not None:
             ev = rep["recovery"][0]
             out["recovery"] = dict(
@@ -4625,11 +4637,6 @@ def phase_ring_engine(torch, out_dir):
     return runs
 
 
-def replace_layers(cfg, n_layers):
-    from dataclasses import replace
-    return replace(cfg, n_layers=n_layers)
-
-
 def phase_ring_engine_alone(torch):
     """Phase 16 without phase 11 (its own four ranks): for a quick check
     of the phase on the card after ``phase_device`` and ``phase_build``."""
@@ -4647,7 +4654,8 @@ def phase_ring_engine_alone(torch):
 # each train step within step_s of wall clock, the ranks within timeout_s
 RING_TRAIN = dict(ranks=4, backend="gloo", timeout_s=420, step_s=60)
 # fp32 parity (TF32 off): deepseek-7b at full width, 2 layers, batch 4 x
-# seq 128, 2 steps (3 until phase 14 needed the time) from the shards of
+# seq 128, 1 step (3 until phase 14 needed the time, 2 until phase 16
+# did) from the shards of
 # one tree on each mesh, against the
 # degree-1 run of that tree on the card.  The clip is off (grad_clip
 # 1e30) on both sides: above model degree 1 each rank clips by the norm of
@@ -4655,7 +4663,7 @@ RING_TRAIN = dict(ranks=4, backend="gloo", timeout_s=420, step_s=60)
 # the data axes only), so with the clip on the ranks' updates differ from
 # degree 1's by design; the grad norms are held per shard instead
 RING_TRAIN_PARITY = dict(arch="deepseek-7b", n_layers=2, batch=4, seq=128,
-                         steps=2, seed=2, meshes=((1, 4), (2, 2)),
+                         steps=1, seed=2, meshes=((1, 4), (2, 2)),
                          grad_clip=1e30)
 # relative: each step's loss and grad norm, each leaf's final parameters
 # (relative L2) -- or, for a leaf, RING_TRAIN_FLOOR times the rel L2 that
@@ -6517,7 +6525,8 @@ MOE_RING_TRAIN_PARITY = dict(arch="olmoe-1b-7b", n_layers=2, batch=2,
 # (b) megatron: phase 12's fp32 model (deepseek-7b, 2 layers at full width,
 # batch 4 x seq 128, 2 steps, clip off) at (1, 4) and (2, 2), by phase 12's
 # rules, and every gradient leaf of the first step against degree 1's
-MEG_PARITY = dict(RING_TRAIN_PARITY, strategy="megatron", grads=True)
+MEG_PARITY = dict(RING_TRAIN_PARITY, strategy="megatron", grads=True,
+                  steps=2)
 # a gradient leaf's rel L2 from degree 1's: fp32 sums in another order
 # (each row-parallel product split over the ring, then psummed)
 MEG_GRAD_TOL = 1e-4
