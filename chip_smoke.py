@@ -137,7 +137,8 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    round-trips bitwise;
 8. plan launch — the plan-driven entry points at full width, bf16, each
    with a temporary plan cache: ``repro_torch.launch.serve --auto-plan``
-   for deepseek-7b and gemma-7b (batch 4, prompt 128, 32 tokens; gemma's
+   for deepseek-7b and gemma-7b (batch 4, prompt 128, 8 tokens, 32
+   until phase 16 needed the time; gemma's
    plan prescribes ``megatron``, run at model degree 1) twice, the first
    logging ``[plan] solved fresh`` and the second a cache hit, both with
    tokens identical to the legacy flags' on the same weights and exactly
@@ -154,14 +155,15 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    --auto-plan``, ``serve_engine``) of deepseek-7b at its 30 layers,
    bf16, on ``TorchServeExecutor`` and a wall clock, 4 decode slots, 128
    prompt and 32 new tokens a request, each run with a fresh plan cache
-   (``ENGINE_RUNS``).  (a) Fault-free: 24 Poisson requests at 1.25 a
+   (``ENGINE_RUNS``).  (a) Fault-free: 16 Poisson requests at 1.25 a
    second (below the ~1.8 a second the slots serve; 100 until phase 14
-   needed the time, 40 until phase 15 did, so no TTFT p99 now), every
+   needed the time, 40 until phase 15 did, 24 until phase 16 did, so no
+   TTFT p99 now), every
    request
    finished with its 32 tokens, and exactly 210 GEMM and 30 flash
    launches per prefill group the engine ran (decode runs no kernel), all
-   ``wgmma`` / ``mma``.  (b) 12 requests at that rate (20 until phase 15
-   needed the time) with
+   ``wgmma`` / ``mma``.  (b) 8 requests at that rate (20 until phase 15
+   needed the time, 12 until phase 16 did) with
    ``--fault-at 2.0``: exactly one replan, whose plan hash equals ``replan_serve``'s offline
    solve for the same fault, and every request finished or rejected with
    a reason.  (c) A labelled stress run: 12 requests at 4 a second, twice
@@ -352,7 +354,7 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    ``serve_engine`` on every rank, rank 0 leading (deepseek-7b at full
    width cut to 4 layers, bf16, the full model's ServePlan: (1, 4), 4
    slots, prompts of 128, 8 new tokens; ``RING_ENGINE``): (a) 6 Poisson
-   requests at 0.55 a second (at most 60 % of what the slots serve at
+   requests at 0.5 a second (at most 60 % of what the slots serve at
    the measured call times), every request finished with its 8 tokens,
    on every rank exactly one ring prefill's launches per prefill group
    (112 GEMM tiles on ``wgmma``, 4 (i + 1) flash on ``mma`` on rank i)
@@ -456,8 +458,9 @@ PATHS = {
 BATCH, GEN = 4, 32
 # phase 5's serves decode SERVE_GEN tokens (GEN, 32, until phase 14 needed
 # the time, 16 until phase 15 did; ms/token is an average either way, and
-# phase 11 compares the first 5); phase 8's keep GEN, the length its plans
-# are solved for
+# phase 11 compares the first 5); phase 8's too since phase 16 needed the
+# time (GEN until then: its plans, solved for prompt + SERVE_GEN tokens,
+# keep their degrees)
 SERVE_GEN = 8
 # the kernel path every bf16 main-path launch must take (every width here
 # is a multiple of 8, so TMA describes each GEMM operand)
@@ -2842,7 +2845,7 @@ def plan_serve(torch, arch, cache):
     spec = PATHS[arch]
     cfg = get_config(arch)
     run = dict(batch=spec.get("batch", BATCH), prompt_len=spec["prompt_len"],
-               gen=GEN)
+               gen=SERVE_GEN)
     legacy_args = Namespace(arch=arch, reduced=False, device="cuda",
                             layers=None, **run)
     plan_args = Namespace(plan=None, auto_plan=True, plan_cache=cache,
@@ -2888,7 +2891,8 @@ def plan_serve(torch, arch, cache):
         for kind in ("fresh", "hit"):
             t0 = time.perf_counter()
             captured(resolve_plan, cfg, run["batch"],
-                     run["prompt_len"] + GEN, cache_dir=solo, remat=False)
+                     run["prompt_len"] + run["gen"], cache_dir=solo,
+                     remat=False)
             plan_ms[kind] = (time.perf_counter() - t0) * 1e3
     out = dict(plan_hash=plan.plan_hash, degrees=plan.degrees_tuple(),
                strategy=strategy, remat=plan.remat,
@@ -2905,7 +2909,7 @@ def plan_serve(torch, arch, cache):
                              "legacy_after": legacy_after["tokens_per_s"]},
                tokens_identical=True)
     log(f"[plan] serve {arch} --auto-plan, {cfg.n_layers} layers bf16 batch "
-        f"{run['batch']} prompt {run['prompt_len']} gen {GEN}: "
+        f"{run['batch']} prompt {run['prompt_len']} gen {run['gen']}: "
         f"{json.dumps(out)}")
     log(f"[plan] serve {arch}: {fresh['ms_per_token']:.1f} and "
         f"{hit['ms_per_token']:.1f} ms/token under --auto-plan (legacy flags "
@@ -3066,21 +3070,22 @@ def phase_plan_launch(torch):
 
 # engine-mode serving (``launch.serve --serve``): deepseek-7b at its 30
 # layers, bf16, 4 decode slots, 128 prompt tokens and 32 new tokens each.
-# The measured load: 24 open-loop requests at 1.25 a second, below the
+# The measured load: 16 open-loop requests at 1.25 a second, below the
 # ~1.8 a second that 4 slots of ~2 s serve, so the queue has a steady
-# state (100 until phase 14 needed the time, 40 until phase 15 did; 24
-# samples back no TTFT p99, P99_MIN_SAMPLES, only the p50 and the max);
-# then the same rate with a
+# state (100 until phase 14 needed the time, 40 until phase 15 did, 24
+# until phase 16 did; 16 samples back no TTFT p99, P99_MIN_SAMPLES, only
+# the p50 and the max); then the same rate with a
 # die fault at 2.0 s on the engine's clock (``--fault-at``, 1/8 of the
-# dies, seeded) over 12 requests (20 until phase 15 needed the time): the
+# dies, seeded) over 8 requests (20 until phase 15 needed the time, 12
+# until phase 16 did): the
 # replan and the migration land in the first seconds, and the run's wall
 # clock (~10 s, not ~80) keeps the whole script inside its time limit.
 # The stress load: 12 requests at 4 a second, twice what the slots serve,
 # so TTFT grows with each request (queueing, not the server)
 ENGINE = dict(arch="deepseek-7b", max_batch=4, prompt_len=128, max_new=32,
               fault_at=2.0)
-ENGINE_LOAD = dict(requests=24, rate=1.25)
-ENGINE_FAULT_LOAD = dict(ENGINE_LOAD, requests=12)
+ENGINE_LOAD = dict(requests=16, rate=1.25)
+ENGINE_FAULT_LOAD = dict(ENGINE_LOAD, requests=8)
 ENGINE_RUNS = (("engine", ENGINE_LOAD, False),
                ("engine fault", ENGINE_FAULT_LOAD, True),
                ("engine stress", dict(requests=12, rate=4.0), False))
@@ -4220,10 +4225,11 @@ RING_ENGINE = dict(arch="deepseek-7b", layers=4, max_batch=4, prompt_len=128,
                    max_new=8)
 # the offered load: Poisson arrivals at RING_ENGINE_RATE a second (seed 0),
 # at most 60 % of what 4 slots serve at the measured call times: a
-# prefill group 1.94 s and a decode call 0.29 s give 1.005 requests a
-# second (PERF.md section 5; 0.8 a second, 80 %, queued); the faults land
-# at RING_ENGINE_FAULT_AT s of the engine's clock, two requests in flight
-RING_ENGINE_RATE = 0.55
+# prefill group 1.94-1.99 s and a decode call 0.29-0.35 s give 0.90-1.005
+# requests a second (PERF.md section 5; 0.8 a second, 80 %, queued); the
+# faults land at RING_ENGINE_FAULT_AT s of the engine's clock, two
+# requests in flight
+RING_ENGINE_RATE = 0.5
 RING_ENGINE_FAULT_AT = 7.0
 # (label, requests, --fault-frac or None, the mesh the run ends on)
 RING_ENGINE_RUNS = (("fault-free", 6, None, (1, 4)),
