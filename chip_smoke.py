@@ -166,7 +166,7 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    needed the time, 12 until phase 16 did) with
    ``--fault-at 2.0``: exactly one replan, whose plan hash equals ``replan_serve``'s offline
    solve for the same fault, and every request finished or rejected with
-   a reason.  (c) A labelled stress run: 12 requests at 4 a second, twice
+   a reason.  (c) A labelled stress run: 8 requests at 4 a second, twice
    what the slots serve.  Each run logs TTFT and TPOT p50 (p99 only over
    100 samples or more) and max, tokens/s, makespan, mean occupancy, peak
    GB and the executor's call times; (b) its recovery event.  (c) fp32, TF32
@@ -208,8 +208,8 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    of one tree): prefill logits and caches within rtol = atol = 1e-3 (the
    parity phase's), identical tokens, and the fp8 and bf16 wires on the
    prefill within RING_WIRE_TOL; then the 30-layer bf16 serve through
-   ``launch.serve``'s ``serve`` under ``--auto-plan`` (prompt 128, 4 new
-   tokens, the first 5 compared with phase 5's): mesh (1, 4), exactly
+   ``launch.serve``'s ``serve`` under ``--auto-plan`` (prompt 128, 2 new
+   tokens, the first 3 compared with phase 5's): mesh (1, 4), exactly
    840 GEMM launches (``wgmma``) and 30 /
    60 / 90 / 120 flash launches (``mma``) a rank, the prefill's last
    logits within RING_BF16_TOL of phase 5's degree-1 run of the same
@@ -296,7 +296,7 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    weights and its first tokens identical (but at a near tie), each
    rank's prefill ms, ms/token, peak GB, staged share and GB sent, and
    the state scan's hops' share of the prefill's bytes; (d) fp32 train
-   parity of mamba2-780m (2 layers, 2 steps, the clip off) at (1, 4) on
+   parity of mamba2-780m (2 layers, one step, the clip off) at (1, 4) on
    batch 2 x 2048 and at (2, 2) on 2 x 1024, by phase 12's rules; then
    one bf16 step of mamba2-780m at 8 layers (batch 2 x 2048, (1, 4))
    under full remat, ``tatp_outputs`` and full remat again: loss and
@@ -358,7 +358,7 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    the measured call times), every request finished with its 8 tokens,
    on every rank exactly one ring prefill's launches per prefill group
    (112 GEMM tiles on ``wgmma``, 4 (i + 1) flash on ``mma`` on rank i)
-   and none in a decode, and every call made on every rank; (b) 5
+   and none in a decode, and every call made on every rank; (b) 4
    requests with ``--fault-at 7.0 --fault-frac 0.125``: one replan, to
    the plan ``replan_serve`` solves offline, the mesh kept at (1, 4),
    the survivors grafted in place; (c) the same with ``--fault-frac
@@ -3080,15 +3080,16 @@ def phase_plan_launch(torch):
 # until phase 16 did): the
 # replan and the migration land in the first seconds, and the run's wall
 # clock (~10 s, not ~80) keeps the whole script inside its time limit.
-# The stress load: 12 requests at 4 a second, twice what the slots serve,
-# so TTFT grows with each request (queueing, not the server)
+# The stress load: 8 requests at 4 a second (12 until phase 16 needed the
+# time), twice what the slots serve, so TTFT grows with each request
+# (queueing, not the server)
 ENGINE = dict(arch="deepseek-7b", max_batch=4, prompt_len=128, max_new=32,
               fault_at=2.0)
 ENGINE_LOAD = dict(requests=16, rate=1.25)
 ENGINE_FAULT_LOAD = dict(ENGINE_LOAD, requests=8)
 ENGINE_RUNS = (("engine", ENGINE_LOAD, False),
                ("engine fault", ENGINE_FAULT_LOAD, True),
-               ("engine stress", dict(requests=12, rate=4.0), False))
+               ("engine stress", dict(requests=8, rate=4.0), False))
 # the fp32 engine parity runs (TF32 off): (arch, layers, prompt lengths);
 # the PARITY depths at full width, zamba2's prompts whole ssm_chunks
 ENGINE_PARITY = (("deepseek-7b", 2, (128, 96)),
@@ -3759,12 +3760,12 @@ RING_PARITY = dict(arch="deepseek-7b", n_layers=2, batch=4, prompt_len=128,
 # 1/16 (e4m3 rounds a streamed weight by up to 1/16 of its value, bf16 by
 # 1/256 of it)
 RING_WIRE_TOL = {"bf16": 0.30 / 16, "fp8": 0.30}
-# the bf16 serve through the entry point: 30 layers, --auto-plan; 4 new
+# the bf16 serve through the entry point: 30 layers, --auto-plan; 2 new
 # tokens (32 until the train ring's phase 12 needed the time, 8 until
-# phase 14 did: each ring decode token is ~1.2-2 s of host-staged
-# collectives, and ms/token is an average either way; the plan is the
-# same (1, 1, 1, 4) for 132 tokens)
-RING_SERVE = dict(arch="deepseek-7b", batch=4, prompt_len=128, gen=4)
+# phase 14 did, 4 until phase 16 did: each ring decode token is ~1.2-2 s
+# of host-staged collectives, and ms/token is an average either way; the
+# plan is the same (1, 1, 1, 4) for 130 tokens)
+RING_SERVE = dict(arch="deepseek-7b", batch=4, prompt_len=128, gen=2)
 # the 30-layer bf16 prefill's last logits against the degree-1 run's
 # (relative L2): the GEMM tiles are the degree-1 products' columns, but
 # each ring round's flash output is rounded to bf16 before the fp32 merge
@@ -4233,8 +4234,8 @@ RING_ENGINE_RATE = 0.5
 RING_ENGINE_FAULT_AT = 7.0
 # (label, requests, --fault-frac or None, the mesh the run ends on)
 RING_ENGINE_RUNS = (("fault-free", 6, None, (1, 4)),
-                    ("fault 1/8", 5, 0.125, (1, 4)),
-                    ("fault 1/4", 5, 0.25, (2, 2)))
+                    ("fault 1/8", 4, 0.125, (1, 4)),
+                    ("fault 1/4", 4, 0.25, (2, 2)))
 # fp32 parity (TF32 off): 2 layers at full width under the same plan, the
 # kernels against the plain hooks, one wave of 4 requests on a virtual
 # clock (1.0 s a call)
@@ -5887,9 +5888,10 @@ SSM_STATE_WIRE_TOL = 2.0 ** -8
 # cut to 24 of its 48 layers since phase 15 needed the time
 SSM_RING_SERVES = (("mamba2-780m", 24), ("zamba2-2.7b", 12))
 # (d) fp32 train parity, phase 12's rules: mamba2-780m, 2 layers at full
-# width, 2 steps, the clip off, each (mesh, batch, seq) against the
-# degree-1 run of the same tree and batches; two chunks a rank on either
-SSM_RING_TRAIN_PARITY = dict(arch="mamba2-780m", n_layers=2, steps=2,
+# width, 1 step (2 until phase 16 needed the time), the clip off, each
+# (mesh, batch, seq) against the degree-1 run of the same tree and
+# batches; two chunks a rank on either
+SSM_RING_TRAIN_PARITY = dict(arch="mamba2-780m", n_layers=2, steps=1,
                              seed=6, grad_clip=1e30,
                              runs=(((1, 4), 2, 2048), ((2, 2), 2, 1024)))
 # and one bf16 step of mamba2-780m, 8 layers, under full remat and under
