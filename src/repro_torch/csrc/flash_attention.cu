@@ -2,14 +2,18 @@
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention/kernel.py
 // (_flash_kernel, launched by flash_attention): online-softmax attention
-// with GQA head groups, a top-left-aligned causal mask (query and key
-// positions both start at 0), a sliding window (qpos - kpos < window), tanh
-// soft-capping of the scaled logits, NEG_INF = -1e30 masking with masked
-// probabilities selected to 0 and the row sum clamped at 1e-20 (a fully
-// masked row gives 0), and key tiles above the causal diagonal or outside
-// the window skipped.  Any batch/head/sequence strides (unit stride on D),
-// so [B, S, H, D] activations are read in place, and the output is written
-// in q's layout.
+// with GQA head groups, a causal mask, a sliding window (qpos - kpos <
+// window), tanh soft-capping of the scaled logits, NEG_INF = -1e30 masking
+// with masked probabilities selected to 0 and the row sum clamped at 1e-20
+// (a fully masked row gives 0 and an LSE of -1e30), and key tiles above the
+// causal diagonal or outside the window skipped.  Query row r sits at
+// position r + q_offset and key c at c: q_offset 0 is the Pallas kernel's
+// top-left alignment, and a ring attention round passes its first query's
+// global position less its first key's, so both masks compare global
+// positions (q_offset >= 0; a query tile whose key range comes out empty
+// loads no tile and writes zeros).  Any batch/head/sequence strides (unit
+// stride on D), so [B, S, H, D] activations are read in place, and the
+// output is written in q's layout.
 //
 // What bounds it on this card: at the main paths' prefill shapes (bf16,
 // causal; deepseek-7b [4, 32, 128, 128], zamba2-2.7b [4, 32, 512, 80]) a
@@ -21,7 +25,7 @@
 // Two paths, chosen by the wrapper (kernels/flash_attention/ops.py:_path)
 // and refused here (cudaErrorInvalidValue) if the dtype does not match:
 //   * mma (bf16), after FlashAttention-2: one 128-thread block per
-//     (batch * q-head, 64-row query tile), heaviest causal tiles first;
+//     (batch * q-head, 64-row query tile), heaviest tiles first;
 //     each warp owns 16 query rows.  Both products run on the tensor cores
 //     with mma.sync.m16n8k16 (bf16 in, fp32 out): S = Q K^T and O += P V
 //     keep S, P and O in registers, which wgmma (accumulators of 64-row
@@ -94,6 +98,18 @@ constexpr int kPathMma = 1;
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
+// The keys [*begin, *end) that a query tile of `rows` rows at positions p0
+// .. p0 + rows - 1 may see (p0 = its first row + q_offset), begin rounded
+// down to a `tile` boundary: the causal end is the last row's position,
+// the window start the first row's less window - 1.  Empty (begin >= end)
+// where every key lies past the causal end or before the window.
+__device__ __forceinline__ void key_range(int p0, int rows, int Skv,
+                                          int causal, int window, int tile,
+                                          int* begin, int* end) {
+  *end = causal ? min(Skv, p0 + rows) : Skv;
+  *begin = window > 0 ? max(0, p0 - window + 1) / tile * tile : 0;
+}
+
 // ---------------------------------------------------------------------------
 // fp32 path: CUDA-core SIMT, true fp32 products
 // ---------------------------------------------------------------------------
@@ -120,7 +136,7 @@ __global__ void __launch_bounds__(THREADS)
               int D, int64_t qsb, int64_t qsh, int64_t qss, int64_t ksb,
               int64_t ksh, int64_t kss, int64_t vsb, int64_t vsh,
               int64_t vss, int64_t osb, int64_t osh, int64_t oss,
-              float scale, int causal, int window, float cap) {
+              float scale, int causal, int window, int q_offset, float cap) {
   extern __shared__ float smem[];
   const int ld = D + 1;
   float* qs = smem;            // [BQ][ld]
@@ -135,7 +151,8 @@ __global__ void __launch_bounds__(THREADS)
   const int b = bh / Hq, h = bh % Hq;
   const int hk = h / (Hq / Hkv);  // GQA: kv head of this q head
   const int q0 = blockIdx.y * BQ;
-  const int qpos = q0 + row;
+  const int qrow = q0 + row;           // this thread's query row
+  const int qpos = qrow + q_offset;    // and its position for the masks
 
   const T* qb = q + b * qsb + h * qsh;
   const T* kb = k + b * ksb + hk * ksh;
@@ -152,10 +169,9 @@ __global__ void __launch_bounds__(THREADS)
   for (int e = 0; e < DMAX / 4; ++e) acc[e] = 0.f;
 
   // key tiles that can hold an unmasked key for some row of this tile
-  int k_end = Skv;
-  if (causal) k_end = min(Skv, min(q0 + BQ, Sq));
-  int k_begin = 0;
-  if (window > 0) k_begin = max(0, q0 - window + 1) / BKV * BKV;
+  int k_begin, k_end;
+  key_range(q0 + q_offset, min(BQ, Sq - q0), Skv, causal, window, BKV,
+            &k_begin, &k_end);
 
   for (int j0 = k_begin; j0 < k_end; j0 += BKV) {
     __syncthreads();  // Q staged / previous tile's K, V, P reads done
@@ -221,11 +237,12 @@ __global__ void __launch_bounds__(THREADS)
     }
   }
 
-  if (qpos < Sq) {
+  if (qrow < Sq) {
     const float lc = fmaxf(l, 1e-20f);
-    if (lse != nullptr && sub == 0)
-      lse[static_cast<int64_t>(bh) * Sq + qpos] = m + logf(lc);
-    T* ob = o + b * osb + h * osh + static_cast<int64_t>(qpos) * oss;
+    if (lse != nullptr && sub == 0)  // a row that saw no key: -1e30
+      lse[static_cast<int64_t>(bh) * Sq + qrow] =
+          m == NEG_INF ? NEG_INF : m + logf(lc);
+    T* ob = o + b * osb + h * osh + static_cast<int64_t>(qrow) * oss;
 #pragma unroll
     for (int e = 0; e < DMAX / 4; ++e) {
       const int d = sub + 4 * e;
@@ -238,7 +255,7 @@ template <int DMAX>
 int launch_simt(const void* q, const void* k, const void* v, void* o,
                 float* lse, int B, int Hq, int Hkv, int Sq, int Skv, int D,
                 const int64_t* st, float scale, int causal, int window,
-                float cap, cudaStream_t s) {
+                int q_offset, float cap, cudaStream_t s) {
   const size_t smem = smem_bytes(D);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -252,22 +269,22 @@ int launch_simt(const void* q, const void* k, const void* v, void* o,
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, Hq, Hkv,
       Sq, Skv, D, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
-      st[8], st[9], st[10], st[11], scale, causal, window, cap);
+      st[8], st[9], st[10], st[11], scale, causal, window, q_offset, cap);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch_simt_d(const void* q, const void* k, const void* v, void* o,
                   float* lse, int B, int Hq, int Hkv, int Sq, int Skv, int D,
                   const int64_t* st, float scale, int causal, int window,
-                  float cap, cudaStream_t s) {
+                  int q_offset, float cap, cudaStream_t s) {
   if (D <= 64)
     return launch_simt<64>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, D, st,
-                           scale, causal, window, cap, s);
+                           scale, causal, window, q_offset, cap, s);
   if (D <= 128)
     return launch_simt<128>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, D, st,
-                            scale, causal, window, cap, s);
+                            scale, causal, window, q_offset, cap, s);
   return launch_simt<256>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, D, st,
-                          scale, causal, window, cap, s);
+                          scale, causal, window, q_offset, cap, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -334,7 +351,7 @@ __global__ void __launch_bounds__(MMA_THREADS)
               int64_t qss, int64_t ksb, int64_t ksh, int64_t kss,
               int64_t vsb, int64_t vsh, int64_t vss, int64_t osb,
               int64_t osh, int64_t oss, float scale, int causal, int window,
-              float cap) {
+              int q_offset, float cap) {
   constexpr int LD = pitch<DP>();
   constexpr int NT = BK / 8;   // key n8 tiles of S
   constexpr int DT = DP / 8;   // d n8 tiles of O
@@ -348,18 +365,25 @@ __global__ void __launch_bounds__(MMA_THREADS)
   const int bh = blockIdx.x;
   const int b = bh / Hq, h = bh % Hq;
   const int hk = h / (Hq / Hkv);  // GQA: kv head of this q head
-  // heaviest causal tiles first: the last query tile sees the most keys
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * MQ;
+  // heaviest tiles first: the last query tile sees the most keys under a
+  // causal mask, the first one where the window start moves past more keys
+  // than the causal end adds (a ring round under a window), so the end
+  // whose key range is longer goes first
+  const int last = gridDim.y - 1, y = blockIdx.y;
+  int b0, e0, b1, e1;
+  key_range(q_offset, min(MQ, Sq), Skv, causal, window, BK, &b0, &e0);
+  key_range(last * MQ + q_offset, Sq - last * MQ, Skv, causal, window, BK,
+            &b1, &e1);
+  const int q0 = (e1 - b1 >= e0 - b0 ? last - y : y) * MQ;
   const int row_lo = q0 + warp * 16 + lane / 4, row_hi = row_lo + 8;
+  const int p0 = q0 + q_offset;  // the tile's first position
 
   const bf16* qb = q + b * qsb + h * qsh;
   const bf16* kb = k + b * ksb + hk * ksh;
   const bf16* vb = v + b * vsb + hk * vsh;
 
-  int k_end = Skv;
-  if (causal) k_end = min(Skv, min(q0 + MQ, Sq));
-  int k_begin = 0;
-  if (window > 0) k_begin = max(0, q0 - window + 1) / BK * BK;
+  int k_begin, k_end;
+  key_range(p0, min(MQ, Sq - q0), Skv, causal, window, BK, &k_begin, &k_end);
 
   load_tile<DP, MQ, VEC>(qs, qb, q0, Sq, D, qss);
   cp_async_commit();
@@ -429,8 +453,8 @@ __global__ void __launch_bounds__(MMA_THREADS)
     }
 
     // scale, cap and (only on tiles that cross an edge) mask, in log2 units
-    const bool need_mask = j0 + BK > Skv || (causal && j0 + BK - 1 > q0) ||
-                           (window > 0 && q0 + MQ - 1 - j0 >= window);
+    const bool need_mask = j0 + BK > Skv || (causal && j0 + BK - 1 > p0) ||
+                           (window > 0 && p0 + MQ - 1 - j0 >= window);
     uint32_t live = 0xffffffffu;  // bit 4 t + e: element s[t][e] unmasked
     float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
@@ -442,7 +466,7 @@ __global__ void __launch_bounds__(MMA_THREADS)
         x *= LOG2E;
         if (need_mask) {
           const int kpos = j0 + t * 8 + 2 * (lane % 4) + (e & 1);
-          const int qpos = e < 2 ? row_lo : row_hi;
+          const int qpos = (e < 2 ? row_lo : row_hi) + q_offset;
           bool ok = kpos < Skv;
           if (causal) ok = ok && kpos <= qpos;
           if (window > 0) ok = ok && (qpos - kpos) < window;
@@ -516,8 +540,14 @@ __global__ void __launch_bounds__(MMA_THREADS)
   }
   if (lse != nullptr && lane % 4 == 0) {  // natural log: m is in log2 units
     float* lb = lse + static_cast<int64_t>(bh) * Sq;
-    if (row_lo < Sq) lb[row_lo] = (m[0] + log2f(fmaxf(l[0], 1e-20f))) / LOG2E;
-    if (row_hi < Sq) lb[row_hi] = (m[1] + log2f(fmaxf(l[1], 1e-20f))) / LOG2E;
+    float row_lse[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)  // a row that saw no key: -1e30
+      row_lse[i] = m[i] == NEG_INF
+                       ? NEG_INF
+                       : (m[i] + log2f(fmaxf(l[i], 1e-20f))) / LOG2E;
+    if (row_lo < Sq) lb[row_lo] = row_lse[0];
+    if (row_hi < Sq) lb[row_hi] = row_lse[1];
   }
   bf16* ob = o + b * osb + h * osh;
 #pragma unroll
@@ -539,7 +569,7 @@ template <int DP, int BK, bool QREG>
 int launch_mma(const void* q, const void* k, const void* v, void* o,
                float* lse, int B, int Hq, int Hkv, int Sq, int Skv, int D,
                const int64_t* st, float scale, int causal, int window,
-               float cap, bool vec, cudaStream_t s) {
+               int q_offset, float cap, bool vec, cudaStream_t s) {
   auto kern = vec ? flash_mma<DP, BK, QREG, true>
                   : flash_mma<DP, BK, QREG, false>;
   constexpr size_t smem = mma_smem<DP, BK>();
@@ -555,14 +585,14 @@ int launch_mma(const void* q, const void* k, const void* v, void* o,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, Hq, Hkv, Sq,
       Skv, D, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      st[9], st[10], st[11], scale, causal, window, cap);
+      st[9], st[10], st[11], scale, causal, window, q_offset, cap);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch_mma_d(const void* q, const void* k, const void* v, void* o,
                  float* lse, int B, int Hq, int Hkv, int Sq, int Skv, int D,
                  const int64_t* st, float scale, int causal, int window,
-                 float cap, cudaStream_t s) {
+                 int q_offset, float cap, cudaStream_t s) {
   // 16-byte cp.async loads and paired stores need every row 16-byte
   // aligned; otherwise the same kernel loads scalars into the same layout
   const void* ptrs[4] = {q, k, v, o};
@@ -572,23 +602,23 @@ int launch_mma_d(const void* q, const void* k, const void* v, void* o,
   for (int i = 0; i < 12; ++i) vec = vec && st[i] % 8 == 0;
   if (D <= 64)
     return launch_mma<64, 64, true>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv,
-                                    D, st, scale, causal, window, cap, vec,
-                                    s);
+                                    D, st, scale, causal, window, q_offset,
+                                    cap, vec, s);
   if (D <= 80)
     return launch_mma<80, 64, true>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv,
-                                    D, st, scale, causal, window, cap, vec,
-                                    s);
+                                    D, st, scale, causal, window, q_offset,
+                                    cap, vec, s);
   if (D <= 96)
     return launch_mma<96, 64, true>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv,
-                                    D, st, scale, causal, window, cap, vec,
-                                    s);
+                                    D, st, scale, causal, window, q_offset,
+                                    cap, vec, s);
   if (D <= 128)
     return launch_mma<128, 64, true>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv,
-                                     D, st, scale, causal, window, cap, vec,
-                                     s);
+                                     D, st, scale, causal, window, q_offset,
+                                     cap, vec, s);
   return launch_mma<256, 32, false>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv,
-                                    D, st, scale, causal, window, cap, vec,
-                                    s);
+                                    D, st, scale, causal, window, q_offset,
+                                    cap, vec, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -2255,10 +2285,12 @@ const char* repro_cuda_error_string(int err) {
 // (batch, head, seq) element strides with unit stride on D.  lse: null, or
 // a contiguous fp32 [B, Hq, Sq] that receives each row's log-sum-exp of
 // the scaled (and capped) logits, for the backward.  window <= 0: no
-// window; cap <= 0: no soft-cap.  path: kPathSimt (fp32) or kPathMma
-// (bf16); a path whose preconditions fail returns cudaErrorInvalidValue
-// without launching, else the result is cudaGetLastError() after the
-// launch (0 = launched).
+// window; cap <= 0: no soft-cap.  q_offset >= 0: query row r sits at
+// position r + q_offset against key c at c in the causal and window masks
+// (Sq + q_offset below 2^31).  path: kPathSimt (fp32) or kPathMma (bf16);
+// a path whose preconditions fail returns cudaErrorInvalidValue without
+// launching, else the result is cudaGetLastError() after the launch (0 =
+// launched).
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, float* lse, int B, int Hq, int Hkv,
                            int Sq, int Skv, int D, int64_t qsb, int64_t qsh,
@@ -2266,19 +2298,21 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                            int64_t kss, int64_t vsb, int64_t vsh,
                            int64_t vss, int64_t osb, int64_t osh,
                            int64_t oss, float scale, int causal, int window,
-                           float cap, int dtype, int path, void* stream) {
+                           int q_offset, float cap, int dtype, int path,
+                           void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 ||
-      Skv < 0 || D <= 0 || D > 256 || (Sq + BQ - 1) / BQ > 65535)
+      Skv < 0 || D <= 0 || D > 256 || (Sq + BQ - 1) / BQ > 65535 ||
+      q_offset < 0 || q_offset > INT32_MAX - Sq)
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t st[12] = {qsb, qsh, qss, ksb, ksh, kss,
                           vsb, vsh, vss, osb, osh, oss};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (path == kPathMma && dtype == kBF16)
     return launch_mma_d(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, D, st, scale,
-                        causal, window, cap, s);
+                        causal, window, q_offset, cap, s);
   if (path == kPathSimt && dtype == kF32)
     return launch_simt_d(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, D, st, scale,
-                         causal, window, cap, s);
+                         causal, window, q_offset, cap, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

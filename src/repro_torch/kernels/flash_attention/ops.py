@@ -39,6 +39,10 @@ Ring attention (``models/attention.py``) calls the forward with
 ``return_lse=True`` outside autograd and, in its own ``autograd.Function``,
 :func:`attention_bwd` once a visible round with the ring's global row LSE
 and an outside delta; a direct ``return_lse`` call under autograd raises.
+Its rounds pass ``q_offset``, the first query's position past the first
+key's, so the causal and window masks compare global positions; the
+forward kernel takes it, the backward does not yet (ROADMAP.md A3f-2), so a
+nonzero offset under autograd raises.
 """
 
 from __future__ import annotations
@@ -67,7 +71,7 @@ def _lib():
     fn = lib.flash_attention_launch
     if fn.argtypes is None:  # else ctypes would pass 32-bit ints
         fn.argtypes = ([_P] * 5 + [_I] * 6 + [_I64] * 12
-                       + [_F, _I, _I, _F, _I, _I, _P])
+                       + [_F, _I, _I, _I, _F, _I, _I, _P])
         fn.restype = _I
     fn = lib.flash_attention_bwd_launch
     if fn.argtypes is None:
@@ -90,33 +94,40 @@ def _path(dtype, d) -> str:
 
 
 def attention(q, k, v, *, causal=True, window=None, cap=None, scale=None,
-              return_lse=False):
+              return_lse=False, q_offset: int = 0):
     """q: [B, Hq, Sq, D]; k/v: [B, Hkv, Skv, D] -> [B, Hq, Sq, D].
 
     On CUDA: q/k/v one dtype (fp32 or bf16), unit stride on D, D <= 256,
-    Hq a multiple of Hkv.  The output has q's dtype and q's memory layout.
-    Under autograd the backward runs on the backward kernel.  With
-    ``return_lse`` (not under autograd) it returns ``(o, lse)``, ``lse``
-    each row's fp32 log-sum-exp of the scaled (capped) scores, [B, Hq,
-    Sq]: ring attention merges its rounds' outputs with it.
+    Hq a multiple of Hkv, ``q_offset`` >= 0.  The output has q's dtype and
+    q's memory layout.  Under autograd the backward runs on the backward
+    kernel.  With ``return_lse`` (not under autograd) it returns ``(o,
+    lse)``, ``lse`` each row's fp32 log-sum-exp of the scaled (capped)
+    scores, [B, Hq, Sq]: ring attention merges its rounds' outputs with
+    it.  ``q_offset``: query row ``r`` sits at position ``r + q_offset``
+    against key ``c`` at ``c`` in the causal and window masks; a row that
+    sees no key gives 0 and an LSE of about -1e30.
     """
     cpu = all(t.device.type == "cpu" for t in (q, k, v))
     if not cpu:
-        _check(q, k, v, window, cap)
+        _check(q, k, v, window, cap, q_offset)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         if return_lse:  # the ring's Function reaches the backward itself
             raise ValueError("the row LSE under autograd is reached "
                              "through ring attention's Functions")
+        if q_offset:
+            raise ValueError("the flash backward takes no query offset "
+                             "(ROADMAP.md A3f-2)")
         return _FlashAttention.apply(q, k, v, causal, window, cap, scale)
     if cpu:
         return attention_ref(q, k, v, causal=causal, window=window, cap=cap,
-                             scale=scale, return_lse=return_lse)
+                             scale=scale, return_lse=return_lse,
+                             q_offset=q_offset)
     o, lse = _forward(q, k, v, causal, window, cap, scale,
-                      want_lse=return_lse)
+                      want_lse=return_lse, q_offset=q_offset)
     return (o, lse) if return_lse else o
 
 
-def _check(q, k, v, window, cap):
+def _check(q, k, v, window, cap, q_offset=0):
     """Raise on what the kernels do not take (for CUDA tensors)."""
     dev = q.device
     if dev.type != "cuda" or k.device != dev or v.device != dev:
@@ -148,10 +159,15 @@ def _check(q, k, v, window, cap):
             f"flash_attention kernel takes window > 0 and cap > 0, got "
             f"window={window}, cap={cap}"
         )
+    if not 0 <= q_offset < 2 ** 31 - sq:
+        raise ValueError(
+            f"flash_attention kernel takes 0 <= q_offset < 2**31 - Sq, got "
+            f"q_offset={q_offset}"
+        )
     _path(q.dtype, d)
 
 
-def _forward(q, k, v, causal, window, cap, scale, want_lse):
+def _forward(q, k, v, causal, window, cap, scale, want_lse, q_offset=0):
     """One forward launch on checked tensors: (o, lse or None)."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
@@ -169,7 +185,7 @@ def _forward(q, k, v, causal, window, cap, scale, want_lse):
         b, hq, hkv, sq, skv, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
         float(scale), int(bool(causal)),
-        0 if window is None else int(window),
+        0 if window is None else int(window), int(q_offset),
         0.0 if cap is None else float(cap),
         _DTYPES[q.dtype], _PATHS[path],
         torch.cuda.current_stream(q.device).cuda_stream,

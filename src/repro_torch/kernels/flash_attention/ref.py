@@ -1,7 +1,9 @@
 """Plain PyTorch version of flash attention (counterpart of
 ``repro.kernels.flash_attention.ref``): masked softmax attention with GQA,
-a top-left causal mask, a sliding window and logit soft-capping, in fp32.
-Fully masked rows give 0, not NaN.
+a causal mask, a sliding window and logit soft-capping, in fp32.  Query
+row ``r`` sits at position ``r + q_offset`` and key column ``c`` at ``c``
+(top-left aligned at the default offset 0).  Fully masked rows give 0, not
+NaN.
 
 :func:`attention_bwd_ref` is the plain version of the backward kernel:
 the gradients written out from the forward's output and row log-sum-exp,
@@ -12,10 +14,11 @@ import math
 import torch
 
 
-def _scores(q, k, causal, window, cap, scale):
+def _scores(q, k, causal, window, cap, scale, q_offset=0):
     """fp32 scores [B, Hkv, G, Sq, Skv] (soft-capped, masked to -1e30),
     the mask, tanh of the capped scores (None without a cap) and the
-    grouped fp32 q."""
+    grouped fp32 q; the causal and window terms compare query position
+    ``row + q_offset`` with key position ``col``."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     qg = q.reshape(b, hkv, hq // hkv, sq, d).float()
@@ -24,7 +27,7 @@ def _scores(q, k, causal, window, cap, scale):
     if cap is not None:
         t = torch.tanh(s / cap)
         s = t * cap
-    qpos = torch.arange(sq, device=q.device)[:, None]
+    qpos = q_offset + torch.arange(sq, device=q.device)[:, None]
     kpos = torch.arange(skv, device=q.device)[None, :]
     mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
     if causal:
@@ -35,13 +38,16 @@ def _scores(q, k, causal, window, cap, scale):
 
 
 def attention_ref(q, k, v, *, causal=True, window=None, cap=None,
-                  scale=None, return_lse=False):
+                  scale=None, return_lse=False, q_offset: int = 0):
     """q: [B, Hq, Sq, D]; k/v: [B, Hkv, Skv, D].  With ``return_lse``
     also each row's fp32 log-sum-exp of the scores, [B, Hq, Sq] (about
-    -1e30 on a fully masked row)."""
+    -1e30 on a fully masked row).  ``q_offset``: the first query's
+    position relative to the first key's (a ring round's rows sit that
+    far past its block's keys); the reference's
+    ``local_attention(q_offset=...)`` masks so."""
     b, hq, sq, d = q.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    s, mask, _, _ = _scores(q, k, causal, window, cap, scale)
+    s, mask, _, _ = _scores(q, k, causal, window, cap, scale, q_offset)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     p = torch.where(mask, p, 0.0)

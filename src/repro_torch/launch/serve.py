@@ -87,8 +87,9 @@ ring) of the cache.  A fault that keeps the mesh grafts the survivors in
 place; one that changes it ((1, 4) <-> (2, 2)) gathers the survivors'
 rows and re-cuts the weights leaf by leaf for the new mesh.  The plan's
 ``max_batch`` must split over its data degree and its ``max_seq`` and
-the prompts over its ring; windowed layers on the ring raise
-(ROADMAP.md A3f); all of it before the mesh is built.
+the prompts over its ring, all of it checked before the mesh is built.
+gemma2-9b's windowed layers serve on the ring (ring attention masks global
+positions).
 """
 
 from __future__ import annotations
@@ -107,7 +108,6 @@ import torch
 
 import torch.distributed as tdist
 
-from repro_torch import not_ported
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.configs.base import ParallelConfig
 from repro_torch.core.dist import (GROUP_TIMEOUT_S, Dist, make_mesh_dist,
@@ -522,9 +522,9 @@ def check_serve_plan(plan, cfg, world: int, prompt_lens=()) -> None:
     """Raise, before the mesh is built, where ``plan`` cannot serve
     ``cfg`` over ``world`` ranks: its ``max_batch`` slots must split over
     its data degree and its ``max_seq`` positions over its ring; what the
-    reference cannot decode raises naming C5 (:func:`check_strategy`); a
-    sliding window on the ring is ROADMAP.md A3f; each of ``prompt_lens``
-    must split over the ring (:func:`check_prompt_len`)."""
+    reference cannot decode raises naming C5 (:func:`check_strategy`);
+    each of ``prompt_lens`` must split over the ring
+    (:func:`check_prompt_len`)."""
     data, model = plan_mesh_shape(plan, world)
     if plan.max_batch % data:
         raise ValueError(f"the plan's {plan.max_batch} decode slots do not "
@@ -533,8 +533,6 @@ def check_serve_plan(plan, cfg, world: int, prompt_lens=()) -> None:
         raise ValueError(f"the plan's max_seq {plan.max_seq} does not split "
                          f"over its ring degree {model}")
     check_strategy(cfg, plan.parallel_config().strategy, model, "decode")
-    if model > 1 and cfg.sliding_window and "L" in cfg.layer_pattern:
-        raise not_ported("a sliding window in ring attention", "A3f")
     ring = Dist(torch.device("cpu"), mesh_shape=(data, model))
     for n in sorted(set(prompt_lens)):
         check_prompt_len(ring, n, cfg)

@@ -14,8 +14,12 @@ sharded over the ring:
   one, whose keys every query masks — and the rounds merge in fp32 by each
   launch's row log-sum-exp; its backward (:class:`_RingAttention`) is one
   backward launch a visible round with the global LSE and one outside
-  delta.  Without a hook, the reference's online-softmax loop
-  (:func:`_block_update`) absorbs them, and autograd differentiates it.
+  delta.  Under a sliding window each launch passes its ``q_offset`` (its
+  first query's global position less its first key's), so the window
+  masks global positions, and a round whose nearest pair lies outside the
+  window launches nothing (:meth:`_Ring.launches`).  Without a hook, the
+  reference's online-softmax loop (:func:`_block_update`) absorbs them
+  with their global positions, and autograd differentiates it.
 * :func:`decode_attention` attends the token to the rank's slice of the
   sequence-sharded cache and merges the slices with the reference's
   (pmax, psum, psum) combine; :func:`write_kv_cache` writes the token's
@@ -26,8 +30,8 @@ sharded over the ring:
   sequence with :func:`zigzag_permutation`): uniform work a rank, 2R + 1
   c x c launches on the hook path, sharing :class:`_RingAttention`.
 
-A sliding window above degree 1 needs a key offset the flash kernel does
-not take, and raises (ROADMAP.md A3f).
+The backward under a sliding window above degree 1 needs the offset in
+the backward kernels, and raises before any relay (ROADMAP.md A3f-2).
 
 Masking keeps the reference's numerics: NEG_INF = -1e30, masked
 probabilities zeroed after the exp, and the row sum clamped at 1e-20, so a
@@ -170,20 +174,23 @@ _BACK_SHIFT = {"up": +1, "dn": -1}  # a stream's hop, reversed
 
 def _hook_rounds(q, k, v, ring):
     """The hook path's forward: one ``attention`` call a launch of each
-    round (:meth:`_Ring.launches`), each query slice's launches merged in
-    fp32 by their row log-sum-exp.  Returns the merged output [B, Hq, S,
-    D] in fp32 and the global row LSE [B, Hq, S]."""
+    round (:meth:`_Ring.launches`, with its masks and query offset), each
+    query slice's launches merged in fp32 by their row log-sum-exp.
+    Returns the merged output [B, Hq, S, D] in fp32 and the global row LSE
+    [B, Hq, S]."""
     i = ring.dist.axis_index(ring.axis)
     qt = q.transpose(1, 2)
     merged = {}  # query rows (start, stop) -> (acc, lse)
     for _, _, j, kj, vj in _rounds(k, v, i, ring.r, ring.bidirectional,
                                    ring.relay):
         kt, vt = kj.transpose(1, 2), vj.transpose(1, 2)
-        for qs, ks, causal in ring.launches(i, j, q.shape[1]):
+        for qs, ks, causal, q_offset, window in ring.launches(
+                i, j, q.shape[1]):
             o, lse_j = ring.attention(qt[:, :, qs], kt[:, :, ks],
                                       vt[:, :, ks], causal=causal,
-                                      cap=ring.cap, scale=ring.scale,
-                                      return_lse=True)
+                                      window=window, cap=ring.cap,
+                                      scale=ring.scale, return_lse=True,
+                                      q_offset=q_offset)
             key = (qs.start, qs.stop)
             merged[key] = _merge(*merged.get(key, (None, None)), o, lse_j)
     return (_join({key: m[0] for key, m in merged.items()}),
@@ -204,10 +211,11 @@ class _Ring:
     """One ring attention call's settings (its hook path's closure)."""
 
     def __init__(self, axis, r, causal, cap, bidirectional, scale, wire,
-                 dist, attention, zigzag=False):
+                 dist, attention, zigzag=False, window=None):
         from repro_torch.core.tatp import wire_relay
 
         self.axis, self.r, self.causal, self.cap = axis, r, causal, cap
+        self.window = window
         self.bidirectional, self.scale, self.dist = bidirectional, scale, dist
         self.attention, self.zigzag = attention, zigzag
 
@@ -219,24 +227,44 @@ class _Ring:
 
     def launches(self, i: int, j: int, s_loc: int):
         """The kernel launches of rank ``i``'s round on block ``j``, as
-        ``(query rows, key rows, causal)``.  Contiguous: the whole block,
-        causal on the own one, none for a later one (every key lies after
-        every query).  Zigzag (rank i holds chunks i and 2R - 1 - i, c
-        rows each, as A and B): on the own block q_A x k_A and q_B x k_B
-        causal and q_B x k_A unmasked (q_A x k_B is invisible); on an
-        earlier block (j < i) q_A and q_B x k_A, on a later one q_B x k_A
-        and q_B x k_B, all unmasked: 2R + 1 launches a rank."""
+        ``(query rows, key rows, causal, q_offset, window)``: ``q_offset``
+        is the first query's global position less the first key's, and a
+        mask is passed only where it hides some pair (where neither does,
+        the offset changes nothing and is given as 0).  Contiguous: the
+        whole block at offset (i - j) s_loc, causal on the own one, none
+        for a later one (every key lies after every query).  Zigzag (rank
+        i holds chunks i and 2R - 1 - i, c rows each, as A and B): on the
+        own block q_A x k_A and q_B x k_B causal and q_B x k_A unmasked
+        at (2R - 1 - 2i) c (q_A x k_B is invisible); on an earlier block
+        (j < i) q_A x k_A at (i - j) c and q_B x k_A at (2R - 1 - i - j)
+        c, on a later one q_B x k_A at (2R - 1 - i - j) c and q_B x k_B
+        at (j - i) c: 2R + 1 launches a rank.  Under a window a launch
+        whose nearest pair lies outside it is dropped."""
         if not self.zigzag:
-            if self.causal and j > i:
-                return []
-            return [(_ALL, _ALL, self.causal and j == i)]
-        c = s_loc // 2
-        a, b = slice(0, c), slice(c, s_loc)
-        if j == i:
-            return [(a, a, True), (b, a, False), (b, b, True)]
-        if j < i:
-            return [(a, a, False), (b, a, False)]
-        return [(b, a, False), (b, b, False)]
+            got = self._launch(_ALL, _ALL, s_loc, s_loc, (i - j) * s_loc)
+            return [got] if got else []
+        c, r = s_loc // 2, self.r
+        out = []
+        for qs, qc in ((slice(0, c), i), (slice(c, s_loc), 2 * r - 1 - i)):
+            for ks, kc in ((slice(0, c), j), (slice(c, s_loc),
+                                              2 * r - 1 - j)):
+                got = self._launch(qs, ks, c, c, (qc - kc) * c)
+                if got:
+                    out.append(got)
+        return out
+
+    def _launch(self, qs, ks, sq: int, sk: int, off: int):
+        """One launch of ``sq`` query rows ``off`` positions past ``sk``
+        keys, or None where the causal mask or the window hides every
+        pair."""
+        if self.causal and off + sq - 1 < 0:  # every key after every query
+            return None
+        w = self.window
+        if w is not None and off - (sk - 1) >= w:  # the nearest pair
+            return None
+        causal = self.causal and sk - 1 > off  # some key after some query
+        window = w if w is not None and off + sq - 1 >= w else None
+        return (qs, ks, causal, off if causal or window else 0, window)
 
 
 class _RingAttention(torch.autograd.Function):
@@ -287,7 +315,9 @@ class _RingAttention(torch.autograd.Function):
                                             ring.relay):
             kt, vt = kj.transpose(1, 2), vj.transpose(1, 2)
             got = {}  # key rows -> (dK, dV) in [B, H, S, D]
-            for qs, ks, causal in ring.launches(i, j, q.shape[1]):
+            # no window reaches here (A3f-2), so no launch's mask depends
+            # on its offset: the causal ones sit at offset 0
+            for qs, ks, causal, _, _ in ring.launches(i, j, q.shape[1]):
                 # o is not read with an outside delta; do stands in for it
                 d = dot[:, :, qs]
                 g = bwd(qt[:, :, qs], kt[:, :, ks], vt[:, :, ks], d,
@@ -366,6 +396,15 @@ def _attention_bwd(attention, q):
     return attention_bwd
 
 
+def _check_window_grad(window, *ts):
+    """Ring attention under a window has no backward yet: raise where one
+    would be taken, on every rank before any relay."""
+    if window is not None and torch.is_grad_enabled() and any(
+            t.requires_grad for t in ts):
+        raise not_ported("a sliding window in ring attention's backward",
+                         "A3f-2")
+
+
 def ring_attention(q, k, v, *, axis: str, axis_size: int, causal=True,
                    window=None, cap=None, bidirectional=True, scale=None,
                    wire: str = "native", dist=None, attention=None):
@@ -375,10 +414,12 @@ def ring_attention(q, k, v, *, axis: str, axis_size: int, causal=True,
     ``dist.axis_index(axis)``): local token t sits at ``i * s_loc + t``.
     The blocks travel as ``wire`` (``core/tatp.py:wire_relay``).  With
     ``attention`` (the flash kernel's signature, ``[B, H, S, D]`` views,
-    ``return_lse=True``) each round that has a visible key is one call,
-    and under autograd :class:`_RingAttention` gives the backward; without
-    it the reference's online-softmax loop, which autograd differentiates
-    through the relays' straight-through backward."""
+    ``return_lse=True``, ``q_offset``) each round that has a visible key
+    is one call, and under autograd :class:`_RingAttention` gives the
+    backward; without it the reference's online-softmax loop, which
+    autograd differentiates through the relays' straight-through backward.
+    A ``window`` masks global positions on both paths; under autograd it
+    raises (A3f-2)."""
     r = axis_size
     b, sl, hq, dh = q.shape
     hk = k.shape[2]
@@ -386,11 +427,10 @@ def ring_attention(q, k, v, *, axis: str, axis_size: int, causal=True,
     if r == 1:
         return local_attention(q, k, v, causal=causal, window=window, cap=cap,
                                scale=scale)
-    if window is not None:
-        raise not_ported("a sliding window in ring attention", "A3f")
+    _check_window_grad(window, q, k, v)
     i = dist.axis_index(axis)
     ring = _Ring(axis, r, causal, cap, bidirectional, scale, wire, dist,
-                 attention)
+                 attention, window=window)
     if attention is not None:
         if torch.is_grad_enabled() and any(t.requires_grad
                                            for t in (q, k, v)):
@@ -403,7 +443,7 @@ def ring_attention(q, k, v, *, axis: str, axis_size: int, causal=True,
     state = _init_state(b, hk, hq // hk, sl, dh, q.device)
     for _, _, j, kj, vj in _rounds(k, v, i, r, bidirectional, ring.relay):
         state = _block_update(qg, kj, vj, *state, qpos, j * sl + ar,
-                              scale=scale, causal=causal, window=None,
+                              scale=scale, causal=causal, window=window,
                               cap=cap)
     return _finish(*state, q.dtype)
 
@@ -443,10 +483,11 @@ def zigzag_ring_attention(q, k, v, *, axis: str, axis_size: int,
     q/k/v: [B, s_loc, H(,kv), dh] with local tokens = global chunks (i,
     2R - 1 - i).  Each streamed source costs exactly two (c x c) updates,
     with uniform work a rank.  With ``attention`` (the flash kernel's
-    signature) every update is one launch on c x c blocks, none with a
-    position offset (:meth:`_Ring.launches`: 2R + 1 a rank), merged in
-    fp32 by row LSE, and under autograd :class:`_RingAttention` gives the
-    backward (2R + 1 backward launches).  Without it, the reference's
+    signature) every update is one launch on c x c blocks at its chunks'
+    position offset (:meth:`_Ring.launches`: 2R + 1 a rank, fewer where a
+    window hides a launch), merged in fp32 by row LSE, and under autograd
+    :class:`_RingAttention` gives the backward (2R + 1 backward launches;
+    under a window it raises, A3f-2).  Without it, the reference's
     online-softmax loop, which autograd differentiates through the
     relays."""
     r = axis_size
@@ -457,11 +498,10 @@ def zigzag_ring_attention(q, k, v, *, axis: str, axis_size: int,
     if r == 1:
         return local_attention(q, k, v, causal=True, window=window, cap=cap,
                                scale=scale)
-    if window is not None:
-        raise not_ported("a sliding window in ring attention", "A3f")
+    _check_window_grad(window, q, k, v)
     i = dist.axis_index(axis)
     ring = _Ring(axis, r, True, cap, bidirectional, scale, wire, dist,
-                 attention, zigzag=True)
+                 attention, zigzag=True, window=window)
     if attention is not None:
         if torch.is_grad_enabled() and any(t.requires_grad
                                            for t in (q, k, v)):
@@ -472,7 +512,7 @@ def zigzag_ring_attention(q, k, v, *, axis: str, axis_size: int,
     pos_a, pos_b = i * c + ar, (2 * r - 1 - i) * c + ar
     qg = _group(q, hk)
     qa, qb = qg[:, :c], qg[:, c:]
-    kw = dict(scale=scale, causal=True, window=None, cap=cap)
+    kw = dict(scale=scale, causal=True, window=window, cap=cap)
     # round 0: the whole local block (the causal mask hides q_A x k_B)
     my_pos = torch.cat([pos_a, pos_b])
     state = _block_update(qg, k, v, *_init_state(b, hk, hq // hk, sl, dh,

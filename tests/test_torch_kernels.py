@@ -17,6 +17,7 @@ from repro.kernels.flash_attention.kernel import flash_attention
 from repro.kernels.flash_attention.ref import attention_ref as jax_attention
 from repro.kernels.tatp_matmul.kernel import matmul as pallas_matmul
 from repro.kernels.tatp_matmul.ref import matmul_ref as jax_matmul_ref
+from repro.models.attention import local_attention as jax_local_attention
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ops import attention
@@ -133,6 +134,45 @@ def test_attention_ref_fully_masked_rows_are_zero():
     out = attention_ref(q, k, k, causal=True, window=1)
     assert torch.isfinite(out).all()
     assert torch.equal(out[:, :, 4:], torch.zeros_like(out[:, :, 4:]))
+
+
+@pytest.mark.parametrize("q_offset", [0, 3, 9, 16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("window", [None, 4])
+@pytest.mark.parametrize("cap", [None, 5.0])
+def test_attention_ref_offset_matches_local_attention(q_offset, causal,
+                                                      window, cap):
+    """Query row r at position r + q_offset against key c at c, in both
+    masks: the reference's ``local_attention(q_offset=...)`` (6 queries, 10
+    keys; at 16 without causal, window 4 leaves no key visible: 0)."""
+    rng = np.random.RandomState(7)
+    q = rng.randn(2, 6, 4, 16).astype(np.float32)  # [B, S, H, D]
+    k = rng.randn(2, 10, 2, 16).astype(np.float32)
+    v = rng.randn(2, 10, 2, 16).astype(np.float32)
+    want = jax_local_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                               causal=causal, window=window, cap=cap,
+                               q_offset=q_offset)
+    t = [torch.from_numpy(a).transpose(1, 2) for a in (q, k, v)]
+    got, lse = attention_ref(*t, causal=causal, window=window, cap=cap,
+                             q_offset=q_offset, return_lse=True)
+    np.testing.assert_allclose(_np(got.transpose(1, 2)), _np(want),
+                               rtol=1e-5, atol=1e-5)
+    assert torch.isfinite(got).all()
+    if q_offset == 16 and window and not causal:
+        assert not got.any() and (lse <= -1e29).all()
+
+
+def test_attention_offset_on_cpu_and_under_autograd():
+    """The wrapper passes ``q_offset`` to the plain version on the CPU;
+    under autograd an offset raises (the backward takes none yet)."""
+    rng = np.random.RandomState(8)
+    q = torch.from_numpy(rng.randn(1, 2, 6, 16).astype(np.float32))
+    k = torch.from_numpy(rng.randn(1, 2, 10, 16).astype(np.float32))
+    kw = dict(causal=True, window=4, q_offset=5)
+    assert torch.equal(attention(q, k, k, **kw), attention_ref(q, k, k, **kw))
+    with pytest.raises(ValueError, match="query offset"):
+        attention(q.requires_grad_(True), k, k, **kw)
+    attention(q, k, k, causal=True, window=4)  # no offset: the Function
 
 
 # ---------------------------------------------------------------------------
@@ -339,11 +379,11 @@ def test_attention_backward_path(dtype, d, want):
      [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 6 + [ctypes.c_int] * 6
      + [ctypes.c_void_p]),
     # q, k, v, o, lse; B, Hq, Hkv, Sq, Skv, D; 12 strides; scale, causal,
-    # window, cap, dtype, path; stream
+    # window, q_offset, cap, dtype, path; stream
     ("flash_attention", "flash_attention_launch",
      [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_int64] * 12
-     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
+     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
     # q, k, v, o, do, lse, delta, dq, dk, dv; the six sizes; 24 strides;
     # scale, causal, window, cap, delta_in, dtype, path; stream
     ("flash_attention", "flash_attention_bwd_launch",
@@ -541,6 +581,53 @@ def test_attention_backward_outside_delta_matches_own(cuda_device, causal,
         for want in (a, b):
             np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()),
                                        **_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,path", [("float32", "simt"),
+                                        ("bfloat16", "mma")])
+@pytest.mark.parametrize("d", [64, 256])
+@pytest.mark.parametrize("q_offset", [1, 63, 64, 100, 300])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 96),
+                                           (False, 96)])
+def test_attention_kernel_offset_matches_plain(cuda_device, causal, window,
+                                               q_offset, d, dtype, path):
+    """Query rows at r + q_offset across tile edges (130 queries, 200
+    keys; at 300 with the window every key lies outside it): the kernel
+    against the plain version, rows that see no key exactly 0 with an LSE
+    at or below -1e29."""
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    q = torch.randn(2, 8, 130, d, generator=g, device=cuda_device)
+    k, v = (torch.randn(2, 2, 200, d, generator=g, device=cuda_device)
+            for _ in range(2))
+    q, k, v = (t.to(_TORCH[dtype]) for t in (q, k, v))
+    kw = dict(causal=causal, window=window, cap=30.0, q_offset=q_offset,
+              return_lse=True)
+    before = attention.launches_by_path[path]
+    got, lse = attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert attention.launches_by_path[path] == before + 1
+    ref, ref_lse = attention_ref(q, k, v, **kw)
+    np.testing.assert_allclose(_np(got.cpu()), _np(ref.cpu()), **_tol(dtype))
+    empty = ref_lse <= -1e29
+    assert torch.equal(empty, lse <= -1e29)
+    assert not got[empty].any() and torch.isfinite(got).all()
+    live = ~empty
+    np.testing.assert_allclose(_np(lse[live].cpu()), _np(ref_lse[live].cpu()),
+                               **_tol(dtype))
+
+
+@pytest.mark.cuda
+def test_attention_kernel_refuses_a_negative_offset(cuda_device):
+    """No caller needs a negative offset: the wrapper raises before any
+    launch; an offset under autograd raises too."""
+    q = torch.randn(1, 2, 16, 64, device=cuda_device)
+    before = attention.launches
+    with pytest.raises(ValueError, match="q_offset"):
+        attention(q, q, q, q_offset=-1)
+    with pytest.raises(ValueError, match="query offset"):
+        attention(q.clone().requires_grad_(True), q, q, q_offset=4)
+    assert attention.launches == before
 
 
 @pytest.mark.cuda

@@ -178,11 +178,12 @@ def test_write_kv_cache(pos):
 
 
 def test_ring_paths_raise_with_roadmap_item():
-    """A sliding window in ring attention needs a key offset the flash
-    kernel does not take (the ring's decode attention runs since the
-    serve ring was ported)."""
-    q = torch.zeros(1, 4, 4, 16)
-    with pytest.raises(NotImplementedError, match="A3f"):
+    """A sliding window in ring attention's backward needs the query
+    offset in the flash backward kernels (its forward runs on the ring:
+    ``tests/test_torch_ring_window.py``); it raises under autograd before
+    any relay."""
+    q = torch.zeros(1, 4, 4, 16, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="A3f-2"):
         tattn.ring_attention(q, q, q, axis="model", axis_size=2, window=4)
 
 

@@ -779,7 +779,8 @@ def _ring_dist(r=2):
 
 def test_unported_ring_paths_raise(monkeypatch):
     """What the train ring leaves raises before any collective: a window
-    under zigzag attention (A3f), the flash kernel's row LSE under autograd
+    under zigzag attention's backward (A3f-2), the flash kernel's row LSE
+    under autograd
     outside ring attention's Functions; sharded checkpoints and a stage's
     submesh go on to join the world (the encoder-decoder, the vision
     prefix, zigzag and ``tatp_outputs`` train on the ring:
@@ -795,8 +796,8 @@ def test_unported_ring_paths_raise(monkeypatch):
     from repro_torch.train.train_loop import check_prompt_len
 
     dist = _ring_dist()
-    x = torch.zeros(1, 4, 2, 8)
-    with pytest.raises(NotImplementedError, match="A3f"):
+    x = torch.zeros(1, 4, 2, 8, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="A3f-2"):
         attn.zigzag_ring_attention(x, x, x, axis="model", axis_size=2,
                                    window=4, dist=dist)
     q = torch.zeros(1, 2, 4, 8, requires_grad=True)
@@ -837,12 +838,41 @@ def test_engine_mode_over_ranks_joins_the_world(monkeypatch):
 
 
 def test_windowed_layer_over_the_ring_raises():
+    """Under autograd: the backward under a window is A3f-2 (the forward
+    runs: ``tests/test_torch_ring_window.py``)."""
     sys.path.insert(0, str(SRC))
     from repro_torch.models import attention as attn
-    q = torch.zeros(1, 4, 2, 8)
-    with pytest.raises(NotImplementedError, match="A3f"):
+    q = torch.zeros(1, 4, 2, 8, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="A3f-2"):
         attn.ring_attention(q, q, q, axis="model", axis_size=2, window=16,
                             dist=_ring_dist())
+
+
+@pytest.mark.parametrize("argv, joins", [
+    (["--arch", "gemma2-9b", "--mesh", "1", "4"], False),
+    (["--arch", "gemma2-9b", "--mesh", "2", "2"], False),
+    (["--arch", "gemma2-9b", "--mesh", "4", "1"], True),
+    (["--arch", "gemma2-9b", "--mesh", "2", "2", "--strategy", "megatron"],
+     True),
+    (["--arch", "deepseek-7b", "--mesh", "1", "4"], True),
+])
+def test_windowed_training_on_the_ring_raises_before_joining(
+        monkeypatch, argv, joins):
+    """``launch.train`` with gemma2-9b's window on the ``tatp`` ring raises
+    A3f-2 before the rank joins the world; at model degree 1, under
+    ``megatron`` (no ring attention) and without a window it joins."""
+    sys.path.insert(0, str(SRC))
+    import repro_torch.launch.train as launch
+
+    def joined(args):
+        raise RuntimeError("joined the world")
+
+    monkeypatch.setattr(launch, "join_world", joined)
+    monkeypatch.setenv("WORLD_SIZE", "4")
+    want = (RuntimeError, "joined the world") if joins else (
+        NotImplementedError, "A3f-2")
+    with pytest.raises(want[0], match=want[1]):
+        launch.main(["--reduced", "--device", "cpu", *argv])
 
 
 if __name__ == "__main__":

@@ -180,7 +180,10 @@ def test_unported_paths_name_their_roadmap_item(model):
     ``fsdp`` above degree 1 and ``megatron``'s decode.  (The MoE
     all-to-all under ``tatp``, ``megatron``'s linears and its
     cross-entropy of ring-replicated tokens run:
-    ``tests/test_torch_ring_moe.py``, ``tests/test_torch_ring_megatron.py``.)"""
+    ``tests/test_torch_ring_moe.py``, ``tests/test_torch_ring_megatron.py``.)
+    What is left to port raises naming its item: ring attention's backward
+    under a sliding window (A3f-2; its forward serves:
+    ``tests/test_torch_ring_window.py``)."""
     from dataclasses import replace
     cfg, _, _, tctx, _ = model
     moe = replace(cfg, n_experts=8, top_k=2)
@@ -204,6 +207,12 @@ def test_unported_paths_name_their_roadmap_item(model):
     decode = replace(ring, cfg=cfg, phase="decode")
     with pytest.raises(NotImplementedError, match="C5"):
         ttf._linear(decode, torch.zeros(1, 1, 4), torch.zeros(4, 4))
+    from repro_torch.models import attention as tattn
+    q = torch.zeros(1, 4, 2, 8, requires_grad=True)
+    for fn in (tattn.ring_attention, tattn.zigzag_ring_attention):
+        with pytest.raises(NotImplementedError, match="A3f-2"):
+            fn(q, q, q, axis="model", axis_size=2, window=4,
+               dist=_RingDist(torch.device("cpu")))
 
 
 class _RingDist(Dist):
