@@ -376,6 +376,31 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    with the build): ``phase_device``, ``phase_build`` and
    ``phase_ring_engine_alone(torch)`` of ``chip_smoke`` with ``.`` and
    ``src`` on ``sys.path`` and TF32 off.
+17. windows on the ring — in this process, before phase 11's ranks
+   start: the flash forward kernel at query offsets (``q_offset``) on
+   both paths against ``attention_ref`` at the same offset over small
+   shapes across the tiles' edges (WINDOW_SWEEP: offsets 0 to 300,
+   causal and not, windows), rows that see no key exactly 0 with an LSE
+   at or below -1e29; gemma2-9b's ring launches ([1, 16, 2048, 256] over
+   8 kv heads, cap 50, window 4096, at offsets 0, 2048 and 4096, and
+   zigzag's c x c at 0, 1024 and 4096) checked and timed beside their
+   bounds over the visible pairs; the degree-1 runs; then in phase 11's
+   ranks after phase 16: (a) fp32 parity of gemma2-9b at full width, 2
+   layers (LG), 1 x 8192, 4 new tokens: logits and each rank's caches
+   within rtol = atol = 1e-3, identical tokens, exact launches on
+   ``simt``; (b) the bf16 serve of 4 layers through ``launch.serve
+   --mesh 1 4`` (1 x 8192, 4 new tokens): 112 GEMM tiles on ``wgmma``
+   and 4 / 8 / 12 / 14 flash on ``mma`` on ranks 0-3 (the window drops
+   rank 3's round on block 0 in each ``L`` layer), the last logits
+   within RING_BF16_TOL of degree 1 and the first token identical; (c)
+   engine mode through ``launch.serve --serve --auto-plan --layers 4``
+   (4 requests of 4608 prompt tokens, past the window, and 4 new ones,
+   at WINDOW_ENGINE_RATE), every request finished, exact launches a
+   call.  ``[window]`` lines give the rows, the serves' staged bytes and
+   times, the slots' capacity and the phase's time.  Alone (~4 min with
+   the build): ``phase_device``, ``phase_build`` and
+   ``phase_window_alone(torch)`` of ``chip_smoke`` with ``.`` and
+   ``src`` on ``sys.path`` and TF32 off.
 
 It then prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``.
@@ -1962,11 +1987,12 @@ def attention_shapes(cfg, seq, frames=0):
                   key=str)
 
 
-def attn_pairs(sq, skv, causal, window):
+def attn_pairs(sq, skv, causal, window, q_offset=0):
     """The (query, key) pairs one head attends under the flash kernel's
-    masks (top-left causal, ``q - k < window``)."""
+    masks (query row q at position q + ``q_offset``, key k at k: causal
+    ``k <= q + q_offset``, ``q + q_offset - k < window``)."""
     n = 0
-    for q in range(sq):
+    for q in range(q_offset, q_offset + sq):
         hi = min(skv - 1, q) if causal else skv - 1
         lo = max(0, q - window + 1) if window else 0
         n += max(0, hi - lo + 1)
@@ -3781,15 +3807,30 @@ RING_ATTN = (RING_SERVE["batch"], HEADS,
              RING_SERVE["prompt_len"] // RING["ranks"], HEAD_DIM)
 
 
-def ring_launches(cfg, r, i):
+def ring_launches(cfg, r, i, seq=None):
     """Kernel launches of one ring prefill on rank ``i`` of ``r`` (a
     causal decoder): every linear's ``r`` per-round tiles, and one flash
-    per round with a visible key (the own block and the ``i`` earlier
-    ones) in each attention block."""
+    per round with a visible key in each attention block: the own block
+    and the ``i`` earlier ones, and in an ``L`` slot (a prompt of ``seq``
+    tokens, ``seq / r`` a rank) only the blocks whose nearest pair lies
+    inside the window (:func:`window_rounds`)."""
     n = prefill_launches(cfg)
     n["tatp_matmul"] *= r
-    n["flash_attention"] *= i + 1
+    n["flash_attention"] = sum(
+        window_rounds(cfg.sliding_window if kind == "L" else None, r, i,
+                      seq) for _, kind in model_blocks(cfg) if kind != "M")
     return n
+
+
+def window_rounds(window, r, i, seq):
+    """Rank ``i``'s rounds with a visible pair in a causal contiguous ring
+    of ``r`` blocks of ``seq / r`` positions under ``window`` (None: all
+    ``i + 1``), counted from the positions: block ``j <= i``'s nearest
+    pair is ``(i - j) s - (s - 1)`` apart."""
+    if window is None:
+        return i + 1
+    s = seq // r
+    return sum(1 for j in range(i + 1) if (i - j) * s - (s - 1) < window)
 
 
 def phase_ring_rows(torch, randn):
@@ -3904,19 +3945,20 @@ def ring_transport(torch, dist):
                 hop_gb_s=blk.numel() * 2 / hop_ms / 1e6)
 
 
-def ring_parity(torch, dist, out_dir):
+def ring_parity(torch, dist, out_dir, spec=None,
+                wires=("native", "bf16", "fp8"), tag="parity"):
     """fp32 at full width, 2 layers: the ring's prefill (launches,
     logits, this rank's cache block) and greedy tokens on the weights
-    ``init_sharded_params`` draws from RING_PARITY's seed; then the
-    prefill on the bf16 and fp8 wires.  The tensors go to
-    ``parity<rank>.pt`` for the parent to compare."""
+    ``init_sharded_params`` draws from ``spec``'s seed (RING_PARITY by
+    default); then the prefill on the other ``wires``.  The tensors go to
+    ``<tag><rank>.pt`` for the parent to compare."""
     from repro_torch.configs.base import ParallelConfig
     from repro_torch.launch.serve import prompt_batch
     from repro_torch.models import lm
     from repro_torch.train.train_loop import make_serve_fns
     from repro_torch.weights import init_sharded_params
 
-    spec = RING_PARITY
+    spec = spec or RING_PARITY
     dev, i = dist.device, dist.axis_index(dist.model_axis)
     cfg = parity_config(spec["arch"], spec["n_layers"])
     params = init_sharded_params(
@@ -3925,7 +3967,7 @@ def ring_parity(torch, dist, out_dir):
     batch = {name: torch.as_tensor(a, device=dev) for name, a in
              prompt_batch(cfg, b, s, seed=spec["seed"]).items()}
     out, rec = {}, {}
-    for wire in ("native", "bf16", "fp8"):
+    for wire in wires:
         sb = make_serve_fns(cfg, ParallelConfig(strategy="tatp", remat=False,
                                                 stream_dtype=wire), dist)
         zero_launches()
@@ -3935,7 +3977,7 @@ def ring_parity(torch, dist, out_dir):
         if wire != "native":
             continue
         launches, paths = read_launches(), read_paths()
-        want = ring_launches(cfg, dist.model_degree, i)
+        want = ring_launches(cfg, dist.model_degree, i, s)
         need(launches == want, f"rank {i}: fp32 ring prefill launched "
              f"{launches}, want {want}")
         for name, by_path in paths.items():
@@ -3955,25 +3997,29 @@ def ring_parity(torch, dist, out_dir):
             tok, _, big = sb.decode_fn(params, tok, big, cl)
             toks.append(tok)
         out["tokens"] = torch.cat(toks, dim=1).cpu()
-    torch.save(out, Path(out_dir) / f"parity{i}.pt")
+    torch.save(out, Path(out_dir) / f"{tag}{i}.pt")
     del params
     release(torch)
     return rec
 
 
-def ring_serve(torch, out_dir, rank):
+def ring_serve(torch, out_dir, rank, argv=None, gen=None, tag="serve"):
     """The bf16 serve through the entry point's ``serve`` with the CLI's
-    arguments (``--auto-plan``, 30 layers): launches by path from zero,
-    prefill ms, ms/token, peak GB and the host-staged transport's share;
-    the tokens and the prefill's last logits to ``serve<rank>.pt``."""
+    arguments (``argv``; by default RING_SERVE's: ``--auto-plan``, 30
+    layers; ``gen`` its new tokens): launches by path from zero, prefill
+    ms, ms/token, peak GB and the host-staged transport's share; the
+    tokens and the prefill's last logits to ``<tag><rank>.pt``."""
     from repro_torch.launch.serve import build_parser, serve
 
     spec = RING_SERVE
-    args = build_parser().parse_args([
-        "--arch", spec["arch"], "--auto-plan", "--batch", str(spec["batch"]),
-        "--prompt-len", str(spec["prompt_len"]), "--gen", str(spec["gen"]),
-        "--dist-backend", RING["backend"],
-        "--plan-cache", str(Path(out_dir) / f"plans{rank}")])
+    if argv is None:
+        argv = ["--arch", spec["arch"], "--auto-plan", "--batch",
+                str(spec["batch"]), "--prompt-len", str(spec["prompt_len"]),
+                "--gen", str(spec["gen"]),
+                "--plan-cache", str(Path(out_dir) / f"plans{rank}")]
+        gen = spec["gen"]
+    args = build_parser().parse_args(
+        argv + ["--dist-backend", RING["backend"]])
     torch.cuda.reset_peak_memory_stats()
     stats = {}
     zero_launches()
@@ -3984,10 +4030,10 @@ def ring_serve(torch, out_dir, rank):
     launches, paths = read_launches(), read_paths()
     dist = stats["dist"]
     stage = dist.stage
-    decode_s = res["ms_per_token"] * spec["gen"] / 1e3
+    decode_s = res["ms_per_token"] * gen / 1e3
     torch.save(dict(tokens=torch.tensor(res.pop("tokens")),
                     logits=stats["prefill_logits"][:, -1].float().cpu()),
-               Path(out_dir) / f"serve{rank}.pt")
+               Path(out_dir) / f"{tag}{rank}.pt")
     return dict(
         serve=res, mesh=list(dist.mesh_shape), coords=list(dist.coords),
         launches=launches, launches_by_path=paths,
@@ -4004,7 +4050,7 @@ def ring_serve(torch, out_dir, rank):
 def ring_rank_main(out_dir) -> int:
     """One rank of phase 11, started by ``torch.distributed.run``: the
     transport check, fp32 parity and the bf16 serve, its record to
-    ``rank<rank>.json``."""
+    ``rank<rank>.json``; then phases 16 and 17."""
     sys.path.insert(0, str(SRC))
     import torch
     import torch.distributed as tdist
@@ -4026,6 +4072,7 @@ def ring_rank_main(out_dir) -> int:
         rec.update(ring_serve(torch, out_dir, rank))
         (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(rec))
         ring_engine(torch, out_dir, rank)  # phase 16
+        ring_window(torch, dist, out_dir, rank)  # phase 17
     finally:
         tdist.destroy_process_group()
     return 0
@@ -4111,8 +4158,9 @@ def phase_ring(torch, randn, degree1):
     """Phase 11: deepseek-7b through the TATP ring at model degree 4 on
     four ranks sharing the card (gloo, host-staged).  ``degree1`` holds
     phase 5's degree-1 bf16 run of the same weights (its prefill's last
-    logits and tokens).  Returns the ring rows and each rank's run for
-    the kernels line."""
+    logits and tokens).  Phases 16 and 17 run in the same ranks.  Returns
+    the ring rows, each rank's run for the kernels line and phase 17's
+    additions to it."""
     import tempfile
 
     from repro_torch.configs import get_config
@@ -4120,6 +4168,7 @@ def phase_ring(torch, randn, degree1):
     t_phase = time.perf_counter()
     rows = phase_ring_rows(torch, randn)
     ref = degree1_parity(torch)
+    window_pre = window_before_ranks(torch, randn)  # phase 17's first part
     r = RING["ranks"]
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
@@ -4130,6 +4179,7 @@ def phase_ring(torch, randn, degree1):
         par = [torch.load(Path(tmp) / f"parity{i}.pt") for i in range(r)]
         srv = [torch.load(Path(tmp) / f"serve{i}.pt") for i in range(r)]
         engine_runs = phase_ring_engine(torch, tmp)  # phase 16
+        window, window_runs = phase_window(torch, tmp, window_pre)
     for rec in recs:
         log(f"[ring] rank {rec['rank']} transport "
             f"{json.dumps(rec['transport'])}")
@@ -4204,6 +4254,7 @@ def phase_ring(torch, randn, degree1):
         runs[f"deepseek-7b ring {tuple(RING['mesh'])} rank {i}"] = (
             rec["launches"], rec["launches_by_path"])
     runs.update(engine_runs)
+    runs.update(window_runs)
     need(err <= RING_BF16_TOL, f"bf16 ring prefill logits rel L2 {err:.3e} "
          f"> {RING_BF16_TOL}")
     for row in range(len(first)):
@@ -4212,7 +4263,7 @@ def phase_ring(torch, randn, degree1):
         need(first[row] == first1[row] or margin[row] <= 2 * maxerr,
              f"row {row}: first token {first[row]} != degree 1's "
              f"{first1[row]} at margin {margin[row]:.3e}")
-    return rows, runs
+    return rows, runs, window
 
 
 # ---------------------------------------------------------------------------
@@ -4303,20 +4354,22 @@ class RankCalls:
                       for u in before for n in before[u])))
 
 
-def ring_engine_run(torch, out_dir, label, requests, frac):
-    """``serve_engine`` (``launch.serve --serve --auto-plan --layers 4``)
-    on every rank of the world, each rank's executor in a
-    :class:`RankCalls`: the launch counts zeroed just before it and read
+def ring_engine_run(torch, out_dir, label, requests, frac, spec=None,
+                    rate=None, plans="engine_plans"):
+    """``serve_engine`` (``launch.serve --serve --auto-plan --layers 4``,
+    ``spec`` and ``rate``: RING_ENGINE's by default; the plans cached
+    under ``plans``) on every rank of the world, each rank's executor in
+    a :class:`RankCalls`: the launch counts zeroed just before it and read
     just after."""
     from repro_torch.launch.serve import build_parser, serve_engine
 
-    e = RING_ENGINE
+    e = spec or RING_ENGINE
     argv = ["--arch", e["arch"], "--serve", "--auto-plan", "--layers",
             str(e["layers"]), "--max-batch", str(e["max_batch"]),
             "--prompt-len", str(e["prompt_len"]), "--max-new",
             str(e["max_new"]), "--requests", str(requests), "--rate",
-            str(RING_ENGINE_RATE), "--dist-backend", RING["backend"],
-            "--plan-cache", str(Path(out_dir) / "engine_plans")]
+            str(rate or RING_ENGINE_RATE), "--dist-backend",
+            RING["backend"], "--plan-cache", str(Path(out_dir) / plans)]
     if frac is not None:
         argv += ["--fault-at", str(RING_ENGINE_FAULT_AT), "--fault-frac",
                  str(frac)]
@@ -4450,11 +4503,12 @@ def ring_engine_rank_main(out_dir) -> int:
     return 0
 
 
-def ring_engine_capacity(calls):
+def ring_engine_capacity(calls, spec=None):
     """Requests a second that 4 slots serve at a run's call times: one
     prefill of a full group (its median) and ``max_new - 1`` decode calls
-    (their median) for every ``max_batch`` requests."""
-    e = RING_ENGINE
+    (their median) for every ``max_batch`` requests (``spec``:
+    RING_ENGINE's by default)."""
+    e = spec or RING_ENGINE
     med = {}
     for kind in ("prefill", "decode"):
         ms = sorted(c["ms"] for c in calls if c["kind"] == kind)
@@ -4651,6 +4705,450 @@ def phase_ring_engine_alone(torch):
     with tempfile.TemporaryDirectory() as tmp:
         run_ranks(torch, tmp, entry="--ring-engine-rank")
         return phase_ring_engine(torch, tmp)
+
+
+# ---------------------------------------------------------------------------
+# phase 17: gemma2-9b's windowed layers on the ring, in phase 11's ranks
+# ---------------------------------------------------------------------------
+
+# the offset sweep on both paths: small shapes across the tiles' edges
+# (mma: 64 query rows and 64 keys a tile, 32 keys at D 256; simt: 32 and
+# 32), (causal, window) pairs; at offset 300 every key lies outside the
+# window
+WINDOW_SWEEP = dict(batch=2, heads=8, kv_heads=2, sq=130, skv=200, cap=30.0,
+                    offsets=(0, 1, 63, 64, 100, 200, 300), dims=(64, 256),
+                    masks=((True, None), (True, 96), (False, 96)))
+# gemma2-9b's ring launches at (1, 4) on 1 x 8192 tokens ([1, 16, s, 256]
+# over 8 kv heads, cap 50, window 4096), as (s, q_offset, causal): the
+# contiguous rounds (s 2048) on the own block, 2048 and 4096 positions
+# back, and zigzag's c x c launches (c 1024) at 0, 1024 and 4096
+WINDOW_ROUNDS = ((2048, 0, True), (2048, 2048, False), (2048, 4096, False),
+                 (1024, 0, True), (1024, 1024, False), (1024, 4096, False))
+# (a) fp32 parity: 2 layers (LG) at full width, 1 x 8192, 4 new tokens,
+# against the same tree whole at degree 1
+WINDOW_PARITY = dict(arch="gemma2-9b", n_layers=2, batch=1, prompt_len=8192,
+                     gen=4, seed=3)
+# (b) the bf16 serve, 4 layers (LGLG), 1 x 8192, 4 new tokens, through
+# launch.serve --mesh 1 4: --auto-plan gives gemma2-9b's 1 x 8196 tokens
+# a megatron WaferPlan on (4, 1), whose data degree one row cannot fill
+WINDOW_SERVE = dict(arch="gemma2-9b", layers=4, batch=1, prompt_len=8192,
+                    gen=4)
+# its flash launches a prefill on ranks 0-3: G slots i + 1, L slots i + 1
+# but rank 3's round on block 0, whose nearest pair is 4097 apart
+WINDOW_SERVE_FLASH = [4, 8, 12, 14]
+# (c) engine mode through launch.serve --serve --auto-plan (the full
+# model's ServePlan for 4 slots x 4612 tokens is tatp on (1, 4)), 4
+# layers, bf16, prompts of 4608 tokens (past the window), 4 new tokens;
+# the offered rate is at most 60 % of what the slots serve at the call
+# times a first run measured: a prefill group (padded to 4 x 4608) 3.37 s
+# and a decode call 0.30 s give 0.936 requests a second, of which 0.8
+# (85 %) queued and 0.5 is 53 % (PERF.md section 6, PR 32)
+WINDOW_ENGINE = dict(arch="gemma2-9b", layers=4, max_batch=4,
+                     prompt_len=4608, max_new=4)
+WINDOW_ENGINE_REQUESTS = 4
+WINDOW_ENGINE_RATE = 0.5
+WINDOW_S = 45  # the phase's budget of wall clock
+
+
+def window_cfg(layers):
+    """gemma2-9b at full width cut to ``layers`` layers."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    return replace(get_config(WINDOW_SERVE["arch"]), n_layers=layers)
+
+
+def quiet_err(name, got, ref, rtol, atol):
+    """:func:`compare`'s test, logged only where it fails; the largest
+    absolute difference."""
+    g, r = got.float(), ref.float()
+    need(bool(g.isfinite().all()), f"{name}: non-finite kernel output")
+    if not g.numel():
+        return 0.0
+    err = (g - r).abs()
+    excess = (err - (atol + rtol * r.abs())).max().item()
+    need(excess <= 0, f"{name}: kernel disagrees with its plain version, "
+         f"{excess:.3g} over rtol={rtol} atol={atol}")
+    return err.max().item()
+
+
+def window_sweep(torch, randn):
+    """The forward kernel at query offsets (WINDOW_SWEEP) on both paths
+    against :func:`attention_ref` at the same offset: one launch each on
+    its path, the output and the live rows' LSE within ATTN_TOL, and the
+    rows that see no key exactly 0 with an LSE at or below -1e29 (the
+    plain version's -1e30).  Returns the largest error by path."""
+    from repro_torch.kernels.flash_attention.ops import attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    w = WINDOW_SWEEP
+    errs, empty_rows, checks = {}, 0, 0
+    for dtype, path in ((torch.float32, "simt"), (torch.bfloat16, "mma")):
+        rtol, atol = ATTN_TOL[str(dtype).split(".")[-1]]
+        err = 0.0
+        for d in w["dims"]:
+            q = randn(w["batch"], w["heads"], w["sq"], d, dtype=dtype)
+            k, v = (randn(w["batch"], w["kv_heads"], w["skv"], d,
+                          dtype=dtype) for _ in range(2))
+            for off in w["offsets"]:
+                for causal, window in w["masks"]:
+                    kw = dict(causal=causal, window=window, cap=w["cap"],
+                              q_offset=off, return_lse=True)
+                    what = (f"offset sweep {path} D {d} offset {off} "
+                            f"causal {causal} window {window}")
+                    before = attention.launches_by_path[path]
+                    o, lse = attention(q, k, v, **kw)
+                    torch.cuda.synchronize()
+                    need(attention.launches_by_path[path] == before + 1,
+                         f"{what}: not one {path} launch")
+                    o_ref, lse_ref = attention_ref(q, k, v, **kw)
+                    empty = lse_ref <= -1e29
+                    need(torch.equal(empty, lse <= -1e29),
+                         f"{what}: the rows with no key differ")
+                    need(not o[empty].any(),
+                         f"{what}: a row with no key is not 0")
+                    err = max(err, quiet_err(what, o, o_ref, rtol, atol),
+                              quiet_err(what + " LSE", lse[~empty],
+                                        lse_ref[~empty], rtol, atol))
+                    empty_rows += int(empty.sum())
+                    checks += 1
+        errs[path] = err
+    log(f"[window] offset sweep, {checks} launches ({w['sq']} queries x "
+        f"{w['skv']} keys, D {list(w['dims'])}, offsets "
+        f"{list(w['offsets'])}): max_abs_err {json.dumps(errs)}; "
+        f"{empty_rows} rows with no key, each 0 with LSE <= -1e29")
+    return errs
+
+
+def window_rows(torch, randn):
+    """gemma2-9b's ring launches at their query offsets (WINDOW_ROUNDS),
+    bf16 on ``mma``, in the model's ``[B, S, H, D]`` layout viewed as
+    ``[B, H, S, D]``, q scaled by :func:`cap_scale` so the cap bites: the
+    output against :func:`attention_ref` (atol scaled by each row's RMS,
+    as phase 6 holds flash) and the live rows' LSE, the rows that see no
+    key exactly 0 with LSE <= -1e29; each timed beside its bound over the
+    visible pairs (:func:`attn_pairs` at the offset) and its plain
+    version (no library call: SDPA takes no soft-cap)."""
+    from repro_torch.kernels.flash_attention.ops import attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    cfg = window_cfg(2)
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    window, cap = cfg.sliding_window, cfg.attn_softcap
+    bf = torch.bfloat16
+    rows = []
+    for s, off, causal in WINDOW_ROUNDS:
+        q = randn(1, s, hq, d, dtype=bf, scale=cap_scale(cap)).transpose(1,
+                                                                          2)
+        k, v = (randn(1, s, hkv, d, dtype=bf).transpose(1, 2)
+                for _ in range(2))
+        kw = dict(causal=causal, window=window, cap=cap, q_offset=off,
+                  return_lse=True)
+        kind = "round" if s == 2048 else "zigzag c x c"
+        name = f"gemma2-9b ring {kind} [1,{hq},{s},{d}] offset {off}"
+        before = attention.launches_by_path["mma"]
+        o, lse = attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        need(attention.launches_by_path["mma"] == before + 1,
+             f"{name}: did not take mma")
+        o_ref, lse_ref = attention_ref(q, k, v, **kw)
+        empty = lse_ref <= -1e29
+        need(torch.equal(empty, lse <= -1e29) and not o[empty].any(),
+             f"{name}: the rows with no key are not 0 with LSE -1e30")
+        err = max(compare(name, o, o_ref, *ATTN_TOL["bfloat16"], rms="row"),
+                  compare(name + " row LSE", lse[~empty], lse_ref[~empty],
+                          *ATTN_TOL["bfloat16"]))
+        pairs = hq * attn_pairs(s, s, causal, window, off)
+        # q, k, v in and o out in bf16, the row LSE out in fp32
+        nbytes = 2 * d * (2 * hq * s + 2 * hkv * s) + 4 * hq * s
+        row = dict(name=name, shape=[1, hq, s, d], kv_heads=hkv,
+                   q_offset=off, causal=causal, window=window, cap=cap,
+                   path="mma", max_abs_err=err, empty_rows=int(empty.sum()),
+                   visible_pairs=pairs,
+                   ms=time_ms(torch, lambda: attention(q, k, v, **kw), 20),
+                   plain_ms=time_ms(torch, lambda: attention_ref(
+                       q, k, v, **kw), 3, 1),
+                   library_ms=None, library="none: SDPA takes no soft-cap")
+        row["bound_ms"], row["bound_by"] = bound(4 * pairs * d, nbytes,
+                                                 "bfloat16")
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        log(f"  timing {name}: {json.dumps(row)} ({CARD['smi']})")
+        rows.append(row)
+    return rows
+
+
+def window_degree1(torch):
+    """The degree-1 runs phase 17's ranks are held to: (a) WINDOW_PARITY's
+    fp32 tree whole on the card (:func:`degree1_parity`); (b)
+    WINDOW_SERVE's bf16 serve through ``serve`` on one device, on the
+    seed-0 weights the ranks draw shard by shard: the prefill's last
+    logits and the tokens."""
+    from repro_torch.launch.serve import build_parser, serve
+
+    fp32 = degree1_parity(torch, WINDOW_PARITY)
+    w = WINDOW_SERVE
+    args = build_parser().parse_args([
+        "--arch", w["arch"], "--layers", str(w["layers"]), "--batch",
+        str(w["batch"]), "--prompt-len", str(w["prompt_len"]), "--gen",
+        str(w["gen"])])
+    stats = {}
+    res = serve(args, keep_tokens=True, stats=stats)
+    bf16 = dict(logits=stats["prefill_logits"][:, -1].float().cpu(),
+                tokens=torch.tensor(res["tokens"]))
+    del stats
+    release(torch)
+    return fp32, bf16
+
+
+def window_before_ranks(torch, randn):
+    """Phase 17's part in this process before the ranks start: the offset
+    sweep, gemma2-9b's launches timed alone, the degree-1 runs."""
+    t0 = time.perf_counter()
+    log("[window] phase 17: the forward kernel at query offsets")
+    sweep = window_sweep(torch, randn)
+    rows = window_rows(torch, randn)
+    release(torch)
+    fp32, bf16 = window_degree1(torch)
+    return dict(sweep=sweep, rows=rows, fp32=fp32, bf16=bf16,
+                before_s=time.perf_counter() - t0)
+
+
+def ring_window(torch, dist, out_dir, rank):
+    """Phase 17 on one rank: (a) fp32 parity, (b) the bf16 serve through
+    ``launch.serve --mesh 1 4``, (c) engine mode through ``launch.serve
+    --serve --auto-plan``; the record to ``window<rank>.json``."""
+    t0 = time.perf_counter()
+    rec = dict(rank=rank)
+    rec["parity"] = ring_parity(torch, dist, out_dir, WINDOW_PARITY,
+                                ("native",), "window_parity")
+    rec["parity_s"] = time.perf_counter() - t0
+    w = WINDOW_SERVE
+    t1 = time.perf_counter()
+    rec["serve"] = ring_serve(torch, out_dir, rank, argv=[
+        "--arch", w["arch"], "--layers", str(w["layers"]), "--mesh", "1",
+        "4", "--batch", str(w["batch"]), "--prompt-len",
+        str(w["prompt_len"]), "--gen", str(w["gen"])], gen=w["gen"],
+        tag="window_serve")
+    release(torch)
+    rec["serve_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    rec["engine"] = ring_engine_run(
+        torch, out_dir, "window", WINDOW_ENGINE_REQUESTS, None,
+        spec=WINDOW_ENGINE, rate=WINDOW_ENGINE_RATE, plans="window_plans")
+    release(torch)
+    rec["engine_s"] = time.perf_counter() - t1
+    rec["phase_s"] = time.perf_counter() - t0
+    (Path(out_dir) / f"window{rank}.json").write_text(json.dumps(rec))
+
+
+def window_rank_main(out_dir) -> int:
+    """One rank of phase 17 alone (``--window-rank``)."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.core.dist import (init_world, make_mesh_dist,
+                                       world_from_env)
+
+    rank, _, local = world_from_env()
+    dev = torch.device("cuda", local % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_world(RING["backend"])
+    try:
+        ring_window(torch, make_mesh_dist(RING["mesh"], dev), out_dir, rank)
+    finally:
+        tdist.destroy_process_group()
+    return 0
+
+
+def check_window_parity(torch, out_dir, ref):
+    """(a): the ranks' fp32 prefill logits and cache blocks against the
+    degree-1 run within GEMM_TOL's fp32 limits, their tokens identical
+    (the launches, all on ``simt``, each rank checked itself)."""
+    r = RING["ranks"]
+    par = [torch.load(Path(out_dir) / f"window_parity{i}.pt")
+           for i in range(r)]
+    tol = GEMM_TOL["float32"]
+    compare("window ring fp32 prefill logits vs degree 1",
+            par[0]["logits_native"], ref["logits"], *tol)
+    sl = WINDOW_PARITY["prompt_len"] // r
+    for i, p in enumerate(par):
+        need(torch.equal(p["logits_native"], par[0]["logits_native"]),
+             f"rank {i}'s gathered logits differ from rank 0's")
+        for u, leaves in p["caches"].items():
+            for n, t in leaves.items():
+                compare(f"window ring fp32 rank {i} prefill cache {u}.{n}",
+                        t, ref["caches"][u][n][:, :, i * sl:(i + 1) * sl],
+                        *tol)
+        need(torch.equal(p["tokens"], ref["tokens"]),
+             f"rank {i}: window ring tokens {p['tokens'].tolist()} != "
+             f"degree 1 {ref['tokens'].tolist()}")
+    log(f"  fp32 greedy tokens identical to degree 1: "
+        f"{ref['tokens'].tolist()}")
+
+
+def check_window_serve(torch, out_dir, recs, ref, runs):
+    """(b): exact launches a rank by kernel and path (every GEMM tile on
+    ``wgmma``, WINDOW_SERVE_FLASH flash on ``mma``), the same tokens on
+    every rank, the prefill's last logits within RING_BF16_TOL (relative
+    L2) of the degree-1 bf16 run and its first token identical."""
+    r = RING["ranks"]
+    w = WINDOW_SERVE
+    cfg = window_cfg(w["layers"])
+    srv = [torch.load(Path(out_dir) / f"window_serve{i}.pt")
+           for i in range(r)]
+    flash = []
+    for i, rec in enumerate(recs):
+        sv = rec["serve"]
+        want = ring_launches(cfg, r, sv["coords"][1], w["prompt_len"])
+        need(sv["launches"] == want,
+             f"window serve rank {i}: launches {sv['launches']} != {want}")
+        for name, path in MAIN_PATH_KERNEL.items():
+            need(sv["launches_by_path"][name][path] == want[name],
+                 f"window serve rank {i}: {name} by path "
+                 f"{sv['launches_by_path'][name]}")
+        need(torch.equal(srv[i]["tokens"], srv[0]["tokens"]),
+             f"window serve rank {i}'s tokens differ from rank 0's")
+        flash.append(sv["launches"]["flash_attention"])
+        runs[f"gemma2-9b ring window serve rank {i}"] = (
+            sv["launches"], sv["launches_by_path"])
+    need(flash == WINDOW_SERVE_FLASH, f"window serve flash launches a rank "
+         f"{flash}, want {WINDOW_SERVE_FLASH}")
+    got, want = srv[0]["logits"], ref["logits"]
+    err = rel_l2(got, want)
+    first, first1 = srv[0]["tokens"][:, 0], ref["tokens"][:, 0]
+    top2 = want.topk(2, dim=-1).values
+    summary = dict(
+        prefill_logits_rel_l2=err,
+        prefill_logits_max_abs=(got - want).abs().max().item(),
+        first_tokens=first.tolist(), degree1_first_tokens=first1.tolist(),
+        degree1_top2_margin=(top2[:, 0] - top2[:, 1]).tolist(),
+        tokens=srv[0]["tokens"].tolist(),
+        degree1_tokens=ref["tokens"].tolist(), flash_launches=flash,
+        per_rank=[{k: rec["serve"][k] for k in (
+            "prefill_ms", "ms_per_token", "peak_gb", "transport_s",
+            "transport_calls", "transport_gb", "prefill_transport_share",
+            "decode_transport_share", "wall_s", "mesh", "launches",
+            "launches_by_path")} for rec in recs])
+    log(f"[window] (b) gemma2-9b {w['layers']} layers bf16, 1 x "
+        f"{w['prompt_len']}, mesh (1, 4): {json.dumps(summary)} "
+        f"({CARD['smi']})")
+    need(err <= RING_BF16_TOL, f"window serve: prefill logits rel L2 "
+         f"{err:.3e} > {RING_BF16_TOL}")
+    need(torch.equal(first, first1), f"window serve: first token "
+         f"{first.tolist()} != degree 1's {first1.tolist()}")
+
+
+def check_window_engine(recs, runs):
+    """(c): every rank made rank 0's calls, exactly one ring prefill's
+    launches per prefill group (the window's rounds counted) and none in a
+    decode, all on the main paths' kernel paths; every request finished
+    with its tokens."""
+    e = WINDOW_ENGINE
+    cfg = window_cfg(e["layers"])
+    eng = [rec["engine"] for rec in recs]
+    rep = eng[0]["report"]
+    what = "window engine"
+    for i, run in enumerate(eng):
+        kinds = [c["kind"] for c in run["calls"]]
+        need(kinds == [c["kind"] for c in eng[0]["calls"]],
+             f"{what}: rank {i} made calls {kinds}")
+        need(run["link_calls"] == eng[0]["link_calls"]
+             and run["mesh_after"] == list(RING["mesh"]),
+             f"{what}: rank {i} took {run['link_calls']} commands, ended "
+             f"on {run['mesh_after']}")
+        total = {}
+        for c in run["calls"]:
+            if c["kind"] == "prefill":
+                one = ring_launches(cfg, c["mesh"][1], c["ring_index"],
+                                    e["prompt_len"])
+                want = {n: v * c["groups"] for n, v in one.items()}
+            else:
+                want = {n: 0 for n in c["launches"]}
+            need(c["launches"] == want, f"{what}: rank {i} {c['kind']} "
+                 f"launched {c['launches']}, want {want}")
+            for n, v in c["launches"].items():
+                total[n] = total.get(n, 0) + v
+        need(total == run["launches"], f"{what}: rank {i} launched "
+             f"{run['launches']} in all, its calls {total}")
+        for name, kpath in MAIN_PATH_KERNEL.items():
+            need(run["launches_by_path"][name][kpath]
+                 == run["launches"][name],
+                 f"{what}: rank {i} {name} by path "
+                 f"{run['launches_by_path'][name]}")
+        runs[f"gemma2-9b engine ring window rank {i}"] = (
+            run["launches"], run["launches_by_path"])
+    sent = WINDOW_ENGINE_REQUESTS
+    med, cap = ring_engine_capacity(eng[0]["calls"], e)
+    calls0 = eng[0]["calls"]
+    by_kind = {}
+    for kind in ("prefill", "decode"):
+        cs = [c for c in calls0 if c["kind"] == kind]
+        if cs:
+            ms = sorted(c["ms"] for c in cs)
+            by_kind[kind] = dict(
+                n=len(cs), ms_p50=ms[len(ms) // 2], ms_max=ms[-1],
+                staged_share=sum(c["staged_s"] for c in cs)
+                / (sum(ms) / 1e3),
+                staged_gb=sum(c["staged_bytes"] for c in cs) / 1e9)
+    out = {k: rep[k] for k in (
+        "n_finished", "n_rejected", "generated_tokens", "ttft_p50",
+        "ttft_p99", "tpot_p50", "tpot_p99", "tokens_per_s", "makespan",
+        "mean_occupancy")}
+    out.update(requests_sent=sent, rate=WINDOW_ENGINE_RATE,
+               prefill_groups=sum(c["groups"] for c in calls0
+                                  if c["kind"] == "prefill"),
+               calls=by_kind, wall_s=eng[0]["wall_s"],
+               capacity_per_s=cap, offered_share=WINDOW_ENGINE_RATE / cap,
+               staged=[dict(rank=i, s=sum(c["staged_s"] for c in r["calls"]),
+                            gb=sum(c["staged_bytes"] for c in r["calls"])
+                            / 1e9) for i, r in enumerate(eng)])
+    log(f"[window] (c) engine, gemma2-9b {e['layers']} layers bf16, "
+        f"{e['prompt_len']} + {e['max_new']} tokens: {json.dumps(out)} "
+        f"({CARD['smi']})")
+    log(f"[window] capacity: prefill group {med['prefill']:.1f} ms, decode "
+        f"call {med['decode']:.1f} ms (medians) -> {cap:.3f} requests/s; "
+        f"offered {WINDOW_ENGINE_RATE}/s = {WINDOW_ENGINE_RATE / cap:.1%}")
+    need(rep["mode"] == "torch" and rep["n_requests"] == sent
+         and rep["n_finished"] == sent
+         and rep["generated_tokens"] == sent * e["max_new"],
+         f"{what}: {rep['n_finished']} of {rep['n_requests']} finished, "
+         f"{rep['generated_tokens']} tokens")
+
+
+def phase_window(torch, out_dir, pre):
+    """Phase 17's checks on the ranks' records (``window<rank>.json``):
+    (a) :func:`check_window_parity`, (b) :func:`check_window_serve`, (c)
+    :func:`check_window_engine`.  Returns the kernels line's additions
+    (the offset sweep's errors and the timed launches) and each rank's
+    runs (their launches)."""
+    t0 = time.perf_counter()
+    r = RING["ranks"]
+    recs = [json.loads((Path(out_dir) / f"window{i}.json").read_text())
+            for i in range(r)]
+    runs = {}
+    check_window_parity(torch, out_dir, pre["fp32"])
+    check_window_serve(torch, out_dir, recs, pre["bf16"], runs)
+    check_window_engine(recs, runs)
+    ranks_s = max(rec["phase_s"] for rec in recs)
+    phase_s = pre["before_s"] + ranks_s + time.perf_counter() - t0
+    log(f"[window] phase 17: {phase_s:.1f} s (in this process "
+        f"{pre['before_s']:.1f} s; on the ranks {ranks_s:.1f} s: (a) "
+        f"{recs[0]['parity_s']:.1f}, (b) {recs[0]['serve_s']:.1f}, (c) "
+        f"{recs[0]['engine_s']:.1f}; budget {WINDOW_S} s) ({CARD['smi']})")
+    return dict(sweep=pre["sweep"], rows=pre["rows"], phase_s=phase_s), runs
+
+
+def phase_window_alone(torch):
+    """Phase 17 without phases 11 and 16 (its own four ranks): for a quick
+    check of the phase on the card after ``phase_device`` and
+    ``phase_build``."""
+    import tempfile
+    pre = window_before_ranks(torch, make_randn(torch, 1))
+    with tempfile.TemporaryDirectory() as tmp:
+        run_ranks(torch, tmp, entry="--window-rank")
+        return phase_window(torch, tmp, pre)
 
 
 # ---------------------------------------------------------------------------
@@ -7339,7 +7837,8 @@ def main() -> int:
     lap("engine")
     phase_cost_engine(torch)
     lap("cost engine")
-    (ring_gemms, ring_flashes), ring_runs = phase_ring(torch, randn, degree1)
+    (ring_gemms, ring_flashes), ring_runs, window = phase_ring(
+        torch, randn, degree1)
     runs.update(ring_runs)
     lap("ring")
     train_flashes, train_gemms, ring_trains, delta_in = phase_ring_train(
@@ -7394,6 +7893,12 @@ def main() -> int:
         if k["name"] == "flash_attention":  # phase 13's zigzag launch
             k["zigzag_shapes"] = [z for z in zigzag
                                   if z["direction"] == "forward"]
+            # phase 17: the launches at a query offset, and the sweep
+            k["window_shapes"] = window["rows"]
+            k["offset_sweep_max_abs_err"] = window["sweep"]
+            k["max_abs_err"] = max([k["max_abs_err"]]
+                                   + [w["max_abs_err"]
+                                      for w in window["rows"]])
         if k["name"] == "tatp_matmul":  # phase 14's SSM ring tiles
             k["ssm_ring_shapes"] = ssm_gemms
             # phase 15's megatron local GEMMs and olmoe's ring tile
@@ -7452,6 +7957,8 @@ if __name__ == "__main__":
             sys.exit(ring_rank_main(sys.argv[2]))
         if sys.argv[1:2] == ["--ring-engine-rank"]:  # phase 16 alone
             sys.exit(ring_engine_rank_main(sys.argv[2]))
+        if sys.argv[1:2] == ["--window-rank"]:  # phase 17 alone
+            sys.exit(window_rank_main(sys.argv[2]))
         if sys.argv[1:2] == ["--train-rank"]:  # one rank of phase 12
             sys.exit(ring_train_rank_main(sys.argv[2]))
         if sys.argv[1:2] == ["--ring-more-rank"]:  # one rank of phase 13
