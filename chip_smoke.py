@@ -298,10 +298,10 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    the state scan's hops' share of the prefill's bytes; (d) fp32 train
    parity of mamba2-780m (2 layers, one step, the clip off) at (1, 4) on
    batch 2 x 2048 and at (2, 2) on 2 x 1024, by phase 12's rules; then
-   one bf16 step of mamba2-780m at 8 layers (batch 2 x 2048, (1, 4))
+   one bf16 step of mamba2-780m at 4 layers (batch 2 x 2048, (1, 4))
    under full remat, ``tatp_outputs`` and full remat again: loss and
    every gradient bitwise equal, exact launches by layout, every GEMM on
-   ``wgmma`` or ``wmma``, 16 SSD forwards and 8 SSD backwards a rank
+   ``wgmma`` or ``wmma``, 8 SSD forwards and 4 SSD backwards a rank
    under either policy, the loss (the ranks' shares summed) within 1e-2
    of degree 1's, and each rank's step ms, GB sent and peak GB;
 15. the other strategies and the expert all-to-all — the GEMM at
@@ -329,11 +329,11 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    exactly 256 GEMM tiles (``wgmma``) and 16 (i + 1) flash (``mma``) on
    rank i, 32 expert all-to-alls a prefill and 32 a token, finite
    logits, the same tokens on every rank, with the all-to-alls' bytes
-   and seconds; fp32 train parity at (2, 2) (2 layers, nothing dropped,
+   and seconds; fp32 train parity at (2, 2) (1 layer, nothing dropped,
    batch 2 x seq 64, one step, the clip off) by phase 12's rules; one
    bf16 step of olmoe cut to 4 layers through ``launch.train --mesh 1
    4`` (batch 4 x seq 512, remat), exact launches by layout; (b)
-   ``megatron`` on deepseek-7b: fp32 train parity (2 layers, batch 4 x
+   ``megatron`` on deepseek-7b: fp32 train parity (1 layer, batch 4 x
    seq 128, 2 steps, the clip off) at (1, 4) and (2, 2) by phase 12's
    rules, with degree 1's launches, and every gradient leaf of the first
    step within MEG_GRAD_TOL relative L2 of degree 1's; the bf16 prefill
@@ -6392,9 +6392,10 @@ SSM_RING_SERVES = (("mamba2-780m", 24), ("zamba2-2.7b", 12))
 SSM_RING_TRAIN_PARITY = dict(arch="mamba2-780m", n_layers=2, steps=1,
                              seed=6, grad_clip=1e30,
                              runs=(((1, 4), 2, 2048), ((2, 2), 2, 1024)))
-# and one bf16 step of mamba2-780m, 8 layers, under full remat and under
-# tatp_outputs (REMAT_RUNS, bitwise), its loss within tol of degree 1's
-SSM_RING_TRAIN_BF16 = dict(arch="mamba2-780m", layers=8, batch=2, seq=2048,
+# and one bf16 step of mamba2-780m, 4 layers (8 until phase 17 needed the
+# time), under full remat and under tatp_outputs (REMAT_RUNS, bitwise),
+# its loss within tol of degree 1's
+SSM_RING_TRAIN_BF16 = dict(arch="mamba2-780m", layers=4, batch=2, seq=2048,
                            mesh=(1, 4), seed=0, tol=1e-2)
 # a rank's local SSD pass at (1, 4): [B * nc_loc, 256, H, P], N
 SSM_RING_SSD = {"mamba2-780m": (2 * 2, 256, 48, 64, 128),
@@ -7020,19 +7021,20 @@ MOE_RING_SERVE = dict(arch="olmoe-1b-7b", batch=4, prompt_len=512, gen=4)
 MOE_RING_TRAIN = dict(arch="olmoe-1b-7b", layers=TRAIN["n_layers"],
                       batch=TRAIN["batch"], seq=TRAIN["seq"], steps=1,
                       mesh=(1, 4))
-# fp32 train parity at (2, 2) by phase 12's rules: olmoe, 2 layers, no
-# drops and no aux loss (check_model.py's overrides), batch 2 x seq 64 (32
-# tokens a rank: nothing dropping needs 256 slots an expert), one step,
-# clip off
-MOE_RING_TRAIN_PARITY = dict(arch="olmoe-1b-7b", n_layers=2, batch=2,
+# fp32 train parity at (2, 2) by phase 12's rules: olmoe, 1 layer (2
+# until phase 17 needed the time), no drops and no aux loss
+# (check_model.py's overrides), batch 2 x seq 64 (32 tokens a rank:
+# nothing dropping needs 256 slots an expert), one step, clip off
+MOE_RING_TRAIN_PARITY = dict(arch="olmoe-1b-7b", n_layers=1, batch=2,
                              seq=64, steps=1, seed=8, grad_clip=1e30,
                              meshes=((2, 2),),
                              overrides=MOE_RING_PARITY["overrides"])
-# (b) megatron: phase 12's fp32 model (deepseek-7b, 2 layers at full width,
-# batch 4 x seq 128, 2 steps, clip off) at (1, 4) and (2, 2), by phase 12's
-# rules, and every gradient leaf of the first step against degree 1's
+# (b) megatron: phase 12's fp32 model cut to 1 layer (2 until phase 17
+# needed the time; deepseek-7b at full width, batch 4 x seq 128, 2 steps,
+# clip off) at (1, 4) and (2, 2), by phase 12's rules, and every gradient
+# leaf of the first step against degree 1's
 MEG_PARITY = dict(RING_TRAIN_PARITY, strategy="megatron", grads=True,
-                  steps=2)
+                  steps=2, n_layers=1)
 # a gradient leaf's rel L2 from degree 1's: fp32 sums in another order
 # (each row-parallel product split over the ring, then psummed)
 MEG_GRAD_TOL = 1e-4
@@ -7762,7 +7764,8 @@ def phase_other(torch, randn, degree1, train_outs):
              f"residual is zero"),
             (c["shard_axis"] == "data", f"int8 compression: ZeRO-1 axis "
              f"{c['shard_axis']}")]
-    log(f"[other] int8 gradient compression, deepseek-7b 2 layers fp32 at "
+    log(f"[other] int8 gradient compression, deepseek-7b "
+        f"{MEG_PARITY['n_layers']} layer(s) fp32 at "
         f"{COMPRESS['mesh']}: {json.dumps(comp)}")
     log(f"[other] degree1_s {degree1_s:.1f} ranks_wall_s {ranks_s:.1f} laps "
         f"{json.dumps([rec['laps'] for rec in recs])} phase_s "

@@ -5,8 +5,8 @@
 // with GQA head groups, a causal mask, a sliding window (qpos - kpos <
 // window), tanh soft-capping of the scaled logits, NEG_INF = -1e30 masking
 // with masked probabilities selected to 0 and the row sum clamped at 1e-20
-// (a fully masked row gives 0 and an LSE of -1e30), and key tiles above the
-// causal diagonal or outside the window skipped.  Query row r sits at
+// (a fully masked row gives 0 and an LSE of about -1e30), and key tiles
+// above the causal diagonal or outside the window skipped.  Query row r sits at
 // position r + q_offset and key c at c: q_offset 0 is the Pallas kernel's
 // top-left alignment, and a ring attention round passes its first query's
 // global position less its first key's, so both masks compare global
@@ -240,8 +240,7 @@ __global__ void __launch_bounds__(THREADS)
   if (qrow < Sq) {
     const float lc = fmaxf(l, 1e-20f);
     if (lse != nullptr && sub == 0)  // a row that saw no key: -1e30
-      lse[static_cast<int64_t>(bh) * Sq + qrow] =
-          m == NEG_INF ? NEG_INF : m + logf(lc);
+      lse[static_cast<int64_t>(bh) * Sq + qrow] = m + logf(lc);
     T* ob = o + b * osb + h * osh + static_cast<int64_t>(qrow) * oss;
 #pragma unroll
     for (int e = 0; e < DMAX / 4; ++e) {
@@ -342,7 +341,11 @@ __device__ __forceinline__ void store_pair_bf16(bf16* p, float x, float y,
 // One 128-thread block per (batch * q-head, 64-row query tile); warp w owns
 // rows 16 w .. 16 w + 15.  DP: head dim padded to a multiple of 16; BK: keys
 // per tile; QREG: Q fragments held in registers (else re-read from smem).
-template <int DP, int BK, bool QREG, bool VEC>
+// OFFSET: the launch's q_offset is not 0.  At offset 0 (every launch but a
+// ring round the window cuts) the kernel compiles to the offset-free code,
+// whose register allocation the offset's bookkeeping would otherwise move:
+// measured, that cost seamless's D-64 cross attention 26 % (PERF.md §6).
+template <int DP, int BK, bool QREG, bool VEC, bool OFFSET>
 __global__ void __launch_bounds__(MMA_THREADS)
     flash_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
               const bf16* __restrict__ v, bf16* __restrict__ o,
@@ -365,25 +368,31 @@ __global__ void __launch_bounds__(MMA_THREADS)
   const int bh = blockIdx.x;
   const int b = bh / Hq, h = bh % Hq;
   const int hk = h / (Hq / Hkv);  // GQA: kv head of this q head
+  const int off = OFFSET ? q_offset : 0;
   // heaviest tiles first: the last query tile sees the most keys under a
-  // causal mask, the first one where the window start moves past more keys
-  // than the causal end adds (a ring round under a window), so the end
-  // whose key range is longer goes first
+  // causal mask at offset 0; under an offset the first one may, where the
+  // window start moves past more keys than the causal end adds (a ring
+  // round under a window), so the end whose key range is longer goes first
   const int last = gridDim.y - 1, y = blockIdx.y;
-  int b0, e0, b1, e1;
-  key_range(q_offset, min(MQ, Sq), Skv, causal, window, BK, &b0, &e0);
-  key_range(last * MQ + q_offset, Sq - last * MQ, Skv, causal, window, BK,
-            &b1, &e1);
-  const int q0 = (e1 - b1 >= e0 - b0 ? last - y : y) * MQ;
+  bool last_first = true;
+  if constexpr (OFFSET) {
+    int b0, e0, b1, e1;
+    key_range(off, min(MQ, Sq), Skv, causal, window, BK, &b0, &e0);
+    key_range(last * MQ + off, Sq - last * MQ, Skv, causal, window, BK, &b1,
+              &e1);
+    last_first = e1 - b1 >= e0 - b0;
+  }
+  const int q0 = (last_first ? last - y : y) * MQ;
   const int row_lo = q0 + warp * 16 + lane / 4, row_hi = row_lo + 8;
-  const int p0 = q0 + q_offset;  // the tile's first position
+  const int p0 = q0 + off;  // the tile's first position
 
   const bf16* qb = q + b * qsb + h * qsh;
   const bf16* kb = k + b * ksb + hk * ksh;
   const bf16* vb = v + b * vsb + hk * vsh;
 
   int k_begin, k_end;
-  key_range(p0, min(MQ, Sq - q0), Skv, causal, window, BK, &k_begin, &k_end);
+  key_range(p0, min(MQ, Sq - q0), Skv, causal, window, BK, &k_begin,
+            &k_end);
 
   load_tile<DP, MQ, VEC>(qs, qb, q0, Sq, D, qss);
   cp_async_commit();
@@ -466,7 +475,7 @@ __global__ void __launch_bounds__(MMA_THREADS)
         x *= LOG2E;
         if (need_mask) {
           const int kpos = j0 + t * 8 + 2 * (lane % 4) + (e & 1);
-          const int qpos = (e < 2 ? row_lo : row_hi) + q_offset;
+          const int qpos = (e < 2 ? row_lo : row_hi) + off;
           bool ok = kpos < Skv;
           if (causal) ok = ok && kpos <= qpos;
           if (window > 0) ok = ok && (qpos - kpos) < window;
@@ -542,10 +551,12 @@ __global__ void __launch_bounds__(MMA_THREADS)
     float* lb = lse + static_cast<int64_t>(bh) * Sq;
     float row_lse[2];
 #pragma unroll
-    for (int i = 0; i < 2; ++i)  // a row that saw no key: -1e30
-      row_lse[i] = m[i] == NEG_INF
-                       ? NEG_INF
-                       : (m[i] + log2f(fmaxf(l[i], 1e-20f))) / LOG2E;
+    for (int i = 0; i < 2; ++i) {
+      row_lse[i] = (m[i] + log2f(fmaxf(l[i], 1e-20f))) / LOG2E;
+      // a row that saw no key: -1e30 (at offset 0 only a window without
+      // the causal mask leaves one, at (-1e30 + log2 1e-20) / log2 e)
+      if (OFFSET && m[i] == NEG_INF) row_lse[i] = NEG_INF;
+    }
     if (row_lo < Sq) lb[row_lo] = row_lse[0];
     if (row_hi < Sq) lb[row_hi] = row_lse[1];
   }
@@ -570,8 +581,11 @@ int launch_mma(const void* q, const void* k, const void* v, void* o,
                float* lse, int B, int Hq, int Hkv, int Sq, int Skv, int D,
                const int64_t* st, float scale, int causal, int window,
                int q_offset, float cap, bool vec, cudaStream_t s) {
-  auto kern = vec ? flash_mma<DP, BK, QREG, true>
-                  : flash_mma<DP, BK, QREG, false>;
+  auto kern = q_offset != 0
+                  ? (vec ? flash_mma<DP, BK, QREG, true, true>
+                         : flash_mma<DP, BK, QREG, false, true>)
+                  : (vec ? flash_mma<DP, BK, QREG, true, false>
+                         : flash_mma<DP, BK, QREG, false, false>);
   constexpr size_t smem = mma_smem<DP, BK>();
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(

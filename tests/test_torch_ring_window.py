@@ -639,8 +639,9 @@ def test_hook_launches_only_rounds_with_a_visible_pair(runs, r, kind):
 
 
 def test_window_empties_rounds_in_these_cases():
-    """The cases reach what they are there for: window 3 leaves rank 3 of
-    four one launch fewer than the rounds it sees, window 40 none."""
+    """The cases reach what they are there for: of rank 3's four rounds
+    on a ring of four, window 3 leaves two, 12 three and 40 all; under
+    zigzag window 3 leaves rank 0 fewer than its 2R + 1 launches."""
     assert _visible_launches(4, 3, False, True, 3) == 2
     assert _visible_launches(4, 3, False, True, 12) == 3
     assert _visible_launches(4, 3, False, True, 40) == 4
