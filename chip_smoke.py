@@ -333,7 +333,7 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    batch 2 x seq 64, one step, the clip off) by phase 12's rules; one
    bf16 step of olmoe cut to 4 layers through ``launch.train --mesh 1
    4`` (batch 4 x seq 512, remat), exact launches by layout; (b)
-   ``megatron`` on deepseek-7b: fp32 train parity (1 layer, batch 4 x
+   ``megatron`` on deepseek-7b: fp32 train parity (2 layers, batch 4 x
    seq 128, 2 steps, the clip off) at (1, 4) and (2, 2) by phase 12's
    rules, with degree 1's launches, and every gradient leaf of the first
    step within MEG_GRAD_TOL relative L2 of degree 1's; the bf16 prefill
@@ -4517,6 +4517,22 @@ def ring_engine_capacity(calls, spec=None):
         (med["prefill"] + (e["max_new"] - 1) * med["decode"]) / 1e3)
 
 
+def calls_by_kind(calls):
+    """A rank's :class:`RankCalls` records summed by kind: the count, the
+    median and largest host ms, the staged share of the time and the GB
+    staged."""
+    out = {}
+    for kind in ("prefill", "decode", "migrate"):
+        cs = [c for c in calls if c["kind"] == kind]
+        if cs:
+            ms = sorted(c["ms"] for c in cs)
+            out[kind] = dict(
+                n=len(cs), ms_p50=ms[len(ms) // 2], ms_max=ms[-1],
+                staged_share=sum(c["staged_s"] for c in cs) / (sum(ms) / 1e3),
+                staged_gb=sum(c["staged_bytes"] for c in cs) / 1e9)
+    return out
+
+
 def phase_ring_engine(torch, out_dir):
     """Phase 16's checks on the ranks' records (``engine<rank>.json``):
     (a) fault-free: every request finished with its 8 tokens, on every
@@ -4636,16 +4652,7 @@ def phase_ring_engine(torch, out_dir):
                 "makespan", "mean_occupancy", "n_replans")
         out = {k: rep[k] for k in keys}
         calls0 = rank_runs[0]["calls"]
-        by_kind = {}
-        for kind in ("prefill", "decode", "migrate"):
-            cs = [c for c in calls0 if c["kind"] == kind]
-            if cs:
-                ms = sorted(c["ms"] for c in cs)
-                by_kind[kind] = dict(
-                    n=len(cs), ms_p50=ms[len(ms) // 2], ms_max=ms[-1],
-                    staged_share=sum(c["staged_s"] for c in cs)
-                    / (sum(ms) / 1e3),
-                    staged_gb=sum(c["staged_bytes"] for c in cs) / 1e9)
+        by_kind = calls_by_kind(calls0)
         out.update(requests_sent=sent, rate=RING_ENGINE_RATE,
                    prefill_groups=sum(c["groups"] for c in calls0
                                       if c["kind"] == "prefill"),
@@ -4758,20 +4765,6 @@ def window_cfg(layers):
     return replace(get_config(WINDOW_SERVE["arch"]), n_layers=layers)
 
 
-def quiet_err(name, got, ref, rtol, atol):
-    """:func:`compare`'s test, logged only where it fails; the largest
-    absolute difference."""
-    g, r = got.float(), ref.float()
-    need(bool(g.isfinite().all()), f"{name}: non-finite kernel output")
-    if not g.numel():
-        return 0.0
-    err = (g - r).abs()
-    excess = (err - (atol + rtol * r.abs())).max().item()
-    need(excess <= 0, f"{name}: kernel disagrees with its plain version, "
-         f"{excess:.3g} over rtol={rtol} atol={atol}")
-    return err.max().item()
-
-
 def window_sweep(torch, randn):
     """The forward kernel at query offsets (WINDOW_SWEEP) on both paths
     against :func:`attention_ref` at the same offset: one launch each on
@@ -4807,9 +4800,9 @@ def window_sweep(torch, randn):
                          f"{what}: the rows with no key differ")
                     need(not o[empty].any(),
                          f"{what}: a row with no key is not 0")
-                    err = max(err, quiet_err(what, o, o_ref, rtol, atol),
-                              quiet_err(what + " LSE", lse[~empty],
-                                        lse_ref[~empty], rtol, atol))
+                    err = max(err, compare(what, o, o_ref, rtol, atol),
+                              compare(what + " LSE", lse[~empty],
+                                      lse_ref[~empty], rtol, atol))
                     empty_rows += int(empty.sum())
                     checks += 1
         errs[path] = err
@@ -5082,16 +5075,7 @@ def check_window_engine(recs, runs):
     sent = WINDOW_ENGINE_REQUESTS
     med, cap = ring_engine_capacity(eng[0]["calls"], e)
     calls0 = eng[0]["calls"]
-    by_kind = {}
-    for kind in ("prefill", "decode"):
-        cs = [c for c in calls0 if c["kind"] == kind]
-        if cs:
-            ms = sorted(c["ms"] for c in cs)
-            by_kind[kind] = dict(
-                n=len(cs), ms_p50=ms[len(ms) // 2], ms_max=ms[-1],
-                staged_share=sum(c["staged_s"] for c in cs)
-                / (sum(ms) / 1e3),
-                staged_gb=sum(c["staged_bytes"] for c in cs) / 1e9)
+    by_kind = calls_by_kind(calls0)
     out = {k: rep[k] for k in (
         "n_finished", "n_rejected", "generated_tokens", "ttft_p50",
         "ttft_p99", "tpot_p50", "tpot_p99", "tokens_per_s", "makespan",
@@ -5137,7 +5121,7 @@ def phase_window(torch, out_dir, pre):
         f"{pre['before_s']:.1f} s; on the ranks {ranks_s:.1f} s: (a) "
         f"{recs[0]['parity_s']:.1f}, (b) {recs[0]['serve_s']:.1f}, (c) "
         f"{recs[0]['engine_s']:.1f}; budget {WINDOW_S} s) ({CARD['smi']})")
-    return dict(sweep=pre["sweep"], rows=pre["rows"], phase_s=phase_s), runs
+    return dict(sweep=pre["sweep"], rows=pre["rows"]), runs
 
 
 def phase_window_alone(torch):
@@ -7029,12 +7013,11 @@ MOE_RING_TRAIN_PARITY = dict(arch="olmoe-1b-7b", n_layers=1, batch=2,
                              seq=64, steps=1, seed=8, grad_clip=1e30,
                              meshes=((2, 2),),
                              overrides=MOE_RING_PARITY["overrides"])
-# (b) megatron: phase 12's fp32 model cut to 1 layer (2 until phase 17
-# needed the time; deepseek-7b at full width, batch 4 x seq 128, 2 steps,
-# clip off) at (1, 4) and (2, 2), by phase 12's rules, and every gradient
-# leaf of the first step against degree 1's
+# (b) megatron: phase 12's fp32 model (deepseek-7b, 2 layers at full width,
+# batch 4 x seq 128, 2 steps, clip off) at (1, 4) and (2, 2), by phase 12's
+# rules, and every gradient leaf of the first step against degree 1's
 MEG_PARITY = dict(RING_TRAIN_PARITY, strategy="megatron", grads=True,
-                  steps=2, n_layers=1)
+                  steps=2)
 # a gradient leaf's rel L2 from degree 1's: fp32 sums in another order
 # (each row-parallel product split over the ring, then psummed)
 MEG_GRAD_TOL = 1e-4

@@ -373,26 +373,29 @@ __global__ void __launch_bounds__(MMA_THREADS)
   // causal mask at offset 0; under an offset the first one may, where the
   // window start moves past more keys than the causal end adds (a ring
   // round under a window), so the end whose key range is longer goes first
-  const int last = gridDim.y - 1, y = blockIdx.y;
-  bool last_first = true;
+  int q0, k_begin, k_end;
   if constexpr (OFFSET) {
+    const int last = gridDim.y - 1, y = blockIdx.y;
     int b0, e0, b1, e1;
     key_range(off, min(MQ, Sq), Skv, causal, window, BK, &b0, &e0);
     key_range(last * MQ + off, Sq - last * MQ, Skv, causal, window, BK, &b1,
               &e1);
-    last_first = e1 - b1 >= e0 - b0;
+    q0 = (e1 - b1 >= e0 - b0 ? last - y : y) * MQ;
+    key_range(q0 + off, min(MQ, Sq - q0), Skv, causal, window, BK, &k_begin,
+              &k_end);
+  } else {
+    q0 = (gridDim.y - 1 - blockIdx.y) * MQ;
+    k_end = Skv;
+    if (causal) k_end = min(Skv, min(q0 + MQ, Sq));
+    k_begin = 0;
+    if (window > 0) k_begin = max(0, q0 - window + 1) / BK * BK;
   }
-  const int q0 = (last_first ? last - y : y) * MQ;
   const int row_lo = q0 + warp * 16 + lane / 4, row_hi = row_lo + 8;
   const int p0 = q0 + off;  // the tile's first position
 
   const bf16* qb = q + b * qsb + h * qsh;
   const bf16* kb = k + b * ksb + hk * ksh;
   const bf16* vb = v + b * vsb + hk * vsh;
-
-  int k_begin, k_end;
-  key_range(p0, min(MQ, Sq - q0), Skv, causal, window, BK, &k_begin,
-            &k_end);
 
   load_tile<DP, MQ, VEC>(qs, qb, q0, Sq, D, qss);
   cp_async_commit();
@@ -549,16 +552,22 @@ __global__ void __launch_bounds__(MMA_THREADS)
   }
   if (lse != nullptr && lane % 4 == 0) {  // natural log: m is in log2 units
     float* lb = lse + static_cast<int64_t>(bh) * Sq;
-    float row_lse[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      row_lse[i] = (m[i] + log2f(fmaxf(l[i], 1e-20f))) / LOG2E;
-      // a row that saw no key: -1e30 (at offset 0 only a window without
-      // the causal mask leaves one, at (-1e30 + log2 1e-20) / log2 e)
-      if (OFFSET && m[i] == NEG_INF) row_lse[i] = NEG_INF;
+    if constexpr (OFFSET) {  // a row that saw no key: -1e30
+      if (row_lo < Sq)
+        lb[row_lo] = m[0] == NEG_INF
+                         ? NEG_INF
+                         : (m[0] + log2f(fmaxf(l[0], 1e-20f))) / LOG2E;
+      if (row_hi < Sq)
+        lb[row_hi] = m[1] == NEG_INF
+                         ? NEG_INF
+                         : (m[1] + log2f(fmaxf(l[1], 1e-20f))) / LOG2E;
+    } else {  // (at offset 0 only a window without the causal mask leaves
+              // one, at (-1e30 + log2 1e-20) / log2 e)
+      if (row_lo < Sq)
+        lb[row_lo] = (m[0] + log2f(fmaxf(l[0], 1e-20f))) / LOG2E;
+      if (row_hi < Sq)
+        lb[row_hi] = (m[1] + log2f(fmaxf(l[1], 1e-20f))) / LOG2E;
     }
-    if (row_lo < Sq) lb[row_lo] = row_lse[0];
-    if (row_hi < Sq) lb[row_hi] = row_lse[1];
   }
   bf16* ob = o + b * osb + h * osh;
 #pragma unroll
