@@ -41,8 +41,8 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    bitwise equal), timed at both SSM train shapes beside its bound and
    the plain backward's; flash attention at the new architectures'
    shapes, timed only (gemma2-9b's windowed, soft-capped [1, 16, 8192,
-   256] kv 8, with no library yardstick: SDPA takes no soft-cap;
-   gemma-7b's D 256 prefill; seamless-m4t-large-v2's bidirectional
+   256] kv 8 beside a compiled ``flex_attention``, as SDPA takes no
+   soft-cap; gemma-7b's D 256 prefill; seamless-m4t-large-v2's bidirectional
    encoder and its cross attention of 128 queries to 1024 frames) and its
    backward on ``mma`` at D 256, gemma-7b's train shape (beside SDPA's
    backward) and gemma2-9b's windowed, soft-capped one (two launches
@@ -381,10 +381,12 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    both paths against ``attention_ref`` at the same offset over small
    shapes across the tiles' edges (WINDOW_SWEEP: offsets 0 to 300,
    causal and not, windows), rows that see no key exactly 0 with an LSE
-   at or below -1e29; gemma2-9b's ring launches ([1, 16, 2048, 256] over
-   8 kv heads, cap 50, window 4096, at offsets 0, 2048 and 4096, and
-   zigzag's c x c at 0, 1024 and 4096) checked and timed beside their
-   bounds over the visible pairs; the degree-1 runs; then in phase 11's
+   at or below -1e29; gemma2-9b's distinct ring launches at (1, 4) on 1 x
+   8192 tokens as ``_Ring.launches`` makes them (cap 50, window 4096: the
+   contiguous rounds' [1, 16, 2048, 256] over 8 kv heads, causal, unmasked
+   and at offset 4096, and zigzag's c x c the same at c 1024) checked and
+   timed beside their bounds over the visible pairs and a compiled
+   ``flex_attention``; the degree-1 runs; then in phase 11's
    ranks after phase 16: (a) fp32 parity of gemma2-9b at full width, 2
    layers (LG), 1 x 8192, 4 new tokens: logits and each rank's caches
    within rtol = atol = 1e-3, identical tokens, exact launches on
@@ -696,6 +698,68 @@ def bound(flops, nbytes, dtype):
     t_mem = nbytes / PEAK_BYTES
     return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem
                                      else "bytes")
+
+
+_FLEX = {}  # flex_attention compiled once a process, and its mask's terms
+
+
+def flex_yardstick(torch, name, q, k, v, kw, o_ref, live=None):
+    """The library yardstick of a soft-capped or offset bf16 flash forward
+    at its arguments ``kw``: ``torch.nn.attention.flex_attention``
+    (compiled, Triton) on contiguous copies of q/k/v with GQA, the cap as
+    its ``score_mod``, the causal and window terms at the query offset as
+    its block mask (built outside the timing), the row LSE returned as
+    the kernel returns it.  Its output is held against the plain one
+    ``o_ref`` (on the ``live`` rows, the ones that see a key, where given)
+    within ATTN_TOL with each row's atol scaled by its RMS, then timed:
+    ``(library_ms, library)``.  The mask's terms are 0-d tensors the one
+    compiled function reads, so a new offset or window compiles nothing;
+    the second shape recompiles it for dynamic shapes, which serve every
+    later one."""
+    from torch.nn.attention.flex_attention import (AuxRequest,
+                                                   create_block_mask,
+                                                   flex_attention)
+    if not _FLEX:
+        t = dict(off=torch.zeros((), dtype=torch.int32, device="cuda"),
+                 window=torch.zeros((), dtype=torch.int32, device="cuda"),
+                 causal=torch.zeros((), dtype=torch.bool, device="cuda"),
+                 cap=torch.ones((), device="cuda"))
+
+        def mask_mod(b, h, qi, ki):
+            qpos = qi + t["off"]
+            return ((ki <= qpos) | ~t["causal"]) & (qpos - ki < t["window"])
+
+        def score_mod(s, b, h, qi, ki):
+            return torch.tanh(s / t["cap"]) * t["cap"]
+
+        _FLEX.update(terms=t, mask_mod=mask_mod, score_mod=score_mod,
+                     fn=torch.compile(flex_attention))
+    t, cap = _FLEX["terms"], kw["cap"]
+    t["off"].fill_(kw.get("q_offset", 0))
+    t["window"].fill_(kw["window"] or 2 ** 30)
+    t["causal"].fill_(bool(kw["causal"]))
+    t["cap"].fill_(cap or 1.0)
+    mask = create_block_mask(_FLEX["mask_mod"], None, None, q.shape[2],
+                             k.shape[2], device="cuda")
+    qc, kc, vc = (x.contiguous() for x in (q, k, v))
+    fkw = dict(score_mod=_FLEX["score_mod"] if cap else None,
+               block_mask=mask, enable_gqa=k.shape[1] != q.shape[1],
+               return_aux=AuxRequest(lse=True))
+
+    def call():
+        return _FLEX["fn"](qc, kc, vc, **fkw)
+
+    t0 = time.perf_counter()
+    o, _ = call()
+    torch.cuda.synchronize()
+    log(f"  library {name}: flex_attention's first call (with a compile "
+        f"at a new shape) {time.perf_counter() - t0:.1f} s")
+    if live is not None:
+        o, o_ref = o[live], o_ref[live]
+    compare(f"{name} flex_attention", o, o_ref, *ATTN_TOL["bfloat16"],
+            rms="row")
+    return (time_ms(torch, call, 20),
+            "flex_attention (compiled; its block mask built beforehand)")
 
 
 def flash_bwd_bytes(b, hq, hkv, sq, skv, d):
@@ -1597,8 +1661,8 @@ def phase_flash_backward(torch, randn):
 # part, layer kind) of one prefill attention call (:func:`attention_shape`
 # at the serve path's batch and prompt, the encoder's frames), and of the
 # backward at one train attention call: at D 256 (gemma2's the windowed,
-# soft-capped slot, with no library yardstick) and seamless's three at D 64
-# (on mma.sync)
+# soft-capped slot: its forward against flex_attention, its backward with
+# no library yardstick) and seamless's three at D 64 (on mma.sync)
 FLASH_ARCH_ROWS = (("gemma2-9b", "dec", "L"), ("gemma-7b", "dec", "G"),
                    ("seamless-m4t-large-v2", "enc", "G"),
                    ("seamless-m4t-large-v2", "cross", "X"))
@@ -1611,9 +1675,9 @@ FLASH_BWD_ARCH = (("gemma-7b", "dec", "G"), ("gemma2-9b", "dec", "L"),
 def phase_flash_arch_rows(torch, randn):
     """Flash attention timed at the new architectures' shapes, bf16, in
     the model's ``[B, S, H, D]`` layout viewed as ``[B, H, S, D]``: the
-    forward at gemma2-9b's windowed, soft-capped prefill (no library
-    yardstick: SDPA takes no soft-cap), gemma-7b's prefill (D 256),
-    seamless's bidirectional encoder and its cross attention of the
+    forward at gemma2-9b's windowed, soft-capped prefill (against
+    :func:`flex_yardstick`: SDPA takes no soft-cap), gemma-7b's prefill
+    (D 256), seamless's bidirectional encoder and its cross attention of the
     prompt's queries to the frames (against SDPA), and the backward on
     ``mma`` at D 256: gemma-7b's train shape (against SDPA's backward) and
     gemma2-9b's windowed, soft-capped one (q scaled by
@@ -1658,15 +1722,16 @@ def phase_flash_arch_rows(torch, randn):
                    ms=time_ms(torch, lambda: attention(q, k, v, **kw), 20),
                    plain_ms=time_ms(torch, lambda: attention_ref(
                        q, k, v, **kw), 3, 1),
-                   library_ms=None,
-                   library="scaled_dot_product_attention" if plain
-                   else "none: SDPA takes no soft-cap")
+                   library="scaled_dot_product_attention")
         if plain:
             qc, kc, vc = (t.contiguous() for t in (q, k, v))
             row["library_ms"] = time_ms(
                 torch, lambda: F.scaled_dot_product_attention(
                     qc, kc, vc, is_causal=causal), 20)
-            row["library_ratio"] = row["ms"] / row["library_ms"]
+        else:  # SDPA takes no soft-cap
+            row["library_ms"], row["library"] = flex_yardstick(
+                torch, name, q, k, v, kw, attention_ref(q, k, v, **kw))
+        row["library_ratio"] = row["ms"] / row["library_ms"]
         nbytes = 2 * d * (2 * b * hq * sq + 2 * b * hkv * skv)
         row["bound_ms"], row["bound_by"] = bound(4 * pairs * d, nbytes,
                                                  "bfloat16")
@@ -4725,12 +4790,6 @@ def phase_ring_engine_alone(torch):
 WINDOW_SWEEP = dict(batch=2, heads=8, kv_heads=2, sq=130, skv=200, cap=30.0,
                     offsets=(0, 1, 63, 64, 100, 200, 300), dims=(64, 256),
                     masks=((True, None), (True, 96), (False, 96)))
-# gemma2-9b's ring launches at (1, 4) on 1 x 8192 tokens ([1, 16, s, 256]
-# over 8 kv heads, cap 50, window 4096), as (s, q_offset, causal): the
-# contiguous rounds (s 2048) on the own block, 2048 and 4096 positions
-# back, and zigzag's c x c launches (c 1024) at 0, 1024 and 4096
-WINDOW_ROUNDS = ((2048, 0, True), (2048, 2048, False), (2048, 4096, False),
-                 (1024, 0, True), (1024, 1024, False), (1024, 4096, False))
 # (a) fp32 parity: 2 layers (LG) at full width, 1 x 8192, 4 new tokens,
 # against the same tree whole at degree 1
 WINDOW_PARITY = dict(arch="gemma2-9b", n_layers=2, batch=1, prompt_len=8192,
@@ -4745,11 +4804,13 @@ WINDOW_SERVE = dict(arch="gemma2-9b", layers=4, batch=1, prompt_len=8192,
 WINDOW_SERVE_FLASH = [4, 8, 12, 14]
 # (c) engine mode through launch.serve --serve --auto-plan (the full
 # model's ServePlan for 4 slots x 4612 tokens is tatp on (1, 4)), 4
-# layers, bf16, prompts of 4608 tokens (past the window), 4 new tokens;
-# the offered rate is at most 60 % of what the slots serve at the call
-# times a first run measured: a prefill group (padded to 4 x 4608) 3.37 s
-# and a decode call 0.30 s give 0.936 requests a second, of which 0.8
-# (85 %) queued and 0.5 is 53 % (PERF.md section 6, PR 32)
+# layers, bf16, prompts of 4608 tokens (past the window), 4 new tokens,
+# at a fixed 0.5 requests a second.  Set from a first run's call times (a
+# prefill group, padded to 4 x 4608, 3.37 s; a decode call 0.30 s): the
+# slots served 0.936/s, 0.8/s queued (85 %) and 0.5/s was 53 %.  The share
+# moves with the host: 49-51 % of the 0.99-1.02/s of later runs, 32 % of
+# a faster host's 1.546/s (PERF.md section 5).  check_window_engine logs
+# it as offered_share and holds it to nothing
 WINDOW_ENGINE = dict(arch="gemma2-9b", layers=4, max_batch=4,
                      prompt_len=4608, max_new=4)
 WINDOW_ENGINE_REQUESTS = 4
@@ -4813,32 +4874,61 @@ def window_sweep(torch, randn):
     return errs
 
 
+def window_launches(cfg, r, tokens):
+    """gemma2-9b's distinct ``L``-slot flash launches on a causal ring of
+    ``r`` ranks over ``tokens`` positions, contiguous (the serve path's)
+    and zigzag (training's), as :meth:`_Ring.launches` makes them for rank
+    ``i``'s round on block ``j``: ``{(zigzag, sq, sk, causal, q_offset,
+    window): launches a layer over the r ranks}``.  At (1, 4) on 8192
+    tokens under window 4096: the own block causal, a block 2048 back
+    unmasked at offset 0 (neither mask hides a pair), 4096 back windowed at
+    offset 4096, 6144 back none; zigzag's 1024-row chunks the same."""
+    from repro_torch.models.attention import _Ring
+
+    s_loc, out = tokens // r, {}
+    for zigzag in (False, True):
+        ring = _Ring("model", r, True, cfg.attn_softcap, False, None, None,
+                     None, None, zigzag=zigzag, window=cfg.sliding_window)
+        for i in range(r):
+            for j in range(r):
+                for qs, ks, causal, off, window in ring.launches(i, j,
+                                                                 s_loc):
+                    key = (zigzag, len(range(s_loc)[qs]),
+                           len(range(s_loc)[ks]), causal, off, window)
+                    out[key] = out.get(key, 0) + 1
+    return dict(sorted(out.items(), key=lambda kv: (kv[0][0], not kv[0][3],
+                                                    kv[0][4])))
+
+
 def window_rows(torch, randn):
-    """gemma2-9b's ring launches at their query offsets (WINDOW_ROUNDS),
-    bf16 on ``mma``, in the model's ``[B, S, H, D]`` layout viewed as
-    ``[B, H, S, D]``, q scaled by :func:`cap_scale` so the cap bites: the
-    output against :func:`attention_ref` (atol scaled by each row's RMS,
-    as phase 6 holds flash) and the live rows' LSE, the rows that see no
-    key exactly 0 with LSE <= -1e29; each timed beside its bound over the
-    visible pairs (:func:`attn_pairs` at the offset) and its plain
-    version (no library call: SDPA takes no soft-cap)."""
+    """gemma2-9b's distinct ring launches (:func:`window_launches` at (1,
+    4) on WINDOW_SERVE's 8192 tokens), bf16 on ``mma``, in the model's
+    ``[B, S, H, D]`` layout viewed as ``[B, H, S, D]``, q scaled by
+    :func:`cap_scale` so the cap bites: the output against
+    :func:`attention_ref` (atol scaled by each row's RMS, as phase 6 holds
+    flash) and the live rows' LSE, the rows that see no key exactly 0 with
+    LSE <= -1e29; each timed beside its bound over the visible pairs
+    (:func:`attn_pairs` at the offset), its plain version and
+    :func:`flex_yardstick` (SDPA takes no soft-cap)."""
     from repro_torch.kernels.flash_attention.ops import attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
     cfg = window_cfg(2)
     hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    window, cap = cfg.sliding_window, cfg.attn_softcap
+    cap = cfg.attn_softcap
     bf = torch.bfloat16
     rows = []
-    for s, off, causal in WINDOW_ROUNDS:
-        q = randn(1, s, hq, d, dtype=bf, scale=cap_scale(cap)).transpose(1,
-                                                                          2)
-        k, v = (randn(1, s, hkv, d, dtype=bf).transpose(1, 2)
+    launches = window_launches(cfg, RING["ranks"], WINDOW_SERVE["prompt_len"])
+    for (zigzag, sq, sk, causal, off, window), n in launches.items():
+        q = randn(1, sq, hq, d, dtype=bf, scale=cap_scale(cap)).transpose(
+            1, 2)
+        k, v = (randn(1, sk, hkv, d, dtype=bf).transpose(1, 2)
                 for _ in range(2))
         kw = dict(causal=causal, window=window, cap=cap, q_offset=off,
                   return_lse=True)
-        kind = "round" if s == 2048 else "zigzag c x c"
-        name = f"gemma2-9b ring {kind} [1,{hq},{s},{d}] offset {off}"
+        mask = "causal" if causal else "window" if window else "unmasked"
+        name = (f"gemma2-9b ring {'zigzag c x c' if zigzag else 'round'} "
+                f"[1,{hq},{sq},{d}] {mask} offset {off}")
         before = attention.launches_by_path["mma"]
         o, lse = attention(q, k, v, **kw)
         torch.cuda.synchronize()
@@ -4851,17 +4941,19 @@ def window_rows(torch, randn):
         err = max(compare(name, o, o_ref, *ATTN_TOL["bfloat16"], rms="row"),
                   compare(name + " row LSE", lse[~empty], lse_ref[~empty],
                           *ATTN_TOL["bfloat16"]))
-        pairs = hq * attn_pairs(s, s, causal, window, off)
+        pairs = hq * attn_pairs(sq, sk, causal, window, off)
         # q, k, v in and o out in bf16, the row LSE out in fp32
-        nbytes = 2 * d * (2 * hq * s + 2 * hkv * s) + 4 * hq * s
-        row = dict(name=name, shape=[1, hq, s, d], kv_heads=hkv,
+        nbytes = 2 * d * (2 * hq * sq + 2 * hkv * sk) + 4 * hq * sq
+        row = dict(name=name, shape=[1, hq, sq, d], kv_heads=hkv, skv=sk,
                    q_offset=off, causal=causal, window=window, cap=cap,
-                   path="mma", max_abs_err=err, empty_rows=int(empty.sum()),
-                   visible_pairs=pairs,
+                   path="mma", launches_a_layer=n, max_abs_err=err,
+                   empty_rows=int(empty.sum()), visible_pairs=pairs,
                    ms=time_ms(torch, lambda: attention(q, k, v, **kw), 20),
                    plain_ms=time_ms(torch, lambda: attention_ref(
-                       q, k, v, **kw), 3, 1),
-                   library_ms=None, library="none: SDPA takes no soft-cap")
+                       q, k, v, **kw), 3, 1))
+        row["library_ms"], row["library"] = flex_yardstick(
+            torch, name, q, k, v, kw, o_ref, live=~empty)
+        row["library_ratio"] = row["ms"] / row["library_ms"]
         row["bound_ms"], row["bound_by"] = bound(4 * pairs * d, nbytes,
                                                  "bfloat16")
         row["share_of_bound"] = row["bound_ms"] / row["ms"]

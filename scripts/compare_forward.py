@@ -8,17 +8,12 @@ same card and host.
 
 Each turn is one child process that puts ``<root>/src`` first on the path,
 builds that checkout's kernels and times ``attention`` (bf16, ``mma``, at
-query offset 0: the call every checkout takes) as device time (CUDA events
-behind a device-side spin, as ``chip_smoke.py:time_ms``, 20 launches after
-3) at the forward rows of ``PERF.md`` section 6, in the model's ``[B, S,
-H, D]`` layout viewed as ``[B, H, S, D]``: deepseek-7b's causal prefill
-[4, 32, 128, 128], zamba2-2.7b's [4, 32, 512, 80], gemma2-9b's windowed,
-soft-capped ``L`` slot [1, 16, 8192, 256] over 8 kv heads (q scaled by 2
-cap, as ``chip_smoke.py:cap_scale``), gemma-7b's [4, 16, 128, 256] and
-seamless-m4t-large-v2's encoder [4, 16, 1024, 64] (bidirectional) and
-cross attention (128 queries over 1024 frames).  Every turn draws the same
-inputs (seed 0).  One JSON line per turn, then the medians by checkout.
-It needs one card and imports neither jax nor the JAX package.
+query offset 0: the call every checkout takes) at the forward rows of
+``PERF.md`` section 6, with the shapes, inputs and device timing of the
+``chip_smoke.py`` beside this script (:func:`forward_rows`,
+``chip_smoke.py:time_ms``, ``make_randn`` with seed 0, ``cap_scale``).
+One JSON line per turn, then the medians by checkout.  It needs one card
+and imports neither jax nor the JAX package.
 """
 
 from __future__ import annotations
@@ -28,74 +23,63 @@ import json
 import statistics
 import subprocess
 import sys
-import time
 from pathlib import Path
 
-SPIN_HZ = 1.98e9
-# name: (B, Hq, Hkv, Sq, Skv, D, causal, window, cap)
-SHAPES = {
-    "deepseek-7b [4,32,128,128] causal": (4, 32, 32, 128, 128, 128, True,
-                                          None, None),
-    "zamba2-2.7b [4,32,512,80] causal": (4, 32, 32, 512, 512, 80, True,
-                                         None, None),
-    "gemma2-9b L [1,16,8192,256] kv 8": (1, 16, 8, 8192, 8192, 256, True,
-                                         4096, 50.0),
-    "gemma-7b [4,16,128,256] causal": (4, 16, 16, 128, 128, 256, True, None,
-                                       None),
-    "seamless enc [4,16,1024,64]": (4, 16, 16, 1024, 1024, 64, False, None,
-                                    None),
-    "seamless cross [4,16,128,64] x 1024": (4, 16, 16, 128, 1024, 64, False,
-                                            None, None),
-}
+HERE = Path(__file__).resolve().parents[1]
 
 
-def time_ms(torch, fn, iters=20, warmup=3):
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    host_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(2 * host_s * SPIN_HZ) + 100_000)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+def forward_rows(smoke, get_config):
+    """``{name: (B, Hq, Hkv, Sq, Skv, D, causal, window, cap)}``: chip_smoke's
+    deepseek-7b main-path flash and zamba2-2.7b's (phase 3), and its rows
+    at the new architectures' shapes (``FLASH_ARCH_ROWS``)."""
+    m = smoke.MAIN
+    b, h, s, d = smoke.ZAMBA_ATTN
+    rows = {
+        "deepseek-7b causal": (m["batch"], smoke.HEADS, smoke.HEADS,
+                               m["prompt_len"], m["prompt_len"],
+                               smoke.HEAD_DIM, True, None, None),
+        "zamba2-2.7b causal": (b, h, h, s, s, d, True, None, None)}
+    for arch, part, kind in smoke.FLASH_ARCH_ROWS:
+        cfg, spec = get_config(arch), smoke.PATHS[arch]
+        hq, hkv, d, sq, skv, causal, window, cap = smoke.attention_shape(
+            cfg, part, kind, spec["prompt_len"], cfg.frontend_tokens)
+        rows[f"{arch} {part} {kind}"] = (spec.get("batch", smoke.BATCH), hq,
+                                         hkv, sq, skv, d, causal, window, cap)
+    return rows
 
 
 def child(root: Path) -> dict:
+    sys.path.insert(0, str(HERE))
+    import chip_smoke as smoke
+
     sys.path.insert(0, str(root / "src"))
     import torch
 
+    from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention.ops import attention
 
     if not torch.cuda.is_available():
         raise SystemExit("compare_forward: no CUDA device is available")
     _build.build_all()
-    g = torch.Generator(device="cuda").manual_seed(0)
-    rows = {}
+    randn = smoke.make_randn(torch, 0)
+    out = {}
     for name, (b, hq, hkv, sq, skv, d, causal, window, cap) in \
-            SHAPES.items():
-        scale = 1.0 if cap is None else 2.0 * cap
-        q = (torch.randn(b, sq, hq, d, generator=g, device="cuda")
-             * scale).to(torch.bfloat16).transpose(1, 2)
-        k, v = (torch.randn(b, skv, hkv, d, generator=g, device="cuda")
-                .to(torch.bfloat16).transpose(1, 2) for _ in range(2))
+            forward_rows(smoke, get_config).items():
+        bf = torch.bfloat16
+        q = randn(b, sq, hq, d, dtype=bf,
+                  scale=smoke.cap_scale(cap)).transpose(1, 2)
+        k, v = (randn(b, skv, hkv, d, dtype=bf).transpose(1, 2)
+                for _ in range(2))
         kw = dict(causal=causal, window=window, cap=cap)
         before = attention.launches_by_path["mma"]
         attention(q, k, v, **kw)
         torch.cuda.synchronize()
         if attention.launches_by_path["mma"] != before + 1:
             raise SystemExit(f"compare_forward: {name} did not take mma")
-        rows[name] = time_ms(torch, lambda: attention(q, k, v, **kw))
-    return rows
+        out[f"{name} {[b, hq, sq, d]}"] = smoke.time_ms(
+            torch, lambda: attention(q, k, v, **kw))
+    return out
 
 
 def main(argv=None) -> int:
@@ -134,7 +118,7 @@ def main(argv=None) -> int:
         print(json.dumps({"turn": label, "ms": res}), flush=True)
     summary = {label: {name: statistics.median(r[name] for lab, r in turns
                                                if lab == label)
-                       for name in SHAPES}
+                       for name in turns[0][1]}
                for label in labels if any(lab == label for lab, _ in turns)}
     print(json.dumps({"median_ms": summary, "card": smi}))
     return 0

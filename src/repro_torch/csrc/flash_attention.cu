@@ -2310,10 +2310,11 @@ const char* repro_cuda_error_string(int err) {
 // the scaled (and capped) logits, for the backward.  window <= 0: no
 // window; cap <= 0: no soft-cap.  q_offset >= 0: query row r sits at
 // position r + q_offset against key c at c in the causal and window masks
-// (Sq + q_offset below 2^31).  path: kPathSimt (fp32) or kPathMma (bf16);
-// a path whose preconditions fail returns cudaErrorInvalidValue without
-// launching, else the result is cudaGetLastError() after the launch (0 =
-// launched).
+// (Sq + q_offset + 64 at most 2^31 - 1: a query tile's last position, up
+// to 63 rows past Sq - 1, is an int).  path: kPathSimt (fp32) or kPathMma
+// (bf16); a path whose preconditions fail returns cudaErrorInvalidValue
+// without launching, else the result is cudaGetLastError() after the
+// launch (0 = launched).
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, float* lse, int B, int Hq, int Hkv,
                            int Sq, int Skv, int D, int64_t qsb, int64_t qsh,
@@ -2325,7 +2326,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 ||
       Skv < 0 || D <= 0 || D > 256 || (Sq + BQ - 1) / BQ > 65535 ||
-      q_offset < 0 || q_offset > INT32_MAX - Sq)
+      q_offset < 0 || q_offset > INT32_MAX - 64 - Sq)
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t st[12] = {qsb, qsh, qss, ksb, ksh, kss,
                           vsb, vsh, vss, osb, osh, oss};

@@ -61,6 +61,9 @@ from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PATHS = {"simt": 0, "mma": 1}
 MAX_HEAD_DIM = 256
+# the largest Sq + q_offset the kernels take: a query tile's last position
+# (up to 63 rows past Sq - 1) stays below 2**31
+Q_OFFSET_MAX = 2 ** 31 - 1 - 64
 
 _P, _I64, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, \
     ctypes.c_float
@@ -159,10 +162,10 @@ def _check(q, k, v, window, cap, q_offset=0):
             f"flash_attention kernel takes window > 0 and cap > 0, got "
             f"window={window}, cap={cap}"
         )
-    if not 0 <= q_offset < 2 ** 31 - sq:
+    if not 0 <= q_offset <= Q_OFFSET_MAX - sq:  # positions stay ints
         raise ValueError(
-            f"flash_attention kernel takes 0 <= q_offset < 2**31 - Sq, got "
-            f"q_offset={q_offset}"
+            f"flash_attention kernel takes 0 <= q_offset <= "
+            f"{Q_OFFSET_MAX} - Sq, got q_offset={q_offset}"
         )
     _path(q.dtype, d)
 

@@ -620,14 +620,30 @@ def test_attention_kernel_offset_matches_plain(cuda_device, causal, window,
 @pytest.mark.cuda
 def test_attention_kernel_refuses_a_negative_offset(cuda_device):
     """No caller needs a negative offset: the wrapper raises before any
-    launch; an offset under autograd raises too."""
+    launch; an offset under autograd raises too, and so does one whose
+    positions (a query tile's last one up to 63 rows past the last row)
+    would pass 2**31 - 1.  At that limit the kernel runs: every key lies
+    before every query, so causal attention is unmasked."""
+    from repro_torch.kernels.flash_attention.ops import (Q_OFFSET_MAX,
+                                                         _forward)
+
     q = torch.randn(1, 2, 16, 64, device=cuda_device)
     before = attention.launches
     with pytest.raises(ValueError, match="q_offset"):
         attention(q, q, q, q_offset=-1)
     with pytest.raises(ValueError, match="query offset"):
         attention(q.clone().requires_grad_(True), q, q, q_offset=4)
+    with pytest.raises(ValueError, match="q_offset"):
+        attention(q, q, q, q_offset=Q_OFFSET_MAX - 16 + 1)
+    with pytest.raises(RuntimeError, match="launch failed"):  # the C check
+        _forward(q, q, q, True, None, None, None, False,
+                 q_offset=Q_OFFSET_MAX - 16 + 1)
     assert attention.launches == before
+    got = attention(q, q, q, causal=True, q_offset=Q_OFFSET_MAX - 16)
+    torch.cuda.synchronize()
+    assert attention.launches == before + 1
+    np.testing.assert_allclose(_np(got.cpu()), _np(attention_ref(
+        q, q, q, causal=False).cpu()), **_tol("float32"))
 
 
 @pytest.mark.cuda
