@@ -715,11 +715,15 @@ def flex_yardstick(torch, name, q, k, v, kw, o_ref, live=None):
     ``(library_ms, library)``.  The mask's terms are 0-d tensors the one
     compiled function reads, so a new offset or window compiles nothing;
     the second shape recompiles it for dynamic shapes, which serve every
-    later one."""
+    later one.  Inductor compiles in this process, without its pool of
+    compile workers, whose start took longer on the card's host than the
+    compile itself."""
+    import torch._inductor.config as inductor_config
     from torch.nn.attention.flex_attention import (AuxRequest,
                                                    create_block_mask,
                                                    flex_attention)
     if not _FLEX:
+        inductor_config.compile_threads = 1
         t = dict(off=torch.zeros((), dtype=torch.int32, device="cuda"),
                  window=torch.zeros((), dtype=torch.int32, device="cuda"),
                  causal=torch.zeros((), dtype=torch.bool, device="cuda"),
