@@ -4812,7 +4812,7 @@ WINDOW_SERVE_FLASH = [4, 8, 12, 14]
 # at a fixed 0.5 requests a second.  Set from a first run's call times (a
 # prefill group, padded to 4 x 4608, 3.37 s; a decode call 0.30 s): the
 # slots served 0.936/s, 0.8/s queued (85 %) and 0.5/s was 53 %.  The share
-# moves with the host: 49-51 % of the 0.99-1.02/s of later runs, 32 % of
+# moves with the host: 49-57 % of the 0.87-1.03/s of later runs, 32 % of
 # a faster host's 1.546/s (PERF.md section 5).  check_window_engine logs
 # it as offered_share and holds it to nothing
 WINDOW_ENGINE = dict(arch="gemma2-9b", layers=4, max_batch=4,
