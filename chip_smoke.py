@@ -580,6 +580,82 @@ def log(*parts):
     print(*parts, flush=True)
 
 
+def adopt_orphans():
+    """Make this process the reaper of every process it starts, so a
+    grandchild whose parent ends before it (a rank's helper, a compile
+    worker) is reparented here and ``stop_children`` still finds it."""
+    import ctypes
+    pr_set_child_subreaper = 36
+    libc = ctypes.CDLL(None, use_errno=True)
+    need(libc.prctl(pr_set_child_subreaper, 1, 0, 0, 0) == 0,
+         f"prctl(PR_SET_CHILD_SUBREAPER) failed: errno {ctypes.get_errno()}")
+
+
+def descendants():
+    """{pid: command line} of the live processes below this one."""
+    import os
+    kids = {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            stat = Path(f"/proc/{d}/stat").read_text()
+        except OSError:  # ended since the listing
+            continue
+        state, ppid = stat[stat.rindex(")") + 2:].split()[:2]
+        if state not in "ZX":
+            kids.setdefault(int(ppid), []).append(int(d))
+    found, todo = {}, [os.getpid()]
+    while todo:
+        for pid in kids.get(todo.pop(), []):
+            try:
+                cmd = Path(f"/proc/{pid}/cmdline").read_bytes()
+            except OSError:
+                continue
+            found[pid] = cmd.replace(b"\0", b" ").decode(errors="replace")
+            todo.append(pid)
+    return found
+
+
+def stop_children():
+    """Stop every process this one started that still runs, before it
+    exits: inductor's compile workers where a compile started them, then
+    whatever is left below this process (SIGTERM, SIGKILL after 5 s),
+    each named on stderr; then reap the ended ones."""
+    import os
+    import signal
+    pools = sys.modules.get("torch._inductor.async_compile")
+    if pools is not None:
+        try:
+            pools.shutdown_compile_workers()
+        except Exception as e:  # the workers are stopped below all the same
+            print(f"chip_smoke: inductor's workers did not shut down: {e!r}",
+                  file=sys.stderr, flush=True)
+    left = descendants()
+    for pid, cmd in left.items():
+        print(f"chip_smoke: stopping process {pid} left running: {cmd}",
+              file=sys.stderr, flush=True)
+    for sig, wait_s in ((signal.SIGTERM, 5.0), (signal.SIGKILL, 5.0)):
+        for pid in left:
+            try:
+                os.kill(pid, sig)
+            except ProcessLookupError:
+                pass
+        t_end = time.monotonic() + wait_s
+        while left and time.monotonic() < t_end:
+            time.sleep(0.05)
+            left = {p: c for p, c in left.items() if p in descendants()}
+    while True:  # reap: ended children and adopted orphans
+        try:
+            if os.waitpid(-1, os.WNOHANG)[0] == 0:
+                break
+        except ChildProcessError:
+            break
+    if left:
+        print(f"chip_smoke: processes still running: {sorted(left)}",
+              file=sys.stderr, flush=True)
+
+
 # ---------------------------------------------------------------------------
 # helpers
 # ---------------------------------------------------------------------------
@@ -8049,7 +8125,10 @@ if __name__ == "__main__":
             sys.exit(ssm_ring_rank_main(sys.argv[2]))
         if sys.argv[1:2] == ["--other-rank"]:  # one rank of phase 15
             sys.exit(other_rank_main(sys.argv[2]))
+        adopt_orphans()
         sys.exit(main())
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         sys.exit(1)
+    finally:
+        stop_children()
