@@ -104,7 +104,7 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    form (bf16 operands, fp32 output) against fp32 upcasts (within 1e-5
    of the largest magnitude) and beside its bound.  Then the train paths at full width, bf16, batch 4 x
    seq 512, the reference's defaults (remat, ``AdamWConfig()``), through
-   ``make_train_step`` and ``SyntheticDataset``, 5 steps each:
+   ``make_train_step`` and ``SyntheticDataset``, 3 steps each:
    deepseek-7b with 4 layers (each step exactly 115 GEMMs: 57 forward
    with remat's recompute, 29 dgrad, 29 wgrad, the lm head's three
    included; 8 flash forwards and 4 flash backwards), mamba2-780m cut
@@ -143,8 +143,8 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    logging ``[plan] solved fresh`` and the second a cache hit, both with
    tokens identical to the legacy flags' on the same weights and exactly
    their launches (210/30 and 196/28); then ``repro_torch.launch.train
-   --arch deepseek-7b --wafers 8 --stage 0 --batch 4 --seq 512 --steps 5
-   --ckpt-dir``: the stage's 4 layers, 5 steps' launches, each loss
+   --arch deepseek-7b --wafers 8 --stage 0 --batch 4 --seq 512 --steps 3
+   --ckpt-dir``: the stage's 4 layers, 3 steps' launches, each loss
    bitwise equal to ``make_train_step`` on ``solver.stage_config(cfg,
    4)`` from the same seed, the plan hash and stage in the manifest; and a
    relaunch with ``--failed-dies 3,9 --fail-wafer 1`` that re-solves only
@@ -874,7 +874,8 @@ def phase_build():
     from repro_torch.kernels import _build
     secs = _build.build_all()
     log(f"[build] {len(_build.SOURCES)} kernels built in {secs:.1f} s "
-        f"(nvcc {_build.nvcc_path()})")
+        f"(nvcc {_build.nvcc_path()}; by source, run together: "
+        f"{json.dumps({n: round(t, 1) for n, t in _build.BUILD_SECONDS.items()})})")
     for name, text in _build.BUILD_LOG.items():
         fn = ""  # the kernel the next lines report, its mangled name cut
         for line in text.splitlines():
@@ -1365,7 +1366,9 @@ LAYOUT_NAMES = {(False, False): "fwd", (False, True): "dgrad",
                 (True, False): "wgrad", (True, True): "both"}
 
 # deepseek-7b's train step at batch 4 x seq 512, 4 layers
-TRAIN = dict(batch=4, seq=512, n_layers=4, steps=5)
+# 3 steps a run (5 until phase 13's part (e) needed the time): step ms is
+# the median of the steps after the first
+TRAIN = dict(batch=4, seq=512, n_layers=4, steps=3)
 M_TRAIN = TRAIN["batch"] * TRAIN["seq"]
 # the bf16 train main paths at batch 4 x seq 512: (arch, layers).
 # deepseek-7b's 30 layers need ~110 GB with AdamW's state (16 B a
@@ -1377,11 +1380,13 @@ M_TRAIN = TRAIN["batch"] * TRAIN["seq"]
 # 1.37 B) at full depth.  Since phase 15 needed the time, the deep runs
 # are cut to half their depth or less (mamba2-780m 48 -> 24, zamba2-2.7b
 # 54 -> 24, four units; internvl2-1b 24 -> 12; seamless-m4t-large-v2's
-# decoder 24 -> 12, its encoder's 24 kept): a step's work and its
-# profiled host ops scale with the layers, the kernels' shapes do not
-TRAIN_RUNS = (("deepseek-7b", TRAIN["n_layers"]), ("mamba2-780m", 24),
-              ("zamba2-2.7b", 24), ("olmoe-1b-7b", TRAIN["n_layers"]),
-              ("gemma2-9b", TRAIN["n_layers"]), ("internvl2-1b", 12),
+# decoder 24 -> 12, its encoder's 24 kept), and since phase 13's part (e)
+# did, further (mamba2-780m -> 8, zamba2-2.7b -> 12, two units,
+# internvl2-1b -> 4): a step's work and its profiled host ops scale with
+# the layers, the kernels' shapes do not
+TRAIN_RUNS = (("deepseek-7b", TRAIN["n_layers"]), ("mamba2-780m", 8),
+              ("zamba2-2.7b", 12), ("olmoe-1b-7b", TRAIN["n_layers"]),
+              ("gemma2-9b", TRAIN["n_layers"]), ("internvl2-1b", 4),
               ("seamless-m4t-large-v2", 12))
 # architectures whose train step is not run here but whose train GEMM and
 # flash shapes phase_path_shapes holds against the plain versions
@@ -2407,9 +2412,10 @@ def phase_main_path(torch, arch, keep=None):
     if keep is not None:
         keep["logits"] = logits[:, -1].float().cpu()
 
-    # where the time goes: one prefill, then 4 decode steps as serve runs
-    # them (token to the host after each step)
-    steps = 4
+    # where the time goes: one prefill, then 2 decode steps as serve runs
+    # them (token to the host after each step; 4 until phase 13's part (e)
+    # needed the time: the profiler's cost scales with the host ops)
+    steps = 2
     big = lm.graft_cache_slots(
         lm.init_cache(sb.ctx, bsz, run["prompt_len"] + steps),
         caches, slots=range(bsz))
@@ -2425,7 +2431,7 @@ def phase_main_path(torch, arch, keep=None):
 
     prof = dict(prefill=profile_window(
                     torch, lambda: sb.prefill_fn(params, batch)),
-                decode_4_steps=profile_window(torch, decode_steps))
+                decode_2_steps=profile_window(torch, decode_steps))
     need(all(bool(t.isfinite().all()) for c in state[1].values()
              for t in c.values()), "non-finite cache after decode")
     out = dict(serve=res, layers=cfg.n_layers,
@@ -2672,7 +2678,7 @@ def mfu(step_s, cfg, batch, seq):
 def phase_train_main(torch, arch, n_layers):
     """A bf16 main train path: ``arch`` at full width with ``n_layers``
     layers, batch 4 x seq 512, the reference's defaults (remat on,
-    AdamWConfig()), through make_train_step and SyntheticDataset, 5 steps.
+    AdamWConfig()), through make_train_step and SyntheticDataset, 3 steps.
     Launch counts are zeroed before each step and must be exactly one
     step's after it (train_launches: every SSD backward on its kernel),
     every GEMM on wgmma and every flash forward and backward on mma;
@@ -3097,7 +3103,7 @@ def plan_train(torch, cache, ckpt_dir):
     --seq 512 --steps 5 --ckpt-dir``: the MultiWaferPlan's stage 0 holds 4
     layers; each step's loss bitwise equal to ``make_train_step`` on
     ``solver.stage_config(cfg, 4)`` from the launcher's seed; the launches
-    exactly 5 steps' (counted over the launch); the manifest records the
+    exactly 3 steps' (counted over the launch); the manifest records the
     plan hash and the stage.  Then a relaunch with ``--failed-dies`` on
     ``--fail-wafer 1``: a fresh solve in which only wafer 1's stage changes
     hash, and the reference's plan-drift warning."""
@@ -3241,11 +3247,12 @@ def phase_plan_launch(torch):
 
 # engine-mode serving (``launch.serve --serve``): deepseek-7b at its 30
 # layers, bf16, 4 decode slots, 128 prompt tokens and 32 new tokens each.
-# The measured load: 16 open-loop requests at 1.25 a second, below the
+# The measured load: 12 open-loop requests at 1.25 a second, below the
 # ~1.8 a second that 4 slots of ~2 s serve, so the queue has a steady
 # state (100 until phase 14 needed the time, 40 until phase 15 did, 24
-# until phase 16 did; 16 samples back no TTFT p99, P99_MIN_SAMPLES, only
-# the p50 and the max); then the same rate with a
+# until phase 16 did, 16 until phase 13's part (e) did; 12 samples back
+# no TTFT p99, P99_MIN_SAMPLES, only the p50 and the max); then the same
+# rate with a
 # die fault at 2.0 s on the engine's clock (``--fault-at``, 1/8 of the
 # dies, seeded) over 8 requests (20 until phase 15 needed the time, 12
 # until phase 16 did): the
@@ -3256,7 +3263,7 @@ def phase_plan_launch(torch):
 # (queueing, not the server)
 ENGINE = dict(arch="deepseek-7b", max_batch=4, prompt_len=128, max_new=32,
               fault_at=2.0)
-ENGINE_LOAD = dict(requests=16, rate=1.25)
+ENGINE_LOAD = dict(requests=12, rate=1.25)
 ENGINE_FAULT_LOAD = dict(ENGINE_LOAD, requests=8)
 ENGINE_RUNS = (("engine", ENGINE_LOAD, False),
                ("engine fault", ENGINE_FAULT_LOAD, True),
@@ -4428,8 +4435,10 @@ RING_ENGINE = dict(arch="deepseek-7b", layers=4, max_batch=4, prompt_len=128,
 # requests in flight
 RING_ENGINE_RATE = 0.5
 RING_ENGINE_FAULT_AT = 7.0
-# (label, requests, --fault-frac or None, the mesh the run ends on)
-RING_ENGINE_RUNS = (("fault-free", 6, None, (1, 4)),
+# (label, requests, --fault-frac or None, the mesh the run ends on); the
+# fault-free run 4 requests since phase 13's part (e) needed the time (6
+# before)
+RING_ENGINE_RUNS = (("fault-free", 4, None, (1, 4)),
                     ("fault 1/8", 4, 0.125, (1, 4)),
                     ("fault 1/4", 4, 0.25, (2, 2)))
 # fp32 parity (TF32 off): 2 layers at full width under the same plan, the

@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -39,6 +40,8 @@ NVCC_FLAGS = (
 _LIBS: dict[str, ctypes.CDLL] = {}
 # compiler reports (register/shared-memory use from -Xptxas -v) by source
 BUILD_LOG: dict[str, str] = {}
+# the wall seconds each source's nvcc took (the builds run together)
+BUILD_SECONDS: dict[str, float] = {}
 
 
 class KernelBuildError(RuntimeError):
@@ -103,11 +106,19 @@ def build_all(names=SOURCES) -> float:
         (n, out, *_start(n, out)) for n, out in todo if not out.exists()
     ]
     errors = []
-    for n, out, proc, tmp in running:
+
+    def wait(n, out, proc, tmp):  # a thread each drains its compiler's pipe
         try:
             _finish(n, out, proc, tmp)
         except KernelBuildError as e:
             errors.append(str(e))
+        BUILD_SECONDS[n] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=wait, args=item) for item in running]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
     if errors:
         raise KernelBuildError("\n".join(errors))
     return time.perf_counter() - t0
