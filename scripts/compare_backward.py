@@ -11,23 +11,33 @@ and builds that checkout's kernels.  It then times, as device time (CUDA
 events behind a device-side spin, as ``chip_smoke.py:time_ms``):
 
 * the flash backward (``attention_bwd``, bf16, ``[B, S, H, D]``
-  activations viewed as ``[B, H, S, D]``) at deepseek-7b's causal train
+  activations viewed as ``[B, H, S, D]``) at every backward row of
+  ``PERF.md`` section 6, at query offset 0: deepseek-7b's causal train
   shape [4, 32, 512, 128], zamba2-2.7b's [4, 32, 512, 80], gemma-7b's
-  [4, 16, 512, 256] and seamless-m4t-large-v2's three at D 64 (the
-  decoder's causal [4, 16, 512, 64], the encoder's bidirectional 1024
-  frames, the cross attention of 512 queries to 1024 frames), beside its
-  bound (five products over the attended pairs; q, k, v, dO, dQ, dK, dV
-  and the row lse moved once: the bf16 kernels do not read O) and SDPA's
-  backward (autograd's forward and backward less the forward); and its
-  gradients' error against fp32 autograd of ``attention_ref`` on the same
-  bf16 values, held to ``tests/test_torch_attn_bwd.py``'s tolerance (2
-  bf16 ulps of the gradient's RMS plus one bf16 ulp of each element);
+  [4, 16, 512, 256], gemma2-9b's windowed, soft-capped ``L`` slot [4, 16,
+  512, 256] over 8 K/V heads (q scaled by 2 x cap, as ``chip_smoke.py``
+  scales it), seamless-m4t-large-v2's three at D 64 (the decoder's causal
+  [4, 16, 512, 64], the encoder's bidirectional 1024 frames, the cross
+  attention of 512 queries to 1024 frames), ``megatron``'s local heads
+  [4, 8, 512, 128], and with an outside delta (``delta_in``, the train
+  ring's rounds) the (1, 4) ring's round [4, 32, 128, 128] and zigzag's c
+  x c launch [4, 32, 64, 128], causal and unmasked; beside its bound
+  (five products over the attended pairs; q, k, v, dO, dQ, dK, dV and the
+  row lse moved once: the bf16 kernels do not read O) and SDPA's
+  backward (autograd's forward and backward less the forward; none under
+  a cap or a window); and its gradients' error against fp32 autograd of
+  ``attention_ref`` on the same bf16 values, held to
+  ``tests/test_torch_attn_bwd.py``'s tolerance (2 bf16 ulps of the
+  gradient's RMS plus one bf16 ulp of each element);
 * the SSD backward (``ssd_intra_chunk_bwd``, fp32) at mamba2-780m's
   [8, 256, 48, 64], N 128 and zamba2-2.7b's [8, 256, 80, 64], N 64,
   beside its bounds at 3xTF32 and at the fp32 CUDA-core rate;
 
 and, for each, the device time of every ``__global__`` kernel of one call
-(``torch.profiler``).  With ``--train`` it also trains each model at full
+(``torch.profiler``).  A turn that builds its checkout's kernels reports
+the seconds ``nvcc`` took for each flash attention source alone
+(``csrc/flash_attention.cu``, and ``csrc/flash_attention_bwd.cu`` where
+the checkout has it).  With ``--train`` it also trains each model at full
 width, bf16, 4 x 512 tokens, remat, as ``chip_smoke.py`` does (deepseek-7b
 with 4 layers, mamba2-780m with 48, zamba2-2.7b with 54): the median
 host-clock step of steps 2-4 and, of one profiled step, the device busy
@@ -50,15 +60,28 @@ from pathlib import Path
 PEAK_BF16, PEAK_TF32X3, PEAK_F32, PEAK_BYTES = 989e12, 495e12 / 3, 67e12, \
     3.35e12
 SPIN_HZ = 1.98e9
-# (B, Hq, Hkv, Sq, Skv, D, causal)
-FLASH_SHAPES = {"deepseek-7b": (4, 32, 32, 512, 512, 128, True),
-                "zamba2-2.7b": (4, 32, 32, 512, 512, 80, True),
-                "gemma-7b": (4, 16, 16, 512, 512, 256, True),
-                "seamless-m4t-large-v2 dec": (4, 16, 16, 512, 512, 64, True),
-                "seamless-m4t-large-v2 enc": (4, 16, 16, 1024, 1024, 64,
-                                              False),
-                "seamless-m4t-large-v2 cross": (4, 16, 16, 512, 1024, 64,
-                                                False)}
+# (B, Hq, Hkv, Sq, Skv, D, causal, window, cap, delta_in)
+FLASH_SHAPES = {
+    "deepseek-7b": (4, 32, 32, 512, 512, 128, True, None, None, False),
+    "zamba2-2.7b": (4, 32, 32, 512, 512, 80, True, None, None, False),
+    "gemma-7b": (4, 16, 16, 512, 512, 256, True, None, None, False),
+    "gemma2-9b L": (4, 16, 8, 512, 512, 256, True, 4096, 50.0, False),
+    "seamless-m4t-large-v2 dec": (4, 16, 16, 512, 512, 64, True, None, None,
+                                  False),
+    "seamless-m4t-large-v2 enc": (4, 16, 16, 1024, 1024, 64, False, None,
+                                  None, False),
+    "seamless-m4t-large-v2 cross": (4, 16, 16, 512, 1024, 64, False, None,
+                                    None, False),
+    "megatron local heads": (4, 8, 8, 512, 512, 128, True, None, None,
+                             False),
+    "ring round delta_in causal": (4, 32, 32, 128, 128, 128, True, None,
+                                   None, True),
+    "ring round delta_in unmasked": (4, 32, 32, 128, 128, 128, False, None,
+                                     None, True),
+    "zigzag delta_in causal": (4, 32, 32, 64, 64, 128, True, None, None,
+                               True),
+    "zigzag delta_in unmasked": (4, 32, 32, 64, 64, 128, False, None, None,
+                                 True)}
 SSD_SHAPES = {"mamba2-780m": (8, 256, 48, 64, 128),
               "zamba2-2.7b": (8, 256, 80, 64, 64)}
 TRAIN_RUNS = (("deepseek-7b", 4), ("mamba2-780m", 48), ("zamba2-2.7b", 54))
@@ -104,14 +127,15 @@ def device_kernels(torch, fn):
     return out, sum(out.values())
 
 
-def grad_err(torch, got, q, k, v, do, causal):
+def grad_err(torch, got, q, k, v, do, kw):
     """{gradient: its largest error against fp32 autograd of attention_ref
-    beyond one bf16 ulp of the element (the final rounding both sides
-    share), over the gradient's RMS; the limit of 2 bf16 ulps of the RMS,
-    over the RMS; and whether every element keeps within it}."""
+    (at the masks and cap ``kw``) beyond one bf16 ulp of the element (the
+    final rounding both sides share), over the gradient's RMS; the limit of
+    2 bf16 ulps of the RMS, over the RMS; and whether every element keeps
+    within it}."""
     from repro_torch.kernels.flash_attention.ref import attention_ref
     leaves = [t.float().requires_grad_(True) for t in (q, k, v)]
-    want = torch.autograd.grad(attention_ref(*leaves, causal=causal), leaves,
+    want = torch.autograd.grad(attention_ref(*leaves, **kw), leaves,
                                do.float())
     out = {}
     for name, g, r in zip(("dq", "dk", "dv"), got, want):
@@ -129,16 +153,23 @@ def flash_rows(torch):
                                                          attention_bwd)
     g = torch.Generator(device="cuda").manual_seed(0)
     rows = {}
-    for arch, (b, hq, hkv, sq, skv, d, causal) in FLASH_SHAPES.items():
+    for arch, (b, hq, hkv, sq, skv, d, causal, window, cap,
+               delta_in) in FLASH_SHAPES.items():
         q, k, v, do = (torch.randn(b, s, h, d, generator=g, device="cuda")
                        .to(torch.bfloat16).transpose(1, 2)
                        for s, h in ((sq, hq), (skv, hkv), (skv, hkv),
                                     (sq, hq)))
-        o, lse = _forward(q, k, v, causal, None, None, None, want_lse=True)
+        if cap is not None:  # the cap bites (chip_smoke.py:cap_scale)
+            q = (q.float() * 2 * cap).to(torch.bfloat16)
+        kw = dict(causal=causal, window=window, cap=cap)
+        o, lse = _forward(q, k, v, causal, window, cap, None, want_lse=True)
+        # a ring round's outside delta: rowsum(dO O) of the row's output
+        delta = ((do.float() * o.float()).sum(-1).contiguous() if delta_in
+                 else None)
         qc, kc, vc = (t.contiguous() for t in (q, k, v))
 
         def run():
-            return attention_bwd(q, k, v, o, lse, do, causal=causal)
+            return attention_bwd(q, k, v, o, lse, do, delta=delta, **kw)
 
         def sdpa_fwd_bwd():
             qq, kk, vv = (t.detach().requires_grad_(True)
@@ -147,20 +178,31 @@ def flash_rows(torch):
                 qq, kk, vv, is_causal=causal), (qq, kk, vv), do)
 
         ms = time_ms(torch, run, 10)
-        lib = (time_ms(torch, sdpa_fwd_bwd, 10)
-               - time_ms(torch, lambda: F.scaled_dot_product_attention(
-                   qc, kc, vc, is_causal=causal), 10))
-        pairs = b * hq * (sq * (sq + 1) // 2 if causal else sq * skv)
+        lib = None
+        if cap is None and window is None and hkv == hq:
+            lib = (time_ms(torch, sdpa_fwd_bwd, 10)
+                   - time_ms(torch, lambda: F.scaled_dot_product_attention(
+                       qc, kc, vc, is_causal=causal), 10))
+        qpos = torch.arange(sq)[:, None]
+        seen = torch.ones(sq, skv, dtype=torch.bool)
+        if causal:
+            seen &= torch.arange(skv)[None, :] <= qpos
+        if window is not None:
+            seen &= qpos - torch.arange(skv)[None, :] < window
+        pairs = b * hq * int(seen.sum())
         flops = 10 * pairs * d
         nbytes = 2 * b * d * (3 * hq * sq + 4 * hkv * skv) + 4 * b * hq * sq
+        if delta_in:
+            nbytes += 4 * b * hq * sq
         bound = max(flops / PEAK_BF16, nbytes / PEAK_BYTES) * 1e3
         kern, _ = device_kernels(torch, run)
         rows[arch] = dict(shape=[b, hq, sq, d], kv=[hkv, skv], causal=causal,
-                          ms=ms, sdpa_bwd_ms=lib, ratio=ms / lib,
+                          window=window, cap=cap, delta_in=delta_in, ms=ms,
+                          sdpa_bwd_ms=lib,
+                          ratio=None if lib is None else ms / lib,
                           bound_ms=bound, share_of_bound=bound / ms,
                           kernels=kern,
-                          grad_err=grad_err(torch, run(), q, k, v, do,
-                                            causal))
+                          grad_err=grad_err(torch, run(), q, k, v, do, kw))
     return rows
 
 
@@ -260,8 +302,12 @@ def child(root: Path, train: bool) -> dict:
         raise SystemExit("compare_backward: no CUDA device is available")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    flash_build_s = {n: _build.build_all((n,)) for n in _build.SOURCES
+                     if n.startswith("flash_attention")
+                     and not _build._lib_path(n).exists()}
     _build.build_all()
-    out = dict(flash_bwd=flash_rows(torch), ssd_bwd=ssd_rows(torch))
+    out = dict(flash_bwd=flash_rows(torch), ssd_bwd=ssd_rows(torch),
+               flash_build_s=flash_build_s or None)
     if train:
         out["train"] = train_rows(torch)
     return out
@@ -316,10 +362,12 @@ def main(argv=None) -> int:
             for arch in res[0][part]:
                 med[f"{part} {arch}"] = {
                     k: statistics.median(r[part][arch][k] for r in res)
-                    for k in keys}
+                    for k in keys if res[0][part][arch][k] is not None}
                 if "grad_err" in res[0][part][arch]:  # deterministic
                     med[f"{part} {arch}"]["grad_err"] = \
                         res[0][part][arch]["grad_err"]
+        med["flash_build_s"] = [r["flash_build_s"] for r in res
+                                if r["flash_build_s"] is not None]
         for arch in res[0].get("train", {}):
             rows = [r["train"][arch] for r in res]
             med[f"train {arch}"] = dict(

@@ -40,9 +40,10 @@ Ring attention (``models/attention.py``) calls the forward with
 :func:`attention_bwd` once a visible round with the ring's global row LSE
 and an outside delta; a direct ``return_lse`` call under autograd raises.
 Its rounds pass ``q_offset``, the first query's position past the first
-key's, so the causal and window masks compare global positions; the
-forward kernel takes it, the backward does not yet (ROADMAP.md A3f-2), so a
-nonzero offset under autograd raises.
+key's, so the causal and window masks compare global positions, in the
+forward and in its backward calls (which always bring an outside delta).
+:func:`attention` under autograd is one whole attention, whose rows start at
+its keys' start: a nonzero offset there raises.
 """
 
 from __future__ import annotations
@@ -57,7 +58,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                      attention_ref)
 
-# dtype and path codes shared with csrc/flash_attention.cu
+# dtype and path codes shared with csrc/flash_attention.cuh
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PATHS = {"simt": 0, "mma": 1}
 MAX_HEAD_DIM = 256
@@ -76,10 +77,17 @@ def _lib():
         fn.argtypes = ([_P] * 5 + [_I] * 6 + [_I64] * 12
                        + [_F, _I, _I, _I, _F, _I, _I, _P])
         fn.restype = _I
+    return lib
+
+
+def _bwd_lib():
+    """The backward's library (``csrc/flash_attention_bwd.cu``, built
+    beside the forward's so the two compile in parallel)."""
+    lib = _build.load("flash_attention_bwd")
     fn = lib.flash_attention_bwd_launch
     if fn.argtypes is None:
         fn.argtypes = ([_P] * 10 + [_I] * 6 + [_I64] * 24
-                       + [_F, _I, _I, _F, _I, _I, _I, _P])
+                       + [_F, _I, _I, _I, _F, _I, _I, _I, _P])
         fn.restype = _I
     return lib
 
@@ -117,9 +125,10 @@ def attention(q, k, v, *, causal=True, window=None, cap=None, scale=None,
         if return_lse:  # the ring's Function reaches the backward itself
             raise ValueError("the row LSE under autograd is reached "
                              "through ring attention's Functions")
-        if q_offset:
-            raise ValueError("the flash backward takes no query offset "
-                             "(ROADMAP.md A3f-2)")
+        if q_offset:  # only ring attention's rounds pass one
+            raise ValueError("attention under autograd takes no query "
+                             "offset: a ring round's backward is reached "
+                             "through ring attention's Functions")
         return _FlashAttention.apply(q, k, v, causal, window, cap, scale)
     if cpu:
         return attention_ref(q, k, v, causal=causal, window=window, cap=cap,
@@ -200,7 +209,7 @@ def _forward(q, k, v, causal, window, cap, scale, want_lse, q_offset=0):
 
 
 def attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None,
-                  cap=None, scale=None, delta=None):
+                  cap=None, scale=None, delta=None, q_offset: int = 0):
     """(dq, dk, dv) of :func:`attention` at ``do`` (o's shape), from the
     forward's ``o`` and ``lse`` ([B, Hq, Sq] fp32, contiguous), on the
     backward kernel.  CUDA tensors only; the gradients take q's, k's and
@@ -211,8 +220,14 @@ def attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None,
     interface's ``delta_in``), so ``lse`` and ``delta`` may be a whole
     row's while ``k``/``v`` are one block of its keys, as in a ring
     attention round.  ``attention_bwd.launches_delta_in`` counts those
-    calls."""
-    _check(q, k, v, window, cap)
+    calls.  ``q_offset`` (with ``delta`` only: a ring round's launch) as
+    :func:`attention`'s: query row ``r`` at ``r + q_offset`` against key
+    ``c`` at ``c``; a row that sees no key gets dQ 0, a key that no row
+    sees dK and dV 0."""
+    _check(q, k, v, window, cap, q_offset)
+    if q_offset and delta is None:
+        raise ValueError("the flash backward takes a query offset only with "
+                         "an outside delta (a ring round's launch)")
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     if o.shape != q.shape or do.shape != q.shape:
@@ -240,14 +255,14 @@ def attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None,
         delta = torch.empty((b, hq, sq), dtype=torch.float32,
                             device=q.device)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    lib = _lib()
+    lib = _bwd_lib()
     err = lib.flash_attention_bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), b, hq, hkv, sq, skv, d,
         *(s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]),
         float(scale), int(bool(causal)),
-        0 if window is None else int(window),
+        0 if window is None else int(window), int(q_offset),
         0.0 if cap is None else float(cap), int(delta_in),
         _DTYPES[q.dtype], _PATHS[path],
         torch.cuda.current_stream(q.device).cuda_stream,

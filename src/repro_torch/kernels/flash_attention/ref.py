@@ -61,7 +61,7 @@ def attention_ref(q, k, v, *, causal=True, window=None, cap=None,
 
 
 def attention_bwd_ref(q, k, v, o, lse, do, *, causal=True, window=None,
-                      cap=None, scale=None, delta=None):
+                      cap=None, scale=None, delta=None, q_offset: int = 0):
     """(dq, dk, dv) of :func:`attention_ref` at ``do``, from its row
     ``lse``: P = exp(S - lse) on the unmasked pairs, dV = P^T dO,
     dP = dO V^T, dS = P (dP - rowsum(P dP)), through the cap's tanh,
@@ -74,12 +74,15 @@ def attention_bwd_ref(q, k, v, o, lse, do, *, causal=True, window=None,
     one-hot, dP - rowsum cancels, and a bf16 O's rounding would be all of
     dS.  An outside ``delta`` ([B, Hq, Sq] fp32) replaces that rowsum, as
     the kernel's ``delta_in`` does: with ``lse`` and ``delta`` of a whole
-    row, k/v may be one block of its keys (a ring round)."""
+    row, k/v may be one block of its keys (a ring round), whose first query
+    sits ``q_offset`` positions past its first key: the masks are
+    :func:`attention_ref`'s at that offset, so a row that sees no key gets
+    dQ 0 and a key that no row sees dK and dV 0."""
     b, hq, sq, d = q.shape
     hkv = k.shape[1]
     g = hq // hkv
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    s, mask, t, qg = _scores(q, k, causal, window, cap, scale)
+    s, mask, t, qg = _scores(q, k, causal, window, cap, scale, q_offset)
     p = torch.where(mask, torch.exp(s - lse.reshape(b, hkv, g, sq, 1)),
                     0.0)
     dog = do.reshape(b, hkv, g, sq, d).float()

@@ -162,9 +162,42 @@ def test_attention_ref_offset_matches_local_attention(q_offset, causal,
         assert not got.any() and (lse <= -1e29).all()
 
 
+@pytest.mark.parametrize("q_offset", [0, 3, 9, 16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("window", [None, 4])
+@pytest.mark.parametrize("cap", [None, 5.0])
+def test_attention_bwd_ref_offset_matches_jax_vjp(q_offset, causal, window,
+                                                  cap):
+    """The plain backward at a query offset: dq, dk and dv of
+    ``attention_bwd_ref(q_offset=...)``, from ``attention_ref``'s row LSE
+    at that offset, against ``jax.vjp`` of the reference's
+    ``local_attention(q_offset=...)`` (6 queries, 10 keys; rows that see
+    no key get dQ 0, keys that no row sees dK and dV 0)."""
+    import jax
+
+    rng = np.random.RandomState(9)
+    q = rng.randn(2, 6, 4, 16).astype(np.float32)  # [B, S, H, D]
+    k = rng.randn(2, 10, 2, 16).astype(np.float32)
+    v = rng.randn(2, 10, 2, 16).astype(np.float32)
+    do = rng.randn(2, 6, 4, 16).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, b, c: jax_local_attention(
+        a, b, c, causal=causal, window=window, cap=cap, q_offset=q_offset),
+        *(jnp.asarray(a) for a in (q, k, v)))
+    want = vjp(jnp.asarray(do))
+    t = [torch.from_numpy(a).transpose(1, 2) for a in (q, k, v, do)]
+    kw = dict(causal=causal, window=window, cap=cap, q_offset=q_offset)
+    o, lse = attention_ref(*t[:3], return_lse=True, **kw)
+    got = attention_bwd_ref(*t[:3], o, lse, t[3], **kw)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert torch.isfinite(g).all()
+        np.testing.assert_allclose(_np(g.transpose(1, 2)), _np(w),
+                                   rtol=1e-5, atol=1e-5, err_msg=name)
+
+
 def test_attention_offset_on_cpu_and_under_autograd():
     """The wrapper passes ``q_offset`` to the plain version on the CPU;
-    under autograd an offset raises (the backward takes none yet)."""
+    under autograd an offset raises (a ring round's backward at an offset
+    is reached through ring attention's Functions)."""
     rng = np.random.RandomState(8)
     q = torch.from_numpy(rng.randn(1, 2, 6, 16).astype(np.float32))
     k = torch.from_numpy(rng.randn(1, 2, 10, 16).astype(np.float32))
@@ -385,11 +418,12 @@ def test_attention_backward_path(dtype, d, want):
      + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
     # q, k, v, o, do, lse, delta, dq, dk, dv; the six sizes; 24 strides;
-    # scale, causal, window, cap, delta_in, dtype, path; stream
-    ("flash_attention", "flash_attention_bwd_launch",
+    # scale, causal, window, q_offset, cap, delta_in, dtype, path; stream
+    ("flash_attention_bwd", "flash_attention_bwd_launch",
      [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_int64] * 24
-     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
+     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]),
     ("ssd", "ssd_intra_chunk_launch",
      [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_int64] * 9
      + [ctypes.c_void_p]),
@@ -424,7 +458,8 @@ def test_launcher_argtypes_match_c_signature(monkeypatch, lib, fn, argtypes):
         setattr(stub, name, Fn())
     monkeypatch.setattr(_build, "load", lambda name: stub)
     {"tatp_matmul": gemm_ops._lib, "flash_attention": flash_ops._lib,
-     "ssd": ssd_ops._lib, "ssd_bwd": ssd_ops._bwd_lib}[lib]()
+     "flash_attention_bwd": flash_ops._bwd_lib, "ssd": ssd_ops._lib,
+     "ssd_bwd": ssd_ops._bwd_lib}[lib]()
     assert getattr(stub, fn).argtypes == argtypes
     assert getattr(stub, fn).restype is ctypes.c_int
 
@@ -644,6 +679,92 @@ def test_attention_kernel_refuses_a_negative_offset(cuda_device):
     assert attention.launches == before + 1
     np.testing.assert_allclose(_np(got.cpu()), _np(attention_ref(
         q, q, q, causal=False).cpu()), **_tol("float32"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,path", [("float32", "simt"),
+                                        ("bfloat16", "mma")])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("q_offset", [0, 1, 63, 100, 300])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 96),
+                                           (False, 96)])
+def test_attention_backward_kernel_offset_matches_plain(
+        cuda_device, causal, window, q_offset, d, dtype, path):
+    """The backward kernel with an outside delta at a query offset (130
+    queries, 200 keys, GQA 4:1, cap 30; at 300 with the window every key
+    lies outside it), as ring attention's rounds call it: against the plain
+    version with the same delta; rows that see no key get dQ exactly 0,
+    keys that no row sees dK and dV exactly 0."""
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    q, do = (torch.randn(2, 8, 130, d, generator=g, device=cuda_device)
+             .to(_TORCH[dtype]) for _ in range(2))
+    k, v = (torch.randn(2, 2, 200, d, generator=g, device=cuda_device)
+            .to(_TORCH[dtype]) for _ in range(2))
+    kw = dict(causal=causal, window=window, cap=30.0, q_offset=q_offset)
+    with torch.no_grad():
+        o, lse = attention(q, k, v, return_lse=True, **kw)
+    # a ring round's row LSE and delta come from all of a row's keys: any
+    # finite values stand for them
+    lse = torch.where(lse <= -1e29, torch.zeros_like(lse), lse)
+    delta = (do.float() * o.float()).sum(-1).contiguous()
+    before = flash_ops.attention_bwd.launches_by_path[path]
+    got = flash_ops.attention_bwd(q, k, v, o, lse, do, delta=delta, **kw)
+    torch.cuda.synchronize()
+    assert flash_ops.attention_bwd.launches_by_path[path] == before + 1
+    want = attention_bwd_ref(q, k, v, o, lse, do, delta=delta, **kw)
+    qpos = q_offset + torch.arange(130, device=cuda_device)[:, None]
+    kpos = torch.arange(200, device=cuda_device)[None, :]
+    pairs = torch.ones(130, 200, dtype=torch.bool, device=cuda_device)
+    if causal:
+        pairs &= kpos <= qpos
+    if window:
+        pairs &= qpos - kpos < window
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert torch.isfinite(a).all(), name
+        np.testing.assert_allclose(_np(a.cpu()), _np(b.cpu()), err_msg=name,
+                                   **_tol(dtype))
+        unseen = ~pairs.any(1) if name == "dq" else ~pairs.any(0)
+        assert not a[:, :, unseen].any(), name
+
+
+@pytest.mark.cuda
+def test_attention_backward_kernel_refuses_offsets(cuda_device):
+    """The backward's offset refusals: a negative one, one without an
+    outside delta, and one past the limit, in the wrapper and (past the
+    limit) in the C launcher; at the limit the kernel runs and matches the
+    plain version."""
+    from repro_torch.kernels.flash_attention.ops import Q_OFFSET_MAX
+
+    q = torch.randn(1, 2, 16, 64, device=cuda_device)
+    with torch.no_grad():
+        o, lse = attention(q, q, q, return_lse=True)
+    delta = (q * o).sum(-1).contiguous()
+    bwd = flash_ops.attention_bwd
+    before = bwd.launches
+    for off, dl in ((-1, delta), (4, None), (Q_OFFSET_MAX - 16 + 1, delta)):
+        with pytest.raises(ValueError, match="offset"):
+            bwd(q, q, q, o, lse, q, delta=dl, q_offset=off)
+    lib = flash_ops._bwd_lib()
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    st = [s for t in (q, q, q, o, q, dq, dk, dv) for s in t.stride()[:3]]
+    for off, din in ((Q_OFFSET_MAX - 16 + 1, 1), (4, 0)):
+        err = lib.flash_attention_bwd_launch(
+            q.data_ptr(), q.data_ptr(), q.data_ptr(), o.data_ptr(),
+            q.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), 1, 2, 2, 16, 16, 64, *st, 0.125, 1,
+            0, off, 0.0, din, 0, 0,
+            torch.cuda.current_stream(cuda_device).cuda_stream)
+        assert err != 0, off
+    assert bwd.launches == before
+    got = bwd(q, q, q, o, lse, q, delta=delta, causal=True,
+              q_offset=Q_OFFSET_MAX - 16)
+    torch.cuda.synchronize()
+    assert bwd.launches == before + 1
+    want = attention_bwd_ref(q, q, q, o, lse, q, delta=delta, causal=True,
+                             q_offset=Q_OFFSET_MAX - 16)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(_np(a.cpu()), _np(b.cpu()),
+                                   **_tol("float32"))
 
 
 @pytest.mark.cuda
