@@ -91,10 +91,12 @@ What the reference itself cannot run (``fsdp`` above degree 1;
 ``megatron`` above it with MoE or Mamba-2 layers, or fewer replicated kv
 heads than ranks) raises ``NotImplementedError`` naming ROADMAP.md C5:
 from the flags before the rank joins the world, from a plan once it
-resolves, before the mesh is built.  So does gemma2-9b's sliding window
-on the ``tatp`` ring above model degree 1, naming ROADMAP.md A3f-2 (ring
-attention's backward under a window): it serves there, and does not
-train yet.
+resolves, before the mesh is built.  gemma2-9b's sliding-window layers
+train on the ``tatp`` ring like any other (ring and zigzag attention's
+backward at each round's query offset)::
+
+    $torchrun -m repro_torch.launch.train --arch gemma2-9b --reduced \
+        --device cpu --mesh 1 4 --steps 3 --batch 1 --seq 64
 """
 
 from __future__ import annotations
@@ -107,7 +109,6 @@ from dataclasses import replace
 import numpy as np
 import torch
 
-from repro_torch import not_ported
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.configs.base import ParallelConfig, ShapeConfig
 import torch.distributed as tdist
@@ -128,16 +129,6 @@ def build(cfg, dist: Dist, par: ParallelConfig, batch: int, seq: int):
         cfg, shape, dist, strategy=par.strategy)
 
 
-def check_window(cfg, strategy: str, r: int) -> None:
-    """Raise where a train step would take ring attention's backward under
-    a sliding window (``tatp`` above model degree 1 with an ``L`` layer):
-    ROADMAP.md A3f-2, before any collective."""
-    if (r > 1 and strategy == "tatp" and cfg.sliding_window
-            and "L" in cfg.layer_pattern):
-        raise not_ported("a sliding window in ring attention's backward",
-                         "A3f-2")
-
-
 def setup(args):
     """cfg + Dist + ParallelConfig + plan (None for the legacy flags), from
     a plan or from the legacy flags, as the reference's ``setup``."""
@@ -151,7 +142,6 @@ def setup(args):
         # before the rank joins
         model = args.mesh[1] if len(args.mesh) == 2 else 1
         check_strategy(cfg, args.strategy, model)
-        check_window(cfg, args.strategy, model)
     device = join_world(args)
     if args.wafers > 1:
         # multi-wafer pipeline launch: this process group runs ONE stage
@@ -174,7 +164,6 @@ def setup(args):
         par = stage_plan.parallel_config()
         model = plan_mesh_shape(stage_plan, world)[1]
         check_strategy(cfg, par.strategy, model)
-        check_window(cfg, par.strategy, model)
         dist = make_plan_dist(stage_plan, device)
         if args.reduced and par.remat:
             par = replace(par, remat=False)
@@ -187,7 +176,6 @@ def setup(args):
         par = plan.parallel_config()
         model = plan_mesh_shape(plan, world)[1]
         check_strategy(cfg, par.strategy, model)
-        check_window(cfg, par.strategy, model)
         dist = make_plan_dist(plan, device)
         if args.reduced and plan.remat:
             # reduced smoke runs never need remat, whatever the plan says

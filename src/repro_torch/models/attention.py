@@ -17,7 +17,8 @@ sharded over the ring:
   delta.  Under a sliding window each launch passes its ``q_offset`` (its
   first query's global position less its first key's), so the window
   masks global positions, and a round whose nearest pair lies outside the
-  window launches nothing (:meth:`_Ring.launches`).  Without a hook, the
+  window launches nothing (:meth:`_Ring.launches`); the backward's call
+  for each launch takes the same masks and offset.  Without a hook, the
   reference's online-softmax loop (:func:`_block_update`) absorbs them
   with their global positions, and autograd differentiates it.
 * :func:`decode_attention` attends the token to the rank's slice of the
@@ -29,9 +30,6 @@ sharded over the ring:
   layout (rank i holds chunks i and 2R - 1 - i; the caller permutes the
   sequence with :func:`zigzag_permutation`): uniform work a rank, 2R + 1
   c x c launches on the hook path, sharing :class:`_RingAttention`.
-
-The backward under a sliding window above degree 1 needs the offset in
-the backward kernels, and raises before any relay (ROADMAP.md A3f-2).
 
 Masking keeps the reference's numerics: NEG_INF = -1e30, masked
 probabilities zeroed after the exp, and the row sum clamped at 1e-20, so a
@@ -45,7 +43,6 @@ from typing import Optional
 
 import torch
 
-from repro_torch import not_ported
 from repro_torch.core import remat
 from repro_torch.models.common import softcap
 
@@ -276,8 +273,9 @@ class _RingAttention(torch.autograd.Function):
     O) once, from the fp32 O (not its rounded cast); the K/V blocks stream
     again in the forward's order, and each forward launch
     (:meth:`_Ring.launches`) is one call of the hook's backward (the flash
-    kernel's on CUDA, its plain version on the CPU) on the same rows,
-    with their global LSE and that outside delta.  dQ sums locally in
+    kernel's on CUDA, its plain version on the CPU) on the same rows, with
+    the launch's causal mask, query offset and window, their global LSE
+    and that outside delta.  dQ sums locally in
     fp32.  Under ``tatp_outputs`` the forward records O and the LSE
     (:mod:`repro_torch.core.remat`), so the recompute runs no round.  Each block's dK/dV partials
     (fp32) return to its owner by retracing its stream: from the last
@@ -315,14 +313,14 @@ class _RingAttention(torch.autograd.Function):
                                             ring.relay):
             kt, vt = kj.transpose(1, 2), vj.transpose(1, 2)
             got = {}  # key rows -> (dK, dV) in [B, H, S, D]
-            # no window reaches here (A3f-2), so no launch's mask depends
-            # on its offset: the causal ones sit at offset 0
-            for qs, ks, causal, _, _ in ring.launches(i, j, q.shape[1]):
+            for qs, ks, causal, q_offset, window in ring.launches(
+                    i, j, q.shape[1]):
                 # o is not read with an outside delta; do stands in for it
                 d = dot[:, :, qs]
                 g = bwd(qt[:, :, qs], kt[:, :, ks], vt[:, :, ks], d,
-                        _rows(lse, qs), d, causal=causal, cap=ring.cap,
-                        scale=ring.scale, delta=_rows(delta, qs))
+                        _rows(lse, qs), d, causal=causal, window=window,
+                        cap=ring.cap, scale=ring.scale,
+                        delta=_rows(delta, qs), q_offset=q_offset)
                 qk, kk = (qs.start, qs.stop), (ks.start, ks.stop)
                 dq[qk] = g[0].float() if qk not in dq \
                     else dq[qk] + g[0].float()
@@ -396,14 +394,6 @@ def _attention_bwd(attention, q):
     return attention_bwd
 
 
-def _check_window_grad(window, *ts):
-    """Ring attention under a window has no backward yet: raise where one
-    would be taken, on every rank before any relay."""
-    if window is not None and torch.is_grad_enabled() and any(
-            t.requires_grad for t in ts):
-        raise not_ported("a sliding window in ring attention's backward",
-                         "A3f-2")
-
 
 def ring_attention(q, k, v, *, axis: str, axis_size: int, causal=True,
                    window=None, cap=None, bidirectional=True, scale=None,
@@ -418,8 +408,8 @@ def ring_attention(q, k, v, *, axis: str, axis_size: int, causal=True,
     is one call, and under autograd :class:`_RingAttention` gives the
     backward; without it the reference's online-softmax loop, which
     autograd differentiates through the relays' straight-through backward.
-    A ``window`` masks global positions on both paths; under autograd it
-    raises (A3f-2)."""
+    A ``window`` masks global positions on both paths, forward and
+    backward."""
     r = axis_size
     b, sl, hq, dh = q.shape
     hk = k.shape[2]
@@ -427,7 +417,6 @@ def ring_attention(q, k, v, *, axis: str, axis_size: int, causal=True,
     if r == 1:
         return local_attention(q, k, v, causal=causal, window=window, cap=cap,
                                scale=scale)
-    _check_window_grad(window, q, k, v)
     i = dist.axis_index(axis)
     ring = _Ring(axis, r, causal, cap, bidirectional, scale, wire, dist,
                  attention, window=window)
@@ -486,8 +475,8 @@ def zigzag_ring_attention(q, k, v, *, axis: str, axis_size: int,
     signature) every update is one launch on c x c blocks at its chunks'
     position offset (:meth:`_Ring.launches`: 2R + 1 a rank, fewer where a
     window hides a launch), merged in fp32 by row LSE, and under autograd
-    :class:`_RingAttention` gives the backward (2R + 1 backward launches;
-    under a window it raises, A3f-2).  Without it, the reference's
+    :class:`_RingAttention` gives the backward (a backward launch for each
+    forward launch, at its masks and offset).  Without it, the reference's
     online-softmax loop, which autograd differentiates through the
     relays."""
     r = axis_size
@@ -498,7 +487,6 @@ def zigzag_ring_attention(q, k, v, *, axis: str, axis_size: int,
     if r == 1:
         return local_attention(q, k, v, causal=True, window=window, cap=cap,
                                scale=scale)
-    _check_window_grad(window, q, k, v)
     i = dist.axis_index(axis)
     ring = _Ring(axis, r, True, cap, bidirectional, scale, wire, dist,
                  attention, zigzag=True, window=window)

@@ -777,11 +777,32 @@ def _ring_dist(r=2):
     return Dist(torch.device("cpu"), mesh_shape=(1, r))
 
 
+def _mirror_dist(r=2):
+    """Rank 0 of a ring of ``r`` in one process whose neighbours hold the
+    same block: every relay returns what it was given."""
+    from repro_torch.core.dist import Dist
+
+    class Mirror(Dist):
+        def _ppermute_raw(self, items, axis):
+            return [tuple(t.clone() for t in x) if isinstance(x, tuple)
+                    else x.clone() for x, _ in items]
+
+    return Mirror(torch.device("cpu"), mesh_shape=(1, r))
+
+
+def _grads(fn, *inputs):
+    """fn's output and the gradients of its sum, by autograd."""
+    leaves = [t.clone().requires_grad_(True) for t in inputs]
+    y = fn(*leaves)
+    return (y.detach(), *torch.autograd.grad(y.sum(), leaves))
+
+
 def test_unported_ring_paths_raise(monkeypatch):
-    """What the train ring leaves raises before any collective: a window
-    under zigzag attention's backward (A3f-2), the flash kernel's row LSE
-    under autograd
-    outside ring attention's Functions; sharded checkpoints and a stage's
+    """What the train ring leaves raises before any collective: the flash
+    kernel's row LSE under autograd outside ring attention's Functions
+    (zigzag attention's backward under a window runs: on real ranks in
+    ``tests/test_torch_ring_window_train.py``); sharded checkpoints and a
+    stage's
     submesh go on to join the world (the encoder-decoder, the vision
     prefix, zigzag and ``tatp_outputs`` train on the ring:
     ``tests/test_torch_ring_{encdec,zigzag}.py``; the Mamba-2 block serves
@@ -795,11 +816,12 @@ def test_unported_ring_paths_raise(monkeypatch):
     from repro_torch.models import attention as attn
     from repro_torch.train.train_loop import check_prompt_len
 
-    dist = _ring_dist()
-    x = torch.zeros(1, 4, 2, 8, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="A3f-2"):
-        attn.zigzag_ring_attention(x, x, x, axis="model", axis_size=2,
-                                   window=4, dist=dist)
+    x = torch.randn(1, 4, 2, 8, generator=torch.Generator().manual_seed(0))
+    got = _grads(lambda a, b, c: attn.zigzag_ring_attention(
+        a, b, c, axis="model", axis_size=2, window=4, dist=_mirror_dist()),
+        x, x, x)
+    assert all(g.shape == x.shape and torch.isfinite(g).all()
+               for g in got)
     q = torch.zeros(1, 2, 4, 8, requires_grad=True)
     with pytest.raises(ValueError, match="ring attention's Functions"):
         flash(q, q, q, return_lse=True)
@@ -838,29 +860,38 @@ def test_engine_mode_over_ranks_joins_the_world(monkeypatch):
 
 
 def test_windowed_layer_over_the_ring_raises():
-    """Under autograd: the backward under a window is A3f-2 (the forward
-    runs: ``tests/test_torch_ring_window.py``)."""
+    """Under autograd the backward under a window runs, on the loop and on
+    the hook: on rank 0 of a causal ring of two the later block is
+    invisible, so the output and gradients are the windowed local
+    attention's (against the reference on real ranks:
+    ``tests/test_torch_ring_window_train.py``)."""
     sys.path.insert(0, str(SRC))
+    from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.models import attention as attn
-    q = torch.zeros(1, 4, 2, 8, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="A3f-2"):
-        attn.ring_attention(q, q, q, axis="model", axis_size=2, window=16,
-                            dist=_ring_dist())
+    q = torch.randn(1, 8, 2, 8, generator=torch.Generator().manual_seed(1))
+    want = _grads(lambda a, b, c: attn.local_attention(a, b, c, window=3),
+                  q, q, q)
+    for hook in (None, attention_ref):
+        got = _grads(lambda a, b, c: attn.ring_attention(
+            a, b, c, axis="model", axis_size=2, window=3,
+            dist=_mirror_dist(), attention=hook), q, q, q)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("argv, joins", [
-    (["--arch", "gemma2-9b", "--mesh", "1", "4"], False),
-    (["--arch", "gemma2-9b", "--mesh", "2", "2"], False),
-    (["--arch", "gemma2-9b", "--mesh", "4", "1"], True),
-    (["--arch", "gemma2-9b", "--mesh", "2", "2", "--strategy", "megatron"],
-     True),
-    (["--arch", "deepseek-7b", "--mesh", "1", "4"], True),
+@pytest.mark.parametrize("argv", [
+    ["--arch", "gemma2-9b", "--mesh", "1", "4"],
+    ["--arch", "gemma2-9b", "--mesh", "2", "2"],
+    ["--arch", "gemma2-9b", "--mesh", "4", "1"],
+    ["--arch", "gemma2-9b", "--mesh", "2", "2", "--strategy", "megatron"],
+    ["--arch", "deepseek-7b", "--mesh", "1", "4"],
 ])
 def test_windowed_training_on_the_ring_raises_before_joining(
-        monkeypatch, argv, joins):
-    """``launch.train`` with gemma2-9b's window on the ``tatp`` ring raises
-    A3f-2 before the rank joins the world; at model degree 1, under
-    ``megatron`` (no ring attention) and without a window it joins."""
+        monkeypatch, argv):
+    """``launch.train`` with gemma2-9b's window on the ``tatp`` ring goes
+    on to join the world (it trains there:
+    ``tests/test_torch_ring_window_train.py``), as it does at model degree
+    1, under ``megatron`` and without a window."""
     sys.path.insert(0, str(SRC))
     import repro_torch.launch.train as launch
 
@@ -869,9 +900,7 @@ def test_windowed_training_on_the_ring_raises_before_joining(
 
     monkeypatch.setattr(launch, "join_world", joined)
     monkeypatch.setenv("WORLD_SIZE", "4")
-    want = (RuntimeError, "joined the world") if joins else (
-        NotImplementedError, "A3f-2")
-    with pytest.raises(want[0], match=want[1]):
+    with pytest.raises(RuntimeError, match="joined the world"):
         launch.main(["--reduced", "--device", "cpu", *argv])
 
 

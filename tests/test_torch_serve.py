@@ -181,9 +181,8 @@ def test_unported_paths_name_their_roadmap_item(model):
     all-to-all under ``tatp``, ``megatron``'s linears and its
     cross-entropy of ring-replicated tokens run:
     ``tests/test_torch_ring_moe.py``, ``tests/test_torch_ring_megatron.py``.)
-    What is left to port raises naming its item: ring attention's backward
-    under a sliding window (A3f-2; its forward serves:
-    ``tests/test_torch_ring_window.py``)."""
+    Ring and zigzag attention's backward under a sliding window runs
+    (against the reference: ``tests/test_torch_ring_window_train.py``)."""
     from dataclasses import replace
     cfg, _, _, tctx, _ = model
     moe = replace(cfg, n_experts=8, top_k=2)
@@ -207,12 +206,16 @@ def test_unported_paths_name_their_roadmap_item(model):
     decode = replace(ring, cfg=cfg, phase="decode")
     with pytest.raises(NotImplementedError, match="C5"):
         ttf._linear(decode, torch.zeros(1, 1, 4), torch.zeros(4, 4))
+    # ring and zigzag attention under a window run their backward: on a
+    # ring of two whose other rank holds the same block
     from repro_torch.models import attention as tattn
-    q = torch.zeros(1, 4, 2, 8, requires_grad=True)
+    q = torch.randn(1, 4, 2, 8, generator=torch.Generator().manual_seed(0),
+                    requires_grad=True)
     for fn in (tattn.ring_attention, tattn.zigzag_ring_attention):
-        with pytest.raises(NotImplementedError, match="A3f-2"):
-            fn(q, q, q, axis="model", axis_size=2, window=4,
-               dist=_RingDist(torch.device("cpu")))
+        y = fn(q, q, q, axis="model", axis_size=2, window=4,
+               dist=_MirrorRing(torch.device("cpu")))
+        (g,) = torch.autograd.grad(y.sum(), q)
+        assert g.shape == q.shape and torch.isfinite(g).all()
 
 
 class _RingDist(Dist):
@@ -221,6 +224,18 @@ class _RingDist(Dist):
     @property
     def model_degree(self) -> int:
         return 2
+
+
+class _MirrorRing(Dist):
+    """Rank 0 of a ring of two in one process whose neighbour holds the
+    same block: every relay returns what it was given."""
+
+    def __init__(self, device):
+        super().__init__(device, mesh_shape=(1, 2))
+
+    def _ppermute_raw(self, items, axis):
+        return [tuple(t.clone() for t in x) if isinstance(x, tuple)
+                else x.clone() for x, _ in items]
 
 
 # ---------------------------------------------------------------------------
