@@ -777,23 +777,33 @@ def bound(flops, nbytes, dtype):
 
 
 _FLEX = {}  # flex_attention compiled once a process, and its mask's terms
+# flex_attention's backward against the plain fp32 gradients, relative
+# L2: its bf16 products and its delta from its bf16 output left 0.25-0.28 %
+# on gemma2-9b's ring shapes on the H100 (their largest element errors
+# several times ATTN_TOL's, so it is not held element by element);
+# a mask, offset or window that hid or showed a few percent of the pairs
+# would move the gradients by more
+FLEX_BWD_REL_L2 = 0.02
 
 
-def flex_yardstick(torch, name, q, k, v, kw, o_ref, live=None):
-    """The library yardstick of a soft-capped or offset bf16 flash forward
-    at its arguments ``kw``: ``torch.nn.attention.flex_attention``
-    (compiled, Triton) on contiguous copies of q/k/v with GQA, the cap as
-    its ``score_mod``, the causal and window terms at the query offset as
-    its block mask (built outside the timing), the row LSE returned as
-    the kernel returns it.  Its output is held against the plain one
-    ``o_ref`` (on the ``live`` rows, the ones that see a key, where given)
-    within ATTN_TOL with each row's atol scaled by its RMS, then timed:
-    ``(library_ms, library)``.  The mask's terms are 0-d tensors the one
-    compiled function reads, so a new offset or window compiles nothing;
-    the second shape recompiles it for dynamic shapes, which serve every
-    later one.  Inductor compiles in this process, without its pool of
-    compile workers, whose start took longer on the card's host than the
-    compile itself."""
+def flex_call(torch, q, k, v, kw):
+    """``torch.nn.attention.flex_attention`` (compiled, Triton) at the
+    flash arguments ``kw`` on contiguous copies of q/k/v, leaves that
+    require grad, with GQA, the cap as its ``score_mod``, the causal and
+    window terms at the query offset as its block mask (built here,
+    outside any timing), the row LSE returned as the kernel returns it:
+    ``(call, copies, fold)``.  A batch of B sequences is folded into one
+    of B times the rows, each sequence a document of the block mask, which
+    attends within its own (``fold`` maps a [B, H, S, ...] tensor to that
+    [1, H, B S, ...] layout): the same function and the same blocks of
+    work, at a shape another row shares.  The mask's terms are 0-d tensors
+    the one compiled function reads, so a new offset or window compiles
+    nothing; it is compiled for dynamic shapes and runs under autograd for
+    the forward rows too, so that few compiles serve every row (on the
+    card's host flex's backward compiled anew, ~30 s, at each new shape).
+    Inductor compiles in this process, without its pool of compile
+    workers, whose start took longer on the card's host than the compile
+    itself."""
     import torch._inductor.config as inductor_config
     from torch.nn.attention.flex_attention import (AuxRequest,
                                                    create_block_mask,
@@ -803,43 +813,114 @@ def flex_yardstick(torch, name, q, k, v, kw, o_ref, live=None):
         t = dict(off=torch.zeros((), dtype=torch.int32, device="cuda"),
                  window=torch.zeros((), dtype=torch.int32, device="cuda"),
                  causal=torch.zeros((), dtype=torch.bool, device="cuda"),
-                 cap=torch.ones((), device="cuda"))
+                 cap=torch.ones((), device="cuda"),
+                 sq=torch.ones((), dtype=torch.int32, device="cuda"),
+                 skv=torch.ones((), dtype=torch.int32, device="cuda"))
 
         def mask_mod(b, h, qi, ki):
-            qpos = qi + t["off"]
-            return ((ki <= qpos) | ~t["causal"]) & (qpos - ki < t["window"])
+            qpos, kpos = qi % t["sq"] + t["off"], ki % t["skv"]
+            return ((qi // t["sq"] == ki // t["skv"])
+                    & ((kpos <= qpos) | ~t["causal"])
+                    & (qpos - kpos < t["window"]))
 
         def score_mod(s, b, h, qi, ki):
             return torch.tanh(s / t["cap"]) * t["cap"]
 
         _FLEX.update(terms=t, mask_mod=mask_mod, score_mod=score_mod,
-                     fn=torch.compile(flex_attention))
+                     fn=torch.compile(flex_attention, dynamic=True))
     t, cap = _FLEX["terms"], kw["cap"]
     t["off"].fill_(kw.get("q_offset", 0))
     t["window"].fill_(kw["window"] or 2 ** 30)
     t["causal"].fill_(bool(kw["causal"]))
     t["cap"].fill_(cap or 1.0)
-    mask = create_block_mask(_FLEX["mask_mod"], None, None, q.shape[2],
-                             k.shape[2], device="cuda")
-    qc, kc, vc = (x.contiguous() for x in (q, k, v))
+    t["sq"].fill_(q.shape[2])
+    t["skv"].fill_(k.shape[2])
+
+    def fold(x):
+        return x.transpose(0, 1).reshape(1, x.shape[1], -1, *x.shape[3:])
+
+    copies = tuple(fold(x.detach()).requires_grad_(True) for x in (q, k, v))
+    mask = create_block_mask(_FLEX["mask_mod"], None, None,
+                             copies[0].shape[2], copies[1].shape[2],
+                             device="cuda")
     fkw = dict(score_mod=_FLEX["score_mod"] if cap else None,
                block_mask=mask, enable_gqa=k.shape[1] != q.shape[1],
                return_aux=AuxRequest(lse=True))
 
     def call():
-        return _FLEX["fn"](qc, kc, vc, **fkw)
+        return _FLEX["fn"](*copies, **fkw)
 
+    return call, copies, fold
+
+
+def flex_yardstick(torch, name, q, k, v, kw, o_ref, live=None):
+    """The library yardstick of a soft-capped or offset bf16 flash forward
+    at its arguments ``kw``: :func:`flex_call`'s forward (under autograd,
+    its graph dropped), its output held
+    against the plain one ``o_ref`` (on the ``live`` rows, the ones that
+    see a key, where given) within ATTN_TOL with each row's atol scaled by
+    its RMS, then timed: ``(library_ms, library)``."""
+    call, _, fold = flex_call(torch, q, k, v, kw)
     t0 = time.perf_counter()
-    o, _ = call()
+    o = call()[0].detach()
     torch.cuda.synchronize()
     log(f"  library {name}: flex_attention's first call (with a compile "
         f"at a new shape) {time.perf_counter() - t0:.1f} s")
+    o_ref = fold(o_ref)
     if live is not None:
-        o, o_ref = o[live], o_ref[live]
+        o, o_ref = o[fold(live)], o_ref[fold(live)]
     compare(f"{name} flex_attention", o, o_ref, *ATTN_TOL["bfloat16"],
             rms="row")
     return (time_ms(torch, call, 20),
             "flex_attention (compiled; its block mask built beforehand)")
+
+
+def flex_bwd_yardstick(torch, name, q, k, v, do, kw):
+    """The library yardstick of a soft-capped or offset bf16 flash
+    backward at its arguments ``kw``: :func:`flex_call`'s backward through
+    autograd (its own forward's LSE), its dq, dk and dv held against the
+    plain gradients of the same attention (its own LSE and delta; dq on
+    the rows that see a key) within FLEX_BWD_REL_L2 (relative L2); then
+    timed as SDPA's backward is, its forward and backward less its forward
+    (each under autograd: the compiled graphs free their buffers after one
+    backward): ``(library_ms, library)``.  ``q`` is unscaled: under a q
+    scaled so the cap bites (:func:`cap_scale`) the softmax is nearly
+    one-hot, dS = P (dP - delta) cancels, and flex's delta from its bf16
+    output leaves dQ off by more than its RMS (on the H100: 4.4e-3 at an
+    RMS of ~3e-3), which the kernel's fp32 delta and two-term products
+    avoid; the time does not depend on the values."""
+    from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                         attention_ref)
+
+    o_ref, lse_ref = attention_ref(q, k, v, return_lse=True, **kw)
+    ref = attention_bwd_ref(q, k, v, o_ref, lse_ref, do, **kw)
+    del o_ref
+    call, leaves, fold = flex_call(torch, q, k, v, kw)
+    live = fold(lse_ref > -1e29)
+    ref = tuple(fold(r) for r in ref)
+    dout = fold(do)
+
+    def fwd_bwd():
+        return torch.autograd.grad(call()[0], leaves, dout)
+
+    t0 = time.perf_counter()
+    got = fwd_bwd()
+    torch.cuda.synchronize()
+    log(f"  library {name}: flex_attention's first forward and backward "
+        f"under autograd (with their compiles at a new shape) "
+        f"{time.perf_counter() - t0:.1f} s")
+    errs = {}
+    for part, g, r in zip(("dq", "dk", "dv"), got, ref):
+        if part == "dq":
+            g, r = g[live], r[live]
+        errs[part] = rel_l2(g, r)
+    log(f"  check {name} flex_attention backward: relative L2 "
+        f"{json.dumps(errs)} (limit {FLEX_BWD_REL_L2})")
+    need(max(errs.values()) <= FLEX_BWD_REL_L2,
+         f"{name}: flex_attention's backward disagrees with the plain one")
+    return (time_ms(torch, fwd_bwd, 20) - time_ms(torch, call, 20),
+            "flex_attention's backward (compiled, under autograd, less its "
+            "forward; its block mask built beforehand)")
 
 
 def flash_bwd_bytes(b, hq, hkv, sq, skv, d):
@@ -1727,7 +1808,7 @@ def phase_flash_backward(torch, randn):
         design="two launches (dQ, whose first sweep forms delta, then "
                "dK/dV); wgmma at D 256 (dK/dV on two warpgroups) and at D "
                "80 and 128 with aligned rows, mma.sync otherwise",
-        source="src/repro_torch/csrc/flash_attention.cu",
+        source="src/repro_torch/csrc/flash_attention_bwd.cu",
         replaces="none: the Pallas kernel "
                  "src/repro/kernels/flash_attention/kernel.py:26 has no "
                  "backward (JAX differentiates its jnp path)",
@@ -1746,8 +1827,8 @@ def phase_flash_backward(torch, randn):
 # part, layer kind) of one prefill attention call (:func:`attention_shape`
 # at the serve path's batch and prompt, the encoder's frames), and of the
 # backward at one train attention call: at D 256 (gemma2's the windowed,
-# soft-capped slot: its forward against flex_attention, its backward with
-# no library yardstick) and seamless's three at D 64 (on mma.sync)
+# soft-capped slot: its forward and its backward against flex_attention)
+# and seamless's three at D 64 (on mma.sync)
 FLASH_ARCH_ROWS = (("gemma2-9b", "dec", "L"), ("gemma-7b", "dec", "G"),
                    ("seamless-m4t-large-v2", "enc", "G"),
                    ("seamless-m4t-large-v2", "cross", "X"))
@@ -1766,9 +1847,9 @@ def phase_flash_arch_rows(torch, randn):
     prompt's queries to the frames (against SDPA), and the backward on
     ``mma`` at D 256: gemma-7b's train shape (against SDPA's backward) and
     gemma2-9b's windowed, soft-capped one (q scaled by
-    :func:`cap_scale`), where two launches must give bitwise equal
-    gradients, and at D 64: seamless's encoder, decoder and cross
-    attention (against SDPA's backward).  Each asserts its path and is timed beside its bound over
+    :func:`cap_scale`; against :func:`flex_bwd_yardstick`), where two
+    launches must give bitwise equal gradients, and at D 64: seamless's
+    encoder, decoder and cross attention (against SDPA's backward).  Each asserts its path and is timed beside its bound over
     the pairs its masks leave (:func:`attn_pairs`);
     :func:`phase_path_shapes` checks every one of these shapes against the
     plain version.  Returns (forward rows, backward rows)."""
@@ -1864,7 +1945,7 @@ def phase_flash_arch_rows(torch, randn):
             plain_ms=(time_ms(torch, ref_fwd_bwd, 3, 1)
                       - time_ms(torch, lambda: attention_ref(q, k, v, **kw),
                                 3, 1)),
-            library_ms=None, library="none: SDPA takes no soft-cap")
+            library_ms=None)
         if cap is None and window is None and hkv == h:
             qc, kc, vc = (t.contiguous() for t in (q, k, v))
 
@@ -1879,7 +1960,10 @@ def phase_flash_arch_rows(torch, randn):
                 time_ms(torch, sdpa_fwd_bwd, 10)
                 - time_ms(torch, lambda: F.scaled_dot_product_attention(
                     qc, kc, vc, is_causal=causal), 10))
-            bwd["library_ratio"] = bwd["ms"] / bwd["library_ms"]
+        else:  # SDPA takes no soft-cap
+            bwd["library_ms"], bwd["library"] = flex_bwd_yardstick(
+                torch, name, layout(b, h, sq, d), k, v, do, kw)
+        bwd["library_ratio"] = bwd["ms"] / bwd["library_ms"]
         # five products over the attended pairs, and the bytes of
         # flash_bwd_bytes
         pairs = b * h * attn_pairs(sq, skv, causal, window)
@@ -5921,9 +6005,9 @@ RING_REMAT = dict(arch="deepseek-7b", layers=TRAIN["n_layers"],
                   batch=TRAIN["batch"], seq=TRAIN["seq"], mesh=(1, 4),
                   seed=0)
 # (policy, record): full remat first (its call holds the set-up), then
-# tatp_outputs, then full remat again, timed
-REMAT_RUNS = (("full", "full_first"), ("tatp_outputs", "tatp_outputs"),
-              ("full", "full"))
+# tatp_outputs (a third run, full remat again and timed warm, was cut when
+# phase 13's part (e) needed the time)
+REMAT_RUNS = (("full", "full_first"), ("tatp_outputs", "tatp_outputs"))
 # (c) zigzag: fp32 at full width, 2 layers, batch 4 x seq 128, the zigzag
 # loss on zigzag_permutation-ed data against the contiguous loss; then one
 # bf16 step of (b)'s model, 2R + 1 flash launches a layer each way
@@ -5937,6 +6021,17 @@ RING_FRONTENDS = (("internvl2-1b", 2, 2, 512),
                   ("seamless-m4t-large-v2", 2, 2, 512))
 RING_FRONTEND_TOL = 1e-5
 RING_FRONTEND_SEED = 4
+# (e) gemma2-9b's sliding-window L slots trained over the ring at (1, 4)
+# on 1 x 8192 tokens at full width: (i) fp32 ring and zigzag attention at
+# an L slot's shape on the hook against degree 1's attention under
+# autograd; (ii) launch.train --mesh 1 4 --layers 4, bf16, remat, one step,
+# its loss against the degree-1 loss of the same weights and batch; (iii)
+# the same step with zigzag on the permuted batch, its loss against (ii)'s
+RING_WINDOW_TRAIN = dict(arch="gemma2-9b", layers=4, batch=1, seq=8192,
+                         steps=1, mesh=(1, 4), seed=0)
+# the backward's offset sweep: WINDOW_SWEEP's shapes at these head dims
+# (mma.sync at 64, wgmma at 128 and 256 in bf16; simt in fp32)
+WINDOW_BWD_DIMS = (64, 128, 256)
 
 
 def zigzag_rows(torch, randn):
@@ -6022,6 +6117,164 @@ def zigzag_rows(torch, randn):
     return rows
 
 
+def seen_by(sq, skv, causal, window, q_offset, device):
+    """The masks' visible pairs of one launch as a [sq, skv] bool (query
+    row r at r + ``q_offset``, key c at c)."""
+    import torch
+    qpos = q_offset + torch.arange(sq, device=device)[:, None]
+    kpos = torch.arange(skv, device=device)[None, :]
+    ok = torch.ones(sq, skv, dtype=torch.bool, device=device)
+    if causal:
+        ok &= kpos <= qpos
+    if window:
+        ok &= qpos - kpos < window
+    return ok
+
+
+def offset_backward(torch, q, k, v, do, kw):
+    """One ring round's backward call as ``_RingAttention`` makes it, at
+    the flash arguments ``kw`` (its query offset among them), on the
+    forward kernel's output and row LSE (a row that sees no key takes LSE
+    0: a ring round's LSE is its whole row's, never -1e30) with delta =
+    rowsum(dO O) from outside: ``(kernel call, plain call)``."""
+    from repro_torch.kernels.flash_attention.ops import (attention,
+                                                         attention_bwd)
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+
+    with torch.no_grad():
+        o, lse = attention(q, k, v, return_lse=True, **kw)
+    lse = torch.where(lse <= -1e29, torch.zeros_like(lse), lse)
+    args = (q, k, v, o, lse, do)
+    kw = dict(kw, delta=(do.float() * o.float()).sum(-1).contiguous())
+    return (lambda: attention_bwd(*args, **kw),
+            lambda: attention_bwd_ref(*args, **kw))
+
+
+def window_bwd_sweep(torch, randn):
+    """The backward kernels at query offsets with an outside delta, as
+    ring attention's rounds call them (WINDOW_SWEEP's shapes, offsets and
+    masks at D 64, 128 and 256), on every variant: ``simt`` (fp32),
+    ``mma.sync`` (bf16, D 64) and ``wgmma`` (bf16, D 128 and 256), each
+    against the plain version with the same LSE and delta within ATTN_TOL;
+    the rows that see no key get dQ exactly 0, the keys no row sees dK and
+    dV exactly 0.  Returns the largest error by path."""
+    from repro_torch.kernels.flash_attention.ops import attention_bwd
+
+    w = WINDOW_SWEEP
+    errs, zero_rows, zero_keys, checks = {}, 0, 0, 0
+    for dtype, path in ((torch.float32, "simt"), (torch.bfloat16, "mma")):
+        rtol, atol = ATTN_TOL[str(dtype).split(".")[-1]]
+        err = 0.0
+        for d in WINDOW_BWD_DIMS:
+            q, do = (randn(w["batch"], w["heads"], w["sq"], d, dtype=dtype)
+                     for _ in range(2))
+            k, v = (randn(w["batch"], w["kv_heads"], w["skv"], d,
+                          dtype=dtype) for _ in range(2))
+            for off in w["offsets"]:
+                for causal, window in w["masks"]:
+                    kw = dict(causal=causal, window=window, cap=w["cap"],
+                              q_offset=off)
+                    what = (f"backward offset sweep {path} D {d} offset "
+                            f"{off} causal {causal} window {window}")
+                    run, plain = offset_backward(torch, q, k, v, do, kw)
+                    before = attention_bwd.launches_by_path[path]
+                    got, ref = run(), plain()
+                    torch.cuda.synchronize()
+                    need(attention_bwd.launches_by_path[path] == before + 1,
+                         f"{what}: not one {path} launch")
+                    seen = seen_by(w["sq"], w["skv"], causal, window, off,
+                                   q.device)
+                    rows, keys = ~seen.any(1), ~seen.any(0)
+                    need(not got[0][:, :, rows].any(),
+                         f"{what}: dQ of a row with no key is not 0")
+                    need(not got[1][:, :, keys].any()
+                         and not got[2][:, :, keys].any(),
+                         f"{what}: dK/dV of a key no row sees is not 0")
+                    err = max([err] + [compare(f"{what} {part}", g, r, rtol,
+                                               atol)
+                                       for part, g, r in zip(
+                                           ("dq", "dk", "dv"), got, ref)])
+                    zero_rows += int(rows.sum())
+                    zero_keys += int(keys.sum())
+                    checks += 1
+        errs[path] = err
+    log(f"[window train] backward offset sweep, {checks} launches "
+        f"({w['sq']} queries x {w['skv']} keys, D {list(WINDOW_BWD_DIMS)}, "
+        f"offsets {list(w['offsets'])}): max_abs_err {json.dumps(errs)}; "
+        f"{zero_rows} rows with no key and {zero_keys} keys no row sees, "
+        f"each exactly 0")
+    return errs
+
+
+def window_bwd_rows(torch, randn):
+    """gemma2-9b's distinct ring backward launches (:func:`window_launches`
+    at (1, 4) on RING_WINDOW_TRAIN's 8192 tokens), bf16 (``wgmma`` at D
+    256), in the model's ``[B, S, H, D]`` layout viewed as ``[B, H, S,
+    D]``, q scaled by :func:`cap_scale` so the cap bites, each as
+    :func:`offset_backward` calls it: against the plain version (atol
+    scaled by the gradient's RMS, as phase 4 holds a capped backward), the
+    rows that see no key and the keys no row sees exactly 0; each timed
+    beside its bound over the visible pairs (:func:`attn_pairs` at the
+    offset), its plain version and :func:`flex_bwd_yardstick` (SDPA takes
+    no soft-cap)."""
+    from repro_torch.kernels.flash_attention.ops import attention_bwd
+
+    spec = RING_WINDOW_TRAIN
+    cfg = window_cfg(2)
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    cap = cfg.attn_softcap
+    bf = torch.bfloat16
+    rows = []
+    for (zigzag, sq, sk, causal, off, window), n in window_launches(
+            cfg, spec["mesh"][1], spec["seq"]).items():
+        q, do = (randn(1, sq, hq, d, dtype=bf, scale=s).transpose(1, 2)
+                 for s in (cap_scale(cap), 1.0))
+        k, v = (randn(1, sk, hkv, d, dtype=bf).transpose(1, 2)
+                for _ in range(2))
+        kw = dict(causal=causal, window=window, cap=cap, q_offset=off)
+        mask = "causal" if causal else "window" if window else "unmasked"
+        name = (f"gemma2-9b ring backward "
+                f"{'zigzag c x c' if zigzag else 'round'} [1,{hq},{sq},{d}] "
+                f"{mask} offset {off}")
+        run, plain = offset_backward(torch, q, k, v, do, kw)
+        before = attention_bwd.launches_by_path["mma"]
+        got, ref = run(), plain()
+        torch.cuda.synchronize()
+        need(attention_bwd.launches_by_path["mma"] == before + 1,
+             f"{name}: did not take mma")
+        seen = seen_by(sq, sk, causal, window, off, q.device)
+        rows_out, keys_out = ~seen.any(1), ~seen.any(0)
+        need(not got[0][:, :, rows_out].any()
+             and not got[1][:, :, keys_out].any()
+             and not got[2][:, :, keys_out].any(),
+             f"{name}: a gradient no pair reaches is not 0")
+        err = max(compare(f"{name} {part}", g, r, *ATTN_TOL["bfloat16"],
+                          rms="tensor")
+                  for part, g, r in zip(("dq", "dk", "dv"), got, ref))
+        del got, ref
+        pairs = hq * attn_pairs(sq, sk, causal, window, off)
+        row = dict(name=name, shape=[1, hq, sq, d], kv_heads=hkv, skv=sk,
+                   q_offset=off, causal=causal, window=window, cap=cap,
+                   path="mma", launches_a_layer=n, max_abs_err=err,
+                   rows_with_no_key=int(rows_out.sum()),
+                   keys_no_row_sees=int(keys_out.sum()),
+                   visible_pairs=pairs, ms=time_ms(torch, run, 20),
+                   plain_ms=time_ms(torch, plain, 3, 1))
+        row["library_ms"], row["library"] = flex_bwd_yardstick(
+            torch, name, randn(1, sq, hq, d, dtype=bf).transpose(1, 2), k, v,
+            do, kw)
+        row["library_ratio"] = row["ms"] / row["library_ms"]
+        # five products over the visible pairs; the bytes of
+        # flash_bwd_bytes and the outside delta read
+        row["bound_ms"], row["bound_by"] = bound(
+            10 * pairs * d, flash_bwd_bytes(1, hq, hkv, sq, sk, d)
+            + 4 * hq * sq, "bfloat16")
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        log(f"  timing {name}: {json.dumps(row)} ({CARD['smi']})")
+        rows.append(row)
+    return rows
+
+
 def frontend_degree1(torch):
     """RING_FRONTENDS' degree-1 fp32 steps on the card: each model's first
     loss from ``init_params`` of RING_FRONTEND_SEED, the step's batch from
@@ -6048,6 +6301,113 @@ def frontend_degree1(torch):
         del params, state, batch
         release(torch)
     return out
+
+
+def window_train_degree1(torch):
+    """(e)(ii)'s degree-1 loss: RING_WINDOW_TRAIN's model and first batch
+    at degree 1 on the card, forward only (a step's loss is that of its
+    parameters before the update), on the weights ``init_params`` draws
+    from the launch's seed, which the ranks draw shard by shard."""
+    from repro_torch.configs.base import ParallelConfig, ShapeConfig
+    from repro_torch.core.dist import Dist
+    from repro_torch.models import lm
+    from repro_torch.models.transformer import RunCtx, init_params
+    from repro_torch.train.data import SyntheticDataset
+
+    spec = RING_WINDOW_TRAIN
+    dev = torch.device("cuda")
+    cfg, dist = window_cfg(spec["layers"]), Dist(dev)
+    shape = ShapeConfig("ring", "train", spec["seq"], spec["batch"])
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(
+        spec["seed"]), dev)
+    ctx = RunCtx(cfg, ParallelConfig(strategy="tatp", remat=True), dist,
+                 phase="train")
+    with torch.no_grad():
+        nll, cnt, _ = lm.loss_fn(ctx, params, SyntheticDataset(
+            cfg, shape, dist).batch(0))
+    loss = float(nll / cnt)
+    del params
+    release(torch)
+    return loss
+
+
+def check_window_train(recs, degree1_loss, runs):
+    """(e)'s checks on the ranks' records: (i) every rank's output and
+    gradients within GRAD_REL_TOL (relative L2) of degree 1's, and its
+    hook's forward and backward launches those of
+    :func:`window_round_launches`, all on ``simt``; (ii) and (iii) exact
+    launches (:func:`window_train_launches`: kernels, GEMM layouts, paths,
+    the flash backwards with an outside delta), (ii)'s loss within
+    RING_TRAIN_BF16_TOL of degree 1's and (iii)'s of (ii)'s, every rank's
+    the same.  Adds each rank's two steps to ``runs``; returns the checks,
+    the per-rank summary and the flash backwards with an outside delta."""
+    spec = RING_WINDOW_TRAIN
+    r, tokens = spec["mesh"][1], spec["seq"]
+    cfg, acfg = window_cfg(spec["layers"]), window_cfg(2)
+    checks, per_rank, delta_in = [], [], 0
+    first = recs[0]["window_train"]["contiguous"]["losses"][0]
+    for rec in recs:
+        w, g = rec["window_train"], rec["rank"]
+        i = w["attention"]["coords"][1]
+        for kind in ("contiguous", "zigzag"):
+            a = w["attention"][kind]
+            n = window_round_launches(acfg, r, i, tokens // r,
+                                      kind == "zigzag", acfg.sliding_window)
+            checks += [
+                (max(a["rel_l2"].values()) <= GRAD_REL_TOL,
+                 f"rank {g}: fp32 windowed {kind} ring attention against "
+                 f"degree 1: {a['rel_l2']} > {GRAD_REL_TOL}"),
+                (a["launches"] == a["simt"] == [n, n],
+                 f"rank {g}: {kind} ring attention launches {a['launches']}"
+                 f" (simt {a['simt']}), want {n} forward and backward")]
+        for kind, zigzag in (("contiguous", False), ("zigzag", True)):
+            b = w[kind]
+            want, want_lay, want_delta = window_train_launches(
+                cfg, r, i, tokens, zigzag)
+            loss = b["losses"][0] if kind == "contiguous" else b["loss"]
+            base = degree1_loss if kind == "contiguous" else first
+            rel = abs(loss - base) / abs(base)
+            checks += [
+                (b["launches"] == want,
+                 f"rank {g}: gemma2-9b {kind} step launches {b['launches']},"
+                 f" want {want}"),
+                (b["layouts"] == want_lay,
+                 f"rank {g}: gemma2-9b {kind} GEMM layouts {b['layouts']}"),
+                (b["delta_in_launches"] == want_delta,
+                 f"rank {g}: gemma2-9b {kind} {b['delta_in_launches']} flash"
+                 f" backwards with an outside delta, want {want_delta}"),
+                (math.isfinite(loss) and rel <= RING_TRAIN_BF16_TOL,
+                 f"rank {g}: gemma2-9b {kind} loss {loss} vs {base}: "
+                 f"{rel:.3e} > {RING_TRAIN_BF16_TOL}"),
+                (abs(loss - (first if kind == "contiguous" else
+                             recs[0]["window_train"]["zigzag"]["loss"]))
+                 <= 1e-6 * abs(loss),
+                 f"rank {g}'s {kind} loss differs from rank 0's")]
+            checks += [(b["launches_by_path"][name][path] == want[name],
+                        f"rank {g}: gemma2-9b {kind} {name} by path "
+                        f"{b['launches_by_path'][name]}")
+                       for name, path in MAIN_PATH_KERNEL.items()]
+            runs[f"gemma2-9b ring {kind} train step {tuple(spec['mesh'])} "
+                 f"rank {g}"] = (b["launches"], b["layouts"],
+                                 {k: dict(v) for k, v in
+                                  b["launches_by_path"].items()})
+            delta_in += b["delta_in_launches"]
+        per_rank.append(dict(
+            coords=w["attention"]["coords"],
+            attention_rel_l2={k: w["attention"][k]["rel_l2"]
+                              for k in ("contiguous", "zigzag")},
+            losses=[w["contiguous"]["losses"][0], w["zigzag"]["loss"]],
+            step_ms=[w["contiguous"]["step_ms"][0], w["zigzag"]["step_ms"]],
+            staged_gb=[w["contiguous"]["transport_gb"],
+                       w["zigzag"]["staged_gb"]],
+            staged_share=w["contiguous"]["staged_share"],
+            peak_gb=[w["contiguous"]["peak_gb"], w["zigzag"]["peak_gb"]],
+            flash=[w["contiguous"]["launches"]["flash_attention"],
+                   w["contiguous"]["launches"]["flash_attention_bwd"],
+                   w["zigzag"]["launches"]["flash_attention"],
+                   w["zigzag"]["launches"]["flash_attention_bwd"]],
+            wall_s=[w["attention_s"], w["contiguous_s"], w["zigzag_s"]]))
+    return checks, per_rank, delta_in
 
 
 def ring_restart(torch, out_dir, rank):
@@ -6167,8 +6527,7 @@ def ring_remat(torch, rank, spec=None):
     batch = SyntheticDataset(cfg, shape, dist, seed=spec["seed"],
                              strategy=strategy).batch(0)
     rec, first = dict(coords=list(dist.coords)), None
-    # full remat twice: its first call holds the rank's set-up, so the
-    # second is the one timed against tatp_outputs
+    # full remat first: its call also holds the rank's set-up
     for pol, key in REMAT_RUNS:
         par = ParallelConfig(strategy=strategy, remat=True,
                              remat_policy=pol)
@@ -6308,9 +6667,172 @@ def ring_frontends(torch):
     return out
 
 
+def window_round_launches(cfg, r, i, s_loc, zigzag, window):
+    """Rank ``i``'s flash launches in one causal attention call of a ring
+    of ``r`` over ``s_loc`` positions a rank under ``window`` (None for a
+    ``G`` slot), as :meth:`_Ring.launches` makes them, summed over its
+    rounds: the forward's, and its backward's one for each."""
+    from repro_torch.models.attention import _Ring
+
+    ring = _Ring("model", r, True, cfg.attn_softcap, False, None, None,
+                 None, None, zigzag=zigzag, window=window)
+    return sum(len(ring.launches(i, j, s_loc)) for j in range(r))
+
+
+def window_train_launches(cfg, r, i, tokens, zigzag, remat=True):
+    """:func:`ring_train_launches` for a model with sliding-window ``L``
+    slots over ``tokens`` positions, contiguous or zigzag: each attention
+    block's flash launches from :func:`window_round_launches` (its
+    forward's, again under remat, and one backward a launch, each with an
+    outside delta) in place of the ``i + 1`` visible rounds.  Same
+    returns."""
+    n, lay, _ = ring_train_launches(cfg, r, i, remat)
+    per = sum(window_round_launches(
+        cfg, r, i, tokens // r, zigzag,
+        cfg.sliding_window if kind == "L" else None)
+        for _, kind in model_blocks(cfg) if kind != "M")
+    n = dict(n, flash_attention=per * (2 if remat else 1),
+             flash_attention_bwd=per)
+    return n, lay, per
+
+
+def window_ring_attention(torch):
+    """(e)(i) on this rank: fp32 ``ring_attention`` and
+    ``zigzag_ring_attention`` at gemma2-9b's ``L`` slot (window 4096, cap
+    50, 16 heads over 8 K/V heads of 256) on the hook (the flash kernel's
+    ``simt`` path), this rank's 2048 of RING_WINDOW_TRAIN's 8192
+    positions, under autograd; and degree 1's ``attention`` under autograd
+    on the same whole inputs (every rank draws them from one seed): the
+    output and dq/dk/dv at this rank's positions, their relative L2 to
+    degree 1's, and the hook's forward and backward launches."""
+    from repro_torch.core.dist import make_mesh_dist
+    from repro_torch.kernels.flash_attention.ops import (attention,
+                                                         attention_bwd)
+    from repro_torch.models.attention import (ring_attention,
+                                              zigzag_local_positions,
+                                              zigzag_ring_attention)
+
+    spec = RING_WINDOW_TRAIN
+    cfg = window_cfg(2)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    dist = make_mesh_dist(spec["mesh"], dev)
+    r, s = spec["mesh"][1], spec["seq"]
+    s_loc, i = s // r, dist.axis_index("model")
+    g = torch.Generator(device=dev).manual_seed(spec["seed"])
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v, do = (torch.randn(1, s, h, d, generator=g, device=dev)
+                   for h in (hq, hkv, hkv, hq))
+    kw = dict(causal=True, window=cfg.sliding_window, cap=cfg.attn_softcap)
+
+    def grads(fn, *ins, ct):
+        leaves = [t.detach().clone().requires_grad_(True) for t in ins]
+        y = fn(*leaves)
+        return (y.detach(), *torch.autograd.grad(y, leaves, ct))
+
+    whole = grads(lambda a, b, c: attention(
+        a.transpose(1, 2), b.transpose(1, 2), c.transpose(1, 2),
+        **kw).transpose(1, 2), q, k, v, ct=do)
+    out = {}
+    for kind, fn in (("contiguous", ring_attention),
+                     ("zigzag", zigzag_ring_attention)):
+        pos = (zigzag_local_positions("model", r, s_loc, dist, dev)
+               if kind == "zigzag" else torch.arange(i * s_loc,
+                                                     (i + 1) * s_loc,
+                                                     device=dev))
+        part = [t.index_select(1, pos) for t in (q, k, v, do)]
+        ring_kw = dict(window=kw["window"], cap=kw["cap"])
+        if kind == "contiguous":
+            ring_kw["causal"] = True
+        zero_launches()
+        got = grads(lambda a, b, c: fn(
+            a, b, c, axis="model", axis_size=r, dist=dist,
+            attention=attention, **ring_kw), *part[:3], ct=part[3])
+        torch.cuda.synchronize()
+        out[kind] = dict(
+            rel_l2={n: rel_l2(x, w.index_select(1, pos))
+                    for n, x, w in zip(("o", "dq", "dk", "dv"), got, whole)},
+            launches=[attention.launches, attention_bwd.launches],
+            simt=[attention.launches_by_path["simt"],
+                  attention_bwd.launches_by_path["simt"]])
+        del got, part
+    del whole
+    return dict(coords=list(dist.coords), **out)
+
+
+def window_zigzag_step(torch, rank):
+    """(e)(iii) on this rank: (ii)'s step (``launch.train``'s model,
+    seed, batch and remat) with zigzag, on its batch permuted by
+    ``zigzag_permutation``, through ``make_train_step``: its loss, the
+    launches by kernel, layout and path from zero, the flash backwards
+    with an outside delta, the step's ms, the GB this rank staged and its
+    peak GB."""
+    import numpy as np
+
+    from repro_torch.configs.base import ParallelConfig, ShapeConfig
+    from repro_torch.core.dist import make_mesh_dist
+    from repro_torch.kernels.flash_attention.ops import attention_bwd
+    from repro_torch.models.attention import zigzag_permutation
+    from repro_torch.train.data import SyntheticDataset
+    from repro_torch.train.train_loop import make_train_step, shard_batch
+
+    spec = RING_WINDOW_TRAIN
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = window_cfg(spec["layers"])
+    dist = make_mesh_dist(spec["mesh"], dev)
+    shape = ShapeConfig("ring", "train", spec["seq"], spec["batch"])
+    tb = make_train_step(cfg, ParallelConfig(strategy="tatp", remat=True,
+                                             zigzag=True), dist, shape)
+    params, state = tb.init_fn(torch.Generator(device=dev).manual_seed(
+        spec["seed"]))
+    host = SyntheticDataset(cfg, shape, dist)._host_batch(0)
+    perm = zigzag_permutation(spec["mesh"][1], spec["seq"])
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(
+                 dev, dtype=torch.int64)
+             for k, v in shard_batch(cfg, {k: v[:, perm]
+                                           for k, v in host.items()},
+                                     dist).items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sent = dist.stage.bytes
+    zero_launches()
+    t0 = time.perf_counter()
+    params, state, m = tb.step_fn(params, state, batch)
+    loss = float(m["loss"])
+    step_ms = (time.perf_counter() - t0) * 1e3
+    need(step_ms <= RING_TRAIN["step_s"] * 1e3,
+         f"rank {rank}: the zigzag step took {step_ms:.0f} ms")
+    rec = dict(coords=list(dist.coords), loss=loss, step_ms=step_ms,
+               launches=read_launches(), layouts=read_layouts(),
+               launches_by_path=read_paths(),
+               delta_in_launches=attention_bwd.launches_delta_in,
+               staged_gb=(dist.stage.bytes - sent) / 1e9,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del params, state, m, tb
+    release(torch)
+    return rec
+
+
+def ring_window_train(torch, rank):
+    """(e) on this rank: (i) :func:`window_ring_attention`, (ii)
+    RING_WINDOW_TRAIN's step through ``launch.train`` (:func:`ring_train_
+    bf16`), (iii) :func:`window_zigzag_step`, each with its wall clock."""
+    rec, t0 = {}, time.perf_counter()
+    rec["attention"] = window_ring_attention(torch)
+    release(torch)
+    rec["attention_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rec["contiguous"] = ring_train_bf16(torch, rank, RING_WINDOW_TRAIN)
+    release(torch)
+    rec["contiguous_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rec["zigzag"] = window_zigzag_step(torch, rank)
+    rec["zigzag_s"] = time.perf_counter() - t0
+    return rec
+
+
 def ring_more_rank_main(out_dir) -> int:
     """One rank of phase 13, started by ``torch.distributed.run``: (a) to
-    (d), each part's wall clock, its record to ``rank<rank>.json``."""
+    (e), each part's wall clock, its record to ``rank<rank>.json``."""
     sys.path.insert(0, str(SRC))
     import torch
     import torch.distributed as tdist
@@ -6338,6 +6860,9 @@ def ring_more_rank_main(out_dir) -> int:
         t0 = time.perf_counter()
         rec["frontends"] = ring_frontends(torch)
         laps["frontends"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rec["window_train"] = ring_window_train(torch, rank)
+        laps["window_train"] = time.perf_counter() - t0
         rec["laps"] = laps
         (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(rec))
     finally:
@@ -6379,11 +6904,13 @@ def check_ring_restart(recs):
 
 def phase_ring_more(torch, randn):
     """Phase 13: the rest of the train ring on four ranks sharing the card
-    (gloo): the zigzag launch's rows and the frontends' degree-1 losses in
-    this process, then ``torch.distributed.run`` of this script's
-    ``--ring-more-rank`` (a) to (d).  Returns the zigzag rows and the bf16
-    runs' launches (by kernel, layout and path) for the kernels line, and
-    the flash backwards with an outside delta they launched."""
+    (gloo): the zigzag launch's rows, the backward kernels at query
+    offsets (:func:`window_bwd_sweep`, :func:`window_bwd_rows`) and the
+    degree-1 losses in this process, then ``torch.distributed.run`` of this
+    script's ``--ring-more-rank`` (a) to (e).  Returns the zigzag rows, the
+    bf16 runs' launches (by kernel, layout and path) for the kernels line,
+    the flash backwards with an outside delta they launched, and the
+    backward's offset rows (the sweep's errors and the timed launches)."""
     import os
     import tempfile
     from dataclasses import replace
@@ -6393,7 +6920,14 @@ def phase_ring_more(torch, randn):
     t_phase = time.perf_counter()
     rows = zigzag_rows(torch, randn)
     t0 = time.perf_counter()
+    log("[window train] the backward kernels at query offsets")
+    window = dict(sweep=window_bwd_sweep(torch, randn),
+                  rows=window_bwd_rows(torch, randn))
+    release(torch)
+    rows_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
     degree1 = frontend_degree1(torch)
+    window_loss = window_train_degree1(torch)
     degree1_s = time.perf_counter() - t0
     r = RING_MORE["ranks"]
     shm = "/dev/shm" if os.path.isdir("/dev/shm") else None
@@ -6511,14 +7045,28 @@ def phase_ring_more(torch, randn):
                            f"rank {rec['rank']}: {arch} ring loss "
                            f"{got['loss']} vs degree 1 {degree1[arch]}: "
                            f"{rel:.2e} > {RING_FRONTEND_TOL}"))
+    log(f"[ring frontends] fp32 one step at (1, 4) against degree 1 "
+        f"{json.dumps(degree1)}: {json.dumps(fronts)}")
+
+    # (e) gemma2-9b's windowed layers trained over the ring
+    more, per_rank, more_delta = check_window_train(recs, window_loss, runs)
+    checks += more
+    delta_in += more_delta
+    spec = RING_WINDOW_TRAIN
+    log(f"[window train] gemma2-9b {spec['layers']} layers bf16 batch "
+        f"{spec['batch']} x seq {spec['seq']} mesh {spec['mesh']}, remat: "
+        f"degree-1 loss {window_loss}; per rank {json.dumps(per_rank)} "
+        f"({CARD['smi']})")
     summary = dict(ranks_wall_s=ranks_s, degree1_s=degree1_s,
+                   window_rows_s=rows_s,
+                   window_train_s=max(rec["laps"]["window_train"]
+                                      for rec in recs),
                    laps=[rec["laps"] for rec in recs],
                    phase_s=time.perf_counter() - t_phase)
-    log(f"[ring frontends] fp32 one step at (1, 4) against degree 1 "
-        f"{json.dumps(degree1)}: {json.dumps(fronts)}; {json.dumps(summary)}")
+    log(f"[ring more] phase 13: {json.dumps(summary)}")
     for ok, msg in checks:
         need(ok, msg)
-    return rows, runs, delta_in
+    return rows, runs, delta_in, window
 
 
 # ---------------------------------------------------------------------------
@@ -7153,7 +7701,7 @@ def phase_ssm_ring(torch, randn):
                    per_rank=remat)
     log(f"[ssm ring train] {spec['arch']} {spec['layers']} layers bf16 batch "
         f"{spec['batch']} x seq {spec['seq']} mesh {spec['mesh']}, full remat "
-        f"then tatp_outputs then full remat: {json.dumps(summary)}")
+        f"then tatp_outputs: {json.dumps(summary)}")
     log(f"[ssm ring] degree1_s {degree1_s:.1f} ranks_wall_s {ranks_s:.1f} "
         f"laps {json.dumps([rec['laps'] for rec in recs])} phase_s "
         f"{time.perf_counter() - t_phase:.1f}")
@@ -7910,7 +8458,7 @@ def phase_other(torch, randn, degree1, train_outs):
             for _, key in REMAT_RUNS})
     log(f"[other] deepseek-7b {spec['layers']} layers bf16 megatron step, "
         f"batch {spec['batch']} x seq {spec['seq']}, mesh (1, {r}), full "
-        f"remat then tatp_outputs then full remat (degree 1's first loss "
+        f"remat then tatp_outputs (degree 1's first loss "
         f"{train_outs[spec['arch']]['losses'][0]}): {json.dumps(remat)}")
 
     # (c) int8 gradient compression against degree 1's uncompressed losses
@@ -8012,7 +8560,8 @@ def main() -> int:
         torch, randn, train_outs[RING_TRAIN_BF16["arch"]]["losses"][0])
     trains.update(ring_trains)
     lap("train ring")
-    zigzag, more_trains, more_delta_in = phase_ring_more(torch, randn)
+    zigzag, more_trains, more_delta_in, window_bwd = phase_ring_more(
+        torch, randn)
     trains.update(more_trains)
     lap("train ring, the rest")
     ssm_rows, ssm_gemms, ssm_runs, ssm_trains = phase_ssm_ring(torch, randn)
@@ -8091,14 +8640,17 @@ def main() -> int:
                "(delta_in): the dQ kernel skips its delta sweep; one pair "
                "a visible ring round, with the ring's global row LSE and "
                "delta = rowsum(dO O) of its merged fp32 output",
-        source="src/repro_torch/csrc/flash_attention.cu",
+        source="src/repro_torch/csrc/flash_attention_bwd.cu",
         replaces="none: the Pallas kernel "
                  "src/repro/kernels/flash_attention/kernel.py:26 has no "
                  "backward (JAX differentiates ring attention's jnp loop)",
         launches=delta_in + more_delta_in,
         max_abs_err=max(f["max_abs_err"] for f in train_flashes
                         + [z for z in zigzag
-                           if z["direction"] == "backward"]),
+                           if z["direction"] == "backward"]
+                        + window_bwd["rows"]
+                        + [dict(max_abs_err=e)
+                           for e in window_bwd["sweep"].values()]),
         rtol=ATTN_TOL["bfloat16"][0], atol=ATTN_TOL["bfloat16"][1],
         ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
         bound_by=row["bound_by"], library_ms=row["library_ms"],
@@ -8108,7 +8660,10 @@ def main() -> int:
         timed="one round of the (1, 4) train ring's attention, "
               "[4,32,128,128] bf16, causal on the own block",
         shape=row["shape"], rounds=train_flashes,
-        zigzag_shapes=[z for z in zigzag if z["direction"] == "backward"]))
+        zigzag_shapes=[z for z in zigzag if z["direction"] == "backward"],
+        # phase 13: the launches at a query offset, and the sweep
+        window_shapes=window_bwd["rows"],
+        offset_sweep_max_abs_err=window_bwd["sweep"]))
     log(json.dumps({"kernels": kernels}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(smi)
