@@ -10,7 +10,8 @@ numpy outputs, which the tests compare (fp32 throughout):
   dq/dk/dv under a window at R = 2, 3 and 4, both orders, on the
   online-softmax loop and on the hook (the flash kernel's plain versions
   here: each forward launch and its backward call at the launch's query
-  offset), against ``jax.vjp`` of the reference's (1e-5), with windows
+  offset), against ``jax.vjp`` of the reference's in its default
+  (bidirectional) order, the same function (1e-5), with windows
   that leave rounds whole, cut and empty and one capped GQA case; the
   hook's forward and backward calls a rank both equal its visible
   launches, counted from positions;
@@ -126,7 +127,8 @@ def _visible_launches(r, i, zigzag, window):
 def _reference(part, out_path):
     """The reference's outputs of one ``part``, in its own process so the
     parts compile in parallel: ``"attention"`` (every ring), or one mesh's
-    gemma2-9b gradients and trajectory (``"1x4"``, ``"2x2"``)."""
+    gemma2-9b gradients or trajectory (``"1x4_grads"``, ``"2x2_traj"``,
+    ...)."""
     import jax
     import jax.numpy as jnp
     from jax import lax
@@ -157,26 +159,22 @@ def _reference(part, out_path):
             for n, (window, cap, _) in enumerate(CASES.values()):
                 q, k, v, do = ins[4 * n:4 * n + 4]
                 for kind in KINDS:
-                    for o in ORDERS:
-                        y, vjp = jax.vjp(
-                            lambda a, b, c, fn=fns[kind], o=o: fn(
-                                a, b, c, axis="model", axis_size=r,
-                                window=window, cap=cap, bidirectional=o),
-                            q, k, v)
-                        outs += [y, *vjp(do)]
+                    y, vjp = jax.vjp(
+                        lambda a, b, c, fn=fns[kind]: fn(
+                            a, b, c, axis="model", axis_size=r,
+                            window=window, cap=cap), q, k, v)
+                    outs += [y, *vjp(do)]
             return tuple(outs)
 
-        keys = [(name, kind, o) for name in CASES for kind in KINDS
-                for o in ORDERS]
+        keys = [(name, kind) for name in CASES for kind in KINDS]
         ins = [x[f"{p}{r}_{name}"] for name in CASES
                for p in ("q", "k", "v", "do")]
         outs = jax.jit(jax.shard_map(
             f, mesh=mesh, in_specs=(seq,) * len(ins),
             out_specs=(seq,) * (4 * len(keys)), check_vma=False))(*ins)
-        for n, (name, kind, o) in enumerate(keys):
+        for n, (name, kind) in enumerate(keys):
             for gi, g in enumerate(("o", "dq", "dk", "dv")):
-                res[f"{kind}{r}_{name}_{o}_{g}"] = np.asarray(
-                    outs[4 * n + gi])
+                res[f"{kind}{r}_{name}_{g}"] = np.asarray(outs[4 * n + gi])
 
     # the reduced gemma2-9b: one step's gradients and three steps
     cfg = _config(get_config, reduced_config)
@@ -186,7 +184,7 @@ def _reference(part, out_path):
     par = ParallelConfig(strategy="tatp", remat=False)
     for mesh_shape in MESHES:
         tag = _tag(mesh_shape)
-        if tag != part:
+        if not part.startswith(tag):
             continue
         dist = Dist(make_mesh(mesh_shape, ("data", "model"), devices=devs))
         tb = make_train_step(cfg, par, dist, shape)
@@ -207,12 +205,15 @@ def _reference(part, out_path):
                                         par, dist)
             return jax.tree.map(lambda t: lax.psum(t, "data"), g)
 
-        grads = jax.jit(jax.shard_map(
-            local_grads, mesh=dist.mesh, in_specs=(tb.pspecs, tb.bspecs),
-            out_specs=tb.pspecs, check_vma=False))(
-            jax.tree.map(jnp.asarray, np_params), data.batch(0, tb.bspecs))
-        for path, g in _flat(grads).items():
-            res[f"{tag}_grad_{path}"] = np.asarray(g)
+        if part.endswith("grads"):
+            grads = jax.jit(jax.shard_map(
+                local_grads, mesh=dist.mesh,
+                in_specs=(tb.pspecs, tb.bspecs), out_specs=tb.pspecs,
+                check_vma=False))(jax.tree.map(jnp.asarray, np_params),
+                                  data.batch(0, tb.bspecs))
+            for path, g in _flat(grads).items():
+                res[f"{tag}_grad_{path}"] = np.asarray(g)
+            continue
         params = jax.tree.map(jnp.asarray, np_params)
         state = jax.jit(jax.shard_map(
             tb.opt.init, mesh=dist.mesh, in_specs=(tb.pspecs,),
@@ -402,7 +403,8 @@ def _finish(procs, what):
 def runs(tmp_path_factory):
     d = tmp_path_factory.mktemp("ring_window_train")
     me = str(Path(__file__).resolve())
-    parts = ["attention"] + [_tag(m) for m in MESHES]
+    parts = ["attention"] + [f"{_tag(m)}_{what}" for m in MESHES
+                             for what in ("grads", "traj")]
     refs = [(part, subprocess.Popen(
         [sys.executable, me, "reference", part, str(d / f"ref_{part}.npz")],
         env=_env(XLA_FLAGS="--xla_force_host_platform_device_count=4"),
@@ -459,9 +461,9 @@ def _shard_of(want, spec, coords, shape):
 def test_windowed_ring_attention_grads_match_jax_vjp(runs, r, name, kind,
                                                      bidirectional, hook):
     ref, port = runs
-    key = f"{kind}{r}_{name}_{bidirectional}"
+    key = f"{kind}{r}_{name}"
     for g in ("o", "dq", "dk", "dv"):
-        got = np.concatenate([p[f"{key}_{hook}_{g}"]
+        got = np.concatenate([p[f"{key}_{bidirectional}_{hook}_{g}"]
                               for p in _ring_ranks(port, r)], axis=1)
         np.testing.assert_allclose(got, ref[f"{key}_{g}"], err_msg=g, **TOL)
 
