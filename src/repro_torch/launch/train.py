@@ -138,8 +138,7 @@ def setup(args):
     plan = None
     rank, world, _ = world_from_env()
     if world > 1 and not (args.plan or args.auto_plan or args.wafers > 1):
-        # what the reference cannot run, and what is not ported, raises
-        # before the rank joins
+        # what the reference cannot run raises before the rank joins
         model = args.mesh[1] if len(args.mesh) == 2 else 1
         check_strategy(cfg, args.strategy, model)
     device = join_world(args)
