@@ -853,55 +853,6 @@ def flex_call(torch, q, k, v, kw):
     return call, copies, fold
 
 
-# flex_attention's compiles go to these caches under the checkout's build
-# directory, which flex_warm fills while the kernels build
-FLEX_CACHES = {"TORCHINDUCTOR_CACHE_DIR": "inductor", "TRITON_CACHE_DIR":
-               "triton"}
-
-
-def start_flex_warm():
-    """Point flex_attention's compile caches at the checkout's build
-    directory (FLEX_CACHES) and start :func:`flex_warm` in a process of
-    its own (``--flex-warm``), so its two compiles (~60 s on the card's
-    host) run beside the kernels' build and the yardsticks later read
-    them from the caches.  Returns the process."""
-    import os
-    for var, sub in FLEX_CACHES.items():
-        path = ROOT / "build" / sub
-        path.mkdir(parents=True, exist_ok=True)
-        os.environ[var] = str(path)
-    return subprocess.Popen(
-        [sys.executable, str(ROOT / "chip_smoke.py"), "--flex-warm"],
-        env=dict(os.environ, PYTHONPATH=os.pathsep.join(
-            [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")] if p])),
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-
-
-def flex_warm() -> int:
-    """The compiles of :func:`flex_call`'s first two calls as the kernels
-    phase makes them (gemma2-9b's ``L`` prefill forward under autograd,
-    then its train-shape backward, a batch of 4 x 512 folded into one
-    sequence), on random inputs, filling the caches the main process
-    reads."""
-    import torch
-    torch.cuda.set_device(0)
-    cfg = window_cfg(2)
-    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    randn = make_randn(torch, 0)
-    kw = dict(causal=True, window=cfg.sliding_window, cap=cfg.attn_softcap)
-    bf = torch.bfloat16
-    for b, s, grad in ((1, PATHS["gemma2-9b"]["prompt_len"], False),
-                       (TRAIN["batch"], TRAIN["seq"], True)):
-        q, do = (randn(b, hq, s, d, dtype=bf) for _ in range(2))
-        k, v = (randn(b, hkv, s, d, dtype=bf) for _ in range(2))
-        call, leaves, fold = flex_call(torch, q, k, v, kw)
-        o = call()[0]
-        if grad:
-            torch.autograd.grad(o, leaves, fold(do))
-    torch.cuda.synchronize()
-    return 0
-
-
 def flex_yardstick(torch, name, q, k, v, kw, o_ref, live=None):
     """The library yardstick of a soft-capped or offset bf16 flash forward
     at its arguments ``kw``: :func:`flex_call`'s forward (under autograd,
@@ -8560,12 +8511,7 @@ def main() -> int:
             f"({laps[-1][1] - t_start:.1f} s in all)")
 
     name, smi = phase_device(torch)
-    warm = start_flex_warm()
     phase_build()
-    out, _ = warm.communicate()
-    log(f"[build] flex_attention's compiles beside the build: exit "
-        f"{warm.returncode}, {time.perf_counter() - t_start:.1f} s in all"
-        + (f"\n{out[-2000:]}" if warm.returncode else ""))
     lap("build")
     kernels = phase_kernels(torch)
     randn = make_randn(torch, 1)
@@ -8729,9 +8675,6 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        if sys.argv[1:2] == ["--flex-warm"]:  # beside the kernels' build
-            sys.path.insert(0, str(SRC))
-            sys.exit(flex_warm())
         if sys.argv[1:2] == ["--ring-rank"]:  # one rank of phase 11
             sys.exit(ring_rank_main(sys.argv[2]))
         if sys.argv[1:2] == ["--ring-engine-rank"]:  # phase 16 alone
