@@ -8,9 +8,11 @@ imports nothing of jax or of the JAX package ``repro``.  Phases, each of
 which fails the run (non-zero exit, no final ``ok`` line) on any error:
 
 1. device — the card's name and power limit from ``nvidia-smi``;
-2. build — the four CUDA sources from ``src/repro_torch/csrc`` (GEMM,
-   flash attention, the SSD and its backward; one ``nvcc`` per source,
-   in parallel), with the compiler's register/shared-memory report;
+2. build — the five CUDA sources from ``src/repro_torch/csrc`` (GEMM,
+   flash attention and its backward, the SSD and its backward; one
+   ``nvcc`` per source, in parallel), with the compiler's
+   register/shared-memory report; meanwhile a thread makes every
+   ``flex_attention`` compile the yardsticks use (:func:`flex_warm`);
 3. kernels — each kernel against its plain PyTorch version on the card at
    ragged shapes, every mask option and the main paths' shapes (fp32 with
    TF32 off: rtol = atol = 1e-3; bf16: 2e-2, as ``tests/test_kernels.py``),
@@ -143,10 +145,10 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    logging ``[plan] solved fresh`` and the second a cache hit, both with
    tokens identical to the legacy flags' on the same weights and exactly
    their launches (210/30 and 196/28); then ``repro_torch.launch.train
-   --arch deepseek-7b --wafers 8 --stage 0 --batch 4 --seq 512 --steps 3
-   --ckpt-dir``: the stage's 4 layers, 3 steps' launches, each loss
+   --arch deepseek-7b --wafers 8 --stage 7 --batch 4 --seq 512 --steps 3
+   --ckpt-dir``: the stage's 3 layers, 3 steps' launches, each loss
    bitwise equal to ``make_train_step`` on ``solver.stage_config(cfg,
-   4)`` from the same seed, the plan hash and stage in the manifest; and a
+   3)`` from the same seed, the plan hash and stage in the manifest; and a
    relaunch with ``--failed-dies 3,9 --fail-wafer 1`` that re-solves only
    wafer 1's stage and prints the reference's plan-drift warning.  The
    ``[plan]`` lines give the serve runs' ms/token and the train run's
@@ -155,10 +157,10 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    --auto-plan``, ``serve_engine``) of deepseek-7b at its 30 layers,
    bf16, on ``TorchServeExecutor`` and a wall clock, 4 decode slots, 128
    prompt and 32 new tokens a request, each run with a fresh plan cache
-   (``ENGINE_RUNS``).  (a) Fault-free: 16 Poisson requests at 1.25 a
+   (``ENGINE_RUNS``).  (a) Fault-free: 8 Poisson requests at 1.25 a
    second (below the ~1.8 a second the slots serve; 100 until phase 14
-   needed the time, 40 until phase 15 did, 24 until phase 16 did, so no
-   TTFT p99 now), every
+   needed the time, 40 until phase 15 did, 24 until phase 16 did, 16
+   and 12 since, so no TTFT p99 now), every
    request
    finished with its 32 tokens, and exactly 210 GEMM and 30 flash
    launches per prefill group the engine ran (decode runs no kernel), all
@@ -198,7 +200,7 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    2752], [128, 11008] x [11008, 1024]) and flash at a round's [4, 32,
    32, 128] (causal on the own block, unmasked with its row LSE on an
    earlier one) against their plain versions and timed in this process
-   alone; then ``torch.distributed.run`` starts four ranks of this script
+   alone; then :func:`run_ranks` starts four ranks of this script
    (``--ring-rank``) sharing the card over gloo, each within RING's
    wall-clock limit (a failure or timeout fails the phase): the
    host-staged ppermute, psum, pmax, pmin and all-gather of CUDA tensors
@@ -225,7 +227,7 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    SDPA's backward, and the dgrad and wgrad per-round GEMM tiles at 512
    rows a rank against their plain versions and ``torch.matmul``, in this
    process alone; the degree-1 fp32 run (2 layers, batch 4 x seq 128,
-   one step, TF32 off); then ``torch.distributed.run`` starts four ranks of
+   one step, TF32 off); then :func:`run_ranks` starts four ranks of
    this script (``--train-rank``) sharing the card over gloo, every step
    within RING_TRAIN's wall-clock limit: the fp32 run on meshes (1, 4)
    and (2, 2) (ZeRO-1 over data) from the shards of the same tree, each
@@ -245,9 +247,16 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    and batch, and each rank's step ms, staged share, GB sent and peak GB;
 13. the rest of the train ring — the zigzag launch (c x c, [4, 32, 64,
    128] bf16, causal and unmasked) forward and backward (outside delta)
-   against their plain versions, timed beside them and SDPA, and the
-   degree-1 fp32 steps of internvl2-1b and seamless-m4t-large-v2 (2
-   layers, 2 + 2, at full width) in this process; then four ranks of
+   against their plain versions, timed beside them and SDPA; the flash
+   backward at query offsets with an outside delta on every variant
+   (``simt`` fp32, ``mma.sync`` at D 64, ``wgmma`` at D 128 and 256)
+   against ``attention_bwd_ref`` over WINDOW_SWEEP's shapes, every unseen
+   row's dQ and every unseen key's dK and dV exactly 0, and gemma2-9b's
+   ring backward launches timed beside their bound, plain version and
+   flex_attention's backward; the degree-1 fp32 steps of internvl2-1b and
+   seamless-m4t-large-v2 (2 layers, 2 + 2, at full width) and gemma2-9b's
+   bf16 loss and gradients (4 layers, 1 x 8192) in this process; then
+   four ranks of
    this script (``--ring-more-rank``) sharing the card over gloo: (a)
    ``launch.train --mesh 1 4`` on the reduced deepseek-7b in fp32 with a
    checkpoint every 2 steps, failing at step 4 and restarted: the final
@@ -264,7 +273,14 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    2R + 1 = 9 flash forwards and 9 backwards a layer on every rank; (d)
    one fp32 step of internvl2-1b (its image prefix) and of
    seamless-m4t-large-v2 (its encoder on the ring) at (1, 4), each loss
-   within 1e-5 of its degree-1 step;
+   within 1e-5 of its degree-1 step; (e) gemma2-9b's sliding-window
+   layers trained on the ring at (1, 4), 1 x 8192: (i) fp32 windowed
+   ``ring_attention`` and ``zigzag_ring_attention`` on the hook against
+   degree 1's ``attention`` under autograd, (ii) ``launch.train --mesh 1
+   4 --layers 4`` in bf16, one step, (iii) that step with zigzag on the
+   permuted batch: exact launches, the losses and each rank's grad norm
+   against degree 1's, and (iii)'s every gradient leaf within
+   WINDOW_GRAD_REL_TOL of degree 1's;
 14. SSM ring — the Mamba-2 block over the TATP ring (the sequence-sharded
    SSD scan, the conv halo, the head-sharded decode state): the SSD
    forward and backward kernels at a rank's local shape of the (1, 4)
@@ -299,7 +315,7 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    parity of mamba2-780m (2 layers, one step, the clip off) at (1, 4) on
    batch 2 x 2048 and at (2, 2) on 2 x 1024, by phase 12's rules; then
    one bf16 step of mamba2-780m at 4 layers (batch 2 x 2048, (1, 4))
-   under full remat, ``tatp_outputs`` and full remat again: loss and
+   under full remat, then ``tatp_outputs``: loss and
    every gradient bitwise equal, exact launches by layout, every GEMM on
    ``wgmma`` or ``wmma``, 8 SSD forwards and 4 SSD backwards a rank
    under either policy, the loss (the ranks' shares summed) within 1e-2
@@ -334,15 +350,15 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    bf16 step of olmoe cut to 4 layers through ``launch.train --mesh 1
    4`` (batch 4 x seq 512, remat), exact launches by layout; (b)
    ``megatron`` on deepseek-7b: fp32 train parity (2 layers, batch 4 x
-   seq 128, 2 steps, the clip off) at (1, 4) and (2, 2) by phase 12's
-   rules, with degree 1's launches, and every gradient leaf of the first
-   step within MEG_GRAD_TOL relative L2 of degree 1's; the bf16 prefill
+   seq 128, one step, the clip off) at (1, 4) and (2, 2) by phase 12's
+   rules, with degree 1's launches, and every gradient leaf of the step
+   within MEG_GRAD_TOL relative L2 of degree 1's; the bf16 prefill
    of its 30 layers (batch 4 x prompt 128) through ``prefill_fn``: 210
    GEMM and 30 flash launches a rank, the last logits within
    RING_BF16_TOL of phase 5's degree-1 run and its first tokens
    identical (but at a near tie), with the staged transport; one bf16
-   step of 4 layers (batch 4 x seq 512) under full remat,
-   ``tatp_outputs`` and full remat again: loss and every gradient bitwise
+   step of 4 layers (batch 4 x seq 512) under full remat, then
+   ``tatp_outputs``: loss and every gradient bitwise
    equal, 115 GEMM launches a rank under each policy, 8 flash forwards
    under full remat and 4 under ``tatp_outputs``, the loss within 1e-2
    of phase 5's degree-1 run; (c) int8 gradient compression on (b)'s fp32
@@ -353,7 +369,7 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    ``launch.serve --serve --auto-plan --layers 4`` through
    ``serve_engine`` on every rank, rank 0 leading (deepseek-7b at full
    width cut to 4 layers, bf16, the full model's ServePlan: (1, 4), 4
-   slots, prompts of 128, 8 new tokens; ``RING_ENGINE``): (a) 6 Poisson
+   slots, prompts of 128, 8 new tokens; ``RING_ENGINE``): (a) 3 Poisson
    requests at 0.5 a second (at most 60 % of what the slots serve at
    the measured call times), every request finished with its 8 tokens,
    on every rank exactly one ring prefill's launches per prefill group
@@ -396,7 +412,7 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    rank 3's round on block 0 in each ``L`` layer), the last logits
    within RING_BF16_TOL of degree 1 and the first token identical; (c)
    engine mode through ``launch.serve --serve --auto-plan --layers 4``
-   (4 requests of 4608 prompt tokens, past the window, and 4 new ones,
+   (3 requests of 4608 prompt tokens, past the window, and 4 new ones,
    at WINDOW_ENGINE_RATE), every request finished, exact launches a
    call.  ``[window]`` lines give the rows, the serves' staged bytes and
    times, the slots' capacity and the phase's time.  Alone (~4 min with
@@ -732,11 +748,14 @@ def profile_window(torch, fn, top=8):
     """One call of ``fn`` under ``torch.profiler``: host wall time, device
     busy time (the summed durations of the device's kernels and copies,
     which run one at a time on the one stream), the device's idle share,
-    host op count and the heaviest kernels.  Profiling slows the host, so
-    the wall time here is above the unprofiled one."""
+    host op count and the heaviest kernels, and what the window cost this
+    script in all (``cost_s``: the profiler's start, the call and the
+    events' processing).  Profiling slows the host, so the wall time here
+    is above the unprofiled one."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    t_cost = time.perf_counter()
     torch.cuda.synchronize()
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
@@ -766,6 +785,7 @@ def profile_window(torch, fn, top=8):
         host_ops=sum(1 for e in events if e.device_type == DeviceType.CPU),
         top=[[name[:80], ms, n] for name, (ms, n) in heaviest],
         by_family={f: [ms, n] for f, (ms, n) in sorted(groups.items())},
+        cost_s=time.perf_counter() - t_cost,
     )
 
 
@@ -776,7 +796,7 @@ def bound(flops, nbytes, dtype):
                                      else "bytes")
 
 
-_FLEX = {}  # flex_attention compiled once a process, and its mask's terms
+_FLEX = {}  # flex_attention compiled once a process for each use
 # flex_attention's backward against the plain fp32 gradients, relative
 # L2: its bf16 products and its delta from its bf16 output left 0.25-0.28 %
 # on gemma2-9b's ring shapes on the H100 (their largest element errors
@@ -784,91 +804,170 @@ _FLEX = {}  # flex_attention compiled once a process, and its mask's terms
 # a mask, offset or window that hid or showed a few percent of the pairs
 # would move the gradients by more
 FLEX_BWD_REL_L2 = 0.02
+# the one shape flex's backward is compiled for: a batch folded into
+# 2,048 rows (gemma2-9b's 4 x 512 train shape, its 2,048-row ring rounds,
+# two of zigzag's 1,024-row blocks), 16 heads over 8 K/V heads of 256
+FLEX_BWD_ROWS = 2048
+FLEX_BWD_SHAPE = (16, 8, 256)
+# the forward shapes in the order the forward rows first reach them:
+# gemma2-9b's 8,192-token prefill, its ring rounds, zigzag's blocks
+FLEX_FWD_ROWS = (8192, 2048, 1024)
 
 
-def flex_call(torch, q, k, v, kw):
-    """``torch.nn.attention.flex_attention`` (compiled, Triton) at the
-    flash arguments ``kw`` on contiguous copies of q/k/v, leaves that
-    require grad, with GQA, the cap as its ``score_mod``, the causal and
-    window terms at the query offset as its block mask (built here,
-    outside any timing), the row LSE returned as the kernel returns it:
-    ``(call, copies, fold)``.  A batch of B sequences is folded into one
-    of B times the rows, each sequence a document of the block mask, which
-    attends within its own (``fold`` maps a [B, H, S, ...] tensor to that
-    [1, H, B S, ...] layout): the same function and the same blocks of
-    work, at a shape another row shares.  The mask's terms are 0-d tensors
-    the one compiled function reads, so a new offset or window compiles
-    nothing; it is compiled for dynamic shapes and runs under autograd for
-    the forward rows too, so that few compiles serve every row (on the
-    card's host flex's backward compiled anew, ~30 s, at each new shape).
+def flex_fn(torch, kind):
+    """``torch.nn.attention.flex_attention`` compiled once a process for
+    ``kind``, with the 0-d tensors its mask and score terms read, so a new
+    offset, window or cap compiles nothing.  ``"fwd"``, the forward rows:
+    compiled as ``torch.compile`` compiles by default (the second shape
+    recompiles it for dynamic shapes, which serve every later one), its
+    mask on one sequence.  ``"bwd"``, the backward rows: compiled for one
+    static shape (FLEX_BWD_ROWS; on the card's host flex's backward
+    compiled anew, ~30 s, at each new shape), its mask on a batch folded
+    into documents (:func:`flex_fold`), each attending within its own.
     Inductor compiles in this process, without its pool of compile
     workers, whose start took longer on the card's host than the compile
     itself."""
+    if kind in _FLEX:
+        return _FLEX[kind]
     import torch._inductor.config as inductor_config
-    from torch.nn.attention.flex_attention import (AuxRequest,
-                                                   create_block_mask,
-                                                   flex_attention)
-    if not _FLEX:
-        inductor_config.compile_threads = 1
-        t = dict(off=torch.zeros((), dtype=torch.int32, device="cuda"),
-                 window=torch.zeros((), dtype=torch.int32, device="cuda"),
-                 causal=torch.zeros((), dtype=torch.bool, device="cuda"),
-                 cap=torch.ones((), device="cuda"),
-                 sq=torch.ones((), dtype=torch.int32, device="cuda"),
-                 skv=torch.ones((), dtype=torch.int32, device="cuda"))
-
+    from torch.nn.attention.flex_attention import flex_attention
+    inductor_config.compile_threads = 1
+    t = {name: torch.zeros((), dtype=dtype, device="cuda")
+         for name, dtype in (("off", torch.int32), ("window", torch.int32),
+                             ("causal", torch.bool), ("cap", torch.float32),
+                             ("sq", torch.int32), ("skv", torch.int32))}
+    if kind == "fwd":
+        def mask_mod(b, h, qi, ki):
+            qpos = qi + t["off"]
+            return ((ki <= qpos) | ~t["causal"]) & (qpos - ki < t["window"])
+    else:
         def mask_mod(b, h, qi, ki):
             qpos, kpos = qi % t["sq"] + t["off"], ki % t["skv"]
             return ((qi // t["sq"] == ki // t["skv"])
                     & ((kpos <= qpos) | ~t["causal"])
                     & (qpos - kpos < t["window"]))
 
-        def score_mod(s, b, h, qi, ki):
-            return torch.tanh(s / t["cap"]) * t["cap"]
+    def score_mod(s, b, h, qi, ki):
+        return torch.tanh(s / t["cap"]) * t["cap"]
 
-        _FLEX.update(terms=t, mask_mod=mask_mod, score_mod=score_mod,
-                     fn=torch.compile(flex_attention, dynamic=True))
-    t, cap = _FLEX["terms"], kw["cap"]
+    _FLEX[kind] = dict(terms=t, mask_mod=mask_mod, score_mod=score_mod,
+                       fn=torch.compile(flex_attention, dynamic=(
+                           False if kind == "bwd" else None)))
+    return _FLEX[kind]
+
+
+def flex_fold(x):
+    """A [B, H, S, ...] tensor as the [1, H, B S, ...] batch of documents
+    flex's backward runs on."""
+    return x.transpose(0, 1).reshape(1, x.shape[1], -1, *x.shape[3:])
+
+
+def flex_call(torch, kind, q, k, v, kw):
+    """:func:`flex_fn`'s ``kind`` at the flash arguments ``kw`` (GQA, the
+    cap as its ``score_mod``, the causal and window terms at the query
+    offset as its block mask, built here, outside any timing; the row LSE
+    returned as the kernel returns it) on contiguous copies of q/k/v,
+    folded into documents for ``"bwd"`` (:func:`flex_fold`), where they
+    are leaves that require grad: ``(call, copies)``."""
+    from torch.nn.attention.flex_attention import (AuxRequest,
+                                                   create_block_mask)
+    f = flex_fn(torch, kind)
+    t, cap = f["terms"], kw["cap"]
     t["off"].fill_(kw.get("q_offset", 0))
     t["window"].fill_(kw["window"] or 2 ** 30)
     t["causal"].fill_(bool(kw["causal"]))
     t["cap"].fill_(cap or 1.0)
     t["sq"].fill_(q.shape[2])
     t["skv"].fill_(k.shape[2])
-
-    def fold(x):
-        return x.transpose(0, 1).reshape(1, x.shape[1], -1, *x.shape[3:])
-
-    copies = tuple(fold(x.detach()).requires_grad_(True) for x in (q, k, v))
-    mask = create_block_mask(_FLEX["mask_mod"], None, None,
-                             copies[0].shape[2], copies[1].shape[2],
-                             device="cuda")
-    fkw = dict(score_mod=_FLEX["score_mod"] if cap else None,
-               block_mask=mask, enable_gqa=k.shape[1] != q.shape[1],
+    if kind == "fwd":
+        copies = tuple(x.contiguous() for x in (q, k, v))
+    else:
+        copies = tuple(flex_fold(x.detach()).requires_grad_(True)
+                       for x in (q, k, v))
+    mask = create_block_mask(f["mask_mod"], None, None, copies[0].shape[2],
+                             copies[1].shape[2], device="cuda")
+    fkw = dict(score_mod=f["score_mod"] if cap else None, block_mask=mask,
+               enable_gqa=k.shape[1] != q.shape[1],
                return_aux=AuxRequest(lse=True))
 
     def call():
-        return _FLEX["fn"](*copies, **fkw)
+        return f["fn"](*copies, **fkw)
 
-    return call, copies, fold
+    return call, copies
+
+
+def flex_warm(torch):
+    """Every flex_attention compile the yardsticks will make, on random
+    inputs at their shapes and arguments (gemma2-9b's ``L`` slot: causal,
+    window 4096, cap 50): the forward at FLEX_FWD_ROWS in order, then the
+    backward at its one shape.  Run in a thread while the kernels build,
+    so the yardsticks later find them compiled; returns the seconds each
+    took."""
+    torch.cuda.set_device(0)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    hq, hkv, d = FLEX_BWD_SHAPE
+    kw = dict(causal=True, window=4096, cap=50.0)
+
+    def qkv(s):
+        return (torch.randn(1, h, s, d, generator=g, device="cuda",
+                            dtype=torch.bfloat16) for h in (hq, hkv, hkv))
+
+    secs = {}
+    for s in FLEX_FWD_ROWS:
+        t0 = time.perf_counter()
+        flex_call(torch, "fwd", *qkv(s), kw)[0]()
+        torch.cuda.synchronize()
+        secs[f"forward {s}"] = time.perf_counter() - t0
+    s = FLEX_BWD_ROWS
+    call, leaves = flex_call(torch, "bwd", *qkv(s), kw)
+    do = torch.randn(1, hq, s, d, generator=g, device="cuda",
+                     dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    torch.autograd.grad(call()[0], leaves, flex_fold(do))
+    torch.cuda.synchronize()
+    secs[f"backward {s}"] = time.perf_counter() - t0
+    return secs
+
+
+def start_flex_warm(torch):
+    """:func:`flex_warm` in a thread of this process: ``join()`` returns
+    its seconds, or raises what it raised."""
+    import threading
+    box = {}
+
+    def run():
+        try:
+            box["secs"] = flex_warm(torch)
+        except Exception as e:  # the yardsticks then compile themselves
+            box["error"] = e
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+
+    def join():
+        th.join()
+        if "error" in box:
+            raise box["error"]
+        return box["secs"]
+
+    return join
 
 
 def flex_yardstick(torch, name, q, k, v, kw, o_ref, live=None):
     """The library yardstick of a soft-capped or offset bf16 flash forward
-    at its arguments ``kw``: :func:`flex_call`'s forward (under autograd,
-    its graph dropped), its output held
+    at its arguments ``kw``: :func:`flex_call`'s ``"fwd"`` on contiguous
+    copies of q/k/v (no autograd: they require no grad), its output held
     against the plain one ``o_ref`` (on the ``live`` rows, the ones that
     see a key, where given) within ATTN_TOL with each row's atol scaled by
     its RMS, then timed: ``(library_ms, library)``."""
-    call, _, fold = flex_call(torch, q, k, v, kw)
+    call, _ = flex_call(torch, "fwd", q, k, v, kw)
     t0 = time.perf_counter()
-    o = call()[0].detach()
+    o, _ = call()
     torch.cuda.synchronize()
-    log(f"  library {name}: flex_attention's first call (with a compile "
-        f"at a new shape) {time.perf_counter() - t0:.1f} s")
-    o_ref = fold(o_ref)
+    log(f"  library {name}: flex_attention's first call "
+        f"{time.perf_counter() - t0:.1f} s")
     if live is not None:
-        o, o_ref = o[fold(live)], o_ref[fold(live)]
+        o, o_ref = o[live], o_ref[live]
     compare(f"{name} flex_attention", o, o_ref, *ATTN_TOL["bfloat16"],
             rms="row")
     return (time_ms(torch, call, 20),
@@ -877,28 +976,37 @@ def flex_yardstick(torch, name, q, k, v, kw, o_ref, live=None):
 
 def flex_bwd_yardstick(torch, name, q, k, v, do, kw):
     """The library yardstick of a soft-capped or offset bf16 flash
-    backward at its arguments ``kw``: :func:`flex_call`'s backward through
-    autograd (its own forward's LSE), its dq, dk and dv held against the
-    plain gradients of the same attention (its own LSE and delta; dq on
-    the rows that see a key) within FLEX_BWD_REL_L2 (relative L2); then
-    timed as SDPA's backward is, its forward and backward less its forward
-    (each under autograd: the compiled graphs free their buffers after one
-    backward): ``(library_ms, library)``.  ``q`` is unscaled: under a q
-    scaled so the cap bites (:func:`cap_scale`) the softmax is nearly
-    one-hot, dS = P (dP - delta) cancels, and flex's delta from its bf16
-    output leaves dQ off by more than its RMS (on the H100: 4.4e-3 at an
-    RMS of ~3e-3), which the kernel's fp32 delta and two-term products
-    avoid; the time does not depend on the values."""
+    backward at its arguments ``kw``: :func:`flex_call`'s ``"bwd"``
+    through autograd (its own forward's LSE) on the batch repeated to
+    FLEX_BWD_ROWS folded rows, its dq, dk and dv held against the plain
+    gradients of the same attention (its own LSE and delta; dq on the
+    rows that see a key) within FLEX_BWD_REL_L2 (relative L2); then timed
+    as SDPA's backward is, its forward and backward less its forward (each
+    under autograd: the compiled graphs free their buffers after one
+    backward), over the repeats: ``(library_ms, library)``.  ``q`` is
+    unscaled: under a q scaled so the cap bites (:func:`cap_scale`) the
+    softmax is nearly one-hot, dS = P (dP - delta) cancels, and flex's
+    delta from its bf16 output leaves dQ off by more than its RMS (on the
+    H100: 4.4e-3 at an RMS of ~3e-3), which the kernel's fp32 delta and
+    two-term products avoid; the time does not depend on the values."""
     from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                          attention_ref)
 
+    rows = q.shape[0] * q.shape[2]
+    need(FLEX_BWD_ROWS % rows == 0 and k.shape[2] == q.shape[2]
+         and tuple(q.shape[1:2]) + tuple(k.shape[1:2]) + tuple(q.shape[3:])
+         == FLEX_BWD_SHAPE,
+         f"{name}: {list(q.shape)} folds into no batch of flex's "
+         f"backward shape")
+    rep = FLEX_BWD_ROWS // rows
+    q, k, v, do = (x.repeat(rep, 1, 1, 1) for x in (q, k, v, do))
     o_ref, lse_ref = attention_ref(q, k, v, return_lse=True, **kw)
     ref = attention_bwd_ref(q, k, v, o_ref, lse_ref, do, **kw)
     del o_ref
-    call, leaves, fold = flex_call(torch, q, k, v, kw)
-    live = fold(lse_ref > -1e29)
-    ref = tuple(fold(r) for r in ref)
-    dout = fold(do)
+    call, leaves = flex_call(torch, "bwd", q, k, v, kw)
+    live = flex_fold(lse_ref > -1e29)
+    ref = tuple(flex_fold(r) for r in ref)
+    dout = flex_fold(do)
 
     def fwd_bwd():
         return torch.autograd.grad(call()[0], leaves, dout)
@@ -907,8 +1015,7 @@ def flex_bwd_yardstick(torch, name, q, k, v, do, kw):
     got = fwd_bwd()
     torch.cuda.synchronize()
     log(f"  library {name}: flex_attention's first forward and backward "
-        f"under autograd (with their compiles at a new shape) "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"under autograd {time.perf_counter() - t0:.1f} s")
     errs = {}
     for part, g, r in zip(("dq", "dk", "dv"), got, ref):
         if part == "dq":
@@ -918,9 +1025,11 @@ def flex_bwd_yardstick(torch, name, q, k, v, do, kw):
         f"{json.dumps(errs)} (limit {FLEX_BWD_REL_L2})")
     need(max(errs.values()) <= FLEX_BWD_REL_L2,
          f"{name}: flex_attention's backward disagrees with the plain one")
-    return (time_ms(torch, fwd_bwd, 20) - time_ms(torch, call, 20),
-            "flex_attention's backward (compiled, under autograd, less its "
-            "forward; its block mask built beforehand)")
+    ms = (time_ms(torch, fwd_bwd, 20) - time_ms(torch, call, 20)) / rep
+    return (ms, "flex_attention's backward (compiled, under autograd, less "
+                "its forward; its block mask built beforehand)"
+                + (f"; {rep} copies folded into one call, its time over "
+                   f"{rep}" if rep > 1 else ""))
 
 
 def flash_bwd_bytes(b, hq, hkv, sq, skv, d):
@@ -2430,6 +2539,7 @@ def phase_main_path(torch, arch, keep=None):
     from repro_torch.models import lm
     from repro_torch.models.transformer import init_params, padded_vocab
 
+    t_path = time.perf_counter()
     dev = torch.device("cuda")
     spec = PATHS[arch]
     full = get_config(arch)
@@ -2496,10 +2606,11 @@ def phase_main_path(torch, arch, keep=None):
     if keep is not None:
         keep["logits"] = logits[:, -1].float().cpu()
 
-    # where the time goes: one prefill, then 2 decode steps as serve runs
-    # them (token to the host after each step; 4 until phase 13's part (e)
-    # needed the time: the profiler's cost scales with the host ops)
-    steps = 2
+    # where the time goes: one prefill, then a decode step as serve runs
+    # it (its token to the host; 4 steps until phase 13's part (e) needed
+    # the time, 2 until the whole run did: the profiler's cost scales with
+    # the host ops, 2.3-4.9 s a window of 2 steps on the card's host)
+    steps = 1
     big = lm.graft_cache_slots(
         lm.init_cache(sb.ctx, bsz, run["prompt_len"] + steps),
         caches, slots=range(bsz))
@@ -2515,7 +2626,7 @@ def phase_main_path(torch, arch, keep=None):
 
     prof = dict(prefill=profile_window(
                     torch, lambda: sb.prefill_fn(params, batch)),
-                decode_2_steps=profile_window(torch, decode_steps))
+                decode_step=profile_window(torch, decode_steps))
     need(all(bool(t.isfinite().all()) for c in state[1].values()
              for t in c.values()), "non-finite cache after decode")
     out = dict(serve=res, layers=cfg.n_layers,
@@ -2526,6 +2637,7 @@ def phase_main_path(torch, arch, keep=None):
                profile=prof)
     if cfg.is_moe:
         out["expert_products"] = expert_products(torch, cfg)
+    out["path_s"] = time.perf_counter() - t_path
     log(f"[main path] {arch} {cfg.n_layers} layers bf16 batch {bsz} "
         f"prompt {run['prompt_len']} gen {SERVE_GEN}: {json.dumps(out)}")
     del params, caches, state, big
@@ -2779,6 +2891,7 @@ def phase_train_main(torch, arch, n_layers):
     from repro_torch.train.data import SyntheticDataset
     from repro_torch.train.train_loop import loss_and_grads, make_train_step
 
+    t_path = time.perf_counter()
     dev = torch.device("cuda")
     full = get_config(arch)
     cfg = replace(full, n_layers=n_layers)
@@ -2892,7 +3005,8 @@ def phase_train_main(torch, arch, n_layers):
         fixed_batch_loss=[before, after], step_ms=step_ms,
         step_ms_median_after_first=steady, tokens_per_s=n_tok / steady * 1e3,
         mfu=util, model_flops_per_step=flops, peak_mem_gb=peak / 1e9,
-        init_s=init_s, device_ms=halves, profile=prof)
+        init_s=init_s, device_ms=halves, profile=prof,
+        path_s=time.perf_counter() - t_path)
     log(f"[train main path] {arch} {cfg.n_layers} layers bf16 batch "
         f"{TRAIN['batch']} x seq {TRAIN['seq']}, {TRAIN['steps']} steps: "
         f"{json.dumps(out)}")
@@ -3068,9 +3182,11 @@ def phase_restart(torch):
 
 # the plan-driven launches: one-shot serves under --auto-plan (gemma-7b's
 # plan prescribes megatron, run at degree 1), and the train stage that
-# --wafers 8 --stage 0 gives deepseek-7b at 4 x 512 (4 of its 30 layers)
+# --wafers 8 --stage 7 gives deepseek-7b at 4 x 512: the plan's last, 3 of
+# its 30 layers before and after the degradation (stage 0's 4 layers, a
+# 23 GB checkpoint, until the whole run needed the time)
 PLAN_SERVES = ("deepseek-7b", "gemma-7b")
-PLAN_TRAIN = dict(arch="deepseek-7b", wafers=8, stage=0, layers=4,
+PLAN_TRAIN = dict(arch="deepseek-7b", wafers=8, stage=7, layers=3,
                   fail_wafer=1, failed_dies="3,9")
 PLAN_FRESH = "[plan] solved fresh"
 PLAN_HIT = "[plan] cache hit (solver skipped): hash "
@@ -3183,10 +3299,10 @@ def plan_serve(torch, arch, cache):
 
 
 def plan_train(torch, cache, ckpt_dir):
-    """``launch.train --arch deepseek-7b --wafers 8 --stage 0 --batch 4
-    --seq 512 --steps 5 --ckpt-dir``: the MultiWaferPlan's stage 0 holds 4
+    """``launch.train --arch deepseek-7b --wafers 8 --stage 7 --batch 4
+    --seq 512 --steps 3 --ckpt-dir``: the MultiWaferPlan's stage 7 holds 3
     layers; each step's loss bitwise equal to ``make_train_step`` on
-    ``solver.stage_config(cfg, 4)`` from the launcher's seed; the launches
+    ``solver.stage_config(cfg, 3)`` from the launcher's seed; the launches
     exactly 3 steps' (counted over the launch); the manifest records the
     plan hash and the stage.  Then a relaunch with ``--failed-dies`` on
     ``--fail-wafer 1``: a fresh solve in which only wafer 1's stage changes
@@ -3310,7 +3426,7 @@ def phase_plan_launch(torch):
     """The plan-driven entry points on the card at full width, bf16, each
     with a temporary plan cache: ``launch.serve --auto-plan`` for
     deepseek-7b and gemma-7b (:func:`plan_serve`) and ``launch.train
-    --wafers 8 --stage 0`` for deepseek-7b (:func:`plan_train`).  Returns
+    --wafers 8 --stage 7`` for deepseek-7b (:func:`plan_train`).  Returns
     each run's (launches, launches by path) and the train run's GEMM
     layouts."""
     import os
@@ -3319,9 +3435,9 @@ def phase_plan_launch(torch):
     for arch in PLAN_SERVES:
         with tempfile.TemporaryDirectory() as cache:
             serves[f"{arch} --auto-plan"] = plan_serve(torch, arch, cache)
-    # the 23 GB checkpoint in memory where the machine has it (written and
-    # read back at memory speed, not the disk's; since phase 15 needed the
-    # time)
+    # the stage's ~20 GB checkpoint in memory where the machine has it
+    # (written and read back at memory speed, not the disk's; since phase
+    # 15 needed the time)
     shm = "/dev/shm" if os.path.isdir("/dev/shm") else None
     with tempfile.TemporaryDirectory() as cache, \
             tempfile.TemporaryDirectory(dir=shm) as ck:
@@ -3331,11 +3447,12 @@ def phase_plan_launch(torch):
 
 # engine-mode serving (``launch.serve --serve``): deepseek-7b at its 30
 # layers, bf16, 4 decode slots, 128 prompt tokens and 32 new tokens each.
-# The measured load: 12 open-loop requests at 1.25 a second, below the
+# The measured load: 8 open-loop requests at 1.25 a second, below the
 # ~1.8 a second that 4 slots of ~2 s serve, so the queue has a steady
 # state (100 until phase 14 needed the time, 40 until phase 15 did, 24
-# until phase 16 did, 16 until phase 13's part (e) did; 12 samples back
-# no TTFT p99, P99_MIN_SAMPLES, only the p50 and the max); then the same
+# until phase 16 did, 16 until phase 13's part (e) did, 12 until the
+# whole run needed the time; 8 samples back no TTFT p99,
+# P99_MIN_SAMPLES, only the p50 and the max); then the same
 # rate with a
 # die fault at 2.0 s on the engine's clock (``--fault-at``, 1/8 of the
 # dies, seeded) over 8 requests (20 until phase 15 needed the time, 12
@@ -3347,7 +3464,7 @@ def phase_plan_launch(torch):
 # (queueing, not the server)
 ENGINE = dict(arch="deepseek-7b", max_batch=4, prompt_len=128, max_new=32,
               fault_at=2.0)
-ENGINE_LOAD = dict(requests=12, rate=1.25)
+ENGINE_LOAD = dict(requests=8, rate=1.25)
 ENGINE_FAULT_LOAD = dict(ENGINE_LOAD, requests=8)
 ENGINE_RUNS = (("engine", ENGINE_LOAD, False),
                ("engine fault", ENGINE_FAULT_LOAD, True),
@@ -4284,7 +4401,7 @@ def ring_serve(torch, out_dir, rank, argv=None, gen=None, tag="serve"):
 
 
 def ring_rank_main(out_dir) -> int:
-    """One rank of phase 11, started by ``torch.distributed.run``: the
+    """One rank of phase 11, started by :func:`run_ranks`: the
     transport check, fp32 parity and the bf16 serve, its record to
     ``rank<rank>.json``; then phases 16 and 17."""
     sys.path.insert(0, str(SRC))
@@ -4315,37 +4432,62 @@ def ring_rank_main(out_dir) -> int:
 
 
 def run_ranks(torch, out_dir, entry="--ring-rank", timeout_s=None):
-    """``torch.distributed.run`` of this script's rank ``entry`` (phase
-    11's ``--ring-rank`` or phase 12's ``--train-rank``) on RING["ranks"]
-    processes, in a session of its own so a timeout (RING's by default)
-    stops every rank; a failure or a timeout raises with the ranks'
-    output."""
+    """RING["ranks"] processes of this script's rank ``entry`` (phase
+    11's ``--ring-rank``, phase 12's ``--train-rank``, ...), each given its
+    rank, the world size and the group's address on this host as
+    ``torch.distributed.run`` gives them (``RANK``, ``WORLD_SIZE``,
+    ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``: a free port), each
+    in a session of its own, its output to ``rank<i>.log`` in
+    ``out_dir``.  (The launcher itself cost each pool ~12 s on the card's
+    host: ~8 s before the first rank started, ~4 s after the last one
+    ended.)  A rank that fails stops the others; a failure or a timeout
+    (RING's by default) raises with the ranks' output."""
     import os
     import signal
+    import socket
 
     timeout_s = timeout_s or RING["timeout_s"]
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc-per-node", str(RING["ranks"]), str(ROOT / "chip_smoke.py"),
-           entry, str(out_dir)]
-    env = dict(os.environ, OMP_NUM_THREADS="2",
+    n = RING["ranks"]
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, OMP_NUM_THREADS="2", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(port), WORLD_SIZE=str(n),
+               LOCAL_WORLD_SIZE=str(n),
                PYTHONPATH=os.pathsep.join(
                    [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")]
                                  if p]))
-    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True,
-                            start_new_session=True)
-    try:
-        out, _ = proc.communicate(timeout=timeout_s)
-    except subprocess.TimeoutExpired:
-        os.killpg(proc.pid, signal.SIGKILL)
-        out, _ = proc.communicate()
-        raise SmokeFailure(f"the ring's ranks passed {timeout_s} s:"
-                           f"\n{out[-6000:]}")
+    logs = [Path(out_dir) / f"rank{i}.log" for i in range(n)]
+    procs = []
+    for i, path in enumerate(logs):
+        with open(path, "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), entry,
+                 str(out_dir)], env=dict(env, RANK=str(i), LOCAL_RANK=str(i)),
+                stdout=f, stderr=subprocess.STDOUT, start_new_session=True))
+    deadline, failed = time.monotonic() + timeout_s, None
+    while failed is None:
+        codes = [p.poll() for p in procs]
+        if all(c == 0 for c in codes):
+            break
+        bad = [i for i, c in enumerate(codes) if c not in (None, 0)]
+        if bad:
+            failed = f"rank {bad[0]} exited {codes[bad[0]]}"
+        elif time.monotonic() > deadline:
+            failed = f"the ring's ranks passed {timeout_s} s"
+        else:
+            time.sleep(0.05)
+    for p in procs:
+        if p.poll() is None:
+            os.killpg(p.pid, signal.SIGKILL)
+        p.wait()
+    out = "".join(f"--- rank {i}\n{path.read_text(errors='replace')}"
+                  for i, path in enumerate(logs))
     for line in out.splitlines():
         if "[plan]" in line or "WaferPlan" in line or "Traceback" in line:
             log(f"  rank output: {line}")
-    need(proc.returncode == 0,
-         f"the ring's ranks failed (exit {proc.returncode}):\n{out[-8000:]}")
+    need(failed is None, f"the ring's ranks failed ({failed}):\n"
+         f"{out[-8000:]}")
 
 
 def degree1_parity(torch, spec=None):
@@ -4520,9 +4662,9 @@ RING_ENGINE = dict(arch="deepseek-7b", layers=4, max_batch=4, prompt_len=128,
 RING_ENGINE_RATE = 0.5
 RING_ENGINE_FAULT_AT = 7.0
 # (label, requests, --fault-frac or None, the mesh the run ends on); the
-# fault-free run 4 requests since phase 13's part (e) needed the time (6
-# before)
-RING_ENGINE_RUNS = (("fault-free", 4, None, (1, 4)),
+# fault-free run 3 requests since the whole run needed the time (6 until
+# phase 13's part (e) did, 4 until then)
+RING_ENGINE_RUNS = (("fault-free", 3, None, (1, 4)),
                     ("fault 1/8", 4, 0.125, (1, 4)),
                     ("fault 1/4", 4, 0.25, (2, 2)))
 # fp32 parity (TF32 off): 2 layers at full width under the same plan, the
@@ -4977,8 +5119,9 @@ WINDOW_SERVE = dict(arch="gemma2-9b", layers=4, batch=1, prompt_len=8192,
 WINDOW_SERVE_FLASH = [4, 8, 12, 14]
 # (c) engine mode through launch.serve --serve --auto-plan (the full
 # model's ServePlan for 4 slots x 4612 tokens is tatp on (1, 4)), 4
-# layers, bf16, prompts of 4608 tokens (past the window), 4 new tokens,
-# at a fixed 0.5 requests a second.  Set from a first run's call times (a
+# layers, bf16, 3 requests (4 until the whole run needed the time) of
+# 4608 prompt tokens (past the window), 4 new tokens each, at a fixed 0.5
+# requests a second.  Set from a first run's call times (a
 # prefill group, padded to 4 x 4608, 3.37 s; a decode call 0.30 s): the
 # slots served 0.936/s, 0.8/s queued (85 %) and 0.5/s was 53 %.  The share
 # moves with the host: 49-57 % of the 0.87-1.03/s of later runs, 32 % of
@@ -4986,7 +5129,7 @@ WINDOW_SERVE_FLASH = [4, 8, 12, 14]
 # it as offered_share and holds it to nothing
 WINDOW_ENGINE = dict(arch="gemma2-9b", layers=4, max_batch=4,
                      prompt_len=4608, max_new=4)
-WINDOW_ENGINE_REQUESTS = 4
+WINDOW_ENGINE_REQUESTS = 3
 WINDOW_ENGINE_RATE = 0.5
 WINDOW_S = 45  # the phase's budget of wall clock
 
@@ -5599,8 +5742,9 @@ def ring_train_degree1(torch, path, spec=None):
     ``init_params``, same seed): each step's loss, the global grad norm
     and, for each ring of 4 and 2, the norm of the gradient restricted to
     each model index's shards (the norm a ring rank clips by: the
-    reference's AdamW psums it over the data axes, not the ring); the
-    final parameters to ``path`` (by leaf name) for the ranks to read.
+    reference's AdamW psums it over the data axes, not the ring), over
+    ``spec["loss_steps"]`` steps where given; the parameters after
+    ``spec["steps"]`` to ``path`` (by leaf name) for the ranks to read.
     Then the same run with every kernel hook replaced by its plain
     version: each leaf's final rel L2 between the two is what fp32's
     order of summation alone moves it (``floor``)."""
@@ -5633,7 +5777,8 @@ def ring_train_degree1(torch, path, spec=None):
         params, state = tb.init_fn(
             torch.Generator(device=dev).manual_seed(spec["seed"]))
         data = SyntheticDataset(cfg, shape, Dist(dev), seed=spec["seed"])
-        for step in range(spec["steps"]):
+        for step in range(spec["steps"] if hooks
+                          else spec.get("loss_steps", spec["steps"])):
             nll, cnt, grads = loss_and_grads(tb.ctx, params,
                                              data.batch(step))
             if not hooks and step == 0 and spec.get("grads"):
@@ -5651,7 +5796,9 @@ def ring_train_degree1(torch, path, spec=None):
             if not hooks:
                 out["grad_norms"].append(float(om["grad_norm"]))
             del grads
-        finals.append({"/".join(k): p.cpu() for k, p in _leaves(params)})
+            if step + 1 == spec["steps"]:
+                finals.append({"/".join(k): p.cpu()
+                               for k, p in _leaves(params)})
         del params, state
         release(torch)
     torch.save(finals[0], path)
@@ -5790,7 +5937,7 @@ def ring_train_bf16(torch, rank, spec=None):
 
 
 def ring_train_rank_main(out_dir) -> int:
-    """One rank of phase 12, started by ``torch.distributed.run``: the
+    """One rank of phase 12, started by :func:`run_ranks`: the
     fp32 parity runs on each mesh, then the bf16 train, its record to
     ``rank<rank>.json``."""
     sys.path.insert(0, str(SRC))
@@ -6029,6 +6176,19 @@ RING_FRONTEND_SEED = 4
 # the same step with zigzag on the permuted batch, its loss against (ii)'s
 RING_WINDOW_TRAIN = dict(arch="gemma2-9b", layers=4, batch=1, seq=8192,
                          steps=1, mesh=(1, 4), seed=0)
+# what the backward decides, against degree 1's bf16 step on the same
+# weights and batch (WINDOW_GRADS: its gradient leaves, in the phase's
+# directory): (ii)'s and (iii)'s grad norms, each rank's against degree
+# 1's norm on that rank's shards, and (iii)'s every gradient leaf on this
+# rank (relative L2, after the model-axis reduction).  Measured on the
+# H100: the norms 2.6-2.8e-4 apart, the leaves 3.3e-3 to 1.18e-2 (the
+# worst layers/u0/wk, an L slot's; bf16 gradients summed in another
+# order); the limits are about 3.5 and 2.5 times the worst, and a
+# round whose dK/dV went missing or landed on the wrong rows would move
+# the L slots' wk and wv by tens of percent
+WINDOW_GRADS = "window_grads.pt"
+WINDOW_GRAD_NORM_TOL = 1e-3
+WINDOW_GRAD_REL_TOL = 3e-2
 # the backward's offset sweep: WINDOW_SWEEP's shapes at these head dims
 # (mma.sync at 64, wgmma at 128 and 256 in bf16; simt in fp32)
 WINDOW_BWD_DIMS = (64, 128, 256)
@@ -6303,16 +6463,21 @@ def frontend_degree1(torch):
     return out
 
 
-def window_train_degree1(torch):
-    """(e)(ii)'s degree-1 loss: RING_WINDOW_TRAIN's model and first batch
-    at degree 1 on the card, forward only (a step's loss is that of its
-    parameters before the update), on the weights ``init_params`` draws
-    from the launch's seed, which the ranks draw shard by shard."""
+def window_train_degree1(torch, path):
+    """(e)'s degree-1 run: RING_WINDOW_TRAIN's model and first batch at
+    degree 1 on the card, bf16, on the weights ``init_params`` draws from
+    the launch's seed, which the ranks draw shard by shard: the loss and
+    gradients of one step (a step's loss is that of its parameters before
+    the update), each gradient leaf to ``path`` (by leaf name) for the
+    ranks to read, and the norm of the gradient restricted to each model
+    index's shards of the ring (the norm a ring rank clips by):
+    ``(loss, shard norms)``."""
     from repro_torch.configs.base import ParallelConfig, ShapeConfig
     from repro_torch.core.dist import Dist
-    from repro_torch.models import lm
-    from repro_torch.models.transformer import RunCtx, init_params
+    from repro_torch.models.transformer import (RunCtx, init_params,
+                                                param_specs)
     from repro_torch.train.data import SyntheticDataset
+    from repro_torch.train.train_loop import loss_and_grads
 
     spec = RING_WINDOW_TRAIN
     dev = torch.device("cuda")
@@ -6322,26 +6487,37 @@ def window_train_degree1(torch):
         spec["seed"]), dev)
     ctx = RunCtx(cfg, ParallelConfig(strategy="tatp", remat=True), dist,
                  phase="train")
-    with torch.no_grad():
-        nll, cnt, _ = lm.loss_fn(ctx, params, SyntheticDataset(
-            cfg, shape, dist).batch(0))
+    nll, cnt, grads = loss_and_grads(ctx, params, SyntheticDataset(
+        cfg, shape, dist).batch(0))
     loss = float(nll / cnt)
-    del params
+    grads = {"/".join(k): g for k, g in _leaves(grads)}
+    specs = {"/".join(k): v for k, v in _leaves(param_specs(cfg, "tatp"))}
+    r = spec["mesh"][1]
+    norms = [math.sqrt(sum(float(_model_cut(g, specs[k], r, m).float()
+                                 .pow(2).sum()) for k, g in grads.items()))
+             for m in range(r)]
+    torch.save({k: g.cpu() for k, g in grads.items()}, path)
+    del params, grads
     release(torch)
-    return loss
+    return loss, norms
 
 
-def check_window_train(recs, degree1_loss, runs):
-    """(e)'s checks on the ranks' records: (i) every rank's output and
-    gradients within GRAD_REL_TOL (relative L2) of degree 1's, and its
-    hook's forward and backward launches those of
+def check_window_train(recs, degree1, runs):
+    """(e)'s checks on the ranks' records against ``degree1``, the
+    degree-1 loss and shard norms (:func:`window_train_degree1`): (i)
+    every rank's output and gradients within GRAD_REL_TOL (relative L2) of
+    degree 1's, and its hook's forward and backward launches those of
     :func:`window_round_launches`, all on ``simt``; (ii) and (iii) exact
     launches (:func:`window_train_launches`: kernels, GEMM layouts, paths,
     the flash backwards with an outside delta), (ii)'s loss within
     RING_TRAIN_BF16_TOL of degree 1's and (iii)'s of (ii)'s, every rank's
-    the same.  Adds each rank's two steps to ``runs``; returns the checks,
-    the per-rank summary and the flash backwards with an outside delta."""
+    the same; each rank's grad norm within WINDOW_GRAD_NORM_TOL of degree
+    1's on its shards, and (iii)'s every gradient leaf within
+    WINDOW_GRAD_REL_TOL of degree 1's.  Adds each rank's two steps to
+    ``runs``; returns the checks, the per-rank summary and the flash
+    backwards with an outside delta."""
     spec = RING_WINDOW_TRAIN
+    degree1_loss, degree1_norms = degree1
     r, tokens = spec["mesh"][1], spec["seq"]
     cfg, acfg = window_cfg(spec["layers"]), window_cfg(2)
     checks, per_rank, delta_in = [], [], 0
@@ -6367,7 +6543,14 @@ def check_window_train(recs, degree1_loss, runs):
             loss = b["losses"][0] if kind == "contiguous" else b["loss"]
             base = degree1_loss if kind == "contiguous" else first
             rel = abs(loss - base) / abs(base)
+            norm = (b["grad_norms"][0] if kind == "contiguous"
+                    else b["grad_norm"])
+            norm_rel = abs(norm - degree1_norms[i]) / degree1_norms[i]
             checks += [
+                (norm_rel <= WINDOW_GRAD_NORM_TOL,
+                 f"rank {g}: gemma2-9b {kind} grad norm {norm} vs degree "
+                 f"1's {degree1_norms[i]} on its shards: {norm_rel:.3e} > "
+                 f"{WINDOW_GRAD_NORM_TOL}"),
                 (b["launches"] == want,
                  f"rank {g}: gemma2-9b {kind} step launches {b['launches']},"
                  f" want {want}"),
@@ -6392,7 +6575,17 @@ def check_window_train(recs, degree1_loss, runs):
                                  {k: dict(v) for k, v in
                                   b["launches_by_path"].items()})
             delta_in += b["delta_in_launches"]
+        worst = max(w["zigzag"]["grad_rel_l2"].items(), key=lambda kv: kv[1])
+        checks.append((
+            worst[1] <= WINDOW_GRAD_REL_TOL,
+            f"rank {g}: gemma2-9b zigzag gradient {worst[0]} {worst[1]:.3e} "
+            f"from degree 1's (relative L2) > {WINDOW_GRAD_REL_TOL}"))
         per_rank.append(dict(
+            grad_norms=[w["contiguous"]["grad_norms"][0],
+                        w["zigzag"]["grad_norm"]],
+            degree1_grad_norm=degree1_norms[i],
+            zigzag_grad_rel_l2=dict(sorted(
+                w["zigzag"]["grad_rel_l2"].items(), key=lambda kv: -kv[1])),
             coords=w["attention"]["coords"],
             attention_rel_l2={k: w["attention"][k]["rel_l2"]
                               for k in ("contiguous", "zigzag")},
@@ -6759,29 +6952,37 @@ def window_ring_attention(torch):
     return dict(coords=list(dist.coords), **out)
 
 
-def window_zigzag_step(torch, rank):
+def window_zigzag_step(torch, rank, path):
     """(e)(iii) on this rank: (ii)'s step (``launch.train``'s model,
     seed, batch and remat) with zigzag, on its batch permuted by
-    ``zigzag_permutation``, through ``make_train_step``: its loss, the
-    launches by kernel, layout and path from zero, the flash backwards
-    with an outside delta, the step's ms, the GB this rank staged and its
-    peak GB."""
+    ``zigzag_permutation``, through ``make_train_step``'s bundle, its step
+    made as ``step_fn`` makes it (``loss_and_grads``, the model-axis
+    reduction, the optimizer) so that between the halves each gradient
+    leaf is held to its block of degree 1's at ``path`` (its rel L2, the
+    psum over ``data`` taken: :func:`ring_grad_errors`'s rule): its loss,
+    grad norm and leaf errors, the launches by kernel, layout and path
+    from zero, the flash backwards with an outside delta, the step's ms
+    (without the comparison), the GB this rank staged and its peak GB."""
     import numpy as np
 
     from repro_torch.configs.base import ParallelConfig, ShapeConfig
     from repro_torch.core.dist import make_mesh_dist
     from repro_torch.kernels.flash_attention.ops import attention_bwd
     from repro_torch.models.attention import zigzag_permutation
+    from repro_torch.models.transformer import param_specs
     from repro_torch.train.data import SyntheticDataset
-    from repro_torch.train.train_loop import make_train_step, shard_batch
+    from repro_torch.train.train_loop import (loss_and_grads,
+                                              make_train_step,
+                                              reduce_model_axis_grads,
+                                              shard_batch, token_axes)
 
     spec = RING_WINDOW_TRAIN
     dev = torch.device("cuda", torch.cuda.current_device())
     cfg = window_cfg(spec["layers"])
     dist = make_mesh_dist(spec["mesh"], dev)
     shape = ShapeConfig("ring", "train", spec["seq"], spec["batch"])
-    tb = make_train_step(cfg, ParallelConfig(strategy="tatp", remat=True,
-                                             zigzag=True), dist, shape)
+    par = ParallelConfig(strategy="tatp", remat=True, zigzag=True)
+    tb = make_train_step(cfg, par, dist, shape)
     params, state = tb.init_fn(torch.Generator(device=dev).manual_seed(
         spec["seed"]))
     host = SyntheticDataset(cfg, shape, dist)._host_batch(0)
@@ -6796,26 +6997,45 @@ def window_zigzag_step(torch, rank):
     sent = dist.stage.bytes
     zero_launches()
     t0 = time.perf_counter()
-    params, state, m = tb.step_fn(params, state, batch)
-    loss = float(m["loss"])
-    step_ms = (time.perf_counter() - t0) * 1e3
+    nll, cnt, grads = loss_and_grads(tb.ctx, params, batch)
+    grads = reduce_model_axis_grads(grads, tb.pspecs, par, dist)
+    torch.cuda.synchronize()
+    grads_s = time.perf_counter() - t0
+    ref = torch.load(path, mmap=True, map_location="cpu")
+    specs = {"/".join(k): v for k, v in _leaves(param_specs(cfg, "tatp"))}
+    errs = {}
+    for k, g in _leaves(grads):
+        name = "/".join(k)
+        want = _model_cut(ref[name], specs[name], dist.model_degree,
+                          dist.axis_index(dist.model_axis))
+        errs[name] = rel_l2(dist.psum(g, "data"), want.to(g.device))
+    del ref
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, state, om = tb.opt.update(params, grads, state)
+    for a in token_axes(par, dist):
+        nll = dist.psum(nll, a)
+    loss = float(nll / cnt)
+    step_ms = (grads_s + time.perf_counter() - t0) * 1e3
     need(step_ms <= RING_TRAIN["step_s"] * 1e3,
          f"rank {rank}: the zigzag step took {step_ms:.0f} ms")
-    rec = dict(coords=list(dist.coords), loss=loss, step_ms=step_ms,
-               launches=read_launches(), layouts=read_layouts(),
-               launches_by_path=read_paths(),
+    rec = dict(coords=list(dist.coords), loss=loss,
+               grad_norm=float(om["grad_norm"]), grad_rel_l2=errs,
+               step_ms=step_ms, launches=read_launches(),
+               layouts=read_layouts(), launches_by_path=read_paths(),
                delta_in_launches=attention_bwd.launches_delta_in,
                staged_gb=(dist.stage.bytes - sent) / 1e9,
                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
-    del params, state, m, tb
+    del params, state, om, grads, tb
     release(torch)
     return rec
 
 
-def ring_window_train(torch, rank):
+def ring_window_train(torch, rank, out_dir):
     """(e) on this rank: (i) :func:`window_ring_attention`, (ii)
     RING_WINDOW_TRAIN's step through ``launch.train`` (:func:`ring_train_
-    bf16`), (iii) :func:`window_zigzag_step`, each with its wall clock."""
+    bf16`), (iii) :func:`window_zigzag_step` against the degree-1
+    gradients in ``out_dir``, each with its wall clock."""
     rec, t0 = {}, time.perf_counter()
     rec["attention"] = window_ring_attention(torch)
     release(torch)
@@ -6825,14 +7045,17 @@ def ring_window_train(torch, rank):
     release(torch)
     rec["contiguous_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    rec["zigzag"] = window_zigzag_step(torch, rank)
+    rec["zigzag"] = window_zigzag_step(torch, rank,
+                                       Path(out_dir) / WINDOW_GRADS)
     rec["zigzag_s"] = time.perf_counter() - t0
     return rec
 
 
 def ring_more_rank_main(out_dir) -> int:
-    """One rank of phase 13, started by ``torch.distributed.run``: (a) to
-    (e), each part's wall clock, its record to ``rank<rank>.json``."""
+    """One rank of phase 13, started by :func:`run_ranks`: (a) to
+    (e), each part's wall clock, its record to ``rank<rank>.json``, with
+    the clock times it started, joined the group and finished."""
+    t_entry = time.time()
     sys.path.insert(0, str(SRC))
     import torch
     import torch.distributed as tdist
@@ -6846,6 +7069,7 @@ def ring_more_rank_main(out_dir) -> int:
     init_world(RING_MORE["backend"])
     try:
         rec, laps = dict(rank=rank), {}
+        clock = dict(entry=t_entry, ready=time.time())
         t0 = time.perf_counter()
         rec["restart"] = ring_restart(torch, out_dir, rank)
         laps["restart"] = time.perf_counter() - t0
@@ -6861,9 +7085,9 @@ def ring_more_rank_main(out_dir) -> int:
         rec["frontends"] = ring_frontends(torch)
         laps["frontends"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        rec["window_train"] = ring_window_train(torch, rank)
+        rec["window_train"] = ring_window_train(torch, rank, out_dir)
         laps["window_train"] = time.perf_counter() - t0
-        rec["laps"] = laps
+        rec["laps"], rec["clock"] = laps, dict(clock, done=time.time())
         (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(rec))
     finally:
         tdist.destroy_process_group()
@@ -6906,7 +7130,7 @@ def phase_ring_more(torch, randn):
     """Phase 13: the rest of the train ring on four ranks sharing the card
     (gloo): the zigzag launch's rows, the backward kernels at query
     offsets (:func:`window_bwd_sweep`, :func:`window_bwd_rows`) and the
-    degree-1 losses in this process, then ``torch.distributed.run`` of this
+    degree-1 losses in this process, then :func:`run_ranks` of this
     script's ``--ring-more-rank`` (a) to (e).  Returns the zigzag rows, the
     bf16 runs' launches (by kernel, layout and path) for the kernels line,
     the flash backwards with an outside delta they launched, and the
@@ -6925,16 +7149,16 @@ def phase_ring_more(torch, randn):
                   rows=window_bwd_rows(torch, randn))
     release(torch)
     rows_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    degree1 = frontend_degree1(torch)
-    window_loss = window_train_degree1(torch)
-    degree1_s = time.perf_counter() - t0
     r = RING_MORE["ranks"]
     shm = "/dev/shm" if os.path.isdir("/dev/shm") else None
     with tempfile.TemporaryDirectory(dir=shm) as tmp:
         t0 = time.perf_counter()
+        degree1 = frontend_degree1(torch)
+        window1 = window_train_degree1(torch, Path(tmp) / WINDOW_GRADS)
+        degree1_s = time.perf_counter() - t0
+        t0, launched = time.perf_counter(), time.time()
         run_ranks(torch, tmp, "--ring-more-rank", RING_MORE["timeout_s"])
-        ranks_s = time.perf_counter() - t0
+        ranks_s, returned = time.perf_counter() - t0, time.time()
         recs = [json.loads((Path(tmp) / f"rank{i}.json").read_text())
                 for i in range(r)]
     checks = check_ring_restart(recs)
@@ -7049,15 +7273,23 @@ def phase_ring_more(torch, randn):
         f"{json.dumps(degree1)}: {json.dumps(fronts)}")
 
     # (e) gemma2-9b's windowed layers trained over the ring
-    more, per_rank, more_delta = check_window_train(recs, window_loss, runs)
+    more, per_rank, more_delta = check_window_train(recs, window1, runs)
     checks += more
     delta_in += more_delta
     spec = RING_WINDOW_TRAIN
     log(f"[window train] gemma2-9b {spec['layers']} layers bf16 batch "
         f"{spec['batch']} x seq {spec['seq']} mesh {spec['mesh']}, remat: "
-        f"degree-1 loss {window_loss}; per rank {json.dumps(per_rank)} "
+        f"degree-1 loss {window1[0]}, grad norm on each rank's shards "
+        f"{window1[1]}; per rank {json.dumps(per_rank)} "
         f"({CARD['smi']})")
-    summary = dict(ranks_wall_s=ranks_s, degree1_s=degree1_s,
+    # the pool's own cost: from the launch to the first rank's entry and
+    # to the last one's joining the group, and from the last one's end to
+    # the launcher's return
+    clocks = [rec["clock"] for rec in recs]
+    pool = dict(to_first_entry_s=min(c["entry"] for c in clocks) - launched,
+                to_last_ready_s=max(c["ready"] for c in clocks) - launched,
+                after_last_done_s=returned - max(c["done"] for c in clocks))
+    summary = dict(ranks_wall_s=ranks_s, pool=pool, degree1_s=degree1_s,
                    window_rows_s=rows_s,
                    window_train_s=max(rec["laps"]["window_train"]
                                       for rec in recs),
@@ -7435,7 +7667,7 @@ def ssm_ring_serve(torch, out_dir, rank, arch, layers):
 
 
 def ssm_ring_rank_main(out_dir) -> int:
-    """One rank of phase 14, started by ``torch.distributed.run``: (a) the
+    """One rank of phase 14, started by :func:`run_ranks`: (a) the
     fp32 serve parity, (b) and (c) the bf16 serves, (d) the fp32 train
     parity and the bf16 step under both remat policies; each part's wall
     clock; its record to ``rank<rank>.json``."""
@@ -7525,7 +7757,7 @@ def phase_ssm_ring(torch, randn):
     """Phase 14: the Mamba-2 block over the TATP ring on four ranks
     sharing the card (gloo, host-staged).  The local SSD rows and every
     degree-1 reference run in this process first, then
-    ``torch.distributed.run`` of this script's ``--ssm-ring-rank``.
+    :func:`run_ranks` of this script's ``--ssm-ring-rank``.
     Returns the SSD rows, mamba2's GEMM tile rows, the bf16 serves'
     launches (by kernel and path) and the bf16 steps' (by kernel, layout
     and path) for the kernels line."""
@@ -7743,10 +7975,12 @@ MOE_RING_TRAIN_PARITY = dict(arch="olmoe-1b-7b", n_layers=1, batch=2,
                              meshes=((2, 2),),
                              overrides=MOE_RING_PARITY["overrides"])
 # (b) megatron: phase 12's fp32 model (deepseek-7b, 2 layers at full width,
-# batch 4 x seq 128, 2 steps, clip off) at (1, 4) and (2, 2), by phase 12's
-# rules, and every gradient leaf of the first step against degree 1's
+# batch 4 x seq 128, 1 step, clip off) at (1, 4) and (2, 2), by phase 12's
+# rules, and every gradient leaf of the step against degree 1's (2 steps
+# until the whole run needed the time); its degree-1 run goes on to a
+# second step's loss, which (c) is held to
 MEG_PARITY = dict(RING_TRAIN_PARITY, strategy="megatron", grads=True,
-                  steps=2)
+                  loss_steps=2)
 # a gradient leaf's rel L2 from degree 1's: fp32 sums in another order
 # (each row-parallel product split over the ring, then psummed)
 MEG_GRAD_TOL = 1e-4
@@ -7762,8 +7996,9 @@ MEG_REMAT = dict(RING_REMAT, strategy="megatron", tol=1e-2)
 # (c) int8 gradient compression: MEG_PARITY's model at (2, 2) under
 # megatron (no weight blocks on the wire, so the ZeRO-1 reductions and the
 # residuals' gather are what the time buys), its 2 steps' losses within
-# tol of the degree-1 run's uncompressed ones
-COMPRESS = dict(mesh=(2, 2), tol=1e-2)
+# tol of the degree-1 run's uncompressed ones (the second loss is the
+# first that a compressed gradient moves)
+COMPRESS = dict(mesh=(2, 2), steps=MEG_PARITY["loss_steps"], tol=1e-2)
 # (d) what the reference cannot run: (what, arch, strategy, entry point);
 # internvl2-1b's 2 kv heads are fewer than the ring's 4 ranks
 C5_CALLS = (("fsdp above degree 1", "deepseek-7b", "fsdp", "train"),
@@ -8109,7 +8344,7 @@ def ring_compress(torch, dev):
     data = SyntheticDataset(cfg, shape, dist, seed=spec["seed"],
                             strategy=spec["strategy"])
     losses = []
-    for step in range(spec["steps"]):
+    for step in range(COMPRESS["steps"]):
         params, state, m = tb.step_fn(params, state, data.batch(step))
         losses.append(float(m["loss"]))
     errs = [e for _, e in _leaves(state.err)]
@@ -8124,7 +8359,7 @@ def ring_compress(torch, dev):
 
 
 def other_rank_main(out_dir) -> int:
-    """One rank of phase 15, started by ``torch.distributed.run``: (a)
+    """One rank of phase 15, started by :func:`run_ranks`: (a)
     olmoe's fp32 parity, bf16 serve, fp32 train parity and bf16 step; (b)
     megatron's fp32 train parity, bf16 prefill and bf16 step under both
     remat policies; (c) int8 compression; each part's wall clock; its
@@ -8231,7 +8466,7 @@ def phase_other(torch, randn, degree1, train_outs):
     5's degree-1 bf16 deepseek-7b serve (its prefill's last logits and
     tokens), ``train_outs`` phase 5's train runs (their first losses).
     The kernel rows, the C5 raises and every degree-1 run the ranks are
-    held to come first, in this process; then ``torch.distributed.run``
+    held to come first, in this process; then :func:`run_ranks`
     of this script's ``--other-rank``.  Returns the rows and the bf16
     runs' launches (serves: by kernel and path; steps: by kernel, layout
     and path) for the kernels line."""
@@ -8511,7 +8746,15 @@ def main() -> int:
             f"({laps[-1][1] - t_start:.1f} s in all)")
 
     name, smi = phase_device(torch)
+    flex_join = start_flex_warm(torch)
     phase_build()
+    try:
+        log(f"[build] flex_attention's compiles beside the build: "
+            f"{json.dumps({n: round(s, 1) for n, s in flex_join().items()})}"
+            f" ({time.perf_counter() - t_start:.1f} s in all)")
+    except Exception as e:  # the yardsticks compile them instead
+        log(f"[build] flex_attention's compiles beside the build failed "
+            f"({type(e).__name__}: {e}); the yardsticks compile them")
     lap("build")
     kernels = phase_kernels(torch)
     randn = make_randn(torch, 1)
