@@ -177,26 +177,18 @@ def test_write_kv_cache(pos):
     assert got_k is tk and got_v is tv  # updated in place
 
 
-class _MirrorDist(Dist):
-    """Rank 0 of a ring of two in one process, whose neighbour holds the
-    same block: every relay returns what it was given."""
-
-    def _ppermute_raw(self, items, axis):
-        return [tuple(t.clone() for t in x) if isinstance(x, tuple)
-                else x.clone() for x, _ in items]
-
-
 def test_ring_paths_raise_with_roadmap_item():
     """A sliding window in ring attention's backward runs (against the
     reference on real ranks: ``tests/test_torch_ring_window_train.py``):
     on rank 0 of a causal ring of two the later block is invisible, so its
     output and gradients are the windowed local attention's."""
     from repro_torch.kernels.flash_attention.ref import attention_ref
+    from test_torch_ring import _mirror_dist
 
     rng = np.random.RandomState(5)
     q, k, v, do = (torch.from_numpy(rng.randn(1, 4, h, 16).astype(
         np.float32)) for h in (4, 2, 2, 4))
-    dist = _MirrorDist(torch.device("cpu"), mesh_shape=(1, 2))
+    dist = _mirror_dist()
 
     def grads(fn):
         leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
