@@ -13,8 +13,11 @@ import importlib
 from repro_torch.configs.base import (
     ModelConfig,
     ParallelConfig,
+    SHAPES,
+    SUBQUADRATIC_FAMILIES,
     ShapeConfig,
     reduced_config,
+    shape_applicable,
 )
 
 # arch id -> module name
@@ -53,8 +56,11 @@ __all__ = [
     "ARCHITECTURES",
     "ModelConfig",
     "ParallelConfig",
+    "SHAPES",
+    "SUBQUADRATIC_FAMILIES",
     "ShapeConfig",
     "get_config",
     "get_reduced",
     "reduced_config",
+    "shape_applicable",
 ]

@@ -172,6 +172,23 @@ class ShapeConfig:
     global_batch: int
 
 
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524_288, 1),
+}
+
+# archs allowed to run long_500k (sub-quadratic sequence mixing)
+SUBQUADRATIC_FAMILIES = ("ssm", "hybrid")
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> bool:
+    if shape.name == "long_500k":
+        return cfg.family in SUBQUADRATIC_FAMILIES
+    return True
+
+
 @dataclass(frozen=True)
 class ParallelConfig:
     """Degrees of each parallel dimension and the runnable strategy knobs

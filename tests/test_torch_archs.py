@@ -227,6 +227,30 @@ def test_host_batch_at_full_width_matches_reference(arch):
         assert dev["prefix_embeds"].dtype == torch.float32
 
 
+@pytest.mark.parametrize("name", ["train_4k", "prefill_32k", "decode_32k",
+                                  "long_500k"])
+def test_shapes_match_reference(name):
+    """The dry-run's input shapes are the reference's, field for field,
+    and each architecture runs the same of them (``long_500k`` only with
+    sub-quadratic sequence mixing)."""
+    from dataclasses import asdict
+
+    from repro.configs import ARCHITECTURES as JAX_ARCHS
+    from repro.configs import SHAPES as JAX_SHAPES
+    from repro.configs import shape_applicable as jax_applicable
+    from repro.configs.base import SUBQUADRATIC_FAMILIES as JAX_SUBQ
+    from repro_torch.configs import (ARCHITECTURES, SHAPES,
+                                     SUBQUADRATIC_FAMILIES, shape_applicable)
+
+    assert list(SHAPES) == list(JAX_SHAPES)
+    assert asdict(SHAPES[name]) == asdict(JAX_SHAPES[name])
+    assert SUBQUADRATIC_FAMILIES == JAX_SUBQ
+    assert set(ARCHITECTURES) == set(JAX_ARCHS)
+    for arch in ARCHITECTURES:
+        assert shape_applicable(get_config(arch), SHAPES[name]) == \
+            jax_applicable(jax_config(arch), JAX_SHAPES[name]), arch
+
+
 # ---------------------------------------------------------------------------
 # the features one by one
 # ---------------------------------------------------------------------------
