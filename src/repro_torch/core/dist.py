@@ -1,12 +1,15 @@
 """Distribution context (counterpart of ``repro.core.dist``).
 
-The reference's ``Dist`` wraps a JAX mesh with ``data``/``model`` axes and
-its model code runs inside ``shard_map`` with per-shard arrays and explicit
-collectives (``lax.axis_index``, ``ppermute``, ``psum``, ``pmax``,
-``pmin``, ``all_gather``).  Here every rank is one process and its model
-code runs on its own shards; :class:`Dist` holds the ``(data, model)``
-mesh, this rank's coordinates on it and one ``torch.distributed`` process
-group per axis, and gives the same collectives as methods.
+The reference's ``Dist`` wraps a JAX mesh with ``data``/``model`` axes
+(and ``pod`` before them on the multi-pod mesh) and its model code runs
+inside ``shard_map`` with per-shard arrays and explicit collectives
+(``lax.axis_index``, ``ppermute``, ``psum``, ``pmax``, ``pmin``,
+``all_gather``).  Here every rank is one process and its model code runs
+on its own shards; :class:`Dist` holds the ``(data, model)`` or ``(pod,
+data, model)`` mesh, this rank's coordinates on it and one
+``torch.distributed`` process group per axis, and gives the same
+collectives as methods.  The batch is sharded over ``pod`` and ``data``
+together, pod-major (:meth:`Dist.batch_index`).
 
 ``Dist(device)`` alone is the one-device mesh ``(1, 1)``: every
 collective over an axis of size 1 is the identity, so degree-1 callers
@@ -26,8 +29,18 @@ picked by probing the machine.
 * ``nccl`` moves CUDA tensors in place; ranks that share a GPU raise
   (NCCL refuses them).
 
+* ``fake`` (``torch.testing._internal.distributed.fake_pg``) moves
+  nothing: one process traces one rank of a large mesh for the dry-run
+  (:mod:`repro_torch.launch.dryrun`).
+
 Every group has a timeout (:data:`GROUP_TIMEOUT_S`), so a lost rank fails
 the run instead of hanging it.
+
+Census: every collective a rank issues over an axis of more than one
+member adds its kind, one to its count and its bytes to
+:attr:`Dist.census` (:class:`Census`), on every backend, staged or not,
+by the reference dry-run's per-device conventions.  ``psum_scatter``, an
+all-reduce and a slice here, counts as the all-reduce it moves.
 
 Gradients: under autograd :meth:`Dist.ppermute` (and
 :meth:`Dist.ppermute_many`), :meth:`Dist.psum` and :meth:`Dist.all_to_all`
@@ -58,6 +71,7 @@ import torch.distributed as tdist
 
 MODEL_AXIS = "model"  # the TATP ring axis
 DATA_AXIS = "data"
+POD_AXIS = "pod"
 BATCH_AXES = ("pod", "data")  # axes that shard the batch dimension
 BACKENDS = ("gloo", "nccl")
 GROUP_TIMEOUT_S = 300
@@ -97,6 +111,40 @@ class HostStage:
         return buf[:nbytes]
 
 
+COLLECTIVE_KINDS = ("all-gather", "all-reduce", "reduce-scatter",
+                    "all-to-all", "collective-permute")
+
+
+class Census:
+    """The collectives a rank issued, by kind: ``count`` and ``bytes`` a
+    kind, in the reference dry-run's per-device wire bytes (its
+    ``collective_census``): a collective-permute its output bytes, an
+    all-gather output less input, an all-reduce twice its output, a
+    reduce-scatter input less output, an all-to-all its output."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.kinds = {k: {"count": 0, "bytes": 0} for k in COLLECTIVE_KINDS}
+
+    def add(self, kind: str, nbytes: int) -> None:
+        entry = self.kinds[kind]
+        entry["count"] += 1
+        entry["bytes"] += int(nbytes)
+
+    def as_dict(self) -> dict:
+        """The reference's record: each kind's ``count`` and ``bytes``, and
+        ``total_bytes``."""
+        out = {k: dict(v) for k, v in self.kinds.items()}
+        out["total_bytes"] = sum(v["bytes"] for v in self.kinds.values())
+        return out
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
 @dataclass(frozen=True)
 class AxisGroup:
     """One mesh axis's process group and its members' global ranks in
@@ -130,10 +178,14 @@ class _PPermute(torch.autograd.Function):
     """:meth:`Dist.ppermute_many` under autograd: ``items`` as ``(x,
     perm)`` with ``x`` flattened into the tensor inputs; the backward moves
     each floating output's cotangent along the inverse permutation (zeros
-    where none arrives), in one batch."""
+    where none arrives), in one batch.  An output no gradient reaches (one
+    that feeds only a ``detach``) relays nothing, as jax transposes no
+    symbolic zero; every rank runs the same graph, so the ranks agree on
+    which."""
 
     @staticmethod
     def forward(ctx, dist, axis, spec, *flat):
+        ctx.set_materialize_grads(False)
         ctx.dist, ctx.axis, ctx.spec = dist, axis, spec
         items, k = [], 0
         for n, perm in spec:
@@ -147,17 +199,19 @@ class _PPermute(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grads):
-        items, k = [], 0
+        items, sent, k = [], [], 0
         for n, perm in ctx.spec:
-            gs = tuple(g for g, f in zip(grads[k:k + n], ctx.floats[k:k + n])
-                       if f)
-            if gs:
-                items.append((gs, _inverse(perm)))
+            idx = [j for j in range(k, k + n)
+                   if ctx.floats[j] and grads[j] is not None]
+            if idx:
+                items.append((tuple(grads[j] for j in idx), _inverse(perm)))
+                sent += idx
             k += n
-        back = iter(t for res in ctx.dist._ppermute_raw(items, ctx.axis)
-                    for t in res)
+        moved = [t for res in ctx.dist._ppermute_raw(items, ctx.axis)
+                 for t in res] if items else []
+        back = dict(zip(sent, moved))
         return (None, None, None,
-                *[next(back) if f else None for f in ctx.floats])
+                *[back.get(j) for j in range(len(ctx.floats))])
 
 
 class _PSum(torch.autograd.Function):
@@ -219,25 +273,40 @@ def _bytes(t: torch.Tensor) -> torch.Tensor:
 
 @dataclass(frozen=True)
 class Dist:
-    """This rank's view of the ``(data, model)`` mesh.
+    """This rank's view of the ``(data, model)`` or ``(pod, data,
+    model)`` mesh.
 
-    ``coords`` is its ``(data, model)`` index; ``groups`` maps each axis
-    to its :class:`AxisGroup` (empty on one device); ``stage`` stages
-    gloo collectives of CUDA tensors (None without a process group)."""
+    ``coords`` is its index on each axis of ``mesh_shape``; ``groups``
+    maps each axis to its :class:`AxisGroup` (empty on one device);
+    ``stage`` stages gloo collectives of CUDA tensors (None without a
+    process group); ``census`` counts this rank's collectives."""
 
     device: torch.device
     model_axis: str = MODEL_AXIS
-    mesh_shape: tuple[int, int] = (1, 1)
-    coords: tuple[int, int] = (0, 0)
+    mesh_shape: tuple[int, ...] = (1, 1)
+    coords: tuple[int, ...] = (0, 0)
     backend: Optional[str] = None
     groups: dict = field(default_factory=dict, compare=False, repr=False)
     stage: Optional[HostStage] = field(default=None, compare=False,
                                        repr=False)
+    census: Census = field(default_factory=Census, compare=False,
+                           repr=False)
+
+    def __post_init__(self):
+        if len(self.mesh_shape) not in (2, 3) \
+                or len(self.coords) != len(self.mesh_shape):
+            raise ValueError(f"mesh {self.mesh_shape} with coordinates "
+                             f"{self.coords}: (data, model) or (pod, data, "
+                             f"model) expected")
+
+    @property
+    def axis_names(self) -> tuple[str, ...]:
+        names = (DATA_AXIS, self.model_axis)
+        return (POD_AXIS, *names) if len(self.mesh_shape) == 3 else names
 
     @property
     def axis_sizes(self) -> dict[str, int]:
-        return {DATA_AXIS: self.mesh_shape[0],
-                self.model_axis: self.mesh_shape[1]}
+        return dict(zip(self.axis_names, self.mesh_shape))
 
     @property
     def present_batch_axes(self) -> tuple[str, ...]:
@@ -245,15 +314,19 @@ class Dist:
 
     @property
     def model_degree(self) -> int:
-        return self.mesh_shape[1]
+        return self.mesh_shape[-1]
 
     @property
     def batch_degree(self) -> int:
-        return self.mesh_shape[0]
+        """The product of the batch axes' sizes (``pod`` times ``data``)."""
+        n = 1
+        for a in self.present_batch_axes:
+            n *= self.axis_sizes[a]
+        return n
 
     @property
     def n_devices(self) -> int:
-        return self.mesh_shape[0] * self.mesh_shape[1]
+        return self.batch_degree * self.model_degree
 
     def axis_size(self, axis: str) -> int:
         return self.axis_sizes[axis]
@@ -262,7 +335,15 @@ class Dist:
         """This rank's index on ``axis`` (``lax.axis_index``)."""
         if axis not in self.axis_sizes:
             raise ValueError(f"no mesh axis {axis!r} in {self.axis_sizes}")
-        return self.coords[0 if axis == DATA_AXIS else 1]
+        return self.coords[self.axis_names.index(axis)]
+
+    def batch_index(self) -> int:
+        """This rank's index over the batch axes together, pod-major: its
+        block of a batch sharded over ``(pod, data)``."""
+        i = 0
+        for a in self.present_batch_axes:
+            i = i * self.axis_sizes[a] + self.axis_index(a)
+        return i
 
     # ------------------------------------------------------------------
     # collectives (each returns a new tensor, as its lax counterpart)
@@ -328,7 +409,9 @@ class Dist:
             results.append(outs if isinstance(x, tuple) else outs[0])
         t0 = self._clock(moves[0][0])
         ops, back, sent = [], [], 0
-        for k, (t, o, dst, src) in enumerate(moves):
+        # the fake world moves nothing: its ranks build no messages
+        for k, (t, o, dst, src) in enumerate(
+                [] if self.backend == "fake" else moves):
             send, recv = _bytes(t), _bytes(o)
             if self._staged(t):
                 send = self.stage.buffer(("send", k), send.numel()).copy_(send)
@@ -347,6 +430,9 @@ class Dist:
         for dev_bytes, host in back:
             dev_bytes.copy_(host)
         self._tick(moves[0][0], t0, sent)
+        for x, _ in items:
+            self.census.add("collective-permute", sum(
+                _nbytes(t) for t in (x if isinstance(x, tuple) else (x,))))
         return results
 
     def _all_reduce(self, x: torch.Tensor, axis: str, op):
@@ -363,7 +449,8 @@ class Dist:
                          group=self.groups[axis].group)
         if buf is not out:
             out.copy_(buf)
-        self._tick(out, t0, out.numel() * out.element_size())
+        self._tick(out, t0, _nbytes(out))
+        self.census.add("all-reduce", 2 * _nbytes(out))
         return out
 
     def psum(self, x, axis: str):
@@ -429,13 +516,15 @@ class Dist:
         if staged:
             _bytes(out).copy_(recv)
         self._tick(x, t0, nbytes)
+        self.census.add("all-to-all", nbytes)
         return out if perm is None else out[perm]
 
     def psum_scatter(self, x, axis: str):
         """``lax.psum_scatter(x, axis, scatter_dimension=0, tiled=False)``:
         ``x`` is ``[axis size, ...]``; this rank gets row ``axis_index``
         of the sum over the axis.  Built from an all-reduce and a slice
-        (gloo has no reduce-scatter), staged as the other collectives."""
+        (gloo has no reduce-scatter), staged as the other collectives, and
+        counted in the census as the all-reduce it moves."""
         r = self.axis_size(axis)
         if x.shape[0] != r:
             raise ValueError(f"psum_scatter needs dim 0 of size {r}, got "
@@ -469,6 +558,7 @@ class Dist:
         if staged:
             _bytes(out).copy_(recv)
         self._tick(x, t0, nbytes)
+        self.census.add("all-gather", (r - 1) * nbytes)
         if not ag.axis_ordered():  # the group's order to the axis's
             out = out[list(ag.order)]
         return torch.cat(out.unbind(0), dim=dim)
@@ -531,56 +621,90 @@ def check_transport(backend: str, keys: Sequence[str]) -> None:
             f"through the host")
 
 
+def _axis_lines(shape: tuple[int, ...], order) -> list:
+    """``(axis, members)`` of every line of the mesh ``shape`` along each
+    of its axes, members in axis-index order: the ``(data, model)`` lines
+    as they have always been created, then the ``pod`` lines of a
+    three-axis mesh.  Mesh position ``p`` (row-major over ``shape``)
+    holds global rank ``order[p]``."""
+    pods, data, model = (1, *shape) if len(shape) == 2 else shape
+
+    def rank(p, d, m):
+        return order[(p * data + d) * model + m]
+
+    lines = []
+    for p in range(pods):
+        lines += [(DATA_AXIS, [rank(p, d, m) for d in range(data)])
+                  for m in range(model)]
+    for p in range(pods):
+        lines += [(MODEL_AXIS, [rank(p, d, m) for m in range(model)])
+                  for d in range(data)]
+    if len(shape) == 3:
+        lines += [(POD_AXIS, [rank(p, d, m) for p in range(pods)])
+                  for d in range(data) for m in range(model)]
+    return lines
+
+
 def make_mesh_dist(shape: Sequence[int], device="cuda",
                    order: Optional[Sequence[int]] = None,
                    ranks: Optional[Sequence[int]] = None) -> Optional[Dist]:
-    """The :class:`Dist` of this rank on a ``(data, model)`` mesh over the
-    initialised world (:func:`init_world`), or over its ``ranks`` (a
-    pipeline stage's block; default every rank).  Mesh position ``p = d *
-    model + m`` holds global rank ``order[p]`` (default: the ``p``-th of
-    ``ranks``); a lone degree is the data axis, as the reference's
-    ``--mesh D``.  Every rank of the world calls it and builds every axis
-    group in the same order, as ``torch.distributed.new_group`` requires;
-    a rank outside ``ranks`` gets None.  A mesh whose size is not that of
-    its ranks raises.  Without a process group, ``(1, 1)`` gives the
-    one-device ``Dist(device)``."""
+    """The :class:`Dist` of this rank on a ``(data, model)`` or ``(pod,
+    data, model)`` mesh over the initialised world (:func:`init_world`),
+    or over its ``ranks`` (a pipeline stage's block; default every rank).
+    Mesh position ``p`` (row-major over the shape, pod-major as the
+    reference's ``make_production_mesh`` lays it out: ``p = d * model +
+    m``, or ``(q * data + d) * model + m`` on pod ``q``) holds global
+    rank ``order[p]`` (default: the ``p``-th of ``ranks``); a lone degree
+    is the data axis, as the reference's ``--mesh D``.  Every rank of the
+    world calls it and builds every axis group in the same order, as
+    ``torch.distributed.new_group`` requires; a rank outside ``ranks``
+    gets None.  A mesh whose size is not that of its ranks raises.
+    Without a process group, ``(1, 1)`` gives the one-device
+    ``Dist(device)``.  Under the ``fake`` backend no rank's device is
+    probed: that world moves no bytes."""
     shape = tuple(shape)
-    data, model = (shape[0], 1) if len(shape) == 1 else shape
+    if len(shape) == 1:
+        shape = (shape[0], 1)
+    if len(shape) not in (2, 3):
+        raise ValueError(f"mesh {shape}: (data, model) or (pod, data, "
+                         f"model) expected")
+    size = 1
+    for n in shape:
+        size *= n
     dev = resolve_device(device)
     world = tdist.get_world_size() if tdist.is_initialized() else 1
     ranks = list(ranks) if ranks is not None else list(range(world))
-    if data * model != len(ranks):
-        raise ValueError(f"mesh ({data}, {model}) has {data * model} "
+    if size != len(ranks):
+        raise ValueError(f"mesh {shape} has {size} "
                          f"positions but the world has {len(ranks)} ranks")
     if world == 1:
-        return Dist(dev)
+        return Dist(dev) if len(shape) == 2 else Dist(
+            dev, mesh_shape=shape, coords=(0, 0, 0))
     backend = tdist.get_backend()
     order = list(order) if order is not None else ranks
     if sorted(order) != sorted(ranks) or len(set(ranks)) != len(ranks):
         raise ValueError(f"device order {order} is not a permutation of "
                          f"the ranks {ranks}")
-    keys = [None] * world
-    probe = tdist.new_group(backend="gloo", timeout=_timeout())
-    tdist.all_gather_object(keys, device_key(dev), group=probe)
-    check_transport(backend, [keys[g] for g in ranks])
+    if backend != "fake":
+        keys = [None] * world
+        probe = tdist.new_group(backend="gloo", timeout=_timeout())
+        tdist.all_gather_object(keys, device_key(dev), group=probe)
+        check_transport(backend, [keys[g] for g in ranks])
     me = tdist.get_rank()
     groups = {}
-    for axis, members in (
-            (DATA_AXIS, [[order[d * model + m] for d in range(data)]
-                         for m in range(model)]),
-            (MODEL_AXIS, [[order[d * model + m] for m in range(model)]
-                          for d in range(data)])):
-        for members_ in members:  # every rank creates every group
-            g = tdist.new_group(members_, timeout=_timeout())
-            if me in members_:
-                numbered = tdist.get_process_group_ranks(g)
-                groups[axis] = AxisGroup(
-                    g, tuple(members_),
-                    tuple(numbered.index(m) for m in members_))
+    for axis, members in _axis_lines(shape, order):
+        # every rank creates every group
+        g = tdist.new_group(members, timeout=_timeout())
+        if me in members:
+            numbered = tdist.get_process_group_ranks(g)
+            groups[axis] = AxisGroup(
+                g, tuple(members), tuple(numbered.index(m) for m in members))
     if me not in order:
         return None
-    pos = order.index(me)
-    return Dist(dev, mesh_shape=(data, model),
-                coords=(pos // model, pos % model), backend=backend,
-                groups=groups,
+    pos, coords = order.index(me), []
+    for n in reversed(shape):
+        coords.insert(0, pos % n)
+        pos //= n
+    return Dist(dev, mesh_shape=shape, coords=tuple(coords),
+                backend=backend, groups=groups,
                 stage=HostStage() if dev.type == "cuda" else None)

@@ -57,8 +57,10 @@ words.
 The train ring: under ``torch.distributed.run`` every rank joins the
 world (``--dist-backend``, gloo by default: ranks may share one card) and
 trains its rows and its sequence block on the ``--mesh D M`` (``data``,
-``model``) mesh, or on a plan's mesh for the world's size; rank 0 prints
-the summary::
+``model``) or ``--mesh P D M`` (``pod``, ``data``, ``model``: the rows
+over ``pod`` and ``data`` together, the gradients psummed over both,
+ZeRO-1 over ``data`` alone) mesh, or on a plan's mesh for the world's
+size; rank 0 prints the summary::
 
     PYTHONPATH=src python -m torch.distributed.run --standalone \
         --nproc-per-node 4 -m repro_torch.launch.train --arch deepseek-7b \
@@ -139,7 +141,7 @@ def setup(args):
     rank, world, _ = world_from_env()
     if world > 1 and not (args.plan or args.auto_plan or args.wafers > 1):
         # what the reference cannot run raises before the rank joins
-        model = args.mesh[1] if len(args.mesh) == 2 else 1
+        model = args.mesh[-1] if len(args.mesh) >= 2 else 1
         check_strategy(cfg, args.strategy, model)
     device = join_world(args)
     if args.wafers > 1:
@@ -198,7 +200,7 @@ def train(args, history=None, stats=None) -> dict:
     cfg, dist, par, plan = setup(args)
     if stats is not None:
         stats["dist"] = dist
-    first = dist.axis_index("data") == 0 and dist.axis_index(
+    first = dist.batch_index() == 0 and dist.axis_index(
         dist.model_axis) == 0
     bundle, data = build(cfg, dist, par, args.batch, args.seq)
     ckpt_meta = {}
@@ -279,9 +281,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--mesh", type=int, nargs="+", default=[1, 1],
-                    help="(data, model) mesh over torch.distributed.run's "
-                         "ranks (one number: data only); its size must be "
-                         "the world's")
+                    help="(data, model) or (pod, data, model) mesh over "
+                         "torch.distributed.run's ranks (one number: data "
+                         "only); its size must be the world's")
     ap.add_argument("--dist-backend", choices=("gloo", "nccl"),
                     default="gloo",
                     help="torch.distributed backend over several ranks: "

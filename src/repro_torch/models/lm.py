@@ -80,16 +80,18 @@ def streamed_vocab_embed(ctx: RunCtx, embed, tokens):
     """Vocab-parallel embedding of *sequence-sharded* tokens: the
     (token-block, partial-embedding) pair streams around the ring, every
     rank adds its vocab slice's rows as the block passes, and after R
-    one-hop transfers the block arrives home fully embedded."""
+    one-hop transfers the block arrives home fully embedded.  The ids
+    travel as int32, as the reference's."""
     r, axis, dist = ctx.r, ctx.axis, ctx.dist
     off = dist.axis_index(axis) * embed.shape[0]
     perm = [((p - 1) % r, p) for p in range(r)]  # blocks move +1
-    tok, acc = tokens, _vocab_contrib(embed, tokens, off)
-    for t in range(1, r + 1):
+    tok = tokens.to(torch.int32)
+    acc = _vocab_contrib(embed, tok, off)
+    for _ in range(1, r):
         tok, acc = dist.ppermute((tok, acc), axis, perm)
-        if t < r:
-            acc = acc + _vocab_contrib(embed, tok, off)
-    return acc  # back at the owner, complete
+        acc = acc + _vocab_contrib(embed, tok, off)
+    # the last hop takes the block home; its ids are not needed there
+    return dist.ppermute(acc, axis, perm)
 
 
 def embed_tokens(ctx: RunCtx, embed, tokens, prefix_embeds=None):
@@ -266,7 +268,7 @@ def streamed_vocab_xent(ctx: RunCtx, params, x, labels, valid):
     if r == 1:
         m, se, tgt = slice_stats(x, labels)
     else:
-        blk, stats = (x, labels), []
+        blk, stats = (x, labels.to(torch.int32)), []  # int32 on the wire
         for t in range(r):  # pass 1: rank j's stats[t] covers block j - t
             stats.append(slice_stats(*blk))
             if t < r - 1:
@@ -480,9 +482,11 @@ def decode_step(ctx: RunCtx, params, tokens, caches, cache_len):
     if ctx.r > 1:
         best = lmask.amax(dim=-1)
         top = ctx.dist.pmax(best, ctx.axis)
+        # the ids meet over the ring as int32, as the reference's
         next_tok = ctx.dist.pmin(
-            torch.where(best >= top, next_tok, torch.iinfo(torch.int64).max),
-            ctx.axis)
+            torch.where(best >= top, next_tok,
+                        torch.iinfo(torch.int32).max).to(torch.int32),
+            ctx.axis).to(torch.int64)
     return next_tok, logits, caches
 
 
@@ -530,13 +534,17 @@ def init_cache(ctx: RunCtx, batch_local: int, max_seq: int,
 def cache_specs(ctx: RunCtx, batch: int):
     """Each leaf's mesh axis per dim, in :func:`init_cache`'s structure,
     for a cache of ``batch`` global rows (the reference's ``cache_specs``
-    on the port's layout): the batch over ``data`` where its degree
-    divides ``batch``; K/V positions, the cross blocks' encoder positions
-    and the Mamba-2 state's heads over the ring; the conv tail replicated
-    over it.  An axis of degree 1 is None."""
+    on the port's layout): the batch over the batch axes where their
+    degree divides ``batch`` (``data``, or the pair ``("pod", "data")``
+    on a three-axis mesh, as the reference's ``baxes``); K/V positions,
+    the cross blocks' encoder positions and the Mamba-2 state's heads over
+    the ring; the conv tail replicated over it.  An axis of degree 1 is
+    None."""
     dist = ctx.dist
     deg = dist.batch_degree
-    b = "data" if deg > 1 and batch % deg == 0 else None
+    axes = dist.present_batch_axes
+    b = (axes[0] if len(axes) == 1 else axes) \
+        if deg > 1 and batch % deg == 0 else None
     mx = ctx.axis if ctx.r > 1 else None
     unit, _ = _unit_and_reps(ctx.cfg)
     kv = {n: (None, b, mx, None, None) for n in ("k", "v")}

@@ -143,7 +143,7 @@ def _select(take, new, old):
 
 
 def ring_exclusive_scan(seg, axis: str, axis_size: int, mode: str = "seq",
-                        wire: str = "fp32", *, dist):
+                        wire: str = "fp32", *, dist, decay: bool = True):
     """Exclusive scan of segment values over the ring axis.
 
     ``seg = (G, S)`` with G broadcastable to S.  Returns the exclusive
@@ -152,7 +152,10 @@ def ring_exclusive_scan(seg, axis: str, axis_size: int, mode: str = "seq",
     end in the exclusive hop.  ``wire="bf16"`` sends the segments as bf16
     (the local math stays fp32); G and S move in one batch a hop
     (:func:`repro_torch.core.tatp.wire_relay`), whose backward sends the
-    cotangents along the inverse hop at native precision."""
+    cotangents along the inverse hop at native precision.  With ``decay``
+    False the exclusive G is not wanted (None is returned for it): under
+    ``seq`` each step's S takes only the local G, so only S travels, as
+    the reference's compiled program drops the G relays it never reads."""
     r = axis_size
     g, s = seg
     if r == 1:
@@ -163,6 +166,14 @@ def ring_exclusive_scan(seg, axis: str, axis_size: int, mode: str = "seq",
         return wire_relay(pair, axis, r, shift, code, dist=dist)
 
     i, dev = dist.axis_index(axis), s.device
+    if mode == "seq" and not decay:
+        pfx = s
+        for t in range(1, r):
+            comb = g * relay((pfx,), 1)[0] + s
+            pfx = torch.where(rank_mask(i >= t, dev), comb, pfx)
+        se = relay((pfx,), 1)[0]
+        return None, torch.where(rank_mask(i == 0, dev),
+                                 torch.zeros_like(se), se)
     if mode == "log":
         pfx = (g, s)
         d = 1
@@ -200,7 +211,8 @@ def ssd_sequence_sharded(x, dt, a, bmat, cmat, chunk: int, *, axis: str,
         return local.y, local.state
     g = local.decay[:, :, None, None]  # [B,H,1,1]
     _, se = ring_exclusive_scan((g, local.state), axis, axis_size,
-                                mode=scan_mode, wire=wire, dist=dist)
+                                mode=scan_mode, wire=wire, dist=dist,
+                                decay=False)
     # for local token t the inbound state contributes C_t · (exp(cum_t)
     # · h_in)
     cum = torch.cumsum(dt * a, dim=1)  # [B, L, H]

@@ -8,9 +8,9 @@ stubs are the reference's too: a vision-prefixed model's batch carries
 (:func:`stub_embeds`, the same seeds and values).  The reference
 materialises each device's shard of the global batch by its
 ``batch_specs``; :meth:`SyntheticDataset.batch` returns this rank's part
-(its rows over ``data``, its sequence block over the ring under
-``tatp``: ``train_loop.shard_batch``) as tensors on its device, the whole batch on
-one device.
+(its rows over ``pod`` and ``data``, its sequence block over the ring
+under ``tatp``: ``train_loop.shard_batch``) as tensors on its device, the
+whole batch on one device.
 """
 
 from __future__ import annotations

@@ -10,14 +10,16 @@ back to the model dtype.  Leaves are visited in the reference's tree
 order (dict keys sorted), so the global norm sums in the same order.
 
 Over the data axes, as the reference: the gradients psum over every data
-axis but the shard axis (``data``); under ZeRO-1 with ``data`` above 1
+axis but the shard axis (``data``), so over ``pod`` on a three-axis mesh;
+under ZeRO-1 with ``data`` above 1
 each rank owns a 1/dp slice of every flattened, zero-padded leaf's
 master, m and v, the gradient is psum-scattered to the owner
 (:meth:`~repro_torch.core.dist.Dist.psum_scatter`), the global norm is
 psummed over ``data``, and the updated slices are all-gathered back into
 the parameters.  Without ZeRO-1 (or at dp = 1) every rank keeps the full
 copy.  The leaves are this rank's shards (``param_specs``), so on a
-``(data, model)`` mesh each slice is of the rank's model shard.
+``(data, model)`` or ``(pod, data, model)`` mesh each slice is of the
+rank's model shard.
 
 Unlike the reference, which returns new arrays (and donates the old ones
 to ``jit``), :meth:`AdamW.update` updates the parameters, masters and

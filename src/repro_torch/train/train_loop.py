@@ -6,11 +6,13 @@ The reference wraps its steps in ``jit(shard_map(...))`` with partition
 specs for params, optimizer state, batches and caches.  Here every rank
 runs its own shard and the bundles hold plain closures: the serve steps
 take the global batch and slice this rank's part (:func:`shard_batch`,
-the counterpart of ``batch_specs``: rows over ``data``, the prompt's
-sequence over ``model``), and gather what the reference's ``out_specs``
-assemble (prefill's logits over both axes, decode's tokens over
-``data``); parameters and caches stay this rank's shards (``param_specs``,
-``lm.init_cache``).  On one device all of it is the identity.
+the counterpart of ``batch_specs``: rows over ``pod`` and ``data``, the
+prompt's sequence over ``model``), and gather what the reference's
+``out_specs`` assemble (prefill's logits over every axis, decode's
+tokens over the batch axes); parameters and caches stay this rank's
+shards (``param_specs``, ``lm.init_cache``).  On one device all of it is
+the identity.  :func:`global_batch_shapes` and :func:`cache_shapes` give
+the global shapes the dry-run lays over the mesh.
 
 The train step is the reference's: each rank's loss over its rows (over
 ``data``) and its sequence block (over the ring, ``tatp``) and its
@@ -202,13 +204,64 @@ def check_prompt_len(dist: Dist, prompt_len: int, cfg=None) -> None:
 
 
 def batch_rows(dist: Dist, n: int) -> slice:
-    """This rank's rows of a batch of ``n``: a block over ``data`` when
-    the data degree divides ``n``, else all (``Dist.batch_spec``)."""
+    """This rank's rows of a batch of ``n``: a block over the batch axes
+    (``pod`` and ``data``, pod-major: :meth:`Dist.batch_index`) when
+    their degree divides ``n``, else all (``Dist.batch_spec``)."""
     deg = dist.batch_degree
     if deg > 1 and n % deg == 0:
-        i = dist.axis_index("data")
+        i = dist.batch_index()
         return slice(i * n // deg, (i + 1) * n // deg)
     return slice(None)
+
+
+def global_batch_shapes(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """The global batch of ``shape`` as ``(shape, dtype)`` a leaf (the
+    reference's ``global_batch_shapes``, in the dtypes the port's batch
+    holds: int64 token ids, fp32 stub embeddings as
+    :class:`~repro_torch.train.data.SyntheticDataset` gives them): a
+    decode step's ``[B, 1]`` tokens; a prefill's or train step's ``[B,
+    S]`` tokens (and labels), with a vision prefix's ``prefix_embeds`` or
+    an encoder's ``enc_embeds`` ``[B, frontend_tokens, d_model]``."""
+    b, s = shape.global_batch, shape.seq_len
+    if shape.kind == "decode":
+        return {"tokens": ((b, 1), torch.int64)}
+    out = {"tokens": ((b, s), torch.int64)}
+    if shape.kind == "train":
+        out["labels"] = ((b, s), torch.int64)
+    emb = ((b, cfg.frontend_tokens, cfg.d_model), torch.float32)
+    if cfg.frontend and cfg.family != "encdec":
+        out["prefix_embeds"] = emb
+    if cfg.n_enc_layers:
+        out["enc_embeds"] = emb
+    return out
+
+
+def cache_shapes(cfg: ModelConfig, shape: ShapeConfig, dist: Dist) -> dict:
+    """The global decode caches of ``shape`` as ``(shape, dtype)`` a leaf,
+    in :func:`lm.init_cache`'s structure (the reference's
+    ``cache_shapes``): attention K/V ``[reps, B, S, Hkv, D]``, Mamba-2
+    state ``[reps, B, heads, head_dim, N]`` in fp32 and conv tail
+    ``[reps, B, K - 1, conv_dim]``, and an encoder-decoder's cross K/V
+    over ``max(frontend_tokens, model degree)`` positions.
+    :func:`lm.cache_specs` lays them over the mesh."""
+    from repro_torch.models.transformer import CONV_K, _unit_and_reps
+    unit, reps = _unit_and_reps(cfg)
+    b, s = shape.global_batch, shape.seq_len
+    dt = getattr(torch, cfg.dtype)
+
+    def kv(seq):
+        return {n: ((reps, b, seq, cfg.n_kv_heads, cfg.head_dim), dt)
+                for n in ("k", "v")}
+
+    conv_dim = cfg.d_inner + 2 * cfg.ssm_state
+    ssm = {"state": ((reps, b, cfg.ssm_heads, cfg.ssm_head_dim,
+                      cfg.ssm_state), torch.float32),
+           "conv": ((reps, b, CONV_K - 1, conv_dim), dt)}
+    out = {f"u{pos}": kv(s) if kind in ("G", "L", "S") else dict(ssm)
+           for pos, kind in enumerate(unit)}
+    if cfg.n_enc_layers:
+        out["cross"] = kv(max(cfg.frontend_tokens, dist.model_degree))
+    return out
 
 
 def _seq_block(dist: Dist, t):
@@ -222,7 +275,8 @@ def _seq_block(dist: Dist, t):
 def shard_batch(cfg: ModelConfig, batch: dict, dist: Dist,
                 strategy: str = "tatp") -> dict:
     """This rank's part of a global prefill or train batch (the
-    reference's ``batch_specs``): the rows over ``data``; under ``tatp``
+    reference's ``batch_specs``): the rows over the batch axes
+    (:func:`batch_rows`); under ``tatp``
     the tokens', labels' and an encoder's frames' sequence over ``model``
     (checked by :func:`check_prompt_len` first, as at degree 1), under
     ``megatron`` the whole sequence, replicated over ``model``; a vision
@@ -241,10 +295,13 @@ def shard_batch(cfg: ModelConfig, batch: dict, dist: Dist,
 
 
 def _gather_rows(dist: Dist, t, n: int):
-    """The global batch of ``n`` rows from each rank's :func:`batch_rows`."""
+    """The global batch of ``n`` rows from each rank's :func:`batch_rows`:
+    gathered over ``data``, then over ``pod``."""
     if batch_rows(dist, n) == slice(None):
         return t
-    return dist.all_gather(t, "data", dim=0)
+    for axis in reversed(dist.present_batch_axes):
+        t = dist.all_gather(t, axis, dim=0)
+    return t
 
 
 @dataclass(frozen=True)
