@@ -88,7 +88,11 @@ def slots(experts, n_experts: int, cap: int):
     rank, the same integers without a [T * k, E] scan."""
     flat_e = experts.reshape(-1)
     order = torch.argsort(flat_e, stable=True)
-    counts = torch.bincount(flat_e, minlength=n_experts)
+    # a count per expert of a static length (bincount's length depends
+    # on the ids, which a traced step cannot read)
+    counts = torch.zeros(n_experts, dtype=flat_e.dtype,
+                         device=flat_e.device).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))
     first = torch.cumsum(counts, dim=0) - counts
     rank = torch.arange(flat_e.numel(), device=flat_e.device)
     pos = torch.empty_like(flat_e).scatter_(0, order,

@@ -15,8 +15,10 @@ reduced deepseek-7b in fp32:
   padded leaves over ``data`` (or the full leaves at data degree 1),
   against each fake device's shard of the reference's state;
 
-and ``launch.train --mesh 1 4 --device cpu`` under
-``torch.distributed.run`` prints the reference's keys."""
+the dry-run's trace of each rank on a ``fake`` process group counts the
+collectives that rank's gloo run issued; and ``launch.train --mesh 1 4
+--device cpu`` under ``torch.distributed.run`` prints the reference's
+keys."""
 
 import json
 import os
@@ -148,9 +150,12 @@ def _port_rank(world, rank, store_path, out_dir):
         state = tb.opt.init(params)
         data = SyntheticDataset(cfg, shape, dist)
         for step in range(STEPS):
-            params, state, m = tb.step_fn(params, state, data.batch(step))
+            batch = data.batch(step)
+            dist.census.reset()  # the last step's collectives stay
+            params, state, m = tb.step_fn(params, state, batch)
             for k in ("loss", "tokens", "grad_norm"):
                 res[f"{tag}_{k}{step}"] = m[k].numpy()
+        res[f"{tag}_census"] = np.array(json.dumps(dist.census.as_dict()))
         res[f"{tag}_coords"] = np.array(dist.coords)
         res[f"{tag}_shard_axis"] = np.array(str(tb.opt.shard_axis))
         for path, leaf in _flat(params).items():
@@ -276,6 +281,27 @@ def test_zero1_state_matches_reference_shards(runs, shape):
                                            atol=2e-4 * scale, err_msg=key)
                 n += 1
         assert n > 0
+
+
+@pytest.mark.parametrize("shape", [(1, 4), (2, 2)])
+def test_fake_trace_census_equals_each_gloo_ranks(runs, shape):
+    """The dry-run's trace of a rank on a ``fake`` process group counts the
+    collectives that rank's gloo run of the same step issued: kind by
+    kind, count and bytes."""
+    sys.path.insert(0, str(SRC))
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.dryrun import trace_cell
+
+    _, ranks = runs
+    tag = _tag(shape)
+    for g, p in enumerate(ranks):
+        fake = trace_cell(get_reduced(ARCH), ShapeConfig("t", "train", S, B),
+                          shape, par_overrides={"remat": False},
+                          rank=g)["collectives"]
+        assert fake.pop("extrapolated") is False
+        assert fake == json.loads(str(p[f"{tag}_census"])), g
+        assert fake["total_bytes"] > 0
 
 
 def test_train_cli_under_torchrun_prints_reference_keys(tmp_path):

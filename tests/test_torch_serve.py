@@ -261,7 +261,7 @@ def test_port_imports_without_jax_or_repro():
             "repro_torch.serve.governor", "repro_torch.serve.migrate",
             "repro_torch.wafer.fault", "repro_torch.core.dist",
             "repro_torch.core.tatp", "repro_torch.launch.mesh",
-            "repro_torch.weights"} <= set(mods)
+            "repro_torch.launch.dryrun", "repro_torch.weights"} <= set(mods)
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
