@@ -319,10 +319,7 @@ class Dist:
     @property
     def batch_degree(self) -> int:
         """The product of the batch axes' sizes (``pod`` times ``data``)."""
-        n = 1
-        for a in self.present_batch_axes:
-            n *= self.axis_sizes[a]
-        return n
+        return self.split(self.present_batch_axes)[0]
 
     @property
     def n_devices(self) -> int:
@@ -337,13 +334,20 @@ class Dist:
             raise ValueError(f"no mesh axis {axis!r} in {self.axis_sizes}")
         return self.coords[self.axis_names.index(axis)]
 
+    def split(self, entry) -> tuple[int, int]:
+        """``(ranks, index)`` of this rank over a partition-spec entry: an
+        axis, a tuple of axes (major first, as ``("pod", "data")``) or
+        None (one rank, index 0)."""
+        n, i = 1, 0
+        for a in ((entry,) if isinstance(entry, str) else entry or ()):
+            n, i = n * self.axis_size(a), i * self.axis_size(a) + \
+                self.axis_index(a)
+        return n, i
+
     def batch_index(self) -> int:
         """This rank's index over the batch axes together, pod-major: its
         block of a batch sharded over ``(pod, data)``."""
-        i = 0
-        for a in self.present_batch_axes:
-            i = i * self.axis_sizes[a] + self.axis_index(a)
-        return i
+        return self.split(self.present_batch_axes)[1]
 
     # ------------------------------------------------------------------
     # collectives (each returns a new tensor, as its lax counterpart)

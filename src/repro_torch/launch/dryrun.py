@@ -131,23 +131,6 @@ def collective_census(dist) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _entry_split(entry, dist) -> tuple[int, int]:
-    """``(ranks, index)`` of this rank over a spec entry: an axis, a tuple
-    of axes (major first) or None."""
-    n, i = 1, 0
-    for a in ((entry,) if isinstance(entry, str) else entry or ()):
-        n, i = n * dist.axis_size(a), i * dist.axis_size(a) + \
-            dist.axis_index(a)
-    return n, i
-
-
-def _local_shape(shape, spec, dist) -> tuple:
-    shape = list(shape)
-    for dim, entry in enumerate(spec):
-        shape[dim] //= _entry_split(entry, dist)[0]
-    return tuple(shape)
-
-
 def _empty(shapes, specs, dist, dtype=None):
     """Fake (or empty) tensors of each leaf's local shape: ``shapes``
     holds global shapes, or ``(shape, dtype)`` pairs; ``specs`` the
@@ -157,7 +140,9 @@ def _empty(shapes, specs, dist, dtype=None):
                 for k, v in shapes.items()}
     if len(shapes) == 2 and isinstance(shapes[1], torch.dtype):
         shapes, dtype = shapes
-    shape = _local_shape(shapes, specs or (), dist)
+    shape = list(shapes)
+    for dim, entry in enumerate(specs or ()):
+        shape[dim] //= dist.split(entry)[0]
     return torch.empty(shape, dtype=dtype)
 
 
@@ -167,7 +152,7 @@ def _arguments(cfg, shape, par, dist, bundle):
     batch and caches."""
     from repro_torch.models import lm
     from repro_torch.models.transformer import param_shapes, param_specs
-    from repro_torch.train.train_loop import (batch_rows, cache_shapes,
+    from repro_torch.train.train_loop import (cache_shapes,
                                               global_batch_shapes,
                                               shard_batch)
 
@@ -181,10 +166,8 @@ def _arguments(cfg, shape, par, dist, bundle):
     if shape.kind == "prefill":
         return (params, batch)
     b = shape.global_batch
-    rows = len(range(b)[batch_rows(dist, b)])
-    specs = lm.cache_specs(bundle.ctx, b)
-    caches = _empty(cache_shapes(cfg, shape, dist), specs, dist)
-    assert all(t.shape[1] == rows for t in tree_flatten(caches)[0])
+    caches = _empty(cache_shapes(cfg, shape, dist),
+                    lm.cache_specs(bundle.ctx, b), dist)
     cache_len = torch.empty((b,), dtype=torch.int64)
     return (params, batch["tokens"], caches, cache_len)
 

@@ -96,14 +96,9 @@ def dnn_params_from_jax(tree, device="cuda") -> dict:
 def _shard(t, spec, dist):
     """``t``'s block on this rank: each dim that ``spec`` shards over an
     axis (or a tuple of axes, major first) of ``R`` ranks cut into ``R``
-    blocks, block ``axis_index``."""
+    blocks, the rank's (:meth:`Dist.split`)."""
     for dim, axis in enumerate(spec):
-        if axis is None:
-            continue
-        n, i = 1, 0
-        for a in (axis if isinstance(axis, tuple) else (axis,)):
-            n, i = n * dist.axis_size(a), i * dist.axis_size(a) + \
-                dist.axis_index(a)
+        n, i = dist.split(axis)
         if n > 1:
             blk = t.shape[dim] // n
             t = t.narrow(dim, i * blk, blk)
