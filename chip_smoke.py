@@ -419,6 +419,18 @@ which fails the run (non-zero exit, no final ``ok`` line) on any error:
    the build): ``phase_device``, ``phase_build`` and
    ``phase_window_alone(torch)`` of ``chip_smoke`` with ``.`` and
    ``src`` on ``sys.path`` and TF32 off.
+18. the dry-run on the card's host — two CPU processes started beside the
+   build (the card hidden from them) and joined after phase 5: (a)
+   ``python -m repro_torch.launch.dryrun --arch deepseek-7b --shape
+   train_4k --mesh pod`` exits 0 with an ``ok`` record of 256 devices,
+   FLOPs and collective-permute bytes above 0; (b) ``trace_cell`` of
+   phase 5's deepseek-7b train step (4 layers, 4 x 512, remat,
+   ``AdamWConfig()``, mesh (1, 1)) predicts a peak within
+   DRYRUN_PEAK_RATIO of phase 5's measured ``max_memory_allocated`` (the
+   trace runs the plain versions, whose transients are larger: it must
+   not under-predict); neither builds a kernel.  ``[dryrun]`` lines give
+   both peaks, the trace's FLOPs beside phase 5's MFU numerator, and the
+   wall clock the join waited.
 
 It then prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``.
@@ -429,8 +441,10 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from argparse import Namespace
 from pathlib import Path
@@ -1043,6 +1057,99 @@ def flash_bwd_bytes(b, hq, hkv, sq, skv, d):
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
+
+
+# phase 18: the dry-run's cell on the production mesh, and the bounds on
+# its trace's peak over phase 5's measured one
+DRYRUN_CELL = ("deepseek-7b", "train_4k", "pod")
+DRYRUN_PEAK_RATIO = (0.9, 1.5)
+
+
+def start_dryrun(out_dir):
+    """Phase 18's two CPU processes, started beside the build with the card
+    hidden from them: (a) the dry-run's CLI on :data:`DRYRUN_CELL`, (b)
+    ``chip_smoke.py --dryrun-trace`` (:func:`dryrun_trace_main`).
+    ``join()`` waits for both and returns (the cell's record, the trace,
+    the seconds it waited)."""
+    out_dir = Path(out_dir)
+    arch, shape, mesh = DRYRUN_CELL
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+    cli = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", mesh, "--out", str(out_dir)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    trace = subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--dryrun-trace",
+         str(out_dir / "trace.json")],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def join():
+        t0 = time.perf_counter()
+        outs = {}
+        for what, p in (("dryrun CLI", cli), ("dryrun trace", trace)):
+            out, _ = p.communicate(timeout=900)
+            outs[what] = out
+            need(p.returncode == 0, f"{what} exited {p.returncode}:\n"
+                 f"{out[-3000:]}")
+        rec = json.loads((out_dir / f"{arch}__{shape}__{mesh}.json")
+                         .read_text())
+        got = json.loads((out_dir / "trace.json").read_text())
+        log(f"[dryrun] CLI: {outs['dryrun CLI'].strip().splitlines()[-1]}")
+        return rec, got, time.perf_counter() - t0
+
+    return join
+
+
+def dryrun_trace_main(out_path) -> int:
+    """Phase 18 (b) in a CPU process: ``trace_cell`` of phase 5's
+    deepseek-7b train step, written to ``out_path``; no kernel built."""
+    from dataclasses import replace
+
+    sys.path.insert(0, str(SRC))
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import _build
+    from repro_torch.launch.dryrun import trace_cell
+    from repro_torch.train.optimizer import AdamWConfig
+
+    cfg = replace(get_config("deepseek-7b"), n_layers=TRAIN["n_layers"])
+    shape = ShapeConfig("train", "train", TRAIN["seq"], TRAIN["batch"])
+    got = trace_cell(cfg, shape, (1, 1), opt_cfg=AdamWConfig())
+    need(_build._LIBS == {}, "the dry-run's trace built a kernel")
+    Path(out_path).write_text(json.dumps(got))
+    return 0
+
+
+def phase_dryrun(join, train_out):
+    """Phase 18's checks once phase 5 has run (:func:`start_dryrun`)."""
+    rec, got, waited = join()
+    cp = rec["collectives"]["collective-permute"]["bytes"]
+    need(rec["status"] == "ok" and rec["n_devices"] == 256
+         and rec["flops"] > 0 and cp > 0,
+         f"dry-run record: {json.dumps(rec)[:2000]}")
+    measured = train_out["peak_mem_gb"] * 1e9
+    predicted = got["memory"]["peak_bytes"]
+    ratio = predicted / measured
+    out = dict(
+        cell=dict(arch=rec["arch"], shape=rec["shape"], mesh=rec["mesh"],
+                  n_devices=rec["n_devices"], rank=rec["rank"],
+                  flops=rec["flops"], collective_permute_bytes=cp,
+                  total_collective_bytes=rec["collectives"]["total_bytes"],
+                  peak_bytes=rec["memory"]["peak_bytes"],
+                  trace_s=rec["trace_s"]),
+        train_step=dict(
+            predicted_peak_bytes=predicted, measured_peak_bytes=measured,
+            ratio=ratio, bounds=DRYRUN_PEAK_RATIO,
+            argument_bytes=got["memory"]["argument_bytes"],
+            trace_flops=got["flops"],
+            mfu_numerator_flops=train_out["model_flops_per_step"],
+            trace_s=got["trace_s"]),
+        join_wait_s=waited, card=CARD["smi"])
+    log(f"[dryrun] {json.dumps(out)}")
+    lo, hi = DRYRUN_PEAK_RATIO
+    need(lo <= ratio <= hi,
+         f"the trace's peak {predicted} over phase 5's {measured}: "
+         f"{ratio:.3f}, outside {DRYRUN_PEAK_RATIO}")
 
 
 def phase_device(torch):
@@ -8747,6 +8854,9 @@ def main() -> int:
 
     name, smi = phase_device(torch)
     flex_join = start_flex_warm(torch)
+    (ROOT / "build").mkdir(exist_ok=True)
+    dryrun_dir = tempfile.mkdtemp(prefix="dryrun_", dir=ROOT / "build")
+    dryrun_join = start_dryrun(dryrun_dir)
     phase_build()
     try:
         log(f"[build] flex_attention's compiles beside the build: "
@@ -8785,6 +8895,8 @@ def main() -> int:
         *counts, train_outs[arch] = phase_train_main(torch, arch, n_layers)
         trains[f"{arch} train"] = tuple(counts)
     lap("main paths")
+    phase_dryrun(dryrun_join, train_outs["deepseek-7b"])
+    lap("dry-run")
     phase_tatp_outputs(torch)
     phase_restart(torch)
     lap("tatp_outputs and restart")
@@ -8932,6 +9044,8 @@ if __name__ == "__main__":
             sys.exit(ssm_ring_rank_main(sys.argv[2]))
         if sys.argv[1:2] == ["--other-rank"]:  # one rank of phase 15
             sys.exit(other_rank_main(sys.argv[2]))
+        if sys.argv[1:2] == ["--dryrun-trace"]:  # phase 18 (b)
+            sys.exit(dryrun_trace_main(sys.argv[2]))
         adopt_orphans()
         sys.exit(main())
     except SmokeFailure as e:
