@@ -39,8 +39,9 @@ import torch
 from repro_torch.configs.base import ModelConfig, ParallelConfig, ShapeConfig
 from repro_torch.core.dist import Dist
 from repro_torch.models import lm
-from repro_torch.models.transformer import (RunCtx, check_strategy,
-                                            init_params, param_specs)
+from repro_torch.models.transformer import (CONV_K, RunCtx, _unit_and_reps,
+                                            check_strategy, init_params,
+                                            param_specs)
 from repro_torch.train.optimizer import (AdamW, AdamWConfig, OptState,
                                          tree_leaves)
 
@@ -244,7 +245,6 @@ def cache_shapes(cfg: ModelConfig, shape: ShapeConfig, dist: Dist) -> dict:
     ``[reps, B, K - 1, conv_dim]``, and an encoder-decoder's cross K/V
     over ``max(frontend_tokens, model degree)`` positions.
     :func:`lm.cache_specs` lays them over the mesh."""
-    from repro_torch.models.transformer import CONV_K, _unit_and_reps
     unit, reps = _unit_and_reps(cfg)
     b, s = shape.global_batch, shape.seq_len
     dt = getattr(torch, cfg.dtype)
