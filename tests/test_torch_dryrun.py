@@ -40,9 +40,10 @@ reference's autodiff keeps.
 Then fidelity: at (1, 1) the fake trace and a real CPU run of the same
 step give equal FLOPs and equal peak live bytes under the same dispatch
 mode; and the ``pod`` axis: a reduced deepseek-7b train step at (2, 1, 2)
-on 4 gloo ranks matches the reference's ``shard_map`` step on a ``(pod,
-data, model)`` mesh of 4 fake devices (the loss and every gradient leaf
-within 1e-5), each rank's rows those of the reference's ``batch_spec``.
+and at (2, 2, 1) on 4 gloo ranks matches the reference's ``shard_map``
+step on a ``(pod, data, model)`` mesh of 4 fake devices (the loss and
+every gradient leaf within 1e-5), each rank's rows those of the
+reference's ``batch_spec``.
 """
 
 import json
@@ -59,6 +60,9 @@ REPO = Path(__file__).resolve().parents[1]
 SRC = REPO / "src"
 B, S = 4, 64
 POD = (2, 1, 2)
+# the pod-axis train steps: the ring under a pod axis, and pod and data
+# both above 1, where pod-major and pod-minor rows differ
+POD_STEPS = (POD, (2, 2, 1))
 TIMEOUT = 300
 KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
          "collective-permute")
@@ -168,9 +172,10 @@ def _flat(tree, prefix=""):
     return out
 
 
-def _reference_pod(out_path):
-    """The reference's gradients and loss of one train step on a (pod,
-    data, model) mesh of 4 fake devices, and each device's token block."""
+def _reference_pod(out_path, pod):
+    """The reference's gradients and loss of one train step on the (pod,
+    data, model) mesh ``pod`` of 4 fake devices, and each device's token
+    block."""
     import jax
     from jax import lax
     from jax.sharding import NamedSharding
@@ -186,7 +191,7 @@ def _reference_pod(out_path):
     from repro.train.train_loop import (batch_specs, reduce_model_axis_grads,
                                         token_axes)
 
-    mesh = make_mesh(POD, ("pod", "data", "model"), devices=jax.devices())
+    mesh = make_mesh(pod, ("pod", "data", "model"), devices=jax.devices())
     dist = Dist(mesh)
     cfg = get_reduced("deepseek-7b")
     par = ParallelConfig(strategy="tatp", remat=False)
@@ -236,7 +241,7 @@ def _reference_pod(out_path):
 # ---------------------------------------------------------------------------
 
 
-def _port_pod_rank(rank, store_path, out_dir):
+def _port_pod_rank(rank, store_path, out_dir, pod):
     sys.path.insert(0, str(SRC))
     torch.set_num_threads(1)
     from repro_torch.configs import get_reduced
@@ -253,7 +258,7 @@ def _port_pod_rank(rank, store_path, out_dir):
 
     init_world("gloo", store=torch.distributed.FileStore(store_path, 4),
                rank=rank, world_size=4)
-    dist = make_mesh_dist(POD, "cpu")
+    dist = make_mesh_dist(pod, "cpu")
     cfg = get_reduced("deepseek-7b")
     par = ParallelConfig(strategy="tatp", remat=False)
     shape = ShapeConfig("t", "train", S, B)
@@ -275,8 +280,12 @@ def _port_pod_rank(rank, store_path, out_dir):
            "batch_index": np.array(dist.batch_index())}
     for path, g in _flat(grads).items():
         res[f"g_{path}"] = g.numpy()
-    np.savez(Path(out_dir) / f"pod{rank}.npz", **res)
+    np.savez(Path(out_dir) / f"pod{_tag(pod)}_{rank}.npz", **res)
     torch.distributed.destroy_process_group()
+
+
+def _tag(mesh):
+    return "x".join(map(str, mesh))
 
 
 def _env(**extra):
@@ -308,22 +317,28 @@ def runs(tmp_path_factory):
          ";".join(keys[w::3])], env=_env(OMP_NUM_THREADS="2"),
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
         for w in range(3)]
-    pod_ref = subprocess.Popen(
-        [sys.executable, me, "pod_reference", str(d / "pod_ref.npz")],
+    pod_refs = [(_tag(pod), subprocess.Popen(
+        [sys.executable, me, "pod_reference", str(d / f"pod_ref{_tag(pod)}"
+                                                   ".npz"), _tag(pod)],
         env=_env(XLA_FLAGS="--xla_force_host_platform_device_count=4"),
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    ranks = [(str(r), subprocess.Popen(
-        [sys.executable, me, "pod_port", str(r), str(d / "store"), str(d)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for pod in POD_STEPS]
+    ranks = [(f"{_tag(pod)}:{r}", subprocess.Popen(
+        [sys.executable, me, "pod_port", str(r),
+         str(d / f"store{_tag(pod)}"), str(d), _tag(pod)],
         env=_env(OMP_NUM_THREADS="1"), stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True)) for r in range(4)]
+        stderr=subprocess.PIPE, text=True))
+        for pod in POD_STEPS for r in range(4)]
     port = {key: _port_cell(*cell) for key, cell in zip(keys, CELLS)}
     _finish(ranks, "port rank")
-    _finish([("pod", pod_ref)] + refs, "reference")
+    _finish(pod_refs + refs, "reference")
     ref = {}
     for w in range(3):
         ref.update(json.loads((d / f"ref{w}.json").read_text()))
-    return ref, port, dict(np.load(d / "pod_ref.npz")), [
-        dict(np.load(d / f"pod{r}.npz")) for r in range(4)]
+    pods = {_tag(pod): (dict(np.load(d / f"pod_ref{_tag(pod)}.npz")), [
+        dict(np.load(d / f"pod{_tag(pod)}_{r}.npz")) for r in range(4)])
+        for pod in POD_STEPS}
+    return ref, port, pods
 
 
 # ---------------------------------------------------------------------------
@@ -486,21 +501,22 @@ def test_fake_trace_equals_a_real_cpu_run():
     assert real["memory"]["temp_bytes"] > 0
 
 
-def test_pod_step_matches_reference(runs):
-    """(2, 1, 2) on 4 gloo ranks against the reference's (pod, data,
-    model) mesh: the loss and every gradient leaf within 1e-5, each rank's
-    token block the reference device's (rows over pod and data together,
-    pod-major)."""
+@pytest.mark.parametrize("pod", POD_STEPS, ids=_tag)
+def test_pod_step_matches_reference(runs, pod):
+    """``pod`` ((2, 1, 2) or (2, 2, 1)) on 4 gloo ranks against the
+    reference's (pod, data, model) mesh: the loss and every gradient leaf
+    within 1e-5, each rank's token block the reference device's (rows
+    over pod and data together, pod-major)."""
     sys.path.insert(0, str(SRC))
     from repro_torch.configs import get_reduced
     from repro_torch.models.transformer import param_specs
 
-    _, _, ref, ranks = runs
+    ref, ranks = runs[2][_tag(pod)]
     specs = _flat(param_specs(get_reduced("deepseek-7b")))
     for pos, p in enumerate(ranks):
         q, d, m = (int(x) for x in p["coords"])
-        assert (q * POD[1] + d) * POD[2] + m == pos
-        assert int(p["batch_index"]) == q * POD[1] + d
+        assert (q * pod[1] + d) * pod[2] + m == pos
+        assert int(p["batch_index"]) == q * pod[1] + d
         np.testing.assert_array_equal(p["rows"], ref[f"rows{pos}"])
         (r0, r1), (c0, c1) = ref[f"rows{pos}"], ref[f"cols{pos}"]
         np.testing.assert_array_equal(p["tokens"], ref["tokens"][r0:r1,
@@ -511,7 +527,7 @@ def test_pod_step_matches_reference(runs):
             want = ref[f"g_{path}"]
             for dim, axis in enumerate(spec):
                 if axis == "model":
-                    blk = want.shape[dim] // POD[2]
+                    blk = want.shape[dim] // pod[2]
                     want = np.take(want, range(m * blk, (m + 1) * blk),
                                    axis=dim)
             np.testing.assert_allclose(p[f"g_{path}"], want, rtol=1e-5,
@@ -545,6 +561,7 @@ if __name__ == "__main__":
     if sys.argv[1] == "reference":
         _reference_cells(sys.argv[2], sys.argv[3].split(";"))
     elif sys.argv[1] == "pod_reference":
-        _reference_pod(sys.argv[2])
+        _reference_pod(sys.argv[2], tuple(map(int, sys.argv[3].split("x"))))
     else:
-        _port_pod_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+        _port_pod_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4],
+                       tuple(map(int, sys.argv[5].split("x"))))
